@@ -18,12 +18,26 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    float32 (the fit's settings): lnpost at the truth, one 16-walker
    ``lnpost_batch`` through the kernel against the plain path in float64;
 5. fit: ``fit_mcmc`` with 16 walkers, 30 burn-in + 20 steps, moves "mixed";
-   every lnprob finite, acceptance above 0, the kernel launched.
+   every lnprob finite, acceptance above 0, the kernel launched;
+6. star kernel: the fused star-likelihood kernel against its plain PyTorch
+   version on the card at the MIST-scale grid, B = 131072 points (the bench
+   box plus adversarial rows: exact and top knots, out of bounds, NaN), a
+   binary with 4 bands, in float64 and float32, with times, and in float32
+   at the nested fit's batch of 1024 points;
+7. binary slice: ``BinaryStarModel`` at full width (the bench's star,
+   observations made with the port's ``interp_mag``): lnpost at the truth,
+   a 131072-point ``lnpost_batch`` through the kernel against the plain path
+   in float64, and the float32 throughput of both paths;
+8. nested fit: ``fit_multinest(n_live_points=1000, n_batch=64,
+   n_chains=16)`` in float32, then ``derived_samples``; logz finite, the run
+   not truncated, the kernel launched, and the distance posterior's 2.5-97.5%
+   interval holding the true 200 pc.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -48,6 +62,23 @@ RTOL_F32, ATOL_F32 = 1e-4, 1e-3
 #: of 50 stars moves by ~1e-3 nats, so 0.05 nats + 1e-4 relative
 RTOL_SLICE_F32, ATOL_SLICE_F32 = 1e-4, 0.05
 RTOL_SLICE_F64 = 1e-9
+
+#: float64 star kernel vs float64 plain: same inputs, other rounding of
+#: log/pow and of the corner sums
+RTOL_STAR_F64 = 1e-10
+#: float32 star kernel vs float64 plain on the same (float32) tables and
+#: points: magnitudes carry ~1e-6 relative float32 rounding (~1e-5 mag), so
+#: a photometry term with residual r and error u moves by ~r/u^2 * 1e-5;
+#: relative 1e-4 covers the far points (ll ~ -1e6), 0.05 nats the near ones
+RTOL_STAR_F32, ATOL_STAR_F32 = 1e-4, 0.05
+STAR_BANDS = ("J", "H", "K", "G")
+#: the bench's binary (bench.py:540-543): EEPs 350 and 300, age, feh,
+#: distance [pc], AV
+STAR_TRUTH = (350.0, 300.0, 9.0, 0.0, 200.0, 0.1)
+#: bench_binary_lnpost's batch and parameter box (bench.py:214-225)
+STAR_BATCH = 1 << 17
+STAR_BOX = ((200, 450), (200, 450), (8.5, 9.5), (-0.5, 0.3), (100, 300), (0.0, 0.5))
+NESTED = dict(n_live_points=1000, n_batch=64, n_chains=16, seed=0)
 
 TRUTH = (9.0, 0.0, 300.0, 0.05, -2.0, 0.3, 0.3)
 P0_SCALE = (0.02, 0.02, 2.0, 0.01, 0.1, 0.03, 0.03)
@@ -126,6 +157,112 @@ def check_close(name, got, ref, rtol, atol=0.0):
     if bad.any():
         raise AssertionError(f"{name}: {int(bad.sum())} entries out of tolerance, max abs err {err.max()}")
     return float(err.max()) if err.size else 0.0
+
+
+def star_observations(ic, truth=STAR_TRUTH, bands=STAR_BANDS):
+    """The bench's binary observations (bench.py:540-553) made with the
+    port's ``interp_mag``: Teff and logg of the primary, flux-summed band
+    magnitudes of both components, a 5 mas parallax."""
+    eep0, eep1, age, feh, dist, av = truth
+    Teff, logg, _, mags0 = ic.interp_mag([eep0, age, feh, dist, av], list(bands))
+    _, _, _, mags1 = ic.interp_mag([eep1, age, feh, dist, av], list(bands))
+    tot = -2.5 * np.log10(10 ** (-0.4 * np.asarray(mags0)) + 10 ** (-0.4 * np.asarray(mags1)))
+    obs = dict(Teff=(Teff, 100.0), logg=(logg, 0.1))
+    obs.update({b: (float(m), 0.01 if b == "G" else 0.02) for b, m in zip(bands, tot)})
+    obs["parallax"] = (5.0, 0.05)
+    return obs
+
+
+def star_points(knots, n_stars, batch, seed=0, box=None):
+    """Seeded (batch, N + 4) numpy parameters (N EEPs, age, feh, distance,
+    AV) for an isochrone grid with axis ``knots`` (age, feh, eep): uniform in
+    ``box`` (default: the grid's box), with adversarial blocks in the first
+    half: exact interior knots, top and bottom knots, out-of-bounds
+    coordinates, NaN, AV past the BC grid, distance <= 0."""
+    rng = np.random.default_rng(seed)
+    ages, fehs, eeps = (np.asarray(k.cpu().double() if hasattr(k, "cpu") else k, dtype=float) for k in knots)
+    if box is None:
+        box = [(eeps[0], eeps[-1])] * n_stars + [(ages[0], ages[-1]), (fehs[0], fehs[-1]), (10.0, 3000.0),
+                                                 (0.0, 1.5)]
+    p = np.stack([rng.uniform(lo, hi, batch) for lo, hi in box], axis=-1)
+    m = max(1, batch // 16)
+    blocks = [slice(i * m, (i + 1) * m) for i in range(8)]
+    A, F, D, V = n_stars, n_stars + 1, n_stars + 2, n_stars + 3
+    p[blocks[0], :n_stars] = rng.choice(eeps, (len(p[blocks[0]]), n_stars))
+    p[blocks[1], A] = rng.choice(ages, len(p[blocks[1]]))
+    p[blocks[1], F] = rng.choice(fehs, len(p[blocks[1]]))
+    p[blocks[2], :n_stars] = eeps[-1]
+    p[blocks[2], A] = ages[-1]
+    p[blocks[3], F] = np.where(rng.random(len(p[blocks[3]])) < 0.5, fehs[0], fehs[-1])
+    p[blocks[3], 0] = eeps[0]
+    p[blocks[4], 0] = eeps[0] - 0.5
+    p[blocks[4], A] = np.where(rng.random(len(p[blocks[4]])) < 0.5, ages[-1] + 0.01, p[blocks[4], A])
+    rows = np.arange(batch)[blocks[5]]
+    p[rows, rng.integers(0, n_stars + 4, len(rows))] = np.nan
+    p[blocks[6], V] = 7.0
+    p[blocks[7], D] = np.where(rng.random(len(p[blocks[7]])) < 0.5, -5.0, 0.0)
+    return p
+
+
+def star_grid_variant(pack6, bc, kind):
+    """``(pack6, bc)`` with other axes, so that every kind of the kernel's
+    cell location runs: "default" as built (affine age and feh, exact-affine
+    EEP; BC: compare Teff, exact-affine logg, feh, AV), "log" (log-uniform
+    age knots), "compare" (irregular feh knots), "searchsorted" (no axis
+    maps on either grid). Values are kept: only the coordinates move."""
+    import torch
+
+    from isochrones_torch.ops.interp import compute_axis_maps
+
+    if kind == "default":
+        return pack6, bc
+    if kind == "searchsorted":
+        return (dataclasses.replace(pack6, axis_maps=(None,) * 3), dataclasses.replace(bc, axis_maps=(None,) * 4))
+    knots = [k.cpu().double().numpy() for k in pack6.knots]
+    if kind == "log":
+        axis = 0
+        knots[0] = np.exp(np.linspace(np.log(knots[0][0]), np.log(knots[0][-1]), len(knots[0])))
+    elif kind == "compare":
+        axis = 1
+        k = knots[1]
+        d = np.diff(k) * (1.0 + 0.5 * np.sin(np.arange(len(k) - 1)))
+        knots[1] = k[0] + (k[-1] - k[0]) * np.concatenate([[0.0], np.cumsum(d)]) / d.sum()
+    else:
+        raise ValueError(kind)
+    maps = compute_axis_maps(knots)
+    assert maps[axis][0] == kind, maps
+    v = pack6.values
+    return (dataclasses.replace(pack6, knots=tuple(torch.as_tensor(k, dtype=v.dtype, device=v.device) for k in knots),
+                                axis_maps=maps), bc)
+
+
+def grid_as(g, dtype):
+    """The same grid in another dtype (values and knots cast; axis maps kept)."""
+    return dataclasses.replace(g, values=g.values.to(dtype), knots=tuple(k.to(dtype) for k in g.knots),
+                               host_values=None)
+
+
+def check_star(name, got, ref, rtol, atol=0.0):
+    """``got`` and ``ref`` (tuples of arrays) have identical NaN and +-inf
+    patterns and agree within atol + rtol |ref| where finite; returns the max
+    absolute error."""
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g = np.asarray(g, dtype=np.float64)
+        r = np.asarray(r, dtype=np.float64)
+        if g.shape != r.shape:
+            raise AssertionError(f"{name}[{i}]: shape {g.shape} != {r.shape}")
+        if not (np.array_equal(np.isnan(g), np.isnan(r)) and np.array_equal(np.isposinf(g), np.isposinf(r))
+                and np.array_equal(np.isneginf(g), np.isneginf(r))):
+            raise AssertionError(f"{name}[{i}]: NaN/inf pattern differs ({int(np.isfinite(g).sum())} vs "
+                                 f"{int(np.isfinite(r).sum())} finite)")
+        fin = np.isfinite(r)
+        err = np.abs(g[fin] - r[fin])
+        bad = err > atol + rtol * np.abs(r[fin])
+        if bad.any():
+            raise AssertionError(f"{name}[{i}]: {int(bad.sum())} entries out of tolerance, max abs err {err.max()}")
+        worst = max(worst, float(err.max()) if err.size else 0.0)
+    return worst
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -277,12 +414,104 @@ def main():
           f"acceptance {acc:.3f}, lnprob median {np.median(lnprob):.3f}")
     print(f"[fit] posterior medians {json.dumps({k: round(v, 4) for k, v in med.items()})}")
 
+    # ---- 6. the star kernel against the plain version, full-size tables
+    import isochrones_torch.starmodel as star_mod
+    from isochrones_torch.ops.star import star_lnlike_fused_plain
+    from isochrones_torch.ops.star_cuda import star_lnlike_cuda
+
+    obs = star_observations(ic64)
+    bin32 = isochrones_torch.BinaryStarModel(ic32, **obs)
+    bin64 = isochrones_torch.BinaryStarModel(ic64, **obs)
+    print(f"[star] binary model, bands {bin32.bands}, params {bin32.param_names}, observations "
+          f"{json.dumps({k: [round(float(v), 5), float(u)] for k, (v, u) in bin32.kwargs.items()})}")
+    lk64, lk32 = bin64._star_likelihood(), bin32._star_likelihood()
+    lk32up = dataclasses.replace(lk32, pack6=grid_as(lk32.pack6, torch.float64), bc=grid_as(lk32.bc, torch.float64))
+    pts = star_points(ic64.model.knots, 2, STAR_BATCH, seed=11)
+    pts[STAR_BATCH // 2:] = star_points(ic64.model.knots, 2, STAR_BATCH // 2, seed=12, box=STAR_BOX)
+    p64 = torch.as_tensor(pts, device=dev, dtype=torch.float64)
+    p32 = p64.float()
+    ref64 = [x.cpu().numpy() for x in star_lnlike_fused_plain(p64, lk64)]
+    got64 = [x.cpu().numpy() for x in star_lnlike_cuda(p64, lk64)]
+    torch.cuda.synchronize()
+    err_k64 = check_star("star kernel f64", got64, ref64, RTOL_STAR_F64)
+    ref32 = [x.cpu().numpy() for x in star_lnlike_fused_plain(p32.double(), lk32up)]
+    got32 = [x.cpu().numpy() for x in star_lnlike_cuda(p32, lk32)]
+    torch.cuda.synchronize()
+    err_k32 = check_star("star kernel f32", got32, ref32, RTOL_STAR_F32, ATOL_STAR_F32)
+    n_fin = int(np.isfinite(ref64[0]).sum())
+    print(f"[star] kernel vs plain, B={STAR_BATCH} N=2 {len(STAR_BANDS)} bands: f64 max_abs_err {err_k64:.3e} "
+          f"(rtol {RTOL_STAR_F64}), f32 vs f64 max_abs_err {err_k32:.3e} (rtol {RTOL_STAR_F32} atol "
+          f"{ATOL_STAR_F32}); {n_fin}/{STAR_BATCH} ll finite, {int(np.isnan(ref64[0]).sum())} NaN")
+    # the nested fit's own batch: n_batch * n_chains walk points per call
+    fit_batch = NESTED["n_batch"] * NESTED["n_chains"]
+    pf = torch.as_tensor(star_points(ic64.model.knots, 2, fit_batch, seed=14, box=STAR_BOX), device=dev,
+                         dtype=torch.float32)
+    err_fit = check_star("star kernel f32, fit batch", [x.cpu().numpy() for x in star_lnlike_cuda(pf, lk32)],
+                         [x.cpu().numpy() for x in star_lnlike_fused_plain(pf.double(), lk32up)],
+                         RTOL_STAR_F32, ATOL_STAR_F32)
+    print(f"[star] kernel vs plain, B={fit_batch} (the fit's batch) f32 vs f64 max_abs_err {err_fit:.3e}")
+    bench32 = torch.as_tensor(star_points(ic64.model.knots, 2, STAR_BATCH, seed=13, box=STAR_BOX), device=dev,
+                              dtype=torch.float32)
+    bench64 = bench32.double()
+    star_ms = cuda_ms(lambda: star_lnlike_cuda(bench32, lk32), reps=50)
+    star_plain_ms = cuda_ms(lambda: star_lnlike_fused_plain(bench32, lk32), reps=10)
+    star_ms64 = cuda_ms(lambda: star_lnlike_cuda(bench64, lk64), reps=20)
+    star_plain_ms64 = cuda_ms(lambda: star_lnlike_fused_plain(bench64, lk64), reps=5)
+    print(f"[star] time B={STAR_BATCH} N=2 bench box: kernel f32 {star_ms:.4f} ms, plain f32 {star_plain_ms:.4f} "
+          f"ms, kernel f64 {star_ms64:.4f} ms, plain f64 {star_plain_ms64:.4f} ms")
+
+    # ---- 7. the binary slice at full width
+    lp_star = bin32.lnpost(STAR_TRUTH)
+    if not np.isfinite(lp_star) or not np.isfinite(bin64.lnpost(STAR_TRUTH)):
+        raise AssertionError(f"binary lnpost at the truth is not finite: {lp_star}")
+    lp_k64 = bin64.lnpost_batch(bench64).cpu().numpy()
+    fused_dispatch = star_mod.star_lnlike_fused
+    star_mod.star_lnlike_fused = star_lnlike_fused_plain  # the plain path, on the card
+    try:
+        lp_p64 = bin64.lnpost_batch(bench64).cpu().numpy()
+        plain_rate = STAR_BATCH / _wall(lambda: bin32.lnpost_batch(bench32), reps=5)
+    finally:
+        star_mod.star_lnlike_fused = fused_dispatch
+    err_b64 = check_star("binary lnpost_batch f64 kernel vs plain", [lp_k64], [lp_p64], RTOL_STAR_F64)
+    kernel_rate = STAR_BATCH / _wall(lambda: bin32.lnpost_batch(bench32), reps=20)
+    print(f"[binary] lnpost(truth) = {lp_star:.6f} (f32); {STAR_BATCH}-point lnpost_batch f64 kernel vs plain "
+          f"max_abs_err {err_b64:.3e} (rtol {RTOL_STAR_F64}), {int(np.isfinite(lp_p64).sum())} finite")
+    print(f"[binary] lnpost_batch f32 throughput: kernel path {kernel_rate:.1f} evals/s, plain path "
+          f"{plain_rate:.1f} evals/s")
+
+    # ---- 8. the nested fit (the main path of the slice)
+    star_lnlike_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = bin32.fit_multinest(**NESTED)
+    derived = bin32.derived_samples
+    torch.cuda.synchronize()
+    nest_s = time.perf_counter() - t0
+    n_star = star_lnlike_cuda.launches
+    if not np.isfinite(res.logz) or res.truncated or n_star <= 0:
+        raise AssertionError(f"nested fit: logz {res.logz}, truncated {res.truncated}, launches {n_star}")
+    d_lo, d_hi = np.quantile(bin32.samples["distance"], [0.025, 0.975])
+    if not d_lo <= STAR_TRUTH[4] <= d_hi:
+        raise AssertionError(f"distance 95% interval ({d_lo:.2f}, {d_hi:.2f}) misses {STAR_TRUTH[4]}")
+    if not all(np.isfinite(derived[f"{b}_mag"]).all() for b in STAR_BANDS):
+        raise AssertionError("derived magnitudes not finite")
+    med = {k: round(float(np.median(v)), 4) for k, v in bin32.samples.items() if k != "lnprob"}
+    print(f"[nested] fit_multinest {json.dumps({k: v for k, v in NESTED.items()})} f32: {nest_s:.3f} s, "
+          f"{res.n_iter} dead points, logz {res.logz:.4f} +- {res.logzerr:.4f}, ESS {res.ess:.1f}, "
+          f"kernel launches {n_star}, posterior_predictive {bin32.posterior_predictive:.4f}")
+    print(f"[nested] posterior medians {json.dumps(med)}; distance 95% interval ({d_lo:.3f}, {d_hi:.3f})")
+
     ms, plain_ms = times[MAIN_SHAPE]
     print(json.dumps({"kernels": [{
         "name": "cluster_marginal", "route": "cuda",
         "source": "isochrones_torch/csrc/cluster_marginal.cu",
         "replaces": "isochrones_tpu/ops/cluster_pallas.py:78",
         "launches": n_fit, "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+    }, {
+        "name": "star_lnlike", "route": "cuda",
+        "source": "isochrones_torch/csrc/star_lnlike.cu",
+        "replaces": "isochrones_tpu/starmodel.py:430",
+        "launches": n_star, "max_abs_err": err_k32, "ms": star_ms, "plain_ms": star_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -2,10 +2,12 @@
 ``isochrones_tpu/models/interpolator.py``): one stellar model grid joined
 with one bolometric-correction grid, on one device in one dtype.
 
-Ported subset: the isochrone interpolator and what the cluster model reads
-from it (``model``, ``bc``, ``model_packed``, the parameter layout, grid
-limits) plus ``interp_mag``. The evolution-track interpolator, EEP
-inversion and forward generation wait for a later port.
+Ported subset: the isochrone interpolator with the packed tables
+(``model_packed``, and ``model_packed6`` for the fused star likelihood), the
+parameter layout, grid limits, ``interp_value``/``interp_mag`` (batched on
+tensors, and host wrappers on numpy), the per-property accessors and
+``__call__``. The evolution-track interpolator, EEP inversion and forward
+generation wait for a later port.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.interp import GridData
+from ..ops.interp import GridData, interp_nd
 from ..ops.mags import interp_mag as _interp_mag_kernel
 
 __all__ = ["ModelGridInterpolator", "IsochroneInterpolator"]
@@ -54,6 +56,24 @@ class ModelGridInterpolator:
         )
         self._packed_icols = (0, 1, 2, 3)
 
+        # the 6-column pack of the fused star likelihood (reference
+        # models/interpolator.py:252-283): the hot columns plus the EEP prior's
+        # change-of-variables columns, so one corner gather serves both;
+        # unpaired, subset on the device
+        self.model_packed6 = None
+        if self.eep_replaces == "age" and "age" in ci and "dt_deep" in ci:
+            prior_names = ("age", "dt_deep")
+        elif self.eep_replaces == "mass" and "initial_mass" in ci and "dm_deep" in ci:
+            prior_names = ("initial_mass", "dm_deep")
+        else:
+            prior_names = None
+        if prior_names is not None:
+            cols6 = torch.as_tensor(self._model_icols + tuple(ci[c] for c in prior_names), device=model.values.device)
+            self.model_packed6 = GridData(
+                values=model.values.index_select(-1, cols6).contiguous(), knots=model.knots,
+                columns=("Teff", "logg", "feh", "Mbol") + prior_names, axis_maps=model.axis_maps,
+            )
+
     @property
     def device(self) -> torch.device:
         return self.model.values.device
@@ -82,6 +102,10 @@ class ModelGridInterpolator:
             lim = (float(np.nanmin(col)), float(np.nanmax(col)))
         self._limits_cache[prop] = lim
         return lim
+
+    @property
+    def eep_bounds(self):
+        return self.get_limits("eep")
 
     @property
     def minfeh(self):
@@ -115,6 +139,71 @@ class ModelGridInterpolator:
     def maxmass(self):
         return self.get_limits("mass")[1]
 
+    # ------------------------------------------------------------ properties
+    def _as_points(self, pars, n):
+        """Broadcast the first ``n`` host parameters into a (rows, n) tensor."""
+        arrs = np.broadcast_arrays(*[np.asarray(p, dtype=float) for p in pars[:n]])
+        pts = torch.as_tensor(np.stack([a.reshape(-1) for a in arrs], axis=-1), device=self.device, dtype=self.dtype)
+        return pts, arrs[0].shape
+
+    def interp_value_batch(self, points: torch.Tensor, props=None) -> torch.Tensor:
+        """(..., >=3) user-order tensor -> (..., n_props) model columns."""
+        io = self._param_index_order
+        grid_pts = torch.stack([points[..., io[0]], points[..., io[1]], points[..., io[2]]], dim=-1)
+        return interp_nd(self.model.values, self.model.knots, grid_pts, icols=self.model.icols(props),
+                         axis_maps=self.model.axis_maps)
+
+    def interp_value(self, pars, props=None):
+        """Host wrapper (reference models.py:390-400): numpy in, numpy out,
+        ``(n_props,)`` for scalar parameters."""
+        pts, shape = self._as_points(pars, 3)
+        out = self.interp_value_batch(pts, props).cpu().numpy()
+        if not shape:
+            return out[0]
+        return out.reshape(shape + (out.shape[-1],))
+
+    def _prop(self, prop, *pars):
+        out = self.interp_value(list(pars), [prop])
+        return out.squeeze(-1) if out.ndim else float(np.asarray(out).squeeze())
+
+    def mass(self, *pars):
+        return self._prop("mass", *pars)
+
+    def initial_mass(self, *pars):
+        return self._prop("initial_mass", *pars)
+
+    def radius(self, *pars):
+        return self._prop("radius", *pars)
+
+    def Teff(self, *pars):
+        return self._prop("Teff", *pars)
+
+    def logg(self, *pars):
+        return self._prop("logg", *pars)
+
+    def feh(self, *pars):
+        return self._prop("feh", *pars)
+
+    def density(self, *pars):
+        return self._prop("density", *pars)
+
+    def nu_max(self, *pars):
+        return self._prop("nu_max", *pars)
+
+    def delta_nu(self, *pars):
+        return self._prop("delta_nu", *pars)
+
+    def __call__(self, p1, p2, p3, distance=10.0, AV=0.0):
+        """Every model column and band magnitude at the given parameters
+        (reference models.py:471-482), as a dict of numpy columns."""
+        pts, _ = self._as_points([p1, p2, p3, distance, AV], 5)
+        cols = list(self.model.columns)
+        props = self.interp_value_batch(pts, cols).cpu().numpy()
+        mags = self.interp_mag_batch(pts)[3].cpu().numpy()
+        out = {c: props[:, i] for i, c in enumerate(cols)}
+        out.update({f"{b}_mag": mags[:, i] for i, b in enumerate(self.bands)})
+        return out
+
     # ------------------------------------------------------------ magnitudes
     def interp_mag_batch(self, points: torch.Tensor, bands=None):
         """(..., 5) user-order tensor -> (Teff, logg, feh, mags)."""
@@ -125,10 +214,7 @@ class ModelGridInterpolator:
     def interp_mag(self, pars, bands=None):
         """Host wrapper (reference models.py:402-445): broadcast numpy
         parameters, return numpy ``(Teff, logg, feh, mags)``."""
-        arrs = np.broadcast_arrays(*[np.asarray(p, dtype=float) for p in pars[:5]])
-        shape = arrs[0].shape
-        pts = torch.as_tensor(np.stack([a.reshape(-1) for a in arrs], axis=-1),
-                              device=self.device, dtype=self.dtype)
+        pts, shape = self._as_points(pars, 5)
         Teff, logg, feh, mags = (x.cpu().numpy() for x in self.interp_mag_batch(pts, bands))
         if not shape:
             return float(Teff[0]), float(logg[0]), float(feh[0]), mags[0]

@@ -1,9 +1,12 @@
-"""Tensor operations: interpolation, magnitudes, the cluster marginal (plain
-version and CUDA kernel wrapper)."""
+"""Tensor operations: interpolation, magnitudes, the star likelihood
+(composed, and fused with a CUDA kernel on the card), the cluster marginal
+(plain version, CUDA kernel on the card)."""
 
 from .cluster import calc_lnlike_grid, cluster_lnmarginal, cluster_lnmarginal_plain, integrate_over_eeps_ln
 from .interp import GridData, compute_axis_maps, corner_data, find_cells_1d, interp_nd
+from .likelihood import gauss_lnprob, stack_components, star_lnlike
 from .mags import interp_mag
+from .star import StarLikelihood, star_lnlike_fused, star_lnlike_fused_plain
 
 __all__ = [
     "GridData",
@@ -12,6 +15,12 @@ __all__ = [
     "corner_data",
     "interp_nd",
     "interp_mag",
+    "gauss_lnprob",
+    "stack_components",
+    "star_lnlike",
+    "StarLikelihood",
+    "star_lnlike_fused",
+    "star_lnlike_fused_plain",
     "calc_lnlike_grid",
     "integrate_over_eeps_ln",
     "cluster_lnmarginal_plain",

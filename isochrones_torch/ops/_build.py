@@ -3,7 +3,8 @@
 ``nvcc`` compiles every ``isochrones_torch/csrc/*.cu`` for Hopper (``sm_90a``)
 into one shared library with a plain C interface, at first use, into
 ``isochrones_torch/_build/`` (git-ignored), cached by a hash of the sources
-and flags. The library is loaded with ``ctypes``; callers pass every pointer
+and flags. Each source compiles in its own ``nvcc`` process, all started
+together, and one more links the objects. The library is loaded with ``ctypes``; callers pass every pointer
 and the CUDA stream as ``c_void_p``.
 """
 
@@ -25,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -66,18 +67,24 @@ def build():
         return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = find_nvcc()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *srcs], capture_output=True, text=True)
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, os.path.basename(s) + ".o") for s in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for s, o in zip(srcs, objs)]
+        outs = [p.communicate()[0] for p in procs]  # every compile ends before any check
+        for s, p, out in zip(srcs, procs, outs):
+            log.append(out)
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(s)} ({p.returncode}):\n{out}")
+        tmp = os.path.join(tmpdir, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        log.append(proc.stdout + proc.stderr)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log[-1]}")
         os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path, time.perf_counter() - t0, proc.stdout + proc.stderr
+    return path, time.perf_counter() - t0, "".join(log)
 
 
 @functools.lru_cache(maxsize=None)

@@ -43,6 +43,13 @@ class GridData:
     def column_index(self):
         return {c: i for i, c in enumerate(self.columns)}
 
+    def icols(self, cols) -> Tuple[int, ...]:
+        """Column indices of names (or indices); ``None``/``"all"`` = every column."""
+        if cols is None or cols == "all":
+            return tuple(range(self.values.shape[-1]))
+        ci = self.column_index
+        return tuple(ci[c] if isinstance(c, str) else int(c) for c in cols)
+
 
 def compute_axis_maps(knots, rtol=1e-5) -> Tuple:
     """Per-axis analytic index maps from host knot arrays (same rule as the
@@ -176,19 +183,14 @@ def corner_data(
     for d in range(ndim - 2, -1, -1):
         strides[d] = strides[d + 1] * dims[d + 1]
 
-    corner_w, corner_idx = [], []
-    for i in range(2 ** ndim):
-        w = torch.ones(points.shape[:-1], dtype=points.dtype, device=points.device)
-        idx = torch.zeros(points.shape[:-1], dtype=torch.int64, device=points.device)
-        for d in range(ndim):
-            o = (i >> (ndim - 1 - d)) & 1  # bit d of corner i -> offset in dim d
-            w = w * (ts[d] if o else (1.0 - ts[d]))
-            idx = idx + torch.clamp(cells[d] + o, 0, dims[d] - 1) * strides[d]
-        corner_w.append(w)
-        corner_idx.append(idx)
-
-    weights = torch.stack(corner_w, dim=-1)  # (B, 2^ndim)
-    flat_idx = torch.stack(corner_idx, dim=-1)  # (B, 2^ndim)
+    # all 2**ndim corners at once: bit d of corner i is its offset in dim d
+    corner = torch.arange(2 ** ndim, device=points.device)
+    weights = torch.ones(points.shape[:-1] + (2 ** ndim,), dtype=points.dtype, device=points.device)
+    flat_idx = torch.zeros(points.shape[:-1] + (2 ** ndim,), dtype=torch.int64, device=points.device)
+    for d in range(ndim):
+        o = (corner >> (ndim - 1 - d)) & 1
+        weights = weights * torch.where(o.bool(), ts[d][..., None], 1.0 - ts[d][..., None])
+        flat_idx = flat_idx + torch.clamp(cells[d][..., None] + o, 0, dims[d] - 1) * strides[d]
     flat_vals = values.reshape(-1, ncols)
     if icols is None:
         icols = tuple(range(ncols))

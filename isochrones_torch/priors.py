@@ -1,7 +1,9 @@
 """Prior distributions (counterpart of ``isochrones_tpu/priors.py``).
 
 ``lnpdf`` works on tensors and includes the bounds mask and normalization
-(the JAX package's ``lnpdf_jax``); ``sample`` and ``pdf`` work on numpy.
+(the JAX package's ``lnpdf_jax``); ``sample``, ``pdf`` and calling a prior
+work on numpy. Setting ``bounds`` renormalizes and runs ``test_integral``,
+raising ``ValueError`` if the pdf no longer integrates to one.
 Constants such as the ``1e-300`` floors are applied in the tensor's dtype,
 so in float32 they flush to 0 exactly as JAX's weak typing does.
 """
@@ -14,14 +16,25 @@ import numpy as np
 import torch
 from scipy.integrate import quad
 
+from .ops.interp import interp_nd
+
 __all__ = [
     "Prior",
     "BoundedPrior",
+    "BrokenPrior",
     "GaussianPrior",
+    "LogNormalPrior",
     "FlatPrior",
     "FlatLogPrior",
     "PowerLawPrior",
     "FehPrior",
+    "EEP_prior",
+    "AgePrior",
+    "DistancePrior",
+    "AVPrior",
+    "QPrior",
+    "SalpeterPrior",
+    "ChabrierPrior",
 ]
 
 ONE_OVER_ROOT_2PI = 1.0 / math.sqrt(2 * math.pi)
@@ -49,6 +62,9 @@ class Prior:
     def __init__(self, *args, **kwargs):
         self._norm = 1.0
 
+    def __call__(self, x, **kwargs):
+        return self.pdf(x, **kwargs)
+
     @property
     def bounds(self):
         return (-np.inf, np.inf) if getattr(self, "_bounds", None) is None else self._bounds
@@ -58,14 +74,22 @@ class Prior:
         new = _norm_bounds(new)
         self._norm = quad(self._pdf, *new)[0]
         self._bounds = new
+        try:
+            self.test_integral()
+        except AssertionError:
+            raise ValueError(f"Problem setting bounds to {new}; integral test failed.")
 
     def _pdf(self, x, **kwargs):
         raise NotImplementedError
 
-    def pdf(self, x):
+    def pdf(self, x, **kwargs):
         lo, hi = self.bounds
-        x = np.asarray(x, dtype=float)
-        return np.where((x < lo) | (x > hi), 0.0, self._pdf(x) / self._norm)
+        if np.ndim(x) == 0:
+            if x < lo or x > hi:
+                return 0.0
+            return self._pdf(x, **kwargs) / self._norm
+        x = np.asarray(x)
+        return np.where((x < lo) | (x > hi), 0.0, self._pdf(x, **kwargs) / self._norm)
 
     def lnpdf(self, x: torch.Tensor) -> torch.Tensor:
         """Log-pdf on a tensor, -inf outside the finite bounds."""
@@ -84,6 +108,10 @@ class Prior:
     def sample(self, n, rng=None):
         raise NotImplementedError
 
+    def test_integral(self):
+        lo, hi = self.bounds
+        assert np.isclose(1, quad(self.pdf, lo, hi)[0])
+
 
 class BoundedPrior(Prior):
     """Prior whose ``_pdf`` is already normalized over its bounds."""
@@ -100,16 +128,23 @@ class BoundedPrior(Prior):
     def bounds(self, new):
         self._bounds = _norm_bounds(new)
         self._on_bounds_change()
+        try:
+            self.test_integral()
+        except AssertionError:
+            raise ValueError(f"Problem setting bounds to {new}; integral test failed.")
 
     def _on_bounds_change(self):
         """Hook for subclasses whose normalization depends on the bounds."""
 
-    def pdf(self, x):
-        x = np.asarray(x, dtype=float)
-        if self.bounds is None:
-            return self._pdf(x)
-        lo, hi = self.bounds
-        return np.where((x < lo) | (x > hi), 0.0, self._pdf(x))
+    def pdf(self, x, **kwargs):
+        if self.bounds is not None:
+            lo, hi = self.bounds
+            if np.ndim(x) == 0:
+                if x < lo or x > hi:
+                    return 0.0
+            else:
+                return np.where((np.asarray(x) < lo) | (np.asarray(x) > hi), 0.0, self._pdf(x, **kwargs))
+        return self._pdf(x, **kwargs)
 
     def lnpdf(self, x: torch.Tensor) -> torch.Tensor:
         ln = self._lnpdf(x)
@@ -277,3 +312,291 @@ class FehPrior(Prior):
                 x[oob] = self.sample(int(oob.sum()), rng=r)
                 oob = (x < lo) | (x > hi)
         return x
+
+
+class LogNormalPrior(Prior):
+    """reference priors.py:260-280"""
+
+    def __init__(self, mu, sigma, bounds=None):
+        from scipy.stats import lognorm
+
+        self.mu = mu
+        self.sigma = sigma
+        self.scale = math.exp(mu)
+        self.log_s = math.log(sigma)
+        self.distribution = lognorm(sigma, scale=self.scale)
+        self._bounds = (0, np.inf)
+        super().__init__()
+
+    def _pdf(self, x):
+        s = self.sigma
+        y = np.asarray(x) / self.scale
+        return ONE_OVER_ROOT_2PI / (s * y) * np.exp(-0.5 * (np.log(y) / s) ** 2) / self.scale
+
+    def _lnpdf(self, x):
+        s = self.sigma
+        y = x / self.scale
+        safe = torch.clamp(y, min=1e-300)
+        ln = LOG_ONE_OVER_ROOT_2PI - (self.log_s + torch.log(safe)) - 0.5 * (torch.log(safe) / s) ** 2 - self.mu
+        return torch.where(y > 0, ln, _NEG_INF)
+
+    def sample(self, n, rng=None):
+        return self.distribution.rvs(n, random_state=_rng(rng))
+
+
+class BrokenPrior(Prior):
+    """Stitched multi-component prior with continuity norms (reference
+    priors.py:143-232)."""
+
+    def __init__(self, components, breakpoints, bounds=None):
+        self.components = components
+        self.n_components = len(components)
+        self.breakpoints = list(breakpoints)
+        nb = _norm_bounds(bounds)
+        self._bounds = nb if nb is not None else (-np.inf, np.inf)
+        self._norm = 1.0
+        self.quad_args = dict(limit=200)
+        self._initialize()
+
+    @property
+    def bounds(self):
+        return self._bounds
+
+    @bounds.setter
+    def bounds(self, new):
+        self._bounds = _norm_bounds(new)
+        self._initialize()
+
+    def _initialize(self):
+        lo, hi = self.bounds
+        full_domain = [lo] + list(self.breakpoints) + [hi]
+        self.domains = list(zip(full_domain[:-1], full_domain[1:]))
+
+        # continuity at each breakpoint chains through the previous norm
+        norms = np.ones(self.n_components)
+        for i in range(1, self.n_components):
+            x = self.breakpoints[i - 1]
+            norms[i] = norms[i - 1] * self.components[i](x) / self.components[i - 1](x)
+
+        tot = 0.0
+        for comp, (a, b), norm in zip(self.components, self.domains, norms):
+            tot += quad(lambda x: comp(x) / norm, a, b, **self.quad_args)[0]
+
+        self.norms = norms * tot
+        self.lognorms = np.log(self.norms)
+
+        cumnorm = np.zeros(self.n_components)
+        for i, (comp, (a, b), norm) in enumerate(zip(self.components, self.domains, self.norms)):
+            cumnorm[i] = quad(lambda x: comp(x) / norm, a, b, **self.quad_args)[0]
+        self.cumnorm = cumnorm
+
+    def _pdf(self, x):
+        i = np.digitize(x, self.breakpoints)
+        if np.ndim(x) == 0:
+            return self.components[int(i)](x) / self.norms[int(i)]
+        out = np.empty_like(np.asarray(x, dtype=float))
+        for k in range(self.n_components):
+            m = i == k
+            out[m] = self.components[k](np.asarray(x)[m]) / self.norms[k]
+        return out
+
+    def lnpdf(self, x: torch.Tensor) -> torch.Tensor:
+        # every component evaluated, then selected by the digitize index
+        # (the count of breakpoints not above x; NaN counts them all, as
+        # jnp.digitize does)
+        idx = sum((~(x < b)).to(torch.int64) for b in self.breakpoints)
+        ln = self.components[0].lnpdf(x) - self.lognorms[0]
+        for k in range(1, self.n_components):
+            ln = torch.where(idx == k, self.components[k].lnpdf(x) - self.lognorms[k], ln)
+        lo, hi = self.bounds
+        if np.isfinite(lo):
+            ln = torch.where(x < lo, _NEG_INF, ln)
+        if np.isfinite(hi):
+            ln = torch.where(x > hi, _NEG_INF, ln)
+        return ln
+
+    def sample(self, n, rng=None):
+        r = _rng(rng)
+        u = r.random(n)
+        x = np.zeros(n)
+        filled = np.zeros(n, dtype=bool)
+        u_cumthresh = 0.0
+        for comp, u_thresh, (a, b) in zip(self.components, self.cumnorm, self.domains):
+            u_cumthresh += u_thresh
+            mask = (u < u_cumthresh) & ~filled
+            n_comp = int(mask.sum())
+            if n_comp == 0:
+                continue
+            samples = comp.sample(n_comp, rng=r)
+            oob = (samples < a) | (samples > b)
+            while oob.sum():
+                samples[oob] = comp.sample(int(oob.sum()), rng=r)
+                oob = (samples < a) | (samples > b)
+            x[mask] = samples
+            filled |= mask
+        return x
+
+
+class EEP_prior(BoundedPrior):
+    """Change-of-variables prior on EEP: p(eep) = p_orig(orig(eep)) |d orig/d
+    eep| from the grid's dm_deep/dt_deep derivative column (reference
+    priors.py:409-465). ``lnpdf`` takes the conditioning (``age`` and ``feh``,
+    or ``mass`` and ``feh``) as tensors of the eep tensor's shape."""
+
+    def __init__(self, ic, orig_prior, bounds=None):
+        self.ic = ic
+        self.orig_prior = orig_prior
+        self._bounds = bounds if bounds is not None else ic.eep_bounds
+        self._norm = 1.0
+        self.orig_par = ic.eep_replaces
+        if self.orig_par == "age":
+            self.deriv_prop = "dt_deep"
+        elif self.orig_par == "mass":
+            self.deriv_prop = "dm_deep"
+        else:
+            raise ValueError(f"eep_replaces must be 'age' or 'mass', got {self.orig_par}")
+        self._orig_col = self.orig_par if self.orig_par != "mass" else "initial_mass"
+        ci = self.ic.model.column_index
+        self._icol_orig = ci[self._orig_col]
+        self._icol_deriv = ci[self.deriv_prop]
+
+    def _pars(self, eep, **kwargs):
+        if self.orig_par == "age":
+            return [kwargs["mass"], eep, kwargs["feh"]]
+        return [eep, kwargs["age"], kwargs["feh"]]
+
+    def _pdf(self, eep, **kwargs):
+        vals = self.ic.interp_value(self._pars(eep, **kwargs), [self._orig_col, self.deriv_prop])
+        orig_val, dx_deep = np.asarray(vals).squeeze()
+        return self.orig_prior(orig_val) * dx_deep
+
+    def lnpdf(self, eep: torch.Tensor, **kwargs) -> torch.Tensor:
+        pts = self._pars(eep, **kwargs)
+        io = self.ic._param_index_order
+        grid_pts = torch.stack([pts[io[0]], pts[io[1]], pts[io[2]]], dim=-1)
+        model = self.ic.model
+        vals = interp_nd(model.values, model.knots, grid_pts, icols=(self._icol_orig, self._icol_deriv),
+                         axis_maps=model.axis_maps)
+        orig_val, deriv = vals[..., 0], vals[..., 1]
+        ln = self.orig_prior.lnpdf(orig_val) + torch.log(torch.clamp(deriv, min=1e-300))
+        ln = torch.where(torch.isfinite(orig_val) & (deriv > 0), ln, _NEG_INF)
+        lo, hi = self.bounds
+        return torch.where((eep < lo) | (eep > hi), _NEG_INF, ln)
+
+    def _ladder_weights(self, eeps, c0, c1):
+        """Unnormalized p(eep | conditioning) on ladder proposals: the
+        change-of-variables weight orig_prior(orig(eep)) * |d orig/d eep|."""
+        if self.orig_par == "age":
+            vals = np.asarray(self.ic.interp_value([c0, eeps, c1], ["dt_deep", "age"]))
+        else:
+            vals = np.asarray(self.ic.interp_value([eeps, c0, c1], ["dm_deep", "initial_mass"]))
+        deriv_val, orig_val = vals[..., 0], vals[..., 1]
+        finite = np.isfinite(orig_val)
+        safe = np.where(finite, orig_val, 1.0)  # placeholder; masked below
+        orig_pr = np.nan_to_num(np.asarray(self.orig_prior.pdf(safe)), nan=0.0)
+        return np.where(finite & np.isfinite(deriv_val) & (deriv_val > 0), orig_pr * deriv_val, 0.0)
+
+    def sample(self, n, rng=None, max_tries=100, **kwargs):
+        """Weighted resampling over the integer EEP ladder (reference
+        priors.py:431-462); with per-row conditioning each row draws from
+        its own conditional by importance resampling of 32 proposals."""
+        r = _rng(rng)
+        lo, hi = self.bounds
+        names = ("mass", "feh") if self.orig_par == "age" else ("age", "feh")
+        cond = [np.asarray(kwargs[k], dtype=float) for k in names]
+        vector = any(np.ndim(c) > 0 and np.unique(c).size > 1 for c in cond)
+
+        if not vector:
+            c0 = np.broadcast_to(cond[0], (n,))
+            c1 = np.broadcast_to(cond[1], (n,))
+            for _ in range(max_tries):
+                eeps = r.integers(int(lo), int(hi) + 1, n).astype(float)
+                weights = self._ladder_weights(eeps, c0, c1)
+                tot = weights.sum()
+                if tot > 0:
+                    idx = r.choice(n, size=n, replace=True, p=weights / tot)
+                    return eeps[idx]
+            raise ValueError(
+                f"EEP_prior.sample: no ladder point in {self.bounds} has "
+                f"support for conditioning {dict(zip(names, cond))}"
+            )
+
+        M = 32  # proposals per row
+        c0 = np.broadcast_to(cond[0], (n,)).astype(float)
+        c1 = np.broadcast_to(cond[1], (n,)).astype(float)
+        out = np.full(n, np.nan)
+        need = np.ones(n, dtype=bool)
+        for _ in range(max_tries):
+            m = int(need.sum())
+            if m == 0:
+                break
+            props = r.integers(int(lo), int(hi) + 1, (m, M)).astype(float)
+            w = self._ladder_weights(props.ravel(), np.repeat(c0[need], M), np.repeat(c1[need], M)).reshape(m, M)
+            tot = w.sum(axis=1)
+            ok = tot > 0
+            if ok.any():
+                cdf = np.cumsum(w[ok], axis=1) / tot[ok, None]
+                pick = (cdf < r.random(int(ok.sum()))[:, None]).sum(axis=1)
+                rows = np.where(need)[0][ok]
+                out[rows] = props[ok, pick]
+                need[rows] = False
+        if need.any():
+            # rows without a supported ladder point get a uniform draw; they
+            # have no posterior support and callers redraw the whole row
+            out[need] = r.integers(int(lo), int(hi) + 1, int(need.sum())).astype(float)
+        return out
+
+    def test_integral(self):
+        pass
+
+
+class AgePrior(FlatLogPrior):
+    """Flat-log age prior over (5, 10.15) (reference priors.py:483-488)."""
+
+    def __init__(self, **kwargs):
+        super().__init__(bounds=(5, 10.15), **kwargs)
+
+
+class DistancePrior(PowerLawPrior):
+    """p(d) ~ d^2 out to max_distance (reference priors.py:491-493)."""
+
+    def __init__(self, max_distance=10000, **kwargs):
+        super().__init__(alpha=2.0, bounds=(0, max_distance), **kwargs)
+
+
+class AVPrior(FlatPrior):
+    """reference priors.py:496-499"""
+
+    def __init__(self, **kwargs):
+        bounds = kwargs.pop("bounds", (0, 1.0))
+        super().__init__(bounds=bounds)
+
+
+class QPrior(PowerLawPrior):
+    """reference priors.py:502-505"""
+
+    def __init__(self, **kwargs):
+        bounds = kwargs.pop("bounds", (0.1, 1))
+        super().__init__(alpha=0.3, bounds=bounds, **kwargs)
+
+
+class SalpeterPrior(PowerLawPrior):
+    """reference priors.py:508-511"""
+
+    def __init__(self, **kwargs):
+        bounds = kwargs.pop("bounds", (0.1, 10))
+        super().__init__(alpha=-2.35, bounds=bounds, **kwargs)
+
+
+class ChabrierPrior(BrokenPrior):
+    """Chabrier (2003) eq 17 IMF: lognormal below 1 Msun, Salpeter above
+    (reference priors.py:514-519)."""
+
+    def __init__(self, **kwargs):
+        bounds = kwargs.pop("bounds", (0.1, 100.0))
+        super().__init__(
+            [LogNormalPrior(math.log(0.079), 0.69 * math.log(10)), PowerLawPrior(-2.35, (1.0, 100.0))],
+            [1.0],
+            bounds=bounds,
+            **kwargs,
+        )

@@ -1,27 +1,145 @@
-"""Star-model machinery shared by the models (counterpart of
-``isochrones_tpu/starmodel.py``, ``BasicStarModel`` subset).
+"""Star models (counterpart of ``isochrones_tpu/starmodel.py``):
+``BasicStarModel`` and the flat single/binary/triple models.
 
-The port's models compose ``lnprior`` and ``lnlike`` into one batched
-``lnpost_batch: (B, n_params) -> (B,)`` on the interpolator's device, and fit
-it with the on-device ensemble sampler. The single/binary/triple likelihood
-of the JAX ``BasicStarModel`` (and its fused lnpost) waits for a later port;
-here a subclass supplies ``param_names``, ``bounds``,
-``_build_lnlike_batch`` and ``_build_lnprior_batch``.
+``lnprior`` and ``lnlike`` compose into one batched ``lnpost_batch: (B,
+n_params) -> (B,)`` on the interpolator's device. With the default priors
+the posterior is the fused one: one interpolation per component over the
+6-column packed table serves both the magnitudes and the EEP
+change-of-variables prior (:func:`~isochrones_torch.ops.star.star_lnlike_fused`,
+a hand-written CUDA kernel on the card); customized priors or subclasses take
+the composed path. ``fit_multinest`` runs the on-device nested sampler,
+``fit_mcmc`` the ensemble sampler; fitted samples are dicts of numpy columns.
+
+Reference quirks kept for parity: the ``+log(sigma)`` Gaussian constant, the
+N=3 EEP-ordering test (``and`` where ``or`` was meant) and the ``delta_nu``
+term that uses the value as its uncertainty.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["BasicStarModel"]
+from .logger import getLogger
+from .ops.interp import interp_nd
+from .ops.likelihood import gauss_lnprob, star_lnlike
+from .ops.star import StarLikelihood, star_lnlike_fused
+from .priors import AgePrior, AVPrior, ChabrierPrior, DistancePrior, EEP_prior, FehPrior
+from .utils import addmags
+
+__all__ = ["BasicStarModel", "SingleStarModel", "BinaryStarModel", "TripleStarModel"]
+
+_EEP_NAMES = ("eep", "eep_0", "eep_1", "eep_2")
 
 
 class BasicStarModel:
-    """Posterior composition, host scalar API and ``fit_mcmc``."""
+    """Flat single/binary/triple star model (reference starmodel.py:59-1237).
 
+    Observations are keyword ``name=(value, uncertainty)`` pairs: photometric
+    bands of the interpolator's BC grid, spectroscopy (``Teff``, ``logg``,
+    ``feh``), ``parallax`` [mas] and asteroseismic ``nu_max``/``delta_nu``.
+    """
+
+    use_emcee = False
+
+    # allowable non-band observation keys (reference starmodel.py:95-116)
+    _not_a_band = (
+        "RA", "dec", "ra", "Dec", "maxAV", "parallax", "AV", "logg", "Teff",
+        "feh", "density", "separation", "PA", "resolution", "relative", "N",
+        "index", "id", "nu_max", "delta_nu",
+    )
+
+    def __init__(self, ic, eep_bounds=None, name="", directory=".", N=1, maxAV=None, max_distance=None,
+                 halo_fraction=None, ra=None, dec=None, obs=None, use_emcee=False, **kwargs):
+        self._ic = ic
+        self._fn_cache: Dict[str, object] = {}
+        self.eep_bounds = eep_bounds if eep_bounds is not None else tuple(ic.eep_bounds)
+        self.name = str(name)
+        self.use_emcee = use_emcee
+        self.ra = ra
+        self.dec = dec
+        self.obs = None
+
+        if N > 1 and ic.eep_replaces == "age":
+            raise ValueError("Can only fit multiple stars with IsochroneInterpolator!")
+        # shared-parameter indices per multiplicity (reference starmodel.py:1396-1419)
+        if N == 1:
+            if ic.eep_replaces == "age":
+                self.mass_index = 0
+                self.eep_index = 1
+            else:
+                self.age_index = 1
+                self.eep_index = 0
+            self.feh_index = 2
+            self.distance_index = 3
+            self.AV_index = 4
+        elif N == 2:
+            self.age_index, self.feh_index, self.distance_index, self.AV_index = 2, 3, 4, 5
+        elif N == 3:
+            self.age_index, self.feh_index, self.distance_index, self.AV_index = 3, 4, 5, 6
+        self.N = N
+
+        kwargs.pop("use_emcee", None)
+        self.kwargs = {}
+        for k, v in kwargs.items():
+            try:
+                val, unc = v
+                if not (np.isnan(float(val)) or np.isnan(float(unc))):
+                    self.kwargs[k] = (np.float64(val), np.float64(unc))
+            except (TypeError, ValueError):
+                getLogger().warning("kwarg %s=%s ignored!", k, v)
+
+        self._bands = None
+        self._spec_props = None
+        self._props = None
+        self._param_names = None
+
+        # default prior stack (reference starmodel.py:1437-1445)
+        self._priors = {
+            "mass": ChabrierPrior(),
+            "feh": FehPrior(),
+            "age": AgePrior(),
+            "distance": DistancePrior(),
+            "AV": AVPrior(),
+        }
+        self._priors["eep"] = EEP_prior(self.ic, self._priors[self.ic.eep_replaces], bounds=eep_bounds)
+
+        self._bounds = {
+            "mass": None,
+            "feh": None,
+            "age": None,
+            "distance": DistancePrior().bounds,
+            "AV": AVPrior().bounds,
+            "eep": self._priors["eep"].bounds,
+        }
+        for par in ["mass", "feh", "age"]:
+            self.bounds(par)
+
+        if maxAV is not None:
+            self.set_bounds(AV=(0, maxAV))
+        if max_distance is not None:
+            self.set_bounds(distance=(0, max_distance))
+        elif "parallax" in self.kwargs:
+            # parallax-derived max distance (reference starmodel.py:1465-1477)
+            value, unc = self.kwargs["parallax"]
+            if value > 0:
+                self.set_bounds(distance=(0, 1.0 / value * 2000))
+            elif value < 0:
+                self.set_bounds(distance=(0, 1.0 / abs(unc) * 2000))
+
+        if halo_fraction is not None:
+            self._priors["feh"] = FehPrior(halo_fraction=halo_fraction)
+            self._priors["feh"].bounds = self._bounds["feh"]
+
+        self._directory = str(directory)
+        self._samples = None
+        self._derived_samples = None
+        self._evidence = None
+        self._nested_result = None
+
+    # ------------------------------------------------------------------ basics
     @property
     def ic(self):
         return self._ic
@@ -35,18 +153,71 @@ class BasicStarModel:
         return self.ic.dtype
 
     @property
+    def directory(self):
+        return self._directory
+
+    @property
+    def param_names(self) -> Tuple[str, ...]:
+        if self._param_names is None:
+            names = tuple(self.ic.param_names)
+            if self.N > 1:
+                names = tuple(f"eep_{j}" for j in range(self.N)) + tuple(self.ic.param_names[1:])
+            self._param_names = names
+        return self._param_names
+
+    @property
     def n_params(self):
         return len(self.param_names)
 
-    # ------------------------------------------------------------- bounds
+    @property
+    def bands(self):
+        if self._bands is None:
+            bc_cols = set(self.ic.bc.column_index)
+            self._bands = [k for k in self.kwargs if k in bc_cols]
+        return self._bands
+
+    @property
+    def props(self):
+        if self._props is None:
+            self._props = [k for k in self.kwargs if k in self._not_a_band]
+        return self._props
+
+    @property
+    def spec_props(self):
+        if self._spec_props is None:
+            self._spec_props = [self.kwargs.get(k, (np.nan, np.nan)) for k in ["Teff", "logg", "feh"]]
+        return self._spec_props
+
+    # ------------------------------------------------------------- priors/bounds
     def bounds(self, prop):
-        raise NotImplementedError
+        """Per-parameter bounds, lazily tightened to the grid limits
+        (reference starmodel.py:1536-1556)."""
+        if prop in _EEP_NAMES:
+            prop = "eep"
+        if self._bounds[prop] is not None:
+            return self._bounds[prop]
+        if prop in ("mass", "feh", "age"):
+            lo, hi = self.ic.get_limits(prop)
+            self._bounds[prop] = (lo, hi)
+            self._priors[prop].bounds = (lo, hi)
+        else:
+            raise ValueError(f"Unknown property {prop}")
+        return self._bounds[prop]
 
     def set_bounds(self, **kwargs):
         for k, v in kwargs.items():
             self._bounds[k] = tuple(v)
             if k in self._priors and hasattr(self._priors[k], "bounds"):
-                self._priors[k].bounds = tuple(v)
+                try:
+                    self._priors[k].bounds = tuple(v)
+                except ValueError:
+                    pass
+        self._fn_cache.clear()
+
+    def set_prior(self, **kwargs):
+        for prop, prior in kwargs.items():
+            self._priors[prop] = prior
+            self._bounds[prop] = prior.bounds
         self._fn_cache.clear()
 
     def _bounds_arrays(self):
@@ -54,19 +225,166 @@ class BasicStarModel:
         return np.array(los, dtype=float), np.array(his, dtype=float)
 
     # ------------------------------------------------------- batched posterior
+    def _static_obs(self):
+        """Host observation arrays: spectroscopy (NaN = missing), band
+        magnitudes and their BC columns."""
+        spec_vals = np.array([v for v, _ in self.spec_props], dtype=float)
+        spec_uncs = np.array([u for _, u in self.spec_props], dtype=float)
+        mag_vals = np.array([self.kwargs[b][0] for b in self.bands], dtype=float)
+        mag_uncs = np.array([self.kwargs[b][1] for b in self.bands], dtype=float)
+        band_icols = tuple(self.ic.bc.column_index[b] for b in self.bands)
+        return spec_vals, spec_uncs, mag_vals, mag_uncs, band_icols
+
+    def _primary_pars(self, pars):
+        """(..., n_params) -> (..., 5) primary-star user-order parameters."""
+        if self.N == 1:
+            return pars
+        return torch.cat([pars[..., 0:1], pars[..., self.N:]], dim=-1)
+
+    def _build_seismic_lnlike(self):
+        """The ``nu_max``/``delta_nu`` terms of the primary on the full model
+        table, or None without those observations."""
+        if "nu_max" not in self.kwargs:
+            return None
+        model = self.ic.model
+        icols = (model.column_index["nu_max"], model.column_index["delta_nu"])
+        io = self.ic._param_index_order
+        nu_max, nu_max_unc = (float(x) for x in self.kwargs["nu_max"])
+        delta_nu = float(self.kwargs["delta_nu"][0]) if "delta_nu" in self.kwargs else None
+
+        def seismic(pars):
+            prim = self._primary_pars(pars)
+            gp = torch.stack([prim[..., io[0]], prim[..., io[1]], prim[..., io[2]]], dim=-1)
+            sv = interp_nd(model.values, model.knots, gp, icols=icols, axis_maps=model.axis_maps)
+            ll = gauss_lnprob(nu_max, nu_max_unc, sv[..., 0])
+            if delta_nu is not None:
+                # the reference passes the value as the uncertainty
+                ll = ll + gauss_lnprob(delta_nu, delta_nu, sv[..., 1])
+            return ll
+
+        return seismic
+
     def _build_lnlike_batch(self):
-        raise NotImplementedError
+        ic = self.ic
+        N = self.N
+        spec_vals, spec_uncs, mag_vals, mag_uncs, band_icols = self._static_obs()
+        mag_vals = torch.as_tensor(mag_vals, dtype=self.dtype, device=self.device)
+        mag_uncs = torch.as_tensor(mag_uncs, dtype=self.dtype, device=self.device)
+        io = tuple(ic._param_index_order)
+        dist_idx = self.distance_index
+        plax = tuple(float(x) for x in self.kwargs["parallax"]) if "parallax" in self.kwargs else None
+        seismic = self._build_seismic_lnlike()
+
+        def lnlike_batch(pars):
+            ll = star_lnlike(pars, io, spec_vals, spec_uncs, mag_vals, mag_uncs, ic.model_packed,
+                             ic._packed_icols, ic.bc, band_icols, n_stars=N)
+            if plax is not None:
+                ll = ll + gauss_lnprob(plax[0], plax[1], 1000.0 / pars[..., dist_idx])
+            if seismic is not None:
+                ll = ll + seismic(pars)
+            return ll
+
+        return lnlike_batch
+
+    def _ordering_lnprior(self, pars):
+        """0 or -inf: the EEP ordering of the components (reference
+        starmodel.py:1617-1624, its N=3 condition verbatim)."""
+        lnp = torch.zeros(pars.shape[:-1], dtype=pars.dtype, device=pars.device)
+        if self.N == 2:
+            lnp = torch.where(pars[..., 1] > pars[..., 0], float("-inf"), lnp)
+        elif self.N == 3:
+            bad = (~(pars[..., 0] > pars[..., 1])) & (pars[..., 1] > pars[..., 2])
+            lnp = torch.where(bad, float("-inf"), lnp)
+        return lnp
 
     def _build_lnprior_batch(self):
-        raise NotImplementedError
+        priors = self._priors
+        param_names = self.param_names
+        eep_replaces = self.ic.eep_replaces
+        feh_index = self.feh_index
+        cond_index = self.mass_index if eep_replaces == "age" else self.age_index
+        cond_name = "mass" if eep_replaces == "age" else "age"
+
+        def lnprior_batch(pars):
+            lnp = self._ordering_lnprior(pars)
+            cond = {cond_name: pars[..., cond_index], "feh": pars[..., feh_index]}
+            for i, par in enumerate(param_names):
+                val = pars[..., i]
+                if par in _EEP_NAMES:
+                    lnp = lnp + priors["eep"].lnpdf(val, **cond)
+                else:
+                    lnp = lnp + priors[par].lnpdf(val)
+            return lnp
+
+        return lnprior_batch
+
+    def _star_likelihood(self):
+        """What the fused likelihood needs besides the parameters: the 6-column
+        pack, the BC grid, the parameter layout and the observations."""
+        ic = self.ic
+        spec_vals, spec_uncs, mag_vals, mag_uncs, band_icols = self._static_obs()
+        return StarLikelihood(
+            n_stars=self.N, index_order=tuple(ic._param_index_order), pack6=ic.model_packed6, bc=ic.bc,
+            band_icols=band_icols, spec_vals=spec_vals, spec_uncs=spec_uncs, mag_vals=mag_vals,
+            mag_uncs=mag_uncs, dist_idx=self.distance_index,
+            parallax=tuple(float(x) for x in self.kwargs["parallax"]) if "parallax" in self.kwargs else None,
+        )
+
+    def _build_lnpost_fused(self):
+        """Fused lnprior + lnlike sharing one interpolation per component over
+        the 6-column packed table (reference starmodel.py:383-512); None (the
+        composed path) for customized priors or subclasses."""
+        ic = self.ic
+        if type(self)._build_lnlike_batch is not BasicStarModel._build_lnlike_batch:
+            return None
+        if type(self)._build_lnprior_batch is not BasicStarModel._build_lnprior_batch:
+            return None
+        if getattr(ic, "model_packed6", None) is None:
+            return None
+        eep_prior = self._priors.get("eep")
+        if not isinstance(eep_prior, EEP_prior) or eep_prior.ic is not ic:
+            return None
+
+        lk = self._star_likelihood()
+        seismic = self._build_seismic_lnlike()
+        priors = self._priors
+        param_names = self.param_names
+        eep_lo, eep_hi = eep_prior.bounds
+        orig_prior = eep_prior.orig_prior
+
+        def lnpost(pars):
+            ll, orig_val, deriv = star_lnlike_fused(pars, lk)
+            if seismic is not None:
+                ll = ll + seismic(pars)
+            # prior: ordering, shared parameters, the EEP change of variables
+            lnp = self._ordering_lnprior(pars)
+            eep_j = 0
+            for i, par in enumerate(param_names):
+                val = pars[..., i]
+                if par in _EEP_NAMES:
+                    ov = orig_val[..., eep_j]
+                    dv = deriv[..., eep_j]
+                    term = orig_prior.lnpdf(ov) + torch.log(torch.clamp(dv, min=1e-300))
+                    term = torch.where(torch.isfinite(ov) & (dv > 0), term, float("-inf"))
+                    term = torch.where((val < eep_lo) | (val > eep_hi), float("-inf"), term)
+                    lnp = lnp + term
+                    eep_j += 1
+                else:
+                    lnp = lnp + priors[par].lnpdf(val)
+            ll = torch.where(torch.isnan(ll), float("-inf"), ll)
+            return torch.where(torch.isfinite(lnp), lnp + ll, float("-inf"))
+
+        return lnpost
 
     def _get_fn(self, name):
         """The batched ``lnlike``/``lnprior``/``lnpost`` closures, built once
-        per bounds setting."""
-        cache: Dict[str, object] = self._fn_cache
+        per bounds and prior setting; ``lnpost`` is the fused one where the
+        model allows it."""
+        cache = self._fn_cache
         if name not in cache:
             lnlike = self._build_lnlike_batch()
             lnprior = self._build_lnprior_batch()
+            fused = self._build_lnpost_fused()
 
             def lnpost(pars):
                 lnpr = lnprior(pars)
@@ -74,7 +392,7 @@ class BasicStarModel:
                 ll = torch.where(torch.isnan(ll), float("-inf"), ll)
                 return torch.where(torch.isfinite(lnpr), lnpr + ll, float("-inf"))
 
-            cache.update(lnlike=lnlike, lnprior=lnprior, lnpost=lnpost)
+            cache.update(lnlike=lnlike, lnprior=lnprior, lnpost=fused if fused is not None else lnpost)
         return cache[name]
 
     def _as_params(self, p):
@@ -102,9 +420,93 @@ class BasicStarModel:
     def lnpost(self, p):
         return self._eval_scalar(self._get_fn("lnpost"), p)
 
-    # ------------------------------------------------------------------ fitting
+    # ------------------------------------------------------------ transforms
+    def prior_transform_batch(self, u):
+        """Unit cube -> uniform box over the parameter bounds (reference
+        mnest_prior, starmodel.py:1637-1640)."""
+        key = ("box", u.dtype, u.device)
+        if key not in self._fn_cache:
+            los, his = self._bounds_arrays()
+            self._fn_cache[key] = tuple(torch.as_tensor(x, dtype=u.dtype, device=u.device) for x in (los, his - los))
+        lo, span = self._fn_cache[key]
+        return lo + span * u
+
+    # ----------------------------------------------------------------- sampling
+    def sample_from_prior(self, n, values=False, require_valid=True, rng=None):
+        """Prior predictive draws (reference starmodel.py:1716-1748): a dict of
+        numpy columns, or the (n, n_params) array with ``values=True``. Each
+        ``eep_i`` is drawn from the conditional EEP prior and the EEPs are
+        sorted descending; with ``require_valid`` rows of -inf lnpost are
+        redrawn."""
+        if n == 0:
+            arr = np.zeros((0, self.n_params))
+        else:
+            rng = np.random.default_rng(rng) if not isinstance(rng, np.random.Generator) else rng
+            cols = {p: self._priors[p].sample(n, rng=rng) for p in self.param_names if not p.startswith("eep")}
+            cond_kw = {"feh": cols["feh"]}
+            if self.ic.eep_replaces == "age":
+                cond_kw["mass"] = cols["mass"]
+            else:
+                cond_kw["age"] = cols["age"]
+            n_eep = sum(1 for p in self.param_names if p.startswith("eep"))
+            eep_draws = np.stack([self._priors["eep"].sample(n, rng=rng, **cond_kw) for _ in range(n_eep)], axis=-1)
+            eep_draws = -np.sort(-eep_draws, axis=-1)  # descending
+            if n_eep == 1:
+                cols["eep"] = eep_draws[:, 0]
+            else:
+                for j in range(n_eep):
+                    cols[f"eep_{j}"] = eep_draws[:, j]
+            arr = np.stack([cols[p] for p in self.param_names], axis=-1)
+            if require_valid:
+                bad = ~np.isfinite(self.lnpost_batch(arr).cpu().numpy())
+                if bad.any():
+                    arr[bad] = self.sample_from_prior(int(bad.sum()), values=True, require_valid=True, rng=rng)
+        if values:
+            return arr
+        return {p: arr[:, i] for i, p in enumerate(self.param_names)}
+
     def emcee_p0(self, nwalkers, rng=None):
-        raise NotImplementedError
+        """reference starmodel.py:838-884"""
+        return self.sample_from_prior(nwalkers, values=True, require_valid=True, rng=rng)
+
+    # ------------------------------------------------------------------ fitting
+    def fit(self, **kwargs):
+        """reference dispatch starmodel.py:667-671."""
+        if self.use_emcee:
+            return self.fit_mcmc(**kwargs)
+        return self.fit_multinest(**kwargs)
+
+    def fit_multinest(self, n_live_points=1000, basename=None, verbose=False, refit=False, overwrite=False,
+                      max_iter=None, seed=None, **kwargs):
+        """On-device nested sampling (replaces pymultinest.run, reference
+        starmodel.py:717-802), the static single-run path. Keywords go to
+        :func:`~isochrones_torch.samplers.nested.run_nested`; on a CUDA card
+        ``n_batch`` defaults to 64 and ``n_chains`` to 16, as the JAX package
+        sets them on its accelerator. ``checkpoint``, ``resume``, ``mesh``,
+        ``dynamic`` and ``n_runs > 1`` are not ported yet and raise
+        ``NotImplementedError``. Sets ``samples`` (a dict of numpy columns
+        with ``"lnprob"``) and ``evidence``; returns the ``NestedResult``."""
+        from .samplers.nested import run_nested
+
+        if self.device.type == "cuda":
+            kwargs.setdefault("n_batch", 64)
+            kwargs.setdefault("n_chains", 16)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed if seed is not None else 0)
+        result = run_nested(self._get_fn("lnpost"), self.prior_transform_batch, self.n_params, gen,
+                            n_live=n_live_points, max_iter=max_iter, rng=seed, dtype=self.dtype, **kwargs)
+        self._nested_result = result
+        self._evidence = (result.logz, result.logzerr)
+        if result.truncated:
+            getLogger().warning(
+                "fit_multinest: run was ESS-truncated (ess=%.0f): posterior quantiles in .samples are "
+                "unreliable; refit with a larger max_iter or n_live_points.", result.ess,
+            )
+        samples = {name: result.posterior[:, i] for i, name in enumerate(self.param_names)}
+        samples["lnprob"] = result.logl_posterior
+        self._samples = samples
+        self._derived_samples = None
+        return result
 
     def fit_mcmc(self, nwalkers=300, nburn=200, niter=100, thin=1, p0=None, seed=None, moves="stretch"):
         """On-device affine-invariant ensemble MCMC (reference
@@ -128,11 +530,78 @@ class BasicStarModel:
         samples = {name: flat[:, i] for i, name in enumerate(self.param_names)}
         samples["lnprob"] = ln_chain.reshape(-1).cpu().numpy()
         self._samples = samples
+        self._derived_samples = None
         self.sampler_state = state
         return samples
 
     @property
+    def evidence(self):
+        """(logZ, logZerr) of the nested-sampling fit (reference
+        starmodel.py:804-819)."""
+        return self._evidence
+
+    @property
     def samples(self):
         if self._samples is None:
-            raise AttributeError("No samples yet; run .fit_mcmc()")
+            raise AttributeError("No samples yet; run .fit()")
         return self._samples
+
+    @property
+    def derived_samples(self):
+        if self._derived_samples is None:
+            self._make_samples()
+        return self._derived_samples
+
+    def _make_samples(self):
+        """Posterior post-processing through the interpolator (reference
+        starmodel.py:1653-1714): every model column and band magnitude per
+        component (suffix ``_j`` for N > 1, plus the flux-summed ``{band}_mag``),
+        then parallax, distance and AV."""
+        s = self.samples
+        if self.N == 1:
+            derived = self.ic(*[s[c] for c in self.param_names])
+        else:
+            derived = dict(s)
+            shared = list(self.ic.param_names[1:])
+            for j in range(self.N):
+                comp = self.ic(*[s[c] for c in [f"eep_{j}"] + shared])
+                derived.update({f"{c}_{j}": v for c, v in comp.items() if c not in ("age", "eep")})
+            for b in self.bands:
+                derived[f"{b}_mag"] = addmags(*[derived[f"{b}_mag_{j}"] for j in range(self.N)])
+        derived["parallax"] = 1000.0 / s["distance"]
+        derived["distance"] = s["distance"]
+        derived["AV"] = s["AV"]
+        self._derived_samples = derived
+
+    @property
+    def posterior_predictive(self):
+        """Mean chi^2 / N over the observed quantities (reference
+        starmodel.py:1827-1836)."""
+        derived = self.derived_samples
+        chisq = 0
+        for b in self.bands:
+            val, unc = self.kwargs[b]
+            chisq += (val - derived[f"{b}_mag"]) ** 2 / unc ** 2
+        for p in self.props:
+            val, unc = self.kwargs[p]
+            col = p if p in derived else f"{p}_0"
+            chisq += (val - derived[col]) ** 2 / unc ** 2
+        return float(np.mean(chisq)) / (len(self.bands) + len(self.props))
+
+
+class SingleStarModel(BasicStarModel):
+    def __init__(self, *args, **kwargs):
+        kwargs["N"] = 1
+        super().__init__(*args, **kwargs)
+
+
+class BinaryStarModel(BasicStarModel):
+    def __init__(self, *args, **kwargs):
+        kwargs["N"] = 2
+        super().__init__(*args, **kwargs)
+
+
+class TripleStarModel(BasicStarModel):
+    def __init__(self, *args, **kwargs):
+        kwargs["N"] = 3
+        super().__init__(*args, **kwargs)

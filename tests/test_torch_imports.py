@@ -13,12 +13,27 @@ import isochrones_torch
 for m in pkgutil.walk_packages(isochrones_torch.__path__, "isochrones_torch."):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "isochrones_tpu", "pandas"))
-print(json.dumps(bad))
+mods = sorted(n for n in sys.modules if n.startswith("isochrones_torch"))
+print(json.dumps([bad, mods]))
 """
+
+#: modules the probe must have imported (the walk covers every module; these
+#: pin the star-model slice in particular)
+_EXPECTED = (
+    "isochrones_torch.starmodel",
+    "isochrones_torch.priors",
+    "isochrones_torch.models.interpolator",
+    "isochrones_torch.ops.likelihood",
+    "isochrones_torch.ops.star",
+    "isochrones_torch.ops.star_cuda",
+    "isochrones_torch.samplers.nested",
+)
 
 
 def test_port_imports_no_jax_no_pandas():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=root, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    bad, mods = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert bad == []
+    assert set(_EXPECTED) <= set(mods), sorted(set(_EXPECTED) - set(mods))
