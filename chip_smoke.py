@@ -12,8 +12,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    (into ``isochrones_torch/_build/``);
 3. kernel: the cluster-marginal kernel against its plain PyTorch version on
    the card, on seeded adversarial inputs at (S, E, B) = (7, 50, 4),
-   (50, 700, 3) and (50, 1710, 3) with W = 8 walkers, in float64 and float32,
-   with times;
+   (50, 700, 3) and (50, 1710, 3) with W = 8 walkers, in float64 and float32;
+   at the two wide shapes the kernel's device time (``torch.profiler``)
+   beside its bound (special functions at the card's rate);
 4. slice: the 50-star cluster model on the MIST-scale synthetic grid in
    float32 (the fit's settings): lnpost at the truth, one 16-walker
    ``lnpost_batch`` through the kernel against the plain path in float64;
@@ -22,8 +23,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 6. star kernel: the fused star-likelihood kernel against its plain PyTorch
    version on the card at the MIST-scale grid, B = 131072 points (the bench
    box plus adversarial rows: exact and top knots, out of bounds, NaN), a
-   binary with 4 bands, in float64 and float32, with times, and in float32
-   at the nested fit's batch of 1024 points;
+   binary with 4 bands, in float64 and float32, and at the nested fit's
+   batch of 1024 points; the kernel's device time (``torch.profiler``) at
+   both batches beside its bound;
 7. binary slice: ``BinaryStarModel`` at full width (the bench's star,
    observations made with the port's ``interp_mag``): lnpost at the truth,
    a 131072-point ``lnpost_batch`` through the kernel against the plain path
@@ -55,7 +57,12 @@ RTOL_F64 = 1e-10
 #: ln-marginal is the log of a weighted sum over ~1e5-1.5e6 cells whose
 #: exponents are O(10-1000) nats; float32 rounding of the per-cell exponent
 #: (~6e-8 relative) and of the running sums gives errors up to ~1e-5
-#: relative, so 1e-4 relative (1e-3 absolute near 0) holds with margin
+#: relative. The kernel's ex2.approx exponentials add ~2 ulp (~2.4e-7
+#: relative) to each cell's weight and each band's 1 + e^-|d| factor, which
+#: moves a ln-marginal by ~1e-6 absolute; the residuals, formed as
+#: fma(m, g, -m_obs g), act as an error of <= 0.5 ulp in the observed
+#: magnitude (~5e-7 mag, ~1e-5 nats per band at 1-sigma residuals). So 1e-4
+#: relative (1e-3 absolute near 0) holds with margin
 RTOL_F32, ATOL_F32 = 1e-4, 1e-3
 #: float32 slice vs float64 plain slice: the grid itself is rounded to
 #: float32, shifting model magnitudes by ~1e-6 mag; with 0.02 mag errors each
@@ -79,6 +86,14 @@ STAR_TRUTH = (350.0, 300.0, 9.0, 0.0, 200.0, 0.1)
 STAR_BATCH = 1 << 17
 STAR_BOX = ((200, 450), (200, 450), (8.5, 9.5), (-0.5, 0.3), (100, 300), (0.0, 0.5))
 NESTED = dict(n_live_points=1000, n_batch=64, n_chains=16, seed=0)
+
+#: H100 SXM peaks the kernels' bounds are taken against: HBM and dense
+#: float32/float64 rates from the data sheet; special functions (exp2, log2,
+#: rcp, ...) at 16 results per clock per SM on 132 SMs at the 1980 MHz
+#: maximum SM clock
+HBM_BYTES_PER_S = 3.35e12
+FLOPS = {"float32": 67e12, "float64": 34e12}
+SFU_PER_S = 16 * 132 * 1.98e9
 
 TRUTH = (9.0, 0.0, 300.0, 0.05, -2.0, 0.3, 0.3)
 P0_SCALE = (0.02, 0.02, 2.0, 0.01, 0.1, 0.03, 0.03)
@@ -265,6 +280,128 @@ def check_star(name, got, ref, rtol, atol=0.0):
     return worst
 
 
+def bound(bytes_, flops, sfu, dtype):
+    """``(bound_ms, bound_by, what)``: the least time the card could take,
+    the larger of the bytes over the HBM rate and the operations over their
+    pipe's peak (flops of ``dtype``, special functions)."""
+    times = {"bytes": bytes_ / HBM_BYTES_PER_S, "flops": flops / FLOPS[dtype], "special functions": sfu / SFU_PER_S}
+    what = max(times, key=times.get)
+    return 1e3 * times[what], ("bytes" if what == "bytes" else "operations"), what
+
+
+def cluster_work(args, kw):
+    """``(bytes, flops, special functions)`` that the batched cluster marginal
+    needs on these inputs: each input read and each output written once, and
+    per cell that this run's mask keeps (k <= j, valid j and k, q >= q_lo,
+    positive trapezoid weight) the least arithmetic the function needs: with
+    the band sum in product form, one exp and ~10 flops per (star, band)
+    (two residual FMAs, a max, a sum, a difference, a product FMA), one exp
+    and ~5 flops per star (the log-sum-exp push), one log10 and ~3 flops per
+    band (the binary magnitude); no logarithm per star."""
+    import torch
+
+    from isochrones_torch.ops.cluster_cuda import trapezoid_weights
+
+    lnprop, mags, masses, _, eeps = args[:5]
+    W, S, E = lnprop.shape
+    B = mags.shape[-1]
+    tri = torch.ones((E, E), dtype=torch.bool, device=eeps.device).tril()
+    cells = 0
+    for w in range(W):
+        q = masses[w][None, :] / masses[w][:, None]
+        mask = tri & kw["valid"][w][:, None] & kw["valid_k"][w][None, :] & (q >= args[12])
+        cells += int((trapezoid_weights(eeps, mask) > 0).sum())
+    tensors = [a for a in args if isinstance(a, torch.Tensor)] + list(kw.values())
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + W * S * lnprop.element_size()
+    return nbytes, cells * (S * B * 10 + S * 5 + B * 3), cells * (S * (B + 1) + B)
+
+
+def _touched_rows(grid, pts):
+    """Distinct table rows that the 2**ndim corners of the in-bounds,
+    non-NaN points ``pts`` (P, ndim) read."""
+    import torch
+
+    from isochrones_torch.ops.interp import find_cells_1d
+
+    ndim, dims = len(grid.knots), grid.values.shape[:-1]
+    bad = torch.isnan(pts).any(dim=-1)
+    flat = torch.zeros((pts.shape[0], 2 ** ndim), dtype=torch.int64, device=pts.device)
+    corner = torch.arange(2 ** ndim, device=pts.device)
+    stride = 1
+    for d in reversed(range(ndim)):
+        amap = grid.axis_maps[d] if grid.axis_maps is not None else None
+        cell, _, oob = find_cells_1d(grid.knots[d], pts[:, d], axis_map=amap)
+        bad |= oob
+        o = (corner >> (ndim - 1 - d)) & 1
+        flat += torch.clamp(cell[:, None] + o, 0, dims[d] - 1) * stride
+        stride *= dims[d]
+    return int(torch.unique(flat[~bad]).numel())
+
+
+def star_work(pars, lk):
+    """``(bytes, flops, special functions)`` of the fused star likelihood on
+    these points: the parameters read and the outputs written once, each
+    distinct row that the batch's corners touch read once (its 6 pack
+    columns, its band columns of the BC table); per (point, component) ~70
+    flops of cell location, 8 corners x (6 weight flops + 12 lerp flops), 16
+    corners x (8 + 2 per band), 3 per band for the magnitudes, one pow per
+    band and one log10; per point a log10 per band (N > 1) and a log and ~6
+    flops per Gaussian term."""
+    import torch
+
+    from isochrones_torch.ops.interp import interp_nd
+    from isochrones_torch.ops.likelihood import stack_components
+
+    B, N, nb = pars.shape[0], lk.n_stars, len(lk.band_icols)
+    io = lk.index_order
+    comp = stack_components(pars, N).reshape(B * N, 5)
+    gp = torch.stack([comp[:, io[0]], comp[:, io[1]], comp[:, io[2]]], dim=-1)
+    vals6 = interp_nd(lk.pack6.values, lk.pack6.knots, gp, axis_maps=lk.pack6.axis_maps)
+    bp = torch.stack([vals6[:, 0], vals6[:, 1], vals6[:, 2], comp[:, io[4]]], dim=-1)
+    e = pars.element_size()
+    rows = _touched_rows(lk.pack6, gp) * 6 + _touched_rows(lk.bc, bp) * nb
+    nbytes = (pars.numel() + B * (1 + 2 * N) + rows) * e
+    n_terms = nb + 3 + (lk.parallax is not None)
+    flops = B * N * (70 + 8 * 18 + 16 * (8 + 2 * nb) + 3 * nb) + B * 6 * n_terms
+    sfu = B * N * (nb + 1) + B * ((nb if N > 1 else 0) + n_terms)
+    return nbytes, flops, sfu
+
+
+def profile_kernels(fn, reps=1):
+    """Run ``fn`` ``reps`` times under ``torch.profiler``; returns ``(wall
+    seconds, {kernel name: (device ms, launches)})`` over the window."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return wall, by_name
+
+
+def kernel_ms(fn, name, reps, warmup=2):
+    """Mean device milliseconds per call of the kernels whose name holds
+    ``name``, over ``reps`` calls: the kernels' own time, without launch gaps
+    or the wrapper's torch ops."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ms = sum(t for k, (t, _) in profile_kernels(fn, reps)[1].items() if name in k)
+    if not ms > 0:
+        raise AssertionError(f"the profiler saw no {name} kernel")
+    return ms / reps
+
+
 def cuda_ms(fn, reps, warmup=2):
     """Mean device milliseconds per call, CUDA events over ``reps`` calls."""
     import torch
@@ -337,12 +474,14 @@ def main():
             errj = check_close("f64 kernel q_jacobian", gotj, refj, RTOL_F64)
             print(f"[kernel] q_jacobian=True S={S} E={E} B={B}: f64 max_abs_err {errj:.3e}")
         if E >= 700:
-            ms = cuda_ms(lambda: cluster_lnmarginal_cuda(*a32, **kw32), reps=20)
+            ms = kernel_ms(lambda: cluster_lnmarginal_cuda(*a32, **kw32), "cluster_marginal", reps=20)
             plain_ms = cuda_ms(lambda: cluster_lnmarginal_plain(*a32, **kw32), reps=3, warmup=1)
-            ms64 = cuda_ms(lambda: cluster_lnmarginal_cuda(*a64, **kw64), reps=5)
-            times[(S, E, B)] = (ms, plain_ms)
+            ms64 = kernel_ms(lambda: cluster_lnmarginal_cuda(*a64, **kw64), "cluster_marginal", reps=5)
+            bound_ms, bound_by, what = bound(*cluster_work(a32, kw32), "float32")
+            times[(S, E, B)] = (ms, plain_ms, bound_ms, bound_by)
             print(f"[kernel] time S={S} E={E} B={B} W={W_KERNEL}: kernel f32 {ms:.4f} ms, "
-                  f"plain f32 {plain_ms:.4f} ms, kernel f64 {ms64:.4f} ms")
+                  f"plain f32 {plain_ms:.4f} ms, kernel f64 {ms64:.4f} ms; f32 bound {bound_ms:.4f} ms "
+                  f"({what}), kernel at {bound_ms / ms:.3f} of it")
         if (S, E, B) == MAIN_SHAPE:
             main_err = err32
 
@@ -449,16 +588,27 @@ def main():
     err_fit = check_star("star kernel f32, fit batch", [x.cpu().numpy() for x in star_lnlike_cuda(pf, lk32)],
                          [x.cpu().numpy() for x in star_lnlike_fused_plain(pf.double(), lk32up)],
                          RTOL_STAR_F32, ATOL_STAR_F32)
-    print(f"[star] kernel vs plain, B={fit_batch} (the fit's batch) f32 vs f64 max_abs_err {err_fit:.3e}")
+    err_fit64 = check_star("star kernel f64, fit batch", [x.cpu().numpy() for x in star_lnlike_cuda(pf.double(), lk64)],
+                           [x.cpu().numpy() for x in star_lnlike_fused_plain(pf.double(), lk64)], RTOL_STAR_F64)
+    print(f"[star] kernel vs plain, B={fit_batch} (the fit's batch): f64 max_abs_err {err_fit64:.3e}, f32 vs f64 "
+          f"max_abs_err {err_fit:.3e}")
     bench32 = torch.as_tensor(star_points(ic64.model.knots, 2, STAR_BATCH, seed=13, box=STAR_BOX), device=dev,
                               dtype=torch.float32)
     bench64 = bench32.double()
-    star_ms = cuda_ms(lambda: star_lnlike_cuda(bench32, lk32), reps=50)
+    star_ms = kernel_ms(lambda: star_lnlike_cuda(bench32, lk32), "star_lnlike", reps=50)
     star_plain_ms = cuda_ms(lambda: star_lnlike_fused_plain(bench32, lk32), reps=10)
-    star_ms64 = cuda_ms(lambda: star_lnlike_cuda(bench64, lk64), reps=20)
+    star_ms64 = kernel_ms(lambda: star_lnlike_cuda(bench64, lk64), "star_lnlike", reps=20)
     star_plain_ms64 = cuda_ms(lambda: star_lnlike_fused_plain(bench64, lk64), reps=5)
+    star_bound = bound(*star_work(bench32, lk32), "float32")
     print(f"[star] time B={STAR_BATCH} N=2 bench box: kernel f32 {star_ms:.4f} ms, plain f32 {star_plain_ms:.4f} "
-          f"ms, kernel f64 {star_ms64:.4f} ms, plain f64 {star_plain_ms64:.4f} ms")
+          f"ms, kernel f64 {star_ms64:.4f} ms, plain f64 {star_plain_ms64:.4f} ms; f32 bound {star_bound[0]:.5f} ms "
+          f"({star_bound[2]}), kernel at {star_bound[0] / star_ms:.3f} of it")
+    fit_ms = kernel_ms(lambda: star_lnlike_cuda(pf, lk32), "star_lnlike", reps=200)
+    fit_plain_ms = cuda_ms(lambda: star_lnlike_fused_plain(pf, lk32), reps=20)
+    fit_bound = bound(*star_work(pf, lk32), "float32")
+    print(f"[star] time B={fit_batch} N=2 (the fit's batch): kernel f32 {fit_ms:.4f} ms, plain f32 "
+          f"{fit_plain_ms:.4f} ms; f32 bound {fit_bound[0]:.5f} ms ({fit_bound[2]}), kernel at "
+          f"{fit_bound[0] / fit_ms:.3f} of it")
 
     # ---- 7. the binary slice at full width
     lp_star = bin32.lnpost(STAR_TRUTH)
@@ -501,17 +651,23 @@ def main():
           f"kernel launches {n_star}, posterior_predictive {bin32.posterior_predictive:.4f}")
     print(f"[nested] posterior medians {json.dumps(med)}; distance 95% interval ({d_lo:.3f}, {d_hi:.3f})")
 
-    ms, plain_ms = times[MAIN_SHAPE]
+    ms, plain_ms, bound_ms, bound_by = times[MAIN_SHAPE]
     print(json.dumps({"kernels": [{
         "name": "cluster_marginal", "route": "cuda",
         "source": "isochrones_torch/csrc/cluster_marginal.cu",
         "replaces": "isochrones_tpu/ops/cluster_pallas.py:78",
         "launches": n_fit, "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "shape": {"W": W_KERNEL, "S": MAIN_SHAPE[0], "E": MAIN_SHAPE[1], "B": MAIN_SHAPE[2], "dtype": "float32"},
     }, {
         "name": "star_lnlike", "route": "cuda",
         "source": "isochrones_torch/csrc/star_lnlike.cu",
         "replaces": "isochrones_tpu/starmodel.py:430",
         "launches": n_star, "max_abs_err": err_k32, "ms": star_ms, "plain_ms": star_plain_ms,
+        "bound_ms": star_bound[0], "bound_by": star_bound[1], "library_ms": None,
+        "shape": {"B": STAR_BATCH, "N": 2, "bands": len(STAR_BANDS), "dtype": "float32"},
+        "ms_fit_batch": fit_ms, "plain_ms_fit_batch": fit_plain_ms, "bound_ms_fit_batch": fit_bound[0],
+        "fit_batch": fit_batch,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -17,9 +17,11 @@ from .ops.interp import GridData, compute_axis_maps
 __all__ = ["grid_from_numpy", "grid_from_reference"]
 
 
-def grid_from_numpy(values, knots, columns, axis_maps=None, device="cpu", dtype=torch.float64):
-    """GridData on ``device`` in ``dtype`` from host arrays. ``axis_maps``
-    default to :func:`compute_axis_maps` of the float64 knots."""
+def grid_from_numpy(values, knots, columns, axis_maps=None, device="cuda", dtype=torch.float64):
+    """GridData on ``device`` (the card unless the caller passes
+    ``device="cpu"``; torch raises without one) in ``dtype`` from host
+    arrays. ``axis_maps`` default to :func:`compute_axis_maps` of the float64
+    knots."""
     values = np.asarray(values)
     knots = tuple(np.asarray(k, dtype=np.float64) for k in knots)
     if axis_maps is None:
@@ -35,7 +37,7 @@ def grid_from_numpy(values, knots, columns, axis_maps=None, device="cpu", dtype=
     )
 
 
-def grid_from_reference(g, device="cpu", dtype=None):
+def grid_from_reference(g, device="cuda", dtype=None):
     """GridData from a JAX-package grid ``g``; ``dtype`` defaults to the
     dtype of its values."""
     values = np.asarray(g.host_values if g.host_values is not None else g.values)

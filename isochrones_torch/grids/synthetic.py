@@ -183,11 +183,12 @@ def make_synthetic_grids(
     n_age: int = 40,
     bands: Sequence[str] = DEFAULT_BANDS,
     eep_start: int = 1,
-    device="cpu",
+    device="cuda",
     dtype=torch.float64,
 ) -> SyntheticStellarGrids:
     """Build the full synthetic grid bundle in float64 on the host and upload
-    its three tables to ``device`` in ``dtype``."""
+    its three tables to ``device`` (the card unless the caller passes
+    ``device="cpu"``) in ``dtype``."""
     fehs = np.linspace(-2.0, 0.5, n_feh)
     masses = np.exp(np.linspace(np.log(0.1), np.log(10.0), n_mass))
     eeps = np.arange(eep_start, eep_start + n_eep, dtype=float)

@@ -12,8 +12,9 @@ from .models import IsochroneInterpolator
 __all__ = ["get_ichrone"]
 
 
-def get_ichrone(models="synthetic", bands=None, device="cpu", dtype=torch.float64, **kwargs):
-    """Build the isochrone interpolator on ``device`` in ``dtype``.
+def get_ichrone(models="synthetic", bands=None, device="cuda", dtype=torch.float64, **kwargs):
+    """Build the isochrone interpolator on ``device`` (the card unless the
+    caller passes ``device="cpu"``; torch raises without one) in ``dtype``.
     ``kwargs`` size the synthetic grids (``n_feh``, ``n_mass``, ``n_eep``,
     ``n_age``)."""
     if models != "synthetic":

@@ -3,8 +3,9 @@
 Replaces the Pallas TPU kernel ``isochrones_tpu/ops/cluster_pallas.py``
 (``_cluster_kernel`` and its wrapper ``cluster_lnmarginal_pallas``); the
 source is ``isochrones_torch/csrc/cluster_marginal.cu``, whose header says
-what bounds it on the card (special-function and FMA throughput) and how the
-design answers that. The plain version it replaces sits beside it in
+what bounds it on the card (special-function throughput) and how the design
+answers that (the product form of the band sum, one ex2 instruction per
+float32 exponential, a register-resident star tile). The plain version it replaces sits beside it in
 :mod:`isochrones_torch.ops.cluster`.
 
 The kernel takes every walker of a batch in one launch. This wrapper does

@@ -3,13 +3,15 @@
 Replaces the likelihood half of the JAX package's XLA-fused posterior
 (``isochrones_tpu/starmodel.py:430-486``); the source is
 ``isochrones_torch/csrc/star_lnlike.cu``, whose header says what bounds it on
-the card (gather latency) and how the design answers that. The plain version
-it replaces sits beside it in :mod:`isochrones_torch.ops.star`.
+the card (latency of dependent gathers) and how the design answers that. The
+plain version it replaces sits beside it in :mod:`isochrones_torch.ops.star`.
 
 The wrapper describes both grids and the observations in one by-value
 argument struct (axis kinds and constants, knot pointers, band columns,
 observed values), built once per :class:`~isochrones_torch.ops.star.StarLikelihood`
-and patched with the per-call pointers, and launches one thread per point.
+and patched with the per-call pointers. The kernel gives each (point,
+component) a group of lanes whose width it derives from the batch (the
+source's note gives the rule).
 """
 
 from __future__ import annotations

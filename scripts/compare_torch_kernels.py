@@ -1,0 +1,231 @@
+"""Time the port's CUDA kernels against another version of their sources, in
+turns, on one CUDA card.
+
+Run from the repository root:
+
+    python -m scripts.compare_torch_kernels [--baseline DIR ...] [--reps 20] [--out FILE]
+
+Builds ``isochrones_torch/csrc`` and, with ``--baseline``, the ``*.cu`` files
+of each DIR (other versions of the same sources with the same C entry
+points, e.g. a parent commit's, labelled by the directory's name) with the
+same nvcc flags, and prints each build's register, spill and shared-memory
+lines and the instruction mix (``cuobjdump -sass``) of the innermost loop of
+the float32, 3-band cluster kernel: its opcodes per iteration, by name.
+Then, at the main paths' shapes, each library's kernels are checked
+against their plain versions (the tolerances of ``chip_smoke.py``) and
+their device time (``torch.profiler``) is taken in turns: the baselines,
+current, current, the baselines in reverse. Shapes: the cluster
+marginal at (S, E, B) = (50, 700, 3) and (50, 1710, 3) with W = 8 walkers
+(float32; float64 at the first), the fused star likelihood of the bench's
+binary on the MIST-scale grid at the nested fit's batch of 1024 points and at
+131072 points (float32; float64 at the second). ``--reps 0`` builds and
+checks only. Prints one line per case and, with ``--out``, writes the numbers
+as JSON.
+"""
+
+import argparse
+import collections
+import contextlib
+import ctypes
+import dataclasses
+import glob
+import json
+import os
+import re
+import subprocess
+import time
+
+import torch
+
+import isochrones_torch
+from chip_smoke import (
+    ATOL_F32, ATOL_STAR_F32, GRID, NESTED, RTOL_F32, RTOL_F64, RTOL_STAR_F32, RTOL_STAR_F64, STAR_BATCH, STAR_BOX,
+    as_float32, check_close, check_star, grid_as, kernel_ms, make_kernel_inputs, star_observations, star_points,
+    to_torch,
+)
+from isochrones_torch.ops import _build, cluster_cuda, star_cuda
+from isochrones_torch.ops.cluster import cluster_lnmarginal_plain
+from isochrones_torch.ops.star import star_lnlike_fused_plain
+
+
+#: mangled name of the float32 cluster kernel: 3 bands, or the older
+#: version's one instantiation per type
+CLUSTER_F32 = re.compile(r"cluster_marginal_partialIf(?:Li3E)?E")
+_INSN = re.compile(r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+
+
+def build_baseline(src_dir):
+    """Compile ``src_dir``'s ``*.cu`` with the package's nvcc flags (one nvcc
+    per source, all at once, then a link) into the git-ignored build
+    directory; returns ``(path, seconds, compiler_log)``."""
+    nvcc = _build.find_nvcc()
+    out = os.path.join(_build.BUILD_DIR, "baseline_" + os.path.basename(os.path.normpath(src_dir)))
+    os.makedirs(out, exist_ok=True)
+    srcs = sorted(glob.glob(os.path.join(src_dir, "*.cu")))
+    objs = [os.path.join(out, os.path.basename(s) + ".o") for s in srcs]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", "-o", o, s], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for s, o in zip(srcs, objs)]
+    log = [p.communicate()[0] for p in procs]
+    if not srcs or any(p.returncode for p in procs):
+        raise RuntimeError(f"nvcc failed on {src_dir}:\n{''.join(log)}")
+    path = os.path.join(out, "lib.so")
+    subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", path, *objs], check=True)
+    return path, time.perf_counter() - t0, "".join(log)
+
+
+def inner_loop_mix(lib_path, kernel=CLUSTER_F32):
+    """Opcode counts of one iteration of the innermost loop of ``kernel``
+    (a pattern of the mangled name) in ``cuobjdump -sass``: of the regions
+    that a backward branch closes and that hold MUFU.EX2 but no such region
+    inside them, the one with the most MUFU.EX2. MUFU keeps its function
+    (MUFU.EX2), other opcodes lose their modifiers."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+    for func in sass.split("Function : ")[1:]:
+        if not kernel.search(func.split("\n", 1)[0]):
+            continue
+        insns, labels, pending = [], {}, []
+        for line in func.splitlines():
+            lab = _LABEL.match(line)
+            if lab:
+                pending.append(lab.group(1))
+            m = _INSN.search(line)
+            if m:
+                addr = int(m.group(1), 16)
+                labels.update({name: addr for name in pending})
+                pending = []
+                op = m.group(2)
+                insns.append((addr, op if op.startswith("MUFU") else op.split(".")[0], m.group(3)))
+        loops = []
+        for addr, op, args in insns:
+            tgt = re.search(r"0x([0-9a-f]+)|(\.L_x_\d+)", args) if op == "BRA" else None
+            if tgt:
+                start = int(tgt.group(1), 16) if tgt.group(1) else labels.get(tgt.group(2), addr + 1)
+                body = collections.Counter(o for a, o, _ in insns if start <= a <= addr)
+                if start <= addr and body["MUFU.EX2"]:
+                    loops.append((start, addr, body))
+        inner = [body for s, e, body in loops
+                 if not any(s <= s2 and e2 <= e and (s2, e2) != (s, e) for s2, e2, _ in loops)]
+        if inner:
+            return dict(sorted(max(inner, key=lambda b: b["MUFU.EX2"]).items(), key=lambda kv: -kv[1]))
+    raise RuntimeError(f"no loop of a kernel matching {kernel.pattern} in {lib_path}")
+
+
+@contextlib.contextmanager
+def using(lib):
+    """Route both kernel wrappers through the loaded library ``lib``."""
+    saved = cluster_cuda.load_library, star_cuda.load_library
+    cluster_cuda.load_library = star_cuda.load_library = lambda: lib
+    cluster_cuda._lib.cache_clear()
+    star_cuda._lib.cache_clear()
+    try:
+        yield
+    finally:
+        cluster_cuda.load_library, star_cuda.load_library = saved
+        cluster_cuda._lib.cache_clear()
+        star_cuda._lib.cache_clear()
+
+
+def _cluster_cases(dev):
+    out = []
+    for (S, E, B), dtypes in (((50, 700, 3), ("float32", "float64")), ((50, 1710, 3), ("float32",))):
+        inputs = make_kernel_inputs(S, E, B, 8, seed=S + E + B)
+        in32 = as_float32(inputs)
+        for dt in dtypes:
+            src = in32 if dt == "float32" else inputs
+            a, kw = to_torch(src, dev, getattr(torch, dt))
+            a64, kw64 = to_torch(src, dev, torch.float64)
+            ref = cluster_lnmarginal_plain(*a64, **kw64)
+            tol = (RTOL_F32, ATOL_F32) if dt == "float32" else (RTOL_F64, 0.0)
+
+            def run(a=a, kw=kw):
+                return cluster_cuda.cluster_lnmarginal_cuda(*a, **kw)
+
+            def check(got, ref=ref.cpu().numpy(), tol=tol, name=f"cluster {S, E, B} {dt}"):
+                return check_close(name, got.cpu().numpy(), ref, *tol)
+
+            out.append((f"cluster_marginal S={S} E={E} B={B} W=8 {dt}", "cluster_marginal", run, check))
+    return out
+
+
+def _star_cases(dev):
+    ic32 = isochrones_torch.get_ichrone("synthetic", device=dev, dtype=torch.float32, **GRID)
+    ic64 = isochrones_torch.get_ichrone("synthetic", device=dev, dtype=torch.float64, **GRID)
+    obs = star_observations(ic64)
+    lk32 = isochrones_torch.BinaryStarModel(ic32, **obs)._star_likelihood()
+    lk64 = isochrones_torch.BinaryStarModel(ic64, **obs)._star_likelihood()
+    lk32up = dataclasses.replace(lk32, pack6=grid_as(lk32.pack6, torch.float64), bc=grid_as(lk32.bc, torch.float64))
+    fit_batch = NESTED["n_batch"] * NESTED["n_chains"]
+    out = []
+    for B, seed, dtypes in ((fit_batch, 14, ("float32",)), (STAR_BATCH, 13, ("float32", "float64"))):
+        p32 = torch.as_tensor(star_points(ic64.model.knots, 2, B, seed=seed, box=STAR_BOX), device=dev,
+                              dtype=torch.float32)
+        for dt in dtypes:
+            p, lk = (p32, lk32) if dt == "float32" else (p32.double(), lk64)
+            ref = [x.cpu().numpy() for x in star_lnlike_fused_plain(p.double(), lk32up if dt == "float32" else lk64)]
+            tol = (RTOL_STAR_F32, ATOL_STAR_F32) if dt == "float32" else (RTOL_STAR_F64, 0.0)
+
+            def run(p=p, lk=lk):
+                return star_cuda.star_lnlike_cuda(p, lk)
+
+            def check(got, ref=ref, tol=tol, name=f"star B={B} {dt}"):
+                return check_star(name, [x.cpu().numpy() for x in got], ref, *tol)
+
+            out.append((f"star_lnlike B={B} N=2 4 bands {dt}", "star_lnlike", run, check))
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--baseline", nargs="*", default=[],
+                    help="directories of other versions of the *.cu sources (labelled by directory name)")
+    ap.add_argument("--reps", type=int, default=20, help="calls per timing (0: build and check only)")
+    ap.add_argument("--out", default=None, help="also write the numbers to this JSON file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_torch_kernels: needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    libs, mixes = {}, {}
+    builds = [(os.path.basename(os.path.normpath(d)), lambda d=d: build_baseline(d)) for d in args.baseline]
+    for name, make in builds + [("current", _build.build)]:
+        path, secs, log = make()
+        libs[name] = ctypes.CDLL(path)
+        print(f"[build] {name}: {os.path.relpath(path)} in {secs:.3f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build] {name} {line.strip()}")
+        mixes[name] = inner_loop_mix(path)
+        print(f"[sass] {name} cluster kernel, float32, 3 bands, innermost loop: {sum(mixes[name].values())} "
+              f"instructions per iteration {json.dumps(mixes[name])}")
+
+    bases = [n for n in libs if n != "current"]
+    order = bases + ["current", "current"] + bases[::-1]
+    results = {"device": smi, "reps": args.reps, "order": order, "inner_loop_mix": mixes, "cases": {}}
+    for label, kname, run, check in _cluster_cases(dev) + _star_cases(dev):
+        row = {}
+        for name, lib in libs.items():
+            with using(lib):
+                got = run()
+                torch.cuda.synchronize()
+                row[f"{name}_max_abs_err"] = check(got)
+        if args.reps > 0:
+            times = []
+            for name in order:
+                with using(libs[name]):
+                    times.append(kernel_ms(run, kname, reps=args.reps))
+            row["ms"] = dict(zip([f"{i}:{n}" for i, n in enumerate(order)], times))
+        results["cases"][label] = row
+        print(f"[compare] {label}: {json.dumps(row)}")
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

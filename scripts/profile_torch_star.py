@@ -10,8 +10,9 @@ sampler's batch (n_batch * n_chains = 1024 points) through the kernel and
 through the plain path, then traces a steady window of nested-sampling steps
 (``_nested_core`` at n_live 1000, n_batch 64, n_chains 16) with
 ``torch.profiler``: wall-clock per step, device-busy share (sum of kernel
-times over the window), launches per step and the kernels that take the most
-device time. Prints a summary, and with ``--out`` writes the numbers as JSON.
+times over the window), launches per step, the star kernel's time per launch
+and share of the device-busy time, and the kernels that take the most device
+time. Prints a summary, and with ``--out`` writes the numbers as JSON.
 """
 
 import argparse
@@ -24,7 +25,7 @@ import torch
 
 import isochrones_torch
 import isochrones_torch.starmodel as star_mod
-from chip_smoke import GRID, STAR_BOX, star_observations, star_points
+from chip_smoke import GRID, STAR_BOX, profile_kernels, star_observations, star_points
 from isochrones_torch.ops.star import star_lnlike_fused_plain
 from isochrones_torch.ops.star_cuda import star_lnlike_cuda
 from isochrones_torch.samplers.nested import _nested_core
@@ -86,26 +87,20 @@ def main():
     torch.cuda.synchronize()
 
     star_lnlike_cuda.launches = 0
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        _nested_core(lnlike_u, u, lnl, g, scale, N_LIVE, args.steps, N_CHAINS, N_REPEAT, N_BATCH)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    wall, by_name = profile_kernels(
+        lambda: _nested_core(lnlike_u, u, lnl, g, scale, N_LIVE, args.steps, N_CHAINS, N_REPEAT, N_BATCH))
+    busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    star_ms = sum(ms for name, (ms, _) in by_name.items() if "star_lnlike" in name)
     out.update(
         steps=args.steps,
         wall_ms_per_step=1e3 * wall / args.steps,
-        device_busy_ms_per_step=busy_us / 1e3 / args.steps,
-        idle_share=1.0 - busy_us / 1e6 / wall,
-        kernel_launches_per_step=len(kernels) / args.steps,
+        device_busy_ms_per_step=busy_ms / args.steps,
+        idle_share=1.0 - busy_ms / 1e3 / wall,
+        kernel_launches_per_step=sum(n for _, n in by_name.values()) / args.steps,
         star_kernel_launches=star_lnlike_cuda.launches,
+        star_kernel_ms_per_launch=star_ms / max(star_lnlike_cuda.launches, 1),
+        star_kernel_share_of_busy=star_ms / busy_ms,
         top_kernels=[{"name": k[:90], "ms": v[0], "count": v[1]} for k, v in top],
     )
     if args.out:

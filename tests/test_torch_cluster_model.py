@@ -43,7 +43,7 @@ def sim():
 
 @pytest.fixture(scope="module")
 def port_model(sim):
-    ic = isochrones_torch.get_ichrone("synthetic", **_DIMS)
+    ic = isochrones_torch.get_ichrone("synthetic", device="cpu", **_DIMS)
     data = {c: sim.df[c].values for c in sim.df.columns}
     return isochrones_torch.StarClusterModel(ic, data, bands=("J", "H", "K"), props=["parallax"], **_MODEL_KW)
 
@@ -106,7 +106,7 @@ def test_fixture_catalogue_has_support():
     data = read_csv("isochrones_torch/data/cluster50_synthetic.csv")
     cat = StarCatalog(data)
     assert len(cat) == 50 and cat.bands == ("J", "H", "K") and cat.props == ("parallax",)
-    ic = isochrones_torch.get_ichrone("synthetic", n_feh=5, n_mass=40, n_eep=1710, n_age=20)
+    ic = isochrones_torch.get_ichrone("synthetic", device="cpu", n_feh=5, n_mass=40, n_eep=1710, n_age=20)
     model = isochrones_torch.StarClusterModel(
         ic, cat, eep_bounds=(1, 1400), eep_step=20.0, max_distance=3000, minq=0.2, mass_bounds=(0.6, 2.0),
     )

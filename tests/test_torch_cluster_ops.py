@@ -233,6 +233,87 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         )
 
 
+def _product_form_marginal(inp, dtype, q_jacobian):
+    """(W, S) ln marginals by the CUDA kernel's algebra (csrc/cluster_marginal.cu),
+    in numpy in ``dtype``: log2 units, sum_b logaddexp(x_b, y_b) as
+    sum_b max(x_b, y_b) + log2 prod_b (1 + 2^-|x_b - y_b|), residuals as
+    fma(m, g, -m_obs g) with g = sqrt(log2 e / 2) / u, the q prior split into
+    its k and j parts, the closed-form trapezoid weights, a max-shifted
+    weighted sum and the -inf cut below -1e20; a NaN cell makes the star -inf."""
+    f = lambda x: np.asarray(x, dtype=dtype)  # noqa: E731
+    l2e, ln2, c_g = f(1.0 / np.log(2.0)), f(np.log(2.0)), f(np.sqrt(0.5 / np.log(2.0)))
+    W, S, E = inp["lnlike_prop"].shape
+    eeps = f(inp["eeps"])
+    de = eeps[1:] - eeps[:-1]
+    de_km1, de_k = np.concatenate([f([0.0]), de]), np.concatenate([de, f([0.0])])
+    j, k = np.arange(E)[:, None], np.arange(E)[None, :]
+    w_outer = f(0.5) * (de_km1 + de_k)
+    w_inner = np.where(k < j, f(0.5) * (de_k + de_km1)[None, :], f(0.5) * de_km1[None, :])
+    g = c_g / f(inp["mag_uncs"])  # (S, B)
+    cn = -f(inp["mag_values"]) * g
+    q_lo, mass_lo, mass_hi = (f(inp[n]) for n in ("q_lo", "mass_lo", "mass_hi"))
+    out = np.empty((W, S), dtype=dtype)
+    for w in range(W):
+        valid, valid_k = inp["valid"][w], inp["valid_k"][w]
+        mags = f(np.where((valid | valid_k)[:, None], inp["model_mags"][w], 0.0))  # (E, B)
+        flux = f(10.0) ** (f(-0.4) * mags)
+        masses, ln_dm = f(inp["masses"][w]), f(inp["ln_dm_deeps"][w])
+        alpha, gamma, fB = (f(inp[n][w]) for n in ("alpha", "gamma", "fB"))
+        a1 = alpha + f(1.0)
+        lnmass = np.log(a1 / (mass_hi ** a1 - mass_lo ** a1)) + alpha * np.log(masses) + ln_dm
+        row = (np.nan_to_num(f(inp["lnlike_prop"][w]), nan=-1e30, neginf=-1e30) + lnmass) * l2e  # (S, E)
+        g1 = gamma + f(1.0)
+        ln_cq = np.log(g1 / (f(1.0) - q_lo ** g1))
+        ln_m = np.log(masses)
+        lnq_k = (ln_cq + gamma * ln_m + (ln_dm if q_jacobian else f(0.0))) * l2e
+        lnq_j = (gamma * ln_m + (ln_m if q_jacobian else f(0.0))) * l2e
+        lnq = lnq_k[None, :] - lnq_j[:, None]  # (j, k)
+        w2 = w_outer[:, None] * np.where(valid_k[None, :], w_inner, f(0.0))
+        q = masses[None, :] / masses[:, None]
+        mask = valid[:, None] & (k <= j) & (q >= q_lo) & (w2 > 0)
+        mb = f(-2.5) * np.log10(flux[:, None, :] + flux[None, :, :])  # (j, k, B)
+        z = mb[None] * g[:, None, None, :] + cn[:, None, None, :]  # (S, j, k, B)
+        x = np.log(fB) * l2e - z * z
+        zj = mags[None] * g[:, None, :] + cn[:, None, :]  # (S, j, B)
+        y = (np.log1p(-fB) * l2e - zj * zj)[:, :, None, :]
+        M = row[:, :, None] + lnq[None] + np.fmax(x, y).sum(axis=-1)  # (S, j, k)
+        wp = w2[None] * np.prod(f(1.0) + np.exp2(-np.abs(x - y)), axis=-1)
+        for s in range(S):
+            Ms, wps = M[s][mask], wp[s][mask]
+            keep = Ms != -np.inf
+            Ms, wps = Ms[keep], wps[keep]
+            if np.isnan(Ms).any() or np.isnan(wps).any() or Ms.size == 0:
+                out[w, s] = -np.inf
+                continue
+            m = Ms.max()
+            res = (np.log2(np.sum(wps * np.exp2(Ms - m))) + m) * ln2
+            out[w, s] = res if res > -1e20 else -np.inf
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("S,E,B,W,q_jacobian", [(7, 50, 4, 3, False), (9, 33, 1, 2, True), (17, 40, 6, 2, False)])
+def test_product_form_algebra_matches_plain(dtype, S, E, B, W, q_jacobian):
+    """The CUDA kernel's arithmetic, written in numpy, against the plain
+    version: rtol 1e-12 in float64 (the same function summed another way);
+    in float32 against the float64 plain version on the same float32 inputs
+    within the card's tolerance (1e-3 + 1e-4 |ref|). Identical -inf patterns
+    (a NaN star of the plain version counts as non-finite)."""
+    from chip_smoke import ATOL_F32, RTOL_F32, as_float32, check_close, make_kernel_inputs, to_torch
+
+    inp = make_kernel_inputs(S, E, B, W, seed=S * E + B)
+    if dtype == np.float32:
+        inp = as_float32(inp)
+    a, kw = to_torch(inp, "cpu", torch.float64)
+    ref = cluster_lnmarginal_plain(*a, q_jacobian=q_jacobian, **kw).numpy()
+    got = _product_form_marginal(inp, dtype, q_jacobian)
+    assert np.isfinite(got).sum() > 0
+    if dtype == np.float64:
+        check_close("float64", got, ref, 1e-12)
+    else:
+        check_close("float32", got, ref, RTOL_F32, ATOL_F32)
+
+
 def test_build_needs_nvcc(monkeypatch, tmp_path):
     """Without nvcc the build raises instead of falling back."""
     from isochrones_torch.ops import _build

@@ -8,14 +8,17 @@ JAX, so it also runs on a machine without it, from the repository root:
 Tolerances are those of ``chip_smoke.py``. Cluster kernel: rtol 1e-10 in
 float64 (another summation order); float32 against the float64 plain version
 on the same float32 inputs within 1e-3 + 1e-4 |ref| (float32 rounding of
-sums over ~1e3-1e5 cells); the finite pattern must be identical and the
-kernel never returns NaN. Star kernel: rtol 1e-10 in float64 and 0.05 + 1e-4
-|ref| for float32 against the float64 plain version on the same float32
-tables and points, with identical NaN and +-inf patterns, for N = 1, 2, 3
-and every axis-map kind, on adversarial points.
+sums over ~1e3-1e6 cells, ex2.approx exponentials); the finite pattern must
+be identical and the kernel never returns NaN. Star kernel: rtol 1e-10 in
+float64 and 0.05 + 1e-4 |ref| for float32 against the float64 plain version
+on the same float32 tables and points, with identical NaN and +-inf
+patterns, for N = 1, 2, 3, every axis-map kind and every group width, on
+adversarial points.
 """
 
 import dataclasses
+import re
+import warnings
 
 import numpy as np
 import pytest
@@ -23,7 +26,8 @@ import torch
 
 from chip_smoke import (
     ATOL_F32, ATOL_STAR_F32, FIXTURE, RTOL_F32, RTOL_F64, RTOL_STAR_F32, RTOL_STAR_F64, as_float32, check_close,
-    check_star, grid_as, make_kernel_inputs, star_grid_variant, star_observations, star_points, to_torch,
+    check_star, grid_as, make_kernel_inputs, profile_kernels, star_grid_variant, star_observations, star_points,
+    to_torch,
 )
 from isochrones_torch import BinaryStarModel, StarClusterModel, TripleStarModel, get_ichrone
 from isochrones_torch.catalog import read_csv
@@ -42,7 +46,15 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("S,E,B,W", [(7, 50, 4, 3), (9, 33, 1, 2), (17, 130, 6, 4), (3, 1, 2, 1)])
+#: cluster shapes (S, E, B, W): star counts off the star tiles (10 stars at 3
+#: bands in float32, 5 in float64), ladders below one warp and off the
+#: 16-row tile, every band count with its own instantiation (1-4) and the
+#: generic one (6, 16)
+_CLUSTER_SHAPES = [(7, 50, 4, 3), (9, 33, 1, 2), (17, 130, 6, 4), (3, 1, 2, 1), (13, 21, 3, 2), (11, 45, 16, 2),
+                   (23, 70, 2, 3)]
+
+
+@pytest.mark.parametrize("S,E,B,W", _CLUSTER_SHAPES)
 @pytest.mark.parametrize("q_jacobian", [False, True])
 def test_kernel_matches_plain_f64(dev, S, E, B, W, q_jacobian):
     a, kw = to_torch(make_kernel_inputs(S, E, B, W, seed=S * E), dev, torch.float64)
@@ -52,12 +64,32 @@ def test_kernel_matches_plain_f64(dev, S, E, B, W, q_jacobian):
     check_close("f64", got.cpu().numpy(), ref, RTOL_F64)
 
 
-def test_kernel_matches_plain_f32(dev):
-    inputs = as_float32(make_kernel_inputs(11, 90, 3, 4, seed=5))
+@pytest.mark.parametrize("S,E,B,W,q_jacobian", [(11, 90, 3, 4, False), (13, 21, 1, 2, True), (12, 64, 16, 2, False),
+                                                (50, 1710, 3, 2, False)])
+def test_kernel_matches_plain_f32(dev, S, E, B, W, q_jacobian):
+    inputs = as_float32(make_kernel_inputs(S, E, B, W, seed=5))
     a32, kw32 = to_torch(inputs, dev, torch.float32)
     a64, kw64 = to_torch(inputs, dev, torch.float64)
-    got = cluster_lnmarginal_cuda(*a32, **kw32).cpu().numpy()
-    check_close("f32", got, cluster_lnmarginal_plain(*a64, **kw64).cpu().numpy(), RTOL_F32, ATOL_F32)
+    got = cluster_lnmarginal_cuda(*a32, q_jacobian=q_jacobian, **kw32).cpu().numpy()
+    ref = cluster_lnmarginal_plain(*a64, q_jacobian=q_jacobian, **kw64).cpu().numpy()
+    check_close("f32", got, ref, RTOL_F32, ATOL_F32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_nan_observed_magnitude(dev, dtype):
+    """A NaN observed magnitude: the plain version gives that star NaN, the
+    kernel -inf (the Pallas kernel's NaN route); the other stars agree."""
+    inputs = make_kernel_inputs(9, 60, 3, 2, seed=3)
+    inputs["mag_values"][4, 1] = np.nan
+    a, kw = to_torch(inputs, dev, dtype)
+    got = cluster_lnmarginal_cuda(*a, **kw).cpu().numpy()
+    ref = cluster_lnmarginal_plain(*to_torch(inputs, dev, torch.float64)[0], **to_torch(inputs, dev, torch.float64)[1])
+    ref = ref.cpu().numpy()
+    assert np.isnan(ref[:, 4]).all() and (got[:, 4] == -np.inf).all()
+    if dtype == torch.float64:
+        check_close("nan star f64", got, ref, RTOL_F64)
+    else:
+        check_close("nan star f32", got, ref, RTOL_F32, ATOL_F32)
 
 
 def test_dispatch_launches_kernel_on_cuda(dev):
@@ -87,7 +119,7 @@ def test_cluster_model_on_card_matches_cpu(dev):
               max_distance=3000, minq=0.2, mass_bounds=(0.6, 2.0))
     grid = dict(n_feh=5, n_mass=40, n_eep=1710, n_age=20)
     gpu = StarClusterModel(get_ichrone("synthetic", device=dev, **grid), data, **kw)
-    cpu = StarClusterModel(get_ichrone("synthetic", **grid), data, **kw)
+    cpu = StarClusterModel(get_ichrone("synthetic", device="cpu", **grid), data, **kw)
     rng = np.random.default_rng(0)
     truth = np.array([9.0, 0.0, 300.0, 0.05, -2.0, 0.3, 0.3])
     p = truth + rng.normal(0, [0.05, 0.05, 5.0, 0.01, 0.1, 0.03, 0.03], size=(12, 7))
@@ -105,7 +137,7 @@ def _likelihood(dev, dtype, N, kind, drop=()):
     from isochrones_torch import SingleStarModel
 
     ic = get_ichrone("synthetic", device=dev, dtype=dtype, **_SMALL)
-    obs = {k: v for k, v in star_observations(get_ichrone("synthetic", **_SMALL), _SMALL_TRUTH).items() if k not in drop}
+    obs = {k: v for k, v in star_observations(get_ichrone("synthetic", device="cpu", **_SMALL), _SMALL_TRUTH).items() if k not in drop}
     if "logg" in drop:
         obs["logg"] = (float("nan"), 0.1)  # a missing channel
     model = {1: SingleStarModel, 2: BinaryStarModel, 3: TripleStarModel}[N](ic, **obs)
@@ -114,23 +146,70 @@ def _likelihood(dev, dtype, N, kind, drop=()):
     return dataclasses.replace(lk, pack6=pack6, bc=bc)
 
 
-@pytest.mark.parametrize("kind", ["default", "log", "compare", "searchsorted"])
-@pytest.mark.parametrize("N", [1, 2, 3])
-def test_star_kernel_matches_plain(dev, N, kind):
-    lk64 = _likelihood(dev, torch.float64, N, kind)
-    pts = star_points(lk64.pack6.knots, N, 4096, seed=N)
-    p64 = torch.as_tensor(pts, device=dev, dtype=torch.float64)
-    ref = [x.cpu().numpy() for x in star_lnlike_fused_plain(p64, lk64)]
-    got = [x.cpu().numpy() for x in star_lnlike_cuda(p64, lk64)]
-    check_star(f"f64 N={N} {kind}", got, ref, RTOL_STAR_F64)
-    assert np.isfinite(ref[0]).sum() > 100 and np.isnan(ref[0]).sum() > 100
-
+def _check_star_both(lk64, pts, name):
+    """The kernel against the plain version on ``pts``: float64 at rtol
+    1e-10, float32 tables and points against the float64 plain version on
+    the same float32 values."""
+    p64 = torch.as_tensor(pts, device=lk64.pack6.values.device, dtype=torch.float64)
+    check_star(f"f64 {name}", [x.cpu().numpy() for x in star_lnlike_cuda(p64, lk64)],
+               [x.cpu().numpy() for x in star_lnlike_fused_plain(p64, lk64)], RTOL_STAR_F64)
     lk32 = dataclasses.replace(lk64, pack6=grid_as(lk64.pack6, torch.float32), bc=grid_as(lk64.bc, torch.float32))
     lk32up = dataclasses.replace(lk64, pack6=grid_as(lk32.pack6, torch.float64), bc=grid_as(lk32.bc, torch.float64))
     p32 = p64.float()
-    ref32 = [x.cpu().numpy() for x in star_lnlike_fused_plain(p32.double(), lk32up)]
-    got32 = [x.cpu().numpy() for x in star_lnlike_cuda(p32, lk32)]
-    check_star(f"f32 N={N} {kind}", got32, ref32, RTOL_STAR_F32, ATOL_STAR_F32)
+    check_star(f"f32 {name}", [x.cpu().numpy() for x in star_lnlike_cuda(p32, lk32)],
+               [x.cpu().numpy() for x in star_lnlike_fused_plain(p32.double(), lk32up)], RTOL_STAR_F32, ATOL_STAR_F32)
+
+
+@pytest.mark.parametrize("B", [1, 31, 1024, 4096, 4097])
+@pytest.mark.parametrize("kind", ["default", "log", "compare", "searchsorted"])
+@pytest.mark.parametrize("N", [1, 2, 3])
+def test_star_kernel_matches_plain(dev, N, kind, B):
+    """Adversarial points, in batches that leave idle lanes in the last warp
+    and take 16 or 8 lanes per (point, component)."""
+    lk = _likelihood(dev, torch.float64, N, kind)
+    pts = star_points(lk.pack6.knots, N, B, seed=N if B == 4096 else B + N)
+    _check_star_both(lk, pts, f"N={N} {kind} B={B}")
+    if B >= 4096:
+        ref = star_lnlike_fused_plain(torch.as_tensor(pts, device=dev, dtype=torch.float64), lk)[0].cpu().numpy()
+        assert np.isfinite(ref).sum() > 100 and np.isnan(ref).sum() > 100
+
+
+@pytest.mark.parametrize("kind", ["default", "log", "compare", "searchsorted"])
+@pytest.mark.parametrize("N", [1, 2, 3])
+def test_star_kernel_exact_and_top_knots(dev, N, kind):
+    """Every coordinate on a knot of the model grid, the top knot included
+    (t = 0, _pin_top, the searchsorted equality branch)."""
+    lk = _likelihood(dev, torch.float64, N, kind)
+    ages, fehs, eeps = (k.cpu().numpy() for k in lk.pack6.knots)
+    rng = np.random.default_rng(N)
+    B = 777
+    pts = np.stack([rng.choice(eeps, B) for _ in range(N)] + [rng.choice(ages, B), rng.choice(fehs, B),
+                                                             rng.uniform(10, 3000, B), rng.uniform(0, 1.5, B)], -1)
+    pts[::5, :N] = eeps[-1]
+    pts[1::5, N] = ages[-1]
+    pts[2::5, N + 1] = fehs[-1]
+    _check_star_both(lk, pts, f"knots N={N} {kind}")
+
+
+def _star_group_widths(fn):
+    """The group widths G of the star kernels that ``fn`` launched, read from
+    the template arguments of the kernel names in the profiler's trace."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the profiler's own notices
+        names = profile_kernels(fn)[1]
+    pat = re.compile(r"star_lnlike_kernel<\w+, ?(\d+)>|star_lnlike_kernelI[fd]Li(\d+)E")
+    return {int(m.group(1) or m.group(2)) for m in map(pat.search, names) if m}
+
+
+@pytest.mark.parametrize("B,lanes", [(40000, 4), (70000, 2), (140000, 1)])
+def test_star_kernel_group_widths(dev, B, lanes):
+    """The narrow groups that large batches take, down to one lane per
+    (point, component)."""
+    lk = _likelihood(dev, torch.float64, 1, "default")
+    pts = star_points(lk.pack6.knots, 1, B, seed=lanes)
+    p = torch.as_tensor(pts, device=dev, dtype=torch.float64)
+    assert _star_group_widths(lambda: star_lnlike_cuda(p, lk)) == {lanes}
+    _check_star_both(lk, pts, f"B={B}")
 
 
 @pytest.mark.parametrize("drop", [("logg",), ("J", "H", "K", "G"), ("parallax",)],
@@ -152,9 +231,9 @@ def test_star_dispatch_and_model_on_card(dev):
     star_lnlike_fused(p, lk)
     assert star_lnlike_cuda.launches == before + 1
 
-    obs = star_observations(get_ichrone("synthetic", **_SMALL), _SMALL_TRUTH)
+    obs = star_observations(get_ichrone("synthetic", device="cpu", **_SMALL), _SMALL_TRUTH)
     gpu = BinaryStarModel(get_ichrone("synthetic", device=dev, **_SMALL), **obs)
-    cpu = BinaryStarModel(get_ichrone("synthetic", **_SMALL), **obs)
+    cpu = BinaryStarModel(get_ichrone("synthetic", device="cpu", **_SMALL), **obs)
     los, his = cpu._bounds_arrays()
     pts = los + (his - los) * np.random.default_rng(0).random((256, 6))
     pts[:, 2] = np.random.default_rng(1).uniform(8.5, 9.5, 256)

@@ -18,7 +18,7 @@ _DIMS = dict(n_feh=7, n_mass=30, n_eep=100, n_age=30)
 
 @pytest.fixture(scope="module")
 def bundles():
-    return jax_make_synthetic_grids(**_DIMS), make_synthetic_grids(**_DIMS)
+    return jax_make_synthetic_grids(**_DIMS), make_synthetic_grids(device="cpu", **_DIMS)
 
 
 def _same_grid(port, ref):
@@ -47,24 +47,43 @@ def test_synthetic_support_arrays_bit_identical(bundles):
 
 def test_grid_from_reference_round_trip(bundles):
     ref, _ = bundles
-    g = grid_from_reference(ref.iso)
+    g = grid_from_reference(ref.iso, device="cpu")
     _same_grid(g, ref.iso)
     # a float32 reference grid keeps its dtype and its (float64-derived) maps
     ref32 = ref.iso.astype(np.float32)
-    g32 = grid_from_reference(ref32)
+    g32 = grid_from_reference(ref32, device="cpu")
     assert g32.values.dtype == torch.float32
     assert g32.axis_maps == ref.iso.axis_maps
     np.testing.assert_array_equal(g32.values.numpy(), np.asarray(ref32.values))
     # from host arrays, the maps are recomputed from the knots
-    g2 = grid_from_numpy(ref.iso.host_values, [np.asarray(k) for k in ref.iso.knots], ref.iso.columns)
+    g2 = grid_from_numpy(ref.iso.host_values, [np.asarray(k) for k in ref.iso.knots], ref.iso.columns, device="cpu")
     _same_grid(g2, ref.iso)
 
 
 def test_float32_upload(bundles):
     ref, _ = bundles
-    port32 = make_synthetic_grids(**_DIMS, dtype=torch.float32)
+    port32 = make_synthetic_grids(device="cpu", **_DIMS, dtype=torch.float32)
     np.testing.assert_array_equal(port32.iso.values.numpy(), ref.iso.host_values.astype(np.float32))
     assert port32.iso.axis_maps == ref.iso.axis_maps
+
+
+@pytest.mark.parametrize("entry", ["get_ichrone", "make_synthetic_grids", "grid_from_numpy", "grid_from_reference"])
+def test_entry_points_default_to_the_card(bundles, entry):
+    """Without ``device=`` the port builds on the card; with no card that
+    raises instead of building on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    from isochrones_torch import get_ichrone
+
+    ref, _ = bundles
+    calls = {
+        "get_ichrone": lambda: get_ichrone("synthetic", **_DIMS),
+        "make_synthetic_grids": lambda: make_synthetic_grids(**_DIMS),
+        "grid_from_numpy": lambda: grid_from_numpy(ref.iso.host_values, ref.iso.knots, ref.iso.columns),
+        "grid_from_reference": lambda: grid_from_reference(ref.iso),
+    }
+    with pytest.raises((RuntimeError, AssertionError)):  # torch's own refusal, by build
+        calls[entry]()
 
 
 def test_utils_match_reference():

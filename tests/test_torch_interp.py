@@ -111,7 +111,7 @@ def test_corner_data_and_interp_nd(use_maps):
 @pytest.fixture(scope="module")
 def ics():
     kw = dict(n_feh=7, n_mass=30, n_eep=100, n_age=30)
-    return jax_get_ichrone("synthetic", **kw), get_ichrone("synthetic", **kw)
+    return jax_get_ichrone("synthetic", **kw), get_ichrone("synthetic", device="cpu", **kw)
 
 
 def test_interp_mag_matches_jax(ics):

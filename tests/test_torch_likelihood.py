@@ -46,7 +46,7 @@ _OBS = {
 
 @pytest.fixture(scope="module")
 def ic():
-    return get_ichrone("synthetic", **_DIMS)
+    return get_ichrone("synthetic", device="cpu", **_DIMS)
 
 
 def _as_jax(g):
@@ -149,7 +149,7 @@ def test_fused_plain_float32_flushes_like_float64(ic):
     """The float32 plain version on the float32 tables: same NaN pattern as
     float64 on the rounded inputs, values within float32 rounding."""
     lk64, _, _ = _case(ic, 2, "default", "full")
-    ic32 = get_ichrone("synthetic", dtype=torch.float32, **_DIMS)
+    ic32 = get_ichrone("synthetic", device="cpu", dtype=torch.float32, **_DIMS)
     lk32 = dataclasses.replace(lk64, pack6=ic32.model_packed6, bc=ic32.bc)
     pts = star_points(ic.model.knots, 2, 1024, seed=5).astype(np.float32)
     got = star_lnlike_fused_plain(torch.as_tensor(pts), lk32)[0].numpy()

@@ -185,7 +185,7 @@ def single_fits():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        tm = SingleStarModel(get_ichrone("synthetic", **dims), **obs)
+        tm = SingleStarModel(get_ichrone("synthetic", device="cpu", **dims), **obs)
         tres = tm.fit_multinest(**fit)
     finally:
         torch.set_num_threads(threads)

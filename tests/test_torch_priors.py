@@ -141,7 +141,7 @@ def ics():
     from isochrones_torch import get_ichrone
 
     dims = dict(n_feh=7, n_mass=30, n_eep=100, n_age=30)
-    return get_ichrone("synthetic", **dims), jax_get_ichrone("synthetic", **dims)
+    return get_ichrone("synthetic", device="cpu", **dims), jax_get_ichrone("synthetic", **dims)
 
 
 def test_eep_prior_lnpdf_matches_jax(ics):

@@ -34,7 +34,7 @@ _CLASSES = {1: "SingleStarModel", 2: "BinaryStarModel", 3: "TripleStarModel"}
 
 @pytest.fixture(scope="module")
 def ics():
-    return get_ichrone("synthetic", **_DIMS), jax_get_ichrone("synthetic", **_DIMS)
+    return get_ichrone("synthetic", device="cpu", **_DIMS), jax_get_ichrone("synthetic", **_DIMS)
 
 
 def _observations(jic, seismic=False):
