@@ -33,7 +33,28 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 8. nested fit: ``fit_multinest(n_live_points=1000, n_batch=64,
    n_chains=16)`` in float32, then ``derived_samples``; logz finite, the run
    not truncated, the kernel launched, and the distance posterior's 2.5-97.5%
-   interval holding the true 200 pc.
+   interval holding the true 200 pc;
+9. tree kernel: the observation-tree likelihood kernel against its plain
+   PyTorch version on the card at the MIST-scale grid, for two plans (one
+   system of three stars: blended J, H, K, an AO camera with two companions
+   in relative J, H, K, spectroscopy on the primary, a parallax; and two
+   systems in one parameter vector), at B = 131072 and at the nested fit's
+   1024 points, in float64 and float32, on adversarial rows (exact and top
+   knots, one star off the grid while the others are on it, NaN); identical
+   -inf patterns; the kernel's device time beside its bound;
+10. tree slice: a folder whose ``star.ini`` this script writes from a known
+    truth, through ``StarModel.from_ini`` in float32: lnpost at the truth, a
+    131072-point ``lnpost_batch`` through the kernel against the plain path
+    in float64, throughput of both;
+11. tree fit: ``fit(n_live_points=1000, seed=0, checkpoint=True)`` (dynamic
+    by default) on that model; logz finite, not truncated, the kernel
+    launched, the distance posterior holding the truth; then ``save_hdf`` ->
+    ``load_hdf`` with equal samples and evidence;
+12. the entry point: ``isochrones_torch.cli.starfit.main`` on a flat
+    (``--binary``) and a tree (``--tree``) folder at the default synthetic
+    grid; results files loadable, ``starfit.log`` written; then the resume
+    check on the card: a fit stopped after two chunks and resumed gives
+    bitwise the samples of the fit that never stopped.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -42,8 +63,10 @@ The line before the last is the kernels' JSON record, the last line
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -86,6 +109,87 @@ STAR_TRUTH = (350.0, 300.0, 9.0, 0.0, 200.0, 0.1)
 STAR_BATCH = 1 << 17
 STAR_BOX = ((200, 450), (200, 450), (8.5, 9.5), (-0.5, 0.3), (100, 300), (0.0, 0.5))
 NESTED = dict(n_live_points=1000, n_batch=64, n_chains=16, seed=0)
+
+#: float64 tree kernel vs float64 plain: same inputs, other rounding of
+#: log/pow and of the corner and flux sums; 1e-9 absolute for a ll near 0
+RTOL_TREE_F64, ATOL_TREE_F64 = 1e-10, 1e-9
+#: float32 tree kernel vs float64 plain on the same (float32) tables and
+#: points: as for the star kernel, magnitudes carry ~1e-5 mag of float32
+#: rounding, and a relative row subtracts its reference row's magnitude from
+#: its own, so its residual carries twice that; with errors of 0.02-0.05 mag a
+#: term with residual r moves by ~r/u^2 * 2e-5. Twice the star kernel's bars
+RTOL_TREE_F32, ATOL_TREE_F32 = 2e-4, 0.1
+#: the tree slice's truth: one system of three stars (EEPs), age, feh,
+#: distance [pc], AV
+TREE_TRUTH = (350.0, 300.0, 250.0, 9.0, 0.0, 200.0, 0.1)
+#: the layout of tests/star3/star.ini; the magnitudes come from TREE_TRUTH
+TREE_INI = """maxAV = 0.9
+RA = 45.0
+dec = 5.0
+Teff = {Teff:.2f}, 110
+feh = {feh:.3f}, 0.12
+logg = {logg:.3f}, 0.09
+parallax = {parallax:.4f}, 0.05
+
+[twomass]
+J = {J:.4f}, 0.021
+H = {H:.4f}, 0.019
+K = {K:.4f}, 0.013
+
+[AOcam]
+resolution = 0.1
+separation_1 = 0.5
+PA_1 = 100
+K_1 = {dK1:.4f}, 0.05
+H_1 = {dH1:.4f}, 0.03
+J_1 = {dJ1:.4f}, 0.05
+separation_2 = 1.1
+PA_2 = 200
+K_2 = {dK2:.4f}, 0.1
+H_2 = {dH2:.4f}, 0.1
+J_2 = {dJ2:.4f}, 0.1
+"""
+#: the layout and values of tests/star4/star.ini (companions seen in other
+#: bands by a second instrument), fitted as two systems: index=[0, 0, 1]
+TREE_INI_TWO_SYSTEMS = """maxAV = 0.2
+RA = 310.25
+dec = -12.5
+Teff = 5650, 120
+feh = 0.05, 0.12
+logg = 4.38, 0.09
+
+[twomass]
+J = 9.42, 0.02
+H = 9.06, 0.02
+K = 8.97, 0.02
+
+[speckle]
+resolution = 0.5
+separation_1 = 4.2
+PA_1 = 75.0
+H_1 = 3.1, 0.02
+K_1 = 2.9, 0.05
+separation_2 = 11.5
+PA_2 = 210.0
+H_2 = 6.4, 0.03
+"""
+#: a flat folder for the entry point: the binary of STAR_TRUTH
+FLAT_INI = """RA = 123.4
+dec = -12.3
+Teff = {Teff:.2f}, 100
+logg = {logg:.3f}, 0.1
+parallax = 5.0, 0.05
+
+[twomass]
+J = {J:.4f}, 0.02
+H = {H:.4f}, 0.02
+K = {K:.4f}, 0.02
+"""
+TREE_FIT = dict(n_live_points=1000, seed=0, checkpoint=True)
+CLI_LIVE = 200
+#: truths on the default synthetic grid (EEPs 1-200), which the CLI builds
+CLI_STAR_TRUTH = (45.0, 35.0, 9.0, 0.0, 200.0, 0.1)
+CLI_TREE_TRUTH = (45.0, 35.0, 28.0, 9.0, 0.0, 200.0, 0.1)
 
 #: H100 SXM peaks the kernels' bounds are taken against: HBM and dense
 #: float32/float64 rates from the data sheet; special functions (exp2, log2,
@@ -280,6 +384,115 @@ def check_star(name, got, ref, rtol, atol=0.0):
     return worst
 
 
+def write_tree_ini(folder, ic, truth=TREE_TRUTH):
+    """A folder with a ``star.ini`` in the layout of TREE_INI whose
+    magnitudes are those of ``truth`` through ``ic.interp_mag``: blended J, H,
+    K of the three stars, the companions' magnitudes relative to the primary,
+    the primary's Teff, logg and feh, the true parallax."""
+    e0, e1, e2, age, feh, dist, av = truth
+    comps = [ic.interp_mag([e, age, feh, dist, av], ["J", "H", "K"]) for e in (e0, e1, e2)]
+    mags = np.array([np.asarray(c[3], dtype=float) for c in comps])  # (3 stars, 3 bands)
+    tot = -2.5 * np.log10((10 ** (-0.4 * mags)).sum(axis=0))
+    vals = dict(Teff=comps[0][0], logg=comps[0][1], feh=comps[0][2], parallax=1000.0 / dist)
+    for k, b in enumerate("JHK"):
+        vals[b] = tot[k]
+        vals[f"d{b}1"] = mags[1, k] - mags[0, k]
+        vals[f"d{b}2"] = mags[2, k] - mags[0, k]
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, "star.ini"), "w") as f:
+        f.write(TREE_INI.format(**vals))
+    return folder
+
+
+def write_ini(folder, text):
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, "star.ini"), "w") as f:
+        f.write(text)
+    return folder
+
+
+def tree_points(param_names, knots, batch, seed=0, narrow=False):
+    """Seeded (batch, n_params) numpy parameters of a tree model with the
+    given parameter names (``eep_<s>_<j>``, ``age_<s>``, ``feh_<s>``,
+    ``distance_<s>``, ``AV_<s>``) on an isochrone grid with axis ``knots``
+    (age, feh, eep): uniform in the grid's box (``narrow``: a box around
+    solar-type dwarfs, where most rows are finite), with adversarial blocks
+    in the first half: EEPs on interior knots, ages and fehs on knots, the
+    top knots, ONE star's EEP below the grid while the others stay on it,
+    a NaN parameter, AV past the BC grid."""
+    rng = np.random.default_rng(seed)
+    ages, fehs, eeps = (np.asarray(k.cpu().double() if hasattr(k, "cpu") else k, dtype=float) for k in knots)
+    wide = dict(eep=(eeps[0], eeps[-1]), age=(ages[0], ages[-1]), feh=(fehs[0], fehs[-1]), distance=(10.0, 3000.0),
+                AV=(0.0, 1.5))
+    span = eeps[-1] - eeps[0]  # the bench box's EEPs, 200-450 of 1-1710, on any ladder
+    tight = dict(eep=(eeps[0] + 0.1165 * span, eeps[0] + 0.2627 * span), age=(8.5, 9.5), feh=(-0.5, 0.3), distance=(100, 300), AV=(0.0, 0.5))
+    kinds = [n.split("_")[0] for n in param_names]
+    box = [(tight if narrow else wide)[k] for k in kinds]
+    p = np.stack([rng.uniform(lo, hi, batch) for lo, hi in box], axis=-1)
+    col = {k: [i for i, kk in enumerate(kinds) if kk == k] for k in wide}
+    m = max(1, batch // 16)
+    blocks = [slice(i * m, (i + 1) * m) for i in range(6)]
+    n0 = len(p[blocks[0]])
+    p[blocks[0]][:, col["eep"]] = rng.choice(eeps, (n0, len(col["eep"])))
+    p[blocks[1]][:, col["age"]] = rng.choice(ages, (n0, len(col["age"])))
+    p[blocks[1]][:, col["feh"]] = rng.choice(fehs, (n0, len(col["feh"])))
+    p[blocks[2]][:, col["eep"]] = eeps[-1]
+    p[blocks[2]][:, col["age"]] = ages[-1]
+    rows = np.arange(batch)[blocks[3]]
+    p[rows, rng.choice(col["eep"], len(rows))] = eeps[0] - 0.5  # one star off the grid
+    rows = np.arange(batch)[blocks[4]]
+    p[rows, rng.integers(0, len(kinds), len(rows))] = np.nan
+    p[blocks[5]][:, col["AV"][0]] = 7.0
+    return p
+
+
+def tree_likelihood_as(lk, dtype):
+    """The same tree likelihood with its grids and value arrays in another
+    dtype (index arrays kept)."""
+    import torch
+
+    changes = {}
+    for f in dataclasses.fields(lk):
+        v = getattr(lk, f.name)
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            changes[f.name] = v.to(dtype)
+        elif f.name in ("model", "bc", "full_model") and v is not None:
+            changes[f.name] = grid_as(v, dtype)
+    return dataclasses.replace(lk, **changes)
+
+
+def tree_work(pars, lk):
+    """``(bytes, flops, special functions)`` of the tree likelihood on these
+    points: the parameters read and the output written once, the plan's
+    arrays once, each distinct table row that the batch's corners touch read
+    once (4 pack columns, the density column when a row needs it, the band
+    columns of the BC table); per (point, star) ~70 flops of cell location, 8
+    corners x (6 weight flops + 8 lerp flops), 16 corners x (8 + 2 per band),
+    3 flops and one pow per band, one log10, 2 flops per observation row; per
+    point and observation row a log10 and, with the spectroscopy, parallax
+    and AV rows, a log and ~6 flops per Gaussian term."""
+    import torch
+
+    from isochrones_torch.ops.interp import interp_nd
+
+    B, S, nb, n_obs = pars.shape[0], lk.n_stars, len(lk.band_icols), lk.n_obs
+    io = lk.index_order
+    sp = pars[:, lk.star_param_idx.long()].reshape(B * S, 5)
+    gp = torch.stack([sp[:, io[0]], sp[:, io[1]], sp[:, io[2]]], dim=-1)
+    v4 = interp_nd(lk.model.values, lk.model.knots, gp, axis_maps=lk.model.axis_maps)
+    bp = torch.stack([v4[:, 0], v4[:, 1], v4[:, 2], sp[:, io[4]]], dim=-1)
+    e = pars.element_size()
+    model_rows = _touched_rows(lk.model, gp)
+    elems = model_rows * (4 + (lk.full_model is not None)) + _touched_rows(lk.bc, bp) * nb
+    plan = sum(getattr(lk, f.name).numel() * getattr(lk, f.name).element_size() for f in dataclasses.fields(lk)
+               if isinstance(getattr(lk, f.name), torch.Tensor))
+    nbytes = (pars.numel() + B + elems) * e + plan
+    n_terms = n_obs + len(lk.spec_star) + len(lk.plax_idx) + len(lk.av_idx)
+    flops = B * S * (70 + 8 * 14 + 16 * (8 + 2 * nb) + 3 * nb + 2 * n_obs) + B * 6 * n_terms
+    sfu = B * S * (nb + 1) + B * (n_obs + n_terms)
+    return nbytes, flops, sfu
+
+
 def bound(bytes_, flops, sfu, dtype):
     """``(bound_ms, bound_by, what)``: the least time the card could take,
     the larger of the bytes over the HBM rate and the operations over their
@@ -416,6 +629,248 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _tree_check(name, lk64, pts, dev):
+    """The tree kernel against the plain version on ``pts``: float64, and
+    float32 tables and points against the float64 plain version on the same
+    float32 values. Returns ``(err64, err32, finite, n)``."""
+    import torch
+
+    from isochrones_torch.ops.tree import tree_lnlike_plain
+    from isochrones_torch.ops.tree_cuda import tree_lnlike_cuda
+
+    p64 = torch.as_tensor(pts, device=dev, dtype=torch.float64)
+    ref64 = tree_lnlike_plain(p64, lk64).cpu().numpy()
+    got64 = tree_lnlike_cuda(p64, lk64).cpu().numpy()
+    torch.cuda.synchronize()
+    err64 = check_star(f"tree kernel f64 {name}", [got64], [ref64], RTOL_TREE_F64, ATOL_TREE_F64)
+    lk32 = tree_likelihood_as(lk64, torch.float32)
+    lk32up = tree_likelihood_as(lk32, torch.float64)
+    p32 = p64.float()
+    ref32 = tree_lnlike_plain(p32.double(), lk32up).cpu().numpy()
+    got32 = tree_lnlike_cuda(p32, lk32).cpu().numpy()
+    torch.cuda.synchronize()
+    err32 = check_star(f"tree kernel f32 {name}", [got32], [ref32], RTOL_TREE_F32, ATOL_TREE_F32)
+    if np.isnan(got64).any() or np.isposinf(got64).any():
+        raise AssertionError(f"tree kernel {name}: NaN or +inf in the result")
+    return err64, err32, int(np.isfinite(ref64).sum()), len(ref64)
+
+
+def phase_tree_kernel(dev, ic32, ic64, workdir):
+    """Phase 9. Returns the record of the kernels line and the float32
+    likelihood and points of the main plan."""
+    import torch
+
+    from isochrones_torch.ops.tree import tree_lnlike_plain
+    from isochrones_torch.ops.tree_cuda import tree_lnlike_cuda
+    from isochrones_torch.treemodel import StarModel
+
+    fit_batch = NESTED["n_batch"] * NESTED["n_chains"]
+    three = StarModel.from_ini(ic64, write_tree_ini(os.path.join(workdir, "tree3"), ic64))
+    two = StarModel.from_ini(ic64, write_ini(os.path.join(workdir, "tree2sys"), TREE_INI_TWO_SYSTEMS), index=[0, 0, 1])
+    record = None
+    for label, mod in (("one system of 3 stars", three), ("two systems (2 + 1 stars)", two)):
+        lk64 = mod._get_fn("lnlike").likelihood
+        print(f"[tree] plan {label}: labelstring {mod.labelstring}, params {mod.param_names}, "
+              f"{lk64.n_obs} observation rows ({int(lk64.obs_active.sum())} active, "
+              f"{int((lk64.obs_ref >= 0).sum())} relative), bands {mod.obs.plan(ic64).bands}, "
+              f"{len(lk64.spec_star)} spectroscopy rows, {len(lk64.plax_idx)} parallax")
+        pts = tree_points(mod.param_names, ic64.model.knots, STAR_BATCH, seed=21)
+        pts[STAR_BATCH // 2:] = tree_points(mod.param_names, ic64.model.knots, STAR_BATCH // 2, seed=22, narrow=True)
+        e64, e32, fin, n = _tree_check(f"{label} B={STAR_BATCH}", lk64, pts, dev)
+        ptf = tree_points(mod.param_names, ic64.model.knots, fit_batch, seed=23, narrow=True)
+        f64, f32, ffin, fn_ = _tree_check(f"{label} B={fit_batch}", lk64, ptf, dev)
+        print(f"[tree] kernel vs plain, {label}: B={STAR_BATCH} f64 max_abs_err {e64:.3e} (rtol {RTOL_TREE_F64}), "
+              f"f32 vs f64 max_abs_err {e32:.3e} (rtol {RTOL_TREE_F32} atol {ATOL_TREE_F32}), {fin}/{n} finite; "
+              f"B={fit_batch} f64 {f64:.3e}, f32 {f32:.3e}, {ffin}/{fn_} finite")
+        if fin < n // 8 or fin > n - n // 8:
+            raise AssertionError(f"tree points {label}: {fin}/{n} finite rows do not test both outcomes")
+        if mod is not three:
+            continue
+        lk32 = tree_likelihood_as(lk64, torch.float32)
+        bench32 = torch.as_tensor(tree_points(mod.param_names, ic64.model.knots, STAR_BATCH, seed=24, narrow=True),
+                                  device=dev, dtype=torch.float32)
+        pf32 = torch.as_tensor(ptf, device=dev, dtype=torch.float32)
+        ms = kernel_ms(lambda: tree_lnlike_cuda(bench32, lk32), "tree_lnlike", reps=20)
+        plain_ms = cuda_ms(lambda: tree_lnlike_plain(bench32, lk32), reps=5)
+        ms64 = kernel_ms(lambda: tree_lnlike_cuda(bench32.double(), lk64), "tree_lnlike", reps=10)
+        bnd = bound(*tree_work(bench32, lk32), "float32")
+        fit_ms = kernel_ms(lambda: tree_lnlike_cuda(pf32, lk32), "tree_lnlike", reps=200)
+        fit_plain_ms = cuda_ms(lambda: tree_lnlike_plain(pf32, lk32), reps=20)
+        fit_bnd = bound(*tree_work(pf32, lk32), "float32")
+        print(f"[tree] time B={STAR_BATCH} {label}: kernel f32 {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, kernel f64 "
+              f"{ms64:.4f} ms; f32 bound {bnd[0]:.5f} ms ({bnd[2]}), kernel at {bnd[0] / ms:.3f} of it")
+        print(f"[tree] time B={fit_batch} (the fit's batch): kernel f32 {fit_ms:.4f} ms, plain f32 "
+              f"{fit_plain_ms:.4f} ms; f32 bound {fit_bnd[0]:.5f} ms ({fit_bnd[2]}), kernel at "
+              f"{fit_bnd[0] / fit_ms:.3f} of it")
+        record = {
+            "name": "tree_lnlike", "route": "cuda", "source": "isochrones_torch/csrc/tree_lnlike.cu",
+            "replaces": "isochrones_tpu/observation.py:1269",
+            "launches": None, "max_abs_err": e32, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None,
+            "shape": {"B": STAR_BATCH, "stars": lk32.n_stars, "obs_rows": lk32.n_obs, "bands": len(lk32.band_icols),
+                      "dtype": "float32"},
+            "ms_fit_batch": fit_ms, "plain_ms_fit_batch": fit_plain_ms, "bound_ms_fit_batch": fit_bnd[0],
+            "fit_batch": fit_batch,
+        }
+    return record
+
+
+def phase_tree_slice_and_fit(dev, ic32, ic64, workdir):
+    """Phases 10 and 11. Returns the tree kernel's launches in the fit."""
+    import torch
+
+    import isochrones_torch.ops.tree as tree_ops
+    from isochrones_torch.ops.tree_cuda import tree_lnlike_cuda
+    from isochrones_torch.treemodel import StarModel
+
+    folder = os.path.join(workdir, "tree3")
+    mod32 = StarModel.from_ini(ic32, folder)
+    mod64 = StarModel.from_ini(ic64, folder)
+    lp = mod32.lnpost(TREE_TRUTH)
+    if not np.isfinite(lp) or not np.isfinite(mod64.lnpost(TREE_TRUTH)):
+        raise AssertionError(f"tree lnpost at the truth is not finite: {lp}")
+    pts = tree_points(mod64.param_names, ic64.model.knots, STAR_BATCH, seed=25, narrow=True)
+    pts[:, :3] = -np.sort(-pts[:, :3], axis=1)  # descending EEPs: inside the prior
+    p64 = torch.as_tensor(pts, device=dev, dtype=torch.float64)
+    p32 = p64.float()
+    before = tree_lnlike_cuda.launches
+    lp_k64 = mod64.lnpost_batch(p64).cpu().numpy()
+    if tree_lnlike_cuda.launches != before + 1:
+        raise AssertionError("the tree model's lnpost_batch did not launch the tree kernel once")
+    # the plain path on the card: a likelihood closure over the plain version
+    lk64 = mod64._get_fn("lnlike").likelihood
+    lk32 = mod32._get_fn("lnlike").likelihood
+    lnprior64, lnprior32 = mod64._get_fn("lnprior"), mod32._get_fn("lnprior")
+
+    def plain_lnpost(p, lk, lnprior):
+        lnpr = lnprior(p)
+        ll = tree_ops.tree_lnlike_plain(p, lk)
+        return torch.where(torch.isfinite(lnpr), lnpr + ll, float("-inf"))
+
+    lp_p64 = plain_lnpost(p64, lk64, lnprior64).cpu().numpy()
+    err = check_star("tree lnpost_batch f64 kernel vs plain", [lp_k64], [lp_p64], RTOL_TREE_F64, ATOL_TREE_F64)
+    kernel_rate = STAR_BATCH / _wall(lambda: mod32.lnpost_batch(p32), reps=10)
+    plain_rate = STAR_BATCH / _wall(lambda: plain_lnpost(p32, lk32, lnprior32), reps=3)
+    print(f"[tree slice] lnpost(truth) = {lp:.6f} (f32); {STAR_BATCH}-point lnpost_batch f64 kernel vs plain "
+          f"max_abs_err {err:.3e} (rtol {RTOL_TREE_F64}), {int(np.isfinite(lp_p64).sum())} finite")
+    print(f"[tree slice] lnpost_batch f32 throughput: kernel path {kernel_rate:.1f} evals/s, plain path "
+          f"{plain_rate:.1f} evals/s")
+    # one call at the fit's batch: what a walk step of the nested fit pays
+    fit_batch = NESTED["n_batch"] * NESTED["n_chains"]
+    pf32 = p32[:fit_batch].contiguous()
+    call_ms = 1e3 * _wall(lambda: mod32.lnpost_batch(pf32), reps=20)
+    plain_call_ms = 1e3 * _wall(lambda: plain_lnpost(pf32, lk32, lnprior32), reps=10)
+    reps = 10
+    wall, by_name = profile_kernels(lambda: mod32.lnpost_batch(pf32), reps=reps)
+    busy_ms = sum(ms for ms, _ in by_name.values()) / reps
+    launches = sum(n for _, n in by_name.values()) / reps
+    tree_ms = sum(ms for k, (ms, _) in by_name.items() if "tree_lnlike" in k) / reps
+    print(f"[tree slice] one {fit_batch}-point lnpost_batch f32: {call_ms:.3f} ms wall-clock through the kernel, "
+          f"{plain_call_ms:.3f} ms plain; under the profiler {1e3 * wall / reps:.3f} ms, {launches:.1f} kernel "
+          f"launches, device busy {busy_ms:.4f} ms (idle share {1 - busy_ms / (1e3 * wall / reps):.3f}), the tree "
+          f"kernel {tree_ms:.4f} ms of it ({tree_ms / busy_ms:.3f})")
+
+    # ---- 11. the tree fit
+    tree_lnlike_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = mod32.fit(**TREE_FIT)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    n_tree = tree_lnlike_cuda.launches
+    if not np.isfinite(res.logz) or res.truncated or n_tree <= 0:
+        raise AssertionError(f"tree fit: logz {res.logz}, truncated {res.truncated}, launches {n_tree}")
+    if not os.path.exists(f"{mod32.mnest_basename}checkpoint.pkl"):
+        raise AssertionError("the tree fit wrote no checkpoint")
+    d_lo, d_hi = np.quantile(mod32.samples["distance_0"], [0.025, 0.975])
+    if not d_lo <= TREE_TRUTH[5] <= d_hi:
+        raise AssertionError(f"distance 95% interval ({d_lo:.2f}, {d_hi:.2f}) misses {TREE_TRUTH[5]}")
+    med = {k: round(float(np.median(v)), 4) for k, v in mod32.samples.items() if k != "lnprob"}
+    print(f"[tree fit] fit {json.dumps(TREE_FIT)} f32 (dynamic by default): {fit_s:.3f} s, {res.n_iter} dead "
+          f"points, dynamic_rounds {res.dynamic_rounds}, logz {res.logz:.4f} +- {res.logzerr:.4f}, ESS "
+          f"{res.ess:.1f}, kernel launches {n_tree}")
+    print(f"[tree fit] posterior medians {json.dumps(med)}; distance 95% interval ({d_lo:.3f}, {d_hi:.3f})")
+    store = os.path.join(folder, "tree_model.npz")
+    mod32.save_hdf(store, overwrite=True)
+    back = StarModel.load_hdf(store, ic=ic32)
+    same = all(np.array_equal(back.samples[c], mod32.samples[c]) for c in mod32.samples)
+    derived_same = all(np.array_equal(back.derived_samples[c], v, equal_nan=True)
+                       for c, v in mod32.derived_samples.items())
+    if not (same and derived_same and back.evidence == mod32.evidence and back.param_names == mod32.param_names):
+        raise AssertionError("save_hdf -> load_hdf did not restore the tree model's samples and evidence")
+    print(f"[tree fit] save_hdf -> load_hdf: {len(mod32.samples)} sample columns, "
+          f"{len(mod32.derived_samples)} derived columns and the evidence restored")
+    return n_tree
+
+
+def phase_entry_point(dev, workdir):
+    """Phase 12. Returns the launches of the star and the tree kernel."""
+    import torch
+
+    from isochrones_torch import BinaryStarModel, get_ichrone
+    from isochrones_torch.cli.starfit import main as starfit_main
+    from isochrones_torch.ops.star_cuda import star_lnlike_cuda
+    from isochrones_torch.ops.tree_cuda import tree_lnlike_cuda
+    from isochrones_torch.samplers.nested import _chunk_dead
+    from isochrones_torch.treemodel import StarModel
+
+    # the CLI builds the default synthetic grid: the folders' magnitudes come from it
+    ic = get_ichrone("synthetic", device=dev)
+    obs = star_observations(ic, CLI_STAR_TRUTH, bands=("J", "H", "K"))
+    flat_text = FLAT_INI.format(Teff=obs["Teff"][0], logg=obs["logg"][0], J=obs["J"][0], H=obs["H"][0], K=obs["K"][0])
+    flat = write_ini(os.path.join(workdir, "cli_flat"), flat_text)
+    tree = write_tree_ini(os.path.join(workdir, "cli_tree"), ic, CLI_TREE_TRUTH)
+    common = ["--models", "synthetic", "--no_plots", "--n_live_points", str(CLI_LIVE), "--seed", "0"]
+    star_lnlike_cuda.launches = tree_lnlike_cuda.launches = 0
+    t0 = time.perf_counter()
+    rc_flat = starfit_main(common + ["--binary", flat])
+    t_flat = time.perf_counter() - t0
+    rc_tree = starfit_main(common + ["--tree", tree])
+    t_tree = time.perf_counter() - t0 - t_flat
+    n_star, n_tree = star_lnlike_cuda.launches, tree_lnlike_cuda.launches
+    if rc_flat != 0 or rc_tree != 0:
+        raise AssertionError(f"starfit exit codes {rc_flat}, {rc_tree}")
+    flat_file = os.path.join(flat, "synthetic_starmodel_binary.npz")
+    tree_file = os.path.join(tree, "synthetic_starmodel_single.npz")
+    m_flat = BinaryStarModel.load_hdf(flat_file, ic=ic)
+    m_tree = StarModel.load_hdf(tree_file, ic=ic)
+    for folder, m in ((flat, m_flat), (tree, m_tree)):
+        log = os.path.join(folder, "starfit.log")
+        if not os.path.exists(log) or "starfit successful" not in open(log).read():
+            raise AssertionError(f"{log} does not report a successful fit")
+        if not np.isfinite(m.evidence[0]) or len(m.samples["lnprob"]) != 4000:
+            raise AssertionError(f"{folder}: evidence {m.evidence}, {len(m.samples['lnprob'])} samples")
+    if n_star <= 0 or n_tree <= 0:
+        raise AssertionError(f"entry point launches: star {n_star}, tree {n_tree}")
+    print(f"[starfit] cli --binary: exit {rc_flat}, {t_flat:.2f} s, logz {m_flat.evidence[0]:.3f}, star kernel "
+          f"launches {n_star}; cli --tree: exit {rc_tree}, {t_tree:.2f} s, logz {m_tree.evidence[0]:.3f}, "
+          f"labelstring {m_tree.labelstring}, tree kernel launches {n_tree}")
+
+    # the resume check: stop after two chunks, lose the results file (a
+    # killed fit wrote none), resume; against the fit that never stopped
+    n_batch = min(NESTED["n_batch"], CLI_LIVE // 4)
+    two_chunks = 2 * max(_chunk_dead(CLI_LIVE) // n_batch, 8) * n_batch
+    stopped = write_ini(os.path.join(workdir, "cli_resume"), flat_text)
+    part_file = os.path.join(stopped, "synthetic_starmodel_binary.npz")
+    rc1 = starfit_main(common + ["--binary", "--resume", "--max_iter", str(two_chunks), stopped])
+    part = BinaryStarModel.load_hdf(part_file, ic=ic)
+    os.remove(part_file)
+    rc2 = starfit_main(common + ["--binary", "--resume", stopped])
+    resumed = BinaryStarModel.load_hdf(part_file, ic=ic)
+    if rc1 != 0 or rc2 != 0:
+        raise AssertionError(f"resume check exit codes {rc1}, {rc2}")
+    if np.array_equal(part.samples["lnprob"], m_flat.samples["lnprob"]):
+        raise AssertionError("the stopped fit was not stopped")
+    for c, v in m_flat.samples.items():
+        if not np.array_equal(resumed.samples[c], v):
+            raise AssertionError(f"resumed fit differs from the uninterrupted one in column {c}")
+    if resumed.evidence != m_flat.evidence:
+        raise AssertionError(f"resumed evidence {resumed.evidence} != {m_flat.evidence}")
+    print(f"[starfit] resume on the card: stopped at {two_chunks} dead points (2 chunks), resumed; samples "
+          f"({len(m_flat.samples)} columns x 4000) and evidence bitwise equal to the uninterrupted fit")
+    return n_star, n_tree
 
 
 def main():
@@ -651,6 +1106,19 @@ def main():
           f"kernel launches {n_star}, posterior_predictive {bin32.posterior_predictive:.4f}")
     print(f"[nested] posterior medians {json.dumps(med)}; distance 95% interval ({d_lo:.3f}, {d_hi:.3f})")
 
+    # ---- 9-12. the tree kernel, the tree model, the entry point
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.environ.get("TMPDIR") or None)
+    try:
+        tree_record = phase_tree_kernel(dev, ic32, ic64, workdir)
+        n_tree = phase_tree_slice_and_fit(dev, ic32, ic64, workdir)
+        del model32, model64, bin32, bin64, ic32
+        torch.cuda.empty_cache()
+        n_star_cli, n_tree_cli = phase_entry_point(dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    tree_record["launches"] = n_tree
+    tree_record["launches_entry_point"] = n_tree_cli
+
     ms, plain_ms, bound_ms, bound_by = times[MAIN_SHAPE]
     print(json.dumps({"kernels": [{
         "name": "cluster_marginal", "route": "cuda",
@@ -667,8 +1135,8 @@ def main():
         "bound_ms": star_bound[0], "bound_by": star_bound[1], "library_ms": None,
         "shape": {"B": STAR_BATCH, "N": 2, "bands": len(STAR_BANDS), "dtype": "float32"},
         "ms_fit_batch": fit_ms, "plain_ms_fit_batch": fit_plain_ms, "bound_ms_fit_batch": fit_bound[0],
-        "fit_batch": fit_batch,
-    }]}))
+        "fit_batch": fit_batch, "launches_entry_point": n_star_cli,
+    }, tree_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 

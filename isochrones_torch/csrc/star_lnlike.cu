@@ -67,10 +67,7 @@
 // * 64-bit row offsets (the full model table has 41 M elements); instantiated
 //   for float and double.
 
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstdint>
+#include "interp_common.cuh"
 
 namespace {
 
@@ -80,19 +77,6 @@ constexpr int kMaxStars = 3;
 constexpr int kPackCols = 6;
 constexpr int kMaxGroup = 16;  // at most 16 lanes per group
 constexpr long long kFillThreads = 1LL << 18;
-constexpr unsigned kFull = 0xffffffffu;
-
-// axis-map kinds of ops/interp.py::compute_axis_maps (None = searchsorted)
-enum AxisKind : int { kSearch = 0, kExactAffine = 1, kAffine = 2, kLog = 3, kCompare = 4 };
-
-struct Axis {
-  const void* knots;  // device pointer to n knots of the grid's dtype
-  long long n;
-  double lo0;
-  double step;
-  int kind;
-  int pad;
-};
 
 struct StarArgs {
   const void* pars;   // (B, P) P = N + 4
@@ -119,252 +103,6 @@ struct StarArgs {
   Axis model_ax[3];
   Axis bc_ax[4];
 };
-
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float d_log(float x) { return logf(x); }
-__device__ __forceinline__ double d_log(double x) { return log(x); }
-__device__ __forceinline__ float d_log10(float x) { return log10f(x); }
-__device__ __forceinline__ double d_log10(double x) { return log10(x); }
-__device__ __forceinline__ float d_pow(float a, float b) { return powf(a, b); }
-__device__ __forceinline__ double d_pow(double a, double b) { return pow(a, b); }
-
-template <typename T>
-__device__ __forceinline__ T knot(const Axis& ax, long long i) {
-  return __ldg(static_cast<const T*>(ax.knots) + i);
-}
-
-// sum over the G lanes of this lane's group (groups are aligned runs of G
-// lanes); every lane of the warp must call it
-template <int G, typename V>
-__device__ __forceinline__ V group_sum(V v) {
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-// torch: num / where(den == 0, 1, den)
-template <typename T>
-__device__ __forceinline__ T safe_div(T num, T den) {
-  return div_rn(num, den == T(0) ? T(1) : den);
-}
-
-template <typename T>
-__device__ __forceinline__ long long floor_to_cell(T raw, long long n) {
-  // floor(raw) clamped to [0, n - 2]; raw is finite for in-bounds x
-  T f = floor(raw);
-  if (!(f >= T(0))) return 0;
-  if (f > T(n - 2)) return n - 2;
-  return static_cast<long long>(f);
-}
-
-__device__ __forceinline__ long long clampll(long long v, long long lo, long long hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// What the cell location of one coordinate reads before it decides
-// anything, so that the reads of every axis of a point are in flight
-// together: the end knots (bounds, _pin_top) and, for the affine and log
-// kinds, the knots c0 and c0 + 1 of the analytic guess c0 (the fix-ups
-// rarely move off it), or for the compare kind this lane's first 4 of its
-// share of the knots.
-template <typename T>
-struct AxisReads {
-  T first, last;
-  T kn[4];
-  long long c0;
-};
-
-template <typename T, int G>
-__device__ __forceinline__ void locate_reads(const Axis& ax, T x, int l, AxisReads<T>& r) {
-  const long long n = ax.n;
-  r.first = knot<T>(ax, 0);
-  r.last = knot<T>(ax, n - 1);
-  r.c0 = 0;
-  if ((ax.kind == kAffine || ax.kind == kLog) && n > 1) {
-    const T lo0 = T(ax.lo0), step = T(ax.step);
-    const T xs = ax.kind == kLog ? d_log(x > T(0) ? x : T(0)) : x;
-    r.c0 = floor_to_cell<T>(div_rn(sub_rn(xs, lo0), step), n);
-    r.kn[0] = knot<T>(ax, r.c0);
-    r.kn[1] = knot<T>(ax, r.c0 + 1);
-  } else if (ax.kind == kCompare && n > 1 && n <= 4 * G) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) r.kn[u] = l + u * G < n ? knot<T>(ax, l + u * G) : T(0);
-  }
-}
-
-// The number of knots below x (searchsorted side "left"), or at or below x
-// with `right` (side "right"), by a (G+1)-ary search of the group: the
-// answer lies in [lo, hi]; lane l probes p_l = lo + (l + 1) span / (G + 1),
-// and the c probes that count (a prefix, the knots being sorted) move lo
-// past p_(c-1) and hi to p_c. Every lane of the warp calls it.
-template <typename T, int G>
-__device__ long long group_count(const Axis& ax, T x, bool skip, int l, bool right) {
-  const int gbase = (threadIdx.x % 32) & ~(G - 1);
-  long long lo = 0, hi = skip ? 0 : ax.n;
-  while (__any_sync(kFull, lo < hi)) {
-    const long long span = hi - lo;
-    const bool live = lo < hi;
-    bool below = false;
-    if (live) {
-      const T k = knot<T>(ax, lo + ((l + 1) * span) / (G + 1));
-      below = right ? k <= x : k < x;
-    }
-    const unsigned votes = __ballot_sync(kFull, below) >> gbase;
-    const int c = __popc(votes & ((1u << G) - 1u));
-    if (live) {
-      const long long p_c = lo + ((c + 1) * span) / (G + 1);
-      if (c > 0) lo = lo + (c * span) / (G + 1) + 1;
-      if (c < G) hi = p_c;
-    }
-  }
-  return lo;
-}
-
-// one of four registers by a runtime index, without local memory
-template <typename T>
-__device__ __forceinline__ T pick4(const T* v, long long u) {
-  return u == 0 ? v[0] : u == 1 ? v[1] : u == 2 ? v[2] : v[3];
-}
-
-// ops/interp.py::find_cells_1d for one in-bounds, non-NaN x, from the reads
-// of locate_reads, by the G lanes of a group together: the lower cell index
-// (may be n - 1 at the top knot) and the in-cell coordinate t. Lanes with
-// `skip` (a NaN or out-of-bounds point) read no further knots; every lane of
-// the warp calls it (the searches vote and shuffle).
-template <typename T, int G>
-__device__ void locate_finish(const Axis& ax, T x, bool skip, int l, const AxisReads<T>& r, long long& cell,
-                              T& t) {
-  const long long n = ax.n;
-  const int gbase = (threadIdx.x % 32) & ~(G - 1);
-  if (ax.kind != kSearch && n > 1) {
-    if (ax.kind == kExactAffine) {
-      const T lo0 = T(ax.lo0), step = T(ax.step);
-      long long c = floor_to_cell<T>(div_rn(sub_rn(x, lo0), step), n);
-      T lo = add_rn(lo0, mul_rn(T(c), step));
-      T tt = div_rn(sub_rn(x, lo), step);
-      // division rounding may land one cell off near a knot
-      const long long shift = (tt >= T(1) ? 1 : 0) - (tt < T(0) ? 1 : 0);
-      c = clampll(c + shift, 0, n - 2);
-      lo = add_rn(lo0, mul_rn(T(c), step));
-      tt = div_rn(sub_rn(x, lo), step);
-      cell = c;
-      t = tt;
-    } else if (ax.kind == kCompare) {
-      // the count of knots <= x: the knots increase, so it is also an
-      // upper-bound search, which wide axes (more than 4 knots a lane) take
-      long long c;
-      T lo, hi;
-      if (n <= 4 * G) {  // one read per knot, all made by locate_reads
-        int cnt = 0;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) cnt += (!skip && l + u * G < n && x >= r.kn[u]) ? 1 : 0;
-        c = clampll(group_sum<G>(cnt) - 1, 0, n - 2);
-        // knot i is lane (i % G)'s kn[i / G]
-        lo = __shfl_sync(kFull, pick4(r.kn, c / G), gbase + (int)(c % G));
-        hi = __shfl_sync(kFull, pick4(r.kn, (c + 1) / G), gbase + (int)((c + 1) % G));
-      } else {
-        c = clampll(group_count<T, G>(ax, x, skip, l, true) - 1, 0, n - 2);
-        lo = knot<T>(ax, c);
-        hi = knot<T>(ax, c + 1);
-      }
-      cell = c;
-      t = safe_div(sub_rn(x, lo), sub_rn(hi, lo));
-    } else {  // kAffine, kLog: knots c0 and c0 + 1 are read, others on demand
-      auto kat = [&](long long i) { return i == r.c0 ? r.kn[0] : i == r.c0 + 1 ? r.kn[1] : knot<T>(ax, i); };
-      long long c = r.c0;
-      // two-step fix-up against the true knots absorbs rounding in raw
-      if (x < kat(c)) c -= 1;
-      c = clampll(c, 0, n - 2);
-      if (x >= kat(clampll(c + 1, 0, n - 1))) c += 1;
-      c = clampll(c, 0, n - 2);
-      const T lo = kat(c);
-      cell = c;
-      t = safe_div(sub_rn(x, lo), sub_rn(kat(c + 1), lo));
-    }
-    if (x == r.last) {  // _pin_top
-      cell = n - 1;
-      t = T(0);
-    }
-    return;
-  }
-  // searchsorted(side="left"): the number of knots below x
-  const long long i_ins = group_count<T, G>(ax, x, skip, l, false);
-  const long long i_safe = clampll(i_ins, 0, n - 1);
-  const bool eq = knot<T>(ax, i_safe) == x;
-  const long long c = eq ? i_safe : i_ins - 1;
-  const long long c_safe = n > 1 ? clampll(c, 0, n - 2) : 0;
-  const T lo_k = knot<T>(ax, c_safe);
-  const T hi_k = knot<T>(ax, clampll(c_safe + 1, 0, n - 1));
-  cell = eq ? c : c_safe;
-  t = eq ? T(0) : safe_div(sub_rn(x, lo_k), sub_rn(hi_k, lo_k));
-}
-
-// Multilinear interpolation of `ncols` (<= NC) columns (cols[i], or i when
-// cols is null) of a dense (dims..., row_len) table at one point, by the G
-// lanes of a group, into out[0, ncols); NaN when the point is NaN or out of
-// bounds on any axis. Every lane of the group gets the sums of all 2**NDIM
-// corners' products.
-template <typename T, int NDIM, int G, int NC>
-__device__ void interp_group(const T* __restrict__ table, const Axis* axes, const T* x, int row_len,
-                             const int* cols, int ncols, int l, T* out) {
-  AxisReads<T> reads[NDIM];
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) locate_reads<T, G>(axes[d], x[d], l, reads[d]);
-  bool bad = false;
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) bad = bad || isnan(x[d]) || x[d] < reads[d].first || x[d] > reads[d].last;
-  long long cell[NDIM];
-  T t[NDIM];
-  long long stride[NDIM];
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) locate_finish<T, G>(axes[d], x[d], bad, l, reads[d], cell[d], t[d]);
-  stride[NDIM - 1] = 1;
-#pragma unroll
-  for (int d = NDIM - 2; d >= 0; --d) stride[d] = stride[d + 1] * axes[d + 1].n;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    if (c == ncols) break;
-    out[c] = T(0);
-  }
-  if (!bad) {
-    for (int i = l; i < (1 << NDIM); i += G) {
-      T w = T(1);
-      long long row = 0;
-#pragma unroll
-      for (int d = 0; d < NDIM; ++d) {
-        const int o = (i >> (NDIM - 1 - d)) & 1;
-        w = w * (o ? t[d] : T(1) - t[d]);
-        row += clampll(cell[d] + o, 0, axes[d].n - 1) * stride[d];
-      }
-      const T* r = table + row * row_len;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        if (c == ncols) break;
-        out[c] += w * __ldg(r + (cols ? cols[c] : c));
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    if (c == ncols) break;
-    const T sum = group_sum<G>(out[c]);  // every lane shuffles, bad or not
-    out[c] = bad ? T(NAN) : sum;
-  }
-}
-
-// reference likelihood.py:10-13, with its +log(unc) constant
-template <typename T>
-__device__ __forceinline__ T gauss_lnprob(T val, T unc, T model_val) {
-  const T resid = val - model_val;
-  return T(-0.91893853320467274178) + d_log(unc) - T(0.5) * resid * resid / (unc * unc);
-}
 
 // teams of G << np_shift lanes (1, 2 or 4 component groups); a team never
 // straddles a warp

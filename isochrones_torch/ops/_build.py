@@ -2,8 +2,8 @@
 
 ``nvcc`` compiles every ``isochrones_torch/csrc/*.cu`` for Hopper (``sm_90a``)
 into one shared library with a plain C interface, at first use, into
-``isochrones_torch/_build/`` (git-ignored), cached by a hash of the sources
-and flags. Each source compiles in its own ``nvcc`` process, all started
+``isochrones_torch/_build/`` (git-ignored), cached by a hash of the sources,
+the headers they include (``csrc/*.cuh``) and the flags. Each source compiles in its own ``nvcc`` process, all started
 together, and one more links the objects. The library is loaded with ``ctypes``; callers pass every pointer
 and the CUDA stream as ``c_void_p``.
 """
@@ -59,7 +59,7 @@ def build():
     ``(path, seconds, compiler_log)``; seconds is 0.0 on a cache hit."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(s, "rb") as f:
             h.update(f.read())
     path = os.path.join(BUILD_DIR, f"libisochrones_torch_{h.hexdigest()[:16]}.so")

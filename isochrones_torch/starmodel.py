@@ -9,6 +9,9 @@ change-of-variables prior (:func:`~isochrones_torch.ops.star.star_lnlike_fused`,
 a hand-written CUDA kernel on the card); customized priors or subclasses take
 the composed path. ``fit_multinest`` runs the on-device nested sampler,
 ``fit_mcmc`` the ensemble sampler; fitted samples are dicts of numpy columns.
+``save_hdf``/``load_hdf`` keep the reference's names and content but write a
+numpy ``.npz`` container (:mod:`isochrones_torch.utils`): the machine with
+the card has neither ``h5py`` nor ``pandas``.
 
 Reference quirks kept for parity: the ``+log(sigma)`` Gaussian constant, the
 N=3 EEP-ordering test (``and`` where ``or`` was meant) and the ``delta_nu``
@@ -17,6 +20,10 @@ term that uses the value as its uncertainty.
 
 from __future__ import annotations
 
+import hashlib
+import itertools
+import json
+import os
 from typing import Dict, Tuple
 
 import numpy as np
@@ -27,9 +34,9 @@ from .ops.interp import interp_nd
 from .ops.likelihood import gauss_lnprob, star_lnlike
 from .ops.star import StarLikelihood, star_lnlike_fused
 from .priors import AgePrior, AVPrior, ChabrierPrior, DistancePrior, EEP_prior, FehPrior
-from .utils import addmags
+from .utils import addmags, npz_load, npz_save, store_prefix
 
-__all__ = ["BasicStarModel", "SingleStarModel", "BinaryStarModel", "TripleStarModel"]
+__all__ = ["BasicStarModel", "SingleStarModel", "BinaryStarModel", "TripleStarModel", "N_options", "index_options"]
 
 _EEP_NAMES = ("eep", "eep_0", "eep_1", "eep_2")
 
@@ -43,6 +50,9 @@ class BasicStarModel:
     """
 
     use_emcee = False
+    #: whether fit_multinest runs dynamic nested sampling by default: off for
+    #: the cheap fused flat likelihood, on for models whose calls are costly
+    _default_dynamic = False
 
     # allowable non-band observation keys (reference starmodel.py:95-116)
     _not_a_band = (
@@ -155,6 +165,19 @@ class BasicStarModel:
     @property
     def directory(self):
         return self._directory
+
+    @property
+    def labelstring(self):
+        return {1: "single", 2: "binary", 3: "triple"}[self.N]
+
+    @property
+    def mnest_basename(self):
+        """Where a fit keeps its files (the checkpoint), as the reference's
+        MultiNest basename (starmodel.py:736-746)."""
+        s = f"{self.ic.name}-{self.labelstring}"
+        if self.name:
+            s = f"{self.name}-{s}"
+        return os.path.join(self.directory, "chains", s + "-")
 
     @property
     def param_names(self) -> Tuple[str, ...]:
@@ -470,6 +493,25 @@ class BasicStarModel:
         return self.sample_from_prior(nwalkers, values=True, require_valid=True, rng=rng)
 
     # ------------------------------------------------------------------ fitting
+    def _config_data_repr(self):
+        """Stable text of the observed data this model is conditioned on;
+        subclasses whose data lives outside ``self.kwargs`` (the tree model's
+        observation tree) override it so :meth:`_fit_config_hash` covers it."""
+        return repr(sorted((k, float(v), float(u)) for k, (v, u) in self.kwargs.items()))
+
+    def _fit_config_hash(self, seed=None):
+        """Stable hash of the fitted problem: observed data, parameter list,
+        per-parameter bounds and the sampler seed. It goes into the nested
+        sampler's checkpoint configuration, so a resume after an edited
+        star.ini or another seed refuses instead of replaying the old fit."""
+        parts = [
+            self._config_data_repr(),
+            repr(list(self.param_names)),
+            repr([tuple(float(b) for b in self.bounds(p)) for p in self.param_names]),
+            repr(None if seed is None else int(seed)),
+        ]
+        return hashlib.sha256("|".join(parts).encode()).hexdigest()[:16]
+
     def fit(self, **kwargs):
         """reference dispatch starmodel.py:667-671."""
         if self.use_emcee:
@@ -479,18 +521,42 @@ class BasicStarModel:
     def fit_multinest(self, n_live_points=1000, basename=None, verbose=False, refit=False, overwrite=False,
                       max_iter=None, seed=None, **kwargs):
         """On-device nested sampling (replaces pymultinest.run, reference
-        starmodel.py:717-802), the static single-run path. Keywords go to
+        starmodel.py:717-802). Keywords go to
         :func:`~isochrones_torch.samplers.nested.run_nested`; on a CUDA card
         ``n_batch`` defaults to 64 and ``n_chains`` to 16, as the JAX package
-        sets them on its accelerator. ``checkpoint``, ``resume``, ``mesh``,
-        ``dynamic`` and ``n_runs > 1`` are not ported yet and raise
+        sets them on its accelerator. ``dynamic`` defaults to the model's
+        ``_default_dynamic`` (off for the flat models, on for the tree model).
+
+        ``checkpoint=True`` persists the sampler state after every chunk
+        under ``<basename or mnest_basename>checkpoint.pkl``;
+        ``checkpoint=<path>`` uses that path. ``resume=True`` restores from it
+        (and implies checkpointing): the completed fit is bitwise the fit that
+        never stopped. ``refit``/``overwrite`` delete the checkpoint first,
+        and the checkpoint carries a hash of the data, bounds and seed, so a
+        stale one is refused (``CheckpointConfigError``), never replayed.
+        ``mesh`` and ``n_runs > 1`` are not ported yet and raise
         ``NotImplementedError``. Sets ``samples`` (a dict of numpy columns
         with ``"lnprob"``) and ``evidence``; returns the ``NestedResult``."""
         from .samplers.nested import run_nested
 
+        ckpt = kwargs.pop("checkpoint", None)
+        if kwargs.get("resume") and ckpt is None:
+            ckpt = True
+        if ckpt is True:
+            base = basename if basename is not None else self.mnest_basename
+            os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
+            ckpt = f"{base}checkpoint.pkl"
+        if ckpt is not None:
+            if (refit or overwrite) and os.path.exists(ckpt):
+                os.remove(ckpt)
+            kwargs["checkpoint"] = ckpt
+            kwargs.setdefault("config_tag", self._fit_config_hash(seed))
+
         if self.device.type == "cuda":
             kwargs.setdefault("n_batch", 64)
             kwargs.setdefault("n_chains", 16)
+        if self._default_dynamic and "dynamic" not in kwargs and kwargs.get("n_runs", 1) == 1:
+            kwargs["dynamic"] = True
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed if seed is not None else 0)
         result = run_nested(self._get_fn("lnpost"), self.prior_transform_batch, self.n_params, gen,
@@ -508,10 +574,11 @@ class BasicStarModel:
         self._derived_samples = None
         return result
 
-    def fit_mcmc(self, nwalkers=300, nburn=200, niter=100, thin=1, p0=None, seed=None, moves="stretch"):
+    def fit_mcmc(self, nwalkers=300, nburn=200, niter=100, thin=1, p0=None, seed=None, moves="stretch", **kwargs):
         """On-device affine-invariant ensemble MCMC (reference
         starmodel.py:886-972). ``moves``: "stretch", "de", "snooker", "kde"
-        or "mixed". Returns a dict of column name -> numpy array with the
+        or "mixed". Other keywords (those of the nested fit, which ``starfit``
+        hands to either engine) are ignored, as in the reference. Returns a dict of column name -> numpy array with the
         parameter columns and ``"lnprob"``; the final sampler state (with its
         acceptance counts) is kept as ``self.sampler_state``."""
         from .samplers.ensemble import run_ensemble
@@ -573,6 +640,34 @@ class BasicStarModel:
         derived["AV"] = s["AV"]
         self._derived_samples = derived
 
+    def map_pars(self):
+        """The sample of highest posterior, as the parameter vector."""
+        i_max = int(np.argmax(self.samples["lnprob"]))
+        return np.array([self.samples[c][i_max] for c in self.samples if c != "lnprob"])
+
+    def random_samples(self, n, rng=None):
+        """Random subsample of the posterior (reference starmodel.py:1050-1065)."""
+        rng = np.random.default_rng(rng)
+        inds = rng.integers(len(self.samples["lnprob"]), size=int(n))
+        return {c: v[inds] for c, v in self.samples.items()}
+
+    @property
+    def physical_quantities(self):
+        """reference starmodel.py:1756-1794"""
+        if self.N == 1:
+            return ["mass", "radius", "age", "Teff", "logg", "feh", "distance", "AV"]
+        per = [f"{q}_{j}" for q in ("mass", "radius") for j in range(self.N)]
+        per += [f"{q}_{j}" for q in ("Teff", "logg") for j in range(self.N)]
+        return per + ["age", "feh", "distance", "AV"]
+
+    @property
+    def observed_quantities(self):
+        """reference starmodel.py:1796-1803"""
+        cols = [f"{b}_mag" for b in self.bands]
+        if self.N == 1:
+            return cols + self.props
+        return cols + [p if p in self.derived_samples else f"{p}_0" for p in self.props]
+
     @property
     def posterior_predictive(self):
         """Mean chi^2 / N over the observed quantities (reference
@@ -587,6 +682,119 @@ class BasicStarModel:
             col = p if p in derived else f"{p}_0"
             chisq += (val - derived[col]) ** 2 / unc ** 2
         return float(np.mean(chisq)) / (len(self.bands) + len(self.props))
+
+
+    # ------------------------------------------------------------- persistence
+    def write_ini(self, root="."):
+        """reference starmodel.py:1486-1499"""
+        path = os.path.join(root, self.name)
+        os.makedirs(path, exist_ok=True)
+        lines = []
+        if self.ra is not None and self.dec is not None:
+            lines.append(f"ra = {self.ra}")
+            lines.append(f"dec = {self.dec}")
+        for k, (v, u) in self.kwargs.items():
+            lines.append(f"{k} = {v}, {u}")
+        with open(os.path.join(path, "star.ini"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+    def _store_entries(self, prefix, attrs):
+        """The container entries of this model: samples and derived samples
+        as value matrix + JSON column list, ``attrs`` as JSON strings."""
+        entries = {}
+        if self._samples is not None:
+            for key, table in (("samples", self._samples), ("derived_samples", self.derived_samples)):
+                cols = list(table)
+                entries[f"{prefix}{key}/values"] = np.stack([np.asarray(table[c], dtype=float) for c in cols], axis=1)
+                entries[f"{prefix}{key}/columns"] = np.array(json.dumps(cols))
+        for k, v in attrs.items():
+            entries[f"{prefix}attrs/{k}"] = np.array(json.dumps(v))
+        return entries
+
+    @staticmethod
+    def _stored_tables(entries, prefix):
+        """(samples, derived_samples) dicts of columns, or (None, None)."""
+        out = []
+        for key in ("samples", "derived_samples"):
+            if f"{prefix}{key}/values" not in entries:
+                return None, None
+            vals = entries[f"{prefix}{key}/values"]
+            cols = json.loads(str(entries[f"{prefix}{key}/columns"]))
+            out.append({c: vals[:, i] for i, c in enumerate(cols)})
+        return tuple(out)
+
+    def save_hdf(self, filename, path="", overwrite=False, append=False):
+        """Persist the model (reference starmodel.py:1843-1901, which writes
+        HDF5) into the ``.npz`` container ``filename`` under the key prefix
+        ``path``: samples and derived samples as value matrix + column list,
+        and ``ic_type``, ``ic_bands``, ``use_emcee``, ``kwargs``, ``bounds``,
+        ``eep_bounds``, ``name``, ``N``, ``directory``, ``evidence`` as
+        attributes. Existing samples under ``path`` raise unless
+        ``overwrite`` (the file is replaced) or ``append`` (the entry is)."""
+        prefix = store_prefix(path)
+        entries = {}
+        if os.path.exists(filename):
+            entries = npz_load(filename)
+            if f"{prefix}samples/values" in entries:
+                if overwrite:
+                    entries = {}
+                elif not append:
+                    raise IOError(f"{path} in {filename} exists. Set overwrite or append.")
+        mine = tuple(f"{prefix}{g}/" for g in ("samples", "derived_samples", "attrs"))
+        entries = {k: v for k, v in entries.items() if not k.startswith(mine)}
+        attrs = dict(
+            ic_type=type(self.ic).__name__, ic_bands=list(self.ic.bands), use_emcee=bool(self.use_emcee),
+            kwargs={k: [float(v), float(u)] for k, (v, u) in self.kwargs.items()},
+            bounds={k: list(v) if v is not None else None for k, v in self._bounds.items()},
+            eep_bounds=list(self.eep_bounds), name=self.name, N=self.N, directory=self.directory,
+        )
+        if self._evidence is not None:
+            attrs["evidence"] = list(self._evidence)
+        entries.update(self._store_entries(prefix, attrs))
+        npz_save(filename, entries)
+
+    @classmethod
+    def load_hdf(cls, filename, path="", name=None, ic=None, device="cuda", dtype=None):
+        """Restore a saved model (reference starmodel.py:1903-1959) from the
+        ``.npz`` container. ``ic`` may be passed; otherwise the synthetic
+        grids are rebuilt with the stored bands on ``device`` (the card
+        unless the caller names another) in ``dtype``."""
+        if not os.path.exists(filename):
+            raise IOError(f"{filename} does not exist.")
+        prefix = store_prefix(path)
+        entries = npz_load(filename)
+        attrs = {k[len(prefix) + 6:]: json.loads(str(v)) for k, v in entries.items()
+                 if k.startswith(f"{prefix}attrs/")}
+        samples, derived = cls._stored_tables(entries, prefix)
+        if ic is None:
+            ic = _stored_ichrone(attrs, device, dtype)
+        kwargs = {k: tuple(v) for k, v in attrs["kwargs"].items()}
+        mod = cls(ic, name=name if name is not None else attrs["name"], directory=attrs["directory"],
+                  eep_bounds=tuple(attrs["eep_bounds"]), N=int(attrs["N"]), use_emcee=bool(attrs["use_emcee"]),
+                  **kwargs)
+        mod._samples = samples
+        mod._derived_samples = derived
+        # through set_bounds, so the priors' bounds stay in step with the
+        # prior-transform box (a non-default maxAV survives the reload)
+        bounds = attrs["bounds"]
+        mod.set_bounds(**{k: tuple(v) for k, v in bounds.items() if v is not None})
+        for k, v in bounds.items():
+            if v is None:
+                mod._bounds[k] = None
+        if attrs.get("evidence") is not None:
+            mod._evidence = tuple(attrs["evidence"])
+        return mod
+
+
+def _stored_ichrone(attrs, device, dtype):
+    """The interpolator of a stored model: the synthetic grids with the
+    stored bands (the real grids are not ported)."""
+    from .isochrone import get_ichrone
+
+    if attrs.get("ic_type") == "EvolutionTrackInterpolator":
+        raise NotImplementedError("evolution-track grids are not ported (ROADMAP queue 1)")
+    kw = {} if dtype is None else {"dtype": dtype}
+    return get_ichrone("synthetic", bands=attrs["ic_bands"], device=device, **kw)
 
 
 class SingleStarModel(BasicStarModel):
@@ -605,3 +813,24 @@ class TripleStarModel(BasicStarModel):
     def __init__(self, *args, **kwargs):
         kwargs["N"] = 3
         super().__init__(*args, **kwargs)
+
+
+def N_options(N_stars, max_multiples=1, max_stars=2):
+    """Enumerate multiplicity configurations (reference starmodel.py:2110-2116)."""
+    return [
+        N
+        for N in itertools.product(np.arange(max_stars) + 1, repeat=N_stars)
+        if (np.array(N) > 1).sum() <= max_multiples
+    ]
+
+
+def index_options(N_stars):
+    """Enumerate system-index configurations (reference starmodel.py:2119-2127)."""
+    if N_stars == 1:
+        return [0]
+    options = []
+    for ind in itertools.product(range(N_stars), repeat=N_stars):
+        diffs = np.array(ind[1:]) - np.array(ind[:-1])
+        if ind[0] == 0 and diffs.max() <= 1:
+            options.append(ind)
+    return options

@@ -1,7 +1,17 @@
 """Math / small utilities (counterpart of ``isochrones_tpu/utils.py``).
-Host code on numpy."""
+Host code on numpy.
+
+Also the results container of the port. The JAX package's ``save_hdf`` /
+``load_hdf`` write HDF5 through ``h5py``; the port writes the same content
+into one numpy ``.npz`` file (``allow_pickle=False``): every array under a
+key shaped like the HDF5 path (``<path>/samples/values``) and every
+attribute as a JSON string under ``<path>/attrs/<name>``. ``path`` is a key
+prefix, so several models can share a file.
+"""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -34,3 +44,35 @@ def addmags(*mags):
         f_unc = np.sqrt(np.sum([u ** 2 for u in uncs], axis=0))
         return totmag, -2.5 * np.log10(1 - f_unc / tot)
     return totmag
+
+
+def distance(pos0, pos1):
+    """Distance between two (separation, PA) positions (reference: isochrones/utils.py:78-93)."""
+    r0, pa0 = pos0
+    ra0 = r0 * np.sin(pa0 * np.pi / 180)
+    dec0 = r0 * np.cos(pa0 * np.pi / 180)
+    r1, pa1 = pos1
+    ra1 = r1 * np.sin(pa1 * np.pi / 180)
+    dec1 = r1 * np.cos(pa1 * np.pi / 180)
+    return np.sqrt((ra1 - ra0) ** 2 + (dec1 - dec0) ** 2)
+
+
+def store_prefix(path):
+    """The key prefix of ``path`` in a results container (``""`` for the root)."""
+    path = (path or "").strip("/")
+    return f"{path}/" if path else ""
+
+
+def npz_load(filename):
+    """Every entry of a results container as a dict of numpy arrays."""
+    with np.load(filename, allow_pickle=False) as f:
+        return {k: f[k] for k in f.files}
+
+
+def npz_save(filename, entries):
+    """Write a results container whole and atomically (temporary file, then
+    rename), under exactly the name given."""
+    tmp = f"{filename}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, **entries)
+    os.replace(tmp, filename)

@@ -13,7 +13,10 @@ be identical and the kernel never returns NaN. Star kernel: rtol 1e-10 in
 float64 and 0.05 + 1e-4 |ref| for float32 against the float64 plain version
 on the same float32 tables and points, with identical NaN and +-inf
 patterns, for N = 1, 2, 3, every axis-map kind and every group width, on
-adversarial points.
+adversarial points. Tree kernel: 1e-9 + 1e-10 |ref| in float64 and
+0.1 + 2e-4 |ref| for float32 against the float64 plain version, identical
+-inf patterns and never NaN, for 1-8 stars, one and two systems, relative
+rows, density rows, limits, batches that leave idle lanes in the last warp.
 """
 
 import dataclasses
@@ -25,9 +28,9 @@ import pytest
 import torch
 
 from chip_smoke import (
-    ATOL_F32, ATOL_STAR_F32, FIXTURE, RTOL_F32, RTOL_F64, RTOL_STAR_F32, RTOL_STAR_F64, as_float32, check_close,
-    check_star, grid_as, make_kernel_inputs, profile_kernels, star_grid_variant, star_observations, star_points,
-    to_torch,
+    ATOL_F32, ATOL_STAR_F32, FIXTURE, RTOL_F32, RTOL_F64, RTOL_STAR_F32, RTOL_STAR_F64, _tree_check, as_float32,
+    check_close, check_star, grid_as, make_kernel_inputs, profile_kernels, star_grid_variant, star_observations,
+    star_points, to_torch, tree_points,
 )
 from isochrones_torch import BinaryStarModel, StarClusterModel, TripleStarModel, get_ichrone
 from isochrones_torch.catalog import read_csv
@@ -35,6 +38,9 @@ from isochrones_torch.ops.cluster import cluster_lnmarginal, cluster_lnmarginal_
 from isochrones_torch.ops.cluster_cuda import cluster_lnmarginal_cuda
 from isochrones_torch.ops.star import star_lnlike_fused, star_lnlike_fused_plain
 from isochrones_torch.ops.star_cuda import star_lnlike_cuda
+from isochrones_torch.ops.tree import tree_lnlike, tree_lnlike_plain
+from isochrones_torch.ops.tree_cuda import MAX_STARS, tree_lnlike_cuda
+from isochrones_torch.treemodel import StarModel
 
 pytestmark = pytest.mark.cuda
 
@@ -250,3 +256,93 @@ def test_star_kernel_rejects_bad_input(dev):
     bad = dataclasses.replace(lk, pack6=dataclasses.replace(lk.pack6, axis_maps=(("cubic", 0.0, 1.0),) * 3))
     with pytest.raises(ValueError):
         star_lnlike_cuda(p, bad)
+
+
+_TREE_PHOT = dict(J=(9.5, 0.02), H=(9.2, 0.02), K=(9.1, 0.02))
+
+
+def _tree_model(dev, case):
+    """A tree model on the small grid, float64: ``single``/``N<k>`` (k stars
+    of one system under blended photometry), ``star3`` (relative rows),
+    ``two_systems`` (tests/star4 with index [0, 0, 1]), ``density`` (a
+    density and an AV observation, a logg limit with an open end)."""
+    ic = get_ichrone("synthetic", device=dev, **_SMALL)
+    if case == "star3":
+        return StarModel.from_ini(ic, "tests/star3")
+    if case == "two_systems":
+        return StarModel.from_ini(ic, "tests/star4", index=[0, 0, 1])
+    if case == "density":
+        mod = StarModel(ic, N=2, Teff=(5800, 100), density=(1.4, 0.3), AV=(0.1, 0.05), parallax=(5.0, 0.05),
+                        **_TREE_PHOT)
+        mod.obs.add_limit(logg=(3.5, None))
+        mod.obs.add_limit(label="0_1", density=(None, 50.0))
+        return mod
+    n = 1 if case == "single" else int(case[1:])
+    return StarModel(ic, N=n, Teff=(5800, 100), logg=(4.4, 0.1), parallax=(5.0, 0.05), **_TREE_PHOT)
+
+
+def _tree_pts(mod, B, seed):
+    knots = mod.ic.model.knots
+    pts = tree_points(mod.param_names, knots, B, seed=seed)
+    pts[B // 2:] = tree_points(mod.param_names, knots, B - B // 2, seed=seed + 1, narrow=True)
+    return pts
+
+
+@pytest.mark.parametrize("B", [1, 31, 1024, 4097])
+@pytest.mark.parametrize("case", ["single", "N2", "N3", "N5", "N8", "star3", "two_systems", "density"])
+def test_tree_kernel_matches_plain(dev, case, B):
+    """Adversarial points (knots, top knots, one star off the grid, NaN), in
+    batches that leave idle lanes in the last warp."""
+    mod = _tree_model(dev, case)
+    lk = mod._get_fn("lnlike").likelihood
+    _, _, fin, n = _tree_check(f"{case} B={B}", lk, _tree_pts(mod, B, seed=B), dev)
+    if B >= 1024:
+        assert n // 16 < fin < n - n // 16, (fin, n)
+
+
+@pytest.mark.parametrize("kind", ["log", "compare", "searchsorted"])
+def test_tree_kernel_axis_kinds(dev, kind):
+    """The other kinds of cell location, through the shared interpolation code."""
+    mod = _tree_model(dev, "star3")
+    lk = mod._get_fn("lnlike").likelihood
+    model, bc = star_grid_variant(lk.model, lk.bc, kind)
+    lk = dataclasses.replace(lk, model=model, bc=bc)
+    _tree_check(f"star3 {kind}", lk, _tree_pts(mod, 2048, seed=3), dev)
+
+
+def test_tree_kernel_off_grid_star_spoils_only_its_rows(dev):
+    """A star below the grid that sits only in an inactive row leaves the
+    likelihood finite; once its row is active the point is -inf."""
+    mod = _tree_model(dev, "star3")
+    lk = mod._get_fn("lnlike").likelihood
+    rows_of_2 = lk.member[:, 2] > 0
+    quiet = dataclasses.replace(lk, obs_active=torch.where(rows_of_2, 0, lk.obs_active).to(torch.int32))
+    eeps = mod.ic.model.knots[2]
+    p = torch.tensor([[60.0, 50.0, float(eeps[0]) - 0.5, 9.0, 0.0, 200.0, 0.1]], device=dev, dtype=torch.float64)
+    assert torch.isfinite(tree_lnlike_cuda(p, quiet)).all() and torch.isfinite(tree_lnlike_plain(p, quiet)).all()
+    assert (tree_lnlike_cuda(p, lk) == float("-inf")).all() and (tree_lnlike_plain(p, lk) == float("-inf")).all()
+    check_star("quiet", [tree_lnlike_cuda(p, quiet).cpu().numpy()], [tree_lnlike_plain(p, quiet).cpu().numpy()], 1e-10)
+
+
+def test_tree_dispatch_model_and_caps(dev):
+    """The dispatcher launches the kernel once per call; the tree model's
+    lnpost_batch on the card equals the plain path on the CPU (float64, rtol
+    1e-10); a plan beyond a cap raises and names it; a table in another dtype
+    raises."""
+    mod = _tree_model(dev, "two_systems")
+    lk = mod._get_fn("lnlike").likelihood
+    pts = _tree_pts(mod, 256, seed=5)
+    p = torch.as_tensor(pts, device=dev, dtype=torch.float64)
+    before = tree_lnlike_cuda.launches
+    tree_lnlike(p, lk)
+    assert tree_lnlike_cuda.launches == before + 1
+    cpu = StarModel.from_ini(get_ichrone("synthetic", device="cpu", **_SMALL), "tests/star4", index=[0, 0, 1])
+    check_star("tree lnpost", [mod.lnpost_batch(pts).cpu().numpy()], [cpu.lnpost_batch(pts).numpy()], 1e-10, 1e-9)
+    with pytest.raises(ValueError):
+        tree_lnlike_cuda(p.float(), lk)
+    with pytest.raises(ValueError):
+        tree_lnlike_cuda(p[:, :5], lk)
+    big = StarModel(mod.ic, N=MAX_STARS + 1, **_TREE_PHOT)
+    pb = torch.zeros((4, big.n_params), device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError, match="MAX_STARS"):
+        big.lnlike_batch(pb)

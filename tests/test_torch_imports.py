@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``isochrones_torch``
-loads no JAX, no JAX-package and no pandas module (the machine with the
-card has none of them)."""
+loads no JAX, no JAX-package, no pandas and no h5py module (the machine with
+the card has none of them)."""
 
 import json
 import os
@@ -12,7 +12,7 @@ import importlib, json, pkgutil, sys
 import isochrones_torch
 for m in pkgutil.walk_packages(isochrones_torch.__path__, "isochrones_torch."):
     importlib.import_module(m.name)
-bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "isochrones_tpu", "pandas"))
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "isochrones_tpu", "pandas", "h5py"))
 mods = sorted(n for n in sys.modules if n.startswith("isochrones_torch"))
 print(json.dumps([bad, mods]))
 """
@@ -27,6 +27,13 @@ _EXPECTED = (
     "isochrones_torch.ops.star",
     "isochrones_torch.ops.star_cuda",
     "isochrones_torch.samplers.nested",
+    "isochrones_torch.iniparse",
+    "isochrones_torch.observation",
+    "isochrones_torch.ops.tree",
+    "isochrones_torch.ops.tree_cuda",
+    "isochrones_torch.treemodel",
+    "isochrones_torch.starfit",
+    "isochrones_torch.cli.starfit",
 )
 
 

@@ -1,4 +1,5 @@
-"""Port parity of the static nested sampler, ``isochrones_torch.samplers.nested``.
+"""Port parity of the nested sampler, ``isochrones_torch.samplers.nested``
+(static and dynamic; checkpoints are in ``test_torch_checkpoint.py``).
 
 The host assembly (prior-mass schedule, weights, evidence, the running
 termination estimate) is the JAX package's numpy code: on the same numpy
@@ -166,9 +167,92 @@ def test_run_nested_truncation_and_unported_options():
     g.manual_seed(0)
     with pytest.raises(RuntimeError, match="ESS"):
         tn.run_nested(lnpost, transform, 2, g, n_live=40, max_iter=80, n_batch=4, on_low_ess="raise", rng=0)
-    for kw in (dict(n_runs=2), dict(dynamic=True), dict(checkpoint="x.pkl"), dict(resume=True), dict(mesh=object())):
+    for kw in (dict(n_runs=2), dict(mesh=object()), dict(n_runs=2, dynamic=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tn.run_nested(lnpost, transform, 2, g, n_live=40, **kw)
+
+
+def test_run_nested_defaults_to_the_card():
+    """Without a generator and a device the run is on the card; with no card
+    that raises instead of running on the CPU. ``device="cpu"`` runs here."""
+    lnpost, transform = _gauss(2, 0.5)
+    r = tn.run_nested(lnpost, transform, 2, n_live=40, n_batch=4, max_iter=80, rng=0, device="cpu")
+    assert r.n_iter == 80 and r.samples.shape == (120, 2)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    with pytest.raises((RuntimeError, AssertionError)):  # torch's own refusal, by build
+        tn.run_nested(lnpost, transform, 2, n_live=40, n_batch=4, max_iter=80, rng=0)
+
+
+def _segments(seed, n_threads, n_live=40, K=4):
+    """Seeded nested-sampling segments: a base run and threads activated at
+    rising thresholds, each with whole K-batches of ascending dead points."""
+    rng = np.random.default_rng(seed)
+    segs = []
+    for t in range(n_threads + 1):
+        L0 = -np.inf if t == 0 else float(-30.0 + 8.0 * t)
+        lo = -60.0 if t == 0 else L0
+        dead = np.sort(rng.uniform(lo, -2.0, K * (30 - 5 * t)))
+        live = rng.uniform(-2.0, 0.0, n_live)
+        all_u = rng.random((len(dead) + n_live, 3))
+        segs.append(dict(dead_lnl=dead, live_lnl=live, all_u=all_u, n_live=n_live, n_batch=K, L0=L0))
+    return segs
+
+
+@pytest.mark.parametrize("n_threads", [0, 1, 3])
+def test_merge_segments_and_thread_starts_match_jax(n_threads):
+    from isochrones_torch.convert import segments_from_reference
+
+    segs = _segments(n_threads + 5, n_threads)
+    jsegs = [{k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v) for k, v in s.items()} for s in segs]
+    got = tn._merge_segments(segments_from_reference(jsegs))
+    ref = jn._merge_segments(segs)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(r))
+    if n_threads == 0:  # one segment: the dead points weigh as in the static assembly
+        s = segs[0]
+        _, all_lnl, all_logwt, _, _, _ = tn._assemble_weights(s["dead_lnl"], s["live_lnl"], 40, 4)
+        n_dead = len(s["dead_lnl"])
+        np.testing.assert_allclose(got[1], all_lnl)
+        np.testing.assert_allclose(got[2][:n_dead], all_logwt[:n_dead], rtol=1e-12)
+    for frac in (0.025, 0.5):
+        t, j = tn._thread_starts(got, frac, 40), jn._thread_starts(ref, frac, 40)
+        assert t[0] == j[0]
+        np.testing.assert_array_equal(t[1], j[1])
+        np.testing.assert_array_equal(t[2], j[2])
+    with pytest.raises(ValueError, match="no alive points"):
+        tn._merge_segments([dict(segs[0], L0=0.0)])
+
+
+def test_dynamic_run_reaches_min_ess():
+    """A narrow Gaussian whose static run, stopped by the evidence criterion,
+    has too few effective samples: the dynamic run adds posterior threads
+    until ``min_ess`` holds; its evidence stays within 3 logzerr of the
+    analytic value, and ``dynamic=False`` leaves the static path alone."""
+    d, sig = 2, 0.12
+    lnpost, transform = _gauss(d, sig)
+    kw = dict(n_live=100, n_batch=8, n_chains=4, n_repeat=8, rng=9)
+
+    def gen():
+        g = torch.Generator()
+        g.manual_seed(7)
+        return g
+
+    base = tn.run_nested(lnpost, transform, d, gen(), dynamic=True, min_ess=1500, max_dynamic_rounds=0, **kw)
+    assert base.truncated and base.ess < 1500 and base.dynamic_rounds == 0
+    dyn = tn.run_nested(lnpost, transform, d, gen(), dynamic=True, min_ess=1500, **kw)
+    assert dyn.dynamic_rounds >= 1 and dyn.ess >= 1500 and not dyn.truncated
+    assert dyn.n_iter > base.n_iter and dyn.samples.shape[0] > base.samples.shape[0]
+    truth = -d * np.log(10.0)
+    assert abs(dyn.logz - truth) < 3 * dyn.logzerr, (dyn.logz, dyn.logzerr, truth)
+    np.testing.assert_allclose(dyn.posterior.std(0), sig, rtol=0.15)
+    assert (np.diff(dyn.logl) >= 0).all()  # merged rows ascend in lnL
+    # where the base run already has the samples, no thread runs, and the
+    # merged single-segment assembly is the static one
+    static = tn.run_nested(lnpost, transform, d, gen(), **kw)
+    idle = tn.run_nested(lnpost, transform, d, gen(), dynamic=True, **kw)
+    assert static.dynamic_rounds == idle.dynamic_rounds == 0 and static.n_iter == idle.n_iter == base.n_iter
+    assert idle.logz == pytest.approx(static.logz, rel=1e-12) and idle.ess == pytest.approx(static.ess, rel=1e-9)
 
 
 @pytest.fixture(scope="module")

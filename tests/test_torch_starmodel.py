@@ -175,6 +175,7 @@ def test_derived_samples_match_jax(ics, N):
 
 def test_fit_multinest_options_not_ported(ics):
     tm, _ = _models(ics, 1)
-    for kw in (dict(checkpoint=True), dict(resume=True), dict(dynamic=True), dict(n_runs=2)):
+    for kw in (dict(n_runs=2), dict(mesh=object()), dict(n_runs=2, dynamic=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm.fit_multinest(n_live_points=40, **kw)
+    assert type(tm)._default_dynamic is False  # the flat model's fit stays static unless asked
