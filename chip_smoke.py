@@ -34,18 +34,26 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    n_chains=16)`` in float32, then ``derived_samples``; logz finite, the run
    not truncated, the kernel launched, and the distance posterior's 2.5-97.5%
    interval holding the true 200 pc;
-9. tree kernel: the observation-tree likelihood kernel against its plain
-   PyTorch version on the card at the MIST-scale grid, for two plans (one
-   system of three stars: blended J, H, K, an AO camera with two companions
-   in relative J, H, K, spectroscopy on the primary, a parallax; and two
-   systems in one parameter vector), at B = 131072 and at the nested fit's
-   1024 points, in float64 and float32, on adversarial rows (exact and top
-   knots, one star off the grid while the others are on it, NaN); identical
-   -inf patterns; the kernel's device time beside its bound;
+9. tree kernel: the observation-tree likelihood kernel (``ll`` and the EEP
+   prior's two columns per star) against its plain PyTorch version on the
+   card at the MIST-scale grid, for two plans (one system of three stars:
+   blended J, H, K, an AO camera with two companions in relative J, H, K,
+   spectroscopy on the primary, a parallax; and two systems in one parameter
+   vector) at B = 131072, 24576, 12288 and the nested fit's 1024 points (one
+   lane per point taking the stars in turn, then 2, 4 and 8 lanes per star),
+   and for plans of 1, 5 and 16 stars (a count that is no power of two, and
+   the cap) at two batches each, so that every group width the launch
+   geometry can choose runs; float64 and
+   float32, on adversarial rows (exact and top knots, one star off the grid
+   while the others are on it, NaN); identical -inf and NaN patterns; the
+   kernel's device time beside its bound, and its time at 1, 2, 3, 8 and 16
+   stars (rows in proportion) at 1024 and 131072 points;
 10. tree slice: a folder whose ``star.ini`` this script writes from a known
     truth, through ``StarModel.from_ini`` in float32: lnpost at the truth, a
-    131072-point ``lnpost_batch`` through the kernel against the plain path
-    in float64, throughput of both;
+    131072-point ``lnpost_batch`` through the fused path (the kernel's
+    columns feed the prior) against the composed path (the prior
+    interpolates for itself) and the plain path in float64, throughput of
+    all three, and one 1024-point call of each under the profiler;
 11. tree fit: ``fit(n_live_points=1000, seed=0, checkpoint=True)`` (dynamic
     by default) on that model; logz finite, not truncated, the kernel
     launched, the distance posterior holding the truth; then ``save_hdf`` ->
@@ -119,10 +127,17 @@ RTOL_TREE_F64, ATOL_TREE_F64 = 1e-10, 1e-9
 #: its own, so its residual carries twice that; with errors of 0.02-0.05 mag a
 #: term with residual r moves by ~r/u^2 * 2e-5. Twice the star kernel's bars
 RTOL_TREE_F32, ATOL_TREE_F32 = 2e-4, 0.1
+#: the float32 tree kernel's two prior columns (the EEP-prior quantity, of
+#: order 0.1-10, and its derivative, 1e-3-1) against the float64 plain
+#: version on the same float32 table and points: a lerp of 8 products whose
+#: weights carry ~1e-7 relative float32 rounding, so ~1e-6 relative; 1e-4
+#: relative and 1e-6 absolute hold with margin
+RTOL_TREE_COL_F32, ATOL_TREE_COL_F32 = 1e-4, 1e-6
 #: the tree slice's truth: one system of three stars (EEPs), age, feh,
 #: distance [pc], AV
 TREE_TRUTH = (350.0, 300.0, 250.0, 9.0, 0.0, 200.0, 0.1)
-#: the layout of tests/star3/star.ini; the magnitudes come from TREE_TRUTH
+#: the layout of tests/star3/star.ini; the magnitudes come from TREE_TRUTH.
+#: ``write_tree_ini`` adds one companion block per further star
 TREE_INI = """maxAV = 0.9
 RA = 45.0
 dec = 5.0
@@ -135,19 +150,12 @@ parallax = {parallax:.4f}, 0.05
 J = {J:.4f}, 0.021
 H = {H:.4f}, 0.019
 K = {K:.4f}, 0.013
-
-[AOcam]
-resolution = 0.1
-separation_1 = 0.5
-PA_1 = 100
-K_1 = {dK1:.4f}, 0.05
-H_1 = {dH1:.4f}, 0.03
-J_1 = {dJ1:.4f}, 0.05
-separation_2 = 1.1
-PA_2 = 200
-K_2 = {dK2:.4f}, 0.1
-H_2 = {dH2:.4f}, 0.1
-J_2 = {dJ2:.4f}, 0.1
+"""
+TREE_INI_COMPANION = """separation_{i} = {sep:.1f}
+PA_{i} = {pa}
+K_{i} = {dK:.4f}, {uK}
+H_{i} = {dH:.4f}, {uH}
+J_{i} = {dJ:.4f}, {uJ}
 """
 #: the layout and values of tests/star4/star.ini (companions seen in other
 #: bands by a second instrument), fitted as two systems: index=[0, 0, 1]
@@ -385,23 +393,25 @@ def check_star(name, got, ref, rtol, atol=0.0):
 
 
 def write_tree_ini(folder, ic, truth=TREE_TRUTH):
-    """A folder with a ``star.ini`` in the layout of TREE_INI whose
-    magnitudes are those of ``truth`` through ``ic.interp_mag``: blended J, H,
-    K of the three stars, the companions' magnitudes relative to the primary,
-    the primary's Teff, logg and feh, the true parallax."""
-    e0, e1, e2, age, feh, dist, av = truth
-    comps = [ic.interp_mag([e, age, feh, dist, av], ["J", "H", "K"]) for e in (e0, e1, e2)]
-    mags = np.array([np.asarray(c[3], dtype=float) for c in comps])  # (3 stars, 3 bands)
+    """A folder with a ``star.ini`` in the layout of tests/star3/star.ini
+    whose magnitudes are those of ``truth`` (the stars' EEPs, then age, feh,
+    distance, AV) through ``ic.interp_mag``: blended J, H, K of all stars,
+    each companion's magnitudes relative to the primary as seen by an AO
+    camera, the primary's Teff, logg and feh, the true parallax."""
+    *eeps, age, feh, dist, av = truth
+    comps = [ic.interp_mag([e, age, feh, dist, av], ["J", "H", "K"]) for e in eeps]
+    mags = np.array([np.asarray(c[3], dtype=float) for c in comps])  # (stars, 3 bands)
     tot = -2.5 * np.log10((10 ** (-0.4 * mags)).sum(axis=0))
-    vals = dict(Teff=comps[0][0], logg=comps[0][1], feh=comps[0][2], parallax=1000.0 / dist)
-    for k, b in enumerate("JHK"):
-        vals[b] = tot[k]
-        vals[f"d{b}1"] = mags[1, k] - mags[0, k]
-        vals[f"d{b}2"] = mags[2, k] - mags[0, k]
-    os.makedirs(folder, exist_ok=True)
-    with open(os.path.join(folder, "star.ini"), "w") as f:
-        f.write(TREE_INI.format(**vals))
-    return folder
+    text = TREE_INI.format(Teff=comps[0][0], logg=comps[0][1], feh=comps[0][2], parallax=1000.0 / dist,
+                           J=tot[0], H=tot[1], K=tot[2])
+    if len(eeps) > 1:
+        text += "\n[AOcam]\nresolution = 0.1\n"
+    for i in range(1, len(eeps)):
+        d = mags[i] - mags[0]
+        unc = dict(uK=0.05, uH=0.03, uJ=0.05) if i == 1 else dict(uK=0.1, uH=0.1, uJ=0.1)
+        text += TREE_INI_COMPANION.format(i=i, sep=0.5 + 0.6 * (i - 1), pa=(100 * i) % 360, dJ=d[0], dH=d[1], dK=d[2],
+                                          **unc)
+    return write_ini(folder, text)
 
 
 def write_ini(folder, text):
@@ -462,15 +472,17 @@ def tree_likelihood_as(lk, dtype):
 
 
 def tree_work(pars, lk):
-    """``(bytes, flops, special functions)`` of the tree likelihood on these
-    points: the parameters read and the output written once, the plan's
-    arrays once, each distinct table row that the batch's corners touch read
-    once (4 pack columns, the density column when a row needs it, the band
-    columns of the BC table); per (point, star) ~70 flops of cell location, 8
-    corners x (6 weight flops + 8 lerp flops), 16 corners x (8 + 2 per band),
-    3 flops and one pow per band, one log10, 2 flops per observation row; per
-    point and observation row a log10 and, with the spectroscopy, parallax
-    and AV rows, a log and ~6 flops per Gaussian term."""
+    """``(bytes, flops, special functions)`` of the tree likelihood and the
+    EEP prior's two columns on these points: the parameters read and the
+    outputs (``ll`` per point, two columns per point and star) written once,
+    the plan's arrays once, each distinct table row that the batch's corners
+    touch read once (6 pack columns, the density column when a row needs it,
+    the band columns of the BC table); per (point, star) ~70 flops of cell
+    location, 8 corners x (6 weight flops + 12 lerp flops), 16 corners x (8 +
+    2 per band), 3 flops and one pow per band, one log10, 2 flops per
+    observation row; per point and observation row a log10 and, with the
+    spectroscopy, parallax and AV rows, a log and ~6 flops per Gaussian
+    term."""
     import torch
 
     from isochrones_torch.ops.interp import interp_nd
@@ -479,16 +491,16 @@ def tree_work(pars, lk):
     io = lk.index_order
     sp = pars[:, lk.star_param_idx.long()].reshape(B * S, 5)
     gp = torch.stack([sp[:, io[0]], sp[:, io[1]], sp[:, io[2]]], dim=-1)
-    v4 = interp_nd(lk.model.values, lk.model.knots, gp, axis_maps=lk.model.axis_maps)
-    bp = torch.stack([v4[:, 0], v4[:, 1], v4[:, 2], sp[:, io[4]]], dim=-1)
+    v6 = interp_nd(lk.model.values, lk.model.knots, gp, axis_maps=lk.model.axis_maps)
+    bp = torch.stack([v6[:, 0], v6[:, 1], v6[:, 2], sp[:, io[4]]], dim=-1)
     e = pars.element_size()
     model_rows = _touched_rows(lk.model, gp)
-    elems = model_rows * (4 + (lk.full_model is not None)) + _touched_rows(lk.bc, bp) * nb
+    elems = model_rows * (6 + (lk.full_model is not None)) + _touched_rows(lk.bc, bp) * nb
     plan = sum(getattr(lk, f.name).numel() * getattr(lk, f.name).element_size() for f in dataclasses.fields(lk)
                if isinstance(getattr(lk, f.name), torch.Tensor))
-    nbytes = (pars.numel() + B + elems) * e + plan
+    nbytes = (pars.numel() + B * (1 + 2 * S) + elems) * e + plan
     n_terms = n_obs + len(lk.spec_star) + len(lk.plax_idx) + len(lk.av_idx)
-    flops = B * S * (70 + 8 * 14 + 16 * (8 + 2 * nb) + 3 * nb + 2 * n_obs) + B * 6 * n_terms
+    flops = B * S * (70 + 8 * 18 + 16 * (8 + 2 * nb) + 3 * nb + 2 * n_obs) + B * 6 * n_terms
     sfu = B * S * (nb + 1) + B * (n_obs + n_terms)
     return nbytes, flops, sfu
 
@@ -582,37 +594,44 @@ def star_work(pars, lk):
 
 def profile_kernels(fn, reps=1):
     """Run ``fn`` ``reps`` times under ``torch.profiler``; returns ``(wall
-    seconds, {kernel name: (device ms, launches)})`` over the window."""
+    seconds, {kernel name: (device ms, launches)})`` over the window. A
+    window in which the profiler reports no device event at all (it drops a
+    cycle's events now and then) is run again, four times at most."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    return wall, by_name
+    for _ in range(4):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ms, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        if by_name:
+            return wall, by_name
+    raise AssertionError("the profiler reported no device event in 4 windows")
 
 
 def kernel_ms(fn, name, reps, warmup=2):
     """Mean device milliseconds per call of the kernels whose name holds
     ``name``, over ``reps`` calls: the kernels' own time, without launch gaps
-    or the wrapper's torch ops."""
+    or the wrapper's torch ops. Each kernel's mean is taken over the events
+    the profiler reports (it may drop one of a window) and counted as often
+    as a call launches it."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    ms = sum(t for k, (t, _) in profile_kernels(fn, reps)[1].items() if name in k)
-    if not ms > 0:
+    seen = [v for k, v in profile_kernels(fn, reps)[1].items() if name in k]
+    if not seen:
         raise AssertionError(f"the profiler saw no {name} kernel")
-    return ms / reps
+    return sum(ms / n * max(1, round(n / reps)) for ms, n in seen)
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -632,72 +651,107 @@ def cuda_ms(fn, reps, warmup=2):
 
 
 def _tree_check(name, lk64, pts, dev):
-    """The tree kernel against the plain version on ``pts``: float64, and
-    float32 tables and points against the float64 plain version on the same
-    float32 values. Returns ``(err64, err32, finite, n)``."""
+    """The tree kernel's ``(ll, orig_val, deriv)`` against the plain version
+    on ``pts``: float64, and float32 tables and points against the float64
+    plain version on the same float32 values; NaN and +-inf patterns
+    identical. Returns ``(err64, err32, finite, n)``, the errors over all
+    three outputs."""
     import torch
 
-    from isochrones_torch.ops.tree import tree_lnlike_plain
+    from isochrones_torch.ops.tree import tree_lnlike_fused_plain
     from isochrones_torch.ops.tree_cuda import tree_lnlike_cuda
 
+    def host(triple):
+        return [x.cpu().numpy() for x in triple]
+
     p64 = torch.as_tensor(pts, device=dev, dtype=torch.float64)
-    ref64 = tree_lnlike_plain(p64, lk64).cpu().numpy()
-    got64 = tree_lnlike_cuda(p64, lk64).cpu().numpy()
+    ref64 = host(tree_lnlike_fused_plain(p64, lk64))
+    got64 = host(tree_lnlike_cuda(p64, lk64))
     torch.cuda.synchronize()
-    err64 = check_star(f"tree kernel f64 {name}", [got64], [ref64], RTOL_TREE_F64, ATOL_TREE_F64)
+    err64 = check_star(f"tree kernel f64 {name}", got64, ref64, RTOL_TREE_F64, ATOL_TREE_F64)
     lk32 = tree_likelihood_as(lk64, torch.float32)
     lk32up = tree_likelihood_as(lk32, torch.float64)
     p32 = p64.float()
-    ref32 = tree_lnlike_plain(p32.double(), lk32up).cpu().numpy()
-    got32 = tree_lnlike_cuda(p32, lk32).cpu().numpy()
+    ref32 = host(tree_lnlike_fused_plain(p32.double(), lk32up))
+    got32 = host(tree_lnlike_cuda(p32, lk32))
     torch.cuda.synchronize()
-    err32 = check_star(f"tree kernel f32 {name}", [got32], [ref32], RTOL_TREE_F32, ATOL_TREE_F32)
-    if np.isnan(got64).any() or np.isposinf(got64).any():
-        raise AssertionError(f"tree kernel {name}: NaN or +inf in the result")
-    return err64, err32, int(np.isfinite(ref64).sum()), len(ref64)
+    err32 = check_star(f"tree kernel f32 {name}", got32[:1], ref32[:1], RTOL_TREE_F32, ATOL_TREE_F32)
+    err32 = max(err32, check_star(f"tree kernel f32 prior columns {name}", got32[1:], ref32[1:], RTOL_TREE_COL_F32,
+                                  ATOL_TREE_COL_F32))
+    if np.isnan(got64[0]).any() or np.isposinf(got64[0]).any():
+        raise AssertionError(f"tree kernel {name}: NaN or +inf in ll")
+    return err64, err32, int(np.isfinite(ref64[0]).sum()), len(ref64[0])
+
+
+#: batches at which a plan of 3 stars takes 4 star groups of 8, 4 and 2 lanes
+#: per point, and one lane that takes the stars in turn
+TREE_WIDTH_BATCHES = (1024, 12288, 24576, STAR_BATCH)
+#: further plans of phase 9: stars and the batches checked (16 lanes per star;
+#: a star count that is no power of two; the cap, with 2 lanes and 1)
+TREE_EXTRA_PLANS = ((1, (1024, 20000)), (5, (1024, 40000)), (16, (1024, 20000)))
+#: star counts of the timing sweep
+TREE_SWEEP_STARS = (1, 2, 3, 8, 16)
+
+
+def _tree_mixed_points(param_names, knots, batch, seed):
+    """``tree_points`` over the grid's whole box in the first half and over
+    the narrow box in the second, adversarial blocks in both."""
+    pts = tree_points(param_names, knots, batch, seed=seed)
+    pts[batch // 2:] = tree_points(param_names, knots, batch - batch // 2, seed=seed + 100, narrow=True)
+    return pts
+
+
+def _tree_truth(n_stars):
+    """EEPs descending from 350 in steps of 10, then TREE_TRUTH's age, feh,
+    distance and AV."""
+    return tuple(350.0 - 10.0 * i for i in range(n_stars)) + TREE_TRUTH[3:]
 
 
 def phase_tree_kernel(dev, ic32, ic64, workdir):
-    """Phase 9. Returns the record of the kernels line and the float32
-    likelihood and points of the main plan."""
+    """Phase 9. Returns the record of the kernels line."""
     import torch
 
-    from isochrones_torch.ops.tree import tree_lnlike_plain
-    from isochrones_torch.ops.tree_cuda import tree_lnlike_cuda
+    from isochrones_torch.ops.tree import tree_lnlike_fused_plain
+    from isochrones_torch.ops.tree_cuda import launch_geometry, tree_lnlike_cuda
     from isochrones_torch.treemodel import StarModel
 
     fit_batch = NESTED["n_batch"] * NESTED["n_chains"]
+    knots = ic64.model.knots
     three = StarModel.from_ini(ic64, write_tree_ini(os.path.join(workdir, "tree3"), ic64))
     two = StarModel.from_ini(ic64, write_ini(os.path.join(workdir, "tree2sys"), TREE_INI_TWO_SYSTEMS), index=[0, 0, 1])
     record = None
+    widths = set()
     for label, mod in (("one system of 3 stars", three), ("two systems (2 + 1 stars)", two)):
         lk64 = mod._get_fn("lnlike").likelihood
         print(f"[tree] plan {label}: labelstring {mod.labelstring}, params {mod.param_names}, "
               f"{lk64.n_obs} observation rows ({int(lk64.obs_active.sum())} active, "
               f"{int((lk64.obs_ref >= 0).sum())} relative), bands {mod.obs.plan(ic64).bands}, "
               f"{len(lk64.spec_star)} spectroscopy rows, {len(lk64.plax_idx)} parallax")
-        pts = tree_points(mod.param_names, ic64.model.knots, STAR_BATCH, seed=21)
-        pts[STAR_BATCH // 2:] = tree_points(mod.param_names, ic64.model.knots, STAR_BATCH // 2, seed=22, narrow=True)
-        e64, e32, fin, n = _tree_check(f"{label} B={STAR_BATCH}", lk64, pts, dev)
-        ptf = tree_points(mod.param_names, ic64.model.knots, fit_batch, seed=23, narrow=True)
-        f64, f32, ffin, fn_ = _tree_check(f"{label} B={fit_batch}", lk64, ptf, dev)
-        print(f"[tree] kernel vs plain, {label}: B={STAR_BATCH} f64 max_abs_err {e64:.3e} (rtol {RTOL_TREE_F64}), "
-              f"f32 vs f64 max_abs_err {e32:.3e} (rtol {RTOL_TREE_F32} atol {ATOL_TREE_F32}), {fin}/{n} finite; "
-              f"B={fit_batch} f64 {f64:.3e}, f32 {f32:.3e}, {ffin}/{fn_} finite")
-        if fin < n // 8 or fin > n - n // 8:
-            raise AssertionError(f"tree points {label}: {fin}/{n} finite rows do not test both outcomes")
+        for B in TREE_WIDTH_BATCHES:
+            p = _tree_mixed_points(mod.param_names, knots, B, seed=21 + B % 7)
+            groups, G = launch_geometry(B, lk64.n_stars)
+            widths.add(G)
+            e64, e32, fin, n = _tree_check(f"{label} B={B}", lk64, p, dev)
+            print(f"[tree] kernel vs plain (ll, orig_val, deriv), {label}: B={B} ({groups} groups of {G} lanes) f64 max_abs_err "
+                  f"{e64:.3e} (rtol {RTOL_TREE_F64}), f32 vs f64 max_abs_err {e32:.3e} (ll: rtol {RTOL_TREE_F32} atol "
+                  f"{ATOL_TREE_F32}; columns: rtol {RTOL_TREE_COL_F32} atol {ATOL_TREE_COL_F32}), {fin}/{n} finite")
+            if B == STAR_BATCH and (fin < n // 8 or fin > n - n // 8):
+                raise AssertionError(f"tree points {label}: {fin}/{n} finite rows do not test both outcomes")
+            if B == STAR_BATCH:
+                main_err = e32
         if mod is not three:
             continue
         lk32 = tree_likelihood_as(lk64, torch.float32)
-        bench32 = torch.as_tensor(tree_points(mod.param_names, ic64.model.knots, STAR_BATCH, seed=24, narrow=True),
+        bench32 = torch.as_tensor(tree_points(mod.param_names, knots, STAR_BATCH, seed=24, narrow=True),
                                   device=dev, dtype=torch.float32)
-        pf32 = torch.as_tensor(ptf, device=dev, dtype=torch.float32)
+        pf32 = torch.as_tensor(tree_points(mod.param_names, knots, fit_batch, seed=23, narrow=True), device=dev,
+                               dtype=torch.float32)
         ms = kernel_ms(lambda: tree_lnlike_cuda(bench32, lk32), "tree_lnlike", reps=20)
-        plain_ms = cuda_ms(lambda: tree_lnlike_plain(bench32, lk32), reps=5)
+        plain_ms = cuda_ms(lambda: tree_lnlike_fused_plain(bench32, lk32), reps=5)
         ms64 = kernel_ms(lambda: tree_lnlike_cuda(bench32.double(), lk64), "tree_lnlike", reps=10)
         bnd = bound(*tree_work(bench32, lk32), "float32")
         fit_ms = kernel_ms(lambda: tree_lnlike_cuda(pf32, lk32), "tree_lnlike", reps=200)
-        fit_plain_ms = cuda_ms(lambda: tree_lnlike_plain(pf32, lk32), reps=20)
+        fit_plain_ms = cuda_ms(lambda: tree_lnlike_fused_plain(pf32, lk32), reps=20)
         fit_bnd = bound(*tree_work(pf32, lk32), "float32")
         print(f"[tree] time B={STAR_BATCH} {label}: kernel f32 {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, kernel f64 "
               f"{ms64:.4f} ms; f32 bound {bnd[0]:.5f} ms ({bnd[2]}), kernel at {bnd[0] / ms:.3f} of it")
@@ -707,13 +761,42 @@ def phase_tree_kernel(dev, ic32, ic64, workdir):
         record = {
             "name": "tree_lnlike", "route": "cuda", "source": "isochrones_torch/csrc/tree_lnlike.cu",
             "replaces": "isochrones_tpu/observation.py:1269",
-            "launches": None, "max_abs_err": e32, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "launches": None, "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": None,
             "shape": {"B": STAR_BATCH, "stars": lk32.n_stars, "obs_rows": lk32.n_obs, "bands": len(lk32.band_icols),
                       "dtype": "float32"},
             "ms_fit_batch": fit_ms, "plain_ms_fit_batch": fit_plain_ms, "bound_ms_fit_batch": fit_bnd[0],
             "fit_batch": fit_batch,
         }
+
+    # other star counts: every group width, a count off the powers of two, the cap
+    for n_stars, batches in TREE_EXTRA_PLANS:
+        mod = StarModel.from_ini(ic64, write_tree_ini(os.path.join(workdir, f"tree{n_stars}"), ic64,
+                                                      _tree_truth(n_stars)))
+        lk64 = mod._get_fn("lnlike").likelihood
+        if lk64.n_stars != n_stars:
+            raise AssertionError(f"the {n_stars}-star folder gave a plan of {lk64.n_stars} stars")
+        for B in batches:
+            p = _tree_mixed_points(mod.param_names, knots, B, seed=30 + n_stars)
+            groups, G = launch_geometry(B, n_stars)
+            widths.add(G)
+            e64, e32, fin, n = _tree_check(f"{n_stars} stars B={B}", lk64, p, dev)
+            print(f"[tree] kernel vs plain, {n_stars} stars, {lk64.n_obs} rows: B={B} ({groups} groups of {G} lanes) f64 "
+                  f"max_abs_err {e64:.3e}, f32 vs f64 max_abs_err {e32:.3e}, {fin}/{n} finite")
+    if widths != {1, 2, 4, 8, 16}:
+        raise AssertionError(f"group widths checked: {sorted(widths)}")
+
+    # the kernel's time against the number of stars, rows in proportion
+    for n_stars in TREE_SWEEP_STARS:
+        mod = StarModel.from_ini(ic32, write_tree_ini(os.path.join(workdir, f"sweep{n_stars}"), ic32,
+                                                      _tree_truth(n_stars)))
+        lk32 = mod._get_fn("lnlike").likelihood
+        for B, reps in ((fit_batch, 100), (STAR_BATCH, 10)):
+            p32 = torch.as_tensor(tree_points(mod.param_names, knots, B, seed=60 + n_stars, narrow=True), device=dev,
+                                  dtype=torch.float32)
+            ms_n = kernel_ms(lambda: tree_lnlike_cuda(p32, lk32), "tree_lnlike", reps=reps)
+            groups, G = launch_geometry(B, n_stars)
+            print(f"[tree] sweep: {n_stars} stars, {lk32.n_obs} rows, B={B} ({groups} groups of {G} lanes): kernel f32 {ms_n:.4f} ms, {1e6 * ms_n / (B * n_stars):.3f} ns per (point, star)")
     return record
 
 
@@ -739,38 +822,53 @@ def phase_tree_slice_and_fit(dev, ic32, ic64, workdir):
     lp_k64 = mod64.lnpost_batch(p64).cpu().numpy()
     if tree_lnlike_cuda.launches != before + 1:
         raise AssertionError("the tree model's lnpost_batch did not launch the tree kernel once")
-    # the plain path on the card: a likelihood closure over the plain version
+    if mod32._build_lnpost_fused() is None or mod64._build_lnpost_fused() is None:
+        raise AssertionError("the tree model did not take the fused posterior")
     lk64 = mod64._get_fn("lnlike").likelihood
     lk32 = mod32._get_fn("lnlike").likelihood
-    lnprior64, lnprior32 = mod64._get_fn("lnprior"), mod32._get_fn("lnprior")
 
-    def plain_lnpost(p, lk, lnprior):
-        lnpr = lnprior(p)
-        ll = tree_ops.tree_lnlike_plain(p, lk)
-        return torch.where(torch.isfinite(lnpr), lnpr + ll, float("-inf"))
+    def composed_lnpost(mod, lnlike):
+        """lnprior + lnlike: the prior interpolates for itself."""
+        lnprior = mod._get_fn("lnprior")
 
-    lp_p64 = plain_lnpost(p64, lk64, lnprior64).cpu().numpy()
+        def lnpost(p):
+            lnpr = lnprior(p)
+            ll = lnlike(p)
+            return torch.where(torch.isfinite(lnpr), lnpr + ll, float("-inf"))
+
+        return lnpost
+
+    composed64, composed32 = (composed_lnpost(m, m._get_fn("lnlike")) for m in (mod64, mod32))
+    # the plain path on the card: the composed posterior over the plain version
+    plain64 = composed_lnpost(mod64, lambda p: tree_ops.tree_lnlike_plain(p, lk64))
+    plain32 = composed_lnpost(mod32, lambda p: tree_ops.tree_lnlike_plain(p, lk32))
+    lp_c64 = composed64(p64).cpu().numpy()
+    lp_p64 = plain64(p64).cpu().numpy()
+    err_c = check_star("tree lnpost_batch f64 fused vs composed", [lp_k64], [lp_c64], RTOL_TREE_F64, ATOL_TREE_F64)
     err = check_star("tree lnpost_batch f64 kernel vs plain", [lp_k64], [lp_p64], RTOL_TREE_F64, ATOL_TREE_F64)
-    kernel_rate = STAR_BATCH / _wall(lambda: mod32.lnpost_batch(p32), reps=10)
-    plain_rate = STAR_BATCH / _wall(lambda: plain_lnpost(p32, lk32, lnprior32), reps=3)
-    print(f"[tree slice] lnpost(truth) = {lp:.6f} (f32); {STAR_BATCH}-point lnpost_batch f64 kernel vs plain "
-          f"max_abs_err {err:.3e} (rtol {RTOL_TREE_F64}), {int(np.isfinite(lp_p64).sum())} finite")
-    print(f"[tree slice] lnpost_batch f32 throughput: kernel path {kernel_rate:.1f} evals/s, plain path "
-          f"{plain_rate:.1f} evals/s")
+    fused_rate = STAR_BATCH / _wall(lambda: mod32.lnpost_batch(p32), reps=10)
+    composed_rate = STAR_BATCH / _wall(lambda: composed32(p32), reps=10)
+    plain_rate = STAR_BATCH / _wall(lambda: plain32(p32), reps=3)
+    print(f"[tree slice] lnpost(truth) = {lp:.6f} (f32); {STAR_BATCH}-point lnpost_batch f64: fused vs composed "
+          f"max_abs_err {err_c:.3e}, fused vs plain max_abs_err {err:.3e} (rtol {RTOL_TREE_F64}), "
+          f"{int(np.isfinite(lp_p64).sum())} finite")
+    print(f"[tree slice] lnpost_batch f32 throughput: fused path {fused_rate:.1f} evals/s, composed path "
+          f"{composed_rate:.1f} evals/s, plain path {plain_rate:.1f} evals/s")
     # one call at the fit's batch: what a walk step of the nested fit pays
     fit_batch = NESTED["n_batch"] * NESTED["n_chains"]
     pf32 = p32[:fit_batch].contiguous()
-    call_ms = 1e3 * _wall(lambda: mod32.lnpost_batch(pf32), reps=20)
-    plain_call_ms = 1e3 * _wall(lambda: plain_lnpost(pf32, lk32, lnprior32), reps=10)
     reps = 10
-    wall, by_name = profile_kernels(lambda: mod32.lnpost_batch(pf32), reps=reps)
-    busy_ms = sum(ms for ms, _ in by_name.values()) / reps
-    launches = sum(n for _, n in by_name.values()) / reps
-    tree_ms = sum(ms for k, (ms, _) in by_name.items() if "tree_lnlike" in k) / reps
-    print(f"[tree slice] one {fit_batch}-point lnpost_batch f32: {call_ms:.3f} ms wall-clock through the kernel, "
-          f"{plain_call_ms:.3f} ms plain; under the profiler {1e3 * wall / reps:.3f} ms, {launches:.1f} kernel "
-          f"launches, device busy {busy_ms:.4f} ms (idle share {1 - busy_ms / (1e3 * wall / reps):.3f}), the tree "
-          f"kernel {tree_ms:.4f} ms of it ({tree_ms / busy_ms:.3f})")
+    for label, fn, wall_reps in (("fused", lambda: mod32.lnpost_batch(pf32), 20), ("composed", lambda: composed32(pf32), 20),
+                                 ("plain", lambda: plain32(pf32), 10)):
+        call_ms = 1e3 * _wall(fn, reps=wall_reps)
+        wall, by_name = profile_kernels(fn, reps=reps)
+        busy_ms = sum(ms for ms, _ in by_name.values()) / reps
+        launches = sum(n for _, n in by_name.values()) / reps
+        tree_ms = sum(ms for k, (ms, _) in by_name.items() if "tree_lnlike" in k) / reps
+        print(f"[tree slice] one {fit_batch}-point lnpost_batch f32, {label} path: {call_ms:.3f} ms wall-clock; under "
+              f"the profiler {1e3 * wall / reps:.3f} ms, {launches:.1f} kernel launches, device busy {busy_ms:.4f} ms "
+              f"(idle share {1 - busy_ms / (1e3 * wall / reps):.3f}), the tree kernel {tree_ms:.4f} ms of it "
+              f"({tree_ms / busy_ms:.3f})")
 
     # ---- 11. the tree fit
     tree_lnlike_cuda.launches = 0

@@ -222,12 +222,27 @@ __device__ void locate_finish(const Axis& ax, T x, bool skip, int l, const AxisR
   t = eq ? T(0) : safe_div(sub_rn(x, lo_k), sub_rn(hi_k, lo_k));
 }
 
+// two neighbouring values in one load
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+
 // Multilinear interpolation of `ncols` (<= NC) columns (cols[i], or i when
 // cols is null) of a dense (dims..., row_len) table at one point, by the G
 // lanes of a group, into out[0, ncols); NaN when the point is NaN or out of
 // bounds on any axis. Every lane of the group gets the sums of all 2**NDIM
-// corners' products.
-template <typename T, int NDIM, int G, int NC>
+// corners' products. With PACKED the caller vouches that the rows are the NC
+// columns and nothing else (cols null, ncols == row_len == NC, NC even, the
+// table aligned to two values): a row is then read two columns per load,
+// half the gathers of a lane for the same products in the same order.
+template <typename T, int NDIM, int G, int NC, bool PACKED = false>
 __device__ void interp_group(const T* __restrict__ table, const Axis* axes, const T* x, int row_len,
                              const int* cols, int ncols, int l, T* out) {
   AxisReads<T> reads[NDIM];
@@ -260,10 +275,21 @@ __device__ void interp_group(const T* __restrict__ table, const Axis* axes, cons
         row += clampll(cell[d] + o, 0, axes[d].n - 1) * stride[d];
       }
       const T* r = table + row * row_len;
+      if constexpr (PACKED) {
+        static_assert(NC % 2 == 0, "a packed row is read two columns per load");
+        const typename Pair<T>::type* r2 = reinterpret_cast<const typename Pair<T>::type*>(r);
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        if (c == ncols) break;
-        out[c] += w * __ldg(r + (cols ? cols[c] : c));
+        for (int c = 0; c < NC / 2; ++c) {
+          const typename Pair<T>::type x = __ldg(r2 + c);
+          out[2 * c] += w * x.x;
+          out[2 * c + 1] += w * x.y;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          if (c == ncols) break;
+          out[c] += w * __ldg(r + (cols ? cols[c] : c));
+        }
       }
     }
   }

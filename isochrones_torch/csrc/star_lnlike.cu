@@ -43,6 +43,9 @@
 //   the 8 + 16 row reads of a component are in flight together, and the group
 //   sums its corners with xor shuffles; the components' fluxes are summed
 //   the same way across groups (in the same order as a sequential sum).
+// * A row of the 6-column pack is read two columns per load (float2 or
+//   double2): half the gathers of a lane, which is what a full card waits
+//   for at one lane per component.
 // * Cell location in two passes over a point's axes: the first starts every
 //   knot read that needs no decision (the end knots; the 2 knots of the
 //   affine and log kinds' analytic guess; each lane's first 4 knots of the
@@ -126,7 +129,7 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 5 : 1) star_lnlike_kernel(c
 
   const T gx[3] = {comp(a.io[0]), comp(a.io[1]), comp(a.io[2])};
   T v[kPackCols];
-  interp_group<T, 3, G, kPackCols>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, l, v);
+  interp_group<T, 3, G, kPackCols, true>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, l, v);
   if (active && l == 0) {
     static_cast<T*>(a.orig)[b * N + c] = v[4];
     static_cast<T*>(a.deriv)[b * N + c] = v[5];

@@ -1,84 +1,130 @@
-// Observation-tree log-likelihood: one thread per point, one launch per call.
+// Observation-tree log-likelihood and the EEP prior's two columns: a team of
+// lanes per point, one launch per call.
 //
 // Replaces the tree likelihood that the JAX package leaves to XLA to fuse,
-// isochrones_tpu/observation.py:1269-1361 (make_tree_lnlike). For each point
-// (row of `pars`, n_params values: per system its stars' EEPs, then age, feh,
-// distance, AV) and each model star s of the plan it
+// isochrones_tpu/observation.py:1269-1361 (make_tree_lnlike), and the
+// interpolation that its tree prior repeats per star
+// (isochrones_tpu/treemodel.py:370-406). For each point (row of `pars`,
+// n_params values: per system its stars' EEPs, then age, feh, distance, AV)
+// and each model star s of the plan it
 //
-//   1. gathers the star's 5 parameters through star_param_idx;
-//   2. lerps (Teff, logg, feh, Mbol) on the 3 axes of the packed model table,
-//      and the density column of the full table when a spectroscopy or limit
-//      row needs it;
+//   1. gathers the star's 5 parameters through star_par;
+//   2. lerps the 6 columns of the packed model table (Teff, logg, feh, Mbol,
+//      the EEP-prior quantity and its d/dEEP derivative) on its 3 axes, and
+//      the density column of the full table when a spectroscopy or limit row
+//      needs it; the prior's two columns go out as orig (B, n_stars) and
+//      deriv (B, n_stars), NaN where the star is off the grid;
 //   3. lerps the plan's bands on the 4 axes of the BC table at
 //      (Teff, logg, feh, AV) and forms the star's fluxes
 //      10^(-0.4 (Mbol + 5 log10(d / 10) - BC));
-//   4. adds the fluxes into every observation row through the membership
-//      matrix. A NaN flux (an off-grid star) is zeroed before the sum and
-//      remembered per row, so only rows that contain that star go bad;
-//   5. adds the star's Gaussian spectroscopy terms and checks its limits;
 //
-// then turns the rows' flux sums into magnitudes, takes relative rows (and
-// their observed values) against their reference row, adds the active rows'
-// Gaussian terms, the parallax and AV terms of each system, and writes
-// -inf where an active row (or its reference row) is bad, a spectroscopy
-// value is not finite, a limit is broken, or the sum is NaN.
+// then, per observation row, sums the member stars' fluxes (a NaN flux, an
+// off-grid star, is zeroed before the sum and makes the rows that hold the
+// star bad; the product with the membership value is kept, so 0 * inf of a
+// non-member is NaN as in the plain version's sum), turns the sums into
+// magnitudes, takes relative rows (and their observed values) against their
+// reference row, adds the active rows' Gaussian terms, the spectroscopy terms
+// and limits of each star, the parallax and AV terms of each system, and
+// writes -inf where an active row (or its reference row) is bad, a
+// spectroscopy value is not finite, a limit is broken, or the sum is NaN.
 //
 // Semantics are those of the plain version (isochrones_torch/ops/tree.py),
 // interpolation included (interp_common.cuh, shared with star_lnlike.cu).
-// There are no atomics: a point's result does not depend on the launch.
+// There are no atomics, and every sum is taken in an order fixed by the
+// launch geometry: a point's result does not depend on the launch.
 //
-// What bounds it: latency of dependent gathers, as for the star kernel. Per
+// What bounds it: latency of dependent gathers, not bytes or arithmetic. Per
 // point and star it reads 8 rows of the model pack and 16 short rows of the
-// BC table at addresses known only after a cell search, the BC search waits
-// for the model step, and here the stars of a point follow each other in one
-// thread. The bytes a batch must move (parameters, the output, the table
-// rows it touches) take well under a microsecond at the nested fit's 1024
-// points.
+// BC table at addresses known only after a cell search, and the BC search
+// waits for the model step's Teff/logg/feh; the bytes a batch must move
+// (parameters, outputs, the table rows it touches) take well under a
+// microsecond at the nested fit's 1024 points. No tile of either table is
+// contiguous and there is no matrix product, so TMA and the tensor cores have
+// nothing to take; the one contiguous read, the plan, is a few hundred bytes
+// and goes to shared memory by cp.async behind the first cell search.
 //
-// Design: the simple one. One thread per point (the shared interpolation
-// code at a group width of 1), a loop over the stars, the rows' flux sums in
-// a per-thread array. The plan (index and value arrays of a few dozen
-// entries) is read from device memory at addresses uniform across a warp.
-// Caps, checked by the wrapper and here: kMaxStars stars, kMaxObs
-// observation rows, kMaxBands bands.
+// Design, against that bound:
+// * A team of NP * G lanes per point, NP = n_stars rounded up to a power of
+//   two: a group of G lanes per star, the stars' groups side by side, as in
+//   star_lnlike.cu. Each lane of a group takes corners i = l, l + G, ... of
+//   both lerps (a row of the pack two columns per load), so a star's 8 + 16
+//   row reads are in flight together (the two passes of cell location in
+//   interp_common.cuh start every knot read of a point's axes before
+//   deciding any cell), and all stars of a point go at once. A team never
+//   spans warps; G follows the batch (launch_geometry): as wide as 32 / NP
+//   allows (at most 16) while B * NP * G stays within kFillThreads, halving
+//   down to 1 at large batches. B = 1024 with 3 stars takes G = 8 (one warp
+//   per point).
+// * Once the batch fills the card at G = 1, a padded group only adds warps
+//   that issue every instruction for nothing, so there the team shrinks to
+//   the number of groups, a power of two, that leaves the fewest idle star
+//   slots, and a group takes its stars in turn (stars sg, sg + groups, ...):
+//   B = 131072 with 3 stars takes one lane per point and three rounds, 6
+//   stars two groups and three rounds, 16 stars 16 groups and one. On an
+//   H100 that read 0.126 against 0.130 ms in float32 and 0.205 against
+//   0.224 ms in float64 at 131072 points of 3 stars.
+// * The stars meet in shared memory: each group writes its star's fluxes and
+//   (Teff, logg, feh, density) into the team's scratch, and then the team's
+//   lanes share out the rows: lane j takes rows j, j + team, ... of the
+//   observation rows (summing the stars' fluxes in star order, as the plain
+//   version's sum does), then of the active rows' Gaussian terms, the
+//   spectroscopy rows, the limits, the parallax and AV rows. Row magnitudes
+//   live in the team's scratch (a bad row's as NaN), not in a per-thread
+//   array. The lanes' partial sums meet in an xor-shuffle sum over the team,
+//   the -inf flags in a ballot.
+// * The plan is one packed block that the wrapper builds once per plan
+//   (observed values, then one descriptor word per row: band, reference row,
+//   active flag and a 16-bit membership mask; star and property of each
+//   spectroscopy and limit row; parameter columns of parallax and AV rows).
+//   A block copies it to shared memory once; the stars' parameter columns
+//   and the band columns ride in the __grid_constant__ argument struct.
+// * Every shuffle, vote and barrier is reached by all lanes: padded stars'
+//   groups and teams past the batch run on a NaN point (no table reads),
+//   serve as row workers where they can, and write nothing; every branch
+//   around a lerp is uniform across the grid (plan-level conditions only).
+// * Registers at G = 1, where the batch fills the card: held to 128 by
+//   __launch_bounds__(128, 4), 4 blocks and 16 warps per SM, without spills
+//   in float32. At 131072 points of 3 stars (H100, float32 / float64) that
+//   read 0.120 / 0.191 ms; 5 blocks (96 registers, spills) 0.126 / 0.205,
+//   6 blocks 0.133-0.144 / 0.275, 3 blocks 0.147-0.149 / 0.219. The wide
+//   groups run one warp or less per point on a card they do not fill, and
+//   take what the compiler gives them (106 registers, 142 in float64).
+// Caps, checked by the wrapper and here: kMaxStars stars, kMaxObs observation
+// rows, kMaxBands bands, kMaxProps spectroscopy rows and as many limits.
+
+#include <cuda_pipeline_primitives.h>
 
 #include "interp_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kThreads = 128;
 constexpr int kMaxBands = 16;
 constexpr int kMaxStars = 16;
 constexpr int kMaxObs = 64;
+constexpr int kMaxProps = 4 * kMaxStars;  // Teff, logg, feh, density of every star
+constexpr int kPackCols = 6;
+constexpr int kMaxGroup = 16;  // at most 16 lanes per group
+constexpr long long kFillThreads = 1LL << 18;
+constexpr int kStaticShared = 48 * 1024;
+constexpr int kMaxShared = 227 * 1024;
 
 struct TreeArgs {
   const void* pars;        // (B, P)
   void* ll;                // (B,)
-  const void* model;       // (m0, m1, m2, 4) packed model table: Teff, logg, feh, Mbol
+  void* orig;              // (B, n_stars)
+  void* deriv;             // (B, n_stars)
+  const void* model;       // (m0, m1, m2, 6) packed model table
   const void* dens_table;  // (m0, m1, m2, dens_row_len) full model table, or null
   const void* bc;          // (b0, b1, b2, b3, bc_ncols) BC table
-  // the plan; value arrays are of the grids' dtype, index arrays int32
-  const int* star_param_idx;  // (n_stars, 5)
-  const void* member;         // (n_obs, n_stars) 0/1
-  const int* obs_band;        // (n_obs,) index into band_cols
-  const void* obs_val;
-  const void* obs_unc;
-  const int* obs_ref;     // (n_obs,) reference row, -1 for an absolute row
-  const int* obs_active;  // (n_obs,) 0/1
-  const int* spec_star;   // (n_spec,)
-  const int* spec_prop;   // 0 Teff, 1 logg, 2 feh, 3 density
-  const void* spec_val;
-  const void* spec_unc;
-  const int* lim_star;  // (n_lim,)
-  const int* lim_prop;
-  const void* lim_lo;
-  const void* lim_hi;
-  const int* plax_idx;  // (n_plax,) parameter column of the distance
-  const void* plax_val;
-  const void* plax_unc;
-  const int* av_idx;  // (n_av,) parameter column of AV
-  const void* av_val;
-  const void* av_unc;
+  // The packed plan, plan_bytes (a multiple of 16) long. Values of the
+  // grids' dtype: obs_val, obs_unc (n_obs each), spec_val, spec_unc (n_spec),
+  // lim_lo, lim_hi (n_lim), plax_val, plax_unc (n_plax), av_val, av_unc
+  // (n_av); then 32-bit words: per observation row band | (ref + 1) << 4 |
+  // active << 11 | member mask << 16, per spectroscopy row and per limit
+  // star | prop << 8 (prop: 0 Teff, 1 logg, 2 feh, 3 density), the parameter
+  // column of each parallax row's distance and of each AV row's AV.
+  const void* plan;
   long long B;
   int P;
   int n_stars;
@@ -88,11 +134,13 @@ struct TreeArgs {
   int n_lim;
   int n_plax;
   int n_av;
+  int plan_bytes;
   int io[5];  // user order -> (grid axis 0, 1, 2, distance, AV)
   int bc_ncols;
   int dens_row_len;
   int dens_col;
   int band_cols[kMaxBands];
+  short star_par[kMaxStars][5];  // parameter columns of each star's 5 parameters
   Axis model_ax[3];
   Axis bc_ax[4];
 };
@@ -109,112 +157,219 @@ __device__ __forceinline__ bool finite_t(T x) {
   return !isnan(x) && !isinf(x);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) tree_lnlike_kernel(const __grid_constant__ TreeArgs a) {
-  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
-  // a whole warp past the batch leaves; a partial warp keeps its idle lanes
-  // (on the last point), because the cell searches vote across the warp
-  if ((tid & ~31LL) >= a.B) return;
-  const bool in_range = tid < a.B;
-  const long long b = in_range ? tid : a.B - 1;
-  const T* p = static_cast<const T*>(a.pars) + b * a.P;
+// values of the grids' dtype that a team keeps in shared memory: its stars'
+// fluxes and 4 properties, and the rows' magnitudes
+__host__ __device__ __forceinline__ int team_scratch(int n_stars, int n_bands, int n_obs) {
+  return n_stars * (n_bands + 4) + n_obs;
+}
+
+// teams of G << np_shift lanes (1 to 16 star groups, each taking stars sg,
+// sg + groups, ...); a team never straddles a warp
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads, G == 1 ? 4 : 1)
+    tree_lnlike_kernel(const __grid_constant__ TreeArgs a, int np_shift) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  {
+    const char* src = static_cast<const char*>(a.plan);
+    for (int i = threadIdx.x; i < (a.plan_bytes >> 4); i += kThreads)
+      __pipeline_memcpy_async(smem + 16 * i, src + 16 * i, 16);
+    __pipeline_commit();
+  }
+  const int n_stars = a.n_stars, n_obs = a.n_obs, n_bands = a.n_bands;
+  const int team = G << np_shift;
+  const unsigned tshift = __ffs(team) - 1;
+  const unsigned tid = blockIdx.x * kThreads + threadIdx.x;  // the launch keeps B * team < 2^31
+  const long long b = tid >> tshift;
+  const int j = (int)(tid & (team - 1));  // lane of the team
+  const int sg = j / G;                   // star group
+  const int l = j % G;                    // lane of the group
+  const bool valid = b < a.B;
+  const T* p = static_cast<const T*>(a.pars) + (valid ? b : a.B - 1) * a.P;
   const T* model = static_cast<const T*>(a.model);
   const T* dens_table = static_cast<const T*>(a.dens_table);
   const T* bc = static_cast<const T*>(a.bc);
-  const T* member = static_cast<const T*>(a.member);
-  const T* obs_val = static_cast<const T*>(a.obs_val);
-  const T* obs_unc = static_cast<const T*>(a.obs_unc);
-  const int n_stars = a.n_stars, n_obs = a.n_obs, n_bands = a.n_bands;
+  T* scratch = reinterpret_cast<T*>(smem + a.plan_bytes) +
+               (threadIdx.x >> tshift) * team_scratch(n_stars, n_bands, n_obs);
+  T* flux_sm = scratch;                      // [n_stars][n_bands]
+  T* prop_sm = flux_sm + n_stars * n_bands;  // [n_stars][4]
+  T* mag_sm = prop_sm + 4 * n_stars;         // [n_obs]
 
-  T row[kMaxObs];  // the rows' flux sums, then their magnitudes
-  for (int o = 0; o < n_obs; ++o) row[o] = T(0);
-  unsigned long long row_bad = 0;  // bit o: row o holds an off-grid star or has no finite magnitude
-  T spec_ll = T(0);
-  bool bad = false;
-
-  for (int s = 0; s < n_stars; ++s) {
-    const int* idx = a.star_param_idx + 5 * s;
-    const T sp[5] = {p[idx[0]], p[idx[1]], p[idx[2]], p[idx[3]], p[idx[4]]};
+  // every group makes the same number of rounds: the lerps vote and shuffle
+  const int groups = 1 << np_shift;
+  const int padded_stars = (n_stars + groups - 1) & ~(groups - 1);
+  for (int s = sg; s < padded_stars; s += groups) {
+    const bool active = valid && s < n_stars;
+    const short* idx = a.star_par[active ? s : 0];
+    // an idle group's star is NaN: no table reads
+    const T sp[5] = {active ? p[idx[0]] : T(NAN), p[idx[1]], p[idx[2]], p[idx[3]], p[idx[4]]};
     auto par = [&](int i) { return i == 0 ? sp[0] : i == 1 ? sp[1] : i == 2 ? sp[2] : i == 3 ? sp[3] : sp[4]; };
     const T gx[3] = {par(a.io[0]), par(a.io[1]), par(a.io[2])};
-    T v[4];
-    interp_group<T, 3, 1, 4>(model, a.model_ax, gx, 4, nullptr, 4, 0, v);
+    T v[kPackCols];
+    interp_group<T, 3, G, kPackCols, true>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, l, v);
     T dens = T(0);
     if (dens_table != nullptr) {
       T d[1];
-      interp_group<T, 3, 1, 1>(dens_table, a.model_ax, gx, a.dens_row_len, &a.dens_col, 1, 0, d);
+      interp_group<T, 3, G, 1>(dens_table, a.model_ax, gx, a.dens_row_len, &a.dens_col, 1, l, d);
       dens = d[0];
     }
-
+    if (active && l == 0) {
+      static_cast<T*>(a.orig)[b * n_stars + s] = v[4];
+      static_cast<T*>(a.deriv)[b * n_stars + s] = v[5];
+      prop_sm[4 * s + 0] = v[0];
+      prop_sm[4 * s + 1] = v[1];
+      prop_sm[4 * s + 2] = v[2];
+      prop_sm[4 * s + 3] = dens;
+    }
     if (n_obs > 0) {
       T flux[kMaxBands];  // the BC values, then the star's fluxes
       const T bx[4] = {v[0], v[1], v[2], par(a.io[4])};
-      interp_group<T, 4, 1, kMaxBands>(bc, a.bc_ax, bx, a.bc_ncols, a.band_cols, n_bands, 0, flux);
+      interp_group<T, 4, G, kMaxBands>(bc, a.bc_ax, bx, a.bc_ncols, a.band_cols, n_bands, l, flux);
       const T dist_mod = T(5) * d_log10(par(a.io[3]) / T(10));
-      for (int k = 0; k < n_bands; ++k) flux[k] = d_pow(T(10), T(-0.4) * (v[3] + dist_mod - flux[k]));
-      for (int o = 0; o < n_obs; ++o) {
-        const T m = member[o * n_stars + s];
-        const T f = flux[a.obs_band[o]];
-        const bool f_nan = isnan(f);
-        // the product is kept (0 * inf is NaN in the plain version's sum too)
-        row[o] += (f_nan ? T(0) : f) * m;
-        if (f_nan && m > T(0)) row_bad |= 1ULL << o;
+      if (active && l == 0) {
+#pragma unroll
+        for (int k = 0; k < kMaxBands; ++k) {
+          if (k == n_bands) break;
+          flux_sm[s * n_bands + k] = d_pow(T(10), T(-0.4) * (v[3] + dist_mod - flux[k]));
+        }
       }
     }
-
-    auto prop = [&](int k) { return k == 0 ? v[0] : k == 1 ? v[1] : k == 2 ? v[2] : dens; };
-    for (int r = 0; r < a.n_spec; ++r) {
-      if (a.spec_star[r] != s) continue;
-      const T mod = prop(a.spec_prop[r]);
-      spec_ll += tree_gauss<T>(static_cast<const T*>(a.spec_val)[r], static_cast<const T*>(a.spec_unc)[r], mod);
-      if (!finite_t(mod)) bad = true;
-    }
-    for (int r = 0; r < a.n_lim; ++r) {
-      if (a.lim_star[r] != s) continue;
-      const T mod = prop(a.lim_prop[r]);
-      if (mod < static_cast<const T*>(a.lim_lo)[r] || mod > static_cast<const T*>(a.lim_hi)[r] || !finite_t(mod))
-        bad = true;
-    }
   }
+  __pipeline_wait_prior(0);
+  __syncthreads();  // the plan and every team's stars are in shared memory
+
+  const T* obs_val = reinterpret_cast<const T*>(smem);
+  const T* obs_unc = obs_val + n_obs;
+  const T* spec_val = obs_unc + n_obs;
+  const T* spec_unc = spec_val + a.n_spec;
+  const T* lim_lo = spec_unc + a.n_spec;
+  const T* lim_hi = lim_lo + a.n_lim;
+  const T* plax_val = lim_hi + a.n_lim;
+  const T* plax_unc = plax_val + a.n_plax;
+  const T* av_val = plax_unc + a.n_plax;
+  const T* av_unc = av_val + a.n_av;
+  const unsigned* obs_desc = reinterpret_cast<const unsigned*>(av_unc + a.n_av);
+  const unsigned* spec_desc = obs_desc + n_obs;
+  const unsigned* lim_desc = spec_desc + a.n_spec;
+  const unsigned* plax_idx = lim_desc + a.n_lim;
+  const unsigned* av_idx = plax_idx + a.n_plax;
+
+  // the rows' magnitudes; a row that holds an off-grid star is kept as NaN
+  for (int o = j; o < n_obs; o += team) {
+    const unsigned d = obs_desc[o];
+    const int band = d & 15u;
+    const unsigned member = d >> 16;
+    T sum = T(0);
+    bool off_grid = false;
+    for (int t = 0; t < n_stars; ++t) {
+      const T f = flux_sm[t * n_bands + band];
+      const bool f_nan = isnan(f);
+      const bool m = (member >> t) & 1u;
+      // the product is kept (0 * inf is NaN in the plain version's sum too)
+      sum += (f_nan ? T(0) : f) * (m ? T(1) : T(0));
+      off_grid = off_grid || (f_nan && m);
+    }
+    mag_sm[o] = off_grid ? T(NAN) : T(-2.5) * d_log10(sum);
+  }
+  __syncwarp();
 
   T ll = T(0);
-  for (int o = 0; o < n_obs; ++o) {
-    const T mm = T(-2.5) * d_log10(row[o]);
-    row[o] = mm;
-    if (!finite_t(mm)) row_bad |= 1ULL << o;
-  }
-  for (int o = 0; o < n_obs; ++o) {
-    if (a.obs_active[o] == 0) continue;
-    const int ref = a.obs_ref[o];
+  bool bad = false;
+  for (int o = j; o < n_obs; o += team) {
+    const unsigned d = obs_desc[o];
+    if (((d >> 11) & 1u) == 0) continue;
+    const int ref = (int)((d >> 4) & 127u) - 1;
     const bool is_rel = ref >= 0;
-    const T mod = is_rel ? row[o] - row[ref] : row[o];
+    const T mo = mag_sm[o];
+    const T mr = is_rel ? mag_sm[ref] : T(0);
     const T val = is_rel ? obs_val[o] - obs_val[ref] : obs_val[o];
-    ll += tree_gauss<T>(val, obs_unc[o], mod);
-    if (((row_bad >> o) & 1ULL) || (is_rel && ((row_bad >> ref) & 1ULL))) bad = true;
+    ll += tree_gauss<T>(val, obs_unc[o], is_rel ? mo - mr : mo);
+    if (!finite_t(mo) || !finite_t(mr)) bad = true;
   }
-  ll += spec_ll;
-  for (int r = 0; r < a.n_plax; ++r) {
-    const T mod = T(1000) / p[a.plax_idx[r]];
-    ll += tree_gauss<T>(static_cast<const T*>(a.plax_val)[r], static_cast<const T*>(a.plax_unc)[r], mod);
+  for (int r = j; r < a.n_spec; r += team) {
+    const unsigned d = spec_desc[r];
+    const T mod = prop_sm[4 * (d & 255u) + (d >> 8)];
+    ll += tree_gauss<T>(spec_val[r], spec_unc[r], mod);
+    if (!finite_t(mod)) bad = true;
   }
-  for (int r = 0; r < a.n_av; ++r) {
-    ll += tree_gauss<T>(static_cast<const T*>(a.av_val)[r], static_cast<const T*>(a.av_unc)[r], p[a.av_idx[r]]);
+  for (int r = j; r < a.n_lim; r += team) {
+    const unsigned d = lim_desc[r];
+    const T mod = prop_sm[4 * (d & 255u) + (d >> 8)];
+    if (mod < lim_lo[r] || mod > lim_hi[r] || !finite_t(mod)) bad = true;
   }
-  if (bad || isnan(ll)) ll = -INFINITY;
-  if (in_range) static_cast<T*>(a.ll)[b] = ll;
+  for (int r = j; r < a.n_plax; r += team) ll += tree_gauss<T>(plax_val[r], plax_unc[r], T(1000) / p[plax_idx[r]]);
+  for (int r = j; r < a.n_av; r += team) ll += tree_gauss<T>(av_val[r], av_unc[r], p[av_idx[r]]);
+
+  for (int off = team >> 1; off > 0; off >>= 1) ll += __shfl_xor_sync(kFull, ll, off);
+  const unsigned votes = __ballot_sync(kFull, bad);
+  const unsigned mine = (team == 32 ? kFull : (1u << team) - 1u) << ((threadIdx.x & 31u) & ~(unsigned)(team - 1));
+  if ((votes & mine) != 0u || isnan(ll)) ll = -INFINITY;
+  if (valid && j == 0) static_cast<T*>(a.ll)[b] = ll;
+}
+
+// log2 of the star groups per team: n_stars rounded up to a power of two
+int team_shift(int n_stars) {
+  int shift = 0;
+  while ((1 << shift) < n_stars) ++shift;
+  return shift;
+}
+
+// The star groups per team (as their log2) and the lanes per group that a
+// batch of B points takes: the rule is in the header.
+void launch_geometry(long long B, int n_stars, int& np_shift, int& lanes) {
+  np_shift = team_shift(n_stars);
+  lanes = kMaxGroup;
+  while (lanes > 1 && ((lanes << np_shift) > 32 || ((B * lanes) << np_shift) > kFillThreads)) lanes >>= 1;
+  if (lanes == 1 && (B << np_shift) > kFillThreads) {
+    int slots = 1 << np_shift;
+    for (int shift = np_shift - 1; shift >= 0; --shift) {
+      const int padded = ((n_stars + (1 << shift) - 1) >> shift) << shift;
+      if (padded < slots) {
+        slots = padded;
+        np_shift = shift;
+      }
+    }
+  }
+}
+
+template <typename T, int G>
+cudaError_t launch_g(const TreeArgs& a, int np_shift, cudaStream_t st) {
+  const int team = G << np_shift;
+  const long long threads = a.B * team;
+  if (threads >= (1LL << 31)) return cudaErrorInvalidValue;
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  const long long shared =
+      a.plan_bytes + (long long)(kThreads / team) * team_scratch(a.n_stars, a.n_bands, a.n_obs) * sizeof(T);
+  if (shared > kMaxShared) return cudaErrorInvalidValue;
+  if (shared > kStaticShared) {
+    const cudaError_t err = cudaFuncSetAttribute(tree_lnlike_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)shared);
+    if (err != cudaSuccess) return err;
+  }
+  tree_lnlike_kernel<T, G><<<(unsigned)blocks, kThreads, (size_t)shared, st>>>(a, np_shift);
+  return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const TreeArgs* args, void* stream) {
   const TreeArgs& a = *args;
   if (a.B < 0 || a.P < 5 || a.n_stars < 1 || a.n_stars > kMaxStars || a.n_obs < 0 || a.n_obs > kMaxObs ||
-      a.n_bands < 0 || a.n_bands > kMaxBands || a.n_spec < 0 || a.n_lim < 0 || a.n_plax < 0 || a.n_av < 0)
+      a.n_bands < 0 || a.n_bands > kMaxBands || a.n_spec < 0 || a.n_spec > kMaxProps || a.n_lim < 0 ||
+      a.n_lim > kMaxProps || a.n_plax < 0 || a.n_plax > kMaxStars || a.n_av < 0 || a.n_av > kMaxStars ||
+      a.plan_bytes < 0 || (a.plan_bytes & 15) != 0)
     return (int)cudaErrorInvalidValue;
+  const long long n_rows = (long long)a.n_obs + a.n_spec + a.n_lim + a.n_plax + a.n_av;
+  if (a.plan_bytes < (long long)(2 * sizeof(T) + sizeof(unsigned)) * n_rows) return (int)cudaErrorInvalidValue;
   if (a.B == 0) return 0;
-  const long long blocks = (a.B + kThreads - 1) / kThreads;
-  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  tree_lnlike_kernel<T><<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  int ns, lanes;
+  launch_geometry(a.B, a.n_stars, ns, lanes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 16: return (int)launch_g<T, 16>(a, ns, st);
+    case 8: return (int)launch_g<T, 8>(a, ns, st);
+    case 4: return (int)launch_g<T, 4>(a, ns, st);
+    case 2: return (int)launch_g<T, 2>(a, ns, st);
+    default: return (int)launch_g<T, 1>(a, ns, st);
+  }
 }
 
 }  // namespace
@@ -227,7 +382,17 @@ int tree_lnlike_max_stars() { return kMaxStars; }
 
 int tree_lnlike_max_obs() { return kMaxObs; }
 
+int tree_lnlike_max_props() { return kMaxProps; }
+
 int tree_lnlike_args_size() { return (int)sizeof(TreeArgs); }
+
+// star groups per team and lanes per group that a batch of B points of a plan
+// with n_stars stars takes
+void tree_lnlike_geometry(long long B, int n_stars, int* groups, int* lanes) {
+  int np_shift;
+  launch_geometry(B, n_stars, np_shift, *lanes);
+  *groups = 1 << np_shift;
+}
 
 const char* tree_lnlike_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

@@ -43,6 +43,7 @@ __all__ = [
     "TreePlan",
     "compile_plan",
     "make_tree_lnlike",
+    "make_tree_lnlike_fused",
     "tree_lnlike_batch",
     "table_rows",
     "read_rows_csv",
@@ -1252,19 +1253,35 @@ def compile_plan(tree: ObservationTree, ic) -> TreePlan:
     )
 
 
-def make_tree_lnlike(plan: TreePlan):
-    """Build the batched ``(B, n_params) -> (B,)`` tree log-likelihood of a
-    plan on the device of its interpolator. The plan's arrays go to the
+def make_tree_lnlike_fused(plan: TreePlan):
+    """Build the batched ``(B, n_params) -> (ll (B,), orig_val (B, n_stars),
+    deriv (B, n_stars))`` call of a plan on the device of its interpolator:
+    the tree log-likelihood and, per model star (in the order of
+    ``plan.star_labels``), the EEP prior's quantity and its d/dEEP
+    derivative from the same interpolation. The plan's arrays go to the
     device once; each call is one
-    :func:`~isochrones_torch.ops.tree.tree_lnlike`."""
-    from .ops.tree import TreeLikelihood, tree_lnlike
+    :func:`~isochrones_torch.ops.tree.tree_lnlike_fused`."""
+    from .ops.tree import TreeLikelihood, tree_lnlike_fused
 
     lk = TreeLikelihood.from_plan(plan)
 
-    def lnlike_batch(p):
-        return tree_lnlike(p, lk)
+    def lnlike_fused(p):
+        return tree_lnlike_fused(p, lk)
 
-    lnlike_batch.likelihood = lk
+    lnlike_fused.likelihood = lk
+    return lnlike_fused
+
+
+def make_tree_lnlike(plan: TreePlan):
+    """Build the batched ``(B, n_params) -> (B,)`` tree log-likelihood of a
+    plan on the device of its interpolator: ``ll`` of
+    :func:`make_tree_lnlike_fused`."""
+    fused = make_tree_lnlike_fused(plan)
+
+    def lnlike_batch(p):
+        return fused(p)[0]
+
+    lnlike_batch.likelihood = fused.likelihood
     return lnlike_batch
 
 

@@ -79,6 +79,8 @@ def _axes(grid, dtype, device, name):
     vals = grid.values
     if vals.device != device or vals.dtype != dtype or not vals.is_contiguous():
         raise ValueError(f"{name} table must be a contiguous {dtype} tensor on {device}")
+    if vals.data_ptr() % 16:
+        raise ValueError(f"{name} table must be 16-byte aligned (the kernels read packed rows two values per load)")
     if tuple(vals.shape[:-1]) != tuple(k.shape[0] for k in grid.knots):
         raise ValueError(f"{name} table shape {tuple(vals.shape)} does not match its knots")
     maps = grid.axis_maps if grid.axis_maps is not None else (None,) * len(grid.knots)

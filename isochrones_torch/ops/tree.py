@@ -2,17 +2,24 @@
 
 Counterpart of the body of the JAX package's ``make_tree_lnlike``
 (``isochrones_tpu/observation.py:1269-1361``), which XLA compiles into one
-program. For ``(B, n_params)`` parameters it gathers every model star's five
-parameters, interpolates (Teff, logg, feh, Mbol) and the plan's bands for all
+program, and of the interpolation that its tree prior repeats per star
+(``isochrones_tpu/treemodel.py:370-406``). For ``(B, n_params)`` parameters it
+gathers every model star's five parameters, interpolates each star once over
+the 6-column packed table (``model_packed6``: Teff, logg, feh, Mbol, the
+EEP-prior quantity and its d/dEEP derivative) and the plan's bands for all
 stars at once, sums the stars' fluxes into the observation rows through the
 membership matrix, takes relative rows against their reference row, and adds
 the Gaussian photometry, spectroscopy, parallax and AV terms; limits and
-off-grid stars give -inf by the row rules of the reference.
+off-grid stars give -inf by the row rules of the reference. It returns
+``(ll (B,), orig_val (B, n_stars), deriv (B, n_stars))``: the last two feed
+the EEP change-of-variables prior, which stays in torch around the call
+(:mod:`isochrones_torch.treemodel`).
 
-:func:`tree_lnlike` dispatches on the parameters' device: a CPU tensor takes
-:func:`tree_lnlike_plain`, a CUDA tensor the hand-written kernel
+:func:`tree_lnlike_fused` dispatches on the parameters' device: a CPU tensor
+takes :func:`tree_lnlike_fused_plain`, a CUDA tensor the hand-written kernel
 (:mod:`isochrones_torch.ops.tree_cuda`), with no fallback between them. The
-plain version is also the kernel's oracle on the card.
+plain version is also the kernel's oracle on the card. :func:`tree_lnlike` and
+:func:`tree_lnlike_plain` are the same calls' ``ll`` alone.
 """
 
 from __future__ import annotations
@@ -25,9 +32,8 @@ import torch
 
 from .interp import GridData, interp_nd
 from .likelihood import LOG_ONE_OVER_ROOT_2PI
-from .mags import interp_mag
 
-__all__ = ["TreeLikelihood", "tree_lnlike_plain", "tree_lnlike"]
+__all__ = ["TreeLikelihood", "tree_lnlike_fused_plain", "tree_lnlike_fused", "tree_lnlike_plain", "tree_lnlike"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -39,8 +45,7 @@ class TreeLikelihood:
 
     n_params: int
     index_order: Tuple[int, ...]  # user order -> (grid axes 0..2, distance, AV)
-    model: GridData  # (n0, n1, n2, 4) packed table: Teff, logg, feh, Mbol
-    model_icols: Tuple[int, int, int, int]
+    model: GridData  # (n0, n1, n2, 6) model table, see model_packed6
     full_model: Optional[GridData]  # the table with the density column, when a row needs it
     density_icol: Optional[int]
     bc: GridData
@@ -88,10 +93,13 @@ class TreeLikelihood:
         def vals(x):
             return torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=dt, device=dev)
 
+        if ic.model_packed6 is None:
+            raise ValueError("the tree likelihood needs the grid's EEP-prior columns (initial_mass and dm_deep, "
+                             "or age and dt_deep) beside Teff, logg, feh and Mbol")
         has_density = bool((np.asarray(plan.spec_prop) == 3).any() or (np.asarray(plan.lim_prop) == 3).any())
         return cls(
-            n_params=int(plan.n_params), index_order=tuple(ic._param_index_order), model=ic.model_packed,
-            model_icols=tuple(ic._packed_icols), full_model=ic.model if has_density else None,
+            n_params=int(plan.n_params), index_order=tuple(ic._param_index_order), model=ic.model_packed6,
+            full_model=ic.model if has_density else None,
             density_icol=ic.model.column_index["density"] if has_density else None,
             bc=ic.bc, band_icols=tuple(ic.bc.column_index[b] for b in plan.bands),
             star_param_idx=ints(plan.star_param_idx).reshape(-1, 5),
@@ -113,11 +121,20 @@ def _gauss(val, unc, mod):
     return -0.5 * (val - mod) ** 2 / unc ** 2 + LOG_ONE_OVER_ROOT_2PI + torch.log(unc)
 
 
-def tree_lnlike_plain(p: torch.Tensor, lk: TreeLikelihood) -> torch.Tensor:
-    """(..., n_params) -> (...,) in plain torch ops, on any device."""
+def tree_lnlike_fused_plain(p: torch.Tensor, lk: TreeLikelihood):
+    """(..., n_params) -> (ll (...,), orig_val (..., n_stars), deriv (...,
+    n_stars)) in plain torch ops, on any device."""
     neg_inf = float("-inf")
+    io = lk.index_order
     star_pars = p[..., lk.star_param_idx.long()]  # (..., n_stars, 5)
-    Teff, logg, feh, mags = interp_mag(star_pars, lk.index_order, lk.model, lk.model_icols, lk.bc, lk.band_icols)
+    grid_pts = torch.stack([star_pars[..., io[0]], star_pars[..., io[1]], star_pars[..., io[2]]], dim=-1)
+    vals6 = interp_nd(lk.model.values, lk.model.knots, grid_pts, icols=(0, 1, 2, 3, 4, 5),
+                      axis_maps=lk.model.axis_maps)  # (..., n_stars, 6)
+    Teff, logg, feh, mbol, orig_val, deriv = vals6.unbind(dim=-1)
+    bc_pts = torch.stack([Teff, logg, feh, star_pars[..., io[4]]], dim=-1)
+    bc_vals = interp_nd(lk.bc.values, lk.bc.knots, bc_pts, icols=tuple(lk.band_icols), axis_maps=lk.bc.axis_maps)
+    dist_mod = 5.0 * torch.log10(star_pars[..., io[3]] / 10.0)
+    mags = mbol[..., None] + dist_mod[..., None] - bc_vals  # (..., n_stars, n_bands)
     lnl = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
 
     if lk.n_obs:
@@ -145,8 +162,6 @@ def tree_lnlike_plain(p: torch.Tensor, lk: TreeLikelihood) -> torch.Tensor:
 
     if len(lk.spec_star) or len(lk.lim_star):
         if lk.full_model is not None:
-            io = lk.index_order
-            grid_pts = torch.stack([star_pars[..., io[0]], star_pars[..., io[1]], star_pars[..., io[2]]], dim=-1)
             dens = interp_nd(lk.full_model.values, lk.full_model.knots, grid_pts, icols=(lk.density_icol,),
                              axis_maps=lk.full_model.axis_maps)[..., 0]
         else:
@@ -169,17 +184,27 @@ def tree_lnlike_plain(p: torch.Tensor, lk: TreeLikelihood) -> torch.Tensor:
     if len(lk.av_idx):
         lnl = lnl + torch.sum(_gauss(lk.av_val, lk.av_unc, p[..., lk.av_idx.long()]), dim=-1)
 
-    return torch.where(torch.isnan(lnl), neg_inf, lnl)
+    return torch.where(torch.isnan(lnl), neg_inf, lnl), orig_val, deriv
 
 
-def tree_lnlike(p: torch.Tensor, lk: TreeLikelihood) -> torch.Tensor:
-    """The tree likelihood: CPU tensors take :func:`tree_lnlike_plain`, CUDA
-    tensors the kernel."""
+def tree_lnlike_fused(p: torch.Tensor, lk: TreeLikelihood):
+    """The tree likelihood and the EEP prior's two columns: CPU tensors take
+    :func:`tree_lnlike_fused_plain`, CUDA tensors the kernel."""
     kind = p.device.type
     if kind == "cuda":
         from .tree_cuda import tree_lnlike_cuda
 
         return tree_lnlike_cuda(p, lk)
     if kind == "cpu":
-        return tree_lnlike_plain(p, lk)
-    raise ValueError(f"tree_lnlike runs on cpu or cuda tensors, got {kind}")
+        return tree_lnlike_fused_plain(p, lk)
+    raise ValueError(f"tree_lnlike_fused runs on cpu or cuda tensors, got {kind}")
+
+
+def tree_lnlike_plain(p: torch.Tensor, lk: TreeLikelihood) -> torch.Tensor:
+    """``ll`` of :func:`tree_lnlike_fused_plain`."""
+    return tree_lnlike_fused_plain(p, lk)[0]
+
+
+def tree_lnlike(p: torch.Tensor, lk: TreeLikelihood) -> torch.Tensor:
+    """``ll`` of :func:`tree_lnlike_fused`."""
+    return tree_lnlike_fused(p, lk)[0]

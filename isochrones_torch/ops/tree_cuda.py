@@ -1,18 +1,21 @@
 """Hand-written CUDA kernel for the observation-tree likelihood.
 
 Replaces the tree likelihood that the JAX package leaves to XLA
-(``isochrones_tpu/observation.py:1269-1361``); the source is
-``isochrones_torch/csrc/tree_lnlike.cu``, whose header says what bounds it on
-the card and what its (simple) design is. The plain version it replaces sits
-beside it in :mod:`isochrones_torch.ops.tree`.
+(``isochrones_tpu/observation.py:1269-1361``) and the interpolation its tree
+prior repeats per star; the source is ``isochrones_torch/csrc/tree_lnlike.cu``,
+whose header says what bounds it on the card (latency of dependent gathers)
+and how the design answers that: a team of lanes per point, a group of them
+per star, the team's shape derived from the batch. The plain version it
+replaces sits beside it in :mod:`isochrones_torch.ops.tree`.
 
-The wrapper describes the grids and the plan in one by-value argument struct
-(axis kinds and constants, knot pointers, band columns, pointers to the
-plan's device arrays), built once per
+The wrapper describes the grids in one by-value argument struct (axis kinds
+and constants, knot pointers, band columns, each star's parameter columns) and
+packs the plan into one small device block (:func:`pack_plan`: observed
+values, one descriptor word per row), both built once per
 :class:`~isochrones_torch.ops.tree.TreeLikelihood` and patched with the
-per-call pointers. Caps of this version: :data:`MAX_STARS` model stars,
-:data:`MAX_OBS` observation rows, :data:`MAX_BANDS` bands; a plan beyond a cap
-raises ``ValueError``.
+per-call pointers. Caps: :data:`MAX_STARS` model stars, :data:`MAX_OBS`
+observation rows, :data:`MAX_BANDS` bands, :data:`MAX_PROPS` spectroscopy rows
+and as many limits; a plan beyond a cap raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -21,39 +24,33 @@ import ctypes
 import functools
 import weakref
 
+import numpy as np
 import torch
 
 from ._build import load_library
 from .star_cuda import _Axis, _axes
 from .tree import TreeLikelihood
 
-__all__ = ["tree_lnlike_cuda", "MAX_STARS", "MAX_OBS", "MAX_BANDS"]
+__all__ = ["tree_lnlike_cuda", "pack_plan", "launch_geometry", "MAX_STARS", "MAX_OBS", "MAX_BANDS", "MAX_PROPS"]
 
 MAX_STARS = 16
 MAX_OBS = 64
 MAX_BANDS = 16
+MAX_PROPS = 4 * MAX_STARS
 
 _PTR = ctypes.c_void_p
-#: the plan's device arrays, in the order of ``TreeArgs``
-_PLAN_FIELDS = (
-    "star_param_idx", "member", "obs_band", "obs_val", "obs_unc", "obs_ref", "obs_active",
-    "spec_star", "spec_prop", "spec_val", "spec_unc", "lim_star", "lim_prop", "lim_lo", "lim_hi",
-    "plax_idx", "plax_val", "plax_unc", "av_idx", "av_val", "av_unc",
-)
-_INT_FIELDS = {"star_param_idx", "obs_band", "obs_ref", "obs_active", "spec_star", "spec_prop",
-               "lim_star", "lim_prop", "plax_idx", "av_idx"}
 
 
 class _TreeArgs(ctypes.Structure):
     """Mirror of ``TreeArgs`` in ``csrc/tree_lnlike.cu`` (checked by size)."""
 
     _fields_ = (
-        [("pars", _PTR), ("ll", _PTR), ("model", _PTR), ("dens_table", _PTR), ("bc", _PTR)]
-        + [(name, _PTR) for name in _PLAN_FIELDS]
+        [(name, _PTR) for name in ("pars", "ll", "orig", "deriv", "model", "dens_table", "bc", "plan")]
         + [("B", ctypes.c_longlong), ("P", ctypes.c_int), ("n_stars", ctypes.c_int), ("n_obs", ctypes.c_int),
            ("n_bands", ctypes.c_int), ("n_spec", ctypes.c_int), ("n_lim", ctypes.c_int), ("n_plax", ctypes.c_int),
-           ("n_av", ctypes.c_int), ("io", ctypes.c_int * 5), ("bc_ncols", ctypes.c_int),
-           ("dens_row_len", ctypes.c_int), ("dens_col", ctypes.c_int), ("band_cols", ctypes.c_int * MAX_BANDS),
+           ("n_av", ctypes.c_int), ("plan_bytes", ctypes.c_int), ("io", ctypes.c_int * 5),
+           ("bc_ncols", ctypes.c_int), ("dens_row_len", ctypes.c_int), ("dens_col", ctypes.c_int),
+           ("band_cols", ctypes.c_int * MAX_BANDS), ("star_par", (ctypes.c_short * 5) * MAX_STARS),
            ("model_ax", _Axis * 3), ("bc_ax", _Axis * 4)]
     )
 
@@ -66,17 +63,32 @@ def _lib():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(_TreeArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for name in ("tree_lnlike_args_size", "tree_lnlike_max_bands", "tree_lnlike_max_stars", "tree_lnlike_max_obs"):
+    for name in ("tree_lnlike_args_size", "tree_lnlike_max_bands", "tree_lnlike_max_stars", "tree_lnlike_max_obs",
+                 "tree_lnlike_max_props"):
         getattr(lib, name).restype = ctypes.c_int
+    lib.tree_lnlike_geometry.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                                         ctypes.POINTER(ctypes.c_int)]
+    lib.tree_lnlike_geometry.restype = None
     lib.tree_lnlike_error_string.argtypes = [ctypes.c_int]
     lib.tree_lnlike_error_string.restype = ctypes.c_char_p
     if lib.tree_lnlike_args_size() != ctypes.sizeof(_TreeArgs):
         raise RuntimeError(f"TreeArgs layout differs: C {lib.tree_lnlike_args_size()} bytes, "
                            f"ctypes {ctypes.sizeof(_TreeArgs)}")
-    caps = (lib.tree_lnlike_max_stars(), lib.tree_lnlike_max_obs(), lib.tree_lnlike_max_bands())
-    if caps != (MAX_STARS, MAX_OBS, MAX_BANDS):
+    caps = (lib.tree_lnlike_max_stars(), lib.tree_lnlike_max_obs(), lib.tree_lnlike_max_bands(),
+            lib.tree_lnlike_max_props())
+    if caps != (MAX_STARS, MAX_OBS, MAX_BANDS, MAX_PROPS):
         raise RuntimeError(f"tree kernel caps {caps} differ from the wrapper's")
     return lib
+
+
+def launch_geometry(n_points: int, n_stars: int):
+    """``(star groups per point, lanes per group)`` that the kernel gives a
+    batch of ``n_points`` points of a plan with ``n_stars`` stars (the rule is
+    in the source's header); with fewer groups than stars a group takes its
+    stars in turn."""
+    groups, lanes = ctypes.c_int(), ctypes.c_int()
+    _lib().tree_lnlike_geometry(int(n_points), int(n_stars), ctypes.byref(groups), ctypes.byref(lanes))
+    return groups.value, lanes.value
 
 
 def check_caps(lk: TreeLikelihood):
@@ -87,10 +99,50 @@ def check_caps(lk: TreeLikelihood):
         raise ValueError(f"tree kernel takes at most {MAX_OBS} observation rows (MAX_OBS), got {lk.n_obs}")
     if len(lk.band_icols) > MAX_BANDS:
         raise ValueError(f"tree kernel takes at most {MAX_BANDS} bands (MAX_BANDS), got {len(lk.band_icols)}")
+    for what, n in (("spectroscopy rows", len(lk.spec_star)), ("limits", len(lk.lim_star))):
+        if n > MAX_PROPS:
+            raise ValueError(f"tree kernel takes at most {MAX_PROPS} {what} (MAX_PROPS), got {n}")
+    for what, n in (("parallax", len(lk.plax_idx)), ("AV", len(lk.av_idx))):
+        if n > MAX_STARS:
+            raise ValueError(f"tree kernel takes at most {MAX_STARS} {what} rows (MAX_STARS), got {n}")
 
 
-#: per-likelihood argument struct template (pointers to its grids, knots and
-#: plan arrays, which the TreeLikelihood keeps alive)
+def pack_plan(lk: TreeLikelihood, dtype) -> np.ndarray:
+    """The plan as the one block of bytes the kernel copies to shared memory
+    (layout in ``TreeArgs``): the value arrays in ``dtype``, then a 32-bit
+    word per row, padded to a multiple of 16 bytes. Every index the kernel
+    follows is checked here, once per plan."""
+    check_caps(lk)
+
+    def host(name):
+        return getattr(lk, name).detach().cpu().numpy()
+
+    n_stars, n_obs, n_bands = lk.n_stars, lk.n_obs, len(lk.band_icols)
+    for name, hi in (("obs_band", n_bands), ("spec_star", n_stars), ("spec_prop", 4), ("lim_star", n_stars),
+                     ("lim_prop", 4), ("plax_idx", lk.n_params), ("av_idx", lk.n_params)):
+        t = host(name)
+        if t.size and not (0 <= t.min() and t.max() < hi):
+            raise ValueError(f"plan array {name} holds an index outside [0, {hi})")
+    member, ref = host("member"), host("obs_ref").astype(np.int64)
+    if member.shape != (n_obs, n_stars) or not np.isin(member, (0.0, 1.0)).all():
+        raise ValueError("plan array member must be an (n_obs, n_stars) matrix of 0 and 1")
+    if ref.size and not (-1 <= ref.min() and ref.max() < n_obs):
+        raise ValueError("plan array obs_ref holds a row outside the plan")
+    mask = (member.astype(np.int64) << np.arange(n_stars)).sum(axis=1) if n_obs else np.zeros(0, np.int64)
+    obs_desc = (host("obs_band").astype(np.int64) | ((ref + 1) << 4) | ((host("obs_active") > 0).astype(np.int64) << 11)
+                | (mask << 16))
+    words = [obs_desc] + [host(f"{k}_star").astype(np.int64) | (host(f"{k}_prop").astype(np.int64) << 8)
+                          for k in ("spec", "lim")] + [host("plax_idx"), host("av_idx")]
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    values = [host(name).astype(np_dtype) for name in ("obs_val", "obs_unc", "spec_val", "spec_unc", "lim_lo", "lim_hi",
+                                                       "plax_val", "plax_unc", "av_val", "av_unc")]
+    raw = b"".join(v.tobytes() for v in values) + b"".join(w.astype(np.uint32).tobytes() for w in words)
+    return np.frombuffer(raw + bytes(-len(raw) % 16), dtype=np.uint8)
+
+
+#: per-likelihood argument struct template and packed plan (the template
+#: points to the plan block and to the likelihood's grids and knots, which
+#: the TreeLikelihood keeps alive)
 _TEMPLATES = weakref.WeakKeyDictionary()
 
 
@@ -99,9 +151,8 @@ def _template(lk: TreeLikelihood, dtype, device):
     cached = _TEMPLATES.get(lk)
     if cached is not None and cached[0] == key:
         return cached[1]
-    check_caps(lk)
-    if len(lk.model.knots) != 3 or lk.model.values.shape[-1] != 4 or tuple(lk.model_icols) != (0, 1, 2, 3):
-        raise ValueError("tree kernel needs a 3-d, 4-column packed model table (Teff, logg, feh, Mbol)")
+    if len(lk.model.knots) != 3 or lk.model.values.shape[-1] != 6:
+        raise ValueError("tree kernel needs a 3-d, 6-column packed model table")
     if len(lk.bc.knots) != 4:
         raise ValueError("tree kernel needs a 4-d BC table")
     a = _TreeArgs()
@@ -117,12 +168,12 @@ def _template(lk: TreeLikelihood, dtype, device):
         a.dens_col = int(lk.density_icol)
         if not 0 <= a.dens_col < a.dens_row_len:
             raise ValueError(f"density column {a.dens_col} outside the model table")
-    for name in _PLAN_FIELDS:
-        t = getattr(lk, name)
-        want = torch.int32 if name in _INT_FIELDS else dtype
-        if t.device != device or t.dtype != want or not t.is_contiguous():
-            raise ValueError(f"plan array {name} must be a contiguous {want} tensor on {device}")
-        setattr(a, name, t.data_ptr() if t.numel() else None)
+    for name in ("obs_val", "obs_unc", "spec_val", "spec_unc", "lim_lo", "lim_hi", "plax_val", "plax_unc", "av_val",
+                 "av_unc", "member"):
+        if getattr(lk, name).dtype != dtype:
+            raise ValueError(f"plan array {name} must be of the grids' dtype {dtype}")
+    plan = torch.from_numpy(pack_plan(lk, dtype).copy()).to(device)
+    a.plan, a.plan_bytes = plan.data_ptr(), plan.numel()
     a.P = lk.n_params
     a.n_stars, a.n_obs, a.n_bands = lk.n_stars, lk.n_obs, len(lk.band_icols)
     a.n_spec, a.n_lim, a.n_plax, a.n_av = len(lk.spec_star), len(lk.lim_star), len(lk.plax_idx), len(lk.av_idx)
@@ -132,22 +183,19 @@ def _template(lk: TreeLikelihood, dtype, device):
         if not 0 <= c < a.bc_ncols:
             raise ValueError(f"band column {c} outside the BC table")
         a.band_cols[i] = int(c)
-    # every index the kernel follows is checked here, once per plan
-    for name, hi in (("star_param_idx", lk.n_params), ("obs_band", a.n_bands), ("spec_star", lk.n_stars),
-                     ("spec_prop", 4), ("lim_star", lk.n_stars), ("lim_prop", 4), ("plax_idx", lk.n_params),
-                     ("av_idx", lk.n_params)):
-        t = getattr(lk, name)
-        if t.numel() and not (0 <= int(t.min()) and int(t.max()) < hi):
-            raise ValueError(f"plan array {name} holds an index outside [0, {hi})")
-    if lk.obs_ref.numel() and not (-1 <= int(lk.obs_ref.min()) and int(lk.obs_ref.max()) < lk.n_obs):
-        raise ValueError("plan array obs_ref holds a row outside the plan")
-    _TEMPLATES[lk] = (key, a)
-    return a
+    star_par = lk.star_param_idx.cpu().numpy()
+    if star_par.shape != (lk.n_stars, 5) or not (0 <= star_par.min() and star_par.max() < lk.n_params):
+        raise ValueError(f"plan array star_param_idx holds an index outside [0, {lk.n_params})")
+    for s, row in enumerate(star_par):
+        a.star_par[s][:] = [int(c) for c in row]
+    _TEMPLATES[lk] = (key, (a, plan))
+    return a, plan
 
 
-def tree_lnlike_cuda(p: torch.Tensor, lk: TreeLikelihood) -> torch.Tensor:
-    """``ll (B,)`` from one kernel launch. Raises on anything the kernel does
-    not take, and if the launch fails."""
+def tree_lnlike_cuda(p: torch.Tensor, lk: TreeLikelihood):
+    """``(ll (B,), orig_val (B, n_stars), deriv (B, n_stars))`` from one
+    kernel launch. Raises on anything the kernel does not take, and if the
+    launch fails."""
     dt, dev = p.dtype, p.device
     if dev.type != "cuda":
         raise ValueError(f"tree_lnlike_cuda needs CUDA tensors, got {dev}")
@@ -156,19 +204,22 @@ def tree_lnlike_cuda(p: torch.Tensor, lk: TreeLikelihood) -> torch.Tensor:
     if p.dim() != 2 or p.shape[1] != lk.n_params:
         raise ValueError(f"pars must be (B, {lk.n_params}), got {tuple(p.shape)}")
     lib = _lib()
-    a = _template(lk, dt, dev)
+    a, _plan = _template(lk, dt, dev)
     p = p.contiguous()
     B = p.shape[0]
     ll = torch.empty(B, dtype=dt, device=dev)
+    orig = torch.empty((B, lk.n_stars), dtype=dt, device=dev)
+    deriv = torch.empty((B, lk.n_stars), dtype=dt, device=dev)
     call = _TreeArgs.from_buffer_copy(a)
-    call.pars, call.ll, call.B = p.data_ptr(), ll.data_ptr(), B
+    call.pars, call.ll, call.orig, call.deriv = p.data_ptr(), ll.data_ptr(), orig.data_ptr(), deriv.data_ptr()
+    call.B = B
     fn = lib.tree_lnlike_f32 if dt == torch.float32 else lib.tree_lnlike_f64
     with torch.cuda.device(dev):
         err = fn(ctypes.byref(call), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tree_lnlike kernel launch failed: {lib.tree_lnlike_error_string(err).decode()} ({err})")
     tree_lnlike_cuda.launches += 1
-    return ll
+    return ll, orig, deriv
 
 
 #: kernel launches made through this wrapper (reset by callers that count)

@@ -5,9 +5,12 @@ The general model over an :class:`~isochrones_torch.observation.ObservationTree`
 plus ``StarModelGroup``. It inherits the inference plumbing (fit / fit_mcmc /
 fit_multinest / samples) from :class:`~isochrones_torch.starmodel.BasicStarModel`;
 its likelihood is the compiled-plan tree likelihood
-(:func:`isochrones_torch.ops.tree.tree_lnlike`): the hand-written CUDA kernel
-on the card, its plain version on the CPU. Samples and tables are dicts of
-numpy columns and lists of row dicts where the JAX package has DataFrames.
+(:func:`isochrones_torch.ops.tree.tree_lnlike_fused`): the hand-written CUDA
+kernel on the card, its plain version on the CPU. The posterior is fused as
+the flat model's is: one call gives the likelihood and, per star, the EEP
+prior's two interpolated columns, so the prior interpolates nothing itself.
+Samples and tables are dicts of numpy columns and lists of row dicts where
+the JAX package has DataFrames.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import numpy as np
 import torch
 
 from .logger import getLogger
-from .observation import Observation, ObservationTree, Source, make_tree_lnlike, read_rows_csv
+from .observation import (
+    Observation, ObservationTree, Source, make_tree_lnlike, make_tree_lnlike_fused, read_rows_csv,
+)
 from .priors import AgePrior, AVPrior, ChabrierPrior, DistancePrior, EEP_prior, FehPrior, QPrior
 from .starmodel import BasicStarModel, N_options, _stored_ichrone, index_options
 from .utils import addmags, npz_load, npz_save, store_prefix
@@ -357,42 +362,89 @@ class StarModel(BasicStarModel):
     def _build_lnlike_batch(self):
         return make_tree_lnlike(self.obs.plan(self.ic))
 
+    def _shared_lnprior(self, p):
+        """``(lnp, blocks)``: the bounds masks and priors of every system's
+        shared parameters and the descending-EEP constraint (reference
+        starmodel.py:557-613 without its EEP terms), and per system
+        ``(first column, number of stars, age, feh)`` for those terms."""
+        priors = self._priors
+        neg_inf = float("-inf")
+        lnp = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
+        blocks = []
+        i = 0
+        for s in self.obs.systems:
+            n = self.obs.Nstars[s]
+            shared = {
+                "age": p[..., i + n],
+                "feh": p[..., i + n + 1],
+                "distance": p[..., i + n + 2],
+                "AV": p[..., i + n + 3],
+            }
+            for prop, val in shared.items():
+                lo, hi = self.bounds(prop)
+                lnp = torch.where((val < lo) | (val > hi), neg_inf, lnp)
+                lnp = lnp + priors[prop].lnpdf(val)
+            if n > 1:
+                eeps = p[..., i : i + n]
+                descending = (eeps[..., 1:] <= eeps[..., :-1]).all(dim=-1)
+                lnp = torch.where(descending, lnp, neg_inf)
+            blocks.append((i, n, shared["age"], shared["feh"]))
+            i += n + 4
+        return lnp, blocks
+
     def _build_lnprior_batch(self):
         """Per-system priors + descending-EEP constraint
         (reference starmodel.py:557-613)."""
         if self.ic.eep_replaces != "mass":
             raise NotImplementedError("Prior not implemented for evolution track grids")
-        priors = self._priors
-        Nstars = dict(self.obs.Nstars)
-        systems = list(self.obs.systems)
-        shared_bounds = {p: self.bounds(p) for p in ("age", "feh", "distance", "AV")}
-        neg_inf = float("-inf")
+        eep_prior = self._priors["eep"]
 
         def lnprior_batch(p):
-            lnp = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
-            i = 0
-            for s in systems:
-                n = Nstars[s]
-                shared = {
-                    "age": p[..., i + n],
-                    "feh": p[..., i + n + 1],
-                    "distance": p[..., i + n + 2],
-                    "AV": p[..., i + n + 3],
-                }
-                for prop, val in shared.items():
-                    lo, hi = shared_bounds[prop]
-                    lnp = torch.where((val < lo) | (val > hi), neg_inf, lnp)
-                    lnp = lnp + priors[prop].lnpdf(val)
-                eeps = p[..., i : i + n]
-                if n > 1:
-                    descending = (eeps[..., 1:] <= eeps[..., :-1]).all(dim=-1)
-                    lnp = torch.where(descending, lnp, neg_inf)
+            lnp, blocks = self._shared_lnprior(p)
+            for i, n, age, feh in blocks:
                 for j in range(n):
-                    lnp = lnp + priors["eep"].lnpdf(eeps[..., j], age=shared["age"], feh=shared["feh"])
-                i += n + 4
+                    lnp = lnp + eep_prior.lnpdf(p[..., i + j], age=age, feh=feh)
             return lnp
 
         return lnprior_batch
+
+    def _build_lnpost_fused(self):
+        """Fused lnprior + lnlike sharing one interpolation per star over the
+        6-column packed table, as the flat model's
+        (:meth:`BasicStarModel._build_lnpost_fused`): the tree likelihood's
+        call returns the EEP prior's quantity and derivative per star. None
+        (the composed path) for customized priors or subclasses."""
+        ic = self.ic
+        if type(self)._build_lnlike_batch is not StarModel._build_lnlike_batch:
+            return None
+        if type(self)._build_lnprior_batch is not StarModel._build_lnprior_batch:
+            return None
+        if ic.eep_replaces != "mass" or getattr(ic, "model_packed6", None) is None:
+            return None
+        eep_prior = self._priors.get("eep")
+        if type(eep_prior) is not EEP_prior or eep_prior.ic is not ic:
+            return None
+
+        fused = make_tree_lnlike_fused(self.obs.plan(ic))
+        eep_cols = fused.likelihood.star_param_idx[:, 0].long()  # each star's EEP column, in the stars' order
+        eep_lo, eep_hi = eep_prior.bounds
+        orig_prior = eep_prior.orig_prior
+        neg_inf = float("-inf")
+
+        def lnpost(p):
+            ll, orig_val, deriv = fused(p)
+            lnp, _ = self._shared_lnprior(p)
+            # the EEP change of variables of every star at once (priors.py, EEP_prior.lnpdf)
+            eeps = p[..., eep_cols]
+            term = orig_prior.lnpdf(orig_val) + torch.log(torch.clamp(deriv, min=1e-300))
+            term = torch.where(torch.isfinite(orig_val) & (deriv > 0), term, neg_inf)
+            term = torch.where((eeps < eep_lo) | (eeps > eep_hi), neg_inf, term)
+            lnp = lnp + term.sum(dim=-1)
+            ll = torch.where(torch.isnan(ll), neg_inf, ll)
+            return torch.where(torch.isfinite(lnp), lnp + ll, neg_inf)
+
+        lnpost.likelihood = fused.likelihood
+        return lnpost
 
     def prior_transform_batch(self, u):
         """Unit cube -> params, per-system blocks with EEPs sorted descending

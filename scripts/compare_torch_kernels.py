@@ -18,8 +18,11 @@ current, current, the baselines in reverse. Shapes: the cluster
 marginal at (S, E, B) = (50, 700, 3) and (50, 1710, 3) with W = 8 walkers
 (float32; float64 at the first), the fused star likelihood of the bench's
 binary on the MIST-scale grid at the nested fit's batch of 1024 points and at
-131072 points (float32; float64 at the second). ``--reps 0`` builds and
-checks only. Prints one line per case and, with ``--out``, writes the numbers
+131072 points (float32; float64 at the second), and the tree likelihood of
+the smoke run's three-star plan at the same two batches and types. A
+baseline whose tree kernel is the first version (one thread per point, ``ll``
+alone, another argument struct) is called through that version's struct and
+held to the plain version's ``ll``. ``--reps 0`` builds and checks only. Prints one line per case and, with ``--out``, writes the numbers
 as JSON.
 """
 
@@ -33,19 +36,23 @@ import json
 import os
 import re
 import subprocess
+import tempfile
 import time
 
 import torch
 
 import isochrones_torch
 from chip_smoke import (
-    ATOL_F32, ATOL_STAR_F32, GRID, NESTED, RTOL_F32, RTOL_F64, RTOL_STAR_F32, RTOL_STAR_F64, STAR_BATCH, STAR_BOX,
-    as_float32, check_close, check_star, grid_as, kernel_ms, make_kernel_inputs, star_observations, star_points,
-    to_torch,
+    ATOL_F32, ATOL_STAR_F32, ATOL_TREE_COL_F32, ATOL_TREE_F32, ATOL_TREE_F64, GRID, NESTED, RTOL_F32, RTOL_F64,
+    RTOL_STAR_F32, RTOL_STAR_F64, RTOL_TREE_COL_F32, RTOL_TREE_F32, RTOL_TREE_F64, STAR_BATCH, STAR_BOX, as_float32,
+    check_close, check_star, grid_as, kernel_ms, make_kernel_inputs, star_observations, star_points, to_torch,
+    tree_likelihood_as, tree_points, write_tree_ini,
 )
-from isochrones_torch.ops import _build, cluster_cuda, star_cuda
+from isochrones_torch.ops import _build, cluster_cuda, star_cuda, tree_cuda
 from isochrones_torch.ops.cluster import cluster_lnmarginal_plain
 from isochrones_torch.ops.star import star_lnlike_fused_plain
+from isochrones_torch.ops.tree import tree_lnlike_fused_plain
+from isochrones_torch.treemodel import StarModel
 
 
 #: mangled name of the float32 cluster kernel: 3 bands, or the older
@@ -113,19 +120,71 @@ def inner_loop_mix(lib_path, kernel=CLUSTER_F32):
     raise RuntimeError(f"no loop of a kernel matching {kernel.pattern} in {lib_path}")
 
 
+_WRAPPERS = (cluster_cuda, star_cuda, tree_cuda)
+
+
 @contextlib.contextmanager
 def using(lib):
-    """Route both kernel wrappers through the loaded library ``lib``."""
-    saved = cluster_cuda.load_library, star_cuda.load_library
-    cluster_cuda.load_library = star_cuda.load_library = lambda: lib
-    cluster_cuda._lib.cache_clear()
-    star_cuda._lib.cache_clear()
+    """Route the kernel wrappers through the loaded library ``lib``."""
+    saved = [m.load_library for m in _WRAPPERS]
+    for m in _WRAPPERS:
+        m.load_library = lambda: lib
+        m._lib.cache_clear()
     try:
-        yield
+        yield lib
     finally:
-        cluster_cuda.load_library, star_cuda.load_library = saved
-        cluster_cuda._lib.cache_clear()
-        star_cuda._lib.cache_clear()
+        for m, load in zip(_WRAPPERS, saved):
+            m.load_library = load
+            m._lib.cache_clear()
+
+
+#: the plan's device arrays, in the order of the first tree kernel's struct
+_FIRST_PLAN = ("star_param_idx", "member", "obs_band", "obs_val", "obs_unc", "obs_ref", "obs_active", "spec_star",
+               "spec_prop", "spec_val", "spec_unc", "lim_star", "lim_prop", "lim_lo", "lim_hi", "plax_idx",
+               "plax_val", "plax_unc", "av_idx", "av_val", "av_unc")
+
+
+class _TreeArgsFirst(ctypes.Structure):
+    """``TreeArgs`` of the tree kernel's first version: one thread per point,
+    ``ll`` alone, the 4-column model pack, the plan as device arrays."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in ("pars", "ll", "model", "dens_table", "bc") + _FIRST_PLAN]
+        + [("B", ctypes.c_longlong)]
+        + [(name, ctypes.c_int) for name in ("P", "n_stars", "n_obs", "n_bands", "n_spec", "n_lim", "n_plax", "n_av")]
+        + [("io", ctypes.c_int * 5), ("bc_ncols", ctypes.c_int), ("dens_row_len", ctypes.c_int),
+           ("dens_col", ctypes.c_int), ("band_cols", ctypes.c_int * tree_cuda.MAX_BANDS),
+           ("model_ax", star_cuda._Axis * 3), ("bc_ax", star_cuda._Axis * 4)]
+    )
+
+
+def tree_first_version(lib, p, lk, pack4):
+    """``(ll,)`` from the first version of the tree kernel in ``lib``, for a
+    plan without density rows; ``pack4`` is the interpolator's 4-column pack."""
+    if lk.full_model is not None:
+        raise ValueError("the first tree kernel is timed on plans without density rows")
+    lib.tree_lnlike_args_size.restype = ctypes.c_int
+    if lib.tree_lnlike_args_size() != ctypes.sizeof(_TreeArgsFirst):
+        raise RuntimeError("the baseline's tree kernel takes neither the current argument struct nor the first one")
+    a = _TreeArgsFirst()
+    ll = torch.empty(p.shape[0], dtype=p.dtype, device=p.device)
+    a.pars, a.ll, a.model, a.bc, a.dens_table = p.data_ptr(), ll.data_ptr(), pack4.values.data_ptr(), lk.bc.values.data_ptr(), None
+    for name in _FIRST_PLAN:
+        t = getattr(lk, name)
+        setattr(a, name, t.data_ptr() if t.numel() else None)
+    a.B, a.P, a.n_stars, a.n_obs, a.n_bands = p.shape[0], lk.n_params, lk.n_stars, lk.n_obs, len(lk.band_icols)
+    a.n_spec, a.n_lim, a.n_plax, a.n_av = len(lk.spec_star), len(lk.lim_star), len(lk.plax_idx), len(lk.av_idx)
+    a.io[:] = [int(i) for i in lk.index_order[:5]]
+    a.bc_ncols = lk.bc.values.shape[-1]
+    a.band_cols[:len(lk.band_icols)] = [int(c) for c in lk.band_icols]
+    a.model_ax[:] = star_cuda._axes(pack4, p.dtype, p.device, "model")
+    a.bc_ax[:] = star_cuda._axes(lk.bc, p.dtype, p.device, "BC")
+    fn = lib.tree_lnlike_f32 if p.dtype == torch.float32 else lib.tree_lnlike_f64
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+    err = fn(ctypes.byref(a), torch.cuda.current_stream(p.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the first tree kernel's launch failed ({err})")
+    return (ll,)
 
 
 def _cluster_cases(dev):
@@ -140,7 +199,7 @@ def _cluster_cases(dev):
             ref = cluster_lnmarginal_plain(*a64, **kw64)
             tol = (RTOL_F32, ATOL_F32) if dt == "float32" else (RTOL_F64, 0.0)
 
-            def run(a=a, kw=kw):
+            def run(lib, a=a, kw=kw):
                 return cluster_cuda.cluster_lnmarginal_cuda(*a, **kw)
 
             def check(got, ref=ref.cpu().numpy(), tol=tol, name=f"cluster {S, E, B} {dt}"):
@@ -150,9 +209,44 @@ def _cluster_cases(dev):
     return out
 
 
-def _star_cases(dev):
-    ic32 = isochrones_torch.get_ichrone("synthetic", device=dev, dtype=torch.float32, **GRID)
-    ic64 = isochrones_torch.get_ichrone("synthetic", device=dev, dtype=torch.float64, **GRID)
+def _tree_cases(ic32, ic64, dev):
+    """The smoke run's three-star plan at the fit's batch and at 131072
+    points. ``run`` takes the library: the current struct where it fits, the
+    first version's where the library is of that version."""
+    with tempfile.TemporaryDirectory() as folder:
+        mod = StarModel.from_ini(ic64, write_tree_ini(folder, ic64))
+    lk64 = mod._get_fn("lnlike").likelihood
+    lk32 = tree_likelihood_as(lk64, torch.float32)
+    lk32up = tree_likelihood_as(lk32, torch.float64)
+    names = mod.param_names
+    fit_batch = NESTED["n_batch"] * NESTED["n_chains"]
+    out = []
+    for B, seed, dtypes in ((fit_batch, 23, ("float32",)), (STAR_BATCH, 24, ("float32", "float64"))):
+        p32 = torch.as_tensor(tree_points(names, ic64.model.knots, B, seed=seed, narrow=True), device=dev,
+                              dtype=torch.float32)
+        for dt in dtypes:
+            p, lk, pack4 = (p32, lk32, ic32.model_packed) if dt == "float32" else (p32.double(), lk64, ic64.model_packed)
+            ref = [x.cpu().numpy() for x in tree_lnlike_fused_plain(p.double(), lk32up if dt == "float32" else lk64)]
+            f32 = dt == "float32"
+
+            def run(lib, p=p, lk=lk, pack4=pack4):
+                lib.tree_lnlike_args_size.restype = ctypes.c_int
+                if lib.tree_lnlike_args_size() == ctypes.sizeof(tree_cuda._TreeArgs):
+                    return tree_cuda.tree_lnlike_cuda(p, lk)
+                return tree_first_version(lib, p, lk, pack4)
+
+            def check(got, ref=ref, f32=f32, name=f"tree B={B} {dt}"):
+                got = [x.cpu().numpy() for x in got]
+                err = check_star(name, got[:1], ref[:1], *((RTOL_TREE_F32, ATOL_TREE_F32) if f32 else
+                                                           (RTOL_TREE_F64, ATOL_TREE_F64)))
+                cols = (RTOL_TREE_COL_F32, ATOL_TREE_COL_F32) if f32 else (RTOL_TREE_F64, ATOL_TREE_F64)
+                return max(err, check_star(name + " prior columns", got[1:], ref[1:len(got)], *cols))
+
+            out.append((f"tree_lnlike B={B} 3 stars 12 rows 3 bands {dt}", "tree_lnlike", run, check))
+    return out
+
+
+def _star_cases(ic32, ic64, dev):
     obs = star_observations(ic64)
     lk32 = isochrones_torch.BinaryStarModel(ic32, **obs)._star_likelihood()
     lk64 = isochrones_torch.BinaryStarModel(ic64, **obs)._star_likelihood()
@@ -167,7 +261,7 @@ def _star_cases(dev):
             ref = [x.cpu().numpy() for x in star_lnlike_fused_plain(p.double(), lk32up if dt == "float32" else lk64)]
             tol = (RTOL_STAR_F32, ATOL_STAR_F32) if dt == "float32" else (RTOL_STAR_F64, 0.0)
 
-            def run(p=p, lk=lk):
+            def run(lib, p=p, lk=lk):
                 return star_cuda.star_lnlike_cuda(p, lk)
 
             def check(got, ref=ref, tol=tol, name=f"star B={B} {dt}"):
@@ -206,18 +300,20 @@ def main():
     bases = [n for n in libs if n != "current"]
     order = bases + ["current", "current"] + bases[::-1]
     results = {"device": smi, "reps": args.reps, "order": order, "inner_loop_mix": mixes, "cases": {}}
-    for label, kname, run, check in _cluster_cases(dev) + _star_cases(dev):
+    ic32 = isochrones_torch.get_ichrone("synthetic", device=dev, dtype=torch.float32, **GRID)
+    ic64 = isochrones_torch.get_ichrone("synthetic", device=dev, dtype=torch.float64, **GRID)
+    for label, kname, run, check in _cluster_cases(dev) + _star_cases(ic32, ic64, dev) + _tree_cases(ic32, ic64, dev):
         row = {}
         for name, lib in libs.items():
             with using(lib):
-                got = run()
+                got = run(lib)
                 torch.cuda.synchronize()
                 row[f"{name}_max_abs_err"] = check(got)
         if args.reps > 0:
             times = []
             for name in order:
-                with using(libs[name]):
-                    times.append(kernel_ms(run, kname, reps=args.reps))
+                with using(libs[name]) as lib:
+                    times.append(kernel_ms(lambda: run(lib), kname, reps=args.reps))
             row["ms"] = dict(zip([f"{i}:{n}" for i, n in enumerate(order)], times))
         results["cases"][label] = row
         print(f"[compare] {label}: {json.dumps(row)}")

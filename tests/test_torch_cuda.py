@@ -13,10 +13,12 @@ be identical and the kernel never returns NaN. Star kernel: rtol 1e-10 in
 float64 and 0.05 + 1e-4 |ref| for float32 against the float64 plain version
 on the same float32 tables and points, with identical NaN and +-inf
 patterns, for N = 1, 2, 3, every axis-map kind and every group width, on
-adversarial points. Tree kernel: 1e-9 + 1e-10 |ref| in float64 and
-0.1 + 2e-4 |ref| for float32 against the float64 plain version, identical
--inf patterns and never NaN, for 1-8 stars, one and two systems, relative
-rows, density rows, limits, batches that leave idle lanes in the last warp.
+adversarial points. Tree kernel (``ll`` and the EEP prior's two columns per
+star): 1e-9 + 1e-10 |ref| in float64; in float32 against the float64 plain
+version 0.1 + 2e-4 |ref| for ``ll`` and 1e-6 + 1e-4 |ref| for the columns;
+identical NaN and -inf patterns and ``ll`` never NaN, for 1-16 stars, one and
+two systems, relative rows, density rows, limits, every axis-map kind, every
+group width, batches that leave a partial team and a partial warp.
 """
 
 import dataclasses
@@ -29,8 +31,8 @@ import torch
 
 from chip_smoke import (
     ATOL_F32, ATOL_STAR_F32, FIXTURE, RTOL_F32, RTOL_F64, RTOL_STAR_F32, RTOL_STAR_F64, _tree_check, as_float32,
-    check_close, check_star, grid_as, make_kernel_inputs, profile_kernels, star_grid_variant, star_observations,
-    star_points, to_torch, tree_points,
+    _tree_mixed_points, check_close, check_star, grid_as, make_kernel_inputs, profile_kernels, star_grid_variant,
+    star_observations, star_points, to_torch,
 )
 from isochrones_torch import BinaryStarModel, StarClusterModel, TripleStarModel, get_ichrone
 from isochrones_torch.catalog import read_csv
@@ -38,8 +40,8 @@ from isochrones_torch.ops.cluster import cluster_lnmarginal, cluster_lnmarginal_
 from isochrones_torch.ops.cluster_cuda import cluster_lnmarginal_cuda
 from isochrones_torch.ops.star import star_lnlike_fused, star_lnlike_fused_plain
 from isochrones_torch.ops.star_cuda import star_lnlike_cuda
-from isochrones_torch.ops.tree import tree_lnlike, tree_lnlike_plain
-from isochrones_torch.ops.tree_cuda import MAX_STARS, tree_lnlike_cuda
+from isochrones_torch.ops.tree import tree_lnlike, tree_lnlike_fused, tree_lnlike_fused_plain
+from isochrones_torch.ops.tree_cuda import MAX_STARS, launch_geometry, tree_lnlike_cuda
 from isochrones_torch.treemodel import StarModel
 
 pytestmark = pytest.mark.cuda
@@ -197,13 +199,13 @@ def test_star_kernel_exact_and_top_knots(dev, N, kind):
     _check_star_both(lk, pts, f"knots N={N} {kind}")
 
 
-def _star_group_widths(fn):
-    """The group widths G of the star kernels that ``fn`` launched, read from
-    the template arguments of the kernel names in the profiler's trace."""
+def _group_widths(fn, kernel):
+    """The group widths G of the ``kernel`` kernels that ``fn`` launched, read
+    from the template arguments of the kernel names in the profiler's trace."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the profiler's own notices
         names = profile_kernels(fn)[1]
-    pat = re.compile(r"star_lnlike_kernel<\w+, ?(\d+)>|star_lnlike_kernelI[fd]Li(\d+)E")
+    pat = re.compile(kernel + r"<\w+, ?(\d+)>|" + kernel + r"I[fd]Li(\d+)E")
     return {int(m.group(1) or m.group(2)) for m in map(pat.search, names) if m}
 
 
@@ -214,7 +216,7 @@ def test_star_kernel_group_widths(dev, B, lanes):
     lk = _likelihood(dev, torch.float64, 1, "default")
     pts = star_points(lk.pack6.knots, 1, B, seed=lanes)
     p = torch.as_tensor(pts, device=dev, dtype=torch.float64)
-    assert _star_group_widths(lambda: star_lnlike_cuda(p, lk)) == {lanes}
+    assert _group_widths(lambda: star_lnlike_cuda(p, lk), "star_lnlike_kernel") == {lanes}
     _check_star_both(lk, pts, f"B={B}")
 
 
@@ -282,17 +284,16 @@ def _tree_model(dev, case):
 
 
 def _tree_pts(mod, B, seed):
-    knots = mod.ic.model.knots
-    pts = tree_points(mod.param_names, knots, B, seed=seed)
-    pts[B // 2:] = tree_points(mod.param_names, knots, B - B // 2, seed=seed + 1, narrow=True)
-    return pts
+    return _tree_mixed_points(mod.param_names, mod.ic.model.knots, B, seed=seed)
 
 
 @pytest.mark.parametrize("B", [1, 31, 1024, 4097])
-@pytest.mark.parametrize("case", ["single", "N2", "N3", "N5", "N8", "star3", "two_systems", "density"])
+@pytest.mark.parametrize("case", ["single", "N2", "N3", "N4", "N5", "N6", "N7", "N8", "N11", "N16", "star3",
+                                  "two_systems", "density"])
 def test_tree_kernel_matches_plain(dev, case, B):
     """Adversarial points (knots, top knots, one star off the grid, NaN), in
-    batches that leave idle lanes in the last warp."""
+    batches that leave idle teams in the last warp, for star counts on and
+    off the powers of two up to the cap."""
     mod = _tree_model(dev, case)
     lk = mod._get_fn("lnlike").likelihood
     _, _, fin, n = _tree_check(f"{case} B={B}", lk, _tree_pts(mod, B, seed=B), dev)
@@ -300,44 +301,111 @@ def test_tree_kernel_matches_plain(dev, case, B):
         assert n // 16 < fin < n - n // 16, (fin, n)
 
 
+@pytest.mark.parametrize("case,B,groups,lanes", [
+    ("single", 1024, 1, 16), ("single", 20001, 1, 8), ("single", 40001, 1, 4), ("single", 70001, 1, 2),
+    ("single", 140001, 1, 1), ("N2", 1023, 2, 16), ("N2", 9001, 2, 8), ("N2", 140001, 2, 1), ("N3", 1024, 4, 8),
+    ("N3", 12289, 4, 4), ("N3", 24577, 4, 2), ("N3", 50001, 4, 1), ("N3", 70001, 1, 1), ("N5", 1025, 8, 4),
+    ("N5", 12001, 8, 2), ("N5", 30001, 8, 1), ("N5", 40001, 1, 1), ("N6", 50001, 2, 1), ("N7", 40001, 1, 1),
+    ("N11", 20001, 1, 1), ("N12", 20001, 4, 1), ("N16", 1021, 16, 2), ("N16", 20001, 16, 1), ("star3", 12289, 4, 4),
+    ("two_systems", 24577, 4, 2), ("two_systems", 70001, 1, 1), ("density", 9001, 2, 8),
+])
+def test_tree_kernel_launch_geometry(dev, case, B, groups, lanes):
+    """Every team shape the launch geometry can choose (star groups side by
+    side or taking their stars in turn, every group width), at batches that
+    leave a partial team and a partial warp."""
+    mod = _tree_model(dev, case)
+    lk = mod._get_fn("lnlike").likelihood
+    pts = _tree_pts(mod, B, seed=lanes)
+    p = torch.as_tensor(pts, device=dev, dtype=torch.float64)
+    assert launch_geometry(B, lk.n_stars) == (groups, lanes)
+    assert _group_widths(lambda: tree_lnlike_cuda(p, lk), "tree_lnlike_kernel") == {lanes}
+    _tree_check(f"{case} B={B}", lk, pts, dev)
+
+
 @pytest.mark.parametrize("kind", ["log", "compare", "searchsorted"])
-def test_tree_kernel_axis_kinds(dev, kind):
-    """The other kinds of cell location, through the shared interpolation code."""
+@pytest.mark.parametrize("B", [2048, 40000])
+def test_tree_kernel_axis_kinds(dev, kind, B):
+    """The other kinds of cell location, through the shared interpolation
+    code, with 8 lanes per star and with 1."""
     mod = _tree_model(dev, "star3")
     lk = mod._get_fn("lnlike").likelihood
     model, bc = star_grid_variant(lk.model, lk.bc, kind)
     lk = dataclasses.replace(lk, model=model, bc=bc)
-    _tree_check(f"star3 {kind}", lk, _tree_pts(mod, 2048, seed=3), dev)
+    _tree_check(f"star3 {kind}", lk, _tree_pts(mod, B, seed=3), dev)
 
 
-def test_tree_kernel_off_grid_star_spoils_only_its_rows(dev):
+@pytest.mark.parametrize("B", [1, 1024, 40000])
+def test_tree_kernel_off_grid_star_spoils_only_its_rows(dev, B):
     """A star below the grid that sits only in an inactive row leaves the
-    likelihood finite; once its row is active the point is -inf."""
+    likelihood finite; once its row is active the point is -inf. Its two
+    prior columns are NaN, the other stars' are the plain version's."""
     mod = _tree_model(dev, "star3")
     lk = mod._get_fn("lnlike").likelihood
     rows_of_2 = lk.member[:, 2] > 0
     quiet = dataclasses.replace(lk, obs_active=torch.where(rows_of_2, 0, lk.obs_active).to(torch.int32))
     eeps = mod.ic.model.knots[2]
     p = torch.tensor([[60.0, 50.0, float(eeps[0]) - 0.5, 9.0, 0.0, 200.0, 0.1]], device=dev, dtype=torch.float64)
-    assert torch.isfinite(tree_lnlike_cuda(p, quiet)).all() and torch.isfinite(tree_lnlike_plain(p, quiet)).all()
-    assert (tree_lnlike_cuda(p, lk) == float("-inf")).all() and (tree_lnlike_plain(p, lk) == float("-inf")).all()
-    check_star("quiet", [tree_lnlike_cuda(p, quiet).cpu().numpy()], [tree_lnlike_plain(p, quiet).cpu().numpy()], 1e-10)
+    p = p.repeat(B, 1)
+    p[:, 0] += torch.linspace(0, 5, B, device=dev, dtype=torch.float64)
+    for which, finite in ((quiet, True), (lk, False)):
+        ll, orig_val, deriv = tree_lnlike_cuda(p, which)
+        ref = tree_lnlike_fused_plain(p, which)
+        if finite:
+            assert torch.isfinite(ll).all() and torch.isfinite(ref[0]).all()
+        else:
+            assert (ll == float("-inf")).all() and (ref[0] == float("-inf")).all()
+        assert torch.isnan(orig_val[:, 2]).all() and torch.isnan(deriv[:, 2]).all()
+        assert torch.isfinite(orig_val[:, :2]).all() and torch.isfinite(deriv[:, :2]).all()
+        check_star("off grid", [x.cpu().numpy() for x in (ll, orig_val, deriv)], [x.cpu().numpy() for x in ref], 1e-10)
+    _tree_check("off grid", quiet, p.cpu().numpy(), dev)
+
+
+@pytest.mark.parametrize("case,B", [("star3", 1024), ("star3", 50000), ("N16", 777), ("two_systems", 12289)])
+def test_tree_kernel_two_launches_bitwise_equal(dev, case, B):
+    """No atomics, a fixed order of every sum: a point's result does not
+    depend on the launch, nor on the points beside it in the batch."""
+    mod = _tree_model(dev, case)
+    lk = mod._get_fn("lnlike").likelihood
+    for dtype in (torch.float64, torch.float32):
+        which = lk if dtype == torch.float64 else _as_dtype(lk, dtype)
+        p = torch.as_tensor(_tree_pts(mod, B, seed=9), device=dev, dtype=dtype)
+        first = [x.clone() for x in tree_lnlike_cuda(p, which)]
+        second = tree_lnlike_cuda(p, which)
+        flipped = [x.flip(0) for x in tree_lnlike_cuda(p.flip(0).contiguous(), which)]
+        for a, b, c in zip(first, second, flipped):
+            assert torch.equal(a.view(torch.int64 if dtype == torch.float64 else torch.int32),
+                               b.view(torch.int64 if dtype == torch.float64 else torch.int32))
+            assert torch.equal(torch.nan_to_num(a, nan=-1.0), torch.nan_to_num(c, nan=-1.0))
+
+
+def _as_dtype(lk, dtype):
+    from chip_smoke import tree_likelihood_as
+
+    return tree_likelihood_as(lk, dtype)
 
 
 def test_tree_dispatch_model_and_caps(dev):
-    """The dispatcher launches the kernel once per call; the tree model's
-    lnpost_batch on the card equals the plain path on the CPU (float64, rtol
-    1e-10); a plan beyond a cap raises and names it; a table in another dtype
-    raises."""
+    """The dispatchers launch the kernel once per call; the tree model's
+    fused lnpost_batch on the card equals the CPU's (float64, rtol 1e-10),
+    and its composed path on the card; a plan beyond a cap raises and names
+    it; a table in another dtype raises."""
     mod = _tree_model(dev, "two_systems")
     lk = mod._get_fn("lnlike").likelihood
     pts = _tree_pts(mod, 256, seed=5)
     p = torch.as_tensor(pts, device=dev, dtype=torch.float64)
     before = tree_lnlike_cuda.launches
     tree_lnlike(p, lk)
+    tree_lnlike_fused(p, lk)
+    assert tree_lnlike_cuda.launches == before + 2
+    assert mod._build_lnpost_fused() is not None
+    before = tree_lnlike_cuda.launches
+    got = mod.lnpost_batch(pts).cpu().numpy()
     assert tree_lnlike_cuda.launches == before + 1
     cpu = StarModel.from_ini(get_ichrone("synthetic", device="cpu", **_SMALL), "tests/star4", index=[0, 0, 1])
-    check_star("tree lnpost", [mod.lnpost_batch(pts).cpu().numpy()], [cpu.lnpost_batch(pts).numpy()], 1e-10, 1e-9)
+    check_star("tree lnpost", [got], [cpu.lnpost_batch(pts).numpy()], 1e-10, 1e-9)
+    lnpr, ll = mod.lnprior_batch(pts), mod.lnlike_batch(pts)
+    composed = torch.where(torch.isfinite(lnpr), lnpr + ll, float("-inf")).cpu().numpy()
+    check_star("tree lnpost fused vs composed", [got], [composed], 1e-10, 1e-9)
     with pytest.raises(ValueError):
         tree_lnlike_cuda(p.float(), lk)
     with pytest.raises(ValueError):
