@@ -62,7 +62,27 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     (``--binary``) and a tree (``--tree``) folder at the default synthetic
     grid; results files loadable, ``starfit.log`` written; then the resume
     check on the card: a fit stopped after two chunks and resumed gives
-    bitwise the samples of the fit that never stopped.
+    bitwise the samples of the fit that never stopped;
+13. EEP inversion on the card, at the MIST-scale grid: ``track.get_eep`` fast
+    at 1,000,000 points and accurate at 100,000 (mass, age, [Fe/H] spread
+    past the grid, exact knots, NaN) in float64 against the same functions on
+    the CPU (identical NaN pattern, values to 1e-9); a mass -> EEP -> age
+    round trip; ``iso.get_eep(..., accurate=True)`` likewise with its mass
+    round trip; wall-clock, device time and kernel launches per call of both
+    modes in float32, beside the bytes bound (plain torch, no hand kernel);
+14. the simulated cluster and the nested cluster fit: ``SimulatedCluster``
+    built on the card reproduces the committed 50-star catalogue column by
+    column (drawn columns exactly, EEPs and magnitudes to 1e-9); the cluster
+    kernel against its plain version at the nested fit's W = 1024 walkers,
+    (50, 700, 3), both dtypes, timed; one W = 1024 ``lnpost_batch`` under the
+    profiler (launches, device time, idle share); ``StarClusterModel.fit``
+    (nested, dynamic by default) in float32 at a reduced number of live
+    points: logz finite, not truncated, the kernel launched, the distance
+    posterior's 95% interval holding 300 pc;
+15. the cluster entry point: ``python -m isochrones_torch.cli.clusterfit`` as
+    a subprocess on a CSV written from phase 14's catalogue (default
+    synthetic grid, small ``--nlive``): exit 0 and a finite evidence in its
+    log.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -213,6 +233,28 @@ GRID = dict(n_feh=15, n_mass=196, n_eep=1710, n_age=107)
 MODEL = dict(bands=("J", "H", "K"), props=("parallax",), eep_bounds=(1, 1400), eep_step=2.0,
              max_distance=3000, minq=0.2, mass_bounds=(0.6, 2.0))
 FIXTURE = os.path.join("isochrones_torch", "data", "cluster50_synthetic.csv")
+
+
+#: EEP inversion (phase 13): batch sizes; port on the card against port on
+#: the CPU in float64: the same arithmetic, reductions in another order
+EEP_FAST_POINTS, EEP_ACCURATE_POINTS = 1_000_000, 100_000
+ATOL_EEP = 1e-9
+#: the nested cluster fit (phase 14): the catalogue's settings (those of
+#: scripts/make_torch_cluster_fixture.py), the fit's walker batch (n_batch 64
+#: x n_chains 16) and the reduced depth
+CLUSTER_SIM = dict(age=9.0, feh=0.0, distance=300.0, AV=0.05, alpha=-2.0, gamma=0.3, fB=0.3, bands=("J", "H", "K"),
+                   mass_range=(0.6, 2.0), rng=0, phot_unc=0.02, distance_scatter=0.0)
+W_FIT = 1024
+CLUSTER_FIT = dict(n_live_points=256, seed=0)
+#: columns the simulator draws on the host (equal bit for bit) and columns
+#: that go through the interpolators (ATOL_EEP)
+SIM_DRAWN = ("is_binary", "distance", "mass_pri", "mass_sec", "parallax", "parallax_unc",
+             "J_mag_unc", "H_mag_unc", "K_mag_unc")
+SIM_INTERPOLATED = ("J_mag", "H_mag", "K_mag", "eep_pri", "eep_sec")
+#: the CLI's fit (phase 15): the default synthetic grid has 200 EEPs where
+#: the catalogue's grid has 1710, so the ladder's bounds scale by 200 / 1710
+CLUSTER_CLI = ["--models", "synthetic", "--dtype", "float32", "--nlive", "64", "--mineep", "1", "--maxeep", "164",
+               "--max_distance", "3000", "--minq", "0.2", "--name", "smoke"]
 
 
 def make_kernel_inputs(S, E, B, W, seed=0):
@@ -971,6 +1013,251 @@ def phase_entry_point(dev, workdir):
     return n_star, n_tree
 
 
+def eep_points(track, n, seed):
+    """Seeded (mass, age, feh) numpy columns spread past the grid on every
+    side, with every exact mass and [Fe/H] knot (the top ones together) and a
+    NaN in each coordinate."""
+    rng = np.random.default_rng(seed)
+    masses, fehs = track.masses, track.fehs
+    mass = np.exp(rng.uniform(np.log(0.09), np.log(11.0), n))
+    age = rng.uniform(5.8, 10.3, n)
+    feh = rng.uniform(-2.1, 0.6, n)
+    k = len(masses)
+    mass[:k] = masses
+    feh[k: k + len(fehs)] = fehs
+    mass[k + len(fehs)], feh[k + len(fehs)] = masses[-1], fehs[-1]
+    mass[-1], age[-2], feh[-3] = np.nan, np.nan, np.nan
+    return mass, age, feh
+
+
+def check_eep(name, got, ref, atol=ATOL_EEP):
+    """Identical NaN pattern and |got - ref| <= atol; returns ``(max abs
+    error, finite count)``."""
+    got, ref = np.asarray(got, dtype=np.float64), np.asarray(ref, dtype=np.float64)
+    if got.shape != ref.shape or not np.array_equal(np.isnan(got), np.isnan(ref)):
+        raise AssertionError(f"{name}: NaN pattern differs ({int(np.isnan(got).sum())} vs {int(np.isnan(ref).sum())} "
+                             f"NaN, {int((np.isnan(got) != np.isnan(ref)).sum())} differ)")
+    fin = ~np.isnan(ref)
+    err = float(np.abs(got[fin] - ref[fin]).max()) if fin.any() else 0.0
+    if not err <= atol:
+        raise AssertionError(f"{name}: max abs err {err} > {atol}")
+    return err, int(fin.sum())
+
+
+def timed_call(fn, reps):
+    """``(wall ms, device-busy ms, kernel launches)`` per call of ``fn``: the
+    wall-clock unprofiled, the other two from ``torch.profiler``."""
+    wall = 1e3 * _wall(fn, reps)
+    _, by_name = profile_kernels(fn, reps)
+    return wall, sum(ms for ms, _ in by_name.values()) / reps, sum(n for _, n in by_name.values()) / reps
+
+
+def phase_eep(dev, ic32, ic64):
+    """Phase 13. Returns the record of the EEP inversion's times."""
+    import torch
+
+    import isochrones_torch
+
+    t0 = time.perf_counter()
+    cpu = isochrones_torch.get_ichrone("synthetic", device="cpu", dtype=torch.float64, **GRID)
+    print(f"[eep] MIST-scale synthetic grid (f64) on the CPU in {time.perf_counter() - t0:.2f} s")
+    tr64, tr32, trc = ic64.track, ic32.track, cpu.track
+    if tr64.iso is not ic64 or ic64.track is not tr64 or tr64.eep_replaces != "age":
+        raise AssertionError("the isochrone and track interpolators are not cross-linked")
+
+    mass, age, feh = eep_points(trc, EEP_FAST_POINTS, seed=21)
+    fast = tr64.get_eep(mass, age, feh)
+    err_f, n_f = check_eep("get_eep fast, card vs CPU", fast, trc.get_eep(mass, age, feh))
+    ma, aa, fa = mass[:EEP_ACCURATE_POINTS], age[:EEP_ACCURATE_POINTS], feh[:EEP_ACCURATE_POINTS]
+    acc = tr64.get_eep(ma, aa, fa, accurate=True)
+    err_a, n_a = check_eep("get_eep accurate, card vs CPU", acc, trc.get_eep(ma, aa, fa, accurate=True))
+    if not (n_f > EEP_FAST_POINTS // 4 and n_a > EEP_ACCURATE_POINTS // 8):
+        raise AssertionError(f"too few finite EEPs: {n_f}, {n_a}")
+    print(f"[eep] track.get_eep f64, card vs CPU: fast {EEP_FAST_POINTS} points max_abs_err {err_f:.3e} "
+          f"({n_f} finite), accurate {EEP_ACCURATE_POINTS} points max_abs_err {err_a:.3e} ({n_a} finite); "
+          f"NaN patterns identical (atol {ATOL_EEP})")
+    ok = np.isfinite(acc)
+    back = tr64.interp_value([ma[ok], acc[ok], fa[ok]], ["age"])[:, 0]
+    trip = np.abs(back - aa[ok])
+    if not trip.max() < 0.02:
+        raise AssertionError(f"mass -> EEP -> age round trip off by {trip.max()}")
+    # the fast estimate is within one EEP of the accurate one nearly everywhere
+    both = ok & np.isfinite(fast[:EEP_ACCURATE_POINTS])
+    print(f"[eep] round trip mass -> EEP -> age: max |d log age| {trip.max():.3e}, median {np.median(trip):.3e} "
+          f"(tolerance 0.02); |fast - accurate| median "
+          f"{np.median(np.abs(fast[:EEP_ACCURATE_POINTS][both] - acc[both])):.3f} EEP")
+    iso_acc = ic64.get_eep(ma, aa, fa, accurate=True)
+    err_i, n_i = check_eep("iso.get_eep accurate, card vs CPU", iso_acc, cpu.get_eep(ma, aa, fa, accurate=True))
+    ok = np.isfinite(iso_acc)
+    back = ic64.interp_value([iso_acc[ok], aa[ok], fa[ok]], ["initial_mass"])[:, 0]
+    if not n_i > EEP_ACCURATE_POINTS // 8 or not np.abs(back - ma[ok]).max() < 0.02:
+        raise AssertionError(f"iso.get_eep: {n_i} finite, round trip off by {np.abs(back - ma[ok]).max()}")
+    print(f"[eep] iso.get_eep(accurate=True) f64, card vs CPU: max_abs_err {err_i:.3e} ({n_i} finite); round trip "
+          f"mass -> EEP -> mass max {np.abs(back - ma[ok]).max():.3e} Msun")
+
+    # times in float32, on tensors already on the card
+    m32, a32, f32 = (torch.as_tensor(x, device=dev, dtype=torch.float32) for x in (mass, age, feh))
+    n_acc = EEP_ACCURATE_POINTS
+    fast_ms = timed_call(lambda: tr32.get_eep_batch(m32, a32, f32), reps=10)
+    acc_ms = timed_call(lambda: tr32.get_eep_batch(m32[:n_acc], a32[:n_acc], f32[:n_acc], accurate=True), reps=3)
+    iso_ms = timed_call(lambda: ic32.get_eep_batch(m32[:n_acc], a32[:n_acc], f32[:n_acc], accurate=True), reps=3)
+    table = sum(t.numel() * t.element_size() for t in tr32.eep_support)
+    column = tr32.model.values[..., 0].numel() * 4  # the model table's age column, read once
+    fast_bound = bound(4 * 4 * EEP_FAST_POINTS + table, 4 * 12 * 4 * EEP_FAST_POINTS, 0, "float32")
+    acc_bound = bound(4 * 4 * n_acc + table + column, 13 * 8 * 20 * n_acc, 0, "float32")
+    for label, n, (wall, busy, launches), b in (("track fast", EEP_FAST_POINTS, fast_ms, fast_bound),
+                                                 ("track accurate", n_acc, acc_ms, acc_bound),
+                                                 ("iso accurate", n_acc, iso_ms, acc_bound)):
+        print(f"[eep] time f32 get_eep_batch {label}, {n} points: {wall:.3f} ms per call, device busy {busy:.3f} ms, "
+              f"{launches:.1f} kernel launches; bound {b[0]:.5f} ms ({b[2]}), at {b[0] / wall:.5f} of it")
+    return dict(fast_points=EEP_FAST_POINTS, fast_ms=fast_ms[0], fast_busy_ms=fast_ms[1], fast_launches=fast_ms[2],
+                fast_bound_ms=fast_bound[0], accurate_points=n_acc, accurate_ms=acc_ms[0],
+                accurate_busy_ms=acc_ms[1], accurate_launches=acc_ms[2], accurate_bound_ms=acc_bound[0])
+
+
+def phase_cluster_nested(dev, ic32, ic64):
+    """Phase 14. Returns ``(the simulated catalogue, the cluster kernel's
+    record at W = 1024, its launches in the nested fit)``."""
+    import torch
+
+    import isochrones_torch.samplers.nested as nested_mod
+    from isochrones_torch.catalog import read_csv
+    from isochrones_torch.cluster import SimulatedCluster, StarClusterModel
+    from isochrones_torch.ops.cluster import cluster_lnmarginal_plain
+    from isochrones_torch.ops.cluster_cuda import cluster_lnmarginal_cuda
+
+    # ---- the simulator on the card against the committed catalogue
+    sim = SimulatedCluster(50, ic=ic64, **CLUSTER_SIM)
+    want = read_csv(FIXTURE)
+    errs = {}
+    for c in want:
+        got, ref = np.asarray(sim.data[c], dtype=np.float64), want[c]
+        if c in SIM_DRAWN:
+            if not np.array_equal(got, ref):
+                raise AssertionError(f"SimulatedCluster: drawn column {c} differs from {FIXTURE}")
+        else:
+            errs[c] = check_eep(f"SimulatedCluster column {c}", got, ref)[0]
+    if set(want) != set(SIM_DRAWN + SIM_INTERPOLATED) or not set(want) <= set(sim.data):
+        raise AssertionError(f"catalogue columns {sorted(want)}")
+    print(f"[sim] SimulatedCluster(50, rng=0) on the card (f64) reproduces {FIXTURE}: {len(SIM_DRAWN)} drawn columns "
+          f"equal, max_abs_err {json.dumps({c: float(f'{e:.3e}') for c, e in errs.items()})} (atol {ATOL_EEP}); "
+          f"{int(sim.data['is_binary'].sum())} binaries, no NaN magnitude")
+
+    # ---- the kernel at the nested fit's walker batch
+    S, E, B = MAIN_SHAPE
+    inputs = make_kernel_inputs(S, E, B, W_FIT, seed=S + E + B + W_FIT)
+    a64, kw64 = to_torch(inputs, dev, torch.float64)
+    got64 = cluster_lnmarginal_cuda(*a64, **kw64).cpu().numpy()
+    ref64 = cluster_lnmarginal_plain(*a64, **kw64).cpu().numpy()
+    err64 = check_close(f"f64 kernel W={W_FIT}", got64, ref64, RTOL_F64)
+    del a64, kw64
+    in32 = as_float32(inputs)
+    a32, kw32 = to_torch(in32, dev, torch.float32)
+    a32up, kw32up = to_torch(in32, dev, torch.float64)
+    got32 = cluster_lnmarginal_cuda(*a32, **kw32).cpu().numpy()
+    ms64 = kernel_ms(lambda: cluster_lnmarginal_cuda(*a32up, **kw32up), "cluster_marginal", reps=2, warmup=1)
+    ref32 = cluster_lnmarginal_plain(*a32up, **kw32up).cpu().numpy()
+    err32 = check_close(f"f32 kernel W={W_FIT}", got32, ref32, RTOL_F32, ATOL_F32)
+    del a32up, kw32up
+    ms = kernel_ms(lambda: cluster_lnmarginal_cuda(*a32, **kw32), "cluster_marginal", reps=5)
+    plain_ms = cuda_ms(lambda: cluster_lnmarginal_plain(*a32, **kw32), reps=1, warmup=0)
+    bound_ms, bound_by, what = bound(*cluster_work(a32, kw32), "float32")
+    del a32, kw32
+    torch.cuda.empty_cache()
+    print(f"[kernel] S={S} E={E} B={B} W={W_FIT} (the nested fit's batch): f64 max_abs_err {err64:.3e} (rtol "
+          f"{RTOL_F64}), f32 max_abs_err {err32:.3e} (rtol {RTOL_F32} atol {ATOL_F32}), "
+          f"{int(np.isfinite(ref64).sum())}/{ref64.size} finite")
+    print(f"[kernel] time S={S} E={E} B={B} W={W_FIT}: kernel f32 {ms:.4f} ms, plain f32 {plain_ms:.1f} ms, kernel f64 "
+          f"{ms64:.4f} ms; f32 bound {bound_ms:.4f} ms ({what}), kernel at {bound_ms / ms:.3f} of it")
+    record = dict(fit_batch=W_FIT, ms_fit_batch=ms, plain_ms_fit_batch=plain_ms, bound_ms_fit_batch=bound_ms,
+                  max_abs_err_fit_batch=err32, ms_f64_fit_batch=ms64)
+
+    # ---- the model, one W = 1024 lnpost_batch, the nested fit
+    model = StarClusterModel(ic32, sim, **{k: v for k, v in MODEL.items() if k not in ("bands", "props")})
+    marg = model.star_lnmarginals(TRUTH)
+    if not np.isfinite(marg).all() or not np.isfinite(model.lnlike(TRUTH)):
+        raise AssertionError(f"a member has no support at the truth: {marg}")
+    rng = np.random.default_rng(1)
+    pw = torch.as_tensor(np.asarray(TRUTH)[None, :] + rng.normal(0, P0_SCALE, size=(W_FIT, 7)), device=dev,
+                         dtype=torch.float32)
+    cluster_lnmarginal_cuda.launches = 0
+    lp = model.lnpost_batch(pw)
+    torch.cuda.synchronize()
+    if cluster_lnmarginal_cuda.launches != 1 or not torch.isfinite(lp).any():
+        raise AssertionError(f"W={W_FIT} lnpost_batch: {cluster_lnmarginal_cuda.launches} kernel launches, "
+                             f"{int(torch.isfinite(lp).sum())} finite")
+    call_ms = 1e3 * _wall(lambda: model.lnpost_batch(pw), reps=5)
+    prof_s, by_name = profile_kernels(lambda: model.lnpost_batch(pw), reps=3)
+    busy = sum(v[0] for v in by_name.values()) / 3
+    k_ms = sum(v[0] for k, v in by_name.items() if "cluster_marginal" in k) / 3
+    print(f"[cluster nested] one W={W_FIT} lnpost_batch f32: {call_ms:.3f} ms ({1e3 * prof_s / 3:.3f} ms under the "
+          f"profiler), {sum(v[1] for v in by_name.values()) / 3:.1f} kernel launches, device busy {busy:.3f} ms "
+          f"(idle share {1 - busy / (1e3 * prof_s / 3):.3f}), cluster kernel {k_ms:.3f} ms "
+          f"({k_ms / busy:.3f} of busy); {int(torch.isfinite(lp).sum())}/{W_FIT} finite")
+
+    seen = {}
+    run_nested = nested_mod.run_nested
+
+    def recording_run_nested(*args, **kwargs):
+        seen.update(kwargs)
+        return run_nested(*args, **kwargs)
+
+    nested_mod.run_nested = recording_run_nested
+    cluster_lnmarginal_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = model.fit(**CLUSTER_FIT)
+    finally:
+        nested_mod.run_nested = run_nested
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    n_launch = cluster_lnmarginal_cuda.launches
+    if seen.get("dynamic") is not True or (seen.get("n_batch"), seen.get("n_chains")) != (64, 16):
+        raise AssertionError(f"the cluster fit is not dynamic by default at the card's batch: {seen}")
+    if not np.isfinite(res.logz) or res.truncated or n_launch <= 0 or model.evidence != (res.logz, res.logzerr):
+        raise AssertionError(f"nested cluster fit: logz {res.logz}, truncated {res.truncated}, launches {n_launch}")
+    d_lo, d_hi = np.quantile(model.samples["distance"], [0.025, 0.975])
+    if not d_lo <= TRUTH[2] <= d_hi:
+        raise AssertionError(f"cluster distance 95% interval ({d_lo:.2f}, {d_hi:.2f}) misses {TRUTH[2]}")
+    if set(model.derived_samples) != set(model.param_names) | {"lnprob"}:
+        raise AssertionError("cluster derived_samples are not the raw chain")
+    n_batch = min(64, CLUSTER_FIT["n_live_points"] // 4)
+    med = {k: round(float(np.median(v)), 4) for k, v in model.samples.items() if k != "lnprob"}
+    print(f"[cluster nested] lnpost at the truth {model.lnpost(TRUTH):.3f}, best sample {model.samples['lnprob'].max():.3f}")
+    print(f"[cluster nested] fit {json.dumps(CLUSTER_FIT)} f32, dynamic by default, n_batch {n_batch} x n_chains 16: "
+          f"{fit_s:.3f} s, {res.n_iter} dead points, {res.n_iter // n_batch} steps, {res.dynamic_rounds} dynamic "
+          f"rounds, logz {res.logz:.4f} +- {res.logzerr:.4f}, ESS {res.ess:.1f}, cluster kernel launches {n_launch}")
+    print(f"[cluster nested] posterior medians {json.dumps(med)}; distance 95% interval ({d_lo:.3f}, {d_hi:.3f})")
+    return sim, record, n_launch
+
+
+def phase_cluster_entry_point(sim, workdir):
+    """Phase 15: the CLI as a subprocess on a CSV of phase 14's catalogue."""
+    import csv
+    import re
+
+    path = os.path.join(workdir, "cluster50.csv")
+    cols = list(sim.data)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(cols)
+        for i in range(len(sim)):
+            w.writerow([repr(float(sim.data[c][i])) for c in cols])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "isochrones_torch.cli.clusterfit", *CLUSTER_CLI, path],
+                          capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    found = re.search(r"clusterfit cluster_smoke: logz = (\S+) \+- (\S+)", log)
+    if proc.returncode != 0 or found is None or not np.isfinite(float(found.group(1))):
+        raise AssertionError(f"clusterfit CLI: exit {proc.returncode}, log:\n{log[-3000:]}")
+    if "no (eep, q) support" in log:
+        raise AssertionError(f"clusterfit CLI: a member has no support:\n{log[-3000:]}")
+    print(f"[clusterfit] python -m isochrones_torch.cli.clusterfit {' '.join(CLUSTER_CLI)} <csv of {len(sim)} stars>: "
+          f"exit {proc.returncode}, {secs:.2f} s, logz {float(found.group(1)):.4f} +- {float(found.group(2)):.4f}")
+
+
 def main():
     import torch
 
@@ -1212,10 +1499,17 @@ def main():
         del model32, model64, bin32, bin64, ic32
         torch.cuda.empty_cache()
         n_star_cli, n_tree_cli = phase_entry_point(dev, workdir)
+        # ---- 13-15. EEP inversion, the simulated cluster and its nested fit, the cluster entry point
+        ic32 = isochrones_torch.get_ichrone("synthetic", device=dev, dtype=torch.float32, **GRID)
+        eep_record = phase_eep(dev, ic32, ic64)
+        sim, cluster_fit_record, n_cluster_nested = phase_cluster_nested(dev, ic32, ic64)
+        phase_cluster_entry_point(sim, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     tree_record["launches"] = n_tree
     tree_record["launches_entry_point"] = n_tree_cli
+    print(json.dumps({"eep_inversion": dict(eep_record, route="plain torch", source="isochrones_torch/ops/eep.py",
+                                            replaces="isochrones_tpu/ops/eep.py:35", dtype="float32")}))
 
     ms, plain_ms, bound_ms, bound_by = times[MAIN_SHAPE]
     print(json.dumps({"kernels": [{
@@ -1225,6 +1519,7 @@ def main():
         "launches": n_fit, "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "shape": {"W": W_KERNEL, "S": MAIN_SHAPE[0], "E": MAIN_SHAPE[1], "B": MAIN_SHAPE[2], "dtype": "float32"},
+        "launches_nested_fit": n_cluster_nested, **cluster_fit_record,
     }, {
         "name": "star_lnlike", "route": "cuda",
         "source": "isochrones_torch/csrc/star_lnlike.cu",

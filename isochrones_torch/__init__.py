@@ -9,14 +9,17 @@ flat or tree model -> nested fit, static or dynamic, with checkpoint and
 resume -> a results file); the single/binary/triple star models, the fused
 star likelihood as a hand-written CUDA kernel on the card; the tree
 ``StarModel`` for resolved and blended systems, its likelihood as a second
-kernel; and the cluster MCMC fit (``StarClusterModel(...).fit_mcmc``), the
-cluster marginal as a third.
+kernel; the cluster model (``StarClusterModel``: nested fit, dynamic by
+default, and MCMC fit; ``python -m isochrones_torch.cli.clusterfit`` on a CSV
+table of members), the cluster marginal as a third kernel; EEP inversion
+(``get_eep``) on the cross-linked isochrone and evolution-track interpolators
+and the cluster simulator (``SimulatedCluster``), in plain torch.
 """
 
 __version__ = "0.1.0"
 
 from .catalog import StarCatalog
-from .cluster import StarClusterModel
+from .cluster import SimulatedCluster, StarClusterModel, clusterfit, simulate_cluster
 from .isochrone import get_ichrone
 from .ops import GridData, interp_nd
 from .starmodel import BasicStarModel, BinaryStarModel, SingleStarModel, TripleStarModel
@@ -28,6 +31,9 @@ __all__ = [
     "get_ichrone",
     "StarCatalog",
     "StarClusterModel",
+    "SimulatedCluster",
+    "simulate_cluster",
+    "clusterfit",
     "BasicStarModel",
     "SingleStarModel",
     "BinaryStarModel",

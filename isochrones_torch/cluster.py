@@ -1,16 +1,20 @@
-"""Star-cluster hierarchical model (counterpart of
-``isochrones_tpu/cluster.py``, ``StarClusterModel``).
+"""Star-cluster hierarchical models (counterpart of
+``isochrones_tpu/cluster.py``: ``StarClusterModel``, ``SimulatedCluster``,
+``simulate_cluster`` and the ``clusterfit`` entry point).
 
 The 7-parameter cluster likelihood (age, feh, distance, AV, alpha, gamma,
 fB) marginalizes each member star over its (primary EEP, secondary EEP)
 plane on a fixed EEP ladder. The walker batch is a leading dimension written
 out: one ``lnpost_batch`` call interpolates the ladder for every walker and
 hands all walkers to :func:`~isochrones_torch.ops.cluster.cluster_lnmarginal`,
-which on the card is one launch of the hand-written CUDA kernel.
+which on the card is one launch of the hand-written CUDA kernel; a batch
+whose tensors would pass a byte budget is cut into pieces of walkers.
+``fit()`` is the nested fit (dynamic by default: a cluster marginal is costly
+per call), ``fit_mcmc`` the ensemble one. Catalogues are dicts of numpy
+columns (:class:`~isochrones_torch.catalog.StarCatalog`); ``clusterfit`` reads
+CSV files.
 
-Not ported yet: ``SimulatedCluster``/``simulate_cluster`` (need EEP
-inversion), the nested-sampling ``fit``/``clusterfit``, and the multi-device
-star sharding.
+Not ported yet: the multi-device star sharding (``mesh``) and HDF input.
 """
 
 from __future__ import annotations
@@ -18,15 +22,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .catalog import StarCatalog
+from .catalog import StarCatalog, read_csv
 from .logger import getLogger
 from .ops.cluster import cluster_lnmarginal
 from .ops.interp import interp_nd
 from .ops.mags import interp_mag as _interp_mag_kernel
 from .priors import FehPrior, FlatLogPrior, FlatPrior, GaussianPrior, PowerLawPrior
 from .starmodel import BasicStarModel
+from .utils import addmags
 
-__all__ = ["StarClusterModel"]
+__all__ = ["StarClusterModel", "SimulatedCluster", "simulate_cluster", "clusterfit"]
+
+#: bytes of walker-batched tensors one likelihood call may hold; a longer
+#: batch is cut into pieces of walkers
+_WALKER_BYTES_BUDGET = 1 << 32
+
+
+def _walker_bytes(n_stars, n_ladder, n_bands, itemsize):
+    """Estimate of the bytes one walker's tensors take in a likelihood call
+    on an E-point ladder: the (S, E) property likelihood with its
+    temporaries and the kernel wrapper's row term (~8 such planes), the 8
+    corner rows, weights and int64 indices of the model interpolations (2 +
+    4 + 2 columns), the 16 of the BC interpolation (B columns), and a few
+    (E, B) magnitude planes."""
+    floats = 8 * n_stars + 8 * (2 + 4 + 2) + 16 * (n_bands + 1) + 4 * n_bands
+    return max(n_ladder * (itemsize * floats + 8 * (8 + 8 + 16)), 1)
 
 
 class StarClusterModel(BasicStarModel):
@@ -39,6 +59,20 @@ class StarClusterModel(BasicStarModel):
     """
 
     _cluster_param_names = ("age", "feh", "distance", "AV", "alpha", "gamma", "fB")
+    #: a cluster marginal is costly per call, so the nested fit is dynamic by
+    #: default (override with ``fit(dynamic=False)``)
+    _default_dynamic = True
+
+    def _config_data_repr(self):
+        """The cluster's data is its catalogue, not ``self.kwargs``: a stable
+        text of the catalogue's columns and rows and of the marginalization
+        geometry, so a resume against other member data or another ladder is
+        refused instead of replaying the old checkpoint."""
+        data = self.stars.data
+        return "|".join(
+            [",".join(data)] + [repr(np.asarray(v).tolist()) for v in data.values()]
+            + [repr((self._eep_bounds, self._mass_bounds, self.minq, self.eep_step, self.q_jacobian))]
+        )
 
     def __init__(
         self,
@@ -48,15 +82,22 @@ class StarClusterModel(BasicStarModel):
         halo_fraction=0.5,
         max_AV=1.0,
         max_distance=50000,
+        use_emcee=False,
         eep_bounds=None,
         mass_bounds=None,
         minq=0.1,
+        directory=".",
+        mesh=None,
         q_jacobian=False,
         eep_step=1.0,
         **kwargs,
     ):
+        if mesh is not None:
+            raise NotImplementedError(f"StarClusterModel(mesh={mesh!r}): sharding the star axis across devices "
+                                      "is not ported yet (ROADMAP queue 1, parallelism)")
         self._fn_cache = {}
         self._ic = ic
+        self.mesh = None
         #: False = exact reference-parity marginalization; True adds the
         #: |dq/deep2| change-of-variables factor (see ops/cluster.py)
         self.q_jacobian = bool(q_jacobian)
@@ -76,15 +117,26 @@ class StarClusterModel(BasicStarModel):
             "fB": FlatPrior(bounds=(0.0, 0.6)),
         }
         self._bounds = {}
+        self.use_emcee = use_emcee
         self._eep_bounds = eep_bounds
         self._mass_bounds = mass_bounds
         self.minq = minq
         self.name = str(name)
+        self.N = None
+        self.kwargs = {}
         self._samples = None
+        self._derived_samples = None
+        self._evidence = None
+        self._nested_result = None
+        self._directory = str(directory)
 
     @property
     def param_names(self):
         return self._cluster_param_names
+
+    @property
+    def n_params(self):
+        return len(self.param_names)
 
     @property
     def bands(self):
@@ -93,6 +145,10 @@ class StarClusterModel(BasicStarModel):
     @property
     def props(self):
         return self.stars.props
+
+    @property
+    def labelstring(self):
+        return "cluster" + (f"_{self.name}" if self.name else "")
 
     def bounds(self, prop):
         """reference cluster.py:241-259; ``set_bounds`` overrides win."""
@@ -198,8 +254,25 @@ class StarClusterModel(BasicStarModel):
 
         return block_lnmarg
 
+    def _build_lnlike_dataset(self):
+        """Cluster ln-likelihood as a function of the observations:
+        ``lnlike(p (..., 7), mag_vals (S, B), mag_uncs (S, B), prop_vals
+        (S, P), prop_uncs (S, P)) -> (...)``: the sum of the member marginals,
+        -inf if any member has no support."""
+        block_lnmarg = self._build_block_lnmarg()
+
+        def lnlike_dataset(p, mv, mu, pv, pu):
+            lnmarg = block_lnmarg(p.reshape(-1, p.shape[-1]), mv, mu, pv, pu)
+            good = torch.isfinite(lnmarg)
+            total = torch.where(good, lnmarg, torch.zeros_like(lnmarg)).sum(dim=-1)
+            total = torch.where(good.all(dim=-1), total, float("-inf"))
+            return total.reshape(p.shape[:-1])
+
+        return lnlike_dataset
+
     def _build_lnlike_batch(self):
         block_lnmarg = self._build_block_lnmarg()
+        lnlike_dataset = self._build_lnlike_dataset()
         dt, dev = self.dtype, self.device
         mag_vals, mag_uncs, prop_vals, prop_uncs = self.stars.observation_stacks()
         if np.isnan(mag_vals).any():
@@ -211,15 +284,21 @@ class StarClusterModel(BasicStarModel):
         obs = tuple(torch.as_tensor(x, dtype=dt, device=dev) for x in (mag_vals, mag_uncs, prop_vals, prop_uncs))
         self._star_lnmarg_fn = lambda p: block_lnmarg(p, *obs)
 
+        # walkers per call: the nested fit hands over n_batch * n_chains walk
+        # points at once and n_live at its start
+        per_walker = _walker_bytes(mag_vals.shape[0], self._n_ladder, mag_vals.shape[1],
+                                   torch.empty((), dtype=dt).element_size())
+        max_parallel = max(1, _WALKER_BYTES_BUDGET // per_walker)
+
         def lnlike_batch(p):
-            """(..., 7) -> (...): the sum of the member marginals, -inf if
-            any member has no support."""
+            """(..., 7) -> (...), in pieces of at most ``max_parallel`` walkers."""
             flat = p.reshape(-1, p.shape[-1])
-            lnmarg = block_lnmarg(flat, *obs)
-            good = torch.isfinite(lnmarg)
-            total = torch.where(good, lnmarg, torch.zeros_like(lnmarg)).sum(dim=-1)
-            total = torch.where(good.all(dim=-1), total, float("-inf"))
-            return total.reshape(p.shape[:-1])
+            if flat.shape[0] <= max_parallel:
+                out = lnlike_dataset(flat, *obs)
+            else:
+                out = torch.cat([lnlike_dataset(flat[i : i + max_parallel], *obs)
+                                 for i in range(0, flat.shape[0], max_parallel)])
+            return out.reshape(p.shape[:-1])
 
         return lnlike_batch
 
@@ -243,3 +322,227 @@ class StarClusterModel(BasicStarModel):
             bad = ~np.isfinite(self.lnpost_batch(p0).cpu().numpy())
             tries += 1
         return p0
+
+    def sample_from_prior(self, n, values=False, require_valid=True, rng=None):
+        """Uniform draws inside the prior box with a finite posterior, as a
+        dict of numpy columns, or the (n, 7) array with ``values=True``."""
+        arr = self.emcee_p0(n, rng=rng)
+        return arr if values else {p: arr[:, i] for i, p in enumerate(self.param_names)}
+
+    def _make_samples(self):
+        """Cluster samples are the raw chain (reference cluster.py:389-411)."""
+        self._derived_samples = dict(self.samples)
+
+
+class SimulatedCluster(StarCatalog):
+    """Synthetic cluster photometry catalogue (reference cluster.py:71-179).
+
+    Star generation is batched: one ``get_eep`` and one ``interp_mag`` call
+    per component. The host draws come from one ``numpy.random.Generator``
+    (seeded by ``rng``) in a fixed order: binary flags, primary masses, mass
+    ratios, distances, then the photometric noise band by band. ``ic`` is
+    built with :func:`~isochrones_torch.isochrone.get_ichrone` on ``device``
+    (the card unless the caller passes ``device="cpu"``) when not given."""
+
+    def __init__(
+        self,
+        N,
+        age,
+        feh,
+        distance,
+        AV,
+        alpha,
+        gamma,
+        fB,
+        bands="JHK",
+        mass_range=(0.3, 2.5),
+        distance_scatter=5,
+        models="synthetic",
+        phot_unc=0.01,
+        ic=None,
+        rng=None,
+        device="cuda",
+        **ic_kwargs,
+    ):
+        self.N = N
+        self.age = age
+        self.feh = feh
+        self.distance = distance
+        self.AV = AV
+        self.alpha = alpha
+        self.gamma = gamma
+        self.fB = fB
+        self.pars = [age, feh, distance, AV, alpha, gamma, fB]
+        self.bands = tuple(bands)
+        self.mass_range = mass_range
+        self.distance_scatter = distance_scatter
+        self.phot_unc = phot_unc
+        self._rng = np.random.default_rng(rng)
+
+        if ic is None:
+            from .isochrone import get_ichrone
+
+            ic = get_ichrone(models, device=device, **ic_kwargs)
+        self.ic = ic
+
+        super().__init__(self._generate(), bands=tuple(bands), props=["parallax"])
+
+    def evolve(self, age):
+        """Same stars at a different age (reference cluster.py:112-119)."""
+        d = self.data
+        data = self._simulate_stars(age, d["is_binary"], d["mass_pri"], d["mass_sec"], d["distance"])
+        return StarCatalog(data, bands=self.bands, props=["parallax"])
+
+    def _generate(self):
+        N = self.N
+        age, feh, distance, AV, alpha, gamma, fB = self.pars
+        r = self._rng
+        is_binary = r.random(N) < fB
+        pri = PowerLawPrior(alpha, self.mass_range).sample(N, rng=r)
+        qs = PowerLawPrior(gamma, (0.2, 1)).sample(N, rng=r)
+        sec = pri * qs * is_binary
+        sec[(sec < 0.1) & (sec > 0)] = 0.1
+        distances = distance + r.standard_normal(N) * self.distance_scatter
+        stars = self._simulate_stars(age, is_binary, pri, sec, distances)
+
+        # redraw dead stars (a mass evolved past its track's end at this age
+        # has NaN photometry, and one NaN row poisons the whole likelihood)
+        band_cols = [f"{b}_mag" for b in self.bands]
+        for _ in range(100):
+            bad = np.isnan(np.stack([stars[c] for c in band_cols], axis=-1)).any(axis=-1)
+            if not bad.any():
+                break
+            nb = int(bad.sum())
+            is_binary[bad] = r.random(nb) < fB
+            pri[bad] = PowerLawPrior(alpha, self.mass_range).sample(nb, rng=r)
+            q_new = PowerLawPrior(gamma, (0.2, 1)).sample(nb, rng=r)
+            sec[bad] = pri[bad] * q_new * is_binary[bad]
+            sec[(sec < 0.1) & (sec > 0)] = 0.1
+            distances[bad] = distance + r.standard_normal(nb) * self.distance_scatter
+            stars = self._simulate_stars(age, is_binary, pri, sec, distances)
+        else:
+            getLogger().warning("SimulatedCluster: NaN photometry rows remain after redraws")
+        return stars
+
+    def _simulate_stars(self, age, is_binary, pri_masses, sec_masses, distances):
+        N = len(pri_masses)
+        _, feh, distance, AV, alpha, gamma, fB = self.pars
+        r = self._rng
+        track = self.ic.track if self.ic.eep_replaces == "mass" else self.ic
+
+        pri_eeps = track.get_eep(pri_masses, age, feh)
+        sec_eeps = np.where(sec_masses > 0, track.get_eep(np.maximum(sec_masses, 1e-3), age, feh), np.nan)
+
+        iso = self.ic if self.ic.eep_replaces == "mass" else self.ic.iso
+        bands = list(self.bands)
+        _, _, _, pri_mags = iso.interp_mag(
+            [pri_eeps, np.full(N, age), np.full(N, feh), distances, np.full(N, AV)], bands
+        )
+        sec_safe = np.where(np.isfinite(sec_eeps), sec_eeps, pri_eeps)
+        _, _, _, sec_mags = iso.interp_mag(
+            [sec_safe, np.full(N, age), np.full(N, feh), distances, np.full(N, AV)], bands
+        )
+        sec_mags = np.where(np.isfinite(sec_eeps)[:, None], sec_mags, np.inf)
+
+        stars = {f"{b}_mag": addmags(pri_mags[:, i], sec_mags[:, i]) for i, b in enumerate(bands)}
+        stars["is_binary"] = np.array(is_binary)
+        stars["distance"] = np.array(distances)
+        stars["mass_pri"] = np.array(pri_masses)
+        stars["mass_sec"] = np.array(sec_masses)
+        stars["eep_pri"] = pri_eeps
+        stars["eep_sec"] = sec_eeps
+        unc = self.phot_unc
+        for b in bands:
+            stars[f"{b}_mag"] = stars[f"{b}_mag"] + r.standard_normal(N) * unc
+            stars[f"{b}_mag_unc"] = np.full(N, float(unc))
+        stars["parallax"] = 1000.0 / np.asarray(distances)
+        stars["parallax_unc"] = np.full(N, 0.2)
+        return stars
+
+
+def simulate_cluster(
+    N, age, feh, distance, AV, alpha, gamma, fB,
+    bands="JHK", mass_range=(0.8, 2.5), distance_scatter=5, iso=None, rng=None, **ic_kwargs,
+):
+    """Functional synthetic-cluster generator (reference cluster.py:414-477)."""
+    sim = SimulatedCluster(
+        N, age, feh, distance, AV, alpha, gamma, fB, bands=bands,
+        mass_range=mass_range, distance_scatter=distance_scatter,
+        ic=iso, rng=rng, **ic_kwargs,
+    )
+    data = dict(sim.data)
+    for name, value in (("age", age), ("feh", feh), ("AV", AV)):
+        data[name] = np.full(len(sim), float(value))
+    return StarCatalog(data, bands=tuple(bands), props=["parallax"])
+
+
+def clusterfit(
+    starfile,
+    bands=None,
+    props=None,
+    models="mist",
+    max_distance=10000,
+    mineep=200,
+    maxeep=800,
+    maxAV=0.1,
+    minq=0.2,
+    overwrite=False,
+    nlive=1000,
+    name="",
+    halo_fraction=0.5,
+    comm=None,
+    rank=0,
+    max_iter=None,
+    eep_step=1.0,
+    q_jacobian=False,
+    dynamic=None,
+    min_ess=None,
+    device="cuda",
+    dtype=torch.float64,
+):
+    """Cluster-fit entry point (reference cluster.py:20-68): a CSV table of member
+    photometry -> :class:`StarClusterModel` -> nested fit; returns the fitted
+    model. The grids are built and the fit runs on ``device`` (the card
+    unless the caller passes ``device="cpu"``) in ``dtype``. The reference
+    broadcasts the model over MPI; here ``comm`` and ``rank`` are accepted
+    and ignored. An HDF table needs pandas and pytables, which this port does
+    not use: it raises ``NotImplementedError``."""
+    if comm is not None:
+        getLogger().info("MPI comm ignored: the sampler runs on one device.")
+
+    if str(starfile).endswith((".h5", ".hdf", ".hdf5")):
+        raise NotImplementedError(f"clusterfit: {starfile} is an HDF table, which this port does not read "
+                                  "(it needs pandas and pytables); write the member table as CSV")
+    cat = StarCatalog(read_csv(starfile), bands=bands, props=props)
+    getLogger().info("bands = %s", cat.bands)
+
+    from .isochrone import get_ichrone
+
+    ic = get_ichrone(models, bands=cat.bands, device=device, dtype=dtype)
+    model = StarClusterModel(
+        ic, cat, eep_bounds=(mineep, maxeep), max_distance=max_distance,
+        minq=minq, halo_fraction=halo_fraction, max_AV=maxAV, name=name,
+        eep_step=eep_step, q_jacobian=q_jacobian,
+    )
+    # loud support check: one unsupported star makes every walker -inf and
+    # the sampler silently returns prior draws
+    los, his = model._bounds_arrays()
+    probe = los + (his - los) * np.random.default_rng(0).random((8, len(los)))
+    if not np.isfinite(model.lnpost_batch(probe).cpu().numpy()).any():
+        marg = model.star_lnmarginals(probe[0])
+        bad = np.flatnonzero(~np.isfinite(marg)).tolist()
+        getLogger().warning(
+            "cluster lnlike is -inf at all probe points; stars with no "
+            "(eep, q) support (NaN photometry, or no ladder cell inside "
+            "the mass box): rows %s. Drop those rows or fix the bounds.", bad,
+        )
+    fit_kw = dict(overwrite=overwrite, n_live_points=nlive, max_iter=max_iter)
+    if dynamic is not None:
+        # None defers to the model's default (dynamic); --static forces it off
+        fit_kw["dynamic"] = dynamic
+    if min_ess is not None:
+        fit_kw["min_ess"] = min_ess
+    model.fit(**fit_kw)
+    if model.evidence is not None:
+        getLogger().info("clusterfit %s: logz = %.4f +- %.4f", model.labelstring, *model.evidence)
+    return model

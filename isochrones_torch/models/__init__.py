@@ -1,3 +1,3 @@
-from .interpolator import IsochroneInterpolator, ModelGridInterpolator
+from .interpolator import EvolutionTrackInterpolator, IsochroneInterpolator, ModelGridInterpolator
 
-__all__ = ["ModelGridInterpolator", "IsochroneInterpolator"]
+__all__ = ["ModelGridInterpolator", "EvolutionTrackInterpolator", "IsochroneInterpolator"]

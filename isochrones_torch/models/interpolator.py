@@ -2,12 +2,14 @@
 ``isochrones_tpu/models/interpolator.py``): one stellar model grid joined
 with one bolometric-correction grid, on one device in one dtype.
 
-Ported subset: the isochrone interpolator with the packed tables
-(``model_packed``, and ``model_packed6`` for the fused star likelihood), the
-parameter layout, grid limits, ``interp_value``/``interp_mag`` (batched on
-tensors, and host wrappers on numpy), the per-property accessors and
-``__call__``. The evolution-track interpolator, EEP inversion and forward
-generation wait for a later port.
+Ported: the isochrone and the evolution-track interpolator with the packed
+tables (``model_packed``, and ``model_packed6`` for the fused star
+likelihood), the parameter layout, grid limits, ``interp_value``/
+``interp_mag`` (batched on tensors, and host wrappers on numpy), the
+per-property accessors, ``__call__``, and EEP inversion (``get_eep``, fast on
+track grids and accurate on both, ``max_eep``). Forward generation
+(``generate*``, ``isochrone``, ``model_value``, ``model_mag``) waits for a
+later port and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,10 +19,15 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.eep import get_eep_newton, interp_eep
 from ..ops.interp import GridData, interp_nd
 from ..ops.mags import interp_mag as _interp_mag_kernel
 
-__all__ = ["ModelGridInterpolator", "IsochroneInterpolator"]
+__all__ = ["ModelGridInterpolator", "EvolutionTrackInterpolator", "IsochroneInterpolator"]
+
+#: rows of one host-facing EEP inversion call; a longer request is cut into
+#: pieces of this many rows, which bounds the device memory of one call
+HOST_CHUNK = 1 << 20
 
 
 class ModelGridInterpolator:
@@ -32,12 +39,15 @@ class ModelGridInterpolator:
     _param_index_order: Tuple[int, ...] = (1, 2, 0, 3, 4)
     name = "model"
 
-    def __init__(self, model: GridData, bc: GridData, bands: Optional[Sequence[str]] = None):
+    def __init__(self, model: GridData, bc: GridData, bands: Optional[Sequence[str]] = None, eep_support=None):
         if model.values.device != bc.values.device or model.values.dtype != bc.values.dtype:
             raise ValueError("model and BC grids must share one device and dtype")
         self.model = model
         self.bc = bc
         self.bands = list(bands) if bands is not None else list(bc.columns)
+        # (feh_knots, mass_knots, age_arrays (+inf padded), lengths) tensors
+        # on the model's device, for the fast EEP inversion
+        self.eep_support = eep_support
 
         ci = model.column_index
         self._model_icols = (ci["Teff"], ci["logg"], ci["feh"], ci["Mbol"])
@@ -139,6 +149,24 @@ class ModelGridInterpolator:
     def maxmass(self):
         return self.get_limits("mass")[1]
 
+    @property
+    def fehs(self):
+        return self.model.knots[self._axis_names().index("feh")].cpu().numpy()
+
+    @property
+    def ages(self):
+        """Age knots (isochrone grids only; reference models.py:313-319)."""
+        if self.eep_replaces != "mass":
+            raise AttributeError("Age is not a dimension of model grid type {}!".format(self.name))
+        return self.model.knots[self._axis_names().index("age")].cpu().numpy()
+
+    @property
+    def masses(self):
+        """Mass knots (track grids only; reference models.py:321-327)."""
+        if self.eep_replaces != "age":
+            raise AttributeError("Mass is not a dimension of this model grid!")
+        return self.model.knots[self._axis_names().index("mass")].cpu().numpy()
+
     # ------------------------------------------------------------ properties
     def _as_points(self, pars, n):
         """Broadcast the first ``n`` host parameters into a (rows, n) tensor."""
@@ -221,13 +249,132 @@ class ModelGridInterpolator:
         return Teff.reshape(shape), logg.reshape(shape), feh.reshape(shape), mags.reshape(shape + (-1,))
 
 
+    # ------------------------------------------------------------------ EEP
+    def max_eep(self, mass, feh):
+        """Length of the track at the knots at or below (mass, feh); the
+        grid's top EEP without EEP support arrays."""
+        if self.eep_support is None:
+            return self.maxeep
+        feh_knots, mass_knots, _, lengths = (x.cpu().numpy() for x in self.eep_support)
+        # side="right" - 1 is the knot itself on an exact match and the lower
+        # knot inside a cell
+        i_f = int(np.clip(np.searchsorted(feh_knots, feh, side="right") - 1, 0, len(feh_knots) - 1))
+        i_m = int(np.clip(np.searchsorted(mass_knots, mass, side="right") - 1, 0, len(mass_knots) - 1))
+        return float(lengths[i_f * len(mass_knots) + i_m])
+
+    def get_eep_batch(self, mass, age, feh, accurate=False, resid_tol=0.02):
+        """Batched EEP inversion on tensors of the model's device (reference
+        models.py:501-542): the fast integer-resolution search on track grids,
+        refined by Newton steps with ``accurate``; on isochrone grids only the
+        accurate one, seeded at EEP 300. NaN where the refined residual
+        exceeds ``resid_tol``."""
+        mass, age, feh = torch.broadcast_tensors(
+            *(torch.as_tensor(x, dtype=self.dtype, device=self.device) for x in (mass, age, feh)))
+        if self.eep_replaces == "age":
+            if self.eep_support is None:
+                raise ValueError("No EEP support arrays on this grid")
+            feh_knots, mass_knots, age_arrays, lengths = self.eep_support
+            eep0 = float(self.model.knots[-1][0])
+            fast = interp_eep(age, feh, mass, feh_knots, mass_knots, age_arrays, lengths, eep0=eep0)
+            if not accurate:
+                return fast
+            eep, resid = get_eep_newton(self.model, fast, age, feh, mass, self.model.column_index["age"])
+        elif self.eep_replaces == "mass":
+            if not accurate:
+                raise NotImplementedError(
+                    "Fast EEP inversion not implemented for isochrone grids (as in reference)")
+            seed = torch.full_like(mass, 300.0)
+            eep, resid = get_eep_newton(self.model, seed, mass, age, feh, self.model.column_index["initial_mass"])
+        else:
+            raise NotImplementedError(
+                f"EEP inversion needs eep_replaces in ('age', 'mass'); this "
+                f"interpolator has eep_replaces={self.eep_replaces!r}")
+        return torch.where(resid.abs() < resid_tol, eep, torch.full_like(eep, float("nan")))
+
+    def get_eep(self, mass, age, feh, accurate=False, resid_tol=0.02, **kwargs):
+        """Host wrapper of :meth:`get_eep_batch`: broadcast numpy in, numpy
+        out (a float for scalars), in pieces of ``HOST_CHUNK`` rows."""
+        arrs = np.broadcast_arrays(*[np.asarray(x, dtype=float) for x in (mass, age, feh)])
+        shape = arrs[0].shape
+        cols = [torch.as_tensor(np.ascontiguousarray(a.reshape(-1)), dtype=self.dtype, device=self.device)
+                for a in arrs]
+        n = cols[0].shape[0]
+        out = torch.cat([
+            self.get_eep_batch(*(c[i : i + HOST_CHUNK] for c in cols), accurate=accurate, resid_tol=resid_tol)
+            for i in range(0, max(n, 1), HOST_CHUNK)
+        ]).cpu().numpy()
+        if not shape:
+            return float(out[0])
+        return out.reshape(shape)
+
+    def get_eep_accurate(self, mass, age, feh, **kwargs):
+        return self.get_eep(mass, age, feh, accurate=True, **kwargs)
+
+    def mass_age_resid(self, *args, **kwargs):
+        raise NotImplementedError
+
+    # ------------------------------------------------------------- generation
+    def _forward_model_not_ported(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the forward model (generate, generate_device, generate_binary, isochrone, model_value, "
+            "model_mag) is not ported yet (ROADMAP queue 1, \"Forward model and populations\")")
+
+    generate = generate_device = generate_binary = _forward_model_not_ported
+    isochrone = model_value = model_mag = _forward_model_not_ported
+
+
+class EvolutionTrackInterpolator(ModelGridInterpolator):
+    """Params (mass, eep, feh, distance, AV); grid axes (feh, mass, eep)
+    (reference models.py:664-688)."""
+
+    param_names = ("mass", "eep", "feh", "distance", "AV")
+    eep_replaces = "age"
+    _param_index_order = (2, 0, 1, 3, 4)
+    name = "track"
+
+    def __init__(self, *args, iso=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._iso = iso
+
+    def _axis_names(self):
+        return ["feh", "mass", "eep"]
+
+    @property
+    def iso(self):
+        return self._iso
+
+    def mass_age_resid(self, eep, mass, age, feh):
+        age_interp = self.interp_value([mass, eep, feh], ["age"])
+        return float(np.squeeze((age - age_interp) ** 2))
+
+
 class IsochroneInterpolator(ModelGridInterpolator):
-    """Params (eep, age, feh, distance, AV); grid axes (age, feh, eep)."""
+    """Params (eep, age, feh, distance, AV); grid axes (age, feh, eep)
+    (reference models.py:691-718)."""
 
     param_names = ("eep", "age", "feh", "distance", "AV")
     eep_replaces = "mass"
     _param_index_order = (1, 2, 0, 3, 4)
     name = "iso"
 
+    def __init__(self, *args, track=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._track = track
+
     def _axis_names(self):
         return ["age", "feh", "eep"]
+
+    @property
+    def track(self):
+        if self._track is None:
+            raise ValueError(
+                "This IsochroneInterpolator has no linked track interpolator "
+                "(construct it with track=..., or use get_ichrone, which "
+                "wires both); mass-parameterized entry points (generate, "
+                "model_value, model_mag) delegate to it."
+            )
+        return self._track
+
+    def mass_age_resid(self, eep, mass, age, feh):
+        mass_interp = self.interp_value([eep, age, feh], ["initial_mass"])
+        return float(np.squeeze((mass - mass_interp) ** 2))

@@ -1,7 +1,10 @@
-"""Tensor operations: interpolation, magnitudes, the star likelihood
-(composed, and fused with a CUDA kernel on the card), the cluster marginal
-(plain version, CUDA kernel on the card)."""
+"""Tensor operations: interpolation, magnitudes, EEP inversion and root
+finding (plain torch), the star likelihood (composed, and fused with a CUDA
+kernel on the card), the cluster marginal (plain version, CUDA kernel on the
+card)."""
 
+from .eep import get_eep_newton, interp_eep, searchsorted_rows
+from .rootfind import find_closest_grid, find_closest_grid_batch
 from .cluster import calc_lnlike_grid, cluster_lnmarginal, cluster_lnmarginal_plain, integrate_over_eeps_ln
 from .interp import GridData, compute_axis_maps, corner_data, find_cells_1d, interp_nd
 from .likelihood import gauss_lnprob, stack_components, star_lnlike
@@ -25,4 +28,9 @@ __all__ = [
     "integrate_over_eeps_ln",
     "cluster_lnmarginal_plain",
     "cluster_lnmarginal",
+    "interp_eep",
+    "get_eep_newton",
+    "searchsorted_rows",
+    "find_closest_grid",
+    "find_closest_grid_batch",
 ]

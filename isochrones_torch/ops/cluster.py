@@ -21,8 +21,8 @@ __all__ = [
     "cluster_lnmarginal",
 ]
 
-#: cells of (stars, Neep, Neep) planes the plain version holds per chunk; it
-#: chunks walkers and stars only to bound memory
+#: cells of (walkers, stars, Neep, Neep) planes the plain version holds per
+#: chunk; it chunks walkers and stars only to bound memory
 _PLAIN_CELL_BUDGET = 1 << 25
 
 
@@ -116,7 +116,9 @@ def cluster_lnmarginal_plain(
     alpha, gamma, fB, mass_lo, mass_hi, q_lo, valid=None, q_jacobian=False, valid_k=None,
 ):
     """(W, S) per-walker, per-star ln marginals: ``integrate_over_eeps_ln(
-    calc_lnlike_grid(...))`` for each walker, in chunks of stars."""
+    calc_lnlike_grid(...))`` for each walker, in chunks of stars. Where the
+    planes of several walkers fit the cell budget (short ladders), those
+    walkers go through the same two functions together under ``torch.vmap``."""
     W, S, E = lnlike_prop.shape
     dt, dev = model_mags.dtype, model_mags.device
     alpha, gamma, fB = (torch.as_tensor(x, dtype=dt, device=dev).expand(W) for x in (alpha, gamma, fB))
@@ -124,17 +126,27 @@ def cluster_lnmarginal_plain(
         valid = torch.ones((W, E), dtype=torch.bool, device=dev)
     if valid_k is None:
         valid_k = valid
-    chunk = max(1, _PLAIN_CELL_BUDGET // max(E * E, 1))
+    chunk = max(1, min(S, _PLAIN_CELL_BUDGET // max(E * E, 1)))
+    w_chunk = max(1, _PLAIN_CELL_BUDGET // max(chunk * E * E, 1))
     out = torch.empty((W, S), dtype=dt, device=dev)
-    for w in range(W):
-        for s0 in range(0, S, chunk):
-            sl = slice(s0, min(S, s0 + chunk))
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, min(S, s0 + chunk))
+
+        def one(lnprop, mags, mass, ln_dm, a, g, f, v, vk):
             grid = calc_lnlike_grid(
-                lnlike_prop[w, sl], model_mags[w], masses[w], ln_dm_deeps[w], mag_values[sl],
-                mag_uncs[sl], alpha[w], gamma[w], fB[w], mass_lo, mass_hi, q_lo,
-                valid=valid[w], q_jacobian=q_jacobian, valid_k=valid_k[w],
+                lnprop, mags, mass, ln_dm, mag_values[sl], mag_uncs[sl], a, g, f, mass_lo, mass_hi, q_lo,
+                valid=v, q_jacobian=q_jacobian, valid_k=vk,
             )
-            out[w, sl] = integrate_over_eeps_ln(grid, eeps)
+            return integrate_over_eeps_ln(grid, eeps)
+
+        for w0 in range(0, W, w_chunk):
+            ws = slice(w0, min(W, w0 + w_chunk))
+            args = (lnlike_prop[ws, sl], model_mags[ws], masses[ws], ln_dm_deeps[ws], alpha[ws], gamma[ws],
+                    fB[ws], valid[ws], valid_k[ws])
+            if w_chunk == 1:
+                out[w0, sl] = one(*(x[0] for x in args))
+            else:
+                out[ws, sl] = torch.vmap(one)(*args)
     return out
 
 

@@ -574,14 +574,20 @@ class BasicStarModel:
         self._derived_samples = None
         return result
 
-    def fit_mcmc(self, nwalkers=300, nburn=200, niter=100, thin=1, p0=None, seed=None, moves="stretch", **kwargs):
+    def fit_mcmc(self, nwalkers=300, nburn=200, niter=100, thin=1, p0=None, seed=None, moves="stretch",
+                 mesh=None, **kwargs):
         """On-device affine-invariant ensemble MCMC (reference
         starmodel.py:886-972). ``moves``: "stretch", "de", "snooker", "kde"
-        or "mixed". Other keywords (those of the nested fit, which ``starfit``
+        or "mixed". ``mesh`` (sharding the walkers across devices) is not
+        ported yet and raises ``NotImplementedError``, as in ``fit_multinest``.
+        Other keywords (those of the nested fit, which ``starfit``
         hands to either engine) are ignored, as in the reference. Returns a dict of column name -> numpy array with the
         parameter columns and ``"lnprob"``; the final sampler state (with its
         acceptance counts) is kept as ``self.sampler_state``."""
         from .samplers.ensemble import run_ensemble
+
+        if mesh is not None:
+            raise NotImplementedError(f"fit_mcmc(mesh={mesh!r}) is not ported yet (ROADMAP queue 1, parallelism)")
 
         if p0 is None:
             p0 = self.emcee_p0(nwalkers, rng=seed)

@@ -339,9 +339,13 @@ class StarModel(BasicStarModel):
         return self.obs.print_ascii()
 
     def convert_pars_to_eep(self, pars):
-        """Mass-based parameter vectors -> EEP (reference starmodel.py:443-453).
-        Needs the interpolator's EEP inversion, which is not ported yet."""
-        raise NotImplementedError("convert_pars_to_eep needs ic.get_eep (EEP inversion, ROADMAP queue 1)")
+        """Mass-based parameter vectors -> EEP (reference starmodel.py:443-453)."""
+        pardict = self.obs.p2pardict(pars)
+        new = dict(pardict)
+        for s, p in pardict.items():
+            new[s] = list(p)
+            new[s][0] = self.ic.get_eep(*p[0:3], accurate=True)
+        return self.obs.pardict2p(new)
 
     # ---------------------------------------------------------------- bounds
     def bounds(self, prop):

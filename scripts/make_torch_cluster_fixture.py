@@ -2,9 +2,13 @@
 cluster of ``bench.py``'s cluster-fit row, simulated by the JAX package's
 ``SimulatedCluster`` on the MIST-scale synthetic grid in float64 on the CPU.
 
-The port has no cluster simulator yet (it needs EEP inversion), so the
-catalogue its smoke run fits is made here once and committed. Run from the
-repository root:
+The file was made here once, before the port had a cluster simulator, and
+committed. The port's own ``isochrones_torch.cluster.SimulatedCluster`` now
+reproduces it with the same seed and settings (drawn columns bit for bit,
+EEPs and magnitudes to 1e-9): ``chip_smoke.py`` holds it to the file on the
+card and ``tests/test_torch_cluster_fit.py`` holds the two classes to each
+other on the CPU. This script stays only as the record of the file's origin.
+Run from the repository root:
 
     python -m scripts.make_torch_cluster_fixture
 """

@@ -31,8 +31,8 @@ import torch
 
 from chip_smoke import (
     ATOL_F32, ATOL_STAR_F32, FIXTURE, RTOL_F32, RTOL_F64, RTOL_STAR_F32, RTOL_STAR_F64, _tree_check, as_float32,
-    _tree_mixed_points, check_close, check_star, grid_as, make_kernel_inputs, profile_kernels, star_grid_variant,
-    star_observations, star_points, to_torch,
+    _tree_mixed_points, check_close, check_eep, check_star, eep_points, grid_as, make_kernel_inputs, profile_kernels,
+    star_grid_variant, star_observations, star_points, to_torch,
 )
 from isochrones_torch import BinaryStarModel, StarClusterModel, TripleStarModel, get_ichrone
 from isochrones_torch.catalog import read_csv
@@ -132,6 +132,56 @@ def test_cluster_model_on_card_matches_cpu(dev):
     truth = np.array([9.0, 0.0, 300.0, 0.05, -2.0, 0.3, 0.3])
     p = truth + rng.normal(0, [0.05, 0.05, 5.0, 0.01, 0.1, 0.03, 0.03], size=(12, 7))
     check_close("slice", gpu.lnpost_batch(p).cpu().numpy(), cpu.lnpost_batch(p).numpy(), 1e-9)
+
+
+@pytest.mark.parametrize("accurate", [False, True], ids=["fast", "accurate"])
+def test_get_eep_on_card_matches_cpu(dev, accurate):
+    """EEP inversion is plain torch: on the card it gives what it gives on
+    the CPU (float64, 1e-9, identical NaN pattern), on both interpolators."""
+    gpu, cpu = (get_ichrone("synthetic", device=d, tracks=True, **_SMALL) for d in (dev, "cpu"))
+    mass, age, feh = eep_points(cpu, 3000, seed=4)
+    check_eep("track", gpu.get_eep(mass, age, feh, accurate=accurate), cpu.get_eep(mass, age, feh, accurate=accurate))
+    if accurate:
+        n = check_eep("iso", gpu.iso.get_eep(mass, age, feh, accurate=True),
+                      cpu.iso.get_eep(mass, age, feh, accurate=True))[1]
+        assert n > 300
+
+
+def test_simulated_cluster_on_card_matches_cpu(dev):
+    from isochrones_torch import SimulatedCluster
+
+    kw = dict(age=9.0, feh=0.0, distance=300.0, AV=0.05, alpha=-2.0, gamma=0.3, fB=0.3, bands=("J", "K"), rng=5)
+    gpu = SimulatedCluster(40, device=dev, **kw, **_SMALL)
+    cpu = SimulatedCluster(40, device="cpu", **kw, **_SMALL)
+    assert gpu.ic.device.type == "cuda" and list(gpu.data) == list(cpu.data)
+    for c in cpu.data:
+        check_eep(c, gpu.data[c], cpu.data[c])
+
+
+def test_nested_cluster_fit_on_card(dev, monkeypatch):
+    """A short nested cluster fit through the kernel: dynamic by default at
+    the card's batch (n_batch clamped to n_live // 4), a walker batch past
+    the byte budget cut into several launches with the same result."""
+    import isochrones_torch.cluster as cluster_mod
+    from isochrones_torch import SimulatedCluster
+
+    ic = get_ichrone("synthetic", device=dev, dtype=torch.float32, **_SMALL)
+    sim = SimulatedCluster(8, age=9.0, feh=0.0, distance=300.0, AV=0.05, alpha=-2.0, gamma=0.3, fB=0.3,
+                           bands=("J", "K"), mass_range=(0.6, 2.0), phot_unc=0.05, rng=0, ic=ic)
+    kw = dict(eep_bounds=(1, 81), eep_step=2.0, max_distance=2000)
+    model = StarClusterModel(ic, sim, **kw)
+    before = cluster_lnmarginal_cuda.launches
+    res = model.fit(n_live_points=64, seed=0)
+    assert cluster_lnmarginal_cuda.launches > before
+    assert np.isfinite(res.logz) and model.evidence == (res.logz, res.logzerr) and len(model.samples["age"]) == 4000
+    pts = model.sample_from_prior(37, values=True, rng=1)
+    whole = model.lnlike_batch(pts).cpu().numpy()
+    per_walker = cluster_mod._walker_bytes(8, model._n_ladder, 2, 4)
+    monkeypatch.setattr(cluster_mod, "_WALKER_BYTES_BUDGET", 5 * per_walker)
+    before = cluster_lnmarginal_cuda.launches
+    pieces = StarClusterModel(ic, sim, **kw).lnlike_batch(pts).cpu().numpy()
+    assert cluster_lnmarginal_cuda.launches == before + 8
+    np.testing.assert_allclose(pieces, whole, rtol=1e-6)
 
 
 _SMALL = dict(n_feh=7, n_mass=30, n_eep=100, n_age=30)

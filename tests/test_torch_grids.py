@@ -86,6 +86,70 @@ def test_entry_points_default_to_the_card(bundles, entry):
         calls[entry]()
 
 
+def test_get_ichrone_default_is_mist_and_names_unknown_grids():
+    """The reference's default and order of checks: an instance first, then
+    the names; the real grids are not ported and say so."""
+    import inspect
+
+    from isochrones_tpu import get_ichrone as jax_get_ichrone
+    from isochrones_torch import get_ichrone
+
+    ref = list(inspect.signature(jax_get_ichrone).parameters)[:4]
+    assert list(inspect.signature(get_ichrone).parameters)[:4] == ref == ["models", "bands", "tracks", "basic"]
+    assert inspect.signature(get_ichrone).parameters["models"].default == "mist"
+    with pytest.raises(NotImplementedError, match="MIST"):
+        get_ichrone(device="cpu")
+    with pytest.raises(NotImplementedError, match="MIST"):
+        get_ichrone("mist", basic=True, device="cpu")
+    with pytest.raises(ValueError, match="Unknown model grid"):
+        get_ichrone("parsec", device="cpu")
+
+
+def test_get_ichrone_pair_cache_and_pass_through(bundles):
+    """``tracks=True`` gives the evolution-track interpolator, cross-linked
+    with the isochrone one; two calls share one set of tables; an
+    interpolator instance comes back as it is; the EEP support arrays are the
+    JAX package's."""
+    from isochrones_tpu import get_ichrone as jax_get_ichrone
+    from isochrones_torch import get_ichrone
+    from isochrones_torch.models import EvolutionTrackInterpolator, IsochroneInterpolator
+
+    iso = get_ichrone("synthetic", device="cpu", **_DIMS)
+    track = get_ichrone("synthetic", tracks=True, device="cpu", **_DIMS)
+    assert type(iso) is IsochroneInterpolator and type(track) is EvolutionTrackInterpolator
+    assert iso.track is track and track.iso is iso
+    assert get_ichrone("synthetic", device="cpu", **_DIMS) is iso
+    assert get_ichrone("synthetic", device=torch.device("cpu"), **_DIMS).model.values is iso.model.values
+    assert get_ichrone(iso) is iso and get_ichrone(track, tracks=False, device="cuda") is track
+    # another dtype, another band list or another size is another grid
+    iso32 = get_ichrone("synthetic", device="cpu", dtype=torch.float32, **_DIMS)
+    assert iso32 is not iso and iso32.dtype == torch.float32 and iso32.track.eep_support[2].dtype == torch.float32
+    jk = get_ichrone("synthetic", bands=["J", "K"], device="cpu", **_DIMS)
+    assert jk is not iso and jk.bands == ["J", "K"] and jk.bc.columns == ("J", "K")
+    assert get_ichrone("synthetic", bands=("J", "K"), device="cpu", **_DIMS) is jk
+
+    jtrack = jax_get_ichrone("synthetic", tracks=True, **_DIMS)
+    assert (track.param_names, track.eep_replaces, track._param_index_order, track.name) == (
+        jtrack.param_names, jtrack.eep_replaces, jtrack._param_index_order, jtrack.name)
+    assert track._param_index_order == (2, 0, 1, 3, 4) and track.eep_replaces == "age"
+    _same_grid(track.model, bundles[0].track)
+    for a, b in zip(track.eep_support, jtrack.eep_support):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert iso.eep_support is None
+    assert [track.get_limits(p) for p in ("mass", "feh", "eep", "age")] == \
+        [jtrack.get_limits(p) for p in ("mass", "feh", "eep", "age")]
+    pars = [1.0, 45.0, -0.2, 300.0, 0.1]
+    for a, b in zip(track.interp_mag(pars, ["J", "K"]), jtrack.interp_mag(pars, ["J", "K"])):
+        np.testing.assert_allclose(a, b, rtol=1e-12)
+    # a track interpolator without its isochrone twin, and the reverse
+    lone = IsochroneInterpolator(iso.model, iso.bc)
+    with pytest.raises(ValueError, match="no linked track interpolator"):
+        lone.track
+    assert EvolutionTrackInterpolator(track.model, track.bc).iso is None
+    with pytest.raises(ValueError, match="No EEP support"):
+        EvolutionTrackInterpolator(track.model, track.bc).get_eep(1.0, 9.0, 0.0)
+
+
 def test_utils_match_reference():
     import isochrones_tpu.utils as ju
     import isochrones_torch.utils as tu

@@ -34,6 +34,11 @@ _EXPECTED = (
     "isochrones_torch.treemodel",
     "isochrones_torch.starfit",
     "isochrones_torch.cli.starfit",
+    "isochrones_torch.ops.eep",
+    "isochrones_torch.ops.rootfind",
+    "isochrones_torch.isochrone",
+    "isochrones_torch.cluster",
+    "isochrones_torch.cli.clusterfit",
 )
 
 

@@ -309,7 +309,8 @@ def test_pack_plan_layout(ics, case, dtype):
             pack_plan(half, dtype)
 
 
-@pytest.mark.parametrize("entry", ["tree_load_hdf", "flat_load_hdf", "from_ini", "cli"])
+@pytest.mark.parametrize("entry", ["tree_load_hdf", "flat_load_hdf", "from_ini", "cli", "clusterfit",
+                                   "clusterfit_cli", "simulated_cluster"])
 def test_entry_points_default_to_the_card(ics, tmp_path, entry):
     """Without a device the entry points build on the card; with no card
     that fails instead of running on the CPU."""
@@ -320,6 +321,19 @@ def test_entry_points_default_to_the_card(ics, tmp_path, entry):
     from isochrones_torch import SingleStarModel
     from isochrones_torch.cli.starfit import main
 
+    if entry in ("clusterfit", "clusterfit_cli", "simulated_cluster"):
+        from isochrones_torch.cli.clusterfit import main as clusterfit_main
+        from isochrones_torch.cluster import SimulatedCluster, clusterfit
+
+        csv = os.path.join(os.path.dirname(HERE), "isochrones_torch", "data", "cluster50_synthetic.csv")
+        with pytest.raises((RuntimeError, AssertionError)):  # torch's own refusal, by build
+            if entry == "clusterfit":
+                clusterfit(csv, models="synthetic", nlive=20, max_iter=20)
+            elif entry == "clusterfit_cli":
+                clusterfit_main(["--models", "synthetic", "--nlive", "20", "--max_iter", "20", csv])
+            else:
+                SimulatedCluster(5, 9.0, 0.0, 300.0, 0.05, -2.0, 0.3, 0.3, n_feh=3, n_mass=8, n_eep=30, n_age=8)
+        return
     folder = str(tmp_path / "star1")
     shutil.copytree(os.path.join(HERE, "star1"), folder)
     if entry == "cli":
@@ -339,3 +353,36 @@ def test_entry_points_default_to_the_card(ics, tmp_path, entry):
     assert cls.load_hdf(path, device="cpu").device.type == "cpu"
     with pytest.raises((RuntimeError, AssertionError)):
         cls.load_hdf(path)
+
+
+@pytest.mark.parametrize("name", ["one_star", "two_stars", "two_systems_001"])
+def test_convert_pars_to_eep_matches_jax(ics, name):
+    """Mass-based parameter vectors become EEP-based ones through the
+    isochrone grid's accurate inversion; the EEPs agree to 1e-9 (Newton
+    iterates of the same residual), the shared parameters exactly."""
+    folder, kw = MODELS[name]
+    jm, tm = _build(JaxStarModel, ics[0], folder, kw), _build(StarModel, ics[1], folder, kw)
+    masses = [1.1, 0.8, 0.6]
+    pars, i = [], 0
+    for s in tm.obs.systems:
+        n = tm.obs.Nstars[s]
+        pars += masses[i: i + n] + [9.3 + 0.1 * i, -0.1, 180.0 + i, 0.12]
+        i += n
+    ref = jm.convert_pars_to_eep(pars)
+    got = tm.convert_pars_to_eep(pars)
+    assert len(got) == len(ref) == tm.n_params
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-9)
+    eeps = [got[j] for j, p in enumerate(tm.obs.param_description) if p.startswith("eep")]
+    assert all(np.isfinite(e) and e != m for e, m in zip(eeps, masses))
+    assert np.isfinite(tm.lnpost(got))
+
+
+def test_fit_mcmc_refuses_mesh(ics):
+    """``mesh`` is named and refused by both engines, not swallowed."""
+    from isochrones_torch import SingleStarModel
+
+    for mod in (SingleStarModel(ics[1], **_PHOT), _build(StarModel, ics[1], "star1", {})):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            mod.fit_mcmc(nwalkers=8, nburn=1, niter=1, mesh=object())
+        with pytest.raises(NotImplementedError, match="mesh"):
+            mod.fit(n_live_points=20, mesh=object())

@@ -132,10 +132,12 @@ def test_sample_from_prior_and_group(ics):
 
 
 def test_unported_and_default_device(ics):
-    _, tic = ics
+    jic, tic = ics
     tm = StarModel.from_ini(tic, os.path.join(HERE, "star1"))
-    with pytest.raises(NotImplementedError, match="EEP inversion"):
-        tm.convert_pars_to_eep([1.0, 9.0, 0.0, 200.0, 0.1])
+    # ported with the EEP inversion: mass-based parameters become EEP-based ones
+    jm = JaxStarModel.from_ini(jic, os.path.join(HERE, "star1"))
+    np.testing.assert_allclose(tm.convert_pars_to_eep([1.0, 9.0, 0.0, 200.0, 0.1]),
+                               jm.convert_pars_to_eep([1.0, 9.0, 0.0, 200.0, 0.1]), rtol=0, atol=1e-9)
     with pytest.raises(NotImplementedError, match="MIST"):
         StarModel.from_ini("mist", os.path.join(HERE, "star1"), device="cpu")
     on_cpu = StarModel.from_ini("synthetic", os.path.join(HERE, "star1"), device="cpu")
