@@ -82,7 +82,28 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 15. the cluster entry point: ``python -m isochrones_torch.cli.clusterfit`` as
     a subprocess on a CSV written from phase 14's catalogue (default
     synthetic grid, small ``--nlive``): exit 0 and a finite evidence in its
-    log.
+    log;
+16. the catalog kernel against its plain version at the MIST-scale grid: a
+    seeded catalogue of 256 stars in J, H, K with Teff, logg and a parallax
+    (some stars without H, without a parallax, one without Teff, one without
+    any band), 256 points a star (half about each truth, half over the grid
+    with adversarial rows) and the MCMC fit's 32; float64, and float32
+    against the float64 plain version; identical NaN and -inf patterns; the
+    kernel's device time beside its bound and the plain version's time;
+17. the catalog fits on that catalogue in float32: ``fit_catalog(method=
+    "mcmc")`` (64 walkers, 300 + 50 steps) with its summary, then
+    ``BatchStarFitter.fit_multinest(256 live points, n_batch 32, n_chains
+    8)`` and ``summarize_batch``, then the same fit dynamic (an ESS target of
+    2000, two thread rounds at most; the per-star host merges timed); one
+    ``lnpost_batch`` at each fit's batch under the profiler beside a
+    single-star one; finite evidences, the true distance inside the 95%
+    interval for at least 95% of the stars;
+18. the catalog entry point: ``python -m isochrones_torch.cli.fit_catalog``
+    as a subprocess on a 16-star CSV (default synthetic grid, nested, 64 live
+    points): the summary's columns and evidences;
+19. independent runs: ``BinaryStarModel.fit_multinest(n_runs=4)`` at 500
+    live points (``run_nested``'s lockstep runs through the star kernel):
+    four finite run evidences and the distance interval holding the truth.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -255,6 +276,25 @@ SIM_INTERPOLATED = ("J_mag", "H_mag", "K_mag", "eep_pri", "eep_sec")
 #: the catalogue's grid has 1710, so the ladder's bounds scale by 200 / 1710
 CLUSTER_CLI = ["--models", "synthetic", "--dtype", "float32", "--nlive", "64", "--mineep", "1", "--maxeep", "164",
                "--max_distance", "3000", "--minq", "0.2", "--name", "smoke"]
+
+#: the catalog (phases 16-18): the JAX package's catalog row (its README,
+#: 256 stars in J, H, K), with Teff, logg and a parallax; truths' EEPs in the
+#: bench box of the MIST-scale grid, and the same box scaled to the default
+#: synthetic grid's 200 EEPs for the CLI
+CAT_STARS = 256
+CAT_BANDS = ("J", "H", "K")
+CAT_EEP_BOX = (200.0, 450.0)
+CLI_EEP_BOX = (200.0 * 200 / 1710, 450.0 * 200 / 1710)
+CAT_POINTS = 256
+CAT_MCMC = dict(nwalkers=64, nburn=300, niter=50, seed=0)
+CAT_NESTED = dict(n_live_points=256, n_batch=32, n_chains=8, seed=0)
+#: the dynamic catalog fit: an ESS target above what the base runs reach
+#: (~1100 at these settings), two thread rounds at most
+CAT_DYNAMIC = dict(dynamic=True, min_ess=2000.0, max_dynamic_rounds=2)
+CAT_CLI = ["--models", "synthetic", "--dtype", "float32", "--method", "nested", "--n-live-points", "64", "--seed",
+           "0"]
+#: independent runs of the binary fit (phase 19)
+MULTI_RUNS = dict(n_live_points=500, n_runs=4, seed=0)
 
 
 def make_kernel_inputs(S, E, B, W, seed=0):
@@ -1258,6 +1298,331 @@ def phase_cluster_entry_point(sim, workdir):
           f"exit {proc.returncode}, {secs:.2f} s, logz {float(found.group(1)):.4f} +- {float(found.group(2)):.4f}")
 
 
+def catalog_table(ic, n_stars, eep_box, seed=0):
+    """A seeded catalogue of ``n_stars`` single stars on ``ic`` in the bands
+    ``CAT_BANDS`` with Teff, logg and a parallax: truths spread over the grid
+    (EEPs in ``eep_box``, log age 8.5-9.7, [Fe/H] -0.5-0.3, 100-800 pc, AV
+    0-0.5; a truth off the grid is drawn again), observations the port's
+    ``interp_mag`` at the truths, without noise, so that every posterior is
+    centred on its truth and a coverage check does not hang on the noise of
+    256 draws (errors 0.02 mag, 100 K, 0.1 dex, 0.05 mas). Holes: every 17th
+    star lacks H, every 23rd its parallax, star 7 its Teff, star 11 every
+    band. Returns ``(truths (S, 5), columns)``."""
+    rng = np.random.default_rng(seed)
+    box = (eep_box, (8.5, 9.7), (-0.5, 0.3), (100.0, 800.0), (0.0, 0.5))
+    truths = np.stack([rng.uniform(lo, hi, n_stars) for lo, hi in box], axis=-1)
+    for _ in range(50):
+        Teff, logg, _, mags = ic.interp_mag([truths[:, i] for i in range(5)], list(CAT_BANDS))
+        bad = ~(np.isfinite(mags).all(axis=-1) & np.isfinite(Teff))
+        if not bad.any():
+            break
+        truths[bad] = np.stack([rng.uniform(lo, hi, int(bad.sum())) for lo, hi in box], axis=-1)
+    else:
+        raise AssertionError("catalog truths: no finite magnitudes after 50 draws")
+    cols = {}
+    for j, b in enumerate(CAT_BANDS):
+        cols[f"{b}_mag"] = np.array(mags[:, j], dtype=float)
+        cols[f"{b}_mag_unc"] = np.full(n_stars, 0.02)
+    cols["Teff"], cols["Teff_unc"] = np.array(Teff, dtype=float), np.full(n_stars, 100.0)
+    cols["logg"], cols["logg_unc"] = np.array(logg, dtype=float), np.full(n_stars, 0.1)
+    cols["parallax"], cols["parallax_unc"] = 1000.0 / truths[:, 3], np.full(n_stars, 0.05)
+    idx = np.arange(n_stars)
+    cols["H_mag"][idx % 17 == 3] = np.nan
+    cols["parallax"][idx % 23 == 5] = np.nan
+    cols["Teff"][7] = np.nan
+    for b in CAT_BANDS:
+        cols[f"{b}_mag"][11] = np.nan
+    return truths, cols
+
+
+def catalog_points(ic, truths, n_points, seed=0):
+    """Seeded (S, n_points, 5) parameters: the first half in a box about each
+    star's truth, the second half over the whole grid with adversarial rows
+    (a NaN EEP, the top knots, an EEP below the grid, distance 0)."""
+    rng = np.random.default_rng(seed)
+    ages, fehs, eeps = (k.cpu().double().numpy() for k in ic.model.knots)
+    S, h = truths.shape[0], n_points // 2
+    near = truths[:, None, :] + rng.uniform(-1.0, 1.0, (S, h, 5)) * np.array([20.0, 0.1, 0.1, 0.0, 0.05])
+    near[..., 3] = truths[:, None, 3] * (1.0 + 0.1 * rng.uniform(-1.0, 1.0, (S, h)))
+    near[..., 4] = np.abs(near[..., 4])
+    box = ((eeps[0], eeps[-1]), (ages[0], ages[-1]), (fehs[0], fehs[-1]), (10.0, 3000.0), (0.0, 1.5))
+    far = np.stack([rng.uniform(lo, hi, (S, n_points - h)) for lo, hi in box], axis=-1)
+    far[:, 0, 0] = np.nan
+    far[:, 1, :3] = (eeps[-1], ages[-1], fehs[-1])
+    far[:, 2, 0] = eeps[0] - 0.5
+    far[:, 3, 3] = 0.0
+    return np.concatenate([near, far], axis=1)
+
+
+def catalog_likelihood_as(lk, dtype):
+    """The same catalog likelihood with its grids and observations in another
+    dtype."""
+    import torch
+
+    changes = {f.name: getattr(lk, f.name).to(dtype) for f in dataclasses.fields(lk)
+               if isinstance(getattr(lk, f.name), torch.Tensor)}
+    return dataclasses.replace(lk, pack6=grid_as(lk.pack6, dtype), bc=grid_as(lk.bc, dtype), **changes)
+
+
+def catalog_work(pars, lk):
+    """``(bytes, flops, special functions)`` of the catalog likelihood on these
+    points: the parameters read and the three outputs written once, each
+    distinct row that the points' corners touch read once (6 pack columns,
+    the band columns of the BC table), each star's observation row once; per
+    point ~70 flops of cell location, 8 corners x (6 weight + 12 lerp flops),
+    16 corners x (8 + 2 per band), 3 per band for the magnitudes, ~6 per
+    Gaussian term, one log10 (the distance modulus) and a log per term."""
+    import torch
+
+    from isochrones_torch.ops.interp import interp_nd
+
+    S, B = pars.shape[:2]
+    nb = len(lk.band_icols)
+    io = lk.index_order
+    pts = pars.reshape(S * B, 5)
+    gp = torch.stack([pts[:, io[0]], pts[:, io[1]], pts[:, io[2]]], dim=-1)
+    v6 = interp_nd(lk.pack6.values, lk.pack6.knots, gp, axis_maps=lk.pack6.axis_maps)
+    bp = torch.stack([v6[:, 0], v6[:, 1], v6[:, 2], pts[:, 4]], dim=-1)
+    rows = _touched_rows(lk.pack6, gp) * 6 + _touched_rows(lk.bc, bp) * nb
+    n_terms = nb + 3 + (lk.plax is not None)
+    nbytes = (pars.numel() + 3 * S * B + rows + S * (8 + 2 * nb)) * pars.element_size()
+    flops = S * B * (70 + 8 * 18 + 16 * (8 + 2 * nb) + 3 * nb + 6 * n_terms)
+    return nbytes, flops, S * B * (1 + n_terms)
+
+
+def phase_catalog_kernel(dev, ic32, ic64):
+    """Phase 16: the catalog kernel against its plain version. Returns
+    ``(truths, table, record)``."""
+    import torch
+
+    from isochrones_torch.batch import BatchStarFitter
+    from isochrones_torch.ops.catalog import catalog_lnlike_plain
+    from isochrones_torch.ops.catalog_cuda import catalog_lnlike_cuda, group_lanes
+
+    truths, table = catalog_table(ic64, CAT_STARS, CAT_EEP_BOX)
+    lk64, _ = BatchStarFitter(ic64, table, bands=CAT_BANDS)._catalog_likelihood()
+    lk32, _ = BatchStarFitter(ic32, table, bands=CAT_BANDS)._catalog_likelihood()
+    lk32up = catalog_likelihood_as(lk32, torch.float64)
+    p64 = torch.as_tensor(catalog_points(ic64, truths, CAT_POINTS, seed=16), device=dev, dtype=torch.float64)
+    p32 = p64.float()
+    errs = {}
+    for B in (CAT_POINTS, CAT_MCMC["nwalkers"] // 2):  # the nested fit's walk batch, the MCMC half-update
+        got64 = [x.cpu().numpy() for x in catalog_lnlike_cuda(p64[:, :B].contiguous(), lk64)]
+        ref64 = [x.cpu().numpy() for x in catalog_lnlike_plain(p64[:, :B], lk64)]
+        got32 = [x.cpu().numpy() for x in catalog_lnlike_cuda(p32[:, :B].contiguous(), lk32)]
+        ref32 = [x.cpu().numpy() for x in catalog_lnlike_plain(p32[:, :B].double(), lk32up)]
+        torch.cuda.synchronize()
+        errs[B] = (check_star(f"catalog kernel f64 B={B}", got64, ref64, RTOL_STAR_F64),
+                   check_star(f"catalog kernel f32 B={B}", got32, ref32, RTOL_STAR_F32, ATOL_STAR_F32))
+        print(f"[catalog] kernel vs plain, S={CAT_STARS} B={B} {len(CAT_BANDS)} bands ({group_lanes(CAT_STARS * B)} "
+              f"lanes a point): f64 max_abs_err {errs[B][0]:.3e} (rtol {RTOL_STAR_F64}), f32 vs f64 max_abs_err "
+              f"{errs[B][1]:.3e} (rtol {RTOL_STAR_F32} atol {ATOL_STAR_F32}); {int(np.isfinite(ref64[0]).sum())}/"
+              f"{ref64[0].size} ll finite, {int(np.isnan(ref64[0]).sum())} NaN")
+    times = {}
+    for B in (CAT_POINTS, CAT_MCMC["nwalkers"] // 2):
+        pb = p32[:, :B].contiguous()
+        ms = kernel_ms(lambda: catalog_lnlike_cuda(pb, lk32), "catalog_lnlike", reps=50)
+        plain_ms = cuda_ms(lambda: catalog_lnlike_plain(pb, lk32), reps=10)
+        pb64 = pb.double()
+        ms64 = kernel_ms(lambda: catalog_lnlike_cuda(pb64, lk64), "catalog_lnlike", reps=20)
+        bound_ms, bound_by, what = bound(*catalog_work(pb, lk32), "float32")
+        times[B] = (ms, plain_ms, ms64, bound_ms, bound_by)
+        print(f"[catalog] time S={CAT_STARS} B={B}: kernel f32 {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, kernel f64 "
+              f"{ms64:.4f} ms; f32 bound {bound_ms:.5f} ms ({what}), kernel at {bound_ms / ms:.3f} of it")
+    ms, plain_ms, ms64, bound_ms, bound_by = times[CAT_POINTS]
+    B_mc = CAT_MCMC["nwalkers"] // 2
+    record = dict(max_abs_err=errs[CAT_POINTS][1], max_abs_err_f64=errs[CAT_POINTS][0], ms=ms, plain_ms=plain_ms,
+                  ms_f64=ms64, bound_ms=bound_ms, bound_by=bound_by,
+                  shape={"S": CAT_STARS, "B": CAT_POINTS, "bands": len(CAT_BANDS), "dtype": "float32"},
+                  ms_mcmc_batch=times[B_mc][0], plain_ms_mcmc_batch=times[B_mc][1],
+                  bound_ms_mcmc_batch=times[B_mc][3], mcmc_batch=B_mc)
+    return truths, table, record
+
+
+def _coverage(fitter, truths):
+    """Share of stars whose true distance lies in the 2.5-97.5% interval."""
+    lo, hi = np.nanquantile(fitter.samples[:, :, 3], [0.025, 0.975], axis=1)
+    return float(np.mean((lo <= truths[:, 3]) & (truths[:, 3] <= hi)))
+
+
+def phase_catalog_fits(dev, ic32, truths, table):
+    """Phase 17: both catalog fits at full width, then the summary, then the
+    dynamic nested fit. Returns the catalog kernel's launches in the three
+    fits."""
+    import torch
+
+    import isochrones_torch.samplers.nested as nested_mod
+    from isochrones_torch import SingleStarModel
+    from isochrones_torch.batch import BatchStarFitter, fit_catalog
+    from isochrones_torch.ops.catalog_cuda import catalog_lnlike_cuda
+    from isochrones_torch.summary import summarize_batch
+
+    S = CAT_STARS
+    fitter = BatchStarFitter(ic32, table, bands=CAT_BANDS)
+    # one call at each fit's batch, and one single-star call beside it
+    rng = np.random.default_rng(17)
+    for B in (CAT_MCMC["nwalkers"] // 2, CAT_NESTED["n_batch"] * CAT_NESTED["n_chains"]):
+        pb = torch.as_tensor(catalog_points(ic32, truths, 2 * B, seed=int(rng.integers(1000)))[:, :B], device=dev,
+                             dtype=torch.float32)
+        catalog_lnlike_cuda.launches = 0
+        lp = fitter.lnpost_batch(pb)
+        torch.cuda.synchronize()
+        if catalog_lnlike_cuda.launches != 1 or not torch.isfinite(lp).any():
+            raise AssertionError(f"catalog lnpost_batch: {catalog_lnlike_cuda.launches} launches")
+        call_ms = 1e3 * _wall(lambda: fitter.lnpost_batch(pb), reps=20)
+        prof_s, by_name = profile_kernels(lambda: fitter.lnpost_batch(pb), reps=5)
+        busy = sum(v[0] for v in by_name.values()) / 5
+        k_ms = sum(v[0] for k, v in by_name.items() if "catalog_lnlike" in k) / 5
+        print(f"[catalog fit] one lnpost_batch ({S}, {B}, 5) f32: {call_ms:.3f} ms ({1e3 * call_ms / (S * B):.4f} us "
+              f"a point, {call_ms / S:.4f} ms a star; {1e3 * prof_s / 5:.3f} ms under the profiler), "
+              f"{sum(v[1] for v in by_name.values()) / 5:.1f} kernel launches, device busy {busy:.4f} ms (idle share "
+              f"{1 - busy / (1e3 * prof_s / 5):.3f}), catalog kernel {k_ms:.4f} ms ({k_ms / busy:.3f} of busy); "
+              f"{int(torch.isfinite(lp).sum())}/{lp.numel()} finite")
+    obs0 = {b: (table[f"{b}_mag"][0], table[f"{b}_mag_unc"][0]) for b in CAT_BANDS}
+    obs0.update({k: (table[k][0], table[f"{k}_unc"][0]) for k in ("Teff", "logg", "parallax")})
+    star0 = SingleStarModel(ic32, **obs0)
+    p1 = torch.as_tensor(catalog_points(ic32, truths[:1], 2048, seed=18)[0, :1024], device=dev, dtype=torch.float32)
+    single_ms = 1e3 * _wall(lambda: star0.lnpost_batch(p1), reps=20)
+    print(f"[catalog fit] beside it, one single-star lnpost_batch of 1024 points (the star kernel): {single_ms:.3f} ms "
+          f"({1e3 * single_ms / 1024:.4f} us a point)")
+
+    catalog_lnlike_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc, mc_summary = fit_catalog(ic32, table, method="mcmc", bands=CAT_BANDS, **CAT_MCMC)
+    torch.cuda.synchronize()
+    mc_s = time.perf_counter() - t0
+    n_mc = catalog_lnlike_cuda.launches
+    T = CAT_MCMC["niter"]
+    if mc.samples.shape != (S, T * CAT_MCMC["nwalkers"], 5) or not np.isfinite(mc._lnprob).all() or n_mc <= 0:
+        raise AssertionError(f"catalog MCMC: samples {mc.samples.shape}, {int(np.isfinite(mc._lnprob).sum())} finite "
+                             f"lnprob, {n_mc} launches")
+    acc = float(mc.sampler_state.n_accept.sum().item()) / (S * CAT_MCMC["nwalkers"] * T)
+    print(f"[catalog fit] fit_catalog(method='mcmc', {json.dumps(CAT_MCMC)}) f32, {S} stars, summary with derived "
+          f"columns: {mc_s:.3f} s, catalog kernel launches {n_mc}, acceptance {acc:.3f}, {len(mc_summary)} summary "
+          f"columns; true distance in the 95% interval for {_coverage(mc, truths):.3f} of the stars")
+
+    catalog_lnlike_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fitter.fit_multinest(**CAT_NESTED)
+    torch.cuda.synchronize()
+    ns_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary = summarize_batch(fitter)
+    sum_s = time.perf_counter() - t0
+    n_ns = catalog_lnlike_cuda.launches
+    cover = _coverage(fitter, truths)
+    logz = out["logz"]
+    if not np.isfinite(logz).all() or n_ns <= 0 or cover < 0.95:
+        raise AssertionError(f"catalog nested fit: {int(np.isfinite(logz).sum())}/{S} finite evidences, {n_ns} "
+                             f"launches, distance coverage {cover}")
+    if not np.array_equal(summary["logz"], logz) or summary.index.shape != (S,):
+        raise AssertionError("summary evidence columns differ from the fit's")
+    print(f"[catalog fit] fit_multinest({json.dumps(CAT_NESTED)}) f32, {S} stars: {ns_s:.3f} s, {out['n_dead']} dead "
+          f"points a star, {int(out['converged'].sum())}/{S} converged, logz {logz.min():.3f} .. {logz.max():.3f}, "
+          f"logzerr median {np.median(out['logzerr']):.4f}, ESS min {out['ess'].min():.1f}, catalog kernel launches "
+          f"{n_ns}; true distance in the 95% interval for {cover:.3f} of the stars")
+    print(f"[catalog fit] summarize_batch: {sum_s:.3f} s, {len(summary)} columns, "
+          f"{min(2000, CAT_NESTED.get('n_equal', 2000))} draws a star through one interpolator call")
+
+    # the dynamic fit: thread rounds for the whole catalogue; the per-star
+    # host merges timed
+    merge_s = []
+    merge = nested_mod._merge_segments
+
+    def timed_merge(segments):
+        t = time.perf_counter()
+        out = merge(segments)
+        merge_s.append(time.perf_counter() - t)
+        return out
+
+    nested_mod._merge_segments = timed_merge
+    catalog_lnlike_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        dyn = fitter.fit_multinest(**CAT_NESTED, **CAT_DYNAMIC)
+    finally:
+        nested_mod._merge_segments = merge
+    torch.cuda.synchronize()
+    dyn_s = time.perf_counter() - t0
+    n_dyn = catalog_lnlike_cuda.launches
+    if not np.isfinite(dyn["logz"]).all() or dyn["dynamic_rounds"] < 1 or n_dyn <= 0:
+        raise AssertionError(f"dynamic catalog fit: {int(np.isfinite(dyn['logz']).sum())}/{S} finite evidences, "
+                             f"{dyn['dynamic_rounds']} rounds, {n_dyn} launches")
+    print(f"[catalog fit] fit_multinest({json.dumps(dict(CAT_NESTED, **CAT_DYNAMIC))}) f32, {S} stars: {dyn_s:.3f} s, "
+          f"{dyn['n_dead']} dead points a star, {dyn['dynamic_rounds']} thread rounds, ESS min {dyn['ess'].min():.1f} "
+          f"median {np.median(dyn['ess']):.1f}, {int(dyn['converged'].sum())}/{S} converged, logz {dyn['logz'].min():.3f} "
+          f".. {dyn['logz'].max():.3f}, |logz - static logz| max {np.abs(dyn['logz'] - logz).max():.3f}, catalog "
+          f"kernel launches {n_dyn}; host merges {len(merge_s)} in {sum(merge_s):.3f} s "
+          f"({1e3 * sum(merge_s) / max(len(merge_s), 1):.3f} ms a star); distance coverage {_coverage(fitter, truths):.3f}")
+    return n_mc, n_ns, n_dyn
+
+
+def phase_catalog_entry_point(workdir):
+    """Phase 18: ``python -m isochrones_torch.cli.fit_catalog`` as a subprocess
+    on a small CSV at the default synthetic grid."""
+    import csv
+
+    from isochrones_torch import get_ichrone
+
+    truths, table = catalog_table(get_ichrone("synthetic", device="cuda"), 16, CLI_EEP_BOX, seed=18)
+    path, out = os.path.join(workdir, "catalog16.csv"), os.path.join(workdir, "catalog16_fit.csv")
+    cols = list(table)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(cols)
+        for i in range(len(truths)):
+            w.writerow([repr(float(table[c][i])) for c in cols])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "isochrones_torch.cli.fit_catalog", *CAT_CLI, path, "-O", out],
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(out):
+        raise AssertionError(f"fit_catalog CLI: exit {proc.returncode}, log:\n{(proc.stdout + proc.stderr)[-3000:]}")
+    with open(out, newline="") as f:
+        rows = list(csv.reader(f))
+    header = rows[0]
+    want = [""] + [f"{p}_{q}" for p in ("eep", "age", "feh", "distance", "AV") for q in ("16", "50", "84")]
+    if header[:16] != want or header[-2:] != ["logz", "logzerr"] or "mass_50" not in header or len(rows) != 17:
+        raise AssertionError(f"fit_catalog CLI output: header {header}, {len(rows) - 1} rows")
+    logz = np.array([float(r[-2]) for r in rows[1:]])
+    if not np.isfinite(logz).all() or [r[0] for r in rows[1:]] != [str(i) for i in range(16)]:
+        raise AssertionError(f"fit_catalog CLI output: logz {logz}, index {[r[0] for r in rows[1:]]}")
+    print(f"[fit-catalog] python -m isochrones_torch.cli.fit_catalog {' '.join(CAT_CLI)} <csv of 16 stars>: exit 0, "
+          f"{secs:.2f} s, {len(header) - 1} columns ({', '.join(header[1:4])}, ..., {', '.join(header[-3:])}), "
+          f"logz {logz.min():.3f} .. {logz.max():.3f}")
+
+
+def phase_multi_run(dev, ic32, ic64):
+    """Phase 19: ``run_nested(n_runs=4)`` through the binary model's nested
+    fit. Returns the star kernel's launches."""
+    import torch
+
+    from isochrones_torch import BinaryStarModel
+    from isochrones_torch.ops.star_cuda import star_lnlike_cuda
+
+    model = BinaryStarModel(ic32, **star_observations(ic64))
+    star_lnlike_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = model.fit_multinest(**MULTI_RUNS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_star = star_lnlike_cuda.launches
+    runs = MULTI_RUNS["n_runs"]
+    if res.logz_runs is None or len(res.logz_runs) != runs or not np.isfinite(res.logz_runs).all() or n_star <= 0:
+        raise AssertionError(f"run_nested(n_runs={runs}): logz_runs {res.logz_runs}, launches {n_star}")
+    d_lo, d_hi = np.quantile(model.samples["distance"], [0.025, 0.975])
+    if not d_lo <= STAR_TRUTH[4] <= d_hi:
+        raise AssertionError(f"n_runs={runs} distance 95% interval ({d_lo:.2f}, {d_hi:.2f}) misses {STAR_TRUTH[4]}")
+    print(f"[multi-run] BinaryStarModel.fit_multinest({json.dumps(MULTI_RUNS)}) f32, n_batch 64 x n_chains 16 a run: "
+          f"{secs:.3f} s, {res.n_iter} dead points in all, logz {res.logz:.4f} +- {res.logzerr:.4f}, logz_runs "
+          f"{json.dumps([round(float(x), 4) for x in res.logz_runs])}, ESS {res.ess:.1f}, star kernel launches {n_star}")
+    return n_star
+
+
 def main():
     import torch
 
@@ -1504,6 +1869,11 @@ def main():
         eep_record = phase_eep(dev, ic32, ic64)
         sim, cluster_fit_record, n_cluster_nested = phase_cluster_nested(dev, ic32, ic64)
         phase_cluster_entry_point(sim, workdir)
+        # ---- 16-19. the catalog kernel, the catalog fits, their entry point, independent runs
+        truths, table, catalog_record = phase_catalog_kernel(dev, ic32, ic64)
+        n_cat_mcmc, n_cat_nested, n_cat_dynamic = phase_catalog_fits(dev, ic32, truths, table)
+        phase_catalog_entry_point(workdir)
+        n_multi = phase_multi_run(dev, ic32, ic64)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     tree_record["launches"] = n_tree
@@ -1528,8 +1898,15 @@ def main():
         "bound_ms": star_bound[0], "bound_by": star_bound[1], "library_ms": None,
         "shape": {"B": STAR_BATCH, "N": 2, "bands": len(STAR_BANDS), "dtype": "float32"},
         "ms_fit_batch": fit_ms, "plain_ms_fit_batch": fit_plain_ms, "bound_ms_fit_batch": fit_bound[0],
-        "fit_batch": fit_batch, "launches_entry_point": n_star_cli,
-    }, tree_record]}))
+        "fit_batch": fit_batch, "launches_entry_point": n_star_cli, "launches_multi_run": n_multi,
+    }, tree_record, {
+        "name": "catalog_lnlike", "route": "cuda",
+        "source": "isochrones_torch/csrc/catalog_lnlike.cu",
+        "replaces": "isochrones_tpu/batch.py:145",
+        "launches": n_cat_mcmc + n_cat_nested + n_cat_dynamic, "launches_mcmc_fit": n_cat_mcmc,
+        "launches_nested_fit": n_cat_nested, "launches_dynamic_fit": n_cat_dynamic,
+        "library_ms": None, **catalog_record,
+    }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 

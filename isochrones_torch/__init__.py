@@ -13,7 +13,11 @@ kernel; the cluster model (``StarClusterModel``: nested fit, dynamic by
 default, and MCMC fit; ``python -m isochrones_torch.cli.clusterfit`` on a CSV
 table of members), the cluster marginal as a third kernel; EEP inversion
 (``get_eep``) on the cross-linked isochrone and evolution-track interpolators
-and the cluster simulator (``SimulatedCluster``), in plain torch.
+and the cluster simulator (``SimulatedCluster``), in plain torch; whole-catalog
+fitting (``isochrones_torch.batch``: ``BatchStarFitter``, ``fit_catalog``,
+every star's MCMC or nested fit in lockstep, with ``summary.summarize_batch``
+and ``python -m isochrones_torch.cli.fit_catalog``), the catalog likelihood as
+a fourth kernel.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 """Star catalogs (counterpart of ``isochrones_tpu/catalog.py``, the part the
-cluster model reads).
+cluster model and the catalog fitter read).
 
 A catalog is a table of ``<band>_mag`` / ``<band>_mag_unc`` photometry plus
 named property columns with ``_unc`` partners. It accepts any mapping of
@@ -20,25 +20,31 @@ __all__ = ["StarCatalog", "read_csv"]
 
 
 def read_csv(path):
-    """Numeric CSV with a header row -> dict of float64 arrays (no pandas)."""
+    """Numeric CSV with a header row -> dict of float64 arrays (no pandas); an
+    empty cell, as ``DataFrame.to_csv`` writes NaN, reads as NaN."""
     with open(path, newline="") as f:
         rows = list(csv.reader(f))
     header, body = rows[0], rows[1:]
-    return {name: np.array([float(r[i]) for r in body]) for i, name in enumerate(header)}
+    return {name: np.array([float(r[i]) if r[i] else np.nan for r in body]) for i, name in enumerate(header)}
 
 
 class StarCatalog:
     """Catalog of star measurements (reference catalog.py:19-63).
 
-    data : mapping of column name -> 1-d array. Bands are inferred from
-        ``*_mag`` names when not given. When ``props`` is None, known
-        properties present with an ``_unc`` partner are auto-detected; pass
-        ``props=()`` for photometry only.
+    data : mapping of column name -> 1-d array, or a ``StarCatalog`` (its
+        columns, and its bands and properties where none are given). Bands
+        are inferred from ``*_mag`` names when not given. When ``props`` is
+        None, known properties present with an ``_unc`` partner are
+        auto-detected; pass ``props=()`` for photometry only.
     """
 
     KNOWN_PROPS = ("Teff", "logg", "feh", "parallax", "density")
 
     def __init__(self, data, bands=None, props=None):
+        if isinstance(data, StarCatalog):
+            bands = data.bands if bands is None else bands
+            props = data.props if props is None else props
+            data = data.data
         self.data = {str(c): np.asarray(data[c]) for c in data.keys()}
         columns = list(self.data)
         if bands is None:
@@ -62,6 +68,14 @@ class StarCatalog:
 
     def __len__(self):
         return len(next(iter(self.data.values())))
+
+    @property
+    def index(self):
+        """Row labels of the catalog's summaries: its ``index`` column where
+        it has one, else ``0 .. S-1``."""
+        if "index" in self.data:
+            return np.asarray(self.data["index"])
+        return np.arange(len(self))
 
     def get_measurement(self, prop):
         """(values, uncertainties) arrays (reference catalog.py:82-84)."""

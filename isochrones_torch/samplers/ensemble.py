@@ -7,6 +7,9 @@ KDE/DE/snooker 0.4/0.4/0.2 mixture. The JAX ``lax.scan`` becomes a Python
 loop over full-ensemble updates; every random draw comes from one
 ``torch.Generator`` on the walkers' device. The move of each full update is
 drawn once for both half-updates, as in the JAX package.
+``run_ensemble_batch`` advances many independent ensembles (one per star of
+a catalog) in lockstep with the stretch move: one posterior call over every
+ensemble's half per half-update.
 """
 
 from __future__ import annotations
@@ -16,14 +19,14 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["EnsembleState", "run_ensemble", "autocorr_time"]
+__all__ = ["EnsembleState", "run_ensemble", "run_ensemble_batch", "autocorr_time"]
 
 
 class EnsembleState(NamedTuple):
-    walkers: torch.Tensor  # (n_walkers, n_params)
-    ln_prob: torch.Tensor  # (n_walkers,)
+    walkers: torch.Tensor  # (n_walkers, n_params); run_ensemble_batch: (S, n_walkers, n_params)
+    ln_prob: torch.Tensor  # (n_walkers,) or (S, n_walkers)
     generator: torch.Generator
-    n_accept: torch.Tensor  # (n_walkers,) acceptance counts
+    n_accept: torch.Tensor  # acceptance counts, the shape of ln_prob
 
 
 def _rand(g, shape, like):
@@ -211,6 +214,62 @@ def run_ensemble(
 
     state = EnsembleState(walkers=walkers, ln_prob=ln_prob, generator=g, n_accept=n_accept)
     return (_stack(chain, (0, n_walkers, n_dim)), _stack(ln_chain, (0, n_walkers)), state)
+
+
+def run_ensemble_batch(
+    lnpost_v: Callable,
+    walkers0: torch.Tensor,
+    generator: torch.Generator,
+    n_steps: int,
+    thin: int = 1,
+    a: float = 2.0,
+):
+    """S independent ensembles advanced in lockstep by stretch moves
+    (counterpart of ``isochrones_tpu/samplers/ensemble.py:262-320``).
+
+    lnpost_v : (S, n, n_params) -> (S, n), every ensemble's log-posterior
+    walkers0 : (S, n_walkers, n_params) (n_walkers even)
+    generator : ``torch.Generator`` on the walkers' device; every draw uses it
+
+    As in the JAX package, ``n_steps // thin`` states are kept, each after
+    ``thin`` full updates. Returns ``(chain (n_steps // thin, S, n_walkers,
+    n_params), ln_chain (n_steps // thin, S, n_walkers), final
+    EnsembleState)`` whose acceptance counts are (S, n_walkers).
+    """
+    S, n_walkers, n_dim = walkers0.shape
+    half = n_walkers // 2
+    g = generator
+
+    def stretch_half(active, passive, lnp_active):
+        shape = active.shape[:2]
+        z = ((a - 1.0) * _rand(g, shape, active) + 1.0) ** 2 / a
+        picks = _randint(g, 0, passive.shape[1], shape, active)
+        partners = torch.gather(passive, 1, picks[..., None].expand(-1, -1, n_dim))
+        proposal = partners + z[..., None] * (active - partners)
+        lnp_prop = lnpost_v(proposal)
+        lnp_prop = torch.where(torch.isnan(lnp_prop), float("-inf"), lnp_prop)
+        ln_ratio = (n_dim - 1.0) * torch.log(z) + lnp_prop - lnp_active
+        accept = torch.log(_rand(g, shape, active)) < ln_ratio
+        return (torch.where(accept[..., None], proposal, active), torch.where(accept, lnp_prop, lnp_active), accept)
+
+    walkers = walkers0
+    ln_prob = lnpost_v(walkers0)
+    ln_prob = torch.where(torch.isnan(ln_prob), float("-inf"), ln_prob)
+    n_accept = torch.zeros((S, n_walkers), dtype=torch.int64, device=walkers0.device)
+    chain, ln_chain = [], []
+    for step in range((n_steps // thin) * thin):
+        new_first, new_lnp1, acc1 = stretch_half(walkers[:, :half], walkers[:, half:], ln_prob[:, :half])
+        new_second, new_lnp2, acc2 = stretch_half(walkers[:, half:], new_first, ln_prob[:, half:])
+        walkers = torch.cat([new_first, new_second], dim=1)
+        ln_prob = torch.cat([new_lnp1, new_lnp2], dim=1)
+        n_accept = n_accept + torch.cat([acc1, acc2], dim=1).long()
+        if (step + 1) % thin == 0:
+            chain.append(walkers)
+            ln_chain.append(ln_prob)
+    state = EnsembleState(walkers=walkers, ln_prob=ln_prob, generator=g, n_accept=n_accept)
+    if not chain:
+        return walkers0.new_empty((0, S, n_walkers, n_dim)), walkers0.new_empty((0, S, n_walkers)), state
+    return torch.stack(chain), torch.stack(ln_chain), state
 
 
 def autocorr_time(chain) -> np.ndarray:

@@ -23,8 +23,14 @@ through the varying-live-count schedule (:func:`_merge_segments`). With
 included, is written at every chunk and thread-round boundary; a resumed run
 is bitwise the run that never stopped (same device, same dtype).
 
-Not ported yet (ROADMAP queue 1): independent runs (``n_runs > 1``) and the
-device mesh.
+Families of problems run in lockstep on the same loop
+(:func:`_nested_core_family`, a leading problem axis M on every op): ``M``
+independent runs of one likelihood (``run_nested(n_runs=M)``) or ``M``
+problems with their own data (:func:`run_nested_vmapped`, a whole catalog of
+stars). Each walk step is one likelihood call over ``(M, B, p)`` points, so
+the number of launches per step does not grow with M.
+
+Not ported yet (ROADMAP queue 1, parallelism): the device mesh.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import torch
 
 from ..logger import getLogger
 
-__all__ = ["CheckpointConfigError", "NestedResult", "run_nested"]
+__all__ = ["CheckpointConfigError", "NestedResult", "run_nested", "run_nested_vmapped"]
 
 
 class NestedResult(NamedTuple):
@@ -54,6 +60,7 @@ class NestedResult(NamedTuple):
     ess: float = np.nan  # effective sample size of the posterior weights
     truncated: bool = False  # ESS still below min_ess when the budget ran out
     dynamic_rounds: int = 0  # posterior-bulk thread rounds run (dynamic=True)
+    logz_runs: np.ndarray = None  # per-run evidences (n_runs > 1)
 
 
 # ---------------------------------------------------------------- host assembly
@@ -411,6 +418,108 @@ def _nested_core(lnlike_u, u, lnl, g, scale, n_live, n_iter, n_chains, n_repeat,
     return torch.cat(dead_u), torch.cat(dead_lnl), u, lnl, scale
 
 
+# ------------------------------------------------------- problem-family loop
+# The JAX package runs a family of problems as ``jax.vmap(_nested_core)``. A
+# likelihood that launches a ctypes kernel cannot be ``torch.vmap``-ped, so
+# the family functions below write the problem axis M out on every op and
+# call the likelihood once per walk step on all problems' points. One
+# ``torch.Generator`` drives the family (the JAX package splits one key per
+# problem), so a problem's draws depend on M and on the other problems'
+# shapes: the two packages agree statistically, not draw for draw.
+
+
+def _gather_rows(x, idx):
+    """``x[m, idx[m]]`` for (M, n, ...) ``x`` and (M, k) ``idx``."""
+    if x.dim() == 2:
+        return torch.gather(x, 1, idx)
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def _live_cholesky_family(live_u, jitter=1e-12):
+    """:func:`_live_cholesky` of each problem's live set, (M, n, p) -> (M, p,
+    p); a problem whose factorization fails gets a NaN factor."""
+    mu = live_u.mean(dim=1, keepdim=True)
+    c = live_u - mu
+    cov = c.transpose(1, 2) @ c / live_u.shape[1]
+    d = live_u.shape[-1]
+    ridge = jitter + 1e-6 * torch.clamp(torch.diagonal(cov, dim1=1, dim2=2).max(dim=-1).values, min=0.0)
+    cov = cov + ridge[:, None, None] * torch.eye(d, dtype=live_u.dtype, device=live_u.device)
+    L, info = torch.linalg.cholesky_ex(cov)
+    return torch.where((info == 0)[:, None, None], L, torch.full_like(L, float("nan")))
+
+
+def _constrained_walk_family(lnlike_fam, g, start, lnl_start, lnl_star, scale, n_groups, n_chains, n_repeat, L=None):
+    """:func:`_constrained_walk` for M problems at once: ``start`` (M,
+    n_groups * n_chains, p), ``lnl_start`` likewise (M, ...), per-problem
+    thresholds ``lnl_star``, scales ``scale`` and factors ``L`` (M, p, p).
+    ``lnlike_fam`` maps (M, n, p) unit-cube points to (M, n). Returns the
+    picked samples (M, n_groups, p), their lnL, whether they moved, and each
+    problem's acceptance rate (M,)."""
+    x, lnl = start, lnl_start
+    M = start.shape[0]
+    n_acc = torch.zeros(lnl_start.shape, dtype=torch.int32, device=start.device)
+    for _ in range(n_repeat):
+        eps = torch.randn(x.shape, generator=g, device=x.device, dtype=x.dtype)
+        if L is not None:
+            eps = eps @ L.transpose(1, 2)
+        prop = x + eps * scale[:, None, None]
+        prop = 1.0 - torch.abs(1.0 - torch.abs(prop) % 2.0)
+        lnl_prop = lnlike_fam(prop)
+        lnl_prop = torch.where(torch.isnan(lnl_prop), float("-inf"), lnl_prop)
+        ok = lnl_prop > lnl_star[:, None]
+        x = torch.where(ok[..., None], prop, x)
+        lnl = torch.where(ok, lnl_prop, lnl)
+        n_acc = n_acc + ok.to(torch.int32)
+    moved = (n_acc > 0).reshape(M, n_groups, n_chains)
+    scores = torch.rand((M, n_groups, n_chains), generator=g, device=x.device, dtype=x.dtype) + moved.to(x.dtype)
+    pick = torch.argmax(scores, dim=2, keepdim=True)  # (M, n_groups, 1)
+    xf = x.reshape(M, n_groups, n_chains, -1)
+    x_pick = torch.gather(xf, 2, pick[..., None].expand(-1, -1, -1, xf.shape[-1]))[:, :, 0]
+    lnl_pick = torch.gather(lnl.reshape(M, n_groups, n_chains), 2, pick)[..., 0]
+    moved_pick = torch.gather(moved, 2, pick)[..., 0]
+    accept_rate = n_acc.sum(dim=1).to(x.dtype) / (n_groups * n_chains * n_repeat)
+    return x_pick, lnl_pick, moved_pick, accept_rate
+
+
+def _nested_core_family(lnlike_fam, u, lnl, g, scale, n_live, n_iter, n_chains, n_repeat, n_batch=1):
+    """:func:`_nested_core` for M problems at once: live sets ``u`` (M,
+    n_live, p) and ``lnl`` (M, n_live), per-problem walk scales ``scale``
+    (M,). Dead points come out (M, n_iter * n_batch, ...), ascending in lnL
+    within each batch of each problem."""
+    K = n_batch
+    M = u.shape[0]
+    dead_u, dead_lnl = [], []
+    for _ in range(n_iter):
+        neg_vals, worst = torch.topk(-lnl, K, dim=-1)  # each problem's K smallest lnL, ascending
+        d_lnl = -neg_vals
+        dead_u.append(_gather_rows(u, worst))
+        dead_lnl.append(d_lnl)
+        lnl_star = d_lnl[:, -1]
+
+        order = torch.argsort(lnl, dim=-1)
+        pick = torch.randint(K, n_live, (M, K * n_chains), generator=g, device=u.device)
+        starts = torch.gather(order, 1, pick)
+        L = _live_cholesky_family(u)
+        new_u, new_lnl, _, acc = _constrained_walk_family(
+            lnlike_fam, g, _gather_rows(u, starts), _gather_rows(lnl, starts), lnl_star, scale, K, n_chains,
+            n_repeat, L=L,
+        )
+        u = u.scatter(1, worst[..., None].expand(-1, -1, u.shape[-1]), new_u)
+        lnl = lnl.scatter(1, worst, new_lnl)
+        scale = torch.clamp(scale * torch.exp(0.7 * (acc - 0.35)), 1e-4, 4.0)
+    return torch.cat(dead_u, dim=1), torch.cat(dead_lnl, dim=1), u, lnl, scale
+
+
+def _family_terminated(running, live_lnl_np, dlogz):
+    """Per problem, whether the live points' share of the evidence bound is
+    below ``dlogz``, and the posterior ESS including the live points."""
+    logz_dead, ess_now = running.status(live_lnl_np)
+    logz_remain = np.max(live_lnl_np, axis=1) + running.ln_x
+    with np.errstate(invalid="ignore"):
+        frac = np.exp(logz_remain - np.logaddexp(logz_dead, logz_remain))
+    return frac < dlogz, ess_now, logz_dead
+
+
 def run_nested(
     lnpost_u: Callable,
     prior_transform: Callable,
@@ -475,12 +584,30 @@ def run_nested(
         callers hash the problem (data, bounds, seed) into it.
     dtype : dtype of the unit-cube points handed to the likelihood.
 
-    ``n_runs > 1`` and ``mesh`` are not ported yet and raise
-    ``NotImplementedError``.
+    n_runs : > 1 runs this many independent runs of the same problem in
+        lockstep (:func:`_run_nested_multi`): one likelihood call of ``n_runs
+        * n_batch * n_chains`` points per walk step. The evidence is ln(mean
+        Z_r), ``logzerr`` the larger of the runs' empirical scatter and the
+        averaged shrinkage estimate, the posterior Z-weighted draws from every
+        run, ``logz_runs`` the per-run evidences. It does not go with
+        ``dynamic`` (a ``ValueError``, as in the JAX package).
+
+    ``mesh`` is not ported yet and raises ``NotImplementedError``.
     """
-    for name, value, off in (("n_runs", n_runs, 1), ("mesh", mesh, None)):
-        if value != off:
-            raise NotImplementedError(f"run_nested({name}={value!r}) is not ported yet (ROADMAP queue 1)")
+    if mesh is not None:
+        raise NotImplementedError(f"run_nested(mesh={mesh!r}) is not ported yet (ROADMAP queue 1, parallelism)")
+    if n_runs > 1:
+        if dynamic:
+            raise ValueError(
+                "dynamic=True supports n_runs=1 — independent runs already "
+                "multiply posterior coverage; combine one or the other"
+            )
+        return _run_nested_multi(
+            lnpost_u, prior_transform, n_params, generator, n_live=n_live, max_iter=max_iter, n_chains=n_chains,
+            n_repeat=n_repeat, n_equal=n_equal, dlogz=dlogz, n_batch=n_batch, rng=rng, min_ess=min_ess,
+            on_low_ess=on_low_ess, n_runs=n_runs, checkpoint=checkpoint, resume=resume, config_tag=config_tag,
+            dtype=dtype, device=device,
+        )
     hard_cap = max_iter if max_iter is not None else 1000 * n_live
     n_batch = max(1, min(int(n_batch), n_live // 4))
     rng = np.random.default_rng(rng)
@@ -714,4 +841,490 @@ def run_nested(
         ess=ess,
         truncated=truncated,
         dynamic_rounds=dynamic_rounds,
+    )
+
+
+def _run_nested_multi(lnpost_u, prior_transform, n_params, generator, *, n_live, max_iter, n_chains, n_repeat,
+                      n_equal, dlogz, n_batch, rng, min_ess, on_low_ess, n_runs, checkpoint, resume, config_tag,
+                      dtype, device):
+    """``n_runs`` independent runs of one problem advanced in lockstep by
+    :func:`_nested_core_family` (counterpart of the JAX package's
+    ``_run_nested_multi``, ``isochrones_tpu/samplers/nested.py:902-1124``):
+    every run has its own live set and walk scale, and each walk step is one
+    likelihood call over all runs' points. The loop stops when every run has
+    met ``dlogz`` and the pooled Z-weighted ESS reaches ``min_ess``."""
+    R = int(n_runs)
+    hard_cap = max_iter if max_iter is not None else 1000 * n_live
+    n_batch = max(1, min(int(n_batch), n_live // 4))
+    rng = np.random.default_rng(rng)
+    if generator is None:
+        generator = torch.Generator(device=device if device is not None else "cuda")
+        generator.manual_seed(int(rng.integers(2 ** 31)))
+    g = generator
+    dev = g.device
+
+    def lnlike_fam(u):  # (R, B, p) -> (R, B) through one call of R * B points
+        return lnpost_u(prior_transform(u.reshape(-1, n_params))).reshape(R, -1)
+
+    def lnlike_host(u_np):
+        out = lnlike_fam(torch.as_tensor(u_np, dtype=dtype, device=dev)).cpu().numpy()
+        return np.where(np.isnan(out), -np.inf, out)
+
+    ckpt_cfg = state = None
+    if checkpoint is not None:
+        ckpt_cfg = dict(
+            version=_CKPT_VERSION, package=_CKPT_PACKAGE, kind="multi", n_params=int(n_params),
+            n_live=int(n_live), n_batch=int(n_batch), n_chains=int(n_chains), n_repeat=int(n_repeat), n_runs=R,
+            chunk=int(_chunk_dead(n_live)), dtype=str(dtype), device=dev.type,
+            config_tag=None if config_tag is None else str(config_tag),
+        )
+        if resume and os.path.exists(checkpoint):
+            state = _ckpt_load(checkpoint, ckpt_cfg)
+
+    running = _RunningEvidence(n_live, shape=(R,), n_batch=n_batch)
+    if state is not None:
+        dead_u_chunks = [state["dead_u"]]
+        dead_lnl_chunks = [state["dead_lnl"]]
+        live_u = torch.as_tensor(state["live_u"], dtype=dtype, device=dev)
+        live_lnl = torch.as_tensor(state["live_lnl"], dtype=dtype, device=dev)
+        live_lnl_np = state["live_lnl"]
+        g.set_state(torch.from_numpy(state["generator_state"].copy()))
+        scales = torch.as_tensor(state["scale"], dtype=dtype, device=dev)
+        n_dead_total = int(state["n_dead_total"])
+        running.n_dead = int(state["running_n_dead"])
+        running.ln_x = float(state["running_ln_x"])
+        running.log_s1 = state["running_log_s1"]
+        running.log_s2 = state["running_log_s2"]
+        rng.bit_generator.state = state["rng_state"]
+    else:
+        # initial live points per run; -inf starts are resampled in full
+        # (R, n_live, n_params) batches
+        u0 = rng.random((R, n_live, n_params))
+        lnl0 = lnlike_host(u0)
+        for _ in range(200):
+            bad = ~np.isfinite(lnl0)
+            if not bad.any():
+                break
+            u_new = rng.random((R, n_live, n_params))
+            l_new = lnlike_host(u_new)
+            take = bad & np.isfinite(l_new)
+            u0 = np.where(take[..., None], u_new, u0)
+            lnl0 = np.where(take, l_new, lnl0)
+        live_u = torch.as_tensor(u0, dtype=dtype, device=dev)
+        live_lnl = torch.as_tensor(lnl0, dtype=dtype, device=dev)
+        live_lnl_np = live_lnl.cpu().numpy()
+        scales = torch.full((R,), 0.5, dtype=dtype, device=dev)
+        dead_u_chunks = [np.zeros((R, 0, n_params), dtype=live_lnl_np.dtype)]
+        dead_lnl_chunks = [np.zeros((R, 0), dtype=live_lnl_np.dtype)]
+        n_dead_total = 0
+    chunk_steps = max(_chunk_dead(n_live) // n_batch, 8)
+
+    def _terminated():
+        if running.n_dead == 0:
+            return False
+        done, ess_now, logz_dead = _family_terminated(running, live_lnl_np, dlogz)
+        # the ESS gate is the pooled ESS of the Z-weighted mixture, as the
+        # final report computes it
+        if np.any(np.isfinite(logz_dead)):
+            zw = np.exp(logz_dead - np.logaddexp.reduce(logz_dead))
+        else:
+            zw = np.full(R, 1.0 / R)
+        pooled_ess = 1.0 / np.sum(zw ** 2 / np.maximum(ess_now, 1e-12))
+        return bool(done.all() and pooled_ess >= min_ess)
+
+    while n_dead_total < hard_cap and not _terminated():
+        n_steps = min(chunk_steps, max((hard_cap - n_dead_total) // n_batch, 1))
+        du, dl, live_u, live_lnl, scales = _nested_core_family(
+            lnlike_fam, live_u, live_lnl, g, scales, n_live, n_steps, n_chains, n_repeat, n_batch=n_batch
+        )
+        dead_u_chunks.append(du.cpu().numpy())  # (R, n_steps * K, p)
+        dead_lnl_chunks.append(dl.cpu().numpy())
+        live_lnl_np = live_lnl.cpu().numpy()
+        n_dead_total += n_steps * n_batch
+        running.add(dead_lnl_chunks[-1])
+        if checkpoint is not None:
+            _ckpt_save(checkpoint, dict(
+                config=ckpt_cfg, phase="base",
+                dead_u=np.concatenate(dead_u_chunks, axis=1), dead_lnl=np.concatenate(dead_lnl_chunks, axis=1),
+                live_u=live_u.cpu().numpy(), live_lnl=live_lnl_np,
+                generator_state=g.get_state().numpy().copy(), scale=scales.cpu().numpy(),
+                n_dead_total=n_dead_total,
+                running_n_dead=running.n_dead, running_ln_x=running.ln_x,
+                running_log_s1=running.log_s1, running_log_s2=running.log_s2,
+                rng_state=rng.bit_generator.state,
+            ))
+
+    dead_u = np.concatenate(dead_u_chunks, axis=1)
+    dead_lnl = np.concatenate(dead_lnl_chunks, axis=1)
+    live_u_np = live_u.cpu().numpy()
+
+    # ---- per-run assembly, then the Z-weighted combination
+    logz_runs = np.empty(R)
+    h_runs = np.empty(R)
+    ess_runs = np.empty(R)
+    run_samples, run_logl, run_logwt, run_probs = [], [], [], []
+    for r in range(R):
+        order, all_lnl, all_logwt, lz, probs, e = _assemble_weights(dead_lnl[r], live_lnl_np[r], n_live,
+                                                                    n_batch=n_batch)
+        all_u = np.concatenate([dead_u[r], live_u_np[r][order]], axis=0)
+        finite = np.isfinite(all_logwt)
+        p = np.exp(all_logwt[finite] - lz)
+        h_runs[r] = float(np.sum(p * (all_lnl[finite] - lz)))
+        logz_runs[r] = lz
+        ess_runs[r] = e
+        run_samples.append(prior_transform(torch.as_tensor(all_u, dtype=dtype, device=dev)).cpu().numpy())
+        run_logl.append(all_lnl)
+        run_logwt.append(all_logwt - np.log(R))  # so that the sum over all runs is mean Z_r
+        run_probs.append(probs)
+
+    # ln(mean Z_r); the error is the larger of the runs' empirical scatter and
+    # the averaged shrinkage estimate
+    logz = float(np.logaddexp.reduce(logz_runs) - np.log(R))
+    err_emp = float(np.std(logz_runs, ddof=1) / np.sqrt(R))
+    err_shrink = float(np.sqrt(np.mean(np.maximum(h_runs, 0.0)) * _logzerr_scale(n_live, n_batch) / R))
+    logzerr = max(err_emp, err_shrink)
+
+    # Z-weighted equal-weight posterior: runs picked in proportion to Z_r
+    z_w = np.exp(logz_runs - np.logaddexp.reduce(logz_runs))
+    n_eq_run = rng.multinomial(n_equal, z_w)
+    post_chunks, post_lnl_chunks = [], []
+    for r in range(R):
+        if n_eq_run[r] == 0:
+            continue
+        idx = rng.choice(len(run_probs[r]), size=n_eq_run[r], replace=True, p=run_probs[r])
+        post_chunks.append(run_samples[r][idx])
+        post_lnl_chunks.append(run_logl[r][idx])
+
+    # pooled ESS of the Z-weighted mixture
+    ess = float(1.0 / np.sum(z_w ** 2 / np.maximum(ess_runs, 1e-12)))
+    truncated = ess < min_ess
+    if truncated:
+        msg = (
+            f"Multi-run nested sampling: combined posterior ESS {ess:.0f} < "
+            f"min_ess={min_ess:.0f} after the iteration budget "
+            f"(max_iter={max_iter}); quantiles are unreliable."
+        )
+        if on_low_ess == "raise":
+            raise RuntimeError(msg)
+        getLogger().warning(msg)
+
+    return NestedResult(
+        samples=np.concatenate(run_samples, axis=0),
+        logl=np.concatenate(run_logl),
+        logwt=np.concatenate(run_logwt),
+        logz=logz,
+        logzerr=logzerr,
+        h=float(np.mean(h_runs)),
+        n_iter=int(dead_lnl.shape[1]) * R,
+        posterior=np.concatenate(post_chunks, axis=0),
+        logl_posterior=np.concatenate(post_lnl_chunks),
+        ess=ess,
+        truncated=truncated,
+        logz_runs=logz_runs,
+    )
+
+
+@np.errstate(divide="ignore", invalid="ignore")  # a problem without support has -inf evidences
+def run_nested_vmapped(
+    lnlike_u: Callable,
+    data,
+    live_u,
+    live_lnl,
+    *,
+    n_live: int,
+    n_batch: int = 8,
+    n_chains: int = 8,
+    n_repeat: int = 24,
+    n_equal: int = 2000,
+    dlogz: float = 0.01,
+    min_ess: float = 100.0,
+    max_iter: int = None,
+    seed=None,
+    rng=None,
+    mesh=None,
+    label: str = "problem",
+    dynamic: bool = False,
+    posterior_frac: float = 0.025,
+    max_dynamic_rounds: int = 8,
+    checkpoint: str = None,
+    resume: bool = False,
+    config_tag: str = None,
+    device=None,
+    dtype: torch.dtype = None,
+):
+    """Nested sampling over a family of M independent problems in lockstep
+    (counterpart of ``isochrones_tpu/samplers/nested.py:1126-1505``): every
+    problem keeps its own live set and walk scale, termination is per problem
+    (``dlogz``, and ``min_ess`` unless ``dynamic``), and the chunk loop stops
+    when every problem is done; problems already done keep shrinking with the
+    others. It is the engine of ``BatchStarFitter.fit_multinest``.
+
+    lnlike_u : ``lnlike_u(data, u)`` maps unit-cube points (M, B, n_params) to
+        ln-likelihoods (M, B) for the whole family in one call. This takes the
+        place of the JAX package's ``make_lnlike_u(data_m)``, a per-problem
+        closure that ``jax.vmap`` maps over ``data``: a ctypes kernel call
+        cannot be vmapped in torch, so the family function sees all problems.
+    data : handed to ``lnlike_u`` unchanged (one row per problem).
+    live_u, live_lnl : (M, n_live, n_params) / (M, n_live) initial live points
+        and their ln-likelihoods (tensors or arrays): draw from the prior and
+        resample -inf rows first (as ``BatchStarFitter.fit_multinest`` does).
+    rng : numpy Generator driving the seed of the walks' ``torch.Generator``
+        and the equal-weight resampling; it takes precedence over ``seed``,
+        which otherwise seeds the generator directly.
+    dynamic : dynamic nested sampling for the whole family: after the base
+        runs, while any problem's ESS is below ``min_ess``, a round of
+        posterior-focused threads (one per problem, per-problem activation
+        thresholds, a whitened decorrelation walk retried at a halved scale
+        for problems whose starts did not move, merged through
+        :func:`_merge_segments`).
+    checkpoint, resume, config_tag : as :func:`run_nested`; a resumed run is
+        bitwise the run that never stopped.
+    device, dtype : of the walks; by default those of ``live_u`` when it is a
+        tensor, else the CUDA card and float64.
+
+    One ``torch.Generator`` drives the family's draws, where the JAX package
+    splits a key per problem: a problem's draws depend on M, so the two
+    packages agree statistically, not draw for draw.
+
+    Returns a dict of per-problem arrays ``logz``, ``logzerr``, ``ess``,
+    ``converged``, ``samples_u`` (M, n_equal, n_params) equal-weight draws in
+    the unit cube (NaN for a problem with no posterior support), ``lnl`` (M,
+    n_equal), and the scalars ``n_dead`` and ``dynamic_rounds``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(f"run_nested_vmapped(mesh={mesh!r}) is not ported yet (ROADMAP queue 1, "
+                                  "parallelism)")
+    M, n_live_in, n_params = live_u.shape
+    if n_live_in != int(n_live):
+        raise ValueError(f"live_u has {n_live_in} live points, expected n_live={n_live}")
+    if device is None:
+        device = live_u.device if isinstance(live_u, torch.Tensor) else "cuda"
+    if dtype is None:
+        dtype = live_u.dtype if isinstance(live_u, torch.Tensor) else torch.float64
+    n_live = int(n_live)
+    n_batch = max(1, min(int(n_batch), n_live // 4))
+    hard_cap = max_iter if max_iter is not None else 1000 * n_live
+    rng_given = rng is not None
+    rng = np.random.default_rng(seed) if rng is None else rng
+    g = torch.Generator(device=torch.device(device))
+    g.manual_seed(int(rng.integers(2 ** 31)) if (rng_given or seed is None) else int(seed))
+    dev = g.device
+
+    def fam(u):
+        return lnlike_u(data, u)
+
+    ckpt_cfg = state = None
+    if checkpoint is not None:
+        ckpt_cfg = dict(
+            version=_CKPT_VERSION, package=_CKPT_PACKAGE, kind="vmapped", n_params=int(n_params),
+            n_live=int(n_live), n_batch=int(n_batch), n_chains=int(n_chains), n_repeat=int(n_repeat),
+            n_problems=int(M), chunk=int(_chunk_dead(n_live)), dtype=str(dtype), device=dev.type,
+            config_tag=None if config_tag is None else str(config_tag),
+        )
+        if resume and os.path.exists(checkpoint):
+            state = _ckpt_load(checkpoint, ckpt_cfg)
+
+    chunk_steps = max(_chunk_dead(n_live) // n_batch, 8)
+    running = _RunningEvidence(n_live, shape=(M,), n_batch=n_batch)
+    if state is not None:
+        dead_u_chunks = [state["dead_u"]]
+        dead_lnl_chunks = [state["dead_lnl"]]
+        live_u = torch.as_tensor(state["live_u"], dtype=dtype, device=dev)
+        live_lnl = torch.as_tensor(state["live_lnl"], dtype=dtype, device=dev)
+        g.set_state(torch.from_numpy(state["generator_state"].copy()))
+        scales = torch.as_tensor(state["scale"], dtype=dtype, device=dev)
+        n_dead_total = int(state["n_dead_total"])
+        running.n_dead = int(state["running_n_dead"])
+        running.ln_x = float(state["running_ln_x"])
+        running.log_s1 = state["running_log_s1"]
+        running.log_s2 = state["running_log_s2"]
+        rng.bit_generator.state = state["rng_state"]
+    else:
+        live_u = torch.as_tensor(live_u, dtype=dtype, device=dev)
+        live_lnl = torch.as_tensor(live_lnl, dtype=dtype, device=dev)
+        scales = torch.full((M,), 0.5, dtype=dtype, device=dev)
+        np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+        dead_u_chunks = [np.zeros((M, 0, n_params), dtype=np_dtype)]
+        dead_lnl_chunks = [np.zeros((M, 0), dtype=np_dtype)]
+        n_dead_total = 0
+    live_lnl_np = live_lnl.cpu().numpy()
+    done = np.zeros(M, dtype=bool)
+
+    def _base_terminated():
+        # the base runs stop on the evidence alone in a dynamic run, whose
+        # threads take care of the ESS
+        nonlocal done
+        if running.n_dead == 0:
+            return False
+        met, ess_now, _ = _family_terminated(running, live_lnl_np, dlogz)
+        done = met if dynamic else met & (ess_now >= min_ess)
+        return bool(done.all())
+
+    def _save(phase, thread_segments=None, dyn_rounds=0):
+        if checkpoint is None:
+            return
+        _ckpt_save(checkpoint, dict(
+            config=ckpt_cfg, phase=phase,
+            dead_u=np.concatenate(dead_u_chunks, axis=1), dead_lnl=np.concatenate(dead_lnl_chunks, axis=1),
+            live_u=live_u.cpu().numpy(), live_lnl=live_lnl_np,
+            generator_state=g.get_state().numpy().copy(), scale=scales.cpu().numpy(),
+            n_dead_total=n_dead_total,
+            running_n_dead=running.n_dead, running_ln_x=running.ln_x,
+            running_log_s1=running.log_s1, running_log_s2=running.log_s2,
+            rng_state=rng.bit_generator.state,
+            thread_segments=thread_segments, dynamic_rounds=dyn_rounds,
+        ))
+
+    base_done = state is not None and state["phase"] == "dynamic"
+    while not base_done and n_dead_total < hard_cap and not _base_terminated():
+        n_steps = min(chunk_steps, max((hard_cap - n_dead_total) // n_batch, 1))
+        du, dl, live_u, live_lnl, scales = _nested_core_family(
+            fam, live_u, live_lnl, g, scales, n_live, n_steps, n_chains, n_repeat, n_batch=n_batch
+        )
+        # the chunk's one read-back
+        dead_u_chunks.append(du.cpu().numpy())  # (M, n_steps * K, n_params)
+        dead_lnl_chunks.append(dl.cpu().numpy())
+        live_lnl_np = live_lnl.cpu().numpy()
+        n_dead_total += n_steps * n_batch
+        running.add(dead_lnl_chunks[-1])
+        _save("base")
+    # a hard-cap or a restored dynamic phase skips the loop's check: `done`
+    # for the final report
+    _base_terminated()
+
+    dead_u = np.concatenate(dead_u_chunks, axis=1)
+    dead_lnl = np.concatenate(dead_lnl_chunks, axis=1)
+    live_u_np = live_u.cpu().numpy()
+
+    # ---- dynamic posterior threads, the whole family in lockstep
+    merged = None
+    dynamic_rounds = 0
+    if dynamic:
+        segments = []
+        for s in range(M):
+            order_s = np.argsort(live_lnl_np[s])
+            segments.append([dict(
+                dead_lnl=dead_lnl[s], live_lnl=live_lnl_np[s], n_live=n_live, n_batch=n_batch, L0=-np.inf,
+                all_u=np.concatenate([dead_u[s], live_u_np[s][order_s]], axis=0),
+            )])
+        if state is not None and state.get("thread_segments"):
+            # completed rounds restore verbatim; an interrupted round replays
+            # from its start, where the generator's state was saved
+            for s in range(M):
+                segments[s].extend(state["thread_segments"][s])
+            dynamic_rounds = int(state["dynamic_rounds"])
+        merged = [_merge_segments(segs) for segs in segments]
+
+        while n_dead_total < hard_cap and dynamic_rounds < max_dynamic_rounds:
+            ess_m = np.array([mg[5] for mg in merged])
+            if (ess_m >= min_ess).all():
+                break
+            starts = np.empty((M, n_live, n_params))
+            starts_lnl = np.empty((M, n_live))
+            L_los = np.empty(M)
+            for s in range(M):
+                L_los[s], starts[s], starts_lnl[s] = _thread_starts(merged[s], posterior_frac, n_live)
+
+            # decorrelate the copied starts; a problem whose chains never
+            # accept retries at a halved scale (at most 1 in whitened units)
+            t_live_u = torch.as_tensor(starts, dtype=dtype, device=dev)
+            t_live_lnl = torch.as_tensor(starts_lnl, dtype=dtype, device=dev)
+            L_los_t = torch.as_tensor(L_los, dtype=dtype, device=dev)
+            moved_any = np.zeros((M, n_live), dtype=bool)
+            w_scales = np.minimum(scales.cpu().numpy(), 1.0)
+            for _ in range(3):
+                chol = _live_cholesky_family(t_live_u)
+                t_live_u, t_live_lnl, mv, _ = _constrained_walk_family(
+                    fam, g, t_live_u, t_live_lnl, L_los_t, torch.as_tensor(w_scales, dtype=dtype, device=dev),
+                    n_live, 1, 4 * n_repeat, L=chol,
+                )
+                moved_any |= mv.cpu().numpy()
+                if moved_any.all():
+                    break
+                w_scales = np.where(moved_any.all(axis=1), w_scales, w_scales * 0.5)
+            if not moved_any.all():
+                getLogger().warning(
+                    "run_nested_vmapped dynamic round %d: %d thread starts never moved in the decorrelation walk "
+                    "(duplicated samples slightly overweight the merged posterior).",
+                    dynamic_rounds, int((~moved_any).sum()),
+                )
+
+            # the threads end on their own dlogz (in thread-relative prior
+            # mass); those done keep shrinking until all are
+            t_running = _RunningEvidence(n_live, shape=(M,), n_batch=n_batch)
+            t_dead_u_chunks, t_dead_lnl_chunks = [], []
+            while n_dead_total < hard_cap:
+                n_steps = min(chunk_steps, max((hard_cap - n_dead_total) // n_batch, 1))
+                du, dl, t_live_u, t_live_lnl, scales = _nested_core_family(
+                    fam, t_live_u, t_live_lnl, g, scales, n_live, n_steps, n_chains, n_repeat, n_batch=n_batch
+                )
+                t_dead_u_chunks.append(du.cpu().numpy())
+                t_dead_lnl_chunks.append(dl.cpu().numpy())
+                n_dead_total += n_steps * n_batch
+                t_running.add(t_dead_lnl_chunks[-1])
+                if _family_terminated(t_running, t_live_lnl.cpu().numpy(), dlogz)[0].all():
+                    break
+
+            t_dead_u = np.concatenate(t_dead_u_chunks, axis=1)
+            t_dead_lnl = np.concatenate(t_dead_lnl_chunks, axis=1)
+            t_live_u_np = t_live_u.cpu().numpy()
+            t_live_lnl_np = t_live_lnl.cpu().numpy()
+            for s in range(M):
+                t_order = np.argsort(t_live_lnl_np[s])
+                segments[s].append(dict(
+                    dead_lnl=t_dead_lnl[s], live_lnl=t_live_lnl_np[s], n_live=n_live, n_batch=n_batch, L0=L_los[s],
+                    all_u=np.concatenate([t_dead_u[s], t_live_u_np[s][t_order]], axis=0),
+                ))
+            merged = [_merge_segments(segs) for segs in segments]
+            dynamic_rounds += 1
+            _save("dynamic", thread_segments=[segs[1:] for segs in segments], dyn_rounds=dynamic_rounds)
+        # the merged assembly is kept even when no thread ran: the loop
+        # judged the single-segment merge's ESS
+
+    # ---- per-problem evidence and equal-weight posterior
+    logz = np.empty(M)
+    logzerr = np.empty(M)
+    ess = np.empty(M)
+    samples_u = np.empty((M, n_equal, n_params))
+    lnl_eq = np.empty((M, n_equal))
+    for s in range(M):
+        if merged is not None:
+            all_u, all_lnl, _, lz, probs, e, _h, lzerr = merged[s]
+            logzerr[s] = lzerr
+        else:
+            order, all_lnl, all_logwt, lz, probs, e = _assemble_weights(dead_lnl[s], live_lnl_np[s], n_live,
+                                                                        n_batch=n_batch)
+            all_u = np.concatenate([dead_u[s], live_u_np[s][order]], axis=0)
+            finite = np.isfinite(all_logwt)
+            p = np.exp(all_logwt[finite] - lz)
+            h = float(np.sum(p * (all_lnl[finite] - lz)))
+            logzerr[s] = np.sqrt(max(h, 0.0) * _logzerr_scale(n_live, n_batch))
+        logz[s] = lz
+        ess[s] = e
+        if not np.isfinite(lz) or probs.sum() <= 0:
+            # no posterior support anywhere: NaN draws for this problem, the
+            # family goes on
+            getLogger().warning(
+                "run_nested_vmapped: %s %d has no posterior support (logz=%s); returning NaN samples for it.",
+                label, s, lz,
+            )
+            samples_u[s] = np.nan
+            lnl_eq[s] = -np.inf
+            continue
+        idx = rng.choice(len(probs), size=n_equal, replace=True, p=probs)
+        samples_u[s] = all_u[idx]
+        lnl_eq[s] = all_lnl[idx]
+
+    converged = done & (ess >= min_ess) if dynamic else done
+    if not converged.all():
+        hint = "raise max_dynamic_rounds or n_live" if dynamic else "raise max_iter or n_live"
+        getLogger().warning(
+            "run_nested_vmapped: %d/%d %ss hit the iteration budget before dlogz+ESS termination; their "
+            "quantiles/evidences may be unreliable (%s).",
+            int((~converged).sum()), M, label, hint,
+        )
+
+    return dict(
+        logz=logz, logzerr=logzerr, ess=ess, n_dead=n_dead_total, converged=converged, samples_u=samples_u,
+        lnl=lnl_eq, dynamic_rounds=dynamic_rounds,
     )

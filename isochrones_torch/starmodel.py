@@ -534,9 +534,11 @@ class BasicStarModel:
         never stopped. ``refit``/``overwrite`` delete the checkpoint first,
         and the checkpoint carries a hash of the data, bounds and seed, so a
         stale one is refused (``CheckpointConfigError``), never replayed.
-        ``mesh`` and ``n_runs > 1`` are not ported yet and raise
-        ``NotImplementedError``. Sets ``samples`` (a dict of numpy columns
-        with ``"lnprob"``) and ``evidence``; returns the ``NestedResult``."""
+        ``n_runs > 1`` runs independent runs in lockstep (the result's
+        ``logz_runs``; not with ``dynamic``); ``mesh`` is not ported yet and
+        raises ``NotImplementedError``. Sets ``samples`` (a dict of numpy
+        columns with ``"lnprob"``) and ``evidence``; returns the
+        ``NestedResult``."""
         from .samplers.nested import run_nested
 
         ckpt = kwargs.pop("checkpoint", None)

@@ -229,8 +229,14 @@ def test_fit_is_dynamic_by_default(models, monkeypatch):
         tm.fit_multinest(n_live_points=50, n_runs=2)
     assert "dynamic" not in captured  # n_runs > 1 does not go with dynamic
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="n_runs"):  # and is not ported
-        tm.fit(n_live_points=50, n_runs=2)
+    # independent runs of the cluster fit: two short runs, dynamic refused
+    # with them as in the JAX package, the mesh not ported
+    res = tm.fit(n_live_points=20, n_runs=2, n_batch=5, n_chains=2, n_repeat=2, max_iter=10, seed=0)
+    assert res.logz_runs.shape == (2,) and res.n_iter == 20
+    with pytest.raises(ValueError, match="n_runs=1"):
+        tm.fit(n_live_points=50, n_runs=2, dynamic=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.fit(n_live_points=50, mesh=object())
 
     # use_emcee sends fit() to the ensemble sampler
     walker = StarClusterModel(tm.ic, tm.stars, use_emcee=True, **MODEL)

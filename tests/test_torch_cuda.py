@@ -18,7 +18,10 @@ star): 1e-9 + 1e-10 |ref| in float64; in float32 against the float64 plain
 version 0.1 + 2e-4 |ref| for ``ll`` and 1e-6 + 1e-4 |ref| for the columns;
 identical NaN and -inf patterns and ``ll`` never NaN, for 1-16 stars, one and
 two systems, relative rows, density rows, limits, every axis-map kind, every
-group width, batches that leave a partial team and a partial warp.
+group width, batches that leave a partial team and a partial warp. Catalog
+kernel: the star kernel's tolerances, for 1-256 stars, every group width,
+every axis-map kind, stars without a band, without any band, without a
+parallax or Teff, and a catalog without parallaxes.
 """
 
 import dataclasses
@@ -30,12 +33,16 @@ import pytest
 import torch
 
 from chip_smoke import (
+    CAT_BANDS, CLI_EEP_BOX, catalog_likelihood_as, catalog_points, catalog_table,
     ATOL_F32, ATOL_STAR_F32, FIXTURE, RTOL_F32, RTOL_F64, RTOL_STAR_F32, RTOL_STAR_F64, _tree_check, as_float32,
     _tree_mixed_points, check_close, check_eep, check_star, eep_points, grid_as, make_kernel_inputs, profile_kernels,
     star_grid_variant, star_observations, star_points, to_torch,
 )
 from isochrones_torch import BinaryStarModel, StarClusterModel, TripleStarModel, get_ichrone
+from isochrones_torch.batch import BatchStarFitter
 from isochrones_torch.catalog import read_csv
+from isochrones_torch.ops.catalog import catalog_lnlike, catalog_lnlike_plain
+from isochrones_torch.ops.catalog_cuda import catalog_lnlike_cuda, group_lanes
 from isochrones_torch.ops.cluster import cluster_lnmarginal, cluster_lnmarginal_plain
 from isochrones_torch.ops.cluster_cuda import cluster_lnmarginal_cuda
 from isochrones_torch.ops.star import star_lnlike_fused, star_lnlike_fused_plain
@@ -464,3 +471,98 @@ def test_tree_dispatch_model_and_caps(dev):
     pb = torch.zeros((4, big.n_params), device=dev, dtype=torch.float64)
     with pytest.raises(ValueError, match="MAX_STARS"):
         big.lnlike_batch(pb)
+
+
+def _catalog(dev, n_stars, plax=True, seed=0):
+    """A catalog likelihood on the small grid (float64, on ``dev``) with the
+    holes of ``chip_smoke.catalog_table``, and the stars' truths."""
+    ic = get_ichrone("synthetic", device="cpu", **_SMALL)
+    truths, table = catalog_table(ic, max(n_stars, 12), (CLI_EEP_BOX[0] / 2, CLI_EEP_BOX[1] / 2), seed=seed)
+    table = {k: v[:n_stars] for k, v in table.items()}
+    if not plax:
+        table = {k: v for k, v in table.items() if not k.startswith("parallax")}
+    fitter = BatchStarFitter(get_ichrone("synthetic", device=dev, **_SMALL), table, bands=CAT_BANDS)
+    return fitter, truths[:n_stars]
+
+
+def _check_catalog_both(lk64, pars, name):
+    """The catalog kernel against the plain version on ``pars`` (S, B, 5):
+    float64 at rtol 1e-10, float32 tables, observations and points against
+    the float64 plain version on the same float32 values."""
+    p64 = torch.as_tensor(pars, device=lk64.spec_vals.device, dtype=torch.float64)
+    check_star(f"f64 {name}", [x.cpu().numpy() for x in catalog_lnlike_cuda(p64, lk64)],
+               [x.cpu().numpy() for x in catalog_lnlike_plain(p64, lk64)], RTOL_STAR_F64)
+    lk32 = catalog_likelihood_as(lk64, torch.float32)
+    p32 = p64.float()
+    check_star(f"f32 {name}", [x.cpu().numpy() for x in catalog_lnlike_cuda(p32, lk32)],
+               [x.cpu().numpy() for x in catalog_lnlike_plain(p32.double(), catalog_likelihood_as(lk32, torch.float64))],
+               RTOL_STAR_F32, ATOL_STAR_F32)
+
+
+@pytest.mark.parametrize("S,B,lanes", [(1, 1, 16), (3, 31, 16), (12, 64, 16), (64, 400, 8), (256, 256, 4),
+                                       (16, 8000, 2), (64, 4097, 1)])
+def test_catalog_kernel_matches_plain(dev, S, B, lanes):
+    """Every group width; stars without H, without a parallax, without Teff
+    (star 7) and without any band (star 11); NaN, top-knot and off-grid
+    points."""
+    fitter, truths = _catalog(dev, S)
+    lk, _ = fitter._catalog_likelihood()
+    pars = catalog_points(fitter.ic, truths, max(B, 8), seed=S + B)[:, :B]
+    if B < 8:
+        pars[:, -1, 2] = np.nan
+    assert group_lanes(S * B) == lanes
+    _check_catalog_both(lk, pars, f"S={S} B={B}")
+    if S * B >= 4096:
+        ref = catalog_lnlike_plain(torch.as_tensor(pars, device=dev), lk)[0].cpu().numpy()
+        assert np.isfinite(ref).sum() > 100 and np.isnan(ref).sum() > 10
+
+
+@pytest.mark.parametrize("kind", ["log", "compare", "searchsorted"])
+def test_catalog_kernel_axis_kinds(dev, kind):
+    fitter, truths = _catalog(dev, 12)
+    lk, _ = fitter._catalog_likelihood()
+    pack6, bc = star_grid_variant(lk.pack6, lk.bc, kind)
+    _check_catalog_both(dataclasses.replace(lk, pack6=pack6, bc=bc), catalog_points(fitter.ic, truths, 300, seed=3),
+                        kind)
+
+
+def test_catalog_kernel_without_parallaxes(dev):
+    fitter, truths = _catalog(dev, 12, plax=False)
+    lk, _ = fitter._catalog_likelihood()
+    assert lk.plax is None
+    _check_catalog_both(lk, catalog_points(fitter.ic, truths, 200, seed=4), "no parallax")
+
+
+def test_catalog_kernel_caps_and_bad_input(dev):
+    """Past 16 bands the kernel raises a ValueError that names the cap; it
+    never falls back to the plain version."""
+    fitter, truths = _catalog(dev, 4)
+    lk, _ = fitter._catalog_likelihood()
+    p = torch.as_tensor(catalog_points(fitter.ic, truths, 16, seed=5), device=dev)
+    S = lk.n_stars
+    wide = dataclasses.replace(lk, band_icols=lk.band_icols * 6, mag_vals=lk.mag_vals.repeat(1, 6),
+                               mag_uncs=lk.mag_uncs.repeat(1, 6))
+    with pytest.raises(ValueError, match="16 bands"):
+        catalog_lnlike_cuda(p, wide)
+    with pytest.raises(ValueError):
+        catalog_lnlike_cuda(p.float(), lk)  # tables in another dtype
+    with pytest.raises(ValueError):
+        catalog_lnlike_cuda(p[: S - 1], lk)  # another star count
+    with pytest.raises(ValueError):
+        catalog_lnlike_cuda(p[..., :4], lk)
+
+
+def test_catalog_lnpost_on_card_matches_cpu(dev):
+    """The fitter's lnpost_batch through the kernel on the card against the
+    plain path on the CPU, float64; the dispatcher launches the kernel once a
+    call."""
+    fitter, truths = _catalog(dev, 12)
+    ic_cpu = get_ichrone("synthetic", device="cpu", **_SMALL)
+    cpu = BatchStarFitter(ic_cpu, fitter.catalog, bands=CAT_BANDS)
+    pars = catalog_points(ic_cpu, truths, 128, seed=6)
+    before = catalog_lnlike_cuda.launches
+    got = fitter.lnpost_batch(pars).cpu().numpy()
+    assert catalog_lnlike_cuda.launches == before + 1
+    check_star("catalog lnpost", [got], [cpu.lnpost_batch(pars).numpy()], RTOL_STAR_F64)
+    catalog_lnlike(torch.as_tensor(pars, device=dev), fitter._catalog_likelihood()[0])
+    assert catalog_lnlike_cuda.launches == before + 2

@@ -39,6 +39,12 @@ _EXPECTED = (
     "isochrones_torch.isochrone",
     "isochrones_torch.cluster",
     "isochrones_torch.cli.clusterfit",
+    "isochrones_torch.ops.catalog",
+    "isochrones_torch.ops.catalog_cuda",
+    "isochrones_torch.batch",
+    "isochrones_torch.summary",
+    "isochrones_torch.cli.fit_catalog",
+    "isochrones_torch.cli.batch",
 )
 
 

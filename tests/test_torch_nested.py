@@ -167,9 +167,14 @@ def test_run_nested_truncation_and_unported_options():
     g.manual_seed(0)
     with pytest.raises(RuntimeError, match="ESS"):
         tn.run_nested(lnpost, transform, 2, g, n_live=40, max_iter=80, n_batch=4, on_low_ess="raise", rng=0)
-    for kw in (dict(n_runs=2), dict(mesh=object()), dict(n_runs=2, dynamic=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tn.run_nested(lnpost, transform, 2, g, n_live=40, **kw)
+    # independent runs are ported (tests/test_torch_nested_family.py); they
+    # refuse dynamic sampling as the JAX package does; the mesh is not ported
+    r = tn.run_nested(lnpost, transform, 2, g, n_live=40, n_batch=4, n_runs=2, max_iter=80, rng=0)
+    assert r.logz_runs.shape == (2,) and r.n_iter == 160
+    with pytest.raises(ValueError, match="n_runs=1"):
+        tn.run_nested(lnpost, transform, 2, g, n_live=40, n_runs=2, dynamic=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tn.run_nested(lnpost, transform, 2, g, n_live=40, mesh=object())
 
 
 def test_run_nested_defaults_to_the_card():

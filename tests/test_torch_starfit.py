@@ -156,8 +156,14 @@ def test_cli_parser_and_unported_options(tmp_path):
             starfit(folder, models="synthetic", device="cpu", failures=failures, **kw, **SHORT)
     # refused before any fit: nothing logged as a failure, no log, no results
     assert failures == [] and os.listdir(folder) == ["star.ini"]
+    # independent runs are ported: two runs, no dynamic runs with them, no mesh
+    mod = BasicStarModel(get_ichrone("synthetic", device="cpu"), J=(9.5, 0.02))
+    res = mod.fit(n_runs=2, n_live_points=40, n_batch=4, n_chains=4, n_repeat=8, max_iter=80, seed=0)
+    assert res.logz_runs.shape == (2,)
+    with pytest.raises(ValueError, match="n_runs=1"):
+        mod.fit(n_runs=2, dynamic=True, n_live_points=40)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BasicStarModel(get_ichrone("synthetic", device="cpu"), J=(9.5, 0.02)).fit(n_runs=2, n_live_points=40)
+        mod.fit(mesh=object(), n_live_points=40)
 
 
 def test_entry_points_default_to_the_card(tmp_path):

@@ -174,8 +174,14 @@ def test_derived_samples_match_jax(ics, N):
 
 
 def test_fit_multinest_options_not_ported(ics):
+    """``n_runs > 1`` runs (and refuses ``dynamic``, as the JAX package
+    does); ``mesh`` is still not ported."""
     tm, _ = _models(ics, 1)
-    for kw in (dict(n_runs=2), dict(mesh=object()), dict(n_runs=2, dynamic=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.fit_multinest(n_live_points=40, **kw)
+    res = tm.fit_multinest(n_live_points=40, n_runs=2, n_batch=4, n_chains=4, n_repeat=8, max_iter=80, seed=0)
+    assert res.logz_runs.shape == (2,) and tm.evidence == (res.logz, res.logzerr)
+    assert len(tm.samples["lnprob"]) == 4000
+    with pytest.raises(ValueError, match="n_runs=1"):
+        tm.fit_multinest(n_live_points=40, n_runs=2, dynamic=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.fit_multinest(n_live_points=40, mesh=object())
     assert type(tm)._default_dynamic is False  # the flat model's fit stays static unless asked
