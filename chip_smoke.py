@@ -83,21 +83,29 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     a subprocess on a CSV written from phase 14's catalogue (default
     synthetic grid, small ``--nlive``): exit 0 and a finite evidence in its
     log;
-16. the catalog kernel against its plain version at the MIST-scale grid: a
-    seeded catalogue of 256 stars in J, H, K with Teff, logg and a parallax
-    (some stars without H, without a parallax, one without Teff, one without
-    any band), 256 points a star (half about each truth, half over the grid
-    with adversarial rows) and the MCMC fit's 32; float64, and float32
-    against the float64 plain version; identical NaN and -inf patterns; the
-    kernel's device time beside its bound and the plain version's time;
-17. the catalog fits on that catalogue in float32: ``fit_catalog(method=
-    "mcmc")`` (64 walkers, 300 + 50 steps) with its summary, then
-    ``BatchStarFitter.fit_multinest(256 live points, n_batch 32, n_chains
-    8)`` and ``summarize_batch``, then the same fit dynamic (an ESS target of
-    2000, two thread rounds at most; the per-star host merges timed); one
-    ``lnpost_batch`` at each fit's batch under the profiler beside a
-    single-star one; finite evidences, the true distance inside the 95%
-    interval for at least 95% of the stars;
+16. the catalog kernel, both instantiations (the log-posterior: likelihood,
+    default priors, bounds and EEP change of variables; and the likelihood's
+    triple) against their plain versions at the MIST-scale grid: a seeded
+    catalogue of 256 stars in J, H, K with Teff, logg and a parallax (some
+    stars without H, without a parallax, one without Teff, one without any
+    band), 256 points a star (half about each truth, half over the grid with
+    adversarial rows) and the MCMC fit's 32, and the posterior's unit-cube
+    form at 256 (the nested fit's call, the box map in the kernel); float64,
+    and float32 against the float64 plain version on the same float32 values
+    and constants; identical NaN and +-inf patterns; the kernels' device time
+    beside the posterior's bound, its plain version's time and the earlier
+    likelihood-only kernel's;
+17. the catalog fits on that catalogue in float32: one ``lnpost_batch`` at
+    each fit's batch (the nested one on unit-cube points) must be one
+    posterior launch and at most ``CAT_CALL_KERNELS`` device kernels under
+    the profiler (wall-clock, idle share), beside a single-star call;
+    ``fit_catalog(method="mcmc")`` (64 walkers, 300 + 50 steps) with its
+    summary, then ``BatchStarFitter.fit_multinest(256 live points, n_batch
+    32, n_chains 8)`` and ``summarize_batch``, then the same fit dynamic (an
+    ESS target of 2000, two thread rounds at most; the per-star host merges
+    timed), each beside the earlier design's wall-clock; finite evidences, every star
+    converged in both nested fits, the true distance inside the 95% interval
+    for at least 95% of the stars;
 18. the catalog entry point: ``python -m isochrones_torch.cli.fit_catalog``
     as a subprocess on a 16-star CSV (default synthetic grid, nested, 64 live
     points): the summary's columns and evidences;
@@ -287,6 +295,16 @@ CAT_EEP_BOX = (200.0, 450.0)
 CLI_EEP_BOX = (200.0 * 200 / 1710, 450.0 * 200 / 1710)
 CAT_POINTS = 256
 CAT_MCMC = dict(nwalkers=64, nburn=300, niter=50, seed=0)
+#: the earlier likelihood-only catalog kernel at these batches (PERF.md, row
+#: E's earlier time): the posterior kernel's yardstick
+CAT_EARLIER_MS = {CAT_POINTS: 0.0414, CAT_MCMC["nwalkers"] // 2: 0.0120}
+#: device kernels one catalog lnpost_batch may launch: the posterior kernel,
+#: and nothing else on a tensor already of the fitter's dtype and device
+CAT_CALL_KERNELS = 1
+#: the catalog fits with their summaries when the priors ran in eager torch
+#: around that kernel (seconds; 710, 4236 and 6444 launches; PERF.md),
+#: printed beside this run's
+CAT_EARLIER_FIT_S = {"mcmc": 3.756, "nested": 12.525, "dynamic": 28.163}
 CAT_NESTED = dict(n_live_points=256, n_batch=32, n_chains=8, seed=0)
 #: the dynamic catalog fit: an ESS target above what the base runs reach
 #: (~1100 at these settings), two thread rounds at most
@@ -1364,14 +1382,45 @@ def catalog_likelihood_as(lk, dtype):
     return dataclasses.replace(lk, pack6=grid_as(lk.pack6, dtype), bc=grid_as(lk.bc, dtype), **changes)
 
 
-def catalog_work(pars, lk):
-    """``(bytes, flops, special functions)`` of the catalog likelihood on these
-    points: the parameters read and the three outputs written once, each
-    distinct row that the points' corners touch read once (6 pack columns,
-    the band columns of the BC table), each star's observation row once; per
-    point ~70 flops of cell location, 8 corners x (6 weight + 12 lerp flops),
-    16 corners x (8 + 2 per band), 3 per band for the magnitudes, ~6 per
-    Gaussian term, one log10 (the distance modulus) and a log per term."""
+def catalog_priors_as(pri, dtype):
+    """The same packed priors for another dtype: the per-star distance rows
+    in ``dtype``; from float32 every constant rounded to float32, as the
+    float32 kernel rounds it, so that a float64 reference sees the float32
+    run's constants."""
+    import torch
+
+    consts = pri.consts
+    if pri.dist.dtype == torch.float32:
+        consts = {k: float(np.float32(v)) for k, v in consts.items()}
+    return dataclasses.replace(pri, consts=consts, dist=pri.dist.to(dtype))
+
+
+def catalog_unit_points(truths, los, his, n_points, seed=0):
+    """Seeded (S, n_points, 5) unit-cube points in the nested fit's per-star
+    boxes: half about each truth, half uniform, a row at 0 and a row at 1."""
+    rng = np.random.default_rng(seed)
+    S, h = truths.shape[0], n_points // 2
+    u = rng.uniform(0.0, 1.0, (S, n_points, 5))
+    u[:, :h] = np.clip((truths[:, None, :] - los) / (his - los)[:, None, :] + rng.normal(0, 0.02, (S, h, 5)), 0, 1)
+    u[:, h], u[:, h + 1] = 0.0, 1.0
+    return u
+
+
+def catalog_work(pars, lk, post=False, unit=False, compact=False):
+    """``(bytes, flops, special functions)`` of the catalog posterior
+    (``post``) or likelihood on these parameters: the points read (with the
+    per-star box tops in the unit-cube form) and the outputs written once (the
+    posterior's one column, the likelihood's three), each distinct row that
+    the points' corners touch read once (6 pack columns; the band columns of
+    the BC table, or the 4 of the compact table's rows), each star's
+    observation row (and the posterior's distance row) once; per point ~70
+    flops of cell location, 8 corners x (6 weight + 12 lerp flops), 16 corners
+    x (8 + 2 per band), 3 per band for the magnitudes, ~6 per Gaussian term,
+    one log10 (the distance modulus) and a log per term. The posterior's
+    epilogue adds ~60 flops (the priors' products, sums, divisions, bounds and
+    selects; 15 more for the box map) and 8 special functions: three exp and
+    a log for [Fe/H], a log each for the distance, the log-normal, the power
+    law and the derivative."""
     import torch
 
     from isochrones_torch.ops.interp import interp_nd
@@ -1383,59 +1432,104 @@ def catalog_work(pars, lk):
     gp = torch.stack([pts[:, io[0]], pts[:, io[1]], pts[:, io[2]]], dim=-1)
     v6 = interp_nd(lk.pack6.values, lk.pack6.knots, gp, axis_maps=lk.pack6.axis_maps)
     bp = torch.stack([v6[:, 0], v6[:, 1], v6[:, 2], pts[:, 4]], dim=-1)
-    rows = _touched_rows(lk.pack6, gp) * 6 + _touched_rows(lk.bc, bp) * nb
+    rows = _touched_rows(lk.pack6, gp) * 6 + _touched_rows(lk.bc, bp) * (4 if compact else nb)
     n_terms = nb + 3 + (lk.plax is not None)
-    nbytes = (pars.numel() + 3 * S * B + rows + S * (8 + 2 * nb)) * pars.element_size()
-    flops = S * B * (70 + 8 * 18 + 16 * (8 + 2 * nb) + 3 * nb + 6 * n_terms)
-    return nbytes, flops, S * B * (1 + n_terms)
+    per_star = (8 + 2 * nb) + (2 if post else 0) + (5 if unit else 0)
+    nbytes = (pars.numel() + (1 if post else 3) * S * B + rows + S * per_star) * pars.element_size()
+    flops = S * B * (70 + 8 * 18 + 16 * (8 + 2 * nb) + 3 * nb + 6 * n_terms + (60 + 15 * unit if post else 0))
+    return nbytes, flops, S * B * (1 + n_terms + (8 if post else 0))
 
 
 def phase_catalog_kernel(dev, ic32, ic64):
-    """Phase 16: the catalog kernel against its plain version. Returns
+    """Phase 16: both instantiations of the catalog kernel (the posterior,
+    the fitter's path, and the likelihood's triple) against their plain
+    versions at the nested fit's (256, 256) and the MCMC half-update's
+    (256, 32), float64 and float32, and the posterior's unit-cube form at
+    (256, 256); their device times beside the posterior's bound, its plain
+    version's time and the earlier likelihood-only kernel's. Returns
     ``(truths, table, record)``."""
     import torch
 
     from isochrones_torch.batch import BatchStarFitter
-    from isochrones_torch.ops.catalog import catalog_lnlike_plain
-    from isochrones_torch.ops.catalog_cuda import catalog_lnlike_cuda, group_lanes
+    from isochrones_torch.ops.catalog import catalog_lnlike_plain, catalog_lnpost_plain, unit_box
+    from isochrones_torch.ops.catalog_cuda import catalog_lnlike_cuda, catalog_lnpost_cuda, group_lanes, uses_compact_bc
 
     truths, table = catalog_table(ic64, CAT_STARS, CAT_EEP_BOX)
-    lk64, _ = BatchStarFitter(ic64, table, bands=CAT_BANDS)._catalog_likelihood()
-    lk32, _ = BatchStarFitter(ic32, table, bands=CAT_BANDS)._catalog_likelihood()
-    lk32up = catalog_likelihood_as(lk32, torch.float64)
+    fit64, fit32 = BatchStarFitter(ic64, table, bands=CAT_BANDS), BatchStarFitter(ic32, table, bands=CAT_BANDS)
+    lk64, pri64 = fit64._catalog_likelihood(), fit64._catalog_priors()
+    lk32, pri32 = fit32._catalog_likelihood(), fit32._catalog_priors()
+    lk32up, pri32up = catalog_likelihood_as(lk32, torch.float64), catalog_priors_as(pri32, torch.float64)
     p64 = torch.as_tensor(catalog_points(ic64, truths, CAT_POINTS, seed=16), device=dev, dtype=torch.float64)
     p32 = p64.float()
-    errs = {}
-    for B in (CAT_POINTS, CAT_MCMC["nwalkers"] // 2):  # the nested fit's walk batch, the MCMC half-update
-        got64 = [x.cpu().numpy() for x in catalog_lnlike_cuda(p64[:, :B].contiguous(), lk64)]
-        ref64 = [x.cpu().numpy() for x in catalog_lnlike_plain(p64[:, :B], lk64)]
-        got32 = [x.cpu().numpy() for x in catalog_lnlike_cuda(p32[:, :B].contiguous(), lk32)]
-        ref32 = [x.cpu().numpy() for x in catalog_lnlike_plain(p32[:, :B].double(), lk32up)]
-        torch.cuda.synchronize()
-        errs[B] = (check_star(f"catalog kernel f64 B={B}", got64, ref64, RTOL_STAR_F64),
-                   check_star(f"catalog kernel f32 B={B}", got32, ref32, RTOL_STAR_F32, ATOL_STAR_F32))
-        print(f"[catalog] kernel vs plain, S={CAT_STARS} B={B} {len(CAT_BANDS)} bands ({group_lanes(CAT_STARS * B)} "
-              f"lanes a point): f64 max_abs_err {errs[B][0]:.3e} (rtol {RTOL_STAR_F64}), f32 vs f64 max_abs_err "
-              f"{errs[B][1]:.3e} (rtol {RTOL_STAR_F32} atol {ATOL_STAR_F32}); {int(np.isfinite(ref64[0]).sum())}/"
-              f"{ref64[0].size} ll finite, {int(np.isnan(ref64[0]).sum())} NaN")
-    times = {}
-    for B in (CAT_POINTS, CAT_MCMC["nwalkers"] // 2):
-        pb = p32[:, :B].contiguous()
-        ms = kernel_ms(lambda: catalog_lnlike_cuda(pb, lk32), "catalog_lnlike", reps=50)
-        plain_ms = cuda_ms(lambda: catalog_lnlike_plain(pb, lk32), reps=10)
-        pb64 = pb.double()
-        ms64 = kernel_ms(lambda: catalog_lnlike_cuda(pb64, lk64), "catalog_lnlike", reps=20)
-        bound_ms, bound_by, what = bound(*catalog_work(pb, lk32), "float32")
-        times[B] = (ms, plain_ms, ms64, bound_ms, bound_by)
-        print(f"[catalog] time S={CAT_STARS} B={B}: kernel f32 {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, kernel f64 "
-              f"{ms64:.4f} ms; f32 bound {bound_ms:.5f} ms ({what}), kernel at {bound_ms / ms:.3f} of it")
-    ms, plain_ms, ms64, bound_ms, bound_by = times[CAT_POINTS]
+    los, his = fit64._bounds_arrays()
+    u64 = torch.as_tensor(catalog_unit_points(truths, los, his, CAT_POINTS, seed=17), device=dev,
+                          dtype=torch.float64)
+    u32 = u64.float()
+    h64 = torch.as_tensor(his, device=dev, dtype=torch.float64)
+    h32 = torch.as_tensor(fit32._bounds_arrays()[1], device=dev, dtype=torch.float32)
     B_mc = CAT_MCMC["nwalkers"] // 2
+    compact = uses_compact_bc(len(CAT_BANDS))
+
+    def lnpost_errs(x64, x32, hh64=None, hh32=None, name=""):
+        got64 = catalog_lnpost_cuda(x64, lk64, pri64, hh64)[0].cpu().numpy()
+        ref64 = catalog_lnpost_plain(x64, lk64, pri64, hh64)[0].cpu().numpy()
+        got32 = catalog_lnpost_cuda(x32, lk32, pri32, hh32)[0].cpu().numpy()
+        px = x32 if hh32 is None else unit_box(x32, pri32, hh32)  # the float32 box map, as the kernel rounds it
+        ref32 = catalog_lnpost_plain(px.double(), lk32up, pri32up)[0].cpu().numpy()
+        torch.cuda.synchronize()
+        e = (check_star(f"catalog posterior f64 {name}", [got64], [ref64], RTOL_STAR_F64),
+             check_star(f"catalog posterior f32 {name}", [got32], [ref32], RTOL_STAR_F32, ATOL_STAR_F32))
+        return e, ref64
+
+    errs = {}
+    for B in (CAT_POINTS, B_mc):
+        x64, x32 = p64[:, :B].contiguous(), p32[:, :B].contiguous()
+        (e64, e32), ref = lnpost_errs(x64, x32, name=f"B={B}")
+        l64 = check_star(f"catalog likelihood f64 B={B}", [x.cpu().numpy() for x in catalog_lnlike_cuda(x64, lk64)],
+                         [x.cpu().numpy() for x in catalog_lnlike_plain(x64, lk64)], RTOL_STAR_F64)
+        l32 = check_star(f"catalog likelihood f32 B={B}", [x.cpu().numpy() for x in catalog_lnlike_cuda(x32, lk32)],
+                         [x.cpu().numpy() for x in catalog_lnlike_plain(x32.double(), lk32up)], RTOL_STAR_F32,
+                         ATOL_STAR_F32)
+        errs[B] = (e64, e32)
+        print(f"[catalog] kernel vs plain, S={CAT_STARS} B={B} {len(CAT_BANDS)} bands ({group_lanes(CAT_STARS * B)} "
+              f"lanes a point, compact BC table {compact}): posterior f64 max_abs_err {e64:.3e} (rtol "
+              f"{RTOL_STAR_F64}), f32 vs f64 {e32:.3e} (rtol {RTOL_STAR_F32} atol {ATOL_STAR_F32}), "
+              f"{int(np.isfinite(ref).sum())}/{ref.size} finite, {int(np.isneginf(ref).sum())} -inf; likelihood "
+              f"(ll, orig_val, deriv) f64 {l64:.3e}, f32 vs f64 {l32:.3e}; NaN and +-inf patterns identical")
+    (eu64, eu32), ref = lnpost_errs(u64, u32, h64, h32, name="unit cube")
+    print(f"[catalog] posterior, unit-cube form (the box map in the kernel), S={CAT_STARS} B={CAT_POINTS}: f64 "
+          f"max_abs_err {eu64:.3e}, f32 vs f64 {eu32:.3e}; {int(np.isfinite(ref).sum())}/{ref.size} finite")
+
+    times = {}
+    for B in (CAT_POINTS, B_mc):
+        pb = p32[:, :B].contiguous()
+        ms = kernel_ms(lambda: catalog_lnpost_cuda(pb, lk32, pri32), "catalog_lnlike", reps=50)
+        ms_ll = kernel_ms(lambda: catalog_lnlike_cuda(pb, lk32), "catalog_lnlike", reps=50)
+        plain_ms = cuda_ms(lambda: catalog_lnpost_plain(pb, lk32, pri32), reps=10)
+        pb64 = pb.double()
+        ms64 = kernel_ms(lambda: catalog_lnpost_cuda(pb64, lk64, pri64), "catalog_lnlike", reps=20)
+        bound_ms, bound_by, what = bound(*catalog_work(pb, lk32, post=True, compact=compact), "float32")
+        times[B] = (ms, plain_ms, ms64, bound_ms, bound_by, ms_ll)
+        earlier = CAT_EARLIER_MS[B]
+        print(f"[catalog] time S={CAT_STARS} B={B}: posterior kernel f32 {ms:.4f} ms (earlier likelihood-only kernel "
+              f"{earlier} ms), likelihood instantiation {ms_ll:.4f} ms, plain posterior f32 {plain_ms:.4f} ms, "
+              f"posterior kernel f64 {ms64:.4f} ms; f32 bound {bound_ms:.5f} ms ({what}), kernel at "
+              f"{bound_ms / ms:.3f} of it")
+    ms_unit = kernel_ms(lambda: catalog_lnpost_cuda(u32, lk32, pri32, h32), "catalog_lnlike", reps=50)
+    pu = unit_box(u32, pri32, h32)
+    bound_unit = bound(*catalog_work(pu, lk32, post=True, unit=True, compact=compact), "float32")
+    print(f"[catalog] time S={CAT_STARS} B={CAT_POINTS}, unit-cube form (the nested fit's call): posterior kernel "
+          f"f32 {ms_unit:.4f} ms; bound {bound_unit[0]:.5f} ms ({bound_unit[2]}), kernel at "
+          f"{bound_unit[0] / ms_unit:.3f} of it")
+    ms, plain_ms, ms64, bound_ms, bound_by, ms_ll = times[CAT_POINTS]
     record = dict(max_abs_err=errs[CAT_POINTS][1], max_abs_err_f64=errs[CAT_POINTS][0], ms=ms, plain_ms=plain_ms,
-                  ms_f64=ms64, bound_ms=bound_ms, bound_by=bound_by,
+                  ms_f64=ms64, bound_ms=bound_ms, bound_by=bound_by, earlier_ms=CAT_EARLIER_MS[CAT_POINTS],
+                  function="log-posterior (likelihood, default priors, bounds, EEP change of variables)",
                   shape={"S": CAT_STARS, "B": CAT_POINTS, "bands": len(CAT_BANDS), "dtype": "float32"},
-                  ms_mcmc_batch=times[B_mc][0], plain_ms_mcmc_batch=times[B_mc][1],
-                  bound_ms_mcmc_batch=times[B_mc][3], mcmc_batch=B_mc)
+                  ms_likelihood=ms_ll, ms_unit_cube=ms_unit, bound_ms_unit_cube=bound_unit[0],
+                  max_abs_err_unit_cube=eu32, ms_mcmc_batch=times[B_mc][0], plain_ms_mcmc_batch=times[B_mc][1],
+                  bound_ms_mcmc_batch=times[B_mc][3], ms_likelihood_mcmc_batch=times[B_mc][5],
+                  earlier_ms_mcmc_batch=CAT_EARLIER_MS[B_mc], mcmc_batch=B_mc, compact_bc=compact)
     return truths, table, record
 
 
@@ -1447,37 +1541,51 @@ def _coverage(fitter, truths):
 
 def phase_catalog_fits(dev, ic32, truths, table):
     """Phase 17: both catalog fits at full width, then the summary, then the
-    dynamic nested fit. Returns the catalog kernel's launches in the three
+    dynamic nested fit. Returns the posterior kernel's launches in the three
     fits."""
     import torch
 
     import isochrones_torch.samplers.nested as nested_mod
     from isochrones_torch import SingleStarModel
     from isochrones_torch.batch import BatchStarFitter, fit_catalog
-    from isochrones_torch.ops.catalog_cuda import catalog_lnlike_cuda
+    from isochrones_torch.ops.catalog_cuda import catalog_lnpost_cuda
     from isochrones_torch.summary import summarize_batch
 
     S = CAT_STARS
     fitter = BatchStarFitter(ic32, table, bands=CAT_BANDS)
-    # one call at each fit's batch, and one single-star call beside it
+    los, his = fitter._bounds_arrays()
+    h32 = torch.as_tensor(his, device=dev, dtype=torch.float32)
+    # one call at each fit's batch (the nested fit's in its unit-cube form),
+    # and one single-star call beside them
     rng = np.random.default_rng(17)
     for B in (CAT_MCMC["nwalkers"] // 2, CAT_NESTED["n_batch"] * CAT_NESTED["n_chains"]):
-        pb = torch.as_tensor(catalog_points(ic32, truths, 2 * B, seed=int(rng.integers(1000)))[:, :B], device=dev,
-                             dtype=torch.float32)
-        catalog_lnlike_cuda.launches = 0
-        lp = fitter.lnpost_batch(pb)
+        if B == CAT_POINTS:
+            pb = torch.as_tensor(catalog_unit_points(truths, los, his, B, seed=int(rng.integers(1000))), device=dev,
+                                 dtype=torch.float32)
+            call, form = (lambda: fitter._lnpost(pb, his=h32)), "unit-cube points (the nested walk's call)"
+        else:
+            pb = torch.as_tensor(catalog_points(ic32, truths, 2 * B, seed=int(rng.integers(1000)))[:, :B],
+                                 device=dev, dtype=torch.float32)
+            call, form = (lambda: fitter.lnpost_batch(pb)), "parameters (the MCMC's call)"
+        catalog_lnpost_cuda.launches = 0
+        lp = call()
         torch.cuda.synchronize()
-        if catalog_lnlike_cuda.launches != 1 or not torch.isfinite(lp).any():
-            raise AssertionError(f"catalog lnpost_batch: {catalog_lnlike_cuda.launches} launches")
-        call_ms = 1e3 * _wall(lambda: fitter.lnpost_batch(pb), reps=20)
-        prof_s, by_name = profile_kernels(lambda: fitter.lnpost_batch(pb), reps=5)
+        if catalog_lnpost_cuda.launches != 1 or not torch.isfinite(lp).any():
+            raise AssertionError(f"catalog lnpost_batch: {catalog_lnpost_cuda.launches} launches")
+        call_ms = 1e3 * _wall(call, reps=50)
+        prof_s, by_name = profile_kernels(call, reps=5)
         busy = sum(v[0] for v in by_name.values()) / 5
+        n_kernels = sum(v[1] for v in by_name.values()) / 5
         k_ms = sum(v[0] for k, v in by_name.items() if "catalog_lnlike" in k) / 5
-        print(f"[catalog fit] one lnpost_batch ({S}, {B}, 5) f32: {call_ms:.3f} ms ({1e3 * call_ms / (S * B):.4f} us "
-              f"a point, {call_ms / S:.4f} ms a star; {1e3 * prof_s / 5:.3f} ms under the profiler), "
-              f"{sum(v[1] for v in by_name.values()) / 5:.1f} kernel launches, device busy {busy:.4f} ms (idle share "
-              f"{1 - busy / (1e3 * prof_s / 5):.3f}), catalog kernel {k_ms:.4f} ms ({k_ms / busy:.3f} of busy); "
-              f"{int(torch.isfinite(lp).sum())}/{lp.numel()} finite")
+        if n_kernels > CAT_CALL_KERNELS:
+            raise AssertionError(f"catalog lnpost_batch: {n_kernels} device kernels a call ({by_name}), at most "
+                                 f"{CAT_CALL_KERNELS} allowed")
+        print(f"[catalog fit] one lnpost_batch ({S}, {B}, 5) f32 on {form}: {call_ms:.4f} ms "
+              f"({1e3 * call_ms / (S * B):.5f} us a point, {call_ms / S:.5f} ms a star; {1e3 * prof_s / 5:.4f} ms "
+              f"under the profiler), 1 posterior launch, {n_kernels:.1f} device kernels a call (at most "
+              f"{CAT_CALL_KERNELS}), device busy {busy:.4f} ms (idle share {1 - busy / call_ms:.3f} of the "
+              f"unprofiled call, {1 - busy / (1e3 * prof_s / 5):.3f} under the profiler), catalog kernel "
+              f"{k_ms:.4f} ms ({k_ms / busy:.3f} of busy); {int(torch.isfinite(lp).sum())}/{lp.numel()} finite")
     obs0 = {b: (table[f"{b}_mag"][0], table[f"{b}_mag_unc"][0]) for b in CAT_BANDS}
     obs0.update({k: (table[k][0], table[f"{k}_unc"][0]) for k in ("Teff", "logg", "parallax")})
     star0 = SingleStarModel(ic32, **obs0)
@@ -1486,23 +1594,24 @@ def phase_catalog_fits(dev, ic32, truths, table):
     print(f"[catalog fit] beside it, one single-star lnpost_batch of 1024 points (the star kernel): {single_ms:.3f} ms "
           f"({1e3 * single_ms / 1024:.4f} us a point)")
 
-    catalog_lnlike_cuda.launches = 0
+    catalog_lnpost_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mc, mc_summary = fit_catalog(ic32, table, method="mcmc", bands=CAT_BANDS, **CAT_MCMC)
     torch.cuda.synchronize()
     mc_s = time.perf_counter() - t0
-    n_mc = catalog_lnlike_cuda.launches
+    n_mc = catalog_lnpost_cuda.launches
     T = CAT_MCMC["niter"]
     if mc.samples.shape != (S, T * CAT_MCMC["nwalkers"], 5) or not np.isfinite(mc._lnprob).all() or n_mc <= 0:
         raise AssertionError(f"catalog MCMC: samples {mc.samples.shape}, {int(np.isfinite(mc._lnprob).sum())} finite "
                              f"lnprob, {n_mc} launches")
     acc = float(mc.sampler_state.n_accept.sum().item()) / (S * CAT_MCMC["nwalkers"] * T)
     print(f"[catalog fit] fit_catalog(method='mcmc', {json.dumps(CAT_MCMC)}) f32, {S} stars, summary with derived "
-          f"columns: {mc_s:.3f} s, catalog kernel launches {n_mc}, acceptance {acc:.3f}, {len(mc_summary)} summary "
-          f"columns; true distance in the 95% interval for {_coverage(mc, truths):.3f} of the stars")
+          f"columns: {mc_s:.3f} s (earlier {CAT_EARLIER_FIT_S['mcmc']} s), catalog kernel launches {n_mc}, acceptance "
+          f"{acc:.3f}, {len(mc_summary)} summary columns; true distance in the 95% interval for "
+          f"{_coverage(mc, truths):.3f} of the stars")
 
-    catalog_lnlike_cuda.launches = 0
+    catalog_lnpost_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fitter.fit_multinest(**CAT_NESTED)
@@ -1511,16 +1620,17 @@ def phase_catalog_fits(dev, ic32, truths, table):
     t0 = time.perf_counter()
     summary = summarize_batch(fitter)
     sum_s = time.perf_counter() - t0
-    n_ns = catalog_lnlike_cuda.launches
+    n_ns = catalog_lnpost_cuda.launches
     cover = _coverage(fitter, truths)
     logz = out["logz"]
-    if not np.isfinite(logz).all() or n_ns <= 0 or cover < 0.95:
+    if not np.isfinite(logz).all() or n_ns <= 0 or cover < 0.95 or not out["converged"].all():
         raise AssertionError(f"catalog nested fit: {int(np.isfinite(logz).sum())}/{S} finite evidences, {n_ns} "
-                             f"launches, distance coverage {cover}")
+                             f"launches, distance coverage {cover}, {int(out['converged'].sum())}/{S} converged")
     if not np.array_equal(summary["logz"], logz) or summary.index.shape != (S,):
         raise AssertionError("summary evidence columns differ from the fit's")
-    print(f"[catalog fit] fit_multinest({json.dumps(CAT_NESTED)}) f32, {S} stars: {ns_s:.3f} s, {out['n_dead']} dead "
-          f"points a star, {int(out['converged'].sum())}/{S} converged, logz {logz.min():.3f} .. {logz.max():.3f}, "
+    print(f"[catalog fit] fit_multinest({json.dumps(CAT_NESTED)}) f32, {S} stars: {ns_s:.3f} s (earlier "
+          f"{CAT_EARLIER_FIT_S['nested']} s), {out['n_dead']} dead points a star, {int(out['converged'].sum())}/{S} "
+          f"converged, logz {logz.min():.3f} .. {logz.max():.3f}, "
           f"logzerr median {np.median(out['logzerr']):.4f}, ESS min {out['ess'].min():.1f}, catalog kernel launches "
           f"{n_ns}; true distance in the 95% interval for {cover:.3f} of the stars")
     print(f"[catalog fit] summarize_batch: {sum_s:.3f} s, {len(summary)} columns, "
@@ -1538,7 +1648,7 @@ def phase_catalog_fits(dev, ic32, truths, table):
         return out
 
     nested_mod._merge_segments = timed_merge
-    catalog_lnlike_cuda.launches = 0
+    catalog_lnpost_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
@@ -1547,12 +1657,14 @@ def phase_catalog_fits(dev, ic32, truths, table):
         nested_mod._merge_segments = merge
     torch.cuda.synchronize()
     dyn_s = time.perf_counter() - t0
-    n_dyn = catalog_lnlike_cuda.launches
-    if not np.isfinite(dyn["logz"]).all() or dyn["dynamic_rounds"] < 1 or n_dyn <= 0:
+    n_dyn = catalog_lnpost_cuda.launches
+    if not np.isfinite(dyn["logz"]).all() or dyn["dynamic_rounds"] < 1 or n_dyn <= 0 or not dyn["converged"].all():
         raise AssertionError(f"dynamic catalog fit: {int(np.isfinite(dyn['logz']).sum())}/{S} finite evidences, "
-                             f"{dyn['dynamic_rounds']} rounds, {n_dyn} launches")
-    print(f"[catalog fit] fit_multinest({json.dumps(dict(CAT_NESTED, **CAT_DYNAMIC))}) f32, {S} stars: {dyn_s:.3f} s, "
-          f"{dyn['n_dead']} dead points a star, {dyn['dynamic_rounds']} thread rounds, ESS min {dyn['ess'].min():.1f} "
+                             f"{dyn['dynamic_rounds']} rounds, {n_dyn} launches, {int(dyn['converged'].sum())}/{S} "
+                             f"converged")
+    print(f"[catalog fit] fit_multinest({json.dumps(dict(CAT_NESTED, **CAT_DYNAMIC))}) f32, {S} stars: {dyn_s:.3f} s "
+          f"(earlier {CAT_EARLIER_FIT_S['dynamic']} s), {dyn['n_dead']} dead points a star, "
+          f"{dyn['dynamic_rounds']} thread rounds, ESS min {dyn['ess'].min():.1f} "
           f"median {np.median(dyn['ess']):.1f}, {int(dyn['converged'].sum())}/{S} converged, logz {dyn['logz'].min():.3f} "
           f".. {dyn['logz'].max():.3f}, |logz - static logz| max {np.abs(dyn['logz'] - logz).max():.3f}, catalog "
           f"kernel launches {n_dyn}; host merges {len(merge_s)} in {sum(merge_s):.3f} s "

@@ -5,10 +5,10 @@ The reference scales fleets of single-star fits with SLURM job arrays
 (``batch-starfit``), one serial fit a star. Here a catalog's observations are
 stacked along a star axis and every star's fit advances in lockstep: the
 posterior maps parameters ``(S, B, 5)`` to ``(S, B)`` in one call of the
-catalog likelihood (:func:`~isochrones_torch.ops.catalog.catalog_lnlike`, a
-hand-written CUDA kernel on the card) with the shared priors in torch around
-it. :meth:`BatchStarFitter.fit_mcmc` runs one stretch-move ensemble per star
-(:func:`~isochrones_torch.samplers.ensemble.run_ensemble_batch`);
+catalog posterior (:func:`~isochrones_torch.ops.catalog.catalog_lnpost`, one
+hand-written CUDA kernel launch on the card, likelihood and default priors
+together). :meth:`BatchStarFitter.fit_mcmc` runs one stretch-move ensemble
+per star (:func:`~isochrones_torch.samplers.ensemble.run_ensemble_batch`);
 :meth:`BatchStarFitter.fit_multinest` one nested-sampling run per star
 (:func:`~isochrones_torch.samplers.nested.run_nested_vmapped`), which also
 gives every star's evidence. The model is the single-star model on an
@@ -20,7 +20,6 @@ star.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -28,7 +27,7 @@ import torch
 
 from .catalog import StarCatalog
 from .logger import getLogger
-from .ops.catalog import CatalogLikelihood, catalog_lnlike
+from .ops.catalog import PRIOR_TERMS, CatalogLikelihood, catalog_lnpost, pack_catalog_priors, unit_box
 from .priors import AgePrior, AVPrior, ChabrierPrior, EEP_prior, FehPrior
 
 __all__ = ["BatchStarFitter", "fit_catalog"]
@@ -119,6 +118,7 @@ class BatchStarFitter:
         self.priors["eep"] = EEP_prior(ic, self.priors["mass"], bounds=self.eep_bounds)
 
         self._likelihood = None
+        self._prior_pack = None
         self._samples = None
         self._lnprob = None
         self._evidence = None
@@ -150,50 +150,55 @@ class BatchStarFitter:
             d_hi=self._tensor(self.max_distance),
         )
 
-    def _catalog_likelihood(self):
+    def _catalog_likelihood(self) -> CatalogLikelihood:
         """The :class:`~isochrones_torch.ops.catalog.CatalogLikelihood` of the
         catalog, built once (the kernel keeps its packed form per instance)."""
         if self._likelihood is None:
             ic = self.ic
             data = self.star_data
-            self._likelihood = (
-                CatalogLikelihood(
-                    index_order=tuple(ic._param_index_order), pack6=ic.model_packed6, bc=ic.bc,
-                    band_icols=tuple(ic.bc.column_index[b] for b in self.bands),
-                    spec_vals=data["spec_vals"], spec_uncs=data["spec_uncs"], mag_vals=data["mag_vals"],
-                    mag_uncs=data["mag_uncs"], plax=data["plax"], plax_unc=data["plax_unc"],
-                ),
-                data["d_hi"][:, None],
+            self._likelihood = CatalogLikelihood(
+                index_order=tuple(ic._param_index_order), pack6=ic.model_packed6, bc=ic.bc,
+                band_icols=tuple(ic.bc.column_index[b] for b in self.bands),
+                spec_vals=data["spec_vals"], spec_uncs=data["spec_uncs"], mag_vals=data["mag_vals"],
+                mag_uncs=data["mag_uncs"], plax=data["plax"], plax_unc=data["plax_unc"],
             )
         return self._likelihood
 
+    def _catalog_priors(self):
+        """The posterior's packed prior constants
+        (:func:`~isochrones_torch.ops.catalog.pack_catalog_priors`), packed
+        again only when a prior object, its bounds or the EEP bounds change."""
+        key = tuple((self.priors[k], self.priors[k].bounds) for k in PRIOR_TERMS) + (self.eep_bounds,)
+        if self._prior_pack is None or self._prior_pack[0] != key:
+            pack = pack_catalog_priors(self.priors, self.eep_bounds, self._bounds_arrays()[0],
+                                       self._tensor(self.max_distance))
+            self._prior_pack = (key, pack)
+        return self._prior_pack[1]
+
     def lnpost_batch(self, pars):
         """(S, B, 5) parameters -> (S, B) log-posterior tensor on the
-        fitter's device: the catalog likelihood, then the shared priors, the
+        fitter's device: the catalog likelihood, the shared priors, the
         per-star distance bound (a power law of index 2 from 0: ln p = ln 3 -
         3 ln hi + 2 ln d) and the EEP change of variables p(eep) =
-        p_mass(m(eep)) |dm/dEEP| on the likelihood's two EEP-prior columns."""
-        pars = self._tensor(pars)
-        lk, d_hi = self._catalog_likelihood()
-        priors = self.priors
-        eep_lo, eep_hi = self.eep_bounds
-        ll, orig_val, deriv = catalog_lnlike(pars, lk)
+        p_mass(m(eep)) |dm/dEEP| on the likelihood's two EEP-prior columns;
+        on the card one kernel launch."""
+        return self._lnpost(self._tensor(pars))
 
-        lnp = priors["age"].lnpdf(pars[..., 1])
-        lnp = lnp + priors["feh"].lnpdf(pars[..., 2])
-        lnp = lnp + priors["AV"].lnpdf(pars[..., 4])
-        d = pars[..., 3]
-        # the 1e-300 floors flush to 0 in float32, as in the JAX package; the
-        # masks below decide those points
-        lnp_d = math.log(3.0) - 3.0 * torch.log(d_hi) + 2.0 * torch.log(torch.clamp(d, min=1e-300))
-        lnp = lnp + torch.where((d > 0) & (d < d_hi), lnp_d, _NEG_INF)
-        eep_term = priors["mass"].lnpdf(orig_val) + torch.log(torch.clamp(deriv, min=1e-300))
-        eep_term = torch.where(torch.isfinite(orig_val) & (deriv > 0), eep_term, _NEG_INF)
-        eep_term = torch.where((pars[..., 0] < eep_lo) | (pars[..., 0] > eep_hi), _NEG_INF, eep_term)
-        lnp = lnp + eep_term
-
-        ll = torch.where(torch.isnan(ll), _NEG_INF, ll)
-        return torch.where(torch.isfinite(lnp), lnp + ll, _NEG_INF)
+    def _lnpost(self, x, his=None):
+        """The posterior at parameters ``x``, or at unit-cube points ``x`` with
+        the box tops ``his`` (S, 5). A prior object outside the packed
+        families (``pack_catalog_priors``) adds its own ``lnpdf`` after the
+        launch."""
+        pri = self._catalog_priors()
+        out, orig = catalog_lnpost(x, self._catalog_likelihood(), pri, his)
+        if all(pri.on):
+            return out
+        pars = x if his is None else unit_box(x, pri, his)
+        extra = torch.zeros_like(out)
+        for k, on, col in zip(PRIOR_TERMS, pri.on, (1, 2, 4, None)):
+            if not on:
+                extra = extra + self.priors[k].lnpdf(orig if col is None else pars[..., col])
+        return torch.where(torch.isfinite(extra), out + extra, _NEG_INF)
 
     # ------------------------------------------------------- nested sampling
     def _bounds_arrays(self):
@@ -274,16 +279,13 @@ class BatchStarFitter:
             getLogger().warning("fit_multinest: %d live points still invalid after init resampling",
                                 int((~np.isfinite(lnl)).sum()))
 
-        los_t = self._tensor(los)
-        data = dict(self.star_data, his=self._tensor(his))
-
-        def lnlike_u(data, u):  # (S, B, 5) unit cube -> (S, B), every star at once
-            return self.lnpost_batch(los_t + (data["his"][:, None, :] - los_t) * u)
+        def lnlike_u(his_t, u):  # (S, B, 5) unit cube -> (S, B), every star at once, the box map in the kernel
+            return self._lnpost(u, his=his_t)
 
         out = run_nested_vmapped(
-            lnlike_u, data, self._tensor(u0), self._tensor(lnl), n_live=n_live, n_batch=n_batch, n_chains=n_chains,
-            n_repeat=n_repeat, n_equal=n_equal, dlogz=dlogz, min_ess=min_ess, max_iter=max_iter, seed=seed, rng=rng,
-            label="star", dynamic=dynamic, posterior_frac=posterior_frac, max_dynamic_rounds=max_dynamic_rounds,
+            lnlike_u, self._tensor(his), self._tensor(u0), self._tensor(lnl), n_live=n_live, n_batch=n_batch,
+            n_chains=n_chains, n_repeat=n_repeat, n_equal=n_equal, dlogz=dlogz, min_ess=min_ess, max_iter=max_iter,
+            seed=seed, rng=rng, label="star", dynamic=dynamic, posterior_frac=posterior_frac, max_dynamic_rounds=max_dynamic_rounds,
             checkpoint=checkpoint, resume=resume,
         )
         # unit cube -> per-star boxes (NaN rows of stars without support stay NaN)

@@ -1,83 +1,155 @@
-// Catalog log-likelihood: every star of a catalog with its own observations,
+// Catalog log-posterior: every star of a catalog with its own observations,
 // a group of lanes per (star, point).
 //
-// Replaces the likelihood half of the JAX package's catalog posterior,
-// isochrones_tpu/batch.py:145-192 (_build_lnpost_data), which XLA compiles
-// into one TPU fusion. For parameters (S, B, 5) in the order (eep, age, feh,
-// distance, AV) it
+// Replaces the JAX package's catalog posterior, isochrones_tpu/batch.py:145-208
+// (_build_lnpost_data), which XLA compiles into one TPU fusion: for
+// parameters (S, B, 5) in the order (eep, age, feh, distance, AV), or
+// unit-cube points with the per-star box of the nested fit (the box map of
+// BatchStarFitter.fit_multinest's lnlike_u first), it
 //
 //   1. locates the cell on the 3 model-grid axes and lerps the 8 corner rows of
 //      the 6-column packed table (Teff, logg, feh, Mbol, the EEP-prior
-//      quantity and its d/dEEP derivative);
+//      quantity orig_val and its d/dEEP derivative);
 //   2. locates the cell on the 4 BC-grid axes at (Teff, logg, feh, AV) and
 //      lerps the wanted band columns of the 16 corner rows;
-//   3. forms the magnitudes Mbol + 5 log10(d / 10) - BC;
+//   3. forms the magnitudes Mbol + 5 log10(d / 10) - BC and adds the star's
+//      own Gaussian spectroscopy, photometry and parallax terms, each exactly 0
+//      where the star's observed value is NaN (selected term by term, before
+//      any sum);
+//   4. (posterior) adds the default priors from constants packed once per
+//      fitter (ops/catalog.py::pack_catalog_priors, the order of CONST_NAMES
+//      there): the flat-log age prior, the [Fe/H] disk-and-halo mixture, the
+//      flat AV prior, the per-star distance power law, and the EEP change of
+//      variables Chabrier(orig_val) + ln max(deriv, 1e-300) with its masks;
+//      then NaN ll -> -inf and -inf wherever the prior sum is not finite.
 //
-// then adds the star's own Gaussian spectroscopy terms, photometry terms and
-// parallax term, each of which adds exactly 0 where the star's observed value
-// is NaN (selected term by term, before any sum), and writes ll (S, B),
-// orig_val (S, B), deriv (S, B). The priors, the NaN -> -inf of ll and the
-// per-star distance bound stay in torch around the call
-// (isochrones_torch/batch.py).
+// Two instantiations of one body, chosen by POST: the posterior writes lnpost
+// (S, B) (and orig_val when the caller adds a replaced mass prior itself); the
+// likelihood writes ll, orig_val and deriv (S, B), the triple the plain
+// version's tests and the card's checks hold it to.
 //
 // Semantics are those of the plain version (isochrones_torch/ops/catalog.py
 // and ops/interp.py), through interp_common.cuh: cell location step for step
 // with explicitly rounded arithmetic, every corner's product in the sum
 // (weight 0 included, so 0 * NaN poisons as in torch), a NaN or out-of-bounds
-// coordinate makes the row NaN.
+// coordinate makes the row NaN. The box map lo + (hi - lo) u and the prior
+// terms follow torch's operation order with each Python constant rounded to
+// the working type and no FMA contraction (__f*_rn): a point's grid cell
+// depends on the box map's last bit. T(1e-300) is 0 in float, as torch's
+// clamp(x, min=1e-300) is in float32: log gives -inf and the masks decide.
+// Clamps keep NaN, as torch's do.
 //
-// What bounds it: as the star kernel (star_lnlike.cu), latency of dependent
-// gathers: per point 8 rows of the model pack and 16 short rows of the BC
-// table at data-dependent addresses, each known only after a cell search.
-// The bytes are the parameters, the outputs, the rows a batch touches and the
-// observation rows.
+// What bounds it: not the bytes (the kernel reaches 0.15 of its bytes bound at
+// the nested fit's (256, 256), PERF.md) but each point's long chain of
+// dependent work: the parameters' load, cell location on 7 axes (64-bit
+// index arithmetic, searches, fix-ups), 8 rows of the model pack and 16 short
+// rows of the BC table at data-dependent addresses, the observation row, the
+// epilogue's exp/log and divisions. At (256, 32) the card is half empty and
+// one point's chain takes the whole ~20,000 cycles (0.010 ms); 8x the points
+// at (256, 256) take 0.017 ms. The grids' knots (~8 KB) are read by every
+// point and stay in L1, so staging them in shared memory (and persistent
+// blocks to pay for the staging) would trade ~33-cycle L1 hits for ~30-cycle
+// shared reads: not built. No tensor cores: there is no matrix product
+// anywhere in the function.
 //
 // Design:
-// * The star kernel keeps one star's observations in its __grid_constant__
-//   struct; here every star has its own, so they are one (S, row_len) block
-//   in global memory: [Teff, logg, feh | their errors | n_bands magnitudes |
-//   their errors | parallax, its error]. A star's row is read by the lane
-//   that forms the likelihood; the B points of a star are consecutive teams,
-//   so its row is fetched once and then served from L1/L2.
-// * A group of G lanes per (star, point) shares the corners of both lerps
-//   (interp_group) and sums them with xor shuffles; G from the number of
-//   points S * B (group_lanes: 16 while S * B * G stays within about a full
-//   card of threads, down to 1).
-// * The grids' descriptions and the band columns are a __grid_constant__
-//   kernel parameter (the constant bank), as in the star kernel.
+// * The stars' observations are one (S, row_len) block in global memory:
+//   [Teff, logg, feh | their errors | n_bands magnitudes | their errors |
+//   parallax, its error]; the distance prior's per-star (d_hi, ln 3 - 3 ln
+//   d_hi) one (S, 2) block. The B points of a star are consecutive teams, so
+//   a warp's rows are one broadcast read served from L1/L2.
+// * A group of G lanes per (star, point) can share the corners of both lerps
+//   (interp_group) and sum them with xor shuffles, but every lane repeats the
+//   cell location, so more lanes do not shorten a point's chain: measured on
+//   the H100 (PERF.md; scripts/tune_torch_catalog.py) one lane a point
+//   is the fastest at the catalog fits' batches, 2.6x faster than the 4 lanes
+//   of the earlier rule at (256, 256); only batches of a few thousand points
+//   gain from more lanes (group_lanes). The table's widths (1, 8, 16) are
+//   the instantiated ones; a measurement may force one (lanes). The prior
+//   terms run on the lane that forms the likelihood: spread over the idle
+//   lanes of a group they took as long (divergent branches of one warp run
+//   one after another).
+// * __launch_bounds__ asks for 5 resident blocks a SM at one lane (96
+//   registers, no spill); higher minimums spill and lower ones took no less
+//   time (CATALOG_MIN_BLOCKS overrides it for the measurement).
+// * The prior constants, the grids' descriptions and the band columns are a
+//   __grid_constant__ kernel parameter (the constant bank): uniform reads.
+// * A compact BC table, built once per likelihood: only the wanted band
+//   columns, padded to 4, so that a corner is two aligned pair loads in one
+//   sector (n_bands <= 4; 30% faster than the scattered columns of the full
+//   table at (256, 256)).
 // * Every lane of a warp reaches every shuffle: lanes past the batch take a
 //   NaN point (no reads) and stay; only a warp wholly past the batch leaves.
 // * 64-bit row offsets; instantiated for float and double.
 
 #include "interp_common.cuh"
 
+#ifndef CATALOG_MIN_BLOCKS
+#define CATALOG_MIN_BLOCKS 0
+#endif
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxBands = 16;
 constexpr int kPackCols = 6;
-constexpr int kMaxGroup = 16;
-constexpr long long kFillThreads = 1LL << 18;
+constexpr int kCompactCols = 4;
+
+// the packed prior constants, in the order of ops/catalog.py::CONST_NAMES
+enum Const : int {
+  kAgeLo, kAgeHi, kAgeLnLn10, kAgeLn10, kAgeLnNorm,
+  kFehLo, kFehHi, kFehHalo, kFehDisk, kFehLnNorm, kFehHaloC, kFehHaloMu, kFehHaloVar, kFehDiskC, kFehA1, kFehM1,
+  kFehV1, kFehA2, kFehM2, kFehV2,
+  kAvLo, kAvHi, kAvLnp,
+  kMassLo, kMassHi, kMassBreak, kMassLnNorm0, kMassLnNorm1,
+  kLnLo, kLnHi, kLnLnNorm, kLnScale, kLnLogS, kLnSigma, kLnMu, kLnC0,
+  kPlLo, kPlHi, kPlLnC, kPlAlpha,
+  kEepLo, kEepHi,
+  kLos0,  // kLos0 + k: the unit-cube box's bottom on parameter k
+  kNConst = kLos0 + 5
+};
+
+enum Term : int { kAgeTerm, kFehTerm, kAvTerm, kMassTerm };
 
 struct CatalogArgs {
-  const void* pars;  // (S, B, 5)
+  const void* pars;   // (S, B, 5): parameters, or unit-cube points when `his` is set
   const void* model;  // (m0, m1, m2, 6) packed model table
-  const void* bc;     // (b0, b1, b2, b3, bc_ncols) BC table
+  const void* bc;     // (b0, b1, b2, b3, bc_ncols) BC table, or the compact copy
   const void* obs;    // (S, row_len) observation rows
-  void* ll;           // (S, B)
-  void* orig;         // (S, B)
-  void* deriv;        // (S, B)
+  const void* his;    // (S, 5) box tops of the unit-cube form, or null
+  const void* dist;   // (S, 2): d_hi, ln 3 - 3 ln d_hi (posterior)
+  void* out;          // (S, B): lnpost (posterior) or ll (likelihood)
+  void* orig;         // (S, B) orig_val; in the posterior null unless the caller adds the mass prior
+  void* deriv;        // (S, B) (likelihood)
   long long S;
   long long B;
   int io[3];          // grid axis d takes parameter column io[d]
   int n_bands;
-  int bc_ncols;
+  int bc_ncols;       // kCompactCols with `compact`
   int row_len;        // 6 + 2 n_bands + 2
   int has_plax;       // the catalog has a parallax column
+  int lanes;          // lanes a point, 1, 8 or 16 to measure; 0: group_lanes(S * B)
+  int compact;        // bc is the compact table: the n_bands <= 4 band columns, padded to 4
+  int on[4];          // the age, [Fe/H], AV and mass priors are the kernel's (Term)
   int band_cols[kMaxBands];
   Axis model_ax[3];
   Axis bc_ax[4];
+  double c[kNConst];
 };
+
+__device__ __forceinline__ float d_exp(float x) { return expf(x); }
+__device__ __forceinline__ double d_exp(double x) { return exp(x); }
+
+// torch.clamp(x, min=lo): NaN stays NaN
+template <typename T>
+__device__ __forceinline__ T clamp_min(T x, T lo) {
+  return x < lo ? lo : x;
+}
+
+template <typename T>
+__device__ __forceinline__ T neg_inf() {
+  return -T(INFINITY);
+}
 
 // the term of one observation: exactly 0 where the observed value is NaN
 template <typename T>
@@ -86,8 +158,75 @@ __device__ __forceinline__ T obs_term(T val, T unc, T model_val) {
   return isnan(val) ? T(0) : term;
 }
 
+// priors.py::FlatLogPrior (AgePrior) with BoundedPrior's strict bounds
+template <typename T>
+__device__ T age_lnpdf(T x, const double* c) {
+  const T ln = sub_rn(add_rn(mul_rn(x, T(c[kAgeLn10])), T(c[kAgeLnLn10])), T(c[kAgeLnNorm]));
+  return (x < T(c[kAgeLo]) || x > T(c[kAgeHi])) ? neg_inf<T>() : ln;
+}
+
+// exp(-0.5 (x - mu)^2 / var), in torch's order
+template <typename T>
+__device__ __forceinline__ T gauss_kernel(T x, double mu, double var) {
+  const T r = sub_rn(x, T(mu));
+  return d_exp(div_rn(mul_rn(mul_rn(r, r), T(-0.5)), T(var)));
+}
+
+// priors.py::FehPrior (local): the halo fraction of the halo Gaussian and the
+// rest of the two-Gaussian disk, log(clamp(pdf, 1e-300)) - log(_norm),
+// strict bounds
+template <typename T>
+__device__ T feh_lnpdf(T x, const double* c) {
+  const T halo = mul_rn(gauss_kernel(x, c[kFehHaloMu], c[kFehHaloVar]), T(c[kFehHaloC]));
+  const T d1 = mul_rn(gauss_kernel(x, c[kFehM1], c[kFehV1]), T(c[kFehA1]));
+  const T d2 = mul_rn(gauss_kernel(x, c[kFehM2], c[kFehV2]), T(c[kFehA2]));
+  const T disk = mul_rn(add_rn(d1, d2), T(c[kFehDiskC]));
+  const T pdf = add_rn(mul_rn(halo, T(c[kFehHalo])), mul_rn(disk, T(c[kFehDisk])));
+  const T ln = sub_rn(d_log(clamp_min(pdf, T(1e-300))), T(c[kFehLnNorm]));
+  return (x < T(c[kFehLo]) || x > T(c[kFehHi])) ? neg_inf<T>() : ln;
+}
+
+// priors.py::FlatPrior (AVPrior)
+template <typename T>
+__device__ T av_lnpdf(T x, const double* c) {
+  return (x < T(c[kAvLo]) || x > T(c[kAvHi])) ? neg_inf<T>() : T(c[kAvLnp]);
+}
+
+// priors.py::ChabrierPrior: a BrokenPrior of LogNormalPrior (Prior's inclusive
+// bounds where finite) and PowerLawPrior (strict bounds), each with its own
+// -inf rules; a NaN counts as above the breakpoint
+template <typename T>
+__device__ T mass_lnpdf(T x, const double* c) {
+  const T y = div_rn(x, T(c[kLnScale]));
+  const T lg = d_log(clamp_min(y, T(1e-300)));
+  const T z = div_rn(lg, T(c[kLnSigma]));
+  T ln0 = sub_rn(sub_rn(sub_rn(T(c[kLnC0]), add_rn(lg, T(c[kLnLogS]))), mul_rn(mul_rn(z, z), T(0.5))), T(c[kLnMu]));
+  ln0 = sub_rn(y > T(0) ? ln0 : neg_inf<T>(), T(c[kLnLnNorm]));
+  if ((isfinite(c[kLnLo]) && !(x >= T(c[kLnLo]))) || (isfinite(c[kLnHi]) && !(x <= T(c[kLnHi])))) ln0 = neg_inf<T>();
+  T ln1 = add_rn(mul_rn(d_log(clamp_min(x, T(1e-300))), T(c[kPlAlpha])), T(c[kPlLnC]));
+  if (x < T(c[kPlLo]) || x > T(c[kPlHi])) ln1 = neg_inf<T>();
+  const T ln = !(x < T(c[kMassBreak])) ? sub_rn(ln1, T(c[kMassLnNorm1])) : sub_rn(ln0, T(c[kMassLnNorm0]));
+  return (x < T(c[kMassLo]) || x > T(c[kMassHi])) ? neg_inf<T>() : ln;
+}
+
 template <typename T, int G>
-__global__ void __launch_bounds__(kThreads, G == 1 ? 5 : 1) catalog_lnlike_kernel(const __grid_constant__ CatalogArgs a) {
+__device__ __forceinline__ void interp_bc(const CatalogArgs& a, const T* bx, int l, T* mags) {
+  if (a.compact) {
+    interp_group<T, 4, G, kCompactCols, true>(static_cast<const T*>(a.bc), a.bc_ax, bx, kCompactCols, nullptr,
+                                              kCompactCols, l, mags);
+  } else {
+    interp_group<T, 4, G, kMaxBands>(static_cast<const T*>(a.bc), a.bc_ax, bx, a.bc_ncols, a.band_cols, a.n_bands, l,
+                                     mags);
+  }
+}
+
+// the __launch_bounds__ minimum of resident blocks a SM, which caps the
+// registers a thread may take
+#define CATALOG_BLOCKS_PER_SM(G) (CATALOG_MIN_BLOCKS > 0 ? CATALOG_MIN_BLOCKS : ((G) == 1 ? 5 : 1))
+
+template <typename T, int G, bool POST>
+__global__ void __launch_bounds__(kThreads, CATALOG_BLOCKS_PER_SM(G))
+    catalog_lnlike_kernel(const __grid_constant__ CatalogArgs a) {
   constexpr unsigned kShift = G == 16 ? 4 : G == 8 ? 3 : G == 4 ? 2 : G == 2 ? 1 : 0;
   const unsigned tid = blockIdx.x * kThreads + threadIdx.x;  // the launch keeps S * B * G < 2^31
   const long long n = a.S * a.B;
@@ -96,10 +235,22 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 5 : 1) catalog_lnlike_kerne
   const int l = (int)(tid % G);
   const bool active = q < n;
   const long long qc = active ? q : n - 1;
+  const long long star = qc / a.B;
   const T* p = static_cast<const T*>(a.pars) + qc * 5;
-  const T eep = active ? p[0] : T(NAN);  // an idle lane's point is NaN: no reads
-  const T age = p[1], feh = p[2], dist = p[3], av = p[4];
-  auto user = [&](int i) { return i == 0 ? eep : i == 1 ? age : feh; };
+  T x[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) x[k] = p[k];
+  if (POST && a.his) {  // fit_multinest's box map: los + (his - los) * u, rounded as torch rounds it
+    const T* hi = static_cast<const T*>(a.his) + star * 5;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const T lo = T(a.c[kLos0 + k]);
+      x[k] = add_rn(lo, mul_rn(sub_rn(hi[k], lo), x[k]));
+    }
+  }
+  if (!active) x[0] = T(NAN);  // an idle lane's point is NaN: no reads
+  const T eep = x[0], age = x[1], feh = x[2], dist = x[3], av = x[4];
+  auto user = [&](int i) { return i == 0 ? eep : i == 1 ? age : feh; };  // selects: no local memory
 
   const T gx[3] = {user(a.io[0]), user(a.io[1]), user(a.io[2])};
   T v[kPackCols];
@@ -108,12 +259,12 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 5 : 1) catalog_lnlike_kerne
   T mags[kMaxBands];  // the BC values, then the magnitudes
   if (a.n_bands > 0) {
     const T bx[4] = {v[0], v[1], v[2], av};
-    interp_group<T, 4, G, kMaxBands>(static_cast<const T*>(a.bc), a.bc_ax, bx, a.bc_ncols, a.band_cols, a.n_bands,
-                                     l, mags);
+    interp_bc<T, G>(a, bx, l, mags);
   }
+
   if (!active || l != 0) return;
 
-  const T* o = static_cast<const T*>(a.obs) + (q / a.B) * a.row_len;
+  const T* o = static_cast<const T*>(a.obs) + star * a.row_len;
   T ll = T(0);
   for (int k = 0; k < 3; ++k) ll += obs_term<T>(o[k], o[3 + k], v[k]);
   if (a.n_bands > 0) {
@@ -132,39 +283,59 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 5 : 1) catalog_lnlike_kerne
     const T* pl = o + 6 + 2 * a.n_bands;
     ll += obs_term<T>(pl[0], pl[1], T(1000) / dist);
   }
-  static_cast<T*>(a.ll)[q] = ll;
-  static_cast<T*>(a.orig)[q] = v[4];
-  static_cast<T*>(a.deriv)[q] = v[5];
+  if constexpr (POST) {
+    // the prior terms in the plain version's order: age, [Fe/H], AV,
+    // distance, EEP
+    const double* c = a.c;
+    T lnp = a.on[kAgeTerm] ? age_lnpdf(age, c) : T(0);
+    if (a.on[kFehTerm]) lnp = add_rn(lnp, feh_lnpdf(feh, c));
+    if (a.on[kAvTerm]) lnp = add_rn(lnp, av_lnpdf(av, c));
+    const T* dr = static_cast<const T*>(a.dist) + star * 2;  // ln 3 - 3 ln d_hi + 2 ln d on 0 < d < d_hi
+    const T lnd = add_rn(dr[1], mul_rn(d_log(clamp_min(dist, T(1e-300))), T(2)));
+    lnp = add_rn(lnp, (dist > T(0) && dist < dr[0]) ? lnd : neg_inf<T>());
+    const T orig = v[4], deriv = v[5];  // the EEP change of variables
+    T e = add_rn(a.on[kMassTerm] ? mass_lnpdf(orig, c) : T(0), d_log(clamp_min(deriv, T(1e-300))));
+    e = (isfinite(orig) && deriv > T(0)) ? e : neg_inf<T>();
+    e = (eep < T(c[kEepLo]) || eep > T(c[kEepHi])) ? neg_inf<T>() : e;
+    lnp = add_rn(lnp, e);
+    ll = isnan(ll) ? neg_inf<T>() : ll;
+    static_cast<T*>(a.out)[q] = isfinite(lnp) ? add_rn(lnp, ll) : neg_inf<T>();
+    if (a.orig) static_cast<T*>(a.orig)[q] = v[4];
+  } else {
+    static_cast<T*>(a.out)[q] = ll;
+    static_cast<T*>(a.orig)[q] = v[4];
+    static_cast<T*>(a.deriv)[q] = v[5];
+  }
 }
 
-int group_lanes(long long n) {
-  int g = kMaxGroup;
-  while (g > 1 && n * g > kFillThreads) g >>= 1;
-  return g;
-}
+// lanes a point, from the H100 measurements (PERF.md): 16 lanes up to
+// 2048 points (6-14% faster than one at 256 and 1024 points), 8 up to 4096
+// (6% at 4096), one above (one lane is the fastest at 8192 and 65536)
+int group_lanes(long long n) { return n <= 2048 ? 16 : n <= 4096 ? 8 : 1; }
 
-template <typename T, int G>
+template <typename T, int G, bool POST>
 cudaError_t launch_g(const CatalogArgs& a, cudaStream_t st) {
   const long long threads = a.S * a.B * G;
   if (threads >= (1LL << 31)) return cudaErrorInvalidValue;
   const long long blocks = (threads + kThreads - 1) / kThreads;
-  catalog_lnlike_kernel<T, G><<<(unsigned)blocks, kThreads, 0, st>>>(a);
+  catalog_lnlike_kernel<T, G, POST><<<(unsigned)blocks, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool POST>
 int launch(const CatalogArgs* args, void* stream) {
   const CatalogArgs& a = *args;
-  if (a.S < 0 || a.B < 0 || a.n_bands < 0 || a.n_bands > kMaxBands || a.row_len != 8 + 2 * a.n_bands)
+  if (a.S < 0 || a.B < 0 || a.n_bands < 0 || a.n_bands > kMaxBands || a.row_len != 8 + 2 * a.n_bands ||
+      (a.compact && (a.n_bands > kCompactCols || a.bc_ncols != kCompactCols)) || (POST && !a.dist) ||
+      (!POST && (a.his || !a.orig || !a.deriv)))
     return (int)cudaErrorInvalidValue;
   if (a.S == 0 || a.B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (group_lanes(a.S * a.B)) {
-    case 16: return (int)launch_g<T, 16>(a, st);
-    case 8: return (int)launch_g<T, 8>(a, st);
-    case 4: return (int)launch_g<T, 4>(a, st);
-    case 2: return (int)launch_g<T, 2>(a, st);
-    default: return (int)launch_g<T, 1>(a, st);
+  switch (a.lanes ? a.lanes : group_lanes(a.S * a.B)) {  // the launch table's widths only
+    case 16: return (int)launch_g<T, 16, POST>(a, st);
+    case 8: return (int)launch_g<T, 8, POST>(a, st);
+    case 1: return (int)launch_g<T, 1, POST>(a, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -176,15 +347,25 @@ int catalog_lnlike_max_bands() { return kMaxBands; }
 
 int catalog_lnlike_args_size() { return (int)sizeof(CatalogArgs); }
 
+int catalog_lnlike_n_consts() { return kNConst; }
+
 int catalog_lnlike_group_lanes(long long n) { return group_lanes(n); }
 
 // `args` points to a CatalogArgs (void*: see star_lnlike.cu)
 int catalog_lnlike_f32(const void* args, void* stream) {
-  return launch<float>(static_cast<const CatalogArgs*>(args), stream);
+  return launch<float, false>(static_cast<const CatalogArgs*>(args), stream);
 }
 
 int catalog_lnlike_f64(const void* args, void* stream) {
-  return launch<double>(static_cast<const CatalogArgs*>(args), stream);
+  return launch<double, false>(static_cast<const CatalogArgs*>(args), stream);
+}
+
+int catalog_lnpost_f32(const void* args, void* stream) {
+  return launch<float, true>(static_cast<const CatalogArgs*>(args), stream);
+}
+
+int catalog_lnpost_f64(const void* args, void* stream) {
+  return launch<double, true>(static_cast<const CatalogArgs*>(args), stream);
 }
 
 }  // extern "C"

@@ -1,15 +1,21 @@
-"""Hand-written CUDA kernel for the catalog likelihood.
+"""Hand-written CUDA kernel for the catalog posterior and likelihood.
 
-Replaces the likelihood half of the JAX package's XLA-fused catalog
-posterior (``isochrones_tpu/batch.py:145-192``); the source is
+Replaces the JAX package's XLA-fused catalog posterior
+(``isochrones_tpu/batch.py:145-208``); the source is
 ``isochrones_torch/csrc/catalog_lnlike.cu``, whose header says what bounds it
-on the card and how the design answers that. The plain version it replaces
-sits beside it in :mod:`isochrones_torch.ops.catalog`.
+on the card and how the design answers that. The plain versions it replaces
+sit beside it in :mod:`isochrones_torch.ops.catalog`.
 
-The wrapper describes both grids in one by-value argument struct (axis kinds
-and constants, knot pointers, band columns), and packs the stars'
-observations into one ``(S, 8 + 2 n_bands)`` block on the device, both built
-once per :class:`~isochrones_torch.ops.catalog.CatalogLikelihood`; each call
+Two wrappers over the one kernel body: :func:`catalog_lnpost_cuda` (the
+posterior, the fitter's path, one launch a call) and
+:func:`catalog_lnlike_cuda` (the likelihood's ``(ll, orig_val, deriv)``).
+Each counts its own launches. The wrapper describes both grids in one
+by-value argument struct (axis kinds and constants, knot pointers, band
+columns), and packs the stars' observations into one ``(S, 8 + 2 n_bands)``
+block on the device, both built once per
+:class:`~isochrones_torch.ops.catalog.CatalogLikelihood`; the posterior adds
+the packed prior constants of a
+:class:`~isochrones_torch.ops.catalog.CatalogPriors` once per pair; each call
 patches in its pointers. Caps: 16 bands, and ``S * B * G < 2**31`` threads
 (G, the lanes per point, from :func:`group_lanes`). Past a cap it raises a
 ``ValueError`` that names it; it never falls back to the plain version.
@@ -24,13 +30,14 @@ import weakref
 import torch
 
 from ._build import load_library
-from .catalog import CatalogLikelihood
+from .catalog import CONST_NAMES, CatalogLikelihood, CatalogPriors
 from .star_cuda import _Axis, _axes
 
-__all__ = ["catalog_lnlike_cuda", "group_lanes"]
+__all__ = ["catalog_lnlike_cuda", "catalog_lnpost_cuda", "group_lanes", "uses_compact_bc"]
 
 _MAX_BANDS = 16
 _MAX_THREADS = 1 << 31
+_COMPACT_COLS = 4
 
 
 class _CatalogArgs(ctypes.Structure):
@@ -38,10 +45,12 @@ class _CatalogArgs(ctypes.Structure):
 
     _fields_ = [
         ("pars", ctypes.c_void_p), ("model", ctypes.c_void_p), ("bc", ctypes.c_void_p), ("obs", ctypes.c_void_p),
-        ("ll", ctypes.c_void_p), ("orig", ctypes.c_void_p), ("deriv", ctypes.c_void_p),
-        ("S", ctypes.c_longlong), ("B", ctypes.c_longlong), ("io", ctypes.c_int * 3), ("n_bands", ctypes.c_int),
-        ("bc_ncols", ctypes.c_int), ("row_len", ctypes.c_int), ("has_plax", ctypes.c_int),
+        ("his", ctypes.c_void_p), ("dist", ctypes.c_void_p), ("out", ctypes.c_void_p), ("orig", ctypes.c_void_p),
+        ("deriv", ctypes.c_void_p), ("S", ctypes.c_longlong), ("B", ctypes.c_longlong), ("io", ctypes.c_int * 3),
+        ("n_bands", ctypes.c_int), ("bc_ncols", ctypes.c_int), ("row_len", ctypes.c_int), ("has_plax", ctypes.c_int),
+        ("lanes", ctypes.c_int), ("compact", ctypes.c_int), ("on", ctypes.c_int * 4),
         ("band_cols", ctypes.c_int * _MAX_BANDS), ("model_ax", _Axis * 3), ("bc_ax", _Axis * 4),
+        ("c", ctypes.c_double * len(CONST_NAMES)),
     ]
 
 
@@ -49,12 +58,12 @@ class _CatalogArgs(ctypes.Structure):
 def _lib():
     """The kernel library with the catalog entry points' C signatures declared."""
     lib = load_library()
-    for name in ("catalog_lnlike_f32", "catalog_lnlike_f64"):
+    for name in ("catalog_lnlike_f32", "catalog_lnlike_f64", "catalog_lnpost_f32", "catalog_lnpost_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(_CatalogArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.catalog_lnlike_args_size.restype = ctypes.c_int
-    lib.catalog_lnlike_max_bands.restype = ctypes.c_int
+    for name in ("catalog_lnlike_args_size", "catalog_lnlike_max_bands", "catalog_lnlike_n_consts"):
+        getattr(lib, name).restype = ctypes.c_int
     lib.catalog_lnlike_group_lanes.argtypes = [ctypes.c_longlong]
     lib.catalog_lnlike_group_lanes.restype = ctypes.c_int
     lib.star_lnlike_error_string.argtypes = [ctypes.c_int]
@@ -62,8 +71,8 @@ def _lib():
     if lib.catalog_lnlike_args_size() != ctypes.sizeof(_CatalogArgs):
         raise RuntimeError(f"CatalogArgs layout differs: C {lib.catalog_lnlike_args_size()} bytes, "
                            f"ctypes {ctypes.sizeof(_CatalogArgs)}")
-    if lib.catalog_lnlike_max_bands() != _MAX_BANDS:
-        raise RuntimeError("catalog kernel band limit differs from the wrapper's")
+    if lib.catalog_lnlike_max_bands() != _MAX_BANDS or lib.catalog_lnlike_n_consts() != len(CONST_NAMES):
+        raise RuntimeError("catalog kernel band limit or prior constants differ from the wrapper's")
     return lib
 
 
@@ -87,16 +96,35 @@ def _pack_observations(lk: CatalogLikelihood) -> torch.Tensor:
     return torch.cat([x.to(ref.dtype).reshape(S, -1) for x in parts], dim=-1).contiguous()
 
 
-#: per-likelihood (argument struct template, observation block)
+def uses_compact_bc(n_bands: int) -> bool:
+    """Whether the kernel reads the band columns from a compact copy of the BC
+    table (:func:`compact_bc`, built once per likelihood): with 1-4 bands."""
+    return 0 < n_bands <= _COMPACT_COLS
+
+
+def compact_bc(lk: CatalogLikelihood) -> torch.Tensor:
+    """The BC table's wanted band columns, padded with zeros to 4: a
+    contiguous ``(b0, b1, b2, b3, 4)`` copy (at most 4 bands)."""
+    vals = lk.bc.values[..., list(lk.band_icols)]
+    pad = vals.new_zeros(vals.shape[:-1] + (_COMPACT_COLS - vals.shape[-1],))
+    return torch.cat([vals, pad], dim=-1).contiguous()
+
+
+#: per-likelihood (key, argument struct template, tensors it points into)
 _TEMPLATES = weakref.WeakKeyDictionary()
+#: per-prior pack (the likelihood template it copies, posterior struct template, likelihood)
+_POST_TEMPLATES = weakref.WeakKeyDictionary()
 
 
-def _template(lk: CatalogLikelihood, dtype, device):
-    key = (dtype, device)
+def _template(lk: CatalogLikelihood, dtype, device, compact=True):
+    """The likelihood's argument struct; ``compact=False`` keeps the full BC
+    table with any band count (for measurements)."""
+    nb = len(lk.band_icols)
+    compact = compact and uses_compact_bc(nb)
+    key = (dtype, device, compact)
     cached = _TEMPLATES.get(lk)
     if cached is not None and cached[0] == key:
-        return cached[1], cached[2]
-    nb = len(lk.band_icols)
+        return cached[1]
     if nb > _MAX_BANDS:
         raise ValueError(f"catalog kernel takes at most {_MAX_BANDS} bands, got {nb}")
     if len(lk.pack6.knots) != 3 or lk.pack6.values.shape[-1] != 6:
@@ -110,55 +138,107 @@ def _template(lk: CatalogLikelihood, dtype, device):
         raise ValueError(f"catalog observations must be {dtype} tensors on {device}, got {obs.dtype} on {obs.device}")
     a = _CatalogArgs()
     a.model = lk.pack6.values.data_ptr()
-    a.bc = lk.bc.values.data_ptr()
     a.obs = obs.data_ptr()
     a.io[:] = [int(i) for i in lk.index_order[:3]]
     a.n_bands = nb
-    a.bc_ncols = lk.bc.values.shape[-1]
     a.row_len = obs.shape[1]
     a.has_plax = int(lk.plax is not None)
+    bc_ncols = lk.bc.values.shape[-1]
     for i, c in enumerate(lk.band_icols):
-        if not 0 <= c < a.bc_ncols:
+        if not 0 <= c < bc_ncols:
             raise ValueError(f"band column {c} outside the BC table")
         a.band_cols[i] = int(c)
+    keep = [obs]
+    if compact:
+        table = compact_bc(lk)
+        keep.append(table)
+        a.bc, a.bc_ncols, a.compact = table.data_ptr(), _COMPACT_COLS, 1
+    else:
+        a.bc, a.bc_ncols = lk.bc.values.data_ptr(), bc_ncols
     a.model_ax[:] = _axes(lk.pack6, dtype, device, "model")
     a.bc_ax[:] = _axes(lk.bc, dtype, device, "BC")
-    _TEMPLATES[lk] = (key, a, obs)
-    return a, obs
+    _TEMPLATES[lk] = (key, a, keep)
+    return a
+
+
+def _post_template(lk: CatalogLikelihood, pri: CatalogPriors, dtype, device, compact=True):
+    base = _template(lk, dtype, device, compact)
+    cached = _POST_TEMPLATES.get(pri)
+    if cached is not None and cached[0] is base and cached[2]() is lk:
+        return cached[1]
+    if pri.dist.shape != (lk.n_stars, 2) or pri.dist.dtype != dtype or pri.dist.device != device:
+        raise ValueError(f"the priors' distance rows must be ({lk.n_stars}, 2) {dtype} on {device}, got "
+                         f"{tuple(pri.dist.shape)} {pri.dist.dtype} on {pri.dist.device}")
+    a = _CatalogArgs.from_buffer_copy(base)
+    a.dist = pri.dist.data_ptr()
+    a.on[:] = [int(x) for x in pri.on]
+    a.c[:] = [float(pri.consts[n]) for n in CONST_NAMES]
+    _POST_TEMPLATES[pri] = (base, a, weakref.ref(lk))
+    return a
+
+
+def _check_points(x, lk, name):
+    dt, dev = x.dtype, x.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"{name} takes float32 or float64, got {dt}")
+    S = lk.n_stars
+    if x.dim() != 3 or x.shape[0] != S or x.shape[2] != 5:
+        raise ValueError(f"points must be ({S}, B, 5), got {tuple(x.shape)}")
+    B = x.shape[1]
+    if S * B * group_lanes(S * B) >= _MAX_THREADS:
+        raise ValueError(f"catalog kernel takes S * B * lanes < 2**31 threads, got S={S}, B={B}")
+    return x.contiguous(), S, B
+
+
+def _launch(fn, call, dev, name):
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(call), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: {_lib().star_lnlike_error_string(err).decode()} ({err})")
 
 
 def catalog_lnlike_cuda(pars: torch.Tensor, lk: CatalogLikelihood):
     """``(ll, orig_val, deriv)``, each ``(S, B)``, from one kernel launch.
     Raises on anything the kernel does not take, and if the launch fails."""
+    pars, S, B = _check_points(pars, lk, "catalog_lnlike_cuda")
     dt, dev = pars.dtype, pars.device
-    if dev.type != "cuda":
-        raise ValueError(f"catalog_lnlike_cuda needs CUDA tensors, got {dev}")
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"catalog_lnlike_cuda takes float32 or float64, got {dt}")
-    S = lk.n_stars
-    if pars.dim() != 3 or pars.shape[0] != S or pars.shape[2] != 5:
-        raise ValueError(f"pars must be ({S}, B, 5), got {tuple(pars.shape)}")
     lib = _lib()
-    a, _ = _template(lk, dt, dev)
-    B = pars.shape[1]
-    if S * B * group_lanes(S * B) >= _MAX_THREADS:
-        raise ValueError(f"catalog kernel takes S * B * lanes < 2**31 threads, got S={S}, B={B}")
-    pars = pars.contiguous()
-    ll = torch.empty((S, B), dtype=dt, device=dev)
-    orig = torch.empty((S, B), dtype=dt, device=dev)
-    deriv = torch.empty((S, B), dtype=dt, device=dev)
-    call = _CatalogArgs.from_buffer_copy(a)
-    call.pars, call.ll, call.orig, call.deriv = pars.data_ptr(), ll.data_ptr(), orig.data_ptr(), deriv.data_ptr()
+    call = _CatalogArgs.from_buffer_copy(_template(lk, dt, dev))
+    ll, orig, deriv = (torch.empty((S, B), dtype=dt, device=dev) for _ in range(3))
+    call.pars, call.out, call.orig, call.deriv = pars.data_ptr(), ll.data_ptr(), orig.data_ptr(), deriv.data_ptr()
     call.S, call.B = S, B
-    fn = lib.catalog_lnlike_f32 if dt == torch.float32 else lib.catalog_lnlike_f64
-    with torch.cuda.device(dev):
-        err = fn(ctypes.byref(call), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"catalog_lnlike kernel launch failed: {lib.star_lnlike_error_string(err).decode()} "
-                           f"({err})")
+    _launch(lib.catalog_lnlike_f32 if dt == torch.float32 else lib.catalog_lnlike_f64, call, dev, "catalog_lnlike")
     catalog_lnlike_cuda.launches += 1
     return ll, orig, deriv
 
 
-#: kernel launches made through this wrapper (reset by callers that count)
+def catalog_lnpost_cuda(x: torch.Tensor, lk: CatalogLikelihood, pri: CatalogPriors, his: torch.Tensor = None):
+    """``(lnpost (S, B), orig_val (S, B) or None)`` from one kernel launch:
+    parameters ``x`` (S, B, 5), or unit-cube points with the box tops ``his``
+    (S, 5); ``orig_val`` only when the mass prior's flag is off (the caller
+    adds that term). Raises on anything the kernel does not take, and if the
+    launch fails."""
+    x, S, B = _check_points(x, lk, "catalog_lnpost_cuda")
+    dt, dev = x.dtype, x.device
+    lib = _lib()
+    call = _CatalogArgs.from_buffer_copy(_post_template(lk, pri, dt, dev))
+    if his is not None:
+        if his.shape != (S, 5) or his.dtype != dt or his.device != dev:
+            raise ValueError(f"his must be ({S}, 5) {dt} on {dev}, got {tuple(his.shape)} {his.dtype} on {his.device}")
+        his = his.contiguous()
+        call.his = his.data_ptr()
+    out = torch.empty((S, B), dtype=dt, device=dev)
+    orig = None if pri.on[3] else torch.empty((S, B), dtype=dt, device=dev)
+    call.pars, call.out = x.data_ptr(), out.data_ptr()
+    call.orig = None if orig is None else orig.data_ptr()
+    call.S, call.B = S, B
+    _launch(lib.catalog_lnpost_f32 if dt == torch.float32 else lib.catalog_lnpost_f64, call, dev, "catalog_lnpost")
+    catalog_lnpost_cuda.launches += 1
+    return out, orig
+
+
+#: kernel launches made through each wrapper (reset by callers that count)
 catalog_lnlike_cuda.launches = 0
+catalog_lnpost_cuda.launches = 0

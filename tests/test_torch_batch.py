@@ -145,7 +145,7 @@ def test_plain_catalog_matches_single_star(setup):
     """Row i of the plain catalog likelihood is the single-star fused
     likelihood of star i, NaN observations skipped as missing ones."""
     _, tiso, df, _, tf = setup
-    lk, _ = tf._catalog_likelihood()
+    lk = tf._catalog_likelihood()
     pars = torch.as_tensor(_points(9, 32, seed=2))
     ll, orig, deriv = catalog_lnlike_plain(pars, lk)
     for i in range(9):

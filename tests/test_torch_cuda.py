@@ -19,9 +19,13 @@ version 0.1 + 2e-4 |ref| for ``ll`` and 1e-6 + 1e-4 |ref| for the columns;
 identical NaN and -inf patterns and ``ll`` never NaN, for 1-16 stars, one and
 two systems, relative rows, density rows, limits, every axis-map kind, every
 group width, batches that leave a partial team and a partial warp. Catalog
-kernel: the star kernel's tolerances, for 1-256 stars, every group width,
-every axis-map kind, stars without a band, without any band, without a
-parallax or Teff, and a catalog without parallaxes.
+kernel, both instantiations (the likelihood's triple and the posterior): the
+star kernel's tolerances, for 1-256 stars, every group width (by the launch
+table and forced), every axis-map kind, stars without a band, without any
+band, without a parallax or Teff, a catalog without parallaxes, the
+unit-cube form, replaced priors (the composition route); float32 against the
+float64 plain version on the same float32 tables, points and constants
+(``catalog_priors_as``); one fitter ``lnpost_batch`` is one launch.
 """
 
 import dataclasses
@@ -33,7 +37,7 @@ import pytest
 import torch
 
 from chip_smoke import (
-    CAT_BANDS, CLI_EEP_BOX, catalog_likelihood_as, catalog_points, catalog_table,
+    CAT_BANDS, CLI_EEP_BOX, catalog_likelihood_as, catalog_points, catalog_priors_as, catalog_table,
     ATOL_F32, ATOL_STAR_F32, FIXTURE, RTOL_F32, RTOL_F64, RTOL_STAR_F32, RTOL_STAR_F64, _tree_check, as_float32,
     _tree_mixed_points, check_close, check_eep, check_star, eep_points, grid_as, make_kernel_inputs, profile_kernels,
     star_grid_variant, star_observations, star_points, to_torch,
@@ -41,14 +45,15 @@ from chip_smoke import (
 from isochrones_torch import BinaryStarModel, StarClusterModel, TripleStarModel, get_ichrone
 from isochrones_torch.batch import BatchStarFitter
 from isochrones_torch.catalog import read_csv
-from isochrones_torch.ops.catalog import catalog_lnlike, catalog_lnlike_plain
-from isochrones_torch.ops.catalog_cuda import catalog_lnlike_cuda, group_lanes
+from isochrones_torch.ops.catalog import catalog_lnlike, catalog_lnlike_plain, catalog_lnpost_plain, unit_box
+from isochrones_torch.ops.catalog_cuda import catalog_lnlike_cuda, catalog_lnpost_cuda, group_lanes
 from isochrones_torch.ops.cluster import cluster_lnmarginal, cluster_lnmarginal_plain
 from isochrones_torch.ops.cluster_cuda import cluster_lnmarginal_cuda
 from isochrones_torch.ops.star import star_lnlike_fused, star_lnlike_fused_plain
 from isochrones_torch.ops.star_cuda import star_lnlike_cuda
 from isochrones_torch.ops.tree import tree_lnlike, tree_lnlike_fused, tree_lnlike_fused_plain
 from isochrones_torch.ops.tree_cuda import MAX_STARS, launch_geometry, tree_lnlike_cuda
+from isochrones_torch.priors import GaussianPrior, SalpeterPrior
 from isochrones_torch.treemodel import StarModel
 
 pytestmark = pytest.mark.cuda
@@ -499,14 +504,15 @@ def _check_catalog_both(lk64, pars, name):
                RTOL_STAR_F32, ATOL_STAR_F32)
 
 
-@pytest.mark.parametrize("S,B,lanes", [(1, 1, 16), (3, 31, 16), (12, 64, 16), (64, 400, 8), (256, 256, 4),
-                                       (16, 8000, 2), (64, 4097, 1)])
+@pytest.mark.parametrize("S,B,lanes", [(1, 1, 16), (3, 31, 16), (12, 64, 16), (16, 200, 8), (64, 400, 1),
+                                       (256, 256, 1), (16, 8000, 1), (64, 4097, 1)])
 def test_catalog_kernel_matches_plain(dev, S, B, lanes):
-    """Every group width; stars without H, without a parallax, without Teff
-    (star 7) and without any band (star 11); NaN, top-knot and off-grid
+    """Every group width the launch table takes (16 lanes up to 2048 points,
+    8 up to 4096, then one); stars without H, without a parallax, without
+    Teff (star 7) and without any band (star 11); NaN, top-knot and off-grid
     points."""
     fitter, truths = _catalog(dev, S)
-    lk, _ = fitter._catalog_likelihood()
+    lk = fitter._catalog_likelihood()
     pars = catalog_points(fitter.ic, truths, max(B, 8), seed=S + B)[:, :B]
     if B < 8:
         pars[:, -1, 2] = np.nan
@@ -520,7 +526,7 @@ def test_catalog_kernel_matches_plain(dev, S, B, lanes):
 @pytest.mark.parametrize("kind", ["log", "compare", "searchsorted"])
 def test_catalog_kernel_axis_kinds(dev, kind):
     fitter, truths = _catalog(dev, 12)
-    lk, _ = fitter._catalog_likelihood()
+    lk = fitter._catalog_likelihood()
     pack6, bc = star_grid_variant(lk.pack6, lk.bc, kind)
     _check_catalog_both(dataclasses.replace(lk, pack6=pack6, bc=bc), catalog_points(fitter.ic, truths, 300, seed=3),
                         kind)
@@ -528,7 +534,7 @@ def test_catalog_kernel_axis_kinds(dev, kind):
 
 def test_catalog_kernel_without_parallaxes(dev):
     fitter, truths = _catalog(dev, 12, plax=False)
-    lk, _ = fitter._catalog_likelihood()
+    lk = fitter._catalog_likelihood()
     assert lk.plax is None
     _check_catalog_both(lk, catalog_points(fitter.ic, truths, 200, seed=4), "no parallax")
 
@@ -537,7 +543,7 @@ def test_catalog_kernel_caps_and_bad_input(dev):
     """Past 16 bands the kernel raises a ValueError that names the cap; it
     never falls back to the plain version."""
     fitter, truths = _catalog(dev, 4)
-    lk, _ = fitter._catalog_likelihood()
+    lk = fitter._catalog_likelihood()
     p = torch.as_tensor(catalog_points(fitter.ic, truths, 16, seed=5), device=dev)
     S = lk.n_stars
     wide = dataclasses.replace(lk, band_icols=lk.band_icols * 6, mag_vals=lk.mag_vals.repeat(1, 6),
@@ -554,15 +560,133 @@ def test_catalog_kernel_caps_and_bad_input(dev):
 
 def test_catalog_lnpost_on_card_matches_cpu(dev):
     """The fitter's lnpost_batch through the kernel on the card against the
-    plain path on the CPU, float64; the dispatcher launches the kernel once a
-    call."""
+    plain path on the CPU, float64; one call is one posterior launch, and
+    the likelihood's dispatcher launches its own instantiation."""
     fitter, truths = _catalog(dev, 12)
     ic_cpu = get_ichrone("synthetic", device="cpu", **_SMALL)
     cpu = BatchStarFitter(ic_cpu, fitter.catalog, bands=CAT_BANDS)
     pars = catalog_points(ic_cpu, truths, 128, seed=6)
-    before = catalog_lnlike_cuda.launches
+    before, before_ll = catalog_lnpost_cuda.launches, catalog_lnlike_cuda.launches
     got = fitter.lnpost_batch(pars).cpu().numpy()
-    assert catalog_lnlike_cuda.launches == before + 1
+    assert catalog_lnpost_cuda.launches == before + 1 and catalog_lnlike_cuda.launches == before_ll
     check_star("catalog lnpost", [got], [cpu.lnpost_batch(pars).numpy()], RTOL_STAR_F64)
-    catalog_lnlike(torch.as_tensor(pars, device=dev), fitter._catalog_likelihood()[0])
-    assert catalog_lnlike_cuda.launches == before + 2
+    catalog_lnlike(torch.as_tensor(pars, device=dev), fitter._catalog_likelihood())
+    assert catalog_lnlike_cuda.launches == before_ll + 1 and catalog_lnpost_cuda.launches == before + 1
+
+
+def _check_lnpost_both(fitter, x, name, his=None):
+    """The posterior kernel against ``catalog_lnpost_plain`` on ``x`` (S, B,
+    5): float64 at rtol 1e-10, float32 tables, observations, constants and
+    points (and the float32 box map's parameters) against the float64 plain
+    version on the same float32 values; identical NaN and +-inf patterns."""
+    dev = fitter.device
+    lk64, pri64 = fitter._catalog_likelihood(), fitter._catalog_priors()
+    x64 = torch.as_tensor(x, device=dev, dtype=torch.float64)
+    h64 = None if his is None else torch.as_tensor(his, device=dev, dtype=torch.float64)
+    got64 = catalog_lnpost_cuda(x64, lk64, pri64, h64)
+    ref64 = catalog_lnpost_plain(x64, lk64, pri64, h64)
+    assert (got64[1] is None) == (ref64[1] is None)
+    pick = (lambda r: [r[0].cpu().numpy()] + ([] if r[1] is None else [r[1].cpu().numpy()]))
+    check_star(f"f64 {name}", pick(got64), pick(ref64), RTOL_STAR_F64)
+    lk32, pri32 = catalog_likelihood_as(lk64, torch.float32), catalog_priors_as(pri64, torch.float32)
+    x32, h32 = x64.float(), None if h64 is None else h64.float()
+    got32 = catalog_lnpost_cuda(x32, lk32, pri32, h32)
+    p32 = x32 if h32 is None else unit_box(x32, pri32, h32)  # the box map in float32, as the kernel rounds it
+    ref32 = catalog_lnpost_plain(p32.double(), catalog_likelihood_as(lk32, torch.float64),
+                                 catalog_priors_as(pri32, torch.float64))
+    check_star(f"f32 {name}", pick(got32), pick(ref32), RTOL_STAR_F32, ATOL_STAR_F32)
+    return ref64[0].cpu().numpy()
+
+
+@pytest.mark.parametrize("S,B,lanes", [(1, 1, 16), (3, 31, 16), (12, 64, 16), (16, 200, 8), (4, 1000, 8),
+                                       (64, 400, 1), (256, 256, 1), (256, 32, 1), (16, 8000, 1), (64, 4097, 1)])
+def test_catalog_lnpost_kernel_matches_plain(dev, S, B, lanes):
+    """Every group width of the launch table; the holes of
+    ``catalog_table``; NaN, top-knot, off-grid and zero-distance points."""
+    fitter, truths = _catalog(dev, S)
+    pars = catalog_points(fitter.ic, truths, max(B, 8), seed=S + B)[:, :B]
+    if B < 8:
+        pars[:, -1, 2] = np.nan
+    assert group_lanes(S * B) == lanes
+    ref = _check_lnpost_both(fitter, pars, f"S={S} B={B}")
+    if S * B >= 4096:
+        assert np.isfinite(ref).sum() > 100 and np.isneginf(ref).sum() > 10
+
+
+@pytest.mark.parametrize("S,B", [(12, 64), (64, 400)])
+def test_catalog_kernel_full_bc_table(dev, S, B):
+    """Six bands (J, H, K twice): more than the compact table's four, so both
+    instantiations read the band columns of the full BC table."""
+    fitter, truths = _catalog(dev, S)
+    lk = fitter._catalog_likelihood()
+    wide = dataclasses.replace(lk, band_icols=lk.band_icols * 2, mag_vals=lk.mag_vals.repeat(1, 2),
+                               mag_uncs=lk.mag_uncs.repeat(1, 2))
+    fitter._likelihood = wide
+    pars = catalog_points(fitter.ic, truths, B, seed=S + B + 1)
+    _check_catalog_both(wide, pars, f"6 bands S={S} B={B}")
+    _check_lnpost_both(fitter, pars, f"6 bands S={S} B={B}")
+
+
+@pytest.mark.parametrize("kind", ["log", "compare", "searchsorted"])
+def test_catalog_lnpost_kernel_axis_kinds(dev, kind):
+    fitter, truths = _catalog(dev, 12)
+    lk = fitter._catalog_likelihood()
+    pack6, bc = star_grid_variant(lk.pack6, lk.bc, kind)
+    fitter._likelihood = dataclasses.replace(lk, pack6=pack6, bc=bc)
+    _check_lnpost_both(fitter, catalog_points(fitter.ic, truths, 300, seed=3), kind)
+
+
+@pytest.mark.parametrize("S,B", [(12, 64), (256, 256)])
+def test_catalog_lnpost_kernel_unit_cube(dev, S, B):
+    """The nested fit's unit-cube form, the box map in the kernel: against
+    the plain version's, and bitwise the box's parameters through the
+    kernel in float64 (the map rounds as torch rounds it)."""
+    fitter, truths = _catalog(dev, S)
+    los, his = fitter._bounds_arrays()
+    rng = np.random.default_rng(S + B)
+    u = rng.uniform(0, 1, (S, B, 5))
+    u[:, : B // 2] = np.clip((truths[:, None, :] - los) / (his - los)[:, None, :]
+                             + rng.normal(0, 0.02, (S, B // 2, 5)), 0, 1)
+    u[:, 0], u[:, 1] = 0.0, 1.0
+    ref = _check_lnpost_both(fitter, u, f"unit cube S={S} B={B}", his=his)
+    assert np.isfinite(ref).sum() > S
+    ut, ht = torch.as_tensor(u, device=dev), torch.as_tensor(his, device=dev)
+    lk, pri = fitter._catalog_likelihood(), fitter._catalog_priors()
+    np.testing.assert_array_equal(catalog_lnpost_cuda(ut, lk, pri, ht)[0].cpu().numpy(),
+                                  catalog_lnpost_cuda(unit_box(ut, pri, ht), lk, pri)[0].cpu().numpy())
+
+
+def test_catalog_lnpost_kernel_replaced_priors(dev):
+    """A prior of another class turns its flag off: the kernel leaves the
+    term to the fitter (and returns orig_val for a replaced mass prior);
+    the fitter's one launch plus torch terms matches the CPU fitter."""
+    fitter, truths = _catalog(dev, 12)
+    ic_cpu = get_ichrone("synthetic", device="cpu", **_SMALL)
+    cpu = BatchStarFitter(ic_cpu, fitter.catalog, bands=CAT_BANDS)
+    for f in (fitter, cpu):
+        f.priors["age"] = GaussianPrior(9.0, 0.4, bounds=(6.5, 10.0))
+        f.priors["mass"] = SalpeterPrior(bounds=(0.2, 5.0))
+    assert fitter._catalog_priors().on == (False, True, True, False)
+    pars = catalog_points(ic_cpu, truths, 128, seed=7)
+    _check_lnpost_both(fitter, pars, "replaced priors")
+    before = catalog_lnpost_cuda.launches
+    got = fitter.lnpost_batch(pars).cpu().numpy()
+    assert catalog_lnpost_cuda.launches == before + 1
+    check_star("replaced priors lnpost_batch", [got], [cpu.lnpost_batch(pars).numpy()], RTOL_STAR_F64)
+
+
+def test_catalog_lnpost_kernel_rejects_bad_input(dev):
+    fitter, truths = _catalog(dev, 4)
+    lk, pri = fitter._catalog_likelihood(), fitter._catalog_priors()
+    p = torch.as_tensor(catalog_points(fitter.ic, truths, 16, seed=5), device=dev)
+    his = torch.as_tensor(fitter._bounds_arrays()[1], device=dev)
+    with pytest.raises(ValueError, match="points"):
+        catalog_lnpost_cuda(p[..., :4], lk, pri)
+    with pytest.raises(ValueError, match="his"):
+        catalog_lnpost_cuda(p, lk, pri, his[:3])
+    with pytest.raises(ValueError, match="his"):
+        catalog_lnpost_cuda(p, lk, pri, his.float())
+    with pytest.raises(ValueError, match="distance rows"):
+        catalog_lnpost_cuda(p, lk, catalog_priors_as(pri, torch.float32))
+    with pytest.raises(ValueError):
+        catalog_lnpost_cuda(p.cpu(), lk, pri)
