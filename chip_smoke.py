@@ -296,7 +296,7 @@ CLI_EEP_BOX = (200.0 * 200 / 1710, 450.0 * 200 / 1710)
 CAT_POINTS = 256
 CAT_MCMC = dict(nwalkers=64, nburn=300, niter=50, seed=0)
 #: the earlier likelihood-only catalog kernel at these batches (PERF.md, row
-#: E's earlier time): the posterior kernel's yardstick
+#: E's earlier time), printed beside this run's posterior kernel
 CAT_EARLIER_MS = {CAT_POINTS: 0.0414, CAT_MCMC["nwalkers"] // 2: 0.0120}
 #: device kernels one catalog lnpost_batch may launch: the posterior kernel,
 #: and nothing else on a tensor already of the fitter's dtype and device
@@ -1406,13 +1406,13 @@ def catalog_unit_points(truths, los, his, n_points, seed=0):
     return u
 
 
-def catalog_work(pars, lk, post=False, unit=False, compact=False):
+def catalog_work(pars, lk, post=False, unit=False):
     """``(bytes, flops, special functions)`` of the catalog posterior
     (``post``) or likelihood on these parameters: the points read (with the
     per-star box tops in the unit-cube form) and the outputs written once (the
     posterior's one column, the likelihood's three), each distinct row that
-    the points' corners touch read once (6 pack columns; the band columns of
-    the BC table, or the 4 of the compact table's rows), each star's
+    the points' corners touch read once (6 pack columns; the wanted band
+    columns of the BC table, whatever the kernel's layout pads), each star's
     observation row (and the posterior's distance row) once; per point ~70
     flops of cell location, 8 corners x (6 weight + 12 lerp flops), 16 corners
     x (8 + 2 per band), 3 per band for the magnitudes, ~6 per Gaussian term,
@@ -1432,7 +1432,7 @@ def catalog_work(pars, lk, post=False, unit=False, compact=False):
     gp = torch.stack([pts[:, io[0]], pts[:, io[1]], pts[:, io[2]]], dim=-1)
     v6 = interp_nd(lk.pack6.values, lk.pack6.knots, gp, axis_maps=lk.pack6.axis_maps)
     bp = torch.stack([v6[:, 0], v6[:, 1], v6[:, 2], pts[:, 4]], dim=-1)
-    rows = _touched_rows(lk.pack6, gp) * 6 + _touched_rows(lk.bc, bp) * (4 if compact else nb)
+    rows = _touched_rows(lk.pack6, gp) * 6 + _touched_rows(lk.bc, bp) * nb
     n_terms = nb + 3 + (lk.plax is not None)
     per_star = (8 + 2 * nb) + (2 if post else 0) + (5 if unit else 0)
     nbytes = (pars.numel() + (1 if post else 3) * S * B + rows + S * per_star) * pars.element_size()
@@ -1452,7 +1452,7 @@ def phase_catalog_kernel(dev, ic32, ic64):
 
     from isochrones_torch.batch import BatchStarFitter
     from isochrones_torch.ops.catalog import catalog_lnlike_plain, catalog_lnpost_plain, unit_box
-    from isochrones_torch.ops.catalog_cuda import catalog_lnlike_cuda, catalog_lnpost_cuda, group_lanes, uses_compact_bc
+    from isochrones_torch.ops.catalog_cuda import catalog_lnlike_cuda, catalog_lnpost_cuda, compact_bc
 
     truths, table = catalog_table(ic64, CAT_STARS, CAT_EEP_BOX)
     fit64, fit32 = BatchStarFitter(ic64, table, bands=CAT_BANDS), BatchStarFitter(ic32, table, bands=CAT_BANDS)
@@ -1468,7 +1468,7 @@ def phase_catalog_kernel(dev, ic32, ic64):
     h64 = torch.as_tensor(his, device=dev, dtype=torch.float64)
     h32 = torch.as_tensor(fit32._bounds_arrays()[1], device=dev, dtype=torch.float32)
     B_mc = CAT_MCMC["nwalkers"] // 2
-    compact = uses_compact_bc(len(CAT_BANDS))
+    width = compact_bc(lk32).shape[-1]
 
     def lnpost_errs(x64, x32, hh64=None, hh32=None, name=""):
         got64 = catalog_lnpost_cuda(x64, lk64, pri64, hh64)[0].cpu().numpy()
@@ -1491,9 +1491,9 @@ def phase_catalog_kernel(dev, ic32, ic64):
                          [x.cpu().numpy() for x in catalog_lnlike_plain(x32.double(), lk32up)], RTOL_STAR_F32,
                          ATOL_STAR_F32)
         errs[B] = (e64, e32)
-        print(f"[catalog] kernel vs plain, S={CAT_STARS} B={B} {len(CAT_BANDS)} bands ({group_lanes(CAT_STARS * B)} "
-              f"lanes a point, compact BC table {compact}): posterior f64 max_abs_err {e64:.3e} (rtol "
-              f"{RTOL_STAR_F64}), f32 vs f64 {e32:.3e} (rtol {RTOL_STAR_F32} atol {ATOL_STAR_F32}), "
+        print(f"[catalog] kernel vs plain, S={CAT_STARS} B={B} {len(CAT_BANDS)} bands (compact BC table {width} "
+              f"columns wide): posterior f64 max_abs_err {e64:.3e} (rtol {RTOL_STAR_F64}), f32 vs f64 {e32:.3e} "
+              f"(rtol {RTOL_STAR_F32} atol {ATOL_STAR_F32}), "
               f"{int(np.isfinite(ref).sum())}/{ref.size} finite, {int(np.isneginf(ref).sum())} -inf; likelihood "
               f"(ll, orig_val, deriv) f64 {l64:.3e}, f32 vs f64 {l32:.3e}; NaN and +-inf patterns identical")
     (eu64, eu32), ref = lnpost_errs(u64, u32, h64, h32, name="unit cube")
@@ -1508,7 +1508,7 @@ def phase_catalog_kernel(dev, ic32, ic64):
         plain_ms = cuda_ms(lambda: catalog_lnpost_plain(pb, lk32, pri32), reps=10)
         pb64 = pb.double()
         ms64 = kernel_ms(lambda: catalog_lnpost_cuda(pb64, lk64, pri64), "catalog_lnlike", reps=20)
-        bound_ms, bound_by, what = bound(*catalog_work(pb, lk32, post=True, compact=compact), "float32")
+        bound_ms, bound_by, what = bound(*catalog_work(pb, lk32, post=True), "float32")
         times[B] = (ms, plain_ms, ms64, bound_ms, bound_by, ms_ll)
         earlier = CAT_EARLIER_MS[B]
         print(f"[catalog] time S={CAT_STARS} B={B}: posterior kernel f32 {ms:.4f} ms (earlier likelihood-only kernel "
@@ -1517,19 +1517,19 @@ def phase_catalog_kernel(dev, ic32, ic64):
               f"{bound_ms / ms:.3f} of it")
     ms_unit = kernel_ms(lambda: catalog_lnpost_cuda(u32, lk32, pri32, h32), "catalog_lnlike", reps=50)
     pu = unit_box(u32, pri32, h32)
-    bound_unit = bound(*catalog_work(pu, lk32, post=True, unit=True, compact=compact), "float32")
+    bound_unit = bound(*catalog_work(pu, lk32, post=True, unit=True), "float32")
     print(f"[catalog] time S={CAT_STARS} B={CAT_POINTS}, unit-cube form (the nested fit's call): posterior kernel "
           f"f32 {ms_unit:.4f} ms; bound {bound_unit[0]:.5f} ms ({bound_unit[2]}), kernel at "
           f"{bound_unit[0] / ms_unit:.3f} of it")
     ms, plain_ms, ms64, bound_ms, bound_by, ms_ll = times[CAT_POINTS]
     record = dict(max_abs_err=errs[CAT_POINTS][1], max_abs_err_f64=errs[CAT_POINTS][0], ms=ms, plain_ms=plain_ms,
-                  ms_f64=ms64, bound_ms=bound_ms, bound_by=bound_by, earlier_ms=CAT_EARLIER_MS[CAT_POINTS],
+                  ms_f64=ms64, bound_ms=bound_ms, bound_by=bound_by,
                   function="log-posterior (likelihood, default priors, bounds, EEP change of variables)",
                   shape={"S": CAT_STARS, "B": CAT_POINTS, "bands": len(CAT_BANDS), "dtype": "float32"},
                   ms_likelihood=ms_ll, ms_unit_cube=ms_unit, bound_ms_unit_cube=bound_unit[0],
                   max_abs_err_unit_cube=eu32, ms_mcmc_batch=times[B_mc][0], plain_ms_mcmc_batch=times[B_mc][1],
                   bound_ms_mcmc_batch=times[B_mc][3], ms_likelihood_mcmc_batch=times[B_mc][5],
-                  earlier_ms_mcmc_batch=CAT_EARLIER_MS[B_mc], mcmc_batch=B_mc, compact_bc=compact)
+                  mcmc_batch=B_mc, compact_bc_width=width)
     return truths, table, record
 
 

@@ -1,5 +1,5 @@
 // Catalog log-posterior: every star of a catalog with its own observations,
-// a group of lanes per (star, point).
+// one thread per (star, point).
 //
 // Replaces the JAX package's catalog posterior, isochrones_tpu/batch.py:145-208
 // (_build_lnpost_data), which XLA compiles into one TPU fusion: for
@@ -39,8 +39,8 @@
 // clamp(x, min=1e-300) is in float32: log gives -inf and the masks decide.
 // Clamps keep NaN, as torch's do.
 //
-// What bounds it: not the bytes (the kernel reaches 0.15 of its bytes bound at
-// the nested fit's (256, 256), PERF.md) but each point's long chain of
+// What bounds it: not the bytes (the kernel reaches a small share of its bytes
+// bound at the nested fit's (256, 256), PERF.md) but each point's long chain of
 // dependent work: the parameters' load, cell location on 7 axes (64-bit
 // index arithmetic, searches, fix-ups), 8 rows of the model pack and 16 short
 // rows of the BC table at data-dependent addresses, the observation row, the
@@ -58,34 +58,34 @@
 //   parallax, its error]; the distance prior's per-star (d_hi, ln 3 - 3 ln
 //   d_hi) one (S, 2) block. The B points of a star are consecutive teams, so
 //   a warp's rows are one broadcast read served from L1/L2.
-// * A group of G lanes per (star, point) can share the corners of both lerps
-//   (interp_group) and sum them with xor shuffles, but every lane repeats the
-//   cell location, so more lanes do not shorten a point's chain: measured on
-//   the H100 (PERF.md; scripts/tune_torch_catalog.py) one lane a point
-//   is the fastest at the catalog fits' batches, 2.6x faster than the 4 lanes
-//   of the earlier rule at (256, 256); only batches of a few thousand points
-//   gain from more lanes (group_lanes). The table's widths (1, 8, 16) are
-//   the instantiated ones; a measurement may force one (lanes). The prior
-//   terms run on the lane that forms the likelihood: spread over the idle
-//   lanes of a group they took as long (divergent branches of one warp run
-//   one after another).
-// * __launch_bounds__ asks for 5 resident blocks a SM at one lane (96
-//   registers, no spill); higher minimums spill and lower ones took no less
-//   time (CATALOG_MIN_BLOCKS overrides it for the measurement).
-// * The prior constants, the grids' descriptions and the band columns are a
-//   __grid_constant__ kernel parameter (the constant bank): uniform reads.
+// * One lane a point. A group of G lanes per (star, point) could share the
+//   corners of both lerps (interp_group) and sum them with xor shuffles, but
+//   every lane repeats the cell location, so more lanes do not shorten a
+//   point's chain: measured on the H100 (PERF.md; scripts/tune_torch_catalog.py)
+//   one lane was 2.6x faster than the 4 lanes of the earlier rule at
+//   (256, 256), and 8 or 16 lanes gained at most ~1 us, only on batches of a
+//   few thousand points. The prior terms run on the lane that forms the
+//   likelihood: spread over a group's idle lanes they took as long (divergent
+//   branches of one warp run one after another).
+// * __launch_bounds__ asks for CATALOG_MIN_BLOCKS = 5 resident blocks a SM
+//   (96 registers, no spill); higher minimums spill and lower ones took no
+//   less time (the measurement rebuilds the source with -DCATALOG_MIN_BLOCKS).
+// * The prior constants and the grids' descriptions are a __grid_constant__
+//   kernel parameter (the constant bank): uniform reads.
 // * A compact BC table, built once per likelihood: only the wanted band
-//   columns, padded to 4, so that a corner is two aligned pair loads in one
-//   sector (n_bands <= 4; 30% faster than the scattered columns of the full
-//   table at (256, 256)).
-// * Every lane of a warp reaches every shuffle: lanes past the batch take a
-//   NaN point (no reads) and stay; only a warp wholly past the batch leaves.
+//   columns, padded with zeros to W = 4, 8 or 16 columns (the instantiated
+//   widths), so that a corner is W / 2 aligned pair loads from one or two
+//   sectors; 30% faster than the scattered columns of the full table at
+//   (256, 256) with 3 bands.
+// * Every lane of a warp reaches every shuffle and vote of the cell location:
+//   lanes past the batch take a NaN point (no reads) and stay; only a warp
+//   wholly past the batch leaves.
 // * 64-bit row offsets; instantiated for float and double.
 
 #include "interp_common.cuh"
 
 #ifndef CATALOG_MIN_BLOCKS
-#define CATALOG_MIN_BLOCKS 0
+#define CATALOG_MIN_BLOCKS 5
 #endif
 
 namespace {
@@ -93,7 +93,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxBands = 16;
 constexpr int kPackCols = 6;
-constexpr int kCompactCols = 4;
 
 // the packed prior constants, in the order of ops/catalog.py::CONST_NAMES
 enum Const : int {
@@ -114,7 +113,7 @@ enum Term : int { kAgeTerm, kFehTerm, kAvTerm, kMassTerm };
 struct CatalogArgs {
   const void* pars;   // (S, B, 5): parameters, or unit-cube points when `his` is set
   const void* model;  // (m0, m1, m2, 6) packed model table
-  const void* bc;     // (b0, b1, b2, b3, bc_ncols) BC table, or the compact copy
+  const void* bc;     // (b0, b1, b2, b3, bc_ncols) compact BC table: the band columns, zero-padded
   const void* obs;    // (S, row_len) observation rows
   const void* his;    // (S, 5) box tops of the unit-cube form, or null
   const void* dist;   // (S, 2): d_hi, ln 3 - 3 ln d_hi (posterior)
@@ -125,13 +124,10 @@ struct CatalogArgs {
   long long B;
   int io[3];          // grid axis d takes parameter column io[d]
   int n_bands;
-  int bc_ncols;       // kCompactCols with `compact`
+  int bc_ncols;       // W: 4, 8 or 16, at least n_bands
   int row_len;        // 6 + 2 n_bands + 2
   int has_plax;       // the catalog has a parallax column
-  int lanes;          // lanes a point, 1, 8 or 16 to measure; 0: group_lanes(S * B)
-  int compact;        // bc is the compact table: the n_bands <= 4 band columns, padded to 4
   int on[4];          // the age, [Fe/H], AV and mass priors are the kernel's (Term)
-  int band_cols[kMaxBands];
   Axis model_ax[3];
   Axis bc_ax[4];
   double c[kNConst];
@@ -209,30 +205,12 @@ __device__ T mass_lnpdf(T x, const double* c) {
   return (x < T(c[kMassLo]) || x > T(c[kMassHi])) ? neg_inf<T>() : ln;
 }
 
-template <typename T, int G>
-__device__ __forceinline__ void interp_bc(const CatalogArgs& a, const T* bx, int l, T* mags) {
-  if (a.compact) {
-    interp_group<T, 4, G, kCompactCols, true>(static_cast<const T*>(a.bc), a.bc_ax, bx, kCompactCols, nullptr,
-                                              kCompactCols, l, mags);
-  } else {
-    interp_group<T, 4, G, kMaxBands>(static_cast<const T*>(a.bc), a.bc_ax, bx, a.bc_ncols, a.band_cols, a.n_bands, l,
-                                     mags);
-  }
-}
-
-// the __launch_bounds__ minimum of resident blocks a SM, which caps the
-// registers a thread may take
-#define CATALOG_BLOCKS_PER_SM(G) (CATALOG_MIN_BLOCKS > 0 ? CATALOG_MIN_BLOCKS : ((G) == 1 ? 5 : 1))
-
-template <typename T, int G, bool POST>
-__global__ void __launch_bounds__(kThreads, CATALOG_BLOCKS_PER_SM(G))
+template <typename T, int W, bool POST>
+__global__ void __launch_bounds__(kThreads, CATALOG_MIN_BLOCKS)
     catalog_lnlike_kernel(const __grid_constant__ CatalogArgs a) {
-  constexpr unsigned kShift = G == 16 ? 4 : G == 8 ? 3 : G == 4 ? 2 : G == 2 ? 1 : 0;
-  const unsigned tid = blockIdx.x * kThreads + threadIdx.x;  // the launch keeps S * B * G < 2^31
+  const unsigned q = blockIdx.x * kThreads + threadIdx.x;  // (star, point), star-major; the launch keeps S * B < 2^31
   const long long n = a.S * a.B;
-  if ((long long)((tid & ~31u) >> kShift) >= n) return;  // the whole warp lies past the batch
-  const long long q = tid >> kShift;  // (star, point), star-major
-  const int l = (int)(tid % G);
+  if ((long long)(q & ~31u) >= n) return;  // the whole warp lies past the batch
   const bool active = q < n;
   const long long qc = active ? q : n - 1;
   const long long star = qc / a.B;
@@ -254,15 +232,15 @@ __global__ void __launch_bounds__(kThreads, CATALOG_BLOCKS_PER_SM(G))
 
   const T gx[3] = {user(a.io[0]), user(a.io[1]), user(a.io[2])};
   T v[kPackCols];
-  interp_group<T, 3, G, kPackCols, true>(static_cast<const T*>(a.model), a.model_ax, gx, kPackCols, nullptr,
-                                         kPackCols, l, v);
+  interp_group<T, 3, 1, kPackCols, true>(static_cast<const T*>(a.model), a.model_ax, gx, kPackCols, nullptr,
+                                         kPackCols, 0, v);
   T mags[kMaxBands];  // the BC values, then the magnitudes
   if (a.n_bands > 0) {
     const T bx[4] = {v[0], v[1], v[2], av};
-    interp_bc<T, G>(a, bx, l, mags);
+    interp_group<T, 4, 1, W, true>(static_cast<const T*>(a.bc), a.bc_ax, bx, W, nullptr, W, 0, mags);
   }
 
-  if (!active || l != 0) return;
+  if (!active) return;
 
   const T* o = static_cast<const T*>(a.obs) + star * a.row_len;
   T ll = T(0);
@@ -308,33 +286,25 @@ __global__ void __launch_bounds__(kThreads, CATALOG_BLOCKS_PER_SM(G))
   }
 }
 
-// lanes a point, from the H100 measurements (PERF.md): 16 lanes up to
-// 2048 points (6-14% faster than one at 256 and 1024 points), 8 up to 4096
-// (6% at 4096), one above (one lane is the fastest at 8192 and 65536)
-int group_lanes(long long n) { return n <= 2048 ? 16 : n <= 4096 ? 8 : 1; }
-
-template <typename T, int G, bool POST>
-cudaError_t launch_g(const CatalogArgs& a, cudaStream_t st) {
-  const long long threads = a.S * a.B * G;
-  if (threads >= (1LL << 31)) return cudaErrorInvalidValue;
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  catalog_lnlike_kernel<T, G, POST><<<(unsigned)blocks, kThreads, 0, st>>>(a);
+template <typename T, int W, bool POST>
+cudaError_t launch_w(const CatalogArgs& a, cudaStream_t st) {
+  const long long blocks = (a.S * a.B + kThreads - 1) / kThreads;
+  catalog_lnlike_kernel<T, W, POST><<<(unsigned)blocks, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, bool POST>
 int launch(const CatalogArgs* args, void* stream) {
   const CatalogArgs& a = *args;
-  if (a.S < 0 || a.B < 0 || a.n_bands < 0 || a.n_bands > kMaxBands || a.row_len != 8 + 2 * a.n_bands ||
-      (a.compact && (a.n_bands > kCompactCols || a.bc_ncols != kCompactCols)) || (POST && !a.dist) ||
-      (!POST && (a.his || !a.orig || !a.deriv)))
+  if (a.S < 0 || a.B < 0 || a.S * a.B >= (1LL << 31) || a.n_bands < 0 || a.n_bands > a.bc_ncols ||
+      a.row_len != 8 + 2 * a.n_bands || (POST && !a.dist) || (!POST && (a.his || !a.orig || !a.deriv)))
     return (int)cudaErrorInvalidValue;
   if (a.S == 0 || a.B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (a.lanes ? a.lanes : group_lanes(a.S * a.B)) {  // the launch table's widths only
-    case 16: return (int)launch_g<T, 16, POST>(a, st);
-    case 8: return (int)launch_g<T, 8, POST>(a, st);
-    case 1: return (int)launch_g<T, 1, POST>(a, st);
+  switch (a.bc_ncols) {  // the compact table's instantiated widths only
+    case 4: return (int)launch_w<T, 4, POST>(a, st);
+    case 8: return (int)launch_w<T, 8, POST>(a, st);
+    case 16: return (int)launch_w<T, 16, POST>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -348,8 +318,6 @@ int catalog_lnlike_max_bands() { return kMaxBands; }
 int catalog_lnlike_args_size() { return (int)sizeof(CatalogArgs); }
 
 int catalog_lnlike_n_consts() { return kNConst; }
-
-int catalog_lnlike_group_lanes(long long n) { return group_lanes(n); }
 
 // `args` points to a CatalogArgs (void*: see star_lnlike.cu)
 int catalog_lnlike_f32(const void* args, void* stream) {

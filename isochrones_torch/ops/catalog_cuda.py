@@ -10,15 +10,16 @@ Two wrappers over the one kernel body: :func:`catalog_lnpost_cuda` (the
 posterior, the fitter's path, one launch a call) and
 :func:`catalog_lnlike_cuda` (the likelihood's ``(ll, orig_val, deriv)``).
 Each counts its own launches. The wrapper describes both grids in one
-by-value argument struct (axis kinds and constants, knot pointers, band
-columns), and packs the stars' observations into one ``(S, 8 + 2 n_bands)``
-block on the device, both built once per
+by-value argument struct (axis kinds and constants, knot pointers), copies
+the BC table's wanted band columns into a compact table (:func:`compact_bc`)
+and packs the stars' observations into one ``(S, 8 + 2 n_bands)`` block on
+the device, all built once per
 :class:`~isochrones_torch.ops.catalog.CatalogLikelihood`; the posterior adds
 the packed prior constants of a
 :class:`~isochrones_torch.ops.catalog.CatalogPriors` once per pair; each call
-patches in its pointers. Caps: 16 bands, and ``S * B * G < 2**31`` threads
-(G, the lanes per point, from :func:`group_lanes`). Past a cap it raises a
-``ValueError`` that names it; it never falls back to the plain version.
+patches in its pointers. Caps: 16 bands, and ``S * B < 2**31`` points (one
+thread each). Past a cap it raises a ``ValueError`` that names it; it never
+falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -33,11 +34,12 @@ from ._build import load_library
 from .catalog import CONST_NAMES, CatalogLikelihood, CatalogPriors
 from .star_cuda import _Axis, _axes
 
-__all__ = ["catalog_lnlike_cuda", "catalog_lnpost_cuda", "group_lanes", "uses_compact_bc"]
+__all__ = ["catalog_lnlike_cuda", "catalog_lnpost_cuda", "compact_bc"]
 
 _MAX_BANDS = 16
-_MAX_THREADS = 1 << 31
-_COMPACT_COLS = 4
+_MAX_POINTS = 1 << 31
+#: the compact BC table's widths the kernel is instantiated for
+_COMPACT_WIDTHS = (4, 8, 16)
 
 
 class _CatalogArgs(ctypes.Structure):
@@ -48,8 +50,7 @@ class _CatalogArgs(ctypes.Structure):
         ("his", ctypes.c_void_p), ("dist", ctypes.c_void_p), ("out", ctypes.c_void_p), ("orig", ctypes.c_void_p),
         ("deriv", ctypes.c_void_p), ("S", ctypes.c_longlong), ("B", ctypes.c_longlong), ("io", ctypes.c_int * 3),
         ("n_bands", ctypes.c_int), ("bc_ncols", ctypes.c_int), ("row_len", ctypes.c_int), ("has_plax", ctypes.c_int),
-        ("lanes", ctypes.c_int), ("compact", ctypes.c_int), ("on", ctypes.c_int * 4),
-        ("band_cols", ctypes.c_int * _MAX_BANDS), ("model_ax", _Axis * 3), ("bc_ax", _Axis * 4),
+        ("on", ctypes.c_int * 4), ("model_ax", _Axis * 3), ("bc_ax", _Axis * 4),
         ("c", ctypes.c_double * len(CONST_NAMES)),
     ]
 
@@ -64,8 +65,6 @@ def _lib():
         fn.restype = ctypes.c_int
     for name in ("catalog_lnlike_args_size", "catalog_lnlike_max_bands", "catalog_lnlike_n_consts"):
         getattr(lib, name).restype = ctypes.c_int
-    lib.catalog_lnlike_group_lanes.argtypes = [ctypes.c_longlong]
-    lib.catalog_lnlike_group_lanes.restype = ctypes.c_int
     lib.star_lnlike_error_string.argtypes = [ctypes.c_int]
     lib.star_lnlike_error_string.restype = ctypes.c_char_p
     if lib.catalog_lnlike_args_size() != ctypes.sizeof(_CatalogArgs):
@@ -74,11 +73,6 @@ def _lib():
     if lib.catalog_lnlike_max_bands() != _MAX_BANDS or lib.catalog_lnlike_n_consts() != len(CONST_NAMES):
         raise RuntimeError("catalog kernel band limit or prior constants differ from the wrapper's")
     return lib
-
-
-def group_lanes(n_points: int) -> int:
-    """Lanes per (star, point) the kernel takes for ``S * B = n_points``."""
-    return int(_lib().catalog_lnlike_group_lanes(int(n_points)))
 
 
 def _pack_observations(lk: CatalogLikelihood) -> torch.Tensor:
@@ -96,17 +90,20 @@ def _pack_observations(lk: CatalogLikelihood) -> torch.Tensor:
     return torch.cat([x.to(ref.dtype).reshape(S, -1) for x in parts], dim=-1).contiguous()
 
 
-def uses_compact_bc(n_bands: int) -> bool:
-    """Whether the kernel reads the band columns from a compact copy of the BC
-    table (:func:`compact_bc`, built once per likelihood): with 1-4 bands."""
-    return 0 < n_bands <= _COMPACT_COLS
-
-
 def compact_bc(lk: CatalogLikelihood) -> torch.Tensor:
-    """The BC table's wanted band columns, padded with zeros to 4: a
-    contiguous ``(b0, b1, b2, b3, 4)`` copy (at most 4 bands)."""
-    vals = lk.bc.values[..., list(lk.band_icols)]
-    pad = vals.new_zeros(vals.shape[:-1] + (_COMPACT_COLS - vals.shape[-1],))
+    """The BC table's wanted band columns, in the likelihood's band order,
+    padded with zeros to the narrowest of 4, 8 or 16 columns that holds them:
+    a contiguous ``(b0, b1, b2, b3, W)`` copy. Raises past 16 bands."""
+    nb = len(lk.band_icols)
+    if nb > _MAX_BANDS:
+        raise ValueError(f"catalog kernel takes at most {_MAX_BANDS} bands, got {nb}")
+    bc_ncols = lk.bc.values.shape[-1]
+    for c in lk.band_icols:
+        if not 0 <= c < bc_ncols:
+            raise ValueError(f"band column {c} outside the BC table")
+    width = next(w for w in _COMPACT_WIDTHS if nb <= w)
+    vals = lk.bc.values[..., [int(c) for c in lk.band_icols]]
+    pad = vals.new_zeros(vals.shape[:-1] + (width - nb,))
     return torch.cat([vals, pad], dim=-1).contiguous()
 
 
@@ -116,53 +113,38 @@ _TEMPLATES = weakref.WeakKeyDictionary()
 _POST_TEMPLATES = weakref.WeakKeyDictionary()
 
 
-def _template(lk: CatalogLikelihood, dtype, device, compact=True):
-    """The likelihood's argument struct; ``compact=False`` keeps the full BC
-    table with any band count (for measurements)."""
-    nb = len(lk.band_icols)
-    compact = compact and uses_compact_bc(nb)
-    key = (dtype, device, compact)
+def _template(lk: CatalogLikelihood, dtype, device):
+    """The likelihood's argument struct, with the tensors it points into."""
+    key = (dtype, device)
     cached = _TEMPLATES.get(lk)
     if cached is not None and cached[0] == key:
         return cached[1]
-    if nb > _MAX_BANDS:
-        raise ValueError(f"catalog kernel takes at most {_MAX_BANDS} bands, got {nb}")
     if len(lk.pack6.knots) != 3 or lk.pack6.values.shape[-1] != 6:
         raise ValueError("catalog kernel needs a 3-d, 6-column packed model table")
     if len(lk.bc.knots) != 4:
         raise ValueError("catalog kernel needs a 4-d BC table")
     if sorted(int(i) for i in lk.index_order[:3]) != [0, 1, 2]:
         raise ValueError(f"catalog kernel needs (eep, age, feh) on the grid axes, got index order {lk.index_order}")
+    table = compact_bc(lk)
     obs = _pack_observations(lk)
     if obs.device != device or obs.dtype != dtype:
         raise ValueError(f"catalog observations must be {dtype} tensors on {device}, got {obs.dtype} on {obs.device}")
     a = _CatalogArgs()
     a.model = lk.pack6.values.data_ptr()
+    a.bc, a.bc_ncols = table.data_ptr(), table.shape[-1]
     a.obs = obs.data_ptr()
     a.io[:] = [int(i) for i in lk.index_order[:3]]
-    a.n_bands = nb
+    a.n_bands = len(lk.band_icols)
     a.row_len = obs.shape[1]
     a.has_plax = int(lk.plax is not None)
-    bc_ncols = lk.bc.values.shape[-1]
-    for i, c in enumerate(lk.band_icols):
-        if not 0 <= c < bc_ncols:
-            raise ValueError(f"band column {c} outside the BC table")
-        a.band_cols[i] = int(c)
-    keep = [obs]
-    if compact:
-        table = compact_bc(lk)
-        keep.append(table)
-        a.bc, a.bc_ncols, a.compact = table.data_ptr(), _COMPACT_COLS, 1
-    else:
-        a.bc, a.bc_ncols = lk.bc.values.data_ptr(), bc_ncols
     a.model_ax[:] = _axes(lk.pack6, dtype, device, "model")
     a.bc_ax[:] = _axes(lk.bc, dtype, device, "BC")
-    _TEMPLATES[lk] = (key, a, keep)
+    _TEMPLATES[lk] = (key, a, [obs, table])
     return a
 
 
-def _post_template(lk: CatalogLikelihood, pri: CatalogPriors, dtype, device, compact=True):
-    base = _template(lk, dtype, device, compact)
+def _post_template(lk: CatalogLikelihood, pri: CatalogPriors, dtype, device):
+    base = _template(lk, dtype, device)
     cached = _POST_TEMPLATES.get(pri)
     if cached is not None and cached[0] is base and cached[2]() is lk:
         return cached[1]
@@ -187,8 +169,8 @@ def _check_points(x, lk, name):
     if x.dim() != 3 or x.shape[0] != S or x.shape[2] != 5:
         raise ValueError(f"points must be ({S}, B, 5), got {tuple(x.shape)}")
     B = x.shape[1]
-    if S * B * group_lanes(S * B) >= _MAX_THREADS:
-        raise ValueError(f"catalog kernel takes S * B * lanes < 2**31 threads, got S={S}, B={B}")
+    if S * B >= _MAX_POINTS:
+        raise ValueError(f"catalog kernel takes S * B < 2**31 points, got S={S}, B={B}")
     return x.contiguous(), S, B
 
 

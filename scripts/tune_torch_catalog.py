@@ -1,30 +1,30 @@
-"""Measure the catalog kernel's launch choices on one CUDA card.
+"""Measure the catalog kernel's launch bounds and band-table widths on one CUDA card.
 
 Run from the repository root:
 
     python -m scripts.tune_torch_catalog [--reps 50] [--out FILE]
 
 Builds ``isochrones_torch/csrc/catalog_lnlike.cu`` alone into
-``isochrones_torch/_build/tune/`` once per variant, every ``nvcc`` started
-together: the ``__launch_bounds__`` minimum of blocks a SM
-(``CATALOG_MIN_BLOCKS``: 0 is the source's default rule, 5 at one lane a
-point and 1 above; then 1, 2, 3, 4, 6 and 8). It prints ptxas's registers
-and spills for every instantiation (type, lanes a point G, posterior or
-likelihood) with the occupancy those registers allow. Then, on the smoke
-run's 256-star catalogue at the MIST-scale grid in float32
+``isochrones_torch/_build/tune/`` once per variant of the ``__launch_bounds__``
+minimum of blocks a SM (``-DCATALOG_MIN_BLOCKS``: 1, 2, 3, 4, 5 (the
+source's own), 6 and 8), every ``nvcc`` started together. It prints ptxas's
+registers and spills for every instantiation (type, compact BC table width
+W, posterior or likelihood) with the occupancy those registers allow. Then,
+on the smoke run's 256-star catalogue at the MIST-scale grid in float32
 (``chip_smoke.catalog_table``), it takes the posterior kernel's device time
-(``torch.profiler``, ``chip_smoke.kernel_ms``) for every variant and every G
-at the catalog fits' batches, (256, 256) and (256, 32) parameters; for the
-default variant also at smaller batches (16 stars x 64 points, the CLI's
-fit, and 4 x 64, 256 x 16), the unit-cube form at (256, 256), the posterior
-with the full BC table instead of the compact one, and the likelihood
-instantiation with the full table (the earlier likelihood-only kernel's body). Each variant
-and G is first held to the plain version (the smoke's float32 tolerances).
-Prints one line per measurement and, with ``--out``, writes them as JSON.
+(``torch.profiler``, ``chip_smoke.kernel_ms``) for every variant at the
+catalog fits' batches, (256, 256) and (256, 32) parameters; for the
+source's own variant also at smaller batches (16 stars x 64 points, the
+CLI's fit, and 4 x 64, 256 x 16), the unit-cube form at (256, 256), the
+likelihood instantiation, and the posterior with 6 and 15 bands (the 8- and
+16-wide compact tables). Each measurement is first held to the plain
+version (the smoke's float32 tolerances). Prints one line per measurement
+and, with ``--out``, writes them as JSON.
 """
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -41,9 +41,9 @@ from isochrones_torch.batch import BatchStarFitter
 from isochrones_torch.ops import _build, catalog_cuda
 from isochrones_torch.ops.catalog import catalog_lnlike_plain, catalog_lnpost_plain, unit_box
 
-#: (tag, CATALOG_MIN_BLOCKS)
-VARIANTS = [("mb0", 0), ("mb1", 1), ("mb2", 2), ("mb3", 3), ("mb4", 4), ("mb6", 6), ("mb8", 8)]
-LANES = (1, 8, 16)  # the kernel's instantiated widths
+#: (tag, CATALOG_MIN_BLOCKS); mb5 is the source's own
+VARIANTS = [("mb5", 5), ("mb1", 1), ("mb2", 2), ("mb3", 3), ("mb4", 4), ("mb6", 6), ("mb8", 8)]
+DEFAULT = "mb5"
 BATCHES = (256, 32)
 #: (stars, points) below the fits' batches, timed with the default variant
 SMALL = ((16, 64), (4, 64), (256, 16))
@@ -142,12 +142,12 @@ def main():
                     priup=catalog_priors_as(pri, torch.float64), pts=pts, u=u,
                     his=torch.as_tensor(his, device=dev, dtype=torch.float32))
 
-    def launcher(c, lib, x, lanes, his=None, post=True, compact=True):
-        base = catalog_cuda._post_template(c["lk"], c["pri"], torch.float32, dev, compact) if post else \
-            catalog_cuda._template(c["lk"], torch.float32, dev, compact)
+    def launcher(c, lib, x, his=None, post=True):
+        base = catalog_cuda._post_template(c["lk"], c["pri"], torch.float32, dev) if post else \
+            catalog_cuda._template(c["lk"], torch.float32, dev)
         outs = [torch.empty(x.shape[:2], dtype=torch.float32, device=dev) for _ in range(1 if post else 3)]
         call = catalog_cuda._CatalogArgs.from_buffer_copy(base)
-        call.pars, call.out, call.lanes = x.data_ptr(), outs[0].data_ptr(), lanes
+        call.pars, call.out = x.data_ptr(), outs[0].data_ptr()
         call.S, call.B = x.shape[0], x.shape[1]
         call.his = None if his is None else his.data_ptr()
         if not post:
@@ -162,8 +162,8 @@ def main():
 
         return run
 
-    def measure(label, c, lib, x, lanes, his=None, post=True, compact=True):
-        run = launcher(c, lib, x, lanes, his, post, compact)
+    def measure(label, c, lib, x, his=None, post=True):
+        run = launcher(c, lib, x, his, post)
         got = [o.cpu().numpy() for o in run()]
         px = x if his is None else unit_box(x, c["pri"], his)
         ref = ([catalog_lnpost_plain(px.double(), c["lkup"], c["priup"])[0]] if post
@@ -174,29 +174,32 @@ def main():
         print(f"[tune] {label}: {ms:.5f} ms (max_abs_err {err:.3e})")
         return ms
 
+    def widened(c, reps):
+        """The catalogue with its bands repeated ``reps`` times."""
+        lk = c["lk"]
+        wide = dataclasses.replace(lk, band_icols=lk.band_icols * reps, mag_vals=lk.mag_vals.repeat(1, reps),
+                                   mag_uncs=lk.mag_uncs.repeat(1, reps))
+        return dict(c, lk=wide, lkup=catalog_likelihood_as(wide, torch.float64))
+
     full = catalog(CAT_STARS)
     for tag, (lib, _) in built.items():
         for B in BATCHES:
-            x = full["pts"][:, :B].contiguous()
-            for g in LANES:
-                measure(f"{tag} posterior B={B} G={g}", full, lib, x, g)
-    lib0 = built["mb0"][0]
+            measure(f"{tag} posterior B={B}", full, lib, full["pts"][:, :B].contiguous())
+    lib0 = built[DEFAULT][0]
     for n_stars, B in SMALL:
         c = catalog(n_stars)
-        x = c["pts"][:, :B].contiguous()
-        for g in LANES:
-            measure(f"mb0 posterior S={n_stars} B={B} G={g}", c, lib0, x, g)
-    for g in LANES:
-        measure(f"mb0 posterior unit cube B=256 G={g}", full, lib0, full["u"], g, his=full["his"])
+        measure(f"{DEFAULT} posterior S={n_stars} B={B}", c, lib0, c["pts"][:, :B].contiguous())
+    measure(f"{DEFAULT} posterior unit cube B=256", full, lib0, full["u"], his=full["his"])
     for B in BATCHES:
         x = full["pts"][:, :B].contiguous()
-        for g in LANES:
-            measure(f"mb0 posterior full BC table B={B} G={g}", full, lib0, x, g, compact=False)
-            measure(f"mb0 likelihood full BC table B={B} G={g}", full, lib0, x, g, post=False, compact=False)
+        measure(f"{DEFAULT} likelihood B={B}", full, lib0, x, post=False)
+        for reps in (2, 5):
+            c = widened(full, reps)
+            measure(f"{DEFAULT} posterior {len(c['lk'].band_icols)} bands (W="
+                    f"{catalog_cuda.compact_bc(c['lk']).shape[-1]}) B={B}", c, lib0, x)
     for B in BATCHES:
-        best = min(((v, k) for k, v in results["ms"].items() if f"posterior B={B} " in k))
-        print(f"[tune] fastest posterior at B={B}: {best[1]} {best[0]:.5f} ms; the launch table's G "
-              f"{catalog_cuda.group_lanes(CAT_STARS * B)}")
+        best = min(((v, k) for k, v in results["ms"].items() if k.endswith(f" posterior B={B}")))
+        print(f"[tune] fastest launch bounds at B={B}: {best[1]} {best[0]:.5f} ms; the source's {DEFAULT}")
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -17,6 +17,8 @@ The float32 test pins the floors: ``clamp(x, min=1e-300)`` is 0 in float32,
 in both packages.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pandas as pd
@@ -33,6 +35,7 @@ from isochrones_torch.batch import BatchStarFitter
 from isochrones_torch.ops.catalog import (
     CONST_NAMES, _feh_lnpdf, _mass_lnpdf, catalog_lnpost, catalog_lnpost_plain, pack_catalog_priors, unit_box,
 )
+from isochrones_torch.ops.catalog_cuda import compact_bc
 
 BANDS = ("J", "H", "K")
 SMALL = dict(n_feh=7, n_mass=30, n_eep=100, n_age=30)
@@ -289,3 +292,26 @@ def test_float32_floors_flush_to_zero():
         assert got.dtype == ref.dtype
         _assert_same(got, ref, atol=1e-10 if dt == torch.float64 else 1e-4)
         assert np.isneginf(got[0]) == (dt == torch.float32)
+
+
+@pytest.mark.parametrize("n_bands,width", [(0, 4), (1, 4), (3, 4), (4, 4), (5, 8), (8, 8), (9, 16), (16, 16),
+                                           (17, None)])
+def test_compact_bc_table(grids, n_bands, width):
+    """The kernel's BC table: the wanted band columns in the likelihood's
+    order, zero-padded to the narrowest of 4, 8 or 16 columns; past 16
+    bands, and for a column outside the table, a ValueError."""
+    _, tiso, df = grids
+    tf = BatchStarFitter(tiso, StarCatalog({c: df[c].values for c in df}, bands=BANDS), bands=BANDS)
+    lk = tf._catalog_likelihood()
+    cols = tuple((lk.band_icols * 6)[:n_bands])
+    wide = dataclasses.replace(lk, band_icols=cols)
+    if width is None:
+        with pytest.raises(ValueError, match="16 bands"):
+            compact_bc(wide)
+        return
+    table = compact_bc(wide)
+    assert table.shape == lk.bc.values.shape[:-1] + (width,) and table.is_contiguous()
+    np.testing.assert_array_equal(table[..., :n_bands].numpy(), lk.bc.values[..., list(cols)].numpy())
+    assert not table[..., n_bands:].any()
+    with pytest.raises(ValueError, match="outside the BC table"):
+        compact_bc(dataclasses.replace(lk, band_icols=(lk.bc.values.shape[-1],)))

@@ -46,7 +46,7 @@ from isochrones_torch import BinaryStarModel, StarClusterModel, TripleStarModel,
 from isochrones_torch.batch import BatchStarFitter
 from isochrones_torch.catalog import read_csv
 from isochrones_torch.ops.catalog import catalog_lnlike, catalog_lnlike_plain, catalog_lnpost_plain, unit_box
-from isochrones_torch.ops.catalog_cuda import catalog_lnlike_cuda, catalog_lnpost_cuda, group_lanes
+from isochrones_torch.ops.catalog_cuda import catalog_lnlike_cuda, catalog_lnpost_cuda, compact_bc
 from isochrones_torch.ops.cluster import cluster_lnmarginal, cluster_lnmarginal_plain
 from isochrones_torch.ops.cluster_cuda import cluster_lnmarginal_cuda
 from isochrones_torch.ops.star import star_lnlike_fused, star_lnlike_fused_plain
@@ -504,19 +504,17 @@ def _check_catalog_both(lk64, pars, name):
                RTOL_STAR_F32, ATOL_STAR_F32)
 
 
-@pytest.mark.parametrize("S,B,lanes", [(1, 1, 16), (3, 31, 16), (12, 64, 16), (16, 200, 8), (64, 400, 1),
-                                       (256, 256, 1), (16, 8000, 1), (64, 4097, 1)])
-def test_catalog_kernel_matches_plain(dev, S, B, lanes):
-    """Every group width the launch table takes (16 lanes up to 2048 points,
-    8 up to 4096, then one); stars without H, without a parallax, without
-    Teff (star 7) and without any band (star 11); NaN, top-knot and off-grid
-    points."""
+@pytest.mark.parametrize("S,B", [(1, 1), (3, 31), (12, 64), (16, 200), (64, 400), (256, 256), (16, 8000),
+                                 (64, 4097)])
+def test_catalog_kernel_matches_plain(dev, S, B):
+    """Batches inside one warp, one block and many, with a ragged last warp;
+    stars without H, without a parallax, without Teff (star 7) and without
+    any band (star 11); NaN, top-knot and off-grid points."""
     fitter, truths = _catalog(dev, S)
     lk = fitter._catalog_likelihood()
     pars = catalog_points(fitter.ic, truths, max(B, 8), seed=S + B)[:, :B]
     if B < 8:
         pars[:, -1, 2] = np.nan
-    assert group_lanes(S * B) == lanes
     _check_catalog_both(lk, pars, f"S={S} B={B}")
     if S * B >= 4096:
         ref = catalog_lnlike_plain(torch.as_tensor(pars, device=dev), lk)[0].cpu().numpy()
@@ -598,33 +596,35 @@ def _check_lnpost_both(fitter, x, name, his=None):
     return ref64[0].cpu().numpy()
 
 
-@pytest.mark.parametrize("S,B,lanes", [(1, 1, 16), (3, 31, 16), (12, 64, 16), (16, 200, 8), (4, 1000, 8),
-                                       (64, 400, 1), (256, 256, 1), (256, 32, 1), (16, 8000, 1), (64, 4097, 1)])
-def test_catalog_lnpost_kernel_matches_plain(dev, S, B, lanes):
-    """Every group width of the launch table; the holes of
-    ``catalog_table``; NaN, top-knot, off-grid and zero-distance points."""
+@pytest.mark.parametrize("S,B", [(1, 1), (3, 31), (12, 64), (16, 200), (4, 1000), (64, 400), (256, 256), (256, 32),
+                                 (16, 8000), (64, 4097)])
+def test_catalog_lnpost_kernel_matches_plain(dev, S, B):
+    """Batches inside one warp, one block and many, with a ragged last warp;
+    the holes of ``catalog_table``; NaN, top-knot, off-grid and
+    zero-distance points."""
     fitter, truths = _catalog(dev, S)
     pars = catalog_points(fitter.ic, truths, max(B, 8), seed=S + B)[:, :B]
     if B < 8:
         pars[:, -1, 2] = np.nan
-    assert group_lanes(S * B) == lanes
     ref = _check_lnpost_both(fitter, pars, f"S={S} B={B}")
     if S * B >= 4096:
         assert np.isfinite(ref).sum() > 100 and np.isneginf(ref).sum() > 10
 
 
+@pytest.mark.parametrize("reps,width", [(2, 8), (5, 16)])
 @pytest.mark.parametrize("S,B", [(12, 64), (64, 400)])
-def test_catalog_kernel_full_bc_table(dev, S, B):
-    """Six bands (J, H, K twice): more than the compact table's four, so both
-    instantiations read the band columns of the full BC table."""
+def test_catalog_kernel_full_bc_table(dev, S, B, reps, width):
+    """Six and fifteen bands (J, H, K repeated): the compact BC table's
+    8- and 16-column instantiations of both wrappers."""
     fitter, truths = _catalog(dev, S)
     lk = fitter._catalog_likelihood()
-    wide = dataclasses.replace(lk, band_icols=lk.band_icols * 2, mag_vals=lk.mag_vals.repeat(1, 2),
-                               mag_uncs=lk.mag_uncs.repeat(1, 2))
+    wide = dataclasses.replace(lk, band_icols=lk.band_icols * reps, mag_vals=lk.mag_vals.repeat(1, reps),
+                               mag_uncs=lk.mag_uncs.repeat(1, reps))
+    assert compact_bc(wide).shape[-1] == width
     fitter._likelihood = wide
     pars = catalog_points(fitter.ic, truths, B, seed=S + B + 1)
-    _check_catalog_both(wide, pars, f"6 bands S={S} B={B}")
-    _check_lnpost_both(fitter, pars, f"6 bands S={S} B={B}")
+    _check_catalog_both(wide, pars, f"{3 * reps} bands S={S} B={B}")
+    _check_lnpost_both(fitter, pars, f"{3 * reps} bands S={S} B={B}")
 
 
 @pytest.mark.parametrize("kind", ["log", "compare", "searchsorted"])
