@@ -69,7 +69,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     the CPU (identical NaN pattern, values to 1e-9); a mass -> EEP -> age
     round trip; ``iso.get_eep(..., accurate=True)`` likewise with its mass
     round trip; wall-clock, device time and kernel launches per call of both
-    modes in float32, beside the bytes bound (plain torch, no hand kernel);
+    modes in float32, beside the bytes bound (the fast form is kernel F's
+    EEP-only launch, the accurate form's Newton step plain torch);
 14. the simulated cluster and the nested cluster fit: ``SimulatedCluster``
     built on the card reproduces the committed 50-star catalogue column by
     column (drawn columns exactly, EEPs and magnitudes to 1e-9); the cluster
@@ -111,7 +112,29 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     points): the summary's columns and evidences;
 19. independent runs: ``BinaryStarModel.fit_multinest(n_runs=4)`` at 500
     live points (``run_nested``'s lockstep runs through the star kernel):
-    four finite run evidences and the distance interval holding the truth.
+    four finite run evidences and the distance interval holding the truth;
+20. the forward-model kernel (kernel F, ``csrc/generate.cu``) against
+    ``generate_plain`` on the card at the MIST-scale grid, all 15 columns and
+    11 bands: 1,000,000 seeded points (mass log-uniform 0.1-10, ages 8-10.2,
+    [Fe/H] -2.2-0.7, with exact and top knots, NaN rows and ages past every
+    track's end) in float64 (EEPs bitwise) and float32 (against the float64
+    plain version on the same float32 tables and inputs), every form: the
+    inversion with ``all_As`` off and on, EEPs given, the EEP alone, a column
+    subset, no columns, and the accurate form (the torch Newton step between
+    two launches) at 100,000 points; the kernel's device time beside its
+    bound and its plain version's; the fast ``get_eep_batch`` through the
+    kernel at phase 13's points (wall-clock, device time, launches) beside
+    the plain torch figures it replaced;
+21. the forward model and a population in float32 through the
+    interpolators, with the plain versions made to raise: ``track.generate``
+    of 1,000,000 stars (host round trip) and ``generate_device`` (no
+    read-back), ``generate_binary``, ``iso.isochrone(9.0)``, ``model_mag``
+    approximate and accurate, and ``StarPopulation`` in ``bench.py``'s
+    configuration: ``generate(100_000, exact_N=True)`` gives exactly 100,000
+    rows with no NaN total magnitude, and ``deredden`` equals regeneration at
+    AV = 0; stars per second; kernel F launched;
+22. the population entry point: ``python -m isochrones_torch.cli.generate_cmd
+    1000 --models synthetic --seed 0`` as a subprocess: exit 0 and 1000 rows.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -1735,6 +1758,398 @@ def phase_multi_run(dev, ic32, ic64):
     return n_star
 
 
+#: the forward model (phases 20-22): kernel F's points (the EEP inversion's
+#: batch of phase 13), the accurate form's, and the population of
+#: bench.py:425-450 (Salpeter 0.4-2.5, fB 0.4, gamma 0.3, [Fe/H] N(-0.1,
+#: 0.15), distance <= 3000 pc, AV 0-1)
+GEN_POINTS, GEN_ACCURATE_POINTS = 1_000_000, 100_000
+GEN_BINARIES, GEN_MODEL_MAG, GEN_POPULATION = 100_000, 10_000, 100_000
+#: kernel F against its plain version on the card: float64 EEPs bitwise, the
+#: columns and magnitudes to rtol 1e-10 + 1e-10 of the column's scale (the
+#: same lerps, summed in another order; log10 to within an ulp); float32
+#: against the float64 plain version on the same float32 tables and inputs,
+#: the EEPs to 2e-3 (the blend's weights rounded to float32, EEPs up to 1711)
+#: and the columns and magnitudes, at the kernel's own EEPs, to rtol 2e-5 +
+#: 2e-5 of the column's scale (three float32 weight products and 8 or 16
+#: corners a lerp)
+RTOL_GEN_F64, RTOL_GEN_F32, ATOL_EEP_F32 = 1e-10, 2e-5, 2e-3
+#: phase 13's fast get_eep at 1,000,000 points in plain torch, before kernel
+#: F took it (PERF.md, row D's earlier time): wall ms, launches
+EEP_EARLIER = (10.405, 650)
+GEN_CLI_STARS = 1000
+
+
+def generate_points(track, n, seed):
+    """Seeded (mass, age, feh, distance, AV) numpy columns: mass log-uniform
+    on 0.1-10, ages 8-10.2, [Fe/H] -2.2-0.7 (past the grid's -2.0-0.5), with
+    every exact mass and [Fe/H] knot, the top knots together, NaN rows in
+    each coordinate, and ages past every track's end."""
+    rng = np.random.default_rng(seed)
+    masses, fehs = track.masses, track.fehs
+    mass = np.exp(rng.uniform(np.log(0.1), np.log(10.0), n))
+    age = rng.uniform(8.0, 10.2, n)
+    feh = rng.uniform(-2.2, 0.7, n)
+    k = len(masses)
+    mass[:k] = masses
+    feh[k: k + len(fehs)] = fehs
+    mass[k + len(fehs)], feh[k + len(fehs)] = masses[-1], fehs[-1]
+    age[k + len(fehs) + 1: k + len(fehs) + 200] = 10.6  # past every track's end
+    mass[-1], age[-2], feh[-3] = np.nan, np.nan, np.nan
+    distance = rng.uniform(10.0, 5000.0, n)
+    AV = rng.uniform(0.0, 1.0, n)
+    return mass, age, feh, distance, AV
+
+
+def check_generate(name, got, ref, dtype):
+    """Kernel F's ``(eeps, props, mags, mags0)`` against the plain version's:
+    identical NaN patterns; the EEPs bitwise in float64 (``ATOL_EEP_F32`` in
+    float32), every column to ``rtol`` + ``rtol`` of its finite scale.
+    Returns the largest error over the columns, relative to their scale."""
+    rtol = RTOL_GEN_F64 if dtype == "float64" else RTOL_GEN_F32
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g is None and r is None:
+            continue
+        g, r = g.double().cpu().numpy(), r.double().cpu().numpy()
+        if g.shape != r.shape or not np.array_equal(np.isnan(g), np.isnan(r)):
+            raise AssertionError(f"{name} output {i}: shape {g.shape} vs {r.shape} or NaN pattern differs "
+                                 f"({int((np.isnan(g) != np.isnan(r)).sum())} values)")
+        if i == 0:
+            err = float(np.nanmax(np.abs(g - r))) if np.isfinite(r).any() else 0.0
+            if not err <= (0.0 if dtype == "float64" else ATOL_EEP_F32):
+                raise AssertionError(f"{name}: EEPs differ by {err}")
+            continue
+        g, r = g.reshape(len(g), -1), r.reshape(len(r), -1)
+        for c in range(r.shape[1]):
+            fin = np.isfinite(r[:, c])
+            if not fin.any():
+                continue
+            scale = max(1.0, float(np.abs(r[fin, c]).max()))
+            d = np.abs(g[fin, c] - r[fin, c])
+            if not (d <= rtol * (np.abs(r[fin, c]) + scale)).all():
+                raise AssertionError(f"{name} output {i} column {c}: max abs err {d.max()} (scale {scale})")
+            worst = max(worst, float(d.max()) / scale)
+    return worst
+
+
+def _age_entries(fm, mass, age, feh):
+    """Distinct entries of the +inf-padded age rows that the fast
+    inversion's four bisections read for these points (the reads of
+    ``searchsorted_rows``, step by step)."""
+    import math
+
+    import torch
+
+    from isochrones_torch.ops.interp import find_cells_1d
+
+    feh_knots, mass_knots, rows, _ = fm.eep_support
+    n_feh, n_mass, n_eep = feh_knots.shape[0], mass_knots.shape[0], rows.shape[1]
+    c0, _, oob0 = find_cells_1d(feh_knots, feh)
+    c1, _, oob1 = find_cells_1d(mass_knots, mass)
+    ok = ~(torch.isnan(age) | torch.isnan(feh) | torch.isnan(mass) | oob0 | oob1)
+    c0, c1, x = c0[ok].clamp(0, n_feh - 1), c1[ok].clamp(0, n_mass - 1), age[ok]
+    c0p, c1p = (c0 + 1).clamp(max=n_feh - 1), (c1 + 1).clamp(max=n_mass - 1)
+    flat, last = rows.reshape(-1), rows.numel() - 1
+    seen = []
+    for ind in (c0 * n_mass + c1, c0 * n_mass + c1p, c0p * n_mass + c1, c0p * n_mass + c1p):
+        lo, hi = torch.zeros_like(ind), torch.full_like(ind, n_eep)
+        for _ in range(max(1, int(math.ceil(math.log2(max(n_eep, 2))))) + 1):
+            mid = (lo + hi) // 2
+            idx = ind * n_eep + mid
+            seen.append(torch.unique(idx[idx <= last]))
+            pred = (flat[idx.clamp(max=last)] < x) & (idx <= last)
+            lo, hi = torch.where(pred, mid + 1, lo), torch.where(pred, hi, mid)
+    return int(torch.unique(torch.cat(seen)).numel())
+
+
+def generate_work(fm, mass, age, feh, AV, eeps, n_props, band_icols, all_As, invert=True):
+    """``(bytes, flops, special functions)`` that the forward model needs on
+    these points: the inputs read and the outputs written once; with the
+    inversion each age-row entry its bisections read, once, and each corner
+    track's length; each distinct model row the points' corners touch (its 4
+    magnitude columns and the P asked for) and each distinct BC row (its
+    band columns; the AV = 0 rows too with ``all_As``) once; per point ~50
+    flops a bisection step of four rows and ~30 for the blend, ~70 flops of
+    cell location, 8 corners x (6 + 2 (4 + P)), 16 corners x (8 + 2 per
+    band) and 3 a band for the magnitudes (twice with ``all_As``); one log10
+    (the distance modulus) and one log (the log mass axis)."""
+    import math
+
+    import torch
+
+    from isochrones_torch.ops.interp import interp_nd
+
+    N, e, nb = mass.numel(), mass.element_size(), len(band_icols)
+    io = fm.index_order
+    user = torch.stack([mass, eeps, feh], dim=-1)
+    gp = torch.stack([user[:, io[0]], user[:, io[1]], user[:, io[2]]], dim=-1)
+    v = interp_nd(fm.model.values, fm.model.knots, gp, icols=fm.model_icols, axis_maps=fm.model.axis_maps)
+    rows = _touched_rows(fm.model, gp) * (4 + n_props)
+    for av in (AV, torch.zeros_like(AV)) if all_As else (AV,):
+        rows += _touched_rows(fm.bc, torch.stack([v[:, 0], v[:, 1], v[:, 2], av], dim=-1)) * nb
+    n_out = N * (n_props + nb * (2 if all_As else 1))
+    steps = max(1, int(math.ceil(math.log2(max(fm.eep_support[2].shape[1], 2))))) + 1
+    if invert:
+        nbytes = (5 * N + N + n_out + _age_entries(fm, mass, age, feh) + rows) * e + 8 * fm.eep_support[3].numel()
+        inv_flops = 50 * steps + 30
+    else:
+        nbytes = (5 * N + N + n_out + rows) * e
+        inv_flops = 0
+    per_bc = 16 * (8 + 2 * nb) + 3 * nb
+    flops = N * (inv_flops + 70 + 8 * (6 + 2 * (4 + n_props)) + per_bc * (2 if all_As else 1))
+    return nbytes, flops, 2 * N
+
+
+def phase_generate_kernel(dev, ic32, ic64):
+    """Phase 20: kernel F (``csrc/generate.cu``) against ``generate_plain`` on
+    the card at the MIST-scale grid, every instantiation, both dtypes; its
+    device time beside its bound and its plain version's; the fast
+    ``get_eep`` through the kernel beside phase 13's earlier figures.
+    Returns the kernel's record."""
+    import dataclasses as dc
+
+    import torch
+
+    from isochrones_torch.ops.generate import generate_forward, generate_plain
+    from isochrones_torch.ops.generate_cuda import generate_cuda, get_eep_cuda
+    from isochrones_torch.ops.eep import interp_eep
+
+    tr64, tr32 = ic64.track, ic32.track
+    fm64, fm32 = tr64._forward_model, tr32._forward_model
+    # the float32 tables in float64, for the float32 kernel's reference
+    up = [grid_as(g, torch.float64) for g in (fm32.model, fm32.model_packed, fm32.bc)]
+    sup = tuple(x.double() if x.is_floating_point() else x for x in fm32.eep_support)
+    fm32up = dc.replace(fm32, model=up[0], model_packed=up[1], bc=up[2], eep_support=sup)
+    icols = tr64.model.icols("all")
+    bcols = tuple(tr64.bc.column_index[b] for b in tr64.bands)
+    cols = generate_points(tr64, GEN_POINTS, seed=20)
+    x64 = [torch.as_tensor(c, device=dev, dtype=torch.float64) for c in cols]
+    x32 = [x.float() for x in x64]
+    x32up = [x.double() for x in x32]
+    errs = {}
+    for all_As in (False, True):
+        ref = generate_plain(fm64, *x64, icols, bcols, all_As=all_As)
+        got = generate_cuda(fm64, *x64, icols, bcols, all_As=all_As)
+        errs[f"f64 invert all_As={all_As}"] = check_generate(f"kernel F f64 all_As={all_As}", got, ref, "float64")
+        got32 = generate_cuda(fm32, *x32, icols, bcols, all_As=all_As)
+        e_ref = interp_eep(x32up[1], x32up[2], x32up[0], *fm32up.eep_support, eep0=fm32up.eep0)
+        ref32 = generate_plain(fm32up, *x32up, icols, bcols, eeps=got32[0].double(), all_As=all_As)
+        errs[f"f32 invert all_As={all_As}"] = check_generate(f"kernel F f32 all_As={all_As}", got32,
+                                                            (e_ref,) + tuple(ref32[1:]), "float32")
+        # the EEP-given form at the kernel's own EEPs is the inverting form, bitwise
+        giv32 = generate_cuda(fm32, *x32, icols, bcols, eeps=got32[0], all_As=all_As)
+        for a, b in zip(giv32[1:], got32[1:]):
+            if a is not None and not torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)):
+                raise AssertionError("kernel F: the EEP-given form differs from the inverting form")
+    n_fin = int(torch.isfinite(ref[2]).all(dim=1).sum())
+    # EEPs given past the grid on both sides, both dtypes; EEP-only; a column subset and few bands
+    given = torch.as_tensor(np.random.default_rng(3).uniform(-20.0, 1750.0, GEN_POINTS), device=dev,
+                            dtype=torch.float64)
+    errs["f64 given"] = check_generate("kernel F f64 eeps given", generate_cuda(fm64, *x64, icols, bcols, eeps=given),
+                                       generate_plain(fm64, *x64, icols, bcols, eeps=given), "float64")
+    g32 = generate_cuda(fm32, *x32, icols, bcols, eeps=given.float())
+    errs["f32 given"] = check_generate("kernel F f32 eeps given", g32, generate_plain(
+        fm32up, *x32up, icols, bcols, eeps=given.float().double()), "float32")
+    sub, few = tr64.model.icols(["radius", "age", "Teff"]), bcols[:3]
+    errs["f64 subset"] = check_generate("kernel F f64 3 columns 3 bands", generate_cuda(fm64, *x64, sub, few),
+                                        generate_plain(fm64, *x64, sub, few), "float64")
+    errs["f64 P=0"] = check_generate("kernel F f64 no columns", generate_cuda(fm64, *x64, (), few, all_As=True),
+                                     generate_plain(fm64, *x64, (), few, all_As=True), "float64")
+    eo64 = get_eep_cuda(fm64, x64[0], x64[1], x64[2])
+    if not torch.equal(eo64.nan_to_num(-1.0), interp_eep(x64[1], x64[2], x64[0], *fm64.eep_support,
+                                                          eep0=fm64.eep0).nan_to_num(-1.0)):
+        raise AssertionError("kernel F EEP-only f64 differs from interp_eep")
+    if not torch.equal(get_eep_cuda(fm32, *x32[:3]).nan_to_num(-1.0), got32[0].nan_to_num(-1.0)):
+        raise AssertionError("kernel F EEP-only f32 differs from the inverting form's EEPs")
+    # the accurate form: the kernel's EEP, the torch Newton step, the kernel with the EEP given
+    n_acc = GEN_ACCURATE_POINTS
+    xa = [x[:n_acc] for x in x64]
+    errs["f64 accurate"] = check_generate("accurate f64", generate_forward(fm64, *xa, icols, bcols, accurate=True),
+                                          generate_plain(fm64, *xa, icols, bcols, accurate=True), "float64")
+    torch.cuda.synchronize()
+    print(f"[generate] kernel F vs generate_plain, {GEN_POINTS} points ({n_fin} with every magnitude finite), "
+          f"{len(icols)} columns, {len(bcols)} bands: every form within tolerance (f64 EEPs bitwise, columns rtol "
+          f"{RTOL_GEN_F64}; f32 EEPs {ATOL_EEP_F32}, columns rtol {RTOL_GEN_F32}); worst error / column scale "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; accurate form at {n_acc} points")
+
+    # times in float32: the kernel, its plain version, its bound; then the fast get_eep
+    ms = kernel_ms(lambda: generate_cuda(fm32, *x32, icols, bcols), "generate_kernel", reps=20)
+    ms_as = kernel_ms(lambda: generate_cuda(fm32, *x32, icols, bcols, all_As=True), "generate_kernel", reps=10)
+    plain_ms = cuda_ms(lambda: generate_plain(fm32, *x32, icols, bcols), reps=3, warmup=1)
+    ms64 = kernel_ms(lambda: generate_cuda(fm64, *x64, icols, bcols), "generate_kernel", reps=5)
+    b = bound(*generate_work(fm32, *x32[:3], x32[4], got32[0], len(icols), bcols, False), "float32")
+    eep_ms = kernel_ms(lambda: get_eep_cuda(fm32, *x32[:3]), "generate_kernel", reps=20)
+    m13, a13, f13 = (torch.as_tensor(c, device=dev, dtype=torch.float32)
+                     for c in eep_points(tr64, EEP_FAST_POINTS, seed=21))
+    wall, busy, launches = timed_call(lambda: tr32.get_eep_batch(m13, a13, f13), reps=20)
+    print(f"[generate] time f32 {GEN_POINTS} points, {len(icols)} columns, {len(bcols)} bands: kernel {ms:.4f} ms "
+          f"(all_As {ms_as:.4f} ms, f64 {ms64:.4f} ms), plain {plain_ms:.3f} ms; bound {b[0]:.5f} ms ({b[2]}), kernel "
+          f"at {b[0] / ms:.4f} of it; EEP-only kernel {eep_ms:.4f} ms")
+    print(f"[generate] fast get_eep_batch f32 at phase 13's {EEP_FAST_POINTS} points through the kernel: {wall:.3f} ms "
+          f"wall-clock, device busy {busy:.4f} ms, {launches:.1f} kernel launches a call (plain torch before: "
+          f"{EEP_EARLIER[0]} ms, {EEP_EARLIER[1]} launches)")
+    return dict(max_abs_err=errs["f32 invert all_As=False"], ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                bound_by=b[1], ms_all_As=ms_as, ms_f64=ms64, eep_only_ms=eep_ms, get_eep_wall_ms=wall,
+                get_eep_launches=launches, shape={"N": GEN_POINTS, "P": len(icols), "bands": len(bcols),
+                                                  "dtype": "float32"})
+
+
+def phase_forward_model(dev, ic32):
+    """Phase 21: the forward model and a population in float32 through the
+    entry points a user calls, with the plain versions made to raise. Returns
+    ``(kernel F's launches, the record of the run)``."""
+    import torch
+
+    import isochrones_torch.ops.generate as gen_mod
+    from isochrones_torch.ops.generate_cuda import generate_cuda, get_eep_cuda
+    from isochrones_torch.populations import StarPopulation, deredden
+    from isochrones_torch.priors import AVPrior, DistancePrior, GaussianPrior, SalpeterPrior
+
+    track = ic32.track
+    mass, age, feh, distance, AV = generate_points(track, GEN_POINTS, seed=22)
+    dm, da, df_, dd, dav = (torch.as_tensor(c, device=dev, dtype=torch.float32)
+                            for c in (mass, age, feh, distance, AV))
+    pop = StarPopulation(track, imf=SalpeterPrior(bounds=(0.4, 2.5)), fB=0.4, gamma=0.3,
+                         feh=GaussianPrior(-0.1, 0.15), distance=DistancePrior(max_distance=3000),
+                         AV=AVPrior(bounds=[0, 1]))
+    track.generate(mass[:1000], age[:1000], feh[:1000], distance=distance[:1000], AV=AV[:1000])  # warm-up
+    pop.generate(1000, rng=1)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's path")
+
+    saved = gen_mod.generate_plain, gen_mod.interp_eep
+    gen_mod.generate_plain = gen_mod.interp_eep = refuse
+    generate_cuda.launches = get_eep_cuda.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        df = track.generate(mass, age, feh, distance=distance, AV=AV)
+        host_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eeps, values, mags = track.generate_device(dm, da, df_, distance=dd, AV=dav)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        binary = track.generate_binary(mass[:GEN_BINARIES], 0.6 * mass[:GEN_BINARIES], age[:GEN_BINARIES],
+                                       feh[:GEN_BINARIES], distance=distance[:GEN_BINARIES],
+                                       AV=AV[:GEN_BINARIES], all_As=True)
+        bin_s = time.perf_counter() - t0
+        iso_df = ic32.isochrone(9.0)
+        k = GEN_MODEL_MAG
+        t0 = time.perf_counter()
+        mm_fast = ic32.model_mag(mass[:k], age[:k], feh[:k], distance=distance[:k], AV=AV[:k], approx=True)
+        fast_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mm_acc = ic32.model_mag(mass[:k], age[:k], feh[:k], distance=distance[:k], AV=AV[:k])
+        acc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        popdf = pop.generate(GEN_POPULATION, rng=2, exact_N=True)
+        pop_s = time.perf_counter() - t0
+        # where the time goes: generate's upload, launch, read-back and frame;
+        # a population round's host draws and its generate_binary
+        t0 = time.perf_counter()
+        up = [torch.as_tensor(c, device=dev, dtype=torch.float32) for c in (mass, age, feh, distance, AV)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = track._forward(*up, list(track.model.columns), track.bands)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        [x.cpu().numpy() for x in out[1:3]]
+        t3 = time.perf_counter()
+        M = int(np.ceil(GEN_POPULATION * 1.25)) + 16
+        rng = np.random.default_rng(3)
+        t4 = time.perf_counter()
+        draws = [*pop.binary_distribution.sample(M, rng=rng), pop.sfh.sample_ages(M, rng=rng),
+                 pop.feh.sample(M, rng=rng), pop.distance.sample(M, rng=rng), pop.AV.sample(M, rng=rng)]
+        t5 = time.perf_counter()
+        track.generate_binary(*draws[:4], distance=draws[4], AV=draws[5], all_As=True)
+        t6 = time.perf_counter()
+        breakdown = dict(upload_ms=1e3 * (t1 - t0), kernel_call_ms=1e3 * (t2 - t1), read_back_ms=1e3 * (t3 - t2),
+                         frame_ms=1e3 * (host_s - (t3 - t0)), population_draws_ms=1e3 * (t5 - t4),
+                         population_generate_binary_ms=1e3 * (t6 - t5))
+        dered = deredden(popdf)
+        old = track.generate_binary(popdf["initial_mass_0"], popdf["initial_mass_1"], popdf["requested_age_0"],
+                                    popdf["initial_feh_0"], distance=popdf["distance_0"], AV=0.0, all_As=True)
+        torch.cuda.synchronize()
+    finally:
+        gen_mod.generate_plain, gen_mod.interp_eep = saved
+    n_gen, n_eep = generate_cuda.launches, get_eep_cuda.launches
+    if n_gen <= 0 or n_eep <= 0:
+        raise AssertionError(f"the forward model did not launch kernel F: {n_gen} + {n_eep} launches")
+    n_df = len(df["mass"])
+    if n_df != GEN_POINTS or values.shape != (GEN_POINTS, len(track.model.columns)) or \
+            mags.shape != (GEN_POINTS, len(track.bands)) or eeps.shape != (GEN_POINTS,):
+        raise AssertionError(f"generate shapes: {n_df} rows, device {tuple(values.shape)} {tuple(mags.shape)}")
+    if not np.array_equal(np.stack([df[f"{b}_mag"] for b in track.bands], axis=-1), mags.cpu().numpy(),
+                          equal_nan=True):
+        raise AssertionError("generate and generate_device differ")
+    n_fin = int(np.isfinite(df["J_mag"]).sum())
+    if not GEN_POINTS // 4 < n_fin < GEN_POINTS:
+        raise AssertionError(f"generate: {n_fin} finite J magnitudes of {GEN_POINTS}")
+    if not np.isfinite(iso_df["J_mag"]).all() or len(iso_df["J_mag"]) < 50:
+        raise AssertionError(f"isochrone(9.0): {len(iso_df['J_mag'])} rows")
+    if len(binary["J_mag"]) != GEN_BINARIES or not np.isfinite(binary["J_mag"]).sum() > GEN_BINARIES // 4:
+        raise AssertionError("generate_binary: too few finite systems")
+    both = np.isfinite(mm_fast).all(axis=1) & np.isfinite(mm_acc).all(axis=1)
+    if not both.sum() > k // 4 or not np.abs(mm_fast[both] - mm_acc[both]).max() < 0.5:
+        raise AssertionError(f"model_mag approx vs accurate: {both.sum()} finite")
+    if len(popdf["mass_0"]) != GEN_POPULATION or any(np.isnan(popdf[f"{b}_mag"]).any() for b in track.bands):
+        raise AssertionError(f"population: {len(popdf['mass_0'])} rows, NaN total magnitudes")
+    # NaN as 0 (the reference test's fillna(0)), to 1e-5 of each value in
+    # float32; the regeneration re-inverts the interpolated float32 initial
+    # masses, so a star at its track's last valid EEP may fall off it: at
+    # most 0.1% of the rows may differ
+    off = np.zeros(GEN_POPULATION, dtype=bool)
+    worst = 0.0
+    for c in (c for c in dered if c in old):
+        a, r = (np.nan_to_num(np.asarray(x, dtype=float)) for x in (dered[c], old[c]))
+        d = np.abs(a - r) / np.maximum(1.0, np.abs(r))
+        off |= d > 1e-5
+        worst = max(worst, float(d[d <= 1e-5].max(initial=0.0)))
+    flips = int(off.sum())
+    if flips > GEN_POPULATION // 1000:
+        raise AssertionError(f"deredden vs regeneration at AV = 0: {flips} rows differ")
+    rec = dict(generate_s=host_s, generate_device_s=dev_s, generate_stars_per_s=GEN_POINTS / host_s,
+               generate_device_stars_per_s=GEN_POINTS / dev_s, population_s=pop_s,
+               population_stars_per_s=GEN_POPULATION / pop_s, launches_generate=n_gen, launches_get_eep=n_eep,
+               **breakdown)
+    print(f"[forward] f32, {GEN_POINTS} stars, {len(track.model.columns)} columns, {len(track.bands)} bands: "
+          f"generate (host round trip) {host_s:.3f} s = {GEN_POINTS / host_s:.1f} stars/s, generate_device "
+          f"{1e3 * dev_s:.3f} ms = {GEN_POINTS / dev_s:.1f} stars/s ({n_fin} with finite J); generate_binary "
+          f"{GEN_BINARIES} systems {bin_s:.3f} s; isochrone(9.0) {len(iso_df['J_mag'])} rows; model_mag {k} stars "
+          f"approx {fast_s:.3f} s, accurate {acc_s:.3f} s")
+    print(f"[forward] StarPopulation (bench.py:425-450) generate({GEN_POPULATION}, exact_N=True): {pop_s:.3f} s = "
+          f"{GEN_POPULATION / pop_s:.1f} stars/s, no NaN total magnitude; deredden vs regeneration at AV = 0 max "
+          f"relative diff {worst:.2e} on all but {flips} rows; kernel F launches {n_gen} (generate) + {n_eep} (EEP-only), no plain version run")
+    print(f"[forward] where the time goes (ms): {json.dumps({k: round(v, 3) for k, v in breakdown.items()})}; one "
+          f"population round is {M} systems, {2 * M} generated rows")
+    return n_gen + n_eep, rec
+
+
+def phase_generate_entry_point(workdir):
+    """Phase 22: ``python -m isochrones_torch.cli.generate_cmd`` as a subprocess."""
+    import csv
+
+    out = os.path.join(workdir, "cmd.csv")
+    args = [str(GEN_CLI_STARS), "--models", "synthetic", "--seed", "0", "-o", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "isochrones_torch.cli.generate_cmd", *args],
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(out):
+        raise AssertionError(f"generate_cmd CLI: exit {proc.returncode}, log:\n{(proc.stdout + proc.stderr)[-3000:]}")
+    with open(out, newline="") as f:
+        rows = list(csv.reader(f))
+    if len(rows) != GEN_CLI_STARS + 1 or "J_mag" not in rows[0]:
+        raise AssertionError(f"generate_cmd CLI output: {len(rows) - 1} rows, header {rows[0]}")
+    j = rows[0].index("J_mag")
+    if not all(r[j] and np.isfinite(float(r[j])) for r in rows[1:]):
+        raise AssertionError("generate_cmd CLI output: a star without a J magnitude")
+    print(f"[generate-cmd] python -m isochrones_torch.cli.generate_cmd {' '.join(args[:-1])} <csv>: exit 0, "
+          f"{secs:.2f} s, {len(rows) - 1} rows, {len(rows[0]) - 1} columns")
+
+
 def main():
     import torch
 
@@ -1986,11 +2401,16 @@ def main():
         n_cat_mcmc, n_cat_nested, n_cat_dynamic = phase_catalog_fits(dev, ic32, truths, table)
         phase_catalog_entry_point(workdir)
         n_multi = phase_multi_run(dev, ic32, ic64)
+        # ---- 20-22. kernel F, the forward model and populations, their entry point
+        gen_record = phase_generate_kernel(dev, ic32, ic64)
+        n_gen, forward_record = phase_forward_model(dev, ic32)
+        phase_generate_entry_point(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     tree_record["launches"] = n_tree
     tree_record["launches_entry_point"] = n_tree_cli
-    print(json.dumps({"eep_inversion": dict(eep_record, route="plain torch", source="isochrones_torch/ops/eep.py",
+    print(json.dumps({"eep_inversion": dict(eep_record, route="cuda (fast, kernel F); plain torch (Newton)",
+                                            source="isochrones_torch/csrc/generate.cu, isochrones_torch/ops/eep.py",
                                             replaces="isochrones_tpu/ops/eep.py:35", dtype="float32")}))
 
     ms, plain_ms, bound_ms, bound_by = times[MAIN_SHAPE]
@@ -2018,6 +2438,11 @@ def main():
         "launches": n_cat_mcmc + n_cat_nested + n_cat_dynamic, "launches_mcmc_fit": n_cat_mcmc,
         "launches_nested_fit": n_cat_nested, "launches_dynamic_fit": n_cat_dynamic,
         "library_ms": None, **catalog_record,
+    }, {
+        "name": "generate", "route": "cuda",
+        "source": "isochrones_torch/csrc/generate.cu",
+        "replaces": "isochrones_tpu/models/interpolator.py:109",
+        "launches": n_gen, "library_ms": None, **gen_record, **forward_record,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

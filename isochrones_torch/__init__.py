@@ -17,7 +17,11 @@ and the cluster simulator (``SimulatedCluster``), in plain torch; whole-catalog
 fitting (``isochrones_torch.batch``: ``BatchStarFitter``, ``fit_catalog``,
 every star's MCMC or nested fit in lockstep, with ``summary.summarize_batch``
 and ``python -m isochrones_torch.cli.fit_catalog``), the catalog likelihood as
-a fourth kernel.
+a fourth kernel; the forward model (the interpolators' ``generate``,
+``generate_device``, ``generate_binary``, ``isochrone``, ``model_value``,
+``model_mag``), population synthesis (``StarPopulation``, ``deredden``) and
+``python -m isochrones_torch.cli.generate_cmd``, the forward model and the
+fast EEP inversion as a fifth kernel.
 """
 
 __version__ = "0.1.0"
@@ -26,6 +30,9 @@ from .catalog import StarCatalog
 from .cluster import SimulatedCluster, StarClusterModel, clusterfit, simulate_cluster
 from .isochrone import get_ichrone
 from .ops import GridData, interp_nd
+from .populations import (
+    BinaryDistribution, StarFormationHistory, StarFormationHistoryGrid, StarPopulation, deredden,
+)
 from .starmodel import BasicStarModel, BinaryStarModel, SingleStarModel, TripleStarModel
 from .treemodel import StarModel, StarModelGroup
 
@@ -44,4 +51,9 @@ __all__ = [
     "TripleStarModel",
     "StarModel",
     "StarModelGroup",
+    "StarPopulation",
+    "StarFormationHistory",
+    "StarFormationHistoryGrid",
+    "BinaryDistribution",
+    "deredden",
 ]

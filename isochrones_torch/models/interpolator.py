@@ -2,14 +2,17 @@
 ``isochrones_tpu/models/interpolator.py``): one stellar model grid joined
 with one bolometric-correction grid, on one device in one dtype.
 
-Ported: the isochrone and the evolution-track interpolator with the packed
-tables (``model_packed``, and ``model_packed6`` for the fused star
-likelihood), the parameter layout, grid limits, ``interp_value``/
-``interp_mag`` (batched on tensors, and host wrappers on numpy), the
-per-property accessors, ``__call__``, and EEP inversion (``get_eep``, fast on
-track grids and accurate on both, ``max_eep``). Forward generation
-(``generate*``, ``isochrone``, ``model_value``, ``model_mag``) waits for a
-later port and raises ``NotImplementedError``.
+The isochrone and the evolution-track interpolator with the packed tables
+(``model_packed``, and ``model_packed6`` for the fused star likelihood), the
+parameter layout, grid limits, ``interp_value``/``interp_mag`` (batched on
+tensors, and host wrappers on numpy), the per-property accessors and the
+``mag[band]`` accessor, ``__call__``, EEP inversion (``get_eep``, fast on
+track grids and accurate on both, ``max_eep``) and the forward model
+(``generate``, ``generate_device``, ``generate_binary``, ``isochrone``,
+``model_value``, ``model_mag``). On the card the fast inversion and the
+forward model run in one hand-written kernel
+(:mod:`isochrones_torch.ops.generate_cuda`); a table comes back as a
+:class:`~isochrones_torch.summary.Frame`.
 """
 
 from __future__ import annotations
@@ -19,15 +22,27 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.eep import get_eep_newton, interp_eep
+from ..ops.eep import get_eep_newton
+from ..ops.generate import ForwardModel, generate_forward, get_eep_fast
 from ..ops.interp import GridData, interp_nd
 from ..ops.mags import interp_mag as _interp_mag_kernel
+from ..summary import Frame
+from ..utils import addmags
 
 __all__ = ["ModelGridInterpolator", "EvolutionTrackInterpolator", "IsochroneInterpolator"]
 
-#: rows of one host-facing EEP inversion call; a longer request is cut into
-#: pieces of this many rows, which bounds the device memory of one call
+#: rows of one host-facing EEP inversion or forward-model call; a longer
+#: request is cut into pieces of this many rows, which bounds the device
+#: memory of one call
 HOST_CHUNK = 1 << 20
+
+
+def _host_rows(arrays, shape=None):
+    """Host arrays broadcast together (to ``shape`` when given), each as a
+    flat float64 column."""
+    arrs = [np.asarray(x, dtype=float) for x in arrays]
+    shape = np.broadcast_shapes(*(a.shape for a in arrs)) if shape is None else shape
+    return [np.array(np.broadcast_to(a, shape).reshape(-1)) for a in arrs], shape
 
 
 class ModelGridInterpolator:
@@ -167,6 +182,31 @@ class ModelGridInterpolator:
             raise AttributeError("Mass is not a dimension of this model grid!")
         return self.model.knots[self._axis_names().index("mass")].cpu().numpy()
 
+    @property
+    def model_grid(self):
+        """The stellar-model grid, the device's :class:`GridData` (reference
+        models.py:337-341)."""
+        return self.model
+
+    @property
+    def bc_grid(self):
+        """The bolometric-correction grid (reference models.py:343-347)."""
+        return self.bc
+
+    @property
+    def prop_map(self):
+        """Canonical property name -> grid column name for the standard
+        properties of this grid, axes included (reference models.py:43-54);
+        the columns carry the canonical names, so it is the identity."""
+        have = set(self._axis_names()) | set(self.model.columns)
+        std = ("eep", "age", "feh", "mass", "initial_mass", "logTeff", "logg", "logL")
+        return {p: p for p in std if p in have}
+
+    @property
+    def column_map(self):
+        """Inverse of :attr:`prop_map` (reference models.py:56-58)."""
+        return {v: k for k, v in self.prop_map.items()}
+
     # ------------------------------------------------------------ properties
     def _as_points(self, pars, n):
         """Broadcast the first ``n`` host parameters into a (rows, n) tensor."""
@@ -248,6 +288,33 @@ class ModelGridInterpolator:
             return float(Teff[0]), float(logg[0]), float(feh[0]), mags[0]
         return Teff.reshape(shape), logg.reshape(shape), feh.reshape(shape), mags.reshape(shape + (-1,))
 
+    @property
+    def mag(self):
+        """``ic.mag[band](*pars)``: one band's magnitude at host parameters, a
+        float for scalars (reference observation.py:578, cluster.py:148-152)."""
+        ic = self
+
+        class _MagAccessor:
+            def __getitem__(self, band):
+                def mag_fn(*pars):
+                    out = np.asarray(ic.interp_mag(list(pars), [band])[3])[..., 0]
+                    return float(out) if out.ndim == 0 or out.size == 1 else out
+
+                return mag_fn
+
+            def keys(self):
+                return list(ic.bands)
+
+        return _MagAccessor()
+
+    def initialize(self, pars=None):
+        """One magnitude evaluation as a sanity check: finite Teff, logg,
+        feh and magnitudes (reference models.py:349-358)."""
+        if pars is None:
+            pars = [1.04, 150.0, -0.35, 1000.0, 0.2] if self.eep_replaces == "age" else [150.0, 9.7, -0.35, 1000.0, 0.2]
+        Teff, logg, feh, mags = self.interp_mag(pars, self.bands)
+        assert np.isfinite([Teff, logg, feh]).all(), (Teff, logg, feh)
+        assert np.isfinite(mags).all(), mags
 
     # ------------------------------------------------------------------ EEP
     def max_eep(self, mass, feh):
@@ -273,9 +340,7 @@ class ModelGridInterpolator:
         if self.eep_replaces == "age":
             if self.eep_support is None:
                 raise ValueError("No EEP support arrays on this grid")
-            feh_knots, mass_knots, age_arrays, lengths = self.eep_support
-            eep0 = float(self.model.knots[-1][0])
-            fast = interp_eep(age, feh, mass, feh_knots, mass_knots, age_arrays, lengths, eep0=eep0)
+            fast = get_eep_fast(self._forward_model, mass, age, feh)
             if not accurate:
                 return fast
             eep, resid = get_eep_newton(self.model, fast, age, feh, mass, self.model.column_index["age"])
@@ -314,13 +379,139 @@ class ModelGridInterpolator:
         raise NotImplementedError
 
     # ------------------------------------------------------------- generation
-    def _forward_model_not_ported(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the forward model (generate, generate_device, generate_binary, isochrone, model_value, "
-            "model_mag) is not ported yet (ROADMAP queue 1, \"Forward model and populations\")")
+    @property
+    def _forward_model(self) -> ForwardModel:
+        """The tables of the forward model and the fast EEP inversion, built
+        once."""
+        fm = getattr(self, "_fm", None)
+        if fm is None:
+            fm = self._fm = ForwardModel(
+                model=self.model, model_packed=self.model_packed, bc=self.bc, eep_support=self.eep_support,
+                index_order=self._param_index_order, model_icols=self._model_icols,
+                eep0=float(self.model.knots[-1][0]), i_age=self.model.column_index.get("age", -1))
+        return fm
 
-    generate = generate_device = generate_binary = _forward_model_not_ported
-    isochrone = model_value = model_mag = _forward_model_not_ported
+    def _forward(self, mass, age, feh, distance, AV, prop_names, bands, eeps=None, all_As=False, accurate=False):
+        """The forward model on device tensors: ``(eeps, values, mags, mags
+        at AV = 0 or None)``; the inversion needs the EEP support arrays."""
+        if eeps is None and self.eep_support is None:
+            raise ValueError("No EEP support arrays on this grid")
+        return generate_forward(self._forward_model, mass, age, feh, distance, AV, self.model.icols(prop_names),
+                                tuple(self.bc.column_index[b] for b in bands), eeps=eeps, all_As=all_As,
+                                accurate=accurate)
+
+    def generate(self, mass, age, feh, props="all", bands=None, eeps=None, return_df=True, return_dict=False,
+                 distance=10.0, AV=0.0, all_As=False, accurate=False, **kwargs):
+        """Forward model (reference models.py:580-631): host (mass, age, feh)
+        broadcast with ``distance`` and ``AV`` -> a :class:`Frame` of the
+        model columns ``props``, the ``{band}_mag`` magnitudes, ``distance``,
+        ``AV``, ``initial_feh``, ``requested_age`` and with ``all_As`` the
+        extinctions ``A_{band}``; a dict of columns with ``return_dict``.
+        ``eeps`` given skip the inversion; ``accurate`` refines it by Newton
+        steps. One device call (a kernel launch on the card) per
+        ``HOST_CHUNK`` rows; an isochrone grid delegates to its track."""
+        if self.eep_replaces == "mass":
+            return self.track.generate(mass, age, feh, props=props, bands=bands, eeps=eeps, return_df=return_df,
+                                       return_dict=return_dict, distance=distance, AV=AV, all_As=all_As,
+                                       accurate=accurate, **kwargs)
+        bands = self.bands if bands is None else list(bands)
+        (mass_, age_, feh_, dist_, av_), shape = _host_rows([mass, age, feh, distance, AV])
+        eeps_ = None if eeps is None else _host_rows([eeps], shape)[0][0]
+        prop_names = list(self.model.columns) if props == "all" else list(props)
+        cols = [mass_, age_, feh_, dist_, av_] + ([] if eeps_ is None else [eeps_])
+        pieces = []
+        for i in range(0, max(mass_.shape[0], 1), HOST_CHUNK):
+            t = [torch.as_tensor(c[i: i + HOST_CHUNK], dtype=self.dtype, device=self.device) for c in cols]
+            out = self._forward(*t[:5], prop_names, bands, eeps=t[5] if eeps_ is not None else None,
+                                all_As=all_As, accurate=accurate)
+            pieces.append([None if x is None else x.cpu().numpy() for x in out[1:]])
+        values, mags, mags0 = (None if p[0] is None else np.concatenate(p) for p in zip(*pieces))
+
+        df = Frame({c: values[:, i] for i, c in enumerate(prop_names)})
+        df.update({f"{b}_mag": mags[:, i] for i, b in enumerate(bands)})
+        df.update(distance=dist_, AV=av_, initial_feh=feh_, requested_age=age_)
+        if all_As:
+            for i, b in enumerate(bands):
+                df[f"A_{b}"] = df[f"{b}_mag"] - mags0[:, i]
+        return dict(df) if return_dict else df
+
+    def generate_device(self, mass, age, feh, props="all", bands=None, distance=10.0, AV=0.0, accurate=False):
+        """The forward model on the interpolator's device: tensors ``(eeps
+        (N,), values (N, P), mags (N, n_bands))`` with no read-back to the
+        host and no synchronize (reference models.py:580-631; the JAX
+        package's ``generate_device``). Inputs (tensors or host values) are
+        broadcast to one flat batch; one kernel launch on the card."""
+        if self.eep_replaces == "mass":
+            return self.track.generate_device(mass, age, feh, props=props, bands=bands, distance=distance, AV=AV,
+                                              accurate=accurate)
+        if self.eep_support is None:
+            raise NotImplementedError("generate_device needs the track grid's EEP support arrays")
+        bands = self.bands if bands is None else list(bands)
+        arrs = torch.broadcast_tensors(*(torch.as_tensor(x, dtype=self.dtype, device=self.device)
+                                         for x in (mass, age, feh, distance, AV)))
+        flat = [a.reshape(-1) for a in arrs]
+        prop_names = list(self.model.columns) if props == "all" else list(props)
+        return self._forward(*flat, prop_names, bands, accurate=accurate)[:3]
+
+    def generate_binary(self, mass_A, mass_B, age, feh, **kwargs):
+        """Primary and secondary in one stacked 2N-row :meth:`generate` call
+        (reference models.py:633-661): the columns ``{c}_0`` and ``{c}_1``,
+        then the total ``{band}_mag`` (a NaN secondary adds no flux) and with
+        ``all_As`` the total extinction ``A_{band}``."""
+        bands = kwargs.get("bands", None) or self.bands
+        mass_A, mass_B = np.broadcast_arrays(np.asarray(mass_A, dtype=float), np.asarray(mass_B, dtype=float))
+        n = mass_A.size
+        shape = mass_A.shape
+        age_b, feh_b = (np.broadcast_to(np.asarray(x, dtype=float), shape) for x in (age, feh))
+        dist_b = np.broadcast_to(np.asarray(kwargs.pop("distance", 10.0), dtype=float), shape)
+        av_b = np.broadcast_to(np.asarray(kwargs.pop("AV", 0.0), dtype=float), shape)
+        both = self.generate(np.concatenate([mass_A.ravel(), mass_B.ravel()]), np.tile(age_b.ravel(), 2),
+                             np.tile(feh_b.ravel(), 2), distance=np.tile(dist_b.ravel(), 2),
+                             AV=np.tile(av_b.ravel(), 2), **kwargs)
+        values_A, values_B = both.iloc[:n], both.iloc[n:]
+        values = Frame({**values_A.rename({c: f"{c}_0" for c in values_A}),
+                        **values_B.rename({c: f"{c}_1" for c in values_B})})
+        for b in bands:
+            m0 = values_A[f"{b}_mag"]
+            m1 = np.nan_to_num(values_B[f"{b}_mag"], nan=np.inf)
+            values[f"{b}_mag"] = addmags(m0, m1)
+            if kwargs.get("all_As", False):
+                A0 = values[f"A_{b}_0"]
+                A1 = np.nan_to_num(values[f"A_{b}_1"], nan=0.0)
+                values[f"A_{b}"] = values[f"{b}_mag"] - addmags(m0 - A0, m1 - A1)
+        return values
+
+    def isochrone(self, age, feh=0.0, eep_range=None, distance=10.0, AV=0.0, dropna=True):
+        """Every column and magnitude at the integer EEPs of ``eep_range``
+        (the grid's EEP limits by default) for one age and [Fe/H], a
+        :class:`Frame`; rows with a NaN dropped unless ``dropna`` is False
+        (reference models.py:484-493)."""
+        if eep_range is None:
+            eep_range = self.get_limits("eep")
+        df = Frame(self(np.arange(*eep_range), age, feh, distance=distance, AV=AV))
+        return df.dropna() if dropna else df
+
+    def model_value(self, mass, age, feh, props, approx=False):
+        """Model columns at (mass, age, feh) through the EEP inversion
+        (reference models.py:447-455); an isochrone grid delegates to its
+        track, as :meth:`model_mag` does."""
+        if self.eep_replaces == "mass":
+            return self.track.model_value(mass, age, feh, props, approx=approx)
+        if isinstance(props, str):
+            props = [props]
+        eep = self.get_eep(mass, age, feh, accurate=not approx)
+        values = self.interp_value([mass, eep, feh], props)
+        return float(np.squeeze(values)) if np.size(values) == 1 else values
+
+    def model_mag(self, mass, age, feh, distance=10.0, AV=0.0, bands=None, approx=False):
+        """Magnitudes at (mass, age, feh) through the EEP inversion (reference
+        models.py:458-469)."""
+        if self.eep_replaces == "mass":
+            return self.track.model_mag(mass, age, feh, distance=distance, AV=AV, bands=bands, approx=approx)
+        bands = bands or self.bands
+        eep = self.get_eep(mass, age, feh, accurate=not approx)
+        mags = self.interp_mag([mass, eep, feh, distance, AV], bands)[3]
+        return float(np.squeeze(mags)) if np.size(mags) == 1 else mags
 
 
 class EvolutionTrackInterpolator(ModelGridInterpolator):

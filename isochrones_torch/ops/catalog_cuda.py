@@ -34,7 +34,7 @@ from ._build import load_library
 from .catalog import CONST_NAMES, CatalogLikelihood, CatalogPriors
 from .star_cuda import _Axis, _axes
 
-__all__ = ["catalog_lnlike_cuda", "catalog_lnpost_cuda", "compact_bc"]
+__all__ = ["catalog_lnlike_cuda", "catalog_lnpost_cuda", "compact_bc", "compact_table"]
 
 _MAX_BANDS = 16
 _MAX_POINTS = 1 << 31
@@ -90,21 +90,26 @@ def _pack_observations(lk: CatalogLikelihood) -> torch.Tensor:
     return torch.cat([x.to(ref.dtype).reshape(S, -1) for x in parts], dim=-1).contiguous()
 
 
-def compact_bc(lk: CatalogLikelihood) -> torch.Tensor:
-    """The BC table's wanted band columns, in the likelihood's band order,
-    padded with zeros to the narrowest of 4, 8 or 16 columns that holds them:
-    a contiguous ``(b0, b1, b2, b3, W)`` copy. Raises past 16 bands."""
-    nb = len(lk.band_icols)
+def compact_table(bc, band_icols) -> torch.Tensor:
+    """The BC table's columns ``band_icols``, in that order, padded with
+    zeros to the narrowest of 4, 8 or 16 columns that holds them: a
+    contiguous ``(b0, b1, b2, b3, W)`` copy. Raises past 16 bands."""
+    nb = len(band_icols)
     if nb > _MAX_BANDS:
-        raise ValueError(f"catalog kernel takes at most {_MAX_BANDS} bands, got {nb}")
-    bc_ncols = lk.bc.values.shape[-1]
-    for c in lk.band_icols:
+        raise ValueError(f"the kernels take at most {_MAX_BANDS} bands, got {nb}")
+    bc_ncols = bc.values.shape[-1]
+    for c in band_icols:
         if not 0 <= c < bc_ncols:
             raise ValueError(f"band column {c} outside the BC table")
     width = next(w for w in _COMPACT_WIDTHS if nb <= w)
-    vals = lk.bc.values[..., [int(c) for c in lk.band_icols]]
+    vals = bc.values[..., [int(c) for c in band_icols]]
     pad = vals.new_zeros(vals.shape[:-1] + (width - nb,))
     return torch.cat([vals, pad], dim=-1).contiguous()
+
+
+def compact_bc(lk: CatalogLikelihood) -> torch.Tensor:
+    """The likelihood's band columns as :func:`compact_table` copies them."""
+    return compact_table(lk.bc, lk.band_icols)
 
 
 #: per-likelihood (key, argument struct template, tensors it points into)

@@ -35,6 +35,8 @@ __all__ = [
     "QPrior",
     "SalpeterPrior",
     "ChabrierPrior",
+    "powerlaw_pdf",
+    "powerlaw_lnpdf",
 ]
 
 ONE_OVER_ROOT_2PI = 1.0 / math.sqrt(2 * math.pi)
@@ -48,6 +50,21 @@ def _norm_bounds(bounds):
         return None
     lo, hi = bounds
     return (-np.inf if lo is None else float(lo), np.inf if hi is None else float(hi))
+
+
+def powerlaw_pdf(x, alpha, lo, hi):
+    """Power-law pdf ``C x**alpha`` normalized on [lo, hi], with no bounds
+    mask (reference priors.py:469-473); numpy arrays or tensors."""
+    a1 = alpha + 1.0
+    C = a1 / (hi ** a1 - lo ** a1)
+    return C * x ** alpha
+
+
+def powerlaw_lnpdf(x, alpha, lo, hi):
+    """Its logarithm on tensors (reference priors.py:476-480)."""
+    a1 = alpha + 1.0
+    C = a1 / (hi ** a1 - lo ** a1)
+    return math.log(C) + alpha * torch.log(torch.as_tensor(x))
 
 
 def _rng(rng):
@@ -111,6 +128,28 @@ class Prior:
     def test_integral(self):
         lo, hi = self.bounds
         assert np.isclose(1, quad(self.pdf, lo, hi)[0])
+
+    def test_sampling(self, n=100000, plot=False, rng=None):
+        """Histogram of ``n`` draws against the pdf's bin averages: the
+        populated bins (more than 50 draws) must lie within 6 sigma
+        (reference priors.py:77-104). ``plot`` draws both with matplotlib,
+        imported only then."""
+        x = self.sample(n, rng=rng)
+        rng_ = None if not np.isfinite(self.bounds).all() else self.bounds
+        hn, _ = np.histogram(x, range=rng_)
+        h, b = np.histogram(x, density=True, range=rng_)
+        pdf = np.array([quad(self.pdf, lo, hi)[0] / (hi - lo) for lo, hi in zip(b[:-1], b[1:])])
+        if plot:
+            import matplotlib.pyplot as plt
+
+            centers = 0.5 * (b[:-1] + b[1:])
+            plt.plot(centers, h, drawstyle="steps-mid")
+            plt.plot(centers, pdf)
+        mask = hn > 50
+        sigma = np.full(hn.shape, np.inf)
+        sigma[mask] = 1.0 / np.sqrt(hn[mask])
+        resid = np.absolute(pdf - h) / pdf
+        assert max((resid / sigma)[mask]) < 6
 
 
 class BoundedPrior(Prior):

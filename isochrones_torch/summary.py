@@ -29,7 +29,13 @@ DEFAULT_COLUMNS = ("eep", "mass", "radius", "age", "feh", "distance", "AV")
 
 class Frame(dict):
     """An ordered dict of column name -> 1-d numpy array, one row per star,
-    with the rows' labels in ``index``."""
+    with the rows' labels in ``index`` (``None``: ``0 .. n-1``).
+
+    The few table operations the forward model and the populations need, as
+    ``DataFrame`` has them: :meth:`dropna`, :attr:`iloc` (a row slice or
+    take), :meth:`concat` (rows of frames with the same columns; the labels
+    start again at 0), :meth:`rename` and :meth:`copy`. ``Frame(frame)``
+    drops the labels, as ``reset_index(drop=True)`` does."""
 
     def __init__(self, columns=(), index=None):
         super().__init__(columns)
@@ -38,6 +44,57 @@ class Frame(dict):
     @property
     def columns(self):
         return list(self)
+
+    def _labels(self):
+        if self.index is not None:
+            return self.index
+        return np.arange(len(next(iter(self.values()))) if self else 0)
+
+    def _rows(self, rows):
+        return Frame({c: v[rows] for c, v in self.items()}, index=None if self.index is None else self.index[rows])
+
+    @property
+    def iloc(self):
+        """``frame.iloc[rows]``: the rows at these positions (a slice, an
+        integer array or a boolean mask), with their labels."""
+        frame = self
+
+        class _ILoc:
+            def __getitem__(self, rows):
+                return frame._rows(rows)
+
+        return _ILoc()
+
+    def dropna(self, subset=None):
+        """The rows with no NaN in the columns ``subset`` (every column when
+        None), with their labels."""
+        keep = np.ones(len(self._labels()), dtype=bool)
+        for c in self.columns if subset is None else subset:
+            v = np.asarray(self[c])
+            if v.dtype.kind in "fc":
+                keep &= ~np.isnan(v)
+        out = self._rows(keep)
+        out.index = self._labels()[keep]
+        return out
+
+    @staticmethod
+    def concat(frames):
+        """The rows of ``frames`` (the same columns in the same order) one
+        after another, labelled ``0 .. n-1``."""
+        cols = frames[0].columns
+        for f in frames[1:]:
+            if f.columns != cols:
+                raise ValueError("Frame.concat needs frames with the same columns")
+        return Frame({c: np.concatenate([np.asarray(f[c]) for f in frames]) for c in cols})
+
+    def rename(self, columns):
+        """A frame with the columns renamed by the mapping ``columns``."""
+        return Frame({columns.get(c, c): v for c, v in self.items()}, index=self.index)
+
+    def copy(self):
+        """A frame with copies of the columns and of the labels."""
+        return Frame({c: np.array(v, copy=True) for c, v in self.items()},
+                     index=None if self.index is None else self.index.copy())
 
     def to_csv(self, filename):
         """Write the table as ``DataFrame.to_csv`` does: a header whose first

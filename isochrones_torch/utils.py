@@ -21,6 +21,11 @@ MSUN_CGS = 1.98840987069805e33
 RSUN_CGS = 6.957e10
 
 
+def band_pairs(bands):
+    """Each band paired with the last (reference: isochrones/utils.py:13-14)."""
+    return [(bands[i], bands[-1]) for i in range(len(bands) - 1)]
+
+
 def addmags(*mags):
     """NumPy/host magnitude addition with optional (mag, unc) pairs
     (reference: isochrones/utils.py:43-64)."""
@@ -44,6 +49,14 @@ def addmags(*mags):
         f_unc = np.sqrt(np.sum([u ** 2 for u in uncs], axis=0))
         return totmag, -2.5 * np.log10(1 - f_unc / tot)
     return totmag
+
+
+def fast_addmags(mags):
+    """Total magnitude of a sequence of magnitudes, a float (reference:
+    isochrones/utils.py:67-75)."""
+    if not np.ndim(mags):
+        return float(mags)
+    return float(-2.5 * np.log10(np.sum(10 ** (-0.4 * np.asarray(mags, dtype=float)))))
 
 
 def distance(pos0, pos1):

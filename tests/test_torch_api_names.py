@@ -1,0 +1,162 @@
+"""The port's public names against the JAX package's, module by module.
+
+For each module of ``isochrones_tpu`` with a counterpart at the same relative
+path in ``isochrones_torch``: its public top-level names (``__all__`` where it
+has one, else the functions and classes it defines) and the public
+attributes of its classes. Each must exist in the port or stand in
+:data:`PARKED`, which maps it to the item of ``ROADMAP.md`` queue 1 that
+ports it, or to "not to port" for the TPU-only names (``ROADMAP.md``, "Not to
+port"). A parked name that the port now has fails the test too, so the dict
+stays true as the slices land.
+"""
+
+import importlib
+import inspect
+import os
+
+import pytest
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+HOST_API = "queue 1 item 3: the rest of the host API"
+ENGINES = "queue 1 item 4: the other engines"
+ISOTRACK = "queue 1 item 5: IsoTrackModel"
+SUMMARY = "queue 1 item 6: summary, plotting and results"
+MIST = "queue 1 item 7: the MIST host pipeline"
+QUERY = "queue 1 item 9: the query layer"
+NOT_TO_PORT = "not to port"
+
+_STAR_HOST = ("maxlike", "prior", "prior_transform", "mnest_prior", "mnest_loglike", "mnest_analyzer", "sampler",
+              "fit_mcmc_old", "lnpost_polychord")
+_STAR_PLOTS = ("corner", "corner_params", "corner_derived", "corner_physical", "corner_plots", "corner_observed",
+               "triangle", "triangle_physical", "triangle_plots", "mag_plot", "write_results")
+_GRID_INTERP = ("GridInterpolator", "GridInterpolator.grid", "GridInterpolator.index_columns",
+                "GridInterpolator.add_column", "GridInterpolator.find_closest", "GridData.ndim_grid",
+                "GridData.n_columns", "GridData.astype")
+_GRID_TPU = ("GridData.paired", "GridData.tree_flatten", "GridData.tree_unflatten")
+_MODEL_GRID = ("StellarModelGrid", "G", "MSUN", "RSUN") + tuple(f"StellarModelGrid.{a}" for a in (
+    "default_columns", "get_dm_deep", "prop_map", "column_map", "datadir", "kwarg_tag", "get_directory_path",
+    "get_existing_filenames", "get_filenames", "get_feh", "to_df", "df_all", "compute_additional_columns", "get_df",
+    "get_cache_filename", "interp_grid_npz_filename", "array_grid_filename", "get_array_grids", "age_grid",
+    "dt_deep_grid", "array_lengths", "interp_grid_orig_npz_filename", "n_masses"))
+_RESULTS = ("samples", "logl", "logwt", "logz", "logzerr", "h", "n_iter", "posterior", "logl_posterior", "ess",
+            "truncated", "logz_runs", "dynamic_rounds")
+
+_GROUPS = {
+    "isochrones_tpu": {
+        HOST_API: _GRID_INTERP + tuple(f"BasicStarModel.{a}" for a in _STAR_HOST),
+        ENGINES: ("BasicStarModel.fit_nuts", "BasicStarModel.fit_polychord"),
+        SUMMARY: tuple(f"BasicStarModel.{a}" for a in _STAR_PLOTS),
+        NOT_TO_PORT: _GRID_TPU,
+    },
+    "isochrones_tpu.catalog": {
+        HOST_API: ("StarCatalog.df", "StarCatalog.ds", "StarCatalog.hr", "StarCatalog.set_prior",
+                   "StarCatalog.iter_models", "StarCatalog.write_ini"),
+        SUMMARY: ("StarCatalog.hr_plot",),
+    },
+    "isochrones_tpu.config": {NOT_TO_PORT: ("enable_compile_cache",)},
+    "isochrones_tpu.grids": {HOST_API: ("SyntheticStellarGrids.astype",)},
+    "isochrones_tpu.grids.synthetic": {HOST_API: ("SyntheticStellarGrids.astype",)},
+    "isochrones_tpu.models": {
+        MIST: _MODEL_GRID,
+        HOST_API: ("ModelGridInterpolator.grid_type", "ModelGridInterpolator.bc_type"),
+    },
+    "isochrones_tpu.models.interpolator": {HOST_API: ("ModelGridInterpolator.grid_type",
+                                                      "ModelGridInterpolator.bc_type")},
+    "isochrones_tpu.ops": {
+        HOST_API: _GRID_INTERP + ("interp_grid", "interp_mags", "LOG_ONE_OVER_ROOT_2PI", "integrate_over_eeps",
+                                  "cluster_lnlike"),
+        NOT_TO_PORT: _GRID_TPU,
+    },
+    "isochrones_tpu.ops.cluster": {HOST_API: ("integrate_over_eeps", "cluster_lnlike", "logaddexp", "logsumexp")},
+    "isochrones_tpu.ops.interp": {
+        HOST_API: _GRID_INTERP + ("REFERENCE_DEVIATIONS",),
+        NOT_TO_PORT: _GRID_TPU + ("pair_innermost_columns",),
+    },
+    "isochrones_tpu.ops.mags": {HOST_API: ("interp_mags",)},
+    "isochrones_tpu.priors": {NOT_TO_PORT: ("Prior.lnpdf_jax", "BoundedPrior.lnpdf_jax", "BrokenPrior.lnpdf_jax",
+                                            "PowerLawPrior.sample_jax", "FehPrior.lnpdf_jax",
+                                            "EEP_prior.lnpdf_jax")},
+    "isochrones_tpu.samplers": {
+        HOST_API: ("run_ensemble_batch", "CheckpointConfigError", "NestedResult", "run_nested")
+        + tuple(f"NestedResult.{a}" for a in _RESULTS),
+        ENGINES: ("NutsResult", "run_nuts", "run_polychord") + tuple(f"NutsResult.{a}" for a in (
+            "samples", "lnp", "step_size", "inv_mass", "accept_rate", "n_divergent")),
+        NOT_TO_PORT: ("EnsembleState.key",),
+    },
+    "isochrones_tpu.samplers.ensemble": {NOT_TO_PORT: ("EnsembleState.key",)},
+    "isochrones_tpu.starfit": {QUERY: ("get_gaia_data",)},
+    "isochrones_tpu.starmodel": {
+        HOST_API: tuple(f"BasicStarModel.{a}" for a in _STAR_HOST),
+        ENGINES: ("BasicStarModel.fit_nuts", "BasicStarModel.fit_polychord"),
+        ISOTRACK: ("IsoTrackModel",) + tuple(f"IsoTrackModel.{a}" for a in ("ic", "iso", "track", "param_names",
+                                                                           "bounds")),
+        SUMMARY: tuple(f"BasicStarModel.{a}" for a in _STAR_PLOTS),
+    },
+    "isochrones_tpu.summary": {SUMMARY: ("get_quantiles", "quantile_worker", "get_summary_df", "write_results_txt")},
+    "isochrones_tpu.utils": {HOST_API: ("trapz", "polyval"), NOT_TO_PORT: ("addmags_jnp",),
+                             QUERY: ("download_file",)},
+}
+
+#: "<JAX module>:<name>" -> where it is ported, or "not to port"
+PARKED = {f"{mod}:{name}": item for mod, groups in _GROUPS.items() for item, names in groups.items()
+          for name in names}
+
+
+def _port_modules():
+    """Dotted names of the port's modules that have a JAX counterpart, from the
+    files on disk (the same list in every process)."""
+    out = ["isochrones_torch"]
+    pkg = os.path.join(_ROOT, "isochrones_torch")
+    for dirpath, dirnames, files in sorted(os.walk(pkg)):
+        dirnames[:] = sorted(d for d in dirnames if not d.startswith("_"))
+        rel = os.path.relpath(dirpath, _ROOT).replace(os.sep, ".")
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            name = rel if f == "__init__.py" else f"{rel}.{f[:-3]}"
+            jax_path = os.path.join(_ROOT, "isochrones_tpu", *name.split(".")[1:])
+            if name != "isochrones_torch" and (os.path.isfile(jax_path + ".py")
+                                               or os.path.isfile(os.path.join(jax_path, "__init__.py"))):
+                out.append(name)
+    return out
+
+
+def _public(mod):
+    top = list(mod.__all__) if hasattr(mod, "__all__") else [
+        n for n, v in vars(mod).items()
+        if not n.startswith("_") and (inspect.isclass(v) or inspect.isfunction(v)) and v.__module__ == mod.__name__]
+    out = list(top)
+    for n in top:
+        v = getattr(mod, n)
+        if inspect.isclass(v) and v.__module__.startswith("isochrones_tpu"):
+            out += [f"{n}.{a}" for a in vars(v) if not a.startswith("_")]
+    return out
+
+
+def _has(mod, name):
+    obj = mod
+    for part in name.split("."):
+        if not hasattr(obj, part):
+            return False
+        obj = getattr(obj, part)
+    return True
+
+
+@pytest.mark.parametrize("port_name", _port_modules())
+def test_port_has_public_names(port_name):
+    jax_name = "isochrones_tpu" + port_name[len("isochrones_torch"):]
+    jmod, tmod = importlib.import_module(jax_name), importlib.import_module(port_name)
+    names = _public(jmod)
+    missing = [n for n in names if not _has(tmod, n)]
+    unparked = [n for n in missing if f"{jax_name}:{n}" not in PARKED]
+    assert not unparked, f"{port_name} lacks {unparked}: port them or park them in PARKED"
+    stale = [k for k in PARKED if k.split(":")[0] == jax_name and _has(tmod, k.split(":")[1])]
+    assert not stale, f"parked but present in {port_name}: {stale}"
+
+
+def test_parked_modules_exist():
+    mods = {k.split(":")[0] for k in PARKED}
+    have = {"isochrones_tpu" + m[len("isochrones_torch"):] for m in _port_modules()}
+    assert mods <= have, sorted(mods - have)
+    assert set(PARKED.values()) <= {HOST_API, ENGINES, ISOTRACK, SUMMARY, MIST, QUERY, NOT_TO_PORT}

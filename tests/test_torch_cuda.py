@@ -26,6 +26,14 @@ band, without a parallax or Teff, a catalog without parallaxes, the
 unit-cube form, replaced priors (the composition route); float32 against the
 float64 plain version on the same float32 tables, points and constants
 (``catalog_priors_as``); one fitter ``lnpost_batch`` is one launch.
+Forward-model kernel (kernel F, every form: the inversion, the EEP given,
+the EEP alone, ``all_As``): float64 EEPs bitwise and the columns and
+magnitudes to rtol 1e-10 of their scale; float32 against the float64 plain
+version on the same float32 tables and inputs, EEPs to 2e-3 and the columns
+at the kernel's own EEPs to rtol 2e-5 of their scale (``check_generate``);
+every axis-map kind, 1, 3 and 16 bands (the compact table's widths), no
+columns and every column, batches that leave a partial warp; the caps raise
+by name; the interpolators' ``generate`` and fast ``get_eep`` launch it.
 """
 
 import dataclasses
@@ -37,6 +45,7 @@ import pytest
 import torch
 
 from chip_smoke import (
+    check_generate, generate_points,
     CAT_BANDS, CLI_EEP_BOX, catalog_likelihood_as, catalog_points, catalog_priors_as, catalog_table,
     ATOL_F32, ATOL_STAR_F32, FIXTURE, RTOL_F32, RTOL_F64, RTOL_STAR_F32, RTOL_STAR_F64, _tree_check, as_float32,
     _tree_mixed_points, check_close, check_eep, check_star, eep_points, grid_as, make_kernel_inputs, profile_kernels,
@@ -690,3 +699,139 @@ def test_catalog_lnpost_kernel_rejects_bad_input(dev):
         catalog_lnpost_cuda(p, lk, catalog_priors_as(pri, torch.float32))
     with pytest.raises(ValueError):
         catalog_lnpost_cuda(p.cpu(), lk, pri)
+
+
+# ------------------------------------------------------------ kernel F
+
+
+_GEN_DIMS = dict(n_feh=7, n_mass=30, n_eep=100, n_age=30)
+
+
+def _forward_models(dev, kind="default"):
+    """``(fm64, fm32, fm32 in float64)``: the track grid's forward model on the
+    card, its float32 twin, and that twin's tables cast to float64 (the
+    float32 kernel's reference); ``kind`` moves the model and BC axes so that
+    every cell-location kind runs (``star_grid_variant``)."""
+    out = []
+    for dt in (torch.float64, torch.float32):
+        fm = get_ichrone("synthetic", device=dev, dtype=dt, **_GEN_DIMS).track._forward_model
+        if kind != "default":
+            model, bc = star_grid_variant(fm.model, fm.bc, kind)
+            packed = dataclasses.replace(fm.model_packed, knots=model.knots, axis_maps=model.axis_maps)
+            fm = dataclasses.replace(fm, model=model, model_packed=packed, bc=bc)
+        out.append(fm)
+    fm32 = out[1]
+    up = dataclasses.replace(fm32, model=grid_as(fm32.model, torch.float64),
+                             model_packed=grid_as(fm32.model_packed, torch.float64), bc=grid_as(fm32.bc, torch.float64),
+                             eep_support=tuple(x.double() if x.is_floating_point() else x for x in fm32.eep_support))
+    return out[0], fm32, up
+
+
+def _check_forms(dev, fms, n, icols, bcols, seed=0):
+    from isochrones_torch.ops.eep import interp_eep
+    from isochrones_torch.ops.generate import generate_plain
+    from isochrones_torch.ops.generate_cuda import generate_cuda, get_eep_cuda
+
+    fm64, fm32, up = fms
+    track = get_ichrone("synthetic", device=dev, **_GEN_DIMS).track
+    # a seeded subset of a larger spread (which holds every knot, NaN rows, ages past track ends)
+    keep = np.random.default_rng(seed).permutation(max(n, 400))[:n]
+    x64 = [torch.as_tensor(c[keep], device=dev) for c in generate_points(track, max(n, 400), seed)]
+    x32, x32up = [x.float() for x in x64], [x.float().double() for x in x64]
+    given = torch.as_tensor(np.random.default_rng(seed).uniform(-3.0, 104.0, n), device=dev)
+    for all_As in (False, True):
+        check_generate("f64", generate_cuda(fm64, *x64, icols, bcols, all_As=all_As),
+                       generate_plain(fm64, *x64, icols, bcols, all_As=all_As), "float64")
+        got = generate_cuda(fm32, *x32, icols, bcols, all_As=all_As)
+        e_ref = interp_eep(x32up[1], x32up[2], x32up[0], *up.eep_support, eep0=up.eep0)
+        ref = generate_plain(up, *x32up, icols, bcols, eeps=got[0].double(), all_As=all_As)
+        check_generate("f32", got, (e_ref,) + tuple(ref[1:]), "float32")
+        check_generate("f64 given", generate_cuda(fm64, *x64, icols, bcols, eeps=given, all_As=all_As),
+                       generate_plain(fm64, *x64, icols, bcols, eeps=given, all_As=all_As), "float64")
+        check_generate("f32 given", generate_cuda(fm32, *x32, icols, bcols, eeps=given.float(), all_As=all_As),
+                       generate_plain(up, *x32up, icols, bcols, eeps=given.float().double(), all_As=all_As), "float32")
+    e64 = get_eep_cuda(fm64, *x64[:3])
+    assert torch.equal(e64.nan_to_num(-1.0), interp_eep(x64[1], x64[2], x64[0], *fm64.eep_support,
+                                                        eep0=fm64.eep0).nan_to_num(-1.0))
+    assert torch.equal(get_eep_cuda(fm32, *x32[:3]).nan_to_num(-1.0), got[0].nan_to_num(-1.0))
+    assert int(torch.isfinite(e64).sum()) > n // 5 or n < 200
+
+
+@pytest.mark.parametrize("n", [1, 31, 1000, 70001])
+@pytest.mark.parametrize("cols", ["all", "none", "some"])
+def test_generate_kernel_matches_plain(dev, n, cols):
+    fms = _forward_models(dev)
+    model = fms[0].model
+    icols = {"all": model.icols("all"), "none": (), "some": model.icols(["radius", "Teff", "eep"])}[cols]
+    _check_forms(dev, fms, n, icols, tuple(fms[0].bc.column_index[b] for b in ("J", "G", "W3")), seed=n)
+
+
+@pytest.mark.parametrize("n_bands", [0, 1, 3, 4, 5, 11, 16])
+def test_generate_kernel_band_widths(dev, n_bands):
+    """Every compact-table width (4, 8, 16; bands repeated past the table's 11)."""
+    fms = _forward_models(dev)
+    bcols = tuple(list(range(fms[0].bc.values.shape[-1])) * 2)[:n_bands]
+    _check_forms(dev, fms, 5000, fms[0].model.icols(["logg", "age"]), bcols, seed=n_bands)
+
+
+@pytest.mark.parametrize("kind", ["compare", "searchsorted"])
+def test_generate_kernel_axis_kinds(dev, kind):
+    """The track grid as built has affine [Fe/H], log mass and exact-affine
+    EEP axes; these move the mass axis to irregular knots, or drop the maps."""
+    fms = _forward_models(dev, kind)
+    _check_forms(dev, fms, 20000, fms[0].model.icols("all"), (0, 3, 7), seed=3)
+
+
+def test_generate_kernel_caps_and_bad_input(dev):
+    """The caps raise a ValueError that names them; bad tensors are refused;
+    nothing falls back to the plain version."""
+    from isochrones_torch.ops.generate_cuda import MAX_BANDS, MAX_PROPS, generate_cuda, get_eep_cuda
+
+    fm64, fm32, _ = _forward_models(dev)
+    x = torch.ones(8, device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError, match=f"at most {MAX_PROPS} model columns"):
+        generate_cuda(fm64, x, x, x, x, x, (0,) * (MAX_PROPS + 1), (0,))
+    with pytest.raises(ValueError, match=f"at most {MAX_BANDS} bands"):
+        generate_cuda(fm64, x, x, x, x, x, (0,), (0,) * (MAX_BANDS + 1))
+    huge = x[:1].expand(1 << 31)
+    with pytest.raises(ValueError, match=r"N < 2\*\*31"):
+        get_eep_cuda(fm64, huge, huge, huge)
+    with pytest.raises(ValueError):
+        generate_cuda(fm32, x, x, x, x, x, (0,), (0,))  # tables in another dtype
+    with pytest.raises(ValueError):
+        generate_cuda(fm64, x, x[:7], x, x, x, (0,), (0,))  # another length
+    with pytest.raises(ValueError, match="outside the table"):
+        generate_cuda(fm64, x, x, x, x, x, (99,), (0,))
+    e, p, m, m0 = generate_cuda(fm64, x[:0], x[:0], x[:0], x[:0], x[:0], (0,), (0,), all_As=True)
+    assert e.shape == (0,) and p.shape == (0, 1) and m0.shape == (0, 1)
+
+
+def test_interpolators_launch_generate_kernel(dev):
+    """``generate``, ``generate_device``, ``generate_binary``, a population
+    and the fast ``get_eep`` on the card go through the kernel and equal the
+    CPU's plain path (float64)."""
+    from isochrones_torch.ops.generate_cuda import generate_cuda, get_eep_cuda
+    from isochrones_torch.populations import StarPopulation
+
+    card = get_ichrone("synthetic", device=dev, **_GEN_DIMS)
+    cpu = get_ichrone("synthetic", device="cpu", **_GEN_DIMS)
+    cols = generate_points(cpu.track, 3000, seed=9)
+    generate_cuda.launches = get_eep_cuda.launches = 0
+    got = card.generate(*cols[:3], distance=cols[3], AV=cols[4], all_As=True)
+    ref = cpu.generate(*cols[:3], distance=cols[3], AV=cols[4], all_As=True)
+    eeps = card.track.get_eep(*cols[:3])
+    acc = card.track.get_eep(*cols[:3], accurate=True)
+    dev_out = card.generate_device(*cols[:3], distance=cols[3], AV=cols[4])
+    assert generate_cuda.launches == 2 and get_eep_cuda.launches == 2
+    assert list(got) == list(ref)
+    for c in ref:
+        np.testing.assert_allclose(got[c], ref[c], rtol=1e-10, atol=1e-9, equal_nan=True, err_msg=c)
+    np.testing.assert_array_equal(eeps, cpu.track.get_eep(*cols[:3]))
+    np.testing.assert_allclose(acc, cpu.track.get_eep(*cols[:3], accurate=True), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(dev_out[2].cpu().numpy(), np.stack([ref[f"{b}_mag"] for b in card.bands], -1),
+                               rtol=1e-10, equal_nan=True)
+    pops = [StarPopulation(ic.track, imf=SalpeterPrior(bounds=(0.4, 2.5)), feh=GaussianPrior(-0.1, 0.15))
+            .generate(300, rng=5) for ic in (card, cpu)]
+    assert generate_cuda.launches >= 3
+    for c in pops[1]:
+        np.testing.assert_allclose(pops[0][c], pops[1][c], rtol=1e-10, atol=1e-9, equal_nan=True, err_msg=c)

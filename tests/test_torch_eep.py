@@ -226,11 +226,17 @@ def test_max_eep_and_mass_age_resid_match_jax(ics):
 
 
 def test_forward_model_names_its_item(ics):
+    """The forward model's item has landed: each method runs on the CPU
+    (its parity is ``tests/test_torch_generate.py``'s)."""
     _, tiso = ics
-    for fn in (tiso.generate, tiso.track.generate, tiso.isochrone, tiso.model_value, tiso.model_mag,
-               tiso.generate_binary, tiso.generate_device):
-        with pytest.raises(NotImplementedError, match="Forward model and populations"):
-            fn(1.0, 9.0, 0.0)
+    for fn in (tiso.generate, tiso.track.generate):
+        df = fn(1.0, 9.0, 0.0)
+        assert len(df["J_mag"]) == 1 and np.isfinite(df["J_mag"]).all()
+    assert len(tiso.generate_binary(1.0, 0.8, 9.0, 0.0)["J_mag"]) == 1
+    eeps, values, mags = tiso.generate_device(1.0, 9.0, 0.0)
+    assert eeps.shape == (1,) and values.shape == (1, len(tiso.model.columns)) and mags.shape == (1, len(tiso.bands))
+    assert len(tiso.isochrone(9.0, 0.0)["eep"]) > 10
+    assert np.isfinite(tiso.model_value(1.0, 9.0, 0.0, "radius")) and np.isfinite(tiso.model_mag(1.0, 9.0, 0.0)).all()
 
 
 # ------------------------------------------------------------------ root finder

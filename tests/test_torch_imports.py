@@ -45,6 +45,10 @@ _EXPECTED = (
     "isochrones_torch.summary",
     "isochrones_torch.cli.fit_catalog",
     "isochrones_torch.cli.batch",
+    "isochrones_torch.ops.generate",
+    "isochrones_torch.ops.generate_cuda",
+    "isochrones_torch.populations",
+    "isochrones_torch.cli.generate_cmd",
 )
 
 
