@@ -69,8 +69,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     the CPU (identical NaN pattern, values to 1e-9); a mass -> EEP -> age
     round trip; ``iso.get_eep(..., accurate=True)`` likewise with its mass
     round trip; wall-clock, device time and kernel launches per call of both
-    modes in float32, beside the bytes bound (the fast form is kernel F's
-    EEP-only launch, the accurate form's Newton step plain torch);
+    modes in float32 (the profiler's count beside the wrappers' own), beside
+    the bytes bound (every form one launch of kernel F: the fast EEP alone,
+    the fast EEP with the Newton step, the Newton step from EEP 300 on the
+    isochrone grid);
 14. the simulated cluster and the nested cluster fit: ``SimulatedCluster``
     built on the card reproduces the committed 50-star catalogue column by
     column (drawn columns exactly, EEPs and magnitudes to 1e-9); the cluster
@@ -120,19 +122,22 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     track's end) in float64 (EEPs bitwise) and float32 (against the float64
     plain version on the same float32 tables and inputs), every form: the
     inversion with ``all_As`` off and on, EEPs given, the EEP alone, a column
-    subset, no columns, and the accurate form (the torch Newton step between
-    two launches) at 100,000 points; the kernel's device time beside its
-    bound and its plain version's; the fast ``get_eep_batch`` through the
-    kernel at phase 13's points (wall-clock, device time, launches) beside
-    the plain torch figures it replaced;
+    subset, no columns, and the accurate forms (the fast EEP and the Newton
+    step in the kernel: with the forward model, the EEP alone, and the Newton
+    step from EEP 300 on the isochrone grid), their EEPs against the plain
+    Newton step (``check_newton``); every form's device time beside its bound
+    and its plain version's; the fast ``get_eep_batch`` through the kernel at
+    phase 13's points (wall-clock, device time, launches) beside the plain
+    torch figures it replaced;
 21. the forward model and a population in float32 through the
     interpolators, with the plain versions made to raise: ``track.generate``
     of 1,000,000 stars (host round trip) and ``generate_device`` (no
     read-back), ``generate_binary``, ``iso.isochrone(9.0)``, ``model_mag``
-    approximate and accurate, and ``StarPopulation`` in ``bench.py``'s
-    configuration: ``generate(100_000, exact_N=True)`` gives exactly 100,000
-    rows with no NaN total magnitude, and ``deredden`` equals regeneration at
-    AV = 0; stars per second; kernel F launched;
+    approximate and accurate (one launch each), ``generate(accurate=True)``
+    (one launch), and ``StarPopulation`` in ``bench.py``'s configuration:
+    ``generate(100_000, exact_N=True)`` gives exactly 100,000 rows with no NaN
+    total magnitude, and ``deredden`` equals regeneration at AV = 0; stars per
+    second; kernel F launched;
 22. the population entry point: ``python -m isochrones_torch.cli.generate_cmd
     1000 --models synthetic --seed 0`` as a subprocess: exit 0 and 1000 rows.
 
@@ -291,6 +296,13 @@ FIXTURE = os.path.join("isochrones_torch", "data", "cluster50_synthetic.csv")
 #: the CPU in float64: the same arithmetic, reductions in another order
 EEP_FAST_POINTS, EEP_ACCURATE_POINTS = 1_000_000, 100_000
 ATOL_EEP = 1e-9
+#: the accurate inversion in float32, kernel against the plain version in
+#: float32 on the card: both iterate to the root of the same float32
+#: residual, which each rounds in its own order (~1e-6 of a log age or a
+#: mass); over the slope (>= ~1e-3 a unit of EEP on these grids) that moves
+#: the fixed point by ~1e-3 EEP; a point can cross the resid_tol cut only
+#: where its residual lies that close to the cut
+ATOL_NEWTON_F32, RESID_EDGE_F32, KNIFE_ROWS_F32 = 1e-2, 1e-5, 1e-5
 #: the nested cluster fit (phase 14): the catalogue's settings (those of
 #: scripts/make_torch_cluster_fixture.py), the fit's walker batch (n_batch 64
 #: x n_chains 16) and the reduced depth
@@ -686,6 +698,56 @@ def _touched_rows(grid, pts):
     return int(torch.unique(flat[~bad]).numel())
 
 
+def interp_nd_record(model, p):
+    """Row B of ``PERF.md`` (``interp_nd``, plain torch on the card): the
+    ``interp_nd`` calls one cluster ``lnpost_batch`` of ``model`` at walkers
+    ``p`` makes (its ladder's mass columns, and the two inside
+    ``interp_mag``), and for the first of them at the ladder's shape (W, E,
+    3), 2 columns: device time (CUDA events), device kernels a call
+    (``torch.profiler``) and bound (the points, the output and each touched
+    row's 2 columns once; ~70 flops of cell location and 8 corners x (6 + 2
+    x 2) a point)."""
+    import torch
+
+    import isochrones_torch.cluster as cluster_mod
+    import isochrones_torch.ops.mags as mags_mod
+    from isochrones_torch.ops.interp import interp_nd
+
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return interp_nd(*args, **kwargs)
+
+    saved = cluster_mod.interp_nd, mags_mod.interp_nd
+    cluster_mod.interp_nd = mags_mod.interp_nd = counted
+    try:
+        model.lnpost_batch(p)
+        torch.cuda.synchronize()
+    finally:
+        cluster_mod.interp_nd, mags_mod.interp_nd = saved
+    ic, grid = model.ic, model.ic.model
+    n_eep = model._n_ladder
+    eeps = float(model.bounds("eep")[0]) + model.eep_step * torch.arange(n_eep, dtype=ic.dtype, device=ic.device)
+    pt = torch.as_tensor(p, dtype=ic.dtype, device=ic.device)
+    W = pt.shape[0]
+    user = [eeps.expand(W, n_eep), pt[:, :1].expand(W, n_eep), pt[:, 1:2].expand(W, n_eep)]  # eep, age, feh
+    io = ic._param_index_order
+    gp = torch.stack([user[io[0]], user[io[1]], user[io[2]]], dim=-1)
+    icols = (grid.column_index["initial_mass"], grid.column_index["dm_deep"])
+
+    def fn():
+        return interp_nd(grid.values, grid.knots, gp, icols=icols, axis_maps=grid.axis_maps)
+
+    ms = cuda_ms(fn, reps=20)
+    kernels = sum(n for _, n in profile_kernels(fn, reps=5)[1].values()) / 5
+    n, e = W * n_eep, grid.values.element_size()
+    b = bound((3 * n + 2 * n + 2 * _touched_rows(grid, gp.reshape(-1, 3))) * e, n * (70 + 8 * (6 + 2 * 2)), 0,
+              "float32" if e == 4 else "float64")
+    return dict(calls_per_lnpost_batch=calls[0], shape={"W": W, "E": n_eep, "cols": 2}, ms=ms,
+                device_kernels_per_call=kernels, bound_ms=b[0], bound_by=b[1])
+
+
 def star_work(pars, lk):
     """``(bytes, flops, special functions)`` of the fused star likelihood on
     these points: the parameters read and the outputs written once, each
@@ -715,11 +777,12 @@ def star_work(pars, lk):
     return nbytes, flops, sfu
 
 
-def profile_kernels(fn, reps=1):
+def profile_kernels(fn, reps=1, required=True):
     """Run ``fn`` ``reps`` times under ``torch.profiler``; returns ``(wall
     seconds, {kernel name: (device ms, launches)})`` over the window. A
     window in which the profiler reports no device event at all (it drops a
-    cycle's events now and then) is run again, four times at most."""
+    cycle's events now and then) is run again, four times at most; then it
+    raises, or with ``required`` False returns an empty dict."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -737,6 +800,8 @@ def profile_kernels(fn, reps=1):
                 by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
         if by_name:
             return wall, by_name
+    if not required:
+        return wall, {}
     raise AssertionError("the profiler reported no device event in 4 windows")
 
 
@@ -1125,12 +1190,89 @@ def check_eep(name, got, ref, atol=ATOL_EEP):
     return err, int(fin.sum())
 
 
+def wrapper_launches(fn, reps):
+    """Kernel F's launches per call of ``fn`` by its wrappers' own counters."""
+    import torch
+
+    from isochrones_torch.ops import generate_cuda as gc
+
+    wrappers = (gc.generate_cuda, gc.generate_accurate_cuda, gc.get_eep_cuda, gc.get_eep_accurate_cuda,
+                gc.eep_newton_cuda)
+    for w in wrappers:
+        w.launches = 0
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return sum(w.launches for w in wrappers) / reps
+
+
+def newton_work(grid, icol, seed, target, x0, x1):
+    """``(bytes, flops)`` that the Newton step needs on these points beyond
+    its seed: the matched column read once (the iterates may touch any of
+    its rows); per point ~40 flops a residual (8 corners and the slope), 14
+    residuals (the seed's, 12 steps, the final one) and 33 more where the
+    seed has no finite residual (the scan, counted on these points)."""
+    import torch
+
+    from isochrones_torch.ops.interp import interp_nd
+
+    eep_knots = grid.knots[-1]
+    eep = torch.clamp(seed, eep_knots[0], eep_knots[-1])
+    pt = torch.stack([x0.expand_as(eep), x1.expand_as(eep), torch.nan_to_num(eep, nan=float(eep_knots[0]))], -1)
+    r0 = interp_nd(grid.values, grid.knots, pt, icols=(icol,), axis_maps=grid.axis_maps)[:, 0] - target
+    n_scan = int((~(torch.isfinite(eep) & torch.isfinite(r0))).sum())
+    col = grid.values[..., icol]
+    return col.numel() * col.element_size(), 40 * (14 * seed.numel() + 33 * n_scan)
+
+
+def check_newton(name, got, ref, ref_resid, dtype, resid_at, resid_tol=0.02):
+    """The accurate inversion's EEPs on the card against the plain Newton
+    step's: float64 as ``check_eep`` (1e-9, identical NaN patterns); float32
+    against the plain version in float32, to ``ATOL_NEWTON_F32``, the NaN
+    patterns identical but at two knife edges, together at most
+    ``KNIFE_ROWS_F32`` of the rows: the ``resid_tol`` cut (the plain final
+    residual within ``RESID_EDGE_F32`` of ``resid_tol``), and a NaN-padded
+    neighbour (an iterate exactly on an EEP knot reads the next row, NaN
+    past a track's end, one unit in the last place below it does not, so one
+    version stops there while the other goes on): the finite one of the two
+    EEPs must then be a root by the plain residual ``resid_at`` (numpy EEPs
+    of every row -> their residuals). Returns ``(max abs error, finite
+    count, knife-edge rows)``."""
+    if dtype == "float64":
+        return check_eep(name, got, ref) + (0,)
+    got, ref = np.asarray(got, dtype=np.float64), np.asarray(ref, dtype=np.float64)
+    r = np.abs(np.asarray(ref_resid, dtype=np.float64))
+    differ = np.isnan(got) != np.isnan(ref)
+    edge = np.abs(r - resid_tol) < RESID_EDGE_F32
+    if (differ & ~edge).any():
+        root = np.abs(resid_at(np.where(np.isnan(got), ref, got)))
+        edge |= differ & (root < resid_tol)
+    n_edge = int(differ.sum())
+    if got.shape != ref.shape or (differ & ~edge).any() or n_edge > max(1, KNIFE_ROWS_F32 * len(ref)):
+        raise AssertionError(f"{name}: NaN pattern differs at {n_edge} rows, {int((differ & ~edge).sum())} of them "
+                             f"off the knife edges (plain |resid| {r[differ & ~edge][:5]})")
+    both = ~np.isnan(got) & ~np.isnan(ref)
+    err = float(np.abs(got[both] - ref[both]).max()) if both.any() else 0.0
+    if not err <= ATOL_NEWTON_F32:
+        raise AssertionError(f"{name}: max abs err {err} > {ATOL_NEWTON_F32}")
+    return err, int(both.sum()), n_edge
+
+
 def timed_call(fn, reps):
     """``(wall ms, device-busy ms, kernel launches)`` per call of ``fn``: the
-    wall-clock unprofiled, the other two from ``torch.profiler``."""
+    wall-clock unprofiled, the other two from ``torch.profiler``, None where
+    its windows reported no device event (the launches are then counted by
+    the wrappers, ``wrapper_launches``)."""
     wall = 1e3 * _wall(fn, reps)
-    _, by_name = profile_kernels(fn, reps)
+    _, by_name = profile_kernels(fn, reps, required=False)
+    if not by_name:
+        return wall, None, None
     return wall, sum(ms for ms, _ in by_name.values()) / reps, sum(n for _, n in by_name.values()) / reps
+
+
+def _fmt(x, spec):
+    """``x`` formatted, or "not measured" for None."""
+    return "not measured" if x is None else format(x, spec)
 
 
 def phase_eep(dev, ic32, ic64):
@@ -1138,6 +1280,7 @@ def phase_eep(dev, ic32, ic64):
     import torch
 
     import isochrones_torch
+    from isochrones_torch.ops.generate import get_eep_fast
 
     t0 = time.perf_counter()
     cpu = isochrones_torch.get_ichrone("synthetic", device="cpu", dtype=torch.float64, **GRID)
@@ -1179,21 +1322,36 @@ def phase_eep(dev, ic32, ic64):
     # times in float32, on tensors already on the card
     m32, a32, f32 = (torch.as_tensor(x, device=dev, dtype=torch.float32) for x in (mass, age, feh))
     n_acc = EEP_ACCURATE_POINTS
+    ma32, aa32, fa32 = m32[:n_acc], a32[:n_acc], f32[:n_acc]
     fast_ms = timed_call(lambda: tr32.get_eep_batch(m32, a32, f32), reps=10)
-    acc_ms = timed_call(lambda: tr32.get_eep_batch(m32[:n_acc], a32[:n_acc], f32[:n_acc], accurate=True), reps=3)
-    iso_ms = timed_call(lambda: ic32.get_eep_batch(m32[:n_acc], a32[:n_acc], f32[:n_acc], accurate=True), reps=3)
+    acc_ms = timed_call(lambda: tr32.get_eep_batch(ma32, aa32, fa32, accurate=True), reps=40)
+    iso_ms = timed_call(lambda: ic32.get_eep_batch(ma32, aa32, fa32, accurate=True), reps=40)
+    counted = {label: wrapper_launches(fn, reps=10) for label, fn in (
+        ("track fast", lambda: tr32.get_eep_batch(m32, a32, f32)),
+        ("track accurate", lambda: tr32.get_eep_batch(ma32, aa32, fa32, accurate=True)),
+        ("iso accurate", lambda: ic32.get_eep_batch(ma32, aa32, fa32, accurate=True)))}
     table = sum(t.numel() * t.element_size() for t in tr32.eep_support)
-    column = tr32.model.values[..., 0].numel() * 4  # the model table's age column, read once
     fast_bound = bound(4 * 4 * EEP_FAST_POINTS + table, 4 * 12 * 4 * EEP_FAST_POINTS, 0, "float32")
-    acc_bound = bound(4 * 4 * n_acc + table + column, 13 * 8 * 20 * n_acc, 0, "float32")
+    fm32 = tr32._forward_model
+    acc_work = newton_work(fm32.model, fm32.i_age, get_eep_fast(fm32, ma32, aa32, fa32), aa32, fa32, ma32)
+    acc_bound = bound(4 * 4 * n_acc + table + acc_work[0], 4 * 12 * 4 * n_acc + acc_work[1], 0, "float32")
+    ng32 = ic32._newton_grid
+    iso_work = newton_work(ng32.grid, ng32.icol, torch.full_like(ma32, 300.0), ma32, aa32, fa32)
+    iso_bound = bound(4 * 4 * n_acc + iso_work[0], iso_work[1], 0, "float32")
     for label, n, (wall, busy, launches), b in (("track fast", EEP_FAST_POINTS, fast_ms, fast_bound),
                                                  ("track accurate", n_acc, acc_ms, acc_bound),
-                                                 ("iso accurate", n_acc, iso_ms, acc_bound)):
-        print(f"[eep] time f32 get_eep_batch {label}, {n} points: {wall:.3f} ms per call, device busy {busy:.3f} ms, "
-              f"{launches:.1f} kernel launches; bound {b[0]:.5f} ms ({b[2]}), at {b[0] / wall:.5f} of it")
+                                                 ("iso accurate", n_acc, iso_ms, iso_bound)):
+        print(f"[eep] time f32 get_eep_batch {label}, {n} points: {wall:.3f} ms per call, device busy "
+              f"{_fmt(busy, '.4f')} ms, {_fmt(launches, '.1f')} kernel launches under the profiler, "
+              f"{counted[label]:.1f} by the wrappers' counters; bound {b[0]:.5f} ms ({b[2]}), at {b[0] / wall:.5f} "
+              f"of it")
+    if any(v != 1 for v in counted.values()):
+        raise AssertionError(f"an EEP inversion is not one kernel launch: {counted}")
     return dict(fast_points=EEP_FAST_POINTS, fast_ms=fast_ms[0], fast_busy_ms=fast_ms[1], fast_launches=fast_ms[2],
                 fast_bound_ms=fast_bound[0], accurate_points=n_acc, accurate_ms=acc_ms[0],
-                accurate_busy_ms=acc_ms[1], accurate_launches=acc_ms[2], accurate_bound_ms=acc_bound[0])
+                accurate_busy_ms=acc_ms[1], accurate_launches=acc_ms[2], accurate_bound_ms=acc_bound[0],
+                iso_accurate_ms=iso_ms[0], iso_accurate_busy_ms=iso_ms[1], iso_accurate_launches=iso_ms[2],
+                iso_accurate_bound_ms=iso_bound[0], counted_launches=counted)
 
 
 def phase_cluster_nested(dev, ic32, ic64):
@@ -1776,6 +1934,8 @@ RTOL_GEN_F64, RTOL_GEN_F32, ATOL_EEP_F32 = 1e-10, 2e-5, 2e-3
 #: phase 13's fast get_eep at 1,000,000 points in plain torch, before kernel
 #: F took it (PERF.md, row D's earlier time): wall ms, launches
 EEP_EARLIER = (10.405, 650)
+#: kernel F's first version at this phase's shape (PERF.md, row F's earlier time): ms, EEP-only ms
+GEN_EARLIER_MS, GEN_EARLIER_EEP_MS = 0.8374, 0.2894
 GEN_CLI_STARS = 1000
 
 
@@ -1798,6 +1958,47 @@ def generate_points(track, n, seed):
     distance = rng.uniform(10.0, 5000.0, n)
     AV = rng.uniform(0.0, 1.0, n)
     return mass, age, feh, distance, AV
+
+
+def _resid_at(grid, icol, x0, x1, target):
+    """The plain Newton residual at numpy EEPs of every row: the column
+    interpolated at (x0, x1, eep) minus the target, as numpy."""
+    import torch
+
+    from isochrones_torch.ops.interp import interp_nd
+
+    def resid_at(eep):
+        e = torch.as_tensor(eep, dtype=target.dtype, device=target.device)
+        pt = torch.stack([x0.expand_as(e), x1.expand_as(e), e], dim=-1)
+        return (interp_nd(grid.values, grid.knots, pt, icols=(icol,), axis_maps=grid.axis_maps)[:, 0]
+                - target).cpu().numpy()
+
+    return resid_at
+
+
+def plain_accurate(fm, mass, age, feh, resid_tol=0.02):
+    """The plain accurate inversion on a track grid: ``(EEP after the
+    resid_tol cut, final residual, the residual at given EEPs)``."""
+    import torch
+
+    from isochrones_torch.ops.eep import get_eep_newton, interp_eep
+
+    eep, r = get_eep_newton(fm.model, interp_eep(age, feh, mass, *fm.eep_support, eep0=fm.eep0), age, feh, mass,
+                            fm.i_age)
+    return (torch.where(r.abs() < resid_tol, eep, torch.full_like(eep, float("nan"))), r,
+            _resid_at(fm.model, fm.i_age, feh, mass, age))
+
+
+def plain_newton(ng, seed, mass, age, feh, resid_tol=0.02):
+    """The plain Newton step on an isochrone grid (``NewtonGrid``): ``(EEP
+    after the resid_tol cut, final residual, the residual at given EEPs)``."""
+    import torch
+
+    from isochrones_torch.ops.eep import get_eep_newton
+
+    eep, r = get_eep_newton(ng.grid, seed, mass, age, feh, ng.icol)
+    return (torch.where(r.abs() < resid_tol, eep, torch.full_like(eep, float("nan"))), r,
+            _resid_at(ng.grid, ng.icol, age, feh, mass))
 
 
 def check_generate(name, got, ref, dtype):
@@ -1910,9 +2111,11 @@ def phase_generate_kernel(dev, ic32, ic64):
 
     import torch
 
-    from isochrones_torch.ops.generate import generate_forward, generate_plain
-    from isochrones_torch.ops.generate_cuda import generate_cuda, get_eep_cuda
     from isochrones_torch.ops.eep import interp_eep
+    from isochrones_torch.ops.generate import generate_plain
+    from isochrones_torch.ops.generate_cuda import (
+        eep_newton_cuda, generate_accurate_cuda, generate_cuda, get_eep_accurate_cuda, get_eep_cuda,
+    )
 
     tr64, tr32 = ic64.track, ic32.track
     fm64, fm32 = tr64._forward_model, tr32._forward_model
@@ -1961,36 +2164,70 @@ def phase_generate_kernel(dev, ic32, ic64):
         raise AssertionError("kernel F EEP-only f64 differs from interp_eep")
     if not torch.equal(get_eep_cuda(fm32, *x32[:3]).nan_to_num(-1.0), got32[0].nan_to_num(-1.0)):
         raise AssertionError("kernel F EEP-only f32 differs from the inverting form's EEPs")
-    # the accurate form: the kernel's EEP, the torch Newton step, the kernel with the EEP given
-    n_acc = GEN_ACCURATE_POINTS
-    xa = [x[:n_acc] for x in x64]
-    errs["f64 accurate"] = check_generate("accurate f64", generate_forward(fm64, *xa, icols, bcols, accurate=True),
-                                          generate_plain(fm64, *xa, icols, bcols, accurate=True), "float64")
+    # the accurate forms, one launch each: the forward model, the EEP alone, the isochrone grid's Newton step
+    acc = {}
+    for dtn, fm, x, xup, fmup in (("float64", fm64, x64, x64, fm64), ("float32", fm32, x32, x32up, fm32up)):
+        ref_e, ref_r, resid_at = plain_accurate(fm, *x[:3])
+        got = generate_accurate_cuda(fm, *x, icols, bcols, all_As=True)
+        acc[f"{dtn} generate"] = check_newton(f"accurate kernel F {dtn}", got[0].cpu(), ref_e.cpu(), ref_r.cpu(), dtn,
+                                              resid_at)
+        ref = generate_plain(fmup, *xup, icols, bcols, eeps=got[0].to(xup[0].dtype), all_As=True)
+        errs[f"{dtn[:1]}{dtn[-2:]} accurate columns"] = check_generate(
+            f"accurate kernel F {dtn} columns", got, (got[0],) + tuple(ref[1:]), dtn)
+        if not torch.equal(get_eep_accurate_cuda(fm, *x[:3]).nan_to_num(-1.0), got[0].nan_to_num(-1.0)):
+            raise AssertionError(f"kernel F accurate EEP-only {dtn} differs from the accurate forward form's EEPs")
+        ng = (ic64 if dtn == "float64" else ic32)._newton_grid
+        seed = torch.full_like(x[0], 300.0)
+        ref_e, ref_r, resid_at = plain_newton(ng, seed, *x[:3])
+        acc[f"{dtn} iso"] = check_newton(f"Newton form {dtn} (isochrone grid)", eep_newton_cuda(ng, seed, *x[:3]).cpu(),
+                                         ref_e.cpu(), ref_r.cpu(), dtn, resid_at)
     torch.cuda.synchronize()
     print(f"[generate] kernel F vs generate_plain, {GEN_POINTS} points ({n_fin} with every magnitude finite), "
           f"{len(icols)} columns, {len(bcols)} bands: every form within tolerance (f64 EEPs bitwise, columns rtol "
           f"{RTOL_GEN_F64}; f32 EEPs {ATOL_EEP_F32}, columns rtol {RTOL_GEN_F32}); worst error / column scale "
-          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; accurate form at {n_acc} points")
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}")
+    print(f"[generate] accurate forms vs the plain Newton step (autograd slope), {GEN_POINTS} points: (max abs err, "
+          f"finite, knife-edge rows) {json.dumps(acc)} (f64 atol {ATOL_EEP}, identical NaN patterns; f32 atol "
+          f"{ATOL_NEWTON_F32}, NaN patterns identical off the knife edges)")
 
     # times in float32: the kernel, its plain version, its bound; then the fast get_eep
     ms = kernel_ms(lambda: generate_cuda(fm32, *x32, icols, bcols), "generate_kernel", reps=20)
     ms_as = kernel_ms(lambda: generate_cuda(fm32, *x32, icols, bcols, all_As=True), "generate_kernel", reps=10)
     plain_ms = cuda_ms(lambda: generate_plain(fm32, *x32, icols, bcols), reps=3, warmup=1)
     ms64 = kernel_ms(lambda: generate_cuda(fm64, *x64, icols, bcols), "generate_kernel", reps=5)
-    b = bound(*generate_work(fm32, *x32[:3], x32[4], got32[0], len(icols), bcols, False), "float32")
+    b_work = generate_work(fm32, *x32[:3], x32[4], got32[0], len(icols), bcols, False)
+    b = bound(*b_work, "float32")
     eep_ms = kernel_ms(lambda: get_eep_cuda(fm32, *x32[:3]), "generate_kernel", reps=20)
+    # the accurate forms: the kernel, its plain version, the bound (the fast form's and the Newton step's work)
+    acc_ms = kernel_ms(lambda: generate_accurate_cuda(fm32, *x32, icols, bcols), "generate_kernel", reps=10)
+    acc_eep_ms = kernel_ms(lambda: get_eep_accurate_cuda(fm32, *x32[:3]), "generate_kernel", reps=10)
+    ng32 = ic32._newton_grid
+    seed32 = torch.full_like(x32[0], 300.0)
+    iso_ms = kernel_ms(lambda: eep_newton_cuda(ng32, seed32, *x32[:3]), "generate_kernel", reps=10)
+    acc_plain_ms = cuda_ms(lambda: generate_plain(fm32, *x32, icols, bcols, accurate=True), reps=1, warmup=1)
+    nw = newton_work(fm32.model, fm32.i_age, got32[0], x32[1], x32[2], x32[0])
+    b_acc = bound(b_work[0] + nw[0], b_work[1] + nw[1], b_work[2], "float32")
+    iw = newton_work(ng32.grid, ng32.icol, seed32, *x32[:3])
+    b_iso = bound(4 * 4 * GEN_POINTS + iw[0], iw[1], 0, "float32")
     m13, a13, f13 = (torch.as_tensor(c, device=dev, dtype=torch.float32)
                      for c in eep_points(tr64, EEP_FAST_POINTS, seed=21))
     wall, busy, launches = timed_call(lambda: tr32.get_eep_batch(m13, a13, f13), reps=20)
     print(f"[generate] time f32 {GEN_POINTS} points, {len(icols)} columns, {len(bcols)} bands: kernel {ms:.4f} ms "
           f"(all_As {ms_as:.4f} ms, f64 {ms64:.4f} ms), plain {plain_ms:.3f} ms; bound {b[0]:.5f} ms ({b[2]}), kernel "
-          f"at {b[0] / ms:.4f} of it; EEP-only kernel {eep_ms:.4f} ms")
+          f"at {b[0] / ms:.4f} of it; EEP-only kernel {eep_ms:.4f} ms (first version: {GEN_EARLIER_MS} ms, EEP-only "
+          f"{GEN_EARLIER_EEP_MS} ms)")
+    print(f"[generate] time f32 accurate forms, {GEN_POINTS} points: forward model {acc_ms:.4f} ms (plain "
+          f"{acc_plain_ms:.3f} ms; bound {b_acc[0]:.5f} ms ({b_acc[2]}), at {b_acc[0] / acc_ms:.4f} of it), EEP alone "
+          f"{acc_eep_ms:.4f} ms, Newton step on the isochrone grid {iso_ms:.4f} ms (bound {b_iso[0]:.5f} ms)")
     print(f"[generate] fast get_eep_batch f32 at phase 13's {EEP_FAST_POINTS} points through the kernel: {wall:.3f} ms "
-          f"wall-clock, device busy {busy:.4f} ms, {launches:.1f} kernel launches a call (plain torch before: "
-          f"{EEP_EARLIER[0]} ms, {EEP_EARLIER[1]} launches)")
+          f"wall-clock, device busy {_fmt(busy, '.4f')} ms, {_fmt(launches, '.1f')} kernel launches a call (plain "
+          f"torch before: {EEP_EARLIER[0]} ms, {EEP_EARLIER[1]} launches)")
     return dict(max_abs_err=errs["f32 invert all_As=False"], ms=ms, plain_ms=plain_ms, bound_ms=b[0],
                 bound_by=b[1], ms_all_As=ms_as, ms_f64=ms64, eep_only_ms=eep_ms, get_eep_wall_ms=wall,
-                get_eep_launches=launches, shape={"N": GEN_POINTS, "P": len(icols), "bands": len(bcols),
+                get_eep_launches=launches, accurate_ms=acc_ms, accurate_plain_ms=acc_plain_ms,
+                accurate_bound_ms=b_acc[0], accurate_bound_by=b_acc[1], accurate_eep_only_ms=acc_eep_ms,
+                newton_iso_ms=iso_ms, newton_iso_bound_ms=b_iso[0], accurate_max_abs_err=acc["float32 generate"][0],
+                earlier_ms=GEN_EARLIER_MS, shape={"N": GEN_POINTS, "P": len(icols), "bands": len(bcols),
                                                   "dtype": "float32"})
 
 
@@ -2000,8 +2237,9 @@ def phase_forward_model(dev, ic32):
     ``(kernel F's launches, the record of the run)``."""
     import torch
 
+    import isochrones_torch.ops.eep as eep_mod
     import isochrones_torch.ops.generate as gen_mod
-    from isochrones_torch.ops.generate_cuda import generate_cuda, get_eep_cuda
+    from isochrones_torch.ops import generate_cuda as gc
     from isochrones_torch.populations import StarPopulation, deredden
     from isochrones_torch.priors import AVPrior, DistancePrior, GaussianPrior, SalpeterPrior
 
@@ -2018,9 +2256,21 @@ def phase_forward_model(dev, ic32):
     def refuse(*args, **kwargs):
         raise AssertionError("a plain version ran on the card's path")
 
-    saved = gen_mod.generate_plain, gen_mod.interp_eep
-    gen_mod.generate_plain = gen_mod.interp_eep = refuse
-    generate_cuda.launches = get_eep_cuda.launches = 0
+    saved = gen_mod.generate_plain, gen_mod.interp_eep, gen_mod.get_eep_newton, eep_mod.get_eep_newton
+    gen_mod.generate_plain = gen_mod.interp_eep = gen_mod.get_eep_newton = eep_mod.get_eep_newton = refuse
+    wrappers = (gc.generate_cuda, gc.generate_accurate_cuda, gc.get_eep_cuda, gc.get_eep_accurate_cuda,
+                gc.eep_newton_cuda)
+    for w in wrappers:
+        w.launches = 0
+
+    def one_launch(label, fn):
+        """``fn()``, which must be one launch of kernel F"""
+        before = sum(w.launches for w in wrappers)
+        out = fn()
+        if sum(w.launches for w in wrappers) - before != 1:
+            raise AssertionError(f"{label}: {sum(w.launches for w in wrappers) - before} launches of kernel F, not 1")
+        return out
+
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2038,11 +2288,21 @@ def phase_forward_model(dev, ic32):
         iso_df = ic32.isochrone(9.0)
         k = GEN_MODEL_MAG
         t0 = time.perf_counter()
-        mm_fast = ic32.model_mag(mass[:k], age[:k], feh[:k], distance=distance[:k], AV=AV[:k], approx=True)
+        mm_fast = one_launch("model_mag approx", lambda: ic32.model_mag(
+            mass[:k], age[:k], feh[:k], distance=distance[:k], AV=AV[:k], approx=True))
         fast_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        mm_acc = ic32.model_mag(mass[:k], age[:k], feh[:k], distance=distance[:k], AV=AV[:k])
+        mm_acc = one_launch("model_mag", lambda: ic32.model_mag(mass[:k], age[:k], feh[:k], distance=distance[:k],
+                                                                 AV=AV[:k]))
         acc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gen_acc = one_launch("generate(accurate=True)", lambda: track.generate(
+            mass[:GEN_ACCURATE_POINTS], age[:GEN_ACCURATE_POINTS], feh[:GEN_ACCURATE_POINTS],
+            distance=distance[:GEN_ACCURATE_POINTS], AV=AV[:GEN_ACCURATE_POINTS], accurate=True))
+        gen_acc_s = time.perf_counter() - t0
+        one_launch("iso.get_eep(accurate=True)", lambda: ic32.get_eep(mass[:k], age[:k], feh[:k], accurate=True))
+        one_launch("track.get_eep", lambda: track.get_eep(mass[:k], age[:k], feh[:k]))
+        one_launch("track.get_eep(accurate=True)", lambda: track.get_eep(mass[:k], age[:k], feh[:k], accurate=True))
         t0 = time.perf_counter()
         popdf = pop.generate(GEN_POPULATION, rng=2, exact_N=True)
         pop_s = time.perf_counter() - t0
@@ -2073,10 +2333,10 @@ def phase_forward_model(dev, ic32):
                                     popdf["initial_feh_0"], distance=popdf["distance_0"], AV=0.0, all_As=True)
         torch.cuda.synchronize()
     finally:
-        gen_mod.generate_plain, gen_mod.interp_eep = saved
-    n_gen, n_eep = generate_cuda.launches, get_eep_cuda.launches
-    if n_gen <= 0 or n_eep <= 0:
-        raise AssertionError(f"the forward model did not launch kernel F: {n_gen} + {n_eep} launches")
+        gen_mod.generate_plain, gen_mod.interp_eep, gen_mod.get_eep_newton, eep_mod.get_eep_newton = saved
+    counts = {w.__name__: w.launches for w in wrappers}
+    if any(n <= 0 for n in counts.values()):
+        raise AssertionError(f"the forward model did not launch every form of kernel F: {counts}")
     n_df = len(df["mass"])
     if n_df != GEN_POINTS or values.shape != (GEN_POINTS, len(track.model.columns)) or \
             mags.shape != (GEN_POINTS, len(track.bands)) or eeps.shape != (GEN_POINTS,):
@@ -2094,6 +2354,10 @@ def phase_forward_model(dev, ic32):
     both = np.isfinite(mm_fast).all(axis=1) & np.isfinite(mm_acc).all(axis=1)
     if not both.sum() > k // 4 or not np.abs(mm_fast[both] - mm_acc[both]).max() < 0.5:
         raise AssertionError(f"model_mag approx vs accurate: {both.sum()} finite")
+    acc_j = np.asarray(gen_acc["J_mag"])
+    if not np.array_equal(acc_j[:k], mm_acc[:, track.bands.index("J")], equal_nan=True) or \
+            not GEN_ACCURATE_POINTS // 4 < int(np.isfinite(acc_j).sum()):
+        raise AssertionError("generate(accurate=True) and model_mag differ, or too few finite rows")
     if len(popdf["mass_0"]) != GEN_POPULATION or any(np.isnan(popdf[f"{b}_mag"]).any() for b in track.bands):
         raise AssertionError(f"population: {len(popdf['mass_0'])} rows, NaN total magnitudes")
     # NaN as 0 (the reference test's fillna(0)), to 1e-5 of each value in
@@ -2112,19 +2376,21 @@ def phase_forward_model(dev, ic32):
         raise AssertionError(f"deredden vs regeneration at AV = 0: {flips} rows differ")
     rec = dict(generate_s=host_s, generate_device_s=dev_s, generate_stars_per_s=GEN_POINTS / host_s,
                generate_device_stars_per_s=GEN_POINTS / dev_s, population_s=pop_s,
-               population_stars_per_s=GEN_POPULATION / pop_s, launches_generate=n_gen, launches_get_eep=n_eep,
-               **breakdown)
+               population_stars_per_s=GEN_POPULATION / pop_s, generate_accurate_s=gen_acc_s,
+               launches_by_wrapper=counts, **breakdown)
     print(f"[forward] f32, {GEN_POINTS} stars, {len(track.model.columns)} columns, {len(track.bands)} bands: "
           f"generate (host round trip) {host_s:.3f} s = {GEN_POINTS / host_s:.1f} stars/s, generate_device "
           f"{1e3 * dev_s:.3f} ms = {GEN_POINTS / dev_s:.1f} stars/s ({n_fin} with finite J); generate_binary "
           f"{GEN_BINARIES} systems {bin_s:.3f} s; isochrone(9.0) {len(iso_df['J_mag'])} rows; model_mag {k} stars "
-          f"approx {fast_s:.3f} s, accurate {acc_s:.3f} s")
+          f"approx {fast_s:.3f} s, accurate {acc_s:.3f} s (one launch each); generate(accurate=True) "
+          f"{GEN_ACCURATE_POINTS} stars {gen_acc_s:.3f} s (one launch)")
     print(f"[forward] StarPopulation (bench.py:425-450) generate({GEN_POPULATION}, exact_N=True): {pop_s:.3f} s = "
           f"{GEN_POPULATION / pop_s:.1f} stars/s, no NaN total magnitude; deredden vs regeneration at AV = 0 max "
-          f"relative diff {worst:.2e} on all but {flips} rows; kernel F launches {n_gen} (generate) + {n_eep} (EEP-only), no plain version run")
+          f"relative diff {worst:.2e} on all but {flips} rows; kernel F launches {json.dumps(counts)}, no plain "
+          f"version run")
     print(f"[forward] where the time goes (ms): {json.dumps({k: round(v, 3) for k, v in breakdown.items()})}; one "
           f"population round is {M} systems, {2 * M} generated rows")
-    return n_gen + n_eep, rec
+    return sum(counts.values()), rec
 
 
 def phase_generate_entry_point(workdir):
@@ -2260,6 +2526,11 @@ def main():
           f"(rtol {RTOL_SLICE_F32} atol {ATOL_SLICE_F32})")
     print(f"[slice] lnpost_batch wall-clock f32: 16 walkers {call_ms:.3f} ms, 8 walkers {call8_ms:.3f} ms "
           f"(plain path, 16 walkers: {plain32_ms:.3f} ms)")
+    interp_record = interp_nd_record(model32, p16)
+    print(f"[slice] interp_nd (plain torch) in one 16-walker lnpost_batch: {interp_record['calls_per_lnpost_batch']} "
+          f"calls; the ladder's mass columns at (16, {interp_record['shape']['E']}, 3) f32: "
+          f"{interp_record['ms']:.4f} ms, {interp_record['device_kernels_per_call']:.1f} device kernels a call, bound "
+          f"{interp_record['bound_ms']:.5f} ms ({interp_record['bound_by']})")
 
     # ---- 5. the fit
     nburn, niter = 30, 20
@@ -2409,10 +2680,13 @@ def main():
         shutil.rmtree(workdir, ignore_errors=True)
     tree_record["launches"] = n_tree
     tree_record["launches_entry_point"] = n_tree_cli
-    print(json.dumps({"eep_inversion": dict(eep_record, route="cuda (fast, kernel F); plain torch (Newton)",
-                                            source="isochrones_torch/csrc/generate.cu, isochrones_torch/ops/eep.py",
+    print(json.dumps({"eep_inversion": dict(eep_record, route="cuda (kernel F: the fast, accurate and Newton forms)",
+                                            source="isochrones_torch/csrc/generate.cu",
                                             replaces="isochrones_tpu/ops/eep.py:35", dtype="float32")}))
 
+    print(json.dumps({"interp_nd": dict(interp_record, route="plain torch (row B, no hand kernel)",
+                                        source="isochrones_torch/ops/interp.py",
+                                        replaces="isochrones_tpu/ops/interp.py:483", dtype="float32")}))
     ms, plain_ms, bound_ms, bound_by = times[MAIN_SHAPE]
     print(json.dumps({"kernels": [{
         "name": "cluster_marginal", "route": "cuda",

@@ -1,6 +1,8 @@
-// Grid interpolation shared by the likelihood kernels (star_lnlike.cu,
-// tree_lnlike.cu): the axis description, cell location and the multilinear
-// lerp of a group of lanes, with the semantics of the plain version
+// Grid interpolation shared by the kernels (star_lnlike.cu, tree_lnlike.cu,
+// catalog_lnlike.cu, generate.cu): the axis description, cell location, the
+// multilinear lerp of a group of lanes (or of one lane, with 16-byte row
+// loads) and the lerp's slope along one axis, with the semantics of the plain
+// version
 // (isochrones_torch/ops/interp.py): find_cells_1d's cell step for step (the
 // exact_affine fix-up, the two-step fix-up of the affine and log kinds,
 // _pin_top, searchsorted's count of knots below x, the compare kind's count),
@@ -65,10 +67,16 @@ __device__ __forceinline__ V group_sum(V v) {
   return v;
 }
 
+// torch: where(den == 0, 1, den)
+template <typename T>
+__device__ __forceinline__ T safe_den(T den) {
+  return den == T(0) ? T(1) : den;
+}
+
 // torch: num / where(den == 0, 1, den)
 template <typename T>
 __device__ __forceinline__ T safe_div(T num, T den) {
-  return div_rn(num, den == T(0) ? T(1) : den);
+  return div_rn(num, safe_den(den));
 }
 
 template <typename T>
@@ -151,12 +159,14 @@ __device__ __forceinline__ T pick4(const T* v, long long u) {
 
 // ops/interp.py::find_cells_1d for one in-bounds, non-NaN x, from the reads
 // of locate_reads, by the G lanes of a group together: the lower cell index
-// (may be n - 1 at the top knot) and the in-cell coordinate t. Lanes with
-// `skip` (a NaN or out-of-bounds point) read no further knots; every lane of
-// the warp calls it (the searches vote and shuffle).
+// (may be n - 1 at the top knot) and the in-cell coordinate t; with `den`,
+// also the denominator of t, so that dt/dx = 1 / den (0 where t is a
+// constant: see lerp_slope). Lanes with `skip` (a NaN or out-of-bounds point)
+// read no further knots; every lane of the warp calls it (the searches vote
+// and shuffle).
 template <typename T, int G>
 __device__ void locate_finish(const Axis& ax, T x, bool skip, int l, const AxisReads<T>& r, long long& cell,
-                              T& t) {
+                              T& t, T* den = nullptr) {
   const long long n = ax.n;
   const int gbase = (threadIdx.x % 32) & ~(G - 1);
   if (ax.kind != kSearch && n > 1) {
@@ -172,6 +182,7 @@ __device__ void locate_finish(const Axis& ax, T x, bool skip, int l, const AxisR
       tt = div_rn(sub_rn(x, lo), step);
       cell = c;
       t = tt;
+      if (den) *den = step;
     } else if (ax.kind == kCompare) {
       // the count of knots <= x: the knots increase, so it is also an
       // upper-bound search, which wide axes (more than 4 knots a lane) take
@@ -192,6 +203,7 @@ __device__ void locate_finish(const Axis& ax, T x, bool skip, int l, const AxisR
       }
       cell = c;
       t = safe_div(sub_rn(x, lo), sub_rn(hi, lo));
+      if (den) *den = safe_den(sub_rn(hi, lo));
     } else {  // kAffine, kLog: knots c0 and c0 + 1 are read, others on demand
       auto kat = [&](long long i) { return i == r.c0 ? r.kn[0] : i == r.c0 + 1 ? r.kn[1] : knot<T>(ax, i); };
       long long c = r.c0;
@@ -203,10 +215,12 @@ __device__ void locate_finish(const Axis& ax, T x, bool skip, int l, const AxisR
       const T lo = kat(c);
       cell = c;
       t = safe_div(sub_rn(x, lo), sub_rn(kat(c + 1), lo));
+      if (den) *den = safe_den(sub_rn(kat(c + 1), lo));
     }
     if (x == r.last) {  // _pin_top
       cell = n - 1;
       t = T(0);
+      if (den) *den = T(0);
     }
     return;
   }
@@ -220,6 +234,20 @@ __device__ void locate_finish(const Axis& ax, T x, bool skip, int l, const AxisR
   const T hi_k = knot<T>(ax, clampll(c_safe + 1, 0, n - 1));
   cell = eq ? c : c_safe;
   t = eq ? T(0) : safe_div(sub_rn(x, lo_k), sub_rn(hi_k, lo_k));
+  if (den) *den = eq ? T(0) : safe_den(sub_rn(hi_k, lo_k));
+}
+
+// The slope along one axis of a lerp located by locate_finish, in the closed
+// form torch.autograd takes through ops/interp.py::find_cells_1d and
+// interp_nd: `diff` is the sum over the other axes' corners of their weight
+// times (upper - lower corner value); dt/dx is 1 / den (1 / step for the
+// exact_affine kind, 1 / (hi - lo) through _safe_div for the others), and 0
+// where t is replaced by a constant (an exact knot on the searchsorted path,
+// _pin_top), whatever diff is. A NaN-padded corner gives a NaN diff, as its
+// 0 * NaN gives a NaN value (ops/eep.py::newton_slope is the plain version).
+template <typename T>
+__device__ __forceinline__ T lerp_slope(T diff, T den) {
+  return den == T(0) ? T(0) : div_rn(diff, den);
 }
 
 // two neighbouring values in one load
@@ -298,6 +326,79 @@ __device__ void interp_group(const T* __restrict__ table, const Axis* axes, cons
     if (c == ncols) break;
     const T sum = group_sum<G>(out[c]);  // every lane shuffles, bad or not
     out[c] = bad ? T(NAN) : sum;
+  }
+}
+
+// 16 bytes of a row in one load: four floats or two doubles
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
+
+__device__ __forceinline__ void add_scaled(float* o, float4 v, float w) {
+  o[0] += w * v.x;
+  o[1] += w * v.y;
+  o[2] += w * v.z;
+  o[3] += w * v.w;
+}
+__device__ __forceinline__ void add_scaled(double* o, double2 v, double w) {
+  o[0] += w * v.x;
+  o[1] += w * v.y;
+}
+
+// interp_group for one lane (G = 1) on a table whose rows hold only the
+// columns to lerp, `row_len` (<= NC) of them, a multiple of 16 bytes, the
+// table aligned to 16 bytes: each corner row is read as row_len * sizeof(T) /
+// 16 vector loads, every column lerped, into out[0, row_len). Same products
+// in the same order, the same NaN rules.
+template <typename T, int NDIM, int NC>
+__device__ void interp_rows16(const T* __restrict__ table, const Axis* axes, const T* x, int row_len, T* out) {
+  constexpr int kVec = 16 / sizeof(T);
+  static_assert(NC % kVec == 0, "whole vectors");
+  AxisReads<T> reads[NDIM];
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) locate_reads<T, 1>(axes[d], x[d], 0, reads[d]);
+  bool bad = false;
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) bad = bad || isnan(x[d]) || x[d] < reads[d].first || x[d] > reads[d].last;
+  long long cell[NDIM];
+  T t[NDIM];
+  long long stride[NDIM];
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) locate_finish<T, 1>(axes[d], x[d], bad, 0, reads[d], cell[d], t[d]);
+  stride[NDIM - 1] = 1;
+#pragma unroll
+  for (int d = NDIM - 2; d >= 0; --d) stride[d] = stride[d + 1] * axes[d + 1].n;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) out[c] = T(0);
+  if (!bad) {
+#pragma unroll
+    for (int i = 0; i < (1 << NDIM); ++i) {  // unrolled: every corner's loads in flight together
+      T w = T(1);
+      long long row = 0;
+#pragma unroll
+      for (int d = 0; d < NDIM; ++d) {
+        const int o = (i >> (NDIM - 1 - d)) & 1;
+        w = w * (o ? t[d] : T(1) - t[d]);
+        row += clampll(cell[d] + o, 0, axes[d].n - 1) * stride[d];
+      }
+      const typename Vec16<T>::type* r = reinterpret_cast<const typename Vec16<T>::type*>(table + row * row_len);
+#pragma unroll
+      for (int k = 0; k < NC / kVec; ++k) {
+        if (k * kVec >= row_len) break;
+        add_scaled(out + k * kVec, __ldg(r + k), w);
+      }
+    }
+  }
+  if (bad) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) out[c] = T(NAN);
   }
 }
 

@@ -9,10 +9,10 @@ tensors, and host wrappers on numpy), the per-property accessors and the
 ``mag[band]`` accessor, ``__call__``, EEP inversion (``get_eep``, fast on
 track grids and accurate on both, ``max_eep``) and the forward model
 (``generate``, ``generate_device``, ``generate_binary``, ``isochrone``,
-``model_value``, ``model_mag``). On the card the fast inversion and the
-forward model run in one hand-written kernel
-(:mod:`isochrones_torch.ops.generate_cuda`); a table comes back as a
-:class:`~isochrones_torch.summary.Frame`.
+``model_value``, ``model_mag``). On the card the EEP inversions (fast and
+accurate) and the forward model run in one hand-written kernel
+(:mod:`isochrones_torch.ops.generate_cuda`), one launch a call; a table comes
+back as a :class:`~isochrones_torch.summary.Frame`.
 """
 
 from __future__ import annotations
@@ -22,8 +22,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.eep import get_eep_newton
-from ..ops.generate import ForwardModel, generate_forward, get_eep_fast
+from ..ops.generate import ForwardModel, NewtonGrid, eep_newton, generate_forward, get_eep_accurate, get_eep_fast
 from ..ops.interp import GridData, interp_nd
 from ..ops.mags import interp_mag as _interp_mag_kernel
 from ..summary import Frame
@@ -334,27 +333,23 @@ class ModelGridInterpolator:
         models.py:501-542): the fast integer-resolution search on track grids,
         refined by Newton steps with ``accurate``; on isochrone grids only the
         accurate one, seeded at EEP 300. NaN where the refined residual
-        exceeds ``resid_tol``."""
+        exceeds ``resid_tol``. One kernel launch on the card."""
         mass, age, feh = torch.broadcast_tensors(
             *(torch.as_tensor(x, dtype=self.dtype, device=self.device) for x in (mass, age, feh)))
         if self.eep_replaces == "age":
             if self.eep_support is None:
                 raise ValueError("No EEP support arrays on this grid")
-            fast = get_eep_fast(self._forward_model, mass, age, feh)
             if not accurate:
-                return fast
-            eep, resid = get_eep_newton(self.model, fast, age, feh, mass, self.model.column_index["age"])
-        elif self.eep_replaces == "mass":
+                return get_eep_fast(self._forward_model, mass, age, feh)
+            return get_eep_accurate(self._forward_model, mass, age, feh, resid_tol)
+        if self.eep_replaces == "mass":
             if not accurate:
                 raise NotImplementedError(
                     "Fast EEP inversion not implemented for isochrone grids (as in reference)")
-            seed = torch.full_like(mass, 300.0)
-            eep, resid = get_eep_newton(self.model, seed, mass, age, feh, self.model.column_index["initial_mass"])
-        else:
-            raise NotImplementedError(
-                f"EEP inversion needs eep_replaces in ('age', 'mass'); this "
-                f"interpolator has eep_replaces={self.eep_replaces!r}")
-        return torch.where(resid.abs() < resid_tol, eep, torch.full_like(eep, float("nan")))
+            return eep_newton(self._newton_grid, self._eep_seed.expand_as(mass), mass, age, feh, resid_tol)
+        raise NotImplementedError(
+            f"EEP inversion needs eep_replaces in ('age', 'mass'); this "
+            f"interpolator has eep_replaces={self.eep_replaces!r}")
 
     def get_eep(self, mass, age, feh, accurate=False, resid_tol=0.02, **kwargs):
         """Host wrapper of :meth:`get_eep_batch`: broadcast numpy in, numpy
@@ -391,6 +386,25 @@ class ModelGridInterpolator:
                 eep0=float(self.model.knots[-1][0]), i_age=self.model.column_index.get("age", -1))
         return fm
 
+    @property
+    def _newton_grid(self) -> NewtonGrid:
+        """An isochrone grid's accurate inversion: the Newton step on its
+        initial-mass column, built once."""
+        ng = getattr(self, "_ng", None)
+        if ng is None:
+            ng = self._ng = NewtonGrid(self.model, self.model.column_index["initial_mass"])
+        return ng
+
+    @property
+    def _eep_seed(self) -> torch.Tensor:
+        """The isochrone grid's Newton seed, EEP 300 as in the reference, a
+        scalar tensor made once, so that a call launches no kernel to fill
+        it."""
+        seed = getattr(self, "_seed300", None)
+        if seed is None:
+            seed = self._seed300 = torch.full((), 300.0, dtype=self.dtype, device=self.device)
+        return seed
+
     def _forward(self, mass, age, feh, distance, AV, prop_names, bands, eeps=None, all_As=False, accurate=False):
         """The forward model on device tensors: ``(eeps, values, mags, mags
         at AV = 0 or None)``; the inversion needs the EEP support arrays."""
@@ -399,6 +413,19 @@ class ModelGridInterpolator:
         return generate_forward(self._forward_model, mass, age, feh, distance, AV, self.model.icols(prop_names),
                                 tuple(self.bc.column_index[b] for b in bands), eeps=eeps, all_As=all_As,
                                 accurate=accurate)
+
+    def _forward_host(self, cols, prop_names, bands, eeps=None, all_As=False, accurate=False):
+        """:meth:`_forward` of flat float64 host columns (mass, age, feh,
+        distance, AV), one call per ``HOST_CHUNK`` rows: numpy ``(values,
+        mags, mags at AV = 0 or None)``."""
+        cols = list(cols) + ([] if eeps is None else [eeps])
+        pieces = []
+        for i in range(0, max(cols[0].shape[0], 1), HOST_CHUNK):
+            t = [torch.as_tensor(c[i: i + HOST_CHUNK], dtype=self.dtype, device=self.device) for c in cols]
+            out = self._forward(*t[:5], prop_names, bands, eeps=t[5] if eeps is not None else None,
+                                all_As=all_As, accurate=accurate)
+            pieces.append([None if x is None else x.cpu().numpy() for x in out[1:]])
+        return tuple(None if p[0] is None else np.concatenate(p) for p in zip(*pieces))
 
     def generate(self, mass, age, feh, props="all", bands=None, eeps=None, return_df=True, return_dict=False,
                  distance=10.0, AV=0.0, all_As=False, accurate=False, **kwargs):
@@ -418,14 +445,8 @@ class ModelGridInterpolator:
         (mass_, age_, feh_, dist_, av_), shape = _host_rows([mass, age, feh, distance, AV])
         eeps_ = None if eeps is None else _host_rows([eeps], shape)[0][0]
         prop_names = list(self.model.columns) if props == "all" else list(props)
-        cols = [mass_, age_, feh_, dist_, av_] + ([] if eeps_ is None else [eeps_])
-        pieces = []
-        for i in range(0, max(mass_.shape[0], 1), HOST_CHUNK):
-            t = [torch.as_tensor(c[i: i + HOST_CHUNK], dtype=self.dtype, device=self.device) for c in cols]
-            out = self._forward(*t[:5], prop_names, bands, eeps=t[5] if eeps_ is not None else None,
-                                all_As=all_As, accurate=accurate)
-            pieces.append([None if x is None else x.cpu().numpy() for x in out[1:]])
-        values, mags, mags0 = (None if p[0] is None else np.concatenate(p) for p in zip(*pieces))
+        values, mags, mags0 = self._forward_host([mass_, age_, feh_, dist_, av_], prop_names, bands, eeps=eeps_,
+                                                 all_As=all_As, accurate=accurate)
 
         df = Frame({c: values[:, i] for i, c in enumerate(prop_names)})
         df.update({f"{b}_mag": mags[:, i] for i, b in enumerate(bands)})
@@ -491,26 +512,37 @@ class ModelGridInterpolator:
         df = Frame(self(np.arange(*eep_range), age, feh, distance=distance, AV=AV))
         return df.dropna() if dropna else df
 
+    def _model_host(self, pars, prop_names, bands, accurate):
+        """The forward model of broadcast host parameters (mass, age, feh,
+        distance, AV) as ``get_eep`` then ``interp_value`` / ``interp_mag``
+        shape it: ``(values, mags)``, each ``shape + (n,)``, or ``(n,)`` for
+        scalars."""
+        cols, shape = _host_rows(pars)
+        values, mags, _ = self._forward_host(cols, prop_names, bands, accurate=accurate)
+        if not shape:
+            return values[0], mags[0]
+        return values.reshape(shape + (-1,)), mags.reshape(shape + (-1,))
+
     def model_value(self, mass, age, feh, props, approx=False):
         """Model columns at (mass, age, feh) through the EEP inversion
-        (reference models.py:447-455); an isochrone grid delegates to its
-        track, as :meth:`model_mag` does."""
+        (reference models.py:447-455): one forward-model call (a kernel
+        launch on the card); an isochrone grid delegates to its track, as
+        :meth:`model_mag` does."""
         if self.eep_replaces == "mass":
             return self.track.model_value(mass, age, feh, props, approx=approx)
         if isinstance(props, str):
             props = [props]
-        eep = self.get_eep(mass, age, feh, accurate=not approx)
-        values = self.interp_value([mass, eep, feh], props)
+        values = self._model_host([mass, age, feh, 10.0, 0.0], list(props), [], accurate=not approx)[0]
         return float(np.squeeze(values)) if np.size(values) == 1 else values
 
     def model_mag(self, mass, age, feh, distance=10.0, AV=0.0, bands=None, approx=False):
         """Magnitudes at (mass, age, feh) through the EEP inversion (reference
-        models.py:458-469)."""
+        models.py:458-469): one forward-model call (a kernel launch on the
+        card)."""
         if self.eep_replaces == "mass":
             return self.track.model_mag(mass, age, feh, distance=distance, AV=AV, bands=bands, approx=approx)
         bands = bands or self.bands
-        eep = self.get_eep(mass, age, feh, accurate=not approx)
-        mags = self.interp_mag([mass, eep, feh, distance, AV], bands)[3]
+        mags = self._model_host([mass, age, feh, distance, AV], [], list(bands), accurate=not approx)[1]
         return float(np.squeeze(mags)) if np.size(mags) == 1 else mags
 
 

@@ -90,10 +90,11 @@ def _pack_observations(lk: CatalogLikelihood) -> torch.Tensor:
     return torch.cat([x.to(ref.dtype).reshape(S, -1) for x in parts], dim=-1).contiguous()
 
 
-def compact_table(bc, band_icols) -> torch.Tensor:
+def compact_table(bc, band_icols, widths=_COMPACT_WIDTHS) -> torch.Tensor:
     """The BC table's columns ``band_icols``, in that order, padded with
-    zeros to the narrowest of 4, 8 or 16 columns that holds them: a
-    contiguous ``(b0, b1, b2, b3, W)`` copy. Raises past 16 bands."""
+    zeros to the narrowest of ``widths`` (4, 8 or 16 columns; the forward
+    model's kernel also takes 12) that holds them: a contiguous ``(b0, b1,
+    b2, b3, W)`` copy. Raises past 16 bands."""
     nb = len(band_icols)
     if nb > _MAX_BANDS:
         raise ValueError(f"the kernels take at most {_MAX_BANDS} bands, got {nb}")
@@ -101,7 +102,7 @@ def compact_table(bc, band_icols) -> torch.Tensor:
     for c in band_icols:
         if not 0 <= c < bc_ncols:
             raise ValueError(f"band column {c} outside the BC table")
-    width = next(w for w in _COMPACT_WIDTHS if nb <= w)
+    width = next(w for w in widths if nb <= w)
     vals = bc.values[..., [int(c) for c in band_icols]]
     pad = vals.new_zeros(vals.shape[:-1] + (width - nb,))
     return torch.cat([vals, pad], dim=-1).contiguous()

@@ -14,7 +14,10 @@ Counterpart of ``isochrones_tpu/ops/eep.py``:
   derivative taken by ``torch.autograd`` through :func:`interp_nd` (the
   lerp's slope in the located cell; 0 at an exact top knot and at a NaN or
   out-of-bounds point, where the step is then not finite and the old value is
-  kept).
+  kept), or with ``closed_slope`` by :func:`newton_slope`.
+* :func:`newton_slope`: that derivative in closed form, the plain version of
+  what the forward-model kernel computes (``csrc/interp_common.cuh::
+  lerp_slope``).
 
 Age matrices are padded with +inf past each track's end, which makes the
 unrestricted lower bound equal to the reference's search with explicit
@@ -27,9 +30,9 @@ import math
 
 import torch
 
-from .interp import GridData, find_cells_1d, interp_nd
+from .interp import GridData, corner_data, find_cells_1d, interp_nd
 
-__all__ = ["searchsorted_rows", "interp_eep", "get_eep_newton"]
+__all__ = ["searchsorted_rows", "interp_eep", "newton_slope", "get_eep_newton"]
 
 #: points of the Newton seed scan that one interpolation call takes
 _SCAN_POINTS = 1 << 22
@@ -125,6 +128,53 @@ def interp_eep(
     return torch.where(bad, torch.full_like(out, float("nan")), out)
 
 
+def newton_slope(grid: GridData, points: torch.Tensor, icol: int):
+    """``(value, slope)`` of column ``icol`` at ``points`` (..., ndim): the
+    value as :func:`interp_nd` gives it, and its derivative along the last
+    axis as ``torch.autograd`` takes it through :func:`find_cells_1d` and
+    :func:`interp_nd`, in closed form: the sum over the other axes' corners
+    of their weight times (upper - lower corner value), times dt/dx. dt/dx is
+    ``1 / step`` for the ``exact_affine`` kind and ``1 / (hi - lo)`` (through
+    ``_safe_div``) for the others, and 0 where t is replaced by a constant (an
+    exact knot on the searchsorted path, the top knot's ``_pin_top``), whatever
+    the corners hold. A NaN-padded corner gives a NaN slope, as its 0 * NaN
+    gives a NaN value; at a NaN or out-of-bounds point the corners enter
+    times 0, as autograd's zero gradient does."""
+    knots, maps = grid.knots, grid.axis_maps or (None,) * len(grid.knots)
+    ndim = len(knots)
+    batch_shape = points.shape[:-1]
+    pts = points.reshape(-1, ndim)
+    corners, weights, bad = corner_data(grid.values, knots, pts, icols=(icol,), axis_maps=grid.axis_maps)
+    c = corners[..., 0].to(weights.dtype)  # (B, 2**ndim), the last axis' bit lowest
+    value = (weights[..., None] * c[..., None]).sum(dim=1)[:, 0]  # interp_nd's sum, bitwise
+    value = torch.where(bad, torch.full_like(value, float("nan")), value)
+    # the other axes' weights, in corner_data's product order
+    w = torch.ones_like(c[:, :1])
+    for d in range(ndim - 1):
+        _, t, _ = find_cells_1d(knots[d], pts[:, d], axis_map=maps[d])
+        w = (w[:, :, None] * torch.stack([1.0 - t, t], dim=-1)[:, None, :]).reshape(w.shape[0], -1)
+    live = (~bad).to(c.dtype)[:, None]  # autograd's gradient at a bad point is 0 times the corners
+    diff = (w * (live * c[:, 1::2] - live * c[:, 0::2])).sum(dim=1)
+    # dt/dx along the last axis: 1 / den, 0 where pinned
+    k, x, amap = knots[-1], pts[:, -1], maps[-1]
+    n = k.shape[0]
+    cell = find_cells_1d(k, x, axis_map=amap)[0]
+    if amap is not None and n > 1:
+        pinned = x == k[-1]
+        if amap[0] == "exact_affine":
+            den = torch.full_like(x, float(amap[2]))
+        else:
+            lo_i = torch.clamp(cell, 0, n - 2)
+            den = k[lo_i + 1] - k[lo_i]
+    else:
+        pinned = k[torch.clamp(cell, 0, n - 1)] == x
+        lo_i = torch.clamp(cell, 0, n - 2) if n > 1 else torch.zeros_like(cell)
+        den = k[torch.clamp(lo_i + 1, 0, n - 1)] - k[lo_i]
+    den = torch.where(den == 0, torch.ones_like(den), den)
+    slope = torch.where(pinned, torch.zeros_like(diff), diff / den)
+    return value.reshape(batch_shape), slope.reshape(batch_shape)
+
+
 def get_eep_newton(
     grid: GridData,
     eep_init: torch.Tensor,
@@ -133,13 +183,15 @@ def get_eep_newton(
     x1: torch.Tensor,  # second grid-axis coordinate (mass for tracks, feh for isos)
     i_age_col: int,
     n_iter: int = 12,
+    closed_slope: bool = False,
 ):
     """Accurate EEP inversion: ``(eep, residual)`` after ``n_iter`` damped
     Newton steps on ``interp(x0, x1, eep)[col] - target``, seeded by the fast
     estimate, or where that has no finite residual by the best of a 33-point
     scan of the EEP axis. The step is clipped to +-32, the iterate clamped to
     the EEP knots, a non-finite new value keeps the old one, and the result
-    is NaN where the final residual is not finite."""
+    is NaN where the final residual is not finite. The slope comes from
+    ``torch.autograd``, or with ``closed_slope`` from :func:`newton_slope`."""
     eep_knots = grid.knots[-1]
     eep_min = eep_knots[0]
     eep_max = eep_knots[-1]
@@ -164,11 +216,16 @@ def get_eep_newton(
     r_init = resid(torch.nan_to_num(eep, nan=float(eep_min)))
     eep = torch.where(torch.isfinite(eep) & torch.isfinite(r_init), eep, scan_seed)
     for _ in range(n_iter):
-        with torch.enable_grad():
-            e = eep.detach().requires_grad_(True)
-            r = resid(e)
-            (g,) = torch.autograd.grad(r.sum(), e)
-        r = r.detach()
+        if closed_slope:
+            pt = torch.stack([x0.expand_as(eep), x1.expand_as(eep), eep], dim=-1)
+            value, g = newton_slope(grid, pt, i_age_col)
+            r = value - targets
+        else:
+            with torch.enable_grad():
+                e = eep.detach().requires_grad_(True)
+                r = resid(e)
+                (g,) = torch.autograd.grad(r.sum(), e)
+            r = r.detach()
         step = r / torch.where(g == 0, torch.ones_like(g), g)
         step = torch.clamp(step, -32.0, 32.0)  # damping against a huge derivative's noise
         new = torch.clamp(eep - step, eep_min, eep_max)

@@ -12,11 +12,13 @@ Given EEPs skip the inversion.
 
 :func:`generate_plain` composes the port's ``ops/eep.py``, ``ops/interp.py``
 and ``ops/mags.py``; the tests and the card's checks use it.
-:func:`generate_forward` and :func:`get_eep_fast` dispatch on the device: a
-CPU tensor takes the plain version, a CUDA tensor the hand-written kernel
-(:mod:`isochrones_torch.ops.generate_cuda`), with no fallback between them.
-On the card the accurate inversion is the kernel's EEP, the torch Newton
-step, then the kernel with the EEP given.
+:func:`generate_forward`, :func:`get_eep_fast`, :func:`get_eep_accurate`
+(a track grid's accurate inversion) and :func:`eep_newton` (the Newton step
+from given seeds on any :class:`NewtonGrid`, an isochrone grid's inversion)
+dispatch on the device: a CPU tensor takes the plain version, a CUDA tensor
+the hand-written kernel (:mod:`isochrones_torch.ops.generate_cuda`), one
+launch a call, the accurate forms' Newton step included, with no fallback
+between them.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from .eep import get_eep_newton, interp_eep
 from .interp import GridData, interp_nd
 from .mags import interp_mag
 
-__all__ = ["ForwardModel", "generate_plain", "generate_forward", "get_eep_fast"]
+__all__ = ["ForwardModel", "NewtonGrid", "generate_plain", "generate_forward", "get_eep_fast", "get_eep_accurate",
+           "eep_newton"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -48,9 +51,21 @@ class ForwardModel:
     i_age: int  # the age column of ``model``
 
 
-def _newton(fm: ForwardModel, fast, mass, age, feh, resid_tol):
-    eep, resid = get_eep_newton(fm.model, fast, age, feh, mass, fm.i_age)
+@dataclasses.dataclass(frozen=True, eq=False)
+class NewtonGrid:
+    """A 3-d model grid whose last axis is the EEP, and the column that the
+    accurate inversion matches (an isochrone grid's initial mass)."""
+
+    grid: GridData
+    icol: int
+
+
+def _cut(eep, resid, resid_tol):
     return torch.where(resid.abs() < resid_tol, eep, torch.full_like(eep, float("nan")))
+
+
+def _newton(fm: ForwardModel, fast, mass, age, feh, resid_tol):
+    return _cut(*get_eep_newton(fm.model, fast, age, feh, mass, fm.i_age), resid_tol)
 
 
 def generate_plain(fm: ForwardModel, mass, age, feh, distance, AV, prop_icols, band_icols,
@@ -85,15 +100,16 @@ def _device_kind(x: torch.Tensor, name: str) -> str:
 def generate_forward(fm: ForwardModel, mass, age, feh, distance, AV, prop_icols, band_icols,
                      eeps: Optional[torch.Tensor] = None, all_As=False, accurate=False, resid_tol=0.02):
     """The forward model: CPU tensors take :func:`generate_plain`, CUDA
-    tensors the kernel (one launch; two with ``accurate``, around the torch
-    Newton step). Same arguments and results."""
+    tensors the kernel (one launch, ``accurate`` or not). Same arguments and
+    results."""
     if _device_kind(mass, "generate_forward") == "cpu":
         return generate_plain(fm, mass, age, feh, distance, AV, prop_icols, band_icols, eeps=eeps, all_As=all_As,
                               accurate=accurate, resid_tol=resid_tol)
-    from .generate_cuda import generate_cuda, get_eep_cuda
+    from .generate_cuda import generate_accurate_cuda, generate_cuda
 
     if eeps is None and accurate:
-        eeps = _newton(fm, get_eep_cuda(fm, mass, age, feh), mass, age, feh, resid_tol)
+        return generate_accurate_cuda(fm, mass, age, feh, distance, AV, prop_icols, band_icols, all_As=all_As,
+                                      resid_tol=resid_tol)
     return generate_cuda(fm, mass, age, feh, distance, AV, prop_icols, band_icols, eeps=eeps, all_As=all_As)
 
 
@@ -107,3 +123,30 @@ def get_eep_fast(fm: ForwardModel, mass, age, feh):
 
     shape = mass.shape
     return get_eep_cuda(fm, mass.reshape(-1), age.reshape(-1), feh.reshape(-1)).reshape(shape)
+
+
+def get_eep_accurate(fm: ForwardModel, mass, age, feh, resid_tol=0.02):
+    """The accurate EEP inversion on a track grid, of broadcast tensors of
+    any one shape: the fast estimate refined by the Newton step on the age
+    column, NaN where its residual is ``resid_tol`` or more. CPU tensors take
+    :func:`~.eep.interp_eep` and :func:`~.eep.get_eep_newton`, CUDA tensors
+    the kernel (one launch)."""
+    if _device_kind(mass, "get_eep_accurate") == "cpu":
+        return _newton(fm, interp_eep(age, feh, mass, *fm.eep_support, eep0=fm.eep0), mass, age, feh, resid_tol)
+    from .generate_cuda import get_eep_accurate_cuda
+
+    shape = mass.shape
+    return get_eep_accurate_cuda(fm, mass.reshape(-1), age.reshape(-1), feh.reshape(-1), resid_tol).reshape(shape)
+
+
+def eep_newton(ng: NewtonGrid, seed, target, x0, x1, resid_tol=0.02):
+    """:func:`~.eep.get_eep_newton` of column ``ng.icol`` from ``seed`` at
+    grid coordinates ``(x0, x1, eep)`` then the ``resid_tol`` cut, on
+    broadcast tensors of any one shape: CPU tensors take the plain version,
+    CUDA tensors the kernel's Newton form (one launch)."""
+    if _device_kind(target, "eep_newton") == "cpu":
+        return _cut(*get_eep_newton(ng.grid, seed, target, x0, x1, ng.icol), resid_tol)
+    from .generate_cuda import eep_newton_cuda
+
+    shape = target.shape
+    return eep_newton_cuda(ng, *(x.reshape(-1) for x in (seed, target, x0, x1)), resid_tol=resid_tol).reshape(shape)

@@ -1,23 +1,38 @@
-"""Hand-written CUDA kernel for the forward model.
+"""Hand-written CUDA kernel for the forward model and the EEP inversions.
 
 Replaces the JAX package's XLA-fused forward model, ``_generate_g``
-(``isochrones_tpu/models/interpolator.py:109-156``); the source is
-``isochrones_torch/csrc/generate.cu``, whose header says what bounds it on the
-card and how the design answers that. The plain version it replaces sits
-beside it in :mod:`isochrones_torch.ops.generate`.
+(``isochrones_tpu/models/interpolator.py:109-156``), and its accurate EEP
+inversion, ``get_eep_newton`` (``isochrones_tpu/ops/eep.py:128-180``); the
+source is ``isochrones_torch/csrc/generate.cu``, whose header says what bounds
+it on the card and how the design answers that. The plain versions it
+replaces sit beside it in :mod:`isochrones_torch.ops.generate` and
+:mod:`isochrones_torch.ops.eep`.
 
-Two wrappers over the one kernel body: :func:`generate_cuda` (the EEP
-inversion, or given EEPs, then the chosen model columns and the magnitudes,
-with ``all_As`` also at AV = 0) and :func:`get_eep_cuda` (the EEP alone, the
-fast ``get_eep`` of a track grid). Each counts its own launches. The argument
-struct (axis kinds and constants, knot and table pointers, the columns to
-lerp) is built once per :class:`~isochrones_torch.ops.generate.ForwardModel`,
-dtype, device and band list, with the BC table's wanted columns copied into
-a compact table (:func:`~.catalog_cuda.compact_table`); each call patches in
-its pointers. The inputs are 1-d tensors of one length N, read with their
-own strides (a broadcast scalar has stride 0). Caps: 16 bands, 28 model
-columns, ``N < 2**31`` points (one thread each). Past a cap it raises a
-``ValueError`` that names it; it never falls back to the plain version.
+Five wrappers over the one kernel body, each one launch and each with its own
+count of launches: :func:`generate_cuda` (the fast EEP inversion, or given
+EEPs, then the chosen model columns and the magnitudes, with ``all_As`` also
+at AV = 0), :func:`generate_accurate_cuda` (the same after the Newton step and
+the ``resid_tol`` cut), :func:`get_eep_cuda` (the fast EEP alone, a track
+grid's fast ``get_eep``), :func:`get_eep_accurate_cuda` (the accurate EEP alone
+on a track grid) and :func:`eep_newton_cuda` (the Newton step from given seeds
+on any 3-d grid whose last axis is the EEP: an isochrone grid's ``get_eep``).
+
+The argument struct (axis kinds and constants, knot and table pointers) is
+built once per :class:`~isochrones_torch.ops.generate.ForwardModel` (or
+:class:`~isochrones_torch.ops.generate.NewtonGrid`), dtype, device and band
+list; each call patches in its pointers. Beside it, built once and kept with
+it: a packed copy of the model table holding only the wanted columns, rows
+padded to a multiple of 4 values (:func:`packed_model`, the last
+``_MODEL_PACKS`` column lists kept), the BC table's wanted columns in a
+compact copy 4, 8, 12 or 16 wide (:func:`~.catalog_cuda.compact_table`), and
+for the Newton step the matched column as its own contiguous table, with
+the scan's 33 EEPs. The inputs are 1-d
+tensors of one length N, read with their own strides (a broadcast scalar has
+stride 0). Caps: 16 bands, 28 model columns, ``N < 2**31`` points (one
+thread each); the Newton step takes a 3-d grid whose last axis is the EEP,
+and on a track grid the axes (feh, mass, eep) and an age column. Past a cap
+it raises a ``ValueError`` that names it; it never falls back to the plain
+version.
 """
 
 from __future__ import annotations
@@ -31,10 +46,11 @@ import torch
 
 from ._build import load_library
 from .catalog_cuda import compact_table
-from .generate import ForwardModel
+from .generate import ForwardModel, NewtonGrid
 from .star_cuda import _KINDS, _Axis, _axes
 
-__all__ = ["generate_cuda", "get_eep_cuda", "MAX_BANDS", "MAX_PROPS"]
+__all__ = ["generate_cuda", "generate_accurate_cuda", "get_eep_cuda", "get_eep_accurate_cuda", "eep_newton_cuda",
+           "packed_model", "MAX_BANDS", "MAX_PROPS"]
 
 MAX_BANDS = 16
 _MAX_COLS = 32
@@ -42,7 +58,13 @@ _MAX_COLS = 32
 MAX_PROPS = _MAX_COLS - 4
 _MAX_POINTS = 1 << 31
 #: the kernel's Mode
-_INVERT, _GIVEN, _EEP_ONLY = 0, 1, 2
+_INVERT, _GIVEN, _EEP_ONLY, _ACCURATE, _ACCURATE_EEP, _NEWTON = range(6)
+#: the compact BC table's widths the kernel is instantiated for
+_BC_WIDTHS = (4, 8, 12, 16)
+#: get_eep_newton's steps and scan points
+_N_ITER, _N_SCAN = 12, 33
+#: packed model tables kept per forward model, dtype and device (one per column list)
+_MODEL_PACKS = 4
 
 
 class _GenerateArgs(ctypes.Structure):
@@ -51,12 +73,14 @@ class _GenerateArgs(ctypes.Structure):
     _fields_ = [
         ("inp", ctypes.c_void_p * 5), ("eeps_in", ctypes.c_void_p), ("model", ctypes.c_void_p),
         ("bc", ctypes.c_void_p), ("age_rows", ctypes.c_void_p), ("lengths", ctypes.c_void_p),
+        ("newton_col", ctypes.c_void_p), ("scan", ctypes.c_void_p),
         ("eep", ctypes.c_void_p), ("props", ctypes.c_void_p), ("mags", ctypes.c_void_p), ("mags0", ctypes.c_void_p),
         ("stride", ctypes.c_longlong * 5), ("N", ctypes.c_longlong), ("n_eep", ctypes.c_longlong),
-        ("n_tracks", ctypes.c_longlong), ("eep0", ctypes.c_double), ("io", ctypes.c_int * 3),
-        ("n_steps", ctypes.c_int), ("row_len", ctypes.c_int), ("ncols", ctypes.c_int), ("P", ctypes.c_int),
-        ("n_bands", ctypes.c_int), ("bc_ncols", ctypes.c_int), ("pad", ctypes.c_int),
-        ("cols", ctypes.c_int * _MAX_COLS), ("inv_ax", _Axis * 2), ("model_ax", _Axis * 3), ("bc_ax", _Axis * 4),
+        ("n_tracks", ctypes.c_longlong), ("eep0", ctypes.c_double), ("resid_tol", ctypes.c_double),
+        ("io", ctypes.c_int * 3), ("n_steps", ctypes.c_int), ("row_len", ctypes.c_int), ("P", ctypes.c_int),
+        ("mag_cols", ctypes.c_int * 4), ("n_bands", ctypes.c_int), ("bc_ncols", ctypes.c_int),
+        ("n_iter", ctypes.c_int), ("pad", ctypes.c_int),
+        ("inv_ax", _Axis * 2), ("model_ax", _Axis * 3), ("bc_ax", _Axis * 4), ("newton_ax", _Axis * 3),
     ]
 
 
@@ -80,17 +104,59 @@ def _lib():
     return lib
 
 
-#: per forward model: {(dtype, device, band columns): (argument struct template, tensors it points into)}
-_TEMPLATES = weakref.WeakKeyDictionary()
+#: per forward model or Newton grid: {key: (argument struct or table, tensors it points into)}
+_CACHE = weakref.WeakKeyDictionary()
 
 
-def _template(fm: ForwardModel, band_icols, dtype, device):
-    """The argument struct of ``fm`` and these bands, with the tensors it
-    points into; raises on what the kernel does not take."""
-    key = (dtype, device, tuple(int(c) for c in band_icols))
-    per_fm = _TEMPLATES.setdefault(fm, {})
-    if key in per_fm:
-        return per_fm[key][0]
+def _cached(owner, key, build):
+    per = _CACHE.setdefault(owner, {})
+    if key not in per:
+        per[key] = build()
+    return per[key]
+
+
+def packed_model(fm: ForwardModel, prop_icols, dtype, device):
+    """``(table, mag_cols)``: the model table's columns ``prop_icols``, then
+    those of Teff, logg, feh and Mbol not among them, padded with zeros to a
+    multiple of 4 columns, as one contiguous ``(m0, m1, m2, width)`` copy;
+    ``mag_cols`` are Teff's, logg's, feh's and Mbol's places in it. Built
+    once per column list (the last ``_MODEL_PACKS`` kept)."""
+    packs = _CACHE.setdefault(fm, {}).setdefault(("packs", dtype, device), {})
+    key = tuple(int(c) for c in prop_icols)
+    if key not in packs:
+        cols = list(key) + [c for c in fm.model_icols if c not in key]
+        width = -(-len(cols) // 4) * 4
+        vals = fm.model.values[..., cols]
+        table = torch.cat([vals, vals.new_zeros(vals.shape[:-1] + (width - len(cols),))], dim=-1).contiguous()
+        if len(packs) >= _MODEL_PACKS:
+            packs.pop(next(iter(packs)))
+        packs[key] = (table, tuple(cols.index(c) for c in fm.model_icols))
+    return packs[key]
+
+
+def _newton_tables(grid, icol, dtype, device):
+    """The Newton step's column of ``grid`` as a contiguous ``(n0, n1, n2)``
+    table, the scan's EEPs, ``linspace(first, last EEP knot, 33)`` as
+    get_eep_newton makes them, and the grid's axes."""
+    if len(grid.knots) != 3:
+        raise ValueError(f"the Newton step needs a 3-d grid whose last axis is the EEP, got {len(grid.knots)} axes")
+    if not 0 <= icol < grid.values.shape[-1]:
+        raise ValueError(f"Newton column {icol} outside the table of {grid.values.shape[-1]} columns")
+    axes = _axes(grid, dtype, device, "Newton grid")
+    col = grid.values[..., icol].contiguous()
+    eeps = grid.knots[-1]
+    scan = torch.linspace(float(eeps[0]), float(eeps[-1]), _N_SCAN, dtype=dtype, device=device)
+    return col, scan, axes
+
+
+def _template(fm: ForwardModel, band_icols, dtype, device, accurate=False):
+    """The argument struct of ``fm`` and these bands (with the Newton step's
+    tables when ``accurate``); raises on what the kernel does not take."""
+    key = ("args", dtype, device, tuple(int(c) for c in band_icols), accurate)
+    return _cached(fm, key, lambda: _build_template(fm, key[3], dtype, device, accurate))[0]
+
+
+def _build_template(fm: ForwardModel, bands, dtype, device, accurate):
     if fm.eep_support is None:
         raise ValueError("forward-model kernel needs the track grid's EEP support arrays")
     if len(fm.model.knots) != 3 or len(fm.bc.knots) != 4:
@@ -107,7 +173,6 @@ def _template(fm: ForwardModel, band_icols, dtype, device):
     age_rows = age_rows.contiguous()
     lengths = lengths.to(device=device, dtype=torch.int64).contiguous()
     a = _GenerateArgs()
-    a.model, a.row_len = fm.model.values.data_ptr(), fm.model.values.shape[-1]
     a.model_ax[:] = _axes(fm.model, dtype, device, "model")
     a.age_rows, a.lengths = age_rows.data_ptr(), lengths.data_ptr()
     a.n_eep, a.n_tracks = age_rows.shape[1], n_tracks
@@ -121,15 +186,28 @@ def _template(fm: ForwardModel, band_icols, dtype, device):
         inv.append(_Axis(k.data_ptr(), k.shape[0], 0.0, 0.0, _KINDS[None], 0))
     a.inv_ax[:] = inv
     keep = [age_rows, lengths]
-    a.n_bands = len(key[2])
+    a.n_bands = len(bands)
     a.bc_ncols = 4
     if a.n_bands:
-        table = compact_table(fm.bc, key[2])
+        table = compact_table(fm.bc, bands, widths=_BC_WIDTHS)
         a.bc, a.bc_ncols = table.data_ptr(), table.shape[-1]
         a.bc_ax[:] = _axes(fm.bc, dtype, device, "BC")
         keep.append(table)
-    per_fm[key] = (a, keep)
-    return a
+    if accurate:
+        # get_eep_newton(fm.model, fast, age, feh, mass, fm.i_age): the grid's axes are (feh, mass, eep)
+        if tuple(int(i) for i in fm.index_order[:3]) != (2, 0, 1):
+            raise ValueError(f"the accurate inversion needs the grid axes (feh, mass, eep), got {fm.index_order}")
+        if fm.i_age < 0:
+            raise ValueError("the accurate inversion needs the model table's age column")
+        col, scan, axes = _newton_tables(fm.model, fm.i_age, dtype, device)
+        _set_newton(a, col, scan, axes)
+        keep += [col, scan]
+    return a, keep
+
+
+def _set_newton(a, col, scan, axes):
+    a.newton_col, a.scan, a.n_iter = col.data_ptr(), scan.data_ptr(), _N_ITER
+    a.newton_ax[:] = axes
 
 
 def _check_inputs(xs, names, fn):
@@ -164,28 +242,25 @@ def _point_args(call, xs):
         call.inp[k], call.stride[k] = x.data_ptr(), x.stride(0)
 
 
-def generate_cuda(fm: ForwardModel, mass, age, feh, distance, AV, prop_icols, band_icols, eeps=None, all_As=False):
-    """``(eeps (N,), props (N, P), mags (N, n_bands), mags at AV = 0 or
-    None)`` from one kernel launch: the EEP inverted in the kernel, or the
-    given ``eeps`` (returned as they are). Raises on anything the kernel does
-    not take, and if the launch fails."""
+def _forward(fm, mass, age, feh, distance, AV, prop_icols, band_icols, eeps, all_As, accurate, resid_tol, fn):
     prop_icols = tuple(int(c) for c in prop_icols)
     if len(prop_icols) > MAX_PROPS:
         raise ValueError(f"forward-model kernel takes at most {MAX_PROPS} model columns, got {len(prop_icols)}")
     if len(band_icols) > MAX_BANDS:
         raise ValueError(f"forward-model kernel takes at most {MAX_BANDS} bands, got {len(band_icols)}")
     xs = [mass, age, feh, distance, AV] + ([] if eeps is None else [eeps])
-    n = _check_inputs(xs, ["mass", "age", "feh", "distance", "AV", "eeps"], "generate_cuda")
+    n = _check_inputs(xs, ["mass", "age", "feh", "distance", "AV", "eeps"], fn)
     dt, dev = mass.dtype, mass.device
     row_len = fm.model.values.shape[-1]
     if any(not 0 <= c < row_len for c in prop_icols):
         raise ValueError(f"model column outside the table of {row_len} columns: {prop_icols}")
-    call = _GenerateArgs.from_buffer_copy(_template(fm, band_icols, dt, dev))
-    nb = call.n_bands
-    cols = tuple(int(c) for c in fm.model_icols) + prop_icols
-    call.cols[: len(cols)] = cols
-    call.ncols, call.P, call.N = len(cols), len(prop_icols), n
+    call = _GenerateArgs.from_buffer_copy(_template(fm, band_icols, dt, dev, accurate))
+    table, mag_cols = packed_model(fm, prop_icols, dt, dev)
+    call.model, call.row_len, call.P = table.data_ptr(), table.shape[-1], len(prop_icols)
+    call.mag_cols[:] = mag_cols
+    call.N, call.resid_tol = n, float(resid_tol)
     _point_args(call, xs[:5])
+    nb = call.n_bands
     props = torch.empty((n, len(prop_icols)), dtype=dt, device=dev)
     mags = torch.empty((n, nb), dtype=dt, device=dev)
     mags0 = torch.empty((n, nb), dtype=dt, device=dev) if all_As else None
@@ -193,30 +268,91 @@ def generate_cuda(fm: ForwardModel, mass, age, feh, distance, AV, prop_icols, ba
     call.mags0 = None if mags0 is None or nb == 0 else mags0.data_ptr()
     if eeps is None:
         eeps = torch.empty((n,), dtype=dt, device=dev)
-        call.eep, mode = eeps.data_ptr(), _INVERT
+        call.eep, mode = eeps.data_ptr(), _ACCURATE if accurate else _INVERT
     else:
         eeps = eeps.contiguous()
         call.eeps_in, mode = eeps.data_ptr(), _GIVEN
     _launch(call, mode, dt, dev, "generate")
-    generate_cuda.launches += 1
     return eeps, props, mags, mags0
+
+
+def generate_cuda(fm: ForwardModel, mass, age, feh, distance, AV, prop_icols, band_icols, eeps=None, all_As=False):
+    """``(eeps (N,), props (N, P), mags (N, n_bands), mags at AV = 0 or
+    None)`` from one kernel launch: the fast EEP inversion in the kernel, or
+    the given ``eeps`` (returned as they are). Raises on anything the kernel
+    does not take, and if the launch fails."""
+    out = _forward(fm, mass, age, feh, distance, AV, prop_icols, band_icols, eeps, all_As, False, 0.0,
+                   "generate_cuda")
+    generate_cuda.launches += 1
+    return out
+
+
+def generate_accurate_cuda(fm: ForwardModel, mass, age, feh, distance, AV, prop_icols, band_icols, all_As=False,
+                           resid_tol=0.02):
+    """:func:`generate_cuda` with the accurate inversion: the fast EEP refined
+    by the Newton step and NaN where its residual is ``resid_tol`` or more,
+    all in one launch."""
+    out = _forward(fm, mass, age, feh, distance, AV, prop_icols, band_icols, None, all_As, True, resid_tol,
+                   "generate_accurate_cuda")
+    generate_accurate_cuda.launches += 1
+    return out
+
+
+def _eep_only(fm, mass, age, feh, mode, resid_tol, fn):
+    n = _check_inputs([mass, age, feh], ["mass", "age", "feh"], fn)
+    dt, dev = mass.dtype, mass.device
+    call = _GenerateArgs.from_buffer_copy(_template(fm, (), dt, dev, mode == _ACCURATE_EEP))
+    call.N, call.resid_tol = n, float(resid_tol)
+    _point_args(call, [mass, age, feh])
+    out = torch.empty((n,), dtype=dt, device=dev)
+    call.eep = out.data_ptr()
+    _launch(call, mode, dt, dev, "get_eep")
+    return out
 
 
 def get_eep_cuda(fm: ForwardModel, mass, age, feh):
     """The fast EEP inversion ``(N,)`` of 1-d tensors, from one launch of the
     kernel's EEP-only form."""
-    n = _check_inputs([mass, age, feh], ["mass", "age", "feh"], "get_eep_cuda")
-    dt, dev = mass.dtype, mass.device
-    call = _GenerateArgs.from_buffer_copy(_template(fm, (), dt, dev))
-    call.N = n
-    _point_args(call, [mass, age, feh])
+    out = _eep_only(fm, mass, age, feh, _EEP_ONLY, 0.0, "get_eep_cuda")
+    get_eep_cuda.launches += 1
+    return out
+
+
+def get_eep_accurate_cuda(fm: ForwardModel, mass, age, feh, resid_tol=0.02):
+    """The accurate EEP inversion ``(N,)`` of 1-d tensors on the track grid:
+    the fast estimate, the Newton step on the age column and the
+    ``resid_tol`` cut, in one launch."""
+    out = _eep_only(fm, mass, age, feh, _ACCURATE_EEP, resid_tol, "get_eep_accurate_cuda")
+    get_eep_accurate_cuda.launches += 1
+    return out
+
+
+def eep_newton_cuda(ng: NewtonGrid, seed, target, x0, x1, resid_tol=0.02):
+    """get_eep_newton's EEP ``(N,)`` from the seeds ``seed`` for ``target``
+    of column ``ng.icol`` at grid coordinates ``(x0, x1, eep)``, then the
+    ``resid_tol`` cut (NaN past it), in one launch."""
+    n = _check_inputs([target, x0, x1, seed], ["target", "x0", "x1", "seed"], "eep_newton_cuda")
+    dt, dev = target.dtype, target.device
+
+    def build():
+        col, scan, axes = _newton_tables(ng.grid, ng.icol, dt, dev)
+        a = _GenerateArgs()
+        _set_newton(a, col, scan, axes)
+        return a, [col, scan]
+
+    call = _GenerateArgs.from_buffer_copy(_cached(ng, ("newton", dt, dev), build)[0])
+    call.N, call.resid_tol = n, float(resid_tol)
+    _point_args(call, [target, x0, x1, seed])
     out = torch.empty((n,), dtype=dt, device=dev)
     call.eep = out.data_ptr()
-    _launch(call, _EEP_ONLY, dt, dev, "get_eep")
-    get_eep_cuda.launches += 1
+    _launch(call, _NEWTON, dt, dev, "eep_newton")
+    eep_newton_cuda.launches += 1
     return out
 
 
 #: kernel launches made through each wrapper (reset by callers that count)
 generate_cuda.launches = 0
+generate_accurate_cuda.launches = 0
 get_eep_cuda.launches = 0
+get_eep_accurate_cuda.launches = 0
+eep_newton_cuda.launches = 0

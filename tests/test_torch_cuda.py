@@ -45,7 +45,7 @@ import pytest
 import torch
 
 from chip_smoke import (
-    check_generate, generate_points,
+    check_generate, check_newton, generate_points, plain_accurate, plain_newton, wrapper_launches,
     CAT_BANDS, CLI_EEP_BOX, catalog_likelihood_as, catalog_points, catalog_priors_as, catalog_table,
     ATOL_F32, ATOL_STAR_F32, FIXTURE, RTOL_F32, RTOL_F64, RTOL_STAR_F32, RTOL_STAR_F64, _tree_check, as_float32,
     _tree_mixed_points, check_close, check_eep, check_star, eep_points, grid_as, make_kernel_inputs, profile_kernels,
@@ -157,8 +157,9 @@ def test_cluster_model_on_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("accurate", [False, True], ids=["fast", "accurate"])
 def test_get_eep_on_card_matches_cpu(dev, accurate):
-    """EEP inversion is plain torch: on the card it gives what it gives on
-    the CPU (float64, 1e-9, identical NaN pattern), on both interpolators."""
+    """The EEP inversion through kernel F on the card gives what the plain
+    version gives on the CPU (float64, 1e-9, identical NaN pattern), on both
+    interpolators."""
     gpu, cpu = (get_ichrone("synthetic", device=d, tracks=True, **_SMALL) for d in (dev, "cpu"))
     mass, age, feh = eep_points(cpu, 3000, seed=4)
     check_eep("track", gpu.get_eep(mass, age, feh, accurate=accurate), cpu.get_eep(mass, age, feh, accurate=accurate))
@@ -810,19 +811,19 @@ def test_interpolators_launch_generate_kernel(dev):
     """``generate``, ``generate_device``, ``generate_binary``, a population
     and the fast ``get_eep`` on the card go through the kernel and equal the
     CPU's plain path (float64)."""
-    from isochrones_torch.ops.generate_cuda import generate_cuda, get_eep_cuda
+    from isochrones_torch.ops.generate_cuda import generate_cuda, get_eep_accurate_cuda, get_eep_cuda
     from isochrones_torch.populations import StarPopulation
 
     card = get_ichrone("synthetic", device=dev, **_GEN_DIMS)
     cpu = get_ichrone("synthetic", device="cpu", **_GEN_DIMS)
     cols = generate_points(cpu.track, 3000, seed=9)
-    generate_cuda.launches = get_eep_cuda.launches = 0
+    generate_cuda.launches = get_eep_cuda.launches = get_eep_accurate_cuda.launches = 0
     got = card.generate(*cols[:3], distance=cols[3], AV=cols[4], all_As=True)
     ref = cpu.generate(*cols[:3], distance=cols[3], AV=cols[4], all_As=True)
     eeps = card.track.get_eep(*cols[:3])
     acc = card.track.get_eep(*cols[:3], accurate=True)
     dev_out = card.generate_device(*cols[:3], distance=cols[3], AV=cols[4])
-    assert generate_cuda.launches == 2 and get_eep_cuda.launches == 2
+    assert generate_cuda.launches == 2 and get_eep_cuda.launches == 1 and get_eep_accurate_cuda.launches == 1
     assert list(got) == list(ref)
     for c in ref:
         np.testing.assert_allclose(got[c], ref[c], rtol=1e-10, atol=1e-9, equal_nan=True, err_msg=c)
@@ -835,3 +836,167 @@ def test_interpolators_launch_generate_kernel(dev):
     assert generate_cuda.launches >= 3
     for c in pops[1]:
         np.testing.assert_allclose(pops[0][c], pops[1][c], rtol=1e-10, atol=1e-9, equal_nan=True, err_msg=c)
+
+
+# ------------------------------------------------------------ kernel F's accurate forms
+
+
+def _eep_axis_variant(grid, kind):
+    """``grid`` with its EEP axis (the last) moved so that each cell-location
+    kind runs on it: "exact_affine" as built, "affine" (the knots scaled by
+    0.37: uniform, not bit-exact), "log" (log-uniform), "compare"
+    (irregular), "searchsorted" (no axis maps). Values are kept."""
+    from isochrones_torch.ops.interp import compute_axis_maps
+
+    if kind == "exact_affine":
+        return grid
+    maps = tuple(grid.axis_maps)
+    if kind == "searchsorted":
+        return dataclasses.replace(grid, axis_maps=maps[:2] + (None,))
+    k = grid.knots[-1].cpu().double().numpy()
+    if kind == "affine":
+        k = k * 0.37
+    elif kind == "log":
+        k = np.exp(np.linspace(np.log(k[0]), np.log(k[-1]), len(k)))
+    else:
+        d = np.diff(k) * (1.0 + 0.5 * np.sin(np.arange(len(k) - 1)))
+        k = k[0] + (k[-1] - k[0]) * np.concatenate([[0.0], np.cumsum(d)]) / d.sum()
+    amap = compute_axis_maps([k])[0]
+    assert amap[0] == kind, amap
+    v = grid.values
+    return dataclasses.replace(grid, knots=grid.knots[:2] + (torch.as_tensor(k, dtype=v.dtype, device=v.device),),
+                               axis_maps=maps[:2] + (amap,))
+
+
+def _accurate_points(dev, n, seed, dtype):
+    """Seeded (mass, age, feh, distance, AV) on the card: the smoke's spread
+    (every knot, NaN rows, ages past every track's end, whose fast estimate is
+    NaN so that the scan runs)."""
+    track = get_ichrone("synthetic", device="cpu", **_GEN_DIMS).track
+    keep = np.random.default_rng(seed).permutation(max(n, 400))[:n]
+    return [torch.as_tensor(c[keep], device=dev, dtype=dtype) for c in generate_points(track, max(n, 400), seed)]
+
+
+@pytest.mark.parametrize("n", [1, 31, 1000, 70001])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_accurate_forms_match_plain(dev, n, dtype):
+    """The accurate forward form and the accurate EEP alone on the track grid
+    against the plain Newton step (``check_newton``); the columns and
+    magnitudes at the kernel's own EEPs to ``check_generate``'s tolerances."""
+    from isochrones_torch.ops.generate import generate_plain
+    from isochrones_torch.ops.generate_cuda import generate_accurate_cuda, get_eep_accurate_cuda
+
+    fm64, fm32, up = _forward_models(dev)
+    fm, dtn = (fm64, "float64") if dtype == torch.float64 else (fm32, "float32")
+    x = _accurate_points(dev, n, n, dtype)
+    icols, bcols = fm.model.icols("all"), tuple(fm.bc.column_index[b] for b in ("J", "G", "W3"))
+    got = generate_accurate_cuda(fm, *x, icols, bcols, all_As=True)
+    ref_e, ref_r, resid_at = plain_accurate(fm, *x[:3])
+    check_newton("accurate generate", got[0].cpu(), ref_e.cpu(), ref_r.cpu(), dtn, resid_at)
+    xr = [c.double() for c in x]
+    ref = generate_plain(fm64 if dtype == torch.float64 else up, *xr, icols, bcols, eeps=got[0].double(), all_As=True)
+    check_generate("accurate columns", got, (got[0],) + tuple(ref[1:]), dtn)
+    assert torch.equal(get_eep_accurate_cuda(fm, *x[:3]).nan_to_num(-1.0), got[0].nan_to_num(-1.0))
+    if n >= 1000:
+        assert int(torch.isfinite(got[0]).sum()) > n // 5 and int(torch.isnan(ref_e).sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["compare", "searchsorted"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_accurate_forms_axis_kinds(dev, kind, dtype):
+    """The track grid's accurate forms with the mass axis on irregular knots,
+    or with no axis maps (the EEP axis then searchsorted, whose searches
+    vote across the warp)."""
+    from isochrones_torch.ops.generate_cuda import get_eep_accurate_cuda
+
+    fm64, fm32, _ = _forward_models(dev, kind)
+    fm, dtn = (fm64, "float64") if dtype == torch.float64 else (fm32, "float32")
+    x = _accurate_points(dev, 20000, 5, dtype)
+    ref_e, ref_r, resid_at = plain_accurate(fm, *x[:3])
+    check_newton(f"accurate EEP {kind}", get_eep_accurate_cuda(fm, *x[:3]).cpu(), ref_e.cpu(), ref_r.cpu(), dtn,
+                 resid_at)
+
+
+@pytest.mark.parametrize("kind", ["exact_affine", "affine", "log", "compare", "searchsorted"])
+@pytest.mark.parametrize("n", [1, 31, 1000, 70001])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_newton_form_matches_plain(dev, kind, n, dtype):
+    """The Newton form on the isochrone grid (initial mass), its EEP axis of
+    every cell-location kind, from seeds at 300 (past this grid's top EEP:
+    clamped), inside the grid and NaN (the scan runs), against the plain
+    Newton step."""
+    from isochrones_torch.ops.generate import NewtonGrid
+    from isochrones_torch.ops.generate_cuda import eep_newton_cuda
+
+    iso = get_ichrone("synthetic", device=dev, dtype=dtype, **_GEN_DIMS)
+    ng = NewtonGrid(_eep_axis_variant(iso.model, kind), iso.model.column_index["initial_mass"])
+    x = _accurate_points(dev, n, n + 1, dtype)
+    e = ng.grid.knots[-1]
+    seed = torch.as_tensor(np.random.default_rng(n).uniform(float(e[0]), float(e[-1]), n), device=dev, dtype=dtype)
+    seed[::3], seed[1::3] = 300.0, float("nan")
+    ref_e, ref_r, resid_at = plain_newton(ng, seed, *x[:3])
+    dtn = "float64" if dtype == torch.float64 else "float32"
+    got = eep_newton_cuda(ng, seed, *x[:3])
+    check_newton(f"Newton form {kind}", got.cpu(), ref_e.cpu(), ref_r.cpu(), dtn, resid_at)
+    if n >= 1000:
+        assert int(torch.isfinite(got).sum()) > n // 10
+
+
+def test_accurate_entry_points_one_launch(dev):
+    """``get_eep(accurate=True)`` on both grids, ``generate(accurate=True)``
+    and ``model_mag`` (accurate and approximate) on the card are one launch
+    of kernel F each, by the wrappers' counters, and equal the CPU's plain
+    path (float64: EEPs to 1e-9 with identical NaN patterns)."""
+    card = get_ichrone("synthetic", device=dev, **_GEN_DIMS)
+    cpu = get_ichrone("synthetic", device="cpu", **_GEN_DIMS)
+    cols = generate_points(cpu.track, 5000, seed=11)
+    m, a, f, d, av = cols
+    for label, fn, ref in (
+        ("track get_eep", lambda ic: ic.track.get_eep(m, a, f, accurate=True), None),
+        ("iso get_eep", lambda ic: ic.get_eep(m, a, f, accurate=True), None),
+        ("generate", lambda ic: ic.generate(m, a, f, distance=d, AV=av, accurate=True)["J_mag"], None),
+        ("model_mag", lambda ic: ic.model_mag(m, a, f, distance=d, AV=av), None),
+        ("model_mag approx", lambda ic: ic.model_mag(m, a, f, distance=d, AV=av, approx=True), None),
+        ("model_value", lambda ic: ic.model_value(m, a, f, ["radius", "Teff"]), None),
+    ):
+        out = []
+        assert wrapper_launches(lambda: out.append(fn(card)), reps=1) == 1, label
+        got, want = np.asarray(out[0]), np.asarray(fn(cpu))
+        if "get_eep" in label:
+            check_eep(label, got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9, equal_nan=True, err_msg=label)
+
+
+def test_accurate_forms_caps_and_bad_input(dev):
+    """The new forms' caps raise a ValueError that names them: N < 2**31,
+    28 columns, 16 bands, a 3-d grid, the matched column inside the table,
+    the track grid's axes and age column; nothing falls back."""
+    from isochrones_torch.ops.generate import NewtonGrid
+    from isochrones_torch.ops.generate_cuda import (
+        MAX_BANDS, MAX_PROPS, eep_newton_cuda, generate_accurate_cuda, get_eep_accurate_cuda,
+    )
+
+    fm64, fm32, _ = _forward_models(dev)
+    iso = get_ichrone("synthetic", device=dev, **_GEN_DIMS)
+    x = torch.ones(8, device=dev, dtype=torch.float64)
+    huge = x[:1].expand(1 << 31)
+    with pytest.raises(ValueError, match=f"at most {MAX_PROPS} model columns"):
+        generate_accurate_cuda(fm64, x, x, x, x, x, (0,) * (MAX_PROPS + 1), (0,))
+    with pytest.raises(ValueError, match=f"at most {MAX_BANDS} bands"):
+        generate_accurate_cuda(fm64, x, x, x, x, x, (0,), (0,) * (MAX_BANDS + 1))
+    for fn in (lambda: get_eep_accurate_cuda(fm64, huge, huge, huge),
+               lambda: eep_newton_cuda(NewtonGrid(iso.model, 0), huge, huge, huge, huge)):
+        with pytest.raises(ValueError, match=r"N < 2\*\*31"):
+            fn()
+    with pytest.raises(ValueError, match="3-d grid"):
+        eep_newton_cuda(NewtonGrid(iso.bc, 0), x, x, x, x)
+    with pytest.raises(ValueError, match="outside the table"):
+        eep_newton_cuda(NewtonGrid(iso.model, 999), x, x, x, x)
+    with pytest.raises(ValueError, match="grid axes"):
+        get_eep_accurate_cuda(dataclasses.replace(fm64, index_order=(1, 2, 0, 3, 4)), x, x, x)
+    with pytest.raises(ValueError, match="age column"):
+        get_eep_accurate_cuda(dataclasses.replace(fm64, i_age=-1), x, x, x)
+    with pytest.raises(ValueError):
+        get_eep_accurate_cuda(fm32, x, x, x)  # tables in another dtype
+    assert get_eep_accurate_cuda(fm64, x[:0], x[:0], x[:0]).shape == (0,)
