@@ -75,7 +75,7 @@
 // double.
 //
 // GEN_PART cuts the body for scripts/tune_torch_generate.py, which builds
-// this file alone to time the parts apart: 1 the EEP alone (the inversion,
+// this file (with generate_f64.cu) alone to time the parts apart: 1 the EEP alone (the inversion,
 // with the accurate forms the Newton step), 2 also the model lerp and its
 // stores, 3 (the library's build) everything.
 
@@ -472,21 +472,26 @@ int launch(const GenerateArgs* args, int mode, void* stream) {
 
 }  // namespace
 
+// `args` points to a GenerateArgs (void*: see star_lnlike.cu); `mode` is a
+// Mode. The float64 entry point is compiled from generate_f64.cu, which
+// includes this file: the two types' 15 instantiations each build in their
+// own nvcc process, in parallel.
 extern "C" {
 
+#ifdef GENERATE_F64_UNIT
+int generate_f64(const void* args, int mode, void* stream) {
+  return launch<double>(static_cast<const GenerateArgs*>(args), mode, stream);
+}
+#else
 int generate_args_size() { return (int)sizeof(GenerateArgs); }
 
 int generate_max_bands() { return kMaxBands; }
 
 int generate_max_cols() { return kMaxCols; }
 
-// `args` points to a GenerateArgs (void*: see star_lnlike.cu); `mode` is a Mode
 int generate_f32(const void* args, int mode, void* stream) {
   return launch<float>(static_cast<const GenerateArgs*>(args), mode, stream);
 }
-
-int generate_f64(const void* args, int mode, void* stream) {
-  return launch<double>(static_cast<const GenerateArgs*>(args), mode, stream);
-}
+#endif
 
 }  // extern "C"

@@ -4,7 +4,7 @@ Run from the repository root:
 
     python -m scripts.tune_torch_generate [--reps 20] [--out FILE]
 
-Builds ``isochrones_torch/csrc/generate.cu`` alone into
+Builds ``isochrones_torch/csrc/generate.cu`` (with ``generate_f64.cu``) alone into
 ``isochrones_torch/_build/tune/`` once per variant, every ``nvcc`` started
 together: the source as the library builds it (``full``), and the same
 source cut by ``-DGEN_PART`` to the EEP alone (``part1``: the inversion, and
@@ -56,11 +56,11 @@ def build_variants():
     out_dir = os.path.join(_build.BUILD_DIR, "tune")
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _build.find_nvcc()
-    src = os.path.join(_build.CSRC, "generate.cu")
+    srcs = [os.path.join(_build.CSRC, f) for f in ("generate.cu", "generate_f64.cu")]
     procs = {}
     for tag, defs in VARIANTS:
         path = os.path.join(out_dir, f"generate_{tag}.so")
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", *defs, "-o", path, src]
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", *defs, "-o", path, *srcs]
         procs[tag] = (path, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     built = {}
     for tag, (path, proc) in procs.items():
