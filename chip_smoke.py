@@ -1236,8 +1236,10 @@ def check_newton(name, got, ref, ref_resid, dtype, resid_at, resid_tol=0.02):
     past a track's end, one unit in the last place below it does not, so one
     version stops there while the other goes on): the finite one of the two
     EEPs must then be a root by the plain residual ``resid_at`` (numpy EEPs
-    of every row -> their residuals). Returns ``(max abs error, finite
-    count, knife-edge rows)``."""
+    of every row -> their residuals), lie within ``ATOL_NEWTON_F32`` of an
+    EEP knot (``resid_at.eep_knots``), and the plain residual exactly at that
+    knot must be NaN. Returns ``(max abs error, finite count, knife-edge
+    rows)``."""
     if dtype == "float64":
         return check_eep(name, got, ref) + (0,)
     got, ref = np.asarray(got, dtype=np.float64), np.asarray(ref, dtype=np.float64)
@@ -1245,8 +1247,13 @@ def check_newton(name, got, ref, ref_resid, dtype, resid_at, resid_tol=0.02):
     differ = np.isnan(got) != np.isnan(ref)
     edge = np.abs(r - resid_tol) < RESID_EDGE_F32
     if (differ & ~edge).any():
-        root = np.abs(resid_at(np.where(np.isnan(got), ref, got)))
-        edge |= differ & (root < resid_tol)
+        fin = np.where(np.isnan(got), ref, got)  # the finite one of the two
+        knots = np.asarray(resid_at.eep_knots, dtype=np.float64)
+        i = np.clip(np.searchsorted(knots, np.nan_to_num(fin)), 1, len(knots) - 1)
+        knot = np.where(np.abs(fin - knots[i - 1]) <= np.abs(fin - knots[i]), knots[i - 1], knots[i])
+        root = np.abs(resid_at(fin)) < resid_tol
+        padded = np.isnan(resid_at(np.where(differ, knot, fin)))
+        edge |= differ & root & (np.abs(fin - knot) <= ATOL_NEWTON_F32) & padded
     n_edge = int(differ.sum())
     if got.shape != ref.shape or (differ & ~edge).any() or n_edge > max(1, KNIFE_ROWS_F32 * len(ref)):
         raise AssertionError(f"{name}: NaN pattern differs at {n_edge} rows, {int((differ & ~edge).sum())} of them "
@@ -1259,15 +1266,33 @@ def check_newton(name, got, ref, ref_resid, dtype, resid_at, resid_tol=0.02):
 
 
 def timed_call(fn, reps):
-    """``(wall ms, device-busy ms, kernel launches)`` per call of ``fn``: the
-    wall-clock unprofiled, the other two from ``torch.profiler``, None where
-    its windows reported no device event (the launches are then counted by
-    the wrappers, ``wrapper_launches``)."""
+    """``(wall ms, device-busy ms, kernel launches, kernel names)`` per call
+    of ``fn``: the wall-clock unprofiled, the rest from ``torch.profiler``.
+    Where its windows of ``reps`` calls report no device event it profiles
+    one call a window; if those report none either, busy and launches are
+    None and the names empty (the launches are then counted by the wrappers
+    alone, ``wrapper_launches``)."""
     wall = 1e3 * _wall(fn, reps)
-    _, by_name = profile_kernels(fn, reps, required=False)
-    if not by_name:
-        return wall, None, None
-    return wall, sum(ms for ms, _ in by_name.values()) / reps, sum(n for _, n in by_name.values()) / reps
+    for r in (reps, 1):
+        _, by_name = profile_kernels(fn, r, required=False)
+        if by_name:
+            return (wall, sum(ms for ms, _ in by_name.values()) / r, sum(n for _, n in by_name.values()) / r,
+                    set(by_name))
+    return wall, None, None, set()
+
+
+def only_kernel(timed, kernel, what):
+    """The device kernels ``timed_call`` saw in each of ``timed`` ({label:
+    its result}) all hold ``kernel`` in their names; at least one call's
+    windows saw one. Raises otherwise: a torch kernel beside the wrapper's
+    launch, which the wrappers' counters cannot see."""
+    seen = {label: names for label, (_, _, _, names) in timed.items() if names}
+    if not seen:
+        raise AssertionError(f"{what}: the profiler saw no device event in any call's windows")
+    stray = {label: sorted(n for n in names if kernel not in n) for label, names in seen.items()}
+    if any(stray.values()):
+        raise AssertionError(f"{what}: device kernels other than {kernel}: {stray}")
+    return sorted(seen)
 
 
 def _fmt(x, spec):
@@ -1338,7 +1363,9 @@ def phase_eep(dev, ic32, ic64):
     ng32 = ic32._newton_grid
     iso_work = newton_work(ng32.grid, ng32.icol, torch.full_like(ma32, 300.0), ma32, aa32, fa32)
     iso_bound = bound(4 * 4 * n_acc + iso_work[0], iso_work[1], 0, "float32")
-    for label, n, (wall, busy, launches), b in (("track fast", EEP_FAST_POINTS, fast_ms, fast_bound),
+    checked = only_kernel({"track fast": fast_ms, "track accurate": acc_ms, "iso accurate": iso_ms},
+                          "generate_kernel", "get_eep_batch")
+    for label, n, (wall, busy, launches, _), b in (("track fast", EEP_FAST_POINTS, fast_ms, fast_bound),
                                                  ("track accurate", n_acc, acc_ms, acc_bound),
                                                  ("iso accurate", n_acc, iso_ms, iso_bound)):
         print(f"[eep] time f32 get_eep_batch {label}, {n} points: {wall:.3f} ms per call, device busy "
@@ -1347,6 +1374,7 @@ def phase_eep(dev, ic32, ic64):
               f"of it")
     if any(v != 1 for v in counted.values()):
         raise AssertionError(f"an EEP inversion is not one kernel launch: {counted}")
+    print(f"[eep] the profiler saw only kernel F in the windows of {checked}")
     return dict(fast_points=EEP_FAST_POINTS, fast_ms=fast_ms[0], fast_busy_ms=fast_ms[1], fast_launches=fast_ms[2],
                 fast_bound_ms=fast_bound[0], accurate_points=n_acc, accurate_ms=acc_ms[0],
                 accurate_busy_ms=acc_ms[1], accurate_launches=acc_ms[2], accurate_bound_ms=acc_bound[0],
@@ -1962,7 +1990,8 @@ def generate_points(track, n, seed):
 
 def _resid_at(grid, icol, x0, x1, target):
     """The plain Newton residual at numpy EEPs of every row: the column
-    interpolated at (x0, x1, eep) minus the target, as numpy."""
+    interpolated at (x0, x1, eep) minus the target, as numpy; the grid's EEP
+    knots ride along as ``resid_at.eep_knots``."""
     import torch
 
     from isochrones_torch.ops.interp import interp_nd
@@ -1973,6 +2002,7 @@ def _resid_at(grid, icol, x0, x1, target):
         return (interp_nd(grid.values, grid.knots, pt, icols=(icol,), axis_maps=grid.axis_maps)[:, 0]
                 - target).cpu().numpy()
 
+    resid_at.eep_knots = grid.knots[-1].double().cpu().numpy()
     return resid_at
 
 
@@ -2211,7 +2241,9 @@ def phase_generate_kernel(dev, ic32, ic64):
     b_iso = bound(4 * 4 * GEN_POINTS + iw[0], iw[1], 0, "float32")
     m13, a13, f13 = (torch.as_tensor(c, device=dev, dtype=torch.float32)
                      for c in eep_points(tr64, EEP_FAST_POINTS, seed=21))
-    wall, busy, launches = timed_call(lambda: tr32.get_eep_batch(m13, a13, f13), reps=20)
+    timed = timed_call(lambda: tr32.get_eep_batch(m13, a13, f13), reps=20)
+    only_kernel({"track fast": timed}, "generate_kernel", "get_eep_batch")
+    wall, busy, launches, _ = timed
     print(f"[generate] time f32 {GEN_POINTS} points, {len(icols)} columns, {len(bcols)} bands: kernel {ms:.4f} ms "
           f"(all_As {ms_as:.4f} ms, f64 {ms64:.4f} ms), plain {plain_ms:.3f} ms; bound {b[0]:.5f} ms ({b[2]}), kernel "
           f"at {b[0] / ms:.4f} of it; EEP-only kernel {eep_ms:.4f} ms (first version: {GEN_EARLIER_MS} ms, EEP-only "
@@ -2227,8 +2259,7 @@ def phase_generate_kernel(dev, ic32, ic64):
                 get_eep_launches=launches, accurate_ms=acc_ms, accurate_plain_ms=acc_plain_ms,
                 accurate_bound_ms=b_acc[0], accurate_bound_by=b_acc[1], accurate_eep_only_ms=acc_eep_ms,
                 newton_iso_ms=iso_ms, newton_iso_bound_ms=b_iso[0], accurate_max_abs_err=acc["float32 generate"][0],
-                earlier_ms=GEN_EARLIER_MS, shape={"N": GEN_POINTS, "P": len(icols), "bands": len(bcols),
-                                                  "dtype": "float32"})
+                shape={"N": GEN_POINTS, "P": len(icols), "bands": len(bcols), "dtype": "float32"})
 
 
 def phase_forward_model(dev, ic32):

@@ -232,12 +232,12 @@ __global__ void __launch_bounds__(kThreads, CATALOG_MIN_BLOCKS)
 
   const T gx[3] = {user(a.io[0]), user(a.io[1]), user(a.io[2])};
   T v[kPackCols];
-  interp_group<T, 3, 1, kPackCols, true>(static_cast<const T*>(a.model), a.model_ax, gx, kPackCols, nullptr,
+  interp_group<T, 3, 1, kPackCols, 2>(static_cast<const T*>(a.model), a.model_ax, gx, kPackCols, nullptr,
                                          kPackCols, 0, v);
   T mags[kMaxBands];  // the BC values, then the magnitudes
   if (a.n_bands > 0) {
     const T bx[4] = {v[0], v[1], v[2], av};
-    interp_group<T, 4, 1, W, true>(static_cast<const T*>(a.bc), a.bc_ax, bx, W, nullptr, W, 0, mags);
+    interp_group<T, 4, 1, W, 2>(static_cast<const T*>(a.bc), a.bc_ax, bx, W, nullptr, W, 0, mags);
   }
 
   if (!active) return;

@@ -24,10 +24,11 @@
 //      more; the Newton form alone does the same from given seeds on any 3-d
 //      grid whose last axis is the EEP (the isochrone grid's initial mass);
 //   3. locates the cell of (feh, mass, eep) on the 3 model-grid axes once and
-//      lerps the 8 corner rows of a packed copy of the model table that holds
-//      only the wanted columns (the P asked for, then those of Teff, logg,
-//      feh and Mbol not among them), padded to 16-byte rows, read as 16-byte
-//      vectors (ops/generate_cuda.py::packed_model);
+//      lerps the 8 corner rows of a packed copy of the model table (every
+//      column, Teff, logg, feh and Mbol first, rows padded to 16 bytes;
+//      ops/generate_cuda.py::packed_model), read as 16-byte vectors up to the
+//      last column the call wants (one vector for the magnitudes alone); the
+//      columns asked for are picked from the lerped row through shared memory;
 //   4. locates the cell of (Teff, logg, feh, AV) on the 4 BC-grid axes and
 //      lerps the band columns of the 16 corner rows, from a compact copy of
 //      the BC table 4, 8, 12 or 16 columns wide, read as 16-byte vectors;
@@ -59,9 +60,10 @@
 // the chain of dependent reads (a few L2 round trips a point, hidden by the
 // warps in flight) but the number of memory transactions: every load of a
 // gathered row is a warp-wide instruction whose 32 lanes touch 32 different
-// sectors. So the corner rows come as 16-byte vectors from tables that hold
-// nothing else (4 loads a float32 model row of 16 columns where there were
-// 19 scalar loads; 3 a BC row of 12 where there were 8 pairs of 16), and the
+// sectors. So the corner rows come as 16-byte vectors from packed tables (4
+// loads a float32 model row of 16 columns where there were 19 scalar loads,
+// 1 where only the magnitudes are wanted; 3 a BC row of 12 where there were
+// 8 pairs of 16), and the
 // strided output rows are staged in shared memory and written out as
 // contiguous 16-byte vectors, a warp's 32 rows at a time. The Newton step
 // reads the matched column from a contiguous copy (a corner's two EEP
@@ -89,7 +91,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxBands = 16;
-constexpr int kMaxCols = 32;  // the packed model row: up to 28 columns asked for and the magnitudes' 4
+constexpr int kMaxCols = 32;  // the packed model row
 constexpr int kScan = 33;     // get_eep_newton's scan of the EEP axis
 
 
@@ -117,13 +119,13 @@ struct GenerateArgs {
   double resid_tol;         // the accurate forms' cut
   int io[3];                // model axis d takes column io[d] of (mass, eep, feh)
   int n_steps;              // bisection steps: ceil(log2(max(n_eep, 2))) + 1
-  int row_len;              // the packed model row's width, a multiple of 4
-  int P;                    // its first P columns are the ones asked for
-  int mag_cols[4];          // Teff, logg, feh and Mbol in the packed row
+  int row_len;              // the packed model row's width, a multiple of 4; Teff, logg, feh, Mbol first
+  int read_len;             // the lerped part of the row: its first read_len columns, a multiple of 4
+  int P;                    // columns asked for
+  int prop_cols[kMaxCols];  // their places in the packed row, each below read_len
   int n_bands;
   int bc_ncols;             // W: 4, 8, 12 or 16, at least n_bands
   int n_iter;               // Newton steps
-  int pad;
   Axis inv_ax[2];           // the tracks' [Fe/H] and mass knots (searchsorted)
   Axis model_ax[3];
   Axis bc_ax[4];
@@ -319,13 +321,24 @@ __device__ T newton(const GenerateArgs& a, T seed, T target, T x0, T x1) {
   return isfinite(r) && fabs(r) < T(a.resid_tol) ? eep : T(NAN);
 }
 
-// one of the packed row's lerped columns by a runtime index, without local memory
-template <typename T>
-__device__ __forceinline__ T pick(const T* v, int idx) {
-  T out = v[0];
+// picked[c] = v[cols[c]] for c < n, without local memory: lane r's row of
+// n_v values goes to the warp's stage at an odd stride (no bank conflicts) and
+// comes back by the uniform indices cols[c]. Every lane of the warp calls it.
+template <typename T, int NC>
+__device__ void pick_cols(T* stage, const T* v, int n_v, const int* cols, int n, T* picked, int lane) {
+  const int s = n_v | 1;
 #pragma unroll
-  for (int c = 1; c < kMaxCols; ++c) out = c == idx ? v[c] : out;
-  return out;
+  for (int k = 0; k < NC; ++k) {
+    if (k == n_v) break;
+    stage[lane * s + k] = v[k];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (c == n) break;
+    picked[c] = stage[lane * s + cols[c]];
+  }
+  __syncwarp();  // the buffer serves the stores next
 }
 
 // The warp's 32 output rows of `width` values (row r from lane r's
@@ -342,8 +355,8 @@ __device__ void store_rows(T* stage, const T* vals, int width, T* out, long long
     stage[lane * width + c] = vals[c];
   }
   __syncwarp();
-  using V = typename Vec16<T>::type;
   constexpr int kVec = 16 / sizeof(T);
+  using V = typename Vec<T, kVec>::type;
   const int total = n_rows * width, n_vec = total / kVec;
   T* dst = out + q0 * width;
   for (int i = lane; i < n_vec; i += 32) reinterpret_cast<V*>(dst)[i] = reinterpret_cast<const V*>(stage)[i];
@@ -358,15 +371,35 @@ __device__ void bands_out(const GenerateArgs& a, const T* tlf, T mbol, T dist_mo
                           int n_rows, int lane, void* out) {
   T bcv[W];
   const T bx[4] = {tlf[0], tlf[1], tlf[2], av};
-  interp_rows16<T, 4, W>(static_cast<const T*>(a.bc), a.bc_ax, bx, W, bcv);
+  interp_group<T, 4, 1, W, 16 / sizeof(T)>(static_cast<const T*>(a.bc), a.bc_ax, bx, W, nullptr, W, 0, bcv);
   T m[W];
 #pragma unroll
   for (int k = 0; k < W; ++k) m[k] = sub_rn(add_rn(mbol, dist_mod), bcv[k]);
   store_rows<T, W>(stage, m, a.n_bands, static_cast<T*>(out), q0, n_rows, lane);
 }
 
+// a warp's stage holds 32 rows of this many values: the lerped row at its
+// odd stride, the columns asked for, the bands
+__host__ __device__ __forceinline__ int stage_width(const GenerateArgs& a) {
+  int w = a.n_bands;
+  if (a.P > 0 && (a.read_len | 1) > w) w = a.read_len | 1;
+  if (a.P > w) w = a.P;
+  return w;
+}
+
+// Blocks an SM the registers of the forward forms leave room for: 5 in
+// float (96 registers a thread), 3 in double (168). Unbounded, nvcc hoists
+// the BC lerp's 16 unrolled corner rows and takes 106-128 registers in float
+// and 254 in double, one block an SM fewer, and those forms ran 8-17% slower
+// on an H100 (PERF.md; scripts/tune_torch_generate.py). The EEP-only forms
+// need fewer and are left unbounded (bounded at 5, the isochrone grid's
+// Newton form ran 9% slower).
+template <typename T, int MODE>
+constexpr int kMinBlocks = MODE == kInvert || MODE == kGiven || MODE == kAccurate ? (sizeof(T) == 4 ? 5 : 3) : 1;
+
 template <typename T, int W, int MODE>
-__global__ void __launch_bounds__(kThreads) generate_kernel(const __grid_constant__ GenerateArgs a) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T, MODE>)
+    generate_kernel(const __grid_constant__ GenerateArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const unsigned q = blockIdx.x * kThreads + threadIdx.x;  // the launch keeps N < 2^31
   const long long q0 = q & ~31u;
@@ -395,14 +428,19 @@ __global__ void __launch_bounds__(kThreads) generate_kernel(const __grid_constan
     if constexpr (MODE == kEepOnly || MODE == kAccurateEep || GEN_PART < 2) return;
     const int lane = threadIdx.x % 32;
     const int n_rows = (int)(a.N - q0 < 32 ? a.N - q0 : 32);
-    T* stage = reinterpret_cast<T*>(smem) + (threadIdx.x / 32) * 32 * (a.P > a.n_bands ? a.P : a.n_bands);
+    T* stage = reinterpret_cast<T*>(smem) + (threadIdx.x / 32) * 32 * stage_width(a);
     auto user = [&](int i) { return i == 0 ? mass : i == 1 ? eep : feh; };  // selects: no local memory
     const T gx[3] = {user(a.io[0]), user(a.io[1]), user(a.io[2])};
     T v[kMaxCols];
-    interp_rows16<T, 3, kMaxCols>(static_cast<const T*>(a.model), a.model_ax, gx, a.row_len, v);
-    const T tlf[3] = {pick(v, a.mag_cols[0]), pick(v, a.mag_cols[1]), pick(v, a.mag_cols[2])};
-    const T mbol = pick(v, a.mag_cols[3]);
-    store_rows<T, kMaxCols>(stage, v, a.P, static_cast<T*>(a.props), q0, n_rows, lane);
+    interp_group<T, 3, 1, kMaxCols, 16 / sizeof(T)>(static_cast<const T*>(a.model), a.model_ax, gx, a.row_len,
+                                                    nullptr, a.read_len, 0, v);
+    const T tlf[3] = {v[0], v[1], v[2]};
+    const T mbol = v[3];
+    if (a.P > 0) {  // uniform: the whole warp or none
+      T props[kMaxCols];
+      pick_cols<T, kMaxCols>(stage, v, a.read_len, a.prop_cols, a.P, props, lane);
+      store_rows<T, kMaxCols>(stage, props, a.P, static_cast<T*>(a.props), q0, n_rows, lane);
+    }
     if (GEN_PART < 3 || a.n_bands == 0) return;
     const T dist_mod = mul_rn(T(5), d_log10(div_rn(input<T>(a, 3, qc), T(10))));
     bands_out<T, W>(a, tlf, mbol, dist_mod, input<T>(a, 4, qc), stage, q0, n_rows, lane, a.mags);
@@ -413,7 +451,7 @@ __global__ void __launch_bounds__(kThreads) generate_kernel(const __grid_constan
 template <typename T, int W, int MODE>
 cudaError_t launch_w(const GenerateArgs& a, cudaStream_t st) {
   const long long blocks = (a.N + kThreads - 1) / kThreads;
-  const int width = a.P > a.n_bands ? a.P : a.n_bands;
+  const int width = stage_width(a);
   const size_t smem = (MODE == kEepOnly || MODE == kAccurateEep || MODE == kNewton)
                           ? 0
                           : (size_t)kThreads * (width > 0 ? width : 1) * sizeof(T);
@@ -450,14 +488,15 @@ int launch(const GenerateArgs* args, int mode, void* stream) {
   if (newton && (!a.newton_col || !a.scan || a.n_iter < 0 || !valid_axis(a.newton_ax[0]) ||
                  !valid_axis(a.newton_ax[1]) || !valid_axis(a.newton_ax[2]) || (mode == kNewton && !a.in[3])))
     return (int)cudaErrorInvalidValue;
-  if (fwd && (a.P < 0 || a.row_len < 4 || a.row_len > kMaxCols || a.row_len % 4 != 0 || a.P > a.row_len ||
+  if (fwd && (a.P < 0 || a.P > kMaxCols || a.row_len < 4 || a.row_len > kMaxCols || a.row_len % 4 != 0 ||
+              a.read_len < 4 || a.read_len > a.row_len || a.read_len % 4 != 0 ||
               a.n_bands < 0 || a.n_bands > kMaxBands || a.n_bands > a.bc_ncols || !a.model ||
               (a.P > 0 && !a.props) || (a.n_bands > 0 && (!a.bc || !a.mags || !a.in[3] || !a.in[4])) ||
               (a.mags0 && a.n_bands == 0)))
     return (int)cudaErrorInvalidValue;
   if (fwd) {
-    for (int k = 0; k < 4; ++k)
-      if (a.mag_cols[k] < 0 || a.mag_cols[k] >= a.row_len) return (int)cudaErrorInvalidValue;
+    for (int c = 0; c < a.P; ++c)
+      if (a.prop_cols[c] < 0 || a.prop_cols[c] >= a.read_len) return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {

@@ -250,27 +250,48 @@ __device__ __forceinline__ T lerp_slope(T diff, T den) {
   return den == T(0) ? T(0) : div_rn(diff, den);
 }
 
-// two neighbouring values in one load
-template <typename T>
-struct Pair;
+// VEC neighbouring values of a row in one load: two floats (8 bytes), four
+// floats or two doubles (16 bytes)
+template <typename T, int VEC>
+struct Vec;
 template <>
-struct Pair<float> {
+struct Vec<float, 2> {
   using type = float2;
 };
 template <>
-struct Pair<double> {
+struct Vec<float, 4> {
+  using type = float4;
+};
+template <>
+struct Vec<double, 2> {
   using type = double2;
 };
+
+__device__ __forceinline__ void add_scaled(float* o, float2 v, float w) {
+  o[0] += w * v.x;
+  o[1] += w * v.y;
+}
+__device__ __forceinline__ void add_scaled(float* o, float4 v, float w) {
+  o[0] += w * v.x;
+  o[1] += w * v.y;
+  o[2] += w * v.z;
+  o[3] += w * v.w;
+}
+__device__ __forceinline__ void add_scaled(double* o, double2 v, double w) {
+  o[0] += w * v.x;
+  o[1] += w * v.y;
+}
 
 // Multilinear interpolation of `ncols` (<= NC) columns (cols[i], or i when
 // cols is null) of a dense (dims..., row_len) table at one point, by the G
 // lanes of a group, into out[0, ncols); NaN when the point is NaN or out of
 // bounds on any axis. Every lane of the group gets the sums of all 2**NDIM
-// corners' products. With PACKED the caller vouches that the rows are the NC
-// columns and nothing else (cols null, ncols == row_len == NC, NC even, the
-// table aligned to two values): a row is then read two columns per load,
-// half the gathers of a lane for the same products in the same order.
-template <typename T, int NDIM, int G, int NC, bool PACKED = false>
+// corners' products. With VEC (2, or 16 bytes' worth: 4 floats, 2 doubles)
+// the caller vouches that the columns to lerp are the first ncols of each row
+// (cols null; ncols, NC and row_len multiples of VEC; the table aligned to
+// VEC values): a row is then read VEC columns per load, fewer gathers of a
+// lane for the same products in the same order. With VEC 0 one column a load.
+template <typename T, int NDIM, int G, int NC, int VEC = 0>
 __device__ void interp_group(const T* __restrict__ table, const Axis* axes, const T* x, int row_len,
                              const int* cols, int ncols, int l, T* out) {
   AxisReads<T> reads[NDIM];
@@ -292,33 +313,38 @@ __device__ void interp_group(const T* __restrict__ table, const Axis* axes, cons
     if (c == ncols) break;
     out[c] = T(0);
   }
+  auto corner = [&](int i) {
+    T w = T(1);
+    long long row = 0;
+#pragma unroll
+    for (int d = 0; d < NDIM; ++d) {
+      const int o = (i >> (NDIM - 1 - d)) & 1;
+      w = w * (o ? t[d] : T(1) - t[d]);
+      row += clampll(cell[d] + o, 0, axes[d].n - 1) * stride[d];
+    }
+    const T* r = table + row * row_len;
+    if constexpr (VEC > 0) {
+      static_assert(NC % VEC == 0, "whole vectors");
+      const typename Vec<T, VEC>::type* rv = reinterpret_cast<const typename Vec<T, VEC>::type*>(r);
+#pragma unroll
+      for (int c = 0; c < NC / VEC; ++c) {
+        if (c * VEC >= ncols) break;
+        add_scaled(out + c * VEC, __ldg(rv + c), w);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (c == ncols) break;
+        out[c] += w * __ldg(r + (cols ? cols[c] : c));
+      }
+    }
+  };
   if (!bad) {
-    for (int i = l; i < (1 << NDIM); i += G) {
-      T w = T(1);
-      long long row = 0;
+    if constexpr (G == 1) {
 #pragma unroll
-      for (int d = 0; d < NDIM; ++d) {
-        const int o = (i >> (NDIM - 1 - d)) & 1;
-        w = w * (o ? t[d] : T(1) - t[d]);
-        row += clampll(cell[d] + o, 0, axes[d].n - 1) * stride[d];
-      }
-      const T* r = table + row * row_len;
-      if constexpr (PACKED) {
-        static_assert(NC % 2 == 0, "a packed row is read two columns per load");
-        const typename Pair<T>::type* r2 = reinterpret_cast<const typename Pair<T>::type*>(r);
-#pragma unroll
-        for (int c = 0; c < NC / 2; ++c) {
-          const typename Pair<T>::type x = __ldg(r2 + c);
-          out[2 * c] += w * x.x;
-          out[2 * c + 1] += w * x.y;
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          if (c == ncols) break;
-          out[c] += w * __ldg(r + (cols ? cols[c] : c));
-        }
-      }
+      for (int i = 0; i < (1 << NDIM); ++i) corner(i);  // one lane: every corner's loads in flight together
+    } else {
+      for (int i = l; i < (1 << NDIM); i += G) corner(i);
     }
   }
 #pragma unroll
@@ -326,79 +352,6 @@ __device__ void interp_group(const T* __restrict__ table, const Axis* axes, cons
     if (c == ncols) break;
     const T sum = group_sum<G>(out[c]);  // every lane shuffles, bad or not
     out[c] = bad ? T(NAN) : sum;
-  }
-}
-
-// 16 bytes of a row in one load: four floats or two doubles
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  using type = float4;
-};
-template <>
-struct Vec16<double> {
-  using type = double2;
-};
-
-__device__ __forceinline__ void add_scaled(float* o, float4 v, float w) {
-  o[0] += w * v.x;
-  o[1] += w * v.y;
-  o[2] += w * v.z;
-  o[3] += w * v.w;
-}
-__device__ __forceinline__ void add_scaled(double* o, double2 v, double w) {
-  o[0] += w * v.x;
-  o[1] += w * v.y;
-}
-
-// interp_group for one lane (G = 1) on a table whose rows hold only the
-// columns to lerp, `row_len` (<= NC) of them, a multiple of 16 bytes, the
-// table aligned to 16 bytes: each corner row is read as row_len * sizeof(T) /
-// 16 vector loads, every column lerped, into out[0, row_len). Same products
-// in the same order, the same NaN rules.
-template <typename T, int NDIM, int NC>
-__device__ void interp_rows16(const T* __restrict__ table, const Axis* axes, const T* x, int row_len, T* out) {
-  constexpr int kVec = 16 / sizeof(T);
-  static_assert(NC % kVec == 0, "whole vectors");
-  AxisReads<T> reads[NDIM];
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) locate_reads<T, 1>(axes[d], x[d], 0, reads[d]);
-  bool bad = false;
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) bad = bad || isnan(x[d]) || x[d] < reads[d].first || x[d] > reads[d].last;
-  long long cell[NDIM];
-  T t[NDIM];
-  long long stride[NDIM];
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) locate_finish<T, 1>(axes[d], x[d], bad, 0, reads[d], cell[d], t[d]);
-  stride[NDIM - 1] = 1;
-#pragma unroll
-  for (int d = NDIM - 2; d >= 0; --d) stride[d] = stride[d + 1] * axes[d + 1].n;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) out[c] = T(0);
-  if (!bad) {
-#pragma unroll
-    for (int i = 0; i < (1 << NDIM); ++i) {  // unrolled: every corner's loads in flight together
-      T w = T(1);
-      long long row = 0;
-#pragma unroll
-      for (int d = 0; d < NDIM; ++d) {
-        const int o = (i >> (NDIM - 1 - d)) & 1;
-        w = w * (o ? t[d] : T(1) - t[d]);
-        row += clampll(cell[d] + o, 0, axes[d].n - 1) * stride[d];
-      }
-      const typename Vec16<T>::type* r = reinterpret_cast<const typename Vec16<T>::type*>(table + row * row_len);
-#pragma unroll
-      for (int k = 0; k < NC / kVec; ++k) {
-        if (k * kVec >= row_len) break;
-        add_scaled(out + k * kVec, __ldg(r + k), w);
-      }
-    }
-  }
-  if (bad) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) out[c] = T(NAN);
   }
 }
 

@@ -129,7 +129,7 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 5 : 1) star_lnlike_kernel(c
 
   const T gx[3] = {comp(a.io[0]), comp(a.io[1]), comp(a.io[2])};
   T v[kPackCols];
-  interp_group<T, 3, G, kPackCols, true>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, l, v);
+  interp_group<T, 3, G, kPackCols, 2>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, l, v);
   if (active && l == 0) {
     static_cast<T*>(a.orig)[b * N + c] = v[4];
     static_cast<T*>(a.deriv)[b * N + c] = v[5];

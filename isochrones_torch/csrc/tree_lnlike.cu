@@ -205,7 +205,7 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : 1)
     auto par = [&](int i) { return i == 0 ? sp[0] : i == 1 ? sp[1] : i == 2 ? sp[2] : i == 3 ? sp[3] : sp[4]; };
     const T gx[3] = {par(a.io[0]), par(a.io[1]), par(a.io[2])};
     T v[kPackCols];
-    interp_group<T, 3, G, kPackCols, true>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, l, v);
+    interp_group<T, 3, G, kPackCols, 2>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, l, v);
     T dens = T(0);
     if (dens_table != nullptr) {
       T d[1];

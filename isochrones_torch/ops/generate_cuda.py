@@ -21,15 +21,16 @@ The argument struct (axis kinds and constants, knot and table pointers) is
 built once per :class:`~isochrones_torch.ops.generate.ForwardModel` (or
 :class:`~isochrones_torch.ops.generate.NewtonGrid`), dtype, device and band
 list; each call patches in its pointers. Beside it, built once and kept with
-it: a packed copy of the model table holding only the wanted columns, rows
-padded to a multiple of 4 values (:func:`packed_model`, the last
-``_MODEL_PACKS`` column lists kept), the BC table's wanted columns in a
-compact copy 4, 8, 12 or 16 wide (:func:`~.catalog_cuda.compact_table`), and
-for the Newton step the matched column as its own contiguous table, with
-the scan's 33 EEPs. The inputs are 1-d
-tensors of one length N, read with their own strides (a broadcast scalar has
-stride 0). Caps: 16 bands, 28 model columns, ``N < 2**31`` points (one
-thread each); the Newton step takes a 3-d grid whose last axis is the EEP,
+it: a packed copy of the model table, every column with Teff, logg, feh and
+Mbol first, rows padded to a multiple of 4 values (:func:`packed_model`; a
+call names its columns by their places in it, :func:`pack_layout`), the BC
+table's wanted columns in a compact copy 4, 8, 12 or 16 wide
+(:func:`~.catalog_cuda.compact_table`), and for the Newton step the matched
+column as its own contiguous table, with the scan's 33 EEPs. The inputs are
+1-d tensors of one length N, read with their own strides (a broadcast scalar
+has stride 0). Caps: 16 bands, a model table of 32 columns, 32 columns asked
+for, ``N < 2**31`` points (one thread each); the Newton step takes a 3-d
+grid whose last axis is the EEP,
 and on a track grid the axes (feh, mass, eep) and an age column. Past a cap
 it raises a ``ValueError`` that names it; it never falls back to the plain
 version.
@@ -50,12 +51,13 @@ from .generate import ForwardModel, NewtonGrid
 from .star_cuda import _KINDS, _Axis, _axes
 
 __all__ = ["generate_cuda", "generate_accurate_cuda", "get_eep_cuda", "get_eep_accurate_cuda", "eep_newton_cuda",
-           "packed_model", "MAX_BANDS", "MAX_PROPS"]
+           "packed_model", "pack_layout", "MAX_BANDS", "MAX_PROPS"]
 
 MAX_BANDS = 16
+#: the model table's columns, all in the packed row
 _MAX_COLS = 32
-#: model columns a call may ask for, beside the 4 the magnitudes need
-MAX_PROPS = _MAX_COLS - 4
+#: model columns a call may ask for
+MAX_PROPS = _MAX_COLS
 _MAX_POINTS = 1 << 31
 #: the kernel's Mode
 _INVERT, _GIVEN, _EEP_ONLY, _ACCURATE, _ACCURATE_EEP, _NEWTON = range(6)
@@ -63,8 +65,6 @@ _INVERT, _GIVEN, _EEP_ONLY, _ACCURATE, _ACCURATE_EEP, _NEWTON = range(6)
 _BC_WIDTHS = (4, 8, 12, 16)
 #: get_eep_newton's steps and scan points
 _N_ITER, _N_SCAN = 12, 33
-#: packed model tables kept per forward model, dtype and device (one per column list)
-_MODEL_PACKS = 4
 
 
 class _GenerateArgs(ctypes.Structure):
@@ -77,9 +77,10 @@ class _GenerateArgs(ctypes.Structure):
         ("eep", ctypes.c_void_p), ("props", ctypes.c_void_p), ("mags", ctypes.c_void_p), ("mags0", ctypes.c_void_p),
         ("stride", ctypes.c_longlong * 5), ("N", ctypes.c_longlong), ("n_eep", ctypes.c_longlong),
         ("n_tracks", ctypes.c_longlong), ("eep0", ctypes.c_double), ("resid_tol", ctypes.c_double),
-        ("io", ctypes.c_int * 3), ("n_steps", ctypes.c_int), ("row_len", ctypes.c_int), ("P", ctypes.c_int),
-        ("mag_cols", ctypes.c_int * 4), ("n_bands", ctypes.c_int), ("bc_ncols", ctypes.c_int),
-        ("n_iter", ctypes.c_int), ("pad", ctypes.c_int),
+        ("io", ctypes.c_int * 3), ("n_steps", ctypes.c_int), ("row_len", ctypes.c_int), ("read_len", ctypes.c_int),
+        ("P", ctypes.c_int), ("prop_cols", ctypes.c_int * _MAX_COLS), ("n_bands", ctypes.c_int),
+        ("bc_ncols", ctypes.c_int),
+        ("n_iter", ctypes.c_int),
         ("inv_ax", _Axis * 2), ("model_ax", _Axis * 3), ("bc_ax", _Axis * 4), ("newton_ax", _Axis * 3),
     ]
 
@@ -115,23 +116,33 @@ def _cached(owner, key, build):
     return per[key]
 
 
-def packed_model(fm: ForwardModel, prop_icols, dtype, device):
-    """``(table, mag_cols)``: the model table's columns ``prop_icols``, then
-    those of Teff, logg, feh and Mbol not among them, padded with zeros to a
-    multiple of 4 columns, as one contiguous ``(m0, m1, m2, width)`` copy;
-    ``mag_cols`` are Teff's, logg's, feh's and Mbol's places in it. Built
-    once per column list (the last ``_MODEL_PACKS`` kept)."""
-    packs = _CACHE.setdefault(fm, {}).setdefault(("packs", dtype, device), {})
-    key = tuple(int(c) for c in prop_icols)
-    if key not in packs:
-        cols = list(key) + [c for c in fm.model_icols if c not in key]
-        width = -(-len(cols) // 4) * 4
-        vals = fm.model.values[..., cols]
-        table = torch.cat([vals, vals.new_zeros(vals.shape[:-1] + (width - len(cols),))], dim=-1).contiguous()
-        if len(packs) >= _MODEL_PACKS:
-            packs.pop(next(iter(packs)))
-        packs[key] = (table, tuple(cols.index(c) for c in fm.model_icols))
-    return packs[key]
+def packed_model(fm: ForwardModel, dtype, device):
+    """``(table, order)``: every column of the model table, those of Teff,
+    logg, feh and Mbol (``fm.model_icols``) first and the others in the
+    table's order, padded with zeros to a multiple of 4 columns, as one
+    contiguous ``(m0, m1, m2, width)`` copy; ``order`` names the table column
+    at each place. Built once per forward model, dtype and device."""
+
+    def build():
+        n = fm.model.values.shape[-1]
+        if n > _MAX_COLS:
+            raise ValueError(f"forward-model kernel takes a model table of at most {_MAX_COLS} columns, got {n}")
+        order = [int(c) for c in fm.model_icols] + [c for c in range(n) if c not in fm.model_icols]
+        vals = fm.model.values[..., order]
+        width = -(-n // 4) * 4
+        return torch.cat([vals, vals.new_zeros(vals.shape[:-1] + (width - n,))], dim=-1).contiguous(), tuple(order)
+
+    return _cached(fm, ("pack", dtype, device), build)
+
+
+def pack_layout(order, prop_icols):
+    """``(prop_cols, read_len)``: the places of the table columns
+    ``prop_icols`` in a pack of ``order``, and the lerped part of its row,
+    the first multiple of 4 columns that holds them and Teff, logg, feh and
+    Mbol."""
+    place = {c: i for i, c in enumerate(order)}
+    prop_cols = [place[int(c)] for c in prop_icols]
+    return prop_cols, (max([3] + prop_cols) // 4 + 1) * 4
 
 
 def _newton_tables(grid, icol, dtype, device):
@@ -251,13 +262,14 @@ def _forward(fm, mass, age, feh, distance, AV, prop_icols, band_icols, eeps, all
     xs = [mass, age, feh, distance, AV] + ([] if eeps is None else [eeps])
     n = _check_inputs(xs, ["mass", "age", "feh", "distance", "AV", "eeps"], fn)
     dt, dev = mass.dtype, mass.device
-    row_len = fm.model.values.shape[-1]
-    if any(not 0 <= c < row_len for c in prop_icols):
-        raise ValueError(f"model column outside the table of {row_len} columns: {prop_icols}")
+    n_cols = fm.model.values.shape[-1]
+    if any(not 0 <= c < n_cols for c in prop_icols):
+        raise ValueError(f"model column outside the table of {n_cols} columns: {prop_icols}")
     call = _GenerateArgs.from_buffer_copy(_template(fm, band_icols, dt, dev, accurate))
-    table, mag_cols = packed_model(fm, prop_icols, dt, dev)
-    call.model, call.row_len, call.P = table.data_ptr(), table.shape[-1], len(prop_icols)
-    call.mag_cols[:] = mag_cols
+    table, order = packed_model(fm, dt, dev)
+    prop_cols, call.read_len = pack_layout(order, prop_icols)
+    call.model, call.row_len, call.P = table.data_ptr(), table.shape[-1], len(prop_cols)
+    call.prop_cols[:len(prop_cols)] = prop_cols
     call.N, call.resid_tol = n, float(resid_tol)
     _point_args(call, xs[:5])
     nb = call.n_bands

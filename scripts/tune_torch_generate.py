@@ -140,9 +140,10 @@ def main():
             table = compact_table(fm.bc, bcols, widths=(16,))
             call.bc, call.bc_ncols = table.data_ptr(), 16
             keep.append(table)
-        table, mag_cols = gc.packed_model(fm, icols, dt, dev)
-        call.model, call.row_len, call.P = table.data_ptr(), table.shape[-1], len(icols)
-        call.mag_cols[:] = mag_cols
+        table, order = gc.packed_model(fm, dt, dev)
+        prop_cols, call.read_len = gc.pack_layout(order, icols)
+        call.model, call.row_len, call.P = table.data_ptr(), table.shape[-1], len(prop_cols)
+        call.prop_cols[:len(prop_cols)] = prop_cols
         call.N, call.resid_tol = GEN_POINTS, 0.02
         gc._point_args(call, x)
         eeps = torch.empty(GEN_POINTS, dtype=dt, device=dev)

@@ -4,7 +4,8 @@
 ``model_mag``, and their remaining public names (``model_grid``, ``bc_grid``,
 ``prop_map``, ``column_map``, ``mag[band]``, ``initialize``) against the JAX
 package on the grid of ``tests/test_models.py``; ``generate_plain`` against
-the port's composed functions; the CUDA wrapper's refusals on the CPU.
+the port's composed functions; the CUDA wrapper's refusals on the CPU and
+its packed copy of the model table.
 
 Tolerances: EEPs to 1e-10 absolute; every other column to rtol 1e-10 of the
 value plus 1e-10 times the larger of 1 and the column's largest magnitude
@@ -18,6 +19,8 @@ finite. :func:`knife_edge_rows` counts such rows and asserts that each one is
 of that kind.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -25,7 +28,9 @@ import torch
 from isochrones_tpu import get_ichrone as jax_get_ichrone
 from isochrones_torch import get_ichrone
 from isochrones_torch.ops.generate import generate_forward, generate_plain, get_eep_fast
-from isochrones_torch.ops.generate_cuda import MAX_BANDS, MAX_PROPS, generate_cuda, get_eep_cuda
+from isochrones_torch.ops.generate_cuda import (
+    MAX_BANDS, MAX_PROPS, generate_cuda, get_eep_cuda, pack_layout, packed_model,
+)
 from isochrones_torch.ops.interp import interp_nd
 from isochrones_torch.summary import Frame
 
@@ -264,6 +269,32 @@ def test_generate_cuda_refuses_cpu_and_names_caps(ics):
         get_eep_cuda(fm, huge, huge, huge)
     with pytest.raises(ValueError, match="cpu or cuda"):
         generate_forward(fm, x.to("meta"), x, x, x, x, (0,), (0,))
+
+
+def test_packed_model_holds_every_column_once(ics):
+    """The kernel's copy of the model table: every column, Teff, logg, feh
+    and Mbol first, zero-padded to a multiple of 4, built once per forward
+    model and dtype; a call's columns by their places in it and the lerped
+    part of the row (one vector for the magnitudes alone); a table past the
+    kernel's 32 columns is refused by name."""
+    _, tiso = ics
+    fm = tiso.track._forward_model
+    vals = fm.model.values
+    n = vals.shape[-1]
+    table, order = packed_model(fm, torch.float64, vals.device)
+    assert packed_model(fm, torch.float64, vals.device)[0] is table
+    assert order[:4] == tuple(int(c) for c in fm.model_icols) and sorted(order) == list(range(n))
+    assert table.is_contiguous() and table.shape == vals.shape[:-1] + (-(-n // 4) * 4,)
+    np.testing.assert_array_equal(table[..., :n].numpy(), vals[..., list(order)].numpy())
+    assert not table[..., n:].any()
+    assert pack_layout(order, ()) == ([], 4)
+    assert pack_layout(order, fm.model_icols[::-1]) == ([3, 2, 1, 0], 4)
+    cols = (order[-1], order[0], order[5], order[5])
+    assert pack_layout(order, cols) == ([n - 1, 0, 5, 5], -(-n // 4) * 4)
+    assert pack_layout(order, (order[4],)) == ([4], 8)
+    wide = dataclasses.replace(fm, model=dataclasses.replace(fm.model, values=torch.zeros(2, 2, 2, 33)))
+    with pytest.raises(ValueError, match="model table of at most 32 columns"):
+        packed_model(wide, torch.float64, vals.device)
 
 
 @pytest.mark.parametrize("grid", ["track", "iso"])
