@@ -139,7 +139,20 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     total magnitude, and ``deredden`` equals regeneration at AV = 0; stars per
     second; kernel F launched;
 22. the population entry point: ``python -m isochrones_torch.cli.generate_cmd
-    1000 --models synthetic --seed 0`` as a subprocess: exit 0 and 1000 rows.
+    1000 --models synthetic --seed 0`` as a subprocess: exit 0 and 1000 rows;
+23. the MIST grids from files: a tree of MIST-format files written under a
+    temporary ``$ISOCHRONES`` (``isochrones_torch.grids.mist_files``, one
+    process a [Fe/H]: the isochrones on MIST's 15 [Fe/H]s x 107 ages x 1710
+    EEPs, tracks of 95 masses a [Fe/H] with some cut short, UBVRIplus and
+    WISE tables), ``get_ichrone("mist")`` built from the files and again from
+    the caches (bitwise the same tables) in float64, then float32; the star
+    kernel at 1024 and 131072 points in the bench box, kernel F (fast, EEPs
+    given, accurate) and ``get_eep(accurate=True)`` on both grids against
+    their plain versions on these grids; ``isochrone`` on the card against
+    the CPU; then the default ``starfit`` (no ``--models``) on a flat binary
+    and a tree folder whose magnitudes come from this grid: exit 0, both
+    kernels launched, the results files reload onto the MIST grid, finite
+    evidences, the true distance inside the 95% intervals.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -348,6 +361,25 @@ CAT_CLI = ["--models", "synthetic", "--dtype", "float32", "--method", "nested", 
            "0"]
 #: independent runs of the binary fit (phase 19)
 MULTI_RUNS = dict(n_live_points=500, n_runs=4, seed=0)
+
+#: phase 23: a tree of MIST-format files (``isochrones_torch.grids.mist_files``)
+#: under a temporary ``$ISOCHRONES``. The isochrones on MIST's own axes (its 15
+#: [Fe/H]s, 107 ages, log age 5.0-10.3, EEPs 1-1710, initial masses 0.1-300);
+#: tracks at the 15 [Fe/H]s of MIST_TRACK_MASSES (a cut: MIST has 196 masses,
+#: 0.1-300), each as long as ``max_eep`` makes it but MIST_SHORT's, which the
+#: pipeline completes from their neighbours; BC tables of UBVRIplus and WISE
+#: on the synthetic BC grid's axes (53 Teff x 15 logg x 11 [Fe/H] x 13 AV)
+MIST_AGES = tuple(float(a) for a in np.round(np.linspace(5.0, 10.3, 107), 2))
+MIST_ISO_MASSES = (0.1, 300.0)
+MIST_TRACK_MASSES = tuple(float(m) for m in np.unique(np.round(np.geomspace(0.1, 10.0, 100), 2)))
+#: ([Fe/H], the track mass nearest this value): rows written (max_eep is 1710)
+MIST_SHORT = ((0.0, 1.0, 1500), (-1.0, 2.0, 1300), (-2.0, 3.0, 1650), (0.25, 1.5, 1709))
+MIST_BC = dict(systems=("UBVRIplus", "WISE"), fehs=tuple(np.linspace(-4.0, 1.0, 11)),
+               teffs=tuple(np.concatenate([np.linspace(2000.0, 12000.0, 41), np.linspace(13000.0, 50000.0, 12)])),
+               loggs=tuple(np.linspace(-1.0, 6.0, 15)), avs=tuple(np.linspace(0.0, 6.0, 13)))
+#: kernel F's points on the MIST-read track grid, and the star kernel's batches
+MIST_GEN_POINTS = 200_000
+MIST_STAR_BATCHES = (1024, STAR_BATCH)
 
 
 def make_kernel_inputs(S, E, B, W, seed=0):
@@ -1959,6 +1991,12 @@ GEN_BINARIES, GEN_MODEL_MAG, GEN_POPULATION = 100_000, 10_000, 100_000
 #: 2e-5 of the column's scale (three float32 weight products and 8 or 16
 #: corners a lerp)
 RTOL_GEN_F64, RTOL_GEN_F32, ATOL_EEP_F32 = 1e-10, 2e-5, 2e-3
+#: float32 magnitudes at a BC grid's edge: a star whose interpolated Teff,
+#: logg or [Fe/H] (or whose AV) lies within this relative distance of the
+#: first or last knot of its BC axis may be inside the grid in float32 and
+#: outside in float64 (its magnitudes finite in one, NaN in the other); a
+#: float32 lerp of 8 corners carries a few ulp (~1e-7 relative), so 1e-6
+BC_EDGE_RTOL_F32 = 1e-6
 #: phase 13's fast get_eep at 1,000,000 points in plain torch, before kernel
 #: F took it (PERF.md, row D's earlier time): wall ms, launches
 EEP_EARLIER = (10.405, 650)
@@ -2031,17 +2069,29 @@ def plain_newton(ng, seed, mass, age, feh, resid_tol=0.02):
             _resid_at(ng.grid, ng.icol, age, feh, mass))
 
 
-def check_generate(name, got, ref, dtype):
+def check_generate(name, got, ref, dtype, bc_edge=None):
     """Kernel F's ``(eeps, props, mags, mags0)`` against the plain version's:
     identical NaN patterns; the EEPs bitwise in float64 (``ATOL_EEP_F32`` in
     float32), every column to ``rtol`` + ``rtol`` of its finite scale.
-    Returns the largest error over the columns, relative to their scale."""
+    Returns the largest error over the columns, relative to their scale.
+
+    ``bc_edge``: in float32, a boolean mask of the rows whose plain Teff,
+    logg, [Fe/H] or AV lies on a BC grid's edge (``bc_edge_rows``); a row of
+    magnitudes may be NaN in one version and finite in the other there, and
+    only there, at most ``KNIFE_ROWS_F32`` of the rows."""
     rtol = RTOL_GEN_F64 if dtype == "float64" else RTOL_GEN_F32
     worst = 0.0
     for i, (g, r) in enumerate(zip(got, ref)):
         if g is None and r is None:
             continue
         g, r = g.double().cpu().numpy(), r.double().cpu().numpy()
+        if i >= 2 and bc_edge is not None and dtype == "float32" and g.shape == r.shape:
+            differ = (np.isnan(g) != np.isnan(r)).any(axis=1)
+            if (differ & ~bc_edge).any() or differ.sum() > max(1, KNIFE_ROWS_F32 * len(r)):
+                raise AssertionError(f"{name} output {i}: NaN pattern differs at {int(differ.sum())} rows, "
+                                     f"{int((differ & ~bc_edge).sum())} of them off the BC grid's edges")
+            g, r = g.copy(), r.copy()
+            g[differ], r[differ] = np.nan, np.nan
         if g.shape != r.shape or not np.array_equal(np.isnan(g), np.isnan(r)):
             raise AssertionError(f"{name} output {i}: shape {g.shape} vs {r.shape} or NaN pattern differs "
                                  f"({int((np.isnan(g) != np.isnan(r)).sum())} values)")
@@ -2061,6 +2111,26 @@ def check_generate(name, got, ref, dtype):
                 raise AssertionError(f"{name} output {i} column {c}: max abs err {d.max()} (scale {scale})")
             worst = max(worst, float(d.max()) / scale)
     return worst
+
+
+def bc_edge_rows(fm, mass, feh, eeps, AV, rtol=BC_EDGE_RTOL_F32):
+    """Rows whose Teff, logg and [Fe/H] interpolated in float64 from the
+    forward model's packed table at ``(feh, mass, eeps)``, or whose AV, lie
+    within ``rtol`` (relative, at least absolute) of the first or last knot
+    of their BC axis: a numpy boolean mask."""
+    import torch
+
+    from isochrones_torch.ops.interp import interp_nd
+
+    g = fm.model_packed
+    pts = torch.stack([x.double() for x in (feh, mass, eeps)], dim=-1)
+    v = interp_nd(g.values.double(), tuple(k.double() for k in g.knots), pts, icols=(0, 1, 2), axis_maps=g.axis_maps)
+    coords = [v[:, 0], v[:, 1], v[:, 2], AV.double()]
+    edge = torch.zeros_like(coords[0], dtype=torch.bool)
+    for x, k in zip(coords, fm.bc.knots):
+        for knot in (float(k[0]), float(k[-1])):
+            edge |= (x - knot).abs() <= rtol * max(1.0, abs(knot))
+    return edge.cpu().numpy()
 
 
 def _age_entries(fm, mass, age, feh):
@@ -2447,6 +2517,285 @@ def phase_generate_entry_point(workdir):
           f"{secs:.2f} s, {len(rows) - 1} rows, {len(rows[0]) - 1} columns")
 
 
+def _mist_short():
+    """MIST_SHORT as ``{([Fe/H], track mass): rows}``."""
+    masses = np.asarray(MIST_TRACK_MASSES)
+    return {(feh, float(masses[np.argmin(np.abs(masses - m))])): n for feh, m, n in MIST_SHORT}
+
+
+def _write_mist_feh(root, feh):
+    """One [Fe/H]'s isochrone file and track directory of phase 23's tree."""
+    from isochrones_torch.grids.mist import MISTModelGrid
+    from isochrones_torch.grids.mist_eep import max_eep
+    from isochrones_torch.grids.mist_files import make_iso_tree, make_track_tree
+
+    feh = float(feh)
+    rows = {(feh, m): max_eep(m, feh) for m in MIST_TRACK_MASSES}
+    rows.update({k: v for k, v in _mist_short().items() if k[0] == feh})
+    make_track_tree(root, fehs=(feh,), masses=MIST_TRACK_MASSES, short=rows, n_eep=MISTModelGrid.n_eep)
+    make_iso_tree(root, fehs=(feh,), ages=MIST_AGES, masses=MIST_ISO_MASSES, n_eep=MISTModelGrid.n_eep)
+    return feh
+
+
+def _write_mist_bc(root, system):
+    from isochrones_torch.grids.mist_files import make_bc_tree
+
+    make_bc_tree(root, **dict(MIST_BC, systems=(system,)))
+    return system
+
+
+def write_mist_tree(root):
+    """Phase 23's MIST-format tree under ``root``, one [Fe/H] or BC system a
+    task in a pool of fresh processes (no CUDA in them); returns the
+    seconds."""
+    import concurrent.futures
+    import multiprocessing
+
+    from isochrones_torch.grids.mist import MISTModelGrid
+
+    t0 = time.perf_counter()
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = [pool.submit(_write_mist_bc, root, s) for s in MIST_BC["systems"]]
+        jobs += [pool.submit(_write_mist_feh, root, f) for f in MISTModelGrid.fehs]
+        for j in jobs:
+            j.result()
+    return time.perf_counter() - t0
+
+
+def _card_bytes(*ics):
+    """Bytes of the distinct tensors the interpolators hold on the card: the
+    tables, their packed copies, the knots and the EEP support arrays."""
+    import torch
+
+    seen = {}
+
+    def add(t):
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            seen[t.data_ptr()] = max(seen.get(t.data_ptr(), 0), t.numel() * t.element_size())
+
+    for ic in ics:
+        for g in (ic.model, ic.bc, ic.model_packed, ic.model_packed6):
+            if g is not None:
+                add(g.values)
+                for k in g.knots:
+                    add(k)
+        for x in ic.eep_support or ():
+            add(x)
+    return sum(seen.values())
+
+
+def _host_tables(iso, track):
+    return [iso.model.host_values, iso.bc.host_values, track.model.host_values,
+            track.eep_support[2].cpu().numpy(), track.eep_support[3].cpu().numpy()]
+
+
+def phase_mist(dev, workdir):
+    """Phase 23: ``get_ichrone("mist")`` on files in MIST's format, the
+    kernels on the grids read from them, and the default ``starfit``.
+    Returns ``(star, tree, kernel F launches in the entry point's fits,
+    record)``."""
+    import torch
+
+    import isochrones_torch.config as tconfig
+    import isochrones_torch.isochrone as iso_mod
+    from isochrones_torch import BinaryStarModel, get_ichrone
+    from isochrones_torch.cli.starfit import main as starfit_main
+    from isochrones_torch.ops import generate_cuda as gc
+    from isochrones_torch.ops.eep import interp_eep
+    from isochrones_torch.ops.generate import generate_plain
+    from isochrones_torch.ops.star import star_lnlike_fused_plain
+    from isochrones_torch.ops.star_cuda import star_lnlike_cuda
+    from isochrones_torch.ops.tree_cuda import tree_lnlike_cuda
+    from isochrones_torch.treemodel import StarModel
+
+    root = os.path.join(workdir, "isochrones")
+    write_s = write_mist_tree(root)
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    print(f"[mist] MIST-format tree (15 [Fe/H]s; isochrones at {len(MIST_AGES)} ages, EEPs to 1710; tracks of "
+          f"{len(MIST_TRACK_MASSES)} masses, {len(MIST_SHORT)} cut short; BC {'+'.join(MIST_BC['systems'])}) written "
+          f"in {write_s:.2f} s: {nbytes / 1e6:.1f} MB")
+    saved_root = tconfig.ISOCHRONES
+    tconfig.ISOCHRONES = root
+    try:
+        # ---- the builds: files (parse, completion, derivatives, densify, upload), then the caches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ic64 = get_ichrone("mist", device=dev, dtype=torch.float64)
+        torch.cuda.synchronize()
+        parse_s = time.perf_counter() - t0
+        first = _host_tables(ic64, ic64.track)
+        iso_mod._mist_cache.clear()
+        t0 = time.perf_counter()
+        ic64 = get_ichrone("mist", device=dev, dtype=torch.float64)
+        torch.cuda.synchronize()
+        cache_s = time.perf_counter() - t0
+        for i, (a, b) in enumerate(zip(first, _host_tables(ic64, ic64.track))):
+            if a.shape != b.shape or not np.array_equal(a, b, equal_nan=True):
+                raise AssertionError(f"the build from the caches differs from the build from the files (table {i})")
+        t0 = time.perf_counter()
+        ic32 = get_ichrone("mist", device=dev, dtype=torch.float32)
+        torch.cuda.synchronize()
+        f32_s = time.perf_counter() - t0
+        tr64, tr32 = ic64.track, ic32.track
+        b64, b32 = _card_bytes(ic64, tr64), _card_bytes(ic32, tr32)
+        n_nan = int(np.isnan(ic64.model.host_values[..., 0]).sum())
+        print(f"[mist] get_ichrone('mist') f64: {parse_s:.2f} s from the files, {cache_s:.2f} s from the caches "
+              f"(tables bitwise equal); f32 {f32_s:.2f} s from the caches; on the card f64 {b64 / 1e6:.1f} MB, f32 "
+              f"{b32 / 1e6:.1f} MB; iso grid {tuple(ic64.model.values.shape)} ({n_nan} NaN-padded rows), track grid "
+              f"{tuple(tr64.model.values.shape)} ({len(tr64.model.columns)} columns), BC {tuple(ic64.bc.values.shape)}")
+
+        # ---- the star kernel on the MIST-read isochrone grid
+        obs = star_observations(ic64)
+        bin32, bin64 = BinaryStarModel(ic32, **obs), BinaryStarModel(ic64, **obs)
+        lk64, lk32 = bin64._star_likelihood(), bin32._star_likelihood()
+        lk32up = dataclasses.replace(lk32, pack6=grid_as(lk32.pack6, torch.float64),
+                                     bc=grid_as(lk32.bc, torch.float64))
+        star_err = {}
+        for B in MIST_STAR_BATCHES:
+            p64 = torch.as_tensor(star_points(ic64.model.knots, 2, B, seed=23, box=STAR_BOX), device=dev,
+                                  dtype=torch.float64)
+            p32 = p64.float()
+            e64 = check_star(f"mist star kernel f64 B={B}", [x.cpu().numpy() for x in star_lnlike_cuda(p64, lk64)],
+                             [x.cpu().numpy() for x in star_lnlike_fused_plain(p64, lk64)], RTOL_STAR_F64)
+            e32 = check_star(f"mist star kernel f32 B={B}", [x.cpu().numpy() for x in star_lnlike_cuda(p32, lk32)],
+                             [x.cpu().numpy() for x in star_lnlike_fused_plain(p32.double(), lk32up)],
+                             RTOL_STAR_F32, ATOL_STAR_F32)
+            star_err[B] = (e64, e32, int(torch.isfinite(star_lnlike_fused_plain(p64, lk64)[0]).sum()))
+        star_ms = kernel_ms(lambda: star_lnlike_cuda(p32, lk32), "star_lnlike", reps=20)
+        print(f"[mist] star kernel vs plain on the MIST-read isochrone grid (bench box with adversarial rows): "
+              f"(f64 max_abs_err, f32 vs f64 max_abs_err, finite) "
+              f"{json.dumps({b: [float(f'{e:.3e}') for e in v[:2]] + [v[2]] for b, v in star_err.items()})}; "
+              f"f32 time at B={STAR_BATCH} {star_ms:.4f} ms")
+
+        # ---- kernel F on the MIST-read track grid: fast, EEPs given, accurate; get_eep(accurate=True)
+        fm64, fm32 = tr64._forward_model, tr32._forward_model
+        up = [grid_as(g, torch.float64) for g in (fm32.model, fm32.model_packed, fm32.bc)]
+        sup = tuple(x.double() if x.is_floating_point() else x for x in fm32.eep_support)
+        fm32up = dataclasses.replace(fm32, model=up[0], model_packed=up[1], bc=up[2], eep_support=sup)
+        icols = tr64.model.icols("all")
+        bcols = tuple(tr64.bc.column_index[b] for b in tr64.bands)
+        cols = generate_points(tr64, MIST_GEN_POINTS, seed=23)
+        cols[1][:] = np.random.default_rng(24).uniform(5.5, 10.3, MIST_GEN_POINTS)
+        x64 = [torch.as_tensor(c, device=dev, dtype=torch.float64) for c in cols]
+        x32 = [x.float() for x in x64]
+        x32up = [x.double() for x in x32]
+        errs = {}
+        ref = generate_plain(fm64, *x64, icols, bcols)
+        errs["f64 fast"] = check_generate("mist kernel F f64", gc.generate_cuda(fm64, *x64, icols, bcols), ref,
+                                          "float64")
+        got32 = gc.generate_cuda(fm32, *x32, icols, bcols)
+        e_ref = interp_eep(x32up[1], x32up[2], x32up[0], *fm32up.eep_support, eep0=fm32up.eep0)
+        ref32 = generate_plain(fm32up, *x32up, icols, bcols, eeps=got32[0].double())
+        errs["f32 fast"] = check_generate("mist kernel F f32", got32, (e_ref,) + tuple(ref32[1:]), "float32",
+                                          bc_edge_rows(fm32up, x32up[0], x32up[2], got32[0], x32up[4]))
+        given = torch.as_tensor(np.random.default_rng(25).uniform(-20.0, 1750.0, MIST_GEN_POINTS), device=dev,
+                                dtype=torch.float64)
+        errs["f64 given"] = check_generate("mist kernel F f64 eeps given",
+                                           gc.generate_cuda(fm64, *x64, icols, bcols, eeps=given),
+                                           generate_plain(fm64, *x64, icols, bcols, eeps=given), "float64")
+        errs["f32 given"] = check_generate("mist kernel F f32 eeps given",
+                                           gc.generate_cuda(fm32, *x32, icols, bcols, eeps=given.float()),
+                                           generate_plain(fm32up, *x32up, icols, bcols, eeps=given.float().double()),
+                                           "float32", bc_edge_rows(fm32up, x32up[0], x32up[2], given, x32up[4]))
+        acc = {}
+        for dtn, tr, fm, x, xup, fmup in (("float64", tr64, fm64, x64, x64, fm64),
+                                          ("float32", tr32, fm32, x32, x32up, fm32up)):
+            ref_e, ref_r, resid_at = plain_accurate(fm, *x[:3])
+            got = gc.generate_accurate_cuda(fm, *x, icols, bcols)
+            acc[f"{dtn} generate"] = check_newton(f"mist accurate kernel F {dtn}", got[0].cpu(), ref_e.cpu(),
+                                                  ref_r.cpu(), dtn, resid_at)
+            ref = generate_plain(fmup, *xup, icols, bcols, eeps=got[0].to(xup[0].dtype))
+            errs[f"{dtn[:1]}{dtn[-2:]} accurate columns"] = check_generate(
+                f"mist accurate kernel F {dtn} columns", got, (got[0],) + tuple(ref[1:]), dtn,
+                bc_edge_rows(fmup, xup[0], xup[2], got[0], xup[4]))
+            before = gc.get_eep_accurate_cuda.launches
+            eep_acc = tr.get_eep_batch(*x[:3], accurate=True)
+            if gc.get_eep_accurate_cuda.launches - before != 1:
+                raise AssertionError("track.get_eep_batch(accurate=True) is not one launch of kernel F")
+            acc[f"{dtn} get_eep"] = check_newton(f"mist track.get_eep(accurate=True) {dtn}", eep_acc.cpu(),
+                                                 ref_e.cpu(), ref_r.cpu(), dtn, resid_at)
+            ic = ic64 if dtn == "float64" else ic32
+            ref_e, ref_r, resid_at = plain_newton(ic._newton_grid, torch.full_like(x[0], 300.0), *x[:3])
+            acc[f"{dtn} iso get_eep"] = check_newton(f"mist iso.get_eep(accurate=True) {dtn}",
+                                                     ic.get_eep_batch(*x[:3], accurate=True).cpu(), ref_e.cpu(),
+                                                     ref_r.cpu(), dtn, resid_at)
+        gen_ms = kernel_ms(lambda: gc.generate_cuda(fm32, *x32, icols, bcols), "generate_kernel", reps=10)
+        print(f"[mist] kernel F vs generate_plain on the MIST-read track grid, {MIST_GEN_POINTS} points, "
+              f"{len(icols)} columns (interpolated among them), {len(bcols)} bands: worst error / column scale "
+              f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; accurate forms and get_eep "
+              f"(accurate=True) vs the plain Newton step (max abs err, finite, knife-edge rows) {json.dumps(acc)}; "
+              f"f32 fast form {gen_ms:.4f} ms")
+
+        # ---- isochrone on the MIST-read isochrone grid: the card against the CPU, float64
+        cpu64 = get_ichrone("mist", device="cpu", dtype=torch.float64)
+        iso_rows, iso_err = 0, 0.0
+        for age, feh in ((9.0, 0.0), (7.0, -1.5), (10.0, -0.25), (9.6, 0.1)):
+            got, want = ic64.isochrone(age, feh=feh), cpu64.isochrone(age, feh=feh)
+            if got.columns != want.columns or len(got["eep"]) != len(want["eep"]) or len(got["eep"]) < 100:
+                raise AssertionError(f"isochrone({age}, {feh}): {len(got['eep'])} rows on the card, "
+                                     f"{len(want['eep'])} on the CPU")
+            for c in want.columns:
+                iso_err = max(iso_err, check_eep(f"isochrone({age}, {feh}) {c}", got[c], want[c], atol=1e-9 * max(
+                    1.0, float(np.abs(want[c]).max())))[0])
+            iso_rows += len(got["eep"])
+        del cpu64
+        print(f"[mist] iso.isochrone at 4 (age, [Fe/H]) on the card vs the CPU, f64: {iso_rows} rows, max abs err "
+              f"{iso_err:.3e} (1e-9 of each column's scale)")
+
+        # ---- the default starfit: no --models, flat binary and tree folders from this grid
+        flat_obs = star_observations(ic64, STAR_TRUTH, bands=("J", "H", "K"))
+        flat_text = FLAT_INI.format(Teff=flat_obs["Teff"][0], logg=flat_obs["logg"][0], J=flat_obs["J"][0],
+                                    H=flat_obs["H"][0], K=flat_obs["K"][0])
+        flat = write_ini(os.path.join(workdir, "mist_flat"), flat_text)
+        tree = write_tree_ini(os.path.join(workdir, "mist_tree"), ic64, TREE_TRUTH)
+        common = ["--no_plots", "--n_live_points", str(CLI_LIVE), "--seed", "0"]
+        wrappers = (gc.generate_cuda, gc.generate_accurate_cuda, gc.get_eep_cuda, gc.get_eep_accurate_cuda,
+                    gc.eep_newton_cuda)
+        star_lnlike_cuda.launches = tree_lnlike_cuda.launches = 0
+        for w in wrappers:
+            w.launches = 0
+        t0 = time.perf_counter()
+        rc_flat = starfit_main(common + ["--binary", flat])
+        t_flat = time.perf_counter() - t0
+        rc_tree = starfit_main(common + ["--tree", tree])
+        t_tree = time.perf_counter() - t0 - t_flat
+        torch.cuda.synchronize()
+        n_star, n_tree = star_lnlike_cuda.launches, tree_lnlike_cuda.launches
+        n_gen = sum(w.launches for w in wrappers)
+        if rc_flat != 0 or rc_tree != 0:
+            raise AssertionError(f"default starfit exit codes {rc_flat}, {rc_tree}")
+        if n_star <= 0 or n_tree <= 0:
+            raise AssertionError(f"default starfit launches: star {n_star}, tree {n_tree}")
+        m_flat = BinaryStarModel.load_hdf(os.path.join(flat, "mist_starmodel_binary.npz"))
+        m_tree = StarModel.load_hdf(os.path.join(tree, "mist_starmodel_single.npz"))
+        fit_rec = {}
+        for label, folder, m, dist in (("flat", flat, m_flat, STAR_TRUTH[4]), ("tree", tree, m_tree, TREE_TRUTH[5])):
+            if m.ic.grid_type is None or m.ic.model.values.shape != ic64.model.values.shape:
+                raise AssertionError(f"{label}: the results file did not reload onto the MIST grid")
+            log = os.path.join(folder, "starfit.log")
+            if not os.path.exists(log) or "starfit successful" not in open(log).read():
+                raise AssertionError(f"{log} does not report a successful fit")
+            d_lo, d_hi = np.quantile(m.samples["distance" if label == "flat" else "distance_0"], [0.025, 0.975])
+            if not np.isfinite(m.evidence[0]) or not d_lo <= dist <= d_hi:
+                raise AssertionError(f"{label}: evidence {m.evidence}, distance 95% interval ({d_lo}, {d_hi}) "
+                                     f"against {dist}")
+            fit_rec[label] = dict(logz=float(m.evidence[0]), distance_95=[float(d_lo), float(d_hi)])
+        print(f"[mist] default starfit (no --models, {CLI_LIVE} live points, float64): --binary exit {rc_flat}, "
+              f"{t_flat:.2f} s, logz {fit_rec['flat']['logz']:.3f}, distance 95% {fit_rec['flat']['distance_95']}, "
+              f"star kernel launches {n_star}; --tree exit {rc_tree}, {t_tree:.2f} s, logz "
+              f"{fit_rec['tree']['logz']:.3f}, distance 95% {fit_rec['tree']['distance_95']}, tree kernel launches "
+              f"{n_tree}; kernel F launches {n_gen}; both results files reloaded onto the MIST grid")
+        rec = dict(write_s=write_s, build_files_s=parse_s, build_caches_s=cache_s, build_f32_s=f32_s,
+                   card_bytes_f64=b64, card_bytes_f32=b32, star_ms=star_ms, generate_ms=gen_ms,
+                   starfit_flat_s=t_flat, starfit_tree_s=t_tree)
+        return n_star, n_tree, n_gen, rec
+    finally:
+        tconfig.ISOCHRONES = saved_root
+        iso_mod._mist_cache.clear()
+
+
+
 def main():
     import torch
 
@@ -2707,10 +3056,14 @@ def main():
         gen_record = phase_generate_kernel(dev, ic32, ic64)
         n_gen, forward_record = phase_forward_model(dev, ic32)
         phase_generate_entry_point(workdir)
+        # ---- 23. get_ichrone("mist") on MIST-format files, the kernels on its grids, the default starfit
+        n_star_mist, n_tree_mist, n_gen_mist, mist_record = phase_mist(dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     tree_record["launches"] = n_tree
     tree_record["launches_entry_point"] = n_tree_cli
+    tree_record["launches_mist_entry_point"] = n_tree_mist
+    print(json.dumps({"mist": mist_record}))
     print(json.dumps({"eep_inversion": dict(eep_record, route="cuda (kernel F: the fast, accurate and Newton forms)",
                                             source="isochrones_torch/csrc/generate.cu",
                                             replaces="isochrones_tpu/ops/eep.py:35", dtype="float32")}))
@@ -2736,6 +3089,7 @@ def main():
         "shape": {"B": STAR_BATCH, "N": 2, "bands": len(STAR_BANDS), "dtype": "float32"},
         "ms_fit_batch": fit_ms, "plain_ms_fit_batch": fit_plain_ms, "bound_ms_fit_batch": fit_bound[0],
         "fit_batch": fit_batch, "launches_entry_point": n_star_cli, "launches_multi_run": n_multi,
+        "launches_mist_entry_point": n_star_mist, "ms_mist_grid": mist_record["star_ms"],
     }, tree_record, {
         "name": "catalog_lnlike", "route": "cuda",
         "source": "isochrones_torch/csrc/catalog_lnlike.cu",
@@ -2748,6 +3102,7 @@ def main():
         "source": "isochrones_torch/csrc/generate.cu",
         "replaces": "isochrones_tpu/models/interpolator.py:109",
         "launches": n_gen, "library_ms": None, **gen_record, **forward_record,
+        "launches_mist_entry_point": n_gen_mist, "ms_mist_grid": mist_record["generate_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

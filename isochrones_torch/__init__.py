@@ -2,8 +2,11 @@
 
 Module names and layout follow the JAX package, so each counterpart sits at
 the same relative path. This package imports torch, numpy and scipy only
-(never jax, the JAX package, pandas or h5py). Ported so far, on the
-synthetic grids: the ``starfit`` entry point (``isochrones_torch.starfit``,
+(never jax, the JAX package, pandas or h5py). The grids: ``get_ichrone("mist")``
+reads the MIST files under ``$ISOCHRONES`` (``grids/mist.py``, ``mist/``;
+nothing is downloaded; ``python -m isochrones_torch.cli.initialize`` builds
+their caches) and ``get_ichrone("synthetic")`` builds the hermetic analytic
+grids. Ported so far, on either: the ``starfit`` entry point (``isochrones_torch.starfit``,
 ``python -m isochrones_torch.cli.starfit``: a folder with a ``star.ini`` ->
 flat or tree model -> nested fit, static or dynamic, with checkpoint and
 resume -> a results file); the single/binary/triple star models, the fused
@@ -29,7 +32,7 @@ __version__ = "0.1.0"
 from .catalog import StarCatalog
 from .cluster import SimulatedCluster, StarClusterModel, clusterfit, simulate_cluster
 from .isochrone import get_ichrone
-from .ops import GridData, interp_nd
+from .ops import GridData, GridInterpolator, interp_nd
 from .populations import (
     BinaryDistribution, StarFormationHistory, StarFormationHistoryGrid, StarPopulation, deredden,
 )
@@ -38,6 +41,7 @@ from .treemodel import StarModel, StarModelGroup
 
 __all__ = [
     "GridData",
+    "GridInterpolator",
     "interp_nd",
     "get_ichrone",
     "StarCatalog",

@@ -1,11 +1,13 @@
 """Interpolator factory (counterpart of ``isochrones_tpu/isochrone.py``,
 reference ``isochrones/isochrone.py:48-78``).
 
-``get_ichrone("synthetic")`` builds the hermetic analytic grids and returns
-one of a cross-linked isochrone/track interpolator pair; the real MIST grids
-need their data files, which this port does not read yet, so
-``get_ichrone("mist")`` (the default, as in the reference) raises
-``NotImplementedError``.
+``get_ichrone("mist")`` (the default, as in the reference) builds the MIST
+grids from their files under ``$ISOCHRONES`` (``config.ISOCHRONES``; nothing
+is downloaded: a missing file raises
+:class:`~isochrones_torch.grids.base.MissingGridError` naming its path), and
+``get_ichrone("synthetic")`` the hermetic analytic grids. Each returns one of
+a cross-linked isochrone/track interpolator pair, built once per
+configuration.
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ __all__ = ["get_ichrone"]
 #: synthetic grid bundles and the interpolator pairs built on them, one per
 #: (bands, dtype, device, grid sizes): two calls share one set of tables
 _synthetic_cache = {}
+#: MIST interpolator pairs, one per (data directory, bands, basic, dtype,
+#: device, grid keywords)
+_mist_cache = {}
 
 
 def _build_synthetic(bands=None, dtype=torch.float64, device="cuda", **kwargs):
@@ -50,12 +55,15 @@ def get_ichrone(models="mist", bands=None, tracks=False, basic=False, device="cu
     on ``device`` (the card unless the caller passes ``device="cpu"``; torch
     raises without one) in ``dtype``.
 
-    models : "mist" (the real grids: not ported) or "synthetic" (the hermetic
-        analytic grids, sized by ``n_feh``, ``n_mass``, ``n_eep``, ``n_age``
-        in ``kwargs``); an interpolator instance is returned as it is
+    models : "mist" (the MIST grids from their files under ``$ISOCHRONES``;
+        ``version``, ``vvcrit``, ``kind`` and ``afe`` in ``kwargs``) or
+        "synthetic" (the hermetic analytic grids, sized by ``n_feh``,
+        ``n_mass``, ``n_eep``, ``n_age`` in ``kwargs``); an interpolator
+        instance is returned as it is
     tracks : return the evolution-track interpolator instead of the isochrone
         one; each links to the other (``iso.track``, ``track.iso``)
-    basic : for the real grids only (fewer columns), as in the reference
+    basic : the MIST ``basic_isos`` isochrones (fewer columns), as in the
+        reference
     """
     if isinstance(models, (IsochroneInterpolator, EvolutionTrackInterpolator)):
         return models
@@ -65,7 +73,15 @@ def get_ichrone(models="mist", bands=None, tracks=False, basic=False, device="cu
         return track if tracks else iso
 
     if models == "mist":
-        raise NotImplementedError("the real MIST grids need their data files, which this port does not read yet "
-                                  "(ROADMAP queue 1); use models='synthetic'")
+        from . import config
+        from .grids.mist import get_mist_interpolators
+
+        key = (config.ISOCHRONES, tuple(bands) if bands else None, bool(basic), str(dtype),
+               str(torch.device(device)), tuple(sorted(kwargs.items())))
+        if key not in _mist_cache:
+            _mist_cache[key] = get_mist_interpolators(bands=bands, basic=basic, device=device, dtype=dtype,
+                                                      **kwargs)
+        iso, track = _mist_cache[key]
+        return track if tracks else iso
 
     raise ValueError(f"Unknown model grid: {models!r} (available: 'mist', 'synthetic')")

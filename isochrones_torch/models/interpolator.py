@@ -52,6 +52,10 @@ class ModelGridInterpolator:
     eep_replaces: Optional[str] = None
     _param_index_order: Tuple[int, ...] = (1, 2, 0, 3, 4)
     name = "model"
+    #: the grid classes behind the tables (reference models.py:255-257), set
+    #: by the MIST factory; None for tables built otherwise
+    grid_type = None
+    bc_type = None
 
     def __init__(self, model: GridData, bc: GridData, bands: Optional[Sequence[str]] = None, eep_support=None):
         if model.values.device != bc.values.device or model.values.dtype != bc.values.dtype:

@@ -617,7 +617,7 @@ class Observation:
         if ic is None:
             from .isochrone import get_ichrone
 
-            ic = get_ichrone("mist")  # raises: the real grids are not ported
+            ic = get_ichrone("mist")
         rng = np.random.default_rng(rng)
         if len(stars) > 2:
             raise NotImplementedError("No support yet for > 2 synthetic stars")

@@ -6,13 +6,14 @@ card)."""
 from .eep import get_eep_newton, interp_eep, searchsorted_rows
 from .rootfind import find_closest_grid, find_closest_grid_batch
 from .cluster import calc_lnlike_grid, cluster_lnmarginal, cluster_lnmarginal_plain, integrate_over_eeps_ln
-from .interp import GridData, compute_axis_maps, corner_data, find_cells_1d, interp_nd
+from .interp import GridData, GridInterpolator, compute_axis_maps, corner_data, find_cells_1d, interp_nd
 from .likelihood import gauss_lnprob, stack_components, star_lnlike
 from .mags import interp_mag
 from .star import StarLikelihood, star_lnlike_fused, star_lnlike_fused_plain
 
 __all__ = [
     "GridData",
+    "GridInterpolator",
     "compute_axis_maps",
     "find_cells_1d",
     "corner_data",

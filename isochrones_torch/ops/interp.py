@@ -1,8 +1,9 @@
 """N-dimensional regular-grid multilinear interpolation on torch tensors.
 
 Counterpart of ``isochrones_tpu/ops/interp.py`` (the row-gather path of
-``interp_nd``; the block and paired gather paths are not ported). Semantics
-match the JAX package exactly:
+``interp_nd``; the block and paired gather paths are not ported) and of its
+:class:`GridInterpolator`, which densifies a grid's table. Semantics match
+the JAX package exactly:
 
 - NaN in any coordinate -> NaN row out.
 - Out of bounds (x < knots[0] or x > knots[-1]) -> NaN row.
@@ -21,7 +22,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["GridData", "compute_axis_maps", "find_cells_1d", "corner_data", "interp_nd"]
+__all__ = ["GridData", "compute_axis_maps", "find_cells_1d", "corner_data", "interp_nd", "GridInterpolator"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,8 +41,23 @@ class GridData:
     axis_maps: Optional[Tuple] = None
 
     @property
+    def ndim_grid(self) -> int:
+        return len(self.knots)
+
+    @property
+    def n_columns(self) -> int:
+        return self.values.shape[-1]
+
+    @property
     def column_index(self):
         return {c: i for i, c in enumerate(self.columns)}
+
+    def astype(self, dtype) -> "GridData":
+        """The same grid in the torch ``dtype`` (the host mirror too)."""
+        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        return dataclasses.replace(
+            self, values=self.values.to(dtype), knots=tuple(k.to(dtype) for k in self.knots),
+            host_values=None if self.host_values is None else self.host_values.astype(np_dtype))
 
     def icols(self, cols) -> Tuple[int, ...]:
         """Column indices of names (or indices); ``None``/``"all"`` = every column."""
@@ -224,3 +240,118 @@ def interp_nd(
     out = (weights[..., None] * corners.to(weights.dtype)).sum(dim=1)
     out = torch.where(bad[:, None], torch.full_like(out, float("nan")), out)
     return out.reshape(batch_shape + (out.shape[-1],))
+
+
+class GridInterpolator:
+    """Host-facing wrapper of one dense grid (counterpart of the JAX
+    package's ``GridInterpolator``, reference ``DFInterpolator``,
+    interp.py:571-698).
+
+    Built from a grid's :class:`~isochrones_torch.grids.base.Table`: the
+    rows are placed on the product of the index levels (each level's sorted
+    values present), NaN where the table has no row (``is_full``: the table
+    is that product already, in sorted order), then uploaded to ``device``
+    in ``dtype``. ``filename`` caches the dense float64 grid in an ``.npz``
+    file. Or built around a :class:`GridData` (``grid_data``).
+    """
+
+    def __init__(self, df=None, filename=None, recalc=False, is_full=False, grid_data=None, dtype=None,
+                 device="cuda"):
+        if grid_data is not None:
+            if grid_data.axis_maps is None:
+                grid_data = dataclasses.replace(
+                    grid_data, axis_maps=compute_axis_maps([k.cpu().numpy() for k in grid_data.knots]))
+            self.grid_data = grid_data if dtype is None else grid_data.astype(dtype)
+            self.columns = list(grid_data.columns)
+            self.index_names = None
+        else:
+            from ..convert import grid_from_numpy
+
+            self.columns = list(df.columns)
+            values, knots = self._densify(df, filename=filename, recalc=recalc, is_full=is_full)
+            self.grid_data = grid_from_numpy(values, knots, self.columns, device=device,
+                                             dtype=torch.float64 if dtype is None else dtype)
+            self.index_names = list(df.index.names)
+
+        self.n_columns = len(self.columns)
+        self.column_index = {c: i for i, c in enumerate(self.columns)}
+        self.ndim = self.grid_data.ndim_grid
+
+    @property
+    def grid(self):
+        """The dense grid as a numpy array ``(n0, ..., nk, n_columns)``."""
+        if self.grid_data.host_values is not None:
+            return self.grid_data.host_values
+        return self.grid_data.values.cpu().numpy()
+
+    @property
+    def index_columns(self):
+        """The knots of each axis, numpy arrays."""
+        return tuple(k.cpu().numpy() for k in self.grid_data.knots)
+
+    @staticmethod
+    def _densify(df, filename=None, recalc=False, is_full=False):
+        """``(grid, levels)``: the table's rows on the product of its index
+        levels, float64, NaN where no row is (the JAX package's
+        ``reindex(MultiIndex.from_product(levels))``)."""
+        import os
+
+        levels = tuple(np.asarray(lv, dtype=float) for lv in df.index.levels)
+        if filename is not None and os.path.exists(filename) and not recalc:
+            with np.load(filename, allow_pickle=False) as d:
+                grid, columns = d["grid"], [str(c) for c in d["columns"]]
+            if columns != [str(c) for c in df.columns]:
+                raise ValueError("Table columns do not match columns loaded from full grid!")
+            return grid, levels
+
+        shape = tuple(len(lv) for lv in levels)
+        values = df.values
+        if is_full:
+            grid = values.reshape(shape + (values.shape[1],))
+        else:
+            flat = np.ravel_multi_index(df.index.codes, shape)
+            if len(np.unique(flat)) != len(flat):
+                raise ValueError("cannot densify a table with duplicate index entries")
+            grid = np.full((int(np.prod(shape)), values.shape[1]), np.nan)
+            grid[flat] = values
+            grid = grid.reshape(shape + (values.shape[1],))
+        if filename is not None:
+            np.savez(filename, grid=grid, columns=np.asarray(df.columns, dtype=str))
+        return grid, levels
+
+    def add_column(self, values, name):
+        """Append one column of grid shape (reference interp.py:616-623)."""
+        g = self.grid_data
+        host = None
+        if g.host_values is not None:
+            hv = np.asarray(values, dtype=g.host_values.dtype)
+            host = np.concatenate([g.host_values, hv.reshape(g.host_values.shape[:-1] + (1,))], axis=-1)
+        col = torch.as_tensor(np.asarray(values), dtype=g.values.dtype, device=g.values.device)
+        new_vals = torch.cat([g.values, col.reshape(g.values.shape[:-1] + (1,))], dim=-1)
+        self.columns = self.columns + [name]
+        self.grid_data = dataclasses.replace(g, values=new_vals, columns=tuple(self.columns), host_values=host)
+        self.n_columns += 1
+        self.column_index[name] = self.n_columns - 1
+
+    def __call__(self, p, cols="all"):
+        """Interpolate at host points ``p`` (one value or array per axis,
+        broadcast together): numpy ``(..., n_cols)``, ``(n_cols,)`` for
+        scalars."""
+        g = self.grid_data
+        icols = g.icols(None if cols == "all" else cols)
+        scalar_in = all(np.ndim(x) == 0 for x in p)
+        pts = np.broadcast_arrays(*[np.asarray(x, dtype=float) for x in p])
+        points = torch.as_tensor(np.stack(pts, axis=-1), dtype=g.values.dtype, device=g.values.device)
+        if points.ndim == 1:
+            points = points[None, :]
+        out = interp_nd(g.values, g.knots, points, icols=icols, axis_maps=g.axis_maps).cpu().numpy()
+        if scalar_in:
+            return out[0]
+        return out
+
+    def find_closest(self, val, lo, hi, v1, v2, col="initial_mass", **kwargs):
+        """Root-find along the last grid axis (reference interp.py:404-485,
+        625-629)."""
+        from .rootfind import find_closest_grid
+
+        return find_closest_grid(self.grid_data, val, lo, hi, v1, v2, self.column_index[col], **kwargs)

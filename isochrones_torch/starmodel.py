@@ -795,14 +795,18 @@ class BasicStarModel:
 
 
 def _stored_ichrone(attrs, device, dtype):
-    """The interpolator of a stored model: the synthetic grids with the
-    stored bands (the real grids are not ported)."""
+    """The interpolator of a stored model, with the stored bands: the MIST
+    grids, or the synthetic ones where the MIST grids cannot be built, as
+    the reference does (starmodel.py:1189-1196)."""
     from .isochrone import get_ichrone
 
     if attrs.get("ic_type") == "EvolutionTrackInterpolator":
         raise NotImplementedError("evolution-track grids are not ported (ROADMAP queue 1)")
     kw = {} if dtype is None else {"dtype": dtype}
-    return get_ichrone("synthetic", bands=attrs["ic_bands"], device=device, **kw)
+    try:
+        return get_ichrone("mist", bands=attrs["ic_bands"], device=device, **kw)
+    except Exception:
+        return get_ichrone("synthetic", bands=attrs["ic_bands"], device=device, **kw)
 
 
 class SingleStarModel(BasicStarModel):

@@ -19,32 +19,23 @@ import pytest
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 HOST_API = "queue 1 item 3: the rest of the host API"
-ENGINES = "queue 1 item 4: the other engines"
-ISOTRACK = "queue 1 item 5: IsoTrackModel"
-SUMMARY = "queue 1 item 6: summary, plotting and results"
-MIST = "queue 1 item 7: the MIST host pipeline"
-QUERY = "queue 1 item 9: the query layer"
+ENGINES = "queue 1 item 6: the other engines"
+ISOTRACK = "queue 1 item 4: IsoTrackModel"
+SUMMARY = "queue 1 item 5: summary, plotting and results"
+QUERY = "queue 1 item 8: the query layer"
 NOT_TO_PORT = "not to port"
 
 _STAR_HOST = ("maxlike", "prior", "prior_transform", "mnest_prior", "mnest_loglike", "mnest_analyzer", "sampler",
               "fit_mcmc_old", "lnpost_polychord")
 _STAR_PLOTS = ("corner", "corner_params", "corner_derived", "corner_physical", "corner_plots", "corner_observed",
                "triangle", "triangle_physical", "triangle_plots", "mag_plot", "write_results")
-_GRID_INTERP = ("GridInterpolator", "GridInterpolator.grid", "GridInterpolator.index_columns",
-                "GridInterpolator.add_column", "GridInterpolator.find_closest", "GridData.ndim_grid",
-                "GridData.n_columns", "GridData.astype")
 _GRID_TPU = ("GridData.paired", "GridData.tree_flatten", "GridData.tree_unflatten")
-_MODEL_GRID = ("StellarModelGrid", "G", "MSUN", "RSUN") + tuple(f"StellarModelGrid.{a}" for a in (
-    "default_columns", "get_dm_deep", "prop_map", "column_map", "datadir", "kwarg_tag", "get_directory_path",
-    "get_existing_filenames", "get_filenames", "get_feh", "to_df", "df_all", "compute_additional_columns", "get_df",
-    "get_cache_filename", "interp_grid_npz_filename", "array_grid_filename", "get_array_grids", "age_grid",
-    "dt_deep_grid", "array_lengths", "interp_grid_orig_npz_filename", "n_masses"))
 _RESULTS = ("samples", "logl", "logwt", "logz", "logzerr", "h", "n_iter", "posterior", "logl_posterior", "ess",
             "truncated", "logz_runs", "dynamic_rounds")
 
 _GROUPS = {
     "isochrones_tpu": {
-        HOST_API: _GRID_INTERP + tuple(f"BasicStarModel.{a}" for a in _STAR_HOST),
+        HOST_API: tuple(f"BasicStarModel.{a}" for a in _STAR_HOST),
         ENGINES: ("BasicStarModel.fit_nuts", "BasicStarModel.fit_polychord"),
         SUMMARY: tuple(f"BasicStarModel.{a}" for a in _STAR_PLOTS),
         NOT_TO_PORT: _GRID_TPU,
@@ -56,21 +47,16 @@ _GROUPS = {
     },
     "isochrones_tpu.config": {NOT_TO_PORT: ("enable_compile_cache",)},
     "isochrones_tpu.grids": {HOST_API: ("SyntheticStellarGrids.astype",)},
+    # the g++-built host parser: the port parses with numpy's loadtxt, bitwise the same tables
+    "isochrones_tpu.grids.parse": {NOT_TO_PORT: ("get_fastparse_lib",)},
     "isochrones_tpu.grids.synthetic": {HOST_API: ("SyntheticStellarGrids.astype",)},
-    "isochrones_tpu.models": {
-        MIST: _MODEL_GRID,
-        HOST_API: ("ModelGridInterpolator.grid_type", "ModelGridInterpolator.bc_type"),
-    },
-    "isochrones_tpu.models.interpolator": {HOST_API: ("ModelGridInterpolator.grid_type",
-                                                      "ModelGridInterpolator.bc_type")},
     "isochrones_tpu.ops": {
-        HOST_API: _GRID_INTERP + ("interp_grid", "interp_mags", "LOG_ONE_OVER_ROOT_2PI", "integrate_over_eeps",
-                                  "cluster_lnlike"),
+        HOST_API: ("interp_grid", "interp_mags", "LOG_ONE_OVER_ROOT_2PI", "integrate_over_eeps", "cluster_lnlike"),
         NOT_TO_PORT: _GRID_TPU,
     },
     "isochrones_tpu.ops.cluster": {HOST_API: ("integrate_over_eeps", "cluster_lnlike", "logaddexp", "logsumexp")},
     "isochrones_tpu.ops.interp": {
-        HOST_API: _GRID_INTERP + ("REFERENCE_DEVIATIONS",),
+        HOST_API: ("REFERENCE_DEVIATIONS",),
         NOT_TO_PORT: _GRID_TPU + ("pair_innermost_columns",),
     },
     "isochrones_tpu.ops.mags": {HOST_API: ("interp_mags",)},
@@ -159,4 +145,4 @@ def test_parked_modules_exist():
     mods = {k.split(":")[0] for k in PARKED}
     have = {"isochrones_tpu" + m[len("isochrones_torch"):] for m in _port_modules()}
     assert mods <= have, sorted(mods - have)
-    assert set(PARKED.values()) <= {HOST_API, ENGINES, ISOTRACK, SUMMARY, MIST, QUERY, NOT_TO_PORT}
+    assert set(PARKED.values()) <= {HOST_API, ENGINES, ISOTRACK, SUMMARY, QUERY, NOT_TO_PORT}

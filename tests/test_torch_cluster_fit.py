@@ -350,8 +350,10 @@ def test_clusterfit_refuses_hdf_by_name(name):
         clusterfit(name, models="synthetic", device="cpu")
 
 
-def test_clusterfit_cli(member_table, caplog):
+def test_clusterfit_cli(member_table, caplog, tmp_path, monkeypatch):
+    import isochrones_torch.config as tconfig
     from isochrones_torch.cli.clusterfit import build_parser, main
+    from isochrones_torch.grids.base import MissingGridError
 
     defaults = build_parser().parse_args(["x.csv"])
     assert (defaults.models, defaults.mineep, defaults.maxeep, defaults.nlive, defaults.maxAV, defaults.minq,
@@ -364,5 +366,7 @@ def test_clusterfit_cli(member_table, caplog):
         rc = main(["--models", "synthetic", "--device", "cpu", "--mineep", "1", "--maxeep", "151", "--eep-step", "3",
                    "--max_distance", "2000", "--nlive", "40", "--max_iter", "40", "--name", "cli", path])
     assert rc == 0 and "clusterfit cluster_cli: logz = " in caplog.text
-    with pytest.raises(NotImplementedError, match="MIST"):
+    # the default grid is MIST's: without its files the error names the missing path
+    monkeypatch.setattr(tconfig, "ISOCHRONES", str(tmp_path))
+    with pytest.raises(MissingGridError, match="MIST"):
         main(["--device", "cpu", path])

@@ -1000,3 +1000,158 @@ def test_accurate_forms_caps_and_bad_input(dev):
     with pytest.raises(ValueError):
         get_eep_accurate_cuda(fm32, x, x, x)  # tables in another dtype
     assert get_eep_accurate_cuda(fm64, x[:0], x[:0], x[:0]).shape == (0,)
+
+
+# ------------------------------------------------- grids read from MIST files
+
+
+@pytest.fixture(scope="module")
+def mist_root(tmp_path_factory):
+    """A small tree of MIST-format files (``isochrones_torch.grids.mist_files``):
+    three [Fe/H]s, five 200-EEP tracks a [Fe/H] (one cut short and
+    completed by the pipeline), four isochrone ages, UBVRIplus and WISE on
+    wide BC axes; the MIST classes pointed at it."""
+    import isochrones_torch.config as tconfig
+    import isochrones_torch.grids.mist as tmist
+    from isochrones_torch.grids.mist_files import make_full_mist_tree
+
+    root = str(tmp_path_factory.mktemp("mist_files"))
+    fehs = (-0.5, 0.0, 0.25)
+    make_full_mist_tree(root, track_kwargs=dict(fehs=fehs, masses=(0.7, 0.8, 0.9, 1.0, 1.2), short={(0.0, 0.9): 150},
+                                                n_eep=200),
+                        iso_kwargs=dict(fehs=fehs, ages=(8.0, 8.5, 9.0, 9.5), n_eep=200),
+                        bc_kwargs=dict(fehs=(-1.0, -0.5, 0.0, 0.5), teffs=tuple(np.linspace(2500.0, 12000.0, 20)),
+                                       loggs=(0.0, 1.5, 3.0, 4.5, 6.0), avs=(0.0, 0.5, 1.0, 2.0)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tconfig, "ISOCHRONES", root)
+        mp.setattr(tmist.MISTModelGrid, "max_eep", lambda self, m, feh: 200)
+        mp.setattr(tmist.MISTModelGrid, "fehs", np.array(fehs))
+        mp.setattr(tmist.MISTModelGrid, "n_eep", 200)
+        yield root
+
+
+_MIST_BANDS = ["J", "H", "K", "G", "W1"]
+
+
+def _mist(dev, dtype=torch.float64):
+    return get_ichrone("mist", bands=_MIST_BANDS, device=dev, dtype=dtype)
+
+
+def test_mist_grids_on_card_equal_cpu(dev, mist_root):
+    """``get_ichrone("mist")`` on the card holds the CPU build's tables, bit
+    for bit (and in float32 their float32 rounding)."""
+    card, cpu = _mist(dev), _mist("cpu")
+    for a, b in ((card, cpu), (card.track, cpu.track)):
+        for g, h in ((a.model, b.model), (a.bc, b.bc)):
+            assert torch.equal(g.values.cpu().nan_to_num(-9.0), h.values.nan_to_num(-9.0))
+            assert g.axis_maps == h.axis_maps
+    for x, y in zip(card.track.eep_support, cpu.track.eep_support):
+        assert torch.equal(x.cpu(), y)
+    f32 = _mist(dev, torch.float32)
+    assert torch.equal(f32.model.values.cpu().nan_to_num(-9.0), cpu.model.values.float().nan_to_num(-9.0))
+
+
+@pytest.mark.parametrize("B", [1024, 70001])
+def test_mist_star_kernel_matches_plain(dev, mist_root, B):
+    """The star kernel on the MIST-read isochrone grid (NaN padding, ragged
+    EEP rows), a binary with 4 bands, in the grid's box with adversarial
+    rows: float64 and float32 against the plain version."""
+    ic64, ic32 = _mist(dev), _mist(dev, torch.float32)
+    obs = star_observations(ic64, (60.0, 50.0, 9.0, 0.0, 200.0, 0.1))
+    lk64 = BinaryStarModel(ic64, **obs)._star_likelihood()
+    lk32 = BinaryStarModel(ic32, **obs)._star_likelihood()
+    lk32up = dataclasses.replace(lk32, pack6=grid_as(lk32.pack6, torch.float64), bc=grid_as(lk32.bc, torch.float64))
+    p64 = torch.as_tensor(star_points(ic64.model.knots, 2, B, seed=B), device=dev, dtype=torch.float64)
+    ref = [x.cpu().numpy() for x in star_lnlike_fused_plain(p64, lk64)]
+    check_star("mist f64", [x.cpu().numpy() for x in star_lnlike_cuda(p64, lk64)], ref, RTOL_STAR_F64)
+    p32 = p64.float()
+    check_star("mist f32", [x.cpu().numpy() for x in star_lnlike_cuda(p32, lk32)],
+               [x.cpu().numpy() for x in star_lnlike_fused_plain(p32.double(), lk32up)], RTOL_STAR_F32, ATOL_STAR_F32)
+    assert np.isfinite(ref[0]).sum() > B // 20
+
+
+def test_mist_tree_kernel_matches_plain(dev, mist_root):
+    """The tree kernel on the MIST-read isochrone grid, a model of three
+    stars of one system."""
+    mod = StarModel(_mist(dev), N=3, Teff=(5800, 100), logg=(4.4, 0.1), parallax=(5.0, 0.05), **_TREE_PHOT)
+    _tree_check("mist N3", mod._get_fn("lnlike").likelihood, _tree_pts(mod, 4097, seed=5), dev)
+
+
+@pytest.mark.parametrize("n", [31, 20001])
+def test_mist_generate_kernel_matches_plain(dev, mist_root, n):
+    """Kernel F on the MIST-read track grid (18 columns with
+    ``interpolated``; a completed track): every form against the plain
+    version, and the accurate inversion on both grids."""
+    from isochrones_torch.ops.generate_cuda import eep_newton_cuda, generate_accurate_cuda
+
+    track64, track32 = _mist(dev).track, _mist(dev, torch.float32).track
+    fm64, fm32 = track64._forward_model, track32._forward_model
+    up = dataclasses.replace(fm32, model=grid_as(fm32.model, torch.float64),
+                             model_packed=grid_as(fm32.model_packed, torch.float64), bc=grid_as(fm32.bc, torch.float64),
+                             eep_support=tuple(x.double() if x.is_floating_point() else x for x in fm32.eep_support))
+    assert len(fm64.model.columns) == 18 and "interpolated" in fm64.model.columns
+    icols = fm64.model.icols("all")
+    _check_mist_forms(dev, (fm64, fm32, up), track64, n, icols, tuple(fm64.bc.column_index[b] for b in _MIST_BANDS))
+    cols = [torch.as_tensor(c, device=dev) for c in _mist_points(track64, n, seed=n)]
+    for dtn, fm, ic in (("float64", fm64, _mist(dev)), ("float32", fm32, _mist(dev, torch.float32))):
+        x = [c.to(fm.model.values.dtype) for c in cols]
+        ref_e, ref_r, resid_at = plain_accurate(fm, *x[:3])
+        got = generate_accurate_cuda(fm, *x, icols, (0, 1))
+        check_newton(f"mist accurate {dtn}", got[0].cpu(), ref_e.cpu(), ref_r.cpu(), dtn, resid_at)
+        check_newton(f"mist track get_eep {dtn}", ic.track.get_eep_batch(*x[:3], accurate=True).cpu(), ref_e.cpu(),
+                     ref_r.cpu(), dtn, resid_at)
+        seed = torch.full_like(x[0], 100.0)
+        ref_e, ref_r, resid_at = plain_newton(ic._newton_grid, seed, *x[:3])
+        check_newton(f"mist iso Newton {dtn}", eep_newton_cuda(ic._newton_grid, seed, *x[:3]).cpu(), ref_e.cpu(),
+                     ref_r.cpu(), dtn, resid_at)
+
+
+def _mist_points(track, n, seed):
+    """(mass, age, feh, distance, AV) on and past the small MIST tree's box,
+    with every mass and [Fe/H] knot and a NaN in each coordinate."""
+    rng = np.random.default_rng(seed)
+    m = max(n, 40)
+    mass, age = rng.uniform(0.65, 1.25, m), rng.uniform(7.5, 10.2, m)
+    feh, dist, av = rng.uniform(-0.6, 0.3, m), rng.uniform(10.0, 2000.0, m), rng.uniform(0.0, 1.5, m)
+    k = len(track.masses)
+    mass[:k] = track.masses
+    feh[k: k + len(track.fehs)] = track.fehs
+    mass[-1], age[-2], feh[-3] = np.nan, np.nan, np.nan
+    keep = rng.permutation(m)[:n]
+    return [c[keep] for c in (mass, age, feh, dist, av)]
+
+
+def _check_mist_forms(dev, fms, track, n, icols, bcols):
+    from isochrones_torch.ops.eep import interp_eep
+    from isochrones_torch.ops.generate import generate_plain
+    from isochrones_torch.ops.generate_cuda import generate_cuda
+
+    fm64, fm32, up = fms
+    x64 = [torch.as_tensor(c, device=dev) for c in _mist_points(track, n, seed=n + 1)]
+    x32, x32up = [x.float() for x in x64], [x.float().double() for x in x64]
+    given = torch.as_tensor(np.random.default_rng(n).uniform(-3.0, 204.0, n), device=dev)
+    check_generate("mist f64", generate_cuda(fm64, *x64, icols, bcols, all_As=True),
+                   generate_plain(fm64, *x64, icols, bcols, all_As=True), "float64")
+    got = generate_cuda(fm32, *x32, icols, bcols)
+    e_ref = interp_eep(x32up[1], x32up[2], x32up[0], *up.eep_support, eep0=up.eep0)
+    check_generate("mist f32", got, (e_ref,) + tuple(generate_plain(up, *x32up, icols, bcols, eeps=got[0].double())[1:]),
+                   "float32")
+    check_generate("mist f64 given", generate_cuda(fm64, *x64, icols, bcols, eeps=given),
+                   generate_plain(fm64, *x64, icols, bcols, eeps=given), "float64")
+
+
+def test_mist_entry_points_on_card(dev, mist_root):
+    """``isochrone``, ``generate`` (one launch) and ``interp_mag`` on the
+    MIST-read grids on the card equal the CPU's, float64."""
+    card, cpu = _mist(dev), _mist("cpu")
+    for age, feh in ((8.5, 0.0), (9.2, -0.3)):
+        a, b = card.isochrone(age, feh=feh), cpu.isochrone(age, feh=feh)
+        assert a.columns == b.columns and len(a["eep"]) == len(b["eep"]) > 20
+        for c in b.columns:
+            np.testing.assert_allclose(a[c], b[c], rtol=1e-9, atol=1e-9, err_msg=c)
+    m, a_, f, d, av = _mist_points(cpu.track, 3000, seed=9)
+    out = []
+    assert wrapper_launches(lambda: out.append(card.generate(m, a_, f, distance=d, AV=av)), reps=1) == 1
+    want = cpu.generate(m, a_, f, distance=d, AV=av)
+    for c in want.columns:
+        np.testing.assert_allclose(out[0][c], want[c], rtol=1e-9, atol=1e-9, equal_nan=True, err_msg=c)

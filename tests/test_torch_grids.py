@@ -5,6 +5,9 @@ package's numpy code, so in float64 every table, knot vector, axis map and
 support array must be bit-identical to the JAX bundle.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -86,20 +89,24 @@ def test_entry_points_default_to_the_card(bundles, entry):
         calls[entry]()
 
 
-def test_get_ichrone_default_is_mist_and_names_unknown_grids():
+def test_get_ichrone_default_is_mist_and_names_unknown_grids(tmp_path, monkeypatch):
     """The reference's default and order of checks: an instance first, then
-    the names; the real grids are not ported and say so."""
+    the names; the MIST grids without their files under an empty
+    ``$ISOCHRONES`` raise an error that names the missing path."""
     import inspect
 
+    import isochrones_torch.config as tconfig
     from isochrones_tpu import get_ichrone as jax_get_ichrone
     from isochrones_torch import get_ichrone
+    from isochrones_torch.grids.base import MissingGridError
 
     ref = list(inspect.signature(jax_get_ichrone).parameters)[:4]
     assert list(inspect.signature(get_ichrone).parameters)[:4] == ref == ["models", "bands", "tracks", "basic"]
     assert inspect.signature(get_ichrone).parameters["models"].default == "mist"
-    with pytest.raises(NotImplementedError, match="MIST"):
+    monkeypatch.setattr(tconfig, "ISOCHRONES", str(tmp_path))
+    with pytest.raises(MissingGridError, match=re.escape(os.path.join(str(tmp_path), "BC", "mist"))):
         get_ichrone(device="cpu")
-    with pytest.raises(NotImplementedError, match="MIST"):
+    with pytest.raises(MissingGridError, match=re.escape(os.path.join(str(tmp_path), "BC", "mist"))):
         get_ichrone("mist", basic=True, device="cpu")
     with pytest.raises(ValueError, match="Unknown model grid"):
         get_ichrone("parsec", device="cpu")

@@ -49,6 +49,19 @@ _EXPECTED = (
     "isochrones_torch.ops.generate_cuda",
     "isochrones_torch.populations",
     "isochrones_torch.cli.generate_cmd",
+    "isochrones_torch.grids.base",
+    "isochrones_torch.grids.mist",
+    "isochrones_torch.grids.mist_eep",
+    "isochrones_torch.grids.mist_files",
+    "isochrones_torch.grids.parse",
+    "isochrones_torch.eep_fit",
+    "isochrones_torch.mist",
+    "isochrones_torch.mist.bc",
+    "isochrones_torch.mist.eep",
+    "isochrones_torch.mist.isochrone",
+    "isochrones_torch.mist.models",
+    "isochrones_torch.mist.utils",
+    "isochrones_torch.cli.initialize",
 )
 
 

@@ -15,6 +15,7 @@ import contextlib
 import dataclasses
 import io
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -153,9 +154,12 @@ def test_rows_file_builds_the_model(ics, tmp_path):
     np.testing.assert_allclose(tm.lnlike_batch(p).numpy(), np.asarray(jm.lnlike_batch(jnp.asarray(p))), rtol=1e-10)
 
 
-def test_tree_structure_and_parameter_maps(ics):
+def test_tree_structure_and_parameter_maps(ics, tmp_path, monkeypatch):
     """The cases of ``tests/test_observation.py`` on the port's classes:
     resolution order, separate systems, the parameter maps' round trip."""
+    import isochrones_torch.config as tconfig
+    from isochrones_torch.grids.base import MissingGridError
+
     _, tic = ics
     t = tobs.ObservationTree()
     coarse, fine = tobs.Observation("coarse", "J", 10.0), tobs.Observation("fine", "K", 0.1)
@@ -189,7 +193,9 @@ def test_tree_structure_and_parameter_maps(ics):
         t.add_spectroscopy(label="9_9", Teff=(5000, 100))
     with pytest.raises(ValueError):
         t.add_parallax((5.0, 0.1), system=7)
-    with pytest.raises(NotImplementedError):  # no MIST grids: observe() needs an interpolator
+    # without an interpolator observe() builds the MIST grids: no files, an error naming the path
+    monkeypatch.setattr(tconfig, "ISOCHRONES", str(tmp_path))
+    with pytest.raises(MissingGridError, match=re.escape(str(tmp_path))):
         tobs.Observation("cam", "J", 1.0).observe([tobs.Star(p[:5], 0, 0), tobs.Star(p[:5], 1, 0)], 0.02)
 
 

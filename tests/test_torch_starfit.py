@@ -115,7 +115,7 @@ def test_results_file_keys_match_jax(tmp_path, one_thread):
     assert "fits/a/samples/values" not in np.load(path).files
 
 
-def test_cli_flat_tree_and_failures(tmp_path, one_thread, capsys):
+def test_cli_flat_tree_and_failures(tmp_path, one_thread, capsys, monkeypatch):
     flat, tree, empty = _folder(tmp_path), _folder(tmp_path, "star3"), str(tmp_path / "empty")
     os.makedirs(empty)
     assert main(CLI + ["--binary", flat]) == 0
@@ -132,8 +132,13 @@ def test_cli_flat_tree_and_failures(tmp_path, one_thread, capsys):
     assert main(CLI + ["--rootdir", str(tmp_path), "empty", "star1"]) == 1
     assert "single starfit failed" in _log(empty) and "empty [single]" in capsys.readouterr().err
     assert os.path.exists(os.path.join(flat, "synthetic_starmodel_single.npz"))  # the good folder was still fitted
-    # the real grids are not ported: the refusal is a failed fit of that folder
+    # the default grid is MIST's: without its files (an empty $ISOCHRONES) the error naming the
+    # missing path is a failed fit of that folder
+    import isochrones_torch.config as tconfig
+
+    monkeypatch.setattr(tconfig, "ISOCHRONES", str(tmp_path / "no_mist"))
     assert main(["--device", "cpu", "--no_plots", flat]) == 1 and "MIST" in _log(flat)
+    assert str(tmp_path / "no_mist") in _log(flat)
 
 
 def test_cli_parser_and_unported_options(tmp_path):

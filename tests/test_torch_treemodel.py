@@ -12,6 +12,7 @@ ln Z within 3 sqrt(logzerr1^2 + logzerr2^2), the 16/50/84% quantiles within
 
 import json
 import os
+import re
 
 import h5py
 import jax.numpy as jnp
@@ -131,14 +132,19 @@ def test_sample_from_prior_and_group(ics):
     assert len(base_t.obs.get_model_nodes()) > 0  # the base model keeps its stars
 
 
-def test_unported_and_default_device(ics):
+def test_unported_and_default_device(ics, tmp_path, monkeypatch):
+    import isochrones_torch.config as tconfig
+    from isochrones_torch.grids.base import MissingGridError
+
     jic, tic = ics
     tm = StarModel.from_ini(tic, os.path.join(HERE, "star1"))
     # ported with the EEP inversion: mass-based parameters become EEP-based ones
     jm = JaxStarModel.from_ini(jic, os.path.join(HERE, "star1"))
     np.testing.assert_allclose(tm.convert_pars_to_eep([1.0, 9.0, 0.0, 200.0, 0.1]),
                                jm.convert_pars_to_eep([1.0, 9.0, 0.0, 200.0, 0.1]), rtol=0, atol=1e-9)
-    with pytest.raises(NotImplementedError, match="MIST"):
+    # the MIST grids without their files: the error names the missing path
+    monkeypatch.setattr(tconfig, "ISOCHRONES", str(tmp_path))
+    with pytest.raises(MissingGridError, match=re.escape(str(tmp_path))):
         StarModel.from_ini("mist", os.path.join(HERE, "star1"), device="cpu")
     on_cpu = StarModel.from_ini("synthetic", os.path.join(HERE, "star1"), device="cpu")
     assert on_cpu.device.type == "cpu" and sorted(on_cpu.ic.bands) == sorted(StarModel.get_bands(os.path.join(HERE, "star1", "star.ini")))
