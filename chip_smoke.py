@@ -152,7 +152,22 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     the CPU; then the default ``starfit`` (no ``--models``) on a flat binary
     and a tree folder whose magnitudes come from this grid: exit 0, both
     kernels launched, the results files reload onto the MIST grid, finite
-    evidences, the true distance inside the 95% intervals.
+    evidences, the true distance inside the 95% intervals;
+24. the joint isochrone + track model on phase 23's grids
+    (``IsoTrackModel(get_ichrone("mist"), get_ichrone("mist",
+    tracks=True))``, float64 and float32, a star with Teff, logg, [Fe/H],
+    J, H, K, G and a parallax): the star kernel on the track grid against
+    its plain version (131072 points, all three outputs); ``lnpost_batch``
+    at 1024 and 131072 points (the bounds box, track-consistent ages,
+    adversarial rows) against the composed plain path in float64 (1e-9,
+    identical NaN and -inf patterns) and against the fused path with the
+    plain likelihood on the same float32 values in float32, exactly two
+    kernel launches a call and the composed path never called; wall-clock,
+    device time, launches and idle share of one call at both batches; then
+    ``fit()`` (nested, 500 live points) and ``fit()`` with ``use_emcee``
+    on the card (seconds, launches; the nested distance interval holding
+    the truth), and a ``SingleStarModel`` fitted on the MIST track grid
+    whose results file reloads onto that grid.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -380,6 +395,16 @@ MIST_BC = dict(systems=("UBVRIplus", "WISE"), fehs=tuple(np.linspace(-4.0, 1.0, 
 #: kernel F's points on the MIST-read track grid, and the star kernel's batches
 MIST_GEN_POINTS = 200_000
 MIST_STAR_BATCHES = (1024, STAR_BATCH)
+#: phase 24: the star (eep, age, feh, distance, AV) on phase 23's grids,
+#: the lnpost batches (the nested fit's and the bench's), the fits
+ISOTRACK_TRUTH = (350.0, 9.0, 0.0, 200.0, 0.1)
+ISOTRACK_BATCHES = (1024, STAR_BATCH)
+ISOTRACK_NESTED = dict(n_live_points=500, seed=0)
+ISOTRACK_MCMC = dict(nwalkers=256, nburn=200, niter=100, seed=0)
+TRACK_NESTED = dict(n_live_points=200, seed=0)
+#: float64 lnpost_batch through the two launches vs the composed plain path:
+#: another order of the same sums
+RTOL_ISOTRACK_F64 = 1e-9
 
 
 def make_kernel_inputs(S, E, B, W, seed=0):
@@ -496,6 +521,55 @@ def star_points(knots, n_stars, batch, seed=0, box=None):
     p[blocks[6], V] = 7.0
     p[blocks[7], D] = np.where(rng.random(len(p[blocks[7]])) < 0.5, -5.0, 0.0)
     return p
+
+
+def isotrack_points(model, batch, seed=0):
+    """Seeded (batch, 6) numpy parameters (eep, mass, age, feh, distance, AV)
+    of an ``IsoTrackModel``: uniform in the model's bounds box, the age of
+    the second half the track's age at the row's (mass, eep, feh) within 0.01
+    dex (where both grids and the EEP prior can be finite), and adversarial
+    blocks in the first quarter: exact knots of both grids, top and bottom
+    knots, coordinates past either grid, NaN, AV past the BC grid, distance
+    <= 0, EEP, AV and distance past the bounds."""
+    rng = np.random.default_rng(seed)
+    ages, fehs, eeps = (k.cpu().double().numpy() for k in model.iso.model.knots)
+    masses = model.track.model.knots[1].cpu().double().numpy()
+    los, his = (np.asarray(x, dtype=float) for x in model._bounds_arrays())
+    p = los + (his - los) * rng.random((batch, 6))
+    half = np.arange(batch // 2, batch)
+    age = model.track.interp_value([p[half, 1], p[half, 0], p[half, 3]], ["age"])[:, 0]
+    p[half, 2] = np.where(np.isfinite(age), age + rng.normal(0, 0.01, len(half)), p[half, 2])
+    m = max(1, batch // 40)
+    blocks = [slice(i * m, (i + 1) * m) for i in range(10)]
+    n = [len(p[b]) for b in blocks]
+    p[blocks[0], 0], p[blocks[0], 1] = rng.choice(eeps, n[0]), rng.choice(masses, n[0])
+    p[blocks[1], 2], p[blocks[1], 3] = rng.choice(ages, n[1]), rng.choice(fehs, n[1])
+    p[blocks[2], 0], p[blocks[2], 1], p[blocks[2], 2] = eeps[-1], masses[-1], ages[-1]
+    p[blocks[3], 0], p[blocks[3], 1] = eeps[0], masses[0]
+    p[blocks[3], 3] = np.where(rng.random(n[3]) < 0.5, fehs[0], fehs[-1])
+    p[blocks[4], 0] = eeps[0] - 0.5
+    p[blocks[4], 1] = np.where(rng.random(n[4]) < 0.5, masses[-1] * 1.01, p[blocks[4], 1])
+    p[blocks[4], 2] = np.where(rng.random(n[4]) < 0.5, ages[-1] + 0.01, p[blocks[4], 2])
+    rows = np.arange(batch)[blocks[5]]
+    p[rows, rng.integers(0, 6, len(rows))] = np.nan
+    p[blocks[6], 5] = 7.0
+    p[blocks[7], 4] = np.where(rng.random(n[7]) < 0.5, -5.0, 0.0)
+    p[blocks[8], 0] = his[0] + 1.0
+    p[blocks[9], 4] = his[4] * 1.1
+    p[blocks[9], 5] = np.where(rng.random(n[9]) < 0.5, his[5] + 0.2, p[blocks[9], 5])
+    return p
+
+
+def isotrack_observations(iso, truth, bands=STAR_BANDS):
+    """One star's observations at ``truth`` (eep, age, feh, distance, AV) on
+    the isochrone grid: Teff, logg, [Fe/H], the band magnitudes and the
+    parallax of its distance."""
+    eep, age, feh, dist, av = truth
+    Teff, logg, _, mags = iso.interp_mag([eep, age, feh, dist, av], list(bands))
+    obs = dict(Teff=(float(Teff), 100.0), logg=(float(logg), 0.1), feh=(float(feh), 0.1))
+    obs.update({b: (float(m), 0.02) for b, m in zip(bands, np.asarray(mags))})
+    obs["parallax"] = (1000.0 / dist, 0.05)
+    return obs
 
 
 def star_grid_variant(pack6, bc, kind):
@@ -2796,6 +2870,192 @@ def phase_mist(dev, workdir):
 
 
 
+def plain_star_f64(lks, dtype):
+    """A stand-in for ``star_lnlike_fused`` on the likelihoods ``lks``: the
+    plain version in float64 on each one's tables as they are (float32
+    values upcast), its outputs in ``dtype``; the float32 kernel's oracle."""
+    import torch
+
+    from isochrones_torch.ops.star import star_lnlike_fused_plain
+
+    up = {id(lk): dataclasses.replace(lk, pack6=grid_as(lk.pack6, torch.float64), bc=grid_as(lk.bc, torch.float64))
+          for lk in lks}
+
+    def fused(pars, lk):
+        return tuple(x.to(dtype) for x in star_lnlike_fused_plain(pars.double(), up[id(lk)]))
+
+    return fused
+
+
+def phase_isotrack(dev, workdir):
+    """Phase 24: ``IsoTrackModel`` on the grids phase 23 wrote. Returns
+    ``(launches in the two fits, record)``."""
+    import torch
+
+    import isochrones_torch.config as tconfig
+    import isochrones_torch.isochrone as iso_mod
+    import isochrones_torch.starmodel as star_mod
+    from isochrones_torch import IsoTrackModel, SingleStarModel, get_ichrone
+    from isochrones_torch.ops.star import star_lnlike_fused_plain
+    from isochrones_torch.ops.star_cuda import star_lnlike_cuda
+
+    saved_root = tconfig.ISOCHRONES
+    tconfig.ISOCHRONES = os.path.join(workdir, "isochrones")
+    try:
+        t0 = time.perf_counter()
+        grids = {dt: (get_ichrone("mist", device=dev, dtype=dt), get_ichrone("mist", tracks=True, device=dev, dtype=dt))
+                 for dt in (torch.float64, torch.float32)}
+        torch.cuda.synchronize()
+        iso64, track64 = grids[torch.float64]
+        iso32, track32 = grids[torch.float32]
+        obs = isotrack_observations(iso64, ISOTRACK_TRUTH)
+        m64, m32 = IsoTrackModel(iso64, track64, **obs), IsoTrackModel(iso32, track32, **obs)
+        print(f"[isotrack] MIST grids f64 + f32 from the caches in {time.perf_counter() - t0:.2f} s: iso "
+              f"{tuple(iso64.model.values.shape)}, track {tuple(track64.model.values.shape)}; params "
+              f"{m32.param_names}, bounds {json.dumps({p: [float(x) for x in m32.bounds(p)] for p in m32.param_names})}"
+              f"; observations {json.dumps({k: [round(float(v), 5), float(u)] for k, (v, u) in obs.items()})}")
+
+        # ---- the star kernel on the track grid against its plain version
+        lk64, lk32 = m64._star_likelihood(track64, True), m32._star_likelihood(track32, True)
+        pts = isotrack_points(m64, STAR_BATCH, seed=24)
+        track_cols = list(m64._TRACK_COLUMNS)
+        t64 = torch.as_tensor(pts[:, track_cols], device=dev, dtype=torch.float64)
+        e_t64 = check_star("track-grid star kernel f64", [x.cpu().numpy() for x in star_lnlike_cuda(t64, lk64)],
+                           [x.cpu().numpy() for x in star_lnlike_fused_plain(t64, lk64)], RTOL_STAR_F64)
+        t32 = t64.float()
+        e_t32 = check_star("track-grid star kernel f32", [x.cpu().numpy() for x in star_lnlike_cuda(t32, lk32)],
+                           [x.cpu().numpy() for x in plain_star_f64([lk32], torch.float64)(t32, lk32)],
+                           RTOL_STAR_F32, ATOL_STAR_F32)
+        n_fin = int(torch.isfinite(star_lnlike_fused_plain(t64, lk64)[0]).sum())
+        print(f"[isotrack] star kernel on the track grid (index order {lk64.index_order}, axis kinds "
+              f"{[None if a is None else a[0] for a in lk64.pack6.axis_maps]}) vs plain, B={STAR_BATCH}: f64 "
+              f"max_abs_err {e_t64:.3e} (rtol {RTOL_STAR_F64}), f32 vs f64 {e_t32:.3e} (rtol {RTOL_STAR_F32} atol "
+              f"{ATOL_STAR_F32}); {n_fin} ll finite")
+
+        # ---- lnpost_batch: two launches against the composed plain path
+        class Composed(IsoTrackModel):
+            def _build_lnprior_batch(self):
+                return super()._build_lnprior_batch()
+
+        c64 = Composed(iso64, track64, **obs)
+        fused_dispatch, composed_lnlike = star_mod.star_lnlike_fused, star_mod.star_lnlike
+        # the float32 oracle: the same fused posterior, its two likelihoods the
+        # plain version in float64 on the float32 tables
+        lk_i32, lk_t32 = m32._star_likelihood(iso32, False), m32._star_likelihood(track32, True)
+        plain32 = plain_star_f64([lk_i32, lk_t32], torch.float32)
+        m_plain = IsoTrackModel(iso32, track32, **obs)
+        m_plain._star_likelihood = lambda ic=None, parallax=True: lk_t32 if parallax else lk_i32
+
+        def no_composed(*a, **k):
+            raise AssertionError("the fused posterior called the composed likelihood")
+
+        errs, calls = {}, {}
+        for B in ISOTRACK_BATCHES:
+            p = isotrack_points(m64, B, seed=B)
+            p64 = torch.as_tensor(p, device=dev, dtype=torch.float64)
+            p32 = p64.float()
+            ref64 = c64.lnpost_batch(p64).cpu().numpy()
+            star_mod.star_lnlike = no_composed
+            try:
+                got = {}
+                for m, x in ((m64, p64), (m32, p32)):
+                    before = star_lnlike_cuda.launches
+                    got[x.dtype] = m.lnpost_batch(x).cpu().numpy()
+                    calls[(B, str(x.dtype))] = star_lnlike_cuda.launches - before
+            finally:
+                star_mod.star_lnlike = composed_lnlike
+            star_mod.star_lnlike_fused = plain32
+            try:
+                ref32 = m_plain.lnpost_batch(p32).cpu().numpy()
+            finally:
+                star_mod.star_lnlike_fused = fused_dispatch
+            e64 = check_star(f"isotrack lnpost_batch f64 B={B}", [got[torch.float64]], [ref64], RTOL_ISOTRACK_F64)
+            e32 = check_star(f"isotrack lnpost_batch f32 B={B}", [got[torch.float32]], [ref32], RTOL_STAR_F32,
+                             ATOL_STAR_F32)
+            errs[B] = (e64, e32, int(np.isfinite(ref64).sum()), int(np.isnan(p).any(axis=1).sum()))
+        if any(n != 2 for n in calls.values()):
+            raise AssertionError(f"IsoTrackModel.lnpost_batch is not two star-kernel launches: {calls}")
+        print(f"[isotrack] lnpost_batch vs the composed plain path (f64, rtol {RTOL_ISOTRACK_F64}) and vs the plain "
+              f"likelihood on the same float32 values (f32, rtol {RTOL_STAR_F32} atol {ATOL_STAR_F32}): "
+              f"(f64 max_abs_err, f32 max_abs_err, finite, NaN rows) "
+              f"{json.dumps({b: [float(f'{e:.3e}') for e in v[:2]] + list(v[2:]) for b, v in errs.items()})}; "
+              f"star-kernel launches a call {json.dumps({f'{b} {d}': n for (b, d), n in calls.items()})}")
+
+        # ---- time of one call, float32
+        timed, ms = {}, {}
+        for B in ISOTRACK_BATCHES:
+            x = torch.as_tensor(isotrack_points(m64, B, seed=B + 1), device=dev, dtype=torch.float32)
+            timed[B] = timed_call(lambda: m32.lnpost_batch(x), reps=20 if B > 1024 else 50)
+            ms[B] = kernel_ms(lambda: m32.lnpost_batch(x), "star_lnlike", reps=20)
+        for B, (wall, busy, launches, _) in timed.items():
+            idle = None if busy is None else 1.0 - busy / wall
+            print(f"[isotrack] time f32 lnpost_batch B={B}: {wall:.3f} ms per call, device busy {_fmt(busy, '.4f')} "
+                  f"ms, idle share {_fmt(idle, '.3f')}, {_fmt(launches, '.1f')} device kernels under the profiler; "
+                  f"the two star-kernel launches {ms[B]:.4f} ms of device time")
+
+        # ---- the fits on the card (the slice's main path): nested, then MCMC
+        star_lnlike_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = m32.fit(**ISOTRACK_NESTED)
+        torch.cuda.synchronize()
+        nest_s = time.perf_counter() - t0
+        n_nested = star_lnlike_cuda.launches
+        d_lo, d_hi = np.quantile(m32.samples["distance"], [0.025, 0.975])
+        if not np.isfinite(res.logz) or res.truncated or n_nested <= 0 or not d_lo <= ISOTRACK_TRUTH[3] <= d_hi:
+            raise AssertionError(f"isotrack nested fit: logz {res.logz}, truncated {res.truncated}, launches "
+                                 f"{n_nested}, distance 95% ({d_lo}, {d_hi})")
+        med = {k: round(float(np.median(v)), 4) for k, v in m32.samples.items() if k != "lnprob"}
+        mc = IsoTrackModel(iso32, track32, use_emcee=True, **obs)
+        star_lnlike_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = mc.fit(**ISOTRACK_MCMC)
+        torch.cuda.synchronize()
+        mcmc_s = time.perf_counter() - t0
+        n_mcmc = star_lnlike_cuda.launches
+        acc = float(mc.sampler.n_accept.sum().item()) / (ISOTRACK_MCMC["nwalkers"] * ISOTRACK_MCMC["niter"])
+        if not np.isfinite(samples["lnprob"]).all() or n_mcmc <= 0 or not acc > 0:
+            raise AssertionError(f"isotrack MCMC fit: launches {n_mcmc}, acceptance {acc}")
+        try:
+            m32.derived_samples
+            raise AssertionError("IsoTrackModel.derived_samples did not raise TypeError (the reference does)")
+        except TypeError:
+            pass
+        print(f"[isotrack] fit() nested {json.dumps(ISOTRACK_NESTED)} f32: {nest_s:.3f} s, {res.n_iter} dead points, "
+              f"logz {res.logz:.4f} +- {res.logzerr:.4f}, ESS {res.ess:.1f}, star-kernel launches {n_nested}; "
+              f"medians {json.dumps(med)}, distance 95% ({d_lo:.3f}, {d_hi:.3f})")
+        print(f"[isotrack] fit(use_emcee) {json.dumps(ISOTRACK_MCMC)} f32: {mcmc_s:.3f} s, acceptance {acc:.3f}, "
+              f"star-kernel launches {n_mcmc}, distance median {np.median(samples['distance']):.3f}; "
+              f"derived_samples raises TypeError, as in the reference")
+
+        # ---- a track-grid model's results file reloads onto the MIST track grid
+        single = SingleStarModel(track32, name="track", **obs)
+        t0 = time.perf_counter()
+        tres = single.fit_multinest(**TRACK_NESTED)
+        path = os.path.join(workdir, "track_starmodel.npz")
+        single.save_hdf(path)
+        back = SingleStarModel.load_hdf(path, device=dev, dtype=torch.float32)
+        track_s = time.perf_counter() - t0
+        if (type(back.ic).__name__ != "EvolutionTrackInterpolator" or back.ic.grid_type is None
+                or back.ic.model.values.shape != track32.model.values.shape or back.evidence != single.evidence
+                or not all(np.array_equal(back.samples[c], single.samples[c]) for c in single.samples)):
+            raise AssertionError("the track-grid results file did not reload onto the MIST track grid")
+        print(f"[isotrack] SingleStarModel on the MIST track grid: fit_multinest {json.dumps(TRACK_NESTED)} logz "
+              f"{tres.logz:.4f}, saved and reloaded onto {type(back.ic).__name__} {tuple(back.ic.model.values.shape)} "
+              f"with equal samples and evidence ({track_s:.2f} s in all)")
+        rec = dict(track_kernel_err_f64=e_t64, track_kernel_err_f32=e_t32,
+                   lnpost_err={b: list(v[:2]) for b, v in errs.items()},
+                   call={b: dict(wall_ms=timed[b][0], busy_ms=timed[b][1], device_kernels=timed[b][2],
+                                 star_launches=calls[(b, "torch.float32")], star_ms=ms[b]) for b in ISOTRACK_BATCHES},
+                   nested_s=nest_s, nested_launches=n_nested, logz=float(res.logz), mcmc_s=mcmc_s,
+                   mcmc_launches=n_mcmc)
+        return n_nested + n_mcmc, rec
+    finally:
+        tconfig.ISOCHRONES = saved_root
+        iso_mod._mist_cache.clear()
+
+
 def main():
     import torch
 
@@ -3058,12 +3318,15 @@ def main():
         phase_generate_entry_point(workdir)
         # ---- 23. get_ichrone("mist") on MIST-format files, the kernels on its grids, the default starfit
         n_star_mist, n_tree_mist, n_gen_mist, mist_record = phase_mist(dev, workdir)
+        # ---- 24. IsoTrackModel on those grids: lnpost_batch, both fits, a track-grid results file
+        n_isotrack, isotrack_record = phase_isotrack(dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     tree_record["launches"] = n_tree
     tree_record["launches_entry_point"] = n_tree_cli
     tree_record["launches_mist_entry_point"] = n_tree_mist
     print(json.dumps({"mist": mist_record}))
+    print(json.dumps({"isotrack": isotrack_record}))
     print(json.dumps({"eep_inversion": dict(eep_record, route="cuda (kernel F: the fast, accurate and Newton forms)",
                                             source="isochrones_torch/csrc/generate.cu",
                                             replaces="isochrones_tpu/ops/eep.py:35", dtype="float32")}))
@@ -3090,6 +3353,7 @@ def main():
         "ms_fit_batch": fit_ms, "plain_ms_fit_batch": fit_plain_ms, "bound_ms_fit_batch": fit_bound[0],
         "fit_batch": fit_batch, "launches_entry_point": n_star_cli, "launches_multi_run": n_multi,
         "launches_mist_entry_point": n_star_mist, "ms_mist_grid": mist_record["star_ms"],
+        "launches_isotrack": n_isotrack, "ms_isotrack_batch": isotrack_record["call"][1024]["star_ms"],
     }, tree_record, {
         "name": "catalog_lnlike", "route": "cuda",
         "source": "isochrones_torch/csrc/catalog_lnlike.cu",

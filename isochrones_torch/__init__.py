@@ -24,7 +24,8 @@ a fourth kernel; the forward model (the interpolators' ``generate``,
 ``generate_device``, ``generate_binary``, ``isochrone``, ``model_value``,
 ``model_mag``), population synthesis (``StarPopulation``, ``deredden``) and
 ``python -m isochrones_torch.cli.generate_cmd``, the forward model and the
-fast EEP inversion as a fifth kernel.
+fast EEP inversion as a fifth kernel; the joint isochrone + track model
+(``IsoTrackModel``), its posterior two launches of the star kernel.
 """
 
 __version__ = "0.1.0"
@@ -36,7 +37,7 @@ from .ops import GridData, GridInterpolator, interp_nd
 from .populations import (
     BinaryDistribution, StarFormationHistory, StarFormationHistoryGrid, StarPopulation, deredden,
 )
-from .starmodel import BasicStarModel, BinaryStarModel, SingleStarModel, TripleStarModel
+from .starmodel import BasicStarModel, BinaryStarModel, IsoTrackModel, SingleStarModel, TripleStarModel
 from .treemodel import StarModel, StarModelGroup
 
 __all__ = [
@@ -53,6 +54,7 @@ __all__ = [
     "SingleStarModel",
     "BinaryStarModel",
     "TripleStarModel",
+    "IsoTrackModel",
     "StarModel",
     "StarModelGroup",
     "StarPopulation",

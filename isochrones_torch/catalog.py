@@ -1,20 +1,26 @@
-"""Star catalogs (counterpart of ``isochrones_tpu/catalog.py``, the part the
-cluster model and the catalog fitter read).
+"""Star catalogs (counterpart of ``isochrones_tpu/catalog.py``).
 
 A catalog is a table of ``<band>_mag`` / ``<band>_mag_unc`` photometry plus
 named property columns with ``_unc`` partners. It accepts any mapping of
 column name to 1-d array: a ``dict`` of numpy arrays, or a DataFrame where
-pandas is installed (both offer ``keys()`` and ``[column]``).
+pandas is installed (both offer ``keys()`` and ``[column]``). Besides the
+observation stacks that the cluster model and the catalog fitter read, it
+makes one star model a row (``iter_models``, with the priors of
+``set_prior``) and writes their ``star.ini`` files (``write_ini``). ``ds``
+and ``hr`` need ``holoviews``, as in the reference.
 """
 
 from __future__ import annotations
 
 import csv
+import os
 import re
+import shutil
 
 import numpy as np
 
 from .logger import getLogger
+from .utils import band_pairs
 
 __all__ = ["StarCatalog", "read_csv"]
 
@@ -66,8 +72,20 @@ class StarCatalog:
             if f"{c}_unc" not in self.data:
                 raise ValueError(f"{c} uncertainty ({c}_unc) not in catalog!")
 
+        self._prior_settings = {}
+
     def __len__(self):
         return len(next(iter(self.data.values())))
+
+    @property
+    def df(self):
+        """The catalog's columns (a dict of name -> numpy array; the
+        reference's DataFrame, catalog.py:70-76)."""
+        return self.data
+
+    @df.setter
+    def df(self, newdf):
+        self.data = {str(c): np.asarray(newdf[c]) for c in newdf.keys()}
 
     @property
     def index(self):
@@ -103,3 +121,79 @@ class StarCatalog:
             prop_vals = np.zeros((n, 0))
             prop_uncs = np.ones((n, 0))
         return mag_vals, mag_uncs, prop_vals, prop_uncs
+
+    # ------------------------------------------------------------------ plots
+    @property
+    def ds(self):
+        """Holoviews dataset of the magnitudes and colours (reference
+        catalog.py:91-104). Needs the optional ``holoviews``, as the
+        reference does."""
+        import holoviews as hv
+
+        if getattr(self, "_ds", None) is None:
+            cols = dict(self.data)
+            for b1, b2 in band_pairs(self.bands):
+                cols[b2] = self.data[f"{b2}_mag"]
+                cols[f"{b1}-{b2}"] = self.data[f"{b1}_mag"] - self.data[f"{b2}_mag"]
+            self._ds = hv.Dataset(cols)
+        return self._ds
+
+    @property
+    def hr(self):
+        """Holoviews colour-magnitude layout (reference catalog.py:106-115)."""
+        import holoviews as hv
+
+        if getattr(self, "_hr", None) is None:
+            layout = []
+            opts = dict(invert_yaxis=True, tools=["hover"])
+            for b1, b2 in band_pairs(self.bands):
+                kdims = [f"{b1}-{b2}", f"{b1}_mag"]
+                layout.append(hv.Points(self.ds, kdims=kdims, vdims=self.ds.kdims).options(**opts))
+            self._hr = hv.Layout(layout)
+        return self._hr
+
+    # ------------------------------------------------------------------ models
+    def _set_prior(self, mod):
+        mod.set_prior(**self._prior_settings)
+        return mod
+
+    def set_prior(self, **kwargs):
+        """Priors set on every model :meth:`iter_models` makes (reference
+        catalog.py:117-124)."""
+        self._prior_settings.update(kwargs)
+
+    def iter_models(self, ic=None, N=1):
+        """One star model a row, named by its row label (reference
+        catalog.py:126-139). ``ic`` defaults to ``get_ichrone("mist")`` with
+        the catalog's bands, on the card."""
+        from .starmodel import BinaryStarModel, SingleStarModel, TripleStarModel
+
+        if ic is None:
+            from .isochrone import get_ichrone
+
+            ic = get_ichrone("mist", bands=self.bands)
+        mod_type = {1: SingleStarModel, 2: BinaryStarModel, 3: TripleStarModel}
+        names = self.index
+        for i in range(len(self)):
+            mags = {b: (self.data[f"{b}_mag"][i], self.data[f"{b}_mag_unc"][i]) for b in self.bands}
+            props = {p: (self.data[p][i], self.data[f"{p}_unc"][i]) for p in self.props}
+            yield self._set_prior(mod_type[N](ic, **mags, **props, name=names[i]))
+
+    def write_ini(self, ic=None, root=".", N=1, nest_directories=True, clobber=True):
+        """Every row's ``star.ini``, optionally in subdirectories by the
+        name's leading digits (reference catalog.py:141-158); returns the
+        directories."""
+        if ic is None:
+            from .isochrone import get_ichrone
+
+            ic = get_ichrone("mist", bands=self.bands)
+        n_pre = int(np.log10(len(self)) // 2)
+        dirs = []
+        for mod in self.iter_models(ic, N=N):
+            path = os.path.join(root, str(mod.name)[:n_pre]) if nest_directories else root
+            mod_path = os.path.abspath(os.path.join(path, str(mod.name)))
+            if os.path.exists(mod_path) and clobber:
+                shutil.rmtree(mod_path)
+            mod.write_ini(root=path)
+            dirs.append(mod_path)
+        return dirs

@@ -175,6 +175,16 @@ class SyntheticStellarGrids:
     ages: np.ndarray
     bands: Tuple[str, ...]
 
+    def astype(self, dtype):
+        """The bundle in the torch ``dtype``: the three tables and the EEP
+        support arrays with them (``lengths`` stays integer), so a float32
+        bundle never promotes the EEP inversion back to float64."""
+        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        return dataclasses.replace(
+            self, track=self.track.astype(dtype), iso=self.iso.astype(dtype), bc=self.bc.astype(dtype),
+            **{k: np.asarray(getattr(self, k), dtype=np_dtype)
+               for k in ("age_arrays", "dt_deep_arrays", "fehs", "masses", "eeps", "ages")})
+
 
 def make_synthetic_grids(
     n_feh: int = 9,

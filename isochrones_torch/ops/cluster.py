@@ -16,10 +16,25 @@ import torch
 
 __all__ = [
     "calc_lnlike_grid",
+    "integrate_over_eeps",
     "integrate_over_eeps_ln",
+    "cluster_lnlike",
     "cluster_lnmarginal_plain",
     "cluster_lnmarginal",
+    "logaddexp",
+    "logsumexp",
 ]
+
+# the reference's jitted helpers (cluster_utils.py:9-27): torch's own
+logaddexp = torch.logaddexp
+
+
+def logsumexp(a, axis=None, keepdims=False):
+    """``log(sum(exp(a)))`` over ``axis`` (all axes for None), as
+    ``jax.scipy.special.logsumexp``."""
+    a = torch.as_tensor(a)
+    dims = tuple(range(a.dim())) if axis is None else axis
+    return torch.logsumexp(a, dim=dims, keepdim=keepdims)
 
 #: cells of (walkers, stars, Neep, Neep) planes the plain version holds per
 #: chunk; it chunks walkers and stars only to bound memory
@@ -109,6 +124,26 @@ def integrate_over_eeps_ln(lnlike_grid, eeps):
     row = torch.where(kmask[None], pair, torch.zeros_like(pair)).sum(dim=-1)
     integral = (0.5 * (row[:, :-1] + row[:, 1:]) * de[None, :]).sum(dim=-1)
     return m_safe + torch.log(integral)
+
+
+def integrate_over_eeps(lnlike_grid, eeps):
+    """(Nstars,) linear-space double trapezoid over (eep2 then eep1)
+    (reference cluster_utils.py:108-128)."""
+    return torch.exp(integrate_over_eeps_ln(lnlike_grid, eeps))
+
+
+def cluster_lnlike(
+    lnlike_prop, model_mags, masses, ln_dm_deeps, eeps, mag_values, mag_uncs,
+    alpha, gamma, fB, mass_lo, mass_hi, q_lo, valid=None,
+):
+    """Total cluster ln likelihood of one walker (reference cluster.py:365-378):
+    the plane, its marginals and their sum; -inf if any star's marginal is
+    zero. The grid path of the JAX package, in plain torch on any device."""
+    grid = calc_lnlike_grid(lnlike_prop, model_mags, masses, ln_dm_deeps, mag_values, mag_uncs,
+                            alpha, gamma, fB, mass_lo, mass_hi, q_lo, valid=valid)
+    ln_marg = integrate_over_eeps_ln(grid, eeps)
+    total = torch.sum(ln_marg)
+    return torch.where(torch.any(torch.isneginf(ln_marg)) | torch.isnan(total), float("-inf"), total)
 
 
 def cluster_lnmarginal_plain(

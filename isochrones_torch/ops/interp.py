@@ -22,7 +22,25 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["GridData", "compute_axis_maps", "find_cells_1d", "corner_data", "interp_nd", "GridInterpolator"]
+__all__ = ["GridData", "compute_axis_maps", "find_cells_1d", "corner_data", "interp_nd", "interp_grid",
+           "GridInterpolator", "REFERENCE_DEVIATIONS"]
+
+#: The intended semantic deviations from the reference implementation, as
+#: the JAX package records them; parity harnesses consult it before they
+#: compare point by point.
+REFERENCE_DEVIATIONS = {
+    "top_knot_clamp": {
+        "where": "interp_nd exact top-knot queries",
+        "reference": "isochrones/interp.py:77-82 — numba kernel reads one row "
+                     "past the axis end with weight 0 (undefined behavior; in "
+                     "practice returns garbage*0 or poisons with NaN)",
+        "here": "upper corner index clamped to the last knot; an exact "
+                "top-knot query returns the exact grid value",
+        "impact": "only queries with a coordinate exactly equal to the LAST "
+                  "knot of any axis differ; interior and OOB semantics match "
+                  "bit-for-bit",
+    },
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,6 +258,11 @@ def interp_nd(
     out = (weights[..., None] * corners.to(weights.dtype)).sum(dim=1)
     out = torch.where(bad[:, None], torch.full_like(out, float("nan")), out)
     return out.reshape(batch_shape + (out.shape[-1],))
+
+
+def interp_grid(grid: GridData, points: torch.Tensor, cols=None) -> torch.Tensor:
+    """Interpolate named or indexed columns of a :class:`GridData`."""
+    return interp_nd(grid.values, grid.knots, points, icols=grid.icols(cols), axis_maps=grid.axis_maps)
 
 
 class GridInterpolator:

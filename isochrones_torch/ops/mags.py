@@ -11,7 +11,7 @@ import torch
 
 from .interp import GridData, interp_nd
 
-__all__ = ["interp_mag"]
+__all__ = ["interp_mag", "interp_mags"]
 
 
 def interp_mag(
@@ -40,3 +40,8 @@ def interp_mag(
     dist_mod = 5.0 * torch.log10(params[..., i_dist] / 10.0)
     mags = mbol[..., None] + dist_mod[..., None] - bc_vals
     return Teff, logg, feh, mags
+
+
+# the reference's serial-loop ``interp_mags`` (mags.py:64-124): here the one
+# batched function serves both
+interp_mags = interp_mag

@@ -36,9 +36,18 @@ from .ops.star import StarLikelihood, star_lnlike_fused
 from .priors import AgePrior, AVPrior, ChabrierPrior, DistancePrior, EEP_prior, FehPrior
 from .utils import addmags, npz_load, npz_save, store_prefix
 
-__all__ = ["BasicStarModel", "SingleStarModel", "BinaryStarModel", "TripleStarModel", "N_options", "index_options"]
+__all__ = ["BasicStarModel", "SingleStarModel", "BinaryStarModel", "TripleStarModel", "IsoTrackModel", "N_options",
+           "index_options"]
 
 _EEP_NAMES = ("eep", "eep_0", "eep_1", "eep_2")
+
+
+def _eep_lnprior(eep, orig_val, deriv, orig_prior, lo, hi):
+    """The EEP change-of-variables prior (``EEP_prior.lnpdf``) from the
+    interpolated original quantity and its d/dEEP derivative."""
+    ln = orig_prior.lnpdf(orig_val) + torch.log(torch.clamp(deriv, min=1e-300))
+    ln = torch.where(torch.isfinite(orig_val) & (deriv > 0), ln, float("-inf"))
+    return torch.where((eep < lo) | (eep > hi), float("-inf"), ln)
 
 
 class BasicStarModel:
@@ -258,6 +267,10 @@ class BasicStarModel:
         band_icols = tuple(self.ic.bc.column_index[b] for b in self.bands)
         return spec_vals, spec_uncs, mag_vals, mag_uncs, band_icols
 
+    def _plax(self):
+        """The observed (parallax, uncertainty) [mas] as floats, or None."""
+        return tuple(float(x) for x in self.kwargs["parallax"]) if "parallax" in self.kwargs else None
+
     def _primary_pars(self, pars):
         """(..., n_params) -> (..., 5) primary-star user-order parameters."""
         if self.N == 1:
@@ -295,7 +308,7 @@ class BasicStarModel:
         mag_uncs = torch.as_tensor(mag_uncs, dtype=self.dtype, device=self.device)
         io = tuple(ic._param_index_order)
         dist_idx = self.distance_index
-        plax = tuple(float(x) for x in self.kwargs["parallax"]) if "parallax" in self.kwargs else None
+        plax = self._plax()
         seismic = self._build_seismic_lnlike()
 
         def lnlike_batch(pars):
@@ -341,16 +354,17 @@ class BasicStarModel:
 
         return lnprior_batch
 
-    def _star_likelihood(self):
+    def _star_likelihood(self, ic=None, parallax=True):
         """What the fused likelihood needs besides the parameters: the 6-column
-        pack, the BC grid, the parameter layout and the observations."""
-        ic = self.ic
-        spec_vals, spec_uncs, mag_vals, mag_uncs, band_icols = self._static_obs()
+        pack and the BC grid of ``ic`` (the model's by default), the parameter
+        layout, the observations and, with ``parallax``, the parallax term."""
+        ic = self.ic if ic is None else ic
+        spec_vals, spec_uncs, mag_vals, mag_uncs, _ = self._static_obs()
         return StarLikelihood(
             n_stars=self.N, index_order=tuple(ic._param_index_order), pack6=ic.model_packed6, bc=ic.bc,
-            band_icols=band_icols, spec_vals=spec_vals, spec_uncs=spec_uncs, mag_vals=mag_vals,
-            mag_uncs=mag_uncs, dist_idx=self.distance_index,
-            parallax=tuple(float(x) for x in self.kwargs["parallax"]) if "parallax" in self.kwargs else None,
+            band_icols=tuple(ic.bc.column_index[b] for b in self.bands), spec_vals=spec_vals, spec_uncs=spec_uncs,
+            mag_vals=mag_vals, mag_uncs=mag_uncs, dist_idx=self.distance_index,
+            parallax=self._plax() if parallax else None,
         )
 
     def _build_lnpost_fused(self):
@@ -385,12 +399,7 @@ class BasicStarModel:
             for i, par in enumerate(param_names):
                 val = pars[..., i]
                 if par in _EEP_NAMES:
-                    ov = orig_val[..., eep_j]
-                    dv = deriv[..., eep_j]
-                    term = orig_prior.lnpdf(ov) + torch.log(torch.clamp(dv, min=1e-300))
-                    term = torch.where(torch.isfinite(ov) & (dv > 0), term, float("-inf"))
-                    term = torch.where((val < eep_lo) | (val > eep_hi), float("-inf"), term)
-                    lnp = lnp + term
+                    lnp = lnp + _eep_lnprior(val, orig_val[..., eep_j], deriv[..., eep_j], orig_prior, eep_lo, eep_hi)
                     eep_j += 1
                 else:
                     lnp = lnp + priors[par].lnpdf(val)
@@ -491,6 +500,61 @@ class BasicStarModel:
     def emcee_p0(self, nwalkers, rng=None):
         """reference starmodel.py:838-884"""
         return self.sample_from_prior(nwalkers, values=True, require_valid=True, rng=rng)
+
+    def maxlike(self, p0, **kwargs):
+        """MAP point by scipy's Nelder-Mead on -lnpost (reference
+        starmodel.py:821-833)."""
+        from scipy.optimize import minimize
+
+        res = minimize(lambda p: -self.lnpost(p), np.asarray(p0, dtype=float), method="Nelder-Mead", **kwargs)
+        return res.x
+
+    # ------------------------------------------------ reference-compat API
+    def mnest_prior(self, cube, ndim=None, nparams=None):
+        """In-place single-point unit-cube transform (reference
+        starmodel.py:1637-1640)."""
+        los, his = self._bounds_arrays()
+        for i in range(len(self.param_names)):
+            cube[i] = (his[i] - los[i]) * cube[i] + los[i]
+        return cube
+
+    def mnest_loglike(self, cube, ndim=None, nparams=None):
+        return self.lnpost(np.asarray(cube[: self.n_params]))
+
+    def prior_transform(self, cube):
+        """Single-point unit-cube transform as numpy (reference
+        starmodel.py:615-628; the batched form is :meth:`prior_transform_batch`)."""
+        return self.prior_transform_batch(self._as_params(np.atleast_1d(np.asarray(cube, dtype=float)))).cpu().numpy()
+
+    def prior(self, prop, val, **kwargs):
+        """The prior pdf of ``prop`` at ``val`` (reference starmodel.py:634)."""
+        return self._priors[prop](val, **kwargs)
+
+    def lnpost_polychord(self, theta):
+        """PolyChord's convention: ``(lnpost, derived parameters)``
+        (reference starmodel.py:703-706; no derived parameters)."""
+        return float(self.lnpost(theta)), []
+
+    @property
+    def mnest_analyzer(self):
+        """The nested fit's :class:`~isochrones_torch.samplers.nested.NestedResult`
+        (the reference returns a ``pymultinest.Analyzer``, starmodel.py:805-811)."""
+        if self._nested_result is None:
+            raise ValueError("Must run fit_multinest first.")
+        return self._nested_result
+
+    @property
+    def sampler(self):
+        """The last ensemble state of ``fit_mcmc`` (reference starmodel.py:974-981)."""
+        state = getattr(self, "sampler_state", None)
+        if state is None:
+            raise AttributeError("MCMC must be run to access sampler")
+        return state
+
+    def fit_mcmc_old(self, **kwargs):
+        """Deprecated alias of :meth:`fit_mcmc` (reference starmodel.py:889-973)."""
+        getLogger().warning("fit_mcmc_old is deprecated; use fit_mcmc.")
+        return self.fit_mcmc(**kwargs)
 
     # ------------------------------------------------------------------ fitting
     def _config_data_repr(self):
@@ -764,9 +828,10 @@ class BasicStarModel:
     @classmethod
     def load_hdf(cls, filename, path="", name=None, ic=None, device="cuda", dtype=None):
         """Restore a saved model (reference starmodel.py:1903-1959) from the
-        ``.npz`` container. ``ic`` may be passed; otherwise the synthetic
-        grids are rebuilt with the stored bands on ``device`` (the card
-        unless the caller names another) in ``dtype``."""
+        ``.npz`` container. ``ic`` may be passed; otherwise the stored kind
+        of interpolator (isochrones or evolution tracks) is rebuilt with the
+        stored bands, from the MIST grids or else the synthetic ones, on
+        ``device`` (the card unless the caller names another) in ``dtype``."""
         if not os.path.exists(filename):
             raise IOError(f"{filename} does not exist.")
         prefix = store_prefix(path)
@@ -795,18 +860,19 @@ class BasicStarModel:
 
 
 def _stored_ichrone(attrs, device, dtype):
-    """The interpolator of a stored model, with the stored bands: the MIST
-    grids, or the synthetic ones where the MIST grids cannot be built, as
-    the reference does (starmodel.py:1189-1196)."""
+    """The interpolator of a stored model, with the stored bands and of the
+    stored kind (isochrones or evolution tracks): the MIST grids, or the
+    synthetic ones where the MIST grids cannot be built, as the reference
+    does (starmodel.py:1189-1196)."""
     from .isochrone import get_ichrone
 
-    if attrs.get("ic_type") == "EvolutionTrackInterpolator":
-        raise NotImplementedError("evolution-track grids are not ported (ROADMAP queue 1)")
-    kw = {} if dtype is None else {"dtype": dtype}
+    kw = dict(bands=attrs["ic_bands"], tracks=attrs.get("ic_type") == "EvolutionTrackInterpolator", device=device)
+    if dtype is not None:
+        kw["dtype"] = dtype
     try:
-        return get_ichrone("mist", bands=attrs["ic_bands"], device=device, **kw)
+        return get_ichrone("mist", **kw)
     except Exception:
-        return get_ichrone("synthetic", bands=attrs["ic_bands"], device=device, **kw)
+        return get_ichrone("synthetic", **kw)
 
 
 class SingleStarModel(BasicStarModel):
@@ -825,6 +891,143 @@ class TripleStarModel(BasicStarModel):
     def __init__(self, *args, **kwargs):
         kwargs["N"] = 3
         super().__init__(*args, **kwargs)
+
+
+def _columns(pars, idx):
+    """(..., 6) -> (..., 5): the columns ``idx`` of ``pars``, in that order."""
+    return torch.stack([pars[..., i] for i in idx], dim=-1)
+
+
+class IsoTrackModel(BasicStarModel):
+    """Joint isochrone + track model over (eep, mass, age, feh, distance, AV)
+    (reference starmodel.py:2010-2104): the star likelihood on both grids,
+    the isochrones at (eep, age, feh) and the tracks at (mass, eep, feh),
+    with the parallax term once and the EEP prior taken on the track grid.
+
+    ``lnpost_batch`` is fused: two calls of
+    :func:`~isochrones_torch.ops.star.star_lnlike_fused` (two launches of
+    the star kernel on the card), the second of which also returns the age
+    and d age / d EEP that the EEP prior needs. ``lnlike_batch`` and
+    ``lnprior_batch`` are the composed forms, as in the reference.
+    ``derived_samples`` calls the track interpolator with all six columns
+    and raises ``TypeError``, as the reference does.
+    """
+
+    _iso_track_param_names = ("eep", "mass", "age", "feh", "distance", "AV")
+    #: the columns of the parameters that each grid's likelihood takes
+    _ISO_COLUMNS = (0, 2, 3, 4, 5)  # (eep, age, feh, distance, AV)
+    _TRACK_COLUMNS = (1, 0, 3, 4, 5)  # (mass, eep, feh, distance, AV)
+
+    def __init__(self, iso, track, **kwargs):
+        # set before the base class runs: it reads ``ic`` (the track)
+        self._iso_ic = iso
+        self._track_ic = track
+        super().__init__(iso, **kwargs)
+        self.set_prior(eep=EEP_prior(self.track, self._priors["age"], bounds=self.eep_bounds))
+
+    @property
+    def ic(self):
+        return self._track_ic
+
+    @property
+    def iso(self):
+        return self._iso_ic
+
+    @property
+    def track(self):
+        return self._track_ic
+
+    @property
+    def param_names(self):
+        return self._iso_track_param_names
+
+    def _build_lnlike_batch(self):
+        iso, track = self.iso, self.track
+        spec_vals, spec_uncs, mag_vals, mag_uncs, _ = self._static_obs()
+        mag_vals = torch.as_tensor(mag_vals, dtype=self.dtype, device=self.device)
+        mag_uncs = torch.as_tensor(mag_uncs, dtype=self.dtype, device=self.device)
+        grids = [(ic, cols, tuple(ic._param_index_order), tuple(ic.bc.column_index[b] for b in self.bands))
+                 for ic, cols in ((iso, self._ISO_COLUMNS), (track, self._TRACK_COLUMNS))]
+        plax = self._plax()
+
+        def lnlike_batch(pars):
+            ll = 0.0
+            for ic, cols, io, band_icols in grids:
+                ll = ll + star_lnlike(_columns(pars, cols), io, spec_vals, spec_uncs, mag_vals, mag_uncs,
+                                      ic.model_packed, ic._packed_icols, ic.bc, band_icols, n_stars=1)
+            if plax is not None:
+                ll = ll + gauss_lnprob(plax[0], plax[1], 1000.0 / pars[..., 4])
+            return ll
+
+        return lnlike_batch
+
+    def _build_lnprior_batch(self):
+        priors = self._priors
+        param_names = self.param_names
+
+        def lnprior_batch(pars):
+            lnp = torch.zeros(pars.shape[:-1], dtype=pars.dtype, device=pars.device)
+            for i, par in enumerate(param_names):
+                if par == "eep":
+                    lnp = lnp + priors["eep"].lnpdf(pars[..., i], mass=pars[..., 1], feh=pars[..., 3])
+                else:
+                    lnp = lnp + priors[par].lnpdf(pars[..., i])
+            return lnp
+
+        return lnprior_batch
+
+    def _build_lnpost_fused(self):
+        """Both grids' fused likelihoods and the priors around them; None
+        (the composed path) for an overridden _build_* method, a grid without its
+        6-column pack, or an EEP prior that is not the track's."""
+        if type(self)._build_lnlike_batch is not IsoTrackModel._build_lnlike_batch:
+            return None
+        if type(self)._build_lnprior_batch is not IsoTrackModel._build_lnprior_batch:
+            return None
+        if self.iso.model_packed6 is None or self.track.model_packed6 is None:
+            return None
+        eep_prior = self._priors.get("eep")
+        if not isinstance(eep_prior, EEP_prior) or eep_prior.ic is not self.track:
+            return None
+
+        # the iso launch without the parallax, the track launch with it; each
+        # takes its grid's five columns, distance the fourth (distance_index)
+        lk_iso = self._star_likelihood(self.iso, parallax=False)
+        lk_track = self._star_likelihood(self.track)
+        priors = self._priors
+        param_names = self.param_names
+        eep_lo, eep_hi = eep_prior.bounds
+        orig_prior = eep_prior.orig_prior
+
+        def lnpost(pars):
+            ll_iso, _, _ = star_lnlike_fused(_columns(pars, self._ISO_COLUMNS), lk_iso)
+            ll_track, age, dage = star_lnlike_fused(_columns(pars, self._TRACK_COLUMNS), lk_track)
+            ll = ll_iso + ll_track
+            lnp = torch.zeros_like(ll)
+            for i, par in enumerate(param_names):
+                val = pars[..., i]
+                if par == "eep":  # EEP_prior(track, age prior).lnpdf at (mass, eep, feh)
+                    lnp = lnp + _eep_lnprior(val, age[..., 0], dage[..., 0], orig_prior, eep_lo, eep_hi)
+                else:
+                    lnp = lnp + priors[par].lnpdf(val)
+            ll = torch.where(torch.isnan(ll), float("-inf"), ll)
+            return torch.where(torch.isfinite(lnp), lnp + ll, float("-inf"))
+
+        return lnpost
+
+    def bounds(self, prop):
+        if prop == "eep":
+            return self._bounds["eep"]
+        if self._bounds[prop] is not None:
+            return self._bounds[prop]
+        if prop in ("mass", "feh", "age"):
+            # mass is a track-grid axis; the age and [Fe/H] box comes from the
+            # isochrone grid (on the track grid age is a data column)
+            lo, hi = (self.track if prop == "mass" else self.iso).get_limits(prop)
+            self._bounds[prop] = (lo, hi)
+            self._priors[prop].bounds = (lo, hi)
+            return self._bounds[prop]
+        raise ValueError(f"Unknown property {prop}")
 
 
 def N_options(N_stars, max_multiples=1, max_stars=2):

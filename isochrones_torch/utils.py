@@ -1,5 +1,6 @@
 """Math / small utilities (counterpart of ``isochrones_tpu/utils.py``).
-Host code on numpy.
+Host code on numpy, but ``trapz`` and ``polyval``, which take and return
+torch tensors on any device.
 
 Also the results container of the port. The JAX package's ``save_hdf`` /
 ``load_hdf`` write HDF5 through ``h5py``; the port writes the same content
@@ -14,11 +15,29 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 # Physical constants in cgs (values of astropy.constants at reference epoch).
 G_CGS = 6.6743e-08
 MSUN_CGS = 1.98840987069805e33
 RSUN_CGS = 6.957e10
+
+
+def trapz(y, x):
+    """Trapezoid rule over the last axis (reference: isochrones/utils.py:96-105)."""
+    y, x = torch.as_tensor(y), torch.as_tensor(x)
+    dx = x[..., 1:] - x[..., :-1]
+    return torch.sum(0.5 * (y[..., 1:] + y[..., :-1]) * dx, dim=-1)
+
+
+def polyval(p, x):
+    """Horner polynomial evaluation, highest degree first (reference:
+    isochrones/utils.py:108-114)."""
+    p, x = torch.as_tensor(p), torch.as_tensor(x)
+    result = torch.zeros_like(x * p[0])
+    for coeff in p:
+        result = result * x + coeff
+    return result
 
 
 def band_pairs(bands):

@@ -18,54 +18,31 @@ import pytest
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-HOST_API = "queue 1 item 3: the rest of the host API"
-ENGINES = "queue 1 item 6: the other engines"
-ISOTRACK = "queue 1 item 4: IsoTrackModel"
-SUMMARY = "queue 1 item 5: summary, plotting and results"
-QUERY = "queue 1 item 8: the query layer"
+SUMMARY = "queue 1 item 3: summary, plotting and results"
+ENGINES = "queue 1 item 4: the other engines"
+QUERY = "queue 1 item 6: the query layer"
 NOT_TO_PORT = "not to port"
 
-_STAR_HOST = ("maxlike", "prior", "prior_transform", "mnest_prior", "mnest_loglike", "mnest_analyzer", "sampler",
-              "fit_mcmc_old", "lnpost_polychord")
 _STAR_PLOTS = ("corner", "corner_params", "corner_derived", "corner_physical", "corner_plots", "corner_observed",
                "triangle", "triangle_physical", "triangle_plots", "mag_plot", "write_results")
 _GRID_TPU = ("GridData.paired", "GridData.tree_flatten", "GridData.tree_unflatten")
-_RESULTS = ("samples", "logl", "logwt", "logz", "logzerr", "h", "n_iter", "posterior", "logl_posterior", "ess",
-            "truncated", "logz_runs", "dynamic_rounds")
 
 _GROUPS = {
     "isochrones_tpu": {
-        HOST_API: tuple(f"BasicStarModel.{a}" for a in _STAR_HOST),
         ENGINES: ("BasicStarModel.fit_nuts", "BasicStarModel.fit_polychord"),
         SUMMARY: tuple(f"BasicStarModel.{a}" for a in _STAR_PLOTS),
         NOT_TO_PORT: _GRID_TPU,
     },
-    "isochrones_tpu.catalog": {
-        HOST_API: ("StarCatalog.df", "StarCatalog.ds", "StarCatalog.hr", "StarCatalog.set_prior",
-                   "StarCatalog.iter_models", "StarCatalog.write_ini"),
-        SUMMARY: ("StarCatalog.hr_plot",),
-    },
+    "isochrones_tpu.catalog": {SUMMARY: ("StarCatalog.hr_plot",)},
     "isochrones_tpu.config": {NOT_TO_PORT: ("enable_compile_cache",)},
-    "isochrones_tpu.grids": {HOST_API: ("SyntheticStellarGrids.astype",)},
     # the g++-built host parser: the port parses with numpy's loadtxt, bitwise the same tables
     "isochrones_tpu.grids.parse": {NOT_TO_PORT: ("get_fastparse_lib",)},
-    "isochrones_tpu.grids.synthetic": {HOST_API: ("SyntheticStellarGrids.astype",)},
-    "isochrones_tpu.ops": {
-        HOST_API: ("interp_grid", "interp_mags", "LOG_ONE_OVER_ROOT_2PI", "integrate_over_eeps", "cluster_lnlike"),
-        NOT_TO_PORT: _GRID_TPU,
-    },
-    "isochrones_tpu.ops.cluster": {HOST_API: ("integrate_over_eeps", "cluster_lnlike", "logaddexp", "logsumexp")},
-    "isochrones_tpu.ops.interp": {
-        HOST_API: ("REFERENCE_DEVIATIONS",),
-        NOT_TO_PORT: _GRID_TPU + ("pair_innermost_columns",),
-    },
-    "isochrones_tpu.ops.mags": {HOST_API: ("interp_mags",)},
+    "isochrones_tpu.ops": {NOT_TO_PORT: _GRID_TPU},
+    "isochrones_tpu.ops.interp": {NOT_TO_PORT: _GRID_TPU + ("pair_innermost_columns",)},
     "isochrones_tpu.priors": {NOT_TO_PORT: ("Prior.lnpdf_jax", "BoundedPrior.lnpdf_jax", "BrokenPrior.lnpdf_jax",
                                             "PowerLawPrior.sample_jax", "FehPrior.lnpdf_jax",
                                             "EEP_prior.lnpdf_jax")},
     "isochrones_tpu.samplers": {
-        HOST_API: ("run_ensemble_batch", "CheckpointConfigError", "NestedResult", "run_nested")
-        + tuple(f"NestedResult.{a}" for a in _RESULTS),
         ENGINES: ("NutsResult", "run_nuts", "run_polychord") + tuple(f"NutsResult.{a}" for a in (
             "samples", "lnp", "step_size", "inv_mass", "accept_rate", "n_divergent")),
         NOT_TO_PORT: ("EnsembleState.key",),
@@ -73,15 +50,11 @@ _GROUPS = {
     "isochrones_tpu.samplers.ensemble": {NOT_TO_PORT: ("EnsembleState.key",)},
     "isochrones_tpu.starfit": {QUERY: ("get_gaia_data",)},
     "isochrones_tpu.starmodel": {
-        HOST_API: tuple(f"BasicStarModel.{a}" for a in _STAR_HOST),
         ENGINES: ("BasicStarModel.fit_nuts", "BasicStarModel.fit_polychord"),
-        ISOTRACK: ("IsoTrackModel",) + tuple(f"IsoTrackModel.{a}" for a in ("ic", "iso", "track", "param_names",
-                                                                           "bounds")),
         SUMMARY: tuple(f"BasicStarModel.{a}" for a in _STAR_PLOTS),
     },
     "isochrones_tpu.summary": {SUMMARY: ("get_quantiles", "quantile_worker", "get_summary_df", "write_results_txt")},
-    "isochrones_tpu.utils": {HOST_API: ("trapz", "polyval"), NOT_TO_PORT: ("addmags_jnp",),
-                             QUERY: ("download_file",)},
+    "isochrones_tpu.utils": {NOT_TO_PORT: ("addmags_jnp",), QUERY: ("download_file",)},
 }
 
 #: "<JAX module>:<name>" -> where it is ported, or "not to port"
@@ -145,4 +118,4 @@ def test_parked_modules_exist():
     mods = {k.split(":")[0] for k in PARKED}
     have = {"isochrones_tpu" + m[len("isochrones_torch"):] for m in _port_modules()}
     assert mods <= have, sorted(mods - have)
-    assert set(PARKED.values()) <= {HOST_API, ENGINES, ISOTRACK, SUMMARY, QUERY, NOT_TO_PORT}
+    assert set(PARKED.values()) <= {ENGINES, SUMMARY, QUERY, NOT_TO_PORT}

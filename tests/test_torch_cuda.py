@@ -34,6 +34,10 @@ at the kernel's own EEPs to rtol 2e-5 of their scale (``check_generate``);
 every axis-map kind, 1, 3 and 16 bands (the compact table's widths), no
 columns and every column, batches that leave a partial warp; the caps raise
 by name; the interpolators' ``generate`` and fast ``get_eep`` launch it.
+The joint isochrone + track model: the star kernel on a track grid (its
+index order, mass axis and parallax) at the star kernel's tolerances, and
+``IsoTrackModel.lnpost_batch`` (two launches) against the CPU at rtol
+1e-10; a track-grid results file reloads onto the track grid on the card.
 """
 
 import dataclasses
@@ -48,8 +52,9 @@ from chip_smoke import (
     check_generate, check_newton, generate_points, plain_accurate, plain_newton, wrapper_launches,
     CAT_BANDS, CLI_EEP_BOX, catalog_likelihood_as, catalog_points, catalog_priors_as, catalog_table,
     ATOL_F32, ATOL_STAR_F32, FIXTURE, RTOL_F32, RTOL_F64, RTOL_STAR_F32, RTOL_STAR_F64, _tree_check, as_float32,
-    _tree_mixed_points, check_close, check_eep, check_star, eep_points, grid_as, make_kernel_inputs, profile_kernels,
-    star_grid_variant, star_observations, star_points, to_torch,
+    _tree_mixed_points, check_close, check_eep, check_star, eep_points, grid_as, isotrack_observations,
+    isotrack_points, make_kernel_inputs, plain_star_f64, profile_kernels, star_grid_variant, star_observations,
+    star_points, to_torch,
 )
 from isochrones_torch import BinaryStarModel, StarClusterModel, TripleStarModel, get_ichrone
 from isochrones_torch.batch import BatchStarFitter
@@ -1155,3 +1160,103 @@ def test_mist_entry_points_on_card(dev, mist_root):
     want = cpu.generate(m, a_, f, distance=d, AV=av)
     for c in want.columns:
         np.testing.assert_allclose(out[0][c], want[c], rtol=1e-9, atol=1e-9, equal_nan=True, err_msg=c)
+
+
+# --------------------------------------------- the joint isochrone + track model
+
+
+def _isotrack(dev, grid, request, dtype=torch.float64):
+    """``IsoTrackModel`` on the small synthetic pair or the small MIST-read
+    pair, a star with Teff, logg, [Fe/H], 4 bands and a parallax."""
+    from isochrones_torch import IsoTrackModel
+
+    if grid == "mist":
+        request.getfixturevalue("mist_root")
+        iso, track = _mist(dev, dtype), get_ichrone("mist", bands=_MIST_BANDS, tracks=True, device=dev, dtype=dtype)
+        truth = (100.0, 9.0, 0.0, 200.0, 0.1)
+    else:
+        iso = get_ichrone("synthetic", device=dev, dtype=dtype, **_SMALL)
+        track = get_ichrone("synthetic", tracks=True, device=dev, dtype=dtype, **_SMALL)
+        truth = (60.0, 9.0, 0.0, 200.0, 0.1)
+    return IsoTrackModel(iso, track, **isotrack_observations(iso, truth))
+
+
+@pytest.mark.parametrize("B", [1, 31, 1024, 4097])
+@pytest.mark.parametrize("grid", ["synthetic", "mist"])
+def test_star_kernel_on_track_grid(dev, grid, B, request):
+    """The star kernel with the track's index order (2, 0, 1, 3, 4), its mass
+    axis and the parallax, at (mass, eep, feh, distance, AV) gathered from
+    ``isotrack_points`` (exact, top and bottom knots of both grids, past
+    either grid, NaN): float64 and float32 against the plain version."""
+    model = _isotrack(dev, grid, request)
+    lk = model._star_likelihood(model.track, True)
+    assert lk.index_order == (2, 0, 1, 3, 4) and lk.parallax is not None
+    pts = isotrack_points(model, B, seed=B)[:, list(model._TRACK_COLUMNS)]
+    _check_star_both(lk, pts, f"track {grid} B={B}")
+
+
+@pytest.mark.parametrize("grid", ["synthetic", "mist"])
+def test_isotrack_lnpost_on_card(dev, grid, request):
+    """``IsoTrackModel.lnpost_batch`` on the card (two launches a call, the
+    composed likelihood never called) against the CPU's, float64, rtol
+    1e-10; float32 against the same posterior with the plain likelihood in
+    float64 on the float32 tables."""
+    import isochrones_torch.starmodel as star_mod
+    from isochrones_torch import IsoTrackModel
+
+    gpu = _isotrack(dev, grid, request)
+    cpu = _isotrack("cpu", grid, request)
+    pts = isotrack_points(cpu, 2048, seed=5)
+    ref = cpu.lnpost_batch(pts).numpy()
+    real = star_mod.star_lnlike
+
+    def no_composed(*a, **k):
+        raise AssertionError("the composed likelihood was called")
+
+    star_mod.star_lnlike = no_composed
+    try:
+        before = star_lnlike_cuda.launches
+        got = gpu.lnpost_batch(pts).cpu().numpy()
+        assert star_lnlike_cuda.launches == before + 2
+    finally:
+        star_mod.star_lnlike = real
+    check_star(f"isotrack {grid} f64", [got], [ref], RTOL_STAR_F64)
+    assert np.isfinite(ref).sum() > 200 and np.isneginf(ref).sum() > 100
+
+    m32 = _isotrack(dev, grid, request, torch.float32)
+    lks = (m32._star_likelihood(m32.iso, False), m32._star_likelihood(m32.track, True))
+    plain = IsoTrackModel(m32.iso, m32.track, **m32.kwargs)
+    plain._star_likelihood = lambda ic=None, parallax=True: lks[bool(parallax)]
+    x = torch.as_tensor(pts, device=dev, dtype=torch.float32)
+    fused = star_mod.star_lnlike_fused
+    star_mod.star_lnlike_fused = plain_star_f64(lks, torch.float32)
+    try:
+        ref32 = plain.lnpost_batch(x).cpu().numpy()
+    finally:
+        star_mod.star_lnlike_fused = fused
+    check_star(f"isotrack {grid} f32", [m32.lnpost_batch(x).cpu().numpy()], [ref32], RTOL_STAR_F32, ATOL_STAR_F32)
+
+
+def test_track_grid_results_file_on_card(dev, mist_root, tmp_path):
+    """A ``SingleStarModel`` on the MIST-read track grid: saved with samples,
+    reloaded with no interpolator given onto the MIST track grid on the card
+    (the repair of ``load_hdf``), with equal samples and posterior."""
+    from isochrones_torch import SingleStarModel
+
+    track = get_ichrone("mist", bands=_MIST_BANDS, tracks=True, device=dev)
+    obs = isotrack_observations(_mist(dev), (100.0, 9.0, 0.0, 200.0, 0.1))
+    m = SingleStarModel(track, name="track", **obs)
+    rng = np.random.default_rng(0)
+    draws = {"mass": rng.uniform(0.9, 1.1, 50), "eep": rng.uniform(80, 120, 50), "feh": rng.uniform(-0.2, 0.2, 50),
+             "distance": rng.uniform(190, 210, 50), "AV": rng.uniform(0, 0.2, 50), "lnprob": rng.normal(size=50)}
+    m._samples = draws
+    path = str(tmp_path / "track.npz")
+    m.save_hdf(path)
+    back = SingleStarModel.load_hdf(path, device=dev)
+    assert type(back.ic).__name__ == "EvolutionTrackInterpolator" and back.ic.grid_type is not None
+    assert back.device.type == "cuda" and back.ic.model.values.shape == track.model.values.shape
+    for c in draws:
+        np.testing.assert_array_equal(back.samples[c], draws[c])
+    p = np.stack([draws[c] for c in back.param_names], axis=-1)
+    check_star("reloaded track model", [back.lnpost_batch(p).cpu().numpy()], [m.lnpost_batch(p).cpu().numpy()],
+               RTOL_STAR_F64)

@@ -62,6 +62,14 @@ _EXPECTED = (
     "isochrones_torch.mist.models",
     "isochrones_torch.mist.utils",
     "isochrones_torch.cli.initialize",
+    "isochrones_torch.version",
+    "isochrones_torch.bc",
+    "isochrones_torch.grid",
+    "isochrones_torch.eep",
+    "isochrones_torch.likelihood",
+    "isochrones_torch.mags",
+    "isochrones_torch.cluster_utils",
+    "isochrones_torch.interp",
 )
 
 
