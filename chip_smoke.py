@@ -2878,13 +2878,40 @@ def plain_star_f64(lks, dtype):
 
     from isochrones_torch.ops.star import star_lnlike_fused_plain
 
-    up = {id(lk): dataclasses.replace(lk, pack6=grid_as(lk.pack6, torch.float64), bc=grid_as(lk.bc, torch.float64))
-          for lk in lks}
+    def upcast(lk):
+        return dataclasses.replace(lk, pack6=grid_as(lk.pack6, torch.float64), bc=grid_as(lk.bc, torch.float64))
+
+    up = {id(lk): (lk, upcast(lk)) for lk in lks}
 
     def fused(pars, lk):
-        return tuple(x.to(dtype) for x in star_lnlike_fused_plain(pars.double(), up[id(lk)]))
+        if id(lk) not in up:  # a likelihood built after the stand-in: kept alive beside its copy
+            up[id(lk)] = (lk, upcast(lk))
+        return tuple(x.to(dtype) for x in star_lnlike_fused_plain(pars.double(), up[id(lk)][1]))
 
     return fused
+
+
+def isotrack_reference(model, x):
+    """The reference of ``IsoTrackModel.lnpost_batch`` at the tensor ``x``:
+    in float64 the composed posterior (``lnlike_batch`` and
+    ``lnprior_batch``, both plain torch, merged as the JAX model merges
+    them); in float32 the model's fused posterior with both likelihoods the
+    plain version in float64 on the float32 tables (``plain_star_f64``), so
+    that only the kernel differs."""
+    import torch
+
+    import isochrones_torch.starmodel as star_mod
+
+    if x.dtype == torch.float64:
+        lnp, ll = model.lnprior_batch(x), model.lnlike_batch(x)
+        ll = torch.where(torch.isnan(ll), float("-inf"), ll)
+        return torch.where(torch.isfinite(lnp), lnp + ll, float("-inf"))
+    fused = star_mod.star_lnlike_fused
+    star_mod.star_lnlike_fused = plain_star_f64([], x.dtype)
+    try:
+        return model._build_lnpost_fused()(x)
+    finally:
+        star_mod.star_lnlike_fused = fused
 
 
 def phase_isotrack(dev, workdir):
@@ -2916,7 +2943,7 @@ def phase_isotrack(dev, workdir):
               f"; observations {json.dumps({k: [round(float(v), 5), float(u)] for k, (v, u) in obs.items()})}")
 
         # ---- the star kernel on the track grid against its plain version
-        lk64, lk32 = m64._star_likelihood(track64, True), m32._star_likelihood(track32, True)
+        lk64, lk32 = m64._star_likelihoods()[1], m32._star_likelihoods()[1]
         pts = isotrack_points(m64, STAR_BATCH, seed=24)
         track_cols = list(m64._TRACK_COLUMNS)
         t64 = torch.as_tensor(pts[:, track_cols], device=dev, dtype=torch.float64)
@@ -2932,19 +2959,14 @@ def phase_isotrack(dev, workdir):
               f"max_abs_err {e_t64:.3e} (rtol {RTOL_STAR_F64}), f32 vs f64 {e_t32:.3e} (rtol {RTOL_STAR_F32} atol "
               f"{ATOL_STAR_F32}); {n_fin} ll finite")
 
-        # ---- lnpost_batch: two launches against the composed plain path
-        class Composed(IsoTrackModel):
+        # ---- lnpost_batch: two launches against the composed plain path; a
+        # prior of a subclass's own keeps the two launches and adds that prior
+        class OwnPrior(IsoTrackModel):
             def _build_lnprior_batch(self):
                 return super()._build_lnprior_batch()
 
-        c64 = Composed(iso64, track64, **obs)
-        fused_dispatch, composed_lnlike = star_mod.star_lnlike_fused, star_mod.star_lnlike
-        # the float32 oracle: the same fused posterior, its two likelihoods the
-        # plain version in float64 on the float32 tables
-        lk_i32, lk_t32 = m32._star_likelihood(iso32, False), m32._star_likelihood(track32, True)
-        plain32 = plain_star_f64([lk_i32, lk_t32], torch.float32)
-        m_plain = IsoTrackModel(iso32, track32, **obs)
-        m_plain._star_likelihood = lambda ic=None, parallax=True: lk_t32 if parallax else lk_i32
+        own64 = OwnPrior(iso64, track64, **obs)
+        composed_lnlike = star_mod.star_lnlike
 
         def no_composed(*a, **k):
             raise AssertionError("the fused posterior called the composed likelihood")
@@ -2954,30 +2976,28 @@ def phase_isotrack(dev, workdir):
             p = isotrack_points(m64, B, seed=B)
             p64 = torch.as_tensor(p, device=dev, dtype=torch.float64)
             p32 = p64.float()
-            ref64 = c64.lnpost_batch(p64).cpu().numpy()
+            ref64 = isotrack_reference(m64, p64).cpu().numpy()
+            ref32 = isotrack_reference(m32, p32).cpu().numpy()
             star_mod.star_lnlike = no_composed
             try:
                 got = {}
-                for m, x in ((m64, p64), (m32, p32)):
+                for label, m, x in (("f64", m64, p64), ("f32", m32, p32), ("f64 own prior", own64, p64)):
                     before = star_lnlike_cuda.launches
-                    got[x.dtype] = m.lnpost_batch(x).cpu().numpy()
-                    calls[(B, str(x.dtype))] = star_lnlike_cuda.launches - before
+                    got[label] = m.lnpost_batch(x).cpu().numpy()
+                    calls[(B, label)] = star_lnlike_cuda.launches - before
             finally:
                 star_mod.star_lnlike = composed_lnlike
-            star_mod.star_lnlike_fused = plain32
-            try:
-                ref32 = m_plain.lnpost_batch(p32).cpu().numpy()
-            finally:
-                star_mod.star_lnlike_fused = fused_dispatch
-            e64 = check_star(f"isotrack lnpost_batch f64 B={B}", [got[torch.float64]], [ref64], RTOL_ISOTRACK_F64)
-            e32 = check_star(f"isotrack lnpost_batch f32 B={B}", [got[torch.float32]], [ref32], RTOL_STAR_F32,
+            e64 = check_star(f"isotrack lnpost_batch f64 B={B}", [got["f64"]], [ref64], RTOL_ISOTRACK_F64)
+            e32 = check_star(f"isotrack lnpost_batch f32 B={B}", [got["f32"]], [ref32], RTOL_STAR_F32,
                              ATOL_STAR_F32)
+            check_star(f"isotrack lnpost_batch f64, a subclass's prior, B={B}", [got["f64 own prior"]], [ref64],
+                       RTOL_ISOTRACK_F64)
             errs[B] = (e64, e32, int(np.isfinite(ref64).sum()), int(np.isnan(p).any(axis=1).sum()))
         if any(n != 2 for n in calls.values()):
             raise AssertionError(f"IsoTrackModel.lnpost_batch is not two star-kernel launches: {calls}")
-        print(f"[isotrack] lnpost_batch vs the composed plain path (f64, rtol {RTOL_ISOTRACK_F64}) and vs the plain "
-              f"likelihood on the same float32 values (f32, rtol {RTOL_STAR_F32} atol {ATOL_STAR_F32}): "
-              f"(f64 max_abs_err, f32 max_abs_err, finite, NaN rows) "
+        print(f"[isotrack] lnpost_batch vs the composed plain path (f64, rtol {RTOL_ISOTRACK_F64}; also with a "
+              f"subclass's own prior) and vs the plain likelihood on the same float32 values (f32, rtol "
+              f"{RTOL_STAR_F32} atol {ATOL_STAR_F32}): (f64 max_abs_err, f32 max_abs_err, finite, NaN rows) "
               f"{json.dumps({b: [float(f'{e:.3e}') for e in v[:2]] + list(v[2:]) for b, v in errs.items()})}; "
               f"star-kernel launches a call {json.dumps({f'{b} {d}': n for (b, d), n in calls.items()})}")
 
@@ -2992,6 +3012,29 @@ def phase_isotrack(dev, workdir):
             print(f"[isotrack] time f32 lnpost_batch B={B}: {wall:.3f} ms per call, device busy {_fmt(busy, '.4f')} "
                   f"ms, idle share {_fmt(idle, '.3f')}, {_fmt(launches, '.1f')} device kernels under the profiler; "
                   f"the two star-kernel launches {ms[B]:.4f} ms of device time")
+
+        # ---- each launch alone, float32, at 131072 points: on lnpost_batch's
+        # points (the timed call's) and on bench-box stars (phase 6's box for
+        # one component; on the tracks the same stars, their mass from the
+        # isochrones), each beside its bound
+        lk_i32, lk_t32 = m32._star_likelihoods()
+        x_lnpost = torch.as_tensor(isotrack_points(m64, STAR_BATCH, seed=STAR_BATCH + 1), device=dev,
+                                   dtype=torch.float32)
+        box = star_points(iso64.model.knots, 1, STAR_BATCH, seed=2424, box=STAR_BOX[1:])
+        mass = iso64.interp_value([box[:, 0], box[:, 1], box[:, 2]], ["initial_mass"])[:, 0]
+        x_box = torch.as_tensor(np.stack([box[:, 0], mass, box[:, 1], box[:, 2], box[:, 3], box[:, 4]], axis=-1),
+                                device=dev, dtype=torch.float32)
+        launch = {}
+        for pts_name, x in (("lnpost points", x_lnpost), ("bench box", x_box)):
+            for grid, lk, cols in (("iso", lk_i32, m32._ISO_COLUMNS), ("track", lk_t32, m32._TRACK_COLUMNS)):
+                xc = x[:, list(cols)].contiguous()
+                k_ms = kernel_ms(lambda: star_lnlike_cuda(xc, lk), "star_lnlike", reps=50)
+                b_ms, b_by, b_what = bound(*star_work(xc, lk), "float32")
+                n_fin = int(torch.isfinite(star_lnlike_cuda(xc, lk)[0]).sum())
+                launch[f"{grid}, {pts_name}"] = dict(ms=k_ms, bound_ms=b_ms, bound_by=b_by, share=b_ms / k_ms,
+                                                     ll_finite=n_fin)
+                print(f"[isotrack] time f32 {grid} launch alone, B={STAR_BATCH}, {pts_name}: {k_ms:.4f} ms, bound "
+                      f"{b_ms:.5f} ms ({b_what}), kernel at {b_ms / k_ms:.3f} of it; {n_fin} ll finite")
 
         # ---- the fits on the card (the slice's main path): nested, then MCMC
         star_lnlike_cuda.launches = 0
@@ -3047,8 +3090,8 @@ def phase_isotrack(dev, workdir):
         rec = dict(track_kernel_err_f64=e_t64, track_kernel_err_f32=e_t32,
                    lnpost_err={b: list(v[:2]) for b, v in errs.items()},
                    call={b: dict(wall_ms=timed[b][0], busy_ms=timed[b][1], device_kernels=timed[b][2],
-                                 star_launches=calls[(b, "torch.float32")], star_ms=ms[b]) for b in ISOTRACK_BATCHES},
-                   nested_s=nest_s, nested_launches=n_nested, logz=float(res.logz), mcmc_s=mcmc_s,
+                                 star_launches=calls[(b, "f32")], star_ms=ms[b]) for b in ISOTRACK_BATCHES},
+                   launch_alone=launch, nested_s=nest_s, nested_launches=n_nested, logz=float(res.logz), mcmc_s=mcmc_s,
                    mcmc_launches=n_mcmc)
         return n_nested + n_mcmc, rec
     finally:

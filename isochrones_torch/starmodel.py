@@ -354,18 +354,38 @@ class BasicStarModel:
 
         return lnprior_batch
 
-    def _star_likelihood(self, ic=None, parallax=True):
+    def _star_likelihood(self, ic=None, parallax=True, dist_idx=None):
         """What the fused likelihood needs besides the parameters: the 6-column
         pack and the BC grid of ``ic`` (the model's by default), the parameter
-        layout, the observations and, with ``parallax``, the parallax term."""
+        layout, the observations and, with ``parallax``, the parallax term on
+        the parameters' column ``dist_idx`` (the model's distance by default)."""
         ic = self.ic if ic is None else ic
         spec_vals, spec_uncs, mag_vals, mag_uncs, _ = self._static_obs()
         return StarLikelihood(
             n_stars=self.N, index_order=tuple(ic._param_index_order), pack6=ic.model_packed6, bc=ic.bc,
             band_icols=tuple(ic.bc.column_index[b] for b in self.bands), spec_vals=spec_vals, spec_uncs=spec_uncs,
-            mag_vals=mag_vals, mag_uncs=mag_uncs, dist_idx=self.distance_index,
+            mag_vals=mag_vals, mag_uncs=mag_uncs, dist_idx=self.distance_index if dist_idx is None else dist_idx,
             parallax=self._plax() if parallax else None,
         )
+
+    def _fused_eep_prior(self, cls, ic):
+        """The EEP prior where the fused posterior can take it from the
+        kernel's EEP-prior columns: ``cls``'s own ``_build_lnprior_batch`` and
+        an ``EEP_prior`` on ``ic``; else None."""
+        if type(self)._build_lnprior_batch is not cls._build_lnprior_batch:
+            return None
+        eep_prior = self._priors.get("eep")
+        if not isinstance(eep_prior, EEP_prior) or eep_prior.ic is not ic:
+            return None
+        return eep_prior
+
+    @staticmethod
+    def _posterior(lnp, ll):
+        """lnprior + lnlike as the reference composes them (starmodel.py:372-375):
+        a NaN likelihood is -inf, and so is the posterior where the prior is
+        not finite."""
+        ll = torch.where(torch.isnan(ll), float("-inf"), ll)
+        return torch.where(torch.isfinite(lnp), lnp + ll, float("-inf"))
 
     def _build_lnpost_fused(self):
         """Fused lnprior + lnlike sharing one interpolation per component over
@@ -374,12 +394,10 @@ class BasicStarModel:
         ic = self.ic
         if type(self)._build_lnlike_batch is not BasicStarModel._build_lnlike_batch:
             return None
-        if type(self)._build_lnprior_batch is not BasicStarModel._build_lnprior_batch:
-            return None
         if getattr(ic, "model_packed6", None) is None:
             return None
-        eep_prior = self._priors.get("eep")
-        if not isinstance(eep_prior, EEP_prior) or eep_prior.ic is not ic:
+        eep_prior = self._fused_eep_prior(BasicStarModel, ic)
+        if eep_prior is None:
             return None
 
         lk = self._star_likelihood()
@@ -403,8 +421,7 @@ class BasicStarModel:
                     eep_j += 1
                 else:
                     lnp = lnp + priors[par].lnpdf(val)
-            ll = torch.where(torch.isnan(ll), float("-inf"), ll)
-            return torch.where(torch.isfinite(lnp), lnp + ll, float("-inf"))
+            return self._posterior(lnp, ll)
 
         return lnpost
 
@@ -419,10 +436,7 @@ class BasicStarModel:
             fused = self._build_lnpost_fused()
 
             def lnpost(pars):
-                lnpr = lnprior(pars)
-                ll = lnlike(pars)
-                ll = torch.where(torch.isnan(ll), float("-inf"), ll)
-                return torch.where(torch.isfinite(lnpr), lnpr + ll, float("-inf"))
+                return self._posterior(lnprior(pars), lnlike(pars))
 
             cache.update(lnlike=lnlike, lnprior=lnprior, lnpost=fused if fused is not None else lnpost)
         return cache[name]
@@ -907,7 +921,9 @@ class IsoTrackModel(BasicStarModel):
     ``lnpost_batch`` is fused: two calls of
     :func:`~isochrones_torch.ops.star.star_lnlike_fused` (two launches of
     the star kernel on the card), the second of which also returns the age
-    and d age / d EEP that the EEP prior needs. ``lnlike_batch`` and
+    and d age / d EEP that the EEP prior needs; with another prior (a
+    subclass's ``_build_lnprior_batch``, another EEP prior) the same two
+    calls give the likelihood and that prior is added. ``lnlike_batch`` and
     ``lnprior_batch`` are the composed forms, as in the reference.
     ``derived_samples`` calls the track interpolator with all six columns
     and raises ``TypeError``, as the reference does.
@@ -976,42 +992,49 @@ class IsoTrackModel(BasicStarModel):
 
         return lnprior_batch
 
+    def _star_likelihoods(self):
+        """The two launches' likelihoods: the iso's without the parallax, the
+        track's with it, each with the distance's place among the five
+        columns that it takes."""
+        d = self.param_names.index("distance")
+        return (self._star_likelihood(self.iso, parallax=False, dist_idx=self._ISO_COLUMNS.index(d)),
+                self._star_likelihood(self.track, dist_idx=self._TRACK_COLUMNS.index(d)))
+
     def _build_lnpost_fused(self):
-        """Both grids' fused likelihoods and the priors around them; None
-        (the composed path) for an overridden _build_* method, a grid without its
-        6-column pack, or an EEP prior that is not the track's."""
+        """Both grids' fused likelihoods, and the prior around them: the EEP
+        prior from the track launch's age and d age / d EEP where it is the
+        class's own ``EEP_prior`` on the track, else the model's
+        ``lnprior_batch``. None (the composed path) only for a subclass's own
+        likelihood, or on the CPU for a grid without its 6-column pack; on
+        the card such a grid raises."""
         if type(self)._build_lnlike_batch is not IsoTrackModel._build_lnlike_batch:
             return None
-        if type(self)._build_lnprior_batch is not IsoTrackModel._build_lnprior_batch:
-            return None
         if self.iso.model_packed6 is None or self.track.model_packed6 is None:
-            return None
-        eep_prior = self._priors.get("eep")
-        if not isinstance(eep_prior, EEP_prior) or eep_prior.ic is not self.track:
+            if self.device.type == "cuda":
+                raise ValueError("IsoTrackModel on the card needs both grids' EEP-prior columns (initial_mass and "
+                                 "dm_deep, or age and dt_deep) beside Teff, logg, feh and Mbol")
             return None
 
-        # the iso launch without the parallax, the track launch with it; each
-        # takes its grid's five columns, distance the fourth (distance_index)
-        lk_iso = self._star_likelihood(self.iso, parallax=False)
-        lk_track = self._star_likelihood(self.track)
+        lk_iso, lk_track = self._star_likelihoods()
+        eep_prior = self._fused_eep_prior(IsoTrackModel, self.track)
+        lnprior = self._build_lnprior_batch() if eep_prior is None else None
         priors = self._priors
         param_names = self.param_names
-        eep_lo, eep_hi = eep_prior.bounds
-        orig_prior = eep_prior.orig_prior
 
         def lnpost(pars):
             ll_iso, _, _ = star_lnlike_fused(_columns(pars, self._ISO_COLUMNS), lk_iso)
             ll_track, age, dage = star_lnlike_fused(_columns(pars, self._TRACK_COLUMNS), lk_track)
             ll = ll_iso + ll_track
+            if lnprior is not None:
+                return self._posterior(lnprior(pars), ll)
             lnp = torch.zeros_like(ll)
             for i, par in enumerate(param_names):
                 val = pars[..., i]
                 if par == "eep":  # EEP_prior(track, age prior).lnpdf at (mass, eep, feh)
-                    lnp = lnp + _eep_lnprior(val, age[..., 0], dage[..., 0], orig_prior, eep_lo, eep_hi)
+                    lnp = lnp + _eep_lnprior(val, age[..., 0], dage[..., 0], eep_prior.orig_prior, *eep_prior.bounds)
                 else:
                     lnp = lnp + priors[par].lnpdf(val)
-            ll = torch.where(torch.isnan(ll), float("-inf"), ll)
-            return torch.where(torch.isfinite(lnp), lnp + ll, float("-inf"))
+            return self._posterior(lnp, ll)
 
         return lnpost
 

@@ -444,8 +444,7 @@ class StarModel(BasicStarModel):
             term = torch.where(torch.isfinite(orig_val) & (deriv > 0), term, neg_inf)
             term = torch.where((eeps < eep_lo) | (eeps > eep_hi), neg_inf, term)
             lnp = lnp + term.sum(dim=-1)
-            ll = torch.where(torch.isnan(ll), neg_inf, ll)
-            return torch.where(torch.isfinite(lnp), lnp + ll, neg_inf)
+            return self._posterior(lnp, ll)
 
         lnpost.likelihood = fused.likelihood
         return lnpost

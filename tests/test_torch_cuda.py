@@ -36,10 +36,13 @@ columns and every column, batches that leave a partial warp; the caps raise
 by name; the interpolators' ``generate`` and fast ``get_eep`` launch it.
 The joint isochrone + track model: the star kernel on a track grid (its
 index order, mass axis and parallax) at the star kernel's tolerances, and
-``IsoTrackModel.lnpost_batch`` (two launches) against the CPU at rtol
-1e-10; a track-grid results file reloads onto the track grid on the card.
+``IsoTrackModel.lnpost_batch`` (two launches, also with a prior of a
+subclass's own or another EEP prior) against the CPU at rtol 1e-10; a grid
+without the 6-column pack raises; a track-grid results file reloads onto
+the track grid on the card.
 """
 
+import copy
 import dataclasses
 import re
 import warnings
@@ -53,7 +56,7 @@ from chip_smoke import (
     CAT_BANDS, CLI_EEP_BOX, catalog_likelihood_as, catalog_points, catalog_priors_as, catalog_table,
     ATOL_F32, ATOL_STAR_F32, FIXTURE, RTOL_F32, RTOL_F64, RTOL_STAR_F32, RTOL_STAR_F64, _tree_check, as_float32,
     _tree_mixed_points, check_close, check_eep, check_star, eep_points, grid_as, isotrack_observations,
-    isotrack_points, make_kernel_inputs, plain_star_f64, profile_kernels, star_grid_variant, star_observations,
+    isotrack_points, isotrack_reference, make_kernel_inputs, profile_kernels, star_grid_variant, star_observations,
     star_points, to_torch,
 )
 from isochrones_torch import BinaryStarModel, StarClusterModel, TripleStarModel, get_ichrone
@@ -1189,7 +1192,7 @@ def test_star_kernel_on_track_grid(dev, grid, B, request):
     ``isotrack_points`` (exact, top and bottom knots of both grids, past
     either grid, NaN): float64 and float32 against the plain version."""
     model = _isotrack(dev, grid, request)
-    lk = model._star_likelihood(model.track, True)
+    lk = model._star_likelihoods()[1]
     assert lk.index_order == (2, 0, 1, 3, 4) and lk.parallax is not None
     pts = isotrack_points(model, B, seed=B)[:, list(model._TRACK_COLUMNS)]
     _check_star_both(lk, pts, f"track {grid} B={B}")
@@ -1200,9 +1203,8 @@ def test_isotrack_lnpost_on_card(dev, grid, request):
     """``IsoTrackModel.lnpost_batch`` on the card (two launches a call, the
     composed likelihood never called) against the CPU's, float64, rtol
     1e-10; float32 against the same posterior with the plain likelihood in
-    float64 on the float32 tables."""
+    float64 on the float32 tables (``isotrack_reference``)."""
     import isochrones_torch.starmodel as star_mod
-    from isochrones_torch import IsoTrackModel
 
     gpu = _isotrack(dev, grid, request)
     cpu = _isotrack("cpu", grid, request)
@@ -1224,17 +1226,59 @@ def test_isotrack_lnpost_on_card(dev, grid, request):
     assert np.isfinite(ref).sum() > 200 and np.isneginf(ref).sum() > 100
 
     m32 = _isotrack(dev, grid, request, torch.float32)
-    lks = (m32._star_likelihood(m32.iso, False), m32._star_likelihood(m32.track, True))
-    plain = IsoTrackModel(m32.iso, m32.track, **m32.kwargs)
-    plain._star_likelihood = lambda ic=None, parallax=True: lks[bool(parallax)]
     x = torch.as_tensor(pts, device=dev, dtype=torch.float32)
-    fused = star_mod.star_lnlike_fused
-    star_mod.star_lnlike_fused = plain_star_f64(lks, torch.float32)
-    try:
-        ref32 = plain.lnpost_batch(x).cpu().numpy()
-    finally:
-        star_mod.star_lnlike_fused = fused
+    ref32 = isotrack_reference(m32, x).cpu().numpy()
     check_star(f"isotrack {grid} f32", [m32.lnpost_batch(x).cpu().numpy()], [ref32], RTOL_STAR_F32, ATOL_STAR_F32)
+
+
+@pytest.mark.parametrize("grid", ["synthetic", "mist"])
+def test_isotrack_other_prior_keeps_two_launches_on_card(dev, grid, request):
+    """With a subclass's own ``_build_lnprior_batch``, or an EEP prior that
+    is not the track's, ``lnpost_batch`` still takes both likelihoods from
+    two launches of the star kernel and adds that prior: float64 against
+    the composed plain path, rtol 1e-10."""
+    import isochrones_torch.starmodel as star_mod
+    from isochrones_torch import IsoTrackModel
+    from isochrones_torch.priors import EEP_prior
+
+    class OwnPrior(IsoTrackModel):
+        def _build_lnprior_batch(self):
+            return super()._build_lnprior_batch()
+
+    base = _isotrack(dev, grid, request)
+    own = OwnPrior(base.iso, base.track, **base.kwargs)
+    other = IsoTrackModel(base.iso, base.track, **base.kwargs)
+    other.set_prior(eep=EEP_prior(copy.copy(base.track), other._priors["age"], bounds=other.eep_bounds))
+    pts = torch.as_tensor(isotrack_points(base, 2048, seed=6), device=dev)
+    real = star_mod.star_lnlike
+
+    def no_composed(*a, **k):
+        raise AssertionError("the composed likelihood was called")
+
+    for m in (own, other):
+        ref = isotrack_reference(m, pts).cpu().numpy()
+        star_mod.star_lnlike = no_composed
+        try:
+            before = star_lnlike_cuda.launches
+            got = m.lnpost_batch(pts).cpu().numpy()
+            assert star_lnlike_cuda.launches == before + 2
+        finally:
+            star_mod.star_lnlike = real
+        check_star(f"isotrack {grid} {type(m).__name__} f64", [got], [ref], RTOL_STAR_F64)
+        assert np.isfinite(ref).sum() > 200
+
+
+def test_isotrack_without_pack6_raises_on_card(dev):
+    """On the card a grid without the EEP-prior columns of the 6-column pack
+    raises: no silent plain path."""
+    from isochrones_torch import IsoTrackModel
+
+    iso = get_ichrone("synthetic", device=dev, **_SMALL)
+    track = copy.copy(get_ichrone("synthetic", tracks=True, device=dev, **_SMALL))
+    track.model_packed6 = None
+    model = IsoTrackModel(iso, track, **isotrack_observations(iso, (60.0, 9.0, 0.0, 200.0, 0.1)))
+    with pytest.raises(ValueError, match="EEP-prior columns"):
+        model.lnpost_batch(isotrack_points(model, 8, seed=0))
 
 
 def test_track_grid_results_file_on_card(dev, mist_root, tmp_path):

@@ -11,7 +11,10 @@ n_eep=60, n_age=20) and ``get_ichrone("mist")`` on the MIST-format files of
   (inside the box, on knots, past either grid, past the bounds, NaN):
   rtol 1e-10 with identical NaN and -inf patterns;
 - the fused posterior (two calls of the fused star likelihood) against the
-  composed one: rtol 1e-10, identical patterns;
+  composed one: rtol 1e-10, identical patterns; with a prior of a
+  subclass's own or an EEP prior on another grid object, the same two
+  calls and the JAX posterior with that prior; a grid without the 6-column
+  pack takes the composed path on the CPU;
 - a seeded short ``fit_mcmc`` (runs to its end, finite, the distance's 95%
   interval holds the truth) and a seeded ``fit_multinest`` in each package
   (evidence within the two runs' combined logzerr);
@@ -22,6 +25,7 @@ n_eep=60, n_age=20) and ``get_ichrone("mist")`` on the MIST-format files of
   grid, with its samples.
 """
 
+import copy
 import os
 
 import jax.numpy as jnp
@@ -34,7 +38,7 @@ import isochrones_tpu.config as jconfig
 import isochrones_tpu.grids.mist as jmist
 import isochrones_torch.config as tconfig
 import isochrones_torch.grids.mist as tmist
-from chip_smoke import isotrack_points
+from chip_smoke import isotrack_points, isotrack_reference
 from isochrones_tpu import get_ichrone as jax_get_ichrone
 from isochrones_tpu import starmodel as jsm
 from isochrones_torch import get_ichrone
@@ -105,8 +109,9 @@ def _models(pairs, grid, kind="parallax", cls=None):
     return (cls or tsm.IsoTrackModel)(ti, tt, **obs), jsm.IsoTrackModel(ji, jt, **obs)
 
 
-class _Composed(tsm.IsoTrackModel):
-    """Overrides _build_lnprior_batch: the posterior is then the composed one."""
+class _OwnPrior(tsm.IsoTrackModel):
+    """A prior of a subclass's own (the same one): the posterior then adds it
+    to the two fused likelihoods."""
 
     def _build_lnprior_batch(self):
         return super()._build_lnprior_batch()
@@ -159,14 +164,8 @@ def test_batches_match_jax(pairs, grid, kind):
     assert tm.lnpost(p[i]) == pytest.approx(float(lp[i]), rel=1e-12)
 
 
-@pytest.mark.parametrize("grid", ["synthetic", "mist"])
-def test_fused_matches_composed(pairs, grid, monkeypatch):
-    """The fused posterior: two calls of the fused star likelihood, the
-    iso's without the parallax and the track's with it; the same values as
-    the composed posterior."""
-    tm, _ = _models(pairs, grid)
-    tc, _ = _models(pairs, grid, cls=_Composed)
-    assert tc._build_lnpost_fused() is None
+def _count_fused(monkeypatch):
+    """Record (index order, parallax, shape) of each fused-likelihood call."""
     calls = []
     real = tsm.star_lnlike_fused
 
@@ -175,10 +174,57 @@ def test_fused_matches_composed(pairs, grid, monkeypatch):
         return real(pars, lk)
 
     monkeypatch.setattr(tsm, "star_lnlike_fused", counted)
+    return calls
+
+
+@pytest.mark.parametrize("grid", ["synthetic", "mist"])
+def test_fused_matches_composed(pairs, grid, monkeypatch):
+    """The fused posterior: two calls of the fused star likelihood, the
+    iso's without the parallax and the track's with it (the distance the
+    fourth of each call's five columns); the same values as the composed
+    posterior (``chip_smoke.isotrack_reference``)."""
+    tm, _ = _models(pairs, grid)
+    lk_iso, lk_track = tm._star_likelihoods()
+    assert lk_iso.dist_idx == tm._ISO_COLUMNS.index(4) == 3 and lk_track.dist_idx == tm._TRACK_COLUMNS.index(4) == 3
     p = _points(tm, seed=7)
-    m = _assert_same(tm.lnpost_batch(p).numpy(), tc.lnpost_batch(p).numpy())
+    ref = isotrack_reference(tm, torch.as_tensor(p)).numpy()
+    calls = _count_fused(monkeypatch)
+    m = _assert_same(tm.lnpost_batch(p).numpy(), ref)
     assert m.sum() > 30
     assert calls == [((1, 2, 0, 3, 4), False, (len(p), 5)), ((2, 0, 1, 3, 4), True, (len(p), 5))]
+
+
+@pytest.mark.parametrize("prior", ["subclass", "eep_on_another_grid"])
+@pytest.mark.parametrize("grid", ["synthetic", "mist"])
+def test_other_prior_keeps_the_fused_likelihood(pairs, grid, prior, monkeypatch):
+    """A prior of a subclass's own, or an EEP prior on another grid object
+    than the track: ``lnpost_batch`` still takes both likelihoods from the
+    two fused calls and adds that prior; the JAX model's ``lnpost_batch``
+    with the same prior, rtol 1e-10, identical NaN and -inf patterns."""
+    from isochrones_tpu.priors import EEP_prior as JEEP_prior
+    from isochrones_torch.priors import EEP_prior
+
+    tm, jm = _models(pairs, grid, cls=_OwnPrior if prior == "subclass" else None)
+    if prior == "eep_on_another_grid":
+        tm.set_prior(eep=EEP_prior(copy.copy(tm.track), tm._priors["age"], bounds=tm.eep_bounds))
+        jm.set_prior(eep=JEEP_prior(copy.copy(jm.track), jm._priors["age"], bounds=jm.eep_bounds))
+    p = _points(tm, seed=11)
+    calls = _count_fused(monkeypatch)
+    m = _assert_same(tm.lnpost_batch(p).numpy(), jm.lnpost_batch(jnp.asarray(p)))
+    assert m.sum() > 30
+    assert [c[:2] for c in calls] == [((1, 2, 0, 3, 4), False), ((2, 0, 1, 3, 4), True)]
+
+
+def test_grid_without_pack6_takes_the_composed_path_on_cpu(pairs):
+    """On the CPU a grid without the 6-column pack takes the composed path
+    (both plain); the same values."""
+    tm, jm = _models(pairs, "synthetic")
+    track = copy.copy(tm.track)
+    track.model_packed6 = None
+    tn = tsm.IsoTrackModel(tm.iso, track, **tm.kwargs)
+    assert tn._build_lnpost_fused() is None
+    p = _points(tm, seed=3)
+    _assert_same(tn.lnpost_batch(p).numpy(), jm.lnpost_batch(jnp.asarray(p)))
 
 
 @pytest.fixture(scope="module")
