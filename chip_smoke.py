@@ -167,7 +167,24 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     ``fit()`` (nested, 500 live points) and ``fit()`` with ``use_emcee``
     on the card (seconds, launches; the nested distance interval holding
     the truth), and a ``SingleStarModel`` fitted on the MIST track grid
-    whose results file reloads onto that grid.
+    whose results file reloads onto that grid;
+25. the other engines: the backward kernels A' (star) and C' (tree) against
+    torch autograd of their plain versions with seeded cotangents, at the
+    NUTS fits' 4 and the leaf's 8 chains (idle lanes in the launch) and at
+    1024 and 131072 points (the adversarial rows of phases 6 and 9), in float64
+    and float32 (against the float64 plain version on the same float32
+    values), identical NaN and +-inf patterns (``check_grad``); their device
+    times beside their bounds and the plain versions' (autograd forward and
+    backward); one NUTS leaf's wall-clock and device kernels (kernels A and
+    A' once each); ``BinaryStarModel.fit_nuts`` on the bench binary in
+    float32 and float64 and the three-star tree ``StarModel.fit_nuts``, with
+    the plain likelihoods made to raise: finite lnprob, the distance median
+    within 10 pc of the truth, both kernels launched, the frozen chains
+    counted, the posterior's gradient at the chains' last draws equal to the
+    plain versions' in float64 and far from the one without the likelihood's
+    part, the lnprob quantiles printed beside the nested fits' (phases 8 and
+    11); one ``fit_polychord`` (100 live points) and a short
+    ``fit_mcmc_convergent`` continued from its checkpoint.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -1095,7 +1112,8 @@ def phase_tree_kernel(dev, ic32, ic64, workdir):
 
 
 def phase_tree_slice_and_fit(dev, ic32, ic64, workdir):
-    """Phases 10 and 11. Returns the tree kernel's launches in the fit."""
+    """Phases 10 and 11. Returns the tree kernel's launches in the fit and
+    the fit's NUTS_LNPROB_Q quantiles of lnprob."""
     import torch
 
     import isochrones_torch.ops.tree as tree_ops
@@ -1194,7 +1212,7 @@ def phase_tree_slice_and_fit(dev, ic32, ic64, workdir):
         raise AssertionError("save_hdf -> load_hdf did not restore the tree model's samples and evidence")
     print(f"[tree fit] save_hdf -> load_hdf: {len(mod32.samples)} sample columns, "
           f"{len(mod32.derived_samples)} derived columns and the evidence restored")
-    return n_tree
+    return n_tree, np.quantile(mod32.samples["lnprob"], NUTS_LNPROB_Q)
 
 
 def phase_entry_point(dev, workdir):
@@ -3099,6 +3117,400 @@ def phase_isotrack(dev, workdir):
         iso_mod._mist_cache.clear()
 
 
+#: phase 25: the backward kernels' timed batches, float64 and float32
+GRAD_BATCHES = (1024, STAR_BATCH)
+#: float64 backward kernel vs autograd of the float64 plain version: the same
+#: closed forms in another order (autograd's product chain of the corner
+#: weights, its division by each lerp's knot spacing); row by row,
+#: |got - ref| <= rtol * max(1, max |ref| of the row)
+RTOL_GRAD_F64 = 1e-9
+#: float32 backward kernel vs autograd of the float64 plain version on the same
+#: float32 tables, points and cotangents, row by row as above. A photometry
+#: term's cotangent is (val - mag) / unc^2 with float32 magnitudes good to
+#: ~1e-5 mag, so at a near point (residual ~ unc = 0.02) it carries ~1e-3
+#: relative error, and each lerp's slope divides a difference of corner
+#: values that float32 rounds by ~1e-7 of their size; 1e-2 of the row's
+#: largest entry holds both
+RTOL_GRAD_F32 = 1e-2
+
+
+def check_grad(name, got, ref, rtol):
+    """Gradients ``(B, P)``: identical NaN and +-inf patterns and, where
+    finite, |got - ref| <= rtol * max(1, max |ref| of the row). Returns the
+    largest error in those units and the largest absolute error."""
+    got = np.asarray(got, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    if got.shape != ref.shape:
+        raise AssertionError(f"{name}: shape {got.shape} != {ref.shape}")
+    for what, f in (("NaN", np.isnan), ("+inf", np.isposinf), ("-inf", np.isneginf)):
+        if not np.array_equal(f(got), f(ref)):
+            raise AssertionError(f"{name}: {what} pattern differs ({int(f(got).sum())} vs {int(f(ref).sum())})")
+    fin = np.isfinite(ref)
+    scale = np.maximum(1.0, np.max(np.where(fin, np.abs(ref), 0.0), axis=1, keepdims=True))
+    err = np.where(fin, np.abs(got - ref), 0.0) / scale
+    if (err > rtol).any():
+        b, j = np.unravel_index(np.argmax(err), err.shape)
+        raise AssertionError(f"{name}: {int((err > rtol).sum())} entries out of tolerance (rtol {rtol} of the row's "
+                             f"scale); worst row {b} column {j}: got {got[b, j]!r} ref {ref[b, j]!r} "
+                             f"(scale {scale[b, 0]!r})")
+    if not err.size:
+        return 0.0, 0.0
+    return float(err.max()), float(np.max(np.where(fin, np.abs(got - ref), 0.0)))
+
+
+def grad_cotangents(B, n, seed, device, dtype):
+    """Seeded cotangents ``(g_ll (B,), g_orig (B, n), g_deriv (B, n))``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.normal(size=shape), device=device, dtype=dtype)
+                 for shape in ((B,), (B, n), (B, n)))
+
+
+def plain_grad(fn, x, lk, cot):
+    """The gradient that torch.autograd takes through the plain version ``fn``
+    for the cotangents ``cot`` of its three outputs."""
+    import torch
+
+    with torch.enable_grad():
+        x = x.detach().clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(fn(x, lk), x, grad_outputs=cot)
+    return g
+
+
+def grad_work(fwd_work, pars, n_out):
+    """``(bytes, flops, special functions)`` of a backward kernel from its
+    forward's: the forward's reads, the cotangents in (the size of the
+    forward's outputs, ``n_out`` values a point) and the ``(B, P)`` gradient
+    out; the forward's operations twice (recomputed, then its vector-Jacobian
+    product, which costs about what the forward does)."""
+    nbytes, flops, sfu = fwd_work
+    B, P = pars.shape
+    return nbytes + B * P * pars.element_size(), 2 * flops, 2 * sfu
+
+
+def _grad_pair(label, kernel, plain_fn, lk64, lk32, pts, n_out, dev):
+    """The backward kernel against autograd of the plain version on ``pts``
+    with seeded cotangents, float64 and float32 (against the float64 plain
+    version on the same float32 values). Returns ``(err64, err32, finite rows
+    of the value)``, the errors in units of the row's scale, and ``(abs64,
+    abs32)``, the largest absolute errors."""
+    import torch
+
+    B = pts.shape[0]
+    p64 = torch.as_tensor(pts, device=dev, dtype=torch.float64)
+    cot64 = grad_cotangents(B, n_out, 7 + B % 11, dev, torch.float64)
+    ref64 = plain_grad(plain_fn, p64, lk64, cot64).cpu().numpy()
+    got64 = kernel(p64, lk64, *cot64).cpu().numpy()
+    torch.cuda.synchronize()
+    err64, abs64 = check_grad(f"{label} f64 B={B}", got64, ref64, RTOL_GRAD_F64)
+    p32 = p64.float()
+    cot32 = tuple(c.float() for c in cot64)
+    ref32 = plain_grad(plain_fn, p32.double(), lk32[1], tuple(c.double() for c in cot32)).cpu().numpy()
+    got32 = kernel(p32, lk32[0], *cot32).cpu().numpy()
+    torch.cuda.synchronize()
+    err32, abs32 = check_grad(f"{label} f32 B={B}", got32, ref32, RTOL_GRAD_F32)
+    with torch.no_grad():
+        fin = int(torch.isfinite(plain_fn(p64, lk64)[0]).sum())
+    return err64, err32, fin, (abs64, abs32)
+
+
+def phase_grad_kernels(dev, ic32, ic64, workdir):
+    """Phase 25a: kernels A' and C' against autograd of the plain versions at
+    the NUTS fits' and leaf's chain counts (4, 8) and at B = 1024 and 131072,
+    float64 and float32, on the bench binary and on the
+    three-star tree plan (adversarial rows); their device times beside their
+    bounds. Returns the two records of the kernels line (launches filled in
+    by the caller)."""
+    import torch
+
+    from isochrones_torch.ops.star import star_lnlike_fused_plain
+    from isochrones_torch.ops.star_cuda import star_lnlike_grad_cuda
+    from isochrones_torch.ops.tree import tree_lnlike_fused_plain
+    from isochrones_torch.ops.tree_cuda import tree_lnlike_grad_cuda
+    from isochrones_torch.starmodel import BinaryStarModel
+    from isochrones_torch.treemodel import StarModel
+
+    obs = star_observations(ic64)
+    lk64 = BinaryStarModel(ic64, **obs)._star_likelihood()
+    lk32 = BinaryStarModel(ic32, **obs)._star_likelihood()
+    lk32up = dataclasses.replace(lk32, pack6=grid_as(lk32.pack6, torch.float64), bc=grid_as(lk32.bc, torch.float64))
+    tree64 = StarModel.from_ini(ic64, write_tree_ini(os.path.join(workdir, "grad_tree3"), ic64, TREE_TRUTH))
+    tlk64 = tree64._get_fn("lnlike").likelihood
+    tlk32 = tree_likelihood_as(tlk64, torch.float32)
+    tlk32up = tree_likelihood_as(tlk32, torch.float64)
+    records = {}
+    for name, kernel, plain_fn, l64, l32, n_out, make in (
+            ("star_lnlike_grad", star_lnlike_grad_cuda, star_lnlike_fused_plain, lk64, (lk32, lk32up), 2,
+             lambda B, seed: _star_grad_points(ic64, B, seed)),
+            ("tree_lnlike_grad", tree_lnlike_grad_cuda, tree_lnlike_fused_plain, tlk64, (tlk32, tlk32up),
+             tlk64.n_stars, lambda B, seed: _tree_mixed_points(tree64.param_names, ic64.model.knots, B, seed))):
+        errs = {}
+        for B in GRAD_CHECK_BATCHES:
+            e64, e32, fin, (a64, a32) = _grad_pair(name, kernel, plain_fn, l64, l32, make(B, 40 + B % 13), n_out,
+                                                   dev)
+            errs[B] = (e64, e32, a64, a32)
+            print(f"[grad] {name} vs autograd of the plain version, B={B}: f64 max err {e64:.3e} (rtol "
+                  f"{RTOL_GRAD_F64} of the row's scale; {a64:.3e} absolute), f32 vs f64 max err {e32:.3e} (rtol "
+                  f"{RTOL_GRAD_F32}; {a32:.3e} absolute); {fin}/{B} rows with a finite ll; NaN/inf patterns "
+                  f"identical")
+        timing = {}
+        for B in GRAD_BATCHES:
+            box = STAR_BOX if name == "star_lnlike_grad" else None
+            if box is not None:
+                pts = star_points(ic64.model.knots, 2, B, seed=50, box=box)
+            else:
+                pts = tree_points(tree64.param_names, ic64.model.knots, B, seed=51, narrow=True)
+            p32 = torch.as_tensor(pts, device=dev, dtype=torch.float32)
+            cot = grad_cotangents(B, n_out, 52, dev, torch.float32)
+            lk = l32[0]
+            reps = 50 if B == 1024 else 10
+            ms = kernel_ms(lambda: kernel(p32, lk, *cot), name, reps=reps)
+            plain = cuda_ms(lambda: plain_grad(plain_fn, p32, lk, cot), reps=max(2, reps // 5))
+            fwd = star_work(p32, lk) if name == "star_lnlike_grad" else tree_work(p32, lk)
+            bnd = bound(*grad_work(fwd, p32, 1 + 2 * n_out), "float32")
+            timing[B] = dict(ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1])
+            print(f"[grad] time {name} B={B} f32: kernel {ms:.4f} ms, plain (autograd forward + backward) {plain:.4f} "
+                  f"ms; bound {bnd[0]:.5f} ms ({bnd[2]}), kernel at {bnd[0] / ms:.3f} of it")
+        top = GRAD_BATCHES[-1]
+        main = timing[top]
+        records[name] = {
+            "name": name, "route": "cuda",
+            "source": "isochrones_torch/csrc/" + ("star_lnlike.cu" if name == "star_lnlike_grad" else "tree_lnlike.cu"),
+            "replaces": ("isochrones_tpu/samplers/nuts.py:59" if name == "star_lnlike_grad"
+                         else "isochrones_tpu/observation.py:1269"),
+            "launches": None, "max_abs_err": errs[top][3], "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+            "shape": {"B": top, "dtype": "float32"}, "max_err_row_scale": errs[top][1],
+            "max_abs_err_f64": errs[top][2], "max_err_row_scale_f64": errs[top][0],
+            "ms_fit_batch": timing[GRAD_BATCHES[0]]["ms"], "plain_ms_fit_batch": timing[GRAD_BATCHES[0]]["plain_ms"],
+            "bound_ms_fit_batch": timing[GRAD_BATCHES[0]]["bound_ms"],
+        }
+    return records
+
+
+#: phase 25: NUTS on the bench binary (each dtype) and on the three-star tree.
+#: A leaf is ~6 ms of host launches and the chains run in lockstep, so a
+#: transition waits for the chain with the smallest step: the depth is held to
+#: 5 (32 leaves) and the runs are short (the smoke's budget)
+NUTS_BINARY = dict(n_chains=4, n_warmup=80, n_samples=80, max_depth=5, seed=0)
+NUTS_TREE = dict(n_chains=4, n_warmup=60, n_samples=60, max_depth=5, seed=0)
+#: the distance posterior's median must lie within this of the truth [pc]:
+#: the 5 mas +- 0.05 parallax alone gives 200 +- 2 pc, so 10 pc is 5 sigma
+NUTS_DIST_TOL = 10.0
+#: 4 slice moves a replacement (PolyChord's default is 2 a dimension, 14 here)
+POLYCHORD = dict(n_live_points=100, n_batch=25, n_repeat=4, seed=0)
+CONVERGENT = dict(nwalkers=64, iter_chunksize=100, maxiter=2, targetn=1, nsamples=2000, seed=0)
+#: chains per NUTS leaf in the leaf's timing (fit_nuts' default)
+LEAF_CHAINS = 8
+#: the backward kernels' checked batches: the NUTS fits' and the leaf's chain
+#: counts (a partial warp: idle lanes in every launch), then the timed ones
+GRAD_CHECK_BATCHES = tuple(sorted({NUTS_BINARY["n_chains"], NUTS_TREE["n_chains"], LEAF_CHAINS, *GRAD_BATCHES}))
+#: NUTS's lnprob quantiles, printed beside the nested fit's of the same model
+#: (phase 8 for the binary, phase 11 for the tree). They are no check of the
+#: gradient: NUTS picks its draws by the true lnprob, so a fit with the
+#: likelihood's gradient lost still lands on the posterior's bulk (a CPU run
+#: with the likelihood's outputs detached did, as close as an intact one)
+NUTS_LNPROB_Q = (0.16, 0.5, 0.84)
+#: the posterior's gradient at each NUTS fit's last draws must differ from
+#: the one whose likelihood part is dropped (a wrapper outside the autograd
+#: graph) by more than this, in units of the row's scale
+LOST_GRAD_MIN = 1e-3
+
+
+def _refuse_plain(*_args, **_kw):
+    raise AssertionError("a plain version ran on the card's path")
+
+
+def _posterior_grad_check(label, model, z, module, name, plain):
+    """The value and gradient that a NUTS leaf takes of ``model``'s posterior
+    at ``z`` (float64, on the card) through the wrapper ``module.name``
+    (kernels A and A', or C and C') against the same with the wrapper
+    replaced by its plain version (autograd), row by row at RTOL_GRAD_F64;
+    and against the same with the plain version's outputs detached, the
+    fault of a wrapper outside the autograd graph, which must differ from it
+    by more than LOST_GRAD_MIN. The wrappers count their launches through
+    their module's name, so neither stand-in calls the wrapper. Returns ``(err, lost)`` in units of the row's
+    scale."""
+    import torch
+
+    from isochrones_torch.samplers.nuts import _safe_value_and_grad
+
+    vg = _safe_value_and_grad(model._get_fn("lnpost"))
+    real = getattr(module, name)
+    v_k, g_k = vg(z)
+    try:
+        setattr(module, name, plain)
+        v_p, g_p = vg(z)
+        setattr(module, name, lambda p, lk: tuple(x.detach() for x in plain(p.detach(), lk)))
+        _, g_lost = vg(z)
+    finally:
+        setattr(module, name, real)
+    torch.cuda.synchronize()
+    v_k, v_p = v_k.cpu().numpy(), v_p.cpu().numpy()
+    if not (np.isfinite(v_p).all() and np.allclose(v_k, v_p, rtol=RTOL_GRAD_F64, atol=RTOL_GRAD_F64)):
+        raise AssertionError(f"{label}: lnpost through the kernels {v_k} against the plain version's {v_p}")
+    g_p = g_p.cpu().numpy()
+    err, _ = check_grad(f"{label} posterior gradient", g_k.cpu().numpy(), g_p, RTOL_GRAD_F64)
+    scale = np.maximum(1.0, np.abs(g_p).max(axis=1, keepdims=True))
+    lost = float((np.abs(g_lost.cpu().numpy() - g_p) / scale).max(axis=1).min())
+    if not lost > LOST_GRAD_MIN:
+        raise AssertionError(f"{label}: the gradient without the likelihood's part differs by only {lost:.3e}")
+    print(f"[nuts] {label}: the posterior's gradient at the {len(g_p)} chains' last draws through the kernels "
+          f"against the plain version's autograd, float64: max err {err:.3e} (rtol {RTOL_GRAD_F64} of the row's "
+          f"scale); with the likelihood's outputs detached every row differs by >= {lost:.3e} (bar {LOST_GRAD_MIN})")
+    return err, lost
+
+
+def _nuts_fit(label, model, kw, fwd, bwd, distance, ref_lnprob, check):
+    """``model.fit_nuts(**kw)`` with the plain likelihoods made to raise and
+    the kernels' counters set to 0 just before: checks finite lnprob, the
+    distance median within NUTS_DIST_TOL of the true ``distance``, both
+    kernels launched, and through ``check(z)`` (:func:`_posterior_grad_check`
+    on a float64 model) the posterior's gradient at the chains' last draws
+    ``z``; prints the lnprob quantiles beside ``ref_lnprob`` (the nested
+    fit's); returns a record."""
+    import torch
+
+    import isochrones_torch.ops.star as star_ops
+    import isochrones_torch.ops.tree as tree_ops
+
+    saved = star_ops.star_lnlike_fused_plain, tree_ops.tree_lnlike_fused_plain
+    star_ops.star_lnlike_fused_plain = tree_ops.tree_lnlike_fused_plain = _refuse_plain
+    try:
+        fwd.launches = bwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = model.fit_nuts(**kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_fwd, n_bwd = fwd.launches, bwd.launches
+    finally:
+        star_ops.star_lnlike_fused_plain, tree_ops.tree_lnlike_fused_plain = saved
+    res = model._nuts_result
+    lnprob = samples["lnprob"]
+    dist = [k for k in samples if k.startswith("distance")][0]
+    med = float(np.median(samples[dist]))
+    frozen = int(np.sum(res.step_size < 100.0 * float(torch.finfo(model.dtype).eps)))
+    if not np.isfinite(lnprob).all():
+        raise AssertionError(f"{label}: {int((~np.isfinite(lnprob)).sum())} non-finite lnprob")
+    q = np.quantile(lnprob, NUTS_LNPROB_Q)
+    if abs(med - distance) > NUTS_DIST_TOL:
+        raise AssertionError(f"{label}: distance median {med:.3f} pc, truth {distance}")
+    if n_fwd <= 0 or n_bwd <= 0:
+        raise AssertionError(f"{label}: kernel launches forward {n_fwd}, backward {n_bwd}")
+    med_all = {k: round(float(np.median(v)), 4) for k, v in samples.items() if k != "lnprob"}
+    print(f"[nuts] {label} fit_nuts {json.dumps(kw)}: {secs:.3f} s, launches forward {n_fwd} backward {n_bwd} (no "
+          f"plain version), step sizes {np.round(res.step_size, 5).tolist()}, {frozen} frozen chains, accept "
+          f"{np.round(res.accept_rate, 3).tolist()}, divergent {int(res.n_divergent.sum())}, lnprob quantiles "
+          f"{NUTS_LNPROB_Q} {np.round(q, 3).tolist()} (the nested fit's {np.round(ref_lnprob, 3).tolist()}); medians "
+          f"{json.dumps(med_all)}")
+    z = torch.as_tensor(res.samples[-1], device=model.device, dtype=torch.float64)
+    grad_err, lost = check(z)
+    return dict(seconds=secs, launches_forward=n_fwd, launches_backward=n_bwd, frozen_chains=frozen,
+                step_size=res.step_size.tolist(), distance_median=med, divergent=int(res.n_divergent.sum()),
+                lnprob_q=q.tolist(), nested_lnprob_q=list(ref_lnprob), grad_err=grad_err, lost_grad=lost)
+
+
+def phase_engines(dev, ic32, ic64, workdir, nested_lnprob):
+    """Phase 25b: the other engines on the card. One NUTS leaf's time and
+    launches; ``BinaryStarModel.fit_nuts`` on the bench binary in float32 and
+    float64 through kernels A and A'; the three-star tree ``StarModel.fit_nuts``
+    through C and C'; each fit's posterior gradient at its chains' last draws
+    against the plain versions' (:func:`_posterior_grad_check`), its lnprob
+    quantiles printed beside the nested fit's (``nested_lnprob``:
+    ``{"binary": q, "tree": q}``); one ``fit_polychord`` and one short
+    ``fit_mcmc_convergent``. Returns ``(star record, tree
+    record)``: the NUTS fits' launches and times."""
+    import torch
+
+    import isochrones_torch.ops.star_cuda as star_cuda
+    import isochrones_torch.ops.tree_cuda as tree_cuda
+    from isochrones_torch.fit import fit_mcmc_convergent
+    from isochrones_torch.ops.star import star_lnlike_fused_plain
+    from isochrones_torch.ops.star_cuda import star_lnlike_cuda, star_lnlike_grad_cuda
+    from isochrones_torch.ops.tree import tree_lnlike_fused_plain
+    from isochrones_torch.ops.tree_cuda import tree_lnlike_cuda, tree_lnlike_grad_cuda
+    from isochrones_torch.samplers.nuts import _safe_value_and_grad
+    from isochrones_torch.starmodel import BinaryStarModel
+    from isochrones_torch.treemodel import StarModel
+
+    obs = star_observations(ic64)
+    bin32, bin64 = BinaryStarModel(ic32, **obs), BinaryStarModel(ic64, **obs)
+
+    # one leaf: a value-and-grad call of the posterior over the chains
+    z = torch.as_tensor(star_points(ic64.model.knots, 2, LEAF_CHAINS, seed=60, box=STAR_BOX), device=dev,
+                        dtype=torch.float32)
+    vg = _safe_value_and_grad(bin32._get_fn("lnpost"))
+    star_lnlike_cuda.launches = star_lnlike_grad_cuda.launches = 0
+    vg(z)
+    torch.cuda.synchronize()
+    if (star_lnlike_cuda.launches, star_lnlike_grad_cuda.launches) != (1, 1):
+        raise AssertionError(f"a NUTS leaf launched A {star_lnlike_cuda.launches} and A' "
+                             f"{star_lnlike_grad_cuda.launches} times, not once each")
+    leaf_ms = 1e3 * _wall(lambda: vg(z), reps=200)
+    _, by_name = profile_kernels(lambda: vg(z), reps=20)
+    leaf_kernels = sum(n for _, n in by_name.values()) / 20
+    print(f"[nuts] one leaf ({LEAF_CHAINS} chains, float32 binary): {leaf_ms:.4f} ms wall-clock, "
+          f"{leaf_kernels:.1f} device kernels (A and A' once each, the rest the posterior's glue in both "
+          f"directions), device time {sum(ms for ms, _ in by_name.values()) / 20:.4f} ms")
+
+    star = {"leaf_ms": leaf_ms, "leaf_device_kernels": leaf_kernels}
+    for label, model in (("binary f32", bin32), ("binary f64", bin64)):
+        star[label] = _nuts_fit(
+            label, model, NUTS_BINARY, star_lnlike_cuda, star_lnlike_grad_cuda, STAR_TRUTH[4], nested_lnprob["binary"],
+            lambda z, label=label: _posterior_grad_check(label, bin64, z, star_cuda, "star_lnlike_cuda",
+                                                         star_lnlike_fused_plain))
+
+    folder = write_tree_ini(os.path.join(workdir, "nuts_tree3"), ic32, TREE_TRUTH)
+    tree, tree64 = StarModel.from_ini(ic32, folder), StarModel.from_ini(ic64, folder)
+    tree_rec = _nuts_fit(
+        "tree (3 stars) f32", tree, NUTS_TREE, tree_lnlike_cuda, tree_lnlike_grad_cuda, TREE_TRUTH[-2],
+        nested_lnprob["tree"], lambda z: _posterior_grad_check("tree (3 stars) f32", tree64, z, tree_cuda,
+                                                               "tree_lnlike_cuda", tree_lnlike_fused_plain))
+
+    star_lnlike_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = bin32.fit_polychord(**POLYCHORD)
+    torch.cuda.synchronize()
+    pc_s = time.perf_counter() - t0
+    d_lo, d_hi = np.quantile(bin32.samples["distance"], [0.025, 0.975])
+    if not np.isfinite(res.logz) or star_lnlike_cuda.launches <= 0 or not d_lo <= STAR_TRUTH[4] <= d_hi:
+        raise AssertionError(f"fit_polychord: logz {res.logz}, launches {star_lnlike_cuda.launches}, distance 95% "
+                             f"({d_lo:.2f}, {d_hi:.2f})")
+    print(f"[polychord] fit_polychord {json.dumps(POLYCHORD)} f32: {pc_s:.3f} s, {res.n_iter} dead points, logz "
+          f"{res.logz:.4f} +- {res.logzerr:.4f}, ESS {res.ess:.1f}, truncated {res.truncated}, kernel launches "
+          f"{star_lnlike_cuda.launches}; distance 95% interval ({d_lo:.3f}, {d_hi:.3f})")
+    star["polychord_seconds"] = pc_s
+    star["polychord_launches"] = star_lnlike_cuda.launches
+
+    bin32.name = "chip-smoke-binary"
+    star_lnlike_cuda.launches = 0
+    t0 = time.perf_counter()
+    df = fit_mcmc_convergent(bin32, sample_directory=os.path.join(workdir, "chains"),
+                             resultsdir=os.path.join(workdir, "results"), **CONVERGENT)
+    conv_s = time.perf_counter() - t0
+    n_conv = star_lnlike_cuda.launches
+    df2 = fit_mcmc_convergent(bin32, sample_directory=os.path.join(workdir, "chains"),
+                              resultsdir=os.path.join(workdir, "results"), **dict(CONVERGENT, maxiter=1, targetn=1e9))
+    if not (np.isfinite(df["lnprob"]).all() and np.isfinite(df2["lnprob"]).all()) or n_conv <= 0:
+        raise AssertionError("fit_mcmc_convergent: non-finite lnprob or no kernel launch")
+    print(f"[convergent] fit_mcmc_convergent {json.dumps(CONVERGENT)} f32: {conv_s:.3f} s, {len(df['lnprob'])} "
+          f"samples, kernel launches {n_conv}, distance median {np.median(df['distance']):.3f}; resumed for one more "
+          f"chunk: {len(df2['lnprob'])} samples")
+    star["convergent_seconds"] = conv_s
+    return star, tree_rec
+
+
+def _star_grad_points(ic, B, seed):
+    """``star_points`` over the grid's box in the first half (adversarial
+    blocks) and the bench box in the second."""
+    pts = star_points(ic.model.knots, 2, B, seed=seed)
+    pts[B // 2:] = star_points(ic.model.knots, 2, B - B // 2, seed=seed + 1, box=STAR_BOX)
+    return pts
+
+
 def main():
     import torch
 
@@ -3335,13 +3747,15 @@ def main():
     print(f"[nested] fit_multinest {json.dumps({k: v for k, v in NESTED.items()})} f32: {nest_s:.3f} s, "
           f"{res.n_iter} dead points, logz {res.logz:.4f} +- {res.logzerr:.4f}, ESS {res.ess:.1f}, "
           f"kernel launches {n_star}, posterior_predictive {bin32.posterior_predictive:.4f}")
-    print(f"[nested] posterior medians {json.dumps(med)}; distance 95% interval ({d_lo:.3f}, {d_hi:.3f})")
+    nested_lnprob = {"binary": np.quantile(bin32.samples["lnprob"], NUTS_LNPROB_Q)}
+    print(f"[nested] posterior medians {json.dumps(med)}; distance 95% interval ({d_lo:.3f}, {d_hi:.3f}); lnprob "
+          f"quantiles {NUTS_LNPROB_Q} {np.round(nested_lnprob['binary'], 3).tolist()}")
 
     # ---- 9-12. the tree kernel, the tree model, the entry point
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.environ.get("TMPDIR") or None)
     try:
         tree_record = phase_tree_kernel(dev, ic32, ic64, workdir)
-        n_tree = phase_tree_slice_and_fit(dev, ic32, ic64, workdir)
+        n_tree, nested_lnprob["tree"] = phase_tree_slice_and_fit(dev, ic32, ic64, workdir)
         del model32, model64, bin32, bin64, ic32
         torch.cuda.empty_cache()
         n_star_cli, n_tree_cli = phase_entry_point(dev, workdir)
@@ -3363,6 +3777,11 @@ def main():
         n_star_mist, n_tree_mist, n_gen_mist, mist_record = phase_mist(dev, workdir)
         # ---- 24. IsoTrackModel on those grids: lnpost_batch, both fits, a track-grid results file
         n_isotrack, isotrack_record = phase_isotrack(dev, workdir)
+        # ---- 25. the other engines: kernels A' and C', NUTS, PolyChord, the convergent harness
+        t25 = time.perf_counter()
+        grad_records = phase_grad_kernels(dev, ic32, ic64, workdir)
+        nuts_star, nuts_tree = phase_engines(dev, ic32, ic64, workdir, nested_lnprob)
+        print(f"[engines] phase 25 took {time.perf_counter() - t25:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     tree_record["launches"] = n_tree
@@ -3378,7 +3797,7 @@ def main():
                                         source="isochrones_torch/ops/interp.py",
                                         replaces="isochrones_tpu/ops/interp.py:483", dtype="float32")}))
     ms, plain_ms, bound_ms, bound_by = times[MAIN_SHAPE]
-    print(json.dumps({"kernels": [{
+    kernels_line = [{
         "name": "cluster_marginal", "route": "cuda",
         "source": "isochrones_torch/csrc/cluster_marginal.cu",
         "replaces": "isochrones_tpu/ops/cluster_pallas.py:78",
@@ -3410,7 +3829,14 @@ def main():
         "replaces": "isochrones_tpu/models/interpolator.py:109",
         "launches": n_gen, "library_ms": None, **gen_record, **forward_record,
         "launches_mist_entry_point": n_gen_mist, "ms_mist_grid": mist_record["generate_ms"],
-    }]}))
+    }]
+    print(json.dumps({"engines": {"nuts_binary": nuts_star, "nuts_tree": nuts_tree}}))
+    grad_records["star_lnlike_grad"].update(
+        launches=nuts_star["binary f32"]["launches_backward"],
+        launches_f64_fit=nuts_star["binary f64"]["launches_backward"])
+    grad_records["tree_lnlike_grad"].update(launches=nuts_tree["launches_backward"])
+    kernels_line.extend([grad_records["star_lnlike_grad"], grad_records["tree_lnlike_grad"]])
+    print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 

@@ -1,7 +1,8 @@
 // Grid interpolation shared by the kernels (star_lnlike.cu, tree_lnlike.cu,
 // catalog_lnlike.cu, generate.cu): the axis description, cell location, the
 // multilinear lerp of a group of lanes (or of one lane, with 16-byte row
-// loads) and the lerp's slope along one axis, with the semantics of the plain
+// loads), the lerp's slope along one axis and its vector-Jacobian product
+// along every axis (the backward kernels), with the semantics of the plain
 // version
 // (isochrones_torch/ops/interp.py): find_cells_1d's cell step for step (the
 // exact_affine fix-up, the two-step fix-up of the affine and log kinds,
@@ -353,6 +354,98 @@ __device__ void interp_group(const T* __restrict__ table, const Axis* axes, cons
     const T sum = group_sum<G>(out[c]);  // every lane shuffles, bad or not
     out[c] = bad ? T(NAN) : sum;
   }
+}
+
+// The values of one lane's multilinear interpolation (those of
+// interp_group<T, NDIM, 1, NC>, in another order of the same products) and
+// its vector-Jacobian product: gx[d] = the sum over the columns c whose value
+// is not NaN of g[c] * d out[c] / d x[d], in the closed form torch.autograd
+// takes through ops/interp.py's gradient-safe path: per corner i, s_i =
+// sum_c g[c] * corner value, times d w_i / d t_d (the product of the other
+// axes' factors, with the sign of the corner's side), summed, times dt/dx
+// (lerp_slope: 1 / den, 0 where t is a constant). A NaN value passes no
+// gradient, and at a NaN or out-of-bounds point every gx is 0 (the values
+// NaN). No shuffle or vote but the cell searches', which every lane of the
+// warp must reach (a lane with nothing to do passes a NaN point).
+template <typename T, int NDIM, int NC>
+__device__ void interp_vjp(const T* __restrict__ table, const Axis* axes, const T* x, int row_len, const int* cols,
+                           int ncols, const T* g, T* out, T* gx) {
+  AxisReads<T> reads[NDIM];
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) locate_reads<T, 1>(axes[d], x[d], 0, reads[d]);
+  bool bad = false;
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) bad = bad || isnan(x[d]) || x[d] < reads[d].first || x[d] > reads[d].last;
+  long long cell[NDIM];
+  T t[NDIM], den[NDIM];
+  long long stride[NDIM];
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) locate_finish<T, 1>(axes[d], x[d], bad, 0, reads[d], cell[d], t[d], &den[d]);
+  stride[NDIM - 1] = 1;
+#pragma unroll
+  for (int d = NDIM - 2; d >= 0; --d) stride[d] = stride[d + 1] * axes[d + 1].n;
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) gx[d] = T(0);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (c == ncols) break;
+    out[c] = bad ? T(NAN) : T(0);
+  }
+  if (bad) return;
+  auto row = [&](int i) {
+    long long r = 0;
+#pragma unroll
+    for (int d = 0; d < NDIM; ++d) r += clampll(cell[d] + ((i >> (NDIM - 1 - d)) & 1), 0, axes[d].n - 1) * stride[d];
+    return table + r * row_len;
+  };
+  // the weight of corner i without axis `skip`'s factor (skip = -1: all)
+  auto weight = [&](int i, int skip) {
+    T w = T(1);
+#pragma unroll
+    for (int d = 0; d < NDIM; ++d) {
+      if (d == skip) continue;
+      w = w * (((i >> (NDIM - 1 - d)) & 1) ? t[d] : T(1) - t[d]);
+    }
+    return w;
+  };
+#pragma unroll
+  for (int i = 0; i < (1 << NDIM); ++i) {
+    const T* r = row(i);
+    const T w = weight(i, -1);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c == ncols) break;
+      out[c] += w * __ldg(r + (cols ? cols[c] : c));
+    }
+  }
+  bool use[NC];
+  bool any = false;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    use[c] = c < ncols && !isnan(out[c]) && g[c] != T(0);
+    any = any || use[c];
+  }
+  if (!any) return;
+  T gt[NDIM];
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) gt[d] = T(0);
+#pragma unroll
+  for (int i = 0; i < (1 << NDIM); ++i) {
+    const T* r = row(i);
+    T s = T(0);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c == ncols) break;
+      if (use[c]) s += g[c] * __ldg(r + (cols ? cols[c] : c));
+    }
+#pragma unroll
+    for (int d = 0; d < NDIM; ++d) {
+      const T sw = s * weight(i, d);
+      gt[d] += ((i >> (NDIM - 1 - d)) & 1) ? sw : -sw;
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) gx[d] = lerp_slope(gt[d], den[d]);
 }
 
 // reference likelihood.py:10-13, with its +log(unc) constant

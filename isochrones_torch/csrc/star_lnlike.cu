@@ -170,6 +170,158 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 5 : 1) star_lnlike_kernel(c
   static_cast<T*>(a.ll)[b] = ll;
 }
 
+// ---- the backward kernel (A'): d ll, orig_val, deriv / d pars
+//
+// Replaces XLA's reverse-mode of the same function, which NUTS takes through
+// jax.value_and_grad of the fused posterior (isochrones_tpu/samplers/nuts.py:
+// 59-69, _safe_value_and_grad). Given the cotangents g_ll (B,), g_orig (B, N)
+// and g_deriv (B, N), it writes g_pars (B, N + 4): the gradient that
+// torch.autograd takes through the plain version (ops/star.py), whose rule it
+// keeps: a non-finite output passes no gradient (a row whose ll is not finite
+// passes none of g_ll, a NaN orig_val or deriv none of its cotangent).
+//
+// One lane a point (the simple design; parameter counts are at most 7). Pass
+// 1 recomputes the point's forward: each component's 6 pack columns and band
+// BCs (interp_group), magnitudes, the flux sum and ll. Then the cotangents
+// run backward in closed form: the Gaussian terms' (val - model) / unc^2,
+// the flux sum's weights f_c / sum f (a softmax over components), the
+// distance modulus' 5 / (d ln 10), the parallax' -1000 / d^2. Pass 2, per
+// component, takes the vector-Jacobian products of the BC lerp at (Teff, logg,
+// feh, AV) and of the model lerp (interp_common.cuh::interp_vjp: every axis'
+// slope, with autograd's conventions at knots), chaining the BC lookup's
+// coordinates into the model lerp's columns.
+//
+// What bounds it: as the forward, dependent gathers; it makes them twice (the
+// values, then the products), and its per-lane arrays live in local memory.
+// The bytes a call must move are the forward's parameters and rows plus the
+// cotangents in and the (B, N + 4) gradient out.
+
+struct StarGradArgs {
+  const void* g_ll;     // (B,)
+  const void* g_orig;   // (B, N)
+  const void* g_deriv;  // (B, N)
+  void* g_pars;         // (B, P)
+};
+
+constexpr double kLn10 = 2.302585092994045684;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) star_lnlike_grad_kernel(const __grid_constant__ StarArgs a,
+                                                                    const __grid_constant__ StarGradArgs ga) {
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (tid - (threadIdx.x & 31u) >= a.B) return;  // the whole warp lies past the batch
+  const bool valid = tid < a.B;
+  const long long b = valid ? tid : a.B - 1;
+  const int N = a.N;
+  const T* p = static_cast<const T*>(a.pars) + b * a.P;
+  const T* model = static_cast<const T*>(a.model);
+  const T* bc = static_cast<const T*>(a.bc);
+  const T age = p[N], feh = p[N + 1], dist = p[N + 2], av = p[N + 3];
+  // component c's parameter j (eep, age, feh, distance, AV); an idle lane's EEP is NaN: no reads
+  auto comp = [&](int c, int j) {
+    return j == 0 ? (valid ? p[c] : T(NAN)) : j == 1 ? age : j == 2 ? feh : j == 3 ? dist : av;
+  };
+  auto col = [&](int c, int j) { return j == 0 ? c : N + j - 1; };  // its column of pars
+  const int nb = a.n_bands;
+
+  // pass 1: the forward
+  T v6[kMaxStars][kPackCols];
+  T cm[kMaxStars][kMaxBands];  // component magnitudes, then their cotangents
+  T dmod[kMaxStars];
+  for (int c = 0; c < N; ++c) {
+    const T gx[3] = {comp(c, a.io[0]), comp(c, a.io[1]), comp(c, a.io[2])};
+    interp_group<T, 3, 1, kPackCols, 2>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, 0, v6[c]);
+    dmod[c] = T(5) * d_log10(comp(c, a.io[3]) / T(10));
+    if (nb > 0) {
+      T bcv[kMaxBands];
+      const T bx[4] = {v6[c][0], v6[c][1], v6[c][2], comp(c, a.io[4])};
+      interp_group<T, 4, 1, kMaxBands>(bc, a.bc_ax, bx, a.bc_ncols, a.band_cols, nb, 0, bcv);
+      for (int k = 0; k < nb; ++k) cm[c][k] = v6[c][3] + dmod[c] - bcv[k];
+    }
+  }
+  T mags[kMaxBands];
+  T fsum[kMaxBands];
+  for (int k = 0; k < nb; ++k) {
+    if (N == 1) {
+      mags[k] = cm[0][k];
+    } else {
+      T f = T(0);
+      for (int c = 0; c < N; ++c) f += d_pow(T(10), T(-0.4) * cm[c][k]);
+      fsum[k] = f;
+      mags[k] = T(-2.5) * d_log10(f);
+    }
+  }
+  T ll = T(0);
+  for (int k = 0; k < 3; ++k) {
+    if (a.has_spec[k]) ll += gauss_lnprob<T>(T(a.spec_val[k]), T(a.spec_unc[k]), v6[0][k]);
+  }
+  for (int k = 0; k < nb; ++k) ll += gauss_lnprob<T>(T(a.mag_val[k]), T(a.mag_unc[k]), mags[k]);
+  if (a.dist_idx >= 0) ll += gauss_lnprob<T>(T(a.plax), T(a.plax_unc), T(1000) / p[a.dist_idx]);
+  const T gl = valid && !isnan(ll) && !isinf(ll) ? static_cast<const T*>(ga.g_ll)[b] : T(0);
+
+  // the cotangents, backward
+  T gp[kMaxStars + 4];
+  for (int j = 0; j < N + 4; ++j) gp[j] = T(0);
+  T g6[kMaxStars][kPackCols];
+  for (int c = 0; c < N; ++c) {
+    for (int k = 0; k < 4; ++k) g6[c][k] = T(0);
+    g6[c][4] = valid ? static_cast<const T*>(ga.g_orig)[b * N + c] : T(0);
+    g6[c][5] = valid ? static_cast<const T*>(ga.g_deriv)[b * N + c] : T(0);
+  }
+  if (gl != T(0)) {
+    for (int k = 0; k < 3; ++k) {
+      if (a.has_spec[k]) g6[0][k] = gl * (T(a.spec_val[k]) - v6[0][k]) / (T(a.spec_unc[k]) * T(a.spec_unc[k]));
+    }
+    for (int k = 0; k < nb; ++k) {
+      const T g_mag = gl * (T(a.mag_val[k]) - mags[k]) / (T(a.mag_unc[k]) * T(a.mag_unc[k]));
+      for (int c = 0; c < N; ++c) cm[c][k] = N == 1 ? g_mag : g_mag * d_pow(T(10), T(-0.4) * cm[c][k]) / fsum[k];
+    }
+    if (a.dist_idx >= 0) {
+      const T d = p[a.dist_idx];
+      const T r = gl * (T(a.plax) - T(1000) / d) / (T(a.plax_unc) * T(a.plax_unc));
+      gp[a.dist_idx] += r * (T(-1000) / (d * d));
+    }
+  } else {
+    for (int c = 0; c < N; ++c)
+      for (int k = 0; k < nb; ++k) cm[c][k] = T(0);
+  }
+
+  // pass 2: per component, the BC lerp's and the model lerp's products
+  for (int c = 0; c < N; ++c) {
+    T g_dmod = T(0);
+    for (int k = 0; k < nb; ++k) g_dmod += cm[c][k];
+    g6[c][3] = g_dmod;
+    if (nb > 0) {
+      T g_bc[kMaxBands], bcv[kMaxBands], gbx[4];
+      for (int k = 0; k < nb; ++k) g_bc[k] = -cm[c][k];
+      const T bx[4] = {v6[c][0], v6[c][1], v6[c][2], comp(c, a.io[4])};
+      interp_vjp<T, 4, kMaxBands>(bc, a.bc_ax, bx, a.bc_ncols, a.band_cols, nb, g_bc, bcv, gbx);
+      for (int k = 0; k < 3; ++k) g6[c][k] += gbx[k];
+      gp[col(c, a.io[4])] += gbx[3];
+    }
+    T vals[kPackCols], ggx[3];
+    const T gx[3] = {comp(c, a.io[0]), comp(c, a.io[1]), comp(c, a.io[2])};
+    interp_vjp<T, 3, kPackCols>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, g6[c], vals, ggx);
+    for (int k = 0; k < 3; ++k) gp[col(c, a.io[k])] += ggx[k];
+    if (g_dmod != T(0)) gp[col(c, a.io[3])] += g_dmod * (T(5) / (comp(c, a.io[3]) * T(kLn10)));
+  }
+  if (!valid) return;
+  T* out = static_cast<T*>(ga.g_pars) + b * a.P;
+  for (int j = 0; j < a.P; ++j) out[j] = gp[j];
+}
+
+template <typename T>
+int launch_grad(const StarArgs* args, const StarGradArgs* grad, void* stream) {
+  const StarArgs& a = *args;
+  if (a.B < 0 || a.N < 1 || a.N > kMaxStars || a.P != a.N + 4 || a.n_bands < 0 || a.n_bands > kMaxBands)
+    return (int)cudaErrorInvalidValue;
+  if (a.B == 0) return 0;
+  const long long blocks = (a.B + kThreads - 1) / kThreads;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  star_lnlike_grad_kernel<T><<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, *grad);
+  return (int)cudaGetLastError();
+}
+
 // log2 of the component groups per team: N rounded up to a power of two
 int team_shift(int N) { return N == 1 ? 0 : (N == 2 ? 1 : 2); }
 
@@ -224,6 +376,17 @@ int star_lnlike_f32(const void* args, void* stream) {
 
 int star_lnlike_f64(const void* args, void* stream) {
   return launch<double>(static_cast<const StarArgs*>(args), stream);
+}
+
+int star_lnlike_grad_args_size() { return (int)sizeof(StarGradArgs); }
+
+// `grad` points to a StarGradArgs: the cotangents and the gradient's output
+int star_lnlike_grad_f32(const void* args, const void* grad, void* stream) {
+  return launch_grad<float>(static_cast<const StarArgs*>(args), static_cast<const StarGradArgs*>(grad), stream);
+}
+
+int star_lnlike_grad_f64(const void* args, const void* grad, void* stream) {
+  return launch_grad<double>(static_cast<const StarArgs*>(args), static_cast<const StarGradArgs*>(grad), stream);
 }
 
 }  // extern "C"

@@ -306,6 +306,252 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : 1)
   if (valid && j == 0) static_cast<T*>(a.ll)[b] = ll;
 }
 
+// ---- the backward kernel (C'): d ll, orig_val, deriv / d pars
+//
+// Replaces XLA's reverse-mode of the tree posterior (the likelihood of
+// isochrones_tpu/observation.py:1269-1361 and the prior's lerped columns,
+// isochrones_tpu/treemodel.py:370-406), which NUTS takes through
+// jax.value_and_grad. Given the cotangents g_ll (B,), g_orig (B, n_stars) and
+// g_deriv (B, n_stars), it writes g_pars (B, P): the gradient that
+// torch.autograd takes through the plain version (ops/tree.py), whose rule it
+// keeps: a non-finite output passes no gradient (a row whose ll is not finite
+// passes none of g_ll, a NaN orig_val or deriv none of its cotangent; a NaN
+// flux and an inactive row pass none).
+//
+// One lane a point (the simple design). Pass 1 recomputes the forward per
+// star: its pack columns (kept), density, BCs and fluxes, summed into the
+// rows' flux sums in star order (the forward's order, 0 * inf kept), then the
+// rows' magnitudes and ll. The cotangents run backward in closed form: each
+// active row's (val - mod) / unc^2 onto its magnitude and, for a relative
+// row, minus onto its reference row's; a row magnitude's -2.5 / (sum ln 10)
+// onto its flux sum; the spectroscopy rows' onto the stars' properties; the
+// parallax' -1000 / d^2 and the AV terms onto their parameters. Pass 2, per
+// star, recomputes the BCs and fluxes, gathers each band's cotangent from the
+// rows that hold the star, takes it through the flux (-0.4 ln 10 f), the
+// distance modulus and the BC lerp's vector-Jacobian product
+// (interp_common.cuh::interp_vjp) into the pack columns, adds the density's
+// and the model lerp's products, and scatters the star's five partials into
+// its parameter columns (the thread owns its row of g_pars).
+//
+// What bounds it: as the forward, dependent gathers, made twice, with the
+// per-lane row and star arrays in local memory. The bytes a call must move
+// are the forward's parameters and rows plus the cotangents in and the
+// (B, P) gradient out.
+
+struct TreeGradArgs {
+  const void* g_ll;     // (B,)
+  const void* g_orig;   // (B, n_stars)
+  const void* g_deriv;  // (B, n_stars)
+  void* g_pars;         // (B, P)
+};
+
+constexpr double kLn10 = 2.302585092994045684;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) tree_lnlike_grad_kernel(const __grid_constant__ TreeArgs a,
+                                                                    const __grid_constant__ TreeGradArgs ga) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  {
+    const uint4* src = static_cast<const uint4*>(a.plan);
+    uint4* dst = reinterpret_cast<uint4*>(smem);
+    for (int i = threadIdx.x; i < (a.plan_bytes >> 4); i += kThreads) dst[i] = src[i];
+  }
+  __syncthreads();
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (tid - (threadIdx.x & 31u) >= a.B) return;  // the whole warp lies past the batch
+  const bool valid = tid < a.B;
+  const long long b = valid ? tid : a.B - 1;
+  const int n_stars = a.n_stars, n_obs = a.n_obs, nb = a.n_bands;
+  const T* p = static_cast<const T*>(a.pars) + b * a.P;
+  const T* model = static_cast<const T*>(a.model);
+  const T* dens_table = static_cast<const T*>(a.dens_table);
+  const T* bc = static_cast<const T*>(a.bc);
+
+  const T* obs_val = reinterpret_cast<const T*>(smem);
+  const T* obs_unc = obs_val + n_obs;
+  const T* spec_val = obs_unc + n_obs;
+  const T* spec_unc = spec_val + a.n_spec;
+  const T* lim_lo = spec_unc + a.n_spec;
+  const T* lim_hi = lim_lo + a.n_lim;
+  const T* plax_val = lim_hi + a.n_lim;
+  const T* plax_unc = plax_val + a.n_plax;
+  const T* av_val = plax_unc + a.n_plax;
+  const T* av_unc = av_val + a.n_av;
+  const unsigned* obs_desc = reinterpret_cast<const unsigned*>(av_unc + a.n_av);
+  const unsigned* spec_desc = obs_desc + n_obs;
+  const unsigned* lim_desc = spec_desc + a.n_spec;
+  const unsigned* plax_idx = lim_desc + a.n_lim;
+  const unsigned* av_idx = plax_idx + a.n_plax;
+
+  // star s's parameter j (eep, age, feh, distance, AV); an idle lane's EEP is NaN: no reads
+  auto spar = [&](int s, int j) { return j == 0 && !valid ? T(NAN) : p[a.star_par[s][j]]; };
+
+  // pass 1: the forward
+  T v6[kMaxStars][kPackCols];
+  T prop[kMaxStars][4];
+  T rowsum[kMaxObs];
+  unsigned long long off_grid = 0ull;
+  for (int o = 0; o < n_obs; ++o) rowsum[o] = T(0);
+  for (int s = 0; s < n_stars; ++s) {
+    const T gx[3] = {spar(s, a.io[0]), spar(s, a.io[1]), spar(s, a.io[2])};
+    interp_group<T, 3, 1, kPackCols, 2>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, 0, v6[s]);
+    T dens = T(0);
+    if (dens_table != nullptr) {
+      T d[1];
+      interp_group<T, 3, 1, 1>(dens_table, a.model_ax, gx, a.dens_row_len, &a.dens_col, 1, 0, d);
+      dens = d[0];
+    }
+    prop[s][0] = v6[s][0];
+    prop[s][1] = v6[s][1];
+    prop[s][2] = v6[s][2];
+    prop[s][3] = dens;
+    if (n_obs > 0) {
+      T flux[kMaxBands];
+      const T bx[4] = {v6[s][0], v6[s][1], v6[s][2], spar(s, a.io[4])};
+      interp_group<T, 4, 1, kMaxBands>(bc, a.bc_ax, bx, a.bc_ncols, a.band_cols, nb, 0, flux);
+      const T dist_mod = T(5) * d_log10(spar(s, a.io[3]) / T(10));
+      for (int k = 0; k < nb; ++k) flux[k] = d_pow(T(10), T(-0.4) * (v6[s][3] + dist_mod - flux[k]));
+      for (int o = 0; o < n_obs; ++o) {
+        const unsigned d = obs_desc[o];
+        const T f = flux[d & 15u];
+        const bool f_nan = isnan(f);
+        const bool m = (d >> (16 + s)) & 1u;
+        rowsum[o] += (f_nan ? T(0) : f) * (m ? T(1) : T(0));
+        if (f_nan && m) off_grid |= 1ull << o;
+      }
+    }
+  }
+  T mag[kMaxObs];
+  for (int o = 0; o < n_obs; ++o) mag[o] = ((off_grid >> o) & 1ull) ? T(NAN) : T(-2.5) * d_log10(rowsum[o]);
+  T ll = T(0);
+  bool bad = false;
+  for (int o = 0; o < n_obs; ++o) {
+    const unsigned d = obs_desc[o];
+    if (((d >> 11) & 1u) == 0) continue;
+    const int ref = (int)((d >> 4) & 127u) - 1;
+    const T mo = mag[o];
+    const T mr = ref >= 0 ? mag[ref] : T(0);
+    const T val = ref >= 0 ? obs_val[o] - obs_val[ref] : obs_val[o];
+    ll += tree_gauss<T>(val, obs_unc[o], ref >= 0 ? mo - mr : mo);
+    if (!finite_t(mo) || !finite_t(mr)) bad = true;
+  }
+  for (int r = 0; r < a.n_spec; ++r) {
+    const unsigned d = spec_desc[r];
+    const T mod = prop[d & 255u][d >> 8];
+    ll += tree_gauss<T>(spec_val[r], spec_unc[r], mod);
+    if (!finite_t(mod)) bad = true;
+  }
+  for (int r = 0; r < a.n_lim; ++r) {
+    const unsigned d = lim_desc[r];
+    const T mod = prop[d & 255u][d >> 8];
+    if (mod < lim_lo[r] || mod > lim_hi[r] || !finite_t(mod)) bad = true;
+  }
+  for (int r = 0; r < a.n_plax; ++r) ll += tree_gauss<T>(plax_val[r], plax_unc[r], T(1000) / p[plax_idx[r]]);
+  for (int r = 0; r < a.n_av; ++r) ll += tree_gauss<T>(av_val[r], av_unc[r], p[av_idx[r]]);
+  const T gl = valid && !bad && finite_t(ll) ? static_cast<const T*>(ga.g_ll)[b] : T(0);
+
+  // the cotangents, backward: rows' magnitudes (in mag), their flux sums (in rowsum), the stars' properties
+  T* out = static_cast<T*>(ga.g_pars) + b * a.P;
+  if (valid) {
+    for (int j = 0; j < a.P; ++j) out[j] = T(0);
+  }
+  T gprop[kMaxStars][4];
+  for (int s = 0; s < n_stars; ++s)
+    for (int q = 0; q < 4; ++q) gprop[s][q] = T(0);
+  T gmag[kMaxObs];
+  for (int o = 0; o < n_obs; ++o) gmag[o] = T(0);
+  if (gl != T(0)) {
+    for (int o = 0; o < n_obs; ++o) {
+      const unsigned d = obs_desc[o];
+      if (((d >> 11) & 1u) == 0) continue;
+      const int ref = (int)((d >> 4) & 127u) - 1;
+      const T mod = ref >= 0 ? mag[o] - mag[ref] : mag[o];
+      const T val = ref >= 0 ? obs_val[o] - obs_val[ref] : obs_val[o];
+      const T r = gl * (val - mod) / (obs_unc[o] * obs_unc[o]);
+      gmag[o] += r;
+      if (ref >= 0) gmag[ref] -= r;
+    }
+    for (int r = 0; r < a.n_spec; ++r) {
+      const unsigned d = spec_desc[r];
+      const T mod = prop[d & 255u][d >> 8];
+      gprop[d & 255u][d >> 8] += gl * (spec_val[r] - mod) / (spec_unc[r] * spec_unc[r]);
+    }
+    if (valid) {
+      for (int r = 0; r < a.n_plax; ++r) {
+        const T dd = p[plax_idx[r]];
+        out[plax_idx[r]] += gl * (plax_val[r] - T(1000) / dd) / (plax_unc[r] * plax_unc[r]) * (T(-1000) / (dd * dd));
+      }
+      for (int r = 0; r < a.n_av; ++r) {
+        const T av = p[av_idx[r]];
+        out[av_idx[r]] += gl * (av_val[r] - av) / (av_unc[r] * av_unc[r]);
+      }
+    }
+  }
+  for (int o = 0; o < n_obs; ++o) rowsum[o] = gmag[o] != T(0) ? gmag[o] * T(-2.5) / (rowsum[o] * T(kLn10)) : T(0);
+
+  // pass 2: per star, the fluxes', the BC lerp's, the density's and the model lerp's products
+  for (int s = 0; s < n_stars; ++s) {
+    const T gx[3] = {spar(s, a.io[0]), spar(s, a.io[1]), spar(s, a.io[2])};
+    T g6[kPackCols] = {gprop[s][0], gprop[s][1], gprop[s][2], T(0), T(0), T(0)};
+    g6[4] = valid ? static_cast<const T*>(ga.g_orig)[b * n_stars + s] : T(0);
+    g6[5] = valid ? static_cast<const T*>(ga.g_deriv)[b * n_stars + s] : T(0);
+    T gsp[5] = {T(0), T(0), T(0), T(0), T(0)};
+    T g_dmod = T(0);
+    if (n_obs > 0) {
+      T bcv[kMaxBands], g_bc[kMaxBands], gbx[4];
+      const T bx[4] = {v6[s][0], v6[s][1], v6[s][2], spar(s, a.io[4])};
+      interp_group<T, 4, 1, kMaxBands>(bc, a.bc_ax, bx, a.bc_ncols, a.band_cols, nb, 0, bcv);
+      const T dist_mod = T(5) * d_log10(spar(s, a.io[3]) / T(10));
+      for (int k = 0; k < nb; ++k) {
+        const T m = v6[s][3] + dist_mod - bcv[k];
+        const T f = d_pow(T(10), T(-0.4) * m);
+        T gf = T(0);
+        if (finite_t(m)) {  // a non-finite magnitude's flux passes no gradient
+          for (int o = 0; o < n_obs; ++o) {
+            const unsigned d = obs_desc[o];
+            if ((int)(d & 15u) == k && ((d >> (16 + s)) & 1u)) gf += rowsum[o];
+          }
+        }
+        const T gm = gf != T(0) ? gf * f * T(-0.4 * kLn10) : T(0);
+        g_dmod += gm;
+        g_bc[k] = -gm;
+      }
+      g6[3] = g_dmod;
+      interp_vjp<T, 4, kMaxBands>(bc, a.bc_ax, bx, a.bc_ncols, a.band_cols, nb, g_bc, bcv, gbx);
+      for (int k = 0; k < 3; ++k) g6[k] += gbx[k];
+      gsp[a.io[4]] += gbx[3];
+    }
+    if (dens_table != nullptr) {
+      T dv[1], gdx[3];
+      interp_vjp<T, 3, 1>(dens_table, a.model_ax, gx, a.dens_row_len, &a.dens_col, 1, &gprop[s][3], dv, gdx);
+      for (int k = 0; k < 3; ++k) gsp[a.io[k]] += gdx[k];
+    }
+    T vals[kPackCols], ggx[3];
+    interp_vjp<T, 3, kPackCols>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, g6, vals, ggx);
+    for (int k = 0; k < 3; ++k) gsp[a.io[k]] += ggx[k];
+    if (g_dmod != T(0)) gsp[a.io[3]] += g_dmod * (T(5) / (spar(s, a.io[3]) * T(kLn10)));
+    if (valid) {
+      for (int j = 0; j < 5; ++j) out[a.star_par[s][j]] += gsp[j];
+    }
+  }
+}
+
+template <typename T>
+int launch_grad(const TreeArgs* args, const TreeGradArgs* grad, void* stream) {
+  const TreeArgs& a = *args;
+  if (a.B < 0 || a.P < 5 || a.n_stars < 1 || a.n_stars > kMaxStars || a.n_obs < 0 || a.n_obs > kMaxObs ||
+      a.n_bands < 0 || a.n_bands > kMaxBands || a.n_spec < 0 || a.n_spec > kMaxProps || a.n_lim < 0 ||
+      a.n_lim > kMaxProps || a.n_plax < 0 || a.n_plax > kMaxStars || a.n_av < 0 || a.n_av > kMaxStars ||
+      a.plan_bytes < 0 || (a.plan_bytes & 15) != 0 || a.plan_bytes > kStaticShared)
+    return (int)cudaErrorInvalidValue;
+  if (a.B == 0) return 0;
+  const long long blocks = (a.B + kThreads - 1) / kThreads;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  tree_lnlike_grad_kernel<T><<<(unsigned)blocks, kThreads, (size_t)a.plan_bytes, static_cast<cudaStream_t>(stream)>>>(
+      a, *grad);
+  return (int)cudaGetLastError();
+}
+
 // log2 of the star groups per team: n_stars rounded up to a power of two
 int team_shift(int n_stars) {
   int shift = 0;
@@ -404,6 +650,17 @@ int tree_lnlike_f32(const void* args, void* stream) {
 
 int tree_lnlike_f64(const void* args, void* stream) {
   return launch<double>(static_cast<const TreeArgs*>(args), stream);
+}
+
+int tree_lnlike_grad_args_size() { return (int)sizeof(TreeGradArgs); }
+
+// `grad` points to a TreeGradArgs: the cotangents and the gradient's output
+int tree_lnlike_grad_f32(const void* args, const void* grad, void* stream) {
+  return launch_grad<float>(static_cast<const TreeArgs*>(args), static_cast<const TreeGradArgs*>(grad), stream);
+}
+
+int tree_lnlike_grad_f64(const void* args, const void* grad, void* stream) {
+  return launch_grad<double>(static_cast<const TreeArgs*>(args), static_cast<const TreeGradArgs*>(grad), stream);
 }
 
 }  // extern "C"

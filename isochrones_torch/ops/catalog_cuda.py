@@ -31,6 +31,7 @@ import weakref
 import torch
 
 from ._build import load_library
+from ._grad import refuse_grad
 from .catalog import CONST_NAMES, CatalogLikelihood, CatalogPriors
 from .star_cuda import _Axis, _axes
 
@@ -190,6 +191,7 @@ def _launch(fn, call, dev, name):
 def catalog_lnlike_cuda(pars: torch.Tensor, lk: CatalogLikelihood):
     """``(ll, orig_val, deriv)``, each ``(S, B)``, from one kernel launch.
     Raises on anything the kernel does not take, and if the launch fails."""
+    refuse_grad("catalog_lnlike_cuda", pars)
     pars, S, B = _check_points(pars, lk, "catalog_lnlike_cuda")
     dt, dev = pars.dtype, pars.device
     lib = _lib()
@@ -208,6 +210,7 @@ def catalog_lnpost_cuda(x: torch.Tensor, lk: CatalogLikelihood, pri: CatalogPrio
     (S, 5); ``orig_val`` only when the mass prior's flag is off (the caller
     adds that term). Raises on anything the kernel does not take, and if the
     launch fails."""
+    refuse_grad("catalog_lnpost_cuda", x, his)
     x, S, B = _check_points(x, lk, "catalog_lnpost_cuda")
     dt, dev = x.dtype, x.device
     lib = _lib()

@@ -23,6 +23,7 @@ import functools
 import torch
 
 from ._build import load_library
+from ._grad import refuse_grad
 
 __all__ = ["trapezoid_weights", "cluster_lnmarginal_cuda"]
 
@@ -101,6 +102,8 @@ def cluster_lnmarginal_cuda(
     """(W, S) ln marginals from one kernel launch (plus its small combine
     pass); -inf where a star has no support. Raises on anything the kernel
     does not take, and if the launch fails."""
+    refuse_grad("cluster_lnmarginal_cuda", lnlike_prop, model_mags, masses, ln_dm_deeps, eeps, mag_values, mag_uncs,
+                alpha, gamma, fB, mass_lo, mass_hi, q_lo)
     W, S, E = lnlike_prop.shape
     dt, dev = lnlike_prop.dtype, lnlike_prop.device
     if dev.type != "cuda":

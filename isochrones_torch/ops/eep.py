@@ -12,8 +12,8 @@ Counterpart of ``isochrones_tpu/ops/eep.py``:
 * :func:`get_eep_newton` (reference ``isochrones/models.py:544-578``): a
   damped Newton iteration on the residual of the interpolated column, the
   derivative taken by ``torch.autograd`` through :func:`interp_nd` (the
-  lerp's slope in the located cell; 0 at an exact top knot and at a NaN or
-  out-of-bounds point, where the step is then not finite and the old value is
+  lerp's slope in the located cell; 0 at an exact top knot, and where the
+  residual is NaN, where the step is then not finite and the old value is
   kept), or with ``closed_slope`` by :func:`newton_slope`.
 * :func:`newton_slope`: that derivative in closed form, the plain version of
   what the forward-model kernel computes (``csrc/interp_common.cuh::
@@ -131,15 +131,17 @@ def interp_eep(
 def newton_slope(grid: GridData, points: torch.Tensor, icol: int):
     """``(value, slope)`` of column ``icol`` at ``points`` (..., ndim): the
     value as :func:`interp_nd` gives it, and its derivative along the last
-    axis as ``torch.autograd`` takes it through :func:`find_cells_1d` and
-    :func:`interp_nd`, in closed form: the sum over the other axes' corners
-    of their weight times (upper - lower corner value), times dt/dx. dt/dx is
-    ``1 / step`` for the ``exact_affine`` kind and ``1 / (hi - lo)`` (through
-    ``_safe_div``) for the others, and 0 where t is replaced by a constant (an
-    exact knot on the searchsorted path, the top knot's ``_pin_top``), whatever
-    the corners hold. A NaN-padded corner gives a NaN slope, as its 0 * NaN
-    gives a NaN value; at a NaN or out-of-bounds point the corners enter
-    times 0, as autograd's zero gradient does."""
+    axis in closed form, as ``torch.autograd`` takes it through
+    :func:`find_cells_1d` and :func:`interp_nd` where the value is finite:
+    the sum over the other axes' corners of their weight times (upper - lower
+    corner value), times dt/dx. dt/dx is ``1 / step`` for the
+    ``exact_affine`` kind and ``1 / (hi - lo)`` (through ``_safe_div``) for
+    the others, and 0 where t is replaced by a constant (an exact knot on the
+    searchsorted path, the top knot's ``_pin_top``), whatever the corners
+    hold. A NaN-padded corner gives a NaN slope, as its 0 * NaN gives a NaN
+    value and as ``jax.grad`` of the JAX package's ``interp_nd`` gives it
+    (autograd passes 0 through the port's NaN value); at a NaN or
+    out-of-bounds point the corners enter times 0."""
     knots, maps = grid.knots, grid.axis_maps or (None,) * len(grid.knots)
     ndim = len(knots)
     batch_shape = points.shape[:-1]

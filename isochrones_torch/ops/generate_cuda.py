@@ -46,6 +46,7 @@ import weakref
 import torch
 
 from ._build import load_library
+from ._grad import refuse_grad
 from .catalog_cuda import compact_table
 from .generate import ForwardModel, NewtonGrid
 from .star_cuda import _KINDS, _Axis, _axes
@@ -254,6 +255,7 @@ def _point_args(call, xs):
 
 
 def _forward(fm, mass, age, feh, distance, AV, prop_icols, band_icols, eeps, all_As, accurate, resid_tol, fn):
+    refuse_grad(fn, mass, age, feh, distance, AV, eeps)
     prop_icols = tuple(int(c) for c in prop_icols)
     if len(prop_icols) > MAX_PROPS:
         raise ValueError(f"forward-model kernel takes at most {MAX_PROPS} model columns, got {len(prop_icols)}")
@@ -311,6 +313,7 @@ def generate_accurate_cuda(fm: ForwardModel, mass, age, feh, distance, AV, prop_
 
 
 def _eep_only(fm, mass, age, feh, mode, resid_tol, fn):
+    refuse_grad(fn, mass, age, feh)
     n = _check_inputs([mass, age, feh], ["mass", "age", "feh"], fn)
     dt, dev = mass.dtype, mass.device
     call = _GenerateArgs.from_buffer_copy(_template(fm, (), dt, dev, mode == _ACCURATE_EEP))
@@ -343,6 +346,7 @@ def eep_newton_cuda(ng: NewtonGrid, seed, target, x0, x1, resid_tol=0.02):
     """get_eep_newton's EEP ``(N,)`` from the seeds ``seed`` for ``target``
     of column ``ng.icol`` at grid coordinates ``(x0, x1, eep)``, then the
     ``resid_tol`` cut (NaN past it), in one launch."""
+    refuse_grad("eep_newton_cuda", seed, target, x0, x1)
     n = _check_inputs([target, x0, x1, seed], ["target", "x0", "x1", "seed"], "eep_newton_cuda")
     dt, dev = target.dtype, target.device
 

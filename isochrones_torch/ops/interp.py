@@ -123,6 +123,11 @@ def compute_axis_maps(knots, rtol=1e-5) -> Tuple:
     return tuple(maps)
 
 
+def _tracks_grad(x: torch.Tensor) -> bool:
+    """Whether autograd records the operations on ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def _safe_div(num, denom):
     return num / torch.where(denom == 0, torch.ones_like(denom), denom)
 
@@ -198,7 +203,8 @@ def corner_data(
 ):
     """Gather the ``2**ndim`` corner rows and lerp weights for a batch of
     points. values : (n0..nk, C); points : (B, ndim). Returns ``(corners
-    (B, 2**ndim, n_icols), weights (B, 2**ndim), bad (B,))``."""
+    (B, 2**ndim, n_icols), weights (B, 2**ndim), bad (B,))``. Where autograd
+    records the call, a bad point's ``t`` is zeroed (see :func:`interp_nd`)."""
     ndim = len(knots)
     dims = values.shape[:-1]
     ncols = values.shape[-1]
@@ -212,6 +218,11 @@ def corner_data(
         cells.append(cell)
         ts.append(t)
         bad = bad | oob
+
+    if _tracks_grad(points):
+        # double-where: a bad point's t may be NaN, and reverse mode would
+        # multiply the zero cotangent of its masked row into it
+        ts = [torch.where(bad, torch.zeros_like(t), t) for t in ts]
 
     strides = [1] * ndim
     for d in range(ndim - 2, -1, -1):
@@ -249,13 +260,30 @@ def interp_nd(
     icols  : column indices (None = all columns)
     axis_maps : per-axis analytic index maps (compute_axis_maps)
 
-    Returns (..., n_icols); NaN rows for NaN/out-of-bounds queries.
+    Returns (..., n_icols); NaN rows for NaN/out-of-bounds queries. The
+    gradient is the lerp's slope: dt/dx is ``1 / step`` or ``1 / (hi - lo)``,
+    and 0 where t is a constant (an exact knot on the searchsorted path,
+    ``_pin_top``'s top knot). A NaN output passes no gradient: at a bad
+    point, or in a column with a NaN-padded corner, it is 0 (the JAX
+    package's is NaN there, from the corner's ``0 * NaN``). The backward
+    kernels of the fused likelihoods keep this rule.
     """
     batch_shape = points.shape[:-1]
     pts = points.reshape(-1, points.shape[-1])
     corners, weights, bad = corner_data(values, knots, pts, icols=icols, axis_maps=axis_maps)
+    corners = corners.to(weights.dtype)
+    if _tracks_grad(pts):
+        # The same values with a gradient that a NaN output does not poison:
+        # a NaN corner is zeroed before the product (double-where) and its
+        # column masked after it, so a NaN value passes no gradient and a
+        # finite one its lerp's slope.
+        nan_corner = torch.isnan(corners)
+        out = (weights[..., None] * torch.where(nan_corner, torch.zeros_like(corners), corners)).sum(dim=1)
+        bad_col = bad[:, None] | nan_corner.any(dim=1)
+        out = torch.where(bad_col, torch.full_like(out, float("nan")), out)
+        return out.reshape(batch_shape + (out.shape[-1],))
     # elementwise products summed over corners: 0 * NaN stays NaN
-    out = (weights[..., None] * corners.to(weights.dtype)).sum(dim=1)
+    out = (weights[..., None] * corners).sum(dim=1)
     out = torch.where(bad[:, None], torch.full_like(out, float("nan")), out)
     return out.reshape(batch_shape + (out.shape[-1],))
 

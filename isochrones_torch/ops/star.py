@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .interp import GridData, interp_nd
+from .interp import GridData, _tracks_grad, interp_nd
 from .likelihood import gauss_lnprob, spectroscopy_lnlike, stack_components
 
 __all__ = ["StarLikelihood", "star_lnlike_fused_plain", "star_lnlike_fused"]
@@ -51,23 +51,16 @@ class StarLikelihood:
     dist_idx: int = -1  # parameter column of the distance
 
 
-def star_lnlike_fused_plain(pars: torch.Tensor, lk: StarLikelihood):
-    """(B, N+4) -> (ll (B,), orig_val (B, N), deriv (B, N)) in plain torch
-    ops, on any device."""
+def _star_ll(pars, comp, vals6, lk: StarLikelihood):
+    """The likelihood of :func:`star_lnlike_fused_plain` from the components'
+    parameters and their interpolated pack columns."""
     N = lk.n_stars
     io = lk.index_order
-    comp = stack_components(pars, N)  # (B, N, 5)
-    grid_pts = torch.stack([comp[..., io[0]], comp[..., io[1]], comp[..., io[2]]], dim=-1)
-    pack6 = lk.pack6
-    vals6 = interp_nd(pack6.values, pack6.knots, grid_pts, icols=(0, 1, 2, 3, 4, 5),
-                      axis_maps=pack6.axis_maps)  # (B, N, 6)
-    mbol = vals6[..., 3]
-
     bc = lk.bc
     bc_pts = torch.stack([vals6[..., 0], vals6[..., 1], vals6[..., 2], comp[..., io[4]]], dim=-1)
     bc_vals = interp_nd(bc.values, bc.knots, bc_pts, icols=lk.band_icols, axis_maps=bc.axis_maps)
     dist_mod = 5.0 * torch.log10(comp[..., io[3]] / 10.0)
-    comp_mags = mbol[..., None] + dist_mod[..., None] - bc_vals  # (B, N, n_bands)
+    comp_mags = vals6[..., 3:4] + dist_mod[..., None] - bc_vals  # (B, N, n_bands)
     if N == 1:
         mags = comp_mags[..., 0, :]
     else:
@@ -82,6 +75,32 @@ def star_lnlike_fused_plain(pars: torch.Tensor, lk: StarLikelihood):
     if lk.parallax is not None:
         plax, plax_unc = lk.parallax
         ll = ll + gauss_lnprob(float(plax), float(plax_unc), 1000.0 / pars[..., lk.dist_idx])
+    return ll
+
+
+def star_lnlike_fused_plain(pars: torch.Tensor, lk: StarLikelihood):
+    """(B, N+4) -> (ll (B,), orig_val (B, N), deriv (B, N)) in plain torch
+    ops, on any device.
+
+    Its gradient, where ``pars`` require one: a non-finite output passes
+    none back. A row whose ``ll`` is not finite sees its inputs detached in
+    the likelihood (double-where on the row), and a NaN ``orig_val`` or
+    ``deriv`` passes none through :func:`interp_nd`. The
+    backward kernel (``csrc/star_lnlike.cu``) holds to the same rule."""
+    N = lk.n_stars
+    io = lk.index_order
+    comp = stack_components(pars, N)  # (B, N, 5)
+    grid_pts = torch.stack([comp[..., io[0]], comp[..., io[1]], comp[..., io[2]]], dim=-1)
+    pack6 = lk.pack6
+    vals6 = interp_nd(pack6.values, pack6.knots, grid_pts, icols=(0, 1, 2, 3, 4, 5),
+                      axis_maps=pack6.axis_maps)  # (B, N, 6)
+    ll = _star_ll(pars, comp, vals6, lk)
+    if _tracks_grad(pars):
+        keep = torch.isfinite(ll.detach())[..., None]
+        if not bool(keep.all()):  # recompute with the non-finite rows' inputs detached
+            pars_l = torch.where(keep, pars, pars.detach())
+            vals6_l = torch.where(keep[..., None], vals6, vals6.detach())
+            ll = _star_ll(pars_l, stack_components(pars_l, N), vals6_l, lk)
     return ll, vals6[..., 4], vals6[..., 5]
 
 

@@ -12,6 +12,13 @@ observed values), built once per :class:`~isochrones_torch.ops.star.StarLikeliho
 and patched with the per-call pointers. The kernel gives each (point,
 component) a group of lanes whose width it derives from the batch (the
 source's note gives the rule).
+
+Its backward (kernel A', ``star_lnlike_grad_*`` in the same source, one lane
+a point) replaces the JAX package's reverse-mode of the same function, which
+NUTS takes (``isochrones_tpu/samplers/nuts.py:59-69``). Where autograd
+records a call, :func:`star_lnlike_cuda` goes through :class:`StarLnlike`,
+whose forward is kernel A and backward kernel A'; each wrapper counts its
+own launches.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 from ._build import load_library
 from .star import StarLikelihood
 
-__all__ = ["star_lnlike_cuda"]
+__all__ = ["star_lnlike_cuda", "star_lnlike_grad_cuda", "StarLnlike"]
 
 _MAX_BANDS = 16
 #: axis-map kind -> the kernel's AxisKind (None: searchsorted)
@@ -54,6 +61,14 @@ class _StarArgs(ctypes.Structure):
     ]
 
 
+class _StarGradArgs(ctypes.Structure):
+    """Mirror of ``StarGradArgs`` in ``csrc/star_lnlike.cu``: the cotangents
+    and the gradient's output."""
+
+    _fields_ = [("g_ll", ctypes.c_void_p), ("g_orig", ctypes.c_void_p), ("g_deriv", ctypes.c_void_p),
+                ("g_pars", ctypes.c_void_p)]
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     """The kernel library with the star entry points' C signatures declared."""
@@ -62,6 +77,13 @@ def _lib():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(_StarArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for name in ("star_lnlike_grad_f32", "star_lnlike_grad_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(_StarArgs), ctypes.POINTER(_StarGradArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.star_lnlike_grad_args_size.restype = ctypes.c_int
+    if lib.star_lnlike_grad_args_size() != ctypes.sizeof(_StarGradArgs):
+        raise RuntimeError("StarGradArgs layout differs between the kernel and the wrapper")
     lib.star_lnlike_args_size.restype = ctypes.c_int
     lib.star_lnlike_max_bands.restype = ctypes.c_int
     lib.star_lnlike_error_string.argtypes = [ctypes.c_int]
@@ -144,35 +166,95 @@ def _template(lk: StarLikelihood, dtype, device):
     return a
 
 
-def star_lnlike_cuda(pars: torch.Tensor, lk: StarLikelihood):
-    """``(ll (B,), orig_val (B, N), deriv (B, N))`` from one kernel launch.
-    Raises on anything the kernel does not take, and if the launch fails."""
+def _check_pars(pars, lk, name):
     dt, dev = pars.dtype, pars.device
     if dev.type != "cuda":
-        raise ValueError(f"star_lnlike_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
     if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"star_lnlike_cuda takes float32 or float64, got {dt}")
+        raise TypeError(f"{name} takes float32 or float64, got {dt}")
     N = lk.n_stars
     if pars.dim() != 2 or pars.shape[1] != N + 4:
         raise ValueError(f"pars must be (B, {N + 4}), got {tuple(pars.shape)}")
+    return pars.contiguous()
+
+
+def _launch(fn, args, dev, what):
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: {_lib().star_lnlike_error_string(err).decode()} ({err})")
+
+
+def _forward(pars: torch.Tensor, lk: StarLikelihood):
+    """Kernel A's launch on checked, contiguous ``pars``."""
+    dt, dev = pars.dtype, pars.device
     lib = _lib()
     a = _template(lk, dt, dev)
-    pars = pars.contiguous()
-    B = pars.shape[0]
+    N, B = lk.n_stars, pars.shape[0]
     ll = torch.empty(B, dtype=dt, device=dev)
     orig = torch.empty((B, N), dtype=dt, device=dev)
     deriv = torch.empty((B, N), dtype=dt, device=dev)
     call = _StarArgs.from_buffer_copy(a)
     call.pars, call.ll, call.orig, call.deriv = pars.data_ptr(), ll.data_ptr(), orig.data_ptr(), deriv.data_ptr()
     call.B = B
-    fn = lib.star_lnlike_f32 if dt == torch.float32 else lib.star_lnlike_f64
-    with torch.cuda.device(dev):
-        err = fn(ctypes.byref(call), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"star_lnlike kernel launch failed: {lib.star_lnlike_error_string(err).decode()} ({err})")
+    _launch(lib.star_lnlike_f32 if dt == torch.float32 else lib.star_lnlike_f64, (ctypes.byref(call),), dev,
+            "star_lnlike")
     star_lnlike_cuda.launches += 1
     return ll, orig, deriv
 
 
-#: kernel launches made through this wrapper (reset by callers that count)
+def star_lnlike_grad_cuda(pars: torch.Tensor, lk: StarLikelihood, g_ll, g_orig, g_deriv):
+    """Kernel A': the gradient ``(B, N + 4)`` of ``sum(g_ll * ll + g_orig *
+    orig_val + g_deriv * deriv)`` with respect to ``pars``, from one launch,
+    by the rule of the plain version's autograd (a non-finite output passes no
+    gradient). Raises on anything the kernel does not take, and if the launch
+    fails."""
+    pars = _check_pars(pars, lk, "star_lnlike_grad_cuda")
+    dt, dev = pars.dtype, pars.device
+    N, B = lk.n_stars, pars.shape[0]
+    cot = []
+    for name, g, shape in (("g_ll", g_ll, (B,)), ("g_orig", g_orig, (B, N)), ("g_deriv", g_deriv, (B, N))):
+        if tuple(g.shape) != shape or g.dtype != dt or g.device != dev:
+            raise ValueError(f"{name} must be {shape} {dt} on {dev}, got {tuple(g.shape)} {g.dtype} on {g.device}")
+        cot.append(g.contiguous())
+    lib = _lib()
+    call = _StarArgs.from_buffer_copy(_template(lk, dt, dev))
+    call.pars, call.B = pars.data_ptr(), B
+    out = torch.empty((B, N + 4), dtype=dt, device=dev)
+    grad = _StarGradArgs(cot[0].data_ptr(), cot[1].data_ptr(), cot[2].data_ptr(), out.data_ptr())
+    _launch(lib.star_lnlike_grad_f32 if dt == torch.float32 else lib.star_lnlike_grad_f64,
+            (ctypes.byref(call), ctypes.byref(grad)), dev, "star_lnlike_grad")
+    star_lnlike_grad_cuda.launches += 1
+    return out
+
+
+class StarLnlike(torch.autograd.Function):
+    """Kernel A forward, kernel A' backward."""
+
+    @staticmethod
+    def forward(ctx, pars, lk):
+        ctx.save_for_backward(pars)
+        ctx.lk = lk
+        return _forward(pars, lk)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_ll, g_orig, g_deriv):
+        (pars,) = ctx.saved_tensors
+        return star_lnlike_grad_cuda(pars, ctx.lk, g_ll, g_orig, g_deriv), None
+
+
+def star_lnlike_cuda(pars: torch.Tensor, lk: StarLikelihood):
+    """``(ll (B,), orig_val (B, N), deriv (B, N))`` from one kernel launch;
+    where autograd records the call, through :class:`StarLnlike`, whose
+    backward is kernel A'. Raises on anything the kernel does not take, and if
+    the launch fails."""
+    pars = _check_pars(pars, lk, "star_lnlike_cuda")
+    if torch.is_grad_enabled() and pars.requires_grad:
+        return StarLnlike.apply(pars, lk)
+    return _forward(pars, lk)
+
+
+#: kernel launches made through each wrapper (reset by callers that count)
 star_lnlike_cuda.launches = 0
+star_lnlike_grad_cuda.launches = 0

@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .interp import GridData, interp_nd
+from .interp import GridData, _tracks_grad, interp_nd
 from .likelihood import LOG_ONE_OVER_ROOT_2PI
 
 __all__ = ["TreeLikelihood", "tree_lnlike_fused_plain", "tree_lnlike_fused", "tree_lnlike_plain", "tree_lnlike"]
@@ -121,24 +121,27 @@ def _gauss(val, unc, mod):
     return -0.5 * (val - mod) ** 2 / unc ** 2 + LOG_ONE_OVER_ROOT_2PI + torch.log(unc)
 
 
-def tree_lnlike_fused_plain(p: torch.Tensor, lk: TreeLikelihood):
-    """(..., n_params) -> (ll (...,), orig_val (..., n_stars), deriv (...,
-    n_stars)) in plain torch ops, on any device."""
+def _tree_ll(p, star_pars, vals6, dens, lk: TreeLikelihood, grad: bool):
+    """The likelihood of :func:`tree_lnlike_fused_plain` from the stars'
+    parameters, their pack columns and densities. With ``grad``, the values
+    that a masked branch would otherwise carry into reverse mode (a NaN flux,
+    a row of zero flux, an inactive row's magnitude) enter it detached, so
+    that a finite ``ll`` takes no NaN from them."""
     neg_inf = float("-inf")
     io = lk.index_order
-    star_pars = p[..., lk.star_param_idx.long()]  # (..., n_stars, 5)
-    grid_pts = torch.stack([star_pars[..., io[0]], star_pars[..., io[1]], star_pars[..., io[2]]], dim=-1)
-    vals6 = interp_nd(lk.model.values, lk.model.knots, grid_pts, icols=(0, 1, 2, 3, 4, 5),
-                      axis_maps=lk.model.axis_maps)  # (..., n_stars, 6)
-    Teff, logg, feh, mbol, orig_val, deriv = vals6.unbind(dim=-1)
-    bc_pts = torch.stack([Teff, logg, feh, star_pars[..., io[4]]], dim=-1)
-    bc_vals = interp_nd(lk.bc.values, lk.bc.knots, bc_pts, icols=tuple(lk.band_icols), axis_maps=lk.bc.axis_maps)
-    dist_mod = 5.0 * torch.log10(star_pars[..., io[3]] / 10.0)
-    mags = mbol[..., None] + dist_mod[..., None] - bc_vals  # (..., n_stars, n_bands)
+    Teff, logg, feh, mbol = vals6[..., 0], vals6[..., 1], vals6[..., 2], vals6[..., 3]
     lnl = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
 
     if lk.n_obs:
+        bc_pts = torch.stack([Teff, logg, feh, star_pars[..., io[4]]], dim=-1)
+        bc_vals = interp_nd(lk.bc.values, lk.bc.knots, bc_pts, icols=tuple(lk.band_icols),
+                            axis_maps=lk.bc.axis_maps)
+        dist_mod = 5.0 * torch.log10(star_pars[..., io[3]] / 10.0)
+        mags = mbol[..., None] + dist_mod[..., None] - bc_vals  # (..., n_stars, n_bands)
         flux = 10.0 ** (-0.4 * mags)  # (..., n_stars, n_bands)
+        if grad:
+            fin = torch.isfinite(mags)
+            flux = torch.where(fin, 10.0 ** (-0.4 * torch.where(fin, mags, torch.zeros_like(mags))), flux.detach())
         # A NaN flux is zeroed before the membership sum (0 * NaN would carry
         # one off-grid star into every row) and tracked per row instead, so
         # only rows that contain the off-grid star go bad.
@@ -147,12 +150,19 @@ def tree_lnlike_fused_plain(p: torch.Tensor, lk: TreeLikelihood):
         model_flux = torch.einsum("...so,os->...o", torch.where(flux_nan, 0.0, flux_b), lk.member)
         row_nan = torch.einsum("...so,os->...o", flux_nan.to(p.dtype), lk.member) > 0
         model_mag = -2.5 * torch.log10(model_flux)  # (..., n_obs)
+        if grad:
+            pos = model_flux > 0
+            model_mag = torch.where(
+                pos, -2.5 * torch.log10(torch.where(pos, model_flux, torch.ones_like(model_flux))),
+                model_mag.detach())
 
         is_rel = lk.obs_ref >= 0
         ref_safe = torch.clamp(lk.obs_ref, min=0).long()
         mod = torch.where(is_rel, model_mag - model_mag[..., ref_safe], model_mag)
         val = torch.where(is_rel, lk.obs_val - lk.obs_val[ref_safe], lk.obs_val)
         active = lk.obs_active > 0
+        if grad:
+            mod = torch.where(active, mod, mod.detach())
         lnl = lnl + torch.sum(torch.where(active, _gauss(val, lk.obs_unc, mod), 0.0), dim=-1)
         # an active row whose members include an off-grid star, or whose
         # reference row does, gives -inf
@@ -161,11 +171,6 @@ def tree_lnlike_fused_plain(p: torch.Tensor, lk: TreeLikelihood):
         lnl = torch.where((active & row_bad).any(dim=-1), neg_inf, lnl)
 
     if len(lk.spec_star) or len(lk.lim_star):
-        if lk.full_model is not None:
-            dens = interp_nd(lk.full_model.values, lk.full_model.knots, grid_pts, icols=(lk.density_icol,),
-                             axis_maps=lk.full_model.axis_maps)[..., 0]
-        else:
-            dens = torch.zeros_like(Teff)
         prop_mat = torch.stack([Teff, logg, feh, dens], dim=-1)  # (..., n_stars, 4)
 
     if len(lk.spec_star):
@@ -184,7 +189,39 @@ def tree_lnlike_fused_plain(p: torch.Tensor, lk: TreeLikelihood):
     if len(lk.av_idx):
         lnl = lnl + torch.sum(_gauss(lk.av_val, lk.av_unc, p[..., lk.av_idx.long()]), dim=-1)
 
-    return torch.where(torch.isnan(lnl), neg_inf, lnl), orig_val, deriv
+    return torch.where(torch.isnan(lnl), neg_inf, lnl)
+
+
+def tree_lnlike_fused_plain(p: torch.Tensor, lk: TreeLikelihood):
+    """(..., n_params) -> (ll (...,), orig_val (..., n_stars), deriv (...,
+    n_stars)) in plain torch ops, on any device.
+
+    Its gradient, where ``p`` requires one: a non-finite output passes none
+    back. A row whose ``ll`` is not finite sees its inputs detached in the
+    likelihood (double-where on the row), a NaN ``orig_val`` or ``deriv``
+    passes none through :func:`interp_nd`, and a finite
+    ``ll`` none through the masked values of :func:`_tree_ll`. The backward
+    kernel (``csrc/tree_lnlike.cu``) holds to the same rule."""
+    io = lk.index_order
+    star_pars = p[..., lk.star_param_idx.long()]  # (..., n_stars, 5)
+    grid_pts = torch.stack([star_pars[..., io[0]], star_pars[..., io[1]], star_pars[..., io[2]]], dim=-1)
+    vals6 = interp_nd(lk.model.values, lk.model.knots, grid_pts, icols=(0, 1, 2, 3, 4, 5),
+                      axis_maps=lk.model.axis_maps)  # (..., n_stars, 6)
+    if lk.full_model is not None and (len(lk.spec_star) or len(lk.lim_star)):
+        dens = interp_nd(lk.full_model.values, lk.full_model.knots, grid_pts, icols=(lk.density_icol,),
+                         axis_maps=lk.full_model.axis_maps)[..., 0]
+    else:
+        dens = torch.zeros_like(vals6[..., 0])
+    grad = _tracks_grad(p)
+    ll = _tree_ll(p, star_pars, vals6, dens, lk, grad)
+    if grad:
+        keep = torch.isfinite(ll.detach())[..., None]
+        if not bool(keep.all()):  # recompute with the non-finite rows' inputs detached
+            p_l = torch.where(keep, p, p.detach())
+            ll = _tree_ll(p_l, p_l[..., lk.star_param_idx.long()],
+                          torch.where(keep[..., None], vals6, vals6.detach()), torch.where(keep, dens, dens.detach()),
+                          lk, True)
+    return ll, vals6[..., 4], vals6[..., 5]
 
 
 def tree_lnlike_fused(p: torch.Tensor, lk: TreeLikelihood):

@@ -16,6 +16,12 @@ values, one descriptor word per row), both built once per
 per-call pointers. Caps: :data:`MAX_STARS` model stars, :data:`MAX_OBS`
 observation rows, :data:`MAX_BANDS` bands, :data:`MAX_PROPS` spectroscopy rows
 and as many limits; a plan beyond a cap raises ``ValueError``.
+
+Its backward (kernel C', ``tree_lnlike_grad_*`` in the same source, one lane
+a point) replaces the JAX package's reverse-mode of the tree posterior's
+likelihood. Where autograd records a call, :func:`tree_lnlike_cuda` goes
+through :class:`TreeLnlike`, whose forward is kernel C and backward kernel
+C'; each wrapper counts its own launches.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from ._build import load_library
 from .star_cuda import _Axis, _axes
 from .tree import TreeLikelihood
 
-__all__ = ["tree_lnlike_cuda", "pack_plan", "launch_geometry", "MAX_STARS", "MAX_OBS", "MAX_BANDS", "MAX_PROPS"]
+__all__ = ["tree_lnlike_cuda", "tree_lnlike_grad_cuda", "TreeLnlike", "pack_plan", "launch_geometry", "MAX_STARS",
+           "MAX_OBS", "MAX_BANDS", "MAX_PROPS"]
 
 MAX_STARS = 16
 MAX_OBS = 64
@@ -55,6 +62,13 @@ class _TreeArgs(ctypes.Structure):
     )
 
 
+class _TreeGradArgs(ctypes.Structure):
+    """Mirror of ``TreeGradArgs`` in ``csrc/tree_lnlike.cu``: the cotangents
+    and the gradient's output."""
+
+    _fields_ = [(name, _PTR) for name in ("g_ll", "g_orig", "g_deriv", "g_pars")]
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     """The kernel library with the tree entry points' C signatures declared."""
@@ -63,6 +77,13 @@ def _lib():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(_TreeArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for name in ("tree_lnlike_grad_f32", "tree_lnlike_grad_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(_TreeArgs), ctypes.POINTER(_TreeGradArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.tree_lnlike_grad_args_size.restype = ctypes.c_int
+    if lib.tree_lnlike_grad_args_size() != ctypes.sizeof(_TreeGradArgs):
+        raise RuntimeError("TreeGradArgs layout differs between the kernel and the wrapper")
     for name in ("tree_lnlike_args_size", "tree_lnlike_max_bands", "tree_lnlike_max_stars", "tree_lnlike_max_obs",
                  "tree_lnlike_max_props"):
         getattr(lib, name).restype = ctypes.c_int
@@ -192,20 +213,29 @@ def _template(lk: TreeLikelihood, dtype, device):
     return a, plan
 
 
-def tree_lnlike_cuda(p: torch.Tensor, lk: TreeLikelihood):
-    """``(ll (B,), orig_val (B, n_stars), deriv (B, n_stars))`` from one
-    kernel launch. Raises on anything the kernel does not take, and if the
-    launch fails."""
+def _check_pars(p, lk, name):
     dt, dev = p.dtype, p.device
     if dev.type != "cuda":
-        raise ValueError(f"tree_lnlike_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
     if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"tree_lnlike_cuda takes float32 or float64, got {dt}")
+        raise TypeError(f"{name} takes float32 or float64, got {dt}")
     if p.dim() != 2 or p.shape[1] != lk.n_params:
         raise ValueError(f"pars must be (B, {lk.n_params}), got {tuple(p.shape)}")
+    return p.contiguous()
+
+
+def _launch(fn, args, dev, what):
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: {_lib().tree_lnlike_error_string(err).decode()} ({err})")
+
+
+def _forward(p: torch.Tensor, lk: TreeLikelihood):
+    """Kernel C's launch on checked, contiguous ``p``."""
+    dt, dev = p.dtype, p.device
     lib = _lib()
     a, _plan = _template(lk, dt, dev)
-    p = p.contiguous()
     B = p.shape[0]
     ll = torch.empty(B, dtype=dt, device=dev)
     orig = torch.empty((B, lk.n_stars), dtype=dt, device=dev)
@@ -213,14 +243,65 @@ def tree_lnlike_cuda(p: torch.Tensor, lk: TreeLikelihood):
     call = _TreeArgs.from_buffer_copy(a)
     call.pars, call.ll, call.orig, call.deriv = p.data_ptr(), ll.data_ptr(), orig.data_ptr(), deriv.data_ptr()
     call.B = B
-    fn = lib.tree_lnlike_f32 if dt == torch.float32 else lib.tree_lnlike_f64
-    with torch.cuda.device(dev):
-        err = fn(ctypes.byref(call), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"tree_lnlike kernel launch failed: {lib.tree_lnlike_error_string(err).decode()} ({err})")
+    _launch(lib.tree_lnlike_f32 if dt == torch.float32 else lib.tree_lnlike_f64, (ctypes.byref(call),), dev,
+            "tree_lnlike")
     tree_lnlike_cuda.launches += 1
     return ll, orig, deriv
 
 
-#: kernel launches made through this wrapper (reset by callers that count)
+def tree_lnlike_grad_cuda(p: torch.Tensor, lk: TreeLikelihood, g_ll, g_orig, g_deriv):
+    """Kernel C': the gradient ``(B, n_params)`` of ``sum(g_ll * ll + g_orig
+    * orig_val + g_deriv * deriv)`` with respect to ``p``, from one launch, by
+    the rule of the plain version's autograd (a non-finite output passes no
+    gradient). Raises on anything the kernel does not take, and if the launch
+    fails."""
+    p = _check_pars(p, lk, "tree_lnlike_grad_cuda")
+    dt, dev = p.dtype, p.device
+    B, S = p.shape[0], lk.n_stars
+    cot = []
+    for name, g, shape in (("g_ll", g_ll, (B,)), ("g_orig", g_orig, (B, S)), ("g_deriv", g_deriv, (B, S))):
+        if tuple(g.shape) != shape or g.dtype != dt or g.device != dev:
+            raise ValueError(f"{name} must be {shape} {dt} on {dev}, got {tuple(g.shape)} {g.dtype} on {g.device}")
+        cot.append(g.contiguous())
+    lib = _lib()
+    a, _plan = _template(lk, dt, dev)
+    call = _TreeArgs.from_buffer_copy(a)
+    call.pars, call.B = p.data_ptr(), B
+    out = torch.empty((B, lk.n_params), dtype=dt, device=dev)
+    grad = _TreeGradArgs(cot[0].data_ptr(), cot[1].data_ptr(), cot[2].data_ptr(), out.data_ptr())
+    _launch(lib.tree_lnlike_grad_f32 if dt == torch.float32 else lib.tree_lnlike_grad_f64,
+            (ctypes.byref(call), ctypes.byref(grad)), dev, "tree_lnlike_grad")
+    tree_lnlike_grad_cuda.launches += 1
+    return out
+
+
+class TreeLnlike(torch.autograd.Function):
+    """Kernel C forward, kernel C' backward."""
+
+    @staticmethod
+    def forward(ctx, p, lk):
+        ctx.save_for_backward(p)
+        ctx.lk = lk
+        return _forward(p, lk)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_ll, g_orig, g_deriv):
+        (p,) = ctx.saved_tensors
+        return tree_lnlike_grad_cuda(p, ctx.lk, g_ll, g_orig, g_deriv), None
+
+
+def tree_lnlike_cuda(p: torch.Tensor, lk: TreeLikelihood):
+    """``(ll (B,), orig_val (B, n_stars), deriv (B, n_stars))`` from one
+    kernel launch; where autograd records the call, through
+    :class:`TreeLnlike`, whose backward is kernel C'. Raises on anything the
+    kernel does not take, and if the launch fails."""
+    p = _check_pars(p, lk, "tree_lnlike_cuda")
+    if torch.is_grad_enabled() and p.requires_grad:
+        return TreeLnlike.apply(p, lk)
+    return _forward(p, lk)
+
+
+#: kernel launches made through each wrapper (reset by callers that count)
 tree_lnlike_cuda.launches = 0
+tree_lnlike_grad_cuda.launches = 0

@@ -476,6 +476,20 @@ class BrokenPrior(Prior):
         return x
 
 
+def eep_change_of_variables(orig_prior, orig_val, deriv):
+    """ln(orig_prior(orig_val) * deriv), the EEP prior's change of variables
+    from the interpolated original quantity and its d/dEEP derivative; -inf
+    where ``orig_val`` is not finite or ``deriv`` is not positive. Those
+    entries enter the prior and the log detached (double-where), so that their
+    masked branch passes no NaN gradient: ``log(0)`` of a float32 ``deriv``
+    (whose 1e-300 floor rounds to 0) would otherwise."""
+    ok = torch.isfinite(orig_val) & (deriv > 0)
+    ov = torch.where(ok, orig_val, orig_val.detach())
+    dv = torch.where(ok, deriv, torch.ones_like(deriv))
+    ln = orig_prior.lnpdf(ov) + torch.log(torch.clamp(dv, min=1e-300))
+    return torch.where(ok, ln, _NEG_INF)
+
+
 class EEP_prior(BoundedPrior):
     """Change-of-variables prior on EEP: p(eep) = p_orig(orig(eep)) |d orig/d
     eep| from the grid's dm_deep/dt_deep derivative column (reference
@@ -516,9 +530,7 @@ class EEP_prior(BoundedPrior):
         model = self.ic.model
         vals = interp_nd(model.values, model.knots, grid_pts, icols=(self._icol_orig, self._icol_deriv),
                          axis_maps=model.axis_maps)
-        orig_val, deriv = vals[..., 0], vals[..., 1]
-        ln = self.orig_prior.lnpdf(orig_val) + torch.log(torch.clamp(deriv, min=1e-300))
-        ln = torch.where(torch.isfinite(orig_val) & (deriv > 0), ln, _NEG_INF)
+        ln = eep_change_of_variables(self.orig_prior, vals[..., 0], vals[..., 1])
         lo, hi = self.bounds
         return torch.where((eep < lo) | (eep > hi), _NEG_INF, ln)
 

@@ -545,6 +545,7 @@ def run_nested(
     config_tag: str = None,
     dtype: torch.dtype = torch.float64,
     device=None,
+    core: Callable = None,
 ) -> NestedResult:
     """Nested-sampling fit (reference samplers/nested.py:514-899).
 
@@ -583,6 +584,12 @@ def run_nested(
     config_tag : opaque string folded into the checkpoint's configuration;
         callers hash the problem (data, bounds, seed) into it.
     dtype : dtype of the unit-cube points handed to the likelihood.
+    core : the replacement kernel, in place of :func:`_nested_core`, with its
+        signature and its carry and return contract (``(dead_u, dead_lnl,
+        live_u, live_lnl, scale)``, the dead points of each batch in
+        ascending lnL); the base run and the dynamic threads both run it
+        (:func:`~isochrones_torch.samplers.polychord.run_polychord`'s slice
+        sampler). Not with ``n_runs > 1``.
 
     n_runs : > 1 runs this many independent runs of the same problem in
         lockstep (:func:`_run_nested_multi`): one likelihood call of ``n_runs
@@ -597,6 +604,8 @@ def run_nested(
     if mesh is not None:
         raise NotImplementedError(f"run_nested(mesh={mesh!r}) is not ported yet (ROADMAP queue 1, parallelism)")
     if n_runs > 1:
+        if core is not None:
+            raise ValueError("core= runs one problem at a time; combine it with n_runs=1")
         if dynamic:
             raise ValueError(
                 "dynamic=True supports n_runs=1 — independent runs already "
@@ -625,8 +634,11 @@ def run_nested(
             chunk=int(_chunk_dead(n_live)), dtype=str(dtype), device=dev.type,
             config_tag=None if config_tag is None else str(config_tag),
         )
+        if core is not None:
+            ckpt_cfg["core"] = f"{core.__module__}.{core.__qualname__}"
         if resume and os.path.exists(checkpoint):
             state = _ckpt_load(checkpoint, ckpt_cfg)
+    core_fn = _nested_core if core is None else core
 
     def lnlike_u(u):
         return lnpost_u(prior_transform(u))
@@ -707,7 +719,7 @@ def run_nested(
     base_done = state is not None and state["phase"] == "dynamic"
     while not base_done and n_dead_total < hard_cap and not _terminated():
         n_steps = min(chunk_steps, max((hard_cap - n_dead_total) // n_batch, 1))
-        du, dl, live_u, live_lnl, scale = _nested_core(
+        du, dl, live_u, live_lnl, scale = core_fn(
             lnlike_u, live_u, live_lnl, g, scale, n_live, n_steps, n_chains, n_repeat, n_batch=n_batch
         )
         # the chunk's one read-back
@@ -781,7 +793,7 @@ def run_nested(
             t_dead_u, t_dead_lnl = [], []
             while n_dead_total < hard_cap:
                 n_steps = min(chunk_steps, max((hard_cap - n_dead_total) // n_batch, 1))
-                du, dl, t_live_u, t_live_lnl, scale = _nested_core(
+                du, dl, t_live_u, t_live_lnl, scale = core_fn(
                     lnlike_u, t_live_u, t_live_lnl, g, scale, n_live, n_steps, n_chains, n_repeat, n_batch=n_batch
                 )
                 t_dead_u.append(du.cpu().numpy())

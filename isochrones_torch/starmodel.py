@@ -33,7 +33,8 @@ from .logger import getLogger
 from .ops.interp import interp_nd
 from .ops.likelihood import gauss_lnprob, star_lnlike
 from .ops.star import StarLikelihood, star_lnlike_fused
-from .priors import AgePrior, AVPrior, ChabrierPrior, DistancePrior, EEP_prior, FehPrior
+from .priors import AgePrior, AVPrior, ChabrierPrior, DistancePrior, EEP_prior, FehPrior, eep_change_of_variables
+from .summary import Frame
 from .utils import addmags, npz_load, npz_save, store_prefix
 
 __all__ = ["BasicStarModel", "SingleStarModel", "BinaryStarModel", "TripleStarModel", "IsoTrackModel", "N_options",
@@ -45,8 +46,7 @@ _EEP_NAMES = ("eep", "eep_0", "eep_1", "eep_2")
 def _eep_lnprior(eep, orig_val, deriv, orig_prior, lo, hi):
     """The EEP change-of-variables prior (``EEP_prior.lnpdf``) from the
     interpolated original quantity and its d/dEEP derivative."""
-    ln = orig_prior.lnpdf(orig_val) + torch.log(torch.clamp(deriv, min=1e-300))
-    ln = torch.where(torch.isfinite(orig_val) & (deriv > 0), ln, float("-inf"))
+    ln = eep_change_of_variables(orig_prior, orig_val, deriv)
     return torch.where((eep < lo) | (eep > hi), float("-inf"), ln)
 
 
@@ -648,10 +648,68 @@ class BasicStarModel:
                 "fit_multinest: run was ESS-truncated (ess=%.0f): posterior quantiles in .samples are "
                 "unreliable; refit with a larger max_iter or n_live_points.", result.ess,
             )
-        samples = {name: result.posterior[:, i] for i, name in enumerate(self.param_names)}
-        samples["lnprob"] = result.logl_posterior
+        self._set_samples(result.posterior, result.logl_posterior)
+        return result
+
+    def _set_samples(self, params, lnprob):
+        """Keep ``(n, n_params)`` posterior draws and their lnprob as the
+        model's samples (a :class:`~isochrones_torch.summary.Frame`)."""
+        samples = Frame({name: params[:, i] for i, name in enumerate(self.param_names)})
+        samples["lnprob"] = lnprob
         self._samples = samples
         self._derived_samples = None
+        return samples
+
+    def fit_nuts(self, n_chains=8, n_warmup=500, n_samples=500, max_depth=8, target_accept=0.8, seed=None, mesh=None,
+                 eps_jitter=1.0):
+        """No-U-Turn sampling of the posterior (reference starmodel.py:759-806)
+        through :func:`~isochrones_torch.samplers.nuts.run_nuts`: the logit
+        reparametrization of the box bounds, a dense whitened metric from a
+        500-step ensemble warm start over a prior cloud, ``n_chains`` chains.
+        The gradient is autograd's through the fused posterior; on the card
+        the likelihood's part comes from the backward kernels (A' for the flat
+        models, C' for the tree model). ``target_accept`` stays at Stan's 0.8:
+        on gridded posteriors the accept statistic plateaus near 0.85 whatever
+        the step size (the grid's -inf cliffs reject a fixed share of
+        trajectories), and a target above the plateau drives the step size to
+        the dtype's floor. ``mesh`` is not ported yet and raises
+        ``NotImplementedError``. Returns the samples (a
+        :class:`~isochrones_torch.summary.Frame` with ``"lnprob"``); the
+        :class:`~isochrones_torch.samplers.nuts.NutsResult` is kept as
+        ``self._nuts_result``."""
+        from .samplers.nuts import run_nuts
+
+        if mesh is not None:
+            raise NotImplementedError(f"fit_nuts(mesh={mesh!r}) is not ported yet (ROADMAP queue 1, parallelism)")
+        n_cloud = max(64, 8 * self.n_params, 2 * n_chains)
+        p0 = self.sample_from_prior(n_cloud, values=True, require_valid=True, rng=seed)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed if seed is not None else 0)
+        los, his = self._bounds_arrays()
+        res = run_nuts(self._get_fn("lnpost"), self._as_params(np.asarray(p0, dtype=float)), gen,
+                       n_warmup=n_warmup, n_samples=n_samples, max_depth=max_depth, target_accept=target_accept,
+                       ensemble_init=500, n_chains=n_chains, bounds=np.stack([los, his], axis=-1),
+                       eps_jitter=eps_jitter)
+        self._nuts_result = res
+        return self._set_samples(res.samples.reshape(-1, self.n_params), res.lnp.reshape(-1))
+
+    def fit_polychord(self, basename=None, verbose=False, n_live_points=1000, max_iter=None, seed=None, **kwargs):
+        """PolyChord-style nested sampling (reference starmodel.py:808-850;
+        the reference shells out to the Fortran PolyChord): the slice-sampling
+        replacement of :func:`~isochrones_torch.samplers.polychord.run_polychord`
+        in the nested sampler's loop, an independent cross-check of
+        :meth:`fit_multinest`'s evidence and posterior. Keywords go to
+        :func:`~isochrones_torch.samplers.nested.run_nested`. Sets
+        ``samples`` and ``evidence``; returns the ``NestedResult``."""
+        from .samplers.polychord import run_polychord
+
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed if seed is not None else 0)
+        result = run_polychord(self._get_fn("lnpost"), self.prior_transform_batch, self.n_params, gen,
+                               n_live=n_live_points, max_iter=max_iter, rng=seed, dtype=self.dtype, **kwargs)
+        self._nested_result = result
+        self._evidence = (result.logz, result.logzerr)
+        self._set_samples(result.posterior, result.logl_posterior)
         return result
 
     def fit_mcmc(self, nwalkers=300, nburn=200, niter=100, thin=1, p0=None, seed=None, moves="stretch",
@@ -679,13 +737,8 @@ class BasicStarModel:
         _, _, state = run_ensemble(lnpost, p0, gen, n_steps=nburn, moves=moves)
         chain, ln_chain, state = run_ensemble(lnpost, state.walkers, gen, n_steps=niter, thin=thin,
                                               moves=moves)
-        flat = chain.reshape(-1, self.n_params).cpu().numpy()
-        samples = {name: flat[:, i] for i, name in enumerate(self.param_names)}
-        samples["lnprob"] = ln_chain.reshape(-1).cpu().numpy()
-        self._samples = samples
-        self._derived_samples = None
         self.sampler_state = state
-        return samples
+        return self._set_samples(chain.reshape(-1, self.n_params).cpu().numpy(), ln_chain.reshape(-1).cpu().numpy())
 
     @property
     def evidence(self):

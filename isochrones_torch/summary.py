@@ -96,19 +96,20 @@ class Frame(dict):
         return Frame({c: np.array(v, copy=True) for c, v in self.items()},
                      index=None if self.index is None else self.index.copy())
 
-    def to_csv(self, filename):
+    def to_csv(self, filename, index=True):
         """Write the table as ``DataFrame.to_csv`` does: a header whose first
         cell (the index's) is empty, one line per row starting with its
         label, floats in their shortest round-trip form, NaN as an empty
-        cell."""
+        cell; with ``index`` False, without the labels' column."""
         n = len(next(iter(self.values()))) if self else 0
-        index = self.index if self.index is not None else np.arange(n)
+        labels = self.index if self.index is not None else np.arange(n)
+        lead = [""] if index else []
         with open(filename, "w", newline="") as f:
             w = csv.writer(f, lineterminator="\n")
-            w.writerow([""] + self.columns)
+            w.writerow(lead + self.columns)
             cols = list(self.values())
             for i in range(n):
-                w.writerow([_cell(index[i])] + [_cell(c[i]) for c in cols])
+                w.writerow(([_cell(labels[i])] if index else []) + [_cell(c[i]) for c in cols])
 
 
 def _cell(x):

@@ -28,7 +28,7 @@ from .logger import getLogger
 from .observation import (
     Observation, ObservationTree, Source, make_tree_lnlike, make_tree_lnlike_fused, read_rows_csv,
 )
-from .priors import AgePrior, AVPrior, ChabrierPrior, DistancePrior, EEP_prior, FehPrior, QPrior
+from .priors import AgePrior, AVPrior, ChabrierPrior, DistancePrior, EEP_prior, FehPrior, QPrior, eep_change_of_variables
 from .starmodel import BasicStarModel, N_options, _stored_ichrone, index_options
 from .utils import addmags, npz_load, npz_save, store_prefix
 
@@ -440,8 +440,7 @@ class StarModel(BasicStarModel):
             lnp, _ = self._shared_lnprior(p)
             # the EEP change of variables of every star at once (priors.py, EEP_prior.lnpdf)
             eeps = p[..., eep_cols]
-            term = orig_prior.lnpdf(orig_val) + torch.log(torch.clamp(deriv, min=1e-300))
-            term = torch.where(torch.isfinite(orig_val) & (deriv > 0), term, neg_inf)
+            term = eep_change_of_variables(orig_prior, orig_val, deriv)
             term = torch.where((eeps < eep_lo) | (eeps > eep_hi), neg_inf, term)
             lnp = lnp + term.sum(dim=-1)
             return self._posterior(lnp, ll)

@@ -19,7 +19,6 @@ import pytest
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SUMMARY = "queue 1 item 3: summary, plotting and results"
-ENGINES = "queue 1 item 4: the other engines"
 QUERY = "queue 1 item 6: the query layer"
 NOT_TO_PORT = "not to port"
 
@@ -29,7 +28,6 @@ _GRID_TPU = ("GridData.paired", "GridData.tree_flatten", "GridData.tree_unflatte
 
 _GROUPS = {
     "isochrones_tpu": {
-        ENGINES: ("BasicStarModel.fit_nuts", "BasicStarModel.fit_polychord"),
         SUMMARY: tuple(f"BasicStarModel.{a}" for a in _STAR_PLOTS),
         NOT_TO_PORT: _GRID_TPU,
     },
@@ -42,17 +40,10 @@ _GROUPS = {
     "isochrones_tpu.priors": {NOT_TO_PORT: ("Prior.lnpdf_jax", "BoundedPrior.lnpdf_jax", "BrokenPrior.lnpdf_jax",
                                             "PowerLawPrior.sample_jax", "FehPrior.lnpdf_jax",
                                             "EEP_prior.lnpdf_jax")},
-    "isochrones_tpu.samplers": {
-        ENGINES: ("NutsResult", "run_nuts", "run_polychord") + tuple(f"NutsResult.{a}" for a in (
-            "samples", "lnp", "step_size", "inv_mass", "accept_rate", "n_divergent")),
-        NOT_TO_PORT: ("EnsembleState.key",),
-    },
+    "isochrones_tpu.samplers": {NOT_TO_PORT: ("EnsembleState.key",)},
     "isochrones_tpu.samplers.ensemble": {NOT_TO_PORT: ("EnsembleState.key",)},
     "isochrones_tpu.starfit": {QUERY: ("get_gaia_data",)},
-    "isochrones_tpu.starmodel": {
-        ENGINES: ("BasicStarModel.fit_nuts", "BasicStarModel.fit_polychord"),
-        SUMMARY: tuple(f"BasicStarModel.{a}" for a in _STAR_PLOTS),
-    },
+    "isochrones_tpu.starmodel": {SUMMARY: tuple(f"BasicStarModel.{a}" for a in _STAR_PLOTS)},
     "isochrones_tpu.summary": {SUMMARY: ("get_quantiles", "quantile_worker", "get_summary_df", "write_results_txt")},
     "isochrones_tpu.utils": {NOT_TO_PORT: ("addmags_jnp",), QUERY: ("download_file",)},
 }
@@ -118,4 +109,4 @@ def test_parked_modules_exist():
     mods = {k.split(":")[0] for k in PARKED}
     have = {"isochrones_tpu" + m[len("isochrones_torch"):] for m in _port_modules()}
     assert mods <= have, sorted(mods - have)
-    assert set(PARKED.values()) <= {ENGINES, SUMMARY, QUERY, NOT_TO_PORT}
+    assert set(PARKED.values()) <= {SUMMARY, QUERY, NOT_TO_PORT}

@@ -1304,3 +1304,194 @@ def test_track_grid_results_file_on_card(dev, mist_root, tmp_path):
     p = np.stack([draws[c] for c in back.param_names], axis=-1)
     check_star("reloaded track model", [back.lnpost_batch(p).cpu().numpy()], [m.lnpost_batch(p).cpu().numpy()],
                RTOL_STAR_F64)
+
+
+# ---- the backward kernels A' (star) and C' (tree)
+
+
+def _plain_cot_grad(plain_fn, p, lk, cot):
+    with torch.enable_grad():
+        x = p.detach().clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(plain_fn(x, lk), x, grad_outputs=cot)
+    return g
+
+
+def _grad_both(kernel, plain_fn, lk64, lk32, lk32up, pts, n_out, name):
+    """The backward kernel against autograd of the plain version: float64 at
+    RTOL_GRAD_F64 of the row's scale, float32 against the float64 plain
+    version on the same float32 values at RTOL_GRAD_F32; identical NaN and
+    +-inf patterns (``chip_smoke.check_grad``)."""
+    from chip_smoke import RTOL_GRAD_F32, RTOL_GRAD_F64, check_grad, grad_cotangents
+
+    dev = lk64.model.values.device if hasattr(lk64, "model") else lk64.pack6.values.device
+    p64 = torch.as_tensor(pts, device=dev, dtype=torch.float64)
+    cot = grad_cotangents(len(pts), n_out, 3, dev, torch.float64)
+    check_grad(f"f64 {name}", kernel(p64, lk64, *cot).cpu().numpy(),
+               _plain_cot_grad(plain_fn, p64, lk64, cot).cpu().numpy(), RTOL_GRAD_F64)
+    p32, cot32 = p64.float(), tuple(c.float() for c in cot)
+    check_grad(f"f32 {name}", kernel(p32, lk32, *cot32).cpu().numpy(),
+               _plain_cot_grad(plain_fn, p32.double(), lk32up, tuple(c.double() for c in cot32)).cpu().numpy(),
+               RTOL_GRAD_F32)
+
+
+@pytest.mark.parametrize("B", [1, 31, 1024, 4097])
+@pytest.mark.parametrize("kind", ["default", "log", "compare", "searchsorted"])
+@pytest.mark.parametrize("N", [1, 2, 3])
+def test_star_grad_kernel_matches_autograd(dev, N, kind, B):
+    """A' against autograd of the plain version on adversarial points
+    (knots, top knots, out of bounds, NaN, AV past the BC grid, distance <=
+    0), every axis-map kind, batches that leave idle lanes in the last warp."""
+    from isochrones_torch.ops.star_cuda import star_lnlike_grad_cuda
+
+    lk = _likelihood(dev, torch.float64, N, kind)
+    lk32 = dataclasses.replace(lk, pack6=grid_as(lk.pack6, torch.float32), bc=grid_as(lk.bc, torch.float32))
+    lk32up = dataclasses.replace(lk, pack6=grid_as(lk32.pack6, torch.float64), bc=grid_as(lk32.bc, torch.float64))
+    pts = star_points(lk.pack6.knots, N, B, seed=B + N)
+    _grad_both(star_lnlike_grad_cuda, star_lnlike_fused_plain, lk, lk32, lk32up, pts, N, f"N={N} {kind} B={B}")
+
+
+@pytest.mark.parametrize("drop", [("logg",), ("J", "H", "K", "G"), ("parallax",)],
+                         ids=["missing-channel", "no-bands", "no-parallax"])
+def test_star_grad_kernel_observation_variants(dev, drop):
+    from isochrones_torch.ops.star_cuda import star_lnlike_grad_cuda
+
+    lk = _likelihood(dev, torch.float64, 2, "default", drop)
+    lk32 = dataclasses.replace(lk, pack6=grid_as(lk.pack6, torch.float32), bc=grid_as(lk.bc, torch.float32))
+    lk32up = dataclasses.replace(lk, pack6=grid_as(lk32.pack6, torch.float64), bc=grid_as(lk32.bc, torch.float64))
+    _grad_both(star_lnlike_grad_cuda, star_lnlike_fused_plain, lk, lk32, lk32up,
+               star_points(lk.pack6.knots, 2, 2048, seed=5), 2, f"drop {drop}")
+
+
+def _finite_difference_points(lk, N, B, seed):
+    """Seeded points well inside the bench box's scaled copy on the small
+    grid, where the posterior is finite for most rows."""
+    rng = np.random.default_rng(seed)
+    eeps = lk.pack6.knots[2].cpu().numpy()
+    pts = np.empty((B, N + 4))
+    pts[:, :N] = np.sort(rng.uniform(eeps[0] + 0.2 * (eeps[-1] - eeps[0]), eeps[0] + 0.5 * (eeps[-1] - eeps[0]),
+                                     (B, N)), axis=1)[:, ::-1]
+    pts[:, N:] = np.array(_SMALL_TRUTH[-4:]) + rng.normal(0, [0.2, 0.15, 10.0, 0.05], (B, 4))
+    pts[:, N + 3] = np.abs(pts[:, N + 3])
+    return pts
+
+
+@pytest.mark.parametrize("N", [1, 2, 3])
+def test_star_grad_kernel_matches_finite_differences(dev, N):
+    """A' (with g_ll = 1) against central finite differences of kernel A's
+    ll in float64, step 1e-6 of each parameter's scale: rows whose two step
+    sizes (h and h / 2) disagree cross a cell edge and are left out (at most
+    5%); elsewhere within 1e-5 of the row's scale."""
+    from chip_smoke import check_grad
+    from isochrones_torch.ops.star_cuda import star_lnlike_grad_cuda
+
+    lk = _likelihood(dev, torch.float64, N, "default")
+    pts = _finite_difference_points(lk, N, 512, seed=N)
+    p = torch.as_tensor(pts, device=dev, dtype=torch.float64)
+    ll0 = star_lnlike_cuda(p, lk)[0]
+    keep = torch.isfinite(ll0)
+    g = star_lnlike_grad_cuda(p, lk, torch.ones_like(ll0), torch.zeros((len(p), N), device=dev, dtype=p.dtype),
+                              torch.zeros((len(p), N), device=dev, dtype=p.dtype))
+    scale = torch.tensor([1.0] * N + [0.01, 0.01, 1.0, 0.01], device=dev, dtype=p.dtype)
+
+    def fd(h):
+        cols = []
+        for j in range(N + 4):
+            e = torch.zeros_like(p)
+            e[:, j] = h * scale[j]
+            cols.append((star_lnlike_cuda(p + e, lk)[0] - star_lnlike_cuda(p - e, lk)[0]) / (2 * h * scale[j]))
+        return torch.stack(cols, dim=1)
+
+    f1, f2 = fd(1e-6), fd(5e-7)
+    rowscale = torch.clamp(f1.abs().amax(dim=1), min=1.0)
+    smooth = keep & (((f1 - f2).abs().amax(dim=1) / rowscale) < 1e-6)
+    assert int(smooth.sum()) >= 0.95 * int(keep.sum()) and int(keep.sum()) > 100
+    check_grad(f"A' vs finite differences N={N}", g[smooth].cpu().numpy(), f1[smooth].cpu().numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("B", [1, 31, 1024, 4097])
+@pytest.mark.parametrize("case", ["single", "N2", "N3", "N5", "N16", "star3", "two_systems", "density"])
+def test_tree_grad_kernel_matches_autograd(dev, case, B):
+    """C' against autograd of the plain version on adversarial points (knots,
+    top knots, one star off the grid, NaN), relative rows, density rows and
+    limits, up to the 16-star cap."""
+    from chip_smoke import tree_likelihood_as
+    from isochrones_torch.ops.tree_cuda import tree_lnlike_grad_cuda
+
+    mod = _tree_model(dev, case)
+    lk = mod._get_fn("lnlike").likelihood
+    lk32 = tree_likelihood_as(lk, torch.float32)
+    _grad_both(tree_lnlike_grad_cuda, tree_lnlike_fused_plain, lk, lk32, tree_likelihood_as(lk32, torch.float64),
+               _tree_pts(mod, B, seed=B), lk.n_stars, f"{case} B={B}")
+
+
+def test_grad_dispatch_through_autograd_functions(dev):
+    """On the card, autograd through the fused likelihoods and the models'
+    posteriors runs kernels A' and C' (once a backward), and equals autograd
+    of the plain path; the wrappers without a backward raise."""
+    from chip_smoke import check_grad
+    from isochrones_torch.ops.star_cuda import star_lnlike_grad_cuda
+    from isochrones_torch.ops.tree_cuda import tree_lnlike_grad_cuda
+    import isochrones_torch.starmodel as star_mod
+
+    lk = _likelihood(dev, torch.float64, 2, "default")
+    p = torch.as_tensor(star_points(lk.pack6.knots, 2, 1024, seed=9), device=dev, dtype=torch.float64)
+    model = BinaryStarModel(get_ichrone("synthetic", device=dev, **_SMALL),
+                            **star_observations(get_ichrone("synthetic", device="cpu", **_SMALL), _SMALL_TRUTH))
+    x = p.clone().requires_grad_(True)
+    star_lnlike_grad_cuda.launches = 0
+    (g,) = torch.autograd.grad(model.lnpost_batch(x).sum(), x)
+    assert star_lnlike_grad_cuda.launches == 1
+    saved = star_mod.star_lnlike_fused
+    star_mod.star_lnlike_fused = star_lnlike_fused_plain
+    try:
+        x2 = p.clone().requires_grad_(True)
+        (g2,) = torch.autograd.grad(model.lnpost_batch(x2).sum(), x2)
+    finally:
+        star_mod.star_lnlike_fused = saved
+    check_grad("posterior gradient, kernel vs plain path", g.cpu().numpy(), g2.cpu().numpy(), 1e-9)
+
+    mod = _tree_model(dev, "star3")
+    xt = torch.as_tensor(_tree_pts(mod, 512, seed=1), device=dev, dtype=torch.float64).requires_grad_(True)
+    tree_lnlike_grad_cuda.launches = 0
+    torch.autograd.grad(mod.lnpost_batch(xt).sum(), xt)
+    assert tree_lnlike_grad_cuda.launches == 1
+
+    y = torch.zeros(8, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="has no backward kernel"):
+        cluster_lnmarginal_cuda(y, *([None] * 13))
+    with pytest.raises(RuntimeError, match="has no backward kernel"):
+        catalog_lnlike_cuda(y, None)
+
+
+@pytest.mark.parametrize("kind", ["binary", "tree", "isotrack"])
+def test_posterior_gradient_on_card_matches_cpu(dev, kind, request):
+    """Autograd through ``lnpost_batch`` on the card (kernels A and A′, or C
+    and C′; ``IsoTrackModel``'s two launches take A′ with no code of their
+    own) against autograd on the CPU (the plain versions), float64, at
+    adversarial points: |Δ| <= 1e-9 of the row's scale, identical NaN and
+    inf patterns (``chip_smoke.check_grad``), one backward launch a
+    likelihood call."""
+    from chip_smoke import check_grad
+    from isochrones_torch.ops.star_cuda import star_lnlike_grad_cuda
+    from isochrones_torch.ops.tree_cuda import tree_lnlike_grad_cuda
+
+    if kind == "isotrack":
+        gpu, cpu = _isotrack(dev, "synthetic", request), _isotrack("cpu", "synthetic", request)
+        pts, counter, per_call = isotrack_points(cpu, 2048, seed=7), star_lnlike_grad_cuda, 2
+    elif kind == "tree":
+        gpu, cpu = _tree_model(dev, "star3"), _tree_model("cpu", "star3")
+        pts, counter, per_call = _tree_pts(cpu, 2048, seed=7), tree_lnlike_grad_cuda, 1
+    else:
+        obs = star_observations(get_ichrone("synthetic", device="cpu", **_SMALL), _SMALL_TRUTH)
+        gpu, cpu = (BinaryStarModel(get_ichrone("synthetic", device=d, **_SMALL), **obs) for d in (dev, "cpu"))
+        pts, counter, per_call = star_points(cpu.ic.model.knots, 2, 2048, seed=7), star_lnlike_grad_cuda, 1
+
+    def grad(model, device):
+        x = torch.as_tensor(pts, device=device, dtype=torch.float64).requires_grad_(True)
+        (g,) = torch.autograd.grad(model.lnpost_batch(x).sum(), x)
+        return g.cpu().numpy()
+
+    before = counter.launches
+    got = grad(gpu, dev)
+    assert counter.launches == before + per_call
+    check_grad(f"posterior gradient {kind}", got, grad(cpu, "cpu"), 1e-9)

@@ -4,13 +4,15 @@ CPU, float64, inputs from a numpy seed.
 ``isochrones_torch.ops.eep.newton_slope`` is the plain version of the slope
 that the forward-model kernel computes (``csrc/interp_common.cuh::
 lerp_slope``): it is held against ``torch.autograd`` through the port's
-``interp_nd`` and against ``jax.grad`` of the JAX package's ``interp_nd``, to
-1e-12 of the slope's scale (the same products, summed in another order), on
-3-d grids whose last axis takes every axis-map kind, at points inside cells,
-on knots, on the top knot, next to NaN-padded rows, off the grid and NaN
-(identical NaN patterns; ``jax.grad`` only where the point is on the grid:
-off it the two packages gather their zero-weighted corners from other
-rows). ``get_eep_newton`` with that slope (``closed_slope``) is held against
+``interp_nd`` where the value is finite and against ``jax.grad`` of the JAX
+package's ``interp_nd``, to 1e-12 of the slope's scale (the same products,
+summed in another order), on 3-d grids whose last axis takes every axis-map
+kind, at points inside cells, on knots, on the top knot, next to NaN-padded
+rows, off the grid and NaN. Against ``jax.grad`` the NaN patterns are
+identical (a NaN-padded corner gives a NaN slope), only where the point is on
+the grid: off it the two packages gather their zero-weighted corners from
+other rows. Where the value is NaN, ``torch.autograd`` passes 0 (a NaN
+output of ``interp_nd`` passes no gradient) and the closed form NaN or 0. ``get_eep_newton`` with that slope (``closed_slope``) is held against
 the JAX ``get_eep_newton`` to 1e-10 in the EEP and the residual, on the track
 and the isochrone grid, with identical NaN patterns. The CUDA wrappers of the
 accurate forms refuse CPU tensors and name their caps; the CPU dispatchers
@@ -139,8 +141,13 @@ def test_newton_slope_matches_autograd_and_jax_grad(kind, icol):
     value, slope = teep.newton_slope(tgrid, torch.as_tensor(pts), icol)
     v_ref, g_ref = _autograd_slope(tgrid, pts, icol)
     np.testing.assert_array_equal(value.numpy(), v_ref)  # the value is interp_nd's, bitwise
-    n_fin = _assert_slopes(slope.numpy(), g_ref, f"{kind} autograd")
-    assert n_fin > 1500 and np.isnan(g_ref).sum() > 20  # NaN-padded corners give NaN slopes
+    nan_v = np.isnan(v_ref)
+    n_fin = _assert_slopes(slope.numpy()[~nan_v], g_ref[~nan_v], f"{kind} autograd")
+    assert not np.isnan(slope.numpy()[~nan_v]).any()
+    # a NaN value passes no gradient through interp_nd; the closed form keeps jax.grad's NaN
+    assert (g_ref[nan_v] == 0.0).all()
+    assert (np.isnan(slope.numpy()[nan_v]) | (slope.numpy()[nan_v] == 0.0)).all()
+    assert n_fin > 1500 and np.isnan(slope.numpy()).sum() > 20  # NaN-padded corners give NaN slopes
     on = ~np.isnan(pts).any(axis=1) & (pts[:, 2] <= knots[2][-1])
     _assert_slopes(slope.numpy()[on], _jax_slope(jgrid, pts[on], icol), f"{kind} jax.grad")
     # t is a constant at the top knot (and at every knot on the searchsorted path): slope 0
