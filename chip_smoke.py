@@ -17,9 +17,12 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    beside its bound (special functions at the card's rate);
 4. slice: the 50-star cluster model on the MIST-scale synthetic grid in
    float32 (the fit's settings): lnpost at the truth, one 16-walker
-   ``lnpost_batch`` through the kernel against the plain path in float64;
+   ``lnpost_batch`` through the kernels (the cluster kernel once, kernel B
+   three times: the ladder's mass columns, ``interp_mag``'s two lerps)
+   against the plain path (every lerp plain too) in float64;
 5. fit: ``fit_mcmc`` with 16 walkers, 30 burn-in + 20 steps, moves "mixed";
-   every lnprob finite, acceptance above 0, the kernel launched;
+   every lnprob finite, acceptance above 0, the cluster kernel and kernel B
+   launched;
 6. star kernel: the fused star-likelihood kernel against its plain PyTorch
    version on the card at the MIST-scale grid, B = 131072 points (the bench
    box plus adversarial rows: exact and top knots, out of bounds, NaN), a
@@ -31,9 +34,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    a 131072-point ``lnpost_batch`` through the kernel against the plain path
    in float64, and the float32 throughput of both paths;
 8. nested fit: ``fit_multinest(n_live_points=1000, n_batch=64,
-   n_chains=16)`` in float32, then ``derived_samples``; logz finite, the run
-   not truncated, the kernel launched, and the distance posterior's 2.5-97.5%
-   interval holding the true 200 pc;
+   n_chains=16)`` in float32, then ``derived_samples`` (through kernel B);
+   logz finite, the run not truncated, the kernels launched, and the
+   distance posterior's 2.5-97.5% interval holding the true 200 pc;
 9. tree kernel: the observation-tree likelihood kernel (``ll`` and the EEP
    prior's two columns per star) against its plain PyTorch version on the
    card at the MIST-scale grid, for two plans (one system of three stars:
@@ -60,7 +63,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     ``load_hdf`` with equal samples and evidence;
 12. the entry point: ``isochrones_torch.cli.starfit.main`` on a flat
     (``--binary``) and a tree (``--tree``) folder at the default synthetic
-    grid; results files loadable, ``starfit.log`` written; then the resume
+    grid; results files loadable, ``starfit.log`` written, kernel B launched
+    by the derived samples; then the resume
     check on the card: a fit stopped after two chunks and resumed gives
     bitwise the samples of the fit that never stopped;
 13. EEP inversion on the card, at the MIST-scale grid: ``track.get_eep`` fast
@@ -78,14 +82,15 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     column (drawn columns exactly, EEPs and magnitudes to 1e-9); the cluster
     kernel against its plain version at the nested fit's W = 1024 walkers,
     (50, 700, 3), both dtypes, timed; one W = 1024 ``lnpost_batch`` under the
-    profiler (launches, device time, idle share); ``StarClusterModel.fit``
-    (nested, dynamic by default) in float32 at a reduced number of live
-    points: logz finite, not truncated, the kernel launched, the distance
-    posterior's 95% interval holding 300 pc;
-15. the cluster entry point: ``python -m isochrones_torch.cli.clusterfit`` as
-    a subprocess on a CSV written from phase 14's catalogue (default
-    synthetic grid, small ``--nlive``): exit 0 and a finite evidence in its
-    log;
+    profiler (launches, device time, idle share; kernel B three launches);
+    ``StarClusterModel.fit`` (nested, dynamic by default) in float32 at a
+    reduced number of live points: logz finite, not truncated, the cluster
+    kernel and kernel B launched, the distance posterior's 95% interval
+    holding 300 pc;
+15. the cluster entry point: ``isochrones_torch.cli.clusterfit``'s ``main``
+    in a subprocess on a CSV written from phase 14's catalogue (default
+    synthetic grid, small ``--nlive``): exit 0, a finite evidence in its
+    log, the cluster kernel and kernel B launched (the counts it prints);
 16. the catalog kernel, both instantiations (the log-posterior: likelihood,
     default priors, bounds and EEP change of variables; and the likelihood's
     triple) against their plain versions at the MIST-scale grid: a seeded
@@ -184,7 +189,17 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     plain versions' in float64 and far from the one without the likelihood's
     part, the lnprob quantiles printed beside the nested fits' (phases 8 and
     11); one ``fit_polychord`` (100 live points) and a short
-    ``fit_mcmc_convergent`` continued from its checkpoint.
+    ``fit_mcmc_convergent`` continued from its checkpoint;
+26. kernel B (``interp_nd``, ``csrc/interp_nd.cu``) and its backward B':
+    B against its plain version at the cluster ladder's call (W = 1024, E =
+    700, 2 columns), ``interp_mag``'s 4-d BC call, every model column at
+    100,000 adversarial points and a searchsorted-axis shim, float64 and
+    float32, identical NaN patterns; B' against autograd of the plain version
+    at the seismic terms' call (131072 points); their device times beside
+    the bounds, the plain versions and ``grid_sample``; then a binary with
+    ``nu_max`` and ``delta_nu`` observed: ``lnpost_batch`` at 131072 points
+    against the plain path, and ``fit_nuts`` at the cut setting through A,
+    A', B and B' with the plain versions made to raise.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -335,6 +350,9 @@ GRID = dict(n_feh=15, n_mass=196, n_eep=1710, n_age=107)
 MODEL = dict(bands=("J", "H", "K"), props=("parallax",), eep_bounds=(1, 1400), eep_step=2.0,
              max_distance=3000, minq=0.2, mass_bounds=(0.6, 2.0))
 FIXTURE = os.path.join("isochrones_torch", "data", "cluster50_synthetic.csv")
+#: kernel B's launches in one cluster lnpost_batch whose only property is the
+#: parallax: the ladder's mass columns, interp_mag's model and BC lerps
+INTERP_PER_CLUSTER_CALL = 3
 
 
 #: EEP inversion (phase 13): batch sizes; port on the card against port on
@@ -650,6 +668,78 @@ def check_star(name, got, ref, rtol, atol=0.0):
     return worst
 
 
+#: kernel B against the plain version. Float64: the same explicitly rounded
+#: products summed in another order (torch's sum over the corners), within
+#: 1e-9 of the value; the absolute term, 1e-13 of the column's largest
+#: magnitude, only covers values that cancel to near 0. Float32, against the
+#: plain float32 version on the card (the same float32 cell location, so the
+#: same cells and NaN pattern): 2**ndim float32 products in another order
+#: differ by at most ~2**ndim ulps of the largest, 16 x 6e-8 = 1e-6 of the
+#: column's scale at 4 axes; 2e-6 of it.
+RTOL_INTERP_F64, ATOL_INTERP_F64, ATOL_INTERP_F32 = 1e-9, 1e-13, 2e-6
+#: the ladder's call (W, E, 3) with its 2 columns, the all-column
+#: interp_value call's points
+INTERP_LADDER_W, INTERP_VALUE_POINTS = W_FIT, 100_000
+
+
+def interp_scale(values, icols=None):
+    """Per wanted column, the largest finite magnitude of the table
+    ``values`` (numpy ``(n_icols,)``; 1 for a column with none)."""
+    v = np.asarray(values.cpu().double() if hasattr(values, "cpu") else values, dtype=np.float64)
+    v = v.reshape(-1, v.shape[-1])[:, list(range(v.shape[-1]) if icols is None else icols)]
+    m = np.max(np.where(np.isfinite(v), np.abs(v), 0.0), axis=0)
+    return np.where(m > 0, m, 1.0)
+
+
+def check_interp(name, got, ref, scale, rtol, atol):
+    """``interp_nd`` outputs ``(..., n_icols)``: identical NaN and +-inf
+    patterns, and |got - ref| <= rtol |ref| + atol * scale (per column) where
+    finite. Returns the max absolute error."""
+    got = np.asarray(got.cpu() if hasattr(got, "cpu") else got, dtype=np.float64)
+    ref = np.asarray(ref.cpu() if hasattr(ref, "cpu") else ref, dtype=np.float64)
+    if got.shape != ref.shape:
+        raise AssertionError(f"{name}: shape {got.shape} != {ref.shape}")
+    for what, f in (("NaN", np.isnan), ("+inf", np.isposinf), ("-inf", np.isneginf)):
+        if not np.array_equal(f(got), f(ref)):
+            raise AssertionError(f"{name}: {what} pattern differs ({int(f(got).sum())} vs {int(f(ref).sum())})")
+    fin = np.isfinite(ref)
+    err = np.where(fin, np.abs(got - ref), 0.0)
+    bad = err > rtol * np.abs(np.where(fin, ref, 0.0)) + atol * np.asarray(scale)
+    if bad.any():
+        i = np.unravel_index(np.argmax(np.where(bad, err, -1.0)), err.shape)
+        raise AssertionError(f"{name}: {int(bad.sum())} entries out of tolerance; worst at {i}: got {got[i]!r} "
+                             f"ref {ref[i]!r}")
+    return float(err.max()) if err.size else 0.0
+
+
+def interp_points(knots, n, seed=0):
+    """Seeded ``(n, ndim)`` numpy points for a grid with axis ``knots``:
+    uniform over the grid's box, then in blocks of n // 16: exact interior
+    knots on every axis, the top knot on one axis, the bottom knot on every
+    axis, one axis just below or above its range, a NaN on one axis, and
+    exact knots on a random half of the axes."""
+    rng = np.random.default_rng(seed)
+    ks = [np.asarray(k.cpu().double() if hasattr(k, "cpu") else k, dtype=float) for k in knots]
+    nd = len(ks)
+    p = np.stack([rng.uniform(k[0], k[-1], n) for k in ks], axis=-1)
+    m = max(1, n // 16)
+    blocks = [np.arange(n)[i * m:(i + 1) * m] for i in range(6)]
+    for d, k in enumerate(ks):
+        p[blocks[0], d] = rng.choice(k, len(blocks[0]))
+        p[blocks[2], d] = k[0]
+        half = rng.random(len(blocks[5])) < 0.5
+        p[blocks[5], d] = np.where(half, rng.choice(k, len(blocks[5])), p[blocks[5], d])
+    axis = rng.integers(0, nd, n)
+    for d, k in enumerate(ks):
+        r = blocks[1][axis[blocks[1]] == d]
+        p[r, d] = k[-1]
+        r = blocks[3][axis[blocks[3]] == d]
+        span = k[-1] - k[0] if k[-1] > k[0] else 1.0
+        p[r, d] = np.where(rng.random(len(r)) < 0.5, k[0] - 1e-3 * span, k[-1] + 1e-3 * span)
+        p[blocks[4][axis[blocks[4]] == d], d] = np.nan
+    return p
+
+
 def write_tree_ini(folder, ic, truth=TREE_TRUTH):
     """A folder with a ``star.ini`` in the layout of tests/star3/star.ini
     whose magnitudes are those of ``truth`` (the stars' EEPs, then age, feh,
@@ -821,54 +911,262 @@ def _touched_rows(grid, pts):
     return int(torch.unique(flat[~bad]).numel())
 
 
-def interp_nd_record(model, p):
-    """Row B of ``PERF.md`` (``interp_nd``, plain torch on the card): the
-    ``interp_nd`` calls one cluster ``lnpost_batch`` of ``model`` at walkers
-    ``p`` makes (its ladder's mass columns, and the two inside
-    ``interp_mag``), and for the first of them at the ladder's shape (W, E,
-    3), 2 columns: device time (CUDA events), device kernels a call
-    (``torch.profiler``) and bound (the points, the output and each touched
-    row's 2 columns once; ~70 flops of cell location and 8 corners x (6 + 2
-    x 2) a point)."""
+def ladder_points(model, p):
+    """The grid points ``(W, E, 3)`` of a cluster model's EEP ladder at the
+    walkers ``p`` (numpy ``(W, 7)``), in the model grid's axis order: the
+    points of the ladder's ``interp_nd`` calls."""
     import torch
 
-    import isochrones_torch.cluster as cluster_mod
-    import isochrones_torch.ops.mags as mags_mod
-    from isochrones_torch.ops.interp import interp_nd
-
-    calls = [0]
-
-    def counted(*args, **kwargs):
-        calls[0] += 1
-        return interp_nd(*args, **kwargs)
-
-    saved = cluster_mod.interp_nd, mags_mod.interp_nd
-    cluster_mod.interp_nd = mags_mod.interp_nd = counted
-    try:
-        model.lnpost_batch(p)
-        torch.cuda.synchronize()
-    finally:
-        cluster_mod.interp_nd, mags_mod.interp_nd = saved
-    ic, grid = model.ic, model.ic.model
+    ic = model.ic
     n_eep = model._n_ladder
     eeps = float(model.bounds("eep")[0]) + model.eep_step * torch.arange(n_eep, dtype=ic.dtype, device=ic.device)
     pt = torch.as_tensor(p, dtype=ic.dtype, device=ic.device)
     W = pt.shape[0]
     user = [eeps.expand(W, n_eep), pt[:, :1].expand(W, n_eep), pt[:, 1:2].expand(W, n_eep)]  # eep, age, feh
     io = ic._param_index_order
-    gp = torch.stack([user[io[0]], user[io[1]], user[io[2]]], dim=-1)
-    icols = (grid.column_index["initial_mass"], grid.column_index["dm_deep"])
+    return torch.stack([user[io[0]], user[io[1]], user[io[2]]], dim=-1)
 
-    def fn():
-        return interp_nd(grid.values, grid.knots, gp, icols=icols, axis_maps=grid.axis_maps)
 
-    ms = cuda_ms(fn, reps=20)
-    kernels = sum(n for _, n in profile_kernels(fn, reps=5)[1].values()) / 5
-    n, e = W * n_eep, grid.values.element_size()
-    b = bound((3 * n + 2 * n + 2 * _touched_rows(grid, gp.reshape(-1, 3))) * e, n * (70 + 8 * (6 + 2 * 2)), 0,
-              "float32" if e == 4 else "float64")
-    return dict(calls_per_lnpost_batch=calls[0], shape={"W": W, "E": n_eep, "cols": 2}, ms=ms,
-                device_kernels_per_call=kernels, bound_ms=b[0], bound_by=b[1])
+def interp_work(grid, pts, n_cols, grad=False):
+    """``(bytes, flops, special functions)`` of kernel B on these points (of
+    B' with ``grad``): the points read and the output written once (B': the
+    points and the cotangent read, the gradient written), each distinct row
+    that the corners of the in-bounds points touch read once for its wanted
+    columns; ~23 flops of cell location an axis and 2**ndim corners x (2 a
+    weight factor and 2 a column) a point, twice that for B' (the values
+    again, then the vector-Jacobian product)."""
+    nd = pts.shape[-1]
+    flat = pts.reshape(-1, nd)
+    P, e = flat.shape[0], flat.element_size()
+    rows = _touched_rows(grid, flat)
+    nbytes = (P * nd + P * n_cols + rows * n_cols + (P * nd if grad else 0)) * e
+    flops = P * (23 * nd + 2 ** nd * (2 * nd + 2 * n_cols))
+    return nbytes, (2 if grad else 1) * flops, 0
+
+
+def grid_sample_input(grid, pts, icols):
+    """``(volume (1, C, n0, n1, n2), sample grid (1, 1, 1, P, 3))``: the wanted
+    columns of a 3-d table laid out for ``torch.nn.functional.grid_sample``,
+    and the points mapped onto [-1, 1] by each axis' end knots, last axis
+    first (grid_sample's x is the innermost axis)."""
+    import torch
+
+    vol = grid.values[..., list(icols)].permute(3, 0, 1, 2).unsqueeze(0).contiguous()
+    lo = torch.stack([k[0] for k in grid.knots])
+    hi = torch.stack([k[-1] for k in grid.knots])
+    u = (pts.reshape(-1, 3) - lo) / (hi - lo) * 2.0 - 1.0
+    return vol, u.flip(-1).reshape(1, 1, 1, -1, 3).contiguous()
+
+
+def _interp_check(name, values, knots, pts, icols, maps):
+    """Kernel B against the plain version on the same card tensors
+    (``check_interp`` at the dtype's tolerances); returns the max abs error."""
+    import torch
+
+    from isochrones_torch.ops.interp import interp_nd_plain
+    from isochrones_torch.ops.interp_cuda import interp_nd_cuda
+
+    got = interp_nd_cuda(values, knots, pts, icols=icols, axis_maps=maps)
+    ref = interp_nd_plain(values, knots, pts, icols=icols, axis_maps=maps)
+    torch.cuda.synchronize()
+    f64 = pts.dtype == torch.float64
+    return check_interp(name, got, ref, interp_scale(values, icols), RTOL_INTERP_F64 if f64 else 0.0,
+                        ATOL_INTERP_F64 if f64 else ATOL_INTERP_F32)
+
+
+def cluster_call_ab(dev, ic, data, p):
+    """One cluster ``lnpost_batch`` at the walkers ``p`` (the 50-star model
+    of phase 4 on ``ic``) with the ladder's lerps through kernel B and
+    through the plain version (the earlier design), in turns (B, plain,
+    plain, B): wall-clock ms a call (10 calls a turn), and per design under
+    the profiler the device kernels a call and the idle share. Returns
+    ``{design: {"wall_ms": [two turns], "kernels": n, "idle": share}}``."""
+    import torch
+
+    import isochrones_torch.cluster as cluster_mod
+    from isochrones_torch import StarClusterModel
+    from isochrones_torch.ops.interp import interp_nd_plain
+    from isochrones_torch.ops.mags import interp_mag_plain
+
+    model = StarClusterModel(ic, data, **MODEL)
+    pt = torch.as_tensor(p, device=dev, dtype=ic.dtype)
+
+    def run(design, fn):
+        if design == "kernel B":
+            return fn()
+        saved = cluster_mod.interp_nd, cluster_mod._interp_mag_kernel
+        cluster_mod.interp_nd, cluster_mod._interp_mag_kernel = interp_nd_plain, interp_mag_plain
+        try:
+            return fn()
+        finally:
+            cluster_mod.interp_nd, cluster_mod._interp_mag_kernel = saved
+
+    out = {d: {"wall_ms": []} for d in ("kernel B", "plain")}
+    for design in ("kernel B", "plain", "plain", "kernel B"):
+        out[design]["wall_ms"].append(run(design, lambda: 1e3 * _wall(lambda: model.lnpost_batch(pt), reps=10)))
+    for design, rec in out.items():
+        wall, by_name = run(design, lambda: profile_kernels(lambda: model.lnpost_batch(pt), reps=3))
+        busy = sum(ms for ms, _ in by_name.values()) / 3
+        rec.update(kernels=sum(n for _, n in by_name.values()) / 3, idle=1 - busy / (1e3 * wall / 3))
+    print(f"[interp] one {len(p)}-walker cluster lnpost_batch f32, in turns (B, plain, plain, B): ladder through "
+          f"kernel B {np.round(out['kernel B']['wall_ms'], 3).tolist()} ms, {out['kernel B']['kernels']:.1f} device "
+          f"kernels, idle share {out['kernel B']['idle']:.3f}; through the plain version "
+          f"{np.round(out['plain']['wall_ms'], 3).tolist()} ms, {out['plain']['kernels']:.1f} kernels, idle share "
+          f"{out['plain']['idle']:.3f}")
+    return out
+
+
+def phase_interp_kernel(dev, ic32, ic64):
+    """Phase 26a: kernel B against its plain version on the card, float64 and
+    float32: the cluster ladder's call at W = 1024 walkers (W, 700, 3) with
+    its two mass columns, ``interp_mag``'s 4-d BC call (3 bands) at the
+    ladder's points, ``interp_value``'s every column at 100,000 seeded points
+    (adversarial blocks: ``interp_points``), and a reference-named shim
+    (``interp_values_3d``, float64) on a cut of the model grid whose EEP axis
+    is irregular past 256 knots (searchsorted); kernel B' against autograd of
+    the plain version at the seismic terms' call (131072 points, ``nu_max``
+    and ``delta_nu``). Times at the ladder's call (B) and the seismic call
+    (B') beside the bounds, the plain versions and, for B, ``grid_sample``;
+    the 1024-walker cluster ``lnpost_batch`` with B and with the plain lerps
+    in turns (:func:`cluster_call_ab`). Returns ``(B record, B' record)``."""
+    import torch
+    import torch.nn.functional as F
+
+    from isochrones_torch import StarClusterModel
+    from isochrones_torch import interp as shims
+    from isochrones_torch.catalog import read_csv
+    from isochrones_torch.ops.interp import compute_axis_maps, interp_nd, interp_nd_plain
+    from isochrones_torch.ops.interp_cuda import interp_nd_cuda, interp_nd_grad_cuda
+
+    data = read_csv(FIXTURE)
+    rng = np.random.default_rng(1)
+    pw = np.asarray(TRUTH)[None, :] + rng.normal(0, P0_SCALE, size=(INTERP_LADDER_W, 7))
+    errs, calls = {}, {}
+    for label, ic in (("f64", ic64), ("f32", ic32)):
+        g, bc = ic.model, ic.bc
+        ci = g.column_index
+        gp = ladder_points(StarClusterModel(ic, data, **MODEL), pw)
+        mass_icols = (ci["initial_mass"], ci["dm_deep"])
+        errs[f"ladder {label}"] = _interp_check(f"ladder {label}", g.values, g.knots, gp, mass_icols, g.axis_maps)
+        pk = ic.model_packed
+        props = interp_nd_plain(pk.values, pk.knots, gp, icols=ic._packed_icols, axis_maps=pk.axis_maps)
+        av = torch.as_tensor(pw[:, 3], dtype=ic.dtype, device=dev)[:, None].expand(gp.shape[:2])
+        bp = torch.stack([props[..., 0], props[..., 1], props[..., 2], av], dim=-1)
+        bands = tuple(bc.column_index[b] for b in MODEL["bands"])
+        errs[f"BC {label}"] = _interp_check(f"BC {label}", bc.values, bc.knots, bp, bands, bc.axis_maps)
+        vp = torch.as_tensor(interp_points(g.knots, INTERP_VALUE_POINTS, seed=26), device=dev, dtype=ic.dtype)
+        errs[f"every column {label}"] = _interp_check(f"every column {label}", g.values, g.knots, vp, None,
+                                                      g.axis_maps)
+        calls[label] = (g, gp, mass_icols, bc, bp, bands, vp)
+    print(f"[interp] kernel B vs plain on the card: the ladder's call ({INTERP_LADDER_W}, "
+          f"{calls['f32'][1].shape[1]}, 3) x 2 columns, interp_mag's BC call (4-d, 3 bands), every column "
+          f"({len(calls['f32'][0].columns)}) at {INTERP_VALUE_POINTS} points; max_abs_err "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} (float64 rtol {RTOL_INTERP_F64} + "
+          f"{ATOL_INTERP_F64} x column scale, float32 against the plain float32 version {ATOL_INTERP_F32} x column "
+          f"scale); NaN patterns identical")
+
+    # a shim on a cut of the model grid with an irregular EEP axis: no map, searchsorted
+    g = ic64.model
+    sub = g.values[:, :4].cpu().numpy()
+    knots = [k.cpu().numpy() for k in g.knots]
+    knots[1] = knots[1][:4]
+    e = knots[2]
+    knots[2] = e + 0.3 * (e[1] - e[0]) * np.sin(np.arange(len(e))) ** 2
+    maps = compute_axis_maps(knots)
+    if maps[2] is not None:
+        raise AssertionError(f"the shim's EEP axis is not searchsorted: {maps[2]}")
+    sp = interp_points(knots, INTERP_VALUE_POINTS, seed=27)
+    icols = [g.column_index["Teff"], g.column_index["logg"], g.column_index["initial_mass"]]
+    interp_nd_cuda.launches = 0
+    got = shims.interp_values_3d(sp[:, 0], sp[:, 1], sp[:, 2], sub, icols, *knots, device=dev)
+    if interp_nd_cuda.launches != 1:
+        raise AssertionError(f"the shim launched kernel B {interp_nd_cuda.launches} times")
+    kt = tuple(torch.as_tensor(k, device=dev) for k in knots)
+    ref = interp_nd_plain(torch.as_tensor(sub, device=dev), kt, torch.as_tensor(sp, device=dev), icols=tuple(icols),
+                          axis_maps=maps)
+    errs["shim f64"] = check_interp("shim f64", got, ref, interp_scale(sub, icols), RTOL_INTERP_F64,
+                                    ATOL_INTERP_F64)
+    print(f"[interp] interp_values_3d (maps {[m and m[0] for m in maps]}) at {INTERP_VALUE_POINTS} points: one "
+          f"launch, max_abs_err {errs['shim f64']:.3e}")
+
+    # times at the ladder's call, float32
+    g, gp, mass_icols, bc, bp, bands, vp = calls["f32"]
+    g64, gp64 = calls["f64"][0], calls["f64"][1]
+    ms = kernel_ms(lambda: interp_nd_cuda(g.values, g.knots, gp, icols=mass_icols, axis_maps=g.axis_maps),
+                   "interp_nd_kernel", reps=20)
+    ms64 = kernel_ms(lambda: interp_nd_cuda(g64.values, g64.knots, gp64, icols=mass_icols, axis_maps=g64.axis_maps),
+                     "interp_nd_kernel", reps=20)
+    plain = lambda: interp_nd_plain(g.values, g.knots, gp, icols=mass_icols, axis_maps=g.axis_maps)  # noqa: E731
+    plain_ms = cuda_ms(plain, reps=5)
+    plain_kernels = sum(n for _, n in profile_kernels(plain, reps=3)[1].values()) / 3
+    bound_ms, bound_by, what = bound(*interp_work(g, gp, len(mass_icols)), "float32")
+    vol, sg = grid_sample_input(g, gp, mass_icols)
+    lib = F.grid_sample(vol, sg, mode="bilinear", align_corners=True)[0, :, 0, 0, :].T
+    library_ms = cuda_ms(lambda: F.grid_sample(vol, sg, mode="bilinear", align_corners=True), reps=20)
+    kgot = interp_nd_cuda(g.values, g.knots, gp, icols=mass_icols, axis_maps=g.axis_maps).reshape(-1, 2)
+    both = torch.isfinite(kgot).all(-1) & torch.isfinite(lib).all(-1)
+    lib_diff = float((lib[both] - kgot[both]).abs().max()) if bool(both.any()) else float("nan")
+    bc_ms = kernel_ms(lambda: interp_nd_cuda(bc.values, bc.knots, bp, icols=bands, axis_maps=bc.axis_maps),
+                      "interp_nd_kernel", reps=20)
+    bc_bound = bound(*interp_work(bc, bp, len(bands)), "float32")[0]
+    all_ms = kernel_ms(lambda: interp_nd_cuda(g.values, g.knots, vp, axis_maps=g.axis_maps), "interp_nd_kernel",
+                       reps=20)
+    all_bound = bound(*interp_work(g, vp, len(g.columns)), "float32")[0]
+    print(f"[interp] time, the ladder's call ({INTERP_LADDER_W}, {gp.shape[1]}, 3) x 2 columns f32: kernel B "
+          f"{ms:.4f} ms (f64 {ms64:.4f}), plain {plain_ms:.4f} ms ({plain_kernels:.1f} device kernels), grid_sample "
+          f"{library_ms:.4f} ms (where both are finite it differs from kernel B by {lib_diff:.3e}); bound "
+          f"{bound_ms:.6f} ms ({what}), kernel at {bound_ms / ms:.5f} of it")
+    print(f"[interp] time f32: interp_mag's BC call {bc_ms:.4f} ms (bound {bc_bound:.6f} ms); every column at "
+          f"{INTERP_VALUE_POINTS} points {all_ms:.4f} ms (bound {all_bound:.6f} ms)")
+    ab = cluster_call_ab(dev, ic32, data, pw)
+    rec_b = dict(name="interp_nd", route="cuda", source="isochrones_torch/csrc/interp_nd.cu",
+                 replaces="isochrones_tpu/ops/interp.py:483", max_abs_err=errs["ladder f32"], ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                 library="torch.nn.functional.grid_sample(mode='bilinear', align_corners=True)",
+                 library_max_diff=lib_diff, plain_device_kernels=plain_kernels, ms_f64=ms64,
+                 shape={"W": INTERP_LADDER_W, "E": int(gp.shape[1]), "ndim": 3, "cols": 2, "dtype": "float32"},
+                 ms_bc_call=bc_ms, bound_ms_bc_call=bc_bound, ms_every_column=all_ms, bound_ms_every_column=all_bound,
+                 max_abs_err_all=errs, cluster_call_ab=ab)
+
+    # kernel B' at the seismic terms' call: the primary's grid point, nu_max and delta_nu
+    grads, times = {}, {}
+    for label, ic in (("f64", ic64), ("f32", ic32)):
+        g = ic.model
+        io = ic._param_index_order
+        sp = star_points(g.knots, 1, STAR_BATCH, seed=28)
+        sp[STAR_BATCH // 2:] = star_points(g.knots, 1, STAR_BATCH // 2, seed=29, box=STAR_BOX[1:])
+        gp = torch.as_tensor(sp[:, [io[0], io[1], io[2]]], device=dev, dtype=ic.dtype)
+        icols = (g.column_index["nu_max"], g.column_index["delta_nu"])
+        cot = torch.as_tensor(np.random.default_rng(30).normal(size=(STAR_BATCH, 2)), device=dev, dtype=ic.dtype)
+
+        def vjp(fn, g=g, gp=gp, icols=icols, cot=cot):
+            with torch.enable_grad():
+                x = gp.clone().requires_grad_(True)
+                (gx,) = torch.autograd.grad(fn(g.values, g.knots, x, icols=icols, axis_maps=g.axis_maps), x,
+                                            grad_outputs=cot)
+            return gx
+
+        interp_nd_grad_cuda.launches = 0
+        got = vjp(interp_nd).cpu().numpy()
+        if interp_nd_grad_cuda.launches != 1:
+            raise AssertionError(f"B' launched {interp_nd_grad_cuda.launches} times in one backward")
+        grads[label] = check_grad(f"B' {label}", got, vjp(interp_nd_plain).cpu().numpy(),
+                                  RTOL_GRAD_F64 if label == "f64" else RTOL_GRAD_F32)[0]
+        times[label] = (kernel_ms(lambda: interp_nd_grad_cuda(g.values, g.knots, gp, cot, icols, g.axis_maps),
+                                  "interp_nd_grad_kernel", reps=20),
+                        cuda_ms(lambda: vjp(interp_nd_plain), reps=5),
+                        bound(*interp_work(g, gp, 2, grad=True), label.replace("f", "float"))[:2])
+    (gms, gplain, (gbound, gby)), gms64 = times["f32"], times["f64"][0]
+    print(f"[interp] kernel B' vs autograd of the plain version at the seismic call ({STAR_BATCH} points, nu_max "
+          f"and delta_nu): f64 {grads['f64']:.3e} (rtol {RTOL_GRAD_F64} of the row's scale), f32 against the plain "
+          f"float32 version {grads['f32']:.3e} (rtol {RTOL_GRAD_F32}); time f32 {gms:.4f} ms (f64 {gms64:.4f}), "
+          f"autograd of the plain version (forward + backward) {gplain:.4f} ms; bound {gbound:.6f} ms, kernel at "
+          f"{gbound / gms:.5f} of it")
+    rec_g = dict(name="interp_nd_grad", route="cuda", source="isochrones_torch/csrc/interp_nd.cu",
+                 replaces="isochrones_tpu/ops/interp.py:483", max_abs_err=grads["f32"], ms=gms, plain_ms=gplain,
+                 bound_ms=gbound, bound_by=gby, library_ms=None, ms_f64=gms64, max_err_f64=grads["f64"],
+                 shape={"P": STAR_BATCH, "ndim": 3, "cols": 2, "dtype": "float32"})
+    return rec_b, rec_g
 
 
 def star_work(pars, lk):
@@ -1216,11 +1514,13 @@ def phase_tree_slice_and_fit(dev, ic32, ic64, workdir):
 
 
 def phase_entry_point(dev, workdir):
-    """Phase 12. Returns the launches of the star and the tree kernel."""
+    """Phase 12. Returns the launches of the star, the tree and the interp
+    kernel (B: the derived samples)."""
     import torch
 
     from isochrones_torch import BinaryStarModel, get_ichrone
     from isochrones_torch.cli.starfit import main as starfit_main
+    from isochrones_torch.ops.interp_cuda import interp_nd_cuda
     from isochrones_torch.ops.star_cuda import star_lnlike_cuda
     from isochrones_torch.ops.tree_cuda import tree_lnlike_cuda
     from isochrones_torch.samplers.nested import _chunk_dead
@@ -1233,13 +1533,13 @@ def phase_entry_point(dev, workdir):
     flat = write_ini(os.path.join(workdir, "cli_flat"), flat_text)
     tree = write_tree_ini(os.path.join(workdir, "cli_tree"), ic, CLI_TREE_TRUTH)
     common = ["--models", "synthetic", "--no_plots", "--n_live_points", str(CLI_LIVE), "--seed", "0"]
-    star_lnlike_cuda.launches = tree_lnlike_cuda.launches = 0
+    star_lnlike_cuda.launches = tree_lnlike_cuda.launches = interp_nd_cuda.launches = 0
     t0 = time.perf_counter()
     rc_flat = starfit_main(common + ["--binary", flat])
     t_flat = time.perf_counter() - t0
     rc_tree = starfit_main(common + ["--tree", tree])
     t_tree = time.perf_counter() - t0 - t_flat
-    n_star, n_tree = star_lnlike_cuda.launches, tree_lnlike_cuda.launches
+    n_star, n_tree, n_interp = star_lnlike_cuda.launches, tree_lnlike_cuda.launches, interp_nd_cuda.launches
     if rc_flat != 0 or rc_tree != 0:
         raise AssertionError(f"starfit exit codes {rc_flat}, {rc_tree}")
     flat_file = os.path.join(flat, "synthetic_starmodel_binary.npz")
@@ -1252,11 +1552,12 @@ def phase_entry_point(dev, workdir):
             raise AssertionError(f"{log} does not report a successful fit")
         if not np.isfinite(m.evidence[0]) or len(m.samples["lnprob"]) != 4000:
             raise AssertionError(f"{folder}: evidence {m.evidence}, {len(m.samples['lnprob'])} samples")
-    if n_star <= 0 or n_tree <= 0:
-        raise AssertionError(f"entry point launches: star {n_star}, tree {n_tree}")
+    if n_star <= 0 or n_tree <= 0 or n_interp <= 0:
+        raise AssertionError(f"entry point launches: star {n_star}, tree {n_tree}, interp (derived samples) {n_interp}")
     print(f"[starfit] cli --binary: exit {rc_flat}, {t_flat:.2f} s, logz {m_flat.evidence[0]:.3f}, star kernel "
           f"launches {n_star}; cli --tree: exit {rc_tree}, {t_tree:.2f} s, logz {m_tree.evidence[0]:.3f}, "
-          f"labelstring {m_tree.labelstring}, tree kernel launches {n_tree}")
+          f"labelstring {m_tree.labelstring}, tree kernel launches {n_tree}; kernel B launches (the derived "
+          f"samples) {n_interp}")
 
     # the resume check: stop after two chunks, lose the results file (a
     # killed fit wrote none), resume; against the fit that never stopped
@@ -1280,7 +1581,7 @@ def phase_entry_point(dev, workdir):
         raise AssertionError(f"resumed evidence {resumed.evidence} != {m_flat.evidence}")
     print(f"[starfit] resume on the card: stopped at {two_chunks} dead points (2 chunks), resumed; samples "
           f"({len(m_flat.samples)} columns x 4000) and evidence bitwise equal to the uninterrupted fit")
-    return n_star, n_tree
+    return n_star, n_tree, n_interp
 
 
 def eep_points(track, n, seed):
@@ -1516,6 +1817,7 @@ def phase_cluster_nested(dev, ic32, ic64):
     from isochrones_torch.cluster import SimulatedCluster, StarClusterModel
     from isochrones_torch.ops.cluster import cluster_lnmarginal_plain
     from isochrones_torch.ops.cluster_cuda import cluster_lnmarginal_cuda
+    from isochrones_torch.ops.interp_cuda import interp_nd_cuda
 
     # ---- the simulator on the card against the committed catalogue
     sim = SimulatedCluster(50, ic=ic64, **CLUSTER_SIM)
@@ -1571,20 +1873,26 @@ def phase_cluster_nested(dev, ic32, ic64):
     rng = np.random.default_rng(1)
     pw = torch.as_tensor(np.asarray(TRUTH)[None, :] + rng.normal(0, P0_SCALE, size=(W_FIT, 7)), device=dev,
                          dtype=torch.float32)
-    cluster_lnmarginal_cuda.launches = 0
+    cluster_lnmarginal_cuda.launches = interp_nd_cuda.launches = 0
     lp = model.lnpost_batch(pw)
     torch.cuda.synchronize()
-    if cluster_lnmarginal_cuda.launches != 1 or not torch.isfinite(lp).any():
-        raise AssertionError(f"W={W_FIT} lnpost_batch: {cluster_lnmarginal_cuda.launches} kernel launches, "
-                             f"{int(torch.isfinite(lp).sum())} finite")
+    n_interp_call = interp_nd_cuda.launches
+    if cluster_lnmarginal_cuda.launches != 1 or n_interp_call != INTERP_PER_CLUSTER_CALL or not torch.isfinite(lp).any():
+        raise AssertionError(f"W={W_FIT} lnpost_batch: {cluster_lnmarginal_cuda.launches} cluster kernel launches, "
+                             f"{n_interp_call} of kernel B, {int(torch.isfinite(lp).sum())} finite")
     call_ms = 1e3 * _wall(lambda: model.lnpost_batch(pw), reps=5)
     prof_s, by_name = profile_kernels(lambda: model.lnpost_batch(pw), reps=3)
     busy = sum(v[0] for v in by_name.values()) / 3
     k_ms = sum(v[0] for k, v in by_name.items() if "cluster_marginal" in k) / 3
+    b_ms = sum(v[0] for k, v in by_name.items() if "interp_nd_kernel" in k) / 3
+    n_kernels = sum(v[1] for v in by_name.values()) / 3
+    idle = 1 - busy / (1e3 * prof_s / 3)
     print(f"[cluster nested] one W={W_FIT} lnpost_batch f32: {call_ms:.3f} ms ({1e3 * prof_s / 3:.3f} ms under the "
-          f"profiler), {sum(v[1] for v in by_name.values()) / 3:.1f} kernel launches, device busy {busy:.3f} ms "
-          f"(idle share {1 - busy / (1e3 * prof_s / 3):.3f}), cluster kernel {k_ms:.3f} ms "
-          f"({k_ms / busy:.3f} of busy); {int(torch.isfinite(lp).sum())}/{W_FIT} finite")
+          f"profiler), {n_kernels:.1f} kernel launches, device busy {busy:.3f} ms (idle share {idle:.3f}), cluster "
+          f"kernel {k_ms:.3f} ms ({k_ms / busy:.3f} of busy), kernel B {n_interp_call} launches {b_ms:.3f} ms; "
+          f"{int(torch.isfinite(lp).sum())}/{W_FIT} finite")
+    record.update(lnpost_batch_ms_fit_batch=call_ms, lnpost_batch_kernels_fit_batch=n_kernels,
+                  lnpost_batch_idle_fit_batch=idle, interp_launches_fit_batch_call=n_interp_call)
 
     seen = {}
     run_nested = nested_mod.run_nested
@@ -1594,7 +1902,7 @@ def phase_cluster_nested(dev, ic32, ic64):
         return run_nested(*args, **kwargs)
 
     nested_mod.run_nested = recording_run_nested
-    cluster_lnmarginal_cuda.launches = 0
+    cluster_lnmarginal_cuda.launches = interp_nd_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
@@ -1603,11 +1911,13 @@ def phase_cluster_nested(dev, ic32, ic64):
         nested_mod.run_nested = run_nested
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    n_launch = cluster_lnmarginal_cuda.launches
+    n_launch, n_interp = cluster_lnmarginal_cuda.launches, interp_nd_cuda.launches
     if seen.get("dynamic") is not True or (seen.get("n_batch"), seen.get("n_chains")) != (64, 16):
         raise AssertionError(f"the cluster fit is not dynamic by default at the card's batch: {seen}")
-    if not np.isfinite(res.logz) or res.truncated or n_launch <= 0 or model.evidence != (res.logz, res.logzerr):
-        raise AssertionError(f"nested cluster fit: logz {res.logz}, truncated {res.truncated}, launches {n_launch}")
+    if (not np.isfinite(res.logz) or res.truncated or n_launch <= 0 or n_interp < INTERP_PER_CLUSTER_CALL * n_launch
+            or model.evidence != (res.logz, res.logzerr)):
+        raise AssertionError(f"nested cluster fit: logz {res.logz}, truncated {res.truncated}, launches {n_launch}, "
+                             f"kernel B {n_interp}")
     d_lo, d_hi = np.quantile(model.samples["distance"], [0.025, 0.975])
     if not d_lo <= TRUTH[2] <= d_hi:
         raise AssertionError(f"cluster distance 95% interval ({d_lo:.2f}, {d_hi:.2f}) misses {TRUTH[2]}")
@@ -1618,13 +1928,28 @@ def phase_cluster_nested(dev, ic32, ic64):
     print(f"[cluster nested] lnpost at the truth {model.lnpost(TRUTH):.3f}, best sample {model.samples['lnprob'].max():.3f}")
     print(f"[cluster nested] fit {json.dumps(CLUSTER_FIT)} f32, dynamic by default, n_batch {n_batch} x n_chains 16: "
           f"{fit_s:.3f} s, {res.n_iter} dead points, {res.n_iter // n_batch} steps, {res.dynamic_rounds} dynamic "
-          f"rounds, logz {res.logz:.4f} +- {res.logzerr:.4f}, ESS {res.ess:.1f}, cluster kernel launches {n_launch}")
+          f"rounds, logz {res.logz:.4f} +- {res.logzerr:.4f}, ESS {res.ess:.1f}, cluster kernel launches {n_launch}, "
+          f"kernel B launches {n_interp}")
     print(f"[cluster nested] posterior medians {json.dumps(med)}; distance 95% interval ({d_lo:.3f}, {d_hi:.3f})")
+    record.update(nested_fit_seconds=fit_s, interp_launches_nested_fit=n_interp)
     return sim, record, n_launch
 
 
+#: phase 15's subprocess: the CLI's main, then the kernel wrappers' counts
+CLUSTER_CLI_RUN = (
+    "import json, sys\n"
+    "from isochrones_torch.cli.clusterfit import main\n"
+    "from isochrones_torch.ops.cluster_cuda import cluster_lnmarginal_cuda\n"
+    "from isochrones_torch.ops.interp_cuda import interp_nd_cuda\n"
+    "rc = main(sys.argv[1:])\n"
+    "print('launches ' + json.dumps([cluster_lnmarginal_cuda.launches, interp_nd_cuda.launches]))\n"
+    "sys.exit(rc)\n"
+)
+
+
 def phase_cluster_entry_point(sim, workdir):
-    """Phase 15: the CLI as a subprocess on a CSV of phase 14's catalogue."""
+    """Phase 15: the CLI's ``main`` in a subprocess on a CSV of phase 14's
+    catalogue. Returns the launches of the cluster kernel and of kernel B."""
     import csv
     import re
 
@@ -1636,8 +1961,8 @@ def phase_cluster_entry_point(sim, workdir):
         for i in range(len(sim)):
             w.writerow([repr(float(sim.data[c][i])) for c in cols])
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "isochrones_torch.cli.clusterfit", *CLUSTER_CLI, path],
-                          capture_output=True, text=True, timeout=900)
+    proc = subprocess.run([sys.executable, "-c", CLUSTER_CLI_RUN, *CLUSTER_CLI, path], capture_output=True, text=True,
+                          timeout=900)
     secs = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     found = re.search(r"clusterfit cluster_smoke: logz = (\S+) \+- (\S+)", log)
@@ -1645,8 +1970,13 @@ def phase_cluster_entry_point(sim, workdir):
         raise AssertionError(f"clusterfit CLI: exit {proc.returncode}, log:\n{log[-3000:]}")
     if "no (eep, q) support" in log:
         raise AssertionError(f"clusterfit CLI: a member has no support:\n{log[-3000:]}")
-    print(f"[clusterfit] python -m isochrones_torch.cli.clusterfit {' '.join(CLUSTER_CLI)} <csv of {len(sim)} stars>: "
-          f"exit {proc.returncode}, {secs:.2f} s, logz {float(found.group(1)):.4f} +- {float(found.group(2)):.4f}")
+    n_cluster, n_interp = json.loads(re.search(r"^launches (.*)$", proc.stdout, re.M).group(1))
+    if n_cluster <= 0 or n_interp < INTERP_PER_CLUSTER_CALL * n_cluster:
+        raise AssertionError(f"clusterfit CLI: cluster kernel launches {n_cluster}, kernel B {n_interp}")
+    print(f"[clusterfit] isochrones_torch.cli.clusterfit.main {' '.join(CLUSTER_CLI)} <csv of {len(sim)} stars> in a "
+          f"subprocess: exit {proc.returncode}, {secs:.2f} s, logz {float(found.group(1)):.4f} +- "
+          f"{float(found.group(2)):.4f}, cluster kernel launches {n_cluster}, kernel B launches {n_interp}")
+    return n_cluster, n_interp
 
 
 def catalog_table(ic, n_stars, eep_box, seed=0):
@@ -3503,6 +3833,108 @@ def phase_engines(dev, ic32, ic64, workdir, nested_lnprob):
     return star, tree_rec
 
 
+def seismic_observations(ic, truth=STAR_TRUTH):
+    """The bench binary's observations (:func:`star_observations`) with the
+    primary's ``nu_max`` and ``delta_nu`` at ``truth`` (5% and 1 uHz)."""
+    obs = star_observations(ic, truth)
+    nu_max, delta_nu = (float(x) for x in ic.interp_value([truth[0], *truth[2:4]], ["nu_max", "delta_nu"]))
+    obs.update(nu_max=(nu_max, 0.05 * nu_max), delta_nu=(delta_nu, 1.0))
+    return obs
+
+
+def phase_seismic(dev, ic32, ic64):
+    """Phase 26b: the bench binary with ``nu_max`` and ``delta_nu`` observed,
+    whose posterior is kernel A's launch and kernel B's (the seismic terms):
+    ``lnpost_batch`` at 131072 points (adversarial rows and the bench box)
+    against the plain path in float64, one launch of each a call, the
+    throughput of both paths in float32; then ``fit_nuts`` at the smoke's cut
+    setting in float32 through A, A', B and B' with the plain versions made
+    to raise (finite lnprob, distance median within NUTS_DIST_TOL, every
+    kernel launched), and the posterior's value and gradient at the chains'
+    last draws in float64 against the plain path's. Returns a record."""
+    import torch
+
+    import isochrones_torch.ops.interp as interp_ops
+    import isochrones_torch.ops.star as star_ops
+    import isochrones_torch.ops.star_cuda as star_cuda
+    import isochrones_torch.starmodel as star_mod
+    from isochrones_torch.ops.interp import interp_nd_plain
+    from isochrones_torch.ops.interp_cuda import interp_nd_cuda, interp_nd_grad_cuda
+    from isochrones_torch.ops.star import star_lnlike_fused_plain
+    from isochrones_torch.samplers.nuts import _safe_value_and_grad
+    from isochrones_torch.starmodel import BinaryStarModel
+
+    obs = seismic_observations(ic64)
+    s32, s64 = BinaryStarModel(ic32, **obs), BinaryStarModel(ic64, **obs)
+    pts = star_points(ic64.model.knots, 2, STAR_BATCH, seed=31)
+    pts[STAR_BATCH // 2:] = star_points(ic64.model.knots, 2, STAR_BATCH // 2, seed=32, box=STAR_BOX)
+    p64 = torch.as_tensor(pts, device=dev, dtype=torch.float64)
+    p32 = p64.float()
+
+    def plain_path(fn):
+        saved = star_cuda.star_lnlike_cuda, star_mod.interp_nd
+        star_cuda.star_lnlike_cuda, star_mod.interp_nd = star_lnlike_fused_plain, interp_nd_plain
+        try:
+            return fn()
+        finally:
+            star_cuda.star_lnlike_cuda, star_mod.interp_nd = saved
+
+    star_cuda.star_lnlike_cuda.launches = interp_nd_cuda.launches = 0
+    lp_k = s64.lnpost_batch(p64).cpu().numpy()
+    if (star_cuda.star_lnlike_cuda.launches, interp_nd_cuda.launches) != (1, 1):
+        raise AssertionError(f"seismic lnpost_batch: kernel A {star_cuda.star_lnlike_cuda.launches}, kernel B "
+                             f"{interp_nd_cuda.launches} launches")
+    lp_p = plain_path(lambda: s64.lnpost_batch(p64).cpu().numpy())
+    err = check_star("seismic lnpost_batch f64 kernels vs plain", [lp_k], [lp_p], RTOL_STAR_F64)
+    rate = STAR_BATCH / _wall(lambda: s32.lnpost_batch(p32), reps=20)
+    plain_rate = plain_path(lambda: STAR_BATCH / _wall(lambda: s32.lnpost_batch(p32), reps=5))
+    print(f"[seismic] binary with nu_max {obs['nu_max'][0]:.3f} and delta_nu {obs['delta_nu'][0]:.4f} observed: "
+          f"{STAR_BATCH}-point lnpost_batch, one launch each of kernels A and B; f64 kernels vs plain max_abs_err "
+          f"{err:.3e} (rtol {RTOL_STAR_F64}), {int(np.isfinite(lp_p).sum())} finite; f32 throughput kernels "
+          f"{rate:.1f} evals/s, plain path {plain_rate:.1f} evals/s")
+
+    counters = (star_cuda.star_lnlike_cuda, star_cuda.star_lnlike_grad_cuda, interp_nd_cuda, interp_nd_grad_cuda)
+    saved = star_ops.star_lnlike_fused_plain, interp_ops.interp_nd_plain
+    star_ops.star_lnlike_fused_plain = interp_ops.interp_nd_plain = _refuse_plain
+    try:
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = s32.fit_nuts(**NUTS_BINARY)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_a, n_ag, n_b, n_bg = (c.launches for c in counters)
+    finally:
+        star_ops.star_lnlike_fused_plain, interp_ops.interp_nd_plain = saved
+    med = float(np.median(samples["distance"]))
+    if not np.isfinite(samples["lnprob"]).all() or abs(med - STAR_TRUTH[4]) > NUTS_DIST_TOL:
+        raise AssertionError(f"seismic fit_nuts: distance median {med:.3f}, {np.isfinite(samples['lnprob']).sum()} "
+                             f"finite lnprob")
+    if min(n_a, n_ag, n_b, n_bg) <= 0:
+        raise AssertionError(f"seismic fit_nuts launches: A {n_a}, A' {n_ag}, B {n_b}, B' {n_bg}")
+    res = s32._nuts_result
+    q = np.quantile(samples["lnprob"], NUTS_LNPROB_Q)
+    print(f"[seismic] fit_nuts {json.dumps(NUTS_BINARY)} f32: {secs:.3f} s, launches A {n_a}, A' {n_ag}, B {n_b}, "
+          f"B' {n_bg} (no plain version), step sizes {np.round(res.step_size, 5).tolist()}, distance median "
+          f"{med:.3f} pc, lnprob quantiles {NUTS_LNPROB_Q} {np.round(q, 3).tolist()}")
+
+    z = torch.as_tensor(res.samples[-1], device=dev, dtype=torch.float64)
+    vg = _safe_value_and_grad(s64._get_fn("lnpost"))
+    v_k, g_k = vg(z)
+    v_p, g_p = plain_path(lambda: vg(z))
+    torch.cuda.synchronize()
+    v_k, v_p = v_k.cpu().numpy(), v_p.cpu().numpy()
+    if not (np.isfinite(v_p).all() and np.allclose(v_k, v_p, rtol=RTOL_GRAD_F64, atol=RTOL_GRAD_F64)):
+        raise AssertionError(f"seismic lnpost at the last draws through the kernels {v_k}, plain {v_p}")
+    gerr = check_grad("seismic posterior gradient", g_k.cpu().numpy(), g_p.cpu().numpy(), RTOL_GRAD_F64)[0]
+    print(f"[seismic] the posterior's gradient at the {len(v_k)} chains' last draws through A, A', B and B' against "
+          f"the plain path's autograd, float64: max err {gerr:.3e} (rtol {RTOL_GRAD_F64} of the row's scale)")
+    return dict(lnpost_max_abs_err=err, lnpost_rate=rate, lnpost_plain_rate=plain_rate, nuts_seconds=secs,
+                launches_a=n_a, launches_a_grad=n_ag, launches_b=n_b, launches_b_grad=n_bg, distance_median=med,
+                grad_err=gerr)
+
+
 def _star_grad_points(ic, B, seed):
     """``star_points`` over the grid's box in the first half (adversarial
     blocks) and the bench box in the second."""
@@ -3522,6 +3954,7 @@ def main():
     from isochrones_torch.ops import _build
     from isochrones_torch.ops.cluster import cluster_lnmarginal_plain
     from isochrones_torch.ops.cluster_cuda import cluster_lnmarginal_cuda
+    from isochrones_torch.ops.interp_cuda import interp_nd_cuda
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3594,60 +4027,61 @@ def main():
     rng = np.random.default_rng(0)
     p16 = np.asarray(TRUTH)[None, :] + rng.normal(0, P0_SCALE, size=(16, 7))
 
-    cluster_lnmarginal_cuda.launches = 0
+    cluster_lnmarginal_cuda.launches = interp_nd_cuda.launches = 0
     lp32 = model32.lnpost_batch(p16)
     torch.cuda.synchronize()
-    n_slice = cluster_lnmarginal_cuda.launches
-    if n_slice <= 0:
-        raise AssertionError("lnpost_batch did not launch the cluster kernel")
+    n_slice, n_slice_interp = cluster_lnmarginal_cuda.launches, interp_nd_cuda.launches
+    if n_slice <= 0 or n_slice_interp != INTERP_PER_CLUSTER_CALL:
+        raise AssertionError(f"lnpost_batch launched the cluster kernel {n_slice} and kernel B {n_slice_interp} times")
     lp64 = model64.lnpost_batch(p16).cpu().numpy()
     import isochrones_torch.cluster as cluster_mod
+    from isochrones_torch.ops.interp import interp_nd_plain
+    from isochrones_torch.ops.mags import interp_mag_plain
 
-    kernel_dispatch = cluster_mod.cluster_lnmarginal
-    cluster_mod.cluster_lnmarginal = cluster_lnmarginal_plain  # the plain path, on the card
+    # the plain path, on the card: the cluster marginal and every lerp
+    kernels = cluster_mod.cluster_lnmarginal, cluster_mod.interp_nd, cluster_mod._interp_mag_kernel
+    cluster_mod.cluster_lnmarginal, cluster_mod.interp_nd, cluster_mod._interp_mag_kernel = (
+        cluster_lnmarginal_plain, interp_nd_plain, interp_mag_plain)
     try:
         plain64 = model64.lnpost_batch(p16).cpu().numpy()
         plain32_ms = 1e3 * _wall(lambda: model32.lnpost_batch(p16), reps=2)
     finally:
-        cluster_mod.cluster_lnmarginal = kernel_dispatch
+        cluster_mod.cluster_lnmarginal, cluster_mod.interp_nd, cluster_mod._interp_mag_kernel = kernels
     err_s64 = check_close("slice f64 kernel vs plain", lp64, plain64, RTOL_SLICE_F64)
     err_s32 = check_close("slice f32 kernel vs f64 plain", lp32.cpu().numpy(), plain64,
                           RTOL_SLICE_F32, ATOL_SLICE_F32)
     call_ms = 1e3 * _wall(lambda: model32.lnpost_batch(p16), reps=10)
     call8_ms = 1e3 * _wall(lambda: model32.lnpost_batch(p16[:8]), reps=10)
     print(f"[slice] lnpost(truth) = {lp_truth:.6f} (f32)")
-    print(f"[slice] lnpost_batch 16 walkers: kernel launches {n_slice}; f64 kernel vs f64 plain max_abs_err "
+    print(f"[slice] lnpost_batch 16 walkers: cluster kernel launches {n_slice}, kernel B launches {n_slice_interp}; "
+          f"f64 kernels vs f64 plain max_abs_err "
           f"{err_s64:.3e} (rtol {RTOL_SLICE_F64}); f32 kernel vs f64 plain max_abs_err {err_s32:.3e} "
           f"(rtol {RTOL_SLICE_F32} atol {ATOL_SLICE_F32})")
     print(f"[slice] lnpost_batch wall-clock f32: 16 walkers {call_ms:.3f} ms, 8 walkers {call8_ms:.3f} ms "
           f"(plain path, 16 walkers: {plain32_ms:.3f} ms)")
-    interp_record = interp_nd_record(model32, p16)
-    print(f"[slice] interp_nd (plain torch) in one 16-walker lnpost_batch: {interp_record['calls_per_lnpost_batch']} "
-          f"calls; the ladder's mass columns at (16, {interp_record['shape']['E']}, 3) f32: "
-          f"{interp_record['ms']:.4f} ms, {interp_record['device_kernels_per_call']:.1f} device kernels a call, bound "
-          f"{interp_record['bound_ms']:.5f} ms ({interp_record['bound_by']})")
 
     # ---- 5. the fit
     nburn, niter = 30, 20
     p0 = np.asarray(TRUTH)[None, :] + rng.normal(0, P0_SCALE, size=(16, 7))
-    cluster_lnmarginal_cuda.launches = 0
+    cluster_lnmarginal_cuda.launches = interp_nd_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     samples = model32.fit_mcmc(nwalkers=16, nburn=nburn, niter=niter, p0=p0, seed=3, moves="mixed")
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    n_fit = cluster_lnmarginal_cuda.launches
+    n_fit, n_fit_interp = cluster_lnmarginal_cuda.launches, interp_nd_cuda.launches
     lnprob = samples["lnprob"]
     if lnprob.shape != (16 * niter,) or not np.isfinite(lnprob).all():
         raise AssertionError(f"fit lnprob not all finite ({np.isfinite(lnprob).sum()}/{lnprob.size})")
     acc = float(model32.sampler_state.n_accept.sum().item()) / (16 * niter)
     if not acc > 0:
         raise AssertionError("fit accepted no proposal")
-    if n_fit <= 0:
-        raise AssertionError("fit did not launch the cluster kernel")
+    if n_fit <= 0 or n_fit_interp < INTERP_PER_CLUSTER_CALL * n_fit:
+        raise AssertionError(f"fit launched the cluster kernel {n_fit} and kernel B {n_fit_interp} times")
     med = {k: float(np.median(v)) for k, v in samples.items() if k != "lnprob"}
     print(f"[fit] 16 walkers x ({nburn} + {niter}) steps, moves mixed: {fit_s:.3f} s, "
-          f"{1e3 * fit_s / (nburn + niter):.3f} ms per full ensemble step, kernel launches {n_fit}, "
+          f"{1e3 * fit_s / (nburn + niter):.3f} ms per full ensemble step, kernel launches {n_fit} (kernel B "
+          f"{n_fit_interp}), "
           f"acceptance {acc:.3f}, lnprob median {np.median(lnprob):.3f}")
     print(f"[fit] posterior medians {json.dumps({k: round(v, 4) for k, v in med.items()})}")
 
@@ -3732,12 +4166,14 @@ def main():
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = bin32.fit_multinest(**NESTED)
+    interp_nd_cuda.launches = 0
     derived = bin32.derived_samples
     torch.cuda.synchronize()
     nest_s = time.perf_counter() - t0
-    n_star = star_lnlike_cuda.launches
-    if not np.isfinite(res.logz) or res.truncated or n_star <= 0:
-        raise AssertionError(f"nested fit: logz {res.logz}, truncated {res.truncated}, launches {n_star}")
+    n_star, n_derived_interp = star_lnlike_cuda.launches, interp_nd_cuda.launches
+    if not np.isfinite(res.logz) or res.truncated or n_star <= 0 or n_derived_interp <= 0:
+        raise AssertionError(f"nested fit: logz {res.logz}, truncated {res.truncated}, launches {n_star}, kernel B in "
+                             f"derived_samples {n_derived_interp}")
     d_lo, d_hi = np.quantile(bin32.samples["distance"], [0.025, 0.975])
     if not d_lo <= STAR_TRUTH[4] <= d_hi:
         raise AssertionError(f"distance 95% interval ({d_lo:.2f}, {d_hi:.2f}) misses {STAR_TRUTH[4]}")
@@ -3746,7 +4182,8 @@ def main():
     med = {k: round(float(np.median(v)), 4) for k, v in bin32.samples.items() if k != "lnprob"}
     print(f"[nested] fit_multinest {json.dumps({k: v for k, v in NESTED.items()})} f32: {nest_s:.3f} s, "
           f"{res.n_iter} dead points, logz {res.logz:.4f} +- {res.logzerr:.4f}, ESS {res.ess:.1f}, "
-          f"kernel launches {n_star}, posterior_predictive {bin32.posterior_predictive:.4f}")
+          f"kernel launches {n_star}, kernel B launches in derived_samples {n_derived_interp}, posterior_predictive "
+          f"{bin32.posterior_predictive:.4f}")
     nested_lnprob = {"binary": np.quantile(bin32.samples["lnprob"], NUTS_LNPROB_Q)}
     print(f"[nested] posterior medians {json.dumps(med)}; distance 95% interval ({d_lo:.3f}, {d_hi:.3f}); lnprob "
           f"quantiles {NUTS_LNPROB_Q} {np.round(nested_lnprob['binary'], 3).tolist()}")
@@ -3758,12 +4195,12 @@ def main():
         n_tree, nested_lnprob["tree"] = phase_tree_slice_and_fit(dev, ic32, ic64, workdir)
         del model32, model64, bin32, bin64, ic32
         torch.cuda.empty_cache()
-        n_star_cli, n_tree_cli = phase_entry_point(dev, workdir)
+        n_star_cli, n_tree_cli, n_interp_cli = phase_entry_point(dev, workdir)
         # ---- 13-15. EEP inversion, the simulated cluster and its nested fit, the cluster entry point
         ic32 = isochrones_torch.get_ichrone("synthetic", device=dev, dtype=torch.float32, **GRID)
         eep_record = phase_eep(dev, ic32, ic64)
         sim, cluster_fit_record, n_cluster_nested = phase_cluster_nested(dev, ic32, ic64)
-        phase_cluster_entry_point(sim, workdir)
+        n_cluster_cli, n_interp_cluster_cli = phase_cluster_entry_point(sim, workdir)
         # ---- 16-19. the catalog kernel, the catalog fits, their entry point, independent runs
         truths, table, catalog_record = phase_catalog_kernel(dev, ic32, ic64)
         n_cat_mcmc, n_cat_nested, n_cat_dynamic = phase_catalog_fits(dev, ic32, truths, table)
@@ -3782,6 +4219,11 @@ def main():
         grad_records = phase_grad_kernels(dev, ic32, ic64, workdir)
         nuts_star, nuts_tree = phase_engines(dev, ic32, ic64, workdir, nested_lnprob)
         print(f"[engines] phase 25 took {time.perf_counter() - t25:.1f} s")
+        # ---- 26. kernels B and B' against their plain versions, their times, the seismic binary
+        t26 = time.perf_counter()
+        interp_rec, interp_grad_rec = phase_interp_kernel(dev, ic32, ic64)
+        seismic_rec = phase_seismic(dev, ic32, ic64)
+        print(f"[interp] phase 26 took {time.perf_counter() - t26:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     tree_record["launches"] = n_tree
@@ -3793,15 +4235,25 @@ def main():
                                             source="isochrones_torch/csrc/generate.cu",
                                             replaces="isochrones_tpu/ops/eep.py:35", dtype="float32")}))
 
-    print(json.dumps({"interp_nd": dict(interp_record, route="plain torch (row B, no hand kernel)",
-                                        source="isochrones_torch/ops/interp.py",
-                                        replaces="isochrones_tpu/ops/interp.py:483", dtype="float32")}))
+    print(json.dumps({"seismic": seismic_rec}))
+    interp_rec.update(
+        launches=cluster_fit_record.pop("interp_launches_nested_fit"),
+        launches_lnpost_batch_fit_batch=cluster_fit_record.pop("interp_launches_fit_batch_call"),
+        launches_lnpost_batch_16=n_slice_interp, launches_mcmc_fit=n_fit_interp,
+        launches_clusterfit_cli=n_interp_cluster_cli, launches_starfit_cli=n_interp_cli,
+        launches_derived_samples=n_derived_interp, launches_seismic_nuts=seismic_rec["launches_b"],
+        cluster_lnpost_batch_ms_fit_batch=cluster_fit_record["lnpost_batch_ms_fit_batch"],
+        cluster_lnpost_batch_kernels_fit_batch=cluster_fit_record["lnpost_batch_kernels_fit_batch"],
+        cluster_lnpost_batch_idle_fit_batch=cluster_fit_record["lnpost_batch_idle_fit_batch"],
+        cluster_nested_fit_seconds=cluster_fit_record["nested_fit_seconds"])
+    interp_grad_rec.update(launches=seismic_rec["launches_b_grad"])
     ms, plain_ms, bound_ms, bound_by = times[MAIN_SHAPE]
     kernels_line = [{
         "name": "cluster_marginal", "route": "cuda",
         "source": "isochrones_torch/csrc/cluster_marginal.cu",
         "replaces": "isochrones_tpu/ops/cluster_pallas.py:78",
-        "launches": n_fit, "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+        "launches": n_fit, "launches_clusterfit_cli": n_cluster_cli, "max_abs_err": main_err, "ms": ms,
+        "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "shape": {"W": W_KERNEL, "S": MAIN_SHAPE[0], "E": MAIN_SHAPE[1], "B": MAIN_SHAPE[2], "dtype": "float32"},
         "launches_nested_fit": n_cluster_nested, **cluster_fit_record,
@@ -3835,7 +4287,8 @@ def main():
         launches=nuts_star["binary f32"]["launches_backward"],
         launches_f64_fit=nuts_star["binary f64"]["launches_backward"])
     grad_records["tree_lnlike_grad"].update(launches=nuts_tree["launches_backward"])
-    kernels_line.extend([grad_records["star_lnlike_grad"], grad_records["tree_lnlike_grad"]])
+    kernels_line.extend([grad_records["star_lnlike_grad"], grad_records["tree_lnlike_grad"], interp_rec,
+                         interp_grad_rec])
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 // Grid interpolation shared by the kernels (star_lnlike.cu, tree_lnlike.cu,
-// catalog_lnlike.cu, generate.cu): the axis description, cell location, the
+// catalog_lnlike.cu, generate.cu, interp_nd.cu): the axis description, cell location, the
 // multilinear lerp of a group of lanes (or of one lane, with 16-byte row
 // loads), the lerp's slope along one axis and its vector-Jacobian product
 // along every axis (the backward kernels), with the semantics of the plain

@@ -1,5 +1,6 @@
-"""Tensor operations: interpolation, magnitudes, EEP inversion and root
-finding (plain torch), the star likelihood (composed, and fused with a CUDA
+"""Tensor operations: interpolation and magnitudes (plain torch, and a CUDA
+kernel on the card), EEP inversion and root finding (plain torch), the star
+likelihood (composed, and fused with a CUDA
 kernel on the card), the cluster marginal (plain version, CUDA kernel on the
 card)."""
 
@@ -9,9 +10,11 @@ from .cluster import (
     calc_lnlike_grid, cluster_lnlike, cluster_lnmarginal, cluster_lnmarginal_plain, integrate_over_eeps,
     integrate_over_eeps_ln,
 )
-from .interp import GridData, GridInterpolator, compute_axis_maps, corner_data, find_cells_1d, interp_grid, interp_nd
+from .interp import (
+    GridData, GridInterpolator, compute_axis_maps, corner_data, find_cells_1d, interp_grid, interp_nd, interp_nd_plain,
+)
 from .likelihood import LOG_ONE_OVER_ROOT_2PI, gauss_lnprob, stack_components, star_lnlike
-from .mags import interp_mag, interp_mags
+from .mags import interp_mag, interp_mag_plain, interp_mags
 from .star import StarLikelihood, star_lnlike_fused, star_lnlike_fused_plain
 
 __all__ = [
@@ -21,8 +24,10 @@ __all__ = [
     "find_cells_1d",
     "corner_data",
     "interp_nd",
+    "interp_nd_plain",
     "interp_grid",
     "interp_mag",
+    "interp_mag_plain",
     "interp_mags",
     "gauss_lnprob",
     "stack_components",

@@ -3,8 +3,8 @@
 A wrapper fills its outputs through ``ctypes``, outside the autograd graph,
 so a gradient asked of them would silently lack the kernel's part. A kernel
 with a backward is wrapped in a ``torch.autograd.Function`` (the star and tree
-likelihoods); every other wrapper calls :func:`refuse_grad` first and raises
-where autograd would record its launch.
+likelihoods, ``interp_nd`` for its points); every other wrapper calls
+:func:`refuse_grad` first and raises where autograd would record its launch.
 """
 
 from __future__ import annotations

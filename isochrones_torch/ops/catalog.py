@@ -40,7 +40,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .interp import GridData, interp_nd
+from .interp import GridData, interp_nd_plain
 from .likelihood import gauss_lnprob
 
 __all__ = [
@@ -80,7 +80,7 @@ def catalog_lnlike_plain(pars: torch.Tensor, lk: CatalogLikelihood):
     io = lk.index_order
     grid_pts = torch.stack([pars[..., io[0]], pars[..., io[1]], pars[..., io[2]]], dim=-1)
     pack6 = lk.pack6
-    vals6 = interp_nd(pack6.values, pack6.knots, grid_pts, icols=(0, 1, 2, 3, 4, 5),
+    vals6 = interp_nd_plain(pack6.values, pack6.knots, grid_pts, icols=(0, 1, 2, 3, 4, 5),
                       axis_maps=pack6.axis_maps)  # (S, B, 6)
     model_vals = (vals6[..., 0], vals6[..., 1], vals6[..., 2])
 
@@ -91,7 +91,7 @@ def catalog_lnlike_plain(pars: torch.Tensor, lk: CatalogLikelihood):
     if len(lk.band_icols):
         bc = lk.bc
         bc_pts = torch.stack([vals6[..., 0], vals6[..., 1], vals6[..., 2], pars[..., 4]], dim=-1)
-        bc_vals = interp_nd(bc.values, bc.knots, bc_pts, icols=lk.band_icols, axis_maps=bc.axis_maps)
+        bc_vals = interp_nd_plain(bc.values, bc.knots, bc_pts, icols=lk.band_icols, axis_maps=bc.axis_maps)
         dist_mod = 5.0 * torch.log10(pars[..., 3] / 10.0)
         mags = vals6[..., 3, None] + dist_mod[..., None] - bc_vals  # (S, B, n_bands)
         mag_vals, mag_uncs = lk.mag_vals[:, None, :], lk.mag_uncs[:, None, :]

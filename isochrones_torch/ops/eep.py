@@ -11,7 +11,7 @@ Counterpart of ``isochrones_tpu/ops/eep.py``:
   the batch can hold millions of points.
 * :func:`get_eep_newton` (reference ``isochrones/models.py:544-578``): a
   damped Newton iteration on the residual of the interpolated column, the
-  derivative taken by ``torch.autograd`` through :func:`interp_nd` (the
+  derivative taken by ``torch.autograd`` through :func:`interp_nd_plain` (the
   lerp's slope in the located cell; 0 at an exact top knot, and where the
   residual is NaN, where the step is then not finite and the old value is
   kept), or with ``closed_slope`` by :func:`newton_slope`.
@@ -30,7 +30,7 @@ import math
 
 import torch
 
-from .interp import GridData, corner_data, find_cells_1d, interp_nd
+from .interp import GridData, corner_data, find_cells_1d, interp_nd_plain
 
 __all__ = ["searchsorted_rows", "interp_eep", "newton_slope", "get_eep_newton"]
 
@@ -130,9 +130,9 @@ def interp_eep(
 
 def newton_slope(grid: GridData, points: torch.Tensor, icol: int):
     """``(value, slope)`` of column ``icol`` at ``points`` (..., ndim): the
-    value as :func:`interp_nd` gives it, and its derivative along the last
+    value as :func:`interp_nd_plain` gives it, and its derivative along the last
     axis in closed form, as ``torch.autograd`` takes it through
-    :func:`find_cells_1d` and :func:`interp_nd` where the value is finite:
+    :func:`find_cells_1d` and :func:`interp_nd_plain` where the value is finite:
     the sum over the other axes' corners of their weight times (upper - lower
     corner value), times dt/dx. dt/dx is ``1 / step`` for the
     ``exact_affine`` kind and ``1 / (hi - lo)`` (through ``_safe_div``) for
@@ -200,7 +200,8 @@ def get_eep_newton(
 
     def resid(eep):
         pt = torch.stack([x0.expand_as(eep), x1.expand_as(eep), eep], dim=-1)
-        return interp_nd(grid.values, grid.knots, pt, icols=(i_age_col,), axis_maps=grid.axis_maps)[..., 0] - targets
+        vals = interp_nd_plain(grid.values, grid.knots, pt, icols=(i_age_col,), axis_maps=grid.axis_maps)
+        return vals[..., 0] - targets
 
     # coarse-scan fallback seed: the finite scan point closest to zero
     n_scan = 33

@@ -7,7 +7,7 @@ track grid it inverts (mass, age, feh) to an EEP (:func:`~.eep.interp_eep`;
 with ``accurate``, refined by :func:`~.eep.get_eep_newton` and NaN where the
 residual is ``resid_tol`` or more), interpolates the chosen model columns at
 (mass, EEP, feh), and forms the magnitudes ``Mbol + 5 log10(d / 10) - BC``
-(:func:`~.mags.interp_mag`); with ``all_As`` the magnitudes again at AV = 0.
+(:func:`~.mags.interp_mag_plain`); with ``all_As`` the magnitudes again at AV = 0.
 Given EEPs skip the inversion.
 
 :func:`generate_plain` composes the port's ``ops/eep.py``, ``ops/interp.py``
@@ -29,8 +29,8 @@ from typing import Optional, Tuple
 import torch
 
 from .eep import get_eep_newton, interp_eep
-from .interp import GridData, interp_nd
-from .mags import interp_mag
+from .interp import GridData, interp_nd_plain
+from .mags import interp_mag_plain
 
 __all__ = ["ForwardModel", "NewtonGrid", "generate_plain", "generate_forward", "get_eep_fast", "get_eep_accurate",
            "eep_newton"]
@@ -79,14 +79,14 @@ def generate_plain(fm: ForwardModel, mass, age, feh, distance, AV, prop_icols, b
     pts5 = torch.stack(torch.broadcast_tensors(mass, eeps, feh, distance, AV), dim=-1)
     io = fm.index_order
     grid_pts = torch.stack([pts5[..., io[0]], pts5[..., io[1]], pts5[..., io[2]]], dim=-1)
-    props = interp_nd(fm.model.values, fm.model.knots, grid_pts, icols=tuple(prop_icols),
+    props = interp_nd_plain(fm.model.values, fm.model.knots, grid_pts, icols=tuple(prop_icols),
                       axis_maps=fm.model.axis_maps)
     packed = (0, 1, 2, 3)
-    mags = interp_mag(pts5, io, fm.model_packed, packed, fm.bc, tuple(band_icols))[3]
+    mags = interp_mag_plain(pts5, io, fm.model_packed, packed, fm.bc, tuple(band_icols))[3]
     mags0 = None
     if all_As:
         pts0 = torch.cat([pts5[..., :4], torch.zeros_like(pts5[..., 4:])], dim=-1)
-        mags0 = interp_mag(pts0, io, fm.model_packed, packed, fm.bc, tuple(band_icols))[3]
+        mags0 = interp_mag_plain(pts0, io, fm.model_packed, packed, fm.bc, tuple(band_icols))[3]
     return eeps, props, mags, mags0
 
 

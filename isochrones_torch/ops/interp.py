@@ -12,6 +12,14 @@ the JAX package exactly:
   poisoning by a NaN-padded neighbour is kept: it decides which ladder rows
   are finite near a track's end.
 - Exact top knot -> upper corner clamped onto the top row (``_pin_top``).
+
+:func:`interp_nd` dispatches on the points' device: a CPU tensor takes
+:func:`interp_nd_plain`, a CUDA tensor the hand-written kernel
+(:mod:`isochrones_torch.ops.interp_cuda`, kernel B, with its backward B'),
+with no fallback between them. The plain version is also the kernel's
+oracle on the card, and the plain versions of the other kernels
+(``ops/star.py``, ``tree.py``, ``catalog.py``, ``generate.py``, ``eep.py``)
+call it directly.
 """
 
 from __future__ import annotations
@@ -22,8 +30,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["GridData", "compute_axis_maps", "find_cells_1d", "corner_data", "interp_nd", "interp_grid",
-           "GridInterpolator", "REFERENCE_DEVIATIONS"]
+__all__ = ["GridData", "compute_axis_maps", "find_cells_1d", "corner_data", "interp_nd", "interp_nd_plain",
+           "interp_grid", "GridInterpolator", "REFERENCE_DEVIATIONS"]
 
 #: The intended semantic deviations from the reference implementation, as
 #: the JAX package records them; parity harnesses consult it before they
@@ -204,7 +212,7 @@ def corner_data(
     """Gather the ``2**ndim`` corner rows and lerp weights for a batch of
     points. values : (n0..nk, C); points : (B, ndim). Returns ``(corners
     (B, 2**ndim, n_icols), weights (B, 2**ndim), bad (B,))``. Where autograd
-    records the call, a bad point's ``t`` is zeroed (see :func:`interp_nd`)."""
+    records the call, a bad point's ``t`` is zeroed (see :func:`interp_nd_plain`)."""
     ndim = len(knots)
     dims = values.shape[:-1]
     ncols = values.shape[-1]
@@ -245,14 +253,15 @@ def corner_data(
     return corners, weights, bad
 
 
-def interp_nd(
+def interp_nd_plain(
     values: torch.Tensor,
     knots: Sequence[torch.Tensor],
     points: torch.Tensor,
     icols: Optional[Tuple[int, ...]] = None,
     axis_maps: Optional[Tuple] = None,
 ) -> torch.Tensor:
-    """Batched multilinear interpolation on a dense rectilinear grid.
+    """Batched multilinear interpolation on a dense rectilinear grid, in
+    plain torch ops on any device.
 
     values : (n0, ..., nk, C) dense grid (NaN-padded holes)
     knots  : k+1 sorted 1-D axis tensors
@@ -266,7 +275,7 @@ def interp_nd(
     ``_pin_top``'s top knot). A NaN output passes no gradient: at a bad
     point, or in a column with a NaN-padded corner, it is 0 (the JAX
     package's is NaN there, from the corner's ``0 * NaN``). The backward
-    kernels of the fused likelihoods keep this rule.
+    kernels (B' and those of the fused likelihoods) keep this rule.
     """
     batch_shape = points.shape[:-1]
     pts = points.reshape(-1, points.shape[-1])
@@ -286,6 +295,25 @@ def interp_nd(
     out = (weights[..., None] * corners).sum(dim=1)
     out = torch.where(bad[:, None], torch.full_like(out, float("nan")), out)
     return out.reshape(batch_shape + (out.shape[-1],))
+
+
+def interp_nd(
+    values: torch.Tensor,
+    knots: Sequence[torch.Tensor],
+    points: torch.Tensor,
+    icols: Optional[Tuple[int, ...]] = None,
+    axis_maps: Optional[Tuple] = None,
+) -> torch.Tensor:
+    """:func:`interp_nd_plain`'s function: CPU points take it, CUDA points
+    kernel B (and B' for their gradient), any other device raises."""
+    kind = points.device.type
+    if kind == "cuda":
+        from .interp_cuda import interp_nd_cuda
+
+        return interp_nd_cuda(values, knots, points, icols=icols, axis_maps=axis_maps)
+    if kind == "cpu":
+        return interp_nd_plain(values, knots, points, icols=icols, axis_maps=axis_maps)
+    raise ValueError(f"interp_nd runs on cpu or cuda tensors, got {kind}")
 
 
 def interp_grid(grid: GridData, points: torch.Tensor, cols=None) -> torch.Tensor:

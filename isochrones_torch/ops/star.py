@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .interp import GridData, _tracks_grad, interp_nd
+from .interp import GridData, _tracks_grad, interp_nd_plain
 from .likelihood import gauss_lnprob, spectroscopy_lnlike, stack_components
 
 __all__ = ["StarLikelihood", "star_lnlike_fused_plain", "star_lnlike_fused"]
@@ -58,7 +58,7 @@ def _star_ll(pars, comp, vals6, lk: StarLikelihood):
     io = lk.index_order
     bc = lk.bc
     bc_pts = torch.stack([vals6[..., 0], vals6[..., 1], vals6[..., 2], comp[..., io[4]]], dim=-1)
-    bc_vals = interp_nd(bc.values, bc.knots, bc_pts, icols=lk.band_icols, axis_maps=bc.axis_maps)
+    bc_vals = interp_nd_plain(bc.values, bc.knots, bc_pts, icols=lk.band_icols, axis_maps=bc.axis_maps)
     dist_mod = 5.0 * torch.log10(comp[..., io[3]] / 10.0)
     comp_mags = vals6[..., 3:4] + dist_mod[..., None] - bc_vals  # (B, N, n_bands)
     if N == 1:
@@ -85,14 +85,14 @@ def star_lnlike_fused_plain(pars: torch.Tensor, lk: StarLikelihood):
     Its gradient, where ``pars`` require one: a non-finite output passes
     none back. A row whose ``ll`` is not finite sees its inputs detached in
     the likelihood (double-where on the row), and a NaN ``orig_val`` or
-    ``deriv`` passes none through :func:`interp_nd`. The
+    ``deriv`` passes none through :func:`interp_nd_plain`. The
     backward kernel (``csrc/star_lnlike.cu``) holds to the same rule."""
     N = lk.n_stars
     io = lk.index_order
     comp = stack_components(pars, N)  # (B, N, 5)
     grid_pts = torch.stack([comp[..., io[0]], comp[..., io[1]], comp[..., io[2]]], dim=-1)
     pack6 = lk.pack6
-    vals6 = interp_nd(pack6.values, pack6.knots, grid_pts, icols=(0, 1, 2, 3, 4, 5),
+    vals6 = interp_nd_plain(pack6.values, pack6.knots, grid_pts, icols=(0, 1, 2, 3, 4, 5),
                       axis_maps=pack6.axis_maps)  # (B, N, 6)
     ll = _star_ll(pars, comp, vals6, lk)
     if _tracks_grad(pars):

@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .interp import GridData, _tracks_grad, interp_nd
+from .interp import GridData, _tracks_grad, interp_nd_plain
 from .likelihood import LOG_ONE_OVER_ROOT_2PI
 
 __all__ = ["TreeLikelihood", "tree_lnlike_fused_plain", "tree_lnlike_fused", "tree_lnlike_plain", "tree_lnlike"]
@@ -134,7 +134,7 @@ def _tree_ll(p, star_pars, vals6, dens, lk: TreeLikelihood, grad: bool):
 
     if lk.n_obs:
         bc_pts = torch.stack([Teff, logg, feh, star_pars[..., io[4]]], dim=-1)
-        bc_vals = interp_nd(lk.bc.values, lk.bc.knots, bc_pts, icols=tuple(lk.band_icols),
+        bc_vals = interp_nd_plain(lk.bc.values, lk.bc.knots, bc_pts, icols=tuple(lk.band_icols),
                             axis_maps=lk.bc.axis_maps)
         dist_mod = 5.0 * torch.log10(star_pars[..., io[3]] / 10.0)
         mags = mbol[..., None] + dist_mod[..., None] - bc_vals  # (..., n_stars, n_bands)
@@ -199,16 +199,16 @@ def tree_lnlike_fused_plain(p: torch.Tensor, lk: TreeLikelihood):
     Its gradient, where ``p`` requires one: a non-finite output passes none
     back. A row whose ``ll`` is not finite sees its inputs detached in the
     likelihood (double-where on the row), a NaN ``orig_val`` or ``deriv``
-    passes none through :func:`interp_nd`, and a finite
+    passes none through :func:`interp_nd_plain`, and a finite
     ``ll`` none through the masked values of :func:`_tree_ll`. The backward
     kernel (``csrc/tree_lnlike.cu``) holds to the same rule."""
     io = lk.index_order
     star_pars = p[..., lk.star_param_idx.long()]  # (..., n_stars, 5)
     grid_pts = torch.stack([star_pars[..., io[0]], star_pars[..., io[1]], star_pars[..., io[2]]], dim=-1)
-    vals6 = interp_nd(lk.model.values, lk.model.knots, grid_pts, icols=(0, 1, 2, 3, 4, 5),
+    vals6 = interp_nd_plain(lk.model.values, lk.model.knots, grid_pts, icols=(0, 1, 2, 3, 4, 5),
                       axis_maps=lk.model.axis_maps)  # (..., n_stars, 6)
     if lk.full_model is not None and (len(lk.spec_star) or len(lk.lim_star)):
-        dens = interp_nd(lk.full_model.values, lk.full_model.knots, grid_pts, icols=(lk.density_icol,),
+        dens = interp_nd_plain(lk.full_model.values, lk.full_model.knots, grid_pts, icols=(lk.density_icol,),
                          axis_maps=lk.full_model.axis_maps)[..., 0]
     else:
         dens = torch.zeros_like(vals6[..., 0])

@@ -1,7 +1,7 @@
-"""Port parity of the cluster simulator, the nested cluster fit and the
-``clusterfit`` entry point (``isochrones_torch.cluster``,
-``isochrones_torch.cli.clusterfit``) against the JAX package, on the CPU in
-float64 on small synthetic grids.
+"""Port parity of the cluster simulator and the nested cluster fit
+(``isochrones_torch.cluster``) against the JAX package, on the CPU in
+float64 on small synthetic grids (the ``clusterfit`` entry point:
+``tests/test_torch_clusterfit_entry.py``).
 
 ``SimulatedCluster``/``simulate_cluster``/``evolve`` draw on the host from a
 numpy generator in the JAX class's order, so the same seed gives the same
@@ -22,8 +22,6 @@ JAX's numbers; one seeded fit in each package is held to the bar of
 Both fits are deterministic for their seed.
 """
 
-import csv
-import logging
 import os
 
 import numpy as np
@@ -37,7 +35,7 @@ from isochrones_tpu.cluster import StarClusterModel as JaxStarClusterModel
 from isochrones_tpu.cluster import simulate_cluster as jax_simulate_cluster
 from isochrones_torch import get_ichrone
 from isochrones_torch.catalog import StarCatalog
-from isochrones_torch.cluster import SimulatedCluster, StarClusterModel, clusterfit, simulate_cluster
+from isochrones_torch.cluster import SimulatedCluster, StarClusterModel, simulate_cluster
 
 DIMS = dict(n_feh=5, n_mass=20, n_eep=60, n_age=20)
 TRUTH = [9.0, 0.0, 300.0, 0.05, -2.0, 0.3, 0.3]
@@ -46,6 +44,17 @@ SIM = dict(age=9.0, feh=0.0, distance=300.0, AV=0.05, alpha=-2.0, gamma=0.3, fB=
            mass_range=(0.6, 2.0))
 MODEL = dict(eep_bounds=(1, 49), eep_step=2.0, max_distance=2000)
 EXACT = ("is_binary", "distance", "mass_pri", "mass_sec", "parallax", "parallax_unc", "age", "feh", "AV")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one thread from the module's first fixture on: at these
+    sizes a pool of threads beside the other test workers' is many times
+    slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -252,13 +261,7 @@ FIT = dict(n_live_points=100, n_batch=25, n_chains=2, seed=0)
 @pytest.fixture(scope="module")
 def cluster_fits(models):
     jm, tm = models
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        tres = tm.fit(**FIT)
-    finally:
-        torch.set_num_threads(threads)
-    return tm, tres, jm, jm.fit(**FIT)
+    return tm, tm.fit(**FIT), jm, jm.fit(**FIT)
 
 
 def test_nested_cluster_fit_matches_jax(cluster_fits):
@@ -284,89 +287,3 @@ def test_nested_cluster_fit_derived_samples(cluster_fits):
         np.testing.assert_array_equal(d[c], v)
     assert np.isfinite(tm.samples["lnprob"]).all()
     assert len(tm.random_samples(10, rng=0)["age"]) == 10
-
-
-# ---------------------------------------------------------------- entry point
-@pytest.fixture(scope="module")
-def member_table(tmp_path_factory):
-    """A 6-star catalogue on the default synthetic grid (the grid the entry
-    point builds), written as CSV."""
-    ic = get_ichrone("synthetic", device="cpu")
-    sim = SimulatedCluster(6, ic=ic, rng=1, **SIM)
-    path = str(tmp_path_factory.mktemp("cluster") / "members.csv")
-    cols = [c for c in sim.data if c not in ("is_binary", "eep_sec")]
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(cols)
-        for i in range(len(sim)):
-            w.writerow([repr(float(sim.data[c][i])) for c in cols])
-    return path, sim
-
-
-#: a short run: the budget ends it long before it converges
-ENTRY = dict(models="synthetic", mineep=1, maxeep=151, eep_step=3.0, max_distance=2000, nlive=40, max_iter=40)
-
-
-def test_clusterfit_from_csv(member_table, caplog):
-    path, sim = member_table
-    with caplog.at_level(logging.INFO, logger="isochrones_torch"):
-        model = clusterfit(path, name="m67", device="cpu", **ENTRY)
-    assert isinstance(model, StarClusterModel) and model.device.type == "cpu" and model.dtype == torch.float64
-    assert model.bands == ("J", "K") and model.props == ("parallax",) and len(model.stars) == 6
-    assert model.bounds("eep") == (1, 151) and model._n_ladder == 51 and model.minq == 0.2
-    assert model.bounds("AV") == (0, 0.1) and model.bounds("distance") == (0, 2000)
-    assert model.labelstring == "cluster_m67"
-    assert np.isfinite(model.evidence[0]) and model._nested_result.n_iter == 40
-    assert set(model.samples) == set(model.param_names) | {"lnprob"} and len(model.samples["age"]) == 4000
-    assert model._nested_result.dynamic_rounds >= 0 and set(model.derived_samples) == set(model.samples)
-    assert "bands = ('J', 'K')" in caplog.text and "logz = " in caplog.text
-    assert "no (eep, q) support" not in caplog.text
-    np.testing.assert_array_equal(model.stars.data["J_mag"], sim.data["J_mag"])
-    # comm and rank are accepted and ignored; static is honoured
-    static = clusterfit(path, device="cpu", comm=object(), rank=3, dynamic=False, min_ess=50.0, **ENTRY)
-    assert np.isfinite(static.evidence[0]) and static._nested_result.dynamic_rounds == 0
-
-
-def test_clusterfit_warns_of_unsupported_stars(member_table, tmp_path, caplog, monkeypatch):
-    """A NaN magnitude makes every probe point -inf: the entry point names
-    the row before it fits."""
-    path, _ = member_table
-    with open(path, newline="") as f:
-        rows = list(csv.reader(f))
-    rows[3][rows[0].index("K_mag")] = "nan"
-    bad = str(tmp_path / "bad.csv")
-    with open(bad, "w", newline="") as f:
-        csv.writer(f).writerows(rows)
-    monkeypatch.setattr(StarClusterModel, "fit", lambda self, **kw: None)
-    with caplog.at_level(logging.WARNING, logger="isochrones_torch"):
-        model = clusterfit(bad, device="cpu", **ENTRY)
-    assert "no (eep, q) support" in caplog.text and "rows [2]" in caplog.text
-    assert model.evidence is None
-
-
-@pytest.mark.parametrize("name", ["stars.h5", "stars.hdf", "stars.hdf5"])
-def test_clusterfit_refuses_hdf_by_name(name):
-    with pytest.raises(NotImplementedError, match="HDF"):
-        clusterfit(name, models="synthetic", device="cpu")
-
-
-def test_clusterfit_cli(member_table, caplog, tmp_path, monkeypatch):
-    import isochrones_torch.config as tconfig
-    from isochrones_torch.cli.clusterfit import build_parser, main
-    from isochrones_torch.grids.base import MissingGridError
-
-    defaults = build_parser().parse_args(["x.csv"])
-    assert (defaults.models, defaults.mineep, defaults.maxeep, defaults.nlive, defaults.maxAV, defaults.minq,
-            defaults.max_distance, defaults.device, defaults.dtype, defaults.dynamic, defaults.eep_step) == \
-        ("mist", 200, 800, 1000, 0.1, 0.2, 10000, "cuda", "float64", None, 1.0)
-    assert build_parser().parse_args(["--static", "x.csv"]).dynamic is False
-    assert build_parser().parse_args(["--dynamic", "x.csv"]).dynamic is True
-    path, _ = member_table
-    with caplog.at_level(logging.INFO, logger="isochrones_torch"):
-        rc = main(["--models", "synthetic", "--device", "cpu", "--mineep", "1", "--maxeep", "151", "--eep-step", "3",
-                   "--max_distance", "2000", "--nlive", "40", "--max_iter", "40", "--name", "cli", path])
-    assert rc == 0 and "clusterfit cluster_cli: logz = " in caplog.text
-    # the default grid is MIST's: without its files the error names the missing path
-    monkeypatch.setattr(tconfig, "ISOCHRONES", str(tmp_path))
-    with pytest.raises(MissingGridError, match="MIST"):
-        main(["--device", "cpu", path])

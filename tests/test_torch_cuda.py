@@ -39,7 +39,14 @@ index order, mass axis and parallax) at the star kernel's tolerances, and
 ``IsoTrackModel.lnpost_batch`` (two launches, also with a prior of a
 subclass's own or another EEP prior) against the CPU at rtol 1e-10; a grid
 without the 6-column pack raises; a track-grid results file reloads onto
-the track grid on the card.
+the track grid on the card. Kernel B (``interp_nd``) against the plain
+version on the same card tensors: float64 within 1e-9 of the value plus
+1e-13 of the column's scale, float32 within 2e-6 of the column's scale
+(``chip_smoke.check_interp``: the same products, summed in another order),
+identical NaN patterns, every axis kind, 1-6 axes, column subsets; B'
+against autograd of the plain version, 1e-9 of the row's scale in float64;
+the wrapper's refusals (mixed dtypes, the caps); a seismic binary's
+posterior and gradient against the CPU.
 """
 
 import copy
@@ -1495,3 +1502,219 @@ def test_posterior_gradient_on_card_matches_cpu(dev, kind, request):
     got = grad(gpu, dev)
     assert counter.launches == before + per_call
     check_grad(f"posterior gradient {kind}", got, grad(cpu, "cpu"), 1e-9)
+
+
+# ---- kernel B (interp_nd) and B'
+
+#: axis kinds of compute_axis_maps and a knot count each: "compare" at 4
+#: knots counts them, at 12 searches; "search" has no map (the shims' and
+#: the searchsorted path)
+_INTERP_AXES = {"exact_affine": 9, "affine": 7, "log": 11, "compare": 12, "compare4": 4, "search": 13}
+_INTERP_CASES = [("exact_affine",), ("compare4",), ("search",), ("affine", "log"), ("compare", "search"),
+                 ("exact_affine", "affine", "compare"), ("log", "compare4", "search"),
+                 ("affine", "exact_affine", "log", "compare"), ("search", "search", "compare4", "exact_affine"),
+                 ("exact_affine", "compare4", "affine", "search", "log"),
+                 ("compare4", "exact_affine", "affine", "log", "compare", "search")]
+
+
+def _interp_grid(kinds, n_cols, seed, nan_frac=0.03):
+    """A seeded dense grid ``(values, knots, axis_maps)`` in numpy, one axis
+    of each kind (the maps checked against ``compute_axis_maps``), values
+    NaN-padded at random rows and, at half that rate, single entries."""
+    from isochrones_torch.ops.interp import compute_axis_maps
+
+    rng = np.random.default_rng(seed)
+    knots = []
+    for kind in kinds:
+        n = _INTERP_AXES[kind]
+        if kind == "exact_affine":
+            k = -2.0 + 0.25 * np.arange(n)
+        elif kind == "affine":
+            k = np.linspace(0.3, 1.7, n)
+        elif kind == "log":
+            k = np.geomspace(0.1, 10.0, n)
+        else:
+            k = np.cumsum(rng.uniform(0.2, 1.0, n)) - 3.0
+        knots.append(k)
+    maps = compute_axis_maps(knots)
+    for kind, m in zip(kinds, maps):
+        want = {"compare4": "compare", "search": "compare"}.get(kind, kind)
+        assert m is not None and m[0] == want, (kinds, maps)
+    maps = tuple(None if kind == "search" else m for kind, m in zip(kinds, maps))
+    shape = tuple(len(k) for k in knots)
+    values = rng.normal(0.0, 1.0, shape + (n_cols,)) * 10.0 ** rng.integers(-2, 4, n_cols)
+    values[rng.random(shape) < nan_frac] = np.nan
+    values[rng.random(values.shape) < nan_frac / 2] = np.nan
+    return values, knots, maps
+
+
+def _interp_on(values, knots, dev, dtype):
+    return (torch.as_tensor(values, device=dev, dtype=dtype),
+            tuple(torch.as_tensor(k, device=dev, dtype=dtype) for k in knots))
+
+
+@pytest.mark.parametrize("icols", [None, (0,), (2, 0), tuple(range(11)) + (3,)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kinds", _INTERP_CASES, ids=lambda k: "-".join(k))
+def test_interp_kernel_matches_plain(dev, kinds, dtype, icols):
+    """Kernel B against the plain version on the card: every axis kind, 1-6
+    axes (the cap), NaN-padded corners, exact interior, bottom and top knots,
+    out-of-bounds points and NaN coordinates, column subsets (one, out of
+    order, more than one chunk of 8), batches that leave a partial warp;
+    identical NaN patterns, the tolerances of ``chip_smoke.check_interp``."""
+    from chip_smoke import ATOL_INTERP_F32, ATOL_INTERP_F64, RTOL_INTERP_F64, check_interp, interp_points, interp_scale
+    from isochrones_torch.ops.interp import interp_nd, interp_nd_plain
+    from isochrones_torch.ops.interp_cuda import interp_nd_cuda
+
+    values, knots, maps = _interp_grid(kinds, 12, seed=len(kinds))
+    v, k = _interp_on(values, knots, dev, dtype)
+    pts = torch.as_tensor(interp_points(knots, 4133, seed=3), device=dev, dtype=dtype)
+    before = interp_nd_cuda.launches
+    got = interp_nd(v, k, pts, icols=icols, axis_maps=maps)
+    torch.cuda.synchronize()
+    assert interp_nd_cuda.launches == before + 1
+    ref = interp_nd_plain(v, k, pts, icols=icols, axis_maps=maps)
+    assert got.dtype == dtype and got.shape == ref.shape
+    f64 = dtype == torch.float64
+    check_interp(f"interp {kinds} {dtype}", got, ref, interp_scale(values, icols),
+                 RTOL_INTERP_F64 if f64 else 0.0, ATOL_INTERP_F64 if f64 else ATOL_INTERP_F32)
+    assert torch.isnan(ref).any() and torch.isfinite(ref).any()
+    # the points' leading shape is kept
+    got3 = interp_nd(v, k, pts[:4128].reshape(2, 2064, len(kinds)), icols=icols, axis_maps=maps)
+    assert torch.equal(torch.isnan(got3.reshape(4128, -1)), torch.isnan(got[:4128]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_interp_kernel_on_model_and_bc_grids(dev, dtype):
+    """Kernel B on the synthetic grids' own tables and maps (affine age,
+    exact-affine feh and EEP; the BC grid's compare Teff): the ladder's two
+    mass columns, ``interp_mag``'s 4-d BC call, every model column."""
+    from chip_smoke import ATOL_INTERP_F32, ATOL_INTERP_F64, RTOL_INTERP_F64, check_interp, interp_points, interp_scale
+    from isochrones_torch.ops.interp import interp_nd_plain
+    from isochrones_torch.ops.interp_cuda import interp_nd_cuda
+
+    ic = get_ichrone("synthetic", device=dev, dtype=dtype, **_SMALL)
+    f64 = dtype == torch.float64
+    tol = (RTOL_INTERP_F64, ATOL_INTERP_F64) if f64 else (0.0, ATOL_INTERP_F32)
+    ci = ic.model.column_index
+    for g, icols in ((ic.model, (ci["initial_mass"], ci["dm_deep"])), (ic.model, None),
+                     (ic.bc, tuple(ic.bc.column_index[b] for b in ("J", "H", "K")))):
+        pts = torch.as_tensor(interp_points(g.knots, 20000, seed=5), device=dev, dtype=dtype)
+        got = interp_nd_cuda(g.values, g.knots, pts, icols=icols, axis_maps=g.axis_maps)
+        ref = interp_nd_plain(g.values, g.knots, pts, icols=icols, axis_maps=g.axis_maps)
+        check_interp(f"grid {len(g.knots)}-d {icols}", got, ref, interp_scale(g.values, icols), *tol)
+
+
+def test_interp_shims_and_interpolator_launch_kernel(dev):
+    """The reference-named shims (no maps: searchsorted on irregular axes),
+    ``GridInterpolator.__call__``, ``interp_value``/``interp_mag`` and the
+    interpolator's ``__call__`` launch kernel B and equal the CPU."""
+    from isochrones_torch import interp as shims
+    from isochrones_torch.ops.interp_cuda import interp_nd_cuda
+
+    from isochrones_torch.ops.interp import compute_axis_maps
+
+    rng = np.random.default_rng(2)
+    knots = [np.cumsum(rng.uniform(0.1, 1.0, 300)), np.array([-1.0, 2.0]), np.array([0.0, 0.5, 3.0])]
+    assert compute_axis_maps(knots)[:2] == (None, None)  # more than 256 irregular knots; two knots
+    values = rng.normal(size=(300, 2, 3, 5))
+    xs = [np.linspace(k[0], k[-1], 17) for k in knots]
+    before = interp_nd_cuda.launches
+    got = shims.interp_values_3d(*xs, values, [0, 3], *knots, device=dev)
+    assert interp_nd_cuda.launches == before + 1
+    np.testing.assert_allclose(got, shims.interp_values_3d(*xs, values, [0, 3], *knots, device="cpu"), rtol=1e-12)
+    ic, icc = (get_ichrone("synthetic", device=d, **_SMALL) for d in (dev, "cpu"))
+    pars = [np.linspace(30, 90, 50), 9.0, 0.0, 200.0, 0.1]
+    before = interp_nd_cuda.launches
+    out, ref = ic(*pars), icc(*pars)
+    assert interp_nd_cuda.launches == before + 3  # every column, then the model and BC lerps of interp_mag
+    for c in ref:
+        np.testing.assert_allclose(out[c], ref[c], rtol=1e-10, atol=1e-12, err_msg=c)
+
+
+def test_interp_kernel_refuses(dev):
+    """The wrapper raises on mixed dtypes (no caller mixes them), past the
+    caps (6 axes, 128 columns), on a table that does not match its knots,
+    and where the table asks for a gradient."""
+    from isochrones_torch.ops.interp_cuda import MAX_COLS, MAX_DIM, interp_nd_cuda
+
+    values, knots, maps = _interp_grid(("affine", "log"), 3, seed=0)
+    v, k = _interp_on(values, knots, dev, torch.float64)
+    pts = torch.zeros((4, 2), device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError, match="one dtype"):
+        interp_nd_cuda(v, k, pts.float(), axis_maps=maps)
+    with pytest.raises(ValueError, match="one dtype"):
+        interp_nd_cuda(v.float(), k, pts, axis_maps=maps)
+    seven = tuple(torch.arange(2.0, device=dev, dtype=torch.float64) for _ in range(MAX_DIM + 1))
+    with pytest.raises(ValueError, match=f"1 to {MAX_DIM} axes"):
+        interp_nd_cuda(torch.zeros((2,) * (MAX_DIM + 1) + (1,), device=dev, dtype=torch.float64), seven,
+                       torch.zeros((3, MAX_DIM + 1), device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError, match=f"at most {MAX_COLS} columns"):
+        interp_nd_cuda(v, k, pts, icols=(0,) * (MAX_COLS + 1), axis_maps=maps)
+    with pytest.raises(ValueError, match="does not match"):
+        interp_nd_cuda(v[:, :-1], k, pts, axis_maps=maps)
+    with pytest.raises(RuntimeError, match="has no backward kernel"):
+        interp_nd_cuda(v.clone().requires_grad_(True), k, pts, axis_maps=maps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("icols", [(1,), (2, 0), tuple(range(12))])
+@pytest.mark.parametrize("kinds", _INTERP_CASES[3:], ids=lambda k: "-".join(k))
+def test_interp_grad_kernel_matches_autograd(dev, kinds, icols, dtype):
+    """Kernel B' (through ``InterpNd``) against torch autograd of the plain
+    version with a seeded cotangent: float64 to 1e-9 of the row's scale,
+    float32 against the plain float32 version to ``RTOL_GRAD_F32``;
+    identical NaN patterns (none: a bad point and a NaN value pass 0); one
+    backward launch."""
+    from chip_smoke import RTOL_GRAD_F32, RTOL_GRAD_F64, check_grad, interp_points
+    from isochrones_torch.ops.interp import interp_nd, interp_nd_plain
+    from isochrones_torch.ops.interp_cuda import interp_nd_grad_cuda
+
+    values, knots, maps = _interp_grid(kinds, 12, seed=11)
+    v, k = _interp_on(values, knots, dev, dtype)
+    pts = torch.as_tensor(interp_points(knots, 3001, seed=4), device=dev, dtype=dtype)
+    cot = torch.as_tensor(np.random.default_rng(1).normal(size=(3001, len(icols))), device=dev, dtype=dtype)
+
+    def grad(fn):
+        x = pts.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(fn(v, k, x, icols=icols, axis_maps=maps), x, grad_outputs=cot)
+        return g.cpu().numpy()
+
+    before = interp_nd_grad_cuda.launches
+    got = grad(interp_nd)
+    assert interp_nd_grad_cuda.launches == before + 1
+    check_grad(f"interp grad {kinds} {dtype}", got, grad(interp_nd_plain),
+               RTOL_GRAD_F64 if dtype == torch.float64 else RTOL_GRAD_F32)
+    assert np.isfinite(got).all() and (got != 0).any()
+
+
+#: the box about _SMALL_TRUTH: EEPs, age, feh, distance, AV
+_SMALL_BOX = ((40, 80), (30, 60), (8.8, 9.2), (-0.2, 0.2), (150, 250), (0.0, 0.3))
+
+
+def test_seismic_posterior_gradient_on_card(dev):
+    """A binary with ``nu_max`` and ``delta_nu`` observed: ``lnpost_batch``
+    and its gradient on the card (kernels A, A', B, B') against the CPU,
+    float64, rtol 1e-10 and 1e-9 of the row's scale."""
+    from chip_smoke import check_grad
+    from isochrones_torch.ops.interp_cuda import interp_nd_cuda, interp_nd_grad_cuda
+
+    icc = get_ichrone("synthetic", device="cpu", **_SMALL)
+    obs = star_observations(icc, _SMALL_TRUTH)
+    obs.update(nu_max=(float(icc.nu_max(60.0, 9.0, 0.0)), 5.0), delta_nu=(float(icc.delta_nu(60.0, 9.0, 0.0)), 1.0))
+    gpu, cpu = (BinaryStarModel(get_ichrone("synthetic", device=d, **_SMALL), **obs) for d in (dev, "cpu"))
+    pts = star_points(cpu.ic.model.knots, 2, 2048, seed=7)
+    pts[1024:] = star_points(cpu.ic.model.knots, 2, 1024, seed=8, box=_SMALL_BOX)
+
+    def run(model, device):
+        x = torch.as_tensor(pts, device=device, dtype=torch.float64).requires_grad_(True)
+        lp = model.lnpost_batch(x)
+        (g,) = torch.autograd.grad(lp.sum(), x)
+        return lp.detach().cpu().numpy(), g.cpu().numpy()
+
+    b, bg = interp_nd_cuda.launches, interp_nd_grad_cuda.launches
+    lp, g = run(gpu, dev)
+    assert interp_nd_cuda.launches > b and interp_nd_grad_cuda.launches > bg
+    lp_ref, g_ref = run(cpu, "cpu")
+    check_star("seismic lnpost", [lp], [lp_ref], 1e-10)
+    check_grad("seismic gradient", g, g_ref, 1e-9)

@@ -15,11 +15,7 @@ n_eep=60, n_age=20) and ``get_ichrone("mist")`` on the MIST-format files of
   subclass's own or an EEP prior on another grid object, the same two
   calls and the JAX posterior with that prior; a grid without the 6-column
   pack takes the composed path on the CPU;
-- a seeded short ``fit_mcmc`` (runs to its end, finite, the distance's 95%
-  interval holds the truth) and a seeded ``fit_multinest`` in each package
-  (evidence within the two runs' combined logzerr);
-- ``derived_samples`` and ``save_hdf`` raising ``TypeError`` in both
-  packages (the reference calls the track interpolator with six columns);
+- the fits: ``tests/test_torch_isotrack_fit.py``;
 - a ``SingleStarModel`` on an evolution-track grid saved and reloaded in
   both packages under an empty ``$ISOCHRONES``: back on the synthetic track
   grid, with its samples.
@@ -53,7 +49,7 @@ _TRUTH = {"synthetic": [30.0, 9.0, 0.0, 200.0, 0.1], "mist": [40.0, 8.5, -0.1, 2
 _MIST_EEP = 60
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -225,51 +221,6 @@ def test_grid_without_pack6_takes_the_composed_path_on_cpu(pairs):
     assert tn._build_lnpost_fused() is None
     p = _points(tm, seed=3)
     _assert_same(tn.lnpost_batch(p).numpy(), jm.lnpost_batch(jnp.asarray(p)))
-
-
-@pytest.fixture(scope="module")
-def fitted(pairs):
-    """On the synthetic pair: a seeded short MCMC in the port, and a seeded
-    100-live-point nested fit in each package (both with ``n_batch=16``,
-    ``n_chains=8``); the JAX model's samples are the nested ones."""
-    tm, jm = _models(pairs, "synthetic")
-    tn, _ = _models(pairs, "synthetic")
-    nested = dict(n_live_points=100, n_batch=16, n_chains=8, seed=0)
-    return dict(mcmc=tm.fit_mcmc(nwalkers=32, nburn=100, niter=50, seed=0), models=(tm, jm),
-                nested=(tn.fit_multinest(**nested), jm.fit_multinest(**nested)), nested_models=(tn, jm))
-
-
-def test_fit_mcmc(fitted):
-    ts = fitted["mcmc"]
-    tm, _ = fitted["models"]
-    assert set(ts) == set(tm.param_names) | {"lnprob"} and len(ts["lnprob"]) == 32 * 50
-    assert np.isfinite(ts["lnprob"]).all()
-    assert tm.sampler is tm.sampler_state and int(tm.sampler.n_accept.sum()) > 0
-    d = ts["distance"]
-    assert np.quantile(d, 0.025) < _TRUTH["synthetic"][3] < np.quantile(d, 0.975)
-
-
-def test_fit_multinest(fitted):
-    tr, _ = fitted["nested"]
-    tn, jn = fitted["nested_models"]
-    (tz, tzerr), (jz, jzerr) = tn.evidence, jn.evidence
-    assert np.isfinite(tz) and tn.mnest_analyzer is tr and tzerr > 0
-    assert abs(tz - jz) < np.hypot(tzerr, jzerr), (tn.evidence, jn.evidence)
-    d = tn.samples["distance"]
-    assert np.quantile(d, 0.025) < _TRUTH["synthetic"][3] < np.quantile(d, 0.975)
-
-
-def test_derived_samples_raise_type_error(fitted, tmp_path):
-    """The reference's quirk, kept: both packages call the track
-    interpolator with all six columns."""
-    for m in fitted["models"]:
-        with pytest.raises(TypeError):
-            m.derived_samples
-    tm, jm = fitted["models"]
-    with pytest.raises(TypeError):
-        tm.save_hdf(str(tmp_path / "isotrack.npz"))
-    with pytest.raises(TypeError):
-        jm.save_hdf(str(tmp_path / "isotrack.h5"))
 
 
 def test_track_grid_results_file_reloads(tmp_path, monkeypatch):
