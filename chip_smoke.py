@@ -4,6 +4,11 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+``--parent-csrc DIR`` (a directory holding another version's ``csrc/``,
+e.g. the parent commit's) also builds those
+(``scripts.compare_torch_kernels.Baseline``, imported only then) and times
+its kernels B and C' in turns beside these (phases 25a and 26).
+
 Phases, one or more lines each; any failure raises and exits non-zero:
 
 1. device: require a CUDA card; print its name and ``nvidia-smi``'s name and
@@ -179,8 +184,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     1024 and 131072 points (the adversarial rows of phases 6 and 9), in float64
     and float32 (against the float64 plain version on the same float32
     values), identical NaN and +-inf patterns (``check_grad``); their device
-    times beside their bounds and the plain versions' (autograd forward and
-    backward); one NUTS leaf's wall-clock and device kernels (kernels A and
+    times at the same four batches beside their bounds and the plain
+    versions' (autograd forward and backward), at 4 and 8 points also the
+    median and spread of 400 launches after a warm-up, with
+    ``--parent-csrc`` the parent's C' in turns; one NUTS leaf's wall-clock and device kernels (kernels A and
     A' once each); ``BinaryStarModel.fit_nuts`` on the bench binary in
     float32 and float64 and the three-star tree ``StarModel.fit_nuts``, with
     the plain likelihoods made to raise: finite lnprob, the distance median
@@ -192,11 +199,14 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     ``fit_mcmc_convergent`` continued from its checkpoint;
 26. kernel B (``interp_nd``, ``csrc/interp_nd.cu``) and its backward B':
     B against its plain version at the cluster ladder's call (W = 1024, E =
-    700, 2 columns), ``interp_mag``'s 4-d BC call, every model column at
-    100,000 adversarial points and a searchsorted-axis shim, float64 and
-    float32, identical NaN patterns; B' against autograd of the plain version
-    at the seismic terms' call (131072 points); their device times beside
-    the bounds, the plain versions and ``grid_sample``; then a binary with
+    700, 2 columns; from the column-planar copy the ladder reads and from the
+    row layout), its 1-column property call, ``interp_mag``'s 4-d BC call,
+    every model column at 100,000 adversarial points and a searchsorted-axis
+    shim, float64 and float32, identical NaN patterns; B' against autograd of
+    the plain version at the seismic terms' call (131072 points); their
+    device times beside the bounds (with ``--parent-csrc`` the parent's B on
+    every call in turns), the plain versions and ``grid_sample``, and the
+    planar copies' bytes; then a binary with
     ``nu_max`` and ``delta_nu`` observed: ``lnpost_batch`` at 131072 points
     against the plain path, and ``fit_nuts`` at the cut setting through A,
     A', B and B' with the plain versions made to raise.
@@ -958,20 +968,42 @@ def grid_sample_input(grid, pts, icols):
     return vol, u.flip(-1).reshape(1, 1, 1, -1, 3).contiguous()
 
 
-def _interp_check(name, values, knots, pts, icols, maps):
-    """Kernel B against the plain version on the same card tensors
-    (``check_interp`` at the dtype's tolerances); returns the max abs error."""
+def _interp_check(name, values, knots, pts, icols, maps, planar=False):
+    """Kernel B (reading its column-planar copy with ``planar``, else the row layout)
+    against the plain version on the same card tensors (``check_interp`` at
+    the dtype's tolerances); returns the max abs error."""
     import torch
 
     from isochrones_torch.ops.interp import interp_nd_plain
     from isochrones_torch.ops.interp_cuda import interp_nd_cuda
 
-    got = interp_nd_cuda(values, knots, pts, icols=icols, axis_maps=maps)
+    got = interp_nd_cuda(values, knots, pts, icols=icols, axis_maps=maps, planar=planar)
     ref = interp_nd_plain(values, knots, pts, icols=icols, axis_maps=maps)
     torch.cuda.synchronize()
     f64 = pts.dtype == torch.float64
     return check_interp(name, got, ref, interp_scale(values, icols), RTOL_INTERP_F64 if f64 else 0.0,
                         ATOL_INTERP_F64 if f64 else ATOL_INTERP_F32)
+
+
+def plain_interp(values, knots, points, icols=None, axis_maps=None, planar=False):
+    """``interp_nd_plain`` under ``interp_nd``'s signature (the plain version
+    reads the row layout; a planar copy is kernel B's alone)."""
+    from isochrones_torch.ops.interp import interp_nd_plain
+
+    return interp_nd_plain(values, knots, points, icols=icols, axis_maps=axis_maps)
+
+
+def in_turns(new, parent, name, reps):
+    """Device ms of ``new`` and, where given, ``parent`` (kernels whose name
+    holds ``name``), timed in turns (parent, new, new, parent): ``{"new":
+    [ms, ...], "parent": [ms, ...]}``; the parent's list is empty without
+    one. With ``--parent-csrc`` the phases pass the parent's kernels here
+    (``scripts.compare_torch_kernels.Baseline``)."""
+    order = ["parent", "new", "new", "parent"] if parent is not None else ["new"]
+    out = {"new": [], "parent": []}
+    for who in order:
+        out[who].append(kernel_ms(new if who == "new" else parent, name, reps=reps))
+    return out
 
 
 def cluster_call_ab(dev, ic, data, p):
@@ -985,7 +1017,6 @@ def cluster_call_ab(dev, ic, data, p):
 
     import isochrones_torch.cluster as cluster_mod
     from isochrones_torch import StarClusterModel
-    from isochrones_torch.ops.interp import interp_nd_plain
     from isochrones_torch.ops.mags import interp_mag_plain
 
     model = StarClusterModel(ic, data, **MODEL)
@@ -995,7 +1026,7 @@ def cluster_call_ab(dev, ic, data, p):
         if design == "kernel B":
             return fn()
         saved = cluster_mod.interp_nd, cluster_mod._interp_mag_kernel
-        cluster_mod.interp_nd, cluster_mod._interp_mag_kernel = interp_nd_plain, interp_mag_plain
+        cluster_mod.interp_nd, cluster_mod._interp_mag_kernel = plain_interp, interp_mag_plain
         try:
             return fn()
         finally:
@@ -1016,19 +1047,25 @@ def cluster_call_ab(dev, ic, data, p):
     return out
 
 
-def phase_interp_kernel(dev, ic32, ic64):
+def phase_interp_kernel(dev, ic32, ic64, parent=None):
     """Phase 26a: kernel B against its plain version on the card, float64 and
     float32: the cluster ladder's call at W = 1024 walkers (W, 700, 3) with
-    its two mass columns, ``interp_mag``'s 4-d BC call (3 bands) at the
-    ladder's points, ``interp_value``'s every column at 100,000 seeded points
-    (adversarial blocks: ``interp_points``), and a reference-named shim
+    its two mass columns, from their column-planar copy as the ladder reads
+    them and from the row layout, the ladder's 1-column property call (Teff,
+    planar), ``interp_mag``'s 4-d BC call (3 bands) at the ladder's points,
+    ``interp_value``'s every column at 100,000 seeded points (adversarial
+    blocks: ``interp_points``), and a reference-named shim
     (``interp_values_3d``, float64) on a cut of the model grid whose EEP axis
     is irregular past 256 knots (searchsorted); kernel B' against autograd of
     the plain version at the seismic terms' call (131072 points, ``nu_max``
-    and ``delta_nu``). Times at the ladder's call (B) and the seismic call
-    (B') beside the bounds, the plain versions and, for B, ``grid_sample``;
-    the 1024-walker cluster ``lnpost_batch`` with B and with the plain lerps
-    in turns (:func:`cluster_call_ab`). Returns ``(B record, B' record)``."""
+    and ``delta_nu``). Times of every B call beside its bound and, with the
+    parent's kernels ``parent`` (``scripts.compare_torch_kernels.Baseline``),
+    the parent's kernel B on the same call in turns; at the ladder's call the
+    plain version and ``grid_sample``; B' at the seismic call and at the NUTS
+    chains' 4 and 8 points (median and spread of 400 launches); the bytes of
+    the ladder's planar copies; the 1024-walker cluster ``lnpost_batch`` with B and with
+    the plain lerps in turns (:func:`cluster_call_ab`). Returns ``(B record,
+    B' record)``."""
     import torch
     import torch.nn.functional as F
 
@@ -1036,18 +1073,26 @@ def phase_interp_kernel(dev, ic32, ic64):
     from isochrones_torch import interp as shims
     from isochrones_torch.catalog import read_csv
     from isochrones_torch.ops.interp import compute_axis_maps, interp_nd, interp_nd_plain
-    from isochrones_torch.ops.interp_cuda import interp_nd_cuda, interp_nd_grad_cuda
+    from isochrones_torch.ops.interp_cuda import interp_nd_cuda, interp_nd_grad_cuda, planar_columns
 
     data = read_csv(FIXTURE)
     rng = np.random.default_rng(1)
     pw = np.asarray(TRUTH)[None, :] + rng.normal(0, P0_SCALE, size=(INTERP_LADDER_W, 7))
-    errs, calls = {}, {}
+    errs, calls, planar_bytes = {}, {}, {}
     for label, ic in (("f64", ic64), ("f32", ic32)):
         g, bc = ic.model, ic.bc
         ci = g.column_index
         gp = ladder_points(StarClusterModel(ic, data, **MODEL), pw)
-        mass_icols = (ci["initial_mass"], ci["dm_deep"])
-        errs[f"ladder {label}"] = _interp_check(f"ladder {label}", g.values, g.knots, gp, mass_icols, g.axis_maps)
+        mass_icols, prop_icols = (ci["initial_mass"], ci["dm_deep"]), (ci["Teff"],)
+        planar_bytes[label] = {what: pc.numel() * pc.element_size() for what, pc in (
+            ("mass pair", planar_columns(g.values, mass_icols)),
+            ("one property column", planar_columns(g.values, prop_icols)))}
+        errs[f"ladder {label}"] = _interp_check(f"ladder {label}", g.values, g.knots, gp, mass_icols, g.axis_maps,
+                                                True)
+        errs[f"ladder row layout {label}"] = _interp_check(f"ladder row layout {label}", g.values, g.knots, gp,
+                                                           mass_icols, g.axis_maps)
+        errs[f"property {label}"] = _interp_check(f"property {label}", g.values, g.knots, gp, prop_icols, g.axis_maps,
+                                                  True)
         pk = ic.model_packed
         props = interp_nd_plain(pk.values, pk.knots, gp, icols=ic._packed_icols, axis_maps=pk.axis_maps)
         av = torch.as_tensor(pw[:, 3], dtype=ic.dtype, device=dev)[:, None].expand(gp.shape[:2])
@@ -1057,13 +1102,15 @@ def phase_interp_kernel(dev, ic32, ic64):
         vp = torch.as_tensor(interp_points(g.knots, INTERP_VALUE_POINTS, seed=26), device=dev, dtype=ic.dtype)
         errs[f"every column {label}"] = _interp_check(f"every column {label}", g.values, g.knots, vp, None,
                                                       g.axis_maps)
-        calls[label] = (g, gp, mass_icols, bc, bp, bands, vp)
+        calls[label] = (g, gp, mass_icols, prop_icols, bc, bp, bands, vp)
     print(f"[interp] kernel B vs plain on the card: the ladder's call ({INTERP_LADDER_W}, "
-          f"{calls['f32'][1].shape[1]}, 3) x 2 columns, interp_mag's BC call (4-d, 3 bands), every column "
-          f"({len(calls['f32'][0].columns)}) at {INTERP_VALUE_POINTS} points; max_abs_err "
-          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} (float64 rtol {RTOL_INTERP_F64} + "
-          f"{ATOL_INTERP_F64} x column scale, float32 against the plain float32 version {ATOL_INTERP_F32} x column "
-          f"scale); NaN patterns identical")
+          f"{calls['f32'][1].shape[1]}, 3) x 2 columns (planar copy and row layout) and its 1-column property call "
+          f"(planar), interp_mag's BC call (4-d, 3 bands), every column ({len(calls['f32'][0].columns)}) at "
+          f"{INTERP_VALUE_POINTS} points; max_abs_err {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+          f"(float64 rtol {RTOL_INTERP_F64} + {ATOL_INTERP_F64} x column scale, float32 against the plain float32 "
+          f"version {ATOL_INTERP_F32} x column scale); NaN patterns identical")
+    print(f"[interp] the ladder's column-planar copies on the card (MIST-scale synthetic grid, "
+          f"{tuple(ic32.model.values.shape)}): {json.dumps(planar_bytes)} bytes")
 
     # a shim on a cut of the model grid with an irregular EEP axis: no map, searchsorted
     g = ic64.model
@@ -1082,51 +1129,84 @@ def phase_interp_kernel(dev, ic32, ic64):
     if interp_nd_cuda.launches != 1:
         raise AssertionError(f"the shim launched kernel B {interp_nd_cuda.launches} times")
     kt = tuple(torch.as_tensor(k, device=dev) for k in knots)
-    ref = interp_nd_plain(torch.as_tensor(sub, device=dev), kt, torch.as_tensor(sp, device=dev), icols=tuple(icols),
-                          axis_maps=maps)
+    shim_call = (torch.as_tensor(sub, device=dev), kt, torch.as_tensor(sp, device=dev), tuple(icols), maps)
+    ref = interp_nd_plain(*shim_call[:3], icols=shim_call[3], axis_maps=maps)
     errs["shim f64"] = check_interp("shim f64", got, ref, interp_scale(sub, icols), RTOL_INTERP_F64,
                                     ATOL_INTERP_F64)
     print(f"[interp] interp_values_3d (maps {[m and m[0] for m in maps]}) at {INTERP_VALUE_POINTS} points: one "
           f"launch, max_abs_err {errs['shim f64']:.3e}")
 
-    # times at the ladder's call, float32
-    g, gp, mass_icols, bc, bp, bands, vp = calls["f32"]
-    g64, gp64 = calls["f64"][0], calls["f64"][1]
-    ms = kernel_ms(lambda: interp_nd_cuda(g.values, g.knots, gp, icols=mass_icols, axis_maps=g.axis_maps),
-                   "interp_nd_kernel", reps=20)
-    ms64 = kernel_ms(lambda: interp_nd_cuda(g64.values, g64.knots, gp64, icols=mass_icols, axis_maps=g64.axis_maps),
-                     "interp_nd_kernel", reps=20)
+    # times, float32 unless named: every call, in turns with the parent's kernel B where given
+    g, gp, mass_icols, prop_icols, bc, bp, bands, vp = calls["f32"]
+    g64, gp64 = calls["f64"][:2]
+    timed = {
+        "ladder": (g, gp, mass_icols, True),
+        "ladder f64": (g64, gp64, mass_icols, True),
+        "ladder row layout": (g, gp, mass_icols, False),
+        "property": (g, gp, prop_icols, True),
+        "BC": (bc, bp, bands, False),
+        "every column": (g, vp, None, False),
+    }
+    times = {}
+    for what, (tg, tp, ti, tpl) in timed.items():
+        times[what] = in_turns(
+            lambda tg=tg, tp=tp, ti=ti, tpl=tpl: interp_nd_cuda(tg.values, tg.knots, tp, icols=ti,
+                                                                 axis_maps=tg.axis_maps, planar=tpl),
+            None if parent is None else (lambda tg=tg, tp=tp, ti=ti, tpl=tpl: parent.interp(
+                tg.values, tg.knots, tp, ti, tg.axis_maps, tpl)),
+            "interp_nd_kernel", reps=20)
+    times["searchsorted shim f64"] = in_turns(
+        lambda: interp_nd_cuda(*shim_call[:3], icols=shim_call[3], axis_maps=maps),
+        None if parent is None else (lambda: parent.interp(*shim_call)), "interp_nd_kernel", reps=20)
+    bounds = {what: bound(*interp_work(tg, tp, len(tg.columns) if ti is None else len(ti)),
+                          "float64" if what.endswith("f64") else "float32")[0]
+              for what, (tg, tp, ti, _) in timed.items()}
+    ms, ms64 = float(np.mean(times["ladder"]["new"])), float(np.mean(times["ladder f64"]["new"]))
     plain = lambda: interp_nd_plain(g.values, g.knots, gp, icols=mass_icols, axis_maps=g.axis_maps)  # noqa: E731
     plain_ms = cuda_ms(plain, reps=5)
     plain_kernels = sum(n for _, n in profile_kernels(plain, reps=3)[1].values()) / 3
     bound_ms, bound_by, what = bound(*interp_work(g, gp, len(mass_icols)), "float32")
     vol, sg = grid_sample_input(g, gp, mass_icols)
     lib = F.grid_sample(vol, sg, mode="bilinear", align_corners=True)[0, :, 0, 0, :].T
-    library_ms = cuda_ms(lambda: F.grid_sample(vol, sg, mode="bilinear", align_corners=True), reps=20)
-    kgot = interp_nd_cuda(g.values, g.knots, gp, icols=mass_icols, axis_maps=g.axis_maps).reshape(-1, 2)
+    library_turns = []
+    for who in ("grid_sample", "kernel B", "kernel B", "grid_sample"):
+        if who == "grid_sample":
+            # its kernel's device time, as kernel B's (CUDA events over the calls
+            # would count the host's launch gaps too)
+            library_turns.append(kernel_ms(lambda: F.grid_sample(vol, sg, mode="bilinear", align_corners=True),
+                                           "grid_sampler", reps=20))
+        else:
+            times["ladder"]["new"].append(kernel_ms(lambda: interp_nd_cuda(
+                g.values, g.knots, gp, icols=mass_icols, axis_maps=g.axis_maps, planar=True),
+                "interp_nd_kernel", reps=20))
+    library_ms = float(np.mean(library_turns))
+    ms = float(np.mean(times["ladder"]["new"]))
+    kgot = interp_nd_cuda(g.values, g.knots, gp, icols=mass_icols, axis_maps=g.axis_maps, planar=True)
+    kgot = kgot.reshape(-1, 2)
     both = torch.isfinite(kgot).all(-1) & torch.isfinite(lib).all(-1)
     lib_diff = float((lib[both] - kgot[both]).abs().max()) if bool(both.any()) else float("nan")
-    bc_ms = kernel_ms(lambda: interp_nd_cuda(bc.values, bc.knots, bp, icols=bands, axis_maps=bc.axis_maps),
-                      "interp_nd_kernel", reps=20)
-    bc_bound = bound(*interp_work(bc, bp, len(bands)), "float32")[0]
-    all_ms = kernel_ms(lambda: interp_nd_cuda(g.values, g.knots, vp, axis_maps=g.axis_maps), "interp_nd_kernel",
-                       reps=20)
-    all_bound = bound(*interp_work(g, vp, len(g.columns)), "float32")[0]
-    print(f"[interp] time, the ladder's call ({INTERP_LADDER_W}, {gp.shape[1]}, 3) x 2 columns f32: kernel B "
-          f"{ms:.4f} ms (f64 {ms64:.4f}), plain {plain_ms:.4f} ms ({plain_kernels:.1f} device kernels), grid_sample "
-          f"{library_ms:.4f} ms (where both are finite it differs from kernel B by {lib_diff:.3e}); bound "
-          f"{bound_ms:.6f} ms ({what}), kernel at {bound_ms / ms:.5f} of it")
-    print(f"[interp] time f32: interp_mag's BC call {bc_ms:.4f} ms (bound {bc_bound:.6f} ms); every column at "
-          f"{INTERP_VALUE_POINTS} points {all_ms:.4f} ms (bound {all_bound:.6f} ms)")
+    print(f"[interp] time, the ladder's call ({INTERP_LADDER_W}, {gp.shape[1]}, 3) x 2 columns f32 (planar copy): "
+          f"kernel B {ms:.4f} ms (turns {np.round(times['ladder']['new'], 4).tolist()}; f64 {ms64:.4f}), plain "
+          f"{plain_ms:.4f} ms ({plain_kernels:.1f} device kernels), grid_sample {library_ms:.4f} ms (turns "
+          f"{np.round(library_turns, 4).tolist()}; where both are finite it differs from kernel B by "
+          f"{lib_diff:.3e}); bound {bound_ms:.6f} ms ({what}), kernel at {bound_ms / ms:.5f} of it")
+    for name, t in times.items():
+        par = (f", the parent's kernel B {np.round(t['parent'], 4).tolist()} ms (mean {np.mean(t['parent']):.4f}, "
+               f"{np.mean(t['parent']) / np.mean(t['new']):.2f}x)" if t["parent"] else "")
+        print(f"[interp] time {name}: kernel B {np.round(t['new'], 4).tolist()} ms (mean {np.mean(t['new']):.4f})"
+              f"{par}; bound {bounds.get(name, float('nan')):.6f} ms")
     ab = cluster_call_ab(dev, ic32, data, pw)
     rec_b = dict(name="interp_nd", route="cuda", source="isochrones_torch/csrc/interp_nd.cu",
                  replaces="isochrones_tpu/ops/interp.py:483", max_abs_err=errs["ladder f32"], ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                  library="torch.nn.functional.grid_sample(mode='bilinear', align_corners=True)",
                  library_max_diff=lib_diff, plain_device_kernels=plain_kernels, ms_f64=ms64,
-                 shape={"W": INTERP_LADDER_W, "E": int(gp.shape[1]), "ndim": 3, "cols": 2, "dtype": "float32"},
-                 ms_bc_call=bc_ms, bound_ms_bc_call=bc_bound, ms_every_column=all_ms, bound_ms_every_column=all_bound,
-                 max_abs_err_all=errs, cluster_call_ab=ab)
+                 shape={"W": INTERP_LADDER_W, "E": int(gp.shape[1]), "ndim": 3, "cols": 2, "dtype": "float32",
+                        "layout": "column-planar copy"},
+                 times_in_turns=times, bounds=bounds, planar_bytes=planar_bytes,
+                 ms_bc_call=float(np.mean(times["BC"]["new"])), bound_ms_bc_call=bounds["BC"],
+                 ms_every_column=float(np.mean(times["every column"]["new"])),
+                 bound_ms_every_column=bounds["every column"], max_abs_err_all=errs, cluster_call_ab=ab)
 
     # kernel B' at the seismic terms' call: the primary's grid point, nu_max and delta_nu
     grads, times = {}, {}
@@ -1156,16 +1236,26 @@ def phase_interp_kernel(dev, ic32, ic64):
                                   "interp_nd_grad_kernel", reps=20),
                         cuda_ms(lambda: vjp(interp_nd_plain), reps=5),
                         bound(*interp_work(g, gp, 2, grad=True), label.replace("f", "float"))[:2])
+        if label == "f32":  # the seismic fit's NUTS chains
+            leaf = {B: kernel_ms_spread(lambda B=B: interp_nd_grad_cuda(g.values, g.knots, gp[:B], cot[:B], icols,
+                                                                         g.axis_maps), "interp_nd_grad_kernel")
+                    for B in GRAD_BATCHES[:2]}
+            leaf_bound = {B: bound(*interp_work(g, gp[:B], 2, grad=True), "float32")[0] for B in leaf}
     (gms, gplain, (gbound, gby)), gms64 = times["f32"], times["f64"][0]
     print(f"[interp] kernel B' vs autograd of the plain version at the seismic call ({STAR_BATCH} points, nu_max "
           f"and delta_nu): f64 {grads['f64']:.3e} (rtol {RTOL_GRAD_F64} of the row's scale), f32 against the plain "
           f"float32 version {grads['f32']:.3e} (rtol {RTOL_GRAD_F32}); time f32 {gms:.4f} ms (f64 {gms64:.4f}), "
           f"autograd of the plain version (forward + backward) {gplain:.4f} ms; bound {gbound:.6f} ms, kernel at "
-          f"{gbound / gms:.5f} of it")
+          f"{gbound / gms:.5f} of it; at the NUTS chains' "
+          f"{json.dumps({B: [[round(x, 5) for x in leaf[B][:3]], round(leaf_bound[B], 8)] for B in leaf})} "
+          f"([median, 10th, 90th percentile] ms of {SPREAD_LAUNCHES} launches, bound ms)")
     rec_g = dict(name="interp_nd_grad", route="cuda", source="isochrones_torch/csrc/interp_nd.cu",
                  replaces="isochrones_tpu/ops/interp.py:483", max_abs_err=grads["f32"], ms=gms, plain_ms=gplain,
                  bound_ms=gbound, bound_by=gby, library_ms=None, ms_f64=gms64, max_err_f64=grads["f64"],
-                 shape={"P": STAR_BATCH, "ndim": 3, "cols": 2, "dtype": "float32"})
+                 shape={"P": STAR_BATCH, "ndim": 3, "cols": 2, "dtype": "float32"},
+                 ms_nuts_chains={str(B): ms[0] for B, ms in leaf.items()},
+                 ms_spread_nuts_chains={str(B): ms[:3] for B, ms in leaf.items()},
+                 bound_ms_nuts_chains={str(B): b for B, b in leaf_bound.items()})
     return rec_b, rec_g
 
 
@@ -1241,6 +1331,35 @@ def kernel_ms(fn, name, reps, warmup=2):
     if not seen:
         raise AssertionError(f"the profiler saw no {name} kernel")
     return sum(ms / n * max(1, round(n / reps)) for ms, n in seen)
+
+
+#: launches in one window of kernel_ms_spread, and the calls before it
+SPREAD_LAUNCHES, SPREAD_WARMUP = 400, 50
+
+
+def kernel_ms_spread(fn, name, reps=SPREAD_LAUNCHES, warmup=SPREAD_WARMUP):
+    """Device milliseconds of each launch of the kernels whose name holds
+    ``name`` over ``reps`` calls of ``fn`` after ``warmup`` calls:
+    ``(median, 10th percentile, 90th percentile, launches seen)``. For
+    launches of a few microseconds, whose means over short windows spread by
+    up to 2x from one window to the next."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(4):  # the profiler drops a window's events now and then
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        if ms:
+            q = np.percentile(ms, [50, 10, 90])
+            return float(q[0]), float(q[1]), float(q[2]), len(ms)
+    raise AssertionError(f"the profiler saw no {name} kernel in 4 windows")
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -3447,8 +3566,10 @@ def phase_isotrack(dev, workdir):
         iso_mod._mist_cache.clear()
 
 
-#: phase 25: the backward kernels' timed batches, float64 and float32
-GRAD_BATCHES = (1024, STAR_BATCH)
+#: phase 25: the backward kernels' timed batches, float32 (float64 beside):
+#: the NUTS fits' and the leaf's chain counts (the path's shape), then 1024
+#: and 131072 points
+GRAD_BATCHES = (4, 8, 1024, STAR_BATCH)
 #: float64 backward kernel vs autograd of the float64 plain version: the same
 #: closed forms in another order (autograd's product chain of the corner
 #: weights, its division by each lerp's knot spacing); row by row,
@@ -3545,13 +3666,16 @@ def _grad_pair(label, kernel, plain_fn, lk64, lk32, pts, n_out, dev):
     return err64, err32, fin, (abs64, abs32)
 
 
-def phase_grad_kernels(dev, ic32, ic64, workdir):
+def phase_grad_kernels(dev, ic32, ic64, workdir, parent=None):
     """Phase 25a: kernels A' and C' against autograd of the plain versions at
     the NUTS fits' and leaf's chain counts (4, 8) and at B = 1024 and 131072,
     float64 and float32, on the bench binary and on the
-    three-star tree plan (adversarial rows); their device times beside their
-    bounds. Returns the two records of the kernels line (launches filled in
-    by the caller)."""
+    three-star tree plan (adversarial rows); their device times at the same
+    batches (float32, float64 beside; at 4 and 8 points also the median and
+    spread of :data:`SPREAD_LAUNCHES` launches) beside their bounds and, with
+    the parent's kernels ``parent`` (``scripts.compare_torch_kernels.Baseline``),
+    the parent's C' in turns. Returns the two records of the kernels line (launches filled in by
+    the caller)."""
     import torch
 
     from isochrones_torch.ops.star import star_lnlike_fused_plain
@@ -3594,14 +3718,32 @@ def phase_grad_kernels(dev, ic32, ic64, workdir):
             p32 = torch.as_tensor(pts, device=dev, dtype=torch.float32)
             cot = grad_cotangents(B, n_out, 52, dev, torch.float32)
             lk = l32[0]
-            reps = 50 if B == 1024 else 10
-            ms = kernel_ms(lambda: kernel(p32, lk, *cot), name, reps=reps)
+            reps = 50 if B <= 1024 else 10
+            new = lambda: kernel(p32, lk, *cot)  # noqa: E731
+            old = None
+            if parent is not None and name == "tree_lnlike_grad":
+                old = lambda new=new: parent.run(new)  # noqa: E731
+            turns = in_turns(new, old, name, reps=reps)
+            spread = kernel_ms_spread(new, name) if B <= LEAF_CHAINS else None
+            parent_spread = kernel_ms_spread(old, name) if spread and old else None
+            ms = float(np.mean(turns["new"]))
+            p64, cot64 = p32.double(), tuple(c.double() for c in cot)
+            ms64 = kernel_ms(lambda: kernel(p64, l64, *cot64), name, reps=reps)
             plain = cuda_ms(lambda: plain_grad(plain_fn, p32, lk, cot), reps=max(2, reps // 5))
             fwd = star_work(p32, lk) if name == "star_lnlike_grad" else tree_work(p32, lk)
             bnd = bound(*grad_work(fwd, p32, 1 + 2 * n_out), "float32")
-            timing[B] = dict(ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1])
-            print(f"[grad] time {name} B={B} f32: kernel {ms:.4f} ms, plain (autograd forward + backward) {plain:.4f} "
-                  f"ms; bound {bnd[0]:.5f} ms ({bnd[2]}), kernel at {bnd[0] / ms:.3f} of it")
+            timing[B] = dict(ms=ms, ms_turns=turns["new"], parent_ms=turns["parent"], ms_f64=ms64, plain_ms=plain,
+                             bound_ms=bnd[0], bound_by=bnd[1], ms_spread=spread, parent_ms_spread=parent_spread)
+            par = (f", the parent's {np.round(turns['parent'], 4).tolist()} ms (mean {np.mean(turns['parent']):.4f}, "
+                   f"{np.mean(turns['parent']) / ms:.2f}x)" if turns["parent"] else "")
+            if spread:
+                par += (f"; median [10th, 90th percentile] of {spread[3]} launches {spread[0]:.5f} "
+                        f"[{spread[1]:.5f}, {spread[2]:.5f}] ms"
+                        + (f", the parent's {parent_spread[0]:.5f} [{parent_spread[1]:.5f}, {parent_spread[2]:.5f}] ms"
+                           if parent_spread else ""))
+            print(f"[grad] time {name} B={B} f32: kernel {np.round(turns['new'], 4).tolist()} ms (mean {ms:.4f}; f64 "
+                  f"{ms64:.4f}){par}, plain (autograd forward + backward) {plain:.4f} ms; bound {bnd[0]:.6f} ms "
+                  f"({bnd[2]}), kernel at {bnd[0] / ms:.4f} of it")
         top = GRAD_BATCHES[-1]
         main = timing[top]
         records[name] = {
@@ -3613,8 +3755,9 @@ def phase_grad_kernels(dev, ic32, ic64, workdir):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
             "shape": {"B": top, "dtype": "float32"}, "max_err_row_scale": errs[top][1],
             "max_abs_err_f64": errs[top][2], "max_err_row_scale_f64": errs[top][0],
-            "ms_fit_batch": timing[GRAD_BATCHES[0]]["ms"], "plain_ms_fit_batch": timing[GRAD_BATCHES[0]]["plain_ms"],
-            "bound_ms_fit_batch": timing[GRAD_BATCHES[0]]["bound_ms"],
+            "ms_fit_batch": timing[1024]["ms"], "plain_ms_fit_batch": timing[1024]["plain_ms"],
+            "bound_ms_fit_batch": timing[1024]["bound_ms"],
+            "timing": {str(B): t for B, t in timing.items()},
         }
     return records
 
@@ -3943,8 +4086,16 @@ def _star_grad_points(ic, B, seed):
     return pts
 
 
-def main():
+def main(argv=None):
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of isochrones_torch on one CUDA card.")
+    ap.add_argument("--parent-csrc", default=None, metavar="DIR",
+                    help="a directory holding the parent commit's csrc/ (its *.cu and interp_common.cuh): "
+                         "phases 25a and 26 time its kernels C' and B in turns beside these")
+    args = ap.parse_args(argv)
 
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -3974,6 +4125,15 @@ def main():
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
+    parent = None
+    if args.parent_csrc:
+        from scripts.compare_torch_kernels import Baseline
+
+        parent = Baseline.build(args.parent_csrc)
+        print(f"[build] the parent's kernels from {args.parent_csrc} built in {parent.seconds:.3f} s")
+        for line in parent.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build] parent {line.strip()}")
 
     # ---- 3. kernel against the plain version
     times = {}
@@ -4035,13 +4195,12 @@ def main():
         raise AssertionError(f"lnpost_batch launched the cluster kernel {n_slice} and kernel B {n_slice_interp} times")
     lp64 = model64.lnpost_batch(p16).cpu().numpy()
     import isochrones_torch.cluster as cluster_mod
-    from isochrones_torch.ops.interp import interp_nd_plain
     from isochrones_torch.ops.mags import interp_mag_plain
 
     # the plain path, on the card: the cluster marginal and every lerp
     kernels = cluster_mod.cluster_lnmarginal, cluster_mod.interp_nd, cluster_mod._interp_mag_kernel
     cluster_mod.cluster_lnmarginal, cluster_mod.interp_nd, cluster_mod._interp_mag_kernel = (
-        cluster_lnmarginal_plain, interp_nd_plain, interp_mag_plain)
+        cluster_lnmarginal_plain, plain_interp, interp_mag_plain)
     try:
         plain64 = model64.lnpost_batch(p16).cpu().numpy()
         plain32_ms = 1e3 * _wall(lambda: model32.lnpost_batch(p16), reps=2)
@@ -4216,12 +4375,12 @@ def main():
         n_isotrack, isotrack_record = phase_isotrack(dev, workdir)
         # ---- 25. the other engines: kernels A' and C', NUTS, PolyChord, the convergent harness
         t25 = time.perf_counter()
-        grad_records = phase_grad_kernels(dev, ic32, ic64, workdir)
+        grad_records = phase_grad_kernels(dev, ic32, ic64, workdir, parent)
         nuts_star, nuts_tree = phase_engines(dev, ic32, ic64, workdir, nested_lnprob)
         print(f"[engines] phase 25 took {time.perf_counter() - t25:.1f} s")
         # ---- 26. kernels B and B' against their plain versions, their times, the seismic binary
         t26 = time.perf_counter()
-        interp_rec, interp_grad_rec = phase_interp_kernel(dev, ic32, ic64)
+        interp_rec, interp_grad_rec = phase_interp_kernel(dev, ic32, ic64, parent)
         seismic_rec = phase_seismic(dev, ic32, ic64)
         print(f"[interp] phase 26 took {time.perf_counter() - t26:.1f} s")
     finally:

@@ -215,7 +215,10 @@ class StarClusterModel(BasicStarModel):
             shape = (W, n_eep)
             user = [eeps.expand(shape), age[:, None].expand(shape), feh[:, None].expand(shape)]
             grid_pts = torch.stack([user[io[0]], user[io[1]], user[io[2]]], dim=-1)  # (W, E, 3)
-            mvals = interp_nd(model.values, model.knots, grid_pts, icols=mass_icols, axis_maps=model.axis_maps)
+            # neighbouring ladder points fall in neighbouring cells: on the
+            # card, kernel B reads column-planar copies of the ladder's columns
+            mvals = interp_nd(model.values, model.knots, grid_pts, icols=mass_icols, axis_maps=model.axis_maps,
+                              planar=True)
             masses = mvals[..., 0]
             ln_dm = torch.log(torch.abs(mvals[..., 1]))
 
@@ -233,7 +236,7 @@ class StarClusterModel(BasicStarModel):
                     model_v = (1000.0 / distance)[:, None].expand(shape)
                 else:
                     model_v = interp_nd(model.values, model.knots, grid_pts, icols=(icol,),
-                                        axis_maps=model.axis_maps)[..., 0]
+                                        axis_maps=model.axis_maps, planar=True)[..., 0]
                 z = (pv[None, :, j : j + 1] - model_v[:, None, :]) / pu[None, :, j : j + 1]
                 lnlike_prop = lnlike_prop - 0.5 * z * z
 

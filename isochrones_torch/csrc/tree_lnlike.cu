@@ -91,6 +91,9 @@
 //   take what the compiler gives them (106 registers, 142 in float64).
 // Caps, checked by the wrapper and here: kMaxStars stars, kMaxObs observation
 // rows, kMaxBands bands, kMaxProps spectroscopy rows and as many limits.
+//
+// The float64 entry points are built from tree_lnlike_f64.cu, this file
+// compiled with TREE_F64_UNIT, so that both types build in parallel.
 
 #include <cuda_pipeline_primitives.h>
 
@@ -306,252 +309,6 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 4 : 1)
   if (valid && j == 0) static_cast<T*>(a.ll)[b] = ll;
 }
 
-// ---- the backward kernel (C'): d ll, orig_val, deriv / d pars
-//
-// Replaces XLA's reverse-mode of the tree posterior (the likelihood of
-// isochrones_tpu/observation.py:1269-1361 and the prior's lerped columns,
-// isochrones_tpu/treemodel.py:370-406), which NUTS takes through
-// jax.value_and_grad. Given the cotangents g_ll (B,), g_orig (B, n_stars) and
-// g_deriv (B, n_stars), it writes g_pars (B, P): the gradient that
-// torch.autograd takes through the plain version (ops/tree.py), whose rule it
-// keeps: a non-finite output passes no gradient (a row whose ll is not finite
-// passes none of g_ll, a NaN orig_val or deriv none of its cotangent; a NaN
-// flux and an inactive row pass none).
-//
-// One lane a point (the simple design). Pass 1 recomputes the forward per
-// star: its pack columns (kept), density, BCs and fluxes, summed into the
-// rows' flux sums in star order (the forward's order, 0 * inf kept), then the
-// rows' magnitudes and ll. The cotangents run backward in closed form: each
-// active row's (val - mod) / unc^2 onto its magnitude and, for a relative
-// row, minus onto its reference row's; a row magnitude's -2.5 / (sum ln 10)
-// onto its flux sum; the spectroscopy rows' onto the stars' properties; the
-// parallax' -1000 / d^2 and the AV terms onto their parameters. Pass 2, per
-// star, recomputes the BCs and fluxes, gathers each band's cotangent from the
-// rows that hold the star, takes it through the flux (-0.4 ln 10 f), the
-// distance modulus and the BC lerp's vector-Jacobian product
-// (interp_common.cuh::interp_vjp) into the pack columns, adds the density's
-// and the model lerp's products, and scatters the star's five partials into
-// its parameter columns (the thread owns its row of g_pars).
-//
-// What bounds it: as the forward, dependent gathers, made twice, with the
-// per-lane row and star arrays in local memory. The bytes a call must move
-// are the forward's parameters and rows plus the cotangents in and the
-// (B, P) gradient out.
-
-struct TreeGradArgs {
-  const void* g_ll;     // (B,)
-  const void* g_orig;   // (B, n_stars)
-  const void* g_deriv;  // (B, n_stars)
-  void* g_pars;         // (B, P)
-};
-
-constexpr double kLn10 = 2.302585092994045684;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) tree_lnlike_grad_kernel(const __grid_constant__ TreeArgs a,
-                                                                    const __grid_constant__ TreeGradArgs ga) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  {
-    const uint4* src = static_cast<const uint4*>(a.plan);
-    uint4* dst = reinterpret_cast<uint4*>(smem);
-    for (int i = threadIdx.x; i < (a.plan_bytes >> 4); i += kThreads) dst[i] = src[i];
-  }
-  __syncthreads();
-  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (tid - (threadIdx.x & 31u) >= a.B) return;  // the whole warp lies past the batch
-  const bool valid = tid < a.B;
-  const long long b = valid ? tid : a.B - 1;
-  const int n_stars = a.n_stars, n_obs = a.n_obs, nb = a.n_bands;
-  const T* p = static_cast<const T*>(a.pars) + b * a.P;
-  const T* model = static_cast<const T*>(a.model);
-  const T* dens_table = static_cast<const T*>(a.dens_table);
-  const T* bc = static_cast<const T*>(a.bc);
-
-  const T* obs_val = reinterpret_cast<const T*>(smem);
-  const T* obs_unc = obs_val + n_obs;
-  const T* spec_val = obs_unc + n_obs;
-  const T* spec_unc = spec_val + a.n_spec;
-  const T* lim_lo = spec_unc + a.n_spec;
-  const T* lim_hi = lim_lo + a.n_lim;
-  const T* plax_val = lim_hi + a.n_lim;
-  const T* plax_unc = plax_val + a.n_plax;
-  const T* av_val = plax_unc + a.n_plax;
-  const T* av_unc = av_val + a.n_av;
-  const unsigned* obs_desc = reinterpret_cast<const unsigned*>(av_unc + a.n_av);
-  const unsigned* spec_desc = obs_desc + n_obs;
-  const unsigned* lim_desc = spec_desc + a.n_spec;
-  const unsigned* plax_idx = lim_desc + a.n_lim;
-  const unsigned* av_idx = plax_idx + a.n_plax;
-
-  // star s's parameter j (eep, age, feh, distance, AV); an idle lane's EEP is NaN: no reads
-  auto spar = [&](int s, int j) { return j == 0 && !valid ? T(NAN) : p[a.star_par[s][j]]; };
-
-  // pass 1: the forward
-  T v6[kMaxStars][kPackCols];
-  T prop[kMaxStars][4];
-  T rowsum[kMaxObs];
-  unsigned long long off_grid = 0ull;
-  for (int o = 0; o < n_obs; ++o) rowsum[o] = T(0);
-  for (int s = 0; s < n_stars; ++s) {
-    const T gx[3] = {spar(s, a.io[0]), spar(s, a.io[1]), spar(s, a.io[2])};
-    interp_group<T, 3, 1, kPackCols, 2>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, 0, v6[s]);
-    T dens = T(0);
-    if (dens_table != nullptr) {
-      T d[1];
-      interp_group<T, 3, 1, 1>(dens_table, a.model_ax, gx, a.dens_row_len, &a.dens_col, 1, 0, d);
-      dens = d[0];
-    }
-    prop[s][0] = v6[s][0];
-    prop[s][1] = v6[s][1];
-    prop[s][2] = v6[s][2];
-    prop[s][3] = dens;
-    if (n_obs > 0) {
-      T flux[kMaxBands];
-      const T bx[4] = {v6[s][0], v6[s][1], v6[s][2], spar(s, a.io[4])};
-      interp_group<T, 4, 1, kMaxBands>(bc, a.bc_ax, bx, a.bc_ncols, a.band_cols, nb, 0, flux);
-      const T dist_mod = T(5) * d_log10(spar(s, a.io[3]) / T(10));
-      for (int k = 0; k < nb; ++k) flux[k] = d_pow(T(10), T(-0.4) * (v6[s][3] + dist_mod - flux[k]));
-      for (int o = 0; o < n_obs; ++o) {
-        const unsigned d = obs_desc[o];
-        const T f = flux[d & 15u];
-        const bool f_nan = isnan(f);
-        const bool m = (d >> (16 + s)) & 1u;
-        rowsum[o] += (f_nan ? T(0) : f) * (m ? T(1) : T(0));
-        if (f_nan && m) off_grid |= 1ull << o;
-      }
-    }
-  }
-  T mag[kMaxObs];
-  for (int o = 0; o < n_obs; ++o) mag[o] = ((off_grid >> o) & 1ull) ? T(NAN) : T(-2.5) * d_log10(rowsum[o]);
-  T ll = T(0);
-  bool bad = false;
-  for (int o = 0; o < n_obs; ++o) {
-    const unsigned d = obs_desc[o];
-    if (((d >> 11) & 1u) == 0) continue;
-    const int ref = (int)((d >> 4) & 127u) - 1;
-    const T mo = mag[o];
-    const T mr = ref >= 0 ? mag[ref] : T(0);
-    const T val = ref >= 0 ? obs_val[o] - obs_val[ref] : obs_val[o];
-    ll += tree_gauss<T>(val, obs_unc[o], ref >= 0 ? mo - mr : mo);
-    if (!finite_t(mo) || !finite_t(mr)) bad = true;
-  }
-  for (int r = 0; r < a.n_spec; ++r) {
-    const unsigned d = spec_desc[r];
-    const T mod = prop[d & 255u][d >> 8];
-    ll += tree_gauss<T>(spec_val[r], spec_unc[r], mod);
-    if (!finite_t(mod)) bad = true;
-  }
-  for (int r = 0; r < a.n_lim; ++r) {
-    const unsigned d = lim_desc[r];
-    const T mod = prop[d & 255u][d >> 8];
-    if (mod < lim_lo[r] || mod > lim_hi[r] || !finite_t(mod)) bad = true;
-  }
-  for (int r = 0; r < a.n_plax; ++r) ll += tree_gauss<T>(plax_val[r], plax_unc[r], T(1000) / p[plax_idx[r]]);
-  for (int r = 0; r < a.n_av; ++r) ll += tree_gauss<T>(av_val[r], av_unc[r], p[av_idx[r]]);
-  const T gl = valid && !bad && finite_t(ll) ? static_cast<const T*>(ga.g_ll)[b] : T(0);
-
-  // the cotangents, backward: rows' magnitudes (in mag), their flux sums (in rowsum), the stars' properties
-  T* out = static_cast<T*>(ga.g_pars) + b * a.P;
-  if (valid) {
-    for (int j = 0; j < a.P; ++j) out[j] = T(0);
-  }
-  T gprop[kMaxStars][4];
-  for (int s = 0; s < n_stars; ++s)
-    for (int q = 0; q < 4; ++q) gprop[s][q] = T(0);
-  T gmag[kMaxObs];
-  for (int o = 0; o < n_obs; ++o) gmag[o] = T(0);
-  if (gl != T(0)) {
-    for (int o = 0; o < n_obs; ++o) {
-      const unsigned d = obs_desc[o];
-      if (((d >> 11) & 1u) == 0) continue;
-      const int ref = (int)((d >> 4) & 127u) - 1;
-      const T mod = ref >= 0 ? mag[o] - mag[ref] : mag[o];
-      const T val = ref >= 0 ? obs_val[o] - obs_val[ref] : obs_val[o];
-      const T r = gl * (val - mod) / (obs_unc[o] * obs_unc[o]);
-      gmag[o] += r;
-      if (ref >= 0) gmag[ref] -= r;
-    }
-    for (int r = 0; r < a.n_spec; ++r) {
-      const unsigned d = spec_desc[r];
-      const T mod = prop[d & 255u][d >> 8];
-      gprop[d & 255u][d >> 8] += gl * (spec_val[r] - mod) / (spec_unc[r] * spec_unc[r]);
-    }
-    if (valid) {
-      for (int r = 0; r < a.n_plax; ++r) {
-        const T dd = p[plax_idx[r]];
-        out[plax_idx[r]] += gl * (plax_val[r] - T(1000) / dd) / (plax_unc[r] * plax_unc[r]) * (T(-1000) / (dd * dd));
-      }
-      for (int r = 0; r < a.n_av; ++r) {
-        const T av = p[av_idx[r]];
-        out[av_idx[r]] += gl * (av_val[r] - av) / (av_unc[r] * av_unc[r]);
-      }
-    }
-  }
-  for (int o = 0; o < n_obs; ++o) rowsum[o] = gmag[o] != T(0) ? gmag[o] * T(-2.5) / (rowsum[o] * T(kLn10)) : T(0);
-
-  // pass 2: per star, the fluxes', the BC lerp's, the density's and the model lerp's products
-  for (int s = 0; s < n_stars; ++s) {
-    const T gx[3] = {spar(s, a.io[0]), spar(s, a.io[1]), spar(s, a.io[2])};
-    T g6[kPackCols] = {gprop[s][0], gprop[s][1], gprop[s][2], T(0), T(0), T(0)};
-    g6[4] = valid ? static_cast<const T*>(ga.g_orig)[b * n_stars + s] : T(0);
-    g6[5] = valid ? static_cast<const T*>(ga.g_deriv)[b * n_stars + s] : T(0);
-    T gsp[5] = {T(0), T(0), T(0), T(0), T(0)};
-    T g_dmod = T(0);
-    if (n_obs > 0) {
-      T bcv[kMaxBands], g_bc[kMaxBands], gbx[4];
-      const T bx[4] = {v6[s][0], v6[s][1], v6[s][2], spar(s, a.io[4])};
-      interp_group<T, 4, 1, kMaxBands>(bc, a.bc_ax, bx, a.bc_ncols, a.band_cols, nb, 0, bcv);
-      const T dist_mod = T(5) * d_log10(spar(s, a.io[3]) / T(10));
-      for (int k = 0; k < nb; ++k) {
-        const T m = v6[s][3] + dist_mod - bcv[k];
-        const T f = d_pow(T(10), T(-0.4) * m);
-        T gf = T(0);
-        if (finite_t(m)) {  // a non-finite magnitude's flux passes no gradient
-          for (int o = 0; o < n_obs; ++o) {
-            const unsigned d = obs_desc[o];
-            if ((int)(d & 15u) == k && ((d >> (16 + s)) & 1u)) gf += rowsum[o];
-          }
-        }
-        const T gm = gf != T(0) ? gf * f * T(-0.4 * kLn10) : T(0);
-        g_dmod += gm;
-        g_bc[k] = -gm;
-      }
-      g6[3] = g_dmod;
-      interp_vjp<T, 4, kMaxBands>(bc, a.bc_ax, bx, a.bc_ncols, a.band_cols, nb, g_bc, bcv, gbx);
-      for (int k = 0; k < 3; ++k) g6[k] += gbx[k];
-      gsp[a.io[4]] += gbx[3];
-    }
-    if (dens_table != nullptr) {
-      T dv[1], gdx[3];
-      interp_vjp<T, 3, 1>(dens_table, a.model_ax, gx, a.dens_row_len, &a.dens_col, 1, &gprop[s][3], dv, gdx);
-      for (int k = 0; k < 3; ++k) gsp[a.io[k]] += gdx[k];
-    }
-    T vals[kPackCols], ggx[3];
-    interp_vjp<T, 3, kPackCols>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, g6, vals, ggx);
-    for (int k = 0; k < 3; ++k) gsp[a.io[k]] += ggx[k];
-    if (g_dmod != T(0)) gsp[a.io[3]] += g_dmod * (T(5) / (spar(s, a.io[3]) * T(kLn10)));
-    if (valid) {
-      for (int j = 0; j < 5; ++j) out[a.star_par[s][j]] += gsp[j];
-    }
-  }
-}
-
-template <typename T>
-int launch_grad(const TreeArgs* args, const TreeGradArgs* grad, void* stream) {
-  const TreeArgs& a = *args;
-  if (a.B < 0 || a.P < 5 || a.n_stars < 1 || a.n_stars > kMaxStars || a.n_obs < 0 || a.n_obs > kMaxObs ||
-      a.n_bands < 0 || a.n_bands > kMaxBands || a.n_spec < 0 || a.n_spec > kMaxProps || a.n_lim < 0 ||
-      a.n_lim > kMaxProps || a.n_plax < 0 || a.n_plax > kMaxStars || a.n_av < 0 || a.n_av > kMaxStars ||
-      a.plan_bytes < 0 || (a.plan_bytes & 15) != 0 || a.plan_bytes > kStaticShared)
-    return (int)cudaErrorInvalidValue;
-  if (a.B == 0) return 0;
-  const long long blocks = (a.B + kThreads - 1) / kThreads;
-  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  tree_lnlike_grad_kernel<T><<<(unsigned)blocks, kThreads, (size_t)a.plan_bytes, static_cast<cudaStream_t>(stream)>>>(
-      a, *grad);
-  return (int)cudaGetLastError();
-}
-
 // log2 of the star groups per team: n_stars rounded up to a power of two
 int team_shift(int n_stars) {
   int shift = 0;
@@ -574,6 +331,501 @@ void launch_geometry(long long B, int n_stars, int& np_shift, int& lanes) {
         np_shift = shift;
       }
     }
+  }
+}
+
+// ---- the backward kernel (C'): d ll, orig_val, deriv / d pars
+//
+// Replaces XLA's reverse-mode of the tree posterior (the likelihood of
+// isochrones_tpu/observation.py:1269-1361 and the prior's lerped columns,
+// isochrones_tpu/treemodel.py:370-406), which NUTS takes through
+// jax.value_and_grad. Given the cotangents g_ll (B,), g_orig (B, n_stars) and
+// g_deriv (B, n_stars), it writes g_pars (B, P): the gradient that
+// torch.autograd takes through the plain version (ops/tree.py), whose rule it
+// keeps: a non-finite output passes no gradient (a row whose ll is not finite
+// passes none of g_ll, a NaN orig_val or deriv none of its cotangent; a NaN
+// flux and an inactive row pass none).
+//
+// What bounds it on the H100: as the forward, the latency of dependent
+// gathers, made twice (the forward's values, then the lerps' vector-Jacobian
+// products), not bytes or arithmetic (the bound is 0.00015 ms at the nested
+// fit's 1024 points). A NUTS leaf launches it at 4 to 8 points, so its time
+// there is one point's chain of dependent steps. The first design ran
+// one lane a point: the lane recomputed the forward star by star into arrays
+// sized by the caps, in local memory (3760 bytes of stack in float64), then
+// per star recomputed the BC lerp and fluxes and, inside each lerp's VJP, the
+// lerp's values again; 0.1658 ms at 1024 points, 0.4541 ms at 131072,
+// against the forward's 0.011 and 0.119 (chip_smoke.py, NVIDIA H100 80GB
+// HBM3, 700.00 W).
+//
+// The design against that takes the forward's team geometry (launch_geometry,
+// one rule for both kernels):
+// * A team of NP * G lanes a point, a group of G lanes a star, the stars'
+//   groups side by side; at large batches the team shrinks as the forward's
+//   and a group takes its stars in turn.
+// * Pass 1 is the forward's star step: a group lerps its star's pack columns,
+//   density and bands (interp_group, the corners shared out over the group)
+//   and keeps the pack columns, the density, each band's magnitude and flux
+//   in the team's shared scratch (grad_scratch, sized by the plan, not by the
+//   caps).
+// * The rows go to the team's lanes (rows j, j + team, ...): the flux sums
+//   and magnitudes, the ll and its -inf flags (a shuffle sum and a ballot
+//   over the team, as the forward), each active row's Gaussian cotangent,
+//   each row's magnitude cotangent (gathered from the rows relative to it, in
+//   row order: no scatter) taken onto its flux sum, and each (star, band)'s
+//   flux cotangent taken onto the star's magnitude.
+// * Pass 2 recomputes no value: a group reads its star's values from the
+//   scratch and takes the cotangents through the BC lerp, the density and
+//   the model lerp by group_vjp (the corners shared out over the group, the
+//   products summed by a group shuffle; a column whose value is NaN gets no
+//   cotangent), then keeps the star's five partials in the scratch.
+// * The team's lanes share out the gradient's columns: each column sums the
+//   parallax and AV terms, then the stars' partials, in the first design's
+//   order, and one lane writes it into the point's row of g_pars.
+// * No atomics: every sum is taken in an order that the launch geometry
+//   fixes. Every shuffle, vote and barrier is reached by all lanes: padded
+//   stars and teams past the batch run a NaN point and write nothing.
+// * A block holds 128 lanes where its teams' scratch fits in shared memory,
+//   else 64 or 32 (plans near the caps, one lane a point).
+// Caps, as the forward's: kMaxStars stars, kMaxObs observation rows,
+// kMaxBands bands, kMaxProps spectroscopy rows and as many limits.
+
+struct TreeGradArgs {
+  const void* g_ll;     // (B,)
+  const void* g_orig;   // (B, n_stars)
+  const void* g_deriv;  // (B, n_stars)
+  void* g_pars;         // (B, P)
+};
+
+constexpr double kLn10 = 2.302585092994045684;
+
+// values of the grids' dtype that a team of the backward keeps in shared
+// memory: per star its 6 pack columns, density, 5 partials, and each band's
+// magnitude and flux (the flux later replaced by the magnitude's cotangent);
+// per row its flux sum (later that sum's cotangent), its magnitude and its
+// Gaussian term's cotangent
+__host__ __device__ __forceinline__ int grad_star_len(int n_bands) { return 12 + 2 * n_bands; }
+
+__host__ __device__ __forceinline__ int grad_scratch(int n_stars, int n_bands, int n_obs) {
+  return n_stars * grad_star_len(n_bands) + 3 * n_obs;
+}
+
+// v[i] += x for the i that equals the runtime index k (no local memory)
+template <typename T, int N>
+__device__ __forceinline__ void add_at(T* v, int k, T x) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (i == k) v[i] += x;
+}
+
+// The vector-Jacobian product of a multilinear lerp by the G lanes of a
+// group: interp_common.cuh::interp_vjp's rule with the corners shared out as
+// interp_group's (lane l takes corners l, l + G, ...; VEC as there). gx[d] =
+// the sum over the columns c with g[c] != 0 of g[c] * d out[c] / d x[d]. The
+// caller, which holds the values from its forward pass, zeroes g[c] where
+// out[c] is NaN, so the corners are read for the products alone. A NaN or
+// out-of-bounds point gets 0. Every lane of the warp calls it (the cell
+// searches vote, the sums shuffle), and every lane of the group gets the
+// sums.
+template <typename T, int NDIM, int G, int NC, int VEC = 0>
+__device__ void group_vjp(const T* __restrict__ table, const Axis* axes, const T* x, int row_len, const int* cols,
+                          int ncols, int l, const T* g, T* gx) {
+  AxisReads<T> reads[NDIM];
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) locate_reads<T, G>(axes[d], x[d], l, reads[d]);
+  bool bad = false;
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) bad = bad || isnan(x[d]) || x[d] < reads[d].first || x[d] > reads[d].last;
+  long long cell[NDIM];
+  T t[NDIM], den[NDIM], gt[NDIM];
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) locate_finish<T, G>(axes[d], x[d], bad, l, reads[d], cell[d], t[d], &den[d]);
+  long long stride[NDIM];
+  stride[NDIM - 1] = 1;
+#pragma unroll
+  for (int d = NDIM - 2; d >= 0; --d) stride[d] = stride[d + 1] * axes[d + 1].n;
+  bool any = false;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (c == ncols) break;
+    any = any || g[c] != T(0);
+  }
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) gt[d] = T(0);
+  auto corner = [&](int i) {
+    long long r = 0;
+#pragma unroll
+    for (int d = 0; d < NDIM; ++d) r += clampll(cell[d] + ((i >> (NDIM - 1 - d)) & 1), 0, axes[d].n - 1) * stride[d];
+    const T* row = table + r * row_len;
+    T s = T(0);
+    if constexpr (VEC > 0) {
+      static_assert(NC % VEC == 0 && VEC == 2, "whole pairs");
+      const typename Vec<T, VEC>::type* rv = reinterpret_cast<const typename Vec<T, VEC>::type*>(row);
+#pragma unroll
+      for (int c = 0; c < NC / VEC; ++c) {
+        if (c * VEC >= ncols) break;
+        const typename Vec<T, VEC>::type w = __ldg(rv + c);
+        if (g[2 * c] != T(0)) s += g[2 * c] * w.x;
+        if (g[2 * c + 1] != T(0)) s += g[2 * c + 1] * w.y;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (c == ncols) break;
+        if (g[c] != T(0)) s += g[c] * __ldg(row + (cols ? cols[c] : c));
+      }
+    }
+    // d w_i / d t_d: the product of the other axes' factors, with the sign of the corner's side
+#pragma unroll
+    for (int d = 0; d < NDIM; ++d) {
+      T w = T(1);
+#pragma unroll
+      for (int e = 0; e < NDIM; ++e) {
+        if (e == d) continue;
+        w = w * (((i >> (NDIM - 1 - e)) & 1) ? t[e] : T(1) - t[e]);
+      }
+      const T sw = s * w;
+      gt[d] += ((i >> (NDIM - 1 - d)) & 1) ? sw : -sw;
+    }
+  };
+  if (!bad && any) {
+    if constexpr (G == 1) {
+#pragma unroll
+      for (int i = 0; i < (1 << NDIM); ++i) corner(i);
+    } else {
+      for (int i = l; i < (1 << NDIM); i += G) corner(i);
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) {
+    const T sum = group_sum<G>(gt[d]);  // every lane shuffles, bad or not
+    gx[d] = bad ? T(0) : lerp_slope(sum, den[d]);
+  }
+}
+
+// teams of G << np_shift lanes, as tree_lnlike_kernel's; blockDim.x is 128,
+// 64 or 32 (launch_grad_g)
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+    tree_lnlike_grad_kernel(const __grid_constant__ TreeArgs a, const __grid_constant__ TreeGradArgs ga, int np_shift) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  {
+    const char* src = static_cast<const char*>(a.plan);
+    for (int i = threadIdx.x; i < (a.plan_bytes >> 4); i += blockDim.x)
+      __pipeline_memcpy_async(smem + 16 * i, src + 16 * i, 16);
+    __pipeline_commit();
+  }
+  const int n_stars = a.n_stars, n_obs = a.n_obs, nb = a.n_bands;
+  const int team = G << np_shift;
+  const unsigned tshift = __ffs(team) - 1;
+  const unsigned tid = blockIdx.x * blockDim.x + threadIdx.x;  // the launch keeps B * team < 2^31
+  const long long b = tid >> tshift;
+  const int j = (int)(tid & (team - 1));  // lane of the team
+  const int sg = j / G;                   // star group
+  const int l = j % G;                    // lane of the group
+  const bool valid = b < a.B;
+  const T* p = static_cast<const T*>(a.pars) + (valid ? b : a.B - 1) * a.P;
+  const T* model = static_cast<const T*>(a.model);
+  const T* dens_table = static_cast<const T*>(a.dens_table);
+  const T* bc = static_cast<const T*>(a.bc);
+  const int star_len = grad_star_len(nb);
+  T* scratch = reinterpret_cast<T*>(smem + a.plan_bytes) + (threadIdx.x >> tshift) * grad_scratch(n_stars, nb, n_obs);
+  // star s: pack columns [0, 6), density 6, partials [7, 12), magnitudes [12, 12 + nb), fluxes after them
+  auto star_sm = [&](int s) { return scratch + s * star_len; };
+  T* rowsum_sm = scratch + n_stars * star_len;  // [n_obs]: flux sums, then their cotangents
+  T* mag_sm = rowsum_sm + n_obs;               // [n_obs]
+  T* rcot_sm = mag_sm + n_obs;                 // [n_obs]: the Gaussian terms' cotangents
+
+  const int groups = 1 << np_shift;
+  const int padded_stars = (n_stars + groups - 1) & ~(groups - 1);
+  // star s's 5 parameters (eep, age, feh, distance, AV); an idle group's EEP is NaN: no table reads
+  auto star_pars = [&](int s, bool active, T* sp) {
+    const short* idx = a.star_par[active ? s : 0];
+    sp[0] = active ? p[idx[0]] : T(NAN);
+#pragma unroll
+    for (int i = 1; i < 5; ++i) sp[i] = p[idx[i]];
+  };
+  auto pick = [](const T* sp, int i) { return i == 0 ? sp[0] : i == 1 ? sp[1] : i == 2 ? sp[2] : i == 3 ? sp[3] : sp[4]; };
+
+  // pass 1: the forward's star step, into the scratch
+  for (int s = sg; s < padded_stars; s += groups) {
+    const bool active = valid && s < n_stars;
+    T sp[5];
+    star_pars(s, active, sp);
+    const T gx[3] = {pick(sp, a.io[0]), pick(sp, a.io[1]), pick(sp, a.io[2])};
+    T v[kPackCols];
+    interp_group<T, 3, G, kPackCols, 2>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, l, v);
+    T dens = T(0);
+    if (dens_table != nullptr) {
+      T d[1];
+      interp_group<T, 3, G, 1>(dens_table, a.model_ax, gx, a.dens_row_len, &a.dens_col, 1, l, d);
+      dens = d[0];
+    }
+    T* st = star_sm(s < n_stars ? s : 0);
+    const bool writer = l == 0 && s < n_stars;
+    if (writer) {
+#pragma unroll
+      for (int c = 0; c < kPackCols; ++c) st[c] = v[c];
+      st[6] = dens;
+    }
+    if (n_obs > 0) {
+      T bcv[kMaxBands];
+      const T bx[4] = {v[0], v[1], v[2], pick(sp, a.io[4])};
+      interp_group<T, 4, G, kMaxBands>(bc, a.bc_ax, bx, a.bc_ncols, a.band_cols, nb, l, bcv);
+      const T dist_mod = T(5) * d_log10(pick(sp, a.io[3]) / T(10));
+      if (writer) {
+#pragma unroll
+        for (int k = 0; k < kMaxBands; ++k) {
+          if (k == nb) break;
+          const T m = v[3] + dist_mod - bcv[k];
+          st[12 + k] = m;
+          st[12 + nb + k] = d_pow(T(10), T(-0.4) * m);
+        }
+      }
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();  // the plan and every team's stars are in shared memory
+
+  const T* obs_val = reinterpret_cast<const T*>(smem);
+  const T* obs_unc = obs_val + n_obs;
+  const T* spec_val = obs_unc + n_obs;
+  const T* spec_unc = spec_val + a.n_spec;
+  const T* lim_lo = spec_unc + a.n_spec;
+  const T* lim_hi = lim_lo + a.n_lim;
+  const T* plax_val = lim_hi + a.n_lim;
+  const T* plax_unc = plax_val + a.n_plax;
+  const T* av_val = plax_unc + a.n_plax;
+  const T* av_unc = av_val + a.n_av;
+  const unsigned* obs_desc = reinterpret_cast<const unsigned*>(av_unc + a.n_av);
+  const unsigned* spec_desc = obs_desc + n_obs;
+  const unsigned* lim_desc = spec_desc + a.n_spec;
+  const unsigned* plax_idx = lim_desc + a.n_lim;
+  const unsigned* av_idx = plax_idx + a.n_plax;
+
+  // the rows' flux sums in star order (0 * inf kept) and magnitudes (NaN for a row that holds an off-grid star)
+  for (int o = j; o < n_obs; o += team) {
+    const unsigned d = obs_desc[o];
+    const int band = d & 15u;
+    const unsigned member = d >> 16;
+    T sum = T(0);
+    bool off_grid = false;
+    for (int t = 0; t < n_stars; ++t) {
+      const T f = star_sm(t)[12 + nb + band];
+      const bool f_nan = isnan(f);
+      const bool m = (member >> t) & 1u;
+      sum += (f_nan ? T(0) : f) * (m ? T(1) : T(0));
+      off_grid = off_grid || (f_nan && m);
+    }
+    rowsum_sm[o] = sum;
+    mag_sm[o] = off_grid ? T(NAN) : T(-2.5) * d_log10(sum);
+  }
+  __syncwarp();
+
+  // ll and its -inf flags, as the forward, for the rule on g_ll
+  T ll = T(0);
+  bool bad = false;
+  for (int o = j; o < n_obs; o += team) {
+    const unsigned d = obs_desc[o];
+    if (((d >> 11) & 1u) == 0) continue;
+    const int ref = (int)((d >> 4) & 127u) - 1;
+    const T mo = mag_sm[o];
+    const T mr = ref >= 0 ? mag_sm[ref] : T(0);
+    const T val = ref >= 0 ? obs_val[o] - obs_val[ref] : obs_val[o];
+    ll += tree_gauss<T>(val, obs_unc[o], ref >= 0 ? mo - mr : mo);
+    if (!finite_t(mo) || !finite_t(mr)) bad = true;
+  }
+  for (int r = j; r < a.n_spec; r += team) {
+    const unsigned d = spec_desc[r];
+    const T* st = star_sm(d & 255u);
+    const T mod = (d >> 8) == 3u ? st[6] : st[d >> 8];
+    ll += tree_gauss<T>(spec_val[r], spec_unc[r], mod);
+    if (!finite_t(mod)) bad = true;
+  }
+  for (int r = j; r < a.n_lim; r += team) {
+    const unsigned d = lim_desc[r];
+    const T* st = star_sm(d & 255u);
+    const T mod = (d >> 8) == 3u ? st[6] : st[d >> 8];
+    if (mod < lim_lo[r] || mod > lim_hi[r] || !finite_t(mod)) bad = true;
+  }
+  for (int r = j; r < a.n_plax; r += team) ll += tree_gauss<T>(plax_val[r], plax_unc[r], T(1000) / p[plax_idx[r]]);
+  for (int r = j; r < a.n_av; r += team) ll += tree_gauss<T>(av_val[r], av_unc[r], p[av_idx[r]]);
+  for (int off = team >> 1; off > 0; off >>= 1) ll += __shfl_xor_sync(kFull, ll, off);
+  const unsigned votes = __ballot_sync(kFull, bad);
+  const unsigned mine = (team == 32 ? kFull : (1u << team) - 1u) << ((threadIdx.x & 31u) & ~(unsigned)(team - 1));
+  const T gl = valid && (votes & mine) == 0u && finite_t(ll) ? static_cast<const T*>(ga.g_ll)[b] : T(0);
+
+  // each active row's Gaussian cotangent (with gl != 0 every active row and its reference are finite)
+  for (int o = j; o < n_obs; o += team) {
+    const unsigned d = obs_desc[o];
+    T r = T(0);
+    if (gl != T(0) && ((d >> 11) & 1u)) {
+      const int ref = (int)((d >> 4) & 127u) - 1;
+      const T mod = ref >= 0 ? mag_sm[o] - mag_sm[ref] : mag_sm[o];
+      const T val = ref >= 0 ? obs_val[o] - obs_val[ref] : obs_val[o];
+      r = gl * (val - mod) / (obs_unc[o] * obs_unc[o]);
+    }
+    rcot_sm[o] = r;
+  }
+  __syncwarp();
+  // each row's magnitude cotangent (its own term, minus those of the active
+  // rows relative to it, in row order), taken onto its flux sum
+  for (int o = j; o < n_obs; o += team) {
+    T g = T(0);
+    for (int o2 = 0; o2 < n_obs; ++o2) {
+      const unsigned d = obs_desc[o2];
+      if (o2 == o) g += rcot_sm[o2];
+      if (((d >> 11) & 1u) && (int)((d >> 4) & 127u) - 1 == o) g -= rcot_sm[o2];
+    }
+    rowsum_sm[o] = g != T(0) ? g * T(-2.5) / (rowsum_sm[o] * T(kLn10)) : T(0);
+  }
+  __syncwarp();
+  // each (star, band)'s flux cotangent taken onto the star's magnitude; a
+  // non-finite magnitude's flux passes none
+  for (int q = j; q < n_stars * nb; q += team) {
+    const int s = q / nb, k = q - (q / nb) * nb;
+    T* st = star_sm(s);
+    T gf = T(0);
+    if (finite_t(st[12 + k])) {
+      for (int o = 0; o < n_obs; ++o) {
+        const unsigned d = obs_desc[o];
+        if ((int)(d & 15u) == k && ((d >> (16 + s)) & 1u)) gf += rowsum_sm[o];
+      }
+    }
+    st[12 + nb + k] = gf != T(0) ? gf * st[12 + nb + k] * T(-0.4 * kLn10) : T(0);
+  }
+  __syncwarp();
+
+  // pass 2: per star, the cotangents through the BC lerp, the density and the model lerp, from the scratch's values
+  for (int s = sg; s < padded_stars; s += groups) {
+    const bool active = valid && s < n_stars;
+    T sp[5];
+    star_pars(s, active, sp);
+    const T gx[3] = {pick(sp, a.io[0]), pick(sp, a.io[1]), pick(sp, a.io[2])};
+    T* st = star_sm(s < n_stars ? s : 0);
+    T v[kPackCols];
+#pragma unroll
+    for (int c = 0; c < kPackCols; ++c) v[c] = active ? st[c] : T(NAN);
+    const T dens = active ? st[6] : T(NAN);
+    // the spectroscopy terms onto the star's properties
+    T gp[4] = {T(0), T(0), T(0), T(0)};
+    if (gl != T(0)) {
+      for (int r = 0; r < a.n_spec; ++r) {
+        const unsigned d = spec_desc[r];
+        if ((int)(d & 255u) != s) continue;
+        const int q = (int)(d >> 8);
+        const T mod = q == 3 ? dens : q == 0 ? v[0] : q == 1 ? v[1] : v[2];
+        add_at<T, 4>(gp, q, gl * (spec_val[r] - mod) / (spec_unc[r] * spec_unc[r]));
+      }
+    }
+    T g6[kPackCols] = {gp[0], gp[1], gp[2], T(0), T(0), T(0)};
+    g6[4] = active ? static_cast<const T*>(ga.g_orig)[b * n_stars + s] : T(0);
+    g6[5] = active ? static_cast<const T*>(ga.g_deriv)[b * n_stars + s] : T(0);
+    T gsp[5] = {T(0), T(0), T(0), T(0), T(0)};
+    T g_dmod = T(0);
+    if (n_obs > 0) {
+      // a NaN BC value has a NaN magnitude, whose cotangent is 0
+      T g_bc[kMaxBands], gbx[4];
+#pragma unroll
+      for (int k = 0; k < kMaxBands; ++k) {
+        if (k == nb) break;
+        const T gm = active ? st[12 + nb + k] : T(0);
+        g_dmod += gm;
+        g_bc[k] = -gm;
+      }
+      g6[3] = g_dmod;
+      const T bx[4] = {v[0], v[1], v[2], pick(sp, a.io[4])};
+      group_vjp<T, 4, G, kMaxBands>(bc, a.bc_ax, bx, a.bc_ncols, a.band_cols, nb, l, g_bc, gbx);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) g6[k] += gbx[k];
+      add_at<T, 5>(gsp, a.io[4], gbx[3]);
+    }
+    if (dens_table != nullptr) {
+      const T gd[1] = {isnan(dens) ? T(0) : gp[3]};
+      T gdx[3];
+      group_vjp<T, 3, G, 1>(dens_table, a.model_ax, gx, a.dens_row_len, &a.dens_col, 1, l, gd, gdx);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) add_at<T, 5>(gsp, a.io[k], gdx[k]);
+    }
+#pragma unroll
+    for (int c = 0; c < kPackCols; ++c) g6[c] = isnan(v[c]) ? T(0) : g6[c];
+    T ggx[3];
+    group_vjp<T, 3, G, kPackCols, 2>(model, a.model_ax, gx, kPackCols, nullptr, kPackCols, l, g6, ggx);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) add_at<T, 5>(gsp, a.io[k], ggx[k]);
+    if (g_dmod != T(0)) add_at<T, 5>(gsp, a.io[3], g_dmod * (T(5) / (pick(sp, a.io[3]) * T(kLn10))));
+    if (l == 0 && s < n_stars) {
+#pragma unroll
+      for (int k = 0; k < 5; ++k) st[7 + k] = gsp[k];
+    }
+  }
+  __syncwarp();
+
+  // the gradient's columns, shared out over the team: the parallax and AV
+  // terms, then the stars' partials, each column written by one lane
+  if (!valid) return;
+  T* out = static_cast<T*>(ga.g_pars) + b * a.P;
+  for (int col = j; col < a.P; col += team) {
+    T acc = T(0);
+    if (gl != T(0)) {
+      for (int r = 0; r < a.n_plax; ++r) {
+        if ((int)plax_idx[r] != col) continue;
+        const T dd = p[col];
+        acc += gl * (plax_val[r] - T(1000) / dd) / (plax_unc[r] * plax_unc[r]) * (T(-1000) / (dd * dd));
+      }
+      for (int r = 0; r < a.n_av; ++r) {
+        if ((int)av_idx[r] != col) continue;
+        acc += gl * (av_val[r] - p[col]) / (av_unc[r] * av_unc[r]);
+      }
+    }
+    for (int s = 0; s < n_stars; ++s)
+      for (int k = 0; k < 5; ++k)
+        if (a.star_par[s][k] == col) acc += star_sm(s)[7 + k];
+    out[col] = acc;
+  }
+}
+
+template <typename T, int G>
+cudaError_t launch_grad_g(const TreeArgs& a, const TreeGradArgs& ga, int np_shift, cudaStream_t st) {
+  const int team = G << np_shift;
+  const long long threads = a.B * team;
+  if (threads >= (1LL << 31)) return cudaErrorInvalidValue;
+  // 128 lanes a block where the teams' scratch fits, else 64 or 32
+  const long long per_team = (long long)grad_scratch(a.n_stars, a.n_bands, a.n_obs) * sizeof(T);
+  int block = kThreads;
+  while (block > 32 && a.plan_bytes + (block / team) * per_team > kMaxShared) block >>= 1;
+  const long long shared = a.plan_bytes + (long long)(block / team) * per_team;
+  if (shared > kMaxShared) return cudaErrorInvalidValue;
+  if (shared > kStaticShared) {
+    const cudaError_t err = cudaFuncSetAttribute(tree_lnlike_grad_kernel<T, G>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (err != cudaSuccess) return err;
+  }
+  const long long blocks = (threads + block - 1) / block;
+  tree_lnlike_grad_kernel<T, G><<<(unsigned)blocks, block, (size_t)shared, st>>>(a, ga, np_shift);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_grad(const TreeArgs* args, const TreeGradArgs* grad, void* stream) {
+  const TreeArgs& a = *args;
+  if (a.B < 0 || a.P < 5 || a.n_stars < 1 || a.n_stars > kMaxStars || a.n_obs < 0 || a.n_obs > kMaxObs ||
+      a.n_bands < 0 || a.n_bands > kMaxBands || a.n_spec < 0 || a.n_spec > kMaxProps || a.n_lim < 0 ||
+      a.n_lim > kMaxProps || a.n_plax < 0 || a.n_plax > kMaxStars || a.n_av < 0 || a.n_av > kMaxStars ||
+      a.plan_bytes < 0 || (a.plan_bytes & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n_rows = (long long)a.n_obs + a.n_spec + a.n_lim + a.n_plax + a.n_av;
+  if (a.plan_bytes < (long long)(2 * sizeof(T) + sizeof(unsigned)) * n_rows) return (int)cudaErrorInvalidValue;
+  if (a.B == 0) return 0;
+  int ns, lanes;
+  launch_geometry(a.B, a.n_stars, ns, lanes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 16: return (int)launch_grad_g<T, 16>(a, *grad, ns, st);
+    case 8: return (int)launch_grad_g<T, 8>(a, *grad, ns, st);
+    case 4: return (int)launch_grad_g<T, 4>(a, *grad, ns, st);
+    case 2: return (int)launch_grad_g<T, 2>(a, *grad, ns, st);
+    default: return (int)launch_grad_g<T, 1>(a, *grad, ns, st);
   }
 }
 
@@ -620,7 +872,23 @@ int launch(const TreeArgs* args, void* stream) {
 
 }  // namespace
 
+// `args` points to a TreeArgs and `grad` to a TreeGradArgs (the cotangents
+// and the gradient's output); they are passed as void* because a parameter of
+// a type from the unnamed namespace would give these functions internal
+// linkage
 extern "C" {
+
+#ifdef TREE_F64_UNIT
+
+int tree_lnlike_f64(const void* args, void* stream) {
+  return launch<double>(static_cast<const TreeArgs*>(args), stream);
+}
+
+int tree_lnlike_grad_f64(const void* args, const void* grad, void* stream) {
+  return launch_grad<double>(static_cast<const TreeArgs*>(args), static_cast<const TreeGradArgs*>(grad), stream);
+}
+
+#else
 
 int tree_lnlike_max_bands() { return kMaxBands; }
 
@@ -642,25 +910,16 @@ void tree_lnlike_geometry(long long B, int n_stars, int* groups, int* lanes) {
 
 const char* tree_lnlike_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// `args` points to a TreeArgs; it is passed as void* because a parameter of a
-// type from the unnamed namespace would give these functions internal linkage
 int tree_lnlike_f32(const void* args, void* stream) {
   return launch<float>(static_cast<const TreeArgs*>(args), stream);
 }
 
-int tree_lnlike_f64(const void* args, void* stream) {
-  return launch<double>(static_cast<const TreeArgs*>(args), stream);
-}
-
 int tree_lnlike_grad_args_size() { return (int)sizeof(TreeGradArgs); }
 
-// `grad` points to a TreeGradArgs: the cotangents and the gradient's output
 int tree_lnlike_grad_f32(const void* args, const void* grad, void* stream) {
   return launch_grad<float>(static_cast<const TreeArgs*>(args), static_cast<const TreeGradArgs*>(grad), stream);
 }
 
-int tree_lnlike_grad_f64(const void* args, const void* grad, void* stream) {
-  return launch_grad<double>(static_cast<const TreeArgs*>(args), static_cast<const TreeGradArgs*>(grad), stream);
-}
+#endif
 
 }  // extern "C"

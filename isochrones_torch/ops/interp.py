@@ -303,14 +303,19 @@ def interp_nd(
     points: torch.Tensor,
     icols: Optional[Tuple[int, ...]] = None,
     axis_maps: Optional[Tuple] = None,
+    planar: bool = False,
 ) -> torch.Tensor:
     """:func:`interp_nd_plain`'s function: CPU points take it, CUDA points
-    kernel B (and B' for their gradient), any other device raises."""
+    kernel B (and B' for their gradient), any other device raises. With
+    ``planar`` kernel B reads a column-planar copy of the wanted columns,
+    which it builds once per table and column tuple
+    (:func:`~isochrones_torch.ops.interp_cuda.planar_columns`): for calls
+    whose neighbouring points fall in neighbouring cells. The CPU ignores it."""
     kind = points.device.type
     if kind == "cuda":
         from .interp_cuda import interp_nd_cuda
 
-        return interp_nd_cuda(values, knots, points, icols=icols, axis_maps=axis_maps)
+        return interp_nd_cuda(values, knots, points, icols=icols, axis_maps=axis_maps, planar=planar)
     if kind == "cpu":
         return interp_nd_plain(values, knots, points, icols=icols, axis_maps=axis_maps)
     raise ValueError(f"interp_nd runs on cpu or cuda tensors, got {kind}")

@@ -8,10 +8,14 @@ the card and how the design answers that. The plain version it replaces is
 :func:`isochrones_torch.ops.interp.interp_nd_plain`.
 
 The wrapper describes the table in one by-value argument struct (axis kinds
-and constants, knot pointers, the wanted columns) and launches one lane a
-point. Where autograd records a call, :func:`interp_nd_cuda` goes through
-:class:`InterpNd`, whose backward is kernel B'; each wrapper counts its own
-launches.
+and constants, knot pointers, each wanted column's offset within a row) and
+launches one lane a point. It reads the row layout, or, where the caller asks
+for it, a column-planar copy of the wanted columns that it builds once per
+table and column tuple (:func:`planar_columns`); both are launches of the
+same kernel and count alike. :func:`launch_choice` picks the kernel's
+column instance and offset width. Where autograd records a call,
+:func:`interp_nd_cuda` goes through :class:`InterpNd`, whose backward is
+kernel B'; each wrapper counts its own launches.
 """
 
 from __future__ import annotations
@@ -21,15 +25,22 @@ import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.utils.weak
 
 from ._build import load_library
 from ._grad import refuse_grad
 
-__all__ = ["interp_nd_cuda", "interp_nd_grad_cuda", "InterpNd", "MAX_DIM", "MAX_COLS"]
+__all__ = ["interp_nd_cuda", "interp_nd_grad_cuda", "InterpNd", "launch_choice", "planar_columns", "MAX_DIM",
+           "MAX_COLS", "EXACT_COLS", "EXACT_MAX_DIM", "CHUNK", "WIDE_ELEMENTS"]
 
 #: the kernels' caps on the grid's axes and on the columns of one call
 MAX_DIM = 6
 MAX_COLS = 128
+#: kernel B's column instances: exactly 1 to EXACT_COLS columns on grids of at
+#: most EXACT_MAX_DIM axes, chunks of CHUNK columns otherwise
+EXACT_COLS, EXACT_MAX_DIM, CHUNK = 4, 4, 8
+#: tables of this many elements or more take 64-bit offsets
+WIDE_ELEMENTS = 1 << 31
 #: axis-map kind -> the kernel's AxisKind (None: searchsorted)
 _KINDS = {None: 0, "exact_affine": 1, "affine": 2, "log": 3, "compare": 4}
 
@@ -44,8 +55,9 @@ class _InterpArgs(ctypes.Structure):
 
     _fields_ = [
         ("points", ctypes.c_void_p), ("table", ctypes.c_void_p), ("grad_out", ctypes.c_void_p),
-        ("out", ctypes.c_void_p), ("P", ctypes.c_longlong), ("ndim", ctypes.c_int), ("ncols", ctypes.c_int),
-        ("row_len", ctypes.c_int), ("pad", ctypes.c_int), ("axes", _Axis * MAX_DIM), ("cols", ctypes.c_int * MAX_COLS),
+        ("out", ctypes.c_void_p), ("P", ctypes.c_longlong), ("table_len", ctypes.c_longlong), ("ndim", ctypes.c_int),
+        ("ncols", ctypes.c_int), ("row_len", ctypes.c_int), ("nc_inst", ctypes.c_int), ("wide", ctypes.c_int),
+        ("pad", ctypes.c_int), ("axes", _Axis * MAX_DIM), ("cols", ctypes.c_int * MAX_COLS),
     ]
 
 
@@ -57,22 +69,56 @@ def _lib():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(_InterpArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for name in ("interp_nd_args_size", "interp_nd_max_dim", "interp_nd_max_cols"):
+    for name in ("interp_nd_args_size", "interp_nd_max_dim", "interp_nd_max_cols", "interp_nd_exact_cols",
+                 "interp_nd_exact_max_dim", "interp_nd_chunk"):
         getattr(lib, name).restype = ctypes.c_int
     lib.interp_nd_error_string.argtypes = [ctypes.c_int]
     lib.interp_nd_error_string.restype = ctypes.c_char_p
     if lib.interp_nd_args_size() != ctypes.sizeof(_InterpArgs):
         raise RuntimeError(f"InterpArgs layout differs: C {lib.interp_nd_args_size()} bytes, "
                            f"ctypes {ctypes.sizeof(_InterpArgs)}")
-    if lib.interp_nd_max_dim() != MAX_DIM or lib.interp_nd_max_cols() != MAX_COLS:
-        raise RuntimeError("interp_nd kernel caps differ from the wrapper's")
+    if (lib.interp_nd_max_dim(), lib.interp_nd_max_cols(), lib.interp_nd_exact_cols(), lib.interp_nd_exact_max_dim(),
+            lib.interp_nd_chunk()) != (MAX_DIM, MAX_COLS, EXACT_COLS, EXACT_MAX_DIM, CHUNK):
+        raise RuntimeError("interp_nd kernel caps or column instances differ from the wrapper's")
     return lib
 
 
-def _args(values, knots, points, icols, axis_maps, name) -> Tuple[_InterpArgs, torch.Tensor, torch.Tensor]:
+def launch_choice(table_len: int, ncols: int, ndim: int) -> Tuple[int, bool]:
+    """``(column instance, wide)`` for a call on a table of ``table_len``
+    elements: 64-bit offsets from :data:`WIDE_ELEMENTS` elements on, the
+    exact instance of ``ncols`` columns where there is one (32-bit offsets,
+    1 to :data:`EXACT_COLS` columns, at most :data:`EXACT_MAX_DIM` axes),
+    else chunks of :data:`CHUNK` columns."""
+    wide = table_len >= WIDE_ELEMENTS
+    exact = not wide and 1 <= ncols <= EXACT_COLS and ndim <= EXACT_MAX_DIM
+    return (ncols if exact else CHUNK), wide
+
+
+#: column-planar copies by table (weakly: a copy lives as long as its table),
+#: then by column tuple
+_PLANAR = torch.utils.weak.WeakIdKeyDictionary()
+
+
+def planar_columns(values: torch.Tensor, icols: Sequence[int]) -> Optional[torch.Tensor]:
+    """The columns ``icols`` of the table ``values`` ``(n0, ..., n_{d-1}, C)``
+    laid out column-planar, ``(len(icols), n0, ..., n_{d-1})``: a warp's load
+    of one column of one corner over neighbouring points is then a run of
+    neighbouring values. Built once per table and column tuple, kept while
+    the table lives. None where the copy would reach 2**31 elements (the
+    kernel's column offsets are 32-bit): such calls read the row layout."""
+    icols = tuple(int(c) for c in icols)
+    per_table = _PLANAR.setdefault(values, {})
+    if icols not in per_table:
+        n = len(icols) * (values.numel() // max(1, values.shape[-1]))
+        per_table[icols] = None if n >= 1 << 31 else torch.movedim(values[..., list(icols)], -1, 0).contiguous()
+    return per_table[icols]
+
+
+def _args(values, knots, points, icols, axis_maps, name, planar=False) -> Tuple[_InterpArgs, torch.Tensor, torch.Tensor]:
     """The kernel's argument struct (without the output pointers), the
-    flattened contiguous points and the contiguous table; raises on what the
-    kernel does not take."""
+    flattened contiguous points and the table it reads (the row layout, or
+    with ``planar`` the column-planar copy of the wanted columns where there
+    is one); raises on what the kernel does not take."""
     dt, dev = points.dtype, points.device
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
@@ -104,15 +150,24 @@ def _args(values, knots, points, icols, axis_maps, name) -> Tuple[_InterpArgs, t
             raise ValueError(f"{name}: axis map {amap!r} is not one the kernel takes")
         lo0, step = (0.0, 0.0) if amap is None else (float(amap[1]), float(amap[2]))
         a.axes[d] = _Axis(k.data_ptr(), k.shape[0], lo0, step, _KINDS[kind], 0)
-    table = values.contiguous()
+    table = planar_columns(values, icols) if planar else None
+    if table is None:
+        table = values.contiguous()
+        a.row_len = row_len
+        a.cols[:len(icols)] = icols
+    else:
+        plane = table[0].numel()
+        a.row_len = 1
+        a.cols[:len(icols)] = [c * plane for c in range(len(icols))]
     pts = points.reshape(-1, ndim).contiguous()
     a.table = table.data_ptr()
+    a.table_len = table.numel()
     a.points = pts.data_ptr()
     a.P = pts.shape[0]
     a.ndim = ndim
     a.ncols = len(icols)
-    a.row_len = row_len
-    a.cols[:len(icols)] = icols
+    a.nc_inst, wide = launch_choice(a.table_len, a.ncols, ndim)
+    a.wide = int(wide)
     return a, pts, table
 
 
@@ -123,9 +178,9 @@ def _launch(fn, a, dev, what):
         raise RuntimeError(f"{what} kernel launch failed: {_lib().interp_nd_error_string(err).decode()} ({err})")
 
 
-def _forward(values, knots, points, icols, axis_maps):
+def _forward(values, knots, points, icols, axis_maps, planar=False):
     """Kernel B's launch: ``(..., n_icols)`` in the points' dtype."""
-    a, pts, table = _args(values, knots, points, icols, axis_maps, "interp_nd_cuda")
+    a, pts, table = _args(values, knots, points, icols, axis_maps, "interp_nd_cuda", planar)
     out = torch.empty((pts.shape[0], a.ncols), dtype=pts.dtype, device=pts.device)
     if out.numel():
         a.out = out.data_ptr()
@@ -163,17 +218,17 @@ class InterpNd(torch.autograd.Function):
     """Kernel B forward, kernel B' backward (gradient of the points only)."""
 
     @staticmethod
-    def forward(ctx, points, values, knots, icols, axis_maps):
+    def forward(ctx, points, values, knots, icols, axis_maps, planar):
         ctx.save_for_backward(points)
         ctx.grid = (values, knots, icols, axis_maps)
-        return _forward(values, knots, points, icols, axis_maps)
+        return _forward(values, knots, points, icols, axis_maps, planar)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
         (points,) = ctx.saved_tensors
         values, knots, icols, axis_maps = ctx.grid
-        return interp_nd_grad_cuda(values, knots, points, grad_out, icols, axis_maps), None, None, None, None
+        return interp_nd_grad_cuda(values, knots, points, grad_out, icols, axis_maps), None, None, None, None, None
 
 
 def interp_nd_cuda(
@@ -182,17 +237,20 @@ def interp_nd_cuda(
     points: torch.Tensor,
     icols: Optional[Tuple[int, ...]] = None,
     axis_maps: Optional[Tuple] = None,
+    planar: bool = False,
 ) -> torch.Tensor:
     """``interp_nd`` from one launch of kernel B: ``(..., n_icols)``, NaN rows
-    for NaN or out-of-bounds points. Where autograd records the call, through
-    :class:`InterpNd`, whose backward is kernel B' (the points' gradient; the
-    table and knots take none, and the call raises if they ask for one).
-    Raises on anything the kernel does not take, and if the launch fails."""
+    for NaN or out-of-bounds points. With ``planar`` the kernel reads the
+    column-planar copy of these columns (:func:`planar_columns`) instead of
+    the row layout. Where autograd records the call, through :class:`InterpNd`,
+    whose backward is kernel B' (the points' gradient; the table and knots
+    take none, and the call raises if they ask for one). Raises on anything
+    the kernel does not take, and if the launch fails."""
     knots = tuple(knots)
     refuse_grad("interp_nd_cuda (table, knots)", values, *knots)
     if torch.is_grad_enabled() and points.requires_grad:
-        return InterpNd.apply(points, values, knots, icols, axis_maps)
-    return _forward(values, knots, points, icols, axis_maps)
+        return InterpNd.apply(points, values, knots, icols, axis_maps, planar)
+    return _forward(values, knots, points, icols, axis_maps, planar)
 
 
 #: kernel launches made through each wrapper (reset by callers that count)

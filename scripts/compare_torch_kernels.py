@@ -24,6 +24,10 @@ baseline whose tree kernel is the first version (one thread per point, ``ll``
 alone, another argument struct) is called through that version's struct and
 held to the plain version's ``ll``. ``--reps 0`` builds and checks only. Prints one line per case and, with ``--out``, writes the numbers
 as JSON.
+
+:class:`Baseline` holds such a version for other timing scripts
+(``chip_smoke.py --parent-csrc``, ``scripts/tune_torch_interp.py --parent``),
+whose kernel B may take the first design's argument struct.
 """
 
 import argparse
@@ -48,7 +52,7 @@ from chip_smoke import (
     check_close, check_star, grid_as, kernel_ms, make_kernel_inputs, star_observations, star_points, to_torch,
     tree_likelihood_as, tree_points, write_tree_ini,
 )
-from isochrones_torch.ops import _build, cluster_cuda, star_cuda, tree_cuda
+from isochrones_torch.ops import _build, cluster_cuda, interp_cuda, star_cuda, tree_cuda
 from isochrones_torch.ops.cluster import cluster_lnmarginal_plain
 from isochrones_torch.ops.star import star_lnlike_fused_plain
 from isochrones_torch.ops.tree import tree_lnlike_fused_plain
@@ -120,12 +124,13 @@ def inner_loop_mix(lib_path, kernel=CLUSTER_F32):
     raise RuntimeError(f"no loop of a kernel matching {kernel.pattern} in {lib_path}")
 
 
-_WRAPPERS = (cluster_cuda, star_cuda, tree_cuda)
+_WRAPPERS = (cluster_cuda, star_cuda, tree_cuda, interp_cuda)
 
 
 @contextlib.contextmanager
 def using(lib):
-    """Route the kernel wrappers through the loaded library ``lib``."""
+    """Route the kernel wrappers through the loaded library ``lib`` (a
+    wrapper looks its entry points up at its first call inside)."""
     saved = [m.load_library for m in _WRAPPERS]
     for m in _WRAPPERS:
         m.load_library = lambda: lib
@@ -185,6 +190,66 @@ def tree_first_version(lib, p, lk, pack4):
     if err != 0:
         raise RuntimeError(f"the first tree kernel's launch failed ({err})")
     return (ll,)
+
+
+class _InterpArgsFirst(ctypes.Structure):
+    """``InterpArgs`` of kernel B's first design (one lane a point, chunks of
+    8 columns, 64-bit offsets, the row layout): no table length, column
+    instance or offset width."""
+
+    _fields_ = [
+        ("points", ctypes.c_void_p), ("table", ctypes.c_void_p), ("grad_out", ctypes.c_void_p),
+        ("out", ctypes.c_void_p), ("P", ctypes.c_longlong), ("ndim", ctypes.c_int), ("ncols", ctypes.c_int),
+        ("row_len", ctypes.c_int), ("pad", ctypes.c_int), ("axes", interp_cuda._Axis * interp_cuda.MAX_DIM),
+        ("cols", ctypes.c_int * interp_cuda.MAX_COLS),
+    ]
+
+
+class Baseline:
+    """Another version's kernels (e.g. the parent commit's), built from the
+    ``*.cu`` of a directory (:meth:`build`) or loaded already (``lib``),
+    called on the current wrappers' inputs: ``run(fn)`` calls ``fn`` with
+    the wrappers routed through that library (:func:`using`; for kernels
+    whose argument struct is the current one), ``interp`` calls its kernel B
+    whichever of the two argument structs it takes."""
+
+    def __init__(self, lib, seconds=0.0, log=""):
+        self.lib, self.seconds, self.log = lib, seconds, log
+        self.lib.interp_nd_args_size.restype = ctypes.c_int
+
+    @classmethod
+    def build(cls, src_dir):
+        path, seconds, log = build_baseline(src_dir)
+        return cls(ctypes.CDLL(path), seconds, log)
+
+    def run(self, fn):
+        with using(self.lib):
+            return fn()
+
+    def interp(self, values, knots, points, icols=None, axis_maps=None, planar=False):
+        """Kernel B of this version on the call ``interp_nd_cuda(values,
+        knots, points, icols, axis_maps, planar)``: through the current
+        wrapper where the version takes the current struct, else through the
+        first design's (which reads the row layout whatever ``planar``)."""
+        if self.lib.interp_nd_args_size() == ctypes.sizeof(interp_cuda._InterpArgs):
+            return self.run(lambda: interp_cuda.interp_nd_cuda(values, knots, points, icols=icols,
+                                                               axis_maps=axis_maps, planar=planar))
+        if self.lib.interp_nd_args_size() != ctypes.sizeof(_InterpArgsFirst):
+            raise RuntimeError("the baseline's kernel B takes neither the current argument struct nor the first one")
+        a, pts, _ = interp_cuda._args(values, knots, points, icols, axis_maps, "baseline interp_nd")
+        old = _InterpArgsFirst()
+        for name in ("points", "table", "P", "ndim", "ncols", "row_len"):
+            setattr(old, name, getattr(a, name))
+        old.axes[:] = list(a.axes)
+        old.cols[:] = list(a.cols)
+        out = torch.empty((pts.shape[0], a.ncols), dtype=pts.dtype, device=pts.device)
+        old.out = out.data_ptr()
+        fn = self.lib.interp_nd_f32 if pts.dtype == torch.float32 else self.lib.interp_nd_f64
+        fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+        err = fn(ctypes.byref(old), torch.cuda.current_stream(pts.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the baseline's interp_nd launch failed ({err})")
+        return out.reshape(points.shape[:-1] + (a.ncols,))
 
 
 def _cluster_cases(dev):
