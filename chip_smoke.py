@@ -7,7 +7,7 @@ Run from the repository root, with no arguments:
 ``--parent-csrc DIR`` (a directory holding another version's ``csrc/``,
 e.g. the parent commit's) also builds those
 (``scripts.compare_torch_kernels.Baseline``, imported only then) and times
-its kernels B and C' in turns beside these (phases 25a and 26).
+its kernels A', B, B' and C' in turns beside these (phases 25a and 26).
 
 Phases, one or more lines each; any failure raises and exits non-zero:
 
@@ -87,8 +87,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     column (drawn columns exactly, EEPs and magnitudes to 1e-9); the cluster
     kernel against its plain version at the nested fit's W = 1024 walkers,
     (50, 700, 3), both dtypes, timed; one W = 1024 ``lnpost_batch`` under the
-    profiler (launches, device time, idle share; kernel B three launches);
-    ``StarClusterModel.fit`` (nested, dynamic by default) in float32 at a
+    profiler (launches, device time, idle share; kernel B three launches),
+    and the cluster kernel alone on the arguments that call hands it, beside
+    the bound on those inputs; ``StarClusterModel.fit`` (nested, dynamic by default) in float32 at a
     reduced number of live points: logz finite, not truncated, the cluster
     kernel and kernel B launched, the distance posterior's 95% interval
     holding 300 pc;
@@ -186,8 +187,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     values), identical NaN and +-inf patterns (``check_grad``); their device
     times at the same four batches beside their bounds and the plain
     versions' (autograd forward and backward), at 4 and 8 points also the
-    median and spread of 400 launches after a warm-up, with
-    ``--parent-csrc`` the parent's C' in turns; one NUTS leaf's wall-clock and device kernels (kernels A and
+    median and spread of 400 launches after a warm-up and A's forward beside
+    A', with ``--parent-csrc`` the parent's A' and C' in turns; one NUTS
+    leaf's wall-clock and device kernels (kernels A and
     A' once each); ``BinaryStarModel.fit_nuts`` on the bench binary in
     float32 and float64 and the three-star tree ``StarModel.fit_nuts``, with
     the plain likelihoods made to raise: finite lnprob, the distance median
@@ -205,8 +207,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     shim, float64 and float32, identical NaN patterns; B' against autograd of
     the plain version at the seismic terms' call (131072 points); their
     device times beside the bounds (with ``--parent-csrc`` the parent's B on
-    every call in turns), the plain versions and ``grid_sample``, and the
-    planar copies' bytes; then a binary with
+    every call and B' at 4, 8 and 131072 points in turns), the plain
+    versions, ``grid_sample`` and its backward, and the planar copies'
+    bytes; then a binary with
     ``nu_max`` and ``delta_nu`` observed: ``lnpost_batch`` at 131072 points
     against the plain path, and ``fit_nuts`` at the cut setting through A,
     A', B and B' with the plain versions made to raise.
@@ -968,6 +971,45 @@ def grid_sample_input(grid, pts, icols):
     return vol, u.flip(-1).reshape(1, 1, 1, -1, 3).contiguous()
 
 
+def grid_sample_backward(grid, pts, icols, cot, kernel_grad):
+    """``(fn, diff)``: ``fn`` runs ``torch.nn.functional.grid_sample``'s
+    backward for the sample grid alone (the volume takes no gradient) on the
+    wanted columns of a 3-d table at ``pts`` with the cotangent ``cot``
+    ``(P, C)``, the work of kernel B' (the library's yardstick, timed by its
+    ``grid_sampler_3d_backward`` kernel); ``diff`` is the largest difference
+    from B''s gradient ``kernel_grad`` after the chain rule of the [-1, 1]
+    map, in units of the row's scale (``check_grad``'s; None where no row
+    qualifies), where both are finite and nonzero and no coordinate lies on a
+    knot (grid_sample pads
+    with zeros, lets a NaN corner poison its gradient and takes a one-sided
+    slope at a knot; B' passes 0 for the first two and keeps autograd's
+    convention at a knot)."""
+    import torch
+    import torch.nn.functional as F
+
+    vol, sg = grid_sample_input(grid, pts, icols)
+    sg = sg.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = F.grid_sample(vol, sg, mode="bilinear", align_corners=True)
+    g_out = cot.T.reshape(out.shape).contiguous()
+
+    def fn():
+        return torch.autograd.grad(out, sg, grad_outputs=g_out, retain_graph=True)[0]
+
+    lo = torch.stack([k[0] for k in grid.knots])
+    hi = torch.stack([k[-1] for k in grid.knots])
+    lib = fn().reshape(-1, 3).flip(-1) * (2.0 / (hi - lo))
+    ref = kernel_grad.reshape(-1, 3)
+    flat = pts.reshape(-1, 3)
+    on_knot = torch.stack([torch.isin(flat[:, d], k) for d, k in enumerate(grid.knots)], dim=-1).any(-1)
+    both = (torch.isfinite(lib).all(-1) & torch.isfinite(ref).all(-1) & (lib != 0).any(-1) & (ref != 0).any(-1)
+            & ~on_knot)
+    if not bool(both.any()):
+        return fn, None  # no row to compare (the kernels line is strict JSON: no NaN)
+    scale = torch.clamp(ref[both].abs().amax(-1, keepdim=True), min=1.0)
+    return fn, float(((lib[both] - ref[both]).abs() / scale).max())
+
+
 def _interp_check(name, values, knots, pts, icols, maps, planar=False):
     """Kernel B (reading its column-planar copy with ``planar``, else the row layout)
     against the plain version on the same card tensors (``check_interp`` at
@@ -1062,10 +1104,12 @@ def phase_interp_kernel(dev, ic32, ic64, parent=None):
     parent's kernels ``parent`` (``scripts.compare_torch_kernels.Baseline``),
     the parent's kernel B on the same call in turns; at the ladder's call the
     plain version and ``grid_sample``; B' at the seismic call and at the NUTS
-    chains' 4 and 8 points (median and spread of 400 launches); the bytes of
-    the ladder's planar copies; the 1024-walker cluster ``lnpost_batch`` with B and with
-    the plain lerps in turns (:func:`cluster_call_ab`). Returns ``(B record,
-    B' record)``."""
+    chains' 4 and 8 points and at 1024 (median and spread of 400 launches), in
+    turns with the parent's B' where given and beside ``grid_sample``'s
+    backward for the sample grid (:func:`grid_sample_backward`); the bytes of
+    the ladder's planar copies; the 1024-walker cluster ``lnpost_batch`` with
+    B and with the plain lerps in turns (:func:`cluster_call_ab`). Returns
+    ``(B record, B' record)``."""
     import torch
     import torch.nn.functional as F
 
@@ -1232,30 +1276,70 @@ def phase_interp_kernel(dev, ic32, ic64, parent=None):
             raise AssertionError(f"B' launched {interp_nd_grad_cuda.launches} times in one backward")
         grads[label] = check_grad(f"B' {label}", got, vjp(interp_nd_plain).cpu().numpy(),
                                   RTOL_GRAD_F64 if label == "f64" else RTOL_GRAD_F32)[0]
-        times[label] = (kernel_ms(lambda: interp_nd_grad_cuda(g.values, g.knots, gp, cot, icols, g.axis_maps),
-                                  "interp_nd_grad_kernel", reps=20),
-                        cuda_ms(lambda: vjp(interp_nd_plain), reps=5),
-                        bound(*interp_work(g, gp, 2, grad=True), label.replace("f", "float"))[:2])
-        if label == "f32":  # the seismic fit's NUTS chains
-            leaf = {B: kernel_ms_spread(lambda B=B: interp_nd_grad_cuda(g.values, g.knots, gp[:B], cot[:B], icols,
-                                                                         g.axis_maps), "interp_nd_grad_kernel")
-                    for B in GRAD_BATCHES[:2]}
-            leaf_bound = {B: bound(*interp_work(g, gp[:B], 2, grad=True), "float32")[0] for B in leaf}
-    (gms, gplain, (gbound, gby)), gms64 = times["f32"], times["f64"][0]
+        if label == "f64":
+            times[label] = kernel_ms(lambda: interp_nd_grad_cuda(g.values, g.knots, gp, cot, icols, g.axis_maps),
+                                     "interp_nd_grad_kernel", reps=20)
+            continue
+        # float32: B' in turns with the parent's B' and with grid_sample's backward for the sample grid, at
+        # the seismic call's 131072 points, the NUTS chains' 4 and 8 and 1024 (medians of SPREAD_LAUNCHES
+        # launches below 131072)
+        bprime = {}
+        for B in (STAR_BATCH,) + GRAD_BATCHES[:3]:
+            args = (g.values, g.knots, gp[:B].contiguous(), cot[:B].contiguous(), icols, g.axis_maps)
+            new = lambda args=args: interp_nd_grad_cuda(*args)  # noqa: E731
+            old = None if parent is None else (lambda args=args: parent.interp_grad(*args))
+            lib_bwd, lib_diff = grid_sample_backward(g, args[2], icols, args[3], new())
+            if B == STAR_BATCH:  # the library, the parent and B' in turns (L, P, B, B, P, L)
+                library = [kernel_ms(lib_bwd, "grid_sampler_3d_backward", reps=20)]
+                turns = in_turns(new, old, "interp_nd_grad_kernel", reps=20)
+                library.append(kernel_ms(lib_bwd, "grid_sampler_3d_backward", reps=20))
+                rec = dict(ms=float(np.mean(turns["new"])), ms_turns=turns["new"], parent_ms=turns["parent"],
+                           library_ms=float(np.mean(library)), library_turns=library)
+            else:
+                spread = kernel_ms_spread(new, "interp_nd_grad_kernel")
+                rec = dict(ms=spread[0], ms_spread=spread,
+                           parent_ms_spread=None if old is None else kernel_ms_spread(old, "interp_nd_grad_kernel"),
+                           library_ms_spread=kernel_ms_spread(lib_bwd, "grid_sampler_3d_backward"))
+                rec["library_ms"] = rec["library_ms_spread"][0]
+            rec.update(bound_ms=bound(*interp_work(g, args[2], 2, grad=True), "float32")[0], library_max_diff=lib_diff)
+            bprime[B] = rec
+        times[label] = (bprime, cuda_ms(lambda: vjp(interp_nd_plain), reps=5),
+                        bound(*interp_work(g, gp, 2, grad=True), "float32")[:2])
+    (bprime, gplain, (gbound, gby)), gms64 = times["f32"], times["f64"]
+    top = bprime[STAR_BATCH]
+    gms = top["ms"]
     print(f"[interp] kernel B' vs autograd of the plain version at the seismic call ({STAR_BATCH} points, nu_max "
           f"and delta_nu): f64 {grads['f64']:.3e} (rtol {RTOL_GRAD_F64} of the row's scale), f32 against the plain "
-          f"float32 version {grads['f32']:.3e} (rtol {RTOL_GRAD_F32}); time f32 {gms:.4f} ms (f64 {gms64:.4f}), "
-          f"autograd of the plain version (forward + backward) {gplain:.4f} ms; bound {gbound:.6f} ms, kernel at "
-          f"{gbound / gms:.5f} of it; at the NUTS chains' "
-          f"{json.dumps({B: [[round(x, 5) for x in leaf[B][:3]], round(leaf_bound[B], 8)] for B in leaf})} "
-          f"([median, 10th, 90th percentile] ms of {SPREAD_LAUNCHES} launches, bound ms)")
+          f"float32 version {grads['f32']:.3e} (rtol {RTOL_GRAD_F32}); autograd of the plain version (forward + "
+          f"backward) {gplain:.4f} ms; bound {gbound:.6f} ms")
+    for B, r in bprime.items():
+        if B == STAR_BATCH:
+            par = (f", the parent's B' {np.round(r['parent_ms'], 4).tolist()} ms (mean {np.mean(r['parent_ms']):.4f})"
+                   if r["parent_ms"] else "")
+            what = f"kernel B' {np.round(r['ms_turns'], 4).tolist()} ms (mean {r['ms']:.4f}; f64 {gms64:.4f}){par}"
+            lib = f"grid_sample's backward {np.round(r['library_turns'], 4).tolist()} ms"
+        else:
+            q = r["ms_spread"]
+            par = (f", the parent's B' {r['parent_ms_spread'][0]:.5f} [{r['parent_ms_spread'][1]:.5f}, "
+                   f"{r['parent_ms_spread'][2]:.5f}]" if r["parent_ms_spread"] else "")
+            lq = r["library_ms_spread"]
+            what = f"kernel B' {q[0]:.5f} [{q[1]:.5f}, {q[2]:.5f}]{par}"
+            lib = f"grid_sample's backward {lq[0]:.5f} [{lq[1]:.5f}, {lq[2]:.5f}] ms"
+        diff = ("no row off the knots to compare" if r["library_max_diff"] is None else
+                f"where both are finite and nonzero its gradient, through the [-1, 1] map, differs from B''s by "
+                f"{r['library_max_diff']:.3e} of the row's scale")
+        print(f"[interp] time B' at {B} points f32: {what} ms; {lib} ({diff}); bound {r['bound_ms']:.8f} ms, kernel "
+              f"at {r['bound_ms'] / r['ms']:.5f} of it")
     rec_g = dict(name="interp_nd_grad", route="cuda", source="isochrones_torch/csrc/interp_nd.cu",
                  replaces="isochrones_tpu/ops/interp.py:483", max_abs_err=grads["f32"], ms=gms, plain_ms=gplain,
-                 bound_ms=gbound, bound_by=gby, library_ms=None, ms_f64=gms64, max_err_f64=grads["f64"],
+                 bound_ms=gbound, bound_by=gby, library_ms=top["library_ms"],
+                 library="torch.nn.functional.grid_sample(mode='bilinear', align_corners=True) backward for the "
+                         "sample grid (grid_sampler_3d_backward)",
+                 library_max_diff=top["library_max_diff"], ms_f64=gms64, max_err_f64=grads["f64"],
                  shape={"P": STAR_BATCH, "ndim": 3, "cols": 2, "dtype": "float32"},
-                 ms_nuts_chains={str(B): ms[0] for B, ms in leaf.items()},
-                 ms_spread_nuts_chains={str(B): ms[:3] for B, ms in leaf.items()},
-                 bound_ms_nuts_chains={str(B): b for B, b in leaf_bound.items()})
+                 ms_nuts_chains={str(B): bprime[B]["ms"] for B in GRAD_BATCHES[:2]},
+                 timing={str(B): r for B, r in bprime.items()},
+                 bound_ms_nuts_chains={str(B): bprime[B]["bound_ms"] for B in GRAD_BATCHES[:2]})
     return rec_b, rec_g
 
 
@@ -1926,6 +2010,39 @@ def phase_eep(dev, ic32, ic64):
                 iso_accurate_bound_ms=iso_bound[0], counted_launches=counted)
 
 
+def fit_call_kernel(model, pw):
+    """The cluster kernel on the arguments that one ``lnpost_batch`` of the
+    nested fit's walker batch ``pw`` hands it (captured from the call): its
+    device time (mean of 5 launches) and the bound counted on the same
+    inputs (:func:`cluster_work`). The inputs of :func:`make_kernel_inputs`
+    are random ladders, with more cells kept than the fit's."""
+    import isochrones_torch.ops.cluster_cuda as cluster_cuda_mod
+
+    kernel = cluster_cuda_mod.cluster_lnmarginal_cuda
+    seen = []
+
+    def capture(*args, **kw):
+        seen.append((args, kw))
+        return kernel(*args, **kw)
+
+    capture.launches = kernel.launches
+    cluster_cuda_mod.cluster_lnmarginal_cuda = capture
+    try:
+        model.lnpost_batch(pw)
+    finally:
+        cluster_cuda_mod.cluster_lnmarginal_cuda = kernel
+        kernel.launches = capture.launches
+    if len(seen) != 1:
+        raise AssertionError(f"one lnpost_batch called the cluster kernel {len(seen)} times")
+    args, kw = seen[0]
+    ms = kernel_ms(lambda: kernel(*args, **kw), "cluster_marginal", reps=5)
+    masks = {"valid": args[13], "valid_k": args[13] if kw.get("valid_k") is None else kw["valid_k"]}
+    bound_ms, bound_by, what = bound(*cluster_work(args[:13], masks), "float32")
+    print(f"[kernel] time at the nested fit's call (W={len(pw)}, the arguments of one lnpost_batch): cluster kernel "
+          f"{ms:.4f} ms; bound on the same inputs {bound_ms:.4f} ms ({what}), kernel at {bound_ms / ms:.3f} of it")
+    return dict(ms_fit_call=ms, bound_ms_fit_call=bound_ms, bound_by_fit_call=bound_by)
+
+
 def phase_cluster_nested(dev, ic32, ic64):
     """Phase 14. Returns ``(the simulated catalogue, the cluster kernel's
     record at W = 1024, its launches in the nested fit)``."""
@@ -2012,6 +2129,7 @@ def phase_cluster_nested(dev, ic32, ic64):
           f"{int(torch.isfinite(lp).sum())}/{W_FIT} finite")
     record.update(lnpost_batch_ms_fit_batch=call_ms, lnpost_batch_kernels_fit_batch=n_kernels,
                   lnpost_batch_idle_fit_batch=idle, interp_launches_fit_batch_call=n_interp_call)
+    record.update(fit_call_kernel(model, pw))
 
     seen = {}
     run_nested = nested_mod.run_nested
@@ -3672,14 +3790,15 @@ def phase_grad_kernels(dev, ic32, ic64, workdir, parent=None):
     float64 and float32, on the bench binary and on the
     three-star tree plan (adversarial rows); their device times at the same
     batches (float32, float64 beside; at 4 and 8 points also the median and
-    spread of :data:`SPREAD_LAUNCHES` launches) beside their bounds and, with
-    the parent's kernels ``parent`` (``scripts.compare_torch_kernels.Baseline``),
-    the parent's C' in turns. Returns the two records of the kernels line (launches filled in by
+    spread of :data:`SPREAD_LAUNCHES` launches, and A's forward beside A')
+    beside their bounds and, with the parent's kernels ``parent``
+    (``scripts.compare_torch_kernels.Baseline``), the parent's A' and C' in
+    turns. Returns the two records of the kernels line (launches filled in by
     the caller)."""
     import torch
 
     from isochrones_torch.ops.star import star_lnlike_fused_plain
-    from isochrones_torch.ops.star_cuda import star_lnlike_grad_cuda
+    from isochrones_torch.ops.star_cuda import star_lnlike_cuda, star_lnlike_grad_cuda
     from isochrones_torch.ops.tree import tree_lnlike_fused_plain
     from isochrones_torch.ops.tree_cuda import tree_lnlike_grad_cuda
     from isochrones_torch.starmodel import BinaryStarModel
@@ -3721,11 +3840,16 @@ def phase_grad_kernels(dev, ic32, ic64, workdir, parent=None):
             reps = 50 if B <= 1024 else 10
             new = lambda: kernel(p32, lk, *cot)  # noqa: E731
             old = None
-            if parent is not None and name == "tree_lnlike_grad":
-                old = lambda new=new: parent.run(new)  # noqa: E731
+            if parent is not None:
+                old = ((lambda: parent.star_grad(p32, lk, *cot)) if name == "star_lnlike_grad"  # noqa: E731
+                       else (lambda new=new: parent.run(new)))
             turns = in_turns(new, old, name, reps=reps)
             spread = kernel_ms_spread(new, name) if B <= LEAF_CHAINS else None
             parent_spread = kernel_ms_spread(old, name) if spread and old else None
+            # the forward beside its backward at the NUTS chains' batches
+            fwd_spread = None
+            if spread and name == "star_lnlike_grad":
+                fwd_spread = kernel_ms_spread(lambda: star_lnlike_cuda(p32, lk), "star_lnlike_kernel")
             ms = float(np.mean(turns["new"]))
             p64, cot64 = p32.double(), tuple(c.double() for c in cot)
             ms64 = kernel_ms(lambda: kernel(p64, l64, *cot64), name, reps=reps)
@@ -3733,14 +3857,17 @@ def phase_grad_kernels(dev, ic32, ic64, workdir, parent=None):
             fwd = star_work(p32, lk) if name == "star_lnlike_grad" else tree_work(p32, lk)
             bnd = bound(*grad_work(fwd, p32, 1 + 2 * n_out), "float32")
             timing[B] = dict(ms=ms, ms_turns=turns["new"], parent_ms=turns["parent"], ms_f64=ms64, plain_ms=plain,
-                             bound_ms=bnd[0], bound_by=bnd[1], ms_spread=spread, parent_ms_spread=parent_spread)
+                             bound_ms=bnd[0], bound_by=bnd[1], ms_spread=spread, parent_ms_spread=parent_spread,
+                             forward_ms_spread=fwd_spread)
             par = (f", the parent's {np.round(turns['parent'], 4).tolist()} ms (mean {np.mean(turns['parent']):.4f}, "
                    f"{np.mean(turns['parent']) / ms:.2f}x)" if turns["parent"] else "")
             if spread:
                 par += (f"; median [10th, 90th percentile] of {spread[3]} launches {spread[0]:.5f} "
                         f"[{spread[1]:.5f}, {spread[2]:.5f}] ms"
                         + (f", the parent's {parent_spread[0]:.5f} [{parent_spread[1]:.5f}, {parent_spread[2]:.5f}] ms"
-                           if parent_spread else ""))
+                           if parent_spread else "")
+                        + (f"; the forward (kernel A) {fwd_spread[0]:.5f} [{fwd_spread[1]:.5f}, {fwd_spread[2]:.5f}] ms"
+                           if fwd_spread else ""))
             print(f"[grad] time {name} B={B} f32: kernel {np.round(turns['new'], 4).tolist()} ms (mean {ms:.4f}; f64 "
                   f"{ms64:.4f}){par}, plain (autograd forward + backward) {plain:.4f} ms; bound {bnd[0]:.6f} ms "
                   f"({bnd[2]}), kernel at {bnd[0] / ms:.4f} of it")
@@ -4094,7 +4221,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of isochrones_torch on one CUDA card.")
     ap.add_argument("--parent-csrc", default=None, metavar="DIR",
                     help="a directory holding the parent commit's csrc/ (its *.cu and interp_common.cuh): "
-                         "phases 25a and 26 time its kernels C' and B in turns beside these")
+                         "phases 25a and 26 time its kernels A', B, B' and C' in turns beside these")
     args = ap.parse_args(argv)
 
     # ---- 1. device
@@ -4448,7 +4575,7 @@ def main(argv=None):
     grad_records["tree_lnlike_grad"].update(launches=nuts_tree["launches_backward"])
     kernels_line.extend([grad_records["star_lnlike_grad"], grad_records["tree_lnlike_grad"], interp_rec,
                          interp_grad_rec])
-    print(json.dumps({"kernels": kernels_line}))
+    print(json.dumps({"kernels": kernels_line}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 

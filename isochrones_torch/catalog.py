@@ -37,21 +37,23 @@ def read_csv(path):
 class StarCatalog:
     """Catalog of star measurements (reference catalog.py:19-63).
 
-    data : mapping of column name -> 1-d array, or a ``StarCatalog`` (its
+    df : mapping of column name -> 1-d array, or a ``StarCatalog`` (its
         columns, and its bands and properties where none are given). Bands
         are inferred from ``*_mag`` names when not given. When ``props`` is
         None, known properties present with an ``_unc`` partner are
         auto-detected; pass ``props=()`` for photometry only.
+    no_uncs : skip the check that every band and property has its column
+        and its ``_unc`` partner (reference catalog.py:61-67).
     """
 
     KNOWN_PROPS = ("Teff", "logg", "feh", "parallax", "density")
 
-    def __init__(self, data, bands=None, props=None):
-        if isinstance(data, StarCatalog):
-            bands = data.bands if bands is None else bands
-            props = data.props if props is None else props
-            data = data.data
-        self.data = {str(c): np.asarray(data[c]) for c in data.keys()}
+    def __init__(self, df, bands=None, props=None, no_uncs=False):
+        if isinstance(df, StarCatalog):
+            bands = df.bands if bands is None else bands
+            props = df.props if props is None else props
+            df = df.data
+        self.data = {str(c): np.asarray(df[c]) for c in df.keys()}
         columns = list(self.data)
         if bands is None:
             bands = [m.group(1) for c in columns if (m := re.search("(.+)_mag$", c))]
@@ -66,11 +68,12 @@ class StarCatalog:
                 )
         self.props = tuple(props)
 
-        for c in self.band_cols + self.props:
-            if c not in self.data:
-                raise ValueError(f"{c} not in catalog!")
-            if f"{c}_unc" not in self.data:
-                raise ValueError(f"{c} uncertainty ({c}_unc) not in catalog!")
+        if not no_uncs:
+            for c in self.band_cols + self.props:
+                if c not in self.data:
+                    raise ValueError(f"{c} not in catalog!")
+                if f"{c}_unc" not in self.data:
+                    raise ValueError(f"{c} uncertainty ({c}_unc) not in catalog!")
 
         self._prior_settings = {}
 
@@ -95,17 +98,23 @@ class StarCatalog:
             return np.asarray(self.data["index"])
         return np.arange(len(self))
 
-    def get_measurement(self, prop):
-        """(values, uncertainties) arrays (reference catalog.py:82-84)."""
+    def get_measurement(self, prop, values=False):
+        """(values, uncertainties) arrays (reference catalog.py:82-84). The
+        columns are numpy arrays already, so ``values`` changes nothing, as
+        in the JAX package (which always returns ``.values``)."""
         return self.data[prop], self.data[prop + "_unc"]
 
-    def iter_bands(self):
+    def iter_bands(self, **kwargs):
+        """``(band, (values, uncertainties))`` per band; ``kwargs`` go to
+        :meth:`get_measurement`."""
         for b, col in zip(self.bands, self.band_cols):
-            yield b, self.get_measurement(col)
+            yield b, self.get_measurement(col, **kwargs)
 
-    def iter_props(self):
+    def iter_props(self, **kwargs):
+        """``(prop, (values, uncertainties))`` per property; ``kwargs`` go to
+        :meth:`get_measurement`."""
         for p in self.props:
-            yield p, self.get_measurement(p)
+            yield p, self.get_measurement(p, **kwargs)
 
     def observation_stacks(self):
         """``(mag_vals, mag_uncs, prop_vals, prop_uncs)`` as float64 stacks of

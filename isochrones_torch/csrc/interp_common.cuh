@@ -1,9 +1,9 @@
 // Grid interpolation shared by the kernels (star_lnlike.cu, tree_lnlike.cu,
 // catalog_lnlike.cu, generate.cu, interp_nd.cu): the axis description, cell location, the
 // multilinear lerp of a group of lanes (or of one lane, with 16-byte row
-// loads), the lerp's slope along one axis and its vector-Jacobian product
-// along every axis (the backward kernels), with the semantics of the plain
-// version
+// loads), the lerp's slope along one axis and the vector-Jacobian product
+// of a group of lanes along every axis (the backward kernels), with the
+// semantics of the plain version
 // (isochrones_torch/ops/interp.py): find_cells_1d's cell step for step (the
 // exact_affine fix-up, the two-step fix-up of the affine and log kinds,
 // _pin_top, searchsorted's count of knots below x, the compare kind's count),
@@ -283,32 +283,52 @@ __device__ __forceinline__ void add_scaled(double* o, double2 v, double w) {
   o[1] += w * v.y;
 }
 
-// Multilinear interpolation of `ncols` (<= NC) columns (cols[i], or i when
-// cols is null) of a dense (dims..., row_len) table at one point, by the G
-// lanes of a group, into out[0, ncols); NaN when the point is NaN or out of
-// bounds on any axis. Every lane of the group gets the sums of all 2**NDIM
-// corners' products. With VEC (2, or 16 bytes' worth: 4 floats, 2 doubles)
-// the caller vouches that the columns to lerp are the first ncols of each row
-// (cols null; ncols, NC and row_len multiples of VEC; the table aligned to
-// VEC values): a row is then read VEC columns per load, fewer gathers of a
-// lane for the same products in the same order. With VEC 0 one column a load.
-template <typename T, int NDIM, int G, int NC, int VEC = 0>
-__device__ void interp_group(const T* __restrict__ table, const Axis* axes, const T* x, int row_len,
-                             const int* cols, int ncols, int l, T* out) {
+// A point's cell on NDIM axes as the G lanes of a group locate it
+// (locate_reads on every axis, then locate_finish): each axis' lower cell,
+// in-cell t and the denominator of t (dt/dx = 1 / den, 0 where t is a
+// constant), the row strides of the table's axes, and whether the point is
+// NaN or out of bounds on any axis (every lane of the group gets the same).
+// Every lane of the warp calls it (the searches vote and shuffle).
+template <typename T, int NDIM>
+struct GroupCell {
+  long long cell[NDIM];
+  long long stride[NDIM];
+  T t[NDIM];
+  T den[NDIM];
+  bool bad;
+};
+
+template <typename T, int NDIM, int G>
+__device__ __forceinline__ void group_locate(const Axis* axes, const T* x, int l, GroupCell<T, NDIM>& gc) {
   AxisReads<T> reads[NDIM];
 #pragma unroll
   for (int d = 0; d < NDIM; ++d) locate_reads<T, G>(axes[d], x[d], l, reads[d]);
-  bool bad = false;
+  gc.bad = false;
 #pragma unroll
-  for (int d = 0; d < NDIM; ++d) bad = bad || isnan(x[d]) || x[d] < reads[d].first || x[d] > reads[d].last;
-  long long cell[NDIM];
-  T t[NDIM];
-  long long stride[NDIM];
+  for (int d = 0; d < NDIM; ++d) gc.bad = gc.bad || isnan(x[d]) || x[d] < reads[d].first || x[d] > reads[d].last;
 #pragma unroll
-  for (int d = 0; d < NDIM; ++d) locate_finish<T, G>(axes[d], x[d], bad, l, reads[d], cell[d], t[d]);
-  stride[NDIM - 1] = 1;
+  for (int d = 0; d < NDIM; ++d)
+    locate_finish<T, G>(axes[d], x[d], gc.bad, l, reads[d], gc.cell[d], gc.t[d], &gc.den[d]);
+  gc.stride[NDIM - 1] = 1;
 #pragma unroll
-  for (int d = NDIM - 2; d >= 0; --d) stride[d] = stride[d + 1] * axes[d + 1].n;
+  for (int d = NDIM - 2; d >= 0; --d) gc.stride[d] = gc.stride[d + 1] * axes[d + 1].n;
+}
+
+// Multilinear interpolation of `ncols` (<= NC) columns (cols[i], or i when
+// cols is null) of a dense (dims..., row_len) table at a cell that
+// group_locate located, by the G lanes of a group, into out[0, ncols); NaN
+// when the point is NaN or out of bounds on any axis. Every lane of the group
+// gets the sums of all 2**NDIM corners' products. With VEC (2, or 16 bytes'
+// worth: 4 floats, 2 doubles) the caller vouches that the columns to lerp are
+// the first ncols of each row (cols null; ncols, NC and row_len multiples of
+// VEC; the table aligned to VEC values): a row is then read VEC columns per
+// load, fewer gathers of a lane for the same products in the same order. With
+// VEC 0 one column a load. Every lane of the warp calls it (the sums
+// shuffle).
+template <typename T, int NDIM, int G, int NC, int VEC = 0>
+__device__ __forceinline__ void interp_group_at(const T* __restrict__ table, const Axis* axes,
+                                                const GroupCell<T, NDIM>& gc, int row_len, const int* cols, int ncols,
+                                                int l, T* out) {
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     if (c == ncols) break;
@@ -320,8 +340,8 @@ __device__ void interp_group(const T* __restrict__ table, const Axis* axes, cons
 #pragma unroll
     for (int d = 0; d < NDIM; ++d) {
       const int o = (i >> (NDIM - 1 - d)) & 1;
-      w = w * (o ? t[d] : T(1) - t[d]);
-      row += clampll(cell[d] + o, 0, axes[d].n - 1) * stride[d];
+      w = w * (o ? gc.t[d] : T(1) - gc.t[d]);
+      row += clampll(gc.cell[d] + o, 0, axes[d].n - 1) * gc.stride[d];
     }
     const T* r = table + row * row_len;
     if constexpr (VEC > 0) {
@@ -340,7 +360,7 @@ __device__ void interp_group(const T* __restrict__ table, const Axis* axes, cons
       }
     }
   };
-  if (!bad) {
+  if (!gc.bad) {
     if constexpr (G == 1) {
 #pragma unroll
       for (int i = 0; i < (1 << NDIM); ++i) corner(i);  // one lane: every corner's loads in flight together
@@ -352,100 +372,147 @@ __device__ void interp_group(const T* __restrict__ table, const Axis* axes, cons
   for (int c = 0; c < NC; ++c) {
     if (c == ncols) break;
     const T sum = group_sum<G>(out[c]);  // every lane shuffles, bad or not
-    out[c] = bad ? T(NAN) : sum;
+    out[c] = gc.bad ? T(NAN) : sum;
   }
 }
 
-// The values of one lane's multilinear interpolation (those of
-// interp_group<T, NDIM, 1, NC>, in another order of the same products) and
-// its vector-Jacobian product: gx[d] = the sum over the columns c whose value
-// is not NaN of g[c] * d out[c] / d x[d], in the closed form torch.autograd
-// takes through ops/interp.py's gradient-safe path: per corner i, s_i =
-// sum_c g[c] * corner value, times d w_i / d t_d (the product of the other
-// axes' factors, with the sign of the corner's side), summed, times dt/dx
-// (lerp_slope: 1 / den, 0 where t is a constant). A NaN value passes no
-// gradient, and at a NaN or out-of-bounds point every gx is 0 (the values
-// NaN). No shuffle or vote but the cell searches', which every lane of the
-// warp must reach (a lane with nothing to do passes a NaN point).
-template <typename T, int NDIM, int NC>
-__device__ void interp_vjp(const T* __restrict__ table, const Axis* axes, const T* x, int row_len, const int* cols,
-                           int ncols, const T* g, T* out, T* gx) {
-  AxisReads<T> reads[NDIM];
+// interp_group_at at the point x, which the group locates first
+// (group_locate); every lane of the warp calls it (the cell searches vote).
+template <typename T, int NDIM, int G, int NC, int VEC = 0>
+__device__ void interp_group(const T* __restrict__ table, const Axis* axes, const T* x, int row_len,
+                             const int* cols, int ncols, int l, T* out) {
+  GroupCell<T, NDIM> gc;
+  group_locate<T, NDIM, G>(axes, x, l, gc);
+  interp_group_at<T, NDIM, G, NC, VEC>(table, axes, gc, row_len, cols, ncols, l, out);
+}
+
+// v[i] += x for the i that equals the runtime index k (no local memory)
+template <typename T, int N>
+__device__ __forceinline__ void add_at(T* v, int k, T x) {
 #pragma unroll
-  for (int d = 0; d < NDIM; ++d) locate_reads<T, 1>(axes[d], x[d], 0, reads[d]);
-  bool bad = false;
+  for (int i = 0; i < N; ++i)
+    if (i == k) v[i] += x;
+}
+
+// bitwise OR over the G lanes of this lane's group (each lane gets the
+// OR); every lane of the warp must call it
+template <int G>
+__device__ __forceinline__ unsigned group_or(unsigned v) {
 #pragma unroll
-  for (int d = 0; d < NDIM; ++d) bad = bad || isnan(x[d]) || x[d] < reads[d].first || x[d] > reads[d].last;
-  long long cell[NDIM];
-  T t[NDIM], den[NDIM];
-  long long stride[NDIM];
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) locate_finish<T, 1>(axes[d], x[d], bad, 0, reads[d], cell[d], t[d], &den[d]);
-  stride[NDIM - 1] = 1;
-#pragma unroll
-  for (int d = NDIM - 2; d >= 0; --d) stride[d] = stride[d + 1] * axes[d + 1].n;
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) gx[d] = T(0);
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    if (c == ncols) break;
-    out[c] = bad ? T(NAN) : T(0);
-  }
-  if (bad) return;
-  auto row = [&](int i) {
-    long long r = 0;
-#pragma unroll
-    for (int d = 0; d < NDIM; ++d) r += clampll(cell[d] + ((i >> (NDIM - 1 - d)) & 1), 0, axes[d].n - 1) * stride[d];
-    return table + r * row_len;
-  };
-  // the weight of corner i without axis `skip`'s factor (skip = -1: all)
-  auto weight = [&](int i, int skip) {
-    T w = T(1);
-#pragma unroll
-    for (int d = 0; d < NDIM; ++d) {
-      if (d == skip) continue;
-      w = w * (((i >> (NDIM - 1 - d)) & 1) ? t[d] : T(1) - t[d]);
-    }
-    return w;
-  };
-#pragma unroll
-  for (int i = 0; i < (1 << NDIM); ++i) {
-    const T* r = row(i);
-    const T w = weight(i, -1);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      if (c == ncols) break;
-      out[c] += w * __ldg(r + (cols ? cols[c] : c));
-    }
-  }
-  bool use[NC];
+  for (int off = G / 2; off > 0; off >>= 1) v |= __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// This lane's share of the vector-Jacobian product of a multilinear lerp at a
+// located cell, with the corners shared out as interp_group's (lane l takes
+// corners l, l + G, ...; VEC as there): gt[d] = the sum over its corners i of
+// s_i * d w_i / d t_d, where s_i = the sum over the columns c with g[c] != 0
+// of g[c] times the corner's value, and d w_i / d t_d is the product of the
+// other axes' factors with the sign of the corner's side. Nothing is read at
+// a bad point or where every g[c] is 0. Returns the bits (1 << c) of the
+// columns with g[c] != 0 of which one of this lane's corners holds a NaN
+// (callers that know the values already ignore it). No shuffle or vote.
+template <typename T, int NDIM, int G, int NC, int VEC = 0>
+__device__ __forceinline__ unsigned group_vjp_corners(const T* __restrict__ table, const Axis* axes,
+                                                      const GroupCell<T, NDIM>& gc, int row_len, const int* cols,
+                                                      int ncols, int l, const T* g, T* gt) {
+  static_assert(NC <= 32, "one bit a column");
   bool any = false;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    use[c] = c < ncols && !isnan(out[c]) && g[c] != T(0);
-    any = any || use[c];
+    if (c == ncols) break;
+    any = any || g[c] != T(0);
   }
-  if (!any) return;
-  T gt[NDIM];
 #pragma unroll
   for (int d = 0; d < NDIM; ++d) gt[d] = T(0);
+  unsigned nan_cols = 0u;
+  auto corner = [&](int i) {
+    long long r = 0;
 #pragma unroll
-  for (int i = 0; i < (1 << NDIM); ++i) {
-    const T* r = row(i);
+    for (int d = 0; d < NDIM; ++d)
+      r += clampll(gc.cell[d] + ((i >> (NDIM - 1 - d)) & 1), 0, axes[d].n - 1) * gc.stride[d];
+    const T* row = table + r * row_len;
     T s = T(0);
+    if constexpr (VEC > 0) {
+      static_assert(NC % VEC == 0 && VEC == 2, "whole pairs");
+      const typename Vec<T, VEC>::type* rv = reinterpret_cast<const typename Vec<T, VEC>::type*>(row);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      if (c == ncols) break;
-      if (use[c]) s += g[c] * __ldg(r + (cols ? cols[c] : c));
+      for (int c = 0; c < NC / VEC; ++c) {
+        if (c * VEC >= ncols) break;
+        const typename Vec<T, VEC>::type w = __ldg(rv + c);
+        if (g[2 * c] != T(0)) {
+          s += g[2 * c] * w.x;
+          nan_cols |= isnan(w.x) ? 1u << (2 * c) : 0u;
+        }
+        if (g[2 * c + 1] != T(0)) {
+          s += g[2 * c + 1] * w.y;
+          nan_cols |= isnan(w.y) ? 1u << (2 * c + 1) : 0u;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (c == ncols) break;
+        if (g[c] != T(0)) {
+          const T v = __ldg(row + (cols ? cols[c] : c));
+          s += g[c] * v;
+          nan_cols |= isnan(v) ? 1u << c : 0u;
+        }
+      }
     }
+    // d w_i / d t_d: the product of the other axes' factors, with the sign of the corner's side
 #pragma unroll
     for (int d = 0; d < NDIM; ++d) {
-      const T sw = s * weight(i, d);
+      T w = T(1);
+#pragma unroll
+      for (int e = 0; e < NDIM; ++e) {
+        if (e == d) continue;
+        w = w * (((i >> (NDIM - 1 - e)) & 1) ? gc.t[e] : T(1) - gc.t[e]);
+      }
+      const T sw = s * w;
       gt[d] += ((i >> (NDIM - 1 - d)) & 1) ? sw : -sw;
     }
-  }
+  };
+  if (!gc.bad && any) {
+    if constexpr (G == 1 && NDIM <= 4) {
 #pragma unroll
-  for (int d = 0; d < NDIM; ++d) gx[d] = lerp_slope(gt[d], den[d]);
+      for (int i = 0; i < (1 << NDIM); ++i) corner(i);
+    } else {  // past 16 corners a lane, unrolling them all spills
+      for (int i = l; i < (1 << NDIM); i += G) corner(i);
+    }
+  }
+  return nan_cols;
+}
+
+// The group's slopes from its lanes' shares gt (group_vjp_corners): gx[d] =
+// lerp_slope of the group's sum, 0 at a bad point. Every lane of the warp
+// calls it, and every lane of the group gets the sums.
+template <typename T, int NDIM, int G>
+__device__ __forceinline__ void group_slopes(const GroupCell<T, NDIM>& gc, const T* gt, T* gx) {
+#pragma unroll
+  for (int d = 0; d < NDIM; ++d) {
+    const T sum = group_sum<G>(gt[d]);  // every lane shuffles, bad or not
+    gx[d] = gc.bad ? T(0) : lerp_slope(sum, gc.den[d]);
+  }
+}
+
+// The vector-Jacobian product of a multilinear lerp by the G lanes of a
+// group, in the closed form torch.autograd takes through ops/interp.py's
+// gradient-safe path: gx[d] = the sum over the columns c with g[c] != 0 of
+// g[c] * d out[c] / d x[d] (group_locate, group_vjp_corners, group_slopes).
+// The caller, which holds the values from its forward pass, zeroes g[c]
+// where out[c] is NaN, so the corners are read for the products alone. A NaN
+// or out-of-bounds point gets 0. Every lane of the warp calls it (the cell
+// searches vote, the sums shuffle), and every lane of the group gets the
+// sums.
+template <typename T, int NDIM, int G, int NC, int VEC = 0>
+__device__ void group_vjp(const T* __restrict__ table, const Axis* axes, const T* x, int row_len, const int* cols,
+                          int ncols, int l, const T* g, T* gx) {
+  GroupCell<T, NDIM> gc;
+  group_locate<T, NDIM, G>(axes, x, l, gc);
+  T gt[NDIM];
+  group_vjp_corners<T, NDIM, G, NC, VEC>(table, axes, gc, row_len, cols, ncols, l, g, gt);
+  group_slopes<T, NDIM, G>(gc, gt, gx);
 }
 
 // reference likelihood.py:10-13, with its +log(unc) constant

@@ -376,9 +376,10 @@ void launch_geometry(long long B, int n_stars, int& np_shift, int& lanes) {
 //   flux cotangent taken onto the star's magnitude.
 // * Pass 2 recomputes no value: a group reads its star's values from the
 //   scratch and takes the cotangents through the BC lerp, the density and
-//   the model lerp by group_vjp (the corners shared out over the group, the
-//   products summed by a group shuffle; a column whose value is NaN gets no
-//   cotangent), then keeps the star's five partials in the scratch.
+//   the model lerp by interp_common.cuh::group_vjp (the corners shared out
+//   over the group, the products summed by a group shuffle; a column whose
+//   value is NaN gets no cotangent), then keeps the star's five partials in
+//   the scratch.
 // * The team's lanes share out the gradient's columns: each column sums the
 //   parallax and AV terms, then the stars' partials, in the first design's
 //   order, and one lane writes it into the point's row of g_pars.
@@ -408,99 +409,6 @@ __host__ __device__ __forceinline__ int grad_star_len(int n_bands) { return 12 +
 
 __host__ __device__ __forceinline__ int grad_scratch(int n_stars, int n_bands, int n_obs) {
   return n_stars * grad_star_len(n_bands) + 3 * n_obs;
-}
-
-// v[i] += x for the i that equals the runtime index k (no local memory)
-template <typename T, int N>
-__device__ __forceinline__ void add_at(T* v, int k, T x) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    if (i == k) v[i] += x;
-}
-
-// The vector-Jacobian product of a multilinear lerp by the G lanes of a
-// group: interp_common.cuh::interp_vjp's rule with the corners shared out as
-// interp_group's (lane l takes corners l, l + G, ...; VEC as there). gx[d] =
-// the sum over the columns c with g[c] != 0 of g[c] * d out[c] / d x[d]. The
-// caller, which holds the values from its forward pass, zeroes g[c] where
-// out[c] is NaN, so the corners are read for the products alone. A NaN or
-// out-of-bounds point gets 0. Every lane of the warp calls it (the cell
-// searches vote, the sums shuffle), and every lane of the group gets the
-// sums.
-template <typename T, int NDIM, int G, int NC, int VEC = 0>
-__device__ void group_vjp(const T* __restrict__ table, const Axis* axes, const T* x, int row_len, const int* cols,
-                          int ncols, int l, const T* g, T* gx) {
-  AxisReads<T> reads[NDIM];
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) locate_reads<T, G>(axes[d], x[d], l, reads[d]);
-  bool bad = false;
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) bad = bad || isnan(x[d]) || x[d] < reads[d].first || x[d] > reads[d].last;
-  long long cell[NDIM];
-  T t[NDIM], den[NDIM], gt[NDIM];
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) locate_finish<T, G>(axes[d], x[d], bad, l, reads[d], cell[d], t[d], &den[d]);
-  long long stride[NDIM];
-  stride[NDIM - 1] = 1;
-#pragma unroll
-  for (int d = NDIM - 2; d >= 0; --d) stride[d] = stride[d + 1] * axes[d + 1].n;
-  bool any = false;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    if (c == ncols) break;
-    any = any || g[c] != T(0);
-  }
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) gt[d] = T(0);
-  auto corner = [&](int i) {
-    long long r = 0;
-#pragma unroll
-    for (int d = 0; d < NDIM; ++d) r += clampll(cell[d] + ((i >> (NDIM - 1 - d)) & 1), 0, axes[d].n - 1) * stride[d];
-    const T* row = table + r * row_len;
-    T s = T(0);
-    if constexpr (VEC > 0) {
-      static_assert(NC % VEC == 0 && VEC == 2, "whole pairs");
-      const typename Vec<T, VEC>::type* rv = reinterpret_cast<const typename Vec<T, VEC>::type*>(row);
-#pragma unroll
-      for (int c = 0; c < NC / VEC; ++c) {
-        if (c * VEC >= ncols) break;
-        const typename Vec<T, VEC>::type w = __ldg(rv + c);
-        if (g[2 * c] != T(0)) s += g[2 * c] * w.x;
-        if (g[2 * c + 1] != T(0)) s += g[2 * c + 1] * w.y;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        if (c == ncols) break;
-        if (g[c] != T(0)) s += g[c] * __ldg(row + (cols ? cols[c] : c));
-      }
-    }
-    // d w_i / d t_d: the product of the other axes' factors, with the sign of the corner's side
-#pragma unroll
-    for (int d = 0; d < NDIM; ++d) {
-      T w = T(1);
-#pragma unroll
-      for (int e = 0; e < NDIM; ++e) {
-        if (e == d) continue;
-        w = w * (((i >> (NDIM - 1 - e)) & 1) ? t[e] : T(1) - t[e]);
-      }
-      const T sw = s * w;
-      gt[d] += ((i >> (NDIM - 1 - d)) & 1) ? sw : -sw;
-    }
-  };
-  if (!bad && any) {
-    if constexpr (G == 1) {
-#pragma unroll
-      for (int i = 0; i < (1 << NDIM); ++i) corner(i);
-    } else {
-      for (int i = l; i < (1 << NDIM); i += G) corner(i);
-    }
-  }
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) {
-    const T sum = group_sum<G>(gt[d]);  // every lane shuffles, bad or not
-    gx[d] = bad ? T(0) : lerp_slope(sum, den[d]);
-  }
 }
 
 // teams of G << np_shift lanes, as tree_lnlike_kernel's; blockDim.x is 128,

@@ -8,8 +8,9 @@ the card and how the design answers that. The plain version it replaces is
 :func:`isochrones_torch.ops.interp.interp_nd_plain`.
 
 The wrapper describes the table in one by-value argument struct (axis kinds
-and constants, knot pointers, each wanted column's offset within a row) and
-launches one lane a point. It reads the row layout, or, where the caller asks
+and constants, knot pointers, each wanted column's offset within a row);
+kernel B runs one lane a point, B' a group of lanes a point whose width the
+kernel derives from the batch (the source's note gives the rule). It reads the row layout, or, where the caller asks
 for it, a column-planar copy of the wanted columns that it builds once per
 table and column tuple (:func:`planar_columns`); both are launches of the
 same kernel and count alike. :func:`launch_choice` picks the kernel's
@@ -30,8 +31,8 @@ import torch.utils.weak
 from ._build import load_library
 from ._grad import refuse_grad
 
-__all__ = ["interp_nd_cuda", "interp_nd_grad_cuda", "InterpNd", "launch_choice", "planar_columns", "MAX_DIM",
-           "MAX_COLS", "EXACT_COLS", "EXACT_MAX_DIM", "CHUNK", "WIDE_ELEMENTS"]
+__all__ = ["interp_nd_cuda", "interp_nd_grad_cuda", "InterpNd", "launch_choice", "grad_lanes", "planar_columns",
+           "MAX_DIM", "MAX_COLS", "EXACT_COLS", "EXACT_MAX_DIM", "CHUNK", "WIDE_ELEMENTS"]
 
 #: the kernels' caps on the grid's axes and on the columns of one call
 MAX_DIM = 6
@@ -92,6 +93,14 @@ def launch_choice(table_len: int, ncols: int, ndim: int) -> Tuple[int, bool]:
     wide = table_len >= WIDE_ELEMENTS
     exact = not wide and 1 <= ncols <= EXACT_COLS and ndim <= EXACT_MAX_DIM
     return (ncols if exact else CHUNK), wide
+
+
+def grad_lanes(n_points: int, ndim: int) -> int:
+    """The lanes a point that kernel B' gives ``n_points`` points on a grid of
+    ``ndim`` axes (the rule is in the source's note)."""
+    fn = _lib().interp_nd_grad_lanes  # declared here: another version's library may lack it
+    fn.argtypes, fn.restype = [ctypes.c_longlong, ctypes.c_int], ctypes.c_int
+    return fn(int(n_points), int(ndim))
 
 
 #: column-planar copies by table (weakly: a copy lives as long as its table),

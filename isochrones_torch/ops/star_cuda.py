@@ -13,8 +13,9 @@ and patched with the per-call pointers. The kernel gives each (point,
 component) a group of lanes whose width it derives from the batch (the
 source's note gives the rule).
 
-Its backward (kernel A', ``star_lnlike_grad_*`` in the same source, one lane
-a point) replaces the JAX package's reverse-mode of the same function, which
+Its backward (kernel A', ``star_lnlike_grad_*`` in the same source, the
+forward's team of lanes a point) replaces the JAX package's reverse-mode of
+the same function, which
 NUTS takes (``isochrones_tpu/samplers/nuts.py:59-69``). Where autograd
 records a call, :func:`star_lnlike_cuda` goes through :class:`StarLnlike`,
 whose forward is kernel A and backward kernel A'; each wrapper counts its
@@ -33,7 +34,7 @@ import torch
 from ._build import load_library
 from .star import StarLikelihood
 
-__all__ = ["star_lnlike_cuda", "star_lnlike_grad_cuda", "StarLnlike"]
+__all__ = ["star_lnlike_cuda", "star_lnlike_grad_cuda", "StarLnlike", "launch_geometry"]
 
 _MAX_BANDS = 16
 #: axis-map kind -> the kernel's AxisKind (None: searchsorted)
@@ -94,6 +95,18 @@ def _lib():
     if lib.star_lnlike_max_bands() != _MAX_BANDS:
         raise RuntimeError("star kernel band limit differs from the wrapper's")
     return lib
+
+
+def launch_geometry(n_points: int, n_stars: int):
+    """``(component groups per point, lanes per group)`` that kernels A and A'
+    give a batch of ``n_points`` points with ``n_stars`` components (the rule
+    is in the source's note)."""
+    fn = _lib().star_lnlike_geometry  # declared here: another version's library may lack it
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    groups, lanes = ctypes.c_int(), ctypes.c_int()
+    fn(int(n_points), int(n_stars), ctypes.byref(groups), ctypes.byref(lanes))
+    return groups.value, lanes.value
 
 
 def _axes(grid, dtype, device, name):

@@ -108,10 +108,11 @@ class Prior:
         x = np.asarray(x)
         return np.where((x < lo) | (x > hi), 0.0, self._pdf(x, **kwargs) / self._norm)
 
-    def lnpdf(self, x: torch.Tensor) -> torch.Tensor:
-        """Log-pdf on a tensor, -inf outside the finite bounds."""
+    def lnpdf(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        """Log-pdf on a tensor, -inf outside the finite bounds; ``kwargs`` go
+        to ``_lnpdf``, as in the JAX package."""
         lo, hi = self.bounds
-        ln = self._lnpdf(x) - math.log(self._norm)
+        ln = self._lnpdf(x, **kwargs) - math.log(self._norm)
         inb = torch.ones_like(x, dtype=torch.bool)
         if np.isfinite(lo):
             inb = inb & (x >= lo)
@@ -185,8 +186,8 @@ class BoundedPrior(Prior):
                 return np.where((np.asarray(x) < lo) | (np.asarray(x) > hi), 0.0, self._pdf(x, **kwargs))
         return self._pdf(x, **kwargs)
 
-    def lnpdf(self, x: torch.Tensor) -> torch.Tensor:
-        ln = self._lnpdf(x)
+    def lnpdf(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        ln = self._lnpdf(x, **kwargs)
         if self.bounds is not None:
             lo, hi = self.bounds
             ln = torch.where((x < lo) | (x > hi), _NEG_INF, ln)

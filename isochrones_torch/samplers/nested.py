@@ -59,8 +59,8 @@ class NestedResult(NamedTuple):
     logl_posterior: np.ndarray  # lnpost values for the equal-weight samples
     ess: float = np.nan  # effective sample size of the posterior weights
     truncated: bool = False  # ESS still below min_ess when the budget ran out
-    dynamic_rounds: int = 0  # posterior-bulk thread rounds run (dynamic=True)
     logz_runs: np.ndarray = None  # per-run evidences (n_runs > 1)
+    dynamic_rounds: int = 0  # posterior-bulk thread rounds run (dynamic=True)
 
 
 # ---------------------------------------------------------------- host assembly
@@ -535,6 +535,7 @@ def run_nested(
     rng=None,
     min_ess: float = 100.0,
     on_low_ess: str = "extend",
+    core: Callable = None,
     n_runs: int = 1,
     mesh=None,
     dynamic: bool = False,
@@ -545,7 +546,6 @@ def run_nested(
     config_tag: str = None,
     dtype: torch.dtype = torch.float64,
     device=None,
-    core: Callable = None,
 ) -> NestedResult:
     """Nested-sampling fit (reference samplers/nested.py:514-899).
 
@@ -563,6 +563,12 @@ def run_nested(
         (clamped to n_live // 4).
     max_iter : hard cap on dead points (default 1000 * n_live).
     on_low_ess : "extend"/"warn" warn and flag ``truncated``; "raise" raises.
+    core : the replacement kernel, in place of :func:`_nested_core`, with its
+        signature and its carry and return contract (``(dead_u, dead_lnl,
+        live_u, live_lnl, scale)``, the dead points of each batch in
+        ascending lnL); the base run and the dynamic threads both run it
+        (:func:`~isochrones_torch.samplers.polychord.run_polychord`'s slice
+        sampler). Not with ``n_runs > 1``.
     dynamic : dynamic nested sampling (Higson et al. 2019). The base run stops
         on the evidence criterion alone; while the posterior ESS is below
         ``min_ess``, posterior-focused threads run: fresh ``n_live``-point
@@ -584,12 +590,6 @@ def run_nested(
     config_tag : opaque string folded into the checkpoint's configuration;
         callers hash the problem (data, bounds, seed) into it.
     dtype : dtype of the unit-cube points handed to the likelihood.
-    core : the replacement kernel, in place of :func:`_nested_core`, with its
-        signature and its carry and return contract (``(dead_u, dead_lnl,
-        live_u, live_lnl, scale)``, the dead points of each batch in
-        ascending lnL); the base run and the dynamic threads both run it
-        (:func:`~isochrones_torch.samplers.polychord.run_polychord`'s slice
-        sampler). Not with ``n_runs > 1``.
 
     n_runs : > 1 runs this many independent runs of the same problem in
         lockstep (:func:`_run_nested_multi`): one likelihood call of ``n_runs

@@ -463,7 +463,9 @@ class BasicStarModel:
     def lnprior(self, p):
         return self._eval_scalar(self._get_fn("lnprior"), p)
 
-    def lnpost(self, p):
+    def lnpost(self, p, **kwargs):
+        """The log-posterior at one point or a batch; ``kwargs`` are ignored,
+        as in the reference."""
         return self._eval_scalar(self._get_fn("lnpost"), p)
 
     # ------------------------------------------------------------ transforms
@@ -712,8 +714,8 @@ class BasicStarModel:
         self._set_samples(result.posterior, result.logl_posterior)
         return result
 
-    def fit_mcmc(self, nwalkers=300, nburn=200, niter=100, thin=1, p0=None, seed=None, moves="stretch",
-                 mesh=None, **kwargs):
+    def fit_mcmc(self, nwalkers=300, nburn=200, niter=100, thin=1, p0=None, seed=None, mesh=None,
+                 moves="stretch", **kwargs):
         """On-device affine-invariant ensemble MCMC (reference
         starmodel.py:886-972). ``moves``: "stretch", "de", "snooker", "kde"
         or "mixed". ``mesh`` (sharding the walkers across devices) is not

@@ -18,8 +18,10 @@ current, current, the baselines in reverse. Shapes: the cluster
 marginal at (S, E, B) = (50, 700, 3) and (50, 1710, 3) with W = 8 walkers
 (float32; float64 at the first), the fused star likelihood of the bench's
 binary on the MIST-scale grid at the nested fit's batch of 1024 points and at
-131072 points (float32; float64 at the second), and the tree likelihood of
-the smoke run's three-star plan at the same two batches and types. A
+131072 points (float32; float64 at the second), the tree likelihood of
+the smoke run's three-star plan at the same two batches and types, the
+catalog posterior on the smoke's 256-star catalogue at 256 points a star
+and the forward model at 1,000,000 points (float32). A
 baseline whose tree kernel is the first version (one thread per point, ``ll``
 alone, another argument struct) is called through that version's struct and
 held to the plain version's ``ll``. ``--reps 0`` builds and checks only. Prints one line per case and, with ``--out``, writes the numbers
@@ -47,13 +49,18 @@ import torch
 
 import isochrones_torch
 from chip_smoke import (
-    ATOL_F32, ATOL_STAR_F32, ATOL_TREE_COL_F32, ATOL_TREE_F32, ATOL_TREE_F64, GRID, NESTED, RTOL_F32, RTOL_F64,
-    RTOL_STAR_F32, RTOL_STAR_F64, RTOL_TREE_COL_F32, RTOL_TREE_F32, RTOL_TREE_F64, STAR_BATCH, STAR_BOX, as_float32,
-    check_close, check_star, grid_as, kernel_ms, make_kernel_inputs, star_observations, star_points, to_torch,
-    tree_likelihood_as, tree_points, write_tree_ini,
+    ATOL_F32, ATOL_STAR_F32, ATOL_TREE_COL_F32, ATOL_TREE_F32, ATOL_TREE_F64, CAT_BANDS, CAT_EEP_BOX, CAT_POINTS,
+    CAT_STARS, GEN_POINTS, GRID, NESTED, RTOL_F32, RTOL_F64, RTOL_STAR_F32, RTOL_STAR_F64, RTOL_TREE_COL_F32,
+    RTOL_TREE_F32, RTOL_TREE_F64, STAR_BATCH, STAR_BOX, as_float32, catalog_likelihood_as, catalog_points,
+    catalog_priors_as, catalog_table, check_close, check_generate, check_star, generate_points, grid_as, kernel_ms,
+    make_kernel_inputs, star_observations, star_points, to_torch, tree_likelihood_as, tree_points, write_tree_ini,
 )
-from isochrones_torch.ops import _build, cluster_cuda, interp_cuda, star_cuda, tree_cuda
+from isochrones_torch.batch import BatchStarFitter
+from isochrones_torch.ops import _build, catalog_cuda, cluster_cuda, generate_cuda, interp_cuda, star_cuda, tree_cuda
+from isochrones_torch.ops.catalog import catalog_lnpost_plain
 from isochrones_torch.ops.cluster import cluster_lnmarginal_plain
+from isochrones_torch.ops.eep import interp_eep
+from isochrones_torch.ops.generate import generate_plain
 from isochrones_torch.ops.star import star_lnlike_fused_plain
 from isochrones_torch.ops.tree import tree_lnlike_fused_plain
 from isochrones_torch.treemodel import StarModel
@@ -124,7 +131,7 @@ def inner_loop_mix(lib_path, kernel=CLUSTER_F32):
     raise RuntimeError(f"no loop of a kernel matching {kernel.pattern} in {lib_path}")
 
 
-_WRAPPERS = (cluster_cuda, star_cuda, tree_cuda, interp_cuda)
+_WRAPPERS = (cluster_cuda, star_cuda, tree_cuda, interp_cuda, catalog_cuda, generate_cuda)
 
 
 @contextlib.contextmanager
@@ -211,7 +218,8 @@ class Baseline:
     called on the current wrappers' inputs: ``run(fn)`` calls ``fn`` with
     the wrappers routed through that library (:func:`using`; for kernels
     whose argument struct is the current one), ``interp`` calls its kernel B
-    whichever of the two argument structs it takes."""
+    whichever of the two argument structs it takes, ``star_grad`` and
+    ``interp_grad`` its kernels A' and B'."""
 
     def __init__(self, lib, seconds=0.0, log=""):
         self.lib, self.seconds, self.log = lib, seconds, log
@@ -225,6 +233,26 @@ class Baseline:
     def run(self, fn):
         with using(self.lib):
             return fn()
+
+    def star_grad(self, pars, lk, g_ll, g_orig, g_deriv):
+        """Kernel A' of this version on the call ``star_lnlike_grad_cuda(pars,
+        lk, g_ll, g_orig, g_deriv)``: A' has kept its entry points and both
+        argument structs since its first design, so the current wrapper calls
+        it (checked by the structs' sizes)."""
+        for name, struct in (("star_lnlike_args_size", star_cuda._StarArgs),
+                             ("star_lnlike_grad_args_size", star_cuda._StarGradArgs)):
+            getattr(self.lib, name).restype = ctypes.c_int
+            if getattr(self.lib, name)() != ctypes.sizeof(struct):
+                raise RuntimeError(f"the baseline's kernel A' takes another argument struct ({name})")
+        return self.run(lambda: star_cuda.star_lnlike_grad_cuda(pars, lk, g_ll, g_orig, g_deriv))
+
+    def interp_grad(self, values, knots, points, grad_out, icols=None, axis_maps=None):
+        """Kernel B' of this version on the call ``interp_nd_grad_cuda(values,
+        knots, points, grad_out, icols, axis_maps)``, through the current
+        wrapper (checked by the argument struct's size)."""
+        if self.lib.interp_nd_args_size() != ctypes.sizeof(interp_cuda._InterpArgs):
+            raise RuntimeError("the baseline's kernel B' takes another argument struct")
+        return self.run(lambda: interp_cuda.interp_nd_grad_cuda(values, knots, points, grad_out, icols, axis_maps))
 
     def interp(self, values, knots, points, icols=None, axis_maps=None, planar=False):
         """Kernel B of this version on the call ``interp_nd_cuda(values,
@@ -336,6 +364,54 @@ def _star_cases(ic32, ic64, dev):
     return out
 
 
+def _catalog_cases(ic32, ic64, dev):
+    """The catalog posterior kernel (E) on the smoke's seeded 256-star
+    catalogue at 256 points a star, float32, against its plain version."""
+    truths, table = catalog_table(ic64, CAT_STARS, CAT_EEP_BOX)
+    fit32 = BatchStarFitter(ic32, table, bands=CAT_BANDS)
+    lk32, pri32 = fit32._catalog_likelihood(), fit32._catalog_priors()
+    lk32up, pri32up = catalog_likelihood_as(lk32, torch.float64), catalog_priors_as(pri32, torch.float64)
+    p32 = torch.as_tensor(catalog_points(ic64, truths, CAT_POINTS, seed=16), device=dev, dtype=torch.float32)
+    ref = catalog_lnpost_plain(p32.double(), lk32up, pri32up)[0].cpu().numpy()
+
+    def run(lib):
+        return catalog_cuda.catalog_lnpost_cuda(p32, lk32, pri32)[0]
+
+    def check(got):
+        return check_star(f"catalog S={CAT_STARS} B={CAT_POINTS} float32", [got.cpu().numpy()], [ref],
+                          RTOL_STAR_F32, ATOL_STAR_F32)
+
+    return [(f"catalog_lnpost S={CAT_STARS} B={CAT_POINTS} 3 bands float32", "catalog_lnlike", run, check)]
+
+
+def _generate_cases(ic32, dev):
+    """The forward-model kernel (F) at the smoke's 1,000,000 seeded points,
+    every model column and band, float32, against its plain version on the
+    same float32 tables in float64."""
+    import dataclasses as dc
+
+    tr32 = ic32.track
+    fm32 = tr32._forward_model
+    up = [grid_as(g, torch.float64) for g in (fm32.model, fm32.model_packed, fm32.bc)]
+    sup = tuple(x.double() if x.is_floating_point() else x for x in fm32.eep_support)
+    fm32up = dc.replace(fm32, model=up[0], model_packed=up[1], bc=up[2], eep_support=sup)
+    icols = tr32.model.icols("all")
+    bcols = tuple(tr32.bc.column_index[b] for b in tr32.bands)
+    x32 = [torch.as_tensor(c, device=dev, dtype=torch.float32) for c in generate_points(tr32, GEN_POINTS, seed=20)]
+    x32up = [x.double() for x in x32]
+
+    def run(lib):
+        return generate_cuda.generate_cuda(fm32, *x32, icols, bcols)
+
+    def check(got):
+        e_ref = interp_eep(x32up[1], x32up[2], x32up[0], *fm32up.eep_support, eep0=fm32up.eep0)
+        ref = generate_plain(fm32up, *x32up, icols, bcols, eeps=got[0].double())
+        return check_generate(f"generate N={GEN_POINTS} float32", got, (e_ref,) + tuple(ref[1:]), "float32")
+
+    return [(f"generate N={GEN_POINTS} {len(icols)} columns {len(bcols)} bands float32", "generate_kernel", run,
+             check)]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--baseline", nargs="*", default=[],
@@ -367,7 +443,9 @@ def main():
     results = {"device": smi, "reps": args.reps, "order": order, "inner_loop_mix": mixes, "cases": {}}
     ic32 = isochrones_torch.get_ichrone("synthetic", device=dev, dtype=torch.float32, **GRID)
     ic64 = isochrones_torch.get_ichrone("synthetic", device=dev, dtype=torch.float64, **GRID)
-    for label, kname, run, check in _cluster_cases(dev) + _star_cases(ic32, ic64, dev) + _tree_cases(ic32, ic64, dev):
+    cases = (_cluster_cases(dev) + _star_cases(ic32, ic64, dev) + _tree_cases(ic32, ic64, dev)
+             + _catalog_cases(ic32, ic64, dev) + _generate_cases(ic32, dev))
+    for label, kname, run, check in cases:
         row = {}
         for name, lib in libs.items():
             with using(lib):

@@ -3,7 +3,8 @@
 // were timed, with the build switches that the library's source does not
 // keep. Only the tune script builds it (with -I isochrones_torch/csrc, for
 // interp_common.cuh); the library never does. Its entry points and argument
-// struct are the library's, float32 and float64 in one unit.
+// struct are the library's, float32 and float64 in one unit; its B' entry
+// points return cudaErrorNotSupported (B' is the library's alone).
 //
 // -DINTERP_STAGED_IO=1: the points in by 16-byte cp.async copies into
 //   shared memory and, where ncols >= 2, the values out through shared
@@ -311,37 +312,6 @@ __global__ void __launch_bounds__(kThreads) interp_nd_kernel(const __grid_consta
   }
 }
 
-// B' (not redesigned): per chunk of columns, interp_common.cuh::interp_vjp
-// (which locates the cell again: a chunk's cost is its gathers, not the knot
-// reads); the chunks' slopes are summed. It reads either layout.
-template <typename T, int NDIM>
-__global__ void __launch_bounds__(kThreads) interp_nd_grad_kernel(const __grid_constant__ InterpArgs a) {
-  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool live = p < a.P;
-  const T* pts = static_cast<const T*>(a.points);
-  const T* gout = static_cast<const T*>(a.grad_out);
-  const T* table = static_cast<const T*>(a.table);
-  T x[NDIM], gx[NDIM];
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) {
-    x[d] = live ? pts[p * NDIM + d] : T(NAN);
-    gx[d] = T(0);
-  }
-  for (int c0 = 0; c0 < a.ncols; c0 += kChunk) {
-    const int nc = a.ncols - c0 < kChunk ? a.ncols - c0 : kChunk;
-    T g[kChunk], vals[kChunk], gc[NDIM];
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) g[c] = live && c < nc ? gout[p * a.ncols + c0 + c] : T(0);
-    interp_vjp<T, NDIM, kChunk>(table, a.axes, x, a.row_len, a.cols + c0, nc, g, vals, gc);
-#pragma unroll
-    for (int d = 0; d < NDIM; ++d) gx[d] = add_rn(gx[d], gc[d]);
-  }
-  if (!live) return;
-  T* out = static_cast<T*>(a.out) + p * NDIM;
-#pragma unroll
-  for (int d = 0; d < NDIM; ++d) out[d] = gx[d];
-}
-
 template <typename T, int NDIM, int NC, bool WIDE>
 cudaError_t launch_b(const InterpArgs& a, unsigned blocks, cudaStream_t st) {
   interp_nd_kernel<T, NDIM, NC, WIDE><<<blocks, kThreads, 0, st>>>(a);
@@ -351,8 +321,7 @@ cudaError_t launch_b(const InterpArgs& a, unsigned blocks, cudaStream_t st) {
 template <typename T, bool GRAD, int NDIM>
 cudaError_t launch_nd(const InterpArgs& a, unsigned blocks, cudaStream_t st) {
   if constexpr (GRAD) {
-    interp_nd_grad_kernel<T, NDIM><<<blocks, kThreads, 0, st>>>(a);
-    return cudaGetLastError();
+    return cudaErrorNotSupported;  // B' is not among the variants: the library's source holds it
   } else {
     if (a.wide) return launch_b<T, NDIM, kChunk, true>(a, blocks, st);
     if constexpr (NDIM <= kExactMaxDim) {

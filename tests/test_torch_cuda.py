@@ -1353,13 +1353,20 @@ def _grad_both(kernel, plain_fn, lk64, lk32, lk32up, pts, n_out, name):
                RTOL_GRAD_F32)
 
 
-@pytest.mark.parametrize("B", [1, 31, 1024, 4097])
+#: A''s batches: the NUTS chains' 4 and 8, batches that leave idle lanes in
+#: the last warp, and (at N = 2) one batch of each group width, 16 lanes up
+#: to 8192 points, then 8, 4, 2 and 1 (the forward's rule, group_lanes)
+_STAR_GRAD_BATCHES = [1, 4, 8, 31, 1024, 4097, 12000, 20000, 50000, 70000]
+
+
+@pytest.mark.parametrize("B", _STAR_GRAD_BATCHES)
 @pytest.mark.parametrize("kind", ["default", "log", "compare", "searchsorted"])
 @pytest.mark.parametrize("N", [1, 2, 3])
 def test_star_grad_kernel_matches_autograd(dev, N, kind, B):
     """A' against autograd of the plain version on adversarial points
     (knots, top knots, out of bounds, NaN, AV past the BC grid, distance <=
-    0), every axis-map kind, batches that leave idle lanes in the last warp."""
+    0), every axis-map kind, batches that take every group width and that
+    leave idle lanes in the last warp."""
     from isochrones_torch.ops.star_cuda import star_lnlike_grad_cuda
 
     lk = _likelihood(dev, torch.float64, N, kind)
@@ -1367,6 +1374,51 @@ def test_star_grad_kernel_matches_autograd(dev, N, kind, B):
     lk32up = dataclasses.replace(lk, pack6=grid_as(lk32.pack6, torch.float64), bc=grid_as(lk32.bc, torch.float64))
     pts = star_points(lk.pack6.knots, N, B, seed=B + N)
     _grad_both(star_lnlike_grad_cuda, star_lnlike_fused_plain, lk, lk32, lk32up, pts, N, f"N={N} {kind} B={B}")
+
+
+#: (components, batch, lanes a component): A' takes the forward's group
+#: widths, 16 lanes (8 at N = 3) while B * NP * G stays within 2^18 threads
+_STAR_GRAD_WIDTHS = [(2, 4, 16), (2, 8, 16), (2, 8192, 16), (2, 12000, 8), (2, 20000, 4), (2, 50000, 2),
+                     (2, 70000, 1), (1, 16384, 16), (1, 20000, 8), (1, 140000, 1), (3, 4, 8), (3, 12000, 4),
+                     (3, 70000, 1)]
+
+
+@pytest.mark.parametrize("N,B,lanes", _STAR_GRAD_WIDTHS)
+def test_star_grad_kernel_group_widths(dev, N, B, lanes):
+    """A' and A take the group width that their one rule gives the batch (the
+    library's own choice, ``star_cuda.launch_geometry``), and at that width A'
+    agrees with autograd of the plain version."""
+    from isochrones_torch.ops.star_cuda import launch_geometry, star_lnlike_grad_cuda
+
+    lk = _likelihood(dev, torch.float64, N, "default")
+    p = torch.as_tensor(star_points(lk.pack6.knots, N, B, seed=lanes), device=dev, dtype=torch.float64)
+    assert launch_geometry(B, N) == ({1: 1, 2: 2, 3: 4}[N], lanes)
+    lk32 = dataclasses.replace(lk, pack6=grid_as(lk.pack6, torch.float32), bc=grid_as(lk.bc, torch.float32))
+    lk32up = dataclasses.replace(lk, pack6=grid_as(lk32.pack6, torch.float64), bc=grid_as(lk32.bc, torch.float64))
+    _grad_both(star_lnlike_grad_cuda, star_lnlike_fused_plain, lk, lk32, lk32up, p.cpu().numpy(), N,
+               f"N={N} B={B} G={lanes}")
+
+
+@pytest.mark.parametrize("N,B", [(1, 4), (2, 8), (2, 1024), (2, 50000), (3, 777), (3, 70000)])
+def test_star_grad_kernel_two_launches_bitwise_equal(dev, N, B):
+    """A' has no atomics and sums in an order fixed by the launch geometry:
+    two launches give the same bits, and a point's gradient does not depend
+    on the points beside it."""
+    from chip_smoke import grad_cotangents
+    from isochrones_torch.ops.star_cuda import star_lnlike_grad_cuda
+
+    lk64 = _likelihood(dev, torch.float64, N, "default")
+    for dtype in (torch.float64, torch.float32):
+        lk = lk64 if dtype == torch.float64 else dataclasses.replace(
+            lk64, pack6=grid_as(lk64.pack6, dtype), bc=grid_as(lk64.bc, dtype))
+        p = torch.as_tensor(star_points(lk64.pack6.knots, N, B, seed=9), device=dev, dtype=dtype)
+        cot = grad_cotangents(B, N, 4, dev, dtype)
+        first = star_lnlike_grad_cuda(p, lk, *cot).clone()
+        second = star_lnlike_grad_cuda(p, lk, *cot)
+        flipped = star_lnlike_grad_cuda(p.flip(0).contiguous(), lk, *(c.flip(0).contiguous() for c in cot)).flip(0)
+        bits = torch.int64 if dtype == torch.float64 else torch.int32
+        assert torch.equal(first.view(bits), second.view(bits))
+        assert torch.equal(torch.nan_to_num(first, nan=-1.0), torch.nan_to_num(flipped, nan=-1.0))
 
 
 @pytest.mark.parametrize("drop", [("logg",), ("J", "H", "K", "G"), ("parallax",)],
@@ -1732,23 +1784,25 @@ def test_interp_kernel_refuses(dev):
         interp_nd_cuda(v.clone().requires_grad_(True), k, pts, axis_maps=maps)
 
 
+@pytest.mark.parametrize("P", [4, 8, 3001])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("icols", [(1,), (2, 0), tuple(range(12))])
 @pytest.mark.parametrize("kinds", _INTERP_CASES[3:], ids=lambda k: "-".join(k))
-def test_interp_grad_kernel_matches_autograd(dev, kinds, icols, dtype):
+def test_interp_grad_kernel_matches_autograd(dev, kinds, icols, dtype, P):
     """Kernel B' (through ``InterpNd``) against torch autograd of the plain
     version with a seeded cotangent: float64 to 1e-9 of the row's scale,
     float32 against the plain float32 version to ``RTOL_GRAD_F32``;
     identical NaN patterns (none: a bad point and a NaN value pass 0); one
-    backward launch."""
+    backward launch. At the NUTS chains' 4 and 8 points (a group of lanes a
+    point) and at 3001; 12 columns take two chunks from one cell search."""
     from chip_smoke import RTOL_GRAD_F32, RTOL_GRAD_F64, check_grad, interp_points
     from isochrones_torch.ops.interp import interp_nd, interp_nd_plain
     from isochrones_torch.ops.interp_cuda import interp_nd_grad_cuda
 
     values, knots, maps = _interp_grid(kinds, 12, seed=11)
     v, k = _interp_on(values, knots, dev, dtype)
-    pts = torch.as_tensor(interp_points(knots, 3001, seed=4), device=dev, dtype=dtype)
-    cot = torch.as_tensor(np.random.default_rng(1).normal(size=(3001, len(icols))), device=dev, dtype=dtype)
+    pts = torch.as_tensor(interp_points(knots, P, seed=4), device=dev, dtype=dtype)
+    cot = torch.as_tensor(np.random.default_rng(1).normal(size=(P, len(icols))), device=dev, dtype=dtype)
 
     def grad(fn):
         x = pts.clone().requires_grad_(True)
@@ -1758,9 +1812,74 @@ def test_interp_grad_kernel_matches_autograd(dev, kinds, icols, dtype):
     before = interp_nd_grad_cuda.launches
     got = grad(interp_nd)
     assert interp_nd_grad_cuda.launches == before + 1
-    check_grad(f"interp grad {kinds} {dtype}", got, grad(interp_nd_plain),
+    check_grad(f"interp grad {kinds} {dtype} P={P}", got, grad(interp_nd_plain),
                RTOL_GRAD_F64 if dtype == torch.float64 else RTOL_GRAD_F32)
-    assert np.isfinite(got).all() and (got != 0).any()
+    assert np.isfinite(got).all()
+    if P > 8:  # a few adversarial points may all be off the grid or beside a NaN row
+        assert (got != 0).any()
+
+
+#: (grid, points, lanes a point): 8 lanes a point on 3 axes and 16 on 4
+#: while P * G stays within 2^18 threads, halving to 1 at large batches
+_INTERP_GRAD_WIDTHS = [("model", 4, 8), ("model", 8, 8), ("model", 32768, 8), ("model", 40000, 4),
+                       ("model", 100000, 2), ("model", 140000, 1), ("bc", 4, 16), ("bc", 8, 16),
+                       ("bc", 16384, 16), ("bc", 20000, 8), ("bc", 40000, 4), ("bc", 131072, 2),
+                       ("bc", 140000, 1)]
+
+
+@pytest.mark.parametrize("which,P,lanes", _INTERP_GRAD_WIDTHS)
+def test_interp_grad_kernel_group_widths(dev, which, P, lanes):
+    """B' on the small synthetic model grid (3 axes, ``nu_max`` and
+    ``delta_nu``, as the seismic terms call it) and on its 4-axis BC grid
+    (every one of its 11 columns: two chunks from one cell search) at
+    adversarial points: the group width its rule gives (the library's own
+    choice, ``interp_cuda.grad_lanes``), and autograd of the plain version,
+    float64 and float32."""
+    from chip_smoke import RTOL_GRAD_F32, RTOL_GRAD_F64, check_grad, interp_points
+    from isochrones_torch.ops.interp import interp_nd_plain
+    from isochrones_torch.ops.interp_cuda import grad_lanes, interp_nd_grad_cuda
+
+    ic = get_ichrone("synthetic", device=dev, **_SMALL)
+    grid = ic.model if which == "model" else ic.bc
+    assert grad_lanes(P, len(grid.knots)) == lanes
+    icols = (grid.column_index["nu_max"], grid.column_index["delta_nu"]) if which == "model" else None
+    n_cols = 2 if which == "model" else len(grid.columns)
+    pts64 = torch.as_tensor(interp_points(grid.knots, P, seed=P % 97), device=dev, dtype=torch.float64)
+    cot64 = torch.as_tensor(np.random.default_rng(P).normal(size=(P, n_cols)), device=dev, dtype=torch.float64)
+    for dtype in (torch.float64, torch.float32):
+        g = grid if dtype == torch.float64 else grid_as(grid, dtype)
+        pts, cot = pts64.to(dtype), cot64.to(dtype)
+        call = lambda: interp_nd_grad_cuda(g.values, g.knots, pts, cot, icols, g.axis_maps)  # noqa: E731
+        with torch.enable_grad():
+            x = pts.clone().requires_grad_(True)
+            (ref,) = torch.autograd.grad(interp_nd_plain(g.values, g.knots, x, icols=icols, axis_maps=g.axis_maps),
+                                         x, grad_outputs=cot)
+        check_grad(f"B' {which} P={P} {dtype}", call().cpu().numpy(), ref.cpu().numpy(),
+                   RTOL_GRAD_F64 if dtype == torch.float64 else RTOL_GRAD_F32)
+
+
+@pytest.mark.parametrize("which,P", [("model", 4), ("model", 8), ("model", 131072), ("bc", 8), ("bc", 20000)])
+def test_interp_grad_kernel_two_launches_bitwise_equal(dev, which, P):
+    """B' has no atomics: two launches give the same bits, and a point's
+    gradient does not depend on the points beside it."""
+    from chip_smoke import interp_points
+    from isochrones_torch.ops.interp_cuda import interp_nd_grad_cuda
+
+    ic = get_ichrone("synthetic", device=dev, **_SMALL)
+    grid = ic.model if which == "model" else ic.bc
+    icols = (grid.column_index["nu_max"], grid.column_index["delta_nu"]) if which == "model" else None
+    n_cols = 2 if which == "model" else len(grid.columns)
+    for dtype in (torch.float64, torch.float32):
+        g = grid if dtype == torch.float64 else grid_as(grid, dtype)
+        pts = torch.as_tensor(interp_points(grid.knots, P, seed=3), device=dev, dtype=dtype)
+        cot = torch.as_tensor(np.random.default_rng(5).normal(size=(P, n_cols)), device=dev, dtype=dtype)
+        first = interp_nd_grad_cuda(g.values, g.knots, pts, cot, icols, g.axis_maps).clone()
+        second = interp_nd_grad_cuda(g.values, g.knots, pts, cot, icols, g.axis_maps)
+        flipped = interp_nd_grad_cuda(g.values, g.knots, pts.flip(0).contiguous(), cot.flip(0).contiguous(), icols,
+                                      g.axis_maps).flip(0)
+        bits = torch.int64 if dtype == torch.float64 else torch.int32
+        assert torch.equal(first.view(bits), second.view(bits))
+        assert torch.equal(first, flipped)
 
 
 def _check_interp_both_layouts(dev, values, knots, maps, icols, pts, dtype, name):
