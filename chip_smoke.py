@@ -212,7 +212,19 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     bytes; then a binary with
     ``nu_max`` and ``delta_nu`` observed: ``lnpost_batch`` at 131072 points
     against the plain path, and ``fit_nuts`` at the cut setting through A,
-    A', B and B' with the plain versions made to raise.
+    A', B and B' with the plain versions made to raise;
+27. the rest of starfit's surface on phase 23's grids: a ``star.ini`` with
+    the position and 2MASS J, H, K of a single star, an injected Gaia table
+    of three sources (the closest the star's G, BP, RP and parallax, one
+    failing the quality cuts), ``starfit --gaia --write_ini --models mist``
+    without ``--no_plots`` for the single and the binary model: the ini
+    gained the parallax and the ``[gaia]`` section, the fits' observables
+    hold G, BP, RP and the parallax, kernels A and B launched, the distance
+    interval holds the truth; the plots drawn where matplotlib imports, else
+    (the card's machine has none) the results files written and both fits
+    logged as failures, as the JAX package does; then ``starfit-summarize``
+    (a CSV table, and ``--results-txt`` for both) and ``starmodel-select``
+    on the folder.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -453,6 +465,19 @@ TRACK_NESTED = dict(n_live_points=200, seed=0)
 #: float64 lnpost_batch through the two launches vs the composed plain path:
 #: another order of the same sums
 RTOL_ISOTRACK_F64 = 1e-9
+#: phase 27: a single star (EEP, log age, [Fe/H], distance [pc], AV) on phase
+#: 23's grids, its star.ini (position and 2MASS J, H, K from the truth) and
+#: the injected Gaia table: the closest source the truth's G, BP, RP and
+#: parallax, a brighter one that fails the quality cuts, a farther one
+GAIA_TRUTH = (350.0, 9.0, 0.0, 200.0, 0.1)
+GAIA_INI = """RA = 123.4
+dec = -12.3
+
+[twomass]
+J = {J:.4f}, 0.02
+H = {H:.4f}, 0.02
+K = {K:.4f}, 0.02
+"""
 
 
 def make_kernel_inputs(S, E, B, W, seed=0):
@@ -3455,6 +3480,159 @@ def phase_mist(dev, workdir):
 
 
 
+def gaia_provider(G, BP, RP, parallax):
+    """An injected ``query.Gaia.table_provider``: three sources near the query
+    position (0.4, 1.2 and 2.5 arcsec to the north), the closest at ``G``,
+    ``BP``, ``RP`` and ``parallax``, the second brighter and failing the
+    quality cuts (RPlx 4), the third fainter and farther out."""
+    def provider(ra, dec, radius, name):
+        return {"_RAJ2000": np.full(3, ra), "_DEJ2000": dec + np.array([0.4, 1.2, 2.5]) / 3600,
+                "Gmag": np.array([G, G - 1.0, G + 1.5]), "e_Gmag": np.array([0.002, 0.002, 0.003]),
+                "BPmag": np.array([BP, BP - 1.0, BP + 1.5]), "e_BPmag": np.array([0.003, 0.003, 0.004]),
+                "RPmag": np.array([RP, RP - 1.0, RP + 1.5]), "e_RPmag": np.array([0.003, 0.003, 0.004]),
+                "Plx": np.array([parallax, 3.0, 1.0]), "e_Plx": np.array([0.05, 0.1, 0.2]),
+                "RPlx": np.array([100.0, 4.0, 20.0]), "RFG": np.full(3, 100.0), "RFRP": np.full(3, 50.0),
+                "RFBP": np.full(3, 50.0), "Nper": np.full(3, 12), "chi2AL": np.full(3, 100.0),
+                "NgAL": np.full(3, 105), "Source": np.array([1, 2, 3])}
+    return provider
+
+
+def phase_results_and_summary(dev, workdir, smi):
+    """Phase 27: ``starfit --gaia --write_ini`` without ``--no_plots`` on
+    phase 23's MIST-format grids (single, then binary), then the summarize
+    and select CLIs on the folder. Returns the phase's record (seconds of
+    each step, launches of kernels A and B in the two fits)."""
+    import contextlib
+    import csv
+    import io
+
+    import torch
+
+    import isochrones_torch.config as tconfig
+    import isochrones_torch.isochrone as iso_mod
+    from isochrones_torch import BasicStarModel, get_ichrone
+    from isochrones_torch.cli.select import main as select_main
+    from isochrones_torch.cli.starfit import main as starfit_main
+    from isochrones_torch.cli.summarize import main as summarize_main
+    from isochrones_torch.ops.interp_cuda import interp_nd_cuda
+    from isochrones_torch.ops.star_cuda import star_lnlike_cuda
+    from isochrones_torch.query import Gaia
+
+    try:
+        import matplotlib  # noqa: F401
+
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    bands = ["BP", "G", "H", "J", "K", "RP"]  # the sorted bands starfit asks of the grid after the query
+    saved_root, saved_provider = tconfig.ISOCHRONES, Gaia.table_provider
+    tconfig.ISOCHRONES = os.path.join(workdir, "isochrones")
+    secs = {}
+    try:
+        t0 = time.perf_counter()
+        ic = get_ichrone("mist", bands=bands, device=dev, dtype=torch.float64)
+        eep, age, feh, dist, av = GAIA_TRUTH
+        _, _, _, mags = ic.interp_mag([eep, age, feh, dist, av], bands)
+        mag = {b: float(m) for b, m in zip(bands, np.asarray(mags, dtype=float))}
+        if not all(np.isfinite(v) for v in mag.values()):
+            raise AssertionError(f"the truth's magnitudes are not finite: {mag}")
+        folder = write_ini(os.path.join(workdir, "gaia_star"), GAIA_INI.format(**mag))
+        Gaia.table_provider = staticmethod(gaia_provider(mag["G"], mag["BP"], mag["RP"], 1000.0 / dist))
+        secs["setup"] = time.perf_counter() - t0
+
+        # ---- the Gaia-conditioned fits, plots drawn where matplotlib imports
+        common = ["--gaia", "--write_ini", "--models", "mist", "--n_live_points", str(CLI_LIVE), "--seed", "0",
+                  "--device", str(dev)]
+        star_lnlike_cuda.launches = interp_nd_cuda.launches = 0
+        rcs = {}
+        for mult, flag in (("single", []), ("binary", ["--binary"])):
+            t0 = time.perf_counter()
+            rcs[mult] = starfit_main(common + flag + [folder])
+            torch.cuda.synchronize()
+            secs[f"starfit_{mult}"] = time.perf_counter() - t0
+        n_a, n_b = star_lnlike_cuda.launches, interp_nd_cuda.launches
+        if n_a <= 0 or n_b <= 0:
+            raise AssertionError(f"the Gaia-conditioned fits launched kernel A {n_a} and kernel B {n_b} times")
+        with open(os.path.join(folder, "star.ini")) as f:
+            ini = f.read()
+        if f"parallax = {1000.0 / dist}, 0.05" not in ini or "[gaia]" not in ini:
+            raise AssertionError(f"star.ini did not gain the Gaia parallax and section:\n{ini}")
+        with open(os.path.join(folder, "starfit.log")) as f:
+            log = f.read()
+        fits = {}
+        for mult in ("single", "binary"):
+            m = BasicStarModel.load_hdf(os.path.join(folder, f"mist_starmodel_{mult}.npz"), device=dev)
+            want = {"G": mag["G"], "BP": mag["BP"], "RP": mag["RP"], "parallax": 1000.0 / dist}
+            if any(k not in m.kwargs or m.kwargs[k][0] != v for k, v in want.items()):
+                raise AssertionError(f"{mult}: the fit's observables {m.kwargs} lack the Gaia values {want}")
+            d_lo, d_hi = np.quantile(m.samples["distance"], [0.025, 0.975])
+            if not np.isfinite(m.evidence[0]) or not d_lo <= dist <= d_hi:
+                raise AssertionError(f"{mult}: evidence {m.evidence}, distance 95% interval ({d_lo}, {d_hi}) "
+                                     f"against {dist}")
+            pngs = [os.path.join(folder, f"mist_corner_{mult}_{x}.png") for x in ("physical", "observed")]
+            if have_mpl:
+                ok = rcs[mult] == 0 and all(os.path.exists(p) for p in pngs)
+            else:  # the JAX package's behaviour without matplotlib: the fit kept, the folder a failure
+                ok = (rcs[mult] == 1 and f"{mult} starfit failed" in log and "matplotlib" in log
+                      and not any(os.path.exists(p) for p in pngs))
+            if not ok:
+                raise AssertionError(f"{mult}: exit {rcs[mult]}, matplotlib {'present' if have_mpl else 'absent'}, "
+                                     f"PNGs {[os.path.exists(p) for p in pngs]}; log:\n{log[-3000:]}")
+            fits[mult] = dict(logz=float(m.evidence[0]), distance_95=[float(d_lo), float(d_hi)])
+        case = ("matplotlib present: both PNGs drawn for each fit" if have_mpl else
+                "no matplotlib: results files written, both fits logged as failures, no PNG")
+        print(f"[gaia] starfit --gaia --write_ini --models mist ({CLI_LIVE} live points, float64): single exit "
+              f"{rcs['single']} {secs['starfit_single']:.2f} s, logz {fits['single']['logz']:.3f}, distance 95% "
+              f"{fits['single']['distance_95']}; binary exit {rcs['binary']} {secs['starfit_binary']:.2f} s, logz "
+              f"{fits['binary']['logz']:.3f}, distance 95% {fits['binary']['distance_95']}; star.ini gained the "
+              f"parallax and [gaia]; the plots: {case}")
+
+        # ---- the summarize and select CLIs on the folder
+        out = io.StringIO()
+        csv_path = os.path.join(workdir, "gaia_summary.csv")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc_sum = summarize_main(["gaia_star", "--rootdir", workdir, "--modelname", "mist_starmodel_single",
+                                     "-O", csv_path, "--device", str(dev)])
+        secs["summarize_csv"] = time.perf_counter() - t0
+        with open(csv_path, newline="") as f:
+            header, *rows = list(csv.reader(f))
+        values = np.array([[float(x) if x else np.nan for x in r[1:]] for r in rows])
+        if rc_sum != 0 or len(rows) != 1 or rows[0][0] != "gaia_star" or values.shape[1] < 5 \
+                or not np.isfinite(values).all():
+            raise AssertionError(f"summarize: exit {rc_sum}, header {header}, rows {rows}")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc_txt = [summarize_main(["gaia_star", "--rootdir", workdir, "--models", "mist", "--results-txt"] + f)
+                      for f in ([], ["--binary"])]
+        secs["summarize_results_txt"] = time.perf_counter() - t0
+        txt = {}
+        for mult in ("single", "binary"):
+            with open(os.path.join(folder, f"mist_{mult}_results.txt")) as f:
+                txt[mult] = f.read().splitlines()[1].split()
+        if rc_txt != [0, 0] or any(len(v) != 24 for v in txt.values()):
+            raise AssertionError(f"summarize --results-txt: exits {rc_txt}, rows {txt}")
+        sel = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sel):
+            rc_sel = select_main([folder, "--models", "mist", "--device", str(dev)])
+        secs["select"] = time.perf_counter() - t0
+        lines = [ln for ln in sel.getvalue().splitlines() if "delta_lnZ" in ln]
+        if rc_sel != 0 or sorted(ln.split()[1] for ln in lines) != ["binary", "single"]:
+            raise AssertionError(f"select: exit {rc_sel}, output {sel.getvalue()!r}")
+        print(f"[gaia] starfit-summarize: {len(header) - 1} quantile columns, all finite "
+              f"({secs['summarize_csv']:.2f} s); --results-txt single and binary ({secs['summarize_results_txt']:.2f} "
+              f"s): mass {txt['single'][0]} / {txt['binary'][0]}; starmodel-select ({secs['select']:.2f} s): "
+              + "; ".join(ln.split(": ", 1)[1] for ln in lines))
+        print(f"[gaia] phase 27 on {smi}: seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})}, "
+              f"kernel A launches {n_a}, kernel B launches {n_b}")
+        return dict(seconds=secs, launches_a=n_a, launches_b=n_b, matplotlib=have_mpl, fits=fits)
+    finally:
+        tconfig.ISOCHRONES = saved_root
+        Gaia.table_provider = saved_provider
+        iso_mod._mist_cache.clear()
+
+
 def plain_star_f64(lks, dtype):
     """A stand-in for ``star_lnlike_fused`` on the likelihoods ``lks``: the
     plain version in float64 on each one's tables as they are (float32
@@ -4510,6 +4688,10 @@ def main(argv=None):
         interp_rec, interp_grad_rec = phase_interp_kernel(dev, ic32, ic64, parent)
         seismic_rec = phase_seismic(dev, ic32, ic64)
         print(f"[interp] phase 26 took {time.perf_counter() - t26:.1f} s")
+        # ---- 27. the Gaia-conditioned starfit with its plots, the summarize and select CLIs
+        t27 = time.perf_counter()
+        gaia_rec = phase_results_and_summary(dev, workdir, smi)
+        print(f"[gaia] phase 27 took {time.perf_counter() - t27:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     tree_record["launches"] = n_tree
@@ -4522,6 +4704,7 @@ def main(argv=None):
                                             replaces="isochrones_tpu/ops/eep.py:35", dtype="float32")}))
 
     print(json.dumps({"seismic": seismic_rec}))
+    print(json.dumps({"results_and_summary": gaia_rec}))
     interp_rec.update(
         launches=cluster_fit_record.pop("interp_launches_nested_fit"),
         launches_lnpost_batch_fit_batch=cluster_fit_record.pop("interp_launches_fit_batch_call"),
@@ -4531,7 +4714,8 @@ def main(argv=None):
         cluster_lnpost_batch_ms_fit_batch=cluster_fit_record["lnpost_batch_ms_fit_batch"],
         cluster_lnpost_batch_kernels_fit_batch=cluster_fit_record["lnpost_batch_kernels_fit_batch"],
         cluster_lnpost_batch_idle_fit_batch=cluster_fit_record["lnpost_batch_idle_fit_batch"],
-        cluster_nested_fit_seconds=cluster_fit_record["nested_fit_seconds"])
+        cluster_nested_fit_seconds=cluster_fit_record["nested_fit_seconds"],
+        launches_gaia_starfit=gaia_rec["launches_b"])
     interp_grad_rec.update(launches=seismic_rec["launches_b_grad"])
     ms, plain_ms, bound_ms, bound_by = times[MAIN_SHAPE]
     kernels_line = [{
@@ -4554,6 +4738,7 @@ def main(argv=None):
         "fit_batch": fit_batch, "launches_entry_point": n_star_cli, "launches_multi_run": n_multi,
         "launches_mist_entry_point": n_star_mist, "ms_mist_grid": mist_record["star_ms"],
         "launches_isotrack": n_isotrack, "ms_isotrack_batch": isotrack_record["call"][1024]["star_ms"],
+        "launches_gaia_starfit": gaia_rec["launches_a"],
     }, tree_record, {
         "name": "catalog_lnlike", "route": "cuda",
         "source": "isochrones_torch/csrc/catalog_lnlike.cu",

@@ -25,7 +25,10 @@ a fourth kernel; the forward model (the interpolators' ``generate``,
 ``model_mag``), population synthesis (``StarPopulation``, ``deredden``) and
 ``python -m isochrones_torch.cli.generate_cmd``, the forward model and the
 fast EEP inversion as a fifth kernel; the joint isochrone + track model
-(``IsoTrackModel``), its posterior two launches of the star kernel.
+(``IsoTrackModel``), its posterior two launches of the star kernel; the
+Gaia-conditioned ``starfit`` (``query``), the corner plots (``plotting``),
+the per-folder summaries (``summary``) and the ``summarize`` and ``select``
+CLIs, which import matplotlib, astroquery and requests only when called.
 """
 
 __version__ = "0.1.0"

@@ -7,7 +7,8 @@ pandas is installed (both offer ``keys()`` and ``[column]``). Besides the
 observation stacks that the cluster model and the catalog fitter read, it
 makes one star model a row (``iter_models``, with the priors of
 ``set_prior``) and writes their ``star.ini`` files (``write_ini``). ``ds``
-and ``hr`` need ``holoviews``, as in the reference.
+and ``hr`` need ``holoviews``, as in the reference; ``hr_plot`` needs
+matplotlib.
 """
 
 from __future__ import annotations
@@ -160,6 +161,26 @@ class StarCatalog:
                 layout.append(hv.Points(self.ds, kdims=kdims, vdims=self.ds.kdims).options(**opts))
             self._hr = hv.Layout(layout)
         return self._hr
+
+    def hr_plot(self, ax=None):
+        """Colour-magnitude diagram(s) with matplotlib, one panel a band pair
+        (the role of the reference's holoviews ``hr``, catalog.py:91-115)."""
+        import matplotlib.pyplot as plt
+
+        pairs = band_pairs(self.bands)
+        if ax is None:
+            fig, axes = plt.subplots(1, max(len(pairs), 1), figsize=(4 * max(len(pairs), 1), 4))
+            axes = np.atleast_1d(axes)
+        else:
+            axes = np.atleast_1d(ax)
+            fig = axes[0].figure
+        for (b1, b2), a in zip(pairs, axes):
+            color = self.df[f"{b1}_mag"] - self.df[f"{b2}_mag"]
+            a.scatter(color, self.df[f"{b1}_mag"], s=6, alpha=0.7)
+            a.invert_yaxis()
+            a.set_xlabel(f"{b1} - {b2}")
+            a.set_ylabel(f"{b1}")
+        return fig
 
     # ------------------------------------------------------------------ models
     def _set_prior(self, mod):

@@ -3,6 +3,9 @@ reference scripts/starfit:34-106). The same flags, with ``--device`` and
 ``--dtype`` in the place of ``--platform``::
 
     python -m isochrones_torch.cli.starfit --models synthetic --no_plots FOLDER
+
+Without ``--no_plots`` it draws the corner plots (matplotlib); with
+``--gaia`` it conditions on the closest Gaia source.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ def build_parser():
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--bands", nargs="*", default=None, help="Additional band(s) to include in samples.")
     parser.add_argument("--gaia", action="store_true",
-                        help="condition on the closest Gaia source (not ported: needs the query layer and a network)")
+                        help="condition on the closest Gaia source (query.Gaia.table_provider, or astroquery where "
+                             "installed)")
     parser.add_argument("--write_ini", action="store_true",
                         help="with --gaia, persist the queried values into star.ini")
     parser.add_argument("--rootdir", type=str, default=None,

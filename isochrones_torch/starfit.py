@@ -5,9 +5,9 @@ Workflow: a folder containing ``star.ini`` -> model construction per
 multiplicity -> fit on the device -> results file, with freshness checks.
 The results file is the ``.npz`` container of
 :meth:`~isochrones_torch.starmodel.BasicStarModel.save_hdf`,
-``<models>_starmodel_<multiplicity>.npz``. Not ported: the corner plots (the
-caller passes ``no_plots=True``) and the Gaia query (``gaia=True``); both
-raise ``NotImplementedError``.
+``<models>_starmodel_<multiplicity>.npz``; the corner plots are PNGs beside
+it. ``gaia=True`` conditions the fit on the closest Gaia source
+(:func:`get_gaia_data`, through the query layer).
 """
 
 from __future__ import annotations
@@ -21,9 +21,23 @@ import torch
 
 from .logger import initLogging
 
-__all__ = ["starfit", "batch_starfit_script", "update_ini_with_gaia"]
+__all__ = ["starfit", "batch_starfit_script", "get_gaia_data", "update_ini_with_gaia"]
 
 NSTARS = {"single": 1, "binary": 2, "triple": 3}
+
+
+def get_gaia_data(ra, dec, radius=5.0, brightest=False):
+    """The closest (or brightest) Gaia source's parallax and photometry at
+    ``(ra, dec)``: ``{"parallax": (plx_mas, unc), "G": (mag, unc), ...}``
+    (the role of the reference's tgastars integration, scripts/starfit:28-60,
+    through the query layer)."""
+    from .query import Gaia, Query
+
+    cat = Gaia(Query(float(ra), float(dec), radius=float(radius)))
+    row = cat.brightest if brightest else cat.closest
+    data = {"parallax": (float(row["Plx"]), float(row["e_Plx"]))}
+    data.update(cat.get_photometry(brightest=brightest))
+    return data
 
 
 def update_ini_with_gaia(ini_path, data):
@@ -149,6 +163,12 @@ def starfit(
     """Run the starfit routine for a folder (reference starfit.py:18-161).
 
     feh_prior : 'flat' or 'local'
+    gaia : condition the fit on the closest Gaia source's parallax (and its
+        photometry, on the flat model) queried at the ini file's RA/dec
+        (:func:`get_gaia_data`; ``query.Gaia.table_provider`` or astroquery).
+        Where the grid lacks Gaia's bands, on the parallax alone.
+    write_ini_file : with ``gaia``, write the queried values into the ini
+        file (the tree model reads its Gaia photometry only from there).
     rootdir : resolve ``folder`` relative to this directory.
     failures : optional list; each failed (folder, multiplicity) fit is
         appended after being logged, so batch callers can exit nonzero.
@@ -158,8 +178,12 @@ def starfit(
     device, dtype : where and in which type the model grids are built (the
         CUDA card unless the caller asks for ``"cpu"``; torch raises without
         one).
-    no_plots : must be true; the corner plots (and ``plot_only``) are not
-        ported and raise ``NotImplementedError``, as does ``gaia=True``.
+    no_plots : skip the corner plots. Otherwise
+        ``<models>_corner_<multiplicity>_{physical,observed}.png`` are drawn
+        where they are missing or older than the results file, or always with
+        ``plot_only`` (which reloads the results file and fits nothing).
+        Without matplotlib the plots fail as any step does: logged, the folder
+        in ``failures``, the results file kept.
 
     Returns ``(model, logger)``; the results file is
     ``<folder>/<models>_starmodel_<multiplicity>.npz``.
@@ -169,20 +193,14 @@ def starfit(
     from .starmodel import BasicStarModel
     from .treemodel import StarModel
 
-    # refusals come before the per-multiplicity try: they are the caller's
-    # to see, not failed fits for the log
-    if plot_only or not no_plots:
-        raise NotImplementedError("the corner plots are not ported (ROADMAP queue 1): pass no_plots=True")
-    if gaia or write_ini_file:
-        raise NotImplementedError("the Gaia query is not ported: it needs the query layer and a network "
-                                  "(ROADMAP queue 1)")
-
     if rootdir is not None:
         folder = os.path.join(rootdir, folder)
 
     Mod = BasicStarModel if starmodel_type is None else starmodel_type
     ichrone = None
     mod = None
+    gaia_data = None
+    native_ini_bands = None
 
     for mult in multiplicities:
         model_filename = f"{models}_starmodel_{mult}.npz"
@@ -193,40 +211,96 @@ def starfit(
         try:
             start = time.time()
             model_path = os.path.join(folder, model_filename)
-            fit_model = True
-            if os.path.exists(model_path):
-                try:
-                    mod = Mod.load_hdf(model_path, name=name, device=device, dtype=dtype)
-                    fit_model = False
-                except (KeyError, ValueError, OSError, zipfile.BadZipFile):
-                    os.remove(model_path)  # unreadable or of another layout: refit
-
-            if fit_model or overwrite:
-                ini_path = os.path.join(folder, ini_file)
-                if ichrone is None:
-                    from .isochrone import get_ichrone
-
-                    ini_bands = StarModel.get_bands(ini_path)
-                    all_bands = ini_bands if bands is None else list(bands) + ini_bands
-                    ichrone = get_ichrone(models, sorted(set(all_bands)), device=device, dtype=dtype)
-
-                if issubclass(Mod, StarModel):
-                    mod = Mod.from_ini(ichrone, folder, use_emcee=use_emcee,
-                                       N=NSTARS[mult], ini_file=ini_file, name=name)
-                else:
-                    mod = Mod(ichrone, N=NSTARS[mult], name=name, directory=folder,
-                              use_emcee=use_emcee, **_flat_obs_kwargs(ini_path))
-
-                if feh_prior == "flat":
-                    mod.set_prior(feh=FlatPrior((ichrone.minfeh, ichrone.maxfeh)))
-
-                if getattr(mod, "obs", None) is not None:
-                    mod.obs.print_ascii()
-
-                mod.fit(verbose=verbose, overwrite=overwrite, **kwargs)
-                mod.save_hdf(model_path, overwrite=True)
+            if plot_only:
+                mod = Mod.load_hdf(model_path, name=name, device=device, dtype=dtype)
             else:
-                logger.info("%s exists. Use overwrite to refit.", model_filename)
+                fit_model = True
+                if os.path.exists(model_path):
+                    try:
+                        mod = Mod.load_hdf(model_path, name=name, device=device, dtype=dtype)
+                        fit_model = False
+                    except (KeyError, ValueError, OSError, zipfile.BadZipFile):
+                        os.remove(model_path)  # unreadable or of another layout: refit
+
+                if fit_model or overwrite:
+                    ini_path = os.path.join(folder, ini_file)
+                    if gaia and gaia_data is None:
+                        ra, dec = _ini_radec(ini_path)
+                        # the bands the ini measured itself, before Gaia's are
+                        # written into it: the fallback strips only the query's
+                        native_ini_bands = _ini_native_bands(ini_path)
+                        gaia_data = get_gaia_data(ra, dec, radius=gaia_radius)
+                        logger.info("Gaia conditioning for %s: %s", folder, gaia_data)
+                        if write_ini_file:
+                            update_ini_with_gaia(ini_path, gaia_data)
+                    if ichrone is None:
+                        from . import isochrone
+
+                        ini_bands = StarModel.get_bands(ini_path)
+                        all_bands = ini_bands if bands is None else list(bands) + ini_bands
+                        gaia_bands = [b for b in (gaia_data or {}) if b != "parallax"]
+                        try:
+                            ichrone = isochrone.get_ichrone(models, sorted(set(all_bands + gaia_bands)),
+                                                            device=device, dtype=dtype)
+                        except Exception:
+                            if not gaia_bands:
+                                raise
+                            # the grid lacks the Gaia system: the parallax alone,
+                            # and the ini's [gaia] photometry taken out again
+                            logger.warning("%s grid lacks Gaia bands %s; conditioning on parallax only.",
+                                           models, gaia_bands)
+                            gaia_data = {"parallax": gaia_data["parallax"]}
+                            if write_ini_file:
+                                update_ini_with_gaia(ini_path, gaia_data)
+                            # an ini that measured a Gaia band itself keeps it
+                            native = set((list(bands) if bands else []) + native_ini_bands)
+                            ichrone = isochrone.get_ichrone(
+                                models, sorted(set(all_bands) - (set(gaia_bands) - native)),
+                                device=device, dtype=dtype)
+
+                    if issubclass(Mod, StarModel):
+                        mod = Mod.from_ini(ichrone, folder, use_emcee=use_emcee,
+                                           N=NSTARS[mult], ini_file=ini_file, name=name)
+                        if gaia_data is not None and not write_ini_file:
+                            # the tree is built from the ini on disk: its Gaia
+                            # photometry needs write_ini_file, the parallax is added here
+                            mod.obs.add_parallax(gaia_data["parallax"])
+                    else:
+                        obs_kwargs = _flat_obs_kwargs(ini_path)
+                        for k, v in (gaia_data or {}).items():
+                            if k == "parallax" or k in ichrone.bc.column_index:
+                                obs_kwargs[k] = tuple(v)
+                        mod = Mod(ichrone, N=NSTARS[mult], name=name, directory=folder,
+                                  use_emcee=use_emcee, **obs_kwargs)
+
+                    if feh_prior == "flat":
+                        mod.set_prior(feh=FlatPrior((ichrone.minfeh, ichrone.maxfeh)))
+
+                    if getattr(mod, "obs", None) is not None:
+                        mod.obs.print_ascii()
+
+                    mod.fit(verbose=verbose, overwrite=overwrite, **kwargs)
+                    mod.save_hdf(model_path, overwrite=True)
+                else:
+                    logger.info("%s exists. Use overwrite to refit.", model_filename)
+
+            # the corner plots, only where missing or stale (reference starfit.py:111-127)
+            if not no_plots and mod is not None and mod._samples is not None:
+                make_corners = plot_only
+                for x in ("physical", "observed"):
+                    f = os.path.join(folder, f"{models}_corner_{mult}_{x}.png")
+                    if not os.path.exists(f) or (
+                        os.path.exists(model_path) and os.path.getmtime(model_path) > os.path.getmtime(f)
+                    ):
+                        make_corners = True
+                        break
+                if make_corners:
+                    import matplotlib.pyplot as plt
+
+                    for x, draw in (("physical", mod.corner_physical), ("observed", mod.corner_observed)):
+                        fig = draw()
+                        fig.savefig(os.path.join(folder, f"{models}_corner_{mult}_{x}.png"))
+                        plt.close(fig)
 
             logger.info(
                 "%s starfit successful for %s in %.1f minutes.",

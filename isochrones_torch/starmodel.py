@@ -824,6 +824,75 @@ class BasicStarModel:
             chisq += (val - derived[col]) ** 2 / unc ** 2
         return float(np.mean(chisq)) / (len(self.bands) + len(self.props))
 
+    # ------------------------------------------------------------------- plots
+    def corner(self, params, query=None, **kwargs):
+        """Corner plot over posterior or derived columns (reference
+        starmodel.py:1075-1101); ``query`` selects rows
+        (:meth:`~isochrones_torch.summary.Frame.query`)."""
+        from .plotting import corner as _corner
+
+        derived = Frame(self.derived_samples)
+        df = derived if all(p in derived for p in params) else Frame(self.samples)
+        if query is not None:
+            df = df.query(query)
+        fig = _corner({p: df[p] for p in params}, labels=list(params), **kwargs)
+        fig.suptitle(self.name, fontsize=22)
+        return fig
+
+    def triangle(self, *args, **kwargs):
+        """reference starmodel.py:1072"""
+        return self.corner(*args, **kwargs)
+
+    def triangle_physical(self, *args, **kwargs):
+        """reference starmodel.py:1103"""
+        return self.corner_physical(*args, **kwargs)
+
+    def triangle_plots(self, *args, **kwargs):
+        """reference starmodel.py:1112"""
+        return self.corner_plots(*args, **kwargs)
+
+    def mag_plot(self, *args, **kwargs):
+        """reference starmodel.py:1128-1129 (a stub there too)."""
+        pass
+
+    def corner_params(self, **kwargs):
+        from .plotting import corner as _corner
+
+        fig = _corner(self.samples, labels=list(self.samples), **kwargs)
+        fig.suptitle(self.name, fontsize=22)
+        return fig
+
+    def corner_derived(self, cols, **kwargs):
+        from .plotting import corner as _corner
+
+        fig = _corner({c: self.derived_samples[c] for c in cols}, labels=cols, **kwargs)
+        fig.suptitle(self.name, fontsize=22)
+        return fig
+
+    def corner_physical(self, **kwargs):
+        return self.corner_derived(self.physical_quantities, **kwargs)
+
+    def corner_plots(self, basename, **kwargs):
+        """Save the physical and observed corner PNGs
+        (``<basename>_physical.png``, ``<basename>_observed.png``). Returns
+        the two figures."""
+        import matplotlib.pyplot as plt
+
+        fig1 = self.corner_physical(**kwargs)
+        fig1.savefig(f"{basename}_physical.png")
+        fig2 = self.corner_observed(**kwargs)
+        fig2.savefig(f"{basename}_observed.png")
+        plt.close(fig1)
+        plt.close(fig2)
+        return fig1, fig2
+
+    def corner_observed(self, **kwargs):
+        cols = self.observed_quantities
+        truths = [self.kwargs[b][0] for b in self.bands] + [self.kwargs[p][0] for p in self.props]
+        derived = Frame({c: self.derived_samples[c] for c in cols})
+        lo, hi = derived.nanmin(), derived.nanmax()
+        ranges = [(min(t - 0.01, lo[c]), max(t + 0.01, hi[c])) for t, c in zip(truths, cols)]
+        return self.corner_derived(cols, truths=truths, ranges=ranges, **kwargs)
 
     # ------------------------------------------------------------- persistence
     def write_ini(self, root="."):
@@ -926,6 +995,26 @@ class BasicStarModel:
         if attrs.get("evidence") is not None:
             mod._evidence = tuple(attrs["evidence"])
         return mod
+
+    def write_results(self, corner_kwargs=None, directory=None):
+        """The results file and three corner PNGs (reference
+        starmodel.py:1961-1989): ``<base>starmodel.npz`` and
+        ``<base>{params,observed,physical}.png`` in ``directory`` (the
+        model's own by default), ``<base>`` being
+        ``<name>-<grid>-<labelstring>-``."""
+        if self._samples is None:
+            raise RuntimeError("Run .fit() before .write_results()!")
+        directory = directory or self.directory
+        corner_kwargs = corner_kwargs or {}
+        base = f"{self.name + '-' if self.name else ''}{self.ic.name}-{self.labelstring}-"
+        self.save_hdf(os.path.join(directory, base + "starmodel.npz"), overwrite=True)
+        import matplotlib.pyplot as plt
+
+        for tag, fn in (("params", self.corner_params), ("observed", self.corner_observed),
+                        ("physical", self.corner_physical)):
+            fig = fn(**corner_kwargs)
+            fig.savefig(os.path.join(directory, f"{base}{tag}.png"))
+            plt.close(fig)
 
 
 def _stored_ichrone(attrs, device, dtype):

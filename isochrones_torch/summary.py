@@ -1,5 +1,4 @@
-"""Catalog summaries (counterpart of the catalog part of
-``isochrones_tpu/summary.py``).
+"""Fit summaries (counterpart of ``isochrones_tpu/summary.py``).
 
 A fitted :class:`~isochrones_torch.batch.BatchStarFitter` holds every star's
 posterior draws as one ``(S, N, 5)`` array, so the summary is one vectorized
@@ -9,19 +8,28 @@ with the card has none) a table is a :class:`Frame`: an ordered dict of numpy
 columns with the row index beside it, written to CSV in the layout of
 ``DataFrame.to_csv``.
 
-The per-folder API (``get_quantiles``, ``get_summary_df``,
-``write_results_txt``) is not ported yet (ROADMAP queue 1, summary and
-plotting).
+The per-folder API (:func:`get_quantiles`, :func:`get_summary_df`,
+:func:`write_results_txt`) reads the ``.npz`` results files that ``starfit``
+writes (``<models>_starmodel_<mult>.npz``). An HDF5 summary name (``.h5``,
+``.hdf``, ``.hdf5``) is written as CSV to ``<name>.csv``, as the JAX package
+does where PyTables is absent.
 """
 
 from __future__ import annotations
 
+import ast
 import csv
+import io
+import os
 import re
+import tokenize
 
 import numpy as np
 
-__all__ = ["Frame", "quantile_frame", "derived_quantile_frame", "summarize_batch", "DEFAULT_QS", "DEFAULT_COLUMNS"]
+from .utils import npz_load
+
+__all__ = ["Frame", "quantile_frame", "derived_quantile_frame", "summarize_batch", "get_quantiles",
+           "quantile_worker", "get_summary_df", "write_results_txt", "DEFAULT_QS", "DEFAULT_COLUMNS"]
 
 DEFAULT_QS = (0.05, 0.16, 0.5, 0.84, 0.95)
 DEFAULT_COLUMNS = ("eep", "mass", "radius", "age", "feh", "distance", "AV")
@@ -31,11 +39,15 @@ class Frame(dict):
     """An ordered dict of column name -> 1-d numpy array, one row per star,
     with the rows' labels in ``index`` (``None``: ``0 .. n-1``).
 
-    The few table operations the forward model and the populations need, as
-    ``DataFrame`` has them: :meth:`dropna`, :attr:`iloc` (a row slice or
-    take), :meth:`concat` (rows of frames with the same columns; the labels
-    start again at 0), :meth:`rename` and :meth:`copy`. ``Frame(frame)``
-    drops the labels, as ``reset_index(drop=True)`` does."""
+    The table operations the port needs, as ``DataFrame`` has them:
+    :meth:`dropna`, :attr:`iloc` (a row, or a row slice or take), :attr:`loc`
+    (rows by a boolean mask), :meth:`sort_values`, :meth:`query`,
+    :meth:`quantile`, :meth:`nanmin`, :meth:`nanmax`, column assignment (a
+    scalar fills the column), :meth:`concat` (rows of frames with the same
+    columns; the labels start again at 0), :meth:`rename` and :meth:`copy`.
+    ``Frame(frame)`` drops the labels, as ``reset_index(drop=True)`` does.
+    ``len(frame)`` counts columns (it is a dict): :meth:`n_rows` counts
+    rows."""
 
     def __init__(self, columns=(), index=None):
         super().__init__(columns)
@@ -45,25 +57,108 @@ class Frame(dict):
     def columns(self):
         return list(self)
 
+    def n_rows(self):
+        return len(next(iter(self.values()))) if self else 0
+
+    def __setitem__(self, column, value):
+        if np.ndim(value) == 0:
+            value = np.full(self.n_rows(), value)
+        elif isinstance(value, (list, tuple)):
+            value = np.asarray(value)
+        super().__setitem__(column, value)
+
     def _labels(self):
         if self.index is not None:
             return self.index
-        return np.arange(len(next(iter(self.values()))) if self else 0)
+        return np.arange(self.n_rows())
 
     def _rows(self, rows):
         return Frame({c: v[rows] for c, v in self.items()}, index=None if self.index is None else self.index[rows])
 
+    def _take(self, rows):
+        """The rows at ``rows`` (positions or a boolean mask) with their
+        labels, the positions' labels where the frame has none."""
+        out = self._rows(rows)
+        out.index = self._labels()[rows]
+        return out
+
     @property
     def iloc(self):
-        """``frame.iloc[rows]``: the rows at these positions (a slice, an
+        """``frame.iloc[i]``: the row at position ``i`` as a dict of column ->
+        value; ``frame.iloc[rows]``: the rows at these positions (a slice, an
         integer array or a boolean mask), with their labels."""
         frame = self
 
         class _ILoc:
             def __getitem__(self, rows):
+                if isinstance(rows, (int, np.integer)):
+                    return {c: v[rows] for c, v in frame.items()}
                 return frame._rows(rows)
 
         return _ILoc()
+
+    @property
+    def loc(self):
+        """``frame.loc[mask]``: the rows where the boolean ``mask`` is true,
+        with their labels."""
+        frame = self
+
+        class _Loc:
+            def __getitem__(self, mask):
+                mask = np.asarray(mask)
+                if mask.dtype != bool:
+                    raise TypeError("Frame.loc takes a boolean row mask")
+                return frame._take(mask)
+
+        return _Loc()
+
+    def sort_values(self, by):
+        """The rows sorted by the column ``by``, NaN last, as
+        ``DataFrame.sort_values`` sorts one column (pandas' ``nargsort``:
+        numpy's quicksort ``argsort`` of the non-NaN values)."""
+        v = np.asarray(self[by])
+        nan = np.isnan(v) if v.dtype.kind in "fc" else np.zeros(len(v), dtype=bool)
+        pos = np.arange(len(v))
+        order = np.concatenate([pos[~nan][v[~nan].argsort(kind="quicksort")], pos[nan]])
+        return self._take(order)
+
+    def query(self, expr):
+        """The rows where the boolean expression ``expr`` holds, as
+        ``DataFrame.query`` selects them. ``expr`` may hold column names,
+        numbers, comparisons (chained too), ``&``, ``|``, ``~``, ``and``, ``or``
+        and ``not``; ``&`` and ``|`` bind as ``and`` and ``or``, as in pandas.
+        Anything else raises ``ValueError``; nothing is evaluated as Python."""
+        mask = np.broadcast_to(np.asarray(_QueryEval(self).run(expr), dtype=bool), (self.n_rows(),))
+        return self._take(mask)
+
+    def quantile(self, q=0.5):
+        """Every column's ``q`` quantile (linear), skipping NaN, as
+        ``DataFrame.quantile``: a dict of column -> value for a scalar ``q``,
+        else a frame with one row a quantile, labelled by it."""
+        qs = np.atleast_1d(np.asarray(q, dtype=float))
+        out = self._reduce(lambda v: np.quantile(v, qs), np.full(len(qs), np.nan))
+        if np.ndim(q) == 0:
+            return {c: v[0] for c, v in out.items()}
+        return Frame(out, index=qs)
+
+    def _reduce(self, fn, empty=np.nan):
+        """``fn`` of every column's non-NaN values; ``empty`` for a column of NaN."""
+        out = {}
+        for c, v in self.items():
+            v = np.asarray(v, dtype=float)
+            v = v[~np.isnan(v)]
+            out[c] = fn(v) if len(v) else empty
+        return out
+
+    def nanmin(self):
+        """Every column's least value, skipping NaN (``DataFrame.min``); NaN
+        for a column of NaN."""
+        return self._reduce(np.min)
+
+    def nanmax(self):
+        """Every column's greatest value, skipping NaN (``DataFrame.max``); NaN
+        for a column of NaN."""
+        return self._reduce(np.max)
 
     def dropna(self, subset=None):
         """The rows with no NaN in the columns ``subset`` (every column when
@@ -100,16 +195,77 @@ class Frame(dict):
         """Write the table as ``DataFrame.to_csv`` does: a header whose first
         cell (the index's) is empty, one line per row starting with its
         label, floats in their shortest round-trip form, NaN as an empty
-        cell; with ``index`` False, without the labels' column."""
-        n = len(next(iter(self.values()))) if self else 0
-        labels = self.index if self.index is not None else np.arange(n)
-        lead = [""] if index else []
-        with open(filename, "w", newline="") as f:
-            w = csv.writer(f, lineterminator="\n")
-            w.writerow(lead + self.columns)
-            cols = list(self.values())
-            for i in range(n):
-                w.writerow(([_cell(labels[i])] if index else []) + [_cell(c[i]) for c in cols])
+        cell; with ``index`` False, without the labels' column. ``filename``
+        may also be an open text file."""
+        if hasattr(filename, "write"):
+            self._write_csv(filename, index)
+        else:
+            with open(filename, "w", newline="") as f:
+                self._write_csv(f, index)
+
+    def _write_csv(self, f, index):
+        n = self.n_rows()
+        labels = self._labels()
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(([""] if index else []) + self.columns)
+        cols = list(self.values())
+        for i in range(n):
+            w.writerow(([_cell(labels[i])] if index else []) + [_cell(c[i]) for c in cols])
+
+
+_QUERY_CMP = {ast.Lt: np.less, ast.LtE: np.less_equal, ast.Gt: np.greater, ast.GtE: np.greater_equal,
+              ast.Eq: np.equal, ast.NotEq: np.not_equal}
+
+
+class _QueryEval:
+    """Evaluates a :meth:`Frame.query` expression over the frame's columns by
+    walking its syntax tree; only the nodes named there are taken."""
+
+    def __init__(self, frame):
+        self.frame = frame
+
+    def run(self, expr):
+        # pandas reads & and | as `and` and `or` (pandas.core.computation.expr._replace_booleans),
+        # which bind looser than a comparison
+        try:
+            toks = [(tokenize.NAME, {"&": "and", "|": "or"}[t.string])
+                    if t.type == tokenize.OP and t.string in ("&", "|") else (t.type, t.string)
+                    for t in tokenize.generate_tokens(io.StringIO(expr).readline)]
+            tree = ast.parse(tokenize.untokenize(toks).strip(), mode="eval")
+        except (SyntaxError, tokenize.TokenError) as e:
+            raise ValueError(f"cannot parse the query {expr!r}: {e}") from None
+        return self.eval(tree.body)
+
+    def eval(self, node):
+        if isinstance(node, ast.BoolOp):
+            vals = [np.asarray(self.eval(v), dtype=bool) for v in node.values]
+            op = np.logical_and if isinstance(node.op, ast.And) else np.logical_or
+            out = vals[0]
+            for v in vals[1:]:
+                out = op(out, v)
+            return out
+        if isinstance(node, ast.UnaryOp):
+            if isinstance(node.op, (ast.Not, ast.Invert)):
+                return np.logical_not(np.asarray(self.eval(node.operand), dtype=bool))
+            if isinstance(node.op, (ast.USub, ast.UAdd)):
+                v = self.eval(node.operand)
+                return -v if isinstance(node.op, ast.USub) else v
+        if isinstance(node, ast.Compare):
+            out, left = True, self.eval(node.left)
+            for op, comp in zip(node.ops, node.comparators):
+                if type(op) not in _QUERY_CMP:
+                    raise ValueError(f"unsupported comparison in a query: {type(op).__name__}")
+                right = self.eval(comp)
+                out = np.logical_and(out, _QUERY_CMP[type(op)](left, right))
+                left = right
+            return out
+        if isinstance(node, ast.Name):
+            if node.id not in self.frame:
+                raise ValueError(f"unknown column in a query: {node.id!r}")
+            return np.asarray(self.frame[node.id])
+        if isinstance(node, ast.Constant) and isinstance(node.value, (bool, int, float)):
+            return node.value
+        raise ValueError(f"unsupported expression in a query: {ast.dump(node)}")
 
 
 def _cell(x):
@@ -191,11 +347,8 @@ def summarize_batch(fitter, qs=DEFAULT_QS, derived=True, columns=DEFAULT_COLUMNS
         interpolator call (evenly strided); the parameter quantiles use every
         draw. ``None``: all.
     filename : a CSV path to write the table to; an HDF5 name (``.h5``,
-        ``.hdf``, ``.hdf5``) is not ported yet.
+        ``.hdf``, ``.hdf5``) is written to ``<name>.csv`` (:func:`_write`).
     """
-    if filename is not None and str(filename).endswith((".h5", ".hdf", ".hdf5")):
-        raise NotImplementedError("an HDF5 summary is not ported yet (ROADMAP queue 1, summary and plotting); "
-                                  "give a .csv filename")
     idx = fitter.catalog.index
     out = quantile_frame(fitter.samples, list(fitter.param_names), qs=qs, index=idx)
     if derived:
@@ -209,6 +362,112 @@ def summarize_batch(fitter, qs=DEFAULT_QS, derived=True, columns=DEFAULT_COLUMNS
     if getattr(fitter, "_evidence", None) is not None:
         out["logz"], out["logzerr"] = fitter.evidence
     if filename is not None:
-        out.to_csv(filename)
-        print(f"Summary table written to {filename}")
+        _write(out, filename)
     return out
+
+
+# --------------------------------------------------------------------------
+# the per-folder API (reference summary.py:9-76): one fitted model's results
+# file a folder, its derived samples' quantiles one row
+
+
+def get_quantiles(name, rootdir=".", columns=DEFAULT_COLUMNS, qs=DEFAULT_QS, modelname="mist_starmodel_single",
+                  verbose=False, raise_exceptions=False, device="cuda", dtype=None):
+    """Parameter quantiles for one fitted starmodel folder: the derived
+    samples' columns that match ``columns`` (regular expressions), one row
+    labelled ``name``. The model is ``<rootdir>/<name>/<modelname>.npz``,
+    reloaded as ``BasicStarModel.load_hdf`` does (its interpolator rebuilt
+    on ``device`` in ``dtype``); an empty :class:`Frame` where it cannot be
+    loaded, unless ``raise_exceptions``."""
+    from .starmodel import BasicStarModel
+
+    modfile = os.path.join(rootdir, name, f"{modelname}.npz")
+    try:
+        mod = BasicStarModel.load_hdf(modfile, device=device, dtype=dtype)
+    except Exception:
+        if verbose:
+            print(f"cannot load starmodel! ({modfile})")
+        if raise_exceptions:
+            raise
+        return Frame()
+
+    ds = mod.derived_samples
+    names = [c for c in ds if any(re.search(c2, c) for c2 in columns)]
+    values = np.stack([np.asarray(ds[c], dtype=float) for c in names], axis=-1) if names else np.zeros((0, 0))
+    return quantile_frame(values[None], names, qs=qs, index=[name])
+
+
+class quantile_worker:
+    """Picklable pool worker: :func:`get_quantiles` of one folder name with
+    fixed keywords."""
+
+    def __init__(self, **kwargs):
+        self.kwargs = kwargs
+
+    def __call__(self, name):
+        return get_quantiles(name, **self.kwargs)
+
+
+def _concat_rows(frames):
+    """The rows of ``frames`` one after another with their labels, the union
+    of their columns in order of appearance, NaN where a frame lacks one
+    (``pd.concat`` of the frames; an empty frame adds nothing)."""
+    frames = [f for f in frames if f]
+    cols = list(dict.fromkeys(c for f in frames for c in f))
+    out = Frame({c: np.concatenate([np.asarray(f[c], dtype=float) if c in f else np.full(f.n_rows(), np.nan)
+                                    for f in frames]) for c in cols})
+    out.index = np.concatenate([f._labels() for f in frames]) if frames else None
+    return out
+
+
+def get_summary_df(names=None, pool=None, filename=None, **kwargs):
+    """The quantile rows of every folder in ``names`` (:func:`get_quantiles`
+    with ``kwargs``; through ``pool.map`` where a pool is given), written to
+    ``filename`` where one is given. For whole-catalog fits
+    :func:`summarize_batch` needs no per-folder reload."""
+    map_fn = map if pool is None else pool.map
+    df = _concat_rows(list(map_fn(quantile_worker(**kwargs), names)))
+    if filename is not None:
+        _write(df, filename)
+    return df
+
+
+RESULTS_PROPS = ("mass", "radius", "Teff", "logg", "feh", "age", "distance", "AV")
+
+
+def write_results_txt(folder, models="mist", mult="single", props=RESULTS_PROPS):
+    """Per-folder ``{models}_{mult}_results.txt`` with the median, 15.85% and
+    84.15% quantiles of each physical property (the reference
+    ``scripts/starfit-summarize`` folders mode). Reads the stored derived
+    samples of ``{models}_starmodel_{mult}.npz`` (flat and tree models alike:
+    ``mass``, else ``mass_0_0``, else ``mass_0``); ``nan nan nan`` for a
+    property the table lacks."""
+    from .starmodel import BasicStarModel
+
+    path = os.path.join(folder, f"{models}_starmodel_{mult}.npz")
+    _, ds = BasicStarModel._stored_tables(npz_load(path), "")
+    if ds is None:
+        raise KeyError(f"{path} holds no derived samples")
+    results_file = os.path.join(folder, f"{models}_{mult}_results.txt")
+    vals = []
+    for p in props:
+        col = next((c for c in (p, f"{p}_0_0", f"{p}_0") if c in ds), None)
+        if col is None:
+            vals.append("nan nan nan")
+            continue
+        med, lo, hi = Frame({col: ds[col]}).quantile([0.5, 0.1585, 0.8415])[col]
+        vals.append(f"{med:.3f} {lo:.3f} {hi:.3f}")
+    with open(results_file, "w") as f:
+        f.write(" ".join(f"{p} {p}_lo {p}_hi" for p in props) + " \n")
+        f.write(" ".join(vals) + " \n")
+    return results_file
+
+
+def _write(df, filename):
+    """Write a summary table as CSV; an HDF5 name (``.h5``, ``.hdf``,
+    ``.hdf5``) goes to ``<name>.csv``, where the JAX package writes it
+    wherever PyTables is absent."""
+    if str(filename).endswith((".h5", ".hdf", ".hdf5")):
+        filename = str(filename) + ".csv"
+    df.to_csv(filename)
+    print(f"Summary dataframe written to {filename}")

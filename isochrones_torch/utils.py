@@ -8,6 +8,8 @@ into one numpy ``.npz`` file (``allow_pickle=False``): every array under a
 key shaped like the HDF5 path (``<path>/samples/values``) and every
 attribute as a JSON string under ``<path>/attrs/<name>``. ``path`` is a key
 prefix, so several models can share a file.
+
+``download_file`` fetches a URL with ``requests``, imported only then.
 """
 
 from __future__ import annotations
@@ -108,3 +110,29 @@ def npz_save(filename, entries):
     with open(tmp, "wb") as f:
         np.savez(f, **entries)
     os.replace(tmp, filename)
+
+
+def download_file(url, path=None, clobber=False):
+    """Streamed HTTP download to ``path`` (reference: isochrones/utils.py:17-40).
+    An existing ``path`` is kept unless ``clobber``; ``config.OFFLINE``
+    refuses the download."""
+    from .config import OFFLINE
+    from .logger import getLogger
+
+    if path is None:
+        raise ValueError("path is required")
+    if os.path.exists(path) and not clobber:
+        getLogger().info("%s exists; not downloading.", path)
+        return path
+    if OFFLINE:
+        raise RuntimeError(f"Offline mode: cannot download {url}")
+
+    import requests
+
+    r = requests.get(url, stream=True)
+    r.raise_for_status()
+    with open(path, "wb") as f:
+        for chunk in r.iter_content(chunk_size=1 << 20):
+            if chunk:
+                f.write(chunk)
+    return path

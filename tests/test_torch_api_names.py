@@ -4,10 +4,9 @@ For each module of ``isochrones_tpu`` with a counterpart at the same relative
 path in ``isochrones_torch``: its public top-level names (``__all__`` where it
 has one, else the functions and classes it defines) and the public
 attributes of its classes. Each must exist in the port or stand in
-:data:`PARKED`, which maps it to the item of ``ROADMAP.md`` queue 1 that
-ports it, or to "not to port" for the TPU-only names (``ROADMAP.md``, "Not to
-port"). A parked name that the port now has fails the test too, so the dict
-stays true as the slices land.
+:data:`PARKED`, which maps it to "not to port" for the TPU-only names
+(``ROADMAP.md``, "Not to port"). A parked name that the port now has fails
+the test too, so the dict stays true.
 """
 
 import importlib
@@ -18,20 +17,12 @@ import pytest
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SUMMARY = "queue 1 item 3: summary, plotting and results"
-QUERY = "queue 1 item 6: the query layer"
 NOT_TO_PORT = "not to port"
 
-_STAR_PLOTS = ("corner", "corner_params", "corner_derived", "corner_physical", "corner_plots", "corner_observed",
-               "triangle", "triangle_physical", "triangle_plots", "mag_plot", "write_results")
 _GRID_TPU = ("GridData.paired", "GridData.tree_flatten", "GridData.tree_unflatten")
 
 _GROUPS = {
-    "isochrones_tpu": {
-        SUMMARY: tuple(f"BasicStarModel.{a}" for a in _STAR_PLOTS),
-        NOT_TO_PORT: _GRID_TPU,
-    },
-    "isochrones_tpu.catalog": {SUMMARY: ("StarCatalog.hr_plot",)},
+    "isochrones_tpu": {NOT_TO_PORT: _GRID_TPU},
     "isochrones_tpu.config": {NOT_TO_PORT: ("enable_compile_cache",)},
     # the g++-built host parser: the port parses with numpy's loadtxt, bitwise the same tables
     "isochrones_tpu.grids.parse": {NOT_TO_PORT: ("get_fastparse_lib",)},
@@ -42,13 +33,10 @@ _GROUPS = {
                                             "EEP_prior.lnpdf_jax")},
     "isochrones_tpu.samplers": {NOT_TO_PORT: ("EnsembleState.key",)},
     "isochrones_tpu.samplers.ensemble": {NOT_TO_PORT: ("EnsembleState.key",)},
-    "isochrones_tpu.starfit": {QUERY: ("get_gaia_data",)},
-    "isochrones_tpu.starmodel": {SUMMARY: tuple(f"BasicStarModel.{a}" for a in _STAR_PLOTS)},
-    "isochrones_tpu.summary": {SUMMARY: ("get_quantiles", "quantile_worker", "get_summary_df", "write_results_txt")},
-    "isochrones_tpu.utils": {NOT_TO_PORT: ("addmags_jnp",), QUERY: ("download_file",)},
+    "isochrones_tpu.utils": {NOT_TO_PORT: ("addmags_jnp",)},
 }
 
-#: "<JAX module>:<name>" -> where it is ported, or "not to port"
+#: "<JAX module>:<name>" -> "not to port"
 PARKED = {f"{mod}:{name}": item for mod, groups in _GROUPS.items() for item, names in groups.items()
           for name in names}
 
@@ -109,4 +97,4 @@ def test_parked_modules_exist():
     mods = {k.split(":")[0] for k in PARKED}
     have = {"isochrones_tpu" + m[len("isochrones_torch"):] for m in _port_modules()}
     assert mods <= have, sorted(mods - have)
-    assert set(PARKED.values()) <= {SUMMARY, QUERY, NOT_TO_PORT}
+    assert set(PARKED.values()) == {NOT_TO_PORT}

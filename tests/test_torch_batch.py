@@ -276,8 +276,11 @@ def test_summary_matches_jax(setup, tmp_path):
         text = f.read()
     assert text == pd.DataFrame(dict(got), index=got.index).to_csv()
     assert text.splitlines()[0] == ref.to_csv().splitlines()[0]
-    with pytest.raises(NotImplementedError, match="summary"):
-        summarize_batch(tf, derived=False, filename=str(tmp_path / "summary.h5"))
+    # an HDF5 name is written as CSV to <name>.csv in both packages (no PyTables here, none on the card)
+    summarize_batch(tf, derived=False, filename=str(tmp_path / "summary.h5"))
+    jax_summarize_batch(jf, derived=False, filename=str(tmp_path / "jax_summary.h5"))
+    with open(tmp_path / "summary.h5.csv") as f, open(tmp_path / "jax_summary.h5.csv") as g:
+        assert f.read() == g.read()
 
 
 def test_frame_csv_layout(tmp_path):

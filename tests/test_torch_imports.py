@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of ``isochrones_torch``
-loads no JAX, no JAX-package, no pandas and no h5py module (the machine with
-the card has none of them)."""
+loads no JAX, no JAX-package, no pandas, no h5py, no matplotlib, no
+astroquery and no requests module (the machine with the card has none of the
+first four; the plots, the Vizier queries and the downloads import theirs at
+the call)."""
 
 import json
 import os
@@ -12,7 +14,8 @@ import importlib, json, pkgutil, sys
 import isochrones_torch
 for m in pkgutil.walk_packages(isochrones_torch.__path__, "isochrones_torch."):
     importlib.import_module(m.name)
-bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "isochrones_tpu", "pandas", "h5py"))
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "isochrones_tpu", "pandas", "h5py",
+                                                    "matplotlib", "astroquery", "requests"))
 mods = sorted(n for n in sys.modules if n.startswith("isochrones_torch"))
 print(json.dumps([bad, mods]))
 """
@@ -70,6 +73,14 @@ _EXPECTED = (
     "isochrones_torch.mags",
     "isochrones_torch.cluster_utils",
     "isochrones_torch.interp",
+    "isochrones_torch.plotting",
+    "isochrones_torch.extinction",
+    "isochrones_torch.query",
+    "isochrones_torch.query.query",
+    "isochrones_torch.query.catalog",
+    "isochrones_torch.query.vizier",
+    "isochrones_torch.cli.summarize",
+    "isochrones_torch.cli.select",
 )
 
 

@@ -141,7 +141,9 @@ def test_cli_flat_tree_and_failures(tmp_path, one_thread, capsys, monkeypatch):
     assert str(tmp_path / "no_mist") in _log(flat)
 
 
-def test_cli_parser_and_unported_options(tmp_path):
+def test_cli_parser_and_unported_options(tmp_path, monkeypatch):
+    from isochrones_torch.query import Gaia
+
     folder = _folder(tmp_path)
     with pytest.raises(SystemExit) as e:
         main(CLI + ["--resume", "--emcee", folder])
@@ -151,16 +153,15 @@ def test_cli_parser_and_unported_options(tmp_path):
     for extra in (["--multihost"], ["--coordinator", "localhost:1234"], ["--num-processes", "2"], ["--process-id", "0"]):
         with pytest.raises(NotImplementedError, match="processes"):
             main(CLI + extra + [folder])
-    for extra in (["--gaia"], ["--plot_only"]):
-        with pytest.raises(NotImplementedError):
-            main(CLI + extra + [folder])
+    # the Gaia query and plot_only are ported: an empty Gaia answer, and plot_only without a results
+    # file, are the folder's failures, logged before any fit
+    monkeypatch.setattr(Gaia, "table_provider", staticmethod(lambda *a: None))
+    for extra, msg in ((["--gaia"], "returns empty"), (["--plot_only"], "does not exist")):
+        assert main(CLI + extra + [folder]) == 1 and msg in _log(folder)
     failures = []
-    for kw in (dict(gaia=True, no_plots=True), dict(no_plots=False), dict(plot_only=True, no_plots=True),
-               dict(write_ini_file=True, no_plots=True)):
-        with pytest.raises(NotImplementedError):
-            starfit(folder, models="synthetic", device="cpu", failures=failures, **kw, **SHORT)
-    # refused before any fit: nothing logged as a failure, no log, no results
-    assert failures == [] and os.listdir(folder) == ["star.ini"]
+    for kw in (dict(gaia=True, no_plots=True), dict(plot_only=True, no_plots=False)):
+        starfit(folder, models="synthetic", device="cpu", failures=failures, **kw, **SHORT)
+    assert failures == [(folder, "single")] * 2 and sorted(os.listdir(folder)) == ["star.ini", "starfit.log"]
     # independent runs are ported: two runs, no dynamic runs with them, no mesh
     mod = BasicStarModel(get_ichrone("synthetic", device="cpu"), J=(9.5, 0.02))
     res = mod.fit(n_runs=2, n_live_points=40, n_batch=4, n_chains=4, n_repeat=8, max_iter=80, seed=0)
