@@ -224,7 +224,27 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     (the card's machine has none) the results files written and both fits
     logged as failures, as the JAX package does; then ``starfit-summarize``
     (a CSV table, and ``--results-txt`` for both) and ``starmodel-select``
-    on the folder.
+    on the folder;
+28. the device mesh (``isochrones_torch.parallel``): ``default_mesh()`` over
+    the machine's cards, and a mesh of one card more refused; four shards on
+    the one card (``Mesh([cuda:0] * 4)``): the binary's 131072-point
+    ``lnpost_batch`` through ``sharded_lnpost`` against the plain call
+    (bitwise where kernel A takes the same launch geometry at both batches,
+    else the float32 star bar), kernel A four launches against one, both
+    wall-clocks; the 50-star cluster with its star axis on four shards at
+    the nested fit's 1024 walkers: one ``lnpost_batch`` against the
+    unsharded model in float64 (1e-12 relative) and float32 (the slice's
+    bar), four cluster-kernel and twelve kernel-B launches a call, then the
+    nested fit sharded and unsharded at the cut setting ``CLUSTER_MESH_FIT``
+    (logz equal, or within 3 combined logzerr); the 256-star catalogue's
+    ``BatchStarFitter.fit_mcmc`` with its star axis on four shards against
+    the unsharded fit (kernel E four launches a call); a short binary
+    ``fit_nuts`` with its chains on two shards against the unsharded fit
+    (A and A' launches); then a real two-process fleet of ``python -m
+    isochrones_torch.cli.starfit --multihost`` on the card over four
+    folders written as phase 12 writes its own: the shards disjoint and
+    complete, every folder's results file written, the end barrier passed
+    by both processes.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -4383,6 +4403,275 @@ def phase_seismic(dev, ic32, ic64):
                 grad_err=gerr)
 
 
+#: phase 28's nested cluster fits (sharded and unsharded): phase 14's fit at
+#: 1024 walkers a call with shorter walks, to keep the phase near 90 s
+CLUSTER_MESH_FIT = dict(n_live_points=256, n_repeat=6, seed=0)
+#: phase 28's NUTS fits (sharded and unsharded)
+NUTS_MESH = dict(n_chains=4, n_warmup=20, n_samples=16, max_depth=5, seed=0)
+#: phase 28's two-process fleet: processes, folders
+FLEET_PROCS, FLEET_FOLDERS = 2, 4
+#: phase 28's fleet worker: the kernel library loaded (built by the parent),
+#: its seconds printed, then ``python -m isochrones_torch.cli.starfit``
+FLEET_RUN = (
+    "import json, runpy, sys, time\n"
+    "t0 = time.perf_counter()\n"
+    "from isochrones_torch.ops import _build\n"
+    "path, secs, _ = _build.build()\n"
+    "_build.load_library()\n"
+    "print('build ' + json.dumps([secs, time.perf_counter() - t0]), flush=True)\n"
+    "sys.argv = ['isochrones_torch.cli.starfit'] + sys.argv[1:]\n"
+    "runpy.run_module('isochrones_torch.cli.starfit', run_name='__main__')\n"
+)
+
+
+def _same_or_close(name, got, ref, rtol, atol):
+    """``("bitwise", 0.0)`` where ``got`` equals ``ref``, else the largest
+    difference after :func:`check_close` held it to the bar."""
+    if np.array_equal(got, ref, equal_nan=True):
+        return "bitwise", 0.0
+    return "close", check_close(name, got, ref, rtol, atol)
+
+
+def _fleet(dev, workdir):
+    """Phase 28f: ``FLEET_PROCS`` processes of ``isochrones_torch.cli.starfit
+    --multihost`` over ``FLEET_FOLDERS`` binary folders on the one card.
+    Returns the fleet's record."""
+    import re
+    import socket
+
+    from isochrones_torch import get_ichrone
+
+    ic = get_ichrone("synthetic", device=dev)
+    obs = star_observations(ic, CLI_STAR_TRUTH, bands=("J", "H", "K"))
+    text = FLAT_INI.format(Teff=obs["Teff"][0], logg=obs["logg"][0], J=obs["J"][0], H=obs["H"][0], K=obs["K"][0])
+    folders = [write_ini(os.path.join(workdir, f"fleet_{i}"), text) for i in range(FLEET_FOLDERS)]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    args = ["--device", str(dev), "--models", "synthetic", "--no_plots", "--binary", "--n_live_points", str(CLI_LIVE),
+            "--seed", "0", "--multihost", *folders]
+    procs = []
+    t0 = time.perf_counter()
+    for pid in range(FLEET_PROCS):
+        env = dict(os.environ, ISOCHRONES_TPU_COORDINATOR=f"localhost:{port}",
+                   ISOCHRONES_TPU_NUM_PROCESSES=str(FLEET_PROCS), ISOCHRONES_TPU_PROCESS_ID=str(pid))
+        procs.append(subprocess.Popen([sys.executable, "-c", FLEET_RUN, *args], env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    secs = time.perf_counter() - t0
+    shards, loads = [], []
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"fleet process {pid}: exit {p.returncode}\n{out[-3000:]}")
+        if f"[multihost] process {pid}/{FLEET_PROCS}: every process has finished" not in out:
+            raise AssertionError(f"fleet process {pid} did not pass the end barrier:\n{out[-3000:]}")
+        shards.append(re.findall(r"^\d+ of \d+: (\S+)$", out, re.M))
+        loads.append(json.loads(re.search(r"^build (.*)$", out, re.M).group(1)))
+    flat = [f for shard in shards for f in shard]
+    if sorted(flat) != sorted(folders) or len(set(flat)) != len(flat):
+        raise AssertionError(f"fleet shards {shards} are not a partition of {folders}")
+    for f in folders:
+        if not os.path.exists(os.path.join(f, "synthetic_starmodel_binary.npz")):
+            raise AssertionError(f"fleet: {f} has no results file")
+    print(f"[mesh] fleet: {FLEET_PROCS} processes of python -m isochrones_torch.cli.starfit --multihost (gloo, "
+          f"localhost:{port}) on {dev} over {FLEET_FOLDERS} binary folders ({CLI_LIVE} live points): {secs:.2f} s; "
+          f"shards {[len(x) for x in shards]}, disjoint and complete, every results file written, the end barrier "
+          f"passed by both; kernel library build / load seconds per process "
+          f"{[[round(a, 3), round(b, 3)] for a, b in loads]}")
+    return dict(seconds=secs, shards=[len(x) for x in shards], build_load_s=loads)
+
+
+def phase_parallel(dev, ic32, ic64, sim, table, workdir, cards=None, fleet=True):
+    """Phase 28: the device mesh on the card (see the module's note).
+    ``cards`` (default ``[dev] * 4``) are the four shards' devices of parts
+    (b)-(d), the first two part (e)'s; ``scripts/check_torch_mesh.py``
+    passes four distinct cards, each shard then on its own copy of the
+    model's tables. ``fleet=False`` leaves out part (f). Returns the phase's
+    record: launches and times of every part."""
+    import torch
+
+    import isochrones_torch.ops.star_cuda as star_cuda
+    from isochrones_torch import BinaryStarModel
+    from isochrones_torch.batch import BatchStarFitter
+    from isochrones_torch.cluster import StarClusterModel
+    from isochrones_torch.ops.catalog_cuda import catalog_lnpost_cuda
+    from isochrones_torch.ops.cluster_cuda import cluster_lnmarginal_cuda
+    from isochrones_torch.ops.interp_cuda import interp_nd_cuda
+    from isochrones_torch.ops.star_cuda import star_lnlike_cuda, star_lnlike_grad_cuda
+    from isochrones_torch.parallel import Mesh, default_mesh, sharded_lnpost
+
+    rec = {}
+    # ---- (a) the card's own mesh
+    mesh = default_mesh()
+    n_cards = torch.cuda.device_count()
+    try:
+        default_mesh(n_cards + 1)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise AssertionError(f"default_mesh({n_cards + 1}) on {n_cards} card(s) was not refused")
+    print(f"[mesh] default_mesh(): {mesh.size} device(s) {[str(d) for d in mesh.devices]}; default_mesh({n_cards + 1}) "
+          f"refused: {refused}")
+    rec["default_mesh_devices"] = mesh.size
+
+    # ---- (b) four shards on the card: the binary's lnpost_batch
+    cards = [dev] * 4 if cards is None else list(cards)
+    where = f"{dev}" if len(set(cards)) == 1 else f"{len(set(cards))} cards"
+    four = Mesh(cards, ("walkers",))
+    bin32 = BinaryStarModel(ic32, **star_observations(ic64, STAR_TRUTH))
+    x = torch.as_tensor(star_points(ic64.model.knots, 2, STAR_BATCH, seed=13, box=STAR_BOX), device=dev,
+                        dtype=torch.float32)
+    sharded = sharded_lnpost(bin32._mesh_fn("lnpost", four), four)
+    star_lnlike_cuda.launches = 0
+    ref = bin32.lnpost_batch(x)
+    torch.cuda.synchronize()
+    n_plain = star_lnlike_cuda.launches
+    star_lnlike_cuda.launches = 0
+    got = sharded(x)
+    torch.cuda.synchronize()
+    n_mesh = star_lnlike_cuda.launches
+    if (n_plain, n_mesh) != (1, 4):
+        raise AssertionError(f"binary lnpost_batch: kernel A launched {n_plain} times plain, {n_mesh} on 4 shards")
+    geo = (star_cuda.launch_geometry(STAR_BATCH, 2), star_cuda.launch_geometry(STAR_BATCH // 4, 2))
+    kind, err = _same_or_close("binary lnpost_batch, 4 shards vs plain", got.cpu().numpy(), ref.cpu().numpy(),
+                               RTOL_STAR_F32, ATOL_STAR_F32)
+    if geo[0] == geo[1] and kind != "bitwise":
+        raise AssertionError(f"binary lnpost_batch on 4 shards differs ({err:.3e}) at one launch geometry {geo[0]}")
+    plain_ms = 1e3 * _wall(lambda: bin32.lnpost_batch(x), reps=20)
+    mesh_ms = 1e3 * _wall(lambda: sharded(x), reps=20)
+    print(f"[mesh] binary lnpost_batch f32, B={STAR_BATCH}, 4 shards on {where} (sharded_lnpost) vs the plain call: "
+          f"{kind} (max_abs_err {err:.3e}; kernel A's (groups, lanes) {geo[0]} at {STAR_BATCH}, {geo[1]} at "
+          f"{STAR_BATCH // 4}); kernel A launches {n_mesh} vs {n_plain}; wall-clock {mesh_ms:.3f} ms vs "
+          f"{plain_ms:.3f} ms")
+    rec["star"] = dict(agreement=kind, max_abs_err=err, launches_mesh=n_mesh, launches_plain=n_plain,
+                       ms_mesh=mesh_ms, ms_plain=plain_ms, geometry=[list(g) for g in geo])
+
+    # ---- (c) the cluster's star axis on four shards
+    stars4 = Mesh(cards, ("stars",))
+    kw = {k: v for k, v in MODEL.items() if k not in ("bands", "props")}
+    rng = np.random.default_rng(1)
+    pw = np.asarray(TRUTH)[None, :] + rng.normal(0, P0_SCALE, size=(W_FIT, 7))
+    cl = {}
+    for dt, ic in (("float64", ic64), ("float32", ic32)):
+        plain, shard = StarClusterModel(ic, sim, **kw), StarClusterModel(ic, sim, mesh=stars4, **kw)
+        p = torch.as_tensor(pw, device=dev, dtype=ic.dtype)
+        ref = plain.lnpost_batch(p).cpu().numpy()
+        cluster_lnmarginal_cuda.launches = interp_nd_cuda.launches = 0
+        got = shard.lnpost_batch(p).cpu().numpy()
+        n_c, n_b = cluster_lnmarginal_cuda.launches, interp_nd_cuda.launches
+        if (n_c, n_b) != (4, 4 * INTERP_PER_CLUSTER_CALL):
+            raise AssertionError(f"cluster lnpost_batch on 4 shards ({dt}): cluster kernel {n_c}, kernel B {n_b}")
+        if not np.array_equal(np.isfinite(got), np.isfinite(ref)) or not np.isfinite(ref).any():
+            raise AssertionError(f"cluster lnpost_batch on 4 shards ({dt}): finite patterns differ")
+        fin = np.isfinite(ref)
+        if dt == "float64":
+            rel = float(np.max(np.abs(got[fin] - ref[fin]) / np.abs(ref[fin])))
+            if rel > 1e-12:
+                raise AssertionError(f"cluster lnpost_batch on 4 shards (float64): relative error {rel:.3e} > 1e-12")
+            cl[dt] = dict(max_rel_err=rel)
+        else:
+            cl[dt] = dict(max_abs_err=check_close("cluster lnpost_batch on 4 shards (float32)", got, ref,
+                                                  RTOL_SLICE_F32, ATOL_SLICE_F32))
+        cl[dt].update(launches_call=n_c, interp_launches_call=n_b)
+        if dt == "float32":
+            cl[dt]["ms_mesh"] = 1e3 * _wall(lambda: shard.lnpost_batch(p), reps=5)
+            cl[dt]["ms_plain"] = 1e3 * _wall(lambda: plain.lnpost_batch(p), reps=5)
+            m_ref, m_got = plain.star_lnmarginals(TRUTH), shard.star_lnmarginals(TRUTH)
+            cl[dt]["star_lnmarginals_err"] = check_close("star_lnmarginals on 4 shards (float32)", m_got, m_ref,
+                                                         RTOL_SLICE_F32, ATOL_SLICE_F32)
+            fits = {}
+            for label, model in (("plain", plain), ("mesh", shard)):
+                cluster_lnmarginal_cuda.launches = interp_nd_cuda.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = model.fit(**CLUSTER_MESH_FIT)
+                torch.cuda.synchronize()
+                fits[label] = dict(seconds=time.perf_counter() - t0, logz=res.logz, logzerr=res.logzerr,
+                                   n_dead=res.n_iter, launches=cluster_lnmarginal_cuda.launches,
+                                   interp_launches=interp_nd_cuda.launches)
+                if not np.isfinite(res.logz) or res.truncated:
+                    raise AssertionError(f"cluster fit ({label}): logz {res.logz}, truncated {res.truncated}")
+            a, b = fits["mesh"], fits["plain"]
+            bar = 3.0 * float(np.hypot(a["logzerr"], b["logzerr"]))
+            if a["logz"] != b["logz"] and abs(a["logz"] - b["logz"]) > bar:
+                raise AssertionError(f"sharded cluster fit logz {a['logz']} vs {b['logz']} (bar {bar:.3f})")
+            if a["launches"] <= 0 or a["interp_launches"] != INTERP_PER_CLUSTER_CALL * a["launches"]:
+                raise AssertionError(f"sharded cluster fit launches: cluster {a['launches']}, B {a['interp_launches']}")
+            cl["fits"] = fits
+        print(f"[mesh] cluster lnpost_batch {dt}, W={W_FIT}, {len(sim)} stars on 4 shards ({where}) vs unsharded: cluster kernel "
+              f"launches {n_c}, kernel B {n_b}; {json.dumps({k: v for k, v in cl[dt].items()})}")
+    fits = cl["fits"]
+    print(f"[mesh] cluster nested fit {json.dumps(CLUSTER_MESH_FIT)} f32 (1024 walkers a call), sharded vs unsharded: "
+          f"logz {fits['mesh']['logz']:.4f} +- {fits['mesh']['logzerr']:.4f} vs {fits['plain']['logz']:.4f} +- "
+          f"{fits['plain']['logzerr']:.4f} ({'equal' if fits['mesh']['logz'] == fits['plain']['logz'] else 'within 3 combined logzerr'}); "
+          f"{fits['mesh']['seconds']:.2f} s vs {fits['plain']['seconds']:.2f} s; dead points {fits['mesh']['n_dead']} vs "
+          f"{fits['plain']['n_dead']}; cluster kernel launches {fits['mesh']['launches']} vs {fits['plain']['launches']}, "
+          f"kernel B {fits['mesh']['interp_launches']} vs {fits['plain']['interp_launches']}")
+    rec["cluster"] = cl
+
+    # ---- (d) the catalogue's star axis on four shards
+    cat = {}
+    for label, mesh_arg in (("plain", None), ("mesh", stars4)):
+        fitter = BatchStarFitter(ic32, table, bands=CAT_BANDS)
+        catalog_lnpost_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = fitter.fit_mcmc(**CAT_MCMC, mesh=mesh_arg)
+        torch.cuda.synchronize()
+        cat[label] = dict(seconds=time.perf_counter() - t0, launches=catalog_lnpost_cuda.launches, samples=samples)
+    # the walkers' start (sample_p0) is drawn unsharded; every sampler call is four launches
+    catalog_lnpost_cuda.launches = 0
+    BatchStarFitter(ic32, table, bands=CAT_BANDS).sample_p0(CAT_MCMC["nwalkers"], rng=CAT_MCMC["seed"])
+    n_p0 = catalog_lnpost_cuda.launches
+    n_calls = cat["plain"]["launches"] - n_p0
+    if cat["mesh"]["launches"] != n_p0 + 4 * n_calls or n_calls <= 0:
+        raise AssertionError(f"catalog fit_mcmc: kernel E {cat['mesh']['launches']} launches on 4 shards, "
+                             f"{cat['plain']['launches']} unsharded ({n_p0} of them the start's)")
+    kind, err = _same_or_close("catalog fit_mcmc samples, 4 shards vs unsharded", cat["mesh"]["samples"],
+                               cat["plain"]["samples"], RTOL_STAR_F32, ATOL_STAR_F32)
+    print(f"[mesh] BatchStarFitter.fit_mcmc({json.dumps(CAT_MCMC)}) f32, {CAT_STARS} stars on 4 shards ({where}) vs unsharded: "
+          f"samples {kind} (max_abs_err {err:.3e}); kernel E launches {cat['mesh']['launches']} vs "
+          f"{cat['plain']['launches']} ({n_p0} of each the unsharded start's); "
+          f"{cat['mesh']['seconds']:.3f} s vs {cat['plain']['seconds']:.3f} s")
+    rec["catalog"] = dict(agreement=kind, max_abs_err=err, launches_mesh=cat["mesh"]["launches"],
+                          launches_plain=cat["plain"]["launches"], launches_start=n_p0, seconds_mesh=cat["mesh"]["seconds"],
+                          seconds_plain=cat["plain"]["seconds"])
+
+    # ---- (e) NUTS chains on two shards
+    chains2 = Mesh(cards[:2], ("chains",))
+    nuts = {}
+    for label, mesh_arg in (("plain", None), ("mesh", chains2)):
+        star_lnlike_cuda.launches = star_lnlike_grad_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = bin32.fit_nuts(**NUTS_MESH, mesh=mesh_arg)
+        torch.cuda.synchronize()
+        nuts[label] = dict(seconds=time.perf_counter() - t0, launches=star_lnlike_cuda.launches,
+                           launches_backward=star_lnlike_grad_cuda.launches, samples=samples)
+        if not np.isfinite(samples["lnprob"]).all() or star_lnlike_grad_cuda.launches <= 0:
+            raise AssertionError(f"fit_nuts ({label}): lnprob finite {np.isfinite(samples['lnprob']).all()}, "
+                                 f"A' launches {star_lnlike_grad_cuda.launches}")
+    same = all(np.array_equal(nuts["mesh"]["samples"][c], nuts["plain"]["samples"][c]) for c in nuts["plain"]["samples"])
+    med = float(np.median(nuts["mesh"]["samples"]["distance"]))
+    if not same and abs(med - STAR_TRUTH[4]) > NUTS_DIST_TOL:
+        raise AssertionError(f"sharded fit_nuts: not the unsharded draws, and the distance median {med:.3f} pc")
+    print(f"[mesh] BinaryStarModel.fit_nuts({json.dumps(NUTS_MESH)}) f32, chains on 2 shards vs unsharded: draws "
+          f"{'bitwise' if same else 'differ'} (sharded distance median {med:.3f} pc); kernel A launches "
+          f"{nuts['mesh']['launches']} vs {nuts['plain']['launches']}, A' {nuts['mesh']['launches_backward']} vs "
+          f"{nuts['plain']['launches_backward']}; {nuts['mesh']['seconds']:.3f} s vs {nuts['plain']['seconds']:.3f} s")
+    rec["nuts"] = dict(agreement="bitwise" if same else "differ", distance_median=med,
+                       **{f"{k}_{lab}": v for lab in ("mesh", "plain") for k, v in nuts[lab].items() if k != "samples"})
+
+    # ---- (f) a two-process fleet on the card
+    if fleet:
+        rec["fleet"] = _fleet(dev, workdir)
+    return rec
+
+
 def _star_grad_points(ic, B, seed):
     """``star_points`` over the grid's box in the first half (adversarial
     blocks) and the bench box in the second."""
@@ -4692,6 +4981,10 @@ def main(argv=None):
         t27 = time.perf_counter()
         gaia_rec = phase_results_and_summary(dev, workdir, smi)
         print(f"[gaia] phase 27 took {time.perf_counter() - t27:.1f} s")
+        # ---- 28. the device mesh: shards on the card, the star-sharded cluster and catalogue, a fleet
+        t28 = time.perf_counter()
+        mesh_rec = phase_parallel(dev, ic32, ic64, sim, table, workdir)
+        print(f"[mesh] phase 28 took {time.perf_counter() - t28:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     tree_record["launches"] = n_tree
@@ -4705,6 +4998,7 @@ def main(argv=None):
 
     print(json.dumps({"seismic": seismic_rec}))
     print(json.dumps({"results_and_summary": gaia_rec}))
+    print(json.dumps({"mesh": mesh_rec}))
     interp_rec.update(
         launches=cluster_fit_record.pop("interp_launches_nested_fit"),
         launches_lnpost_batch_fit_batch=cluster_fit_record.pop("interp_launches_fit_batch_call"),
@@ -4715,7 +5009,9 @@ def main(argv=None):
         cluster_lnpost_batch_kernels_fit_batch=cluster_fit_record["lnpost_batch_kernels_fit_batch"],
         cluster_lnpost_batch_idle_fit_batch=cluster_fit_record["lnpost_batch_idle_fit_batch"],
         cluster_nested_fit_seconds=cluster_fit_record["nested_fit_seconds"],
-        launches_gaia_starfit=gaia_rec["launches_b"])
+        launches_gaia_starfit=gaia_rec["launches_b"],
+        launches_mesh=mesh_rec["cluster"]["fits"]["mesh"]["interp_launches"],
+        launches_mesh_call=mesh_rec["cluster"]["float32"]["interp_launches_call"])
     interp_grad_rec.update(launches=seismic_rec["launches_b_grad"])
     ms, plain_ms, bound_ms, bound_by = times[MAIN_SHAPE]
     kernels_line = [{
@@ -4727,6 +5023,8 @@ def main(argv=None):
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "shape": {"W": W_KERNEL, "S": MAIN_SHAPE[0], "E": MAIN_SHAPE[1], "B": MAIN_SHAPE[2], "dtype": "float32"},
         "launches_nested_fit": n_cluster_nested, **cluster_fit_record,
+        "launches_mesh": mesh_rec["cluster"]["fits"]["mesh"]["launches"],
+        "launches_mesh_call": mesh_rec["cluster"]["float32"]["launches_call"],
     }, {
         "name": "star_lnlike", "route": "cuda",
         "source": "isochrones_torch/csrc/star_lnlike.cu",
@@ -4739,13 +5037,15 @@ def main(argv=None):
         "launches_mist_entry_point": n_star_mist, "ms_mist_grid": mist_record["star_ms"],
         "launches_isotrack": n_isotrack, "ms_isotrack_batch": isotrack_record["call"][1024]["star_ms"],
         "launches_gaia_starfit": gaia_rec["launches_a"],
+        "launches_mesh": mesh_rec["star"]["launches_mesh"], "ms_mesh_4_shards": mesh_rec["star"]["ms_mesh"],
+        "launches_mesh_nuts": mesh_rec["nuts"]["launches_mesh"],
     }, tree_record, {
         "name": "catalog_lnlike", "route": "cuda",
         "source": "isochrones_torch/csrc/catalog_lnlike.cu",
         "replaces": "isochrones_tpu/batch.py:145",
         "launches": n_cat_mcmc + n_cat_nested + n_cat_dynamic, "launches_mcmc_fit": n_cat_mcmc,
         "launches_nested_fit": n_cat_nested, "launches_dynamic_fit": n_cat_dynamic,
-        "library_ms": None, **catalog_record,
+        "library_ms": None, **catalog_record, "launches_mesh": mesh_rec["catalog"]["launches_mesh"],
     }, {
         "name": "generate", "route": "cuda",
         "source": "isochrones_torch/csrc/generate.cu",
@@ -4756,7 +5056,8 @@ def main(argv=None):
     print(json.dumps({"engines": {"nuts_binary": nuts_star, "nuts_tree": nuts_tree}}))
     grad_records["star_lnlike_grad"].update(
         launches=nuts_star["binary f32"]["launches_backward"],
-        launches_f64_fit=nuts_star["binary f64"]["launches_backward"])
+        launches_f64_fit=nuts_star["binary f64"]["launches_backward"],
+        launches_mesh=mesh_rec["nuts"]["launches_backward_mesh"])
     grad_records["tree_lnlike_grad"].update(launches=nuts_tree["launches_backward"])
     kernels_line.extend([grad_records["star_lnlike_grad"], grad_records["tree_lnlike_grad"], interp_rec,
                          interp_grad_rec])

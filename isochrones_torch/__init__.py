@@ -28,7 +28,10 @@ fast EEP inversion as a fifth kernel; the joint isochrone + track model
 (``IsoTrackModel``), its posterior two launches of the star kernel; the
 Gaia-conditioned ``starfit`` (``query``), the corner plots (``plotting``),
 the per-folder summaries (``summary``) and the ``summarize`` and ``select``
-CLIs, which import matplotlib, astroquery and requests only when called.
+CLIs, which import matplotlib, astroquery and requests only when called; the
+device mesh that splits every fit engine's likelihood fan-out and the
+cluster's star axis over devices, and the fleets of processes behind the
+CLIs' ``--multihost`` (``parallel``).
 """
 
 __version__ = "0.1.0"

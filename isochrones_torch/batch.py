@@ -15,11 +15,14 @@ gives every star's evidence. The model is the single-star model on an
 isochrone grid, parameters ``(eep, age, feh, distance, AV)``; the bands, the
 prior families and the parameterization are shared, the observations and the
 parallax-derived distance bound (reference starmodel.py:1465-1477) are per
-star.
+star. Both fits take a device mesh (``mesh=``) that splits the star axis:
+each shard's posterior holds its own stars' observations, so the parameters
+and the data are split together.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence
 
 import numpy as np
@@ -119,6 +122,7 @@ class BatchStarFitter:
 
         self._likelihood = None
         self._prior_pack = None
+        self._shards = None
         self._samples = None
         self._lnprob = None
         self._evidence = None
@@ -200,6 +204,37 @@ class BatchStarFitter:
                 extra = extra + self.priors[k].lnpdf(orig if col is None else pars[..., col])
         return torch.where(torch.isfinite(extra), out + extra, _NEG_INF)
 
+    #: per-star attributes a shard of the star axis slices
+    _STAR_ARRAYS = ("mag_vals", "mag_uncs", "spec_vals", "spec_uncs", "plax_vals", "plax_uncs", "max_distance")
+
+    def _shard(self, lo, hi, ic):
+        """The fitter of stars ``lo:hi`` on ``ic`` (the fitter's interpolator
+        or its copy on another device): the same priors, the stars'
+        observations and distance bounds."""
+        sub = copy.copy(self)
+        sub.ic, sub.n_stars = ic, hi - lo
+        for name in self._STAR_ARRAYS:
+            arr = getattr(self, name)
+            setattr(sub, name, None if arr is None else arr[lo:hi])
+        sub._likelihood = sub._prior_pack = sub._shards = None
+        return sub
+
+    def _mesh_lnpost(self, mesh):
+        """The posterior ``(x (S, B, 5), his (S, 5) or None) -> (S, B)`` with
+        its star axis split over ``mesh`` (the counterpart of the JAX
+        package's star-sharded ``_build_lnpost_data``): shard k evaluates
+        its stars' parameters against its stars' observations, on its
+        device. The shard fitters are built at every call (once a fit) from
+        the fitter's priors and bounds as they are then, and kept in
+        ``_shards``."""
+        from .parallel import check_mesh, mesh_wrap_fn, replicas, shard_sizes
+
+        mesh = check_mesh(mesh, self.device)
+        ics = replicas(self.ic, mesh)
+        bounds = np.cumsum([0] + shard_sizes(self.n_stars, mesh))
+        self._shards = [self._shard(int(bounds[k]), int(bounds[k + 1]), ics[d]) for k, d in enumerate(mesh.devices)]
+        return mesh_wrap_fn([sub._lnpost for sub in self._shards], mesh)
+
     # ------------------------------------------------------- nested sampling
     def _bounds_arrays(self):
         """Per-star parameter boxes: (los (5,), his (S, 5))."""
@@ -249,13 +284,15 @@ class BatchStarFitter:
         ``checkpoint`` after every chunk; ``resume=True`` restores it, and the
         completed fit is bitwise the one that never stopped (the initial live
         points are drawn again, then replaced by the restored state).
-        ``mesh`` is not ported yet and raises ``NotImplementedError``.
+        mesh : an :class:`~isochrones_torch.parallel.Mesh` whose first device
+            is the fitter's: each walk call's star axis is split over its
+            shards (the SLURM-array role over devices, reference
+            scripts/batch_starfit); the samplers' state stays on the first
+            device, so the fit is the unsharded one.
         """
         from .samplers.nested import run_nested_vmapped
 
-        if mesh is not None:
-            raise NotImplementedError(f"fit_multinest(mesh={mesh!r}) is not ported yet (ROADMAP queue 1, "
-                                      "parallelism)")
+        lnpost = self._lnpost if mesh is None else self._mesh_lnpost(mesh)
         S, n_live = self.n_stars, int(n_live_points)
         rng = np.random.default_rng(seed)
         los, his = self._bounds_arrays()
@@ -280,7 +317,7 @@ class BatchStarFitter:
                                 int((~np.isfinite(lnl)).sum()))
 
         def lnlike_u(his_t, u):  # (S, B, 5) unit cube -> (S, B), every star at once, the box map in the kernel
-            return self._lnpost(u, his=his_t)
+            return lnpost(u, his_t)
 
         out = run_nested_vmapped(
             lnlike_u, self._tensor(his), self._tensor(u0), self._tensor(lnl), n_live=n_live, n_batch=n_batch,
@@ -332,16 +369,22 @@ class BatchStarFitter:
         """One stretch-move ensemble per star, all in lockstep
         (:func:`~isochrones_torch.samplers.ensemble.run_ensemble_batch`).
         Returns samples of shape (n_stars, kept_steps * n_walkers, 5).
-        ``mesh`` is not ported yet and raises ``NotImplementedError``."""
+        ``mesh`` (an :class:`~isochrones_torch.parallel.Mesh`) splits the
+        star axis of every posterior call, as in :meth:`fit_multinest`."""
         from .samplers.ensemble import run_ensemble_batch
 
+        lnpost = self.lnpost_batch
         if mesh is not None:
-            raise NotImplementedError(f"fit_mcmc(mesh={mesh!r}) is not ported yet (ROADMAP queue 1, parallelism)")
+            sharded = self._mesh_lnpost(mesh)
+
+            def lnpost(pars):
+                return sharded(pars, None)
+
         p0 = self._tensor(self.sample_p0(nwalkers, rng=seed))
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed if seed is not None else 0)
-        _, _, state = run_ensemble_batch(self.lnpost_batch, p0, gen, n_steps=nburn)
-        chain, ln_chain, state = run_ensemble_batch(self.lnpost_batch, state.walkers, gen, n_steps=niter, thin=thin)
+        _, _, state = run_ensemble_batch(lnpost, p0, gen, n_steps=nburn)
+        chain, ln_chain, state = run_ensemble_batch(lnpost, state.walkers, gen, n_steps=niter, thin=thin)
         # (T, S, W, P) -> (S, T * W, P)
         T = chain.shape[0]
         self._samples = chain.permute(1, 0, 2, 3).reshape(self.n_stars, T * chain.shape[2], 5).cpu().numpy()
@@ -380,7 +423,7 @@ def fit_catalog(ic, catalog, method="mcmc", nwalkers=128, nburn=500, niter=100, 
         (:func:`~isochrones_torch.summary.summarize_batch`). Default True.
     dynamic : (nested only) dynamic nested sampling for the whole catalog.
     Other keywords go to :class:`BatchStarFitter` (``device``, ``dtype`` when
-    ``ic`` is a grid name). ``mesh`` is not ported yet.
+    ``ic`` is a grid name). ``mesh`` splits the star axis of either fit.
     """
     from .summary import summarize_batch
 

@@ -4,12 +4,17 @@ once, then write the per-star quantile summary. The same flags, with
 ``--device`` and ``--dtype`` in the place of ``--platform``::
 
     python -m isochrones_torch.cli.fit_catalog --models synthetic --method nested STARS.csv -O summary.csv
+
+With ``--multihost`` (or ``--coordinator``) each process of a fleet fits its
+contiguous shard of the rows and writes ``<output>.part<process id>``.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+import numpy as np
 
 _DTYPES = ("float64", "float32")
 
@@ -34,8 +39,9 @@ def build_parser():
     parser.add_argument("--niter", type=int, default=100)
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--output", "-O", default="catalog_fit.csv")
-    # sharding of the rows across processes: accepted, not ported yet
-    parser.add_argument("--multihost", action="store_true", help="shard the rows across processes (not ported yet)")
+    # fleet sharding: each process fits its shard of the rows
+    parser.add_argument("--multihost", action="store_true",
+                        help="shard the rows across the processes of a torch.distributed (gloo) fleet")
     parser.add_argument("--coordinator", default=None)
     parser.add_argument("--num-processes", type=int, default=None, dest="num_processes")
     parser.add_argument("--process-id", type=int, default=None, dest="process_id")
@@ -44,10 +50,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.multihost or args.coordinator is not None or args.num_processes is not None \
-            or args.process_id is not None:
-        raise NotImplementedError("sharding a catalog across processes is not ported yet (ROADMAP queue 1, "
-                                  "parallelism)")
     if str(args.catalog).endswith((".h5", ".hdf", ".hdf5")):
         raise NotImplementedError("an HDF table needs pandas, which the port does not use; give a CSV table")
 
@@ -57,14 +59,31 @@ def main(argv=None):
     from ..catalog import StarCatalog, read_csv
     from ..isochrone import get_ichrone
 
-    cat = StarCatalog(read_csv(args.catalog), bands=args.bands, props=args.props)
+    table = read_csv(args.catalog)
+    output = args.output
+    if args.multihost or args.coordinator is not None:
+        from ..parallel.multihost import initialize_distributed, process_shard
+
+        pid, nproc = initialize_distributed(
+            coordinator_address=args.coordinator,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+        )
+        n_rows = len(next(iter(table.values()))) if table else 0
+        rows = np.asarray(process_shard(list(range(n_rows)), pid, nproc), dtype=np.int64)
+        table.setdefault("index", np.arange(n_rows))  # the part keeps the table's row labels
+        table = {c: np.asarray(v)[rows] for c, v in table.items()}
+        output = f"{args.output}.part{pid}"
+        print(f"[multihost] process {pid}/{nproc}: {len(rows)} star(s) -> {output}")
+
+    cat = StarCatalog(table, bands=args.bands, props=args.props)
     ic = get_ichrone(args.models, bands=list(cat.bands), device=args.device, dtype=getattr(torch, args.dtype))
     _, summary = fit_catalog(
         ic, cat, method=args.method, nwalkers=args.nwalkers, nburn=args.nburn, niter=args.niter,
         n_live_points=args.n_live_points, seed=args.seed, dynamic=args.dynamic,
     )
-    summary.to_csv(args.output)
-    print(f"{len(cat)} stars fitted; per-star quantiles written to {args.output}")
+    summary.to_csv(output)
+    print(f"{len(cat)} stars fitted; per-star quantiles written to {output}")
     return 0
 
 

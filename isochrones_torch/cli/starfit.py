@@ -5,7 +5,11 @@ reference scripts/starfit:34-106). The same flags, with ``--device`` and
     python -m isochrones_torch.cli.starfit --models synthetic --no_plots FOLDER
 
 Without ``--no_plots`` it draws the corner plots (matplotlib); with
-``--gaia`` it conditions on the closest Gaia source.
+``--gaia`` it conditions on the closest Gaia source. With ``--multihost``
+(or ``--coordinator``) each process of a fleet fits its contiguous shard of
+the folders (:mod:`isochrones_torch.parallel.multihost`; the
+``ISOCHRONES_TPU_{COORDINATOR,NUM_PROCESSES,PROCESS_ID}`` variables stand in
+for the flags) and waits for the others at the end.
 """
 
 from __future__ import annotations
@@ -56,10 +60,12 @@ def build_parser():
     parser.add_argument("--gaia_radius", type=float, default=5.0,
                         help="Gaia query radius in arcsec")
     parser.add_argument("--tree", action="store_true", help="use the tree-based StarModel (resolved systems)")
-    # sharding of the folder list across processes: accepted, not ported yet
+    # fleet sharding: each process fits its shard of folders (the reference
+    # scripts/batch_starfit SLURM-array role)
     parser.add_argument("--multihost", action="store_true",
-                        help="shard the folder list across processes (not ported yet)")
-    parser.add_argument("--coordinator", default=None, help="coordinator address host:port (multihost)")
+                        help="shard the folder list across the processes of a torch.distributed (gloo) fleet")
+    parser.add_argument("--coordinator", default=None,
+                        help="the fleet's coordinator address host:port, served by process 0 (multihost)")
     parser.add_argument("--num-processes", type=int, default=None, dest="num_processes")
     parser.add_argument("--process-id", type=int, default=None, dest="process_id")
     return parser
@@ -68,15 +74,23 @@ def build_parser():
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.multihost or args.coordinator is not None or args.num_processes is not None \
-            or args.process_id is not None:
-        raise NotImplementedError("sharding folders across processes is not ported yet (ROADMAP queue 1, parallelism)")
 
     import torch
 
     from ..starfit import starfit
 
     folders = list(args.folders)
+    nproc = 1
+    if args.multihost or args.coordinator is not None:
+        from ..parallel.multihost import initialize_distributed, process_shard
+
+        pid, nproc = initialize_distributed(
+            coordinator_address=args.coordinator,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+        )
+        folders = process_shard(folders, pid, nproc)
+        print(f"[multihost] process {pid}/{nproc}: {len(folders)} folder(s)")
     if args.all:
         multiplicities = ["single", "binary", "triple"]
     elif args.binary:
@@ -131,6 +145,11 @@ def main(argv=None):
             **fit_kwargs,
         )
         del mod
+    if nproc > 1:
+        from ..parallel.multihost import _fleet_barrier
+
+        _fleet_barrier("isochrones_torch_starfit_end")
+        print(f"[multihost] process {pid}/{nproc}: every process has finished")
     if failures:
         # failed folders are logged and skipped, but the shell must not see
         # success: batch and recovery workflows key off the exit code

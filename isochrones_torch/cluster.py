@@ -12,9 +12,13 @@ whose tensors would pass a byte budget is cut into pieces of walkers.
 ``fit()`` is the nested fit (dynamic by default: a cluster marginal is costly
 per call), ``fit_mcmc`` the ensemble one. Catalogues are dicts of numpy
 columns (:class:`~isochrones_torch.catalog.StarCatalog`); ``clusterfit`` reads
-CSV files.
+CSV files (not HDF tables, which need pandas).
 
-Not ported yet: the multi-device star sharding (``mesh``) and HDF input.
+With ``StarClusterModel(mesh=)`` the star axis is split over the mesh's
+shards: every shard takes all the walkers and its own members' stacks, runs
+the ladder and the cluster marginal on its device, and returns the sum of its
+finite marginals and its count of non-finite ones; both are summed over the
+shards on the mesh's first device (the JAX package's ``psum``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,14 @@ __all__ = ["StarClusterModel", "SimulatedCluster", "simulate_cluster", "clusterf
 _WALKER_BYTES_BUDGET = 1 << 32
 
 
+def _finite_sum(lnmarg):
+    """``(W, S)`` member marginals -> the sum of the finite ones and the count
+    of the others, each ``(W,)``: a cluster's (or a star shard's) part of the
+    likelihood, which is -inf where the count is positive."""
+    good = torch.isfinite(lnmarg)
+    return torch.where(good, lnmarg, torch.zeros_like(lnmarg)).sum(dim=-1), (~good).sum(dim=-1)
+
+
 def _walker_bytes(n_stars, n_ladder, n_bands, itemsize):
     """Estimate of the bytes one walker's tensors take in a likelihood call
     on an E-point ladder: the (S, E) property likelihood with its
@@ -55,7 +67,9 @@ class StarClusterModel(BasicStarModel):
     Each member star is marginalized over its (primary EEP, secondary EEP)
     plane with a binary-fraction photometric mixture, a power-law(alpha)
     primary-mass prior (with the |dm/dEEP| Jacobian), and a power-law(gamma)
-    mass-ratio prior. The model runs on the interpolator's device and dtype.
+    mass-ratio prior. The model runs on the interpolator's device and dtype;
+    ``mesh`` (an :class:`~isochrones_torch.parallel.Mesh` whose first device
+    is the interpolator's) splits the star axis of every likelihood call.
     """
 
     _cluster_param_names = ("age", "feh", "distance", "AV", "alpha", "gamma", "fB")
@@ -93,11 +107,12 @@ class StarClusterModel(BasicStarModel):
         **kwargs,
     ):
         if mesh is not None:
-            raise NotImplementedError(f"StarClusterModel(mesh={mesh!r}): sharding the star axis across devices "
-                                      "is not ported yet (ROADMAP queue 1, parallelism)")
+            from .parallel import check_mesh
+
+            check_mesh(mesh, ic.device)
         self._fn_cache = {}
         self._ic = ic
-        self.mesh = None
+        self.mesh = mesh
         #: False = exact reference-parity marginalization; True adds the
         #: |dq/deep2| change-of-variables factor (see ops/cluster.py)
         self.q_jacobian = bool(q_jacobian)
@@ -265,17 +280,44 @@ class StarClusterModel(BasicStarModel):
         block_lnmarg = self._build_block_lnmarg()
 
         def lnlike_dataset(p, mv, mu, pv, pu):
-            lnmarg = block_lnmarg(p.reshape(-1, p.shape[-1]), mv, mu, pv, pu)
-            good = torch.isfinite(lnmarg)
-            total = torch.where(good, lnmarg, torch.zeros_like(lnmarg)).sum(dim=-1)
-            total = torch.where(good.all(dim=-1), total, float("-inf"))
-            return total.reshape(p.shape[:-1])
+            total, n_bad = _finite_sum(block_lnmarg(p.reshape(-1, p.shape[-1]), mv, mu, pv, pu))
+            return torch.where(n_bad > 0, float("-inf"), total).reshape(p.shape[:-1])
 
         return lnlike_dataset
 
+    def _build_sharded_lnlike(self, obs, mesh):
+        """The likelihood with its star axis split over ``mesh``: ``(lnlike_flat
+        (W, 7) -> (W,), star_lnmarg (W, 7) -> (W, S) in catalog order, the
+        most stars a shard holds)``. Each shard runs ``block_lnmarg`` on its
+        device (a copy of the model's tables per distinct device; the model
+        itself on its own) over all the walkers and its members; the shards'
+        partial sums and counts of non-finite marginals add up on the first
+        device. A mesh of the model's one device is the unsharded model."""
+        from .parallel import mesh_constrain_leading, replicas
+
+        reps = replicas(self, mesh)
+        fns = {d: m._build_block_lnmarg() for d, m in reps.items()}
+        stacks = mesh_constrain_leading(obs, mesh)
+        shards = [(fns[d], d, st) for d, st in zip(mesh.devices, stacks) if st[0].shape[0] > 0]
+        first = mesh.devices[0]
+
+        def lnlike_flat(flat):
+            # every shard's launches go out before any result is read
+            parts = [_finite_sum(fn(flat.to(d), *st)) for fn, d, st in shards]
+            total, n_bad = (x.to(first) for x in parts[0])
+            for part, bad in parts[1:]:
+                total = total + part.to(first)
+                n_bad = n_bad + bad.to(first)
+            return torch.where(n_bad > 0, float("-inf"), total)
+
+        def star_lnmarg(p):
+            return torch.cat([fn(p.to(d), *st).to(first) for fn, d, st in shards], dim=1)
+
+        return lnlike_flat, star_lnmarg, max(st[0].shape[0] for _, _, st in shards)
+
     def _build_lnlike_batch(self):
-        block_lnmarg = self._build_block_lnmarg()
-        lnlike_dataset = self._build_lnlike_dataset()
+        from .parallel import Mesh
+
         dt, dev = self.dtype, self.device
         mag_vals, mag_uncs, prop_vals, prop_uncs = self.stars.observation_stacks()
         if np.isnan(mag_vals).any():
@@ -285,22 +327,21 @@ class StarClusterModel(BasicStarModel):
                 int(np.isnan(mag_vals).any(axis=1).sum()),
             )
         obs = tuple(torch.as_tensor(x, dtype=dt, device=dev) for x in (mag_vals, mag_uncs, prop_vals, prop_uncs))
-        self._star_lnmarg_fn = lambda p: block_lnmarg(p, *obs)
+        mesh = self.mesh if self.mesh is not None else Mesh([dev], ("stars",))
+        lnlike_flat, self._star_lnmarg_fn, n_stars = self._build_sharded_lnlike(obs, mesh)
 
         # walkers per call: the nested fit hands over n_batch * n_chains walk
-        # points at once and n_live at its start
-        per_walker = _walker_bytes(mag_vals.shape[0], self._n_ladder, mag_vals.shape[1],
-                                   torch.empty((), dtype=dt).element_size())
+        # points at once and n_live at its start; a shard holds its stars' planes
+        per_walker = _walker_bytes(n_stars, self._n_ladder, mag_vals.shape[1], torch.empty((), dtype=dt).element_size())
         max_parallel = max(1, _WALKER_BYTES_BUDGET // per_walker)
 
         def lnlike_batch(p):
             """(..., 7) -> (...), in pieces of at most ``max_parallel`` walkers."""
             flat = p.reshape(-1, p.shape[-1])
             if flat.shape[0] <= max_parallel:
-                out = lnlike_dataset(flat, *obs)
+                out = lnlike_flat(flat)
             else:
-                out = torch.cat([lnlike_dataset(flat[i : i + max_parallel], *obs)
-                                 for i in range(0, flat.shape[0], max_parallel)])
+                out = torch.cat([lnlike_flat(flat[i : i + max_parallel]) for i in range(0, flat.shape[0], max_parallel)])
             return out.reshape(p.shape[:-1])
 
         return lnlike_batch

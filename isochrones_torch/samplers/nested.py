@@ -30,7 +30,12 @@ problems with their own data (:func:`run_nested_vmapped`, a whole catalog of
 stars). Each walk step is one likelihood call over ``(M, B, p)`` points, so
 the number of launches per step does not grow with M.
 
-Not ported yet (ROADMAP queue 1, parallelism): the device mesh.
+With ``mesh`` (an :class:`~isochrones_torch.parallel.Mesh`) the likelihood
+fan-out is split over the mesh's shards: the walk batch of a single run, the
+run axis of ``n_runs > 1``, the problem axis of :func:`run_nested_vmapped`.
+The live sets, the walk scales and the generator stay on the mesh's first
+device, so a sharded run is the unsharded one wherever the likelihood's
+arithmetic for one point does not depend on the batch.
 """
 
 from __future__ import annotations
@@ -598,11 +603,11 @@ def run_nested(
         averaged shrinkage estimate, the posterior Z-weighted draws from every
         run, ``logz_runs`` the per-run evidences. It does not go with
         ``dynamic`` (a ``ValueError``, as in the JAX package).
-
-    ``mesh`` is not ported yet and raises ``NotImplementedError``.
+    mesh : an :class:`~isochrones_torch.parallel.Mesh` whose first device is
+        the generator's: a single run shards each likelihood call's batch
+        (the walk points, the initial live points), ``n_runs > 1`` the run
+        axis. ``lnpost_u`` is called on each shard's device.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"run_nested(mesh={mesh!r}) is not ported yet (ROADMAP queue 1, parallelism)")
     if n_runs > 1:
         if core is not None:
             raise ValueError("core= runs one problem at a time; combine it with n_runs=1")
@@ -615,7 +620,7 @@ def run_nested(
             lnpost_u, prior_transform, n_params, generator, n_live=n_live, max_iter=max_iter, n_chains=n_chains,
             n_repeat=n_repeat, n_equal=n_equal, dlogz=dlogz, n_batch=n_batch, rng=rng, min_ess=min_ess,
             on_low_ess=on_low_ess, n_runs=n_runs, checkpoint=checkpoint, resume=resume, config_tag=config_tag,
-            dtype=dtype, device=device,
+            dtype=dtype, device=device, mesh=mesh,
         )
     hard_cap = max_iter if max_iter is not None else 1000 * n_live
     n_batch = max(1, min(int(n_batch), n_live // 4))
@@ -642,6 +647,11 @@ def run_nested(
 
     def lnlike_u(u):
         return lnpost_u(prior_transform(u))
+
+    if mesh is not None:
+        from ..parallel import check_mesh, mesh_wrap_fn
+
+        lnlike_u = mesh_wrap_fn(lnlike_u, check_mesh(mesh, dev))
 
     def lnlike_host(u_np):
         out = lnlike_u(torch.as_tensor(u_np, dtype=dtype, device=dev)).cpu().numpy()
@@ -858,13 +868,14 @@ def run_nested(
 
 def _run_nested_multi(lnpost_u, prior_transform, n_params, generator, *, n_live, max_iter, n_chains, n_repeat,
                       n_equal, dlogz, n_batch, rng, min_ess, on_low_ess, n_runs, checkpoint, resume, config_tag,
-                      dtype, device):
+                      dtype, device, mesh=None):
     """``n_runs`` independent runs of one problem advanced in lockstep by
     :func:`_nested_core_family` (counterpart of the JAX package's
     ``_run_nested_multi``, ``isochrones_tpu/samplers/nested.py:902-1124``):
     every run has its own live set and walk scale, and each walk step is one
     likelihood call over all runs' points. The loop stops when every run has
-    met ``dlogz`` and the pooled Z-weighted ESS reaches ``min_ess``."""
+    met ``dlogz`` and the pooled Z-weighted ESS reaches ``min_ess``. With
+    ``mesh`` the run axis of each call is split over the shards."""
     R = int(n_runs)
     hard_cap = max_iter if max_iter is not None else 1000 * n_live
     n_batch = max(1, min(int(n_batch), n_live // 4))
@@ -876,7 +887,12 @@ def _run_nested_multi(lnpost_u, prior_transform, n_params, generator, *, n_live,
     dev = g.device
 
     def lnlike_fam(u):  # (R, B, p) -> (R, B) through one call of R * B points
-        return lnpost_u(prior_transform(u.reshape(-1, n_params))).reshape(R, -1)
+        return lnpost_u(prior_transform(u.reshape(-1, n_params))).reshape(u.shape[0], -1)
+
+    if mesh is not None:
+        from ..parallel import check_mesh, mesh_wrap_fn
+
+        lnlike_fam = mesh_wrap_fn(lnlike_fam, check_mesh(mesh, dev))
 
     def lnlike_host(u_np):
         out = lnlike_fam(torch.as_tensor(u_np, dtype=dtype, device=dev)).cpu().numpy()
@@ -1094,6 +1110,11 @@ def run_nested_vmapped(
     device, dtype : of the walks; by default those of ``live_u`` when it is a
         tensor, else the CUDA card and float64.
 
+    mesh : an :class:`~isochrones_torch.parallel.Mesh` whose first device is
+        the walks' device: each call's problem axis (of ``data`` and the
+        points) is split over the shards, and ``lnlike_u`` sees one shard's
+        rows on its shard's device.
+
     One ``torch.Generator`` drives the family's draws, where the JAX package
     splits a key per problem: a problem's draws depend on M, so the two
     packages agree statistically, not draw for draw.
@@ -1103,9 +1124,6 @@ def run_nested_vmapped(
     the unit cube (NaN for a problem with no posterior support), ``lnl`` (M,
     n_equal), and the scalars ``n_dead`` and ``dynamic_rounds``.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"run_nested_vmapped(mesh={mesh!r}) is not ported yet (ROADMAP queue 1, "
-                                  "parallelism)")
     M, n_live_in, n_params = live_u.shape
     if n_live_in != int(n_live):
         raise ValueError(f"live_u has {n_live_in} live points, expected n_live={n_live}")
@@ -1122,8 +1140,14 @@ def run_nested_vmapped(
     g.manual_seed(int(rng.integers(2 ** 31)) if (rng_given or seed is None) else int(seed))
     dev = g.device
 
+    family = lnlike_u
+    if mesh is not None:
+        from ..parallel import check_mesh, mesh_wrap_fn
+
+        family = mesh_wrap_fn(lnlike_u, check_mesh(mesh, dev))
+
     def fam(u):
-        return lnlike_u(data, u)
+        return family(data, u)
 
     ckpt_cfg = state = None
     if checkpoint is not None:

@@ -86,6 +86,13 @@ def _safe_value_and_grad(logp: Callable) -> Callable:
     return fn
 
 
+def _at(t, like):
+    """``t`` on the device of ``like``: a mesh hands a shard's chains to
+    ``logp_batch`` on the shard's card, where the transform's constants
+    are copied."""
+    return t if t.device == like.device else t.to(like.device)
+
+
 def _uturn(dz, r_l, r_r, inv_mass):
     return ((dz * inv_mass * r_l).sum(dim=-1) < 0) | ((dz * inv_mass * r_r).sum(dim=-1) < 0)
 
@@ -94,11 +101,10 @@ def _kinetic(r, inv_mass):
     return 0.5 * (r * inv_mass * r).sum(dim=-1)
 
 
-def _make_kernel(logp: Callable, max_depth: int, generator: torch.Generator) -> Callable:
+def _make_kernel(vg: Callable, max_depth: int, generator: torch.Generator) -> Callable:
     """One NUTS transition of every chain: ``(z, lnp, grad, eps, inv_mass) ->
     (z', lnp', grad', accept_stat, divergent)``, all with a leading chain
-    axis."""
-    vg = _safe_value_and_grad(logp)
+    axis; ``vg`` is the batched value-and-gradient (:func:`_safe_value_and_grad`)."""
     g = generator
     leaves = torch.arange(1 << max_depth, dtype=torch.int64)
     popcount = _popcount(leaves).tolist()
@@ -210,14 +216,22 @@ def _make_kernel(logp: Callable, max_depth: int, generator: torch.Generator) -> 
 
 
 def _nuts_run(logp_batch, x0, generator, n_warmup, n_samples, max_depth, target_accept, inv_mass0=None,
-              eps_jitter=1.0):
+              eps_jitter=1.0, mesh=None):
     """Warmup and sampling of ``x0.shape[0]`` chains: ``(chain (n_samples,
     C, d), lnp_chain (n_samples, C), eps (C,), inv_mass (C, d), accept (C,),
-    n_divergent (C,))``, tensors."""
+    n_divergent (C,))``, tensors. With ``mesh`` each value-and-gradient call
+    is split over the mesh's shards along the chain axis, every shard taking
+    its own gradient; the transitions, the adaptation and the generator stay
+    on the mesh's first device."""
     n_chains, dim = x0.shape
     g = generator
-    kernel = _make_kernel(logp_batch, max_depth, g)
-    lnp0, g0 = _safe_value_and_grad(logp_batch)(x0)
+    vg = _safe_value_and_grad(logp_batch)
+    if mesh is not None:
+        from ..parallel import mesh_wrap_fn
+
+        vg = mesh_wrap_fn(vg, mesh)
+    kernel = _make_kernel(vg, max_depth, g)
+    lnp0, g0 = vg(x0)
 
     # warmup: dual averaging and Stan-style doubling mass windows
     gamma, t0, kappa = 0.05, 10.0, 0.75
@@ -350,13 +364,22 @@ def run_nuts(
     eps_jitter : per-transition log-uniform step-size jitter of the sampling
         transitions (1.0: off)
 
-    ``mesh`` is not ported yet and raises ``NotImplementedError``. Warns when
-    a chain adapted a step size below its dtype's resolution floor (a frozen
-    chain).
+    mesh : an :class:`~isochrones_torch.parallel.Mesh` whose first device is
+        the generator's: the chain axis of every value-and-gradient call (and
+        the walkers of the ensemble warm start) is split over its shards, and
+        ``logp_batch`` is called on each shard's device. The pooled warmup
+        variance is taken on the first device, so the chains are the
+        unsharded ones wherever ``logp_batch``'s arithmetic for one point
+        does not depend on the batch.
+
+    Warns when a chain adapted a step size below its dtype's resolution floor
+    (a frozen chain).
     """
-    if mesh is not None:
-        raise NotImplementedError(f"run_nuts(mesh={mesh!r}) is not ported yet (ROADMAP queue 1, parallelism)")
     g = generator
+    if mesh is not None:
+        from ..parallel import check_mesh, mesh_wrap_fn
+
+        check_mesh(mesh, g.device)
     if isinstance(x0, torch.Tensor):
         x0 = x0.detach()
     else:
@@ -369,10 +392,10 @@ def run_nuts(
         span = torch.as_tensor(bounds[:, 1] - bounds[:, 0], dtype=dt, device=dev)
 
         def to_z(y):
-            return lo + span * torch.sigmoid(y)
+            return _at(lo, y) + _at(span, y) * torch.sigmoid(y)
 
         def logjac(y):
-            return torch.sum(torch.log(span) + torch.nn.functional.logsigmoid(y)
+            return torch.sum(torch.log(_at(span, y)) + torch.nn.functional.logsigmoid(y)
                              + torch.nn.functional.logsigmoid(-y), dim=-1)
 
         logp_bounded = logp_batch
@@ -395,7 +418,8 @@ def run_nuts(
         n_walkers = x0.shape[0] - (x0.shape[0] % 2)
         n_chains = n_chains or min(8, n_walkers)
         with torch.no_grad():
-            _, _, state = run_ensemble(logp_batch, x0[:n_walkers], g, n_steps=int(ensemble_init))
+            _, _, state = run_ensemble(logp_batch if mesh is None else mesh_wrap_fn(logp_batch, mesh),
+                                       x0[:n_walkers], g, n_steps=int(ensemble_init))
         cloud = state.walkers
         # The dense metric from the burned-in cloud, estimated robustly: after
         # a finite burn from prior-wide starts the cloud still holds stuck
@@ -423,7 +447,12 @@ def run_nuts(
         logp_z = logp_batch
 
         def logp_run(y):
-            return logp_z(mu[None, :] + y @ W.T)
+            # z = mu + W y, row by row as a product and a sum over the last
+            # axis: a matrix product's rows can round otherwise when fewer
+            # rows share the call (a mesh hands each shard a slice of the
+            # chains), on the CPU and in cuBLAS alike
+            # (scripts/check_batch_invariance.py)
+            return logp_z(_at(mu, y)[None, :] + (y[:, None, :] * _at(W, y)).sum(dim=-1))
 
         x0_run = torch.linalg.solve_triangular(W, (x0 - mu[None, :]).T, upper=False).T
         inv_mass_run = torch.ones(x0.shape[-1], dtype=dt, device=dev)
@@ -432,7 +461,7 @@ def run_nuts(
 
     chain, lnp_chain, eps, inv_mass, acc, ndiv = _nuts_run(
         logp_run, x0_run, g, int(n_warmup), int(n_samples), int(max_depth), float(target_accept),
-        inv_mass0=inv_mass_run, eps_jitter=float(eps_jitter))
+        inv_mass0=inv_mass_run, eps_jitter=float(eps_jitter), mesh=mesh)
     eps_np = eps.cpu().numpy()
     _warn_frozen(eps_np, dt)
 

@@ -441,6 +441,26 @@ class BasicStarModel:
             cache.update(lnlike=lnlike, lnprior=lnprior, lnpost=fused if fused is not None else lnpost)
         return cache[name]
 
+    def _mesh_fn(self, name, mesh=None):
+        """The batched closure ``name`` for an engine that shards it over
+        ``mesh``: the model's own where every device of the mesh is the
+        model's, else one over each distinct device's copy of the model
+        (:class:`~isochrones_torch.parallel.ByDevice`; the copies are made
+        once per bounds and prior setting). The mesh's first device, where
+        the sampler's state lives, must be the model's."""
+        fn = self._get_fn(name)
+        if mesh is None:
+            return fn
+        from .parallel import ByDevice, check_mesh, replicas
+
+        mesh = check_mesh(mesh, self.device)
+        if mesh.distinct_devices == (self.device,):
+            return fn
+        key = ("replicas", mesh.distinct_devices)
+        if key not in self._fn_cache:
+            self._fn_cache[key] = replicas(self, mesh)
+        return ByDevice({d: m._get_fn(name) for d, m in self._fn_cache[key].items()})
+
     def _as_params(self, p):
         return torch.as_tensor(p, dtype=self.dtype, device=self.device)
 
@@ -615,8 +635,10 @@ class BasicStarModel:
         and the checkpoint carries a hash of the data, bounds and seed, so a
         stale one is refused (``CheckpointConfigError``), never replayed.
         ``n_runs > 1`` runs independent runs in lockstep (the result's
-        ``logz_runs``; not with ``dynamic``); ``mesh`` is not ported yet and
-        raises ``NotImplementedError``. Sets ``samples`` (a dict of numpy
+        ``logz_runs``; not with ``dynamic``). ``mesh`` (an
+        :class:`~isochrones_torch.parallel.Mesh`) shards the likelihood
+        fan-out: the walk batch of a single run, the run axis of ``n_runs >
+        1``. Sets ``samples`` (a dict of numpy
         columns with ``"lnprob"``) and ``evidence``; returns the
         ``NestedResult``."""
         from .samplers.nested import run_nested
@@ -641,8 +663,8 @@ class BasicStarModel:
             kwargs["dynamic"] = True
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed if seed is not None else 0)
-        result = run_nested(self._get_fn("lnpost"), self.prior_transform_batch, self.n_params, gen,
-                            n_live=n_live_points, max_iter=max_iter, rng=seed, dtype=self.dtype, **kwargs)
+        result = run_nested(self._mesh_fn("lnpost", kwargs.get("mesh")), self.prior_transform_batch, self.n_params,
+                            gen, n_live=n_live_points, max_iter=max_iter, rng=seed, dtype=self.dtype, **kwargs)
         self._nested_result = result
         self._evidence = (result.logz, result.logzerr)
         if result.truncated:
@@ -674,23 +696,23 @@ class BasicStarModel:
         on gridded posteriors the accept statistic plateaus near 0.85 whatever
         the step size (the grid's -inf cliffs reject a fixed share of
         trajectories), and a target above the plateau drives the step size to
-        the dtype's floor. ``mesh`` is not ported yet and raises
-        ``NotImplementedError``. Returns the samples (a
+        the dtype's floor. ``mesh`` shards the chain axis of every
+        value-and-gradient call (and the ensemble warm start's walkers).
+        Returns the samples (a
         :class:`~isochrones_torch.summary.Frame` with ``"lnprob"``); the
         :class:`~isochrones_torch.samplers.nuts.NutsResult` is kept as
         ``self._nuts_result``."""
         from .samplers.nuts import run_nuts
 
-        if mesh is not None:
-            raise NotImplementedError(f"fit_nuts(mesh={mesh!r}) is not ported yet (ROADMAP queue 1, parallelism)")
+        lnpost = self._mesh_fn("lnpost", mesh)
         n_cloud = max(64, 8 * self.n_params, 2 * n_chains)
         p0 = self.sample_from_prior(n_cloud, values=True, require_valid=True, rng=seed)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed if seed is not None else 0)
         los, his = self._bounds_arrays()
-        res = run_nuts(self._get_fn("lnpost"), self._as_params(np.asarray(p0, dtype=float)), gen,
+        res = run_nuts(lnpost, self._as_params(np.asarray(p0, dtype=float)), gen,
                        n_warmup=n_warmup, n_samples=n_samples, max_depth=max_depth, target_accept=target_accept,
-                       ensemble_init=500, n_chains=n_chains, bounds=np.stack([los, his], axis=-1),
+                       ensemble_init=500, n_chains=n_chains, bounds=np.stack([los, his], axis=-1), mesh=mesh,
                        eps_jitter=eps_jitter)
         self._nuts_result = res
         return self._set_samples(res.samples.reshape(-1, self.n_params), res.lnp.reshape(-1))
@@ -701,14 +723,15 @@ class BasicStarModel:
         replacement of :func:`~isochrones_torch.samplers.polychord.run_polychord`
         in the nested sampler's loop, an independent cross-check of
         :meth:`fit_multinest`'s evidence and posterior. Keywords go to
-        :func:`~isochrones_torch.samplers.nested.run_nested`. Sets
-        ``samples`` and ``evidence``; returns the ``NestedResult``."""
+        :func:`~isochrones_torch.samplers.nested.run_nested` (``mesh`` as in
+        :meth:`fit_multinest`). Sets ``samples`` and ``evidence``; returns
+        the ``NestedResult``."""
         from .samplers.polychord import run_polychord
 
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed if seed is not None else 0)
-        result = run_polychord(self._get_fn("lnpost"), self.prior_transform_batch, self.n_params, gen,
-                               n_live=n_live_points, max_iter=max_iter, rng=seed, dtype=self.dtype, **kwargs)
+        result = run_polychord(self._mesh_fn("lnpost", kwargs.get("mesh")), self.prior_transform_batch, self.n_params,
+                               gen, n_live=n_live_points, max_iter=max_iter, rng=seed, dtype=self.dtype, **kwargs)
         self._nested_result = result
         self._evidence = (result.logz, result.logzerr)
         self._set_samples(result.posterior, result.logl_posterior)
@@ -718,23 +741,25 @@ class BasicStarModel:
                  moves="stretch", **kwargs):
         """On-device affine-invariant ensemble MCMC (reference
         starmodel.py:886-972). ``moves``: "stretch", "de", "snooker", "kde"
-        or "mixed". ``mesh`` (sharding the walkers across devices) is not
-        ported yet and raises ``NotImplementedError``, as in ``fit_multinest``.
-        Other keywords (those of the nested fit, which ``starfit``
+        or "mixed". ``mesh`` (an :class:`~isochrones_torch.parallel.Mesh`)
+        shards the walker batch of every posterior call; the walkers' state
+        and the generator stay on the mesh's first device, so the chain is
+        the unsharded one. Other keywords (those of the nested fit, which ``starfit``
         hands to either engine) are ignored, as in the reference. Returns a dict of column name -> numpy array with the
         parameter columns and ``"lnprob"``; the final sampler state (with its
         acceptance counts) is kept as ``self.sampler_state``."""
         from .samplers.ensemble import run_ensemble
 
+        lnpost = self._mesh_fn("lnpost", mesh)
         if mesh is not None:
-            raise NotImplementedError(f"fit_mcmc(mesh={mesh!r}) is not ported yet (ROADMAP queue 1, parallelism)")
+            from .parallel import mesh_wrap_fn
 
+            lnpost = mesh_wrap_fn(lnpost, mesh)
         if p0 is None:
             p0 = self.emcee_p0(nwalkers, rng=seed)
         p0 = self._as_params(p0)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed if seed is not None else 0)
-        lnpost = self._get_fn("lnpost")
 
         _, _, state = run_ensemble(lnpost, p0, gen, n_steps=nburn, moves=moves)
         chain, ln_chain, state = run_ensemble(lnpost, state.walkers, gen, n_steps=niter, thin=thin,

@@ -293,6 +293,6 @@ def test_lnpost_ignores_keywords(star_model):
 def test_fit_mcmc_positional_order(star_model):
     """``fit_mcmc``'s seventh and eighth parameters are ``mesh`` and
     ``moves``, as in the reference: a mesh given by position reaches the mesh
-    check (the port has no sharded walkers yet)."""
-    with pytest.raises(NotImplementedError, match="mesh"):
+    check."""
+    with pytest.raises(TypeError, match="Mesh"):
         star_model.fit_mcmc(8, 1, 1, 1, None, 0, object())

@@ -167,7 +167,7 @@ def test_fitter_refusals(setup):
         BatchStarFitter(tiso.track, tf.catalog)
     for call in (lambda: tf.fit_mcmc(nwalkers=8, nburn=1, niter=1, mesh=object()),
                  lambda: tf.fit_multinest(n_live_points=16, mesh=object())):
-        with pytest.raises(NotImplementedError, match="parallelism"):
+        with pytest.raises(TypeError, match="Mesh"):
             call()
     with pytest.raises(AttributeError):
         BatchStarFitter(tiso, tf.catalog).samples
@@ -317,10 +317,14 @@ def test_fit_catalog_cli_writes_the_jax_summary_layout(tmp_path, capsys):
     with open(out) as f:
         assert f.readline() == ref.to_csv().splitlines(keepends=True)[0]
 
-    for extra in (["--multihost"], ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
-                  ["--process-id", "0"]):
-        with pytest.raises(NotImplementedError, match="parallelism"):
-            fit_catalog_main(["--device", "cpu", "--models", "synthetic"] + extra + [path])
+    # a fleet of one process fits the whole table into the part file of process 0
+    for extra in (["--multihost"], ["--multihost", "--num-processes", "1", "--process-id", "0"]):
+        part = str(tmp_path / "fleet.csv")
+        rc = fit_catalog_main(["--device", "cpu", "--models", "synthetic", "--method", "mcmc", "--nwalkers", "8",
+                               "--nburn", "2", "--niter", "2", "--seed", "0"] + extra + [path, "-O", part])
+        assert rc == 0 and "process 0/1: 3 star(s)" in capsys.readouterr().out
+        fleet = pd.read_csv(part + ".part0", index_col=0)
+        assert list(fleet.index) == [0, 1, 2] and list(fleet.columns) == list(written.columns)
     with pytest.raises(NotImplementedError, match="CSV"):
         fit_catalog_main(["--device", "cpu", "--models", "synthetic", str(tmp_path / "cat.h5")])
 

@@ -146,7 +146,7 @@ def test_overridden_members(models, ics, tmp_path):
     assert tm._default_dynamic is True and tm.evidence is None
     with pytest.raises(AttributeError):
         tm.samples
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         StarClusterModel(ics[1], tm.stars, mesh=object(), **MODEL)
     assert tm.lnpost(TRUTH) == pytest.approx(jm.lnpost(TRUTH), rel=1e-9)
     assert np.isfinite(tm.star_lnmarginals(TRUTH)).all()
@@ -239,19 +239,19 @@ def test_fit_is_dynamic_by_default(models, monkeypatch):
     assert "dynamic" not in captured  # n_runs > 1 does not go with dynamic
     monkeypatch.undo()
     # independent runs of the cluster fit: two short runs, dynamic refused
-    # with them as in the JAX package, the mesh not ported
+    # with them as in the JAX package; a mesh that is not a Mesh is refused
     res = tm.fit(n_live_points=20, n_runs=2, n_batch=5, n_chains=2, n_repeat=2, max_iter=10, seed=0)
     assert res.logz_runs.shape == (2,) and res.n_iter == 20
     with pytest.raises(ValueError, match="n_runs=1"):
         tm.fit(n_live_points=50, n_runs=2, dynamic=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         tm.fit(n_live_points=50, mesh=object())
 
     # use_emcee sends fit() to the ensemble sampler
     walker = StarClusterModel(tm.ic, tm.stars, use_emcee=True, **MODEL)
     samples = walker.fit(nwalkers=8, nburn=2, niter=2, seed=0)
     assert len(samples["lnprob"]) == 16 and walker.evidence is None
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         walker.fit(nwalkers=8, nburn=1, niter=1, mesh=object())
 
 

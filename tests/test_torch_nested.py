@@ -168,12 +168,12 @@ def test_run_nested_truncation_and_unported_options():
     with pytest.raises(RuntimeError, match="ESS"):
         tn.run_nested(lnpost, transform, 2, g, n_live=40, max_iter=80, n_batch=4, on_low_ess="raise", rng=0)
     # independent runs are ported (tests/test_torch_nested_family.py); they
-    # refuse dynamic sampling as the JAX package does; the mesh is not ported
+    # refuse dynamic sampling as the JAX package does; a mesh must be a Mesh
     r = tn.run_nested(lnpost, transform, 2, g, n_live=40, n_batch=4, n_runs=2, max_iter=80, rng=0)
     assert r.logz_runs.shape == (2,) and r.n_iter == 160
     with pytest.raises(ValueError, match="n_runs=1"):
         tn.run_nested(lnpost, transform, 2, g, n_live=40, n_runs=2, dynamic=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         tn.run_nested(lnpost, transform, 2, g, n_live=40, mesh=object())
 
 

@@ -158,7 +158,7 @@ def test_family_dynamic_resume_bitwise(tmp_path):
 
 def test_family_refuses_mesh_and_wrong_live_count():
     c, u0, l0 = _start()
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    with pytest.raises(TypeError, match="Mesh"):
         _run(c, u0, l0, mesh=object())
     with pytest.raises(ValueError, match="n_live"):
         run_nested_vmapped(lnlike_fam, c, u0, l0, device="cpu", n_live=40)

@@ -12,7 +12,9 @@
   apart);
 - the frozen-sampler guard warns for a step size below 100 * eps(dtype) and
   counts those chains;
-- ``mesh=`` raises ``NotImplementedError``.
+- ``mesh=`` takes a :class:`~isochrones_torch.parallel.Mesh` and refuses
+  anything else (``tests/test_torch_parallel.py`` holds sharded NUTS to the
+  unsharded run).
 
 The star-model parity with ``fit_multinest`` is ``tests/test_torch_nuts_parity.py``.
 """
@@ -115,7 +117,7 @@ def test_frozen_chain_warning(caplog):
 
 
 def test_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1, parallelism"):
+    with pytest.raises(TypeError, match="Mesh"):
         run_nuts(lambda x: -x.pow(2).sum(-1), torch.zeros(2, 2, dtype=torch.float64), _gen(0), mesh=object())
 
 

@@ -141,7 +141,7 @@ def test_cli_flat_tree_and_failures(tmp_path, one_thread, capsys, monkeypatch):
     assert str(tmp_path / "no_mist") in _log(flat)
 
 
-def test_cli_parser_and_unported_options(tmp_path, monkeypatch):
+def test_cli_parser_and_unported_options(tmp_path, monkeypatch, capsys):
     from isochrones_torch.query import Gaia
 
     folder = _folder(tmp_path)
@@ -150,9 +150,14 @@ def test_cli_parser_and_unported_options(tmp_path, monkeypatch):
     assert e.value.code == 2
     args = build_parser().parse_args([])
     assert (args.device, args.dtype, args.models, args.folders) == ("cuda", "float64", "mist", ["."])
-    for extra in (["--multihost"], ["--coordinator", "localhost:1234"], ["--num-processes", "2"], ["--process-id", "0"]):
-        with pytest.raises(NotImplementedError, match="processes"):
-            main(CLI + extra + [folder])
+    # a fleet of one process takes the whole folder list: the star is fitted, the empty folder fails
+    fleet, empty = _folder(tmp_path, name="fleet"), str(tmp_path / "empty")
+    os.makedirs(empty)
+    for extra in (["--multihost"], ["--multihost", "--num-processes", "1", "--process-id", "0"]):
+        assert main(CLI + extra + [fleet, empty]) == 1
+        out = capsys.readouterr().out
+        assert "[multihost] process 0/1: 2 folder(s)" in out and "2 of 2: " + empty in out
+        assert os.path.exists(os.path.join(fleet, "synthetic_starmodel_single.npz"))
     # the Gaia query and plot_only are ported: an empty Gaia answer, and plot_only without a results
     # file, are the folder's failures, logged before any fit
     monkeypatch.setattr(Gaia, "table_provider", staticmethod(lambda *a: None))
@@ -162,13 +167,13 @@ def test_cli_parser_and_unported_options(tmp_path, monkeypatch):
     for kw in (dict(gaia=True, no_plots=True), dict(plot_only=True, no_plots=False)):
         starfit(folder, models="synthetic", device="cpu", failures=failures, **kw, **SHORT)
     assert failures == [(folder, "single")] * 2 and sorted(os.listdir(folder)) == ["star.ini", "starfit.log"]
-    # independent runs are ported: two runs, no dynamic runs with them, no mesh
+    # independent runs are ported: two runs, no dynamic runs with them; a mesh must be a Mesh
     mod = BasicStarModel(get_ichrone("synthetic", device="cpu"), J=(9.5, 0.02))
     res = mod.fit(n_runs=2, n_live_points=40, n_batch=4, n_chains=4, n_repeat=8, max_iter=80, seed=0)
     assert res.logz_runs.shape == (2,)
     with pytest.raises(ValueError, match="n_runs=1"):
         mod.fit(n_runs=2, dynamic=True, n_live_points=40)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         mod.fit(mesh=object(), n_live_points=40)
 
 

@@ -378,11 +378,12 @@ def test_convert_pars_to_eep_matches_jax(ics, name):
 
 
 def test_fit_mcmc_refuses_mesh(ics):
-    """``mesh`` is named and refused by both engines, not swallowed."""
+    """``mesh`` is named and checked by both engines, not swallowed: an
+    object that is not a :class:`~isochrones_torch.parallel.Mesh` is refused."""
     from isochrones_torch import SingleStarModel
 
     for mod in (SingleStarModel(ics[1], **_PHOT), _build(StarModel, ics[1], "star1", {})):
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="Mesh"):
             mod.fit_mcmc(nwalkers=8, nburn=1, niter=1, mesh=object())
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="Mesh"):
             mod.fit(n_live_points=20, mesh=object())
