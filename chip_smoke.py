@@ -244,7 +244,19 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     isochrones_torch.cli.starfit --multihost`` on the card over four
     folders written as phase 12 writes its own: the shards disjoint and
     complete, every folder's results file written, the end barrier passed
-    by both processes.
+    by both processes;
+29. the JAX package's HDF5 files, read and written without h5py or pandas
+    (``isochrones_torch.hdf5``): phase 27's results files reread, their
+    samples bitwise the fits', each model reloaded onto the card in float32
+    and one ``lnpost_batch`` of its stored draws (one launch of kernel A)
+    within the star's float32 bar of the stored lnprob, ``save_hdf`` and
+    ``load_hdf`` of the binary fit timed; ``clusterfit`` from phase 14's
+    table written in pandas' ``fixed`` layout against the same table as CSV
+    (bitwise samples and logz, equal launches of the cluster kernel and
+    kernel B); the fit-catalog CLI from phase 17's table in pandas' ``table``
+    layout, deflated, against its CSV (bitwise output, equal launches of
+    kernel E); ``fit_mcmc_convergent`` stopped after one chunk and resumed
+    from its HDF5 checkpoint, bitwise the uninterrupted run.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -1421,12 +1433,13 @@ def profile_kernels(fn, reps=1, required=True):
     """Run ``fn`` ``reps`` times under ``torch.profiler``; returns ``(wall
     seconds, {kernel name: (device ms, launches)})`` over the window. A
     window in which the profiler reports no device event at all (it drops a
-    cycle's events now and then) is run again, four times at most; then it
-    raises, or with ``required`` False returns an empty dict."""
+    cycle's events now and then, up to four windows running) is run again,
+    eight times at most; then it raises, or with ``required`` False returns
+    an empty dict."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(4):
+    for _ in range(8):
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
@@ -1442,7 +1455,7 @@ def profile_kernels(fn, reps=1, required=True):
             return wall, by_name
     if not required:
         return wall, {}
-    raise AssertionError("the profiler reported no device event in 4 windows")
+    raise AssertionError("the profiler reported no device event in 8 windows")
 
 
 def kernel_ms(fn, name, reps, warmup=2):
@@ -1748,7 +1761,7 @@ def phase_tree_slice_and_fit(dev, ic32, ic64, workdir):
           f"points, dynamic_rounds {res.dynamic_rounds}, logz {res.logz:.4f} +- {res.logzerr:.4f}, ESS "
           f"{res.ess:.1f}, kernel launches {n_tree}")
     print(f"[tree fit] posterior medians {json.dumps(med)}; distance 95% interval ({d_lo:.3f}, {d_hi:.3f})")
-    store = os.path.join(folder, "tree_model.npz")
+    store = os.path.join(folder, "tree_model.h5")
     mod32.save_hdf(store, overwrite=True)
     back = StarModel.load_hdf(store, ic=ic32)
     same = all(np.array_equal(back.samples[c], mod32.samples[c]) for c in mod32.samples)
@@ -1790,8 +1803,8 @@ def phase_entry_point(dev, workdir):
     n_star, n_tree, n_interp = star_lnlike_cuda.launches, tree_lnlike_cuda.launches, interp_nd_cuda.launches
     if rc_flat != 0 or rc_tree != 0:
         raise AssertionError(f"starfit exit codes {rc_flat}, {rc_tree}")
-    flat_file = os.path.join(flat, "synthetic_starmodel_binary.npz")
-    tree_file = os.path.join(tree, "synthetic_starmodel_single.npz")
+    flat_file = os.path.join(flat, "synthetic_starmodel_binary.h5")
+    tree_file = os.path.join(tree, "synthetic_starmodel_single.h5")
     m_flat = BinaryStarModel.load_hdf(flat_file, ic=ic)
     m_tree = StarModel.load_hdf(tree_file, ic=ic)
     for folder, m in ((flat, m_flat), (tree, m_tree)):
@@ -1812,7 +1825,7 @@ def phase_entry_point(dev, workdir):
     n_batch = min(NESTED["n_batch"], CLI_LIVE // 4)
     two_chunks = 2 * max(_chunk_dead(CLI_LIVE) // n_batch, 8) * n_batch
     stopped = write_ini(os.path.join(workdir, "cli_resume"), flat_text)
-    part_file = os.path.join(stopped, "synthetic_starmodel_binary.npz")
+    part_file = os.path.join(stopped, "synthetic_starmodel_binary.h5")
     rc1 = starfit_main(common + ["--binary", "--resume", "--max_iter", str(two_chunks), stopped])
     part = BinaryStarModel.load_hdf(part_file, ic=ic)
     os.remove(part_file)
@@ -2229,19 +2242,25 @@ CLUSTER_CLI_RUN = (
 )
 
 
-def phase_cluster_entry_point(sim, workdir):
-    """Phase 15: the CLI's ``main`` in a subprocess on a CSV of phase 14's
-    catalogue. Returns the launches of the cluster kernel and of kernel B."""
+def _write_csv(path, columns):
+    """``columns`` as a CSV file of exact float reprs (``DataFrame.to_csv(index=False)``'s values)."""
     import csv
-    import re
 
-    path = os.path.join(workdir, "cluster50.csv")
-    cols = list(sim.data)
+    cols = list(columns)
     with open(path, "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(cols)
-        for i in range(len(sim)):
-            w.writerow([repr(float(sim.data[c][i])) for c in cols])
+        for i in range(len(columns[cols[0]])):
+            w.writerow([repr(float(columns[c][i])) for c in cols])
+    return path
+
+
+def phase_cluster_entry_point(sim, workdir):
+    """Phase 15: the CLI's ``main`` in a subprocess on a CSV of phase 14's
+    catalogue. Returns the launches of the cluster kernel and of kernel B."""
+    import re
+
+    path = _write_csv(os.path.join(workdir, "cluster50.csv"), sim.data)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", CLUSTER_CLI_RUN, *CLUSTER_CLI, path], capture_output=True, text=True,
                           timeout=900)
@@ -2625,13 +2644,7 @@ def phase_catalog_entry_point(workdir):
     from isochrones_torch import get_ichrone
 
     truths, table = catalog_table(get_ichrone("synthetic", device="cuda"), 16, CLI_EEP_BOX, seed=18)
-    path, out = os.path.join(workdir, "catalog16.csv"), os.path.join(workdir, "catalog16_fit.csv")
-    cols = list(table)
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(cols)
-        for i in range(len(truths)):
-            w.writerow([repr(float(table[c][i])) for c in cols])
+    path, out = _write_csv(os.path.join(workdir, "catalog16.csv"), table), os.path.join(workdir, "catalog16_fit.csv")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "isochrones_torch.cli.fit_catalog", *CAT_CLI, path, "-O", out],
                           capture_output=True, text=True, timeout=600)
@@ -3471,8 +3484,8 @@ def phase_mist(dev, workdir):
             raise AssertionError(f"default starfit exit codes {rc_flat}, {rc_tree}")
         if n_star <= 0 or n_tree <= 0:
             raise AssertionError(f"default starfit launches: star {n_star}, tree {n_tree}")
-        m_flat = BinaryStarModel.load_hdf(os.path.join(flat, "mist_starmodel_binary.npz"))
-        m_tree = StarModel.load_hdf(os.path.join(tree, "mist_starmodel_single.npz"))
+        m_flat = BinaryStarModel.load_hdf(os.path.join(flat, "mist_starmodel_binary.h5"))
+        m_tree = StarModel.load_hdf(os.path.join(tree, "mist_starmodel_single.h5"))
         fit_rec = {}
         for label, folder, m, dist in (("flat", flat, m_flat, STAR_TRUTH[4]), ("tree", tree, m_tree, TREE_TRUTH[5])):
             if m.ic.grid_type is None or m.ic.model.values.shape != ic64.model.values.shape:
@@ -3517,11 +3530,13 @@ def gaia_provider(G, BP, RP, parallax):
     return provider
 
 
-def phase_results_and_summary(dev, workdir, smi):
+def phase_results_and_summary(dev, workdir, smi, fitted=None):
     """Phase 27: ``starfit --gaia --write_ini`` without ``--no_plots`` on
     phase 23's MIST-format grids (single, then binary), then the summarize
     and select CLIs on the folder. Returns the phase's record (seconds of
-    each step, launches of kernels A and B in the two fits)."""
+    each step, launches of kernels A and B in the two fits). ``fitted``
+    (a dict) receives each results file's samples as the fitted model held
+    them when it saved them, by the file's absolute path."""
     import contextlib
     import csv
     import io
@@ -3565,11 +3580,22 @@ def phase_results_and_summary(dev, workdir, smi):
                   "--device", str(dev)]
         star_lnlike_cuda.launches = interp_nd_cuda.launches = 0
         rcs = {}
-        for mult, flag in (("single", []), ("binary", ["--binary"])):
-            t0 = time.perf_counter()
-            rcs[mult] = starfit_main(common + flag + [folder])
-            torch.cuda.synchronize()
-            secs[f"starfit_{mult}"] = time.perf_counter() - t0
+        save_hdf = BasicStarModel.save_hdf
+
+        def keep(self, filename, *args, **kwargs):
+            if fitted is not None:
+                fitted[os.path.abspath(filename)] = {c: np.array(v) for c, v in self.samples.items()}
+            return save_hdf(self, filename, *args, **kwargs)
+
+        BasicStarModel.save_hdf = keep
+        try:
+            for mult, flag in (("single", []), ("binary", ["--binary"])):
+                t0 = time.perf_counter()
+                rcs[mult] = starfit_main(common + flag + [folder])
+                torch.cuda.synchronize()
+                secs[f"starfit_{mult}"] = time.perf_counter() - t0
+        finally:
+            BasicStarModel.save_hdf = save_hdf
         n_a, n_b = star_lnlike_cuda.launches, interp_nd_cuda.launches
         if n_a <= 0 or n_b <= 0:
             raise AssertionError(f"the Gaia-conditioned fits launched kernel A {n_a} and kernel B {n_b} times")
@@ -3581,7 +3607,7 @@ def phase_results_and_summary(dev, workdir, smi):
             log = f.read()
         fits = {}
         for mult in ("single", "binary"):
-            m = BasicStarModel.load_hdf(os.path.join(folder, f"mist_starmodel_{mult}.npz"), device=dev)
+            m = BasicStarModel.load_hdf(os.path.join(folder, f"mist_starmodel_{mult}.h5"), device=dev)
             want = {"G": mag["G"], "BP": mag["BP"], "RP": mag["RP"], "parallax": 1000.0 / dist}
             if any(k not in m.kwargs or m.kwargs[k][0] != v for k, v in want.items()):
                 raise AssertionError(f"{mult}: the fit's observables {m.kwargs} lack the Gaia values {want}")
@@ -3859,7 +3885,7 @@ def phase_isotrack(dev, workdir):
         single = SingleStarModel(track32, name="track", **obs)
         t0 = time.perf_counter()
         tres = single.fit_multinest(**TRACK_NESTED)
-        path = os.path.join(workdir, "track_starmodel.npz")
+        path = os.path.join(workdir, "track_starmodel.h5")
         single.save_hdf(path)
         back = SingleStarModel.load_hdf(path, device=dev, dtype=torch.float32)
         track_s = time.perf_counter() - t0
@@ -4475,7 +4501,7 @@ def _fleet(dev, workdir):
     if sorted(flat) != sorted(folders) or len(set(flat)) != len(flat):
         raise AssertionError(f"fleet shards {shards} are not a partition of {folders}")
     for f in folders:
-        if not os.path.exists(os.path.join(f, "synthetic_starmodel_binary.npz")):
+        if not os.path.exists(os.path.join(f, "synthetic_starmodel_binary.h5")):
             raise AssertionError(f"fleet: {f} has no results file")
     print(f"[mesh] fleet: {FLEET_PROCS} processes of python -m isochrones_torch.cli.starfit --multihost (gloo, "
           f"localhost:{port}) on {dev} over {FLEET_FOLDERS} binary folders ({CLI_LIVE} live points): {secs:.2f} s; "
@@ -4678,6 +4704,223 @@ def _star_grad_points(ic, B, seed):
     pts = star_points(ic.model.knots, 2, B, seed=seed)
     pts[B // 2:] = star_points(ic.model.knots, 2, B - B // 2, seed=seed + 1, box=STAR_BOX)
     return pts
+
+
+#: phase 29: the cluster fits from phase 14's table (in-process, a cut live
+#: count), the fit-catalog CLI on phase 17's table, the convergent harness
+HDF5_CLUSTER = dict(models="synthetic", dtype=None, nlive=32, mineep=1, maxeep=164, max_distance=3000, minq=0.2,
+                    max_iter=160, dynamic=False, name="hdf5", seed=0)
+HDF5_CATALOG_CLI = ["--models", "synthetic", "--dtype", "float32", "--method", "mcmc", "--nwalkers", "32", "--nburn",
+                    "20", "--niter", "10", "--seed", "0"]
+HDF5_CONVERGENT = dict(nwalkers=64, iter_chunksize=50, targetn=1e9, nsamples=1000, seed=5)
+
+
+def pandas_frame_tree(columns, table_format=False, deflate=None):
+    """``DataFrame(columns).to_hdf(path, key="df")`` as an
+    :class:`isochrones_torch.hdf5.Tree` in PyTables' layout
+    (``pandas/io/pytables.py``), for the card's machine, which has neither
+    pandas nor PyTables: ``format="fixed"`` (``FrameFixed``: the column
+    labels, the row index and one float64 block, stored transposed) or
+    ``format="table"`` (``AppendableFrameTable``: one compound ``table``
+    dataset of the row index and a ``values_block_0`` field, deflated at
+    ``deflate`` where given, and the columns' names in pickled attributes).
+    Attributes as PyTables keeps them: strings fixed-length, lists, tuples,
+    dicts and None as protocol-0 pickles."""
+    import pickle
+
+    from isochrones_torch import hdf5
+
+    def text(s):
+        return np.bytes_(s.encode())
+
+    def pickled(obj):
+        return np.bytes_(pickle.dumps(obj, 0))
+
+    def node(cls, version):
+        return {"CLASS": text(cls), "VERSION": text(version), "TITLE": text("")}
+
+    names = list(columns)
+    values = np.stack([np.asarray(columns[c], dtype=np.float64) for c in names], axis=1)
+    n = len(values)
+    root = hdf5.Tree(attrs=dict(node("GROUP", "1.0"), PYTABLES_FORMAT_VERSION=text("2.1")))
+    g = root.require("df")
+    g.attrs.update(node("GROUP", "1.0"), pandas_version=text("0.15.2"), encoding=text("UTF-8"),
+                   errors=text("strict"))
+    if not table_format:
+        g.attrs.update(pandas_type=text("frame"), ndim=2, axis0_variety=text("regular"),
+                       axis1_variety=text("regular"), nblocks=1, block0_items_variety=text("regular"))
+        labels = np.array([c.encode() for c in names])
+        array = dict(node("CARRAY", "1.1") if deflate else node("ARRAY", "2.4"), FLAVOR=text("numpy"))
+        for name, arr, kind in (("axis0", labels, "string"), ("axis1", np.arange(n, dtype=np.int64), "integer"),
+                                ("block0_items", labels, "string")):
+            g[name] = hdf5.Data(arr, dict(array, transposed=False, kind=text(kind), name=pickled(None)),
+                                deflate=deflate)
+        g["block0_values"] = hdf5.Data(values, dict(array, transposed=True), deflate=deflate)
+        return root
+    g.attrs.update(pandas_type=text("frame_table"), table_type=text("appendable_frame"),
+                   index_cols=pickled([(0, "index")]), values_cols=pickled(["values_block_0"]),
+                   non_index_axes=pickled([(1, names)]), data_columns=pickled([]), nan_rep=text("nan"), levels=1,
+                   info=pickled({1: {"names": [None], "type": "Index"}, "index": {}}))
+    rec = np.zeros(n, dtype=[("index", "<i8"), ("values_block_0", "<f8", (len(names),))])
+    rec["index"], rec["values_block_0"] = np.arange(n), values
+    g["table"] = hdf5.Data(rec, dict(node("TABLE", "2.7"), FIELD_0_NAME=text("index"),
+                                     FIELD_1_NAME=text("values_block_0"), FIELD_0_FILL=np.int64(0),
+                                     FIELD_1_FILL=np.float64(0.0), NROWS=np.int64(n), index_kind=text("integer"),
+                                     values_block_0_kind=pickled(names), values_block_0_meta=pickled(None),
+                                     values_block_0_dtype=text("float64")), deflate=deflate)
+    return root
+
+
+def phase_hdf5(dev, workdir, ic32, ic64, sim, table, fitted, smi):
+    """Phase 29: the JAX package's HDF5 files on the card's machine, which has
+    neither h5py nor pandas (``isochrones_torch.hdf5``). (a) Phase 27's
+    results files reread: their samples bitwise those the fits held
+    (``fitted``, kept by phase 27 as it saved them), each model reloaded
+    onto the card in float32 and its stored draws' ``lnpost_batch`` (one
+    launch of kernel A) within the star's float32 bar of the stored lnprob;
+    ``save_hdf`` and ``load_hdf`` of the binary fit timed. (b) ``clusterfit``
+    from phase 14's table written in pandas' ``fixed`` layout against the
+    same table as CSV: bitwise equal samples and logz, equal launches of
+    the cluster kernel and kernel B. (c) The fit-catalog CLI from phase
+    17's table in pandas' ``table`` layout, deflated, against its CSV:
+    bitwise equal output files and equal launches of kernel E. (d)
+    ``fit_mcmc_convergent`` stopped after one chunk and resumed from its
+    HDF5 checkpoint: bitwise the uninterrupted run. Returns the phase's
+    record."""
+    import contextlib
+    import filecmp
+    import io
+
+    import torch
+
+    import isochrones_torch.config as tconfig
+    import isochrones_torch.isochrone as iso_mod
+    from isochrones_torch import BasicStarModel, BinaryStarModel, hdf5
+    from isochrones_torch.cli.fit_catalog import main as fit_catalog_main
+    from isochrones_torch.cluster import clusterfit
+    from isochrones_torch.fit import fit_mcmc_convergent
+    from isochrones_torch.ops.catalog_cuda import catalog_lnpost_cuda
+    from isochrones_torch.ops.cluster_cuda import cluster_lnmarginal_cuda
+    from isochrones_torch.ops.interp_cuda import interp_nd_cuda
+    from isochrones_torch.ops.star_cuda import star_lnlike_cuda
+    from isochrones_torch.utils import stored_table
+
+    secs, rec = {}, {}
+    # ---- (a) phase 27's results files
+    t0 = time.perf_counter()
+    folder = os.path.join(workdir, "gaia_star")
+    saved_root = tconfig.ISOCHRONES
+    tconfig.ISOCHRONES = os.path.join(workdir, "isochrones")
+    try:
+        for mult in ("single", "binary"):
+            path = os.path.join(folder, f"mist_starmodel_{mult}.h5")
+            samples = stored_table(hdf5.read(path), "samples")
+            want = fitted[os.path.abspath(path)]
+            if list(samples) != list(want) or not all(np.array_equal(samples[c], want[c]) for c in want):
+                raise AssertionError(f"{path}: the samples reread are not bitwise the fitted model's")
+            m = BasicStarModel.load_hdf(path, device=dev, dtype=torch.float32)
+            x = np.stack([samples[c] for c in m.param_names], axis=-1)
+            star_lnlike_cuda.launches = 0
+            lp = m.lnpost_batch(x).cpu().numpy()
+            torch.cuda.synchronize()
+            if star_lnlike_cuda.launches != 1:
+                raise AssertionError(f"{mult}: lnpost_batch launched kernel A {star_lnlike_cuda.launches} times")
+            err = check_star(f"{mult}: reloaded lnpost_batch vs the stored lnprob", [lp], [samples["lnprob"]],
+                             RTOL_STAR_F32, ATOL_STAR_F32)
+            rec[mult] = dict(draws=len(x), max_abs_err=err, launches_a=star_lnlike_cuda.launches)
+            if mult == "binary":
+                copy = os.path.join(workdir, "hdf5_binary_copy.h5")
+                save_s = _wall(lambda: m.save_hdf(copy, overwrite=True), reps=5)
+                load_s = _wall(lambda: BasicStarModel.load_hdf(copy, ic=m.ic), reps=5)
+                rec[mult].update(save_hdf_ms=1e3 * save_s, load_hdf_ms=1e3 * load_s, bytes=os.path.getsize(copy))
+    finally:
+        tconfig.ISOCHRONES = saved_root
+        iso_mod._mist_cache.clear()
+    secs["results_files"] = time.perf_counter() - t0
+    print(f"[hdf5] phase 27's results files reread bitwise; float32 kernel A on the stored draws against the stored "
+          f"lnprob: {json.dumps(rec)} (one launch each)")
+
+    # ---- (b) clusterfit from an HDF table in pandas' fixed layout against the CSV
+    t0 = time.perf_counter()
+    members = {c: np.asarray(sim.data[c], dtype=np.float64) for c in sim.data}
+    paths = {"csv": _write_csv(os.path.join(workdir, "hdf5_cluster50.csv"), members),
+             "h5": os.path.join(workdir, "hdf5_cluster50.h5")}
+    hdf5.write(paths["h5"], pandas_frame_tree(members))
+    fits = {}
+    for kind, path in paths.items():
+        cluster_lnmarginal_cuda.launches = interp_nd_cuda.launches = 0
+        model = clusterfit(path, device=dev, **dict(HDF5_CLUSTER, dtype=torch.float32))
+        torch.cuda.synchronize()
+        fits[kind] = (model, cluster_lnmarginal_cuda.launches, interp_nd_cuda.launches)
+    (mc, nc, bc), (mh, nh, bh) = fits["csv"], fits["h5"]
+    same = (list(mc.samples) == list(mh.samples) and all(np.array_equal(mc.samples[c], mh.samples[c]) for c in
+                                                         mc.samples) and mc.evidence == mh.evidence)
+    if not same or (nc, bc) != (nh, bh) or nc <= 0 or bc <= 0 or not np.isfinite(mh.evidence[0]):
+        raise AssertionError(f"clusterfit: HDF table vs CSV: samples and logz equal {same}, launches cluster {nh} vs "
+                             f"{nc}, kernel B {bh} vs {bc}, logz {mh.evidence}")
+    secs["clusterfit"] = time.perf_counter() - t0
+    rec["clusterfit"] = dict(logz=mh.evidence[0], cluster_launches=nh, interp_launches=bh)
+    print(f"[hdf5] clusterfit {json.dumps({k: v for k, v in HDF5_CLUSTER.items() if k != 'dtype'})} float32 from the "
+          f"{len(sim)}-star table in pandas' fixed layout: samples and logz ({mh.evidence[0]:.4f}) bitwise those from "
+          f"its CSV; cluster kernel launches {nh} = {nc}, kernel B {bh} = {bc} ({secs['clusterfit']:.2f} s)")
+
+    # ---- (c) the fit-catalog CLI from an HDF table in pandas' table layout, deflated, against the CSV
+    t0 = time.perf_counter()
+    paths = {"csv": _write_csv(os.path.join(workdir, "hdf5_catalog.csv"), table),
+             "h5": os.path.join(workdir, "hdf5_catalog.h5")}
+    hdf5.write(paths["h5"], pandas_frame_tree(table, table_format=True, deflate=6))
+    launches = {}
+    for kind, path in paths.items():
+        catalog_lnpost_cuda.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = fit_catalog_main(HDF5_CATALOG_CLI + ["--device", str(dev), path, "-O", f"{path}.fit.csv"])
+        torch.cuda.synchronize()
+        launches[kind] = catalog_lnpost_cuda.launches
+        if rc != 0:
+            raise AssertionError(f"fit-catalog on the {kind} table: exit {rc}")
+    same = filecmp.cmp(f"{paths['csv']}.fit.csv", f"{paths['h5']}.fit.csv", shallow=False)
+    if not same or launches["csv"] != launches["h5"] or launches["h5"] <= 0:
+        raise AssertionError(f"fit-catalog: HDF table vs CSV: outputs equal {same}, kernel E launches {launches}")
+    secs["fit_catalog"] = time.perf_counter() - t0
+    rec["fit_catalog"] = dict(stars=len(next(iter(table.values()))), launches=launches["h5"],
+                              bytes_h5=os.path.getsize(paths["h5"]), bytes_csv=os.path.getsize(paths["csv"]))
+    print(f"[hdf5] fit-catalog {' '.join(HDF5_CATALOG_CLI)} on phase 17's {rec['fit_catalog']['stars']}-star table in "
+          f"pandas' table layout, deflated ({rec['fit_catalog']['bytes_h5']} bytes, the CSV "
+          f"{rec['fit_catalog']['bytes_csv']}): output bitwise that from the CSV, kernel E launches {launches['h5']} = "
+          f"{launches['csv']} ({secs['fit_catalog']:.2f} s)")
+
+    # ---- (d) the convergent harness stopped after one chunk and resumed from its checkpoint
+    t0 = time.perf_counter()
+    model = BinaryStarModel(ic32, name="hdf5-resume", **star_observations(ic64))
+    runs, counts = {}, {}
+    for label, steps in (("whole", [2]), ("stopped", [1, 1])):
+        star_lnlike_cuda.launches = 0
+        chains = os.path.join(workdir, f"hdf5_chains_{label}")
+        for maxiter in steps:
+            df = fit_mcmc_convergent(model, sample_directory=chains, resultsdir=os.path.join(workdir, "hdf5_results"),
+                                     maxiter=maxiter, **HDF5_CONVERGENT)
+        torch.cuda.synchronize()
+        ckpt = hdf5.File(os.path.join(chains, "hdf5-resume.h5"))
+        runs[label], counts[label] = (dict(df), ckpt["chain"], ckpt["ln_prob"]), star_lnlike_cuda.launches
+    (dw, cw, lw), (ds, cs, ls) = runs["whole"], runs["stopped"]
+    same = (list(dw) == list(ds) and all(np.array_equal(dw[c], ds[c]) for c in dw) and np.array_equal(cw, cs)
+            and np.array_equal(lw, ls))
+    if not same or counts["whole"] != counts["stopped"] or cw.shape[0] != 2 * HDF5_CONVERGENT["iter_chunksize"]:
+        raise AssertionError(f"fit_mcmc_convergent resumed from its HDF5 checkpoint: bitwise {same}, kernel A "
+                             f"launches {counts}, chain {cw.shape} vs {cs.shape}")
+    secs["convergent_resume"] = time.perf_counter() - t0
+    rec["convergent_resume"] = dict(launches=counts["stopped"], chain=list(cw.shape))
+    print(f"[hdf5] fit_mcmc_convergent {json.dumps(HDF5_CONVERGENT)} stopped after one chunk and resumed from "
+          f"its HDF5 checkpoint: samples, chain {list(cw.shape)} and ln_prob bitwise the uninterrupted run's, kernel "
+          f"A launches {counts['stopped']} = {counts['whole']} ({secs['convergent_resume']:.2f} s)")
+    rec["seconds"] = secs
+    print(f"[hdf5] phase 29 on {smi}: seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})}; save_hdf "
+          f"{rec['binary']['save_hdf_ms']:.3f} ms, load_hdf {rec['binary']['load_hdf_ms']:.3f} ms for the binary "
+          f"fit's {rec['binary']['draws']} draws ({rec['binary']['bytes']} bytes); launches: cluster kernel "
+          f"{rec['clusterfit']['cluster_launches']} and kernel B {rec['clusterfit']['interp_launches']} a clusterfit, "
+          f"kernel E {rec['fit_catalog']['launches']} a fit-catalog run, kernel A {rec['convergent_resume']['launches']} "
+          f"in the resumed harness")
+    return rec
 
 
 def main(argv=None):
@@ -4979,12 +5222,17 @@ def main(argv=None):
         print(f"[interp] phase 26 took {time.perf_counter() - t26:.1f} s")
         # ---- 27. the Gaia-conditioned starfit with its plots, the summarize and select CLIs
         t27 = time.perf_counter()
-        gaia_rec = phase_results_and_summary(dev, workdir, smi)
+        fitted = {}
+        gaia_rec = phase_results_and_summary(dev, workdir, smi, fitted)
         print(f"[gaia] phase 27 took {time.perf_counter() - t27:.1f} s")
         # ---- 28. the device mesh: shards on the card, the star-sharded cluster and catalogue, a fleet
         t28 = time.perf_counter()
         mesh_rec = phase_parallel(dev, ic32, ic64, sim, table, workdir)
         print(f"[mesh] phase 28 took {time.perf_counter() - t28:.1f} s")
+        # ---- 29. the JAX package's HDF5 files: results files, HDF member tables, the MCMC checkpoint
+        t29 = time.perf_counter()
+        hdf5_rec = phase_hdf5(dev, workdir, ic32, ic64, sim, table, fitted, smi)
+        print(f"[hdf5] phase 29 took {time.perf_counter() - t29:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     tree_record["launches"] = n_tree
@@ -4999,6 +5247,7 @@ def main(argv=None):
     print(json.dumps({"seismic": seismic_rec}))
     print(json.dumps({"results_and_summary": gaia_rec}))
     print(json.dumps({"mesh": mesh_rec}))
+    print(json.dumps({"hdf5": hdf5_rec}))
     interp_rec.update(
         launches=cluster_fit_record.pop("interp_launches_nested_fit"),
         launches_lnpost_batch_fit_batch=cluster_fit_record.pop("interp_launches_fit_batch_call"),
@@ -5011,7 +5260,8 @@ def main(argv=None):
         cluster_nested_fit_seconds=cluster_fit_record["nested_fit_seconds"],
         launches_gaia_starfit=gaia_rec["launches_b"],
         launches_mesh=mesh_rec["cluster"]["fits"]["mesh"]["interp_launches"],
-        launches_mesh_call=mesh_rec["cluster"]["float32"]["interp_launches_call"])
+        launches_mesh_call=mesh_rec["cluster"]["float32"]["interp_launches_call"],
+        launches_hdf5_clusterfit=hdf5_rec["clusterfit"]["interp_launches"])
     interp_grad_rec.update(launches=seismic_rec["launches_b_grad"])
     ms, plain_ms, bound_ms, bound_by = times[MAIN_SHAPE]
     kernels_line = [{
@@ -5025,6 +5275,7 @@ def main(argv=None):
         "launches_nested_fit": n_cluster_nested, **cluster_fit_record,
         "launches_mesh": mesh_rec["cluster"]["fits"]["mesh"]["launches"],
         "launches_mesh_call": mesh_rec["cluster"]["float32"]["launches_call"],
+        "launches_hdf5_clusterfit": hdf5_rec["clusterfit"]["cluster_launches"],
     }, {
         "name": "star_lnlike", "route": "cuda",
         "source": "isochrones_torch/csrc/star_lnlike.cu",
@@ -5039,6 +5290,8 @@ def main(argv=None):
         "launches_gaia_starfit": gaia_rec["launches_a"],
         "launches_mesh": mesh_rec["star"]["launches_mesh"], "ms_mesh_4_shards": mesh_rec["star"]["ms_mesh"],
         "launches_mesh_nuts": mesh_rec["nuts"]["launches_mesh"],
+        "launches_hdf5_reload": hdf5_rec["single"]["launches_a"] + hdf5_rec["binary"]["launches_a"],
+        "launches_hdf5_convergent": hdf5_rec["convergent_resume"]["launches"],
     }, tree_record, {
         "name": "catalog_lnlike", "route": "cuda",
         "source": "isochrones_torch/csrc/catalog_lnlike.cu",
@@ -5046,6 +5299,7 @@ def main(argv=None):
         "launches": n_cat_mcmc + n_cat_nested + n_cat_dynamic, "launches_mcmc_fit": n_cat_mcmc,
         "launches_nested_fit": n_cat_nested, "launches_dynamic_fit": n_cat_dynamic,
         "library_ms": None, **catalog_record, "launches_mesh": mesh_rec["catalog"]["launches_mesh"],
+        "launches_hdf5_fit_catalog": hdf5_rec["fit_catalog"]["launches"],
     }, {
         "name": "generate", "route": "cuda",
         "source": "isochrones_torch/csrc/generate.cu",

@@ -9,21 +9,31 @@ makes one star model a row (``iter_models``, with the priors of
 ``set_prior``) and writes their ``star.ini`` files (``write_ini``). ``ds``
 and ``hr`` need ``holoviews``, as in the reference; ``hr_plot`` needs
 matplotlib.
+
+:func:`read_table` reads a member table as the JAX package's entry points
+do with ``pd.read_hdf`` / ``pd.read_csv``: a pandas HDF table
+(``DataFrame.to_hdf``, the ``fixed`` or the ``table`` format, through
+:mod:`isochrones_torch.hdf5`), or a CSV file.
 """
 
 from __future__ import annotations
 
 import csv
+import io
 import os
+import pickle
 import re
 import shutil
 
 import numpy as np
 
+from . import hdf5
 from .logger import getLogger
 from .utils import band_pairs
 
-__all__ = ["StarCatalog", "read_csv"]
+__all__ = ["StarCatalog", "read_csv", "read_table", "read_hdf_table"]
+
+HDF_SUFFIXES = (".h5", ".hdf", ".hdf5")
 
 
 def read_csv(path):
@@ -33,6 +43,155 @@ def read_csv(path):
         rows = list(csv.reader(f))
     header, body = rows[0], rows[1:]
     return {name: np.array([float(r[i]) if r[i] else np.nan for r in body]) for i, name in enumerate(header)}
+
+
+def read_table(path):
+    """A star table -> dict of float64 columns: a pandas HDF table where the
+    name ends in ``.h5``, ``.hdf`` or ``.hdf5`` (:func:`read_hdf_table`),
+    else a CSV file (:func:`read_csv`)."""
+    if str(path).endswith(HDF_SUFFIXES):
+        return read_hdf_table(path)
+    return read_csv(path)
+
+
+class _Refused(ValueError):
+    """A pickled attribute that names a class."""
+
+
+class _PlainUnpickler(pickle.Unpickler):
+    """PyTables keeps a list, tuple, dict or None attribute as a protocol-0
+    pickle; this unpickler rebuilds such plain data and refuses any pickle
+    that names a class."""
+
+    def find_class(self, module, name):
+        raise _Refused(f"a PyTables attribute pickles {module}.{name}; only plain data is read")
+
+
+def _pt_attr(attrs, name, default=None):
+    """The attribute ``name`` of ``attrs`` as PyTables returns it: a byte
+    string that ends in ``.`` is a pickle (plain data only), another one
+    text."""
+    value = attrs.get(name, default)
+    if not isinstance(value, bytes):
+        return value
+    if value.endswith(b".") and value not in (b"0", b"0."):
+        try:
+            return _PlainUnpickler(io.BytesIO(value)).load()
+        except _Refused:
+            raise
+        except (pickle.UnpicklingError, EOFError, ValueError, IndexError, KeyError, TypeError):
+            pass  # text that happens to end in "." (PyTables tries the same way)
+    return value.decode("utf-8")
+
+
+def _pandas_objects(group, prefix=""):
+    """``(key, group)`` of every pandas object under ``group`` (a group with
+    a ``pandas_type`` attribute)."""
+    out = []
+    for name in group:
+        node = group.node(name)
+        if isinstance(node, hdf5.Group):
+            key = f"{prefix}/{name}"
+            out += [(key, node)] if "pandas_type" in node.attrs else _pandas_objects(node, key)
+    return out
+
+
+def read_hdf_table(path):
+    """A DataFrame that ``DataFrame.to_hdf`` wrote (PyTables' layout; the
+    ``fixed`` format, ``FrameFixed``, or the ``table`` format,
+    ``AppendableFrameTable``, deflate-compressed or not) -> dict of float64
+    columns in the frame's order: the dict that :func:`read_csv` gives for
+    ``frame.to_csv(index=False)``. The row index (integers or fixed-length
+    strings) is read and dropped, as a CSV file has none. The file holds
+    one frame, as ``pd.read_hdf`` without a key requires. A column that is
+    not numeric (an object block, which PyTables pickles, a string,
+    category or datetime column), a MultiIndex, or another compressor raises
+    ``ValueError``."""
+    found = _pandas_objects(hdf5.File(path))
+    if len(found) != 1:
+        raise ValueError(f"{path} holds {len(found)} pandas objects ({[k for k, _ in found]}); one is read")
+    key, group = found[0]
+    kind = _pt_attr(group.attrs, "pandas_type")
+    if kind == "frame":
+        columns = _read_fixed_frame(path, key, group)
+    elif kind == "frame_table":
+        columns = _read_frame_table(path, key, group)
+    else:
+        raise ValueError(f"{path}: {key} is a pandas {kind!r} object; only DataFrames are read")
+    return {str(c): np.asarray(v, dtype=np.float64) for c, v in columns.items()}
+
+
+def _numeric(path, key, cols, values, dtype_name=None):
+    """``values`` where its dtype is numeric; otherwise the columns' refusal."""
+    if values.dtype.kind not in "biuf" or str(dtype_name or "").startswith(("datetime", "timedelta", "category")):
+        what = dtype_name or values.dtype
+        raise ValueError(f"{path}: {key} columns {list(cols)} are stored as {what}; only numeric columns are read")
+    return values
+
+
+def _fixed_index(path, key, group, name, encoding):
+    """The labels of a ``fixed`` frame's index node ``name``."""
+    attrs = group.node(name).attrs
+    kind = _pt_attr(attrs, "kind")
+    if "shape" in attrs and 0 in tuple(np.atleast_1d(_pt_attr(attrs, "shape"))):
+        return []
+    if kind in ("integer", "float"):
+        return group[name].tolist()
+    if kind == "string":
+        return [v.decode(encoding) for v in group[name]]
+    raise ValueError(f"{path}: {key}/{name} is a {kind!r} index; integer and string indexes are read")
+
+
+def _read_fixed_frame(path, key, group):
+    attrs = group.attrs
+    encoding = _pt_attr(attrs, "encoding") or "UTF-8"
+    for axis in ("axis0", "axis1"):
+        if _pt_attr(attrs, f"{axis}_variety") != "regular":
+            raise ValueError(f"{path}: {key} has a MultiIndex ({axis}); a flat index is read")
+    columns = _fixed_index(path, key, group, "axis0", encoding)
+    _fixed_index(path, key, group, "axis1", encoding)
+    out = {}
+    for i in range(int(_pt_attr(attrs, "nblocks"))):
+        items = _fixed_index(path, key, group, f"block{i}_items", encoding)
+        name = f"block{i}_values"
+        try:
+            node = group.node(name)
+        except ValueError as err:
+            raise ValueError(f"{path}: {key} columns {items} are an object block, which PyTables pickles; only "
+                             f"numeric columns are read ({err})") from None
+        shape = tuple(np.atleast_1d(_pt_attr(node.attrs, "shape", ())))
+        value_type = _pt_attr(node.attrs, "value_type")
+        if 0 in shape:
+            values = np.empty(shape, dtype=value_type)
+        else:
+            values = _numeric(path, key, items, node.read(), value_type)
+            if _pt_attr(node.attrs, "transposed"):
+                values = values.T
+        out.update({str(c): values[j] for j, c in enumerate(items)})
+    return {str(c): out[str(c)] for c in columns}
+
+
+def _read_frame_table(path, key, group):
+    table_type = _pt_attr(group.attrs, "table_type")
+    if table_type != "appendable_frame":
+        raise ValueError(f"{path}: {key} is a {table_type!r} table; an appendable frame table is read")
+    index_cols = _pt_attr(group.attrs, "index_cols") or ()
+    if len(index_cols) != 1:
+        raise ValueError(f"{path}: {key} has a MultiIndex; a flat index is read")
+    table = group.node("table")
+    index_kind = _pt_attr(table.attrs, f"{index_cols[0][1]}_kind")
+    if index_kind not in ("integer", "float", "string"):
+        raise ValueError(f"{path}: {key} has a {index_kind!r} index; integer and string indexes are read")
+    data = table.read()
+    out = {}
+    for vc in _pt_attr(group.attrs, "values_cols"):
+        items = _pt_attr(table.attrs, f"{vc}_kind")
+        meta = _pt_attr(table.attrs, f"{vc}_meta")
+        if meta is not None:
+            raise ValueError(f"{path}: {key} columns {list(items)} are {meta}; only numeric columns are read")
+        values = _numeric(path, key, items, data[vc], _pt_attr(table.attrs, f"{vc}_dtype")).reshape(len(data), -1)
+        out.update({str(c): values[:, j] for j, c in enumerate(items)})
+    return {str(c): out[str(c)] for c in _pt_attr(group.attrs, "non_index_axes")[0][1]}
 
 
 class StarCatalog:

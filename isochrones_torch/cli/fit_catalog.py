@@ -1,7 +1,9 @@
 """``fit-catalog`` CLI of the port (counterpart of
 ``isochrones_tpu/cli/fit_catalog.py``): fit every star of a catalog table at
-once, then write the per-star quantile summary. The same flags, with
-``--device`` and ``--dtype`` in the place of ``--platform``::
+once, then write the per-star quantile summary. The table is a CSV file or a
+pandas HDF table (``.h5``, ``.hdf``, ``.hdf5``; the ``fixed`` or ``table``
+format), as in the JAX package. The same flags, with ``--device`` and
+``--dtype`` in the place of ``--platform``::
 
     python -m isochrones_torch.cli.fit_catalog --models synthetic --method nested STARS.csv -O summary.csv
 
@@ -24,7 +26,8 @@ def build_parser():
     parser.add_argument("--device", default="cuda",
                         help="torch device the grids live and the fit runs on: cuda (default) or cpu")
     parser.add_argument("--dtype", default="float64", choices=_DTYPES, help="dtype of the grids and the fit")
-    parser.add_argument("catalog", help="CSV table with <band>_mag/_unc (+ prop/_unc) columns")
+    parser.add_argument("catalog", help="CSV or pandas HDF (.h5/.hdf/.hdf5) table with <band>_mag/_unc "
+                                        "(+ prop/_unc) columns")
     parser.add_argument("--models", default="mist")
     parser.add_argument("--bands", nargs="*", default=None)
     parser.add_argument("--props", nargs="*", default=None,
@@ -50,16 +53,14 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if str(args.catalog).endswith((".h5", ".hdf", ".hdf5")):
-        raise NotImplementedError("an HDF table needs pandas, which the port does not use; give a CSV table")
 
     import torch
 
     from ..batch import fit_catalog
-    from ..catalog import StarCatalog, read_csv
+    from ..catalog import StarCatalog, read_table
     from ..isochrone import get_ichrone
 
-    table = read_csv(args.catalog)
+    table = read_table(args.catalog)
     output = args.output
     if args.multihost or args.coordinator is not None:
         from ..parallel.multihost import initialize_distributed, process_shard

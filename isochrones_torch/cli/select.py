@@ -1,7 +1,7 @@
 """``starmodel-select`` CLI of the port (counterpart of
 ``isochrones_tpu/cli/select.py``, reference scripts/starmodel-select): compare
 the fitted multiplicities of each folder by their nested-sampling
-log-evidence, from the ``<models>_starmodel_<mult>.npz`` results files. The
+log-evidence, from the ``<models>_starmodel_<mult>.h5`` results files. The
 same flags, with ``--device`` and ``--dtype`` in the place of
 ``--platform``::
 
@@ -39,10 +39,10 @@ def main(argv=None):
     from ..starmodel import BasicStarModel
 
     for folder in args.folders:
-        starmodels = glob.glob(os.path.join(folder, f"{args.models}_starmodel_*.npz"))
+        starmodels = glob.glob(os.path.join(folder, f"{args.models}_starmodel_*.h5"))
         names, evidences = [], []
         for sm in starmodels:
-            m = re.search(rf"{args.models}_starmodel_(\w+)\.npz", sm)
+            m = re.search(rf"{args.models}_starmodel_(\w+)\.h5", sm)
             if not m:
                 continue
             model = BasicStarModel.load_hdf(sm, device=args.device, dtype=getattr(torch, args.dtype))

@@ -12,7 +12,7 @@ whose tensors would pass a byte budget is cut into pieces of walkers.
 ``fit()`` is the nested fit (dynamic by default: a cluster marginal is costly
 per call), ``fit_mcmc`` the ensemble one. Catalogues are dicts of numpy
 columns (:class:`~isochrones_torch.catalog.StarCatalog`); ``clusterfit`` reads
-CSV files (not HDF tables, which need pandas).
+a pandas HDF table or a CSV file (:func:`~isochrones_torch.catalog.read_table`).
 
 With ``StarClusterModel(mesh=)`` the star axis is split over the mesh's
 shards: every shard takes all the walkers and its own members' stacks, runs
@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .catalog import StarCatalog, read_csv
+from .catalog import StarCatalog, read_table
 from .logger import getLogger
 from .ops.cluster import cluster_lnmarginal
 from .ops.interp import interp_nd
@@ -543,21 +543,21 @@ def clusterfit(
     min_ess=None,
     device="cuda",
     dtype=torch.float64,
+    seed=None,
 ):
-    """Cluster-fit entry point (reference cluster.py:20-68): a CSV table of member
+    """Cluster-fit entry point (reference cluster.py:20-68): a table of member
     photometry -> :class:`StarClusterModel` -> nested fit; returns the fitted
-    model. The grids are built and the fit runs on ``device`` (the card
-    unless the caller passes ``device="cpu"``) in ``dtype``. The reference
-    broadcasts the model over MPI; here ``comm`` and ``rank`` are accepted
-    and ignored. An HDF table needs pandas and pytables, which this port does
-    not use: it raises ``NotImplementedError``."""
+    model. The table is a pandas HDF table (``.h5``, ``.hdf``, ``.hdf5``;
+    ``DataFrame.to_hdf`` in the ``fixed`` or ``table`` format) or a CSV file
+    (:func:`~isochrones_torch.catalog.read_table`). The grids are built and
+    the fit runs on ``device`` (the card unless the caller passes
+    ``device="cpu"``) in ``dtype``; ``seed`` seeds the nested fit (None: a
+    fresh seed each call, as in the reference). The reference broadcasts the
+    model over MPI; here ``comm`` and ``rank`` are accepted and ignored."""
     if comm is not None:
         getLogger().info("MPI comm ignored: the sampler runs on one device.")
 
-    if str(starfile).endswith((".h5", ".hdf", ".hdf5")):
-        raise NotImplementedError(f"clusterfit: {starfile} is an HDF table, which this port does not read "
-                                  "(it needs pandas and pytables); write the member table as CSV")
-    cat = StarCatalog(read_csv(starfile), bands=bands, props=props)
+    cat = StarCatalog(read_table(starfile), bands=bands, props=props)
     getLogger().info("bands = %s", cat.bands)
 
     from .isochrone import get_ichrone
@@ -586,6 +586,8 @@ def clusterfit(
         fit_kw["dynamic"] = dynamic
     if min_ess is not None:
         fit_kw["min_ess"] = min_ess
+    if seed is not None:
+        fit_kw["seed"] = seed
     model.fit(**fit_kw)
     if model.evidence is not None:
         getLogger().info("clusterfit %s: logz = %.4f +- %.4f", model.labelstring, *model.evidence)

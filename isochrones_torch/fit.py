@@ -6,10 +6,10 @@ autocorrelation-based loop until ``targetn`` effective samples, burn-in
 discard, thinned samples saved). The sampler is the on-device
 affine-invariant ensemble (:func:`~isochrones_torch.samplers.ensemble.run_ensemble`):
 each ``iter_chunksize`` chunk runs on the model's device; the convergence
-diagnostics and the checkpoint run on the host between chunks. The machine
-with the card has neither ``h5py`` nor ``pandas``: the checkpoint is an
-``.npz`` file, as the port's results files are, and the samples' CSV is
-written without pandas.
+diagnostics and the checkpoint run on the host between chunks. The
+checkpoint is the JAX package's HDF5 file, written and read through
+:mod:`isochrones_torch.hdf5` (no ``h5py``), and the samples' CSV is written
+without pandas.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import os
 import numpy as np
 import torch
 
+from . import hdf5
 from .logger import getLogger
 from .samplers.ensemble import autocorr_time, run_ensemble
 from .summary import Frame
@@ -61,8 +62,9 @@ class Emcee3PriorModel(Emcee3Model):
 
 class McmcBackend:
     """The chain checkpoint (the emcee3 HDFBackend's role, reference
-    fit.py:79-86), an ``.npz`` file holding ``chain``, ``ln_prob`` and the
-    parameter names; written atomically."""
+    fit.py:79-86): the JAX package's HDF5 file, the datasets ``chain`` and
+    ``ln_prob`` and the parameter names as JSON in ``attrs["columns"]``;
+    written whole and atomically."""
 
     def __init__(self, filename=None):
         self.filename = filename
@@ -72,18 +74,18 @@ class McmcBackend:
         n_walkers))`` numpy arrays, or None without a checkpoint."""
         if self.filename is None or not os.path.exists(self.filename):
             return None
-        with np.load(self.filename, allow_pickle=False) as f:
-            if "chain" not in f:
-                return None
-            return np.asarray(f["chain"]), np.asarray(f["ln_prob"])
+        f = hdf5.File(self.filename)
+        if "chain" not in f:
+            return None
+        return f["chain"], f["ln_prob"]
 
     def save(self, chain, ln_prob, columns):
         if self.filename is None:
             return
         os.makedirs(os.path.dirname(os.path.abspath(self.filename)), exist_ok=True)
-        tmp = f"{self.filename}.tmp.npz"
-        np.savez(tmp, chain=np.asarray(chain), ln_prob=np.asarray(ln_prob), columns=json.dumps(list(columns)))
-        os.replace(tmp, self.filename)
+        tree = hdf5.Tree({"chain": np.asarray(chain), "ln_prob": np.asarray(ln_prob)},
+                         attrs={"columns": json.dumps(list(columns))})
+        hdf5.write(self.filename, tree)
 
     def reset(self):
         if self.filename is not None and os.path.exists(self.filename):
@@ -99,6 +101,11 @@ def write_samples(mod, df, resultsdir="mcmc_results"):
     samplefile = os.path.join(resultsdir, f"{mod.name}.csv")
     Frame(df).to_csv(samplefile, index=False)
     return samplefile
+
+
+def _chunk_seed(seed, step):
+    """The generator seed of the chunk that starts at ``step`` of the chain."""
+    return int(np.random.SeedSequence([seed if seed is not None else 0, step]).generate_state(1, np.uint64)[0])
 
 
 def fit_mcmc_convergent(
@@ -120,11 +127,14 @@ def fit_mcmc_convergent(
 ):
     """Run the ensemble sampler in chunks until ``targetn`` effective samples
     (reference fit_emcee3, fit.py:47-170). The chain is checkpointed to
-    ``<sample_directory>/<mod.name>.npz`` after every chunk; a later call
+    ``<sample_directory>/<mod.name>.h5`` after every chunk; a later call
     with the same number of walkers loads it and continues it from its last
-    walkers (``overwrite`` starts afresh). Returns the samples (a
-    :class:`~isochrones_torch.summary.Frame` with ``"lnprob"``), also written
-    by :func:`write_samples` and kept as the model's samples.
+    walkers (``overwrite`` starts afresh). Each chunk draws from a generator
+    seeded by ``seed`` and the chunk's first step in the chain, so a run
+    stopped and resumed with the same ``seed`` is the uninterrupted run,
+    bitwise. Returns the samples (a :class:`~isochrones_torch.summary.Frame`
+    with ``"lnprob"``), also written by :func:`write_samples` and kept as the
+    model's samples.
 
     nburn : the number of autocorrelation times discarded as burn-in.
     moves : the proposal mixture; "mixed" (KDE/DE/snooker 0.4/0.4/0.2, the
@@ -132,7 +142,7 @@ def fit_mcmc_convergent(
         back to DE/snooker.
     """
     logger = getLogger()
-    backend = McmcBackend(os.path.join(sample_directory, f"{mod.name}.npz") if sample_directory is not None else None)
+    backend = McmcBackend(os.path.join(sample_directory, f"{mod.name}.h5") if sample_directory is not None else None)
     if overwrite:
         backend.reset()
     lnpost = mod.lnprior_batch if prior_only else mod.lnpost_batch
@@ -147,7 +157,6 @@ def fit_mcmc_convergent(
         coords = mod._as_params(np.asarray(mod.sample_from_prior(nwalkers, require_valid=True, values=True, rng=seed),
                                            dtype=float))
     gen = torch.Generator(device=mod.device)
-    gen.manual_seed(seed if seed is not None else 0)
 
     def calc_stats():
         full = np.concatenate(chains, axis=0)
@@ -169,6 +178,7 @@ def fit_mcmc_convergent(
             break
         if verbose:
             logger.info("Iteration %d...", iteration + 1)
+        gen.manual_seed(_chunk_seed(seed, sum(len(c) for c in chains)))
         with torch.no_grad():
             chunk, ln_chunk, state = run_ensemble(lnpost, coords, gen, n_steps=iter_chunksize, moves=moves)
         coords = state.walkers

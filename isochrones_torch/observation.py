@@ -13,9 +13,9 @@ hand-written CUDA kernel on the card, its plain version on the CPU.
 
 Tables: where the JAX package takes or returns a ``DataFrame``, this module
 takes a list of row dicts, a dict of columns, or a ``DataFrame`` when one is
-handed in, and returns a list of row dicts. ``save_hdf``/``load_hdf`` keep
-their names and content but write a numpy ``.npz`` container (see
-:mod:`isochrones_torch.utils`).
+handed in, and returns a list of row dicts. ``save_hdf``/``load_hdf`` read and write
+the JAX package's HDF5 layout through :mod:`isochrones_torch.hdf5` (no
+``h5py``; see :mod:`isochrones_torch.utils`).
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ from typing import Tuple
 import numpy as np
 
 from .logger import getLogger
-from .utils import addmags, distance, npz_load, npz_save, store_prefix
+from . import hdf5
+from .utils import addmags, distance, load_results, open_results
 
 __all__ = [
     "Node",
@@ -50,8 +51,25 @@ __all__ = [
 ]
 
 OBS_COLUMNS = ("name", "band", "resolution", "mag", "e_mag", "separation", "pa", "relative")
-_OBS_DTYPE = np.dtype([("name", "U32"), ("band", "U16"), ("resolution", "f8"), ("mag", "f8"), ("e_mag", "f8"),
-                       ("separation", "f8"), ("pa", "f8"), ("relative", "?")])
+
+
+def _obs_record(rows):
+    """``obs/values`` of a results file: the JAX package's record,
+    ``DataFrame(rows).to_records(index=False)`` with ``name`` S32 and
+    ``band`` S16; a numeric column is int64 where every value is an
+    integer (the kwargs photometry's resolution 99), as pandas infers it."""
+    def kind(c):
+        if c in ("name", "band"):
+            return "S32" if c == "name" else "S16"
+        if c == "relative":
+            return "?"
+        ints = rows and all(isinstance(r[c], (int, np.integer)) and not isinstance(r[c], bool) for r in rows)
+        return "<i8" if ints else "<f8"
+
+    rec = np.zeros(len(rows), dtype=[(c, kind(c)) for c in OBS_COLUMNS])
+    for i, r in enumerate(rows):
+        rec[i] = tuple(str(r[c]).encode("utf-8") if c in ("name", "band") else r[c] for c in OBS_COLUMNS)
+    return rec
 
 
 def _as_bool(x):
@@ -741,32 +759,13 @@ class ObservationTree(Node):
                 )
         return rows
 
-    def save_hdf(self, filename, path="", overwrite=False, append=False):
-        """Write the tree under the key prefix ``path`` of the ``.npz``
-        container ``filename`` (reference observation.py:836-866, which
-        writes HDF5): the photometry table as one record array
-        ``obs/values`` and the attachments as JSON strings
-        ``obs/attrs/<name>``. An existing ``obs`` entry raises unless
-        ``overwrite`` (the file is replaced) or ``append`` (the entry is)."""
+    def _store(self, group):
+        """Write the tree into the results group ``group`` as ``obs``: the
+        photometry table as the record ``obs/values`` and the attachments as
+        JSON string attributes (reference observation.py:836-866)."""
         import json
-        import os
 
-        prefix = store_prefix(path)
-        entries = {}
-        if os.path.exists(filename):
-            entries = npz_load(filename)
-            if f"{prefix}obs/values" in entries:
-                if overwrite:
-                    entries = {}
-                elif not append:
-                    raise IOError(f"{path} in {filename} exists. Set overwrite or append.")
-        entries = {k: v for k, v in entries.items() if not k.startswith(f"{prefix}obs/")}
-
-        rows = self.to_df()
-        rec = np.zeros(len(rows), dtype=_OBS_DTYPE)
-        for i, r in enumerate(rows):
-            rec[i] = tuple(r[c] for c in OBS_COLUMNS)
-        entries[f"{prefix}obs/values"] = rec
+        rec = _obs_record(self.to_df())
         attrs = dict(
             spectroscopy=self.spectroscopy,
             limits={l: {k: [None if not np.isfinite(x) else x for x in v] for k, v in d.items()}
@@ -776,24 +775,31 @@ class ObservationTree(Node):
             N=np.atleast_1d(self._N).tolist() if self._N is not None else None,
             index=np.asarray(self._index).tolist() if self._index is not None else None,
         )
-        for k, v in attrs.items():
-            entries[f"{prefix}obs/attrs/{k}"] = np.array(json.dumps(v))
-        npz_save(filename, entries)
+        group["obs"] = hdf5.Tree({"values": rec}, attrs={k: json.dumps(v) for k, v in attrs.items()})
+
+    def save_hdf(self, filename, path="", overwrite=False, append=False):
+        """Write the tree into the HDF5 file ``filename`` under the group
+        ``path`` (reference observation.py:836-866), in the JAX package's
+        layout: ``obs/values`` and the ``obs`` group's attributes. An
+        existing ``obs`` raises unless ``overwrite`` (the file is replaced) or
+        ``append`` (the entry is)."""
+        tree = open_results(filename, path, "obs", overwrite, append)
+        self._store(tree.require(path))
+        hdf5.write(filename, tree)
 
     @classmethod
     def load_hdf(cls, filename, path="", ic=None, device="cuda", dtype=None):
-        """reference observation.py:868-897, from the ``.npz`` container.
-        Without ``ic`` the synthetic grids are built on ``device`` (the card
-        unless the caller names another) in ``dtype``."""
+        """reference observation.py:868-897, from an HDF5 results file (or the
+        port's earlier ``.npz`` container). Without ``ic`` the synthetic
+        grids are built on ``device`` (the card unless the caller names
+        another) in ``dtype``."""
         import json
 
-        prefix = store_prefix(path)
-        entries = npz_load(filename)
-        rec = entries[f"{prefix}obs/values"]
-        rows = [{c: rec[c][i].item() for c in OBS_COLUMNS} for i in range(len(rec))]
-        attrs = {k: json.loads(str(entries[f"{prefix}obs/attrs/{k}"]))
-                 for k in ("spectroscopy", "limits", "parallax", "AV", "N", "index")}
-        spectroscopy, limits, parallax, AV, N, index = (attrs[k] for k in
+        g = load_results(filename).get_path(path)["obs"]
+        rec = np.asarray(g["values"])
+        rows = [{c: (rec[c][i].decode("utf-8") if rec.dtype[c].kind == "S" else rec[c][i].item())
+                 for c in rec.dtype.names} for i in range(len(rec))]
+        spectroscopy, limits, parallax, AV, N, index = (json.loads(g.attrs[k]) for k in
                                                         ("spectroscopy", "limits", "parallax", "AV", "N", "index"))
 
         new = cls.from_df(rows)

@@ -3,10 +3,10 @@
 
 Workflow: a folder containing ``star.ini`` -> model construction per
 multiplicity -> fit on the device -> results file, with freshness checks.
-The results file is the ``.npz`` container of
-:meth:`~isochrones_torch.starmodel.BasicStarModel.save_hdf`,
-``<models>_starmodel_<multiplicity>.npz``; the corner plots are PNGs beside
-it. ``gaia=True`` conditions the fit on the closest Gaia source
+The results file is the JAX package's HDF5 file, written by
+:meth:`~isochrones_torch.starmodel.BasicStarModel.save_hdf` through
+:mod:`isochrones_torch.hdf5`: ``<models>_starmodel_<multiplicity>.h5``; the
+corner plots are PNGs beside it. ``gaia=True`` conditions the fit on the closest Gaia source
 (:func:`get_gaia_data`, through the query layer).
 """
 
@@ -186,7 +186,7 @@ def starfit(
         in ``failures``, the results file kept.
 
     Returns ``(model, logger)``; the results file is
-    ``<folder>/<models>_starmodel_<multiplicity>.npz``.
+    ``<folder>/<models>_starmodel_<multiplicity>.h5``.
     """
     from .priors import FlatPrior
     from .samplers.nested import CheckpointConfigError
@@ -203,7 +203,7 @@ def starfit(
     native_ini_bands = None
 
     for mult in multiplicities:
-        model_filename = f"{models}_starmodel_{mult}.npz"
+        model_filename = f"{models}_starmodel_{mult}.h5"
         logfile = os.path.join(folder, "starfit.log")
         logger = initLogging(logfile, logger)
         name = os.path.basename(os.path.abspath(folder))

@@ -9,9 +9,9 @@ change-of-variables prior (:func:`~isochrones_torch.ops.star.star_lnlike_fused`,
 a hand-written CUDA kernel on the card); customized priors or subclasses take
 the composed path. ``fit_multinest`` runs the on-device nested sampler,
 ``fit_mcmc`` the ensemble sampler; fitted samples are dicts of numpy columns.
-``save_hdf``/``load_hdf`` keep the reference's names and content but write a
-numpy ``.npz`` container (:mod:`isochrones_torch.utils`): the machine with
-the card has neither ``h5py`` nor ``pandas``.
+``save_hdf``/``load_hdf`` read and write the JAX package's HDF5 results
+files through :mod:`isochrones_torch.hdf5` (no ``h5py``; see
+:mod:`isochrones_torch.utils`).
 
 Reference quirks kept for parity: the ``+log(sigma)`` Gaussian constant, the
 N=3 EEP-ordering test (``and`` where ``or`` was meant) and the ``delta_nu``
@@ -29,13 +29,14 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from . import hdf5
 from .logger import getLogger
 from .ops.interp import interp_nd
 from .ops.likelihood import gauss_lnprob, star_lnlike
 from .ops.star import StarLikelihood, star_lnlike_fused
 from .priors import AgePrior, AVPrior, ChabrierPrior, DistancePrior, EEP_prior, FehPrior, eep_change_of_variables
 from .summary import Frame
-from .utils import addmags, npz_load, npz_save, store_prefix
+from .utils import addmags, load_results, open_results, stored_table, table_group
 
 __all__ = ["BasicStarModel", "SingleStarModel", "BinaryStarModel", "TripleStarModel", "IsoTrackModel", "N_options",
            "index_options"]
@@ -933,97 +934,72 @@ class BasicStarModel:
         with open(os.path.join(path, "star.ini"), "w") as f:
             f.write("\n".join(lines) + "\n")
 
-    def _store_entries(self, prefix, attrs):
-        """The container entries of this model: samples and derived samples
-        as value matrix + JSON column list, ``attrs`` as JSON strings."""
-        entries = {}
-        if self._samples is not None:
-            for key, table in (("samples", self._samples), ("derived_samples", self.derived_samples)):
-                cols = list(table)
-                entries[f"{prefix}{key}/values"] = np.stack([np.asarray(table[c], dtype=float) for c in cols], axis=1)
-                entries[f"{prefix}{key}/columns"] = np.array(json.dumps(cols))
-        for k, v in attrs.items():
-            entries[f"{prefix}attrs/{k}"] = np.array(json.dumps(v))
-        return entries
-
-    @staticmethod
-    def _stored_tables(entries, prefix):
-        """(samples, derived_samples) dicts of columns, or (None, None)."""
-        out = []
+    def _store(self, group, attrs):
+        """Write this model into the results group ``group``: samples and
+        derived samples (:func:`~isochrones_torch.utils.table_group`) and
+        ``attrs``."""
         for key in ("samples", "derived_samples"):
-            if f"{prefix}{key}/values" not in entries:
-                return None, None
-            vals = entries[f"{prefix}{key}/values"]
-            cols = json.loads(str(entries[f"{prefix}{key}/columns"]))
-            out.append({c: vals[:, i] for i, c in enumerate(cols)})
-        return tuple(out)
+            group.pop(key, None)
+        if self._samples is not None:
+            group["samples"] = table_group(self._samples)
+            group["derived_samples"] = table_group(self.derived_samples)
+        group.attrs.update(attrs)
 
     def save_hdf(self, filename, path="", overwrite=False, append=False):
-        """Persist the model (reference starmodel.py:1843-1901, which writes
-        HDF5) into the ``.npz`` container ``filename`` under the key prefix
-        ``path``: samples and derived samples as value matrix + column list,
-        and ``ic_type``, ``ic_bands``, ``use_emcee``, ``kwargs``, ``bounds``,
+        """Persist the model (reference starmodel.py:1843-1901) into the HDF5
+        file ``filename`` under the group ``path``, in the JAX package's
+        layout: samples and derived samples as ``values`` + ``columns``, and
+        ``ic_type``, ``ic_bands``, ``use_emcee``, ``kwargs``, ``bounds``,
         ``eep_bounds``, ``name``, ``N``, ``directory``, ``evidence`` as
         attributes. Existing samples under ``path`` raise unless
         ``overwrite`` (the file is replaced) or ``append`` (the entry is)."""
-        prefix = store_prefix(path)
-        entries = {}
-        if os.path.exists(filename):
-            entries = npz_load(filename)
-            if f"{prefix}samples/values" in entries:
-                if overwrite:
-                    entries = {}
-                elif not append:
-                    raise IOError(f"{path} in {filename} exists. Set overwrite or append.")
-        mine = tuple(f"{prefix}{g}/" for g in ("samples", "derived_samples", "attrs"))
-        entries = {k: v for k, v in entries.items() if not k.startswith(mine)}
+        tree = open_results(filename, path, "samples", overwrite, append)
         attrs = dict(
-            ic_type=type(self.ic).__name__, ic_bands=list(self.ic.bands), use_emcee=bool(self.use_emcee),
-            kwargs={k: [float(v), float(u)] for k, (v, u) in self.kwargs.items()},
-            bounds={k: list(v) if v is not None else None for k, v in self._bounds.items()},
-            eep_bounds=list(self.eep_bounds), name=self.name, N=self.N, directory=self.directory,
+            ic_type=type(self.ic).__name__, ic_bands=json.dumps(list(self.ic.bands)), use_emcee=bool(self.use_emcee),
+            kwargs=json.dumps({k: [float(v), float(u)] for k, (v, u) in self.kwargs.items()}),
+            bounds=json.dumps({k: list(v) if v is not None else None for k, v in self._bounds.items()}),
+            eep_bounds=json.dumps(list(self.eep_bounds)), name=self.name, N=int(self.N), directory=self.directory,
         )
         if self._evidence is not None:
-            attrs["evidence"] = list(self._evidence)
-        entries.update(self._store_entries(prefix, attrs))
-        npz_save(filename, entries)
+            attrs["evidence"] = json.dumps(list(self._evidence))
+        self._store(tree.require(path), attrs)
+        hdf5.write(filename, tree)
 
     @classmethod
     def load_hdf(cls, filename, path="", name=None, ic=None, device="cuda", dtype=None):
-        """Restore a saved model (reference starmodel.py:1903-1959) from the
-        ``.npz`` container. ``ic`` may be passed; otherwise the stored kind
-        of interpolator (isochrones or evolution tracks) is rebuilt with the
+        """Restore a saved model (reference starmodel.py:1903-1959) from an
+        HDF5 results file (or the port's earlier ``.npz`` container, see
+        :func:`~isochrones_torch.utils.load_results`). ``ic`` may be passed;
+        otherwise the stored kind of interpolator (isochrones or evolution
+        tracks) is rebuilt with the
         stored bands, from the MIST grids or else the synthetic ones, on
         ``device`` (the card unless the caller names another) in ``dtype``."""
         if not os.path.exists(filename):
             raise IOError(f"{filename} does not exist.")
-        prefix = store_prefix(path)
-        entries = npz_load(filename)
-        attrs = {k[len(prefix) + 6:]: json.loads(str(v)) for k, v in entries.items()
-                 if k.startswith(f"{prefix}attrs/")}
-        samples, derived = cls._stored_tables(entries, prefix)
+        group = load_results(filename).get_path(path)
+        attrs = group.attrs
         if ic is None:
             ic = _stored_ichrone(attrs, device, dtype)
-        kwargs = {k: tuple(v) for k, v in attrs["kwargs"].items()}
-        mod = cls(ic, name=name if name is not None else attrs["name"], directory=attrs["directory"],
-                  eep_bounds=tuple(attrs["eep_bounds"]), N=int(attrs["N"]), use_emcee=bool(attrs["use_emcee"]),
-                  **kwargs)
-        mod._samples = samples
-        mod._derived_samples = derived
+        kwargs = {k: tuple(v) for k, v in json.loads(attrs["kwargs"]).items()}
+        mod = cls(ic, name=name if name is not None else str(attrs["name"]), directory=str(attrs["directory"]),
+                  eep_bounds=tuple(json.loads(attrs["eep_bounds"])), N=int(attrs["N"]),
+                  use_emcee=bool(attrs["use_emcee"]), **kwargs)
+        mod._samples = stored_table(group, "samples")
+        mod._derived_samples = stored_table(group, "derived_samples")
         # through set_bounds, so the priors' bounds stay in step with the
         # prior-transform box (a non-default maxAV survives the reload)
-        bounds = attrs["bounds"]
+        bounds = json.loads(attrs["bounds"])
         mod.set_bounds(**{k: tuple(v) for k, v in bounds.items() if v is not None})
         for k, v in bounds.items():
             if v is None:
                 mod._bounds[k] = None
-        if attrs.get("evidence") is not None:
-            mod._evidence = tuple(attrs["evidence"])
+        if "evidence" in attrs:
+            mod._evidence = tuple(json.loads(attrs["evidence"]))
         return mod
 
     def write_results(self, corner_kwargs=None, directory=None):
         """The results file and three corner PNGs (reference
-        starmodel.py:1961-1989): ``<base>starmodel.npz`` and
+        starmodel.py:1961-1989): ``<base>starmodel.h5`` and
         ``<base>{params,observed,physical}.png`` in ``directory`` (the
         model's own by default), ``<base>`` being
         ``<name>-<grid>-<labelstring>-``."""
@@ -1032,7 +1008,7 @@ class BasicStarModel:
         directory = directory or self.directory
         corner_kwargs = corner_kwargs or {}
         base = f"{self.name + '-' if self.name else ''}{self.ic.name}-{self.labelstring}-"
-        self.save_hdf(os.path.join(directory, base + "starmodel.npz"), overwrite=True)
+        self.save_hdf(os.path.join(directory, base + "starmodel.h5"), overwrite=True)
         import matplotlib.pyplot as plt
 
         for tag, fn in (("params", self.corner_params), ("observed", self.corner_observed),
@@ -1049,7 +1025,8 @@ def _stored_ichrone(attrs, device, dtype):
     does (starmodel.py:1189-1196)."""
     from .isochrone import get_ichrone
 
-    kw = dict(bands=attrs["ic_bands"], tracks=attrs.get("ic_type") == "EvolutionTrackInterpolator", device=device)
+    kw = dict(bands=json.loads(attrs["ic_bands"]), tracks=str(attrs["ic_type"]) == "EvolutionTrackInterpolator",
+              device=device)
     if dtype is not None:
         kw["dtype"] = dtype
     try:

@@ -9,10 +9,11 @@ columns with the row index beside it, written to CSV in the layout of
 ``DataFrame.to_csv``.
 
 The per-folder API (:func:`get_quantiles`, :func:`get_summary_df`,
-:func:`write_results_txt`) reads the ``.npz`` results files that ``starfit``
-writes (``<models>_starmodel_<mult>.npz``). An HDF5 summary name (``.h5``,
-``.hdf``, ``.hdf5``) is written as CSV to ``<name>.csv``, as the JAX package
-does where PyTables is absent.
+:func:`write_results_txt`) reads the HDF5 results files that ``starfit``
+writes (``<models>_starmodel_<mult>.h5``, the JAX package's layout, through
+:mod:`isochrones_torch.hdf5`). An HDF5 summary name (``.h5``, ``.hdf``,
+``.hdf5``) is written as CSV to ``<name>.csv``, as the JAX package does
+where PyTables is absent.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import tokenize
 
 import numpy as np
 
-from .utils import npz_load
+from .utils import load_results, stored_table
 
 __all__ = ["Frame", "quantile_frame", "derived_quantile_frame", "summarize_batch", "get_quantiles",
            "quantile_worker", "get_summary_df", "write_results_txt", "DEFAULT_QS", "DEFAULT_COLUMNS"]
@@ -375,13 +376,13 @@ def get_quantiles(name, rootdir=".", columns=DEFAULT_COLUMNS, qs=DEFAULT_QS, mod
                   verbose=False, raise_exceptions=False, device="cuda", dtype=None):
     """Parameter quantiles for one fitted starmodel folder: the derived
     samples' columns that match ``columns`` (regular expressions), one row
-    labelled ``name``. The model is ``<rootdir>/<name>/<modelname>.npz``,
+    labelled ``name``. The model is ``<rootdir>/<name>/<modelname>.h5``,
     reloaded as ``BasicStarModel.load_hdf`` does (its interpolator rebuilt
     on ``device`` in ``dtype``); an empty :class:`Frame` where it cannot be
     loaded, unless ``raise_exceptions``."""
     from .starmodel import BasicStarModel
 
-    modfile = os.path.join(rootdir, name, f"{modelname}.npz")
+    modfile = os.path.join(rootdir, name, f"{modelname}.h5")
     try:
         mod = BasicStarModel.load_hdf(modfile, device=device, dtype=dtype)
     except Exception:
@@ -439,13 +440,11 @@ def write_results_txt(folder, models="mist", mult="single", props=RESULTS_PROPS)
     """Per-folder ``{models}_{mult}_results.txt`` with the median, 15.85% and
     84.15% quantiles of each physical property (the reference
     ``scripts/starfit-summarize`` folders mode). Reads the stored derived
-    samples of ``{models}_starmodel_{mult}.npz`` (flat and tree models alike:
+    samples of ``{models}_starmodel_{mult}.h5`` (flat and tree models alike:
     ``mass``, else ``mass_0_0``, else ``mass_0``); ``nan nan nan`` for a
     property the table lacks."""
-    from .starmodel import BasicStarModel
-
-    path = os.path.join(folder, f"{models}_starmodel_{mult}.npz")
-    _, ds = BasicStarModel._stored_tables(npz_load(path), "")
+    path = os.path.join(folder, f"{models}_starmodel_{mult}.h5")
+    ds = stored_table(load_results(path), "derived_samples")
     if ds is None:
         raise KeyError(f"{path} holds no derived samples")
     results_file = os.path.join(folder, f"{models}_{mult}_results.txt")

@@ -24,13 +24,14 @@ from typing import Dict
 import numpy as np
 import torch
 
+from . import hdf5
 from .logger import getLogger
 from .observation import (
     Observation, ObservationTree, Source, make_tree_lnlike, make_tree_lnlike_fused, read_rows_csv,
 )
 from .priors import AgePrior, AVPrior, ChabrierPrior, DistancePrior, EEP_prior, FehPrior, QPrior, eep_change_of_variables
 from .starmodel import BasicStarModel, N_options, _stored_ichrone, index_options
-from .utils import addmags, npz_load, npz_save, store_prefix
+from .utils import addmags, load_results, open_results, stored_table
 
 __all__ = ["StarModel", "StarModelGroup", "ini_photometry_rows"]
 
@@ -535,50 +536,48 @@ class StarModel(BasicStarModel):
 
     # ------------------------------------------------------------- persistence
     def save_hdf(self, filename, path="", overwrite=False, append=False):
-        """Model + tree persistence (reference starmodel.py:1205-1262, which
-        writes HDF5) into the ``.npz`` container ``filename`` under the key
-        prefix ``path``: the tree (``obs/...``), samples and derived samples,
-        and ``ic_type``, ``ic_bands``, ``use_emcee``, ``name``,
-        ``directory`` as attributes, as the reference does, plus ``bounds``
-        and ``evidence``, which the reference's tree file drops (a reloaded
-        tree model there forgets a non-default ``maxAV`` and its evidence)."""
+        """Model + tree persistence (reference starmodel.py:1205-1262) into the
+        HDF5 file ``filename`` under the group ``path``, in the JAX package's
+        layout: the tree (``obs``), samples and derived samples, and
+        ``ic_type``, ``ic_bands``, ``use_emcee``, ``name``, ``directory`` as
+        attributes, plus ``bounds`` and ``evidence`` (JSON), which the
+        reference's tree file drops (a reloaded tree model there forgets a
+        non-default ``maxAV`` and its evidence). ``overwrite`` replaces the
+        file; otherwise the entries under ``path`` are replaced."""
         if os.path.exists(filename) and overwrite:
             os.remove(filename)
-        self.obs.save_hdf(filename, path, append=True)
-        prefix = store_prefix(path)
-        mine = tuple(f"{prefix}{g}/" for g in ("samples", "derived_samples", "attrs"))
-        entries = {k: v for k, v in npz_load(filename).items() if not k.startswith(mine)}
-        attrs = dict(ic_type=type(self.ic).__name__, ic_bands=list(self.ic.bands), use_emcee=bool(self.use_emcee),
-                     name=self.name, directory=self._directory or ".",
-                     bounds={k: list(v) if v is not None else None for k, v in self._bounds.items()})
+        tree = open_results(filename, path, "obs", False, True)
+        group = tree.require(path)
+        self.obs._store(group)
+        attrs = dict(ic_type=type(self.ic).__name__, ic_bands=json.dumps(list(self.ic.bands)),
+                     use_emcee=bool(self.use_emcee), name=self.name, directory=self._directory or ".",
+                     bounds=json.dumps({k: list(v) if v is not None else None for k, v in self._bounds.items()}))
         if self._evidence is not None:
-            attrs["evidence"] = list(self._evidence)
-        entries.update(self._store_entries(prefix, attrs))
-        npz_save(filename, entries)
+            attrs["evidence"] = json.dumps(list(self._evidence))
+        self._store(group, attrs)
+        hdf5.write(filename, tree)
 
     @classmethod
     def load_hdf(cls, filename, path="", name=None, ic=None, device="cuda", dtype=None):
-        """reference starmodel.py:1264-1317, from the ``.npz`` container.
-        Without ``ic`` the synthetic grids are rebuilt with the stored bands
-        on ``device`` (the card unless the caller names another)."""
+        """reference starmodel.py:1264-1317, from an HDF5 results file (or
+        the port's earlier ``.npz`` container). Without ``ic`` the synthetic
+        grids are rebuilt with the stored bands on ``device`` (the card
+        unless the caller names another)."""
         if not os.path.exists(filename):
             raise IOError(f"{filename} does not exist.")
-        prefix = store_prefix(path)
-        entries = npz_load(filename)
-        attrs = {k[len(prefix) + 6:]: json.loads(str(v)) for k, v in entries.items()
-                 if k.startswith(f"{prefix}attrs/")}
-        samples, derived = cls._stored_tables(entries, prefix)
+        group = load_results(filename).get_path(path)
+        attrs = group.attrs
         if ic is None:
             ic = _stored_ichrone(attrs, device, dtype)
         obs = ObservationTree.load_hdf(filename, path, ic=ic)
         mod = cls(ic, obs=obs, use_emcee=bool(attrs["use_emcee"]),
-                  name=name if name is not None else attrs["name"], directory=attrs["directory"])
-        mod._samples = samples
-        mod._derived_samples = derived
-        bounds = attrs.get("bounds", {})
+                  name=name if name is not None else str(attrs["name"]), directory=str(attrs["directory"]))
+        mod._samples = stored_table(group, "samples")
+        mod._derived_samples = stored_table(group, "derived_samples")
+        bounds = json.loads(attrs["bounds"]) if "bounds" in attrs else {}
         mod.set_bounds(**{k: tuple(v) for k, v in bounds.items() if v is not None})
-        if attrs.get("evidence") is not None:
-            mod._evidence = tuple(attrs["evidence"])
+        if "evidence" in attrs:
+            mod._evidence = tuple(json.loads(attrs["evidence"]))
         return mod
 
 

@@ -2,22 +2,29 @@
 Host code on numpy, but ``trapz`` and ``polyval``, which take and return
 torch tensors on any device.
 
-Also the results container of the port. The JAX package's ``save_hdf`` /
-``load_hdf`` write HDF5 through ``h5py``; the port writes the same content
-into one numpy ``.npz`` file (``allow_pickle=False``): every array under a
-key shaped like the HDF5 path (``<path>/samples/values``) and every
-attribute as a JSON string under ``<path>/attrs/<name>``. ``path`` is a key
-prefix, so several models can share a file.
+Also the results container of the port: the JAX package's HDF5 layout,
+read and written by :mod:`isochrones_torch.hdf5` (no h5py). Under a group
+``path`` (``""`` for the root) a model keeps ``samples/values`` and
+``derived_samples/values`` (float64 matrices, their column names as a JSON
+string in the group's ``columns`` attribute), ``obs/values`` for a tree
+model, and its attributes on the group, as ``starmodel.py`` of the JAX
+package writes them. :func:`load_results` also reads the ``.npz`` container
+that the port wrote before it wrote HDF5 (the same content: every array
+under a key shaped like its HDF5 path, every attribute a JSON string under
+``<path>/attrs/<name>``); the two are told apart by their first bytes.
 
 ``download_file`` fetches a URL with ``requests``, imported only then.
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
 import torch
+
+from . import hdf5
 
 # Physical constants in cgs (values of astropy.constants at reference epoch).
 G_CGS = 6.6743e-08
@@ -91,25 +98,82 @@ def distance(pos0, pos1):
     return np.sqrt((ra1 - ra0) ** 2 + (dec1 - dec0) ** 2)
 
 
-def store_prefix(path):
-    """The key prefix of ``path`` in a results container (``""`` for the root)."""
-    path = (path or "").strip("/")
-    return f"{path}/" if path else ""
+#: the model attributes that the JAX layout keeps as they are (the others
+#: are JSON strings)
+_PLAIN_ATTRS = ("ic_type", "name", "directory", "use_emcee", "N")
+_ZIP = b"PK\x03\x04"
 
 
-def npz_load(filename):
-    """Every entry of a results container as a dict of numpy arrays."""
-    with np.load(filename, allow_pickle=False) as f:
-        return {k: f[k] for k in f.files}
+def load_results(filename):
+    """A results file as an :class:`~isochrones_torch.hdf5.Tree` in the JAX
+    package's layout: an HDF5 file, or the port's earlier ``.npz`` container
+    (told apart by their first bytes); anything else raises ``ValueError``."""
+    with open(filename, "rb") as f:
+        head = f.read(8)
+    if head == hdf5.SIGNATURE:
+        return hdf5.read(filename)
+    if head[:4] == _ZIP:
+        with np.load(filename, allow_pickle=False) as f:
+            return _tree_from_npz({k: f[k] for k in f.files})
+    raise ValueError(f"{filename} is neither an HDF5 file nor the port's .npz results container")
 
 
-def npz_save(filename, entries):
-    """Write a results container whole and atomically (temporary file, then
-    rename), under exactly the name given."""
-    tmp = f"{filename}.tmp.{os.getpid()}"
-    with open(tmp, "wb") as f:
-        np.savez(f, **entries)
-    os.replace(tmp, filename)
+def _tree_from_npz(entries):
+    """The tree of the port's ``.npz`` container: ``<group>/columns`` ->
+    the group's ``columns``, ``<group>/attrs/<name>`` -> its attribute (the
+    model's plain ones decoded from JSON), ``obs/values`` as the JAX
+    package's record (fixed-length byte strings)."""
+    tree = hdf5.Tree()
+    for key, value in entries.items():
+        head, _, name = key.rpartition("/")
+        if head.endswith("attrs") and head.rpartition("/")[2] == "attrs":
+            group = tree.require(head.rpartition("/")[0])
+            text = str(value)
+            plain = name in _PLAIN_ATTRS and not head.rpartition("/")[0].endswith("obs")
+            group.attrs[name] = json.loads(text) if plain else text
+        elif name == "columns":
+            tree.require(head).attrs["columns"] = str(value)
+        elif value.dtype.names:
+            tree.require(head)[name] = value.astype([(n, f"S{value.dtype[n].itemsize // 4}")
+                                                     if value.dtype[n].kind == "U" else (n, value.dtype[n])
+                                                     for n in value.dtype.names])
+        else:
+            tree.require(head)[name] = value
+    return tree
+
+
+def open_results(filename, path, key, overwrite, append):
+    """The results tree of ``filename`` to write into (empty without the
+    file): an existing ``<path>/<key>`` raises unless ``overwrite`` (the file
+    starts afresh) or ``append`` (the entry is replaced), as the JAX
+    package's ``save_hdf`` does."""
+    if not os.path.exists(filename):
+        return hdf5.Tree()
+    tree = load_results(filename)
+    group = tree.get_path(path)
+    if group is not None and key in group:
+        if overwrite:
+            return hdf5.Tree()
+        if not append:
+            raise IOError(f"{path} in {filename} exists. Set overwrite or append.")
+    return tree
+
+
+def table_group(table):
+    """A dict of columns as the JAX layout's group: ``values`` (float64,
+    one column a field) and ``attrs["columns"]`` (their names, JSON)."""
+    cols = list(table)
+    return hdf5.Tree({"values": np.stack([np.asarray(table[c], dtype=float) for c in cols], axis=1)},
+                     attrs={"columns": json.dumps(cols)})
+
+
+def stored_table(group, key):
+    """The dict of columns stored as ``group[key]`` (see :func:`table_group`),
+    or None."""
+    if group is None or key not in group:
+        return None
+    values = np.asarray(group[key]["values"])
+    return {c: values[:, i] for i, c in enumerate(json.loads(group[key].attrs["columns"]))}
 
 
 def download_file(url, path=None, clobber=False):

@@ -54,6 +54,9 @@ SCOPED = {
     # that the kernel uses, beside autograd's (ops/eep.py::get_eep_newton)
     "isochrones_tpu.ops.eep:get_eep_newton": {"closed_slope": None},
     "isochrones_tpu.ops:get_eep_newton": {"closed_slope": None},
+    # the port's cluster entry point takes the nested fit's seed, so that
+    # a fit from an HDF table and one from its CSV can be held equal
+    "isochrones_tpu.cluster:clusterfit": {"seed": None},
 }
 
 

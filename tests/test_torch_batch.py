@@ -325,7 +325,9 @@ def test_fit_catalog_cli_writes_the_jax_summary_layout(tmp_path, capsys):
         assert rc == 0 and "process 0/1: 3 star(s)" in capsys.readouterr().out
         fleet = pd.read_csv(part + ".part0", index_col=0)
         assert list(fleet.index) == [0, 1, 2] and list(fleet.columns) == list(written.columns)
-    with pytest.raises(NotImplementedError, match="CSV"):
+    # an HDF name is read as HDF: a CSV file under it is refused, not read as CSV
+    os.symlink(path, str(tmp_path / "cat.h5"))
+    with pytest.raises(ValueError, match="HDF5 signature"):
         fit_catalog_main(["--device", "cpu", "--models", "synthetic", str(tmp_path / "cat.h5")])
 
 

@@ -2,8 +2,10 @@
 CLI (``isochrones_torch.cli.clusterfit``), on the CPU in float64 on a
 6-star catalogue of the default synthetic grid written as CSV: the model it
 builds, a short nested fit (dynamic by default, static on request), the
-warning that names a row without support, HDF refused by name, the CLI's
-defaults and its error without MIST's files.
+warning that names a row without support, the same table as a pandas HDF
+table (the ``fixed`` and ``table`` layouts, deflated or not) fitted bitwise
+as its CSV, a CSV under an HDF name refused, the CLI's defaults and its
+error without MIST's files.
 
 Torch runs on one thread from the module's first fixture on: at these sizes a
 pool of threads beside the other test workers' is many times slower.
@@ -11,11 +13,13 @@ pool of threads beside the other test workers' is many times slower.
 
 import csv
 import logging
+import os
 
 import numpy as np
 import pytest
 import torch
 
+import pandas_hdf
 from isochrones_torch import get_ichrone
 from isochrones_torch.cluster import SimulatedCluster, StarClusterModel, clusterfit
 from test_torch_cluster_fit import SIM
@@ -86,10 +90,40 @@ def test_clusterfit_warns_of_unsupported_stars(member_table, tmp_path, caplog, m
     assert model.evidence is None
 
 
+#: a cut seeded fit, to hold an HDF table's fit to its CSV's bitwise
+SEEDED = dict(ENTRY, nlive=12, max_iter=6, dynamic=False, seed=0)
+
+
+@pytest.fixture(scope="module")
+def seeded_csv_fit(member_table):
+    return clusterfit(member_table[0], device="cpu", **SEEDED)
+
+
 @pytest.mark.parametrize("name", ["stars.h5", "stars.hdf", "stars.hdf5"])
-def test_clusterfit_refuses_hdf_by_name(name):
-    with pytest.raises(NotImplementedError, match="HDF"):
-        clusterfit(name, models="synthetic", device="cpu")
+def test_clusterfit_refuses_hdf_by_name(member_table, seeded_csv_fit, tmp_path, name):
+    """A member table in pandas' HDF layouts (``.h5``: ``fixed``; ``.hdf``:
+    ``table``; ``.hdf5``: ``table``, deflated) fits to bitwise the samples
+    and evidence of the same seeded fit from its CSV; a CSV under an HDF
+    name is refused (``ValueError``), not read as CSV."""
+    path, _ = member_table
+    with open(path, newline="") as f:
+        header, *rows = list(csv.reader(f))
+    cols = {c: np.array([float(r[i]) for r in rows]) for i, c in enumerate(header)}
+    hdf = str(tmp_path / name)
+    if name.endswith(".h5"):
+        pandas_hdf.write_fixed(hdf, cols)
+    else:
+        pandas_hdf.write_table(hdf, cols, complevel=6 if name.endswith(".hdf5") else None)
+    from_csv, from_hdf = seeded_csv_fit, clusterfit(hdf, device="cpu", **SEEDED)
+    assert from_hdf.evidence == from_csv.evidence and np.isfinite(from_hdf.evidence[0])
+    for c in from_csv.samples:
+        np.testing.assert_array_equal(from_hdf.samples[c], from_csv.samples[c])
+    for c in from_csv.stars.data:
+        np.testing.assert_array_equal(from_hdf.stars.data[c], from_csv.stars.data[c])
+    fake = str(tmp_path / ("csv_" + name))
+    os.symlink(path, fake)
+    with pytest.raises(ValueError, match="HDF5 signature"):
+        clusterfit(fake, device="cpu", **SEEDED)
 
 
 def test_clusterfit_cli(member_table, caplog, tmp_path, monkeypatch):

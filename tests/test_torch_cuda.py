@@ -1313,7 +1313,7 @@ def test_track_grid_results_file_on_card(dev, mist_root, tmp_path):
     draws = {"mass": rng.uniform(0.9, 1.1, 50), "eep": rng.uniform(80, 120, 50), "feh": rng.uniform(-0.2, 0.2, 50),
              "distance": rng.uniform(190, 210, 50), "AV": rng.uniform(0, 0.2, 50), "lnprob": rng.normal(size=50)}
     m._samples = draws
-    path = str(tmp_path / "track.npz")
+    path = str(tmp_path / "track.h5")
     m.save_hdf(path)
     back = SingleStarModel.load_hdf(path, device=dev)
     assert type(back.ic).__name__ == "EvolutionTrackInterpolator" and back.ic.grid_type is not None

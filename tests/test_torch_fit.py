@@ -24,6 +24,7 @@ import csv
 import json
 import os
 
+import h5py
 import numpy as np
 import pytest
 import torch
@@ -57,13 +58,13 @@ def test_convergent_fit_and_resume(tmp_path, model):
     df = fit_mcmc_convergent(model, maxiter=2, nsamples=500, seed=0, **kw)
     assert isinstance(df, Frame) and model.samples is df
     assert len(df["lnprob"]) <= 500 and np.isfinite(df["lnprob"]).all()
-    ckpt = os.path.join(sample_dir, "harness-star.npz")
+    ckpt = os.path.join(sample_dir, "harness-star.h5")
     assert os.path.exists(ckpt) and os.path.exists(os.path.join(results_dir, "harness-star.csv"))
     backend = McmcBackend(ckpt)
     chain, ln = backend.load()
     assert chain.shape[1:] == (32, model.n_params) and ln.shape == chain.shape[:2]
-    with np.load(ckpt) as f:
-        assert json.loads(str(f["columns"])) == list(model.param_names)
+    with h5py.File(ckpt, "r") as f:
+        assert json.loads(f.attrs["columns"]) == list(model.param_names)
 
     df2 = fit_mcmc_convergent(model, maxiter=1, nsamples=300, seed=1, targetn=1e6,
                               **{k: v for k, v in kw.items() if k != "targetn"})
@@ -79,7 +80,7 @@ def test_convergent_fit_and_resume(tmp_path, model):
 
 
 def test_backend_round_trip(tmp_path):
-    b = McmcBackend(str(tmp_path / "sub" / "c.npz"))
+    b = McmcBackend(str(tmp_path / "sub" / "c.h5"))
     assert b.load() is None
     rng = np.random.default_rng(0)
     chain, ln = rng.normal(size=(5, 4, 3)), rng.normal(size=(5, 4))
@@ -87,8 +88,9 @@ def test_backend_round_trip(tmp_path):
     got = b.load()
     np.testing.assert_array_equal(got[0], chain)
     np.testing.assert_array_equal(got[1], ln)
-    with np.load(b.filename) as f:
-        assert json.loads(str(f["columns"])) == ["a", "b", "c"]
+    with h5py.File(b.filename, "r") as f:
+        assert json.loads(f.attrs["columns"]) == ["a", "b", "c"]
+        np.testing.assert_array_equal(f["chain"][()], chain)
     b.reset()
     assert b.load() is None
     assert McmcBackend(None).load() is None
@@ -200,7 +202,7 @@ def test_convergent_arithmetic_matches_jax(tmp_path, monkeypatch, targetn, maxit
         # a second call resumes the checkpoint and runs on while neff <= targetn
         df2 = mod.fit_mcmc_convergent(model, **dict(kw, maxiter=2, seed=4))
         chain, ln = mod.McmcBackend(os.path.join(kw["sample_directory"],
-                                                 "gauss." + ("h5" if name == "jax" else "npz"))).load()
+                                                 "gauss.h5")).load()
         got[name] = (first, feeds[name].calls, [np.asarray(df[c]) for c in ("a", "b", "c", "lnprob")],
                      [np.asarray(df2[c]) for c in ("a", "b", "c", "lnprob")], chain, ln)
     j, t = got["jax"], got["torch"]

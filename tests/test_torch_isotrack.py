@@ -244,7 +244,7 @@ def test_track_grid_results_file_reloads(tmp_path, monkeypatch):
     jm = jsm.SingleStarModel(jt, name="star", **obs)
     tm._samples, jm._samples = dict(draws), pd.DataFrame(draws)
     tm._evidence = jm._evidence = (-12.5, 0.3)
-    tfile, jfile = str(tmp_path / "track.npz"), str(tmp_path / "track.h5")
+    tfile, jfile = str(tmp_path / "track.h5"), str(tmp_path / "jax_track.h5")
     tm.save_hdf(tfile)
     jm.save_hdf(jfile)
     tback = tsm.SingleStarModel.load_hdf(tfile, device="cpu")

@@ -80,6 +80,6 @@ def test_derived_samples_raise_type_error(mcmc_fit, nested_fits, tmp_path):
         with pytest.raises(TypeError):
             m.derived_samples
     with pytest.raises(TypeError):
-        tm.save_hdf(str(tmp_path / "isotrack.npz"))
+        tm.save_hdf(str(tmp_path / "port_isotrack.h5"))
     with pytest.raises(TypeError):
         jm.save_hdf(str(tmp_path / "isotrack.h5"))

@@ -14,9 +14,11 @@ port's own host per-node walk at atol 1e-8 (the bar of
 import contextlib
 import dataclasses
 import io
+import json
 import os
 import re
 
+import h5py
 import jax.numpy as jnp
 import numpy as np
 import pandas as pd
@@ -200,13 +202,14 @@ def test_tree_structure_and_parameter_maps(ics, tmp_path, monkeypatch):
 
 
 def test_tree_container_round_trip(ics, tmp_path):
-    """``ObservationTree.save_hdf`` -> ``load_hdf`` through the ``.npz``
-    container: the same plan, with limits' open ends restored."""
+    """``ObservationTree.save_hdf`` -> ``load_hdf`` through the HDF5 results
+    file: the same plan, with limits' open ends restored; groups kept or
+    replaced as the JAX package's ``save_hdf`` keeps or replaces them."""
     _, tic = ics
     tm = StarModel.from_ini(tic, os.path.join(HERE, "star4"), index=[0, 0, 1])
     tm.obs.add_limit(logg=(3.5, None))
     tm.obs.add_AV((0.1, 0.05), system=1)
-    path = str(tmp_path / "tree.npz")
+    path = str(tmp_path / "tree.h5")
     tm.obs.save_hdf(path, path="a/b")
     with pytest.raises(IOError):
         tm.obs.save_hdf(path, path="a/b")
@@ -218,9 +221,12 @@ def test_tree_container_round_trip(ics, tmp_path):
         if f.name != "ic":
             np.testing.assert_array_equal(np.asarray(getattr(p0, f.name)), np.asarray(getattr(p1, f.name)), err_msg=f.name)
     assert back.limits == {"0_0": {"logg": (3.5, np.inf)}}
-    assert set(np.load(path).files) >= {"a/b/obs/values", "other/obs/values", "a/b/obs/attrs/limits"}
+    with h5py.File(path, "r") as f:
+        assert "a/b/obs/values" in f and "other/obs/values" in f
+        assert json.loads(f["a/b/obs"].attrs["limits"]) == {"0_0": {"logg": [3.5, None]}}
     tm.obs.save_hdf(path, path="a/b", overwrite=True)
-    assert not any(k.startswith("other/") for k in np.load(path).files)
+    with h5py.File(path, "r") as f:
+        assert "other" not in f and "a/b/obs/values" in f
 
 
 # ------------------------------------------------------------- the likelihood

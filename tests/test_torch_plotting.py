@@ -136,12 +136,12 @@ def test_star_model_corners_match_jax(N, tmp_path):
     _same_figures(tm.triangle(["eep", "age"]), jm.triangle(["eep", "age"]))
     assert tm.mag_plot() is None and jm.mag_plot() is None
 
-    # write_results: the JAX package's file names (its base, starmodel.py:1961-1989), .npz for .h5
+    # write_results: the JAX package's file names (its base, starmodel.py:1961-1989)
     tm.write_results(directory=str(tmp_path))
     base = f"star-{jm.ic.name}-{jm.labelstring}-"
-    assert sorted(os.listdir(tmp_path)) == sorted([base + "starmodel.npz"] + [f"{base}{t}.png" for t in
+    assert sorted(os.listdir(tmp_path)) == sorted([base + "starmodel.h5"] + [f"{base}{t}.png" for t in
                                                                               ("params", "observed", "physical")])
-    back = BasicStarModel.load_hdf(str(tmp_path / (base + "starmodel.npz")), ic=tm.ic)
+    back = BasicStarModel.load_hdf(str(tmp_path / (base + "starmodel.h5")), ic=tm.ic)
     np.testing.assert_array_equal(back.derived_samples["mass"], tm.derived_samples["mass"])
     figs = tm.corner_plots(str(tmp_path / "plots"))
     assert len(figs) == 2 and {"plots_physical.png", "plots_observed.png"} <= set(os.listdir(tmp_path))
@@ -188,7 +188,7 @@ def test_without_matplotlib_pandas_h5py_astroquery(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     failures, fitted = json.loads(proc.stdout.strip().splitlines()[-1])
     assert failures == [[folder, "single"]] and fitted
-    assert os.path.exists(os.path.join(folder, "synthetic_starmodel_single.npz"))
+    assert os.path.exists(os.path.join(folder, "synthetic_starmodel_single.h5"))
     assert not [f for f in os.listdir(folder) if f.endswith(".png")]
     with open(os.path.join(folder, "starfit.log")) as f:
         log = f.read()

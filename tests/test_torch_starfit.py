@@ -57,7 +57,7 @@ def test_starfit_flat_results_file_and_freshness(tmp_path, one_thread):
     folder = _folder(tmp_path)
     failures = []
     mod, _ = starfit(folder, models="synthetic", no_plots=True, device="cpu", failures=failures, **SHORT)
-    path = os.path.join(folder, "synthetic_starmodel_single.npz")
+    path = os.path.join(folder, "synthetic_starmodel_single.h5")
     assert failures == [] and os.path.exists(path) and "single starfit successful" in _log(folder)
     assert mod.name == "star1" and mod.directory == folder and sorted(mod.bands) == ["H", "J", "K", "W1", "W2"]
     back = BasicStarModel.load_hdf(path, device="cpu")
@@ -80,10 +80,24 @@ def test_starfit_flat_results_file_and_freshness(tmp_path, one_thread):
     assert failures == [] and BasicStarModel.load_hdf(path, device="cpu").evidence is not None
 
 
+def _h5_items(path):
+    """Every group, dataset and attribute of an HDF5 file, as h5py reads them."""
+    out = {}
+
+    def visit(name, obj):
+        out[name] = obj[()] if isinstance(obj, h5py.Dataset) else None
+        out.update({f"{name}@{k}": v for k, v in obj.attrs.items()})
+
+    with h5py.File(path, "r") as f:
+        f.visititems(visit)
+    return out
+
+
 def test_results_file_keys_match_jax(tmp_path, one_thread):
-    """The flat model's container holds the keys and columns of the HDF5 file
-    that the JAX package writes for the same model and samples, and restores
-    bounds (a non-default ``maxAV``) through ``set_bounds``."""
+    """The flat model's results file holds the groups, datasets, columns and
+    attributes (their types too) of the HDF5 file that the JAX package writes
+    for the same model and samples, and restores bounds (a non-default
+    ``maxAV``) through ``set_bounds``."""
     tic = get_ichrone("synthetic", device="cpu")
     jic = jax_get_ichrone("synthetic")
     obs = tsf._flat_obs_kwargs(os.path.join(HERE, "star1", "star.ini"))
@@ -93,26 +107,29 @@ def test_results_file_keys_match_jax(tmp_path, one_thread):
     tm.fit_multinest(**{**SHORT, "max_iter": 80})
     jm._samples = pd.DataFrame(tm.samples)
     jm._evidence = tm.evidence
-    path, jpath = str(tmp_path / "m.npz"), str(tmp_path / "m.h5")
+    path, jpath = str(tmp_path / "m.h5"), str(tmp_path / "jax.h5")
     tm.save_hdf(path, path="fits/a")
     jm.save_hdf(jpath, path="fits/a")
-    with h5py.File(jpath, "r") as f:
-        g = f["fits/a"]
-        ref = {f"fits/a/attrs/{k}" for k in g.attrs}
-        for t in ("samples", "derived_samples"):
-            ref |= {f"fits/a/{t}/values", f"fits/a/{t}/columns"}
-            assert list(getattr(tm, t)) == json.loads(g[t].attrs["columns"])
-            np.testing.assert_allclose(np.asarray(g[t]["values"]), np.load(path)[f"fits/a/{t}/values"], rtol=1e-9, equal_nan=True)
-    assert set(np.load(path).files) == ref
+    got, ref = _h5_items(path), _h5_items(jpath)
+    assert sorted(got) == sorted(ref)
+    for key, want in ref.items():
+        assert type(got[key]) is type(want), key
+        if isinstance(want, np.ndarray):
+            assert got[key].dtype == want.dtype
+            np.testing.assert_allclose(got[key], want, rtol=1e-9, equal_nan=True)
+        elif key.endswith("@columns"):
+            assert got[key] == want
+    for t in ("samples", "derived_samples"):
+        assert list(getattr(tm, t)) == json.loads(got[f"fits/a/{t}@columns"])
     back = BasicStarModel.load_hdf(path, path="fits/a", ic=tic)
     assert back.bounds("AV") == (0, 0.7) and back._priors["AV"].bounds == (0, 0.7) and back.N == 2
     assert back.evidence == tm.evidence and np.isfinite(back.lnpost(tm.map_pars()))
     with pytest.raises(IOError):
         tm.save_hdf(path, path="fits/a")
     tm.save_hdf(path, path="fits/b", append=True)
-    assert {"fits/a/samples/values", "fits/b/samples/values"} <= set(np.load(path).files)
+    assert {"fits/a/samples/values", "fits/b/samples/values"} <= set(_h5_items(path))
     tm.save_hdf(path, path="fits/b", overwrite=True)
-    assert "fits/a/samples/values" not in np.load(path).files
+    assert "fits/a/samples/values" not in _h5_items(path)
 
 
 def test_cli_flat_tree_and_failures(tmp_path, one_thread, capsys, monkeypatch):
@@ -120,8 +137,8 @@ def test_cli_flat_tree_and_failures(tmp_path, one_thread, capsys, monkeypatch):
     os.makedirs(empty)
     assert main(CLI + ["--binary", flat]) == 0
     assert main(CLI + ["--tree", tree]) == 0
-    m_flat = BasicStarModel.load_hdf(os.path.join(flat, "synthetic_starmodel_binary.npz"), device="cpu")
-    m_tree = StarModel.load_hdf(os.path.join(tree, "synthetic_starmodel_single.npz"), device="cpu")
+    m_flat = BasicStarModel.load_hdf(os.path.join(flat, "synthetic_starmodel_binary.h5"), device="cpu")
+    m_tree = StarModel.load_hdf(os.path.join(tree, "synthetic_starmodel_single.h5"), device="cpu")
     assert m_flat.N == 2 and m_flat.param_names[:2] == ("eep_0", "eep_1") and len(m_flat.samples["lnprob"]) == 4000
     assert m_tree.labelstring == "0_0--0_1--0_2" and m_tree.n_params == 7 and m_tree.bounds("AV_0") == (0, 0.9)
     assert "delta-K" in capsys.readouterr().out  # the tree is printed before its fit
@@ -131,7 +148,7 @@ def test_cli_flat_tree_and_failures(tmp_path, one_thread, capsys, monkeypatch):
     # a folder without a star.ini fails, is logged, and turns the exit code
     assert main(CLI + ["--rootdir", str(tmp_path), "empty", "star1"]) == 1
     assert "single starfit failed" in _log(empty) and "empty [single]" in capsys.readouterr().err
-    assert os.path.exists(os.path.join(flat, "synthetic_starmodel_single.npz"))  # the good folder was still fitted
+    assert os.path.exists(os.path.join(flat, "synthetic_starmodel_single.h5"))  # the good folder was still fitted
     # the default grid is MIST's: without its files (an empty $ISOCHRONES) the error naming the
     # missing path is a failed fit of that folder
     import isochrones_torch.config as tconfig
@@ -157,7 +174,7 @@ def test_cli_parser_and_unported_options(tmp_path, monkeypatch, capsys):
         assert main(CLI + extra + [fleet, empty]) == 1
         out = capsys.readouterr().out
         assert "[multihost] process 0/1: 2 folder(s)" in out and "2 of 2: " + empty in out
-        assert os.path.exists(os.path.join(fleet, "synthetic_starmodel_single.npz"))
+        assert os.path.exists(os.path.join(fleet, "synthetic_starmodel_single.h5"))
     # the Gaia query and plot_only are ported: an empty Gaia answer, and plot_only without a results
     # file, are the folder's failures, logged before any fit
     monkeypatch.setattr(Gaia, "table_provider", staticmethod(lambda *a: None))
@@ -186,7 +203,7 @@ def test_entry_points_default_to_the_card(tmp_path):
     failures = []
     mod, _ = starfit(folder, models="synthetic", no_plots=True, failures=failures, **SHORT)
     assert mod is None and failures == [(folder, "single")]
-    assert not os.path.exists(os.path.join(folder, "synthetic_starmodel_single.npz"))
+    assert not os.path.exists(os.path.join(folder, "synthetic_starmodel_single.h5"))
     assert "starfit failed" in _log(folder) and ("CUDA" in _log(folder) or "cuda" in _log(folder))
     assert main(["--models", "synthetic", "--no_plots", "--n_live_points", "60", folder]) == 1
 
@@ -200,7 +217,7 @@ def test_starfit_resume_bitwise_and_stale_checkpoint(tmp_path, one_thread):
     whole, stopped = _folder(tmp_path, name="whole"), _folder(tmp_path, name="stopped")
     ref, _ = starfit(whole, **kw, **fit)
     part, _ = starfit(stopped, **kw, resume=True, max_iter=256, **fit)
-    path = os.path.join(stopped, "synthetic_starmodel_binary.npz")
+    path = os.path.join(stopped, "synthetic_starmodel_binary.h5")
     assert os.path.exists(os.path.join(stopped, "chains", "stopped-iso-binary-checkpoint.pkl"))
     assert not os.path.exists(os.path.join(whole, "chains"))
     assert not np.array_equal(part.samples["lnprob"], ref.samples["lnprob"])
@@ -231,7 +248,7 @@ def test_starfit_emcee_and_tree_type(tmp_path, one_thread):
                      starmodel_type=StarModel, nwalkers=24, nburn=4, niter=5, seed=0, bands=["G"])
     assert failures == [] and isinstance(mod, StarModel) and mod.use_emcee
     assert len(mod.samples["lnprob"]) == 24 * 5 and "G" in mod.ic.bands
-    back = StarModel.load_hdf(os.path.join(folder, "synthetic_starmodel_single.npz"), device="cpu")
+    back = StarModel.load_hdf(os.path.join(folder, "synthetic_starmodel_single.h5"), device="cpu")
     assert back.use_emcee and back.evidence is None and back.labelstring == mod.labelstring
 
 

@@ -123,7 +123,7 @@ def test_gaia_flat_fit_matches_jax(tmp_path, gaia, write_ini_file):
     assert ("[gaia]" in ini and "parallax = 4.2, 0.05" in ini) == write_ini_file
     assert mod.kwargs == jm.kwargs and mod.N == jm.N == 2
     assert mod.kwargs["parallax"] == (4.2, 0.05) and all(b in mod.kwargs for b in GAIA_BANDS)
-    assert os.path.exists(os.path.join(tdir, "synthetic_starmodel_binary.npz"))
+    assert os.path.exists(os.path.join(tdir, "synthetic_starmodel_binary.h5"))
 
 
 def test_gaia_tree_model_matches_jax(tmp_path, gaia):
@@ -179,7 +179,7 @@ def test_plots_and_freshness(tmp_path, gaia):
     mtimes = [os.path.getmtime(p) for p in pngs]
     starfit(folder, **kw)  # fresh: neither the fit nor the plots are redone
     assert [os.path.getmtime(p) for p in pngs] == mtimes and "exists. Use overwrite" in _log(folder)
-    results = os.path.join(folder, "synthetic_starmodel_single.npz")
+    results = os.path.join(folder, "synthetic_starmodel_single.h5")
     os.utime(results, (mtimes[0] + 10, mtimes[0] + 10))  # the results file newer than the plots
     starfit(folder, **kw)
     assert all(os.path.getmtime(p) > m for p, m in zip(pngs, mtimes))
@@ -196,7 +196,7 @@ def _jax_results(tdir, jdir, mult):
     from isochrones_tpu import get_ichrone as jax_get_ichrone
     from isochrones_torch import BasicStarModel
 
-    tm = BasicStarModel.load_hdf(os.path.join(tdir, f"synthetic_starmodel_{mult}.npz"), device="cpu")
+    tm = BasicStarModel.load_hdf(os.path.join(tdir, f"synthetic_starmodel_{mult}.h5"), device="cpu")
     jm = JaxBasicStarModel(jax_get_ichrone("synthetic", bands=list(tm.ic.bands)), N=tm.N, name=tm.name,
                            directory=jdir, **tm.kwargs)
     jm._samples = pd.DataFrame({c: np.asarray(v) for c, v in tm.samples.items()})

@@ -1,6 +1,7 @@
 """The port's per-folder summaries against the JAX package's: the same seeded
-derived-samples table stored in each package's results file (``.h5`` for the
-JAX package, the port's ``.npz``), then ``write_results_txt`` (byte-identical
+derived-samples table stored in each package's HDF5 results file (h5py for
+the JAX package, ``isochrones_torch.hdf5`` for the port), then
+``write_results_txt`` (byte-identical
 files), ``get_quantiles`` and ``get_summary_df`` (the same frames to 1e-12),
 and an ``.h5`` summary name (the same ``.csv`` in both: no PyTables here, and
 none on the card's machine)."""
@@ -19,7 +20,8 @@ from isochrones_tpu import config as jconfig, get_ichrone as jax_get_ichrone
 from isochrones_tpu.starmodel import BasicStarModel as JaxBasicStarModel
 from isochrones_torch import BasicStarModel, config as tconfig, get_ichrone
 from isochrones_torch.summary import Frame
-from isochrones_torch.utils import npz_save
+from isochrones_torch import hdf5
+from isochrones_torch.utils import table_group
 
 FLAT = ["eep", "age", "feh", "mass", "radius", "Teff", "logg", "J_mag", "H_mag", "K_mag", "parallax", "distance",
         "AV"]
@@ -47,12 +49,8 @@ def _write_h5(path, samples, derived):
             g.attrs["columns"] = json.dumps(list(table))
 
 
-def _write_npz(path, samples, derived):
-    entries = {}
-    for key, table in (("samples", samples), ("derived_samples", derived)):
-        entries[f"{key}/values"] = np.stack([table[c] for c in table], axis=1)
-        entries[f"{key}/columns"] = np.array(json.dumps(list(table)))
-    npz_save(path, entries)
+def _write_port(path, samples, derived):
+    hdf5.write(path, hdf5.Tree({"samples": table_group(samples), "derived_samples": table_group(derived)}))
 
 
 @pytest.mark.parametrize("case", ["flat", "tree", "missing"])
@@ -65,7 +63,7 @@ def test_results_txt_byte_identical(tmp_path, case):
     jdir.mkdir()
     tdir.mkdir()
     _write_h5(str(jdir / "mist_starmodel_binary.h5"), samples, derived)
-    _write_npz(str(tdir / "mist_starmodel_binary.npz"), samples, derived)
+    _write_port(str(tdir / "mist_starmodel_binary.h5"), samples, derived)
     jpath = jsum.write_results_txt(str(jdir), mult="binary")
     tpath = tsum.write_results_txt(str(tdir), mult="binary")
     assert os.path.basename(tpath) == os.path.basename(jpath) == "mist_binary_results.txt"
@@ -87,7 +85,7 @@ def folders(tmp_path_factory):
     obs = dict(J=(9.5, 0.02), H=(9.2, 0.02), K=(9.1, 0.02), parallax=(4.0, 0.1))
     for i, name in enumerate(("a", "b")):
         samples, derived = _table(SAMPLES, seed=10 + i), _table(FLAT + ["Mbol"], seed=20 + i)
-        for pkg, cls, ic, ext in (("jax", JaxBasicStarModel, jic, "h5"), ("port", BasicStarModel, tic, "npz")):
+        for pkg, cls, ic, ext in (("jax", JaxBasicStarModel, jic, "h5"), ("port", BasicStarModel, tic, "h5")):
             folder = root / pkg / name
             folder.mkdir(parents=True)
             m = cls(ic, name=name, directory=str(folder), **obs)

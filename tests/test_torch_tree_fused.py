@@ -338,7 +338,7 @@ def test_entry_points_default_to_the_card(ics, tmp_path, entry):
     shutil.copytree(os.path.join(HERE, "star1"), folder)
     if entry == "cli":
         assert main(["--models", "synthetic", "--no_plots", "--n_live_points", "40", "--max_iter", "80", folder]) == 1
-        assert not [f for f in os.listdir(folder) if f.endswith(".npz")]
+        assert not [f for f in os.listdir(folder) if f.endswith(".h5")]
         return
     if entry == "from_ini":
         with pytest.raises((RuntimeError, AssertionError)):  # torch's own refusal, by build
@@ -348,7 +348,7 @@ def test_entry_points_default_to_the_card(ics, tmp_path, entry):
     mod = StarModel.from_ini(ics[1], folder) if cls is StarModel else SingleStarModel(ics[1], **_PHOT)
     mod._samples = {c: np.zeros(3) for c in mod.param_names + ("lnprob",)}
     mod._derived_samples = {"lnprob": np.zeros(3)}
-    path = str(tmp_path / "model.npz")
+    path = str(tmp_path / "model.h5")
     mod.save_hdf(path)
     assert cls.load_hdf(path, device="cpu").device.type == "cpu"
     with pytest.raises((RuntimeError, AssertionError)):

@@ -211,13 +211,13 @@ def test_tree_derived_samples_and_results_file(tree_fits, tmp_path):
     """Derived samples carry the JAX package's columns; ``save_hdf`` ->
     ``load_hdf`` restores samples, derived samples, bounds (a non-default
     ``maxAV``) and evidence; the file's keys are those of the JAX package's
-    HDF5 file, plus the bounds and the evidence."""
+    HDF5 file, plus the bounds and the evidence, with the same values."""
     tm, _, jm, _ = tree_fits
     assert list(tm.derived_samples) == list(jm.derived_samples.columns)
     assert np.isfinite(tm.derived_samples["J_mag"]).all()
     assert abs(np.median(tm.derived_samples["distance_0"]) - 200.0) < 3 * np.std(tm.derived_samples["distance_0"])
     tm.set_bounds(AV=(0, 0.6))
-    path, jpath = str(tmp_path / "tree.npz"), str(tmp_path / "tree.h5")
+    path, jpath = str(tmp_path / "tree.h5"), str(tmp_path / "jax_tree.h5")
     tm.save_hdf(path)
     jm.save_hdf(jpath)
     back = StarModel.load_hdf(path, ic=tm.ic)
@@ -232,12 +232,22 @@ def test_tree_derived_samples_and_results_file(tree_fits, tmp_path):
     rebuilt = StarModel.load_hdf(path, device="cpu")  # no ic: the synthetic grids with the stored bands
     assert rebuilt.ic.bands == tm.ic.bands and rebuilt.device.type == "cpu"
 
-    keys = set(np.load(path).files)
-    with h5py.File(jpath, "r") as f:
-        ref = {f"attrs/{k}" for k in f.attrs} | {f"obs/attrs/{k}" for k in f["obs"].attrs} | {"obs/values"}
-        for g in ("samples", "derived_samples"):
-            ref |= {f"{g}/values", f"{g}/columns"}
-            assert json.loads(f[g].attrs["columns"]) == list(getattr(tm, g))
-    assert keys - ref == {"attrs/bounds", "attrs/evidence"} and ref <= keys
+    def items(p):
+        out = {}
+        with h5py.File(p, "r") as f:
+            f.visititems(lambda name, obj: out.update({name: obj[()] if isinstance(obj, h5py.Dataset) else None,
+                                                       **{f"{name}@{k}": v for k, v in obj.attrs.items()}}))
+            out.update({f"@{k}": v for k, v in f.attrs.items()})
+        return out
+
+    got, ref = items(path), items(jpath)
+    assert set(got) - set(ref) == {"@bounds", "@evidence"} and set(ref) <= set(got)
+    for g in ("samples", "derived_samples"):
+        assert json.loads(got[f"{g}@columns"]) == list(getattr(tm, g))
+    np.testing.assert_array_equal(got["obs/values"], ref["obs/values"])
+    assert got["obs/values"].dtype == ref["obs/values"].dtype
+    for k in ("@ic_type", "@ic_bands", "@use_emcee", "@name", "@directory") + tuple(
+            f"obs@{a}" for a in ("spectroscopy", "limits", "parallax", "AV", "N", "index")):
+        assert type(got[k]) is type(ref[k]) and got[k] == ref[k], k
     with pytest.raises(IOError):
-        StarModel.load_hdf(str(tmp_path / "missing.npz"))
+        StarModel.load_hdf(str(tmp_path / "missing.h5"))
