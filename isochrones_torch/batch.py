@@ -32,6 +32,7 @@ from .catalog import StarCatalog
 from .logger import getLogger
 from .ops.catalog import PRIOR_TERMS, CatalogLikelihood, catalog_lnpost, pack_catalog_priors, unit_box
 from .priors import AgePrior, AVPrior, ChabrierPrior, EEP_prior, FehPrior
+from .tracing import span, spanned
 
 __all__ = ["BatchStarFitter", "fit_catalog"]
 
@@ -188,6 +189,7 @@ class BatchStarFitter:
         on the card one kernel launch."""
         return self._lnpost(self._tensor(pars))
 
+    @spanned("catalog.lnpost")
     def _lnpost(self, x, his=None):
         """The posterior at parameters ``x``, or at unit-cube points ``x`` with
         the box tops ``his`` (S, 5). A prior object outside the packed
@@ -301,17 +303,18 @@ class BatchStarFitter:
             return los[None, None] + (his[:, None] - los[None, None]) * u
 
         # initial live points: -inf starts are resampled in full batches
-        u0 = rng.random((S, n_live, 5))
-        lnl = self._lnpost_host(box(u0))
-        for _ in range(200):
-            bad = ~np.isfinite(lnl)
-            if not bad.any():
-                break
-            u_new = rng.random((S, n_live, 5))
-            l_new = self._lnpost_host(box(u_new))
-            take = bad & np.isfinite(l_new)
-            u0 = np.where(take[..., None], u_new, u0)
-            lnl = np.where(take, l_new, lnl)
+        with span("catalog.start"):
+            u0 = rng.random((S, n_live, 5))
+            lnl = self._lnpost_host(box(u0))
+            for _ in range(200):
+                bad = ~np.isfinite(lnl)
+                if not bad.any():
+                    break
+                u_new = rng.random((S, n_live, 5))
+                l_new = self._lnpost_host(box(u_new))
+                take = bad & np.isfinite(l_new)
+                u0 = np.where(take[..., None], u_new, u0)
+                lnl = np.where(take, l_new, lnl)
         if not np.isfinite(lnl).all():
             getLogger().warning("fit_multinest: %d live points still invalid after init resampling",
                                 int((~np.isfinite(lnl)).sum()))

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..logger import getLogger
+from ..tracing import span, spanned
 
 __all__ = ["CheckpointConfigError", "NestedResult", "run_nested", "run_nested_vmapped"]
 
@@ -464,17 +465,18 @@ def _constrained_walk_family(lnlike_fam, g, start, lnl_start, lnl_star, scale, n
     M = start.shape[0]
     n_acc = torch.zeros(lnl_start.shape, dtype=torch.int32, device=start.device)
     for _ in range(n_repeat):
-        eps = torch.randn(x.shape, generator=g, device=x.device, dtype=x.dtype)
-        if L is not None:
-            eps = eps @ L.transpose(1, 2)
-        prop = x + eps * scale[:, None, None]
-        prop = 1.0 - torch.abs(1.0 - torch.abs(prop) % 2.0)
-        lnl_prop = lnlike_fam(prop)
-        lnl_prop = torch.where(torch.isnan(lnl_prop), float("-inf"), lnl_prop)
-        ok = lnl_prop > lnl_star[:, None]
-        x = torch.where(ok[..., None], prop, x)
-        lnl = torch.where(ok, lnl_prop, lnl)
-        n_acc = n_acc + ok.to(torch.int32)
+        with span("nested.walk_step"):
+            eps = torch.randn(x.shape, generator=g, device=x.device, dtype=x.dtype)
+            if L is not None:
+                eps = eps @ L.transpose(1, 2)
+            prop = x + eps * scale[:, None, None]
+            prop = 1.0 - torch.abs(1.0 - torch.abs(prop) % 2.0)
+            lnl_prop = lnlike_fam(prop)
+            lnl_prop = torch.where(torch.isnan(lnl_prop), float("-inf"), lnl_prop)
+            ok = lnl_prop > lnl_star[:, None]
+            x = torch.where(ok[..., None], prop, x)
+            lnl = torch.where(ok, lnl_prop, lnl)
+            n_acc = n_acc + ok.to(torch.int32)
     moved = (n_acc > 0).reshape(M, n_groups, n_chains)
     scores = torch.rand((M, n_groups, n_chains), generator=g, device=x.device, dtype=x.dtype) + moved.to(x.dtype)
     pick = torch.argmax(scores, dim=2, keepdim=True)  # (M, n_groups, 1)
@@ -495,23 +497,24 @@ def _nested_core_family(lnlike_fam, u, lnl, g, scale, n_live, n_iter, n_chains, 
     M = u.shape[0]
     dead_u, dead_lnl = [], []
     for _ in range(n_iter):
-        neg_vals, worst = torch.topk(-lnl, K, dim=-1)  # each problem's K smallest lnL, ascending
-        d_lnl = -neg_vals
-        dead_u.append(_gather_rows(u, worst))
-        dead_lnl.append(d_lnl)
-        lnl_star = d_lnl[:, -1]
+        with span("nested.step"):
+            neg_vals, worst = torch.topk(-lnl, K, dim=-1)  # each problem's K smallest lnL, ascending
+            d_lnl = -neg_vals
+            dead_u.append(_gather_rows(u, worst))
+            dead_lnl.append(d_lnl)
+            lnl_star = d_lnl[:, -1]
 
-        order = torch.argsort(lnl, dim=-1)
-        pick = torch.randint(K, n_live, (M, K * n_chains), generator=g, device=u.device)
-        starts = torch.gather(order, 1, pick)
-        L = _live_cholesky_family(u)
-        new_u, new_lnl, _, acc = _constrained_walk_family(
-            lnlike_fam, g, _gather_rows(u, starts), _gather_rows(lnl, starts), lnl_star, scale, K, n_chains,
-            n_repeat, L=L,
-        )
-        u = u.scatter(1, worst[..., None].expand(-1, -1, u.shape[-1]), new_u)
-        lnl = lnl.scatter(1, worst, new_lnl)
-        scale = torch.clamp(scale * torch.exp(0.7 * (acc - 0.35)), 1e-4, 4.0)
+            order = torch.argsort(lnl, dim=-1)
+            pick = torch.randint(K, n_live, (M, K * n_chains), generator=g, device=u.device)
+            starts = torch.gather(order, 1, pick)
+            L = _live_cholesky_family(u)
+            new_u, new_lnl, _, acc = _constrained_walk_family(
+                lnlike_fam, g, _gather_rows(u, starts), _gather_rows(lnl, starts), lnl_star, scale, K, n_chains,
+                n_repeat, L=L,
+            )
+            u = u.scatter(1, worst[..., None].expand(-1, -1, u.shape[-1]), new_u)
+            lnl = lnl.scatter(1, worst, new_lnl)
+            scale = torch.clamp(scale * torch.exp(0.7 * (acc - 0.35)), 1e-4, 4.0)
     return torch.cat(dead_u, dim=1), torch.cat(dead_lnl, dim=1), u, lnl, scale
 
 
@@ -1053,6 +1056,7 @@ def _run_nested_multi(lnpost_u, prior_transform, n_params, generator, *, n_live,
 
 
 @np.errstate(divide="ignore", invalid="ignore")  # a problem without support has -inf evidences
+@spanned("nested.run")
 def run_nested_vmapped(
     lnlike_u: Callable,
     data,
@@ -1211,21 +1215,24 @@ def run_nested_vmapped(
             thread_segments=thread_segments, dynamic_rounds=dyn_rounds,
         ))
 
-    base_done = state is not None and state["phase"] == "dynamic"
-    while not base_done and n_dead_total < hard_cap and not _base_terminated():
+    stop = (state is not None and state["phase"] == "dynamic") or _base_terminated()
+    while not stop and n_dead_total < hard_cap:
         n_steps = min(chunk_steps, max((hard_cap - n_dead_total) // n_batch, 1))
-        du, dl, live_u, live_lnl, scales = _nested_core_family(
-            fam, live_u, live_lnl, g, scales, n_live, n_steps, n_chains, n_repeat, n_batch=n_batch
-        )
-        # the chunk's one read-back
-        dead_u_chunks.append(du.cpu().numpy())  # (M, n_steps * K, n_params)
-        dead_lnl_chunks.append(dl.cpu().numpy())
-        live_lnl_np = live_lnl.cpu().numpy()
+        with span("nested.chunk"):
+            du, dl, live_u, live_lnl, scales = _nested_core_family(
+                fam, live_u, live_lnl, g, scales, n_live, n_steps, n_chains, n_repeat, n_batch=n_batch
+            )
+        with span("nested.readback"):  # the chunk's one read-back
+            dead_u_chunks.append(du.cpu().numpy())  # (M, n_steps * K, n_params)
+            dead_lnl_chunks.append(dl.cpu().numpy())
+            live_lnl_np = live_lnl.cpu().numpy()
         n_dead_total += n_steps * n_batch
-        running.add(dead_lnl_chunks[-1])
+        with span("nested.evidence"):
+            running.add(dead_lnl_chunks[-1])
+            stop = _base_terminated()
         _save("base")
-    # a hard-cap or a restored dynamic phase skips the loop's check: `done`
-    # for the final report
+    # a restored dynamic phase skips the loop's check: `done` for the final
+    # report
     _base_terminated()
 
     dead_u = np.concatenate(dead_u_chunks, axis=1)
@@ -1323,33 +1330,34 @@ def run_nested_vmapped(
     ess = np.empty(M)
     samples_u = np.empty((M, n_equal, n_params))
     lnl_eq = np.empty((M, n_equal))
-    for s in range(M):
-        if merged is not None:
-            all_u, all_lnl, _, lz, probs, e, _h, lzerr = merged[s]
-            logzerr[s] = lzerr
-        else:
-            order, all_lnl, all_logwt, lz, probs, e = _assemble_weights(dead_lnl[s], live_lnl_np[s], n_live,
-                                                                        n_batch=n_batch)
-            all_u = np.concatenate([dead_u[s], live_u_np[s][order]], axis=0)
-            finite = np.isfinite(all_logwt)
-            p = np.exp(all_logwt[finite] - lz)
-            h = float(np.sum(p * (all_lnl[finite] - lz)))
-            logzerr[s] = np.sqrt(max(h, 0.0) * _logzerr_scale(n_live, n_batch))
-        logz[s] = lz
-        ess[s] = e
-        if not np.isfinite(lz) or probs.sum() <= 0:
-            # no posterior support anywhere: NaN draws for this problem, the
-            # family goes on
-            getLogger().warning(
-                "run_nested_vmapped: %s %d has no posterior support (logz=%s); returning NaN samples for it.",
-                label, s, lz,
-            )
-            samples_u[s] = np.nan
-            lnl_eq[s] = -np.inf
-            continue
-        idx = rng.choice(len(probs), size=n_equal, replace=True, p=probs)
-        samples_u[s] = all_u[idx]
-        lnl_eq[s] = all_lnl[idx]
+    with span("nested.weights"):
+        for s in range(M):
+            if merged is not None:
+                all_u, all_lnl, _, lz, probs, e, _h, lzerr = merged[s]
+                logzerr[s] = lzerr
+            else:
+                order, all_lnl, all_logwt, lz, probs, e = _assemble_weights(dead_lnl[s], live_lnl_np[s], n_live,
+                                                                            n_batch=n_batch)
+                all_u = np.concatenate([dead_u[s], live_u_np[s][order]], axis=0)
+                finite = np.isfinite(all_logwt)
+                p = np.exp(all_logwt[finite] - lz)
+                h = float(np.sum(p * (all_lnl[finite] - lz)))
+                logzerr[s] = np.sqrt(max(h, 0.0) * _logzerr_scale(n_live, n_batch))
+            logz[s] = lz
+            ess[s] = e
+            if not np.isfinite(lz) or probs.sum() <= 0:
+                # no posterior support anywhere: NaN draws for this problem,
+                # the family goes on
+                getLogger().warning(
+                    "run_nested_vmapped: %s %d has no posterior support (logz=%s); returning NaN samples for it.",
+                    label, s, lz,
+                )
+                samples_u[s] = np.nan
+                lnl_eq[s] = -np.inf
+                continue
+            idx = rng.choice(len(probs), size=n_equal, replace=True, p=probs)
+            samples_u[s] = all_u[idx]
+            lnl_eq[s] = all_lnl[idx]
 
     converged = done & (ess >= min_ess) if dynamic else done
     if not converged.all():

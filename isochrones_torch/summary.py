@@ -27,6 +27,7 @@ import tokenize
 
 import numpy as np
 
+from .tracing import span
 from .utils import load_results, stored_table
 
 __all__ = ["Frame", "quantile_frame", "derived_quantile_frame", "summarize_batch", "get_quantiles",
@@ -331,10 +332,12 @@ def derived_quantile_frame(ic, samples, qs=DEFAULT_QS, columns=None, index=None)
         stand_in = np.nanmedian(np.where(bad[:, None], np.nan, flat), axis=0) if not bad.all() else np.ones(P)
         flat = np.where(bad[:, None], stand_in, flat)
     flat = np.where(np.isfinite(flat), flat, 1.0)
-    derived = ic(*[flat[:, i] for i in range(5)])
-    names = [c for c in derived if columns is None or any(re.search(c2, c) for c2 in columns)]
-    stacked = np.stack([np.where(bad, np.nan, np.asarray(derived[c], dtype=float)) for c in names], axis=-1)
-    return quantile_frame(stacked.reshape(S, N, len(names)), names, qs=qs, index=index)
+    with span("summary.derived_interp"):
+        derived = ic(*[flat[:, i] for i in range(5)])
+        names = [c for c in derived if columns is None or any(re.search(c2, c) for c2 in columns)]
+        stacked = np.stack([np.where(bad, np.nan, np.asarray(derived[c], dtype=float)) for c in names], axis=-1)
+    with span("summary.derived_quantiles"):
+        return quantile_frame(stacked.reshape(S, N, len(names)), names, qs=qs, index=index)
 
 
 def summarize_batch(fitter, qs=DEFAULT_QS, derived=True, columns=DEFAULT_COLUMNS, filename=None,
@@ -351,7 +354,8 @@ def summarize_batch(fitter, qs=DEFAULT_QS, derived=True, columns=DEFAULT_COLUMNS
         ``.hdf``, ``.hdf5``) is written to ``<name>.csv`` (:func:`_write`).
     """
     idx = fitter.catalog.index
-    out = quantile_frame(fitter.samples, list(fitter.param_names), qs=qs, index=idx)
+    with span("summary.param_quantiles"):
+        out = quantile_frame(fitter.samples, list(fitter.param_names), qs=qs, index=idx)
     if derived:
         samples_d = np.asarray(fitter.samples)
         n_draws = samples_d.shape[1]
