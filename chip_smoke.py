@@ -1438,6 +1438,8 @@ def profile_kernels(fn, reps=1, required=True):
     an empty dict."""
     import torch
 
+    from isochrones_torch.tracing import PREFIX
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(8):
         with torch.profiler.profile(activities=acts) as prof:
@@ -1447,8 +1449,8 @@ def profile_kernels(fn, reps=1, required=True):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+        for e in prof.events():  # the program's spans have copies on the device's timeline: not kernels
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(PREFIX):
                 ms, n = by_name.get(e.name, (0.0, 0))
                 by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
         if by_name:

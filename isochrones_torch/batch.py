@@ -221,21 +221,28 @@ class BatchStarFitter:
         sub._likelihood = sub._prior_pack = sub._shards = None
         return sub
 
-    def _mesh_lnpost(self, mesh):
-        """The posterior ``(x (S, B, 5), his (S, 5) or None) -> (S, B)`` with
-        its star axis split over ``mesh`` (the counterpart of the JAX
-        package's star-sharded ``_build_lnpost_data``): shard k evaluates
-        its stars' parameters against its stars' observations, on its
-        device. The shard fitters are built at every call (once a fit) from
-        the fitter's priors and bounds as they are then, and kept in
+    def _mesh_shards(self, mesh):
+        """The fitters of the star axis split over ``mesh``, one a shard (its
+        stars' observations, on its device), built at every call (once a fit)
+        from the fitter's priors and bounds as they are then, and kept in
         ``_shards``."""
-        from .parallel import check_mesh, mesh_wrap_fn, replicas, shard_sizes
+        from .parallel import check_mesh, replicas, shard_sizes
 
         mesh = check_mesh(mesh, self.device)
         ics = replicas(self.ic, mesh)
         bounds = np.cumsum([0] + shard_sizes(self.n_stars, mesh))
         self._shards = [self._shard(int(bounds[k]), int(bounds[k + 1]), ics[d]) for k, d in enumerate(mesh.devices)]
-        return mesh_wrap_fn([sub._lnpost for sub in self._shards], mesh)
+        return self._shards
+
+    def _mesh_lnpost(self, mesh):
+        """The posterior ``(x (S, B, 5), his (S, 5) or None) -> (S, B)`` with
+        its star axis split over ``mesh`` (the counterpart of the JAX
+        package's star-sharded ``_build_lnpost_data``): shard k evaluates
+        its stars' parameters against its stars' observations, on its
+        device (:meth:`_mesh_shards`)."""
+        from .parallel import mesh_wrap_fn
+
+        return mesh_wrap_fn([sub._lnpost for sub in self._mesh_shards(mesh)], mesh)
 
     # ------------------------------------------------------- nested sampling
     def _bounds_arrays(self):
@@ -294,7 +301,6 @@ class BatchStarFitter:
         """
         from .samplers.nested import run_nested_vmapped
 
-        lnpost = self._lnpost if mesh is None else self._mesh_lnpost(mesh)
         S, n_live = self.n_stars, int(n_live_points)
         rng = np.random.default_rng(seed)
         los, his = self._bounds_arrays()
@@ -320,13 +326,15 @@ class BatchStarFitter:
                                 int((~np.isfinite(lnl)).sum()))
 
         def lnlike_u(his_t, u):  # (S, B, 5) unit cube -> (S, B), every star at once, the box map in the kernel
-            return lnpost(u, his_t)
+            return self._lnpost(u, his_t)
 
+        if mesh is not None:  # one a shard of the star axis, which the sampler splits over the mesh
+            lnlike_u = [lambda his_t, u, lnpost=sub._lnpost: lnpost(u, his_t) for sub in self._mesh_shards(mesh)]
         out = run_nested_vmapped(
             lnlike_u, self._tensor(his), self._tensor(u0), self._tensor(lnl), n_live=n_live, n_batch=n_batch,
             n_chains=n_chains, n_repeat=n_repeat, n_equal=n_equal, dlogz=dlogz, min_ess=min_ess, max_iter=max_iter,
-            seed=seed, rng=rng, label="star", dynamic=dynamic, posterior_frac=posterior_frac, max_dynamic_rounds=max_dynamic_rounds,
-            checkpoint=checkpoint, resume=resume,
+            seed=seed, rng=rng, mesh=mesh, label="star", dynamic=dynamic, posterior_frac=posterior_frac,
+            max_dynamic_rounds=max_dynamic_rounds, checkpoint=checkpoint, resume=resume,
         )
         # unit cube -> per-star boxes (NaN rows of stars without support stay NaN)
         self._samples = box(out["samples_u"])

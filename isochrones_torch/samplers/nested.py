@@ -24,11 +24,15 @@ included, is written at every chunk and thread-round boundary; a resumed run
 is bitwise the run that never stopped (same device, same dtype).
 
 Families of problems run in lockstep on the same loop
-(:func:`_nested_core_family`, a leading problem axis M on every op): ``M``
+(:class:`_FamilySteps`, a leading problem axis M on every op): ``M``
 independent runs of one likelihood (``run_nested(n_runs=M)``) or ``M``
 problems with their own data (:func:`run_nested_vmapped`, a whole catalog of
 stars). Each walk step is one likelihood call over ``(M, B, p)`` points, so
-the number of launches per step does not grow with M.
+the number of launches per step does not grow with M. On a CUDA device without
+a mesh, :func:`run_nested_vmapped` replays its second and later steps as one
+CUDA graph (``_FamilySteps(graphed=True)``): the same kernels and the same
+draws as the eager steps, launched once a step, so the host no longer sets the
+pace of the walk's few hundred small launches.
 
 With ``mesh`` (an :class:`~isochrones_torch.parallel.Mesh`) the likelihood
 fan-out is split over the mesh's shards: the walk batch of a single run, the
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import sys
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -488,34 +493,168 @@ def _constrained_walk_family(lnlike_fam, g, start, lnl_start, lnl_star, scale, n
     return x_pick, lnl_pick, moved_pick, accept_rate
 
 
-def _nested_core_family(lnlike_fam, u, lnl, g, scale, n_live, n_iter, n_chains, n_repeat, n_batch=1):
-    """:func:`_nested_core` for M problems at once: live sets ``u`` (M,
-    n_live, p) and ``lnl`` (M, n_live), per-problem walk scales ``scale``
-    (M,). Dead points come out (M, n_iter * n_batch, ...), ascending in lnL
-    within each batch of each problem."""
-    K = n_batch
+def _family_step(lnlike_fam, u, lnl, g, scale, n_live, n_chains, n_repeat, K):
+    """One step of a family run (:class:`_FamilySteps`): the ``K`` worst live points
+    of each problem die (ascending in lnL) and constrained walks above the
+    highest of them replace them. Returns ``(dead_u (M, K, p), dead_lnl (M,
+    K), u, lnl, scale)``."""
     M = u.shape[0]
-    dead_u, dead_lnl = [], []
-    for _ in range(n_iter):
-        with span("nested.step"):
-            neg_vals, worst = torch.topk(-lnl, K, dim=-1)  # each problem's K smallest lnL, ascending
-            d_lnl = -neg_vals
-            dead_u.append(_gather_rows(u, worst))
-            dead_lnl.append(d_lnl)
-            lnl_star = d_lnl[:, -1]
+    neg_vals, worst = torch.topk(-lnl, K, dim=-1)  # each problem's K smallest lnL, ascending
+    d_lnl = -neg_vals
+    d_u = _gather_rows(u, worst)
+    lnl_star = d_lnl[:, -1]
 
-            order = torch.argsort(lnl, dim=-1)
-            pick = torch.randint(K, n_live, (M, K * n_chains), generator=g, device=u.device)
-            starts = torch.gather(order, 1, pick)
-            L = _live_cholesky_family(u)
-            new_u, new_lnl, _, acc = _constrained_walk_family(
-                lnlike_fam, g, _gather_rows(u, starts), _gather_rows(lnl, starts), lnl_star, scale, K, n_chains,
-                n_repeat, L=L,
-            )
-            u = u.scatter(1, worst[..., None].expand(-1, -1, u.shape[-1]), new_u)
-            lnl = lnl.scatter(1, worst, new_lnl)
-            scale = torch.clamp(scale * torch.exp(0.7 * (acc - 0.35)), 1e-4, 4.0)
-    return torch.cat(dead_u, dim=1), torch.cat(dead_lnl, dim=1), u, lnl, scale
+    order = torch.argsort(lnl, dim=-1)
+    pick = torch.randint(K, n_live, (M, K * n_chains), generator=g, device=u.device)
+    starts = torch.gather(order, 1, pick)
+    L = _live_cholesky_family(u)
+    new_u, new_lnl, _, acc = _constrained_walk_family(
+        lnlike_fam, g, _gather_rows(u, starts), _gather_rows(lnl, starts), lnl_star, scale, K, n_chains, n_repeat,
+        L=L,
+    )
+    u = u.scatter(1, worst[..., None].expand(-1, -1, u.shape[-1]), new_u)
+    lnl = lnl.scatter(1, worst, new_lnl)
+    scale = torch.clamp(scale * torch.exp(0.7 * (acc - 0.35)), 1e-4, 4.0)
+    return d_u, d_lnl, u, lnl, scale
+
+
+def _graphed(device, mesh):
+    """Whether a family run replays its step as a CUDA graph: walks on a
+    CUDA device and no mesh (a mesh's shards launch on other devices)."""
+    return device.type == "cuda" and mesh is None
+
+
+def _launch_counters():
+    """The kernel wrappers of the loaded ``isochrones_torch.ops`` modules that
+    count their launches (``fn.launches``)."""
+    found = {}
+    for name, mod in list(sys.modules.items()):
+        if name.startswith("isochrones_torch.ops.") and mod is not None:
+            for fn in vars(mod).values():
+                if callable(fn) and isinstance(getattr(fn, "launches", None), int):
+                    found[id(fn)] = fn
+    return list(found.values())
+
+
+def _capture(body, g):
+    """``body()`` captured once as a CUDA graph on a side stream, in
+    thread-local error mode, with the generator ``g`` registered so that each
+    replay draws from ``g``'s state at its launch and advances ``g`` as the
+    eager body would. Nothing runs during the capture, so the kernel
+    wrappers' launch counters are set back after it, and each replay adds
+    what the capture counted. Returns ``replay()``, which launches the graph
+    on the current stream and returns ``body``'s outputs (the graph's static
+    tensors). Raises where the body cannot be captured (a read-back to the
+    host, a copy from pageable memory)."""
+    dev = g.device
+    counters = _launch_counters()
+    before = [fn.launches for fn in counters]
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(g)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    try:
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = body()
+            except BaseException:
+                try:
+                    graph.capture_end()  # void now; the body's error says why
+                except Exception:  # noqa: BLE001
+                    pass
+                raise
+            graph.capture_end()
+    finally:
+        added = [fn.launches - n for fn, n in zip(counters, before)]
+        for fn, n in zip(counters, before):
+            fn.launches = n
+    torch.cuda.current_stream(dev).wait_stream(side)
+
+    def replay():
+        graph.replay()
+        for fn, n in zip(counters, added):
+            fn.launches += n
+        return out
+    return replay
+
+
+class _FamilySteps:
+    """The steps of one family run (:func:`_family_step` in lockstep over M
+    problems), in chunks; with ``graphed`` the second and later steps replay
+    one CUDA graph of the step.
+
+    The run's first step is eager: it makes the library handles and the
+    likelihood's lazily built tensors before any capture. The second
+    captures the step (the likelihood and ``_constrained_walk_family`` as
+    the module holds them then) over static buffers of the live set, its lnL
+    and the scales, which the graph writes in place, and a generator of the
+    graph's own; that step and every later one replay it. The live state and
+    the run generator's state move into the graph at a chunk's first replay
+    and out of it at the chunk's end, so no buffer escapes a chunk and the
+    run's generator reads, between chunks, what the eager steps leave. A
+    capture that raises touches neither: it logs one warning and leaves the
+    run eager from the same state. (A generator registered with a capture
+    that fails stays in capture mode, since ``capture_end`` raises before it
+    closes the generator's capture, and then refuses every eager draw; the
+    graph's own generator is dropped with the failed graph.) The graph and
+    its memory go with the object."""
+
+    def __init__(self, lnlike_fam, g, n_live, n_chains, n_repeat, n_batch, graphed=False):
+        self.step = lambda u, lnl, scale, gen: _family_step(lnlike_fam, u, lnl, gen, scale, n_live, n_chains,
+                                                            n_repeat, n_batch)
+        self.g, self.K, self.graphed = g, n_batch, graphed
+        self.steps = 0
+        self.replay = self.state = self.gen = None
+
+    def chunk(self, u, lnl, scale, n_iter):
+        """``n_iter`` steps from the live sets ``u`` (M, n_live, p), their
+        ``lnl`` (M, n_live) and the per-problem walk scales ``scale`` (M,).
+        Dead points come out (M, n_iter * n_batch, ...), ascending in lnL
+        within each batch of each problem."""
+        K = self.K
+        M, _, p = u.shape
+        dead_u = u.new_empty((M, n_iter * K, p))
+        dead_lnl = lnl.new_empty((M, n_iter * K))
+        in_graph = False  # whether the live state sits in the graph's buffers
+        for i in range(n_iter):
+            with span("nested.step"):
+                if self.graphed and self.steps and self.replay is None:
+                    self.graphed = False  # one capture a run, whether it holds or not
+                    gen = torch.Generator(device=self.g.device)
+                    state = tuple(torch.empty_like(t) for t in (u, lnl, scale))
+
+                    def body():
+                        d_u, d_lnl, *new = self.step(*state, gen)
+                        for buf, t in zip(state, new):
+                            buf.copy_(t)
+                        return d_u, d_lnl
+
+                    try:
+                        with span("nested.capture"):
+                            self.replay = _capture(body, gen)
+                        self.state, self.gen = state, gen
+                    except Exception as err:  # noqa: BLE001 - any failure leaves the run eager
+                        getLogger().warning(
+                            "run_nested_vmapped: the nested step could not be captured as a CUDA graph (%s: %s); "
+                            "the run goes on without one.", type(err).__name__, (str(err).splitlines() or [""])[0])
+                if self.replay is not None:
+                    if not in_graph:
+                        for buf, t in zip(self.state, (u, lnl, scale)):
+                            buf.copy_(t)
+                        self.gen.set_state(self.g.get_state())
+                        in_graph = True
+                    with span("nested.replay"):
+                        d_u, d_lnl = self.replay()
+                else:
+                    d_u, d_lnl, u, lnl, scale = self.step(u, lnl, scale, self.g)
+                dead_u[:, i * K:(i + 1) * K] = d_u
+                dead_lnl[:, i * K:(i + 1) * K] = d_lnl
+            self.steps += 1
+        if in_graph:
+            u, lnl, scale = (buf.clone() for buf in self.state)
+            self.g.set_state(self.gen.get_state())
+        return dead_u, dead_lnl, u, lnl, scale
 
 
 def _family_terminated(running, live_lnl_np, dlogz):
@@ -873,7 +1012,7 @@ def _run_nested_multi(lnpost_u, prior_transform, n_params, generator, *, n_live,
                       n_equal, dlogz, n_batch, rng, min_ess, on_low_ess, n_runs, checkpoint, resume, config_tag,
                       dtype, device, mesh=None):
     """``n_runs`` independent runs of one problem advanced in lockstep by
-    :func:`_nested_core_family` (counterpart of the JAX package's
+    :class:`_FamilySteps` (counterpart of the JAX package's
     ``_run_nested_multi``, ``isochrones_tpu/samplers/nested.py:902-1124``):
     every run has its own live set and walk scale, and each walk step is one
     likelihood call over all runs' points. The loop stops when every run has
@@ -949,6 +1088,7 @@ def _run_nested_multi(lnpost_u, prior_transform, n_params, generator, *, n_live,
         dead_lnl_chunks = [np.zeros((R, 0), dtype=live_lnl_np.dtype)]
         n_dead_total = 0
     chunk_steps = max(_chunk_dead(n_live) // n_batch, 8)
+    steps = _FamilySteps(lnlike_fam, g, n_live, n_chains, n_repeat, n_batch)
 
     def _terminated():
         if running.n_dead == 0:
@@ -965,9 +1105,7 @@ def _run_nested_multi(lnpost_u, prior_transform, n_params, generator, *, n_live,
 
     while n_dead_total < hard_cap and not _terminated():
         n_steps = min(chunk_steps, max((hard_cap - n_dead_total) // n_batch, 1))
-        du, dl, live_u, live_lnl, scales = _nested_core_family(
-            lnlike_fam, live_u, live_lnl, g, scales, n_live, n_steps, n_chains, n_repeat, n_batch=n_batch
-        )
+        du, dl, live_u, live_lnl, scales = steps.chunk(live_u, live_lnl, scales, n_steps)
         dead_u_chunks.append(du.cpu().numpy())  # (R, n_steps * K, p)
         dead_lnl_chunks.append(dl.cpu().numpy())
         live_lnl_np = live_lnl.cpu().numpy()
@@ -1096,6 +1234,9 @@ def run_nested_vmapped(
         place of the JAX package's ``make_lnlike_u(data_m)``, a per-problem
         closure that ``jax.vmap`` maps over ``data``: a ctypes kernel call
         cannot be vmapped in torch, so the family function sees all problems.
+        With ``mesh`` it may be a list of one such function per shard (a
+        shard's own data), as :func:`~isochrones_torch.parallel.mesh_wrap_fn`
+        takes.
     data : handed to ``lnlike_u`` unchanged (one row per problem).
     live_u, live_lnl : (M, n_live, n_params) / (M, n_live) initial live points
         and their ln-likelihoods (tensors or arrays): draw from the prior and
@@ -1118,6 +1259,13 @@ def run_nested_vmapped(
         the walks' device: each call's problem axis (of ``data`` and the
         points) is split over the shards, and ``lnlike_u`` sees one shard's
         rows on its shard's device.
+
+    On a CUDA device without a mesh, the second and later steps (of the base
+    runs and of the threads) replay one CUDA graph of the step, captured at
+    the second step with the ``lnlike_u`` of this call and freed when it
+    returns: bitwise the eager steps. ``lnlike_u`` must then queue its work on
+    the current stream without reading back to the host; one that cannot be
+    captured leaves the run eager, with a warning.
 
     One ``torch.Generator`` drives the family's draws, where the JAX package
     splits a key per problem: a problem's draws depend on M, so the two
@@ -1152,6 +1300,10 @@ def run_nested_vmapped(
 
     def fam(u):
         return family(data, u)
+
+    # the base runs' and the threads' steps, replayed as one CUDA graph where
+    # that engages, else eager
+    steps = _FamilySteps(fam, g, n_live, n_chains, n_repeat, n_batch, graphed=_graphed(dev, mesh))
 
     ckpt_cfg = state = None
     if checkpoint is not None:
@@ -1219,9 +1371,7 @@ def run_nested_vmapped(
     while not stop and n_dead_total < hard_cap:
         n_steps = min(chunk_steps, max((hard_cap - n_dead_total) // n_batch, 1))
         with span("nested.chunk"):
-            du, dl, live_u, live_lnl, scales = _nested_core_family(
-                fam, live_u, live_lnl, g, scales, n_live, n_steps, n_chains, n_repeat, n_batch=n_batch
-            )
+            du, dl, live_u, live_lnl, scales = steps.chunk(live_u, live_lnl, scales, n_steps)
         with span("nested.readback"):  # the chunk's one read-back
             dead_u_chunks.append(du.cpu().numpy())  # (M, n_steps * K, n_params)
             dead_lnl_chunks.append(dl.cpu().numpy())
@@ -1298,9 +1448,7 @@ def run_nested_vmapped(
             t_dead_u_chunks, t_dead_lnl_chunks = [], []
             while n_dead_total < hard_cap:
                 n_steps = min(chunk_steps, max((hard_cap - n_dead_total) // n_batch, 1))
-                du, dl, t_live_u, t_live_lnl, scales = _nested_core_family(
-                    fam, t_live_u, t_live_lnl, g, scales, n_live, n_steps, n_chains, n_repeat, n_batch=n_batch
-                )
+                du, dl, t_live_u, t_live_lnl, scales = steps.chunk(t_live_u, t_live_lnl, scales, n_steps)
                 t_dead_u_chunks.append(du.cpu().numpy())
                 t_dead_lnl_chunks.append(dl.cpu().numpy())
                 n_dead_total += n_steps * n_batch

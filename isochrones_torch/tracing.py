@@ -13,7 +13,9 @@ span that covers it. To read them, wrap the work in the profiler::
 
 A count is the number of spans of one name in the traced window. The spans
 change no arithmetic and draw no random numbers: a fit under the profiler is
-bitwise the fit without it.
+bitwise the fit without it. While the current CUDA stream captures a graph,
+:func:`span` is the no-op too: a span there would time the enqueue of work
+that runs later, at each replay.
 """
 
 from __future__ import annotations
@@ -29,9 +31,15 @@ PREFIX = "isochrones_torch."
 _OFF = contextlib.nullcontext()
 
 
+def _capturing():
+    """Whether the current CUDA stream is capturing a graph."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
 def span(name):
-    """The span ``PREFIX + name`` while a profiler records, else a no-op."""
-    if torch._C._autograd._profiler_enabled():
+    """The span ``PREFIX + name`` while a profiler records and no graph is
+    being captured, else a no-op."""
+    if torch._C._autograd._profiler_enabled() and not _capturing():
         return torch.profiler.record_function(PREFIX + name)
     return _OFF
 

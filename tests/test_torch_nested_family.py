@@ -9,6 +9,7 @@ the bar of ``tests/test_torch_nested.py``, 3 sqrt(logzerr1^2 + logzerr2^2),
 with fixed seeds. A resumed run is bitwise the run that never stopped.
 """
 
+import logging
 import os
 import pickle
 
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 import isochrones_torch.samplers.nested as tn
+from isochrones_torch import tracing
 from isochrones_tpu.samplers.nested import run_nested as jax_run_nested
 from isochrones_tpu.samplers.nested import run_nested_vmapped as jax_run_nested_vmapped
 from isochrones_torch.samplers.nested import run_nested, run_nested_vmapped
@@ -88,8 +90,8 @@ def test_family_core_invariants():
     g.manual_seed(0)
     u, lnl = torch.as_tensor(u0), torch.as_tensor(l0)
     scale = torch.full((3,), 0.5, dtype=torch.float64)
-    du, dl, u2, l2, s2 = tn._nested_core_family(lambda x: lnlike_fam(c, x), u, lnl, g, scale, 80, 5, 4, 8,
-                                                n_batch=8)
+    steps = tn._FamilySteps(lambda x: lnlike_fam(c, x), g, 80, 4, 8, 8)
+    du, dl, u2, l2, s2 = steps.chunk(u, lnl, scale, 5)
     assert du.shape == (3, 40, 2) and dl.shape == (3, 40) and s2.shape == (3,)
     batches = dl.reshape(3, 5, 8)
     assert (batches[..., 1:] >= batches[..., :-1]).all()
@@ -162,6 +164,111 @@ def test_family_refuses_mesh_and_wrong_live_count():
         _run(c, u0, l0, mesh=object())
     with pytest.raises(ValueError, match="n_live"):
         run_nested_vmapped(lnlike_fam, c, u0, l0, device="cpu", n_live=40)
+
+
+# ------------------------------------------------ the step as a CUDA graph
+# On the CPU a stand-in takes the graph's place: its capture runs nothing and
+# each replay runs the captured step with the spans off, as a graph's replay
+# opens none. So the run's bookkeeping around the graph (the static buffers,
+# the chunks' dead rows, the threads, the checkpoint, the fallback) is held to
+# the eager run here; tests/test_torch_nested_graph.py replays real graphs on
+# the card.
+
+
+def _graph_stand_in(monkeypatch, fail=False):
+    """Engage the graphed step on the CPU with a stand-in capture; returns
+    the counts of captures and replays. With ``fail`` the capture draws from
+    the generator and raises, as a capture that meets a read-back does."""
+    calls = dict(captures=0, replays=0)
+
+    def capture(body, g):
+        calls["captures"] += 1
+        if fail:
+            torch.rand(3, generator=g)
+            raise RuntimeError("CUDA error: operation not permitted when stream is capturing")
+
+        def replay():
+            calls["replays"] += 1
+            with pytest.MonkeyPatch.context() as m:
+                m.setattr(tracing, "_capturing", lambda: True)
+                return body()
+        return replay
+
+    monkeypatch.setattr(tn, "_graphed", lambda device, mesh: mesh is None)
+    monkeypatch.setattr(tn, "_capture", capture)
+    return calls
+
+
+def test_graphs_engage_on_a_card_without_a_mesh():
+    from isochrones_torch.parallel import default_mesh
+
+    assert tn._graphed(torch.device("cuda", 0), None)
+    assert not tn._graphed(torch.device("cpu"), None)
+    assert not tn._graphed(torch.device("cuda", 0), default_mesh(2, ("problems",), device="cpu"))
+
+
+def test_the_launch_counters_are_the_kernel_wrappers():
+    """What a capture sets back and a replay adds: each counting wrapper of
+    the loaded ``ops`` modules, once."""
+    from isochrones_torch.ops.catalog_cuda import catalog_lnlike_cuda, catalog_lnpost_cuda
+    from isochrones_torch.ops.star_cuda import star_lnlike_cuda
+
+    found = tn._launch_counters()
+    assert len({id(fn) for fn in found}) == len(found)
+    for fn in (catalog_lnlike_cuda, catalog_lnpost_cuda, star_lnlike_cuda):
+        assert sum(f is fn for f in found) == 1
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_graphed_family_run_is_bitwise_the_eager_run(monkeypatch, dynamic):
+    """One capture at the run's second step, every later step of the base
+    runs and of the threads a replay, and the run bitwise the eager one."""
+    c, u0, l0 = _start()
+    kw = dict(seed=9, dynamic=True, min_ess=900.0, max_iter=4000) if dynamic else dict(seed=13)
+    eager = _run(c, u0, l0, **kw)
+    calls = _graph_stand_in(monkeypatch)
+    graphed = _run(c, u0, l0, **kw)
+    _assert_same_family(eager, graphed)
+    assert calls["captures"] == 1 and calls["replays"] == graphed["n_dead"] // KW["n_batch"] - 1
+    assert (graphed["dynamic_rounds"] >= 1) == dynamic
+
+
+def _checkpoint(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def test_graphed_family_checkpoint_and_resume_bitwise(tmp_path, monkeypatch):
+    """The graphed run's checkpoint (dead points, live set, scales, the
+    generator's state) is the eager run's, and a graphed run resumed from it
+    is the run that never stopped."""
+    c, u0, l0 = _start()
+    full = _run(c, u0, l0, seed=13)
+    eager_ck, graph_ck = str(tmp_path / "eager.ckpt"), str(tmp_path / "graph.ckpt")
+    _run(c, u0, l0, seed=13, max_iter=256, checkpoint=eager_ck)
+    calls = _graph_stand_in(monkeypatch)
+    part = _run(c, u0, l0, seed=13, max_iter=256, checkpoint=graph_ck)
+    assert part["n_dead"] == 256 and calls["replays"] == 256 // KW["n_batch"] - 1
+    a, b = _checkpoint(eager_ck), _checkpoint(graph_ck)
+    for k in ("dead_u", "dead_lnl", "live_u", "live_lnl", "generator_state", "scale"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert a["n_dead_total"] == b["n_dead_total"] and a["rng_state"] == b["rng_state"]
+    _assert_same_family(full, _run(c, u0, l0, seed=13, checkpoint=graph_ck, resume=True))
+    assert calls["captures"] == 2  # one a call
+
+
+def test_a_capture_that_raises_leaves_the_run_eager(monkeypatch, caplog):
+    """The failed capture's draws are undone: the run is bitwise the eager
+    one, with one warning."""
+    c, u0, l0 = _start()
+    eager = _run(c, u0, l0, seed=13)
+    calls = _graph_stand_in(monkeypatch, fail=True)
+    with caplog.at_level(logging.WARNING, logger="isochrones_torch"):
+        got = _run(c, u0, l0, seed=13)
+    _assert_same_family(eager, got)
+    assert calls == dict(captures=1, replays=0)
+    assert caplog.text.count("could not be captured as a CUDA graph") == 1
+    assert "operation not permitted when stream is capturing" in caplog.text
 
 
 # ------------------------------------------------------------ n_runs > 1

@@ -115,6 +115,42 @@ def test_span_records_its_prefixed_name_under_a_profiler():
     assert list(spans) == ["catalog.lnpost"] and len(spans["catalog.lnpost"]) == 1
 
 
+def test_span_is_the_no_op_while_a_graph_is_captured(monkeypatch):
+    monkeypatch.setattr(tracing, "_capturing", lambda: True)
+
+    def work():
+        return tracing.span("nested.walk_step")
+
+    got, spans = traced(work)
+    assert isinstance(got, contextlib.nullcontext) and spans == {}
+
+
+def test_graphed_family_spans(monkeypatch):
+    """With a stand-in for the CUDA graph (its replays open no span, as a
+    graph's do not): every step keeps its span, each replayed step holds one
+    replay span, the capture one capture span inside the second step, and
+    only the eager first step has walk steps."""
+    import isochrones_torch.samplers.nested as tn
+
+    def capture(body, g):
+        def replay():
+            with pytest.MonkeyPatch.context() as m:
+                m.setattr(tracing, "_capturing", lambda: True)
+                return body()
+        return replay
+
+    monkeypatch.setattr(tn, "_graphed", lambda device, mesh: mesh is None)
+    monkeypatch.setattr(tn, "_capture", capture)
+    out, spans = traced(_family_fit)
+    steps = spans["nested.step"]
+    assert len(steps) * FAMILY["n_batch"] == out["n_dead"] == FAMILY["max_iter"]
+    assert len(spans["nested.replay"]) == len(steps) - 1
+    assert inside(spans["nested.replay"], steps) == [1] * (len(steps) - 1)
+    assert inside(spans["nested.capture"], steps[1:2]) == [1]
+    assert inside(spans["nested.walk_step"], steps[:1]) == [1] * FAMILY["n_repeat"]
+    assert len(spans["nested.walk_step"]) == FAMILY["n_repeat"]
+
+
 @pytest.mark.parametrize("check", ["walk_steps", "steps", "run", "weights", "chunks"])
 def test_family_span_counts(family, check):
     _, out, spans = family
