@@ -33,6 +33,7 @@ from .ops.interp import interp_nd
 from .ops.mags import interp_mag as _interp_mag_kernel
 from .priors import FehPrior, FlatLogPrior, FlatPrior, GaussianPrior, PowerLawPrior
 from .starmodel import BasicStarModel
+from .tracing import span
 from .utils import addmags
 
 __all__ = ["StarClusterModel", "SimulatedCluster", "simulate_cluster", "clusterfit"]
@@ -292,7 +293,9 @@ class StarClusterModel(BasicStarModel):
         device (a copy of the model's tables per distinct device; the model
         itself on its own) over all the walkers and its members; the shards'
         partial sums and counts of non-finite marginals add up on the first
-        device. A mesh of the model's one device is the unsharded model."""
+        device. A mesh of the model's one device is the unsharded model.
+        Under a profiler each shard's issue is a ``cluster.shard`` span and the
+        sum on the first device a ``cluster.gather`` span."""
         from .parallel import mesh_constrain_leading, replicas
 
         reps = replicas(self, mesh)
@@ -303,12 +306,16 @@ class StarClusterModel(BasicStarModel):
 
         def lnlike_flat(flat):
             # every shard's launches go out before any result is read
-            parts = [_finite_sum(fn(flat.to(d), *st)) for fn, d, st in shards]
-            total, n_bad = (x.to(first) for x in parts[0])
-            for part, bad in parts[1:]:
-                total = total + part.to(first)
-                n_bad = n_bad + bad.to(first)
-            return torch.where(n_bad > 0, float("-inf"), total)
+            parts = []
+            for fn, d, st in shards:
+                with span("cluster.shard"):
+                    parts.append(_finite_sum(fn(flat.to(d), *st)))
+            with span("cluster.gather"):
+                total, n_bad = (x.to(first) for x in parts[0])
+                for part, bad in parts[1:]:
+                    total = total + part.to(first)
+                    n_bad = n_bad + bad.to(first)
+                return torch.where(n_bad > 0, float("-inf"), total)
 
         def star_lnmarg(p):
             return torch.cat([fn(p.to(d), *st).to(first) for fn, d, st in shards], dim=1)
