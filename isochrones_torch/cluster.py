@@ -295,21 +295,34 @@ class StarClusterModel(BasicStarModel):
         partial sums and counts of non-finite marginals add up on the first
         device. A mesh of the model's one device is the unsharded model.
         Under a profiler each shard's issue is a ``cluster.shard`` span and the
-        sum on the first device a ``cluster.gather`` span."""
+        sum on the first device a ``cluster.gather`` span.
+
+        Order of issue: first the walkers' copies, one to each other device
+        that holds a shard (a shard on the walkers' own device takes them
+        uncopied), then each shard's work in mesh order, then the gather, all
+        without a synchronise. A copy between two cards runs on the source
+        card's current stream, so a copy issued after shard 0's work would
+        wait for that work, and every other card with it."""
         from .parallel import mesh_constrain_leading, replicas
 
         reps = replicas(self, mesh)
         fns = {d: m._build_block_lnmarg() for d, m in reps.items()}
         stacks = mesh_constrain_leading(obs, mesh)
         shards = [(fns[d], d, st) for d, st in zip(mesh.devices, stacks) if st[0].shape[0] > 0]
+        devices = tuple(dict.fromkeys(d for _, d, _ in shards))
         first = mesh.devices[0]
+
+        def with_walkers(p):
+            """``[(fn, p on the shard's device, stacks)]`` in mesh order."""
+            on = {d: p.to(d) for d in devices}
+            return [(fn, on[d], st) for fn, d, st in shards]
 
         def lnlike_flat(flat):
             # every shard's launches go out before any result is read
             parts = []
-            for fn, d, st in shards:
+            for fn, x, st in with_walkers(flat):
                 with span("cluster.shard"):
-                    parts.append(_finite_sum(fn(flat.to(d), *st)))
+                    parts.append(_finite_sum(fn(x, *st)))
             with span("cluster.gather"):
                 total, n_bad = (x.to(first) for x in parts[0])
                 for part, bad in parts[1:]:
@@ -318,7 +331,7 @@ class StarClusterModel(BasicStarModel):
                 return torch.where(n_bad > 0, float("-inf"), total)
 
         def star_lnmarg(p):
-            return torch.cat([fn(p.to(d), *st).to(first) for fn, d, st in shards], dim=1)
+            return torch.cat([fn(x, *st).to(first) for fn, x, st in with_walkers(p)], dim=1)
 
         return lnlike_flat, star_lnmarg, max(st[0].shape[0] for _, _, st in shards)
 

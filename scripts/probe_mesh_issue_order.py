@@ -9,10 +9,14 @@ Sets up the benchmark cell ``cluster200.evals1024.4chip`` (200 members, the
 star axis over the first four cards) and measures two ways of issuing
 ``StarClusterModel.lnpost_batch`` over the mesh:
 
-- ``program``: ``_build_sharded_lnlike`` as the package has it, where each
-  shard copies the walkers to its card just before its own work;
-- ``copies_first``: the same shards, with the walkers copied to every card
-  before any shard's work is issued.
+- ``program``: ``_build_sharded_lnlike`` as the package has it, where the
+  walkers are copied to every card before any shard's work is issued;
+- ``copy_in_loop``: the same shards, each copying the walkers to its card
+  just before its own work, as the package issued them before the order
+  changed. A copy between cards runs on the source card's stream, so the
+  copies to cards 1-3 wait behind shard 0's work on card 0 and the cards
+  take turns: this order reproduces the serial timeline (about half the
+  program's rate and 2 cards busy at once instead of 4).
 
 For each order, installed afresh (the model's cached functions dropped):
 
@@ -30,8 +34,9 @@ For each order, installed afresh (the model's cached functions dropped):
   order's at the same walkers.
 
 Prints each card's name and power limit (from ``nvidia-smi``) and one JSON
-line per order. ``--tiny`` runs a small grid and ladder on four CPU shards,
-to try the script without a card; its times mean nothing.
+line per order (program, copy_in_loop, program again). ``--tiny`` runs a
+small grid and ladder on four CPU shards, to try the script without a card;
+its times mean nothing.
 """
 
 from __future__ import annotations
@@ -51,15 +56,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 from isochrones_torch import cluster as C  # noqa: E402
+from isochrones_torch.tracing import span  # noqa: E402
 from portbench import run  # noqa: E402
 from portbench.drivers import cluster_mesh  # noqa: E402
 
 CELL = "cluster200.evals1024.4chip"
 
 
-def _copies_first(self, obs, mesh):
-    """``_build_sharded_lnlike`` with every card's copy of the walkers issued
-    before any shard's work."""
+def _copy_in_loop(self, obs, mesh):
+    """``_build_sharded_lnlike`` with each shard's copy of the walkers issued
+    just before that shard's work."""
     from isochrones_torch.parallel import mesh_constrain_leading, replicas
 
     reps = replicas(self, mesh)
@@ -69,13 +75,16 @@ def _copies_first(self, obs, mesh):
     first = mesh.devices[0]
 
     def lnlike_flat(flat):
-        xs = [flat.to(d) for _, d, _ in shards]
-        parts = [C._finite_sum(fn(x, *st)) for (fn, _, st), x in zip(shards, xs)]
-        total, n_bad = (x.to(first) for x in parts[0])
-        for part, bad in parts[1:]:
-            total = total + part.to(first)
-            n_bad = n_bad + bad.to(first)
-        return torch.where(n_bad > 0, float("-inf"), total)
+        parts = []
+        for fn, d, st in shards:
+            with span("cluster.shard"):
+                parts.append(C._finite_sum(fn(flat.to(d), *st)))
+        with span("cluster.gather"):
+            total, n_bad = (x.to(first) for x in parts[0])
+            for part, bad in parts[1:]:
+                total = total + part.to(first)
+                n_bad = n_bad + bad.to(first)
+            return torch.where(n_bad > 0, float("-inf"), total)
 
     def star_lnmarg(p):
         return torch.cat([fn(p.to(d), *st).to(first) for fn, d, st in shards], dim=1)
@@ -83,7 +92,7 @@ def _copies_first(self, obs, mesh):
     return lnlike_flat, star_lnmarg, max(st[0].shape[0] for _, _, st in shards)
 
 
-ORDERS = {"program": C.StarClusterModel._build_sharded_lnlike, "copies_first": _copies_first}
+ORDERS = {"program": C.StarClusterModel._build_sharded_lnlike, "copy_in_loop": _copy_in_loop}
 
 
 @contextlib.contextmanager
@@ -181,7 +190,7 @@ def main(argv=None):
     state = cluster_mesh.setup(cfg, traffic, args.seed, device)
     first = {}
     lines = []
-    for order in ("program", "copies_first", "program"):
+    for order in ("program", "copy_in_loop", "program"):
         line = probe(state, order, args.seconds, args.synced_calls, first)
         if order == "program" and lines:
             line["order"] = "program_again"

@@ -8,7 +8,10 @@ Each case runs unsharded (``mesh=None``), on four shards (five members each)
 and on three (7, 7, 6): the log-posterior within 1e-12 of the reference with
 the same finite pattern, at walkers about the truth and outside the prior
 box; under the profiler one ``cluster.shard`` span a shard and one
-``cluster.gather`` span a call; and a traced call bitwise the untraced one.
+``cluster.gather`` span a call; a traced call bitwise the untraced one; and
+the order of issue: the walkers reach every shard's device before any shard's
+work, the shards follow in mesh order, and a shard on the walkers' own device
+takes them uncopied.
 """
 
 import copy
@@ -19,7 +22,7 @@ import torch
 
 from isochrones_torch import tracing
 from isochrones_torch.cluster import StarClusterModel
-from isochrones_torch.parallel import default_mesh
+from isochrones_torch.parallel import default_mesh, mesh_constrain_leading
 from portbench import run
 from portbench.drivers import cluster_posterior, common
 from portbench.reference import cluster as ref
@@ -114,3 +117,71 @@ def test_a_traced_call_is_bitwise_the_untraced_one(setting, shards):
     traced, counts = span_counts(lambda: m.lnpost_batch(p))
     assert counts["cluster.gather"] == 1
     assert plain.numpy().tobytes() == traced.numpy().tobytes()
+
+
+class Recorder:
+    """The sharded likelihood's order of issue: ``("copy", device)`` for each
+    ``Tensor.to`` of ``walkers``, ``("block", walkers, mag_vals)`` for each
+    call of a replica's block function; ``obs``, ``mesh`` and the closures as
+    the model built them."""
+
+    def __init__(self, monkeypatch):
+        self.log, self.walkers = [], None
+        build_block, build_sharded, to = (StarClusterModel._build_block_lnmarg,
+                                          StarClusterModel._build_sharded_lnlike, torch.Tensor.to)
+
+        def block_lnmarg(model):
+            fn = build_block(model)
+
+            def block(p, mv, *rest):
+                self.log.append(("block", p, mv))
+                return fn(p, mv, *rest)
+
+            return block
+
+        def sharded(model, obs, mesh):
+            self.obs, self.mesh = obs, mesh
+            out = build_sharded(model, obs, mesh)
+            self.closures = dict(zip(("lnlike_flat", "star_lnmarg"), out))
+            return out
+
+        def copy(x, *args, **kwargs):
+            if x is self.walkers:
+                self.log.append(("copy",) + args)
+            return to(x, *args, **kwargs)
+
+        monkeypatch.setattr(StarClusterModel, "_build_block_lnmarg", block_lnmarg)
+        monkeypatch.setattr(StarClusterModel, "_build_sharded_lnlike", sharded)
+        monkeypatch.setattr(torch.Tensor, "to", copy)
+
+    def call(self, closure, p):
+        """The log of one call of ``closure`` at walkers ``p``."""
+        self.log.clear()
+        self.walkers = p
+        self.closures[closure](p)
+        return list(self.log)
+
+
+@pytest.mark.parametrize("closure", ["lnlike_flat", "star_lnmarg"])
+@pytest.mark.parametrize("shards", SHARDS)
+def test_the_walkers_reach_every_device_before_any_shard_s_work(setting, shards, closure, monkeypatch):
+    rec = Recorder(monkeypatch)
+    m, p = model(setting, shards), setting[-1]
+    m.lnpost_batch(p)  # builds the closures through the recorders
+    stacks = [st for st in mesh_constrain_leading(rec.obs, rec.mesh) if st[0].shape[0] > 0]
+    assert len(stacks) == (shards or 1)
+    log = rec.call(closure, p)
+    n_copies = len(set(rec.mesh.devices))
+    assert [e[0] for e in log] == ["copy"] * n_copies + ["block"] * len(stacks), log
+    for (_, _, mv), st in zip(log[n_copies:], stacks):
+        assert torch.equal(mv, st[0])
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_a_shard_on_the_walkers_device_takes_them_uncopied(setting, shards, monkeypatch):
+    rec = Recorder(monkeypatch)
+    m, p = model(setting, shards), setting[-1]
+    m.lnpost_batch(p)
+    blocks = [e for e in rec.call("lnlike_flat", p) if e[0] == "block"]
+    assert len(blocks) == (shards or 1)
+    assert all(x is p for _, x, _ in blocks)
