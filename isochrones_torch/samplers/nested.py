@@ -1,5 +1,6 @@
-"""Nested sampling on one device: the single-run path, static or dynamic,
-with checkpoint and resume.
+"""Nested sampling on one device, static or dynamic, with checkpoint and
+resume: a single run, ``n_runs`` independent runs of one problem, or a family
+of problems with their own data.
 
 Counterpart of ``isochrones_tpu/samplers/nested.py``: the sampler explores
 the unit cube, maps it through a ``prior_transform`` and treats the model's
@@ -23,12 +24,13 @@ through the varying-live-count schedule (:func:`_merge_segments`). With
 included, is written at every chunk and thread-round boundary; a resumed run
 is bitwise the run that never stopped (same device, same dtype).
 
-Families of problems run in lockstep on the same loop
-(:class:`_FamilySteps`, a leading problem axis M on every op): ``M``
-independent runs of one likelihood (``run_nested(n_runs=M)``) or ``M``
-problems with their own data (:func:`run_nested_vmapped`, a whole catalog of
-stars). Each walk step is one likelihood call over ``(M, B, p)`` points, so
-the number of launches per step does not grow with M. On a CUDA device without
+One engine (:func:`_run_family`) runs every one of them as a family of
+problems in lockstep, a leading problem axis M on every op of its steps
+(:class:`_FamilySteps`): a single run is a family of one, ``n_runs=M`` a
+family of ``M`` copies of one likelihood, :func:`run_nested_vmapped` ``M``
+problems with their own data (a whole catalog of stars). Each walk step is one
+likelihood call over ``(M, B, p)`` points, so the number of launches per step
+does not grow with M. On a CUDA device without
 a mesh, :func:`run_nested_vmapped` replays its second and later steps as one
 CUDA graph (``_FamilySteps(graphed=True)``): the same kernels and the same
 draws as the eager steps, launched once a step, so the host no longer sets the
@@ -119,6 +121,19 @@ def _assemble_weights(dead_lnl: np.ndarray, live_lnl: np.ndarray, n_live: int, n
     all_logwt = np.concatenate([logwt_dead, logwt_live])
     logz, probs, ess = _evidence_from_logwt(all_logwt)
     return order, all_lnl, all_logwt, logz, probs, ess
+
+
+def _assemble(dead_u, dead_lnl, live_u, live_lnl, n_live, n_batch):
+    """One problem's static run assembled as :func:`_merge_segments`
+    assembles a dynamic one: ``(all_u, all_lnl, all_logwt, logz, probs, ess,
+    h, logzerr)``, with ``logzerr = sqrt(H / n)`` under batched-K removal."""
+    order, all_lnl, all_logwt, logz, probs, ess = _assemble_weights(dead_lnl, live_lnl, n_live, n_batch=n_batch)
+    all_u = np.concatenate([dead_u, live_u[order]], axis=0)
+    finite = np.isfinite(all_logwt)
+    p = np.exp(all_logwt[finite] - logz)
+    h = float(np.sum(p * (all_lnl[finite] - logz)))
+    logzerr = float(np.sqrt(max(h, 0.0) * _logzerr_scale(n_live, n_batch)))
+    return all_u, all_lnl, all_logwt, logz, probs, ess, h, logzerr
 
 
 def _evidence_from_logwt(all_logwt):
@@ -333,6 +348,11 @@ def _ckpt_load(path, config):
     return state
 
 
+#: the checkpoint's arrays with a problem axis, which a single run's checkpoint
+#: holds without it
+_PROBLEM_ARRAYS = ("dead_u", "dead_lnl", "live_u", "live_lnl", "scale", "running_log_s1", "running_log_s2")
+
+
 def _chunk_dead(n_live):
     """Dead points per chunk: each chunk boundary is one host read-back."""
     return max(int(n_live), 256)
@@ -353,90 +373,14 @@ def _thread_starts(merged, posterior_frac, n_live):
 
 
 # ------------------------------------------------------------------ device loop
-
-
-def _live_cholesky(live_u, jitter=1e-12):
-    """Cholesky factor of the live-point covariance plus a relative ridge,
-    which whitens the walk proposals. A failed factorization is NaN, as
-    ``jnp.linalg.cholesky`` returns (``cholesky_ex`` does not synchronize)."""
-    mu = live_u.mean(dim=0)
-    c = live_u - mu
-    cov = (c.T @ c) / live_u.shape[0]
-    d = live_u.shape[-1]
-    ridge = jitter + 1e-6 * torch.clamp(torch.diagonal(cov).max(), min=0.0)
-    cov = cov + ridge * torch.eye(d, dtype=live_u.dtype, device=live_u.device)
-    L, info = torch.linalg.cholesky_ex(cov)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
-
-
-def _constrained_walk(lnlike_u, g, start, lnl_start, lnl_star, scale, n_groups, n_chains, n_repeat, L=None):
-    """Random walk of ``n_groups * n_chains`` chains in {u : lnlike(u) >
-    lnl_star}, ``n_repeat`` steps, proposals ``scale * L @ normal`` folded
-    into the cube. Per group, returns one sample picked at random among the
-    group's chains that moved (else a start point), its lnL, whether it
-    moved, and the overall acceptance rate (a device scalar)."""
-    x, lnl = start, lnl_start
-    n_acc = torch.zeros(start.shape[0], dtype=torch.int32, device=start.device)
-    for _ in range(n_repeat):
-        eps = torch.randn(x.shape, generator=g, device=x.device, dtype=x.dtype)
-        if L is not None:
-            eps = eps @ L.T
-        prop = x + eps * scale
-        # triangle-wave fold maps all of R into [0, 1]
-        prop = 1.0 - torch.abs(1.0 - torch.abs(prop) % 2.0)
-        lnl_prop = lnlike_u(prop)
-        lnl_prop = torch.where(torch.isnan(lnl_prop), float("-inf"), lnl_prop)
-        ok = lnl_prop > lnl_star
-        x = torch.where(ok[:, None], prop, x)
-        lnl = torch.where(ok, lnl_prop, lnl)
-        n_acc = n_acc + ok.to(torch.int32)
-    moved = (n_acc > 0).reshape(n_groups, n_chains)
-    scores = torch.rand((n_groups, n_chains), generator=g, device=x.device, dtype=x.dtype) + moved.to(x.dtype)
-    pick = torch.argmax(scores, dim=1)
-    rows = torch.arange(n_groups, device=x.device)
-    xf = x.reshape(n_groups, n_chains, -1)
-    lnlf = lnl.reshape(n_groups, n_chains)
-    accept_rate = n_acc.sum().to(x.dtype) / (n_groups * n_chains * n_repeat)
-    return xf[rows, pick], lnlf[rows, pick], moved[rows, pick], accept_rate
-
-
-def _nested_core(lnlike_u, u, lnl, g, scale, n_live, n_iter, n_chains, n_repeat, n_batch=1):
-    """``n_iter`` steps, each removing the ``n_batch`` worst live points and
-    replacing them by constrained walks above the highest removed lnL. Dead
-    points come out in ascending lnL within each batch: the harmonic schedule
-    (:func:`_ln_x_increments`) depends on that order."""
-    K = n_batch
-    dead_u, dead_lnl = [], []
-    for _ in range(n_iter):
-        neg_vals, worst = torch.topk(-lnl, K)  # the K smallest lnL, ascending
-        d_lnl = -neg_vals
-        dead_u.append(u[worst])
-        dead_lnl.append(d_lnl)
-        lnl_star = d_lnl[-1]
-
-        # walks start from survivors only: positions K.. of the sorted order
-        order = torch.argsort(lnl)
-        pick = torch.randint(K, n_live, (K * n_chains,), generator=g, device=u.device)
-        starts = order[pick]
-        L = _live_cholesky(u)
-        new_u, new_lnl, _, acc = _constrained_walk(
-            lnlike_u, g, u[starts], lnl[starts], lnl_star, scale, K, n_chains, n_repeat, L=L
-        )
-        u = u.index_copy(0, worst, new_u)
-        lnl = lnl.index_copy(0, worst, new_lnl)
-        # adapt toward ~35% acceptance (whitened proposals: O(1) scales)
-        scale = torch.clamp(scale * torch.exp(0.7 * (acc - 0.35)), 1e-4, 4.0)
-    return torch.cat(dead_u), torch.cat(dead_lnl), u, lnl, scale
-
-
-# ------------------------------------------------------- problem-family loop
-# The JAX package runs a family of problems as ``jax.vmap(_nested_core)``. A
-# likelihood that launches a ctypes kernel cannot be ``torch.vmap``-ped, so
-# the family functions below write the problem axis M out on every op and
-# call the likelihood once per walk step on all problems' points. One
-# ``torch.Generator`` drives the family (the JAX package splits one key per
-# problem), so a problem's draws depend on M and on the other problems'
-# shapes: the two packages agree statistically, not draw for draw.
+# The JAX package runs a family of problems as ``jax.vmap`` of its single-run
+# step. A likelihood that launches a ctypes kernel cannot be
+# ``torch.vmap``-ped, so the functions below write the problem axis M out on
+# every op and call the likelihood once per walk step on all problems' points;
+# a single run is a family of one. One ``torch.Generator`` drives the family
+# (the JAX package splits one key per problem), so a problem's draws depend on
+# M and on the other problems' shapes: the two packages agree statistically,
+# not draw for draw.
 
 
 def _gather_rows(x, idx):
@@ -447,8 +391,10 @@ def _gather_rows(x, idx):
 
 
 def _live_cholesky_family(live_u, jitter=1e-12):
-    """:func:`_live_cholesky` of each problem's live set, (M, n, p) -> (M, p,
-    p); a problem whose factorization fails gets a NaN factor."""
+    """Cholesky factor of each problem's live-point covariance plus a
+    relative ridge, (M, n, p) -> (M, p, p), which whitens the walk proposals.
+    A problem whose factorization fails gets a NaN factor, as
+    ``jnp.linalg.cholesky`` returns (``cholesky_ex`` does not synchronize)."""
     mu = live_u.mean(dim=1, keepdim=True)
     c = live_u - mu
     cov = c.transpose(1, 2) @ c / live_u.shape[1]
@@ -460,12 +406,15 @@ def _live_cholesky_family(live_u, jitter=1e-12):
 
 
 def _constrained_walk_family(lnlike_fam, g, start, lnl_start, lnl_star, scale, n_groups, n_chains, n_repeat, L=None):
-    """:func:`_constrained_walk` for M problems at once: ``start`` (M,
-    n_groups * n_chains, p), ``lnl_start`` likewise (M, ...), per-problem
-    thresholds ``lnl_star``, scales ``scale`` and factors ``L`` (M, p, p).
-    ``lnlike_fam`` maps (M, n, p) unit-cube points to (M, n). Returns the
-    picked samples (M, n_groups, p), their lnL, whether they moved, and each
-    problem's acceptance rate (M,)."""
+    """Random walk of ``n_groups * n_chains`` chains of each of M problems in
+    {u : lnlike(u) > lnl_star}, ``n_repeat`` steps, proposals ``scale * L @
+    normal`` folded into the cube: ``start`` (M, n_groups * n_chains, p),
+    ``lnl_start`` likewise (M, ...), per-problem thresholds ``lnl_star``,
+    scales ``scale`` and factors ``L`` (M, p, p). ``lnlike_fam`` maps (M, n,
+    p) unit-cube points to (M, n). Per group, returns one sample picked at
+    random among the group's chains that moved (else a start point), (M,
+    n_groups, p), its lnL, whether it moved, and each problem's acceptance
+    rate (M,)."""
     x, lnl = start, lnl_start
     M = start.shape[0]
     n_acc = torch.zeros(lnl_start.shape, dtype=torch.int32, device=start.device)
@@ -504,6 +453,7 @@ def _family_step(lnlike_fam, u, lnl, g, scale, n_live, n_chains, n_repeat, K):
     d_u = _gather_rows(u, worst)
     lnl_star = d_lnl[:, -1]
 
+    # walks start from survivors only: positions K.. of the sorted order
     order = torch.argsort(lnl, dim=-1)
     pick = torch.randint(K, n_live, (M, K * n_chains), generator=g, device=u.device)
     starts = torch.gather(order, 1, pick)
@@ -514,6 +464,7 @@ def _family_step(lnlike_fam, u, lnl, g, scale, n_live, n_chains, n_repeat, K):
     )
     u = u.scatter(1, worst[..., None].expand(-1, -1, u.shape[-1]), new_u)
     lnl = lnl.scatter(1, worst, new_lnl)
+    # adapt toward ~35% acceptance (whitened proposals: O(1) scales)
     scale = torch.clamp(scale * torch.exp(0.7 * (acc - 0.35)), 1e-4, 4.0)
     return d_u, d_lnl, u, lnl, scale
 
@@ -667,6 +618,234 @@ def _family_terminated(running, live_lnl_np, dlogz):
     return frac < dlogz, ess_now, logz_dead
 
 
+class _Family(NamedTuple):
+    """What :func:`_run_family` hands its front."""
+
+    problem: Callable  # s -> (all_u, all_lnl, all_logwt, logz, probs, ess, h, logzerr) of problem s
+    done: np.ndarray  # (M,) the stop rule's verdict at the end of the base run
+    n_dead: int  # dead points of each problem, base run and threads
+    dynamic_rounds: int
+
+
+def _run_family(lnlike_fam, init, g, rng, *, kind, ckpt_extra, n_params, n_live, n_batch, n_chains, n_repeat,
+                hard_cap, dlogz, min_ess, dtype, stop=None, dynamic=False, posterior_frac=0.025, max_dynamic_rounds=8,
+                checkpoint=None, resume=False, config_tag=None, chunk=None, graphed=False):
+    """The engine of every nested run: M problems in lockstep, a single run
+    being a family of one. The fronts (:func:`run_nested`, single or ``n_runs
+    > 1``, and :func:`run_nested_vmapped`) bring their likelihood, initial
+    points and stop rule, and turn each problem's assembly into their result.
+
+    lnlike_fam : (M, B, n_params) unit-cube points -> (M, B) ln-likelihoods.
+    init : ``() -> (live_u (M, n_live, n_params), live_lnl (M, n_live))``,
+        tensors on the generator's device; called only when no checkpoint is
+        restored.
+    g, rng : the ``torch.Generator`` of every device draw, and the numpy
+        Generator of the front's host draws, whose state the checkpoint keeps.
+    stop : ``stop(running, live_lnl_np) -> (M,)`` bools, whether each
+        problem's base run is done after a chunk. By default the live points'
+        share of the evidence bound is below ``dlogz`` and, unless
+        ``dynamic`` (whose threads see to it), the posterior ESS is at least
+        ``min_ess``. The chunks go on until every problem is done; those done
+        keep shrinking with the others.
+    kind, ckpt_extra : the checkpoint's kind and its configuration's own
+        entries. A ``"single"`` checkpoint holds its arrays without the
+        problem axis.
+    chunk : a chunk of steps with :meth:`_FamilySteps.chunk`'s signature and
+        contract, in place of the walk's.
+    graphed : replay the walk's step as a CUDA graph (:class:`_FamilySteps`).
+
+    With ``dynamic``, after the base runs and while any problem's ESS is
+    below ``min_ess``, rounds of posterior-focused threads, one per problem,
+    merged through :func:`_merge_segments`; each problem's assembly is then
+    the merged one, even when no thread ran.
+    """
+    dev = g.device
+    ckpt_cfg = state = None
+    if checkpoint is not None:
+        ckpt_cfg = dict(
+            version=_CKPT_VERSION, package=_CKPT_PACKAGE, kind=kind, n_params=int(n_params), n_live=int(n_live),
+            n_batch=int(n_batch), n_chains=int(n_chains), n_repeat=int(n_repeat), chunk=int(_chunk_dead(n_live)),
+            dtype=str(dtype), device=dev.type, config_tag=None if config_tag is None else str(config_tag),
+            **ckpt_extra,
+        )
+        if resume and os.path.exists(checkpoint):
+            state = _ckpt_load(checkpoint, ckpt_cfg)
+    single = kind == "single"
+    if chunk is None:
+        chunk = _FamilySteps(lnlike_fam, g, n_live, n_chains, n_repeat, n_batch, graphed=graphed).chunk
+
+    if state is None:
+        live_u, live_lnl = init()
+        live_lnl_np = live_lnl.cpu().numpy()
+        M = live_u.shape[0]
+        scales = torch.full((M,), 0.5, dtype=dtype, device=dev)  # whitened units
+        dead_u_chunks = [np.zeros((M, 0, n_params), dtype=live_lnl_np.dtype)]
+        dead_lnl_chunks = [np.zeros((M, 0), dtype=live_lnl_np.dtype)]
+        running = _RunningEvidence(n_live, shape=(M,), n_batch=n_batch)
+        n_dead = 0
+    else:
+        # the loop-carried state at a chunk or round boundary
+        arrays = {k: np.asarray(state[k])[None] if single else state[k] for k in _PROBLEM_ARRAYS}
+        live_u = torch.as_tensor(arrays["live_u"], dtype=dtype, device=dev)
+        live_lnl = torch.as_tensor(arrays["live_lnl"], dtype=dtype, device=dev)
+        live_lnl_np = arrays["live_lnl"]
+        M = live_u.shape[0]
+        scales = torch.as_tensor(arrays["scale"], dtype=dtype, device=dev)
+        dead_u_chunks, dead_lnl_chunks = [arrays["dead_u"]], [arrays["dead_lnl"]]
+        running = _RunningEvidence(n_live, shape=(M,), n_batch=n_batch)
+        running.n_dead = int(state["running_n_dead"])
+        running.ln_x = float(state["running_ln_x"])
+        running.log_s1, running.log_s2 = arrays["running_log_s1"], arrays["running_log_s2"]
+        g.set_state(torch.from_numpy(state["generator_state"].copy()))
+        rng.bit_generator.state = state["rng_state"]
+        n_dead = int(state["n_dead_total"])
+
+    chunk_steps = max(_chunk_dead(n_live) // n_batch, 8)
+    segments = None  # each problem's base run and threads, from the dynamic phase on
+    dynamic_rounds = 0
+
+    def dlogz_met(running, live_lnl_np):
+        return _family_terminated(running, live_lnl_np, dlogz)[0]
+
+    if stop is None:
+        def stop(running, live_lnl_np):
+            met, ess_now, _ = _family_terminated(running, live_lnl_np, dlogz)
+            return met if dynamic else met & (ess_now >= min_ess)
+
+    def save(live_u, live_lnl_np):
+        # the base run's dead and live points, and everything the steps and
+        # the host draws carry on from
+        if checkpoint is None:
+            return
+        arrays = dict(
+            dead_u=np.concatenate(dead_u_chunks, axis=1), dead_lnl=np.concatenate(dead_lnl_chunks, axis=1),
+            live_u=live_u.cpu().numpy(), live_lnl=live_lnl_np, scale=scales.cpu().numpy(),
+            running_log_s1=running.log_s1, running_log_s2=running.log_s2,
+        )
+        threads = None if segments is None else [segs[1:] for segs in segments]
+        if single:
+            arrays = {k: v.reshape(v.shape[1:]) for k, v in arrays.items()}
+            threads = None if threads is None else threads[0]
+        _ckpt_save(checkpoint, dict(
+            config=ckpt_cfg, phase="base" if segments is None else "dynamic", **arrays,
+            generator_state=g.get_state().numpy().copy(), n_dead_total=n_dead,
+            running_n_dead=running.n_dead, running_ln_x=running.ln_x, rng_state=rng.bit_generator.state,
+            thread_segments=threads, dynamic_rounds=dynamic_rounds,
+        ))
+
+    def run_chunks(u, lnl, lnl_np, running, dead_u, dead_lnl, rule, done, save=None):
+        """Chunks of steps from the live sets ``u``, ``lnl`` until ``rule``
+        holds for every problem or the dead points reach the cap. Each chunk
+        ends in its one read-back, and its dead points go to ``dead_u``,
+        ``dead_lnl`` and ``running``. Returns the live sets, their lnL on the
+        host and the last verdict."""
+        nonlocal scales, n_dead
+        while not done.all() and n_dead < hard_cap:
+            n_steps = min(chunk_steps, max((hard_cap - n_dead) // n_batch, 1))
+            with span("nested.chunk"):
+                du, dl, u, lnl, scales = chunk(u, lnl, scales, n_steps)
+            with span("nested.readback"):
+                dead_u.append(du.cpu().numpy())  # (M, n_steps * K, n_params)
+                dead_lnl.append(dl.cpu().numpy())
+                lnl_np = lnl.cpu().numpy()
+            n_dead += n_steps * n_batch
+            with span("nested.evidence"):
+                running.add(dead_lnl[-1])
+                done = rule(running, lnl_np)
+            if save is not None:
+                save(u, lnl_np)
+        return u, lnl, lnl_np, done
+
+    done = stop(running, live_lnl_np) if running.n_dead else np.zeros(M, dtype=bool)
+    if state is None or state["phase"] == "base":
+        live_u, live_lnl, live_lnl_np, done = run_chunks(live_u, live_lnl, live_lnl_np, running, dead_u_chunks,
+                                                         dead_lnl_chunks, stop, done, save=save)
+    dead_u = np.concatenate(dead_u_chunks, axis=1)
+    dead_lnl = np.concatenate(dead_lnl_chunks, axis=1)
+    live_u_np = live_u.cpu().numpy()
+
+    # ---- dynamic posterior threads, the whole family in lockstep
+    merged = None
+    if dynamic:
+        segments = [[dict(
+            dead_lnl=dead_lnl[s], live_lnl=live_lnl_np[s], n_live=n_live, n_batch=n_batch, L0=-np.inf,
+            all_u=np.concatenate([dead_u[s], live_u_np[s][np.argsort(live_lnl_np[s])]], axis=0),
+        )] for s in range(M)]
+        if state is not None and state.get("thread_segments"):
+            # completed rounds restore verbatim; an interrupted round replays
+            # from its start, where the generator's state was saved
+            threads = [state["thread_segments"]] if single else state["thread_segments"]
+            for segs, done_threads in zip(segments, threads):
+                segs.extend(done_threads)
+            dynamic_rounds = int(state["dynamic_rounds"])
+        merged = [_merge_segments(segs) for segs in segments]
+
+        while n_dead < hard_cap and dynamic_rounds < max_dynamic_rounds:
+            if all(mg[5] >= min_ess for mg in merged):
+                break
+            starts = np.empty((M, n_live, n_params))
+            starts_lnl = np.empty((M, n_live))
+            L_los = np.empty(M)
+            for s in range(M):
+                L_los[s], starts[s], starts_lnl[s] = _thread_starts(merged[s], posterior_frac, n_live)
+
+            # decorrelate the copied starts by a whitened constrained walk, so
+            # that thread deaths are fresh draws. A chain that never accepts
+            # stays a copy of an existing sample (counted twice by the merge):
+            # its problem retries at a halved scale (at most 1 in whitened
+            # units)
+            t_live_u = torch.as_tensor(starts, dtype=dtype, device=dev)
+            t_live_lnl = torch.as_tensor(starts_lnl, dtype=dtype, device=dev)
+            L_los_t = torch.as_tensor(L_los, dtype=dtype, device=dev)
+            moved_any = np.zeros((M, n_live), dtype=bool)
+            w_scales = np.minimum(scales.cpu().numpy(), 1.0)
+            for _ in range(3):
+                chol = _live_cholesky_family(t_live_u)
+                t_live_u, t_live_lnl, mv, _ = _constrained_walk_family(
+                    lnlike_fam, g, t_live_u, t_live_lnl, L_los_t, torch.as_tensor(w_scales, dtype=dtype, device=dev),
+                    n_live, 1, 4 * n_repeat, L=chol,
+                )
+                moved_any |= mv.cpu().numpy()
+                if moved_any.all():
+                    break
+                w_scales = np.where(moved_any.all(axis=1), w_scales, w_scales * 0.5)
+            if not moved_any.all():
+                getLogger().warning(
+                    "dynamic nested sampling, round %d: %d of %d thread starts never moved in the decorrelation "
+                    "walk (duplicated samples slightly overweight the merged posterior there).",
+                    dynamic_rounds, int((~moved_any).sum()), moved_any.size,
+                )
+
+            # the threads end on their own dlogz (in thread-relative prior
+            # mass)
+            t_dead_u, t_dead_lnl = [], []
+            t_live_u, t_live_lnl, t_live_lnl_np, _ = run_chunks(
+                t_live_u, t_live_lnl, None, _RunningEvidence(n_live, shape=(M,), n_batch=n_batch), t_dead_u,
+                t_dead_lnl, dlogz_met, np.zeros(M, dtype=bool),
+            )
+            t_dead_u = np.concatenate(t_dead_u, axis=1)
+            t_dead_lnl = np.concatenate(t_dead_lnl, axis=1)
+            t_live_u_np = t_live_u.cpu().numpy()
+            for s in range(M):
+                t_order = np.argsort(t_live_lnl_np[s])
+                segments[s].append(dict(
+                    dead_lnl=t_dead_lnl[s], live_lnl=t_live_lnl_np[s], n_live=n_live, n_batch=n_batch, L0=L_los[s],
+                    all_u=np.concatenate([t_dead_u[s], t_live_u_np[s][t_order]], axis=0),
+                ))
+            merged = [_merge_segments(segs) for segs in segments]
+            dynamic_rounds += 1
+            save(live_u, live_lnl_np)
+
+    def problem(s):
+        # a static run's assembly is built at the call, where the front can
+        # time it
+        if merged is not None:
+            return merged[s]
+        return _assemble(dead_u[s], dead_lnl[s], live_u_np[s], live_lnl_np[s], n_live, n_batch)
+
+    return _Family(problem, done, n_dead, dynamic_rounds)
+
+
 def run_nested(
     lnpost_u: Callable,
     prior_transform: Callable,
@@ -710,10 +889,18 @@ def run_nested(
         (clamped to n_live // 4).
     max_iter : hard cap on dead points (default 1000 * n_live).
     on_low_ess : "extend"/"warn" warn and flag ``truncated``; "raise" raises.
-    core : the replacement kernel, in place of :func:`_nested_core`, with its
-        signature and its carry and return contract (``(dead_u, dead_lnl,
-        live_u, live_lnl, scale)``, the dead points of each batch in
-        ascending lnL); the base run and the dynamic threads both run it
+    core : the replacement kernel, in place of the constrained random walk:
+        ``core(lnlike_u, u, lnl, g, scale, n_live, n_iter, n_chains,
+        n_repeat, n_batch=n_batch)`` runs ``n_iter`` steps from the live set
+        ``u`` (n_live, n_params), its ln-likelihoods ``lnl`` (n_live,) and the
+        adapted scale ``scale`` (a 0-d tensor), each step removing the
+        ``n_batch`` worst live points and replacing them with draws above the
+        highest of them. ``lnlike_u`` maps (B, n_params) unit-cube points to
+        (B,) ln-likelihoods and ``g`` is the generator. It returns
+        ``(dead_u (n_iter * n_batch, n_params), dead_lnl, u, lnl, scale)``,
+        the dead points of each batch in ascending lnL (the shrinkage
+        schedule depends on that order). The base run and the dynamic
+        threads both run it
         (:func:`~isochrones_torch.samplers.polychord.run_polychord`'s slice
         sampler). Not with ``n_runs > 1``.
     dynamic : dynamic nested sampling (Higson et al. 2019). The base run stops
@@ -721,8 +908,8 @@ def run_nested(
         ``min_ess``, posterior-focused threads run: fresh ``n_live``-point
         runs activated at the likelihood level that encloses
         ``1 - posterior_frac`` of the posterior mass, merged with the base run
-        through :func:`_merge_segments`. ``dynamic=False`` is the static
-        auto-extend behaviour, unchanged.
+        through :func:`_merge_segments` (which then weighs the result, threads
+        or not). ``dynamic=False`` is the static auto-extend behaviour.
     posterior_frac : lower cumulative-posterior-mass cut of each thread's
         activation threshold.
     max_dynamic_rounds : cap on thread rounds.
@@ -739,18 +926,21 @@ def run_nested(
     dtype : dtype of the unit-cube points handed to the likelihood.
 
     n_runs : > 1 runs this many independent runs of the same problem in
-        lockstep (:func:`_run_nested_multi`): one likelihood call of ``n_runs
-        * n_batch * n_chains`` points per walk step. The evidence is ln(mean
-        Z_r), ``logzerr`` the larger of the runs' empirical scatter and the
-        averaged shrinkage estimate, the posterior Z-weighted draws from every
-        run, ``logz_runs`` the per-run evidences. It does not go with
-        ``dynamic`` (a ``ValueError``, as in the JAX package).
+        lockstep: one likelihood call of ``n_runs * n_batch * n_chains``
+        points per walk step. The loop stops when every run has met
+        ``dlogz`` and the pooled Z-weighted ESS reaches ``min_ess``. The
+        evidence is ln(mean Z_r), ``logzerr`` the larger of the runs'
+        empirical scatter and the averaged shrinkage estimate, the posterior
+        Z-weighted draws from every run, ``logz_runs`` the per-run evidences.
+        It does not go with ``dynamic`` (a ``ValueError``, as in the JAX
+        package).
     mesh : an :class:`~isochrones_torch.parallel.Mesh` whose first device is
         the generator's: a single run shards each likelihood call's batch
         (the walk points, the initial live points), ``n_runs > 1`` the run
         axis. ``lnpost_u`` is called on each shard's device.
     """
-    if n_runs > 1:
+    R = int(n_runs)
+    if R > 1:
         if core is not None:
             raise ValueError("core= runs one problem at a time; combine it with n_runs=1")
         if dynamic:
@@ -758,12 +948,6 @@ def run_nested(
                 "dynamic=True supports n_runs=1 — independent runs already "
                 "multiply posterior coverage; combine one or the other"
             )
-        return _run_nested_multi(
-            lnpost_u, prior_transform, n_params, generator, n_live=n_live, max_iter=max_iter, n_chains=n_chains,
-            n_repeat=n_repeat, n_equal=n_equal, dlogz=dlogz, n_batch=n_batch, rng=rng, min_ess=min_ess,
-            on_low_ess=on_low_ess, n_runs=n_runs, checkpoint=checkpoint, resume=resume, config_tag=config_tag,
-            dtype=dtype, device=device, mesh=mesh,
-        )
     hard_cap = max_iter if max_iter is not None else 1000 * n_live
     n_batch = max(1, min(int(n_batch), n_live // 4))
     rng = np.random.default_rng(rng)
@@ -773,59 +957,36 @@ def run_nested(
     g = generator
     dev = g.device
 
-    ckpt_cfg = state = None
-    if checkpoint is not None:
-        ckpt_cfg = dict(
-            version=_CKPT_VERSION, package=_CKPT_PACKAGE, kind="single", n_params=int(n_params),
-            n_live=int(n_live), n_batch=int(n_batch), n_chains=int(n_chains), n_repeat=int(n_repeat),
-            chunk=int(_chunk_dead(n_live)), dtype=str(dtype), device=dev.type,
-            config_tag=None if config_tag is None else str(config_tag),
-        )
-        if core is not None:
-            ckpt_cfg["core"] = f"{core.__module__}.{core.__qualname__}"
-        if resume and os.path.exists(checkpoint):
-            state = _ckpt_load(checkpoint, ckpt_cfg)
-    core_fn = _nested_core if core is None else core
-
     def lnlike_u(u):
         return lnpost_u(prior_transform(u))
+
+    def lnlike_fam(u):  # (R, B, p) -> (R, B) through one call of R * B points
+        return lnlike_u(u.reshape(-1, n_params)).reshape(u.shape[0], -1)
 
     if mesh is not None:
         from ..parallel import check_mesh, mesh_wrap_fn
 
-        lnlike_u = mesh_wrap_fn(lnlike_u, check_mesh(mesh, dev))
+        # a single run's mesh splits each call's batch of points, n_runs > 1's
+        # the run axis
+        if R == 1:
+            lnlike_u = mesh_wrap_fn(lnlike_u, check_mesh(mesh, dev))
+        else:
+            lnlike_fam = mesh_wrap_fn(lnlike_fam, check_mesh(mesh, dev))
 
     def lnlike_host(u_np):
-        out = lnlike_u(torch.as_tensor(u_np, dtype=dtype, device=dev)).cpu().numpy()
+        out = lnlike_fam(torch.as_tensor(u_np, dtype=dtype, device=dev)).cpu().numpy()
         return np.where(np.isnan(out), -np.inf, out)
 
-    chunk_steps = max(_chunk_dead(n_live) // n_batch, 8)
-    running = _RunningEvidence(n_live, n_batch=n_batch)
-    if state is not None:
-        # the loop-carried state at a chunk or round boundary
-        dead_u_chunks = [state["dead_u"]]
-        dead_lnl_chunks = [state["dead_lnl"]]
-        live_u = torch.as_tensor(state["live_u"], dtype=dtype, device=dev)
-        live_lnl = torch.as_tensor(state["live_lnl"], dtype=dtype, device=dev)
-        live_lnl_np = state["live_lnl"]
-        g.set_state(torch.from_numpy(state["generator_state"].copy()))
-        scale = torch.as_tensor(state["scale"], dtype=dtype, device=dev)
-        n_dead_total = int(state["n_dead_total"])
-        running.n_dead = int(state["running_n_dead"])
-        running.ln_x = float(state["running_ln_x"])
-        running.log_s1 = state["running_log_s1"]
-        running.log_s2 = state["running_log_s2"]
-        rng.bit_generator.state = state["rng_state"]
-    else:
-        # initial live points: uniform draws; -inf starts are resampled in
-        # full (n_live, n_params) batches
+    def init_single():
+        # uniform draws; -inf starts are resampled in full (n_live, n_params)
+        # batches
         u0 = np.array(rng.random((n_live, n_params)))
-        lnl0 = lnlike_host(u0)
+        lnl0 = lnlike_host(u0[None])[0]
         bad = ~np.isfinite(lnl0)
         tries = 0
         while bad.any() and tries < 200:
             u_new = rng.random((n_live, n_params))
-            l_new = lnlike_host(u_new)
+            l_new = lnlike_host(u_new[None])[0]
             good_new = np.isfinite(l_new)
             n_take = min(int(bad.sum()), int(good_new.sum()))
             if n_take:
@@ -835,240 +996,11 @@ def run_nested(
                 lnl0[bad_idx] = l_new[good_idx]
             bad = ~np.isfinite(lnl0)
             tries += 1
-        live_u = torch.as_tensor(u0, dtype=dtype, device=dev)
-        live_lnl = torch.as_tensor(lnl0, dtype=dtype, device=dev)
-        live_lnl_np = live_lnl.cpu().numpy()
-        scale = torch.tensor(0.5, dtype=dtype, device=dev)  # whitened units
-        dead_u_chunks = [np.zeros((0, n_params), dtype=live_lnl_np.dtype)]
-        dead_lnl_chunks = [np.zeros(0, dtype=live_lnl_np.dtype)]
-        n_dead_total = 0
+        return torch.as_tensor(u0[None], dtype=dtype, device=dev), torch.as_tensor(lnl0[None], dtype=dtype, device=dev)
 
-    def _terminated():
-        # (a) the live points' evidence bound below dlogz and (b) posterior
-        # ESS at least min_ess; a dynamic run leaves (b) to its threads
-        if running.n_dead == 0:
-            return False
-        logz_dead, ess_now = running.status(live_lnl_np)
-        logz_remain = float(np.max(live_lnl_np)) + running.ln_x
-        dlogz_met = np.exp(logz_remain - np.logaddexp(logz_dead, logz_remain)) < dlogz
-        return bool(dlogz_met and (dynamic or ess_now >= min_ess))
-
-    def _save(phase, thread_segments=None, dynamic_rounds=0):
-        if checkpoint is None:
-            return
-        _ckpt_save(checkpoint, dict(
-            config=ckpt_cfg, phase=phase,
-            dead_u=np.concatenate(dead_u_chunks, axis=0), dead_lnl=np.concatenate(dead_lnl_chunks),
-            live_u=live_u.cpu().numpy(), live_lnl=live_lnl_np,
-            generator_state=g.get_state().numpy().copy(), scale=scale.cpu().numpy(),
-            n_dead_total=n_dead_total,
-            running_n_dead=running.n_dead, running_ln_x=running.ln_x,
-            running_log_s1=running.log_s1, running_log_s2=running.log_s2,
-            rng_state=rng.bit_generator.state,
-            thread_segments=thread_segments, dynamic_rounds=dynamic_rounds,
-        ))
-
-    base_done = state is not None and state["phase"] == "dynamic"
-    while not base_done and n_dead_total < hard_cap and not _terminated():
-        n_steps = min(chunk_steps, max((hard_cap - n_dead_total) // n_batch, 1))
-        du, dl, live_u, live_lnl, scale = core_fn(
-            lnlike_u, live_u, live_lnl, g, scale, n_live, n_steps, n_chains, n_repeat, n_batch=n_batch
-        )
-        # the chunk's one read-back
-        dead_u_chunks.append(du.cpu().numpy())
-        dead_lnl_chunks.append(dl.cpu().numpy())
-        live_lnl_np = live_lnl.cpu().numpy()
-        n_dead_total += n_steps * n_batch
-        running.add(dead_lnl_chunks[-1])
-        _save("base")
-
-    dead_u = np.concatenate(dead_u_chunks, axis=0)
-    dead_lnl = np.concatenate(dead_lnl_chunks)
-    live_u_np = live_u.cpu().numpy()
-    n_dead = len(dead_lnl)
-
-    # ---- host-side weight/evidence assembly (Skilling 2006)
-    order, all_lnl, all_logwt, logz, probs, ess = _assemble_weights(dead_lnl, live_lnl_np, n_live, n_batch=n_batch)
-    all_u = np.concatenate([dead_u, live_u_np[order]], axis=0)
-    finite = np.isfinite(all_logwt)
-    p = np.exp(all_logwt[finite] - logz)
-    h = float(np.sum(p * (all_lnl[finite] - logz)))
-    logzerr = float(np.sqrt(max(h, 0.0) * _logzerr_scale(n_live, n_batch)))
-
-    # ---- dynamic posterior threads
-    dynamic_rounds = 0
-    n_iter_total = n_dead
-    if dynamic and ess < min_ess:
-        segments = [dict(dead_lnl=dead_lnl, live_lnl=live_lnl_np, n_live=n_live, n_batch=n_batch,
-                         L0=-np.inf, all_u=all_u)]
-        if state is not None and state.get("thread_segments"):
-            # completed rounds restore verbatim; an interrupted round replays
-            # from its start, where the generator's state was saved
-            segments.extend(state["thread_segments"])
-            dynamic_rounds = int(state["dynamic_rounds"])
-            n_iter_total += sum(len(s["dead_lnl"]) for s in state["thread_segments"])
-        merged = None
-        while n_dead_total < hard_cap and dynamic_rounds < max_dynamic_rounds:
-            if merged is None:
-                merged = _merge_segments(segments)
-            if merged[5] >= min_ess:
-                break
-            # thread starts: the merged samples just above the activation
-            # threshold, decorrelated by a whitened constrained walk so that
-            # thread deaths are fresh draws. A chain that never accepts stays
-            # a copy of an existing sample (counted twice by the merge): it
-            # is retried at halved step scale before giving up.
-            L_lo, s_u, s_lnl = _thread_starts(merged, posterior_frac, n_live)
-            t_live_u = torch.as_tensor(s_u, dtype=dtype, device=dev)
-            t_live_lnl = torch.as_tensor(s_lnl, dtype=dtype, device=dev)
-            chol = _live_cholesky(t_live_u)
-            lnl_lo = torch.tensor(L_lo, dtype=dtype, device=dev)
-            moved_any = np.zeros(n_live, dtype=bool)
-            w_scale = torch.clamp(scale, max=1.0)
-            for _ in range(3):
-                t_live_u, t_live_lnl, mv, _ = _constrained_walk(
-                    lnlike_u, g, t_live_u, t_live_lnl, lnl_lo, w_scale, n_live, 1, 4 * n_repeat, L=chol
-                )
-                moved_any |= mv.cpu().numpy()
-                if moved_any.all():
-                    break
-                w_scale = w_scale * 0.5
-            if not moved_any.all():
-                getLogger().warning(
-                    "dynamic NS round %d: %d/%d thread starts never moved in the decorrelation walk "
-                    "(duplicated samples slightly overweight the merged posterior there).",
-                    dynamic_rounds, int((~moved_any).sum()), n_live,
-                )
-            # the thread run ends on its own dlogz criterion, in prior-mass
-            # units relative to the thread
-            t_running = _RunningEvidence(n_live, n_batch=n_batch)
-            t_dead_u, t_dead_lnl = [], []
-            while n_dead_total < hard_cap:
-                n_steps = min(chunk_steps, max((hard_cap - n_dead_total) // n_batch, 1))
-                du, dl, t_live_u, t_live_lnl, scale = core_fn(
-                    lnlike_u, t_live_u, t_live_lnl, g, scale, n_live, n_steps, n_chains, n_repeat, n_batch=n_batch
-                )
-                t_dead_u.append(du.cpu().numpy())
-                t_dead_lnl.append(dl.cpu().numpy())
-                n_dead_total += n_steps * n_batch
-                n_iter_total += n_steps * n_batch
-                t_running.add(t_dead_lnl[-1])
-                t_live_now = t_live_lnl.cpu().numpy()
-                t_z, _ = t_running.status(t_live_now)
-                t_remain = float(np.max(t_live_now)) + t_running.ln_x
-                if np.exp(t_remain - np.logaddexp(t_z, t_remain)) < dlogz:
-                    break
-            t_live_u_np = t_live_u.cpu().numpy()
-            t_live_lnl_np = t_live_lnl.cpu().numpy()
-            t_order = np.argsort(t_live_lnl_np)
-            segments.append(dict(
-                dead_lnl=np.concatenate(t_dead_lnl), live_lnl=t_live_lnl_np, n_live=n_live, n_batch=n_batch,
-                L0=L_lo, all_u=np.concatenate(t_dead_u + [t_live_u_np[t_order]], axis=0),
-            ))
-            dynamic_rounds += 1
-            merged = _merge_segments(segments)
-            _save("dynamic", thread_segments=segments[1:], dynamic_rounds=dynamic_rounds)
-        if merged is not None:
-            # the merged assembly is adopted even when no thread ran: the
-            # loop judged the single-segment merge's ESS
-            all_u, all_lnl, all_logwt, logz, probs, ess, h, logzerr = merged
-
-    truncated = ess < min_ess
-    if truncated:
-        if dynamic and dynamic_rounds >= max_dynamic_rounds:
-            hint = (f"the dynamic thread budget ran out (max_dynamic_rounds={max_dynamic_rounds}); "
-                    f"raise max_dynamic_rounds or n_live.")
-        else:
-            hint = "Raise max_iter (or leave it None) or n_live."
-        msg = (
-            f"Nested-sampling posterior ESS is only {ess:.0f} < min_ess={min_ess:.0f} "
-            f"after exhausting the iteration budget (max_iter={max_iter}); "
-            f"quantiles are unreliable. {hint}"
-        )
-        if on_low_ess == "raise":
-            raise RuntimeError(msg)
-        getLogger().warning(msg)
-
-    # equal-weight posterior resampling (the post_equal_weights.dat analog)
-    params_all = prior_transform(torch.as_tensor(all_u, dtype=dtype, device=dev)).cpu().numpy()
-    idx = rng.choice(len(probs), size=n_equal, replace=True, p=probs)
-    return NestedResult(
-        samples=params_all,
-        logl=all_lnl,
-        logwt=all_logwt,
-        logz=float(logz),
-        logzerr=logzerr,
-        h=h,
-        n_iter=n_iter_total,
-        posterior=params_all[idx],
-        logl_posterior=all_lnl[idx],
-        ess=ess,
-        truncated=truncated,
-        dynamic_rounds=dynamic_rounds,
-    )
-
-
-def _run_nested_multi(lnpost_u, prior_transform, n_params, generator, *, n_live, max_iter, n_chains, n_repeat,
-                      n_equal, dlogz, n_batch, rng, min_ess, on_low_ess, n_runs, checkpoint, resume, config_tag,
-                      dtype, device, mesh=None):
-    """``n_runs`` independent runs of one problem advanced in lockstep by
-    :class:`_FamilySteps` (counterpart of the JAX package's
-    ``_run_nested_multi``, ``isochrones_tpu/samplers/nested.py:902-1124``):
-    every run has its own live set and walk scale, and each walk step is one
-    likelihood call over all runs' points. The loop stops when every run has
-    met ``dlogz`` and the pooled Z-weighted ESS reaches ``min_ess``. With
-    ``mesh`` the run axis of each call is split over the shards."""
-    R = int(n_runs)
-    hard_cap = max_iter if max_iter is not None else 1000 * n_live
-    n_batch = max(1, min(int(n_batch), n_live // 4))
-    rng = np.random.default_rng(rng)
-    if generator is None:
-        generator = torch.Generator(device=device if device is not None else "cuda")
-        generator.manual_seed(int(rng.integers(2 ** 31)))
-    g = generator
-    dev = g.device
-
-    def lnlike_fam(u):  # (R, B, p) -> (R, B) through one call of R * B points
-        return lnpost_u(prior_transform(u.reshape(-1, n_params))).reshape(u.shape[0], -1)
-
-    if mesh is not None:
-        from ..parallel import check_mesh, mesh_wrap_fn
-
-        lnlike_fam = mesh_wrap_fn(lnlike_fam, check_mesh(mesh, dev))
-
-    def lnlike_host(u_np):
-        out = lnlike_fam(torch.as_tensor(u_np, dtype=dtype, device=dev)).cpu().numpy()
-        return np.where(np.isnan(out), -np.inf, out)
-
-    ckpt_cfg = state = None
-    if checkpoint is not None:
-        ckpt_cfg = dict(
-            version=_CKPT_VERSION, package=_CKPT_PACKAGE, kind="multi", n_params=int(n_params),
-            n_live=int(n_live), n_batch=int(n_batch), n_chains=int(n_chains), n_repeat=int(n_repeat), n_runs=R,
-            chunk=int(_chunk_dead(n_live)), dtype=str(dtype), device=dev.type,
-            config_tag=None if config_tag is None else str(config_tag),
-        )
-        if resume and os.path.exists(checkpoint):
-            state = _ckpt_load(checkpoint, ckpt_cfg)
-
-    running = _RunningEvidence(n_live, shape=(R,), n_batch=n_batch)
-    if state is not None:
-        dead_u_chunks = [state["dead_u"]]
-        dead_lnl_chunks = [state["dead_lnl"]]
-        live_u = torch.as_tensor(state["live_u"], dtype=dtype, device=dev)
-        live_lnl = torch.as_tensor(state["live_lnl"], dtype=dtype, device=dev)
-        live_lnl_np = state["live_lnl"]
-        g.set_state(torch.from_numpy(state["generator_state"].copy()))
-        scales = torch.as_tensor(state["scale"], dtype=dtype, device=dev)
-        n_dead_total = int(state["n_dead_total"])
-        running.n_dead = int(state["running_n_dead"])
-        running.ln_x = float(state["running_ln_x"])
-        running.log_s1 = state["running_log_s1"]
-        running.log_s2 = state["running_log_s2"]
-        rng.bit_generator.state = state["rng_state"]
-    else:
-        # initial live points per run; -inf starts are resampled in full
-        # (R, n_live, n_params) batches
+    def init_runs():
+        # per run; -inf starts are resampled in full (R, n_live, n_params)
+        # batches
         u0 = rng.random((R, n_live, n_params))
         lnl0 = lnlike_host(u0)
         for _ in range(200):
@@ -1080,67 +1012,83 @@ def _run_nested_multi(lnpost_u, prior_transform, n_params, generator, *, n_live,
             take = bad & np.isfinite(l_new)
             u0 = np.where(take[..., None], u_new, u0)
             lnl0 = np.where(take, l_new, lnl0)
-        live_u = torch.as_tensor(u0, dtype=dtype, device=dev)
-        live_lnl = torch.as_tensor(lnl0, dtype=dtype, device=dev)
-        live_lnl_np = live_lnl.cpu().numpy()
-        scales = torch.full((R,), 0.5, dtype=dtype, device=dev)
-        dead_u_chunks = [np.zeros((R, 0, n_params), dtype=live_lnl_np.dtype)]
-        dead_lnl_chunks = [np.zeros((R, 0), dtype=live_lnl_np.dtype)]
-        n_dead_total = 0
-    chunk_steps = max(_chunk_dead(n_live) // n_batch, 8)
-    steps = _FamilySteps(lnlike_fam, g, n_live, n_chains, n_repeat, n_batch)
+        return torch.as_tensor(u0, dtype=dtype, device=dev), torch.as_tensor(lnl0, dtype=dtype, device=dev)
 
-    def _terminated():
-        if running.n_dead == 0:
-            return False
-        done, ess_now, logz_dead = _family_terminated(running, live_lnl_np, dlogz)
-        # the ESS gate is the pooled ESS of the Z-weighted mixture, as the
-        # final report computes it
+    def pooled_stop(running, live_lnl_np):
+        # every run has met dlogz, and the pooled ESS of the Z-weighted
+        # mixture, as the final report computes it, reaches min_ess
+        met, ess_now, logz_dead = _family_terminated(running, live_lnl_np, dlogz)
         if np.any(np.isfinite(logz_dead)):
             zw = np.exp(logz_dead - np.logaddexp.reduce(logz_dead))
         else:
             zw = np.full(R, 1.0 / R)
         pooled_ess = 1.0 / np.sum(zw ** 2 / np.maximum(ess_now, 1e-12))
-        return bool(done.all() and pooled_ess >= min_ess)
+        return np.full(R, met.all() and pooled_ess >= min_ess)
 
-    while n_dead_total < hard_cap and not _terminated():
-        n_steps = min(chunk_steps, max((hard_cap - n_dead_total) // n_batch, 1))
-        du, dl, live_u, live_lnl, scales = steps.chunk(live_u, live_lnl, scales, n_steps)
-        dead_u_chunks.append(du.cpu().numpy())  # (R, n_steps * K, p)
-        dead_lnl_chunks.append(dl.cpu().numpy())
-        live_lnl_np = live_lnl.cpu().numpy()
-        n_dead_total += n_steps * n_batch
-        running.add(dead_lnl_chunks[-1])
-        if checkpoint is not None:
-            _ckpt_save(checkpoint, dict(
-                config=ckpt_cfg, phase="base",
-                dead_u=np.concatenate(dead_u_chunks, axis=1), dead_lnl=np.concatenate(dead_lnl_chunks, axis=1),
-                live_u=live_u.cpu().numpy(), live_lnl=live_lnl_np,
-                generator_state=g.get_state().numpy().copy(), scale=scales.cpu().numpy(),
-                n_dead_total=n_dead_total,
-                running_n_dead=running.n_dead, running_ln_x=running.ln_x,
-                running_log_s1=running.log_s1, running_log_s2=running.log_s2,
-                rng_state=rng.bit_generator.state,
-            ))
+    chunk = None
+    ckpt_extra = dict(n_runs=R) if R > 1 else {}
+    if core is not None:
+        ckpt_extra = dict(core=f"{core.__module__}.{core.__qualname__}")
 
-    dead_u = np.concatenate(dead_u_chunks, axis=1)
-    dead_lnl = np.concatenate(dead_lnl_chunks, axis=1)
-    live_u_np = live_u.cpu().numpy()
+        def chunk(u, lnl, scale, n_iter):
+            # core= steps one problem: the family of one loses its axis and
+            # gets it back
+            out = core(lnlike_u, u[0], lnl[0], g, scale[0], n_live, n_iter, n_chains, n_repeat, n_batch=n_batch)
+            return tuple(t[None] for t in out)
 
-    # ---- per-run assembly, then the Z-weighted combination
+    run = _run_family(
+        lnlike_fam, init_single if R == 1 else init_runs, g, rng, kind="single" if R == 1 else "multi",
+        n_params=n_params, n_live=n_live, n_batch=n_batch, n_chains=n_chains, n_repeat=n_repeat, hard_cap=hard_cap,
+        dlogz=dlogz, min_ess=min_ess, dtype=dtype, stop=None if R == 1 else pooled_stop, dynamic=dynamic,
+        posterior_frac=posterior_frac, max_dynamic_rounds=max_dynamic_rounds, checkpoint=checkpoint, resume=resume,
+        config_tag=config_tag, ckpt_extra=ckpt_extra, chunk=chunk,
+    )
+
+    if R == 1:
+        all_u, all_lnl, all_logwt, logz, probs, ess, h, logzerr = run.problem(0)
+        truncated = ess < min_ess
+        if truncated:
+            if dynamic and run.dynamic_rounds >= max_dynamic_rounds:
+                hint = (f"the dynamic thread budget ran out (max_dynamic_rounds={max_dynamic_rounds}); "
+                        f"raise max_dynamic_rounds or n_live.")
+            else:
+                hint = "Raise max_iter (or leave it None) or n_live."
+            msg = (
+                f"Nested-sampling posterior ESS is only {ess:.0f} < min_ess={min_ess:.0f} "
+                f"after exhausting the iteration budget (max_iter={max_iter}); "
+                f"quantiles are unreliable. {hint}"
+            )
+            if on_low_ess == "raise":
+                raise RuntimeError(msg)
+            getLogger().warning(msg)
+
+        # equal-weight posterior resampling (the post_equal_weights.dat analog)
+        params_all = prior_transform(torch.as_tensor(all_u, dtype=dtype, device=dev)).cpu().numpy()
+        idx = rng.choice(len(probs), size=n_equal, replace=True, p=probs)
+        return NestedResult(
+            samples=params_all,
+            logl=all_lnl,
+            logwt=all_logwt,
+            logz=float(logz),
+            logzerr=logzerr,
+            h=h,
+            n_iter=run.n_dead,
+            posterior=params_all[idx],
+            logl_posterior=all_lnl[idx],
+            ess=ess,
+            truncated=truncated,
+            dynamic_rounds=run.dynamic_rounds,
+        )
+
+    # ---- n_runs > 1 (the JAX package's ``_run_nested_multi``,
+    # isochrones_tpu/samplers/nested.py:902-1124): each run's assembly, then
+    # the Z-weighted combination
     logz_runs = np.empty(R)
     h_runs = np.empty(R)
     ess_runs = np.empty(R)
     run_samples, run_logl, run_logwt, run_probs = [], [], [], []
     for r in range(R):
-        order, all_lnl, all_logwt, lz, probs, e = _assemble_weights(dead_lnl[r], live_lnl_np[r], n_live,
-                                                                    n_batch=n_batch)
-        all_u = np.concatenate([dead_u[r], live_u_np[r][order]], axis=0)
-        finite = np.isfinite(all_logwt)
-        p = np.exp(all_logwt[finite] - lz)
-        h_runs[r] = float(np.sum(p * (all_lnl[finite] - lz)))
-        logz_runs[r] = lz
-        ess_runs[r] = e
+        all_u, all_lnl, all_logwt, logz_runs[r], probs, ess_runs[r], h_runs[r], _ = run.problem(r)
         run_samples.append(prior_transform(torch.as_tensor(all_u, dtype=dtype, device=dev)).cpu().numpy())
         run_logl.append(all_lnl)
         run_logwt.append(all_logwt - np.log(R))  # so that the sum over all runs is mean Z_r
@@ -1184,7 +1132,7 @@ def _run_nested_multi(lnpost_u, prior_transform, n_params, generator, *, n_live,
         logz=logz,
         logzerr=logzerr,
         h=float(np.mean(h_runs)),
-        n_iter=int(dead_lnl.shape[1]) * R,
+        n_iter=run.n_dead * R,
         posterior=np.concatenate(post_chunks, axis=0),
         logl_posterior=np.concatenate(post_lnl_chunks),
         ess=ess,
@@ -1227,7 +1175,7 @@ def run_nested_vmapped(
     problem keeps its own live set and walk scale, termination is per problem
     (``dlogz``, and ``min_ess`` unless ``dynamic``), and the chunk loop stops
     when every problem is done; problems already done keep shrinking with the
-    others. It is the engine of ``BatchStarFitter.fit_multinest``.
+    others. It is the sampler of ``BatchStarFitter.fit_multinest``.
 
     lnlike_u : ``lnlike_u(data, u)`` maps unit-cube points (M, B, n_params) to
         ln-likelihoods (M, B) for the whole family in one call. This takes the
@@ -1301,176 +1249,17 @@ def run_nested_vmapped(
     def fam(u):
         return family(data, u)
 
+    def init():
+        return torch.as_tensor(live_u, dtype=dtype, device=dev), torch.as_tensor(live_lnl, dtype=dtype, device=dev)
+
     # the base runs' and the threads' steps, replayed as one CUDA graph where
     # that engages, else eager
-    steps = _FamilySteps(fam, g, n_live, n_chains, n_repeat, n_batch, graphed=_graphed(dev, mesh))
-
-    ckpt_cfg = state = None
-    if checkpoint is not None:
-        ckpt_cfg = dict(
-            version=_CKPT_VERSION, package=_CKPT_PACKAGE, kind="vmapped", n_params=int(n_params),
-            n_live=int(n_live), n_batch=int(n_batch), n_chains=int(n_chains), n_repeat=int(n_repeat),
-            n_problems=int(M), chunk=int(_chunk_dead(n_live)), dtype=str(dtype), device=dev.type,
-            config_tag=None if config_tag is None else str(config_tag),
-        )
-        if resume and os.path.exists(checkpoint):
-            state = _ckpt_load(checkpoint, ckpt_cfg)
-
-    chunk_steps = max(_chunk_dead(n_live) // n_batch, 8)
-    running = _RunningEvidence(n_live, shape=(M,), n_batch=n_batch)
-    if state is not None:
-        dead_u_chunks = [state["dead_u"]]
-        dead_lnl_chunks = [state["dead_lnl"]]
-        live_u = torch.as_tensor(state["live_u"], dtype=dtype, device=dev)
-        live_lnl = torch.as_tensor(state["live_lnl"], dtype=dtype, device=dev)
-        g.set_state(torch.from_numpy(state["generator_state"].copy()))
-        scales = torch.as_tensor(state["scale"], dtype=dtype, device=dev)
-        n_dead_total = int(state["n_dead_total"])
-        running.n_dead = int(state["running_n_dead"])
-        running.ln_x = float(state["running_ln_x"])
-        running.log_s1 = state["running_log_s1"]
-        running.log_s2 = state["running_log_s2"]
-        rng.bit_generator.state = state["rng_state"]
-    else:
-        live_u = torch.as_tensor(live_u, dtype=dtype, device=dev)
-        live_lnl = torch.as_tensor(live_lnl, dtype=dtype, device=dev)
-        scales = torch.full((M,), 0.5, dtype=dtype, device=dev)
-        np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
-        dead_u_chunks = [np.zeros((M, 0, n_params), dtype=np_dtype)]
-        dead_lnl_chunks = [np.zeros((M, 0), dtype=np_dtype)]
-        n_dead_total = 0
-    live_lnl_np = live_lnl.cpu().numpy()
-    done = np.zeros(M, dtype=bool)
-
-    def _base_terminated():
-        # the base runs stop on the evidence alone in a dynamic run, whose
-        # threads take care of the ESS
-        nonlocal done
-        if running.n_dead == 0:
-            return False
-        met, ess_now, _ = _family_terminated(running, live_lnl_np, dlogz)
-        done = met if dynamic else met & (ess_now >= min_ess)
-        return bool(done.all())
-
-    def _save(phase, thread_segments=None, dyn_rounds=0):
-        if checkpoint is None:
-            return
-        _ckpt_save(checkpoint, dict(
-            config=ckpt_cfg, phase=phase,
-            dead_u=np.concatenate(dead_u_chunks, axis=1), dead_lnl=np.concatenate(dead_lnl_chunks, axis=1),
-            live_u=live_u.cpu().numpy(), live_lnl=live_lnl_np,
-            generator_state=g.get_state().numpy().copy(), scale=scales.cpu().numpy(),
-            n_dead_total=n_dead_total,
-            running_n_dead=running.n_dead, running_ln_x=running.ln_x,
-            running_log_s1=running.log_s1, running_log_s2=running.log_s2,
-            rng_state=rng.bit_generator.state,
-            thread_segments=thread_segments, dynamic_rounds=dyn_rounds,
-        ))
-
-    stop = (state is not None and state["phase"] == "dynamic") or _base_terminated()
-    while not stop and n_dead_total < hard_cap:
-        n_steps = min(chunk_steps, max((hard_cap - n_dead_total) // n_batch, 1))
-        with span("nested.chunk"):
-            du, dl, live_u, live_lnl, scales = steps.chunk(live_u, live_lnl, scales, n_steps)
-        with span("nested.readback"):  # the chunk's one read-back
-            dead_u_chunks.append(du.cpu().numpy())  # (M, n_steps * K, n_params)
-            dead_lnl_chunks.append(dl.cpu().numpy())
-            live_lnl_np = live_lnl.cpu().numpy()
-        n_dead_total += n_steps * n_batch
-        with span("nested.evidence"):
-            running.add(dead_lnl_chunks[-1])
-            stop = _base_terminated()
-        _save("base")
-    # a restored dynamic phase skips the loop's check: `done` for the final
-    # report
-    _base_terminated()
-
-    dead_u = np.concatenate(dead_u_chunks, axis=1)
-    dead_lnl = np.concatenate(dead_lnl_chunks, axis=1)
-    live_u_np = live_u.cpu().numpy()
-
-    # ---- dynamic posterior threads, the whole family in lockstep
-    merged = None
-    dynamic_rounds = 0
-    if dynamic:
-        segments = []
-        for s in range(M):
-            order_s = np.argsort(live_lnl_np[s])
-            segments.append([dict(
-                dead_lnl=dead_lnl[s], live_lnl=live_lnl_np[s], n_live=n_live, n_batch=n_batch, L0=-np.inf,
-                all_u=np.concatenate([dead_u[s], live_u_np[s][order_s]], axis=0),
-            )])
-        if state is not None and state.get("thread_segments"):
-            # completed rounds restore verbatim; an interrupted round replays
-            # from its start, where the generator's state was saved
-            for s in range(M):
-                segments[s].extend(state["thread_segments"][s])
-            dynamic_rounds = int(state["dynamic_rounds"])
-        merged = [_merge_segments(segs) for segs in segments]
-
-        while n_dead_total < hard_cap and dynamic_rounds < max_dynamic_rounds:
-            ess_m = np.array([mg[5] for mg in merged])
-            if (ess_m >= min_ess).all():
-                break
-            starts = np.empty((M, n_live, n_params))
-            starts_lnl = np.empty((M, n_live))
-            L_los = np.empty(M)
-            for s in range(M):
-                L_los[s], starts[s], starts_lnl[s] = _thread_starts(merged[s], posterior_frac, n_live)
-
-            # decorrelate the copied starts; a problem whose chains never
-            # accept retries at a halved scale (at most 1 in whitened units)
-            t_live_u = torch.as_tensor(starts, dtype=dtype, device=dev)
-            t_live_lnl = torch.as_tensor(starts_lnl, dtype=dtype, device=dev)
-            L_los_t = torch.as_tensor(L_los, dtype=dtype, device=dev)
-            moved_any = np.zeros((M, n_live), dtype=bool)
-            w_scales = np.minimum(scales.cpu().numpy(), 1.0)
-            for _ in range(3):
-                chol = _live_cholesky_family(t_live_u)
-                t_live_u, t_live_lnl, mv, _ = _constrained_walk_family(
-                    fam, g, t_live_u, t_live_lnl, L_los_t, torch.as_tensor(w_scales, dtype=dtype, device=dev),
-                    n_live, 1, 4 * n_repeat, L=chol,
-                )
-                moved_any |= mv.cpu().numpy()
-                if moved_any.all():
-                    break
-                w_scales = np.where(moved_any.all(axis=1), w_scales, w_scales * 0.5)
-            if not moved_any.all():
-                getLogger().warning(
-                    "run_nested_vmapped dynamic round %d: %d thread starts never moved in the decorrelation walk "
-                    "(duplicated samples slightly overweight the merged posterior).",
-                    dynamic_rounds, int((~moved_any).sum()),
-                )
-
-            # the threads end on their own dlogz (in thread-relative prior
-            # mass); those done keep shrinking until all are
-            t_running = _RunningEvidence(n_live, shape=(M,), n_batch=n_batch)
-            t_dead_u_chunks, t_dead_lnl_chunks = [], []
-            while n_dead_total < hard_cap:
-                n_steps = min(chunk_steps, max((hard_cap - n_dead_total) // n_batch, 1))
-                du, dl, t_live_u, t_live_lnl, scales = steps.chunk(t_live_u, t_live_lnl, scales, n_steps)
-                t_dead_u_chunks.append(du.cpu().numpy())
-                t_dead_lnl_chunks.append(dl.cpu().numpy())
-                n_dead_total += n_steps * n_batch
-                t_running.add(t_dead_lnl_chunks[-1])
-                if _family_terminated(t_running, t_live_lnl.cpu().numpy(), dlogz)[0].all():
-                    break
-
-            t_dead_u = np.concatenate(t_dead_u_chunks, axis=1)
-            t_dead_lnl = np.concatenate(t_dead_lnl_chunks, axis=1)
-            t_live_u_np = t_live_u.cpu().numpy()
-            t_live_lnl_np = t_live_lnl.cpu().numpy()
-            for s in range(M):
-                t_order = np.argsort(t_live_lnl_np[s])
-                segments[s].append(dict(
-                    dead_lnl=t_dead_lnl[s], live_lnl=t_live_lnl_np[s], n_live=n_live, n_batch=n_batch, L0=L_los[s],
-                    all_u=np.concatenate([t_dead_u[s], t_live_u_np[s][t_order]], axis=0),
-                ))
-            merged = [_merge_segments(segs) for segs in segments]
-            dynamic_rounds += 1
-            _save("dynamic", thread_segments=[segs[1:] for segs in segments], dyn_rounds=dynamic_rounds)
-        # the merged assembly is kept even when no thread ran: the loop
-        # judged the single-segment merge's ESS
+    run = _run_family(
+        fam, init, g, rng, kind="vmapped", n_params=n_params, n_live=n_live, n_batch=n_batch, n_chains=n_chains,
+        n_repeat=n_repeat, hard_cap=hard_cap, dlogz=dlogz, min_ess=min_ess, dtype=dtype, dynamic=dynamic,
+        posterior_frac=posterior_frac, max_dynamic_rounds=max_dynamic_rounds, checkpoint=checkpoint, resume=resume,
+        config_tag=config_tag, ckpt_extra=dict(n_problems=int(M)), graphed=_graphed(dev, mesh),
+    )
 
     # ---- per-problem evidence and equal-weight posterior
     logz = np.empty(M)
@@ -1480,25 +1269,13 @@ def run_nested_vmapped(
     lnl_eq = np.empty((M, n_equal))
     with span("nested.weights"):
         for s in range(M):
-            if merged is not None:
-                all_u, all_lnl, _, lz, probs, e, _h, lzerr = merged[s]
-                logzerr[s] = lzerr
-            else:
-                order, all_lnl, all_logwt, lz, probs, e = _assemble_weights(dead_lnl[s], live_lnl_np[s], n_live,
-                                                                            n_batch=n_batch)
-                all_u = np.concatenate([dead_u[s], live_u_np[s][order]], axis=0)
-                finite = np.isfinite(all_logwt)
-                p = np.exp(all_logwt[finite] - lz)
-                h = float(np.sum(p * (all_lnl[finite] - lz)))
-                logzerr[s] = np.sqrt(max(h, 0.0) * _logzerr_scale(n_live, n_batch))
-            logz[s] = lz
-            ess[s] = e
-            if not np.isfinite(lz) or probs.sum() <= 0:
+            all_u, all_lnl, _, logz[s], probs, ess[s], _, logzerr[s] = run.problem(s)
+            if not np.isfinite(logz[s]) or probs.sum() <= 0:
                 # no posterior support anywhere: NaN draws for this problem,
                 # the family goes on
                 getLogger().warning(
                     "run_nested_vmapped: %s %d has no posterior support (logz=%s); returning NaN samples for it.",
-                    label, s, lz,
+                    label, s, logz[s],
                 )
                 samples_u[s] = np.nan
                 lnl_eq[s] = -np.inf
@@ -1507,7 +1284,7 @@ def run_nested_vmapped(
             samples_u[s] = all_u[idx]
             lnl_eq[s] = all_lnl[idx]
 
-    converged = done & (ess >= min_ess) if dynamic else done
+    converged = run.done & (ess >= min_ess) if dynamic else run.done
     if not converged.all():
         hint = "raise max_dynamic_rounds or n_live" if dynamic else "raise max_iter or n_live"
         getLogger().warning(
@@ -1517,6 +1294,6 @@ def run_nested_vmapped(
         )
 
     return dict(
-        logz=logz, logzerr=logzerr, ess=ess, n_dead=n_dead_total, converged=converged, samples_u=samples_u,
-        lnl=lnl_eq, dynamic_rounds=dynamic_rounds,
+        logz=logz, logzerr=logzerr, ess=ess, n_dead=run.n_dead, converged=converged, samples_u=samples_u,
+        lnl=lnl_eq, dynamic_rounds=run.dynamic_rounds,
     )

@@ -24,7 +24,7 @@ from typing import Callable
 
 import torch
 
-from .nested import NestedResult, _live_cholesky, run_nested
+from .nested import NestedResult, _live_cholesky_family, run_nested
 
 __all__ = ["run_polychord"]
 
@@ -35,7 +35,7 @@ _N_SHRINK = 8  # shrinkage rejections per slice move
 def _whitening(live_u):
     """Cholesky factor of the live points' covariance (the slice sampler
     takes a larger jitter than the walk kernel)."""
-    return _live_cholesky(live_u, jitter=1e-10)
+    return _live_cholesky_family(live_u[None], jitter=1e-10)[0]
 
 
 def _slice_move(lnlike_u, g, x0, lnl_star, L, w0):
@@ -94,10 +94,9 @@ def _slice_move(lnlike_u, g, x0, lnl_star, L, w0):
 
 
 def _polychord_core(lnlike_u, u, lnl, g, scale, n_live, n_iter, n_chains, n_repeat, n_batch=1):
-    """The slice-sampling replacement with :func:`.nested._nested_core`'s
-    signature and carry and return contract, so that
-    :func:`.nested.run_nested` drives it. ``n_chains`` is unused (a slice
-    move is one chain, as PolyChord's)."""
+    """The slice-sampling replacement, with the signature and the carry and
+    return contract of :func:`.nested.run_nested`'s ``core=``, which drives
+    it. ``n_chains`` is unused (a slice move is one chain, as PolyChord's)."""
     K = n_batch
     dead_u, dead_lnl = [], []
     for _ in range(n_iter):

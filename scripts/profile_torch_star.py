@@ -8,7 +8,8 @@ The bench's binary at the MIST-scale synthetic grid in float32 (the setup of
 ``chip_smoke.py`` phases 7-8). It times one ``lnpost_batch`` at the
 sampler's batch (n_batch * n_chains = 1024 points) through the kernel and
 through the plain path, then traces a steady window of nested-sampling steps
-(``_nested_core`` at n_live 1000, n_batch 64, n_chains 16) with
+(``_FamilySteps.chunk`` on a family of one, as ``run_nested`` steps a
+single run, at n_live 1000, n_batch 64, n_chains 16) with
 ``torch.profiler``: wall-clock per step, device-busy share (sum of kernel
 times over the window), launches per step, the star kernel's time per launch
 and share of the device-busy time, and the kernels that take the most device
@@ -28,7 +29,7 @@ import isochrones_torch.starmodel as star_mod
 from chip_smoke import GRID, STAR_BOX, profile_kernels, star_observations, star_points
 from isochrones_torch.ops.star import star_lnlike_fused_plain
 from isochrones_torch.ops.star_cuda import star_lnlike_cuda
-from isochrones_torch.samplers.nested import _nested_core
+from isochrones_torch.samplers.nested import _FamilySteps
 
 N_LIVE, N_BATCH, N_CHAINS, N_REPEAT = 1000, 64, 16, 24
 
@@ -76,19 +77,23 @@ def main():
     def lnlike_u(u):
         return model.lnpost_batch(model.prior_transform_batch(u))
 
+    def lnlike_fam(u):  # a family of one, as run_nested calls it
+        return lnlike_u(u.reshape(-1, model.n_params)).reshape(1, -1)
+
     u = torch.empty((0, model.n_params), device=dev)
     while u.shape[0] < N_LIVE:
         cand = torch.rand((4 * N_LIVE, model.n_params), generator=g, device=dev)
         u = torch.cat([u, cand[torch.isfinite(lnlike_u(cand))]])
-    u = u[:N_LIVE].contiguous()
-    lnl = lnlike_u(u)
-    scale = torch.tensor(0.5, device=dev)
-    _, _, u, lnl, scale = _nested_core(lnlike_u, u, lnl, g, scale, N_LIVE, 8, N_CHAINS, N_REPEAT, N_BATCH)
+    u = u[:N_LIVE][None].contiguous()
+    lnl = lnlike_fam(u)
+    scale = torch.full((1,), 0.5, device=dev)
+    steps = _FamilySteps(lnlike_fam, g, N_LIVE, N_CHAINS, N_REPEAT, N_BATCH)
+    _, _, u, lnl, scale = steps.chunk(u, lnl, scale, 8)
     torch.cuda.synchronize()
 
     star_lnlike_cuda.launches = 0
     wall, by_name = profile_kernels(
-        lambda: _nested_core(lnlike_u, u, lnl, g, scale, N_LIVE, args.steps, N_CHAINS, N_REPEAT, N_BATCH))
+        lambda: steps.chunk(u, lnl, scale, args.steps))
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     star_ms = sum(ms for name, (ms, _) in by_name.items() if "star_lnlike" in name)

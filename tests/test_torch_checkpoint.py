@@ -64,6 +64,30 @@ def test_single_run_resume_bitwise(tmp_path, dtype):
     assert resumed.samples.dtype == full.samples.dtype
 
 
+def test_single_run_checkpoint_keeps_its_layout(tmp_path):
+    """A single run's checkpoint holds its arrays without the family's
+    problem axis, and its threads as one list of segments, so that the
+    checkpoints written before single runs stepped as families of one
+    resume."""
+    ck = str(tmp_path / "ns.ckpt")
+    _run(max_iter=256, checkpoint=ck)
+    with open(ck, "rb") as f:
+        state = pickle.load(f)
+    assert (state["config"]["kind"], state["phase"], state["thread_segments"]) == ("single", "base", None)
+    assert state["dead_u"].shape == (256, 2) and state["dead_lnl"].shape == (256,)
+    assert state["live_u"].shape == (100, 2) and state["live_lnl"].shape == (100,)
+    assert isinstance(state["scale"], np.ndarray) and state["scale"].shape == ()
+    assert np.ndim(state["running_log_s1"]) == np.ndim(state["running_log_s2"]) == 0
+
+    ck = str(tmp_path / "dyn.ckpt")
+    _run(seed=7, rng=9, checkpoint=ck, dynamic=True, min_ess=1200, max_dynamic_rounds=1)
+    with open(ck, "rb") as f:
+        state = pickle.load(f)
+    assert state["phase"] == "dynamic" and state["dynamic_rounds"] == 1
+    thread, = state["thread_segments"]
+    assert thread["dead_lnl"].ndim == 1 and thread["all_u"].shape == (len(thread["dead_lnl"]) + 100, 2)
+
+
 def test_single_run_resume_after_complete_is_stable(tmp_path):
     ck = str(tmp_path / "ns.ckpt")
     full = _run(checkpoint=ck)

@@ -85,13 +85,15 @@ def test_running_evidence_matches_jax():
 
 
 def test_live_cholesky_matches_jax():
+    """The family factor of a family of one against the JAX package's
+    single-run factor."""
     rng = np.random.default_rng(3)
     u = rng.random((200, 5))
     u[:, 1] = 0.5 * u[:, 0] + 0.1 * u[:, 1]  # correlated columns
-    got = tn._live_cholesky(torch.as_tensor(u)).numpy()
+    got = tn._live_cholesky_family(torch.as_tensor(u)[None])[0].numpy()
     ref = np.asarray(jn._live_cholesky(jnp.asarray(u)))
     np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-15)
-    bad = tn._live_cholesky(torch.as_tensor(np.full((10, 3), np.nan))).numpy()
+    bad = tn._live_cholesky_family(torch.as_tensor(np.full((1, 10, 3), np.nan)))[0].numpy()
     assert np.isnan(bad).all()  # a failed factorization is NaN, as JAX's
 
 
@@ -104,33 +106,19 @@ def _ring_lnlike(u):
 
 
 def test_constrained_walk_invariants():
+    """The walk of a family of one (no factor: unwhitened proposals)."""
     g = torch.Generator()
     g.manual_seed(0)
-    start = 0.5 + 0.05 * torch.randn((6 * 4, 3), generator=g, dtype=torch.float64)
+    start = 0.5 + 0.05 * torch.randn((1, 6 * 4, 3), generator=g, dtype=torch.float64)
     lnl0 = _ring_lnlike(start)
-    lnl_star = torch.tensor(-0.2, dtype=torch.float64)
-    x, lnl, moved, acc = tn._constrained_walk(_ring_lnlike, g, start, lnl0, lnl_star, torch.tensor(0.3), 6, 4, 10)
-    assert x.shape == (6, 3) and lnl.shape == (6,) and moved.shape == (6,)
+    lnl_star = torch.tensor([-0.2], dtype=torch.float64)
+    x, lnl, moved, acc = tn._constrained_walk_family(_ring_lnlike, g, start, lnl0, lnl_star,
+                                                     torch.tensor([0.3], dtype=torch.float64), 6, 4, 10)
+    assert x.shape == (1, 6, 3) and lnl.shape == (1, 6) and moved.shape == (1, 6) and acc.shape == (1,)
     assert ((x >= 0) & (x <= 1)).all()
     assert torch.equal(lnl, _ring_lnlike(x))
     assert (lnl[moved] > lnl_star).all()
     assert 0.0 < float(acc) < 1.0
-
-
-def test_nested_core_dead_points_ascend_within_batches():
-    g = torch.Generator()
-    g.manual_seed(1)
-    n_live, K, n_iter = 64, 8, 12
-    u = torch.rand((n_live, 3), generator=g, dtype=torch.float64) * 0.4 + 0.3
-    lnl = _ring_lnlike(u)
-    du, dl, u2, l2, scale = tn._nested_core(_ring_lnlike, u, lnl, g, torch.tensor(0.5, dtype=torch.float64),
-                                            n_live, n_iter, 4, 8, n_batch=K)
-    assert du.shape == (n_iter * K, 3) and dl.shape == (n_iter * K,)
-    batches = dl.reshape(n_iter, K)
-    assert (batches[:, 1:] >= batches[:, :-1]).all()  # ascending lnL within each batch
-    assert (batches[1:, 0] >= batches[:-1, -1]).all()  # thresholds rise batch to batch
-    assert (l2 >= dl.max()).all() and torch.isfinite(l2).all()
-    assert 1e-4 <= float(scale) <= 4.0
 
 
 def _gauss(d, sig):
@@ -252,12 +240,17 @@ def test_dynamic_run_reaches_min_ess():
     assert abs(dyn.logz - truth) < 3 * dyn.logzerr, (dyn.logz, dyn.logzerr, truth)
     np.testing.assert_allclose(dyn.posterior.std(0), sig, rtol=0.15)
     assert (np.diff(dyn.logl) >= 0).all()  # merged rows ascend in lnL
-    # where the base run already has the samples, no thread runs, and the
-    # merged single-segment assembly is the static one
+    # where the base run already has the samples, no thread runs: the run is
+    # the static run's points, weighed by the merge of its one segment
     static = tn.run_nested(lnpost, transform, d, gen(), **kw)
     idle = tn.run_nested(lnpost, transform, d, gen(), dynamic=True, **kw)
     assert static.dynamic_rounds == idle.dynamic_rounds == 0 and static.n_iter == idle.n_iter == base.n_iter
-    assert idle.logz == pytest.approx(static.logz, rel=1e-12) and idle.ess == pytest.approx(static.ess, rel=1e-9)
+    n = static.n_iter
+    merged = tn._merge_segments([dict(dead_lnl=static.logl[:n], live_lnl=static.logl[n:], n_live=100, n_batch=8,
+                                      L0=-np.inf, all_u=static.samples)])
+    for got, want in zip((idle.samples, idle.logl, idle.logwt), merged[:3]):
+        np.testing.assert_array_equal(got, want)
+    assert (idle.logz, idle.ess, idle.h, idle.logzerr) == (merged[3], merged[5], merged[6], merged[7])
 
 
 @pytest.fixture(scope="module")

@@ -82,22 +82,27 @@ def test_family_matches_jax_and_analytic():
     assert (got["lnl"] > -20).all() and got["n_dead"] % KW["n_batch"] == 0
 
 
-def test_family_core_invariants():
-    """Per problem: dead points ascending within each batch, the scattered
-    replacements above the batch threshold, every point in the cube."""
-    c, u0, l0 = _start()
+@pytest.mark.parametrize("M", [3, 1], ids=["three_problems", "family_of_one"])
+def test_family_core_invariants(M):
+    """Per problem: dead points ascending within each batch, the thresholds
+    rising batch to batch, the scattered replacements above every dead point,
+    every point in the cube, the scales in their clamp. A family of one is
+    how a single run steps."""
+    c, u0, l0 = _start(CENTERS[:M])
     g = torch.Generator()
     g.manual_seed(0)
     u, lnl = torch.as_tensor(u0), torch.as_tensor(l0)
-    scale = torch.full((3,), 0.5, dtype=torch.float64)
+    scale = torch.full((M,), 0.5, dtype=torch.float64)
     steps = tn._FamilySteps(lambda x: lnlike_fam(c, x), g, 80, 4, 8, 8)
     du, dl, u2, l2, s2 = steps.chunk(u, lnl, scale, 5)
-    assert du.shape == (3, 40, 2) and dl.shape == (3, 40) and s2.shape == (3,)
-    batches = dl.reshape(3, 5, 8)
+    assert du.shape == (M, 40, 2) and dl.shape == (M, 40) and s2.shape == (M,)
+    batches = dl.reshape(M, 5, 8)
     assert (batches[..., 1:] >= batches[..., :-1]).all()
-    assert (l2.min(dim=1).values >= batches[:, -1, -1]).all()
+    assert (batches[:, 1:, 0] >= batches[:, :-1, -1]).all()
+    assert (l2.min(dim=1).values >= dl.max(dim=1).values).all() and torch.isfinite(l2).all()
     assert ((u2 >= 0) & (u2 <= 1)).all()
     np.testing.assert_array_equal(l2.numpy(), lnlike_fam(c, u2).numpy())
+    assert ((s2 >= 1e-4) & (s2 <= 4.0)).all()
 
 
 def test_no_support_problem_gives_nan_while_others_converge():

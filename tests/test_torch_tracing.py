@@ -15,7 +15,7 @@ import torch
 
 from isochrones_torch import StarCatalog, get_ichrone, tracing
 from isochrones_torch.batch import BatchStarFitter
-from isochrones_torch.samplers.nested import run_nested_vmapped
+from isochrones_torch.samplers.nested import run_nested, run_nested_vmapped
 from isochrones_torch.summary import summarize_batch
 
 SIGMA = 0.05
@@ -183,6 +183,22 @@ def test_family_spans_nest(family):
         assert inside(spans[name], spans["nested.run"]) == [1] * len(spans[name]), name
     assert set(spans) == {"nested.run", "nested.chunk", "nested.readback", "nested.evidence", "nested.step",
                           "nested.walk_step", "nested.weights"}
+
+
+def test_single_run_spans():
+    """A single run steps as a family of one: the same chunk, read-back,
+    evidence, step and walk-step spans as the family's, nested alike."""
+    g = torch.Generator()
+    g.manual_seed(5)
+    kw = {k: FAMILY[k] for k in ("n_live", "n_batch", "n_chains", "n_repeat", "max_iter", "min_ess")}
+    out, spans = traced(lambda: run_nested(lambda x: -0.5 * (((x - 0.5) / SIGMA) ** 2).sum(-1), lambda u: u, 2, g,
+                                           rng=5, **kw))
+    n = {k: len(v) for k, v in spans.items()}
+    assert n["nested.step"] * FAMILY["n_batch"] == out.n_iter == FAMILY["max_iter"]
+    assert n["nested.walk_step"] == n["nested.step"] * FAMILY["n_repeat"]
+    assert n["nested.chunk"] == n["nested.readback"] == n["nested.evidence"] == 2
+    assert inside(spans["nested.walk_step"], spans["nested.step"]) == [1] * n["nested.walk_step"]
+    assert inside(spans["nested.step"], spans["nested.chunk"]) == [1] * n["nested.step"]
 
 
 @pytest.mark.parametrize("engine", ["family", "catalog"])
